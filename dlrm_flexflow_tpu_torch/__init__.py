@@ -1,0 +1,17 @@
+"""dlrm_flexflow_tpu_torch — the PyTorch/CUDA port of dlrm_flexflow_tpu.
+
+A second package beside the JAX one, held against it op by op. It
+imports torch and numpy and nothing of JAX or of ``dlrm_flexflow_tpu``.
+Its hand-written CUDA kernels (``csrc/``) replace the JAX package's
+Pallas TPU kernels and are built with nvcc at first use; on CPU tensors
+every kernel wrapper runs its plain PyTorch version instead.
+
+Ported so far: the DLRM serving path (``FFModel.forward_bucket`` under
+``serve.InferenceEngine``), in the "cat" and the fused "dot" interaction.
+"""
+
+from .config import FFConfig
+from .core.model import FFModel
+from .core.tensor import Tensor
+
+__all__ = ["FFConfig", "FFModel", "Tensor"]

@@ -1,0 +1,111 @@
+"""Run configuration and CLI parsing for the PyTorch/CUDA port.
+
+A subset of ``dlrm_flexflow_tpu.config.FFConfig``: the fields the serving
+slice reads, under the same flag spellings (``-b/--batch-size``,
+``--lr/--learning-rate``, ``--seed``, ``--compute-dtype``, the
+``--serve-*`` flags), plus ``device``. Unknown flags land in
+``unparsed``, as in the JAX package.
+
+``device`` defaults to ``"cuda"``. A config that asks for CUDA on a
+machine without a GPU raises at construction: the port never carries on
+quietly on the CPU. Pass ``device="cpu"`` (``--device cpu``) to run the
+plain PyTorch versions of the kernels there, as the tests do.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+import torch
+
+
+@dataclass
+class FFConfig:
+    batch_size: int = 64
+    learning_rate: float = 0.01
+    seed: int = 0
+    compute_dtype: str = "float32"     # or "bfloat16"
+    # ---- online serving (serve/engine.py InferenceEngine) -------------
+    serve_max_batch: int = 64
+    serve_max_delay_ms: float = 5.0
+    serve_queue: int = 256
+    serve_deadline_ms: float = 0.0
+    # the row cache, its warm start and the fleet are not ported yet;
+    # ServeConfig.from_config refuses a config that asks for them
+    serve_cache_rows: int = 0
+    serve_cache_warm: str = ""
+    serve_batching: str = "continuous"
+    serve_replicas: int = 1
+    device: str = "cuda"
+    unparsed: List[str] = field(default_factory=list)
+
+    def __post_init__(self):
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype expects float32|bfloat16, "
+                             f"got {self.compute_dtype!r}")
+        dev = torch.device(self.device)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"FFConfig(device={self.device!r}) but no CUDA device is "
+                f"available; pass device='cpu' (--device cpu) to run the "
+                f"plain PyTorch path on the CPU")
+
+    @property
+    def torch_compute_dtype(self) -> torch.dtype:
+        return (torch.bfloat16 if self.compute_dtype == "bfloat16"
+                else torch.float32)
+
+    @staticmethod
+    def parse_args(argv: Optional[List[str]] = None) -> "FFConfig":
+        import sys
+        argv = list(sys.argv[1:] if argv is None else argv)
+        kw = {"unparsed": []}
+        i = 0
+
+        def take():
+            nonlocal i
+            i += 1
+            if i >= len(argv):
+                raise ValueError(f"flag {argv[i - 1]!r} requires a value")
+            return argv[i]
+
+        while i < len(argv):
+            a = argv[i]
+            if a in ("-b", "--batch-size"):
+                kw["batch_size"] = int(take())
+            elif a in ("--lr", "--learning-rate"):
+                kw["learning_rate"] = float(take())
+            elif a == "--seed":
+                kw["seed"] = int(take())
+            elif a == "--compute-dtype":
+                kw["compute_dtype"] = take()
+            elif a == "--device":
+                kw["device"] = take()
+            elif a == "--serve-max-batch":
+                kw["serve_max_batch"] = int(take())
+            elif a == "--serve-max-delay-ms":
+                kw["serve_max_delay_ms"] = float(take())
+            elif a == "--serve-queue":
+                kw["serve_queue"] = int(take())
+            elif a == "--serve-deadline-ms":
+                kw["serve_deadline_ms"] = float(take())
+            elif a == "--serve-cache-rows":
+                kw["serve_cache_rows"] = int(take())
+            elif a == "--serve-cache-warm":
+                kw["serve_cache_warm"] = take()
+            elif a == "--serve-batching":
+                v = take()
+                if v not in ("continuous", "flush"):
+                    raise ValueError(f"--serve-batching expects "
+                                     f"continuous|flush, got {v!r}")
+                kw["serve_batching"] = v
+            elif a == "--serve-replicas":
+                kw["serve_replicas"] = int(take())
+                if kw["serve_replicas"] < 1:
+                    raise ValueError(f"--serve-replicas expects N >= 1, "
+                                     f"got {kw['serve_replicas']}")
+            else:
+                kw["unparsed"].append(a)
+            i += 1
+        return FFConfig(**kw)

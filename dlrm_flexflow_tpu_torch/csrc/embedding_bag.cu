@@ -1,0 +1,86 @@
+// Embedding-bag gather for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel _bag_kernel
+// (dlrm_flexflow_tpu/ops/pallas/embedding_kernel.py:55), entered there
+// through embedding_bag and stacked_embedding_bag.
+//
+// Computes, for every output row r of n_out:
+//   out[r] = sum over j < bag of table[ids[r, j]]   (mode sum)
+//   out[r] = (that sum) / bag                       (mode mean)
+// with the sum taken in fp32 in bag order. The table is the T tables of
+// a stacked op viewed as one (T*N, d) table; ids arrive already wrapped
+// into [0, N) and offset by t*N (the wrapper does that), so every id is
+// a row of the flat table.
+//
+// Bound: memory. Each output row reads bag random rows of d*4 bytes and
+// writes d*4 bytes; there is one add per element read. On an H100 the
+// least time is (n_out*bag*d*4 + n_out*d*4 + n_out*bag*8) / 3.35 TB/s.
+//
+// Design: one thread per 16-byte column chunk of an output row, so the
+// d/4 neighbouring threads of a row load the row's d*4 bytes as float4s
+// on neighbouring addresses (one 256-byte row at d=64 is 16 lanes, two
+// rows per warp). The TPU kernel's deep DMA pipeline has no counterpart:
+// many warps in flight on each SM hide the latency of the random row
+// reads. Unlike the TPU kernel, which needs d % 128 == 0, any d that is
+// a multiple of 4 works.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__global__ void __launch_bounds__(kThreads)
+bag_kernel(const float4* __restrict__ table,
+           const int64_t* __restrict__ ids,
+           float4* __restrict__ out,
+           int64_t n_out, int bag, int vec_per_row, int mean) {
+  const int64_t g = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (g >= n_out * vec_per_row) return;
+  const int64_t row = g / vec_per_row;
+  const int c = (int)(g - row * vec_per_row);
+  const int64_t* rid = ids + row * bag;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int j = 0; j < bag; ++j) {
+    const float4 v = __ldg(table + rid[j] * vec_per_row + c);
+    acc.x += v.x;
+    acc.y += v.y;
+    acc.z += v.z;
+    acc.w += v.w;
+  }
+  if (mean) {
+    const float n = (float)bag;
+    acc.x /= n;
+    acc.y /= n;
+    acc.z /= n;
+    acc.w /= n;
+  }
+  out[g] = acc;
+}
+
+}  // namespace
+
+extern "C" {
+
+// table: (rows, dim) fp32; ids: (n_out, bag) int64 in [0, rows);
+// out: (n_out, dim) fp32. dim % 4 == 0 and 16-byte aligned pointers
+// (the wrapper checks). Launches on `stream`; returns cudaGetLastError().
+int ff_embedding_bag_forward(const void* table, const void* ids, void* out,
+                             long long n_out, int bag, int dim, int mean,
+                             void* stream) {
+  if (n_out <= 0) return 0;
+  const int vec = dim / 4;
+  const long long total = n_out * vec;
+  const long long blocks = (total + kThreads - 1) / kThreads;
+  bag_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float4*)table, (const int64_t*)ids, (float4*)out, n_out, bag,
+      vec, mean);
+  return (int)cudaGetLastError();
+}
+
+const char* ff_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

@@ -1,0 +1,82 @@
+"""Embedding-bag gather: the Hopper kernel and its plain version.
+
+Replaces the Pallas TPU kernel ``_bag_kernel``
+(dlrm_flexflow_tpu/ops/pallas/embedding_kernel.py:55) and its stacked
+entry ``stacked_embedding_bag``. The CUDA source,
+``csrc/embedding_bag.cu``, states the kernel's bound (memory: the
+random row reads) and its design (one thread per float4 column chunk,
+neighbouring threads on neighbouring addresses).
+
+``embedding_bag`` takes a CPU tensor to the plain version
+``embedding_bag_reference`` and launches the kernel for a CUDA tensor —
+it raises there if the kernel cannot be built or launched, and never
+falls back. ``embedding_bag.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+
+_SIGNATURES = {
+    "ff_embedding_bag_forward": (
+        (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_void_p),
+        ctypes.c_int),
+}
+
+
+def embedding_bag_reference(table: torch.Tensor, ids: torch.Tensor,
+                            aggr: str = "sum") -> torch.Tensor:
+    """Plain PyTorch version: gather, then sum (or mean) over the bag dim
+    in fp32, cast to the table's dtype — the oracle of the JAX package's
+    ``embedding_bag_reference``."""
+    out = table[ids.long()].sum(dim=-2, dtype=torch.float32)
+    if aggr == "avg":
+        out = out / ids.shape[-1]
+    return out.to(table.dtype)
+
+
+def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
+                  aggr: str = "sum") -> torch.Tensor:
+    """table (rows, d), ids (n, bag) int in [0, rows) -> (n, d): the sum,
+    or for ``aggr="avg"`` the mean, of each bag's rows."""
+    if aggr not in ("sum", "avg"):
+        raise ValueError(f"embedding_bag aggr expects sum|avg, got {aggr!r}")
+    if ids.dim() != 2 or table.dim() != 2:
+        raise ValueError(f"embedding_bag expects table (rows, d) and ids "
+                         f"(n, bag), got {tuple(table.shape)} and "
+                         f"{tuple(ids.shape)}")
+    if table.device.type == "cpu":
+        return embedding_bag_reference(table, ids, aggr)
+    if table.device.type != "cuda":
+        raise ValueError(f"embedding_bag runs on cpu or cuda, not "
+                         f"{table.device}")
+    n, bag = ids.shape
+    d = table.shape[1]
+    if table.dtype != torch.float32 or ids.dtype != torch.int64:
+        raise ValueError(f"embedding_bag kernel takes a float32 table and "
+                         f"int64 ids, got {table.dtype} and {ids.dtype}")
+    if ids.device != table.device:
+        raise ValueError(f"ids on {ids.device}, table on {table.device}")
+    if d % 4 or not table.is_contiguous() or table.data_ptr() % 16:
+        raise ValueError("embedding_bag kernel needs a contiguous, 16-byte "
+                         f"aligned table with d % 4 == 0 (d={d})")
+    ids = ids.contiguous()
+    out = torch.empty((n, d), dtype=table.dtype, device=table.device)
+    if n == 0:
+        return out
+    lib = build.load("embedding_bag", _SIGNATURES)
+    err = lib.ff_embedding_bag_forward(
+        table.data_ptr(), ids.data_ptr(), out.data_ptr(), n, bag, d,
+        int(aggr == "avg"), build.stream_of(table))
+    build.check(lib, err, "embedding_bag kernel")
+    embedding_bag.launches += 1
+    return out
+
+
+embedding_bag.launches = 0

@@ -1,0 +1,60 @@
+"""Shape operators: Concat and Reshape (the counterparts of
+``dlrm_flexflow_tpu.ops.tensor_ops``; Split, Flat, Transpose,
+IndexSelect and Reverse are not ported yet)."""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from ..core.op import Op
+
+
+class Concat(Op):
+    type_name = "Concat"
+
+    def __init__(self, model, inputs, axis: int, name: Optional[str] = None):
+        super().__init__(model, inputs, name)
+        nd = inputs[0].num_dims
+        self.axis = axis % nd
+        for t in inputs[1:]:
+            if t.num_dims != nd:
+                raise ValueError("concat rank mismatch")
+            for d in range(nd):
+                if d != self.axis and t.shape[d] != inputs[0].shape[d]:
+                    raise ValueError(f"concat shape mismatch on dim {d}")
+        out_shape = list(inputs[0].shape)
+        out_shape[self.axis] = sum(t.shape[self.axis] for t in inputs)
+        self.outputs = [self._make_output(out_shape, inputs[0].dtype)]
+
+    def apply(self, params, xs):
+        return [torch.cat(xs, dim=self.axis)]
+
+
+class Reshape(Op):
+    """Total element count must match."""
+
+    type_name = "Reshape"
+
+    def __init__(self, model, input_tensor, shape, name: Optional[str] = None):
+        super().__init__(model, [input_tensor], name)
+        shape = tuple(int(s) for s in shape)
+        if math.prod(shape) != math.prod(input_tensor.shape):
+            raise ValueError(
+                f"reshape {input_tensor.shape} -> {shape}: element count "
+                f"mismatch")
+        self.outputs = [self._make_output(shape, input_tensor.dtype)]
+
+    def apply(self, params, xs):
+        (x,) = xs
+        shape = self.outputs[0].shape
+        if (x.shape[0] != shape[0]
+                and math.prod(x.shape[1:]) == math.prod(shape[1:])):
+            # sample-dim polymorphism: the graph bakes the build-time
+            # batch into the target shape, but serving runs other batch
+            # sizes; a reshape that keeps the per-sample element count
+            # re-derives its target against the live batch
+            shape = (x.shape[0],) + tuple(shape[1:])
+        return [x.reshape(shape)]

@@ -1,0 +1,70 @@
+"""The port stands alone: it imports neither JAX nor the JAX package.
+
+The test process has imported both already (tests/conftest.py imports
+the JAX package for every test), so the import check runs in a fresh
+subprocess. An AST scan of every source of the port, and of
+``chip_smoke.py``, finds no import of either. ``chip_smoke.py`` run
+without a GPU fails and prints no result.
+"""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "dlrm_flexflow_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "dlrm_flexflow_tpu")
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO)
+    return env
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, dlrm_flexflow_tpu_torch\n"
+            "import dlrm_flexflow_tpu_torch.serve\n"
+            "import dlrm_flexflow_tpu_torch.models.dlrm\n"
+            "import dlrm_flexflow_tpu_torch.utils.weights\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+@pytest.mark.parametrize("path", sorted(
+    [p for p in PORT.rglob("*.py")] + [REPO / "chip_smoke.py"]),
+    ids=lambda p: str(p.relative_to(REPO)))
+def test_sources_import_no_jax(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_chip_smoke_without_gpu_fails_without_result():
+    env = _env()
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    for line in r.stdout.splitlines():
+        if line.startswith("{"):
+            assert not json.loads(line).get("ok"), line
