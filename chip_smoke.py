@@ -8,18 +8,41 @@ Run from the root of a checkout, with one card visible:
 Phases:
 
 1. device — the card's name and power limit, as nvidia-smi reports them;
-2. build — every CUDA kernel of the serving path, compiled from
-   ``dlrm_flexflow_tpu_torch/csrc`` with nvcc for sm_90a, one nvcc per
-   source, all started together;
-3. kernels — each kernel at the serving path's full-width shapes
-   (B=2048, T=8, bag=1, d=64, 8M-row table; H=1024 for the interaction)
-   against its plain PyTorch version on the same inputs, then timed
-   beside its bound, the plain version and, where one PyTorch call
-   computes the same function, that call: device time from the
-   profiler's trace, and the time of back-to-back calls between CUDA
-   events, which the host's launch rate bounds;
-4. serve — the full-width ``DLRMConfig.random_benchmark()`` model in the
-   "cat" graph and in the fused "dot" graph, each behind
+2. build — every CUDA kernel of the serving and training paths, compiled
+   from ``dlrm_flexflow_tpu_torch/csrc`` with nvcc for sm_90a, one nvcc
+   per source, all started together;
+3. train — the full-width ``DLRMConfig.random_benchmark()`` model in the
+   "cat" graph and in the fused "dot" graph, fp32, batch 256, timed
+   first, before the process's first profiler session (a session leaves
+   the host's launch path slower for the rest of the process):
+   ``compile(SGDOptimizer(lr=0.01), "mean_squared_error", ["mse"])``,
+   ``init_layers``, one staged ``synthetic_batch``, a few warmup steps,
+   then 20 ``train_batch_device`` steps back to back, timed as one
+   window that ends in a synchronisation, with every launch count at 0
+   just before and read just after: the write-only scatter must launch
+   on "cat" (the touched-rows update), the read-modify-write scatter on
+   "dot" (its dense table gradient), and no plain version may run. The
+   loss must be finite and fall; on "cat" a sample of untouched table
+   rows must stay bitwise. Ten steps run one at a time give a step's
+   wall time alone, and a second window of 20 a second read of the
+   back-to-back step (the host's speed drifts within a run); ten steps
+   under the profiler give the device's busy time, its idle share of
+   the back-to-back step, and (traced a second time with the host) the
+   host's top ops. One step on the card must equal the same step on the
+   CPU from the same weights and batch, at a reduced 8 × 65,536 rows
+   (all widths full) so the CPU copy stays small;
+4. kernels — each kernel at its path's full-width shapes against its
+   plain PyTorch version on the same inputs, then timed beside its
+   bound, the plain version and, where one PyTorch call computes the
+   same function, that call: device time from the profiler's trace, and
+   the time of back-to-back calls between CUDA events, which the host's
+   launch rate bounds. The bag and the interaction at the serving shape
+   (B=2048, T=8, bag=1, d=64, 8M-row table; H=1024); the two scatter
+   kernels on the same table at the training step's n = 2,048 lookups
+   and at n = 16,384, with duplicate ids, held bitwise to their plain
+   versions run on the CPU (on the card the plain version adds
+   duplicates with atomics, in no fixed order);
+5. serve — the same model in both graphs, each behind
    ``InferenceEngine(ServeConfig(max_batch=256))`` taking a few dozen
    requests of 1-64 rows from 4 threads. Every kernel's launch count is
    set to 0 just before each run and read just after; the kernel of that
@@ -45,11 +68,13 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from dlrm_flexflow_tpu_torch import FFConfig, FFModel
+from dlrm_flexflow_tpu_torch.core.optimizers import SGDOptimizer
 from dlrm_flexflow_tpu_torch.models.dlrm import (DLRMConfig, build_dlrm,
                                                  synthetic_batch)
 from dlrm_flexflow_tpu_torch.ops.kernels import build
 from dlrm_flexflow_tpu_torch.ops.kernels import embedding_bag as bag_mod
 from dlrm_flexflow_tpu_torch.ops.kernels import interaction as inter_mod
+from dlrm_flexflow_tpu_torch.ops.kernels import scatter_rows as scat_mod
 from dlrm_flexflow_tpu_torch.serve import InferenceEngine, ServeConfig
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and the
@@ -60,6 +85,10 @@ SEED = 0
 B, T, BAG, D, ROWS, H = 2048, 8, 1, 64, 1_000_000, 1024
 ID_SETS = 20     # distinct id batches cycled while timing: 80 MB of rows,
 #                  more than the 50 MB L2, as live traffic would touch
+LR = 0.01            # the training step's SGD rate (examples/native/dlrm.py)
+TRAIN_B = 256        # per-chip training batch (bench.py)
+TRAIN_STEPS = 20
+CHECK_ROWS = 65_536  # rows per table of the card-versus-CPU step check
 
 
 class SmokeFailure(Exception):
@@ -79,12 +108,13 @@ def device_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def time_ms(fn, arg_sets, iters=60, warmup=6):
+def time_ms(fn, arg_sets, iters=60, warmup=6, match=None):
     """(device ms, call ms) per call over `iters` calls cycling
     `arg_sets`, after a warmup. Device ms is the summed time of every
-    kernel the calls ran, from the profiler's CUPTI trace; call ms is
-    the span of back-to-back calls between two CUDA events, which the
-    host's launch rate bounds when the calls are short."""
+    kernel the calls ran (only those whose name holds `match`, when
+    given), from the profiler's CUPTI trace; call ms is the span of
+    back-to-back calls between two CUDA events, which the host's launch
+    rate bounds when the calls are short."""
     for i in range(warmup):
         fn(*arg_sets[i % len(arg_sets)])
     torch.cuda.synchronize()
@@ -100,7 +130,8 @@ def time_ms(fn, arg_sets, iters=60, warmup=6):
         for i in range(iters):
             fn(*arg_sets[i % len(arg_sets)])
         torch.cuda.synchronize()
-    device_us = sum(e.self_device_time_total for e in prof.key_averages())
+    device_us = sum(e.self_device_time_total for e in prof.key_averages()
+                    if match is None or match in e.key)
     check(device_us > 0, "the profiler recorded no device time")
     return device_us / 1e3 / iters, call_ms
 
@@ -194,7 +225,85 @@ def kernel_phase(dev):
               f"{fmt('library_call_ms')}), bound "
               f"{1e3 * r['bound_ms']:.2f} us ({r['bound_by']}), max abs "
               f"err {r['max_abs_err']:.3g}")
+    rows.update(scatter_kernels(dev, gen, table))
     return rows
+
+
+def scatter_kernels(dev, gen, table):
+    """Kernels 3 and 4 on the 8M-row table at n = 2,048 lookups (the
+    training step's, whose numbers the kernels' rows carry) and at
+    n = 16,384; the first 8 ids of every set are equal."""
+    rows = {}
+    src = "dlrm_flexflow_tpu_torch/csrc/scatter_rows.cu"
+    pallas = "dlrm_flexflow_tpu/ops/pallas/embedding_kernel.py"
+    # 60 sets of 2,048 (or 20 of 16,384) lookups: 90 (240) MB of rows,
+    # updates and residuals cycled, more than the 50 MB L2
+    for n, nsets in ((TRAIN_B * T * BAG, 60), (B * T * BAG, ID_SETS)):
+        sets = []
+        for _ in range(nsets):
+            ids = torch.randint(0, T * ROWS, (n,), device=dev, generator=gen)
+            ids[:8] = ids[0].clone()
+            upd = torch.randn(n, D, device=dev, generator=gen)
+            sets.append((ids, upd, table[ids], -LR * upd))
+        ids, upd, fwd, _ = sets[0]
+        table_cpu = table.cpu()     # the timing below writes into table
+        uniq = torch.unique(ids)
+        m = int(uniq.numel())
+        cpu_args = (ids.cpu(), upd.cpu(), fwd.cpu())
+        for name, with_fwd, line in (("scatter_add_rows", False, 289),
+                                     ("scatter_write_rows", True, 495)):
+            kern = getattr(scat_mod, name)
+            plain = getattr(scat_mod, name + "_reference")
+
+            def call(fn, t, ids, upd, fwd, *_, with_fwd=with_fwd):
+                if with_fwd:
+                    return fn(t, ids, upd, fwd, -LR)
+                return fn(t, ids, upd, -LR)
+
+            got = call(kern, table.clone(), ids, upd, fwd)
+            want = call(plain, table_cpu.clone(), *cpu_args)
+            got_rows, want_rows = got[uniq].cpu(), want[uniq.cpu()]
+            err = float((got_rows - want_rows).abs().max())
+            # both scale first, then sum a row's duplicates in lookup order
+            check(torch.equal(got_rows, want_rows),
+                  f"{name} kernel disagrees with its plain version at "
+                  f"n={n}: {err}")
+            got[uniq] = table[uniq]
+            check(torch.equal(got, table),
+                  f"{name} kernel changed rows it was not given (n={n})")
+            del got, want
+            # the function reads the ids, the updates and one table (or
+            # forward) row per distinct row, and writes that row
+            b_ms, b_by = bound(n * 8 + n * D * 4 + 2 * m * D * 4, 2 * n * D)
+            scratch = table        # timing only: its values no longer matter
+            r = {"name": name, "route": "cuda", "source": src,
+                 "replaces": f"{pallas}:{line}", "max_abs_err": err,
+                 "bound_ms": b_ms, "bound_by": b_by,
+                 **timed("", lambda *a: call(kern, scratch, *a), sets),
+                 **timed("plain_", lambda *a: call(plain, scratch, *a),
+                         sets),
+                 **timed("library_", lambda ids, _u, _f, scaled:
+                         scratch.index_add_(0, ids, scaled), sets)}
+            r["kernel_only_ms"] = time_ms(
+                lambda *a: call(kern, scratch, *a), sets,
+                match="scatter_rows_kernel")[0]
+            print(f"kernel {name} at n={n} ({m} distinct rows): device "
+                  f"{r['ms']:.4f} ms, of it the scatter kernel "
+                  f"{r['kernel_only_ms']:.4f} ms and the stable sort the "
+                  f"rest (call {r['call_ms']:.4f} ms); plain "
+                  f"{r['plain_ms']:.4f} ms (call {r['plain_call_ms']:.4f} "
+                  f"ms); index_add_ {r['library_ms']:.4f} ms (call "
+                  f"{r['library_call_ms']:.4f} ms); bound "
+                  f"{1e3 * b_ms:.2f} us ({b_by}); max abs err {err:.3g}")
+            if n == TRAIN_B * T * BAG:
+                rows[name] = r
+        del sets
+    return rows
+
+
+# every kernel wrapper of the port, each counting its own launches
+LAUNCHED = (bag_mod.embedding_bag, inter_mod.fused_interaction,
+            scat_mod.scatter_add_rows, scat_mod.scatter_write_rows)
 
 
 class PlainCalls:
@@ -207,7 +316,9 @@ class PlainCalls:
 
     def __enter__(self):
         for mod, name in ((bag_mod, "embedding_bag_reference"),
-                          (inter_mod, "fused_interaction_reference")):
+                          (inter_mod, "fused_interaction_reference"),
+                          (scat_mod, "scatter_add_rows_reference"),
+                          (scat_mod, "scatter_write_rows_reference")):
             real = getattr(mod, name)
 
             def counted(*a, _real=real, **kw):
@@ -250,8 +361,8 @@ def serve_phase(mode):
     errors = []
 
     # the main path: every count at 0 just before, read just after
-    bag_mod.embedding_bag.launches = 0
-    inter_mod.fused_interaction.launches = 0
+    for k in LAUNCHED:
+        k.launches = 0
     with PlainCalls() as plain:
         engine = InferenceEngine(model, ServeConfig(max_batch=256))
         with engine:
@@ -273,8 +384,7 @@ def serve_phase(mode):
                 t.join(300)
             wall = time.perf_counter() - t0
             stats = engine.stats()
-    launches = {"embedding_bag": bag_mod.embedding_bag.launches,
-                "fused_interaction": inter_mod.fused_interaction.launches}
+    launches = {k.__name__: k.launches for k in LAUNCHED}
     check(not errors and not any(t.is_alive() for t in threads),
           f"{mode}: requests failed: {errors[:3]}")
     check(len(results) == len(spans), f"{mode}: missing responses")
@@ -340,6 +450,174 @@ def serve_phase(mode):
     return launches
 
 
+def train_config(mode, rows=ROWS):
+    cfg = DLRMConfig.random_benchmark()
+    cfg.embedding_size = [rows] * T
+    if mode == "dot":
+        cfg.arch_interaction_op = "dot"
+        cfg.mlp_top = [D + (T + 1) * T // 2] + cfg.mlp_top[1:]
+    return cfg
+
+
+def train_model(mode, device, rows=ROWS):
+    cfg = train_config(mode, rows)
+    model = FFModel(FFConfig(batch_size=TRAIN_B, seed=SEED, device=device))
+    build_dlrm(model, cfg, fuse_interaction=mode == "dot")
+    model.compile(SGDOptimizer(lr=LR), "mean_squared_error", ["mse"])
+    return model, cfg
+
+
+def train_timed(mode):
+    """Build, stage and time the full-width model of one graph. Runs
+    before the process's first profiler session: a session leaves the
+    host's launch path slower for the rest of the process (see PERF.md),
+    and this timing is the host's. Returns the run's state for
+    ``train_report``."""
+    model, cfg = train_model(mode, "cuda")
+    model.init_layers()
+    x, y = synthetic_batch(cfg, TRAIN_B, seed=SEED + 3)
+    x["label"] = y
+    run = {"mode": mode, "model": model, "db": model._device_batch(x)}
+    db = run["db"]
+    if mode == "cat":
+        # a sample of table rows the batch never looks up
+        table = model.params["emb_stack"]["kernel"].view(T * ROWS, D)
+        gids = (torch.as_tensor(x["sparse"][:, :, 0], device="cuda")
+                + torch.arange(T, device="cuda") * ROWS).reshape(-1)
+        sample = torch.randint(0, T * ROWS, (4096,), device="cuda",
+                               generator=torch.Generator(
+                                   device="cuda").manual_seed(SEED))
+        sample = sample[~torch.isin(sample, gids)]
+        run["untouched"] = (table, sample, table[sample].clone())
+    losses = [model.train_batch_device(db)["loss"] for _ in range(3)]
+    torch.cuda.synchronize()
+
+    def window():
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            losses.append(model.train_batch_device(db)["loss"])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+
+    # the main path: every count at 0 just before, read just after. The
+    # steps run back to back, as a training loop runs them, and the one
+    # synchronisation at the end closes the window
+    for k in LAUNCHED:
+        k.launches = 0
+    with PlainCalls() as plain:
+        windows = [window()]
+    run["launches"] = {k.__name__: k.launches for k in LAUNCHED}
+    run["plain_calls"] = plain.calls
+    # one step alone, from an idle device to its end: what a step costs
+    # when nothing overlaps it with the next one's launches
+    walls = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        model.train_batch_device(db)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    # a second window after them: the host's speed drifts within a run
+    windows.append(window())
+    run.update(windows=windows, walls=walls,
+               losses=[float(v) for v in losses])
+    return run
+
+
+def train_report(run):
+    """Check one timed run, profile ten more steps, print, and hold one
+    step against the CPU; returns the kernels' launch counts over the
+    main path's 20 steps."""
+    mode, model, db = run["mode"], run["model"], run["db"]
+    launches, losses = run["launches"], run["losses"]
+    kernel = "scatter_add_rows" if mode == "dot" else "scatter_write_rows"
+    check(launches[kernel] > 0,
+          f"train {mode}: the {kernel} kernel never launched")
+    check(run["plain_calls"] == 0,
+          f"train {mode}: a plain version ran {run['plain_calls']} times")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"train {mode}: loss {losses[0]} -> {losses[-1]}")
+    if mode == "cat":
+        table, sample, before = run.pop("untouched")
+        check(sample.numel() > 4000
+              and torch.equal(table[sample], before),
+              "train cat: untouched table rows changed")
+
+    reps = 10
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            model.train_batch_device(db)
+        torch.cuda.synchronize()
+    per_kernel = sorted(((e.self_device_time_total / reps, e.key)
+                         for e in prof.key_averages()), reverse=True)
+    dev_ms = sum(us for us, _ in per_kernel) / 1e3
+    top = ", ".join(f"{k[:40]} {us:.1f} us" for us, k in per_kernel[:5])
+    # where the host's time goes: the same steps with the host traced too
+    # (tracing slows the host, so these times are inflated)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as hprof:
+        for _ in range(reps):
+            model.train_batch_device(db)
+        torch.cuda.synchronize()
+    host = sorted(((e.self_cpu_time_total / reps, e.key)
+                   for e in hprof.key_averages()), reverse=True)
+    print(f"train {mode}: host per step, traced: " + ", ".join(
+        f"{k[:32]} {us:.0f} us" for us, k in host[:8]))
+    windows, walls = run["windows"], run["walls"]
+    step_ms = float(np.mean(windows))
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items() if v}
+    print(f"train {mode}: {TRAIN_STEPS} steps back to back "
+          f"{windows[0]:.3f} / {windows[1]:.3f} ms/step (two windows), "
+          f"{TRAIN_B / step_ms * 1e3:.1f} samples/s; one step "
+          f"alone {np.median(walls):.3f} ms median (min {min(walls):.3f}, "
+          f"max {max(walls):.3f}); device busy {dev_ms:.3f} ms/step, idle "
+          f"{100 * (1 - dev_ms / step_ms):.1f}% of the back-to-back step; "
+          f"launches per step {per_step}; loss {losses[0]:.6f} -> "
+          f"{losses[-1]:.6f}; top: {top}")
+    run.clear()
+    del model, db
+    torch.cuda.empty_cache()
+    card_vs_cpu_step(mode)
+    return launches
+
+
+def card_vs_cpu_step(mode):
+    """One step on the card against the same step on the CPU, from the
+    same weights and batch, at 8 × 65,536 rows (all widths full)."""
+    gpu, cfg = train_model(mode, "cuda", CHECK_ROWS)
+    gpu.init_layers()
+    cpu, _ = train_model(mode, "cpu", CHECK_ROWS)
+    cpu.swap_params({op: {n: v.cpu() for n, v in p.items()}
+                     for op, p in gpu.params.items()})
+    init = {op: {n: v.clone() for n, v in p.items()}
+            for op, p in cpu.params.items()}
+    x, y = synthetic_batch(cfg, TRAIN_B, seed=SEED + 4)
+    x["label"] = y
+    lg = float(gpu.train_batch(x)["loss"])
+    lc = float(cpu.train_batch(x)["loss"])
+    check(abs(lg - lc) <= 1e-5 * abs(lc),
+          f"train {mode}: card loss {lg} vs cpu {lc}")
+    # cuBLAS and the CPU's BLAS sum the products in other orders; a relu
+    # unit whose input lies within that rounding of 0 can take the other
+    # branch on one side, which changes that unit's gradient for that
+    # sample outright: each update within 10 % of its parameter's largest
+    worst = 0.0
+    for op, p in cpu.params.items():
+        for n, v in p.items():
+            dc = v - init[op][n]
+            dg = gpu.params[op][n].cpu() - init[op][n]
+            scale = float(dc.abs().max())
+            check(scale > 0, f"train {mode}: {op}.{n} did not move")
+            ratio = float((dg - dc).abs().max()) / scale
+            worst = max(worst, ratio)
+            check(ratio <= 0.1, f"train {mode}: {op}.{n} update differs "
+                  f"from the CPU's by {ratio:.3g} of its largest")
+    print(f"train {mode}: card vs cpu step ({CHECK_ROWS} rows per table): "
+          f"loss {lg:.7f} / {lc:.7f}; worst update error "
+          f"{worst:.3g} of its parameter's largest update")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -360,13 +638,21 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
+    # training is timed first, before any profiler session
+    runs = [train_timed(mode) for mode in ("cat", "dot")]
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    for run in runs:
+        add(train_report(run))
+    del runs
     rows = kernel_phase(dev)
     torch.cuda.empty_cache()
-
-    launches = {}
     for mode in ("cat", "dot"):
-        got = serve_phase(mode)
-        launches.update({k: v for k, v in got.items() if v})
+        add(serve_phase(mode))
     for name, r in rows.items():
         r["launches"] = launches.get(name, 0)
         check(r["launches"] > 0, f"{name} never launched on the main path")

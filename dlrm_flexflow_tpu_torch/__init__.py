@@ -7,7 +7,9 @@ Pallas TPU kernels and are built with nvcc at first use; on CPU tensors
 every kernel wrapper runs its plain PyTorch version instead.
 
 Ported so far: the DLRM serving path (``FFModel.forward_bucket`` under
-``serve.InferenceEngine``), in the "cat" and the fused "dot" interaction.
+``serve.InferenceEngine``) and the DLRM SGD training step
+(``FFModel.train_batch_device`` and ``fit``), in the "cat" and the fused
+"dot" interaction.
 """
 
 from .config import FFConfig

@@ -1,10 +1,13 @@
 """Run configuration and CLI parsing for the PyTorch/CUDA port.
 
 A subset of ``dlrm_flexflow_tpu.config.FFConfig``: the fields the serving
-slice reads, under the same flag spellings (``-b/--batch-size``,
-``--lr/--learning-rate``, ``--seed``, ``--compute-dtype``, the
-``--serve-*`` flags), plus ``device``. Unknown flags land in
-``unparsed``, as in the JAX package.
+and training slices read, under the same flag spellings
+(``-e/--epochs``, ``-b/--batch-size``, ``--lr/--learning-rate``,
+``--wd/--weight-decay``, ``--seed``, ``--compute-dtype``,
+``--dense-embedding-update``, the ``--serve-*`` flags), plus ``device``.
+Unknown flags land in ``unparsed``, as in the JAX package. The flags of
+the training runtime that is not ported yet (checkpoints, supersteps,
+the anomaly sentinel, prefetch) raise ``NotImplementedError``.
 
 ``device`` defaults to ``"cuda"``. A config that asks for CUDA on a
 machine without a GPU raises at construction: the port never carries on
@@ -20,12 +23,27 @@ from typing import List, Optional
 import torch
 
 
+# flags of the JAX package's training runtime that the port refuses
+_RUNTIME_FLAGS = ("--checkpoint-dir", "--save-every", "--keep-last",
+                  "--superstep", "--anomaly-policy", "--prefetch-depth",
+                  "--no-prefetch")
+
+
 @dataclass
 class FFConfig:
+    epochs: int = 1
     batch_size: int = 64
     learning_rate: float = 0.01
+    # the default optimizer's decay (compile() without an optimizer);
+    # non-zero decay makes the sparse table update stateful, which the
+    # port does not take yet (ROADMAP queue 1 item 3)
+    weight_decay: float = 0.0001
     seed: int = 0
     compute_dtype: str = "float32"     # or "bfloat16"
+    # plain SGD updates only the gathered embedding rows (the touched-rows
+    # scatter kernels) instead of a table-sized dense gradient; disable
+    # with --dense-embedding-update
+    sparse_embedding_update: bool = True
     # ---- online serving (serve/engine.py InferenceEngine) -------------
     serve_max_batch: int = 64
     serve_max_delay_ms: float = 5.0
@@ -72,10 +90,21 @@ class FFConfig:
 
         while i < len(argv):
             a = argv[i]
-            if a in ("-b", "--batch-size"):
+            if a in ("-e", "--epochs"):
+                kw["epochs"] = int(take())
+            elif a in ("-b", "--batch-size"):
                 kw["batch_size"] = int(take())
             elif a in ("--lr", "--learning-rate"):
                 kw["learning_rate"] = float(take())
+            elif a in ("--wd", "--weight-decay"):
+                kw["weight_decay"] = float(take())
+            elif a == "--dense-embedding-update":
+                kw["sparse_embedding_update"] = False
+            elif a in _RUNTIME_FLAGS:
+                raise NotImplementedError(
+                    f"{a}: checkpoints, supersteps, the anomaly sentinel "
+                    f"and prefetch are not ported yet (ROADMAP queue 1 "
+                    f"item 6)")
             elif a == "--seed":
                 kw["seed"] = int(take())
             elif a == "--compute-dtype":

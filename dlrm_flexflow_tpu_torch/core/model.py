@@ -1,17 +1,34 @@
-"""FFModel: graph construction, parameter init and the serving forward.
+"""FFModel: graph construction, parameter init, the serving forward and
+the training step.
 
 The counterpart of ``dlrm_flexflow_tpu.core.model.FFModel``, cut to the
-serving slice: the op builders the DLRM graph uses, ``compile`` (records
-the optimizer, loss and metrics; the training step is not ported yet),
-``init_layers``, ``forward_batch`` and the bucketed serving entries, and
-``swap_params``. Op names, parameter names and parameter layouts follow
-the JAX graph, so ``utils.weights.params_from_jax`` can carry a JAX
-model's weights across by name.
+serving and training slices: the op builders the DLRM graph uses,
+``compile``, ``init_layers``, ``forward_batch`` and the bucketed serving
+entries, ``swap_params``, and training: ``train_batch``,
+``train_batch_device``, ``reset_metrics`` and ``fit``. Op names,
+parameter names and parameter layouts follow the JAX graph, so
+``utils.weights.params_from_jax`` can carry a JAX model's weights
+across by name.
 
 There is no mesh and no jit: the graph runs eagerly on
-``config.device``, op by op, under ``torch.inference_mode``. On a CUDA
-device the embedding and interaction ops launch their hand-written
-kernels; on the CPU they run the kernels' plain versions.
+``config.device``, op by op — serving under ``torch.inference_mode``,
+training under autograd. On a CUDA device the embedding and interaction
+ops launch their hand-written kernels; on the CPU they run the kernels'
+plain versions.
+
+The training step mirrors the JAX ``train_step`` (core/model.py:996-1159
+there). Under plain SGD the embedding ops that support it take the
+touched-rows update: phase A, without grad, evaluates their ancestors
+and their lookups through ``apply_with_fwd``, which keeps the gathered
+rows; phase B runs the graph with the lookups' outputs as autograd
+leaves and differentiates the loss w.r.t. the dense parameters and those
+outputs, so the tables never enter autograd; then the dense parameters
+take the optimizer's update and the tables ``sparse_sgd_update``. When
+no op takes the sparse update (the fused "dot" graph keeps its table in
+a non-sparse op; ``sparse_embedding_update=False``), phase A is empty
+and the one autograd pass covers every parameter. Parameters and
+optimizer state are updated IN PLACE, where the JAX step returns new
+arrays and donates the old ones.
 """
 
 from __future__ import annotations
@@ -23,7 +40,10 @@ import numpy as np
 import torch
 
 from ..config import FFConfig
+from . import losses as losses_mod
+from . import metrics as metrics_mod
 from .op import InputOp, Op
+from .optimizers import SGDOptimizer
 from .tensor import Tensor
 
 
@@ -46,9 +66,14 @@ class FFModel:
         self.loss_type: Optional[str] = None
         self.metrics: List[str] = []
         self._preds_tensor: Optional[Tensor] = None
+        self._sparse_ops: Optional[List[Op]] = None  # resolved at 1st step
         # set by init_layers() / swap_params()
         self.params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
+        self.opt_state = None                        # built at 1st step
         self._step = 0
+        # running metric sums of the epoch, 0-d tensors on self.device
+        self.perf = metrics_mod.PerfMetrics()
+        self._msums: Optional[Dict[str, torch.Tensor]] = None
 
     # ------------------------------------------------------------------
     # graph construction
@@ -128,17 +153,25 @@ class FFModel:
                 loss_type: str = "mean_squared_error",
                 metrics: Sequence[str] = ("mean_squared_error",),
                 final_tensor: Optional[Tensor] = None):
-        """Record the optimizer, loss and metrics and fix the output
-        tensor. The training step is not ported yet, so nothing here
-        builds one."""
+        """Fix the optimizer (default, as in the JAX package: SGD at
+        ``config.learning_rate`` with ``config.weight_decay``), the loss,
+        the metrics and the output tensor. Which ops take the
+        touched-rows update is resolved at the first training step, and
+        a stateful optimizer over such an op raises there — so a serving
+        model compiled with the defaults never does."""
         ops = [op for op in self.ops if not isinstance(op, InputOp)]
         if not ops:
             raise ValueError("compile() needs at least one op")
-        self.optimizer = optimizer
-        self.loss_type = loss_type
-        self.metrics = list(metrics)
+        self.optimizer = optimizer or SGDOptimizer(
+            lr=self.config.learning_rate,
+            weight_decay=self.config.weight_decay)
+        self.loss_type = losses_mod.canonical_loss(loss_type)
+        self.metrics = metrics_mod.canonical_metrics(list(metrics))
         self._preds_tensor = (final_tensor if final_tensor is not None
                               else ops[-1].outputs[0])
+        self._sparse_ops = None
+        self.opt_state = None
+        self.reset_metrics()
         return self
 
     def init_layers(self, seed: Optional[int] = None):
@@ -152,7 +185,9 @@ class FFModel:
             if not isinstance(op, InputOp) and op.param_defs():
                 params[op.name] = op.init_params(gen, self.device)
         self.params = params
+        self.opt_state = None
         self._step = 0
+        self.reset_metrics()
         return self
 
     def swap_params(self, params: Dict[str, Dict[str, torch.Tensor]]):
@@ -184,17 +219,53 @@ class FFModel:
     # forward
     # ------------------------------------------------------------------
     def _device_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """Stage a host batch on ``self.device``: every model input, and
+        the ``"label"`` when the batch has one (int64 for the sparse
+        categorical loss, else float32)."""
         out = {}
         for t in self.input_tensors:
             if t.name not in batch:
                 raise ValueError(f"batch is missing input {t.name!r}")
-            v = torch.as_tensor(np.asarray(batch[t.name]), dtype=t.dtype)
-            # under bf16 compute float inputs enter the graph in bf16, as
-            # in the JAX package
-            if t.dtype.is_floating_point:
-                v = v.to(self.compute_dtype)
-            out[t.name] = v.to(self.device)
+            out[t.name] = torch.as_tensor(np.asarray(batch[t.name]),
+                                          dtype=t.dtype).to(self.device)
+        if "label" in batch:
+            ldt = (torch.int64 if self.loss_type
+                   == losses_mod.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY
+                   else torch.float32)
+            out["label"] = torch.as_tensor(np.asarray(batch["label"]),
+                                           dtype=ldt).to(self.device)
         return out
+
+    def _forward_env(self, params, batch: Dict[str, torch.Tensor],
+                     overrides: Optional[Dict[str, torch.Tensor]] = None,
+                     only_ops: Optional[set] = None
+                     ) -> Dict[int, torch.Tensor]:
+        """Run the graph on a staged batch: tensor guid -> value.
+        ``overrides`` maps op name -> its precomputed output, whose
+        compute is then skipped (the sparse update threads the lookups'
+        outputs in here); ``only_ops`` restricts the run to those ops."""
+        env: Dict[int, torch.Tensor] = {}
+        for t in self.input_tensors:
+            if t.name in batch:
+                v = batch[t.name]
+                # under bf16 compute float inputs enter the graph in bf16,
+                # as in the JAX package
+                if v.is_floating_point():
+                    v = v.to(self.compute_dtype)
+                env[t.guid] = v
+        for op in self.ops:
+            if isinstance(op, InputOp):
+                continue
+            if only_ops is not None and op.name not in only_ops:
+                continue
+            if overrides and op.name in overrides:
+                env[op.outputs[0].guid] = overrides[op.name]
+                continue
+            outs = op.apply(params.get(op.name, {}),
+                            [env[t.guid] for t in op.inputs])
+            for t, v in zip(op.outputs, outs):
+                env[t.guid] = v
+        return env
 
     def forward_batch(self, batch: Dict[str, Any]) -> torch.Tensor:
         """Forward pass for one host batch (no labels): the output
@@ -204,17 +275,8 @@ class FFModel:
             raise ValueError("call compile() and init_layers() (or "
                              "swap_params()) first")
         db = self._device_batch(batch)
-        env: Dict[int, torch.Tensor] = {}
-        for t in self.input_tensors:
-            env[t.guid] = db[t.name]
         with torch.inference_mode():
-            for op in self.ops:
-                if isinstance(op, InputOp):
-                    continue
-                outs = op.apply(self.params.get(op.name, {}),
-                                [env[t.guid] for t in op.inputs])
-                for t, v in zip(op.outputs, outs):
-                    env[t.guid] = v
+            env = self._forward_env(self.params, db)
         return env[self._preds_tensor.guid]
 
     # --- serving entry points (serve/engine.py) -----------------------
@@ -258,3 +320,184 @@ class FFModel:
                 batch[t.name] = np.zeros(shape, dtype)
             self.forward_batch(batch).cpu()
         return time.perf_counter() - t0
+
+    # ------------------------------------------------------------------
+    # training
+    # ------------------------------------------------------------------
+    def _select_sparse_update_ops(self) -> List[Op]:
+        """Embedding ops whose tables take the touched-rows update: those
+        that support it, under plain SGD (momentum 0, weight decay 0),
+        unless ``config.sparse_embedding_update`` is off. A stateful SGD
+        over such an op needs the lazy touched-rows optimizer of the JAX
+        package, which is not ported yet: it raises."""
+        from ..ops.embedding import EmbeddingBagStacked
+        if not self.config.sparse_embedding_update:
+            return []
+        opt = self.optimizer
+        ops = [op for op in self.ops
+               if isinstance(op, EmbeddingBagStacked)
+               and op.supports_sparse_update()]
+        if not (ops and isinstance(opt, SGDOptimizer)):
+            return []
+        if opt.sparse_slab_names() or opt.weight_decay != 0.0:
+            raise NotImplementedError(
+                f"the touched-rows update of {[op.name for op in ops]} "
+                f"under a stateful SGD (momentum={opt.momentum}, "
+                f"weight_decay={opt.weight_decay}) is not ported yet "
+                f"(ROADMAP queue 1 item 3); compile with "
+                f"SGDOptimizer(lr=...) or pass "
+                f"FFConfig(sparse_embedding_update=False)")
+        return ops
+
+    def _ancestor_op_names(self, targets) -> set:
+        out: set = set()
+
+        def visit(op):
+            if isinstance(op, InputOp) or op.name in out:
+                return
+            out.add(op.name)
+            for t in op.inputs:
+                if t.owner_op is not None:
+                    visit(t.owner_op)
+
+        for op in targets:
+            visit(op)
+        return out
+
+    def train_batch(self, batch: Dict[str, Any]):
+        """One training step on a host batch holding every input and the
+        ``"label"``; see ``train_batch_device``."""
+        return self.train_batch_device(self._device_batch(batch))
+
+    def train_batch_device(self, device_batch: Dict[str, torch.Tensor]):
+        """One training step — forward, backward and the update, in
+        place — on a batch already on ``self.device`` (as
+        ``_device_batch`` stages it, ``"label"`` included). Returns the
+        step's metric sums and its ``"loss"`` as 0-d tensors on the
+        device: nothing here waits for the device."""
+        if self._preds_tensor is None or self.params is None:
+            raise ValueError("call compile() and init_layers() (or "
+                             "swap_params()) first")
+        if "label" not in device_batch:
+            raise ValueError("a training batch needs its 'label'")
+        if self._sparse_ops is None:
+            self._sparse_ops = self._select_sparse_update_ops()
+        if self.opt_state is None:
+            self.opt_state = self.optimizer.init_state(self.params)
+        sparse_ops = self._sparse_ops
+        sparse_names = {op.name for op in sparse_ops}
+
+        # phase A (no grad): the lookups' ancestors, then the lookups
+        # themselves, keeping their gathered rows for the update
+        emb_vals, emb_fwd, emb_xs = {}, {}, {}
+        if sparse_ops:
+            with torch.no_grad():
+                anc = self._forward_env(
+                    self.params, device_batch,
+                    only_ops=self._ancestor_op_names(sparse_ops)
+                    - sparse_names)
+                for op in sparse_ops:
+                    xs = [anc[t.guid] for t in op.inputs]
+                    outs, emb_fwd[op.name] = op.apply_with_fwd(
+                        self.params[op.name], xs)
+                    emb_vals[op.name] = outs[0].requires_grad_()
+                    emb_xs[op.name] = xs
+
+        # phase B: the loss's gradient w.r.t. the dense parameters and
+        # the lookups' outputs; the tables of sparse ops stay out
+        leaves = {name: {pn: v.detach().requires_grad_()
+                         for pn, v in p.items()}
+                  for name, p in self.params.items()
+                  if name not in sparse_names}
+        env = self._forward_env(leaves, device_batch, overrides=emb_vals)
+        preds = env[self._preds_tensor.guid]
+        loss = losses_mod.loss_fn(self.loss_type)(preds,
+                                                  device_batch["label"])
+        flat = [v for p in leaves.values() for v in p.values()] \
+            + list(emb_vals.values())
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        grads = [torch.zeros_like(v) if g is None else g
+                 for v, g in zip(flat, grads)]
+        it = iter(grads)
+        gd = {name: {pn: next(it) for pn in p} for name, p in leaves.items()}
+        gev = {name: next(it) for name in emb_vals}
+
+        with torch.no_grad():
+            self.optimizer.update({name: self.params[name] for name in gd},
+                                  gd, self.opt_state)
+            for op in sparse_ops:
+                op.sparse_sgd_update(self.params[op.name], emb_xs[op.name],
+                                     gev[op.name], self.optimizer.lr,
+                                     fwd=emb_fwd[op.name])
+            preds = preds.detach()
+            if "crossentropy" in self.loss_type:
+                # the graph ends in logits: metrics take probabilities
+                preds = torch.softmax(preds.float(), dim=-1)
+            mets = metrics_mod.compute_metrics(
+                self.metrics, self.loss_type, preds, device_batch["label"])
+            if self._msums is None:
+                self._msums = {k: torch.zeros_like(v)
+                               for k, v in mets.items()}
+            for k, v in mets.items():
+                self._msums[k] += v
+        self.perf.sums = dict(self._msums)
+        self._step += 1
+        mets["loss"] = loss.detach()
+        return mets
+
+    def reset_metrics(self):
+        """Start a new epoch's running metric sums."""
+        self.perf.reset()
+        self._msums = None
+
+    def fit(self, inputs: Dict[str, np.ndarray], labels: np.ndarray,
+            epochs: Optional[int] = None, batch_size: Optional[int] = None,
+            verbose: bool = True,
+            checkpoint_dir: Optional[str] = None,
+            save_every: Optional[int] = None,
+            keep_last: Optional[int] = None):
+        """Train for ``epochs`` (default ``config.epochs``) over host
+        arrays in batches of ``batch_size`` (default
+        ``config.batch_size``); the last ``len(labels) % batch_size``
+        samples of each epoch train as one smaller batch. Each batch is
+        staged to the device as it trains. Returns {"elapsed",
+        "throughput", "num_samples", "metrics"}. Checkpoints are not
+        ported yet (ROADMAP queue 1 item 6): asking for them raises, as
+        do the supersteps, the anomaly sentinel and prefetch, which the
+        config refuses."""
+        if checkpoint_dir or save_every or keep_last:
+            raise NotImplementedError(
+                "fit checkpoints (checkpoint_dir, save_every, keep_last) "
+                "are not ported yet (ROADMAP queue 1 item 6)")
+        epochs = epochs or self.config.epochs
+        bs = batch_size or self.config.batch_size
+        n = len(labels)
+        if n < bs:
+            raise ValueError(f"dataset has {n} samples < batch size {bs}")
+        if self.params is None:
+            self.init_layers()
+        bounds = [(b, b + bs) for b in range(0, n - bs + 1, bs)]
+        if n % bs:
+            bounds.append((n - n % bs, n))
+        mets = None
+        num_samples = 0
+        start = time.perf_counter()
+        for epoch in range(epochs):
+            self.reset_metrics()
+            for a, b in bounds:
+                batch = {k: v[a:b] for k, v in inputs.items()}
+                batch["label"] = labels[a:b]
+                mets = self.train_batch(batch)
+                num_samples += b - a
+            if verbose:
+                # the host syncs here only
+                print(f"epoch {epoch}: loss={float(mets['loss']):.6f} "
+                      + self.perf.summary_line())
+        float(mets["loss"])      # the readback waits for the last step
+        elapsed = time.perf_counter() - start
+        throughput = num_samples / elapsed if elapsed > 0 else float("inf")
+        if verbose:
+            print(f"ELAPSED TIME = {elapsed:.4f}s, "
+                  f"THROUGHPUT = {throughput:.2f} samples/s")
+        return {"elapsed": elapsed, "throughput": throughput,
+                "num_samples": num_samples, "metrics": self.perf.report()}

@@ -7,14 +7,19 @@
 // Computes, for every output row r of n_out:
 //   out[r] = sum over j < bag of table[ids[r, j]]   (mode sum)
 //   out[r] = (that sum) / bag                       (mode mean)
-// with the sum taken in fp32 in bag order. The table is the T tables of
+// with the sum taken in fp32 in bag order. When rows_out is given, the
+// kernel also writes every row it reads, rows_out[r * bag + j] =
+// table[ids[r, j]]: the forward residual that lets the write-only
+// sparse update (scatter_rows.cu) land new rows without reading the
+// table again. The table is the T tables of
 // a stacked op viewed as one (T*N, d) table; ids arrive already wrapped
 // into [0, N) and offset by t*N (the wrapper does that), so every id is
 // a row of the flat table.
 //
 // Bound: memory. Each output row reads bag random rows of d*4 bytes and
 // writes d*4 bytes; there is one add per element read. On an H100 the
-// least time is (n_out*bag*d*4 + n_out*d*4 + n_out*bag*8) / 3.35 TB/s.
+// least time is (n_out*bag*d*4 + n_out*d*4 + n_out*bag*8) / 3.35 TB/s,
+// plus n_out*bag*d*4 written bytes when the residual is asked for.
 //
 // Design: one thread per 16-byte column chunk of an output row, so the
 // d/4 neighbouring threads of a row load the row's d*4 bytes as float4s
@@ -35,6 +40,7 @@ __global__ void __launch_bounds__(kThreads)
 bag_kernel(const float4* __restrict__ table,
            const int64_t* __restrict__ ids,
            float4* __restrict__ out,
+           float4* __restrict__ rows_out,
            int64_t n_out, int bag, int vec_per_row, int mean) {
   const int64_t g = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (g >= n_out * vec_per_row) return;
@@ -44,6 +50,7 @@ bag_kernel(const float4* __restrict__ table,
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int j = 0; j < bag; ++j) {
     const float4 v = __ldg(table + rid[j] * vec_per_row + c);
+    if (rows_out) rows_out[(row * bag + j) * vec_per_row + c] = v;
     acc.x += v.x;
     acc.y += v.y;
     acc.z += v.z;
@@ -64,18 +71,19 @@ bag_kernel(const float4* __restrict__ table,
 extern "C" {
 
 // table: (rows, dim) fp32; ids: (n_out, bag) int64 in [0, rows);
-// out: (n_out, dim) fp32. dim % 4 == 0 and 16-byte aligned pointers
-// (the wrapper checks). Launches on `stream`; returns cudaGetLastError().
+// out: (n_out, dim) fp32; rows_out: null, or (n_out * bag, dim) fp32 for
+// the gathered rows. dim % 4 == 0 and 16-byte aligned pointers (the
+// wrapper checks). Launches on `stream`; returns cudaGetLastError().
 int ff_embedding_bag_forward(const void* table, const void* ids, void* out,
-                             long long n_out, int bag, int dim, int mean,
-                             void* stream) {
+                             void* rows_out, long long n_out, int bag,
+                             int dim, int mean, void* stream) {
   if (n_out <= 0) return 0;
   const int vec = dim / 4;
   const long long total = n_out * vec;
   const long long blocks = (total + kThreads - 1) / kThreads;
   bag_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float4*)table, (const int64_t*)ids, (float4*)out, n_out, bag,
-      vec, mean);
+      (const float4*)table, (const int64_t*)ids, (float4*)out,
+      (float4*)rows_out, n_out, bag, vec, mean);
   return (int)cudaGetLastError();
 }
 

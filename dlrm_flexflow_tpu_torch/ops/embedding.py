@@ -19,7 +19,8 @@ import torch
 
 from ..core.initializers import GlorotUniform
 from ..core.op import Op, ParamDef
-from .kernels.embedding_bag import embedding_bag
+from .kernels.embedding_bag import EmbeddingBagFunction, embedding_bag
+from .kernels.scatter_rows import scatter_add_rows, scatter_write_rows
 
 AGGR_MODE_SUM = "sum"
 AGGR_MODE_AVG = "avg"
@@ -75,15 +76,59 @@ class EmbeddingBagStacked(Op):
                                     torch.float32, device)
             for _ in range(self.num_tables)])}
 
+    def _global_ids(self, idx):
+        """(batch, T, bag) ids -> (batch*T, bag) rows of the stacked
+        (T*rows, d) view: ids wrap into each table as jnp's floor-mod %
+        does (negative ids too), then offset by t*rows."""
+        offs = torch.arange(self.num_tables, device=idx.device,
+                            dtype=torch.int64) * self.num_entries
+        flat = torch.remainder(idx.long(), self.num_entries) \
+            + offs[None, :, None]
+        return flat.reshape(-1, idx.shape[2])
+
+    def _flat_table(self, params):
+        return params["kernel"].reshape(self.num_tables * self.num_entries,
+                                        self.out_dim)
+
     def apply(self, params, xs):
         (idx,) = xs                       # (batch, T, bag)
-        table = params["kernel"]          # (T, rows, d)
-        T, rows, d = table.shape
-        batch, _, bag = idx.shape
-        # ids wrap into each table as jnp's floor-mod % does (negative
-        # ids too), then offset into the stacked (T*rows, d) view
-        offs = torch.arange(T, device=idx.device, dtype=torch.int64) * rows
-        flat = (torch.remainder(idx.long(), rows)
-                + offs[None, :, None]).reshape(batch * T, bag)
-        out = embedding_bag(table.reshape(T * rows, d), flat, self.aggr)
-        return [out.reshape(batch, T, d)]
+        out = EmbeddingBagFunction.apply(self._flat_table(params),
+                                         self._global_ids(idx), self.aggr)
+        return [out.reshape(idx.shape[0], self.num_tables, self.out_dim)]
+
+    # ---- touched-rows SGD update ---------------------------------------
+    def supports_sparse_update(self) -> bool:
+        return self.aggr in (AGGR_MODE_SUM, AGGR_MODE_AVG)
+
+    def apply_with_fwd(self, params, xs):
+        """apply() plus the forward residual: (global row ids (n,), the
+        gathered rows (n, d)), both in (batch, T, bag) order — the order
+        ``sparse_sgd_update`` applies its updates in."""
+        (idx,) = xs
+        gid = self._global_ids(idx)
+        out, rows = embedding_bag(self._flat_table(params), gid, self.aggr,
+                                  return_rows=True)
+        out = out.reshape(idx.shape[0], self.num_tables, self.out_dim)
+        return [out], (gid.reshape(-1), rows)
+
+    @torch.no_grad()
+    def sparse_sgd_update(self, params, xs, out_ct, lr, fwd=None):
+        """table[row] -= lr * ct, for the touched rows only, in place:
+        each lookup's update is -lr * (its bag's cotangent, / bag for
+        "avg"), and a row's duplicates sum in lookup order before they
+        land. With the residual of ``apply_with_fwd`` the write-only
+        kernel writes fwd_row + sum; without it the read-modify-write
+        kernel adds the sum to the table."""
+        (idx,) = xs
+        bag = idx.shape[2]
+        ct = out_ct.to(params["kernel"].dtype).reshape(-1, self.out_dim)
+        if self.aggr == AGGR_MODE_AVG:
+            ct = ct / bag
+        table = self._flat_table(params)
+        if fwd is not None:
+            gid, rows = fwd
+            scatter_write_rows(table, gid, ct, rows, scale=-lr, div=bag)
+        else:
+            gid = self._global_ids(idx).reshape(-1)
+            scatter_add_rows(table, gid, ct, scale=-lr, div=bag)
+        return params

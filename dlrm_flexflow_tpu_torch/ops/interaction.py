@@ -3,8 +3,10 @@ as one op (the counterpart of
 ``dlrm_flexflow_tpu.ops.interaction.FusedDotInteraction``).
 
 The op owns the stacked embedding table and the first top-MLP layer's
-weight and bias, and runs the chain through ``fused_interaction``: the
-CUDA kernel for tensors on the card, its plain version on the CPU. The
+weight and bias, and runs the chain through ``FusedInteractionFunction``:
+the CUDA kernel for tensors on the card, its plain version on the CPU,
+and the JAX custom VJP's backward (a dense table gradient, as the JAX
+op: this op takes no touched-rows update). The
 JAX op sends a sigmoid head through its unfused reference; here the
 kernel runs with no activation and the sigmoid is applied after it —
 the same math, still through the kernel.
@@ -23,7 +25,7 @@ from ..core.initializers import (DEFAULT_BIAS_INIT, DEFAULT_KERNEL_INIT,
                                  GlorotUniform)
 from ..core.op import Op, ParamDef
 from .common import apply_activation
-from .kernels.interaction import fused_interaction, tril_pairs
+from .kernels.interaction import FusedInteractionFunction, tril_pairs
 
 
 class FusedDotInteraction(Op):
@@ -77,9 +79,9 @@ class FusedDotInteraction(Op):
                             dtype=torch.int64) * self.num_entries
         gid = idx.long() + offs[None, :, None]
         in_kernel = self.activation in ("relu", "none", None)
-        out = fused_interaction(params["table"], gid, bottom.float(),
-                                params["kernel"], params["bias"],
-                                relu=self.activation == "relu")
+        out = FusedInteractionFunction.apply(
+            params["table"], gid, bottom.float(), params["kernel"],
+            params["bias"], self.activation == "relu")
         if not in_kernel:
             out = apply_activation(out, self.activation)
         return [out.to(bottom.dtype)]

@@ -1,4 +1,5 @@
-"""Embedding-bag gather: the Hopper kernel and its plain version.
+"""Embedding-bag gather: the Hopper kernel, its plain version and its
+gradient.
 
 Replaces the Pallas TPU kernel ``_bag_kernel``
 (dlrm_flexflow_tpu/ops/pallas/embedding_kernel.py:55) and its stacked
@@ -10,7 +11,14 @@ neighbouring threads on neighbouring addresses).
 ``embedding_bag`` takes a CPU tensor to the plain version
 ``embedding_bag_reference`` and launches the kernel for a CUDA tensor —
 it raises there if the kernel cannot be built or launched, and never
-falls back. ``embedding_bag.launches`` counts kernel launches.
+falls back. ``embedding_bag.launches`` counts kernel launches. With
+``return_rows=True`` it also returns every gathered row, as the kernel
+wrote it while reading: the residual of the write-only sparse update.
+
+``EmbeddingBagFunction`` is the custom VJP of the JAX ``embedding_bag``
+(``_bwd``, embedding_kernel.py:159): the cotangent repeated over the bag
+(divided by the bag for "avg"), summed into a zero table in sorted id
+order — on the card by the ``scatter_add_rows`` kernel.
 """
 
 from __future__ import annotations
@@ -20,10 +28,11 @@ import ctypes
 import torch
 
 from . import build
+from .scatter_rows import segment_sum_rows
 
 _SIGNATURES = {
     "ff_embedding_bag_forward": (
-        (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
          ctypes.c_void_p),
         ctypes.c_int),
@@ -31,20 +40,25 @@ _SIGNATURES = {
 
 
 def embedding_bag_reference(table: torch.Tensor, ids: torch.Tensor,
-                            aggr: str = "sum") -> torch.Tensor:
+                            aggr: str = "sum", return_rows: bool = False):
     """Plain PyTorch version: gather, then sum (or mean) over the bag dim
     in fp32, cast to the table's dtype — the oracle of the JAX package's
     ``embedding_bag_reference``."""
-    out = table[ids.long()].sum(dim=-2, dtype=torch.float32)
+    rows = table[ids.long()]
+    out = rows.sum(dim=-2, dtype=torch.float32)
     if aggr == "avg":
         out = out / ids.shape[-1]
-    return out.to(table.dtype)
+    out = out.to(table.dtype)
+    if return_rows:
+        return out, rows.reshape(-1, table.shape[1])
+    return out
 
 
 def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
-                  aggr: str = "sum") -> torch.Tensor:
+                  aggr: str = "sum", return_rows: bool = False):
     """table (rows, d), ids (n, bag) int in [0, rows) -> (n, d): the sum,
-    or for ``aggr="avg"`` the mean, of each bag's rows."""
+    or for ``aggr="avg"`` the mean, of each bag's rows; with
+    ``return_rows`` also the gathered rows, (n * bag, d) in id order."""
     if aggr not in ("sum", "avg"):
         raise ValueError(f"embedding_bag aggr expects sum|avg, got {aggr!r}")
     if ids.dim() != 2 or table.dim() != 2:
@@ -52,7 +66,7 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
                          f"(n, bag), got {tuple(table.shape)} and "
                          f"{tuple(ids.shape)}")
     if table.device.type == "cpu":
-        return embedding_bag_reference(table, ids, aggr)
+        return embedding_bag_reference(table, ids, aggr, return_rows)
     if table.device.type != "cuda":
         raise ValueError(f"embedding_bag runs on cpu or cuda, not "
                          f"{table.device}")
@@ -68,15 +82,41 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
                          f"aligned table with d % 4 == 0 (d={d})")
     ids = ids.contiguous()
     out = torch.empty((n, d), dtype=table.dtype, device=table.device)
-    if n == 0:
-        return out
-    lib = build.load("embedding_bag", _SIGNATURES)
-    err = lib.ff_embedding_bag_forward(
-        table.data_ptr(), ids.data_ptr(), out.data_ptr(), n, bag, d,
-        int(aggr == "avg"), build.stream_of(table))
-    build.check(lib, err, "embedding_bag kernel")
-    embedding_bag.launches += 1
-    return out
+    rows = (torch.empty((n * bag, d), dtype=table.dtype,
+                        device=table.device) if return_rows else None)
+    if n:
+        lib = build.load("embedding_bag", _SIGNATURES)
+        err = lib.ff_embedding_bag_forward(
+            table.data_ptr(), ids.data_ptr(), out.data_ptr(),
+            None if rows is None else rows.data_ptr(), n, bag, d,
+            int(aggr == "avg"), build.stream_of(table))
+        build.check(lib, err, "embedding_bag kernel")
+        embedding_bag.launches += 1
+    return (out, rows) if return_rows else out
 
 
 embedding_bag.launches = 0
+
+
+class EmbeddingBagFunction(torch.autograd.Function):
+    """``embedding_bag`` with the gradient of the JAX custom VJP: a dense
+    (rows, d) ``dtable`` and no gradient for the ids."""
+
+    @staticmethod
+    def forward(ctx, table, ids, aggr):
+        ctx.save_for_backward(ids)
+        ctx.aggr = aggr
+        ctx.rows = table.shape[0]
+        return embedding_bag(table, ids, aggr)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        bag = ids.shape[1]
+        g = g.float()
+        if ctx.aggr == "avg":
+            g = g / bag
+        # lookup j takes cotangent row j // bag: the repeat, unmaterialized
+        dtable = segment_sum_rows(ids.reshape(-1), g.contiguous(), ctx.rows,
+                                  div=bag)
+        return dtable, None, None

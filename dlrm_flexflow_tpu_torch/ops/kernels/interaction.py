@@ -13,6 +13,14 @@ TPU's zero-padded scatter matrix).
 ``fused_interaction_reference`` and launches the kernel for CUDA
 tensors — it raises there if the kernel cannot be built or launched, and
 never falls back. ``fused_interaction.launches`` counts kernel launches.
+
+``FusedInteractionFunction`` is the custom VJP of the JAX
+``fused_interaction`` (``_fused_fwd``/``_fused_bwd``,
+interaction_kernel.py:260-310): the forward is ``fused_interaction``;
+the backward recomputes X and Z and takes dw, db, dbottom and a dense
+``dtable`` in torch ops, as the JAX package writes it in plain XLA. Its
+one scatter, the sorted segment-sum of the rows' gradients into
+``dtable``, runs through ``scatter_add_rows`` — the kernel on the card.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import ctypes
 import torch
 
 from . import build
+from .scatter_rows import segment_sum_rows
 
 # the most shared memory one block may take on an H100 (227 KB)
 MAX_SMEM_BYTES = 232448
@@ -41,6 +50,14 @@ def tril_pairs(F: int):
     return [(i, j) for i in range(F) for j in range(i)]
 
 
+def tril_flat(F: int, device) -> torch.Tensor:
+    """The flat positions i·F + j of ``tril_pairs(F)`` in a row-major
+    (F, F) matrix, built on ``device`` (torch.tril_indices enumerates
+    the pairs in the same order) so no host copy waits on the stream."""
+    i, j = torch.tril_indices(F, F, offset=-1, device=device)
+    return i * F + j
+
+
 def _as_3d(indices: torch.Tensor) -> torch.Tensor:
     return indices[:, :, None] if indices.dim() == 2 else indices
 
@@ -56,9 +73,7 @@ def fused_interaction_reference(table, indices, bottom, w, bias,
     emb = table[idx].float().sum(dim=2)                        # (b, T, d)
     x = torch.cat([bottom.float()[:, None, :], emb], dim=1)    # (b, F, d)
     z = torch.bmm(x, x.transpose(1, 2))                        # (b, F, F)
-    sel = torch.tensor([i * F + j for i, j in tril_pairs(F)],
-                       dtype=torch.long, device=z.device)
-    zt = z.reshape(batch, F * F)[:, sel]
+    zt = z.reshape(batch, F * F)[:, tril_flat(F, z.device)]
     cat = torch.cat([bottom.float(), zt], dim=1)
     y = cat @ w.float() + bias.float()
     return torch.relu(y) if relu else y
@@ -123,3 +138,48 @@ def fused_interaction(table, indices, bottom, w, bias,
 
 
 fused_interaction.launches = 0
+
+
+class FusedInteractionFunction(torch.autograd.Function):
+    """``fused_interaction`` with the gradients of the JAX custom VJP:
+    (dtable, None, dbottom, dw, db, None)."""
+
+    @staticmethod
+    def forward(ctx, table, indices, bottom, w, bias, relu):
+        y = fused_interaction(table, indices, bottom, w, bias, relu)
+        ctx.save_for_backward(table, _as_3d(indices).long(), bottom, w, y)
+        ctx.relu = relu
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        table, idx, bottom, w, y = ctx.saved_tensors
+        batch, T, bag = idx.shape
+        F = T + 1
+        d = bottom.shape[1]
+        emb = table[idx].float().sum(dim=2)                    # (b, T, d)
+        x = torch.cat([bottom.float()[:, None, :], emb], dim=1)  # (b, F, d)
+        z = torch.bmm(x, x.transpose(1, 2))
+        sel = tril_flat(F, z.device)
+        zt = z.reshape(batch, F * F)[:, sel]
+        cat = torch.cat([bottom.float(), zt], dim=1)
+
+        g = g.float()
+        if ctx.relu:
+            g = torch.where(y > 0.0, g, torch.zeros_like(g))
+        dw = cat.T @ g
+        db = g.sum(dim=0)
+        g_cat = g @ w.float().T
+        g_z = torch.zeros((batch, F * F), dtype=torch.float32,
+                          device=g.device)
+        g_z[:, sel] = g_cat[:, d:]
+        g_z = g_z.reshape(batch, F, F)
+        dx = torch.bmm(g_z + g_z.transpose(1, 2), x)           # (b, F, d)
+        g_bottom = g_cat[:, :d] + dx[:, 0, :]
+        # the rows of one bag share their sample/table gradient: lookup j
+        # takes row j // bag
+        g_rows = dx[:, 1:, :].reshape(batch * T, d).contiguous()
+        dtable = segment_sum_rows(idx.reshape(-1), g_rows, table.shape[0],
+                                  div=bag)
+        return (dtable, None, g_bottom.to(bottom.dtype), dw.to(w.dtype),
+                db, None)

@@ -5,12 +5,13 @@ y = act(x @ W + b). The JAX package leaves the product to XLA; here it
 is ``torch.matmul`` (cuBLAS on the card). TF32 is switched off by
 ``FFModel`` so a float32 product stays float32.
 
-Under ``compute_dtype="bfloat16"`` the operands are cast to bf16 and the
-product is taken back to fp32 before the bias, as JAX's
-``preferred_element_type=float32`` does. ``torch.matmul`` rounds its
-bf16 result to bf16 before that cast, where JAX keeps the fp32
-accumulator, so the two packages differ there by one bf16 rounding of
-the product.
+Under ``compute_dtype="bfloat16"`` the layer gives what JAX's
+``preferred_element_type=float32`` gives: the fp32 product of the
+bf16-rounded operands. The operands are rounded to bf16 and upcast to
+fp32, and the product is an fp32 matmul: the product of two bf16 values
+is exact in fp32, so only the fp32 accumulation remains, as in JAX.
+Then the bias is added in fp32, the activation applied, and the result
+cast to the input's dtype. The backward comes from autograd.
 """
 
 from __future__ import annotations
@@ -54,7 +55,7 @@ class Linear(Op):
     def apply(self, params, xs):
         (x,) = xs
         cdt = self.model.compute_dtype
-        y = torch.matmul(x.to(cdt), params["kernel"].to(cdt)).float()
+        y = torch.matmul(x.to(cdt).float(), params["kernel"].to(cdt).float())
         if self.use_bias:
             y = y + params["bias"]
         return [apply_activation(y, self.activation).to(x.dtype)]

@@ -12,6 +12,11 @@ for ``model``, ready for ``model.swap_params``:
   op's ``_table_order`` (stored slot s holds logical table order[s]) is
   undone, giving the port's logical layout. Set the same order on the
   port's op (``set_table_order``) that the JAX op carries.
+
+``params_to_jax`` is the inverse: the port's parameters as numpy in the
+JAX layout (``_table_order`` re-applied, tables lane-packed to
+(T, N/r, r·d) as the JAX op's ``_pack_factor`` packs them), so a test can
+compare a trained port model with a trained JAX model array by array.
 """
 
 from __future__ import annotations
@@ -47,5 +52,33 @@ def params_from_jax(model, params_np: Dict[str, Dict[str, np.ndarray]]
                                  f"{v.shape}, the port expects {d.shape}")
             mine[pn] = torch.from_numpy(np.ascontiguousarray(v)).to(
                 device=model.device, dtype=d.dtype)
+        out[op.name] = mine
+    return out
+
+
+def _pack_factor(dim: int, rows: int) -> int:
+    """Rows per 128-lane tile of the JAX op's packed storage (its
+    ``_pack_factor``): 128 // dim for narrow rows dividing 128, else 1."""
+    if dim < 128 and 128 % dim == 0 and rows % (128 // dim) == 0:
+        return 128 // dim
+    return 1
+
+
+def params_to_jax(model, params: Dict[str, Dict[str, torch.Tensor]]
+                  ) -> Dict[str, Dict[str, np.ndarray]]:
+    out = {}
+    for op in model.ops:
+        if not op.param_defs():
+            continue
+        mine = {}
+        for pn, v in params[op.name].items():
+            v = v.detach().cpu().numpy()
+            if isinstance(op, EmbeddingBagStacked) and pn == "kernel":
+                if op._table_order is not None:
+                    v = v[np.asarray(op._table_order)]
+                r = _pack_factor(op.out_dim, op.num_entries)
+                v = v.reshape(op.num_tables, op.num_entries // r,
+                              op.out_dim * r)
+            mine[pn] = v
         out[op.name] = mine
     return out

@@ -9,7 +9,12 @@ repository's conftest (which imports the JAX package) is left out:
 
 Tolerances: the bag sums in fp32 in bag order on both sides (rtol, atol
 1e-6); the interaction's dots and layer products sum in another fp32
-order than torch's bmm and matmul (1e-5).
+order than torch's bmm and matmul (1e-5). The scatter kernels are held
+BITWISE to their plain versions run on the CPU (the plain version on the
+card would add duplicates with atomics, in no fixed order): both scale
+first, then sum a row's duplicates in lookup order. A training step on
+the card against the same step on the CPU: rtol 1e-5, atol 1e-7
+(cuBLAS and the CPU's BLAS sum the layers' products in other orders).
 """
 
 import numpy as np
@@ -22,8 +27,12 @@ from dlrm_flexflow_tpu_torch.models.dlrm import (DLRMConfig, build_dlrm,
 from dlrm_flexflow_tpu_torch.ops.kernels import build
 from dlrm_flexflow_tpu_torch.ops.kernels.embedding_bag import (
     embedding_bag, embedding_bag_reference)
+from dlrm_flexflow_tpu_torch.core.optimizers import SGDOptimizer
 from dlrm_flexflow_tpu_torch.ops.kernels.interaction import (
     fused_interaction, fused_interaction_reference)
+from dlrm_flexflow_tpu_torch.ops.kernels.scatter_rows import (
+    scatter_add_rows, scatter_add_rows_reference, scatter_write_rows,
+    scatter_write_rows_reference)
 from dlrm_flexflow_tpu_torch.serve import InferenceEngine, ServeConfig
 
 pytestmark = pytest.mark.cuda
@@ -72,6 +81,43 @@ def test_interaction_kernel_matches_plain(cuda, relu, batch, T, bag, d, H):
     torch.testing.assert_close(
         got, fused_interaction_reference(table, idx, bottom, w, bias, relu),
         rtol=1e-5, atol=1e-5)
+
+
+def test_bag_kernel_returns_the_gathered_rows(cuda):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    table = torch.randn(4096, 64, device=cuda, generator=g)
+    ids = torch.randint(0, 4096, (300, 3), device=cuda, generator=g)
+    out, rows = embedding_bag(table, ids, "sum", return_rows=True)
+    torch.cuda.synchronize()
+    assert torch.equal(rows, table[ids.reshape(-1)])
+    torch.testing.assert_close(out, embedding_bag_reference(table, ids),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("write", [False, True])
+@pytest.mark.parametrize("n,div", [(2048, 1), (16384, 1), (771, 3)])
+def test_scatter_kernels_match_plain(cuda, write, n, div):
+    g = torch.Generator(device=cuda).manual_seed(n)
+    table = torch.randn(50000, 64, device=cuda, generator=g)
+    ids = torch.randint(0, 50000, (n,), device=cuda, generator=g)
+    ids[:8] = ids[0]
+    ids[8:12] = ids[9]
+    upd = torch.randn(n // div, 64, device=cuda, generator=g)
+    fwd = table[ids]
+    kernel = scatter_write_rows if write else scatter_add_rows
+    before = kernel.launches
+    got = table.clone()
+    if write:
+        kernel(got, ids, upd, fwd, scale=-0.01, div=div)
+        want = scatter_write_rows_reference(
+            table.cpu(), ids.cpu(), upd.cpu(), fwd.cpu(), -0.01, div)
+    else:
+        kernel(got, ids, upd, scale=-0.01, div=div)
+        want = scatter_add_rows_reference(table.cpu(), ids.cpu(),
+                                          upd.cpu(), -0.01, div)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert torch.equal(got.cpu(), want)
 
 
 def test_cuda_call_raises_without_nvcc(cuda, tmp_path, monkeypatch):
@@ -130,3 +176,23 @@ def test_model_on_card_matches_cpu_and_serves(cuda, mode):
         want = gpu.forward_batch({k: v[a:a + 5] for k, v in x.items()})
         np.testing.assert_allclose(r.scores, want.cpu().numpy(),
                                    rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("mode", ["cat", "dot"])
+def test_training_step_on_card_matches_cpu(cuda, mode):
+    gpu = _model(mode, "cuda")
+    cpu = _model(mode, "cpu", gpu.params)
+    for m in (gpu, cpu):
+        m.compile(SGDOptimizer(lr=0.05), "mean_squared_error", ["mse"])
+    x, y = synthetic_batch(DLRMConfig(**ARCH[mode]), 16, seed=5)
+    x["label"] = y
+    kernel = scatter_add_rows if mode == "dot" else scatter_write_rows
+    before = kernel.launches
+    lg = float(gpu.train_batch(x)["loss"])
+    lc = float(cpu.train_batch(x)["loss"])
+    assert kernel.launches == before + 1
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    for op, p in cpu.params.items():
+        for pn, v in p.items():
+            torch.testing.assert_close(gpu.params[op][pn].cpu(), v,
+                                       rtol=1e-5, atol=1e-7)

@@ -1,0 +1,171 @@
+"""The port's touched-rows scatters and kernel backwards against the JAX
+package.
+
+The plain PyTorch versions of the two scatter kernels (what the port's
+wrappers run for CPU tensors) must equal the Pallas TPU kernels, run in
+interpret mode as the JAX package's own tests run them:
+``scatter_add_rows_reference`` against ``scatter_add_rows``
+(``_scatter_unique_kernel``) and ``scatter_write_rows_reference``
+against ``scatter_write_rows_packed`` (``_scatter_write_kernel``), at
+d=64, with duplicate ids and with ids sharing a packed 128-lane tile.
+The check is BITWISE: both sides scale each update first, then sum a
+row's duplicates in ascending lookup order starting from 0, then add
+(or write over the forward row). The packed Pallas tiles only add +0.0
+for the tile's other row, which changes no value here.
+
+The backwards of the two ported kernels must match ``jax.vjp`` of the
+JAX custom VJPs in interpret mode at d=128 (the Pallas forward's
+width): the bag's dtable bitwise (the same sorted segment-sum), the
+fused interaction's gradients to rtol/atol 1e-5 (its products and dots
+sum in another fp32 order in XLA and in PyTorch).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from dlrm_flexflow_tpu.ops.pallas.embedding_kernel import (
+    embedding_bag as jax_embedding_bag, scatter_add_rows as jax_scatter_add,
+    scatter_write_rows_packed as jax_scatter_write)
+from dlrm_flexflow_tpu.ops.pallas.interaction_kernel import (
+    fused_interaction as jax_fused)
+
+from dlrm_flexflow_tpu_torch.ops.kernels.embedding_bag import (
+    EmbeddingBagFunction)
+from dlrm_flexflow_tpu_torch.ops.kernels.interaction import (
+    FusedInteractionFunction)
+from dlrm_flexflow_tpu_torch.ops.kernels.scatter_rows import (
+    scatter_add_rows, scatter_write_rows, segment_sum_rows)
+
+ROWS, D, LR = 256, 64, 0.05
+
+
+def _case(n, seed, tile_pairs=False):
+    """A table, n lookups with duplicates (the first 8 ids equal) and,
+    with ``tile_pairs``, ids 2k and 2k+1 that share one packed tile."""
+    rng = np.random.RandomState(seed)
+    table = rng.randn(ROWS, D).astype(np.float32)
+    ids = rng.randint(0, ROWS, size=n)
+    ids[:8] = ids[0]
+    if tile_pairs:
+        ids[8:14] = [10, 11, 10, 11, 11, 10]
+    upd = rng.randn(n, D).astype(np.float32)
+    return table, ids, upd
+
+
+def _jax_scaled(upd):
+    return np.asarray(-LR * jnp.asarray(upd))
+
+
+@pytest.mark.parametrize("n,tile_pairs", [(64, False), (300, True),
+                                          (1000, True)])
+def test_add_rows_matches_pallas_rmw_kernel(n, tile_pairs):
+    table, ids, upd = _case(n, n, tile_pairs)
+    want = np.asarray(jax_scatter_add(
+        jnp.asarray(table), jnp.asarray(ids, jnp.int32),
+        jnp.asarray(_jax_scaled(upd)), interpret=True))
+    got = scatter_add_rows(torch.from_numpy(table.copy()),
+                           torch.from_numpy(ids.astype(np.int64)),
+                           torch.from_numpy(upd), scale=-LR)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("n,tile_pairs", [(64, False), (300, True),
+                                          (1000, True)])
+def test_write_rows_matches_pallas_write_kernel(n, tile_pairs):
+    table, ids, upd = _case(n, n + 1, tile_pairs)
+    view = table.reshape(ROWS // 2, 2 * D)
+    want = np.asarray(jax_scatter_write(
+        jnp.asarray(view), jnp.asarray(ids, jnp.int32),
+        jnp.asarray(_jax_scaled(upd)), jnp.asarray(view[ids // 2]), D,
+        interpret=True)).reshape(ROWS, D)
+    t = torch.from_numpy(table.copy())
+    fwd = t[torch.from_numpy(ids)].clone()
+    got = scatter_write_rows(t, torch.from_numpy(ids.astype(np.int64)),
+                             torch.from_numpy(upd), fwd, scale=-LR)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_shared_update_rows_equal_repeated_updates():
+    """div=bag reads lookup j's update from row j // bag: the same as
+    repeating each row bag times."""
+    table, ids, upd = _case(96, 5)
+    bag = 3
+    t1 = scatter_add_rows(torch.from_numpy(table.copy()),
+                          torch.from_numpy(ids), torch.from_numpy(upd[::bag]),
+                          scale=-LR, div=bag)
+    t2 = scatter_add_rows(torch.from_numpy(table.copy()),
+                          torch.from_numpy(ids),
+                          torch.from_numpy(np.repeat(upd[::bag], bag, 0)),
+                          scale=-LR)
+    assert torch.equal(t1, t2)
+
+
+def test_untouched_rows_stay_bitwise():
+    table, ids, upd = _case(40, 6)
+    t = torch.from_numpy(table.copy())
+    scatter_write_rows(t, torch.from_numpy(ids), torch.from_numpy(upd),
+                       t[torch.from_numpy(ids)].clone(), scale=-LR)
+    untouched = np.setdiff1d(np.arange(ROWS), ids)
+    np.testing.assert_array_equal(t.numpy()[untouched], table[untouched])
+
+
+def test_rejects_bad_shapes():
+    t = torch.zeros(8, 4)
+    ids = torch.zeros(6, dtype=torch.int64)
+    with pytest.raises(ValueError, match="div"):
+        scatter_add_rows(t, ids, torch.zeros(4, 4), div=2)
+    with pytest.raises(ValueError, match="fwd"):
+        scatter_write_rows(t, ids, torch.zeros(6, 4), torch.zeros(5, 4))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        segment_sum_rows(ids.to("meta"), torch.zeros(6, 4, device="meta"), 8)
+
+
+@pytest.mark.parametrize("aggr", ["sum", "avg"])
+@pytest.mark.parametrize("batch,bag", [(16, 1), (13, 3)])
+def test_bag_backward_matches_jax_vjp(aggr, batch, bag):
+    rng = np.random.RandomState(7)
+    table = rng.randn(200, 128).astype(np.float32)
+    ids = rng.randint(0, 200, size=(batch, bag))
+    ids[:4] = ids[0]
+    g = rng.randn(batch, 128).astype(np.float32)
+    _, vjp = jax.vjp(lambda t: jax_embedding_bag(
+        t, jnp.asarray(ids, jnp.int32), aggr, True), jnp.asarray(table))
+    (want,) = vjp(jnp.asarray(g))
+    t = torch.from_numpy(table).requires_grad_()
+    out = EmbeddingBagFunction.apply(t, torch.from_numpy(ids), aggr)
+    out.backward(torch.from_numpy(g))
+    np.testing.assert_array_equal(t.grad.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("batch,bag", [(13, 1), (8, 2)])
+def test_fused_interaction_backward_matches_jax_vjp(relu, batch, bag):
+    T, rows, d, H = 4, 32, 128, 24
+    P = (T + 1) * T // 2
+    rng = np.random.RandomState(3)
+    table = (0.5 * rng.randn(T * rows, d)).astype(np.float32)
+    idx = np.stack([rng.randint(t * rows, (t + 1) * rows, size=(batch, bag))
+                    for t in range(T)], axis=1)
+    idx[:3, 0] = idx[0, 0]
+    bottom = (0.5 * rng.randn(batch, d)).astype(np.float32)
+    w = (rng.randn(d + P, H) / np.sqrt(d + P)).astype(np.float32)
+    bias = (0.1 * rng.randn(H)).astype(np.float32)
+    g = rng.randn(batch, H).astype(np.float32)
+
+    jidx = jnp.asarray(idx, jnp.int32)
+    _, vjp = jax.vjp(lambda tb, b, ww, bi: jax_fused(
+        tb, jidx, b, ww, bi, relu, True), *(jnp.asarray(a) for a in
+                                            (table, bottom, w, bias)))
+    want = vjp(jnp.asarray(g))
+    ins = [torch.from_numpy(a).requires_grad_()
+           for a in (table, bottom, w, bias)]
+    out = FusedInteractionFunction.apply(ins[0], torch.from_numpy(idx),
+                                         ins[1], ins[2], ins[3], relu)
+    out.backward(torch.from_numpy(g))
+    for name, t, ref in zip(("dtable", "dbottom", "dw", "db"), ins, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(ref),
+                                   rtol=1e-5, atol=1e-5, err_msg=name)
