@@ -8,9 +8,9 @@ Run from the root of a checkout, with one card visible:
 Phases:
 
 1. device — the card's name and power limit, as nvidia-smi reports them;
-2. build — every CUDA kernel of the serving and training paths, compiled
-   from ``dlrm_flexflow_tpu_torch/csrc`` with nvcc for sm_90a, one nvcc
-   per source, all started together;
+2. build — every CUDA kernel of the serving, training and retrieval
+   paths, compiled from ``dlrm_flexflow_tpu_torch/csrc`` with nvcc for
+   sm_90a, one nvcc per source, all started together;
 3. train — the full-width ``DLRMConfig.random_benchmark()`` model in the
    "cat" graph and in the fused "dot" graph, fp32, batch 256, timed
    first, before the process's first profiler session (a session leaves
@@ -31,7 +31,25 @@ Phases:
    host's top ops. One step on the card must equal the same step on the
    CPU from the same weights and batch, at a reduced 8 × 65,536 rows
    (all widths full) so the CPU copy stays small;
-4. kernels — each kernel at its path's full-width shapes against its
+4. cascade — the retrieve -> rank cascade at full width, built as
+   ``examples/native/serve_dlrm.py``'s ``_build_cascade`` builds it
+   around ``random_benchmark()``: two-tower user and item heads, the 1M
+   items encoded on the card and quantized into a 1-shard int8 MIPS
+   index that stays there, the "cat" ranker behind an
+   ``InferenceEngine``, ``CascadeEngine(...).predict`` with k=100 and a
+   1,000 ms retrieve budget. The bag kernel is first held bitwise to its
+   plain version on the towers' own tables and shapes (one 8,192-id
+   item-head chunk at d=32, one request's ids of the 8 user tables at
+   d=8). After a warmup, 64 one-user requests from 4 threads with every
+   count at 0 just before and read just after: the top-k kernel must
+   launch once per shard call and no plain version may run; no answer
+   may be degraded or miss its deadline. The same 64 requests from one
+   thread give the one-thread rate beside the 4 threads'. A sample's
+   retrieval must equal ``exact_scan`` bitwise and its ranker scores
+   ``forward_batch`` of the expanded rows; the same codes over 4 shards
+   must answer as 1 shard does, bitwise. Runs before any profiler
+   session, then profiles 8 requests for the top-k kernel's device time;
+5. kernels — each kernel at its path's full-width shapes against its
    plain PyTorch version on the same inputs, then timed beside its
    bound, the plain version and, where one PyTorch call computes the
    same function, that call: device time from the profiler's trace, and
@@ -41,8 +59,13 @@ Phases:
    kernels on the same table at the training step's n = 2,048 lookups
    and at n = 16,384, with duplicate ids, held bitwise to their plain
    versions run on the CPU (on the card the plain version adds
-   duplicates with atomics, in no fixed order);
-5. serve — the same model in both graphs, each behind
+   duplicates with atomics, in no fixed order); the quantized bag and
+   interaction at the serving shape over the table quantized to int8
+   (the bag also in fp8), which no path calls yet; the int8 MIPS top-k
+   at B=64 and B=1 over a 1M x 32 index with planted duplicate rows,
+   k=100, bitwise to its plain version on the card, and on one small
+   shape to the plain version on the CPU;
+6. serve — the same model in both graphs, each behind
    ``InferenceEngine(ServeConfig(max_batch=256))`` taking a few dozen
    requests of 1-64 rows from 4 threads. Every kernel's launch count is
    set to 0 just before each run and read just after; the kernel of that
@@ -75,12 +98,23 @@ from dlrm_flexflow_tpu_torch.ops.kernels import build
 from dlrm_flexflow_tpu_torch.ops.kernels import embedding_bag as bag_mod
 from dlrm_flexflow_tpu_torch.ops.kernels import interaction as inter_mod
 from dlrm_flexflow_tpu_torch.ops.kernels import scatter_rows as scat_mod
+from dlrm_flexflow_tpu_torch.ops.kernels import topk as topk_mod
+from dlrm_flexflow_tpu_torch.quant import quantize_rows
+from dlrm_flexflow_tpu_torch.retrieve import (CascadeConfig, CascadeEngine,
+                                              ShardedMIPSIndex,
+                                              TwoTowerConfig,
+                                              build_two_tower,
+                                              dlrm_candidate_features,
+                                              item_embeddings,
+                                              transfer_tower_params)
 from dlrm_flexflow_tpu_torch.serve import InferenceEngine, ServeConfig
+from dlrm_flexflow_tpu_torch.serve.engine import percentile
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and the
-# fp32 rate outside the tensor cores
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, the fp32
+# rate outside the tensor cores and the dense int8 tensor-core rate
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_INT8_OPS = 1979e12
 SEED = 0
 B, T, BAG, D, ROWS, H = 2048, 8, 1, 64, 1_000_000, 1024
 ID_SETS = 20     # distinct id batches cycled while timing: 80 MB of rows,
@@ -89,6 +123,12 @@ LR = 0.01            # the training step's SGD rate (examples/native/dlrm.py)
 TRAIN_B = 256        # per-chip training batch (bench.py)
 TRAIN_STEPS = 20
 CHECK_ROWS = 65_536  # rows per table of the card-versus-CPU step check
+# the retrieve -> rank cascade (examples/native/serve_dlrm.py
+# _build_cascade around random_benchmark): a 1M-item index of width 32
+N_ITEMS, TT_DIM, K = 1_000_000, 32, 100
+TOPK_B = 64          # the query batch of benchmarks/bench_retrieve.py
+ITEM_BATCH = 8192    # the item head's batch: 123 forward calls for 1M
+CASCADE_REQUESTS = 64
 
 
 class SmokeFailure(Exception):
@@ -141,10 +181,25 @@ def timed(prefix, fn, arg_sets):
     return {f"{prefix}ms": dev_ms, f"{prefix}call_ms": call_ms}
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, int8_ops=0):
+    """The least time in ms for the bytes (each input read once, each
+    output written once) and the operations (fp32 outside the tensor
+    cores, int8 on them), and which of the two bounds it."""
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = (flops / PEAK_FP32_FLOPS + int8_ops / PEAK_INT8_OPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def print_row(r, extra=""):
+    def fmt(key):
+        v = r.get(key)
+        return "n/a" if v is None else f"{v:.4f} ms"
+
+    print(f"kernel {r['name']}: device {fmt('ms')} (call "
+          f"{fmt('call_ms')}), plain {fmt('plain_ms')} (call "
+          f"{fmt('plain_call_ms')}), library {fmt('library_ms')} (call "
+          f"{fmt('library_call_ms')}), bound {1e3 * r['bound_ms']:.2f} us "
+          f"({r['bound_by']}), max abs err {r['max_abs_err']:.3g}{extra}")
 
 
 def stacked_ids(gen, batch, dev):
@@ -215,18 +270,151 @@ def kernel_phase(dev):
         "library_ms": None, "library_call_ms": None,
     }
     for r in rows.values():
-        def fmt(key):
-            v = r[key]
-            return "n/a" if v is None else f"{v:.4f} ms"
-
-        print(f"kernel {r['name']}: device {fmt('ms')} (call "
-              f"{fmt('call_ms')}), plain {fmt('plain_ms')} (call "
-              f"{fmt('plain_call_ms')}), library {fmt('library_ms')} (call "
-              f"{fmt('library_call_ms')}), bound "
-              f"{1e3 * r['bound_ms']:.2f} us ({r['bound_by']}), max abs "
-              f"err {r['max_abs_err']:.3g}")
+        print_row(r)
+    rows.update(quant_kernels(dev, gen, table, id_sets, bottom, w, bias))
     rows.update(scatter_kernels(dev, gen, table))
     return rows
+
+
+def quant_kernels(dev, gen, table, id_sets, bottom, w, bias):
+    """Kernels 5 and 6, the quantized bag and interaction, at the serving
+    shape over the 8M-row table quantized to int8 (the bag also once in
+    fp8). No path calls them yet (as in the JAX package): their rows
+    carry 0 launches."""
+    rows = {}
+    src = "dlrm_flexflow_tpu_torch/csrc/"
+    codes, scales = quantize_rows(table, "int8")
+    flat = [i.reshape(B * T, BAG) for i in id_sets]
+    n = B * T
+    for dt in ("int8", "fp8"):
+        c, sc = (codes, scales) if dt == "int8" else \
+            quantize_rows(table, "fp8")
+        got = bag_mod.embedding_bag_quant(c, sc, flat[0], "sum")
+        want = bag_mod.embedding_bag_quant_reference(c, sc, flat[0], "sum")
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        # at bag 1 both compute code * scale and add nothing to it
+        check(torch.equal(got, want), f"embedding_bag_quant ({dt}) kernel "
+              f"disagrees with its plain version: {err}")
+        print(f"kernel embedding_bag_quant ({dt}): bitwise equal to its "
+              f"plain version at B*T={n}, bag {BAG}")
+        del c, sc
+    b_ms, b_by = bound(n * BAG * (D + 4 + 8) + n * D * 4, 2 * n * BAG * D)
+    args = [(i,) for i in flat]
+    r = {"name": "embedding_bag_quant", "route": "cuda",
+         "source": src + "embedding_bag.cu",
+         "replaces": "dlrm_flexflow_tpu/ops/pallas/embedding_kernel.py:189",
+         "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+         **timed("", lambda i: bag_mod.embedding_bag_quant(
+             codes, scales, i, "sum"), args),
+         **timed("plain_", lambda i: bag_mod.embedding_bag_quant_reference(
+             codes, scales, i, "sum"), args),
+         "library_ms": None, "library_call_ms": None}
+    rows[r["name"]] = r
+    print_row(r, " (int8)")
+
+    got = inter_mod.fused_interaction_quant(codes, scales, id_sets[0],
+                                            bottom, w, bias)
+    want = inter_mod.fused_interaction_quant_reference(
+        codes, scales, id_sets[0], bottom, w, bias)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    # X is bitwise at bag 1; the dots and the layer sum in another order
+    check(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
+          f"fused_interaction_quant kernel disagrees with its plain "
+          f"version: {err}")
+    P = (T + 1) * T // 2
+    b_ms, b_by = bound(
+        B * T * BAG * (D + 4 + 8) + B * D * 4 + (D + P) * H * 4 + H * 4
+        + B * H * 4,
+        B * T * BAG * 2 * D + B * (2 * P * D + 2 * (D + P) * H))
+    args = [(i,) for i in id_sets]
+    r = {"name": "fused_interaction_quant", "route": "cuda",
+         "source": src + "interaction.cu",
+         "replaces": "dlrm_flexflow_tpu/ops/pallas/interaction_kernel.py:324",
+         "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+         **timed("", lambda i: inter_mod.fused_interaction_quant(
+             codes, scales, i, bottom, w, bias), args),
+         **timed("plain_", lambda i:
+                 inter_mod.fused_interaction_quant_reference(
+                     codes, scales, i, bottom, w, bias), args),
+         "library_ms": None, "library_call_ms": None}
+    rows[r["name"]] = r
+    print_row(r, " (int8)")
+    return rows
+
+
+def index_codes(gen, dev, rows=N_ITEMS, d=TT_DIM):
+    """Random int8 item codes and scales with planted duplicate rows:
+    exact score ties on distinct ids, which the order must break by id."""
+    codes, scales = quantize_rows(
+        torch.randn(rows, d, device=dev, generator=gen), "int8")
+    dup = torch.randint(0, rows, (rows // 100,), device=dev, generator=gen)
+    codes[dup] = codes[7].clone()
+    scales[dup] = scales[7].clone()
+    return codes, scales
+
+
+def topk_kernel(dev):
+    """Kernel 7, the int8 MIPS top-k, at the retrieval bench's query
+    batch (B=64) over a 1M-row, d=32 index with k=100, and at B=1 (one
+    user, as the cascade sends it): bitwise to its plain version on the
+    card; one small shape also against the plain version on the CPU."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    codes, scales = index_codes(gen, dev)
+    qsets = [topk_mod.quantize_query(
+        torch.randn(TOPK_B, TT_DIM, device=dev, generator=gen))
+        for _ in range(8)]
+    err = 0.0
+    for b in (TOPK_B, 1):
+        q, qs = qsets[0][0][:b], qsets[0][1][:b]
+        got_s, got_i = topk_mod.mips_topk(q, qs, codes, scales, K)
+        want_s, want_i = topk_mod.mips_topk_reference(q, qs, codes, scales,
+                                                      K)
+        torch.cuda.synchronize()
+        err = max(err, float((got_s - want_s).abs().max()))
+        check(torch.equal(got_i, want_i)
+              and torch.equal(got_s.view(torch.int32),
+                              want_s.view(torch.int32)),
+              f"mips_topk kernel disagrees with its plain version at B={b}")
+        check(bool((got_s[:, :-1] >= got_s[:, 1:]).all()),
+              f"mips_topk scores not descending at B={b}")
+    small = (qsets[1][0][:5], qsets[1][1][:5], codes[:20000],
+             scales[:20000])
+    got_s, got_i = topk_mod.mips_topk(*small, 1000, base=3)
+    want_s, want_i = topk_mod.mips_topk_reference(
+        *(t.cpu() for t in small), 1000, base=3)
+    check(torch.equal(got_i.cpu(), want_i)
+          and torch.equal(got_s.cpu().view(torch.int32),
+                          want_s.view(torch.int32)),
+          "mips_topk kernel disagrees with its plain version on the CPU")
+    print(f"kernel mips_topk: bitwise equal to its plain version at B=64 "
+          f"and B=1 (R={N_ITEMS}, d={TT_DIM}, k={K}) and to the CPU's at "
+          f"B=5, R=20000, k=1000")
+    # the index's codes and scales read once, the queries, the results
+    R = N_ITEMS
+    b_ms, b_by = bound(R * (TT_DIM + 4) + TOPK_B * (TT_DIM + 4)
+                       + TOPK_B * K * 12,
+                       2 * TOPK_B * R, int8_ops=2 * TOPK_B * R * TT_DIM)
+    r = {"name": "mips_topk", "route": "cuda",
+         "source": "dlrm_flexflow_tpu_torch/csrc/topk.cu",
+         "replaces": "dlrm_flexflow_tpu/ops/pallas/topk_kernel.py:117",
+         "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+         **timed("", lambda q, qs: topk_mod.mips_topk(
+             q, qs, codes, scales, K), qsets),
+         **timed("plain_", lambda q, qs: topk_mod.mips_topk_reference(
+             q, qs, codes, scales, K), qsets),
+         "library_ms": None, "library_call_ms": None}
+    one = [(q[:1], qs[:1]) for q, qs in qsets]
+    r["b1_ms"], r["b1_call_ms"] = time_ms(
+        lambda q, qs: topk_mod.mips_topk(q, qs, codes, scales, K), one)
+    r["b1_plain_ms"], r["b1_plain_call_ms"] = time_ms(
+        lambda q, qs: topk_mod.mips_topk_reference(q, qs, codes, scales, K),
+        one)
+    print_row(r, f" (B=64); at B=1: device {r['b1_ms']:.4f} ms (call "
+              f"{r['b1_call_ms']:.4f} ms), plain {r['b1_plain_ms']:.4f} ms "
+              f"(call {r['b1_plain_call_ms']:.4f} ms)")
+    return {r["name"]: r}
 
 
 def scatter_kernels(dev, gen, table):
@@ -303,7 +491,11 @@ def scatter_kernels(dev, gen, table):
 
 # every kernel wrapper of the port, each counting its own launches
 LAUNCHED = (bag_mod.embedding_bag, inter_mod.fused_interaction,
-            scat_mod.scatter_add_rows, scat_mod.scatter_write_rows)
+            scat_mod.scatter_add_rows, scat_mod.scatter_write_rows,
+            topk_mod.mips_topk, bag_mod.embedding_bag_quant,
+            inter_mod.fused_interaction_quant)
+# the kernels no path of the port calls yet, as in the JAX package
+OFF_PATH = {"embedding_bag_quant", "fused_interaction_quant"}
 
 
 class PlainCalls:
@@ -318,7 +510,10 @@ class PlainCalls:
         for mod, name in ((bag_mod, "embedding_bag_reference"),
                           (inter_mod, "fused_interaction_reference"),
                           (scat_mod, "scatter_add_rows_reference"),
-                          (scat_mod, "scatter_write_rows_reference")):
+                          (scat_mod, "scatter_write_rows_reference"),
+                          (topk_mod, "mips_topk_reference"),
+                          (bag_mod, "embedding_bag_quant_reference"),
+                          (inter_mod, "fused_interaction_quant_reference")):
             real = getattr(mod, name)
 
             def counted(*a, _real=real, **kw):
@@ -446,6 +641,254 @@ def serve_phase(mode):
           f"init {t_init:.2f} s; launches {launches}; max err vs "
           f"forward_batch {worst:.3g}, vs cpu {cpu_err:.3g}")
     del model, cpu, engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+def two_tower_config(dcfg):
+    """The two-tower heads sized to the ranker's own inputs, as
+    examples/native/serve_dlrm.py's ``_build_cascade`` sizes them."""
+    return TwoTowerConfig(n_items=int(dcfg.embedding_size[0]), dim=TT_DIM,
+                          user_dense_dim=int(dcfg.mlp_bot[0]),
+                          user_embedding_size=list(dcfg.embedding_size),
+                          user_sparse_dim=8,
+                          user_bag_size=int(dcfg.embedding_bag_size))
+
+
+def cascade_phase():
+    """The retrieve -> rank cascade at full width, built as
+    ``_build_cascade`` builds it around ``random_benchmark()``: the
+    two-tower user head (batch 64) and item head (batch 8,192), the 1M
+    items encoded on the card into a 1-shard int8 index, and the "cat"
+    ranker behind ``InferenceEngine(ServeConfig(max_batch=256))``.
+    Returns the kernels' launch counts over the main path."""
+    dcfg = DLRMConfig.random_benchmark()
+    cfg = FFConfig(batch_size=256, seed=SEED, device="cuda",
+                   retrieve_deadline_ms=1000.0)
+    tcfg = two_tower_config(dcfg)
+    check(tcfg.n_items == N_ITEMS, f"index of {tcfg.n_items} items")
+    t0 = time.perf_counter()
+    ranker = FFModel(cfg)
+    build_dlrm(ranker, dcfg)
+    ranker.compile()
+    ranker.init_layers()
+
+    def head(name, batch):
+        m = FFModel(FFConfig(batch_size=batch, seed=SEED, device="cuda"))
+        build_two_tower(m, tcfg, head=name)
+        m.compile()
+        m.init_layers()
+        return m
+
+    user, item = head("user", FFConfig().batch_size), head("item", ITEM_BATCH)
+    transfer_tower_params(user, item)
+    torch.cuda.synchronize()
+    t_models = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    items = item_embeddings(item, tcfg)
+    torch.cuda.synchronize()
+    t_items = time.perf_counter() - t0
+    check(items.shape == (N_ITEMS, TT_DIM)
+          and bool(torch.isfinite(items).all()), "bad item embeddings")
+    # the bag kernel at the towers' own shapes, on their own tables:
+    # one 8,192-id chunk of the item head (d=32) and one request's ids of
+    # the 8 user tables, padded to the user head's batch (d=8)
+    one, _ = synthetic_batch(dcfg, 1, seed=SEED + 7)
+    ub = user.config.batch_size
+    user_ids = torch.zeros((ub, len(tcfg.user_embedding_size)),
+                           dtype=torch.int64, device="cuda")
+    user_ids[0] = torch.as_tensor(one["sparse"][0, :, 0])
+    tower_bags = [(f"item head (d={tcfg.item_raw_dim}, {ITEM_BATCH} ids)",
+                   item.params["item_emb"]["kernel"],
+                   torch.arange(61 * ITEM_BATCH, 62 * ITEM_BATCH,
+                                device="cuda")[:, None])]
+    for t, rows in enumerate(tcfg.user_embedding_size):
+        tower_bags.append((f"user table {t} (d={tcfg.user_sparse_dim}, "
+                           f"{ub} ids)", user.params[f"user_emb_{t}"]["kernel"],
+                           torch.remainder(user_ids[:, t:t + 1], rows)))
+    for what, tab, ids in tower_bags:
+        got = bag_mod.embedding_bag(tab, ids, "sum")
+        want = bag_mod.embedding_bag_reference(tab, ids, "sum")
+        # bag 1: both copy the one row
+        check(torch.equal(got, want), f"embedding_bag kernel disagrees "
+              f"with its plain version on the {what}")
+    print(f"cascade: embedding_bag kernel bitwise equal to its plain "
+          f"version on the item head's table (d={tcfg.item_raw_dim}, "
+          f"{ITEM_BATCH} ids) and each of the {len(tower_bags) - 1} user "
+          f"tables (d={tcfg.user_sparse_dim}, {ub} ids)")
+    del item, tower_bags
+
+    def encode(feats):
+        """The user head over the request's users, in batches of its
+        compiled batch, zero-padded: (n, dim) fp32 on the card."""
+        dense = np.asarray(feats["dense"], np.float32)
+        sparse = np.asarray(feats["sparse"], np.int64)
+        n, ub = dense.shape[0], user.config.batch_size
+        out = []
+        for lo in range(0, n, ub):
+            d, s = dense[lo:lo + ub], sparse[lo:lo + ub]
+            pad = ub - d.shape[0]
+            if pad:
+                d = np.concatenate([d, np.zeros((pad,) + d.shape[1:],
+                                                np.float32)])
+                s = np.concatenate([s, np.zeros((pad,) + s.shape[1:],
+                                                np.int64)])
+            out.append(user.forward_batch({"user_dense": d,
+                                           "user_sparse": s})[:ub - pad])
+        return torch.cat(out)
+
+    sset = ShardedMIPSIndex.standalone_set(max(1, cfg.retrieve_shards))
+    t0 = time.perf_counter()
+    index = ShardedMIPSIndex.build(sset, items)
+    torch.cuda.synchronize()
+    t_index = time.perf_counter() - t0
+    check(index.table.q.is_cuda and all(
+        r.shard._blocks[index.op_name].q.is_cuda for r in sset.shards),
+        "the index does not lie on the card")
+    expand = dlrm_candidate_features(T, list(dcfg.embedding_size))
+    data, _ = synthetic_batch(dcfg, CASCADE_REQUESTS + 8, seed=SEED + 6)
+    users = [{k: v[i:i + 1] for k, v in data.items()}
+             for i in range(CASCADE_REQUESTS + 8)]
+    warm, reqs = users[CASCADE_REQUESTS:], users[:CASCADE_REQUESTS]
+    results, errors = {}, []
+    engine = InferenceEngine(ranker, ServeConfig(max_batch=256))
+    with engine:
+        cascade = CascadeEngine(index, encode, engine, expand,
+                                CascadeConfig.from_config(cfg))
+        # warmup, one request at a time: the last six give a request's
+        # latency alone, with no other request in flight
+        alone = [cascade.predict(feats) for feats in warm][2:]
+        lookups0 = sum(r.shard.lookups for r in sset.shards)
+        # the main path: every count at 0 just before, read just after
+        for k in LAUNCHED:
+            k.launches = 0
+        with PlainCalls() as plain:
+            def client(c):
+                try:
+                    for i in range(c, len(reqs), 4):
+                        results[i] = cascade.predict(reqs[i])
+                except Exception as e:   # noqa: BLE001 — reported below
+                    errors.append(repr(e))
+
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=client, args=(c,))
+                       for c in range(4)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(300)
+            wall = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in LAUNCHED}
+        shard_calls = sum(r.shard.lookups for r in sset.shards) - lookups0
+        check(not errors and not any(t.is_alive() for t in threads),
+              f"cascade: requests failed: {errors[:3]}")
+        check(len(results) == len(reqs), "cascade: missing answers")
+        check(cascade.deadline_misses == 0
+              and not any(p.degraded for p in results.values()),
+              f"cascade: {cascade.deadline_misses} deadline misses, "
+              f"{sum(p.degraded for p in results.values())} degraded")
+        check(launches["mips_topk"] == shard_calls == len(reqs),
+              f"cascade: {launches['mips_topk']} top-k launches for "
+              f"{shard_calls} shard top-k calls and {len(reqs)} requests")
+        check(launches["embedding_bag"] > 0,
+              "cascade: the user tower's bag kernel never launched")
+        check(plain.calls == 0,
+              f"cascade: a plain version ran {plain.calls} times")
+        # the same requests again from one thread, timed the same way (all
+        # requests over the window's wall time), beside the 4 threads' rate
+        t0 = time.perf_counter()
+        serial = [cascade.predict(feats) for feats in reqs]
+        wall1 = time.perf_counter() - t0
+        check(cascade.deadline_misses == 0
+              and not any(p.degraded for p in serial),
+              "cascade: a one-thread request degraded or missed its "
+              "deadline")
+
+        # a sample: retrieval bitwise equal to the exact scan, ranker
+        # scores equal to forward_batch of the expanded rows
+        worst = 0.0
+        for i in range(0, len(reqs), 8):
+            p, feats = results[i], reqs[i]
+            check(p.ids.shape == (1, K) and np.isfinite(p.scores).all()
+                  and bool(np.all(np.diff(p.scores[0]) <= 0)),
+                  f"cascade: bad answer for request {i}")
+            want_s, want_i = index.exact_scan(encode(feats), K)
+            o = np.lexsort((p.ids[0], -p.retrieve_scores[0]))
+            check(np.array_equal(p.ids[0][o], want_i[0])
+                  and np.array_equal(
+                      p.retrieve_scores[0][o].view(np.uint32),
+                      want_s[0].view(np.uint32)),
+                  f"cascade: request {i}'s retrieval differs from "
+                  f"exact_scan")
+            want = ranker.forward_batch(expand(feats, p.ids)).cpu().numpy()
+            worst = max(worst, float(np.abs(p.scores[0] - want[:, 0]).max()))
+            check(np.allclose(p.scores[0], want[:, 0], rtol=1e-5, atol=1e-6),
+                  f"cascade: request {i}'s ranker scores differ from "
+                  f"forward_batch by {worst}")
+
+        # the same codes over 4 shards on the card: the same answers
+        sset4 = ShardedMIPSIndex.standalone_set(4)
+        index4 = ShardedMIPSIndex.build(sset4, index.table)
+        with sset4:
+            before = topk_mod.mips_topk.launches
+            for i in range(0, len(reqs), 4):
+                u = encode(reqs[i])
+                r1 = index.topk(u, K, deadline_s=1.0)
+                r4 = index4.topk(u, K, deadline_s=1.0)
+                check(not r4.degraded and np.array_equal(r4.ids, r1.ids)
+                      and np.array_equal(r4.scores.view(np.uint32),
+                                         r1.scores.view(np.uint32)),
+                      f"cascade: the 4-shard index differs from the "
+                      f"1-shard one for request {i}")
+            n4 = len(range(0, len(reqs), 4))
+            check(topk_mod.mips_topk.launches - before == 5 * n4,
+                  "cascade: the 4-shard index did not launch the top-k "
+                  "kernel once per shard")
+
+        # device time of one request, the top-k kernel's share of it
+        reps = 8
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for feats in reqs[:reps]:
+                cascade.predict(feats)
+            torch.cuda.synchronize()
+        ev = prof.key_averages()
+        dev_ms = sum(e.self_device_time_total for e in ev) / 1e3 / reps
+        score_ms, merge_ms = (sum(e.self_device_time_total for e in ev
+                                  if name in e.key) / 1e3 / reps
+                              for name in ("score_chunks", "merge_chunks"))
+        # where a request's host time goes (tracing inflates it)
+        with profile(activities=[ProfilerActivity.CPU]) as hprof:
+            for feats in reqs[:reps]:
+                cascade.predict(feats)
+        host = sorted(((e.self_cpu_time_total / reps, e.key)
+                       for e in hprof.key_averages()), reverse=True)
+        print("cascade: host per request, traced: " + ", ".join(
+            f"{k[:32]} {us:.0f} us" for us, k in host[:8]))
+        stats = engine.stats()
+    sset.close()
+    lat = sorted(p.latency_ms for p in results.values())
+    ret = float(np.median([p.stage_ms["retrieve"] for p in results.values()]))
+    rank = float(np.median([p.stage_ms["rank"] for p in results.values()]))
+    a_lat = float(np.median([p.latency_ms for p in alone]))
+    a_ret = float(np.median([p.stage_ms["retrieve"] for p in alone]))
+    a_rank = float(np.median([p.stage_ms["rank"] for p in alone]))
+    print(f"cascade: {len(reqs)} users (k={K}) from 4 threads in "
+          f"{wall:.3f} s ({len(reqs) / wall:.1f} req/s), from one thread "
+          f"in {wall1:.3f} s ({len(reqs) / wall1:.1f} req/s); 4 threads: "
+          f"predict p50 "
+          f"{percentile(lat, 50):.3f} ms, p99 {percentile(lat, 99):.3f} ms; "
+          f"median stage retrieve {ret:.3f} ms, rank {rank:.3f} ms; one "
+          f"request alone {a_lat:.3f} ms median (retrieve {a_ret:.3f} ms, "
+          f"rank {a_rank:.3f} ms); device "
+          f"per request {dev_ms:.3f} ms, of it the top-k kernel "
+          f"{score_ms + merge_ms:.4f} ms (scoring {score_ms:.4f} ms, "
+          f"merge passes {merge_ms:.4f} ms); ranker batches {stats['batches']}, fill "
+          f"{stats['batch_fill']:.3f}; build: models {t_models:.2f} s, "
+          f"item embeddings {t_items:.2f} s, index {t_index:.2f} s; "
+          f"launches {launches}; worst ranker error vs forward_batch "
+          f"{worst:.3g}; retrieval bitwise to exact_scan, 4 shards "
+          f"bitwise to 1")
+    del ranker, user, items, index, index4, cascade, engine
     torch.cuda.empty_cache()
     return launches
 
@@ -638,7 +1081,8 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    # training is timed first, before any profiler session
+    # training and the cascade are timed first, before any profiler
+    # session (the cascade profiles only after its timed requests)
     runs = [train_timed(mode) for mode in ("cat", "dot")]
     launches = {}
 
@@ -646,16 +1090,19 @@ def main() -> int:
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
 
+    add(cascade_phase())
     for run in runs:
         add(train_report(run))
     del runs
     rows = kernel_phase(dev)
+    rows.update(topk_kernel(dev))
     torch.cuda.empty_cache()
     for mode in ("cat", "dot"):
         add(serve_phase(mode))
     for name, r in rows.items():
         r["launches"] = launches.get(name, 0)
-        check(r["launches"] > 0, f"{name} never launched on the main path")
+        check(r["launches"] > 0 or name in OFF_PATH,
+              f"{name} never launched on the main path")
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -4,7 +4,8 @@ A subset of ``dlrm_flexflow_tpu.config.FFConfig``: the fields the serving
 and training slices read, under the same flag spellings
 (``-e/--epochs``, ``-b/--batch-size``, ``--lr/--learning-rate``,
 ``--wd/--weight-decay``, ``--seed``, ``--compute-dtype``,
-``--dense-embedding-update``, the ``--serve-*`` flags), plus ``device``.
+``--dense-embedding-update``, the ``--serve-*`` flags, ``--retrieve-k``,
+``--retrieve-deadline-ms``, ``--retrieve-shards``), plus ``device``.
 Unknown flags land in ``unparsed``, as in the JAX package. The flags of
 the training runtime that is not ported yet (checkpoints, supersteps,
 the anomaly sentinel, prefetch) raise ``NotImplementedError``.
@@ -55,6 +56,16 @@ class FFConfig:
     serve_cache_warm: str = ""
     serve_batching: str = "continuous"
     serve_replicas: int = 1
+    # ---- retrieval cascade (retrieve/) --------------------------------
+    # candidates out of the retrieve stage per user. --retrieve-k N.
+    retrieve_k: int = 100
+    # retrieve-stage deadline: the MIPS fan-out gets min(this, what is
+    # left of --serve-deadline-ms); the ranker gets the rest.
+    # --retrieve-deadline-ms MS.
+    retrieve_deadline_ms: float = 25.0
+    # index shards of a standalone (index-only) shard set; 0 means one.
+    # --retrieve-shards M.
+    retrieve_shards: int = 0
     device: str = "cuda"
     unparsed: List[str] = field(default_factory=list)
 
@@ -134,6 +145,23 @@ class FFConfig:
                 if kw["serve_replicas"] < 1:
                     raise ValueError(f"--serve-replicas expects N >= 1, "
                                      f"got {kw['serve_replicas']}")
+            elif a == "--retrieve-k":
+                kw["retrieve_k"] = int(take())
+                if kw["retrieve_k"] < 1:
+                    raise ValueError(f"--retrieve-k expects N >= 1, "
+                                     f"got {kw['retrieve_k']}")
+            elif a == "--retrieve-deadline-ms":
+                kw["retrieve_deadline_ms"] = float(take())
+                if kw["retrieve_deadline_ms"] < 0:
+                    raise ValueError(
+                        f"--retrieve-deadline-ms expects MS >= 0, got "
+                        f"{kw['retrieve_deadline_ms']}")
+            elif a == "--retrieve-shards":
+                kw["retrieve_shards"] = int(take())
+                if kw["retrieve_shards"] < 0:
+                    raise ValueError(
+                        f"--retrieve-shards expects N >= 0, got "
+                        f"{kw['retrieve_shards']}")
             else:
                 kw["unparsed"].append(a)
             i += 1

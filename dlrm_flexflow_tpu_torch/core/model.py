@@ -52,6 +52,11 @@ class FFModel:
         self.config = config or FFConfig()
         self.device = torch.device(self.config.device)
         if self.device.type == "cuda":
+            # "cuda" names the current card; tensors report its index,
+            # and swap_params compares devices
+            if self.device.index is None:
+                self.device = torch.device("cuda",
+                                           torch.cuda.current_device())
             # the slice computes in full fp32: a float32 matmul or
             # convolution must not drop to TF32 (PyTorch's default keeps
             # matmuls fp32 but lets cuDNN use TF32; both are set here)
@@ -110,6 +115,12 @@ class FFModel:
                       use_bias, kernel_initializer, bias_initializer,
                       name).outputs[0]
 
+    def embedding(self, input_tensor, num_entries, out_dim, aggr="sum",
+                  kernel_initializer=None, name=None):
+        from ..ops.embedding import Embedding
+        return Embedding(self, input_tensor, num_entries, out_dim, aggr,
+                         kernel_initializer, name).outputs[0]
+
     def embedding_stacked(self, input_tensor, num_tables, num_entries,
                           out_dim, aggr="sum", kernel_initializer=None,
                           name=None):
@@ -121,6 +132,10 @@ class FFModel:
     def concat(self, tensors, axis, name=None):
         from ..ops.tensor_ops import Concat
         return Concat(self, list(tensors), axis, name).outputs[0]
+
+    def split(self, input_tensor, sizes, axis, name=None):
+        from ..ops.tensor_ops import Split
+        return Split(self, input_tensor, sizes, axis, name).outputs
 
     def reshape(self, input_tensor, shape, name=None):
         from ..ops.tensor_ops import Reshape
@@ -219,15 +234,19 @@ class FFModel:
     # forward
     # ------------------------------------------------------------------
     def _device_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """Stage a host batch on ``self.device``: every model input, and
-        the ``"label"`` when the batch has one (int64 for the sparse
-        categorical loss, else float32)."""
+        """Stage a batch on ``self.device``: every model input, and the
+        ``"label"`` when the batch has one (int64 for the sparse
+        categorical loss, else float32). Inputs may be host arrays or
+        tensors already on a device (``item_embeddings`` feeds the item
+        head ids that never leave the card)."""
         out = {}
         for t in self.input_tensors:
             if t.name not in batch:
                 raise ValueError(f"batch is missing input {t.name!r}")
-            out[t.name] = torch.as_tensor(np.asarray(batch[t.name]),
-                                          dtype=t.dtype).to(self.device)
+            v = batch[t.name]
+            if not isinstance(v, torch.Tensor):
+                v = torch.as_tensor(np.asarray(v))
+            out[t.name] = v.to(device=self.device, dtype=t.dtype)
         if "label" in batch:
             ldt = (torch.int64 if self.loss_type
                    == losses_mod.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY

@@ -32,12 +32,29 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "quant_rows.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 
+// bag_kernel<kF32> is the gather described above. Its quantized twin,
+// bag_kernel<kInt8> or <kFp8>, replaces _bag_kernel_quant
+// (dlrm_flexflow_tpu/ops/pallas/embedding_kernel.py:189, entered through
+// embedding_bag_quant): the table holds 1-byte codes (int8, or fp8 e4m3)
+// and one fp32 scale per row, and
+//   out[r] = sum over j < bag of code(table[ids[r, j]]) * scale[ids[r, j]]
+// accumulated from 0 in bag order as acc = acc + code * scale, each step
+// rounded (no contraction into an FMA), then divided by bag for the
+// mean: the plain version's arithmetic, so at bag 1 the two agree bit for
+// bit. Its bound is a quarter of the fp32 gather's row bytes: each output
+// row reads bag rows of d code bytes and bag 4-byte scales, and writes
+// d*4 bytes; one thread takes 4 codes (a 4-byte load). The residual
+// rows_out is fp32-only.
+template <int kMode>
 __global__ void __launch_bounds__(kThreads)
-bag_kernel(const float4* __restrict__ table,
+bag_kernel(const void* __restrict__ table,
+           const float* __restrict__ scales,
            const int64_t* __restrict__ ids,
            float4* __restrict__ out,
            float4* __restrict__ rows_out,
@@ -49,12 +66,11 @@ bag_kernel(const float4* __restrict__ table,
   const int64_t* rid = ids + row * bag;
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int j = 0; j < bag; ++j) {
-    const float4 v = __ldg(table + rid[j] * vec_per_row + c);
-    if (rows_out) rows_out[(row * bag + j) * vec_per_row + c] = v;
-    acc.x += v.x;
-    acc.y += v.y;
-    acc.z += v.z;
-    acc.w += v.w;
+    const float4 v = load_row4<kMode>(table, scales, rid[j], vec_per_row, c);
+    if constexpr (kMode == kF32) {
+      if (rows_out) rows_out[(row * bag + j) * vec_per_row + c] = v;
+    }
+    add4(acc, v);
   }
   if (mean) {
     const float n = (float)bag;
@@ -64,6 +80,19 @@ bag_kernel(const float4* __restrict__ table,
     acc.w /= n;
   }
   out[g] = acc;
+}
+
+template <int kMode>
+int launch(const void* table, const void* scales, const void* ids, void* out,
+           void* rows_out, long long n_out, int bag, int dim, int mean,
+           void* stream) {
+  if (n_out <= 0) return 0;
+  const int vec = dim / 4;
+  const long long blocks = (n_out * vec + kThreads - 1) / kThreads;
+  bag_kernel<kMode><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      table, (const float*)scales, (const int64_t*)ids, (float4*)out,
+      (float4*)rows_out, n_out, bag, vec, mean);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -77,14 +106,23 @@ extern "C" {
 int ff_embedding_bag_forward(const void* table, const void* ids, void* out,
                              void* rows_out, long long n_out, int bag,
                              int dim, int mean, void* stream) {
-  if (n_out <= 0) return 0;
-  const int vec = dim / 4;
-  const long long total = n_out * vec;
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  bag_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float4*)table, (const int64_t*)ids, (float4*)out,
-      (float4*)rows_out, n_out, bag, vec, mean);
-  return (int)cudaGetLastError();
+  return launch<kF32>(table, nullptr, ids, out, rows_out, n_out, bag, dim,
+                      mean, stream);
+}
+
+// codes: (rows, dim) int8 or e4m3 bytes (fp8 != 0); scales: (rows,)
+// fp32; ids: (n_out, bag) int64 in [0, rows); out: (n_out, dim) fp32.
+// dim % 4 == 0, 4-byte aligned codes and 16-byte aligned out (the
+// wrapper checks). Launches on `stream`; returns cudaGetLastError().
+int ff_embedding_bag_quant_forward(const void* codes, const void* scales,
+                                   const void* ids, void* out,
+                                   long long n_out, int bag, int dim,
+                                   int mean, int fp8, void* stream) {
+  if (fp8)
+    return launch<kFp8>(codes, scales, ids, out, nullptr, n_out, bag, dim,
+                        mean, stream);
+  return launch<kInt8>(codes, scales, ids, out, nullptr, n_out, bag, dim,
+                       mean, stream);
 }
 
 const char* ff_error_string(int err) {

@@ -42,14 +42,24 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "quant_rows.cuh"
+
 namespace {
 
 constexpr int kTileB = 16;     // samples per block
 constexpr int kThreads = 256;  // output columns per block
 constexpr int kWarps = kThreads / 32;
 
+// kMode is the table's storage (quant_rows.cuh): kF32 for this kernel,
+// kInt8 or kFp8 for its quantized twin, replacing _interaction_kernel_quant
+// (dlrm_flexflow_tpu/ops/pallas/interaction_kernel.py:324). The twin
+// dequantizes X's rows as it gathers them: each bag row adds code * scale,
+// each step rounded, from 0 in bag order. From X on the math is the fp32
+// kernel's.
+template <int kMode>
 __global__ void __launch_bounds__(kThreads)
-interaction_kernel(const float* __restrict__ table,
+interaction_kernel(const void* __restrict__ table_v,
+                   const float* __restrict__ scales,
                    const int64_t* __restrict__ ids,
                    const float* __restrict__ bottom,
                    const float* __restrict__ w,
@@ -80,13 +90,8 @@ interaction_kernel(const float* __restrict__ table,
         acc = __ldg(reinterpret_cast<const float4*>(bottom + (int64_t)gs * d) + c);
       } else {
         const int64_t* rid = ids + ((int64_t)gs * T + (f - 1)) * bag;
-        for (int j = 0; j < bag; ++j) {
-          const float4 v = __ldg(reinterpret_cast<const float4*>(table + rid[j] * d) + c);
-          acc.x += v.x;
-          acc.y += v.y;
-          acc.z += v.z;
-          acc.w += v.w;
-        }
+        for (int j = 0; j < bag; ++j)
+          add4(acc, load_row4<kMode>(table_v, scales, rid[j], vec, c));
       }
     }
     reinterpret_cast<float4*>(xs + (s * F + f) * d)[c] = acc;
@@ -142,6 +147,33 @@ interaction_kernel(const float* __restrict__ table,
   }
 }
 
+long long smem_bytes(int T, int dim) {
+  const long long F = T + 1;
+  const long long P = F * (F - 1) / 2;
+  return (long long)sizeof(float) * kTileB * (F * dim + dim + P);
+}
+
+template <int kMode>
+int launch(const void* table, const void* scales, const void* ids,
+           const void* bottom, const void* w, const void* bias, void* out,
+           int B, int T, int bag, int dim, int H, int relu, void* stream) {
+  if (B <= 0 || H <= 0) return 0;
+  const long long smem = smem_bytes(T, dim);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        interaction_kernel<kMode>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((B + kTileB - 1) / kTileB, (H + kThreads - 1) / kThreads);
+  interaction_kernel<kMode>
+      <<<grid, kThreads, (size_t)smem, (cudaStream_t)stream>>>(
+          table, (const float*)scales, (const int64_t*)ids,
+          (const float*)bottom, (const float*)w, (const float*)bias,
+          (float*)out, B, T, bag, dim, H, relu);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -149,9 +181,7 @@ extern "C" {
 // Shared memory one block needs, in bytes (the wrapper refuses shapes
 // above the card's 227 KB per block).
 long long ff_fused_interaction_smem_bytes(int T, int dim) {
-  const long long F = T + 1;
-  const long long P = F * (F - 1) / 2;
-  return (long long)sizeof(float) * kTileB * (F * dim + dim + P);
+  return smem_bytes(T, dim);
 }
 
 // table: (rows, dim) fp32; ids: (B, T, bag) int64 in [0, rows);
@@ -164,20 +194,23 @@ int ff_fused_interaction_forward(const void* table, const void* ids,
                                  const void* bias, void* out, int B, int T,
                                  int bag, int dim, int H, int relu,
                                  void* stream) {
-  if (B <= 0 || H <= 0) return 0;
-  const long long smem = ff_fused_interaction_smem_bytes(T, dim);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        interaction_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid((B + kTileB - 1) / kTileB, (H + kThreads - 1) / kThreads);
-  interaction_kernel<<<grid, kThreads, (size_t)smem, (cudaStream_t)stream>>>(
-      (const float*)table, (const int64_t*)ids, (const float*)bottom,
-      (const float*)w, (const float*)bias, (float*)out, B, T, bag, dim, H,
-      relu);
-  return (int)cudaGetLastError();
+  return launch<kF32>(table, nullptr, ids, bottom, w, bias, out, B, T, bag,
+                      dim, H, relu, stream);
+}
+
+// The quantized twin: codes (rows, dim) int8 or e4m3 bytes (fp8 != 0),
+// scales (rows,) fp32, codes 4-byte aligned; the rest as above.
+int ff_fused_interaction_quant_forward(const void* codes, const void* scales,
+                                       const void* ids, const void* bottom,
+                                       const void* w, const void* bias,
+                                       void* out, int B, int T, int bag,
+                                       int dim, int H, int relu, int fp8,
+                                       void* stream) {
+  if (fp8)
+    return launch<kFp8>(codes, scales, ids, bottom, w, bias, out, B, T, bag,
+                        dim, H, relu, stream);
+  return launch<kInt8>(codes, scales, ids, bottom, w, bias, out, B, T, bag,
+                       dim, H, relu, stream);
 }
 
 const char* ff_error_string(int err) {

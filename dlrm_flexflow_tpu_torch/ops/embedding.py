@@ -1,6 +1,6 @@
-"""Stacked embedding bags (the counterpart of
-``dlrm_flexflow_tpu.ops.embedding.EmbeddingBagStacked``; ``Embedding``
-and ``EmbeddingBagConcat`` are not ported yet).
+"""Embedding bags: ``Embedding`` (one table) and ``EmbeddingBagStacked``
+(the counterparts of ``dlrm_flexflow_tpu.ops.embedding``;
+``EmbeddingBagConcat`` is not ported yet).
 
 The JAX op stores its T tables lane-packed as (T, rows/r, r·d) for the
 TPU's 128-lane tiles. The port keeps them as (T, rows, d) in LOGICAL
@@ -24,6 +24,46 @@ from .kernels.scatter_rows import scatter_add_rows, scatter_write_rows
 
 AGGR_MODE_SUM = "sum"
 AGGR_MODE_AVG = "avg"
+
+
+class Embedding(Op):
+    """One table, (num_entries, out_dim): int ids (batch, bag) ->
+    (batch, out_dim), the sum or mean over the bag. On a CUDA tensor the
+    gather runs on the embedding-bag kernel (any d % 4 == 0). Ids wrap
+    ``% num_entries`` (floor-mod), as the JAX op's XLA path does
+    (``jnp.take(mode="wrap")``); its Pallas path does not wrap, and the
+    two agree on in-range ids. The per-slot ``aggr="none"`` output, the
+    row-sharded lookup and the hot/cold hybrid are not ported yet."""
+
+    type_name = "Embed"
+
+    def __init__(self, model, input_tensor, num_entries: int, out_dim: int,
+                 aggr: str = AGGR_MODE_SUM, kernel_initializer=None,
+                 name: Optional[str] = None):
+        super().__init__(model, [input_tensor], name)
+        if aggr not in (AGGR_MODE_SUM, AGGR_MODE_AVG):
+            raise NotImplementedError(
+                f"Embedding aggr={aggr!r}: only sum and avg are ported "
+                f"(the per-slot 'none' output is ROADMAP queue 1 item 2)")
+        if input_tensor.num_dims != 2:
+            raise ValueError(f"Embedding expects (batch, bag) ids, got "
+                             f"{input_tensor.shape}")
+        self.num_entries = int(num_entries)
+        self.out_dim = int(out_dim)
+        self.aggr = aggr
+        self.kernel_initializer = kernel_initializer or GlorotUniform()
+        self.outputs = [self._make_output(
+            (input_tensor.shape[0], self.out_dim))]
+
+    def param_defs(self):
+        return {"kernel": ParamDef((self.num_entries, self.out_dim),
+                                   torch.float32, self.kernel_initializer)}
+
+    def apply(self, params, xs):
+        (idx,) = xs                       # (batch, bag)
+        ids = torch.remainder(idx.long(), self.num_entries)
+        return [EmbeddingBagFunction.apply(params["kernel"], ids,
+                                           self.aggr)]
 
 
 class EmbeddingBagStacked(Op):

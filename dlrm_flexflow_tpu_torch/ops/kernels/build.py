@@ -7,8 +7,8 @@ plain C interface (no PyTorch headers, so a build takes seconds):
          -Xcompiler -fPIC -Xptxas=-v -o build/kernels/lib<name>-<hash>.so
 
 into ``build/kernels/`` at the root of the checkout, at first use. The
-file name carries a hash of the source and the flags, so an edited source
-never loads a stale library. ``build_all`` starts one nvcc per source at
+file name carries a hash of the source, the shared headers (``csrc/*.cuh``)
+and the flags, so an edited source never loads a stale library. ``build_all`` starts one nvcc per source at
 once and waits for all of them; ``load`` builds one library if it is
 missing and loads it. Nothing here runs at import: the CPU tests import
 every module, and a machine without a GPU may have no nvcc. A missing nvcc, or a
@@ -33,9 +33,10 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-KERNELS = ("embedding_bag", "interaction", "scatter_rows")
+KERNELS = ("embedding_bag", "interaction", "scatter_rows", "topk")
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
@@ -56,7 +57,9 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers (csrc/*.cuh) are part of every source
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu",
+                                            *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
@@ -118,6 +121,14 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err:
         msg = lib.ff_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``. Wrappers launch from several
+    threads at once (serving clients, the shard pool), so the count is
+    taken under a lock."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def stream_of(t: torch.Tensor) -> int:

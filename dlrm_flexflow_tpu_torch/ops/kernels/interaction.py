@@ -14,6 +14,14 @@ TPU's zero-padded scatter matrix).
 tensors — it raises there if the kernel cannot be built or launched, and
 never falls back. ``fused_interaction.launches`` counts kernel launches.
 
+``fused_interaction_quant`` is the quantized twin, replacing
+``_interaction_kernel_quant`` (interaction_kernel.py:324) behind the JAX
+``fused_interaction_quant``: the table holds int8 or fp8-e4m3 codes and
+one fp32 scale per row, dequantized as X is gathered; from X on the math
+is the fp32 kernel's. As in the JAX package, no op calls it yet; its
+plain version is ``fused_interaction_quant_reference`` and
+``fused_interaction_quant.launches`` counts its launches.
+
 ``FusedInteractionFunction`` is the custom VJP of the JAX
 ``fused_interaction`` (``_fused_fwd``/``_fused_bwd``,
 interaction_kernel.py:260-310): the forward is ``fused_interaction``;
@@ -38,6 +46,9 @@ MAX_SMEM_BYTES = 232448
 _SIGNATURES = {
     "ff_fused_interaction_forward": (
         (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,),
+        ctypes.c_int),
+    "ff_fused_interaction_quant_forward": (
+        (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,),
         ctypes.c_int),
     "ff_fused_interaction_smem_bytes": (
         (ctypes.c_int, ctypes.c_int), ctypes.c_longlong),
@@ -68,9 +79,15 @@ def fused_interaction_reference(table, indices, bottom, w, bias,
     -> first top-MLP layer, fp32 throughout — the oracle of the JAX
     package's ``fused_interaction_reference``."""
     idx = _as_3d(indices).long()
-    batch, T, _ = idx.shape
-    F = T + 1
     emb = table[idx].float().sum(dim=2)                        # (b, T, d)
+    return _interact(emb, bottom, w, bias, relu)
+
+
+def _interact(emb, bottom, w, bias, relu: bool) -> torch.Tensor:
+    """From the bag sums (b, T, d) on: stack under the bottom row ->
+    X·Xᵀ -> tril -> concat -> first top-MLP layer, fp32."""
+    batch, T, _ = emb.shape
+    F = T + 1
     x = torch.cat([bottom.float()[:, None, :], emb], dim=1)    # (b, F, d)
     z = torch.bmm(x, x.transpose(1, 2))                        # (b, F, F)
     zt = z.reshape(batch, F * F)[:, tril_flat(F, z.device)]
@@ -79,15 +96,25 @@ def fused_interaction_reference(table, indices, bottom, w, bias,
     return torch.relu(y) if relu else y
 
 
-def fused_interaction(table, indices, bottom, w, bias,
-                      relu: bool = True) -> torch.Tensor:
-    """table (rows, d): the T tables stacked row-wise; indices (B, T) or
-    (B, T, bag) int, already offset into the stacked rows; bottom (B, d);
-    w (d + F(F-1)/2, H) with F = T + 1; bias (H,). Returns (B, H) fp32,
-    relu'd when ``relu``."""
+def fused_interaction_quant_reference(codes, scales, indices, bottom, w,
+                                      bias, relu: bool = True
+                                      ) -> torch.Tensor:
+    """Plain PyTorch version of the quantized twin: dequantize the
+    gathered rows (code times its row's scale, fp32), bag-sum, then the
+    fp32 composition — the oracle of the JAX package's
+    ``fused_interaction_quant_reference``."""
+    idx = _as_3d(indices).long()
+    picked = codes.view(torch.uint8)[idx].view(codes.dtype)
+    deq = picked.to(torch.float32) * \
+        scales.to(torch.float32)[idx][..., None]
+    return _interact(deq.sum(dim=2), bottom, w, bias, relu)
+
+
+def _check_shapes(name, table, indices, bottom, w, bias):
+    """(idx (B, T, bag), B, T, bag, d, H) after the shape checks."""
     idx = _as_3d(indices)
     if idx.dim() != 3 or bottom.dim() != 2 or table.dim() != 2:
-        raise ValueError(f"fused_interaction expects indices (B, T[, bag]), "
+        raise ValueError(f"{name} expects indices (B, T[, bag]), "
                          f"bottom (B, d) and table (rows, d), got "
                          f"{tuple(indices.shape)}, {tuple(bottom.shape)}, "
                          f"{tuple(table.shape)}")
@@ -95,12 +122,80 @@ def fused_interaction(table, indices, bottom, w, bias,
     d = table.shape[1]
     P = len(tril_pairs(T + 1))
     if bottom.shape != (B, d) or w.dim() != 2 or w.shape[0] != d + P:
-        raise ValueError(f"fused_interaction: bottom {tuple(bottom.shape)} "
-                         f"and w {tuple(w.shape)} do not fit B={B}, d={d}, "
+        raise ValueError(f"{name}: bottom {tuple(bottom.shape)} and w "
+                         f"{tuple(w.shape)} do not fit B={B}, d={d}, "
                          f"{P} pairs")
     H = w.shape[1]
     if bias.shape != (H,):
         raise ValueError(f"bias {tuple(bias.shape)} does not fit H={H}")
+    return idx, B, T, bag, d, H
+
+
+def fused_interaction_quant(codes, scales, indices, bottom, w, bias,
+                            relu: bool = True) -> torch.Tensor:
+    """``fused_interaction`` over a quantized table: codes (rows, d)
+    int8 or float8_e4m3fn, scales (rows,) fp32; everything else as
+    ``fused_interaction``."""
+    idx, B, T, bag, d, H = _check_shapes("fused_interaction_quant", codes,
+                                         indices, bottom, w, bias)
+    if codes.dtype not in (torch.int8, torch.float8_e4m3fn) \
+            or scales.shape != (codes.shape[0],):
+        raise ValueError(f"fused_interaction_quant takes int8 or "
+                         f"float8_e4m3fn codes and (rows,) scales, got "
+                         f"{codes.dtype} and {tuple(scales.shape)}")
+    if codes.device.type == "cpu":
+        return fused_interaction_quant_reference(codes, scales, idx, bottom,
+                                                 w, bias, relu)
+    if codes.device.type != "cuda":
+        raise ValueError(f"fused_interaction_quant runs on cpu or cuda, "
+                         f"not {codes.device}")
+    floats = (scales, bottom, w, bias)
+    if any(t.dtype != torch.float32 for t in floats) \
+            or idx.dtype != torch.int64:
+        raise ValueError("fused_interaction_quant kernel takes float32 "
+                         "scales, bottom, w and bias and int64 indices")
+    if any(t.device != codes.device for t in floats + (idx,)):
+        raise ValueError("fused_interaction_quant inputs lie on different "
+                         "devices")
+    if d % 4:
+        raise ValueError(f"fused_interaction_quant kernel needs d % 4 == 0 "
+                         f"(d={d})")
+    codes, scales, bottom, w, bias = (
+        t.contiguous() for t in (codes,) + floats)
+    idx = idx.contiguous()
+    if codes.data_ptr() % 4 or bottom.data_ptr() % 16:
+        raise ValueError("fused_interaction_quant kernel needs 4-byte "
+                         "aligned codes and a 16-byte aligned bottom")
+    out = torch.empty((B, H), dtype=torch.float32, device=codes.device)
+    if B == 0 or H == 0:
+        return out
+    lib = build.load("interaction", _SIGNATURES)
+    smem = lib.ff_fused_interaction_smem_bytes(T, d)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"fused_interaction_quant: T={T}, d={d} needs "
+                         f"{smem} B of shared memory per block, over "
+                         f"{MAX_SMEM_BYTES}")
+    err = lib.ff_fused_interaction_quant_forward(
+        codes.data_ptr(), scales.data_ptr(), idx.data_ptr(),
+        bottom.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        B, T, bag, d, H, int(relu), int(codes.dtype == torch.float8_e4m3fn),
+        build.stream_of(codes))
+    build.check(lib, err, "fused_interaction_quant kernel")
+    build.count_launch(fused_interaction_quant)
+    return out
+
+
+fused_interaction_quant.launches = 0
+
+
+def fused_interaction(table, indices, bottom, w, bias,
+                      relu: bool = True) -> torch.Tensor:
+    """table (rows, d): the T tables stacked row-wise; indices (B, T) or
+    (B, T, bag) int, already offset into the stacked rows; bottom (B, d);
+    w (d + F(F-1)/2, H) with F = T + 1; bias (H,). Returns (B, H) fp32,
+    relu'd when ``relu``."""
+    idx, B, T, bag, d, H = _check_shapes("fused_interaction", table,
+                                         indices, bottom, w, bias)
     if table.device.type == "cpu":
         return fused_interaction_reference(table, idx, bottom, w, bias, relu)
     if table.device.type != "cuda":
@@ -133,7 +228,7 @@ def fused_interaction(table, indices, bottom, w, bias,
         bias.data_ptr(), out.data_ptr(), B, T, bag, d, H, int(relu),
         build.stream_of(table))
     build.check(lib, err, "fused_interaction kernel")
-    fused_interaction.launches += 1
+    build.count_launch(fused_interaction)
     return out
 
 

@@ -135,7 +135,7 @@ def scatter_add_rows(table: torch.Tensor, ids: torch.Tensor,
         raise ValueError(f"scatter_add_rows runs on cpu or cuda, not "
                          f"{table.device}")
     out = _launch("ff_scatter_add_rows", table, ids, upd, None, scale, div)
-    scatter_add_rows.launches += 1
+    build.count_launch(scatter_add_rows)
     return out
 
 
@@ -152,7 +152,7 @@ def scatter_write_rows(table: torch.Tensor, ids: torch.Tensor,
         raise ValueError(f"scatter_write_rows runs on cpu or cuda, not "
                          f"{table.device}")
     out = _launch("ff_scatter_write_rows", table, ids, upd, fwd, scale, div)
-    scatter_write_rows.launches += 1
+    build.count_launch(scatter_write_rows)
     return out
 
 

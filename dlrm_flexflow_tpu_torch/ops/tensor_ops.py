@@ -1,11 +1,11 @@
-"""Shape operators: Concat and Reshape (the counterparts of
-``dlrm_flexflow_tpu.ops.tensor_ops``; Split, Flat, Transpose,
-IndexSelect and Reverse are not ported yet)."""
+"""Shape operators: Concat, Split and Reshape (the counterparts of
+``dlrm_flexflow_tpu.ops.tensor_ops``; Flat, Transpose, IndexSelect and
+Reverse are not ported yet)."""
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
@@ -31,6 +31,32 @@ class Concat(Op):
 
     def apply(self, params, xs):
         return [torch.cat(xs, dim=self.axis)]
+
+
+class Split(Op):
+    """The inverse of concat: ``sizes`` along ``axis``, one output
+    each (views of the input)."""
+
+    type_name = "Split"
+
+    def __init__(self, model, input_tensor, sizes: List[int], axis: int,
+                 name: Optional[str] = None):
+        super().__init__(model, [input_tensor], name)
+        nd = input_tensor.num_dims
+        self.axis = axis % nd
+        self.sizes = [int(s) for s in sizes]
+        if sum(self.sizes) != input_tensor.shape[self.axis]:
+            raise ValueError("split sizes must sum to the axis extent")
+        self.outputs = []
+        for i, s in enumerate(self.sizes):
+            shape = list(input_tensor.shape)
+            shape[self.axis] = s
+            self.outputs.append(
+                self._make_output(shape, input_tensor.dtype, i))
+
+    def apply(self, params, xs):
+        (x,) = xs
+        return list(torch.split(x, self.sizes, dim=self.axis))
 
 
 class Reshape(Op):

@@ -57,11 +57,16 @@ class DeadlineExceeded(TimeoutError):
 
 class Prediction(NamedTuple):
     """Per-request result: model scores for the request's rows, the
-    weight version that computed them, and the end-to-end latency."""
+    weight version that computed them, and the end-to-end latency.
+    ``versions`` (the per-shard version vector read) and ``degraded``
+    (default rows served for a dead shard) are the shard tier's; an
+    engine without one answers None and False, as the JAX engine does."""
 
     scores: np.ndarray
     version: int
     latency_ms: float
+    versions: Optional[Dict[int, int]] = None
+    degraded: bool = False
 
 
 def percentile(sorted_vals, p: float) -> Optional[float]:
@@ -328,7 +333,7 @@ class InferenceEngine:
         for r in live:
             r.future.set_result(Prediction(
                 scores[off:off + r.rows], self._version,
-                1e3 * (t_done - r.t0)))
+                1e3 * (t_done - r.t0), versions=None, degraded=False))
             off += r.rows
         with self._stats_lock:
             for r in live:

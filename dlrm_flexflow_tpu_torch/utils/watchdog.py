@@ -1,0 +1,56 @@
+"""Deadlines for the serving path (own copies of ``StallReport`` and
+``Deadline`` from ``dlrm_flexflow_tpu.utils.watchdog``; its worker
+watchdogs wait with the training runtime)."""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+
+
+@dataclass
+class StallReport:
+    """What a deadline saw when it expired."""
+
+    worker: str          # thread or stage name: ff-cascade, ...
+    waiting_for: str     # what the consumer needed from it
+    waited_s: float      # how long the consumer actually waited
+    deadline_s: float    # the configured deadline
+    detail: str = ""     # stage-specific context
+    alive: bool = True   # False = the worker died rather than wedged
+
+    def __str__(self) -> str:
+        state = "alive but unresponsive" if self.alive else "dead"
+        s = (f"worker {self.worker!r} ({state}) missed its "
+             f"{self.deadline_s:.3g}s liveness deadline: waited "
+             f"{self.waited_s:.3g}s for {self.waiting_for}")
+        if self.detail:
+            s += f" [{self.detail}]"
+        return s
+
+
+@dataclass
+class Deadline:
+    """A wall-clock budget: construct when the wait begins, poll
+    :meth:`remaining`, and hand :meth:`report` the description the typed
+    error carries. ``seconds <= 0`` means no deadline (never expires)."""
+
+    seconds: float
+    t0: float = field(default_factory=time.monotonic)
+
+    def elapsed(self) -> float:
+        return time.monotonic() - self.t0
+
+    def remaining(self) -> float:
+        """Seconds left (``inf`` when no deadline is configured)."""
+        if self.seconds <= 0:
+            return float("inf")
+        return self.seconds - self.elapsed()
+
+    def report(self, worker: str, waiting_for: str, detail: str = "",
+               alive: bool = True) -> StallReport:
+        """StallReport snapshot of this deadline's state."""
+        return StallReport(worker=worker, waiting_for=waiting_for,
+                           waited_s=self.elapsed(),
+                           deadline_s=self.seconds, detail=detail,
+                           alive=alive)

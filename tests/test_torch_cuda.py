@@ -15,6 +15,12 @@ card would add duplicates with atomics, in no fixed order): both scale
 first, then sum a row's duplicates in lookup order. A training step on
 the card against the same step on the CPU: rtol 1e-5, atol 1e-7
 (cuBLAS and the CPU's BLAS sum the layers' products in other orders).
+The int8 MIPS top-k is held BITWISE to its plain version, scores, ids
+and tie order (an exact integer dot and the same two fp32 products on
+both sides); the quantized bag bitwise at bag 1 (1e-6 above it, where
+torch sums the bag in another order); the quantized interaction as the
+fp32 one. The two-tower heads on the card against the CPU: rtol 1e-5,
+atol 1e-6.
 """
 
 import numpy as np
@@ -26,10 +32,21 @@ from dlrm_flexflow_tpu_torch.models.dlrm import (DLRMConfig, build_dlrm,
                                                  synthetic_batch)
 from dlrm_flexflow_tpu_torch.ops.kernels import build
 from dlrm_flexflow_tpu_torch.ops.kernels.embedding_bag import (
-    embedding_bag, embedding_bag_reference)
+    embedding_bag, embedding_bag_quant, embedding_bag_quant_reference,
+    embedding_bag_reference)
 from dlrm_flexflow_tpu_torch.core.optimizers import SGDOptimizer
 from dlrm_flexflow_tpu_torch.ops.kernels.interaction import (
-    fused_interaction, fused_interaction_reference)
+    fused_interaction, fused_interaction_quant,
+    fused_interaction_quant_reference, fused_interaction_reference)
+from dlrm_flexflow_tpu_torch.ops.kernels.topk import (
+    mips_topk, mips_topk_reference, quantize_query)
+from dlrm_flexflow_tpu_torch.quant import quantize_rows
+from dlrm_flexflow_tpu_torch.retrieve import (CascadeConfig, CascadeEngine,
+                                              ShardedMIPSIndex,
+                                              TwoTowerConfig,
+                                              build_two_tower,
+                                              item_embeddings,
+                                              transfer_tower_params)
 from dlrm_flexflow_tpu_torch.ops.kernels.scatter_rows import (
     scatter_add_rows, scatter_add_rows_reference, scatter_write_rows,
     scatter_write_rows_reference)
@@ -42,7 +59,126 @@ pytestmark = pytest.mark.cuda
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    # the plain top-k's fp32 code dot is exact only without TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
+
+
+def _index_codes(cuda, R, d, seed):
+    """Random int8 item codes and scales with planted duplicate rows
+    (exact score ties on distinct ids)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    codes, scales = quantize_rows(
+        torch.randn(R, d, device=cuda, generator=g), "int8")
+    dup = torch.randint(0, R, (R // 50,), device=cuda, generator=g)
+    codes[dup] = codes[0].clone()
+    scales[dup] = scales[0].clone()
+    return codes, scales
+
+
+@pytest.mark.parametrize("B,R,d,k,base", [(64, 1_000_000, 32, 100, 0),
+                                          (1, 1_000_000, 32, 100, 0),
+                                          (3, 5000, 128, 1000, 7),
+                                          (2, 37, 8, 100, 5)])
+def test_topk_kernel_matches_plain(cuda, B, R, d, k, base):
+    codes, scales = _index_codes(cuda, R, d, seed=B + R)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q, qs = quantize_query(torch.randn(B, d, device=cuda, generator=g))
+    before = mips_topk.launches
+    got_s, got_i = mips_topk(q, qs, codes, scales, k, base=base)
+    torch.cuda.synchronize()
+    assert mips_topk.launches == before + 1
+    want_s, want_i = mips_topk_reference(q, qs, codes, scales, k, base)
+    assert got_s.shape == (B, min(k, R))
+    assert torch.equal(got_i, want_i)
+    assert torch.equal(got_s.view(torch.int32), want_s.view(torch.int32))
+    if R <= 5000:
+        cs, ci = mips_topk_reference(q.cpu(), qs.cpu(), codes.cpu(),
+                                     scales.cpu(), k, base)
+        assert torch.equal(got_i.cpu(), ci)
+        assert torch.equal(got_s.cpu().view(torch.int32),
+                           cs.view(torch.int32))
+
+
+def test_topk_kernel_ties_negative_zero(cuda):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    # k = R: every row comes back, the +-0.0 ties among them
+    codes = torch.randint(-127, 128, (1000, 32), device=cuda,
+                          generator=g).to(torch.int8)
+    scales = torch.rand(1000, device=cuda, generator=g)
+    scales[::3] = 1e-30          # x 1e-20 underflows to 0 -> +-0.0
+    q = torch.randint(-127, 128, (2, 32), device=cuda,
+                      generator=g).to(torch.int8)
+    qs = torch.tensor([1e-20, 1e-20], device=cuda)
+    got_s, got_i = mips_topk(q, qs, codes, scales, 1000)
+    want_s, want_i = mips_topk_reference(q.cpu(), qs.cpu(), codes.cpu(),
+                                         scales.cpu(), 1000)
+    assert bool(((got_s == 0) & torch.signbit(got_s)).any())
+    assert torch.equal(got_i.cpu(), want_i)
+    assert torch.equal(got_s.cpu().view(torch.int32),
+                       want_s.view(torch.int32))
+
+
+def test_index_on_card_is_exact(cuda):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    items = torch.randn(100_000, 32, device=cuda, generator=g)
+    users = torch.randn(5, 32, device=cuda, generator=g)
+    sset = ShardedMIPSIndex.standalone_set(4)
+    idx = ShardedMIPSIndex.build(sset, items)
+    try:
+        before = mips_topk.launches
+        r = idx.topk(users, 100, deadline_s=60.0)
+        assert mips_topk.launches == before + 4 and not r.degraded
+        s, i = idx.exact_scan(users, 100)
+        np.testing.assert_array_equal(r.ids, i)
+        np.testing.assert_array_equal(r.scores.view(np.uint32),
+                                      s.view(np.uint32))
+    finally:
+        sset.close()
+
+
+@pytest.mark.parametrize("dt", ["int8", "fp8"])
+@pytest.mark.parametrize("aggr,bag", [("sum", 1), ("avg", 1), ("sum", 3),
+                                      ("avg", 3)])
+def test_bag_quant_kernel_matches_plain(cuda, dt, aggr, bag):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    codes, scales = quantize_rows(
+        torch.randn(50000, 64, device=cuda, generator=g), dt)
+    ids = torch.randint(0, 50000, (16384, bag), device=cuda, generator=g)
+    before = embedding_bag_quant.launches
+    got = embedding_bag_quant(codes, scales, ids, aggr)
+    torch.cuda.synchronize()
+    assert embedding_bag_quant.launches == before + 1
+    want = embedding_bag_quant_reference(codes, scales, ids, aggr)
+    if bag == 1:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dt", ["int8", "fp8"])
+@pytest.mark.parametrize("batch,T,bag,d,H", [(2048, 8, 1, 64, 1024),
+                                             (37, 3, 2, 128, 16)])
+def test_interaction_quant_kernel_matches_plain(cuda, dt, batch, T, bag, d,
+                                                H):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    rows = 500
+    P = (T + 1) * T // 2
+    codes, scales = quantize_rows(
+        0.5 * torch.randn(T * rows, d, device=cuda, generator=g), dt)
+    idx = (torch.randint(0, rows, (batch, T, bag), device=cuda, generator=g)
+           + (torch.arange(T, device=cuda) * rows)[None, :, None])
+    bottom = 0.5 * torch.randn(batch, d, device=cuda, generator=g)
+    w = torch.randn(d + P, H, device=cuda, generator=g) / (d + P) ** 0.5
+    bias = 0.1 * torch.randn(H, device=cuda, generator=g)
+    before = fused_interaction_quant.launches
+    got = fused_interaction_quant(codes, scales, idx, bottom, w, bias)
+    torch.cuda.synchronize()
+    assert fused_interaction_quant.launches == before + 1
+    torch.testing.assert_close(
+        got, fused_interaction_quant_reference(codes, scales, idx, bottom, w,
+                                               bias),
+        rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("aggr", ["sum", "avg"])
@@ -196,3 +332,84 @@ def test_training_step_on_card_matches_cpu(cuda, mode):
         for pn, v in p.items():
             torch.testing.assert_close(gpu.params[op][pn].cpu(), v,
                                        rtol=1e-5, atol=1e-7)
+
+
+TT = dict(n_items=3000, dim=32, user_dense_dim=8,
+          user_embedding_size=[500, 300], user_sparse_dim=8, user_mlp=[16],
+          item_raw_dim=32, item_mlp=[64])
+
+
+def _heads(device, params=None):
+    heads = {}
+    for head in ("user", "item"):
+        m = pt.FFModel(pt.FFConfig(batch_size=1024, device=device, seed=7))
+        build_two_tower(m, TwoTowerConfig(**TT), head=head)
+        m.compile()
+        if params is None:
+            m.init_layers()
+        else:
+            m.swap_params({op: {n: v.to(device) for n, v in p.items()}
+                           for op, p in params[head].items()})
+        heads[head] = m
+    return heads
+
+
+def test_two_tower_heads_and_cascade_on_card(cuda):
+    """The heads on the card (the Embedding op on the bag kernel, item ids
+    that stay on the card) against the same weights on the CPU, then a
+    cascade over a 2-shard index on the card: its retrieval equals
+    ``exact_scan`` bitwise and the top-k kernel launches per shard."""
+    gpu = _heads("cuda")
+    cpu = _heads("cpu", {h: m.params for h, m in gpu.items()})
+    before = embedding_bag.launches
+    items = item_embeddings(gpu["item"], TwoTowerConfig(**TT))
+    assert items.is_cuda and embedding_bag.launches > before
+    np.testing.assert_allclose(
+        items.cpu().numpy(),
+        item_embeddings(cpu["item"], TwoTowerConfig(**TT)).numpy(),
+        rtol=1e-5, atol=1e-6)
+    rng = np.random.RandomState(8)
+    feats = {"user_dense": rng.rand(5, 8).astype(np.float32),
+             "user_sparse": np.stack([rng.randint(0, 500, (5, 1)),
+                                      rng.randint(0, 300, (5, 1))], axis=1)}
+    users = gpu["user"].forward_batch(feats)
+    np.testing.assert_allclose(users.cpu().numpy(),
+                               cpu["user"].forward_batch(feats).numpy(),
+                               rtol=1e-5, atol=1e-6)
+    sset = ShardedMIPSIndex.standalone_set(2)
+    index = ShardedMIPSIndex.build(sset, items)
+    model = _model("cat", "cuda")
+    try:
+        with InferenceEngine(model, ServeConfig(max_batch=64)) as eng:
+            cascade = CascadeEngine(
+                index, lambda f: gpu["user"].forward_batch(f), eng,
+                lambda f, ids: synthetic_batch(
+                    DLRMConfig(**ARCH["cat"]), ids.size, seed=1)[0],
+                CascadeConfig(k=20, retrieve_deadline_ms=5000.0))
+            before = mips_topk.launches
+            p = cascade.predict({k: v[:2] for k, v in feats.items()})
+        assert mips_topk.launches == before + 2 and not p.degraded
+        assert p.ids.shape == (2, 20)
+        s, i = index.exact_scan(users[:2], 20)
+        for b in range(2):
+            o = np.lexsort((p.ids[b], -p.retrieve_scores[b]))
+            np.testing.assert_array_equal(p.ids[b][o], i[b])
+            np.testing.assert_array_equal(
+                p.retrieve_scores[b][o].view(np.uint32), s[b].view(np.uint32))
+    finally:
+        sset.close()
+
+
+def test_swap_params_takes_card_tensors(cuda):
+    """A model built for "cuda" accepts parameters that lie on the card
+    (they report the card's index), as ``transfer_tower_params`` hands
+    them over."""
+    src = _heads("cuda")["user"]
+    dst = pt.FFModel(pt.FFConfig(batch_size=1024, device="cuda", seed=9))
+    build_two_tower(dst, TwoTowerConfig(**TT), head="user")
+    dst.compile()
+    dst.init_layers()
+    assert transfer_tower_params(src, dst) == 4
+    for op, p in src.params.items():
+        for n, v in p.items():
+            assert torch.equal(dst.params[op][n], v)

@@ -1,4 +1,6 @@
-"""The port stands alone: it imports neither JAX nor the JAX package.
+"""The port stands alone: it imports neither JAX, nor ``ml_dtypes`` (the
+GPU machine has none: fp8 goes through ``torch.float8_e4m3fn``), nor the
+JAX package.
 
 The test process has imported both already (tests/conftest.py imports
 the JAX package for every test), so the import check runs in a fresh
@@ -18,7 +20,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "dlrm_flexflow_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "dlrm_flexflow_tpu")
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "dlrm_flexflow_tpu")
 
 
 def _env():
@@ -46,6 +48,10 @@ def test_import_leaves_jax_out():
             "import dlrm_flexflow_tpu_torch.core.metrics\n"
             "import dlrm_flexflow_tpu_torch.core.optimizers\n"
             "import dlrm_flexflow_tpu_torch.ops.kernels.scatter_rows\n"
+            "import dlrm_flexflow_tpu_torch.ops.kernels.topk\n"
+            "import dlrm_flexflow_tpu_torch.quant\n"
+            "import dlrm_flexflow_tpu_torch.retrieve\n"
+            "import dlrm_flexflow_tpu_torch.serve.shardtier\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad\n")
