@@ -8,9 +8,9 @@ Run from the root of a checkout, with one card visible:
 Phases:
 
 1. device — the card's name and power limit, as nvidia-smi reports them;
-2. build — every CUDA kernel of the serving, training and retrieval
-   paths, compiled from ``dlrm_flexflow_tpu_torch/csrc`` with nvcc for
-   sm_90a, one nvcc per source, all started together;
+2. build — every CUDA kernel of the serving, training, retrieval and
+   NMT paths, compiled from ``dlrm_flexflow_tpu_torch/csrc`` with nvcc
+   for sm_90a, one nvcc per source, all started together;
 3. train — the full-width ``DLRMConfig.random_benchmark()`` model in the
    "cat" graph and in the fused "dot" graph, fp32, batch 256, timed
    first, before the process's first profiler session (a session leaves
@@ -26,11 +26,24 @@ Phases:
    rows must stay bitwise. Ten steps run one at a time give a step's
    wall time alone, and a second window of 20 a second read of the
    back-to-back step (the host's speed drifts within a run); ten steps
-   under the profiler give the device's busy time, its idle share of
-   the back-to-back step, and (traced a second time with the host) the
-   host's top ops. One step on the card must equal the same step on the
+   queued behind a spin on the device (see phase 5) give the device's
+   time for a step that the host never holds back and its idle share of
+   the back-to-back step, ten under the profiler its busy time and top
+   kernels, and ten traced with the host the host's top ops. One step on the card must equal the same step on the
    CPU from the same weights and batch, at a reduced 8 × 65,536 rows
    (all widths full) so the CPU copy stays small;
+   then NMT at full width as benchmarks/run_zoo.py's ``bench_nmt`` trains
+   it (batch 64, sequences of 40, a 32k vocabulary, 2 x 1024 encoder and
+   decoder LSTMs, bf16 compute, ``SGDOptimizer(lr=0.1)``, sparse
+   categorical cross-entropy and accuracy), timed the same way: 20 steps
+   back to back with every count at 0 just before and read just after
+   (exactly 4 ``lstm_fwd``, 4 ``lstm_bwd`` and 2 ``scatter_add_rows``
+   launches a step, no plain version run, a finite loss that falls), ten
+   steps alone and a second window. Its queued and profiled steps
+   (device time, idle share, the host's top ops) and one fp32 step on the card against
+   the same step on the CPU at vocab 4,096, 2 x 256, seq 12, batch 16 run
+   last, after phase 6: in one run, profiler sessions begun after NMT's
+   recorded no device time for the scatter kernels;
 4. cascade — the retrieve -> rank cascade at full width, built as
    ``examples/native/serve_dlrm.py``'s ``_build_cascade`` builds it
    around ``random_benchmark()``: two-tower user and item heads, the 1M
@@ -48,13 +61,21 @@ Phases:
    retrieval must equal ``exact_scan`` bitwise and its ranker scores
    ``forward_batch`` of the expanded rows; the same codes over 4 shards
    must answer as 1 shard does, bitwise. Runs before any profiler
-   session, then profiles 8 requests for the top-k kernel's device time;
+   session, then traces 8 requests for the top-k kernel's device time;
 5. kernels — each kernel at its path's full-width shapes against its
    plain PyTorch version on the same inputs, then timed beside its
    bound, the plain version and, where one PyTorch call computes the
-   same function, that call: device time from the profiler's trace, and
-   the time of back-to-back calls between CUDA events, which the host's
-   launch rate bounds. The bag and the interaction at the serving shape
+   same function, that call: device time between two CUDA events around
+   back-to-back calls all enqueued behind a spin on the device, so that
+   no call waits for the host, and the same span without the spin, which
+   the host's launch rate bounds. Calls that cannot be queued (the
+   scatters' plain versions wait for the device, the plain LSTM backward
+   fills the launch queue) take the summed kernel time of the profiler's
+   trace instead, and their wall time where the trace holds no device
+   time, as happens in some runs on a sandboxed card; a line says which.
+   Otherwise the trace only splits a time into kernels (the scatter
+   kernel against its sort, the top-k kernel's passes, the top kernels
+   of a step), and prints "not measured" where it cannot. The bag and the interaction at the serving shape
    (B=2048, T=8, bag=1, d=64, 8M-row table; H=1024); the two scatter
    kernels on the same table at the training step's n = 2,048 lookups
    and at n = 16,384, with duplicate ids, held bitwise to their plain
@@ -64,7 +85,12 @@ Phases:
    (the bag also in fp8), which no path calls yet; the int8 MIPS top-k
    at B=64 and B=1 over a 1M x 32 index with planted duplicate rows,
    k=100, bitwise to its plain version on the card, and on one small
-   shape to the plain version on the CPU;
+   shape to the plain version on the CPU; the LSTM forward and backward
+   scans at the NMT step's per-layer shape (T=40, b=64, h=1024) in bf16
+   and fp32 wh and at a ragged T=7, b=24, h=136, against their plain
+   versions (ys, cs, dzs, and dxproj and dwh through the autograd
+   Function), timed beside cuDNN's LSTM layer (``torch.nn.LSTM``, which
+   the port never calls) against "x·wx product + kernel";
 6. serve — the same model in both graphs, each behind
    ``InferenceEngine(ServeConfig(max_batch=256))`` taking a few dozen
    requests of 1-64 rows from 4 threads. Every kernel's launch count is
@@ -72,8 +98,8 @@ Phases:
    graph must have launched and its plain version must not have run.
    Every response must equal ``forward_batch`` of its rows, and a small
    batch must agree with the same weights run on the CPU. One full
-   bucket (256 rows) is profiled: its wall time against the device time
-   of its kernels gives the device's idle share.
+   bucket (256 rows) is timed and traced: its wall time against the
+   device time of its kernels gives the device's idle share.
 
 The last two lines are a JSON object with every kernel's numbers and
 ``{"ok": true, "device": {...}}``. Without a GPU, or when any check
@@ -94,9 +120,11 @@ from dlrm_flexflow_tpu_torch import FFConfig, FFModel
 from dlrm_flexflow_tpu_torch.core.optimizers import SGDOptimizer
 from dlrm_flexflow_tpu_torch.models.dlrm import (DLRMConfig, build_dlrm,
                                                  synthetic_batch)
+from dlrm_flexflow_tpu_torch.models.nmt import build_nmt
 from dlrm_flexflow_tpu_torch.ops.kernels import build
 from dlrm_flexflow_tpu_torch.ops.kernels import embedding_bag as bag_mod
 from dlrm_flexflow_tpu_torch.ops.kernels import interaction as inter_mod
+from dlrm_flexflow_tpu_torch.ops.kernels import lstm as lstm_mod
 from dlrm_flexflow_tpu_torch.ops.kernels import scatter_rows as scat_mod
 from dlrm_flexflow_tpu_torch.ops.kernels import topk as topk_mod
 from dlrm_flexflow_tpu_torch.quant import quantize_rows
@@ -108,13 +136,19 @@ from dlrm_flexflow_tpu_torch.retrieve import (CascadeConfig, CascadeEngine,
                                               item_embeddings,
                                               transfer_tower_params)
 from dlrm_flexflow_tpu_torch.serve import InferenceEngine, ServeConfig
+from dlrm_flexflow_tpu_torch.ops.rnn import lstm_layer
 from dlrm_flexflow_tpu_torch.serve.engine import percentile
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, the fp32
-# rate outside the tensor cores and the dense int8 tensor-core rate
+# rate outside the tensor cores and the dense bf16 and int8 tensor-core
+# rates
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
+# torch.cuda._sleep spins for a count of SM cycles: at most the H100's
+# 1,980 MHz boost clock, so a spin lasts at least its nominal ms
+SPIN_CYCLES_PER_MS = 1_980_000
 SEED = 0
 B, T, BAG, D, ROWS, H = 2048, 8, 1, 64, 1_000_000, 1024
 ID_SETS = 20     # distinct id batches cycled while timing: 80 MB of rows,
@@ -129,6 +163,16 @@ N_ITEMS, TT_DIM, K = 1_000_000, 32, 100
 TOPK_B = 64          # the query batch of benchmarks/bench_retrieve.py
 ITEM_BATCH = 8192    # the item head's batch: 123 forward calls for 1M
 CASCADE_REQUESTS = 64
+# NMT training (benchmarks/run_zoo.py bench_nmt): batch 64, sequences of
+# 40, a 32k vocabulary, 2 x 1024 encoder and decoder LSTMs, bf16 compute,
+# SGD lr 0.1, sparse categorical cross-entropy
+NMT_B, NMT_SEQ, NMT_VOCAB, NMT_DIM, NMT_LAYERS, NMT_LR = (
+    64, 40, 32 * 1024, 1024, 2, 0.1)
+# per step: 4 LSTM layers (encoder and decoder, 2 each) forward and
+# backward, and the two "none" embeddings' touched-rows updates
+NMT_LAUNCHES = {"lstm_fwd": 4, "lstm_bwd": 4, "scatter_add_rows": 2}
+# the card-versus-CPU step, at a reduced size in fp32
+NMT_CHECK = dict(vocab=4096, dim=256, seq=12, batch=16, dtype="float32")
 
 
 class SmokeFailure(Exception):
@@ -148,45 +192,110 @@ def device_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def time_ms(fn, arg_sets, iters=60, warmup=6, match=None):
+def queued_ms(fn, arg_sets, iters, host_ms):
+    """(ms per call, why not) over up to `iters` calls cycling
+    `arg_sets`, timed between two CUDA events behind a spin on the
+    device, so that every call is enqueued before the device reaches the
+    first event and the span holds no wait for the host: the device time
+    of back-to-back calls. The spin lasts a few times what the host took
+    to enqueue the calls (`host_ms` for `iters` of them). Where the device
+    still overtook the host (a full launch queue blocks the host) the
+    window shrinks. `why not` is None when the calls were queued, else
+    why the span is their wall time instead, host waits included: a call
+    that waits for the device (a data-dependent output size), or a device
+    that overtook the host even one call at a time."""
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    n = iters
+    while True:
+        torch.cuda.synchronize()
+        spin_ms = 4 * host_ms * n / iters + 5
+        torch.cuda._sleep(int(spin_ms * SPIN_CYCLES_PER_MS))
+        t0.record()
+        fn(*arg_sets[0])
+        waits = t0.query()     # the first call waited for the spin
+        for i in range(1, n):
+            fn(*arg_sets[i % len(arg_sets)])
+        t1.record()
+        overtaken = t0.query()
+        torch.cuda.synchronize()
+        ms = t0.elapsed_time(t1) / n
+        if waits:
+            return ms, ("the device reached the calls before the host had "
+                        "enqueued one (a call waits for the device or fills "
+                        "the launch queue)")
+        if not overtaken:
+            return ms, None
+        if n == 1:
+            return ms, "the device overtook the host"
+        n = max(1, n // 8)
+
+
+def time_ms(fn, arg_sets, iters=60, warmup=6, what="a call"):
     """(device ms, call ms) per call over `iters` calls cycling
-    `arg_sets`, after a warmup. Device ms is the summed time of every
-    kernel the calls ran (only those whose name holds `match`, when
-    given), from the profiler's CUPTI trace; call ms is the span of
-    back-to-back calls between two CUDA events, which the host's launch
-    rate bounds when the calls are short."""
+    `arg_sets`, after a warmup. Device ms is ``queued_ms``'s; where the
+    calls cannot be queued, the summed kernel time of the profiler's
+    trace, and where that holds no device time either, the calls' wall
+    time; a line says which. Call ms is the span of back-to-back calls
+    between two CUDA events, which the host's launch rate bounds when the
+    calls are short."""
     for i in range(warmup):
         fn(*arg_sets[i % len(arg_sets)])
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    h0 = time.perf_counter()
     t0.record()
     for i in range(iters):
         fn(*arg_sets[i % len(arg_sets)])
     t1.record()
+    host_ms = (time.perf_counter() - h0) * 1e3
     torch.cuda.synchronize()
     call_ms = t0.elapsed_time(t1) / iters
+    dev_ms, why_not = queued_ms(fn, arg_sets, iters, host_ms)
+    if why_not:
+        traced = traced_device_us(fn, arg_sets, iters)
+        if traced is None:
+            print(f"  ({what}: {why_not}, and the trace holds no device "
+                  f"time, so its device ms is the wall time of "
+                  f"back-to-back calls)")
+        else:
+            dev_ms = sum(traced.values()) / 1e3
+            print(f"  ({what}: {why_not}, so its device ms is the summed "
+                  f"kernel time of the profiler's trace)")
+    return dev_ms, call_ms
+
+
+def traced_device_us(fn, arg_sets, reps, match=None):
+    """Device microseconds per call by kernel name, from the profiler's
+    CUPTI trace of `reps` calls cycling `arg_sets` (only kernels whose
+    name holds `match`, when given); None when the trace holds no device
+    time, as happens in some runs on a sandboxed card. What it gives are
+    breakdowns printed beside the event timings, never those timings."""
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
+        for i in range(reps):
             fn(*arg_sets[i % len(arg_sets)])
         torch.cuda.synchronize()
-    device_us = sum(e.self_device_time_total for e in prof.key_averages()
-                    if match is None or match in e.key)
-    check(device_us > 0, "the profiler recorded no device time")
-    return device_us / 1e3 / iters, call_ms
+    per_kernel = {e.key: e.self_device_time_total / reps
+                  for e in prof.key_averages()
+                  if e.self_device_time_total > 0
+                  and (match is None or match in e.key)}
+    return per_kernel or None
 
 
 def timed(prefix, fn, arg_sets):
-    dev_ms, call_ms = time_ms(fn, arg_sets)
+    dev_ms, call_ms = time_ms(fn, arg_sets,
+                              what=f"{prefix.rstrip('_') or 'kernel'} call")
     return {f"{prefix}ms": dev_ms, f"{prefix}call_ms": call_ms}
 
 
-def bound(nbytes, flops, int8_ops=0):
+def bound(nbytes, flops=0, int8_ops=0, bf16_flops=0):
     """The least time in ms for the bytes (each input read once, each
     output written once) and the operations (fp32 outside the tensor
-    cores, int8 on them), and which of the two bounds it."""
+    cores, bf16 and int8 on them), and which of the two bounds it."""
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = (flops / PEAK_FP32_FLOPS + int8_ops / PEAK_INT8_OPS) * 1e3
+    t_ops = (flops / PEAK_FP32_FLOPS + int8_ops / PEAK_INT8_OPS
+             + bf16_flops / PEAK_BF16_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -472,13 +581,15 @@ def scatter_kernels(dev, gen, table):
                          sets),
                  **timed("library_", lambda ids, _u, _f, scaled:
                          scratch.index_add_(0, ids, scaled), sets)}
-            r["kernel_only_ms"] = time_ms(
-                lambda *a: call(kern, scratch, *a), sets,
-                match="scatter_rows_kernel")[0]
+            traced = traced_device_us(
+                lambda *a: call(kern, scratch, *a), sets, 60,
+                match="scatter_rows_kernel")
+            only = ("not measured (no device time traced)" if traced is None
+                    else f"{sum(traced.values()) / 1e3:.4f} ms traced")
             print(f"kernel {name} at n={n} ({m} distinct rows): device "
-                  f"{r['ms']:.4f} ms, of it the scatter kernel "
-                  f"{r['kernel_only_ms']:.4f} ms and the stable sort the "
-                  f"rest (call {r['call_ms']:.4f} ms); plain "
+                  f"{r['ms']:.4f} ms, of it the scatter kernel {only} and "
+                  f"the stable sort the rest (call {r['call_ms']:.4f} ms); "
+                  f"plain "
                   f"{r['plain_ms']:.4f} ms (call {r['plain_call_ms']:.4f} "
                   f"ms); index_add_ {r['library_ms']:.4f} ms (call "
                   f"{r['library_call_ms']:.4f} ms); bound "
@@ -489,11 +600,170 @@ def scatter_kernels(dev, gen, table):
     return rows
 
 
+def lstm_inputs(gen, dev, T, b, h, dtype):
+    """xproj (T, b, 4h), wh (h, 4h) drawn as the LSTM ops draw it
+    (Glorot), in `dtype`, and dys (T, b, h)."""
+    lim = (6.0 / (5 * h)) ** 0.5
+    xp = torch.randn(T, b, 4 * h, device=dev, generator=gen)
+    wh = (torch.rand(h, 4 * h, device=dev, generator=gen) * 2 - 1) * lim
+    dys = torch.randn(T, b, h, device=dev, generator=gen)
+    return xp, wh.to(dtype), dys
+
+
+def lstm_check(gen, dev, T, b, h, dtype):
+    """Both LSTM kernels against their plain versions on the card: ys
+    and cs of the forward, dzs of the backward (from the plain
+    forward's residuals), and dxproj and dwh through the autograd
+    Function. Returns the largest error of each."""
+    xp, wh, dys = lstm_inputs(gen, dev, T, b, h, dtype)
+    ys, cs = lstm_mod.lstm_fwd(xp, wh)
+    ys_r, cs_r = lstm_mod.lstm_fwd_reference(xp, wh)
+    dzs = lstm_mod.lstm_bwd(xp, wh, ys_r, cs_r, dys)
+    dzs_r = lstm_mod.lstm_bwd_reference(xp, wh, ys_r, cs_r, dys)
+    grads = []
+    for fn in (lstm_mod.lstm_scan, lstm_mod.lstm_scan_reference):
+        x, w = xp.clone().requires_grad_(), wh.clone().requires_grad_()
+        fn(x, w).backward(dys)
+        grads.append((x.grad, w.grad.float()))
+    torch.cuda.synchronize()
+    err = {k: float((a - r).abs().max()) for k, a, r in (
+        ("ys", ys, ys_r), ("cs", cs, cs_r), ("dzs", dzs, dzs_r),
+        ("dxproj", grads[0][0], grads[1][0]))}
+    scale = float(grads[1][1].abs().max())
+    err["dwh_rel"] = float((grads[0][1] - grads[1][1]).abs().max()) / scale
+    # fp32: the same arithmetic, the recurrent products summed in another
+    # order. bf16: the carried h (or dz) is rounded to bf16 before every
+    # product, and a sum that lands near the midpoint of two bf16 values
+    # can round the other way in one version, moving that operand by one
+    # bf16 step (2^-8 of it) and the gates after it; dwh is rounded to
+    # bf16 after an fp32 product of operands that differ so: two bf16
+    # steps of its largest entry
+    bf16 = dtype == torch.bfloat16
+    tol, dwh_tol = (4e-3, 2 ** -6) if bf16 else (1e-5, 1e-5)
+    what = f"T={T}, b={b}, h={h}, {str(dtype)[6:]} wh"
+    for k, v in err.items():
+        check(np.isfinite(v) and v <= (dwh_tol if k == "dwh_rel" else tol),
+              f"LSTM kernels disagree with their plain versions at "
+              f"{what}: {k} error {v:.3g}")
+    print(f"kernels lstm_fwd/lstm_bwd at {what}: max abs err "
+          + ", ".join(f"{k} {v:.3g}" for k, v in err.items())
+          + f" (tolerance {tol:g}; dwh {dwh_tol:g} of its largest)")
+    return err
+
+
+def lstm_kernels(dev):
+    """Kernels 8 and 9, the LSTM forward and backward scans, at the NMT
+    training step's per-layer shape (T=40, b=64, h=1024) in bf16 wh (the
+    path's) and in fp32, and at a ragged shape (T=7, b=24, h=136),
+    against their plain versions; then timed beside their bounds, the
+    plain versions and cuDNN's LSTM layer (``torch.nn.LSTM``), whose
+    forward also computes the input product x·wx: it stands beside
+    "x·wx product + kernel" at the encoder's input width d=1024."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    T, b, h, d = NMT_SEQ, NMT_B, NMT_DIM, NMT_DIM
+    err = {}
+    for dt in (torch.bfloat16, torch.float32):
+        err[dt] = lstm_check(gen, dev, T, b, h, dt)
+        lstm_check(gen, dev, 7, 24, 136, dt)
+    rows = {}
+    for dt in (torch.bfloat16, torch.float32):
+        sets = []
+        for _ in range(3):     # 3 x 134 MB of inputs: more than the L2
+            xp, wh, dys = lstm_inputs(gen, dev, T, b, h, dt)
+            sets.append((xp, wh, dys, *lstm_mod.lstm_fwd(xp, wh)))
+        fwd = time_ms(lambda xp, wh, *_: lstm_mod.lstm_fwd(xp, wh), sets,
+                      iters=20, warmup=2)
+        bwd = time_ms(lambda xp, wh, dys, ys, cs: lstm_mod.lstm_bwd(
+            xp, wh, ys, cs, dys), sets, iters=20, warmup=2)
+        pfwd = time_ms(lambda xp, wh, *_: lstm_mod.lstm_fwd_reference(
+            xp, wh), sets, iters=4, warmup=1, what="plain lstm_fwd")
+        pbwd = time_ms(lambda xp, wh, dys, ys, cs:
+                       lstm_mod.lstm_bwd_reference(xp, wh, ys, cs, dys),
+                       sets, iters=4, warmup=1, what="plain lstm_bwd")
+        # cuDNN's layer and the port's layer (product + kernel) on the
+        # same weights: weight_ih = wxᵀ, weight_hh = whᵀ, bias_ih = bias
+        x = torch.randn(b, T, d, device=dev, generator=gen)
+        wx = (torch.rand(d, 4 * h, device=dev, generator=gen) * 2 - 1) \
+            * (6.0 / (d + 4 * h)) ** 0.5
+        bias = 0.01 * torch.randn(4 * h, device=dev, generator=gen)
+        wh = sets[0][1].float()
+        rnn = torch.nn.LSTM(d, h).to(dev)
+        with torch.no_grad():
+            rnn.weight_ih_l0.copy_(wx.t())
+            rnn.weight_hh_l0.copy_(wh.t())
+            rnn.bias_ih_l0.copy_(bias)
+            rnn.bias_hh_l0.zero_()
+        rnn = rnn.to(dt)
+        rnn.flatten_parameters()
+        xt = x.transpose(0, 1).contiguous().to(dt).requires_grad_()
+        go = torch.randn(T, b, h, device=dev, generator=gen)
+        leaves = [t.clone().requires_grad_() for t in (x, wx, wh, bias)]
+        go_bt = go.transpose(0, 1).contiguous()
+        mine = lstm_layer(*leaves, dt)
+        theirs = rnn(xt)[0].float().transpose(0, 1)
+        torch.cuda.synchronize()
+        layer_err = float((mine.detach() - theirs.detach()).abs().max())
+        lib_fwd = time_ms(lambda: rnn(xt), [()], iters=20, warmup=2)
+        out = rnn(xt)[0]
+        params = [xt] + list(rnn.parameters())
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            out, params, go.to(dt), retain_graph=True), [()], iters=20,
+            warmup=2)
+        lib_both = time_ms(lambda: torch.autograd.grad(
+            rnn(xt)[0], params, go.to(dt)), [()], iters=20, warmup=2)
+        my_fwd = time_ms(lambda: lstm_layer(*leaves, dt), [()], iters=20,
+                         warmup=2)
+        my_both = time_ms(lambda: torch.autograd.grad(
+            lstm_layer(*leaves, dt), leaves, go_bt), [()], iters=20,
+            warmup=2)
+        name = str(dt)[6:]
+        del sets, rnn, out, params, leaves, mine, theirs
+        torch.cuda.empty_cache()
+        # the bytes each function must move and the recurrent products
+        # this run's data needs: none at the first step of the forward
+        # (h = 0) nor at the last of the backward's carry (dz = 0)
+        wb = h * 4 * h * (2 if dt == torch.bfloat16 else 4)
+        tbh, prod = T * b * h * 4, 2 * b * h * 4 * h * (T - 1)
+        ops = ({"bf16_flops": prod} if dt == torch.bfloat16
+               else {"flops": prod})
+        fb = bound(4 * tbh + wb + 2 * tbh, **ops)
+        ops2 = {k: 2 * v for k, v in ops.items()}
+        bb = bound(4 * tbh + wb + 3 * tbh + 4 * tbh, **ops2)
+        print(f"kernel lstm_fwd ({name} wh): device {fwd[0]:.4f} ms (call "
+              f"{fwd[1]:.4f} ms), plain {pfwd[0]:.4f} ms (call "
+              f"{pfwd[1]:.4f} ms), bound {1e3 * fb[0]:.2f} us ({fb[1]}); "
+              f"lstm_bwd: device {bwd[0]:.4f} ms (call {bwd[1]:.4f} ms), "
+              f"plain {pbwd[0]:.4f} ms (call {pbwd[1]:.4f} ms), bound "
+              f"{1e3 * bb[0]:.2f} us ({bb[1]})")
+        print(f"layer d={d} ({name}): cuDNN LSTM forward {lib_fwd[0]:.4f} "
+              f"ms, backward {lib_bwd[0]:.4f} ms, forward+backward "
+              f"{lib_both[0]:.4f} ms; x·wx product + kernel forward "
+              f"{my_fwd[0]:.4f} ms, forward+backward {my_both[0]:.4f} ms; "
+              f"max abs difference of the outputs {layer_err:.3g}")
+        if dt == torch.bfloat16:
+            src = "dlrm_flexflow_tpu_torch/csrc/lstm.cu"
+            pallas = "dlrm_flexflow_tpu/ops/pallas/lstm_kernel.py"
+            for kname, line, t, p_, lib, bd, e in (
+                    ("lstm_fwd", 44, fwd, pfwd, lib_fwd, fb,
+                     max(err[dt]["ys"], err[dt]["cs"])),
+                    ("lstm_bwd", 95, bwd, pbwd, lib_bwd, bb,
+                     err[dt]["dzs"])):
+                rows[kname] = {
+                    "name": kname, "route": "cuda", "source": src,
+                    "replaces": f"{pallas}:{line}", "max_abs_err": e,
+                    "bound_ms": bd[0], "bound_by": bd[1],
+                    "ms": t[0], "call_ms": t[1], "plain_ms": p_[0],
+                    "plain_call_ms": p_[1], "library_ms": lib[0],
+                    "library_call_ms": lib[1]}
+    return rows
+
+
 # every kernel wrapper of the port, each counting its own launches
 LAUNCHED = (bag_mod.embedding_bag, inter_mod.fused_interaction,
             scat_mod.scatter_add_rows, scat_mod.scatter_write_rows,
             topk_mod.mips_topk, bag_mod.embedding_bag_quant,
-            inter_mod.fused_interaction_quant)
+            inter_mod.fused_interaction_quant, lstm_mod.lstm_fwd,
+            lstm_mod.lstm_bwd)
 # the kernels no path of the port calls yet, as in the JAX package
 OFF_PATH = {"embedding_bag_quant", "fused_interaction_quant"}
 
@@ -513,7 +783,9 @@ class PlainCalls:
                           (scat_mod, "scatter_write_rows_reference"),
                           (topk_mod, "mips_topk_reference"),
                           (bag_mod, "embedding_bag_quant_reference"),
-                          (inter_mod, "fused_interaction_quant_reference")):
+                          (inter_mod, "fused_interaction_quant_reference"),
+                          (lstm_mod, "lstm_fwd_reference"),
+                          (lstm_mod, "lstm_bwd_reference")):
             real = getattr(mod, name)
 
             def counted(*a, _real=real, **kw):
@@ -608,18 +880,14 @@ def serve_phase(mode):
     full = {k: v[:256] for k, v in data.items()}
     model.forward_bucket(full, 256).cpu()
     reps = 20
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            model.forward_bucket(full, 256).cpu()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-    per_kernel = sorted(((e.self_device_time_total / reps, e.key)
-                         for e in prof.key_averages()), reverse=True)
-    dev_ms = sum(us for us, _ in per_kernel) / 1e3
-    top = ", ".join(f"{k[:40]} {us:.1f} us" for us, k in per_kernel[:4])
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        model.forward_bucket(full, 256).cpu()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    traced = traced_device_us(
+        lambda: model.forward_bucket(full, 256).cpu(), [()], reps)
     print(f"serve {mode}: forward_bucket(256 rows) wall {wall_ms:.3f} ms, "
-          f"device {dev_ms:.3f} ms, device idle "
-          f"{100 * (1 - dev_ms / wall_ms):.1f}%; top: {top}")
+          + device_share(traced, wall_ms, 4))
 
     # the same weights on the CPU (plain versions, MKL) on a small batch
     cpu = FFModel(FFConfig(batch_size=256, seed=SEED, device="cpu"))
@@ -847,15 +1115,17 @@ def cascade_phase():
 
         # device time of one request, the top-k kernel's share of it
         reps = 8
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for feats in reqs[:reps]:
-                cascade.predict(feats)
-            torch.cuda.synchronize()
-        ev = prof.key_averages()
-        dev_ms = sum(e.self_device_time_total for e in ev) / 1e3 / reps
-        score_ms, merge_ms = (sum(e.self_device_time_total for e in ev
-                                  if name in e.key) / 1e3 / reps
-                              for name in ("score_chunks", "merge_chunks"))
+        traced = traced_device_us(cascade.predict,
+                                  [(f,) for f in reqs[:reps]], reps)
+        if traced is None:
+            device = "device not measured (no device time traced)"
+        else:
+            dev_ms, score_ms, merge_ms = (
+                sum(us for k, us in traced.items() if name in k) / 1e3
+                for name in ("", "score_chunks", "merge_chunks"))
+            device = (f"device per request {dev_ms:.3f} ms, of it the "
+                      f"top-k kernel {score_ms + merge_ms:.4f} ms (scoring "
+                      f"{score_ms:.4f} ms, merge passes {merge_ms:.4f} ms)")
         # where a request's host time goes (tracing inflates it)
         with profile(activities=[ProfilerActivity.CPU]) as hprof:
             for feats in reqs[:reps]:
@@ -879,10 +1149,8 @@ def cascade_phase():
           f"{percentile(lat, 50):.3f} ms, p99 {percentile(lat, 99):.3f} ms; "
           f"median stage retrieve {ret:.3f} ms, rank {rank:.3f} ms; one "
           f"request alone {a_lat:.3f} ms median (retrieve {a_ret:.3f} ms, "
-          f"rank {a_rank:.3f} ms); device "
-          f"per request {dev_ms:.3f} ms, of it the top-k kernel "
-          f"{score_ms + merge_ms:.4f} ms (scoring {score_ms:.4f} ms, "
-          f"merge passes {merge_ms:.4f} ms); ranker batches {stats['batches']}, fill "
+          f"rank {a_rank:.3f} ms); {device}; ranker batches "
+          f"{stats['batches']}, fill "
           f"{stats['batch_fill']:.3f}; build: models {t_models:.2f} s, "
           f"item embeddings {t_items:.2f} s, index {t_index:.2f} s; "
           f"launches {launches}; worst ranker error vs forward_batch "
@@ -910,6 +1178,77 @@ def train_model(mode, device, rows=ROWS):
     return model, cfg
 
 
+def timed_steps(model, db, losses):
+    """The main path of a training loop: TRAIN_STEPS steps back to back
+    on the staged batch ``db``, timed as one window that ends in a
+    synchronisation, with every launch count at 0 just before and read
+    just after and the plain versions counted; then ten steps alone, each
+    from an idle device to its end (what a step costs when nothing
+    overlaps it with the next one's launches), and a second window (the
+    host's speed drifts within a run). Appends each step's loss to
+    ``losses``."""
+    def window():
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            losses.append(model.train_batch_device(db)["loss"])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+
+    for k in LAUNCHED:
+        k.launches = 0
+    with PlainCalls() as plain:
+        windows = [window()]
+    launches = {k.__name__: k.launches for k in LAUNCHED}
+    walls = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        model.train_batch_device(db)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    windows.append(window())
+    return {"launches": launches, "plain_calls": plain.calls,
+            "windows": windows, "walls": walls}
+
+
+def device_share(traced, wall_ms, ntop):
+    """Text for the device's busy ms out of `wall_ms` and its top
+    kernels, from ``traced_device_us``'s per-kernel microseconds."""
+    if traced is None:
+        return "device busy not measured (no device time traced)"
+    busy = sum(traced.values()) / 1e3
+    top = sorted(((us, k) for k, us in traced.items()), reverse=True)
+    return (f"device busy {busy:.3f} ms, idle "
+            f"{100 * (1 - busy / wall_ms):.1f}%; top: "
+            + ", ".join(f"{k[:40]} {us:.1f} us" for us, k in top[:ntop]))
+
+
+def profiled_steps(model, db, what, ntop, step_ms, host_reps=10):
+    """Text for where a step's device time goes: ten steps queued behind
+    a spin (the device's time for a step when the host never holds it
+    back), ten traced by the profiler (its busy ms and top kernels) and
+    ``step_ms``, the back-to-back step, beside both; then ``host_reps``
+    steps with the host traced too, whose top ops are printed (tracing
+    slows the host, so these times are inflated)."""
+    reps = 10
+    queued, why_not = queued_ms(model.train_batch_device, [(db,)], reps,
+                                reps * step_ms)
+    traced = traced_device_us(model.train_batch_device, [(db,)], reps)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as hprof:
+        for _ in range(host_reps):
+            model.train_batch_device(db)
+        torch.cuda.synchronize()
+    host = sorted(((e.self_cpu_time_total / host_reps, e.key)
+                   for e in hprof.key_averages()), reverse=True)
+    print(f"train {what}: host per step, traced: " + ", ".join(
+        f"{k[:32]} {us:.0f} us" for us, k in host[:8]))
+    spent = (f"device {queued:.3f} ms/step queued (idle "
+             f"{100 * (1 - queued / step_ms):.1f}% of the back-to-back "
+             f"step)" if why_not is None else f"device not measured "
+             f"queued ({why_not})")
+    return f"{spent}; traced: " + device_share(traced, step_ms, ntop)
+
+
 def train_timed(mode):
     """Build, stage and time the full-width model of one graph. Runs
     before the process's first profiler session: a session leaves the
@@ -934,35 +1273,8 @@ def train_timed(mode):
         run["untouched"] = (table, sample, table[sample].clone())
     losses = [model.train_batch_device(db)["loss"] for _ in range(3)]
     torch.cuda.synchronize()
-
-    def window():
-        t0 = time.perf_counter()
-        for _ in range(TRAIN_STEPS):
-            losses.append(model.train_batch_device(db)["loss"])
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
-
-    # the main path: every count at 0 just before, read just after. The
-    # steps run back to back, as a training loop runs them, and the one
-    # synchronisation at the end closes the window
-    for k in LAUNCHED:
-        k.launches = 0
-    with PlainCalls() as plain:
-        windows = [window()]
-    run["launches"] = {k.__name__: k.launches for k in LAUNCHED}
-    run["plain_calls"] = plain.calls
-    # one step alone, from an idle device to its end: what a step costs
-    # when nothing overlaps it with the next one's launches
-    walls = []
-    for _ in range(10):
-        t0 = time.perf_counter()
-        model.train_batch_device(db)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    # a second window after them: the host's speed drifts within a run
-    windows.append(window())
-    run.update(windows=windows, walls=walls,
-               losses=[float(v) for v in losses])
+    run.update(timed_steps(model, db, losses))
+    run["losses"] = [float(v) for v in losses]
     return run
 
 
@@ -985,37 +1297,17 @@ def train_report(run):
               and torch.equal(table[sample], before),
               "train cat: untouched table rows changed")
 
-    reps = 10
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            model.train_batch_device(db)
-        torch.cuda.synchronize()
-    per_kernel = sorted(((e.self_device_time_total / reps, e.key)
-                         for e in prof.key_averages()), reverse=True)
-    dev_ms = sum(us for us, _ in per_kernel) / 1e3
-    top = ", ".join(f"{k[:40]} {us:.1f} us" for us, k in per_kernel[:5])
-    # where the host's time goes: the same steps with the host traced too
-    # (tracing slows the host, so these times are inflated)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as hprof:
-        for _ in range(reps):
-            model.train_batch_device(db)
-        torch.cuda.synchronize()
-    host = sorted(((e.self_cpu_time_total / reps, e.key)
-                   for e in hprof.key_averages()), reverse=True)
-    print(f"train {mode}: host per step, traced: " + ", ".join(
-        f"{k[:32]} {us:.0f} us" for us, k in host[:8]))
     windows, walls = run["windows"], run["walls"]
     step_ms = float(np.mean(windows))
+    device = profiled_steps(model, db, mode, 5, step_ms)
     per_step = {k: v / TRAIN_STEPS for k, v in launches.items() if v}
     print(f"train {mode}: {TRAIN_STEPS} steps back to back "
           f"{windows[0]:.3f} / {windows[1]:.3f} ms/step (two windows), "
           f"{TRAIN_B / step_ms * 1e3:.1f} samples/s; one step "
           f"alone {np.median(walls):.3f} ms median (min {min(walls):.3f}, "
-          f"max {max(walls):.3f}); device busy {dev_ms:.3f} ms/step, idle "
-          f"{100 * (1 - dev_ms / step_ms):.1f}% of the back-to-back step; "
+          f"max {max(walls):.3f}); "
           f"launches per step {per_step}; loss {losses[0]:.6f} -> "
-          f"{losses[-1]:.6f}; top: {top}")
+          f"{losses[-1]:.6f}; {device}")
     run.clear()
     del model, db
     torch.cuda.empty_cache()
@@ -1061,6 +1353,120 @@ def card_vs_cpu_step(mode):
     torch.cuda.empty_cache()
 
 
+def nmt_model(device, vocab=NMT_VOCAB, dim=NMT_DIM, seq=NMT_SEQ,
+              batch=NMT_B, dtype="bfloat16"):
+    """``build_nmt`` as benchmarks/run_zoo.py's ``bench_nmt`` builds and
+    compiles it (embed = hidden = dim)."""
+    model = FFModel(FFConfig(batch_size=batch, seed=SEED,
+                             compute_dtype=dtype, device=device))
+    build_nmt(model, src_vocab=vocab, tgt_vocab=vocab, embed_dim=dim,
+              hidden=dim, num_layers=NMT_LAYERS, src_len=seq, tgt_len=seq)
+    model.compile(SGDOptimizer(lr=NMT_LR), "sparse_categorical_crossentropy",
+                  ["accuracy"])
+    return model
+
+
+def nmt_batch(vocab, seq, batch, seed):
+    rng = np.random.RandomState(seed)
+    return {k: rng.randint(0, vocab, (batch, seq)).astype(np.int32)
+            for k in ("src", "tgt", "label")}
+
+
+def nmt_timed():
+    """Build and stage the full-width NMT model, bf16, take three warmup
+    steps, then ``timed_steps``. Runs before any profiler session, as
+    ``train_timed`` does; ``nmt_report`` checks and prints it."""
+    model = nmt_model("cuda")
+    t0 = time.perf_counter()
+    model.init_layers()
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    db = model._device_batch(nmt_batch(NMT_VOCAB, NMT_SEQ, NMT_B,
+                                       SEED + 8))
+    losses = [model.train_batch_device(db)["loss"] for _ in range(3)]
+    torch.cuda.synchronize()
+    run = {"model": model, "db": db, "init_s": t_init,
+           **timed_steps(model, db, losses)}
+    run["losses"] = [float(v) for v in losses]
+    return run
+
+
+def nmt_report(run):
+    """Check the timed NMT run, profile ten more steps, print, and hold
+    one step against the CPU; returns the launch counts of the main
+    path's TRAIN_STEPS steps."""
+    model, db = run.pop("model"), run.pop("db")
+    launches, losses = run["launches"], run["losses"]
+    for name, per_step in NMT_LAUNCHES.items():
+        check(launches[name] == per_step * TRAIN_STEPS,
+              f"train nmt: {launches[name]} {name} launches in "
+              f"{TRAIN_STEPS} steps, expected {per_step} a step")
+    check(run["plain_calls"] == 0,
+          f"train nmt: a plain version ran {run['plain_calls']} times")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"train nmt: loss {losses[0]} -> {losses[-1]}")
+    windows, walls = run["windows"], run["walls"]
+    step_ms = float(np.mean(windows))
+    device = profiled_steps(model, db, "nmt", 6, step_ms, host_reps=3)
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items() if v}
+    print(f"train nmt (b{NMT_B}, seq {NMT_SEQ}, vocab {NMT_VOCAB}, "
+          f"{NMT_LAYERS}x{NMT_DIM}, bf16): {TRAIN_STEPS} steps back to back "
+          f"{windows[0]:.3f} / {windows[1]:.3f} ms/step (two windows), "
+          f"{NMT_B / step_ms * 1e3:.1f} samples/s; one step alone "
+          f"{np.median(walls):.3f} ms median (min {min(walls):.3f}, max "
+          f"{max(walls):.3f}); "
+          f"launches per step {per_step}; loss {losses[0]:.6f} -> "
+          f"{losses[-1]:.6f}; init {run['init_s']:.2f} s; {device}")
+    del model, db
+    torch.cuda.empty_cache()
+    nmt_card_vs_cpu()
+    return launches
+
+
+def nmt_card_vs_cpu():
+    """One fp32 SGD step of NMT on the card against the same step on the
+    CPU, from the same weights and batch, at NMT_CHECK's reduced size."""
+    c = NMT_CHECK
+    gpu = nmt_model("cuda", **c)
+    gpu.init_layers()
+    cpu = nmt_model("cpu", **c)
+    cpu.swap_params({op: {n: v.cpu() for n, v in p.items()}
+                     for op, p in gpu.params.items()})
+    init = {op: {n: v.clone() for n, v in p.items()}
+            for op, p in cpu.params.items()}
+    x = nmt_batch(c["vocab"], c["seq"], c["batch"], SEED + 9)
+    before = lstm_mod.lstm_fwd.launches
+    lg = float(gpu.train_batch(x)["loss"])
+    lc = float(cpu.train_batch(x)["loss"])
+    check(lstm_mod.lstm_fwd.launches - before == 2 * NMT_LAYERS,
+          "nmt card step: the LSTM kernels did not run")
+    check(abs(lg - lc) <= 1e-5 * abs(lc),
+          f"nmt: card loss {lg} vs cpu {lc}")
+    # the kernels, cuBLAS and the CPU's BLAS sum in other fp32 orders:
+    # each update within 1e-3 of its parameter's largest update, plus two
+    # fp32 steps of the parameter's values (the update lands in a sum
+    # with the parameter, whose rounding can go either way; an embedding
+    # row's update is small against its value)
+    worst = 0.0
+    for op, p in cpu.params.items():
+        for n, v in p.items():
+            dc = v - init[op][n]
+            dg = gpu.params[op][n].cpu() - init[op][n]
+            scale = float(dc.abs().max())
+            check(scale > 0, f"nmt: {op}.{n} did not move")
+            ulps = 2 * 2 ** -23 * float(init[op][n].abs().max())
+            ratio = max(float((dg - dc).abs().max()) - ulps, 0.0) / scale
+            worst = max(worst, ratio)
+            check(ratio <= 1e-3, f"nmt: {op}.{n} update differs from the "
+                  f"CPU's by {ratio:.3g} of its largest")
+    print(f"train nmt: card vs cpu step (vocab {c['vocab']}, {NMT_LAYERS}x"
+          f"{c['dim']}, seq {c['seq']}, batch {c['batch']}, fp32): loss "
+          f"{lg:.7f} / {lc:.7f}; worst update error {worst:.3g} of its "
+          f"parameter's largest update")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1084,6 +1490,7 @@ def main() -> int:
     # training and the cascade are timed first, before any profiler
     # session (the cascade profiles only after its timed requests)
     runs = [train_timed(mode) for mode in ("cat", "dot")]
+    nmt_run = nmt_timed()
     launches = {}
 
     def add(counts):
@@ -1096,9 +1503,13 @@ def main() -> int:
     del runs
     rows = kernel_phase(dev)
     rows.update(topk_kernel(dev))
+    rows.update(lstm_kernels(dev))
     torch.cuda.empty_cache()
     for mode in ("cat", "dot"):
         add(serve_phase(mode))
+    # last: NMT's profiler sessions trace long kernels and many launches
+    add(nmt_report(nmt_run))
+    del nmt_run
     for name, r in rows.items():
         r["launches"] = launches.get(name, 0)
         check(r["launches"] > 0 or name in OFF_PATH,

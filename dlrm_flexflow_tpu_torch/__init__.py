@@ -9,7 +9,8 @@ every kernel wrapper runs its plain PyTorch version instead.
 Ported so far: the DLRM serving path (``FFModel.forward_bucket`` under
 ``serve.InferenceEngine``) and the DLRM SGD training step
 (``FFModel.train_batch_device`` and ``fit``), in the "cat" and the fused
-"dot" interaction.
+"dot" interaction; the retrieve -> rank cascade (``retrieve``); and NMT
+LSTM seq2seq training (``models.nmt.build_nmt``).
 """
 
 from .config import FFConfig

@@ -8,7 +8,8 @@ and training slices read, under the same flag spellings
 ``--retrieve-deadline-ms``, ``--retrieve-shards``), plus ``device``.
 Unknown flags land in ``unparsed``, as in the JAX package. The flags of
 the training runtime that is not ported yet (checkpoints, supersteps,
-the anomaly sentinel, prefetch) raise ``NotImplementedError``.
+the anomaly sentinel, prefetch) raise ``NotImplementedError``, as does
+``--no-pallas-lstm``: the port's LSTM always runs its scan kernels.
 
 ``device`` defaults to ``"cuda"``. A config that asks for CUDA on a
 machine without a GPU raises at construction: the port never carries on
@@ -111,6 +112,12 @@ class FFConfig:
                 kw["weight_decay"] = float(take())
             elif a == "--dense-embedding-update":
                 kw["sparse_embedding_update"] = False
+            elif a == "--no-pallas-lstm":
+                raise NotImplementedError(
+                    "--no-pallas-lstm: the LSTM always runs its scan "
+                    "kernels on the card; the JAX package's lax.scan "
+                    "fallback is the TPU's answer to XLA streaming wh and "
+                    "is not ported")
             elif a in _RUNTIME_FLAGS:
                 raise NotImplementedError(
                     f"{a}: checkpoints, supersteps, the anomaly sentinel "

@@ -2,9 +2,9 @@
 the training step.
 
 The counterpart of ``dlrm_flexflow_tpu.core.model.FFModel``, cut to the
-serving and training slices: the op builders the DLRM graph uses,
-``compile``, ``init_layers``, ``forward_batch`` and the bucketed serving
-entries, ``swap_params``, and training: ``train_batch``,
+serving and training slices: the op builders the DLRM, two-tower and
+NMT graphs use, ``compile``, ``init_layers``, ``forward_batch`` and the
+bucketed serving entries, ``swap_params``, and training: ``train_batch``,
 ``train_batch_device``, ``reset_metrics`` and ``fit``. Op names,
 parameter names and parameter layouts follow the JAX graph, so
 ``utils.weights.params_from_jax`` can carry a JAX model's weights
@@ -12,9 +12,9 @@ across by name.
 
 There is no mesh and no jit: the graph runs eagerly on
 ``config.device``, op by op — serving under ``torch.inference_mode``,
-training under autograd. On a CUDA device the embedding and interaction
-ops launch their hand-written kernels; on the CPU they run the kernels'
-plain versions.
+training under autograd. On a CUDA device the embedding, interaction
+and LSTM ops launch their hand-written kernels; on the CPU they run the
+kernels' plain versions.
 
 The training step mirrors the JAX ``train_step`` (core/model.py:996-1159
 there). Under plain SGD the embedding ops that support it take the
@@ -71,6 +71,7 @@ class FFModel:
         self.loss_type: Optional[str] = None
         self.metrics: List[str] = []
         self._preds_tensor: Optional[Tensor] = None
+        self._logits_tensor: Optional[Tensor] = None
         self._sparse_ops: Optional[List[Op]] = None  # resolved at 1st step
         # set by init_layers() / swap_params()
         self.params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
@@ -108,9 +109,12 @@ class FFModel:
               kernel_initializer=None, bias_initializer=None, name=None):
         from ..ops.linear import Linear
         if activation == "softmax":
-            raise NotImplementedError(
-                "dense(activation='softmax') lowers to a Softmax op, which "
-                "is not ported yet")
+            # a Linear, then a separate Softmax op, so that compile() can
+            # hand the loss the logits (as the JAX dense lowers it)
+            t = Linear(self, input_tensor, out_dim, "none", use_bias,
+                       kernel_initializer, bias_initializer,
+                       name).outputs[0]
+            return self.softmax(t, name=f"{name}_softmax" if name else None)
         return Linear(self, input_tensor, out_dim, activation or "none",
                       use_bias, kernel_initializer, bias_initializer,
                       name).outputs[0]
@@ -141,6 +145,25 @@ class FFModel:
         from ..ops.tensor_ops import Reshape
         return Reshape(self, input_tensor, shape, name).outputs[0]
 
+    def reverse(self, input_tensor, axis, name=None):
+        from ..ops.tensor_ops import Reverse
+        return Reverse(self, input_tensor, axis, name).outputs[0]
+
+    def softmax(self, input_tensor, name=None):
+        from ..ops.elementwise import Softmax
+        return Softmax(self, input_tensor, name).outputs[0]
+
+    def lstm(self, input_tensor, hidden, name=None):
+        from ..ops.rnn import LSTM
+        return LSTM(self, input_tensor, hidden, name).outputs[0]
+
+    def lstm_stack(self, input_tensor, hidden, num_layers, name=None):
+        """N stacked LSTM layers (see ops/rnn.LSTMStack: layer by layer,
+        each one scan kernel launch)."""
+        from ..ops.rnn import LSTMStack
+        return LSTMStack(self, input_tensor, hidden, num_layers,
+                         name).outputs[0]
+
     def fused_dot_interaction(self, sparse_idx, bottom, num_entries,
                               out_dim, activation="relu",
                               emb_initializer=None, kernel_initializer=None,
@@ -170,10 +193,13 @@ class FFModel:
                 final_tensor: Optional[Tensor] = None):
         """Fix the optimizer (default, as in the JAX package: SGD at
         ``config.learning_rate`` with ``config.weight_decay``), the loss,
-        the metrics and the output tensor. Which ops take the
-        touched-rows update is resolved at the first training step, and
-        a stateful optimizer over such an op raises there — so a serving
-        model compiled with the defaults never does."""
+        the metrics and the output tensor. When the output is a Softmax's
+        and the loss a cross-entropy, the loss takes the Softmax's input,
+        the logits, and the metrics the probabilities (as in the JAX
+        package). Which ops take the touched-rows update is resolved at
+        the first training step, and a stateful optimizer over such an op
+        raises there — so a serving model compiled with the defaults
+        never does."""
         ops = [op for op in self.ops if not isinstance(op, InputOp)]
         if not ops:
             raise ValueError("compile() needs at least one op")
@@ -182,8 +208,15 @@ class FFModel:
             weight_decay=self.config.weight_decay)
         self.loss_type = losses_mod.canonical_loss(loss_type)
         self.metrics = metrics_mod.canonical_metrics(list(metrics))
-        self._preds_tensor = (final_tensor if final_tensor is not None
-                              else ops[-1].outputs[0])
+        from ..ops.elementwise import Softmax
+        preds = final_tensor if final_tensor is not None \
+            else ops[-1].outputs[0]
+        self._preds_tensor = preds
+        if (isinstance(preds.owner_op, Softmax)
+                and "crossentropy" in self.loss_type):
+            self._logits_tensor = preds.owner_op.inputs[0]
+        else:
+            self._logits_tensor = preds
         self._sparse_ops = None
         self.opt_state = None
         self.reset_metrics()
@@ -344,17 +377,18 @@ class FFModel:
     # training
     # ------------------------------------------------------------------
     def _select_sparse_update_ops(self) -> List[Op]:
-        """Embedding ops whose tables take the touched-rows update: those
-        that support it, under plain SGD (momentum 0, weight decay 0),
-        unless ``config.sparse_embedding_update`` is off. A stateful SGD
+        """Embedding ops (``Embedding``, ``EmbeddingBagStacked``) whose
+        tables take the touched-rows update: those that support it, under
+        plain SGD (momentum 0, weight decay 0), unless
+        ``config.sparse_embedding_update`` is off. A stateful SGD
         over such an op needs the lazy touched-rows optimizer of the JAX
         package, which is not ported yet: it raises."""
-        from ..ops.embedding import EmbeddingBagStacked
+        from ..ops.embedding import Embedding, EmbeddingBagStacked
         if not self.config.sparse_embedding_update:
             return []
         opt = self.optimizer
         ops = [op for op in self.ops
-               if isinstance(op, EmbeddingBagStacked)
+               if isinstance(op, (Embedding, EmbeddingBagStacked))
                and op.supports_sparse_update()]
         if not (ops and isinstance(opt, SGDOptimizer)):
             return []
@@ -430,8 +464,8 @@ class FFModel:
                   if name not in sparse_names}
         env = self._forward_env(leaves, device_batch, overrides=emb_vals)
         preds = env[self._preds_tensor.guid]
-        loss = losses_mod.loss_fn(self.loss_type)(preds,
-                                                  device_batch["label"])
+        loss = losses_mod.loss_fn(self.loss_type)(
+            env[self._logits_tensor.guid], device_batch["label"])
         flat = [v for p in leaves.values() for v in p.values()] \
             + list(emb_vals.values())
         grads = torch.autograd.grad(loss, flat, allow_unused=True)
@@ -449,7 +483,8 @@ class FFModel:
                                      gev[op.name], self.optimizer.lr,
                                      fwd=emb_fwd[op.name])
             preds = preds.detach()
-            if "crossentropy" in self.loss_type:
+            if ("crossentropy" in self.loss_type
+                    and self._preds_tensor is self._logits_tensor):
                 # the graph ends in logits: metrics take probabilities
                 preds = torch.softmax(preds.float(), dim=-1)
             mets = metrics_mod.compute_metrics(

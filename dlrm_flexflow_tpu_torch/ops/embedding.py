@@ -24,16 +24,20 @@ from .kernels.scatter_rows import scatter_add_rows, scatter_write_rows
 
 AGGR_MODE_SUM = "sum"
 AGGR_MODE_AVG = "avg"
+AGGR_MODE_NONE = "none"
 
 
 class Embedding(Op):
-    """One table, (num_entries, out_dim): int ids (batch, bag) ->
-    (batch, out_dim), the sum or mean over the bag. On a CUDA tensor the
-    gather runs on the embedding-bag kernel (any d % 4 == 0). Ids wrap
-    ``% num_entries`` (floor-mod), as the JAX op's XLA path does
-    (``jnp.take(mode="wrap")``); its Pallas path does not wrap, and the
-    two agree on in-range ids. The per-slot ``aggr="none"`` output, the
-    row-sharded lookup and the hot/cold hybrid are not ported yet."""
+    """One table, (num_entries, out_dim). With ``aggr`` "sum" or "avg":
+    int ids (batch, bag) -> (batch, out_dim), the sum or mean over the
+    bag, gathered on the card by the embedding-bag kernel (any
+    d % 4 == 0). With ``aggr="none"``: ids (batch, slots) -> (batch,
+    slots, out_dim), one row per slot, gathered by plain torch indexing
+    as the JAX op gathers it outside any Pallas kernel
+    (``jnp.take(mode="wrap")``). Ids wrap ``% num_entries`` (floor-mod),
+    as the JAX op's XLA path does; its Pallas path does not wrap, and
+    the two agree on in-range ids. The row-sharded lookup and the
+    hot/cold hybrid are not ported yet."""
 
     type_name = "Embed"
 
@@ -41,10 +45,8 @@ class Embedding(Op):
                  aggr: str = AGGR_MODE_SUM, kernel_initializer=None,
                  name: Optional[str] = None):
         super().__init__(model, [input_tensor], name)
-        if aggr not in (AGGR_MODE_SUM, AGGR_MODE_AVG):
-            raise NotImplementedError(
-                f"Embedding aggr={aggr!r}: only sum and avg are ported "
-                f"(the per-slot 'none' output is ROADMAP queue 1 item 2)")
+        if aggr not in (AGGR_MODE_SUM, AGGR_MODE_AVG, AGGR_MODE_NONE):
+            raise ValueError(f"bad aggr mode {aggr!r}")
         if input_tensor.num_dims != 2:
             raise ValueError(f"Embedding expects (batch, bag) ids, got "
                              f"{input_tensor.shape}")
@@ -52,18 +54,54 @@ class Embedding(Op):
         self.out_dim = int(out_dim)
         self.aggr = aggr
         self.kernel_initializer = kernel_initializer or GlorotUniform()
-        self.outputs = [self._make_output(
-            (input_tensor.shape[0], self.out_dim))]
+        if aggr == AGGR_MODE_NONE:
+            out_shape = tuple(input_tensor.shape) + (self.out_dim,)
+        else:
+            out_shape = (input_tensor.shape[0], self.out_dim)
+        self.outputs = [self._make_output(out_shape)]
 
     def param_defs(self):
         return {"kernel": ParamDef((self.num_entries, self.out_dim),
                                    torch.float32, self.kernel_initializer)}
 
+    def _ids(self, idx):
+        return torch.remainder(idx.long(), self.num_entries)
+
     def apply(self, params, xs):
         (idx,) = xs                       # (batch, bag)
-        ids = torch.remainder(idx.long(), self.num_entries)
-        return [EmbeddingBagFunction.apply(params["kernel"], ids,
+        if self.aggr == AGGR_MODE_NONE:
+            return [params["kernel"][self._ids(idx)]]
+        return [EmbeddingBagFunction.apply(params["kernel"], self._ids(idx),
                                            self.aggr)]
+
+    # ---- touched-rows SGD update ---------------------------------------
+    def supports_sparse_update(self) -> bool:
+        return self.aggr in (AGGR_MODE_SUM, AGGR_MODE_AVG, AGGR_MODE_NONE)
+
+    def apply_with_fwd(self, params, xs):
+        """apply() and no residual: the JAX op keeps the gathered rows
+        only for 128-wide rows on its TPU path, so the update here always
+        reads the table (the read-modify-write scatter)."""
+        return self.apply(params, xs), None
+
+    @torch.no_grad()
+    def sparse_sgd_update(self, params, xs, out_ct, lr, fwd=None):
+        """table[row] -= lr * ct for the touched rows only, in place: with
+        "none" each slot's cotangent row; with "sum"/"avg" the bag's
+        cotangent (/ bag for "avg") for every row of the bag. A row's
+        duplicates sum in lookup order before they land, on the
+        read-modify-write scatter kernel on the card."""
+        (idx,) = xs
+        table = params["kernel"]
+        ids = self._ids(idx).reshape(-1)
+        ct = out_ct.to(table.dtype).reshape(-1, self.out_dim)
+        div = 1
+        if self.aggr != AGGR_MODE_NONE:
+            div = idx.shape[-1]
+            if self.aggr == AGGR_MODE_AVG:
+                ct = ct / div
+        scatter_add_rows(table, ids, ct, scale=-lr, div=div)
+        return params
 
 
 class EmbeddingBagStacked(Op):

@@ -1,6 +1,6 @@
-"""Shape operators: Concat, Split and Reshape (the counterparts of
-``dlrm_flexflow_tpu.ops.tensor_ops``; Flat, Transpose, IndexSelect and
-Reverse are not ported yet)."""
+"""Shape operators: Concat, Split, Reshape and Reverse (the counterparts
+of ``dlrm_flexflow_tpu.ops.tensor_ops``; Flat, Transpose and IndexSelect
+are not ported yet)."""
 
 from __future__ import annotations
 
@@ -84,3 +84,19 @@ class Reshape(Op):
             # re-derives its target against the live batch
             shape = (x.shape[0],) + tuple(shape[1:])
         return [x.reshape(shape)]
+
+
+class Reverse(Op):
+    """Reverse along one axis (NMT reverses its source sequences)."""
+
+    type_name = "Reverse"
+
+    def __init__(self, model, input_tensor, axis: int,
+                 name: Optional[str] = None):
+        super().__init__(model, [input_tensor], name)
+        self.axis = axis % input_tensor.num_dims
+        self.outputs = [self._make_output(input_tensor.shape,
+                                          input_tensor.dtype)]
+
+    def apply(self, params, xs):
+        return [torch.flip(xs[0], dims=(self.axis,))]

@@ -6,9 +6,11 @@ two packages agree only when the port runs the JAX model's own weights.
 (``{op_name: {param_name: array}}``) and returns the port's parameters
 for ``model``, ready for ``model.swap_params``:
 
-- Linear, FusedDotInteraction and Embedding parameters carry over as
-  they are (the JAX ``Embedding`` keeps its table unpacked, as
-  (num_entries, out_dim), like the port);
+- Linear, FusedDotInteraction, Embedding (every ``aggr``, "none"
+  included), LSTM and LSTMStack parameters carry over as they are: the
+  JAX ``Embedding`` keeps its table unpacked, as (num_entries, out_dim),
+  like the port, and the LSTM ops keep ``wx`` (d, 4h), ``wh`` (h, 4h)
+  and ``bias`` (4h,) per layer in the same i, f, g, o column order;
 - an EmbeddingBagStacked kernel is stored by the JAX op lane-packed as
   (T, N/r, r·d) in storage order: it is reshaped to (T, N, d) and the
   op's ``_table_order`` (stored slot s holds logical table order[s]) is

@@ -20,7 +20,14 @@ and tie order (an exact integer dot and the same two fp32 products on
 both sides); the quantized bag bitwise at bag 1 (1e-6 above it, where
 torch sums the bag in another order); the quantized interaction as the
 fp32 one. The two-tower heads on the card against the CPU: rtol 1e-5,
-atol 1e-6.
+atol 1e-6. The LSTM scan kernels against their plain versions on the
+card: atol 1e-5 with fp32 wh (the recurrent products sum in another
+order), 4e-3 with bf16 wh (the carried h or dz is rounded to bf16
+before each product, and a sum near the midpoint of two bf16 values can
+round the other way, moving that operand by one bf16 step); dwh within
+1e-5 of its largest entry in fp32, two bf16 steps (2^-6) in bf16. An
+NMT step on the card against the CPU: every update within 1e-3 of its
+parameter's largest update, plus two fp32 steps of the parameter.
 """
 
 import numpy as np
@@ -35,6 +42,8 @@ from dlrm_flexflow_tpu_torch.ops.kernels.embedding_bag import (
     embedding_bag, embedding_bag_quant, embedding_bag_quant_reference,
     embedding_bag_reference)
 from dlrm_flexflow_tpu_torch.core.optimizers import SGDOptimizer
+from dlrm_flexflow_tpu_torch.models.nmt import build_nmt
+from dlrm_flexflow_tpu_torch.ops.kernels import lstm as lstm_mod
 from dlrm_flexflow_tpu_torch.ops.kernels.interaction import (
     fused_interaction, fused_interaction_quant,
     fused_interaction_quant_reference, fused_interaction_reference)
@@ -413,3 +422,102 @@ def test_swap_params_takes_card_tensors(cuda):
     for op, p in src.params.items():
         for n, v in p.items():
             assert torch.equal(dst.params[op][n], v)
+
+
+def _lstm_inputs(cuda, T, b, h, dtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    xp = torch.randn(T, b, 4 * h, device=cuda, generator=g)
+    wh = (torch.rand(h, 4 * h, device=cuda, generator=g) * 2 - 1) \
+        * (6.0 / (5 * h)) ** 0.5
+    dys = torch.randn(T, b, h, device=cuda, generator=g)
+    return xp, wh.to(dtype), dys
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("T,b,h", [(5, 8, 128), (7, 24, 136), (3, 70, 40),
+                                   (40, 64, 1024)])
+def test_lstm_kernels_match_plain(cuda, T, b, h, dtype):
+    """Forward (ys, cs), backward (dzs from the same residuals) and the
+    autograd Function (dxproj, dwh): small, ragged (b and h not multiples
+    of the block's 64 rows and 8 units; b above one tile) and the NMT
+    step's per-layer shape."""
+    xp, wh, dys = _lstm_inputs(cuda, T, b, h, dtype, seed=T + b + h)
+    tol = 4e-3 if dtype == torch.bfloat16 else 1e-5
+    before = (lstm_mod.lstm_fwd.launches, lstm_mod.lstm_bwd.launches)
+    ys, cs = lstm_mod.lstm_fwd(xp, wh)
+    ys_r, cs_r = lstm_mod.lstm_fwd_reference(xp, wh)
+    dzs = lstm_mod.lstm_bwd(xp, wh, ys_r, cs_r, dys)
+    dzs_r = lstm_mod.lstm_bwd_reference(xp, wh, ys_r, cs_r, dys)
+    assert (lstm_mod.lstm_fwd.launches, lstm_mod.lstm_bwd.launches) \
+        == (before[0] + 1, before[1] + 1)
+    for got, want in ((ys, ys_r), (cs, cs_r), (dzs, dzs_r)):
+        torch.testing.assert_close(got, want, rtol=0, atol=tol)
+    ys_only, none = lstm_mod.lstm_fwd(xp, wh, with_residuals=False)
+    assert none is None and torch.equal(ys_only, ys)
+    grads = []
+    for fn in (lstm_mod.lstm_scan, lstm_mod.lstm_scan_reference):
+        x, w = xp.clone().requires_grad_(), wh.clone().requires_grad_()
+        fn(x, w).backward(dys)
+        assert w.grad.dtype == dtype
+        grads.append((x.grad, w.grad.float()))
+    torch.testing.assert_close(grads[0][0], grads[1][0], rtol=0, atol=tol)
+    frac = 2 ** -6 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(grads[0][1], grads[1][1], rtol=0,
+                               atol=frac * float(grads[1][1].abs().max()))
+
+
+def test_lstm_grid_that_cannot_be_resident_raises(cuda):
+    """A grid larger than the card holds at once: the cooperative launch
+    is refused and the wrapper raises; it never runs the plain version."""
+    xp, wh, dys = _lstm_inputs(cuda, 4, 8, 64, torch.bfloat16, seed=1)
+    too_many = lstm_mod.capacity(False, wh.dtype) + 1
+    before = lstm_mod.lstm_fwd.launches
+    with pytest.raises(RuntimeError, match="lstm_fwd kernel"):
+        lstm_mod.lstm_fwd(xp, wh, grid=too_many)
+    ys, cs = lstm_mod.lstm_fwd_reference(xp, wh)
+    with pytest.raises(RuntimeError, match="lstm_bwd kernel"):
+        lstm_mod.lstm_bwd(xp, wh, ys, cs, dys,
+                          grid=lstm_mod.capacity(True, wh.dtype) + 1)
+    assert lstm_mod.lstm_fwd.launches == before
+    # a grid smaller than the groups of units: each block takes several
+    ys1, _ = lstm_mod.lstm_fwd(xp, wh, grid=1)
+    torch.testing.assert_close(ys1, ys, rtol=0, atol=4e-3)
+
+
+def _nmt(device, params=None):
+    m = pt.FFModel(pt.FFConfig(batch_size=6, device=device))
+    build_nmt(m, src_vocab=300, tgt_vocab=300, embed_dim=48, hidden=40,
+              num_layers=2, src_len=7, tgt_len=7)
+    m.compile(SGDOptimizer(lr=0.1), "sparse_categorical_crossentropy",
+              ["accuracy"])
+    if params is None:
+        m.init_layers()
+    else:
+        m.swap_params({op: {n: v.to(device) for n, v in p.items()}
+                       for op, p in params.items()})
+    return m
+
+
+def test_nmt_step_on_card_matches_cpu(cuda):
+    gpu = _nmt("cuda")
+    cpu = _nmt("cpu", gpu.params)
+    init = {op: {n: v.clone() for n, v in p.items()}
+            for op, p in cpu.params.items()}
+    r = np.random.RandomState(0)
+    x = {k: r.randint(0, 300, (6, 7)).astype(np.int32)
+         for k in ("src", "tgt", "label")}
+    counts = {f: f.launches for f in (lstm_mod.lstm_fwd, lstm_mod.lstm_bwd,
+                                      scatter_add_rows)}
+    lg = float(gpu.train_batch(x)["loss"])
+    lc = float(cpu.train_batch(x)["loss"])
+    assert {f.__name__: f.launches - n for f, n in counts.items()} \
+        == {"lstm_fwd": 4, "lstm_bwd": 4, "scatter_add_rows": 2}
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    for op, p in cpu.params.items():
+        for n, v in p.items():
+            dc = v - init[op][n]
+            dg = gpu.params[op][n].cpu() - init[op][n]
+            ulps = 2 * 2 ** -23 * float(init[op][n].abs().max())
+            torch.testing.assert_close(
+                dg, dc, rtol=0, atol=1e-3 * float(dc.abs().max()) + ulps)

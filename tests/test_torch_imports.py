@@ -52,6 +52,10 @@ def test_import_leaves_jax_out():
             "import dlrm_flexflow_tpu_torch.quant\n"
             "import dlrm_flexflow_tpu_torch.retrieve\n"
             "import dlrm_flexflow_tpu_torch.serve.shardtier\n"
+            "import dlrm_flexflow_tpu_torch.models.nmt\n"
+            "import dlrm_flexflow_tpu_torch.ops.rnn\n"
+            "import dlrm_flexflow_tpu_torch.ops.elementwise\n"
+            "import dlrm_flexflow_tpu_torch.ops.kernels.lstm\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad\n")
