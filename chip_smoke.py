@@ -21,7 +21,9 @@ Phases:
    window that ends in a synchronisation, with every launch count at 0
    just before and read just after: the write-only scatter must launch
    on "cat" (the touched-rows update), the read-modify-write scatter on
-   "dot" (its dense table gradient), and no plain version may run. The
+   "dot" (its dense table gradient), each once a step on the pre-pass
+   kernel's route after one pre-pass launch, and no plain version may
+   run. The
    loss must be finite and fall; on "cat" a sample of untouched table
    rows must stay bitwise. Ten steps run one at a time give a step's
    wall time alone, and a second window of 20 a second read of the
@@ -37,7 +39,8 @@ Phases:
    decoder LSTMs, bf16 compute, ``SGDOptimizer(lr=0.1)``, sparse
    categorical cross-entropy and accuracy), timed the same way: 20 steps
    back to back with every count at 0 just before and read just after
-   (exactly 4 ``lstm_fwd``, 4 ``lstm_bwd`` and 2 ``scatter_add_rows``
+   (exactly 4 ``lstm_fwd``, 4 ``lstm_bwd``, all on the resident route, 4
+   ``lstm_gates``, 2 ``scatter_presort`` and 2 ``scatter_add_rows``
    launches a step, no plain version run, a finite loss that falls), ten
    steps alone and a second window. Its queued and profiled steps
    (device time, idle share, the host's top ops) and one fp32 step on the card against
@@ -77,20 +80,27 @@ Phases:
    kernel against its sort, the top-k kernel's passes, the top kernels
    of a step), and prints "not measured" where it cannot. The bag and the interaction at the serving shape
    (B=2048, T=8, bag=1, d=64, 8M-row table; H=1024); the two scatter
-   kernels on the same table at the training step's n = 2,048 lookups
-   and at n = 16,384, with duplicate ids, held bitwise to their plain
+   kernels and their pre-pass on the same table at the training step's
+   n = 2,048 lookups, in uniform ids (the first 8 equal), all ids equal
+   and Zipf-skewed ids, and at n = 16,384, held bitwise to their plain
    versions run on the CPU (on the card the plain version adds
-   duplicates with atomics, in no fixed order); the quantized bag and
+   duplicates with atomics, in no fixed order), with the kernel launches
+   a call and their split from the trace; the quantized bag and
    interaction at the serving shape over the table quantized to int8
    (the bag also in fp8), which no path calls yet; the int8 MIPS top-k
    at B=64 and B=1 over a 1M x 32 index with planted duplicate rows,
    k=100, bitwise to its plain version on the card, and on one small
-   shape to the plain version on the CPU; the LSTM forward and backward
-   scans at the NMT step's per-layer shape (T=40, b=64, h=1024) in bf16
-   and fp32 wh and at a ragged T=7, b=24, h=136, against their plain
-   versions (ys, cs, dzs, and dxproj and dwh through the autograd
-   Function), timed beside cuDNN's LSTM layer (``torch.nn.LSTM``, which
-   the port never calls) against "x·wx product + kernel";
+   shape to the plain version on the CPU, with its bound at both; the
+   LSTM forward and backward scans at the NMT step's per-layer shape
+   (T=40, b=64, h=1024) in bf16 and fp32 wh and at a ragged T=7, b=24,
+   h=136, against their plain versions (ys, cs, dzs, and dxproj and dwh
+   through the autograd Function), the backward's route checked
+   (resident in bf16, streaming in fp32), timed beside cuDNN's LSTM
+   layer (``torch.nn.LSTM``, which the port never calls) against "x·wx
+   product + kernel"; the resident backward's gate phase
+   (``lstm_gates``) against its plain version and ``torch.addmm``, the
+   serial phase as the whole call less it, and its 39 barriers alone
+   (``grid_barrier``);
 6. serve — the same model in both graphs, each behind
    ``InferenceEngine(ServeConfig(max_batch=256))`` taking a few dozen
    requests of 1-64 rows from 4 threads. Every kernel's launch count is
@@ -169,8 +179,11 @@ CASCADE_REQUESTS = 64
 NMT_B, NMT_SEQ, NMT_VOCAB, NMT_DIM, NMT_LAYERS, NMT_LR = (
     64, 40, 32 * 1024, 1024, 2, 0.1)
 # per step: 4 LSTM layers (encoder and decoder, 2 each) forward and
-# backward, and the two "none" embeddings' touched-rows updates
-NMT_LAUNCHES = {"lstm_fwd": 4, "lstm_bwd": 4, "scatter_add_rows": 2}
+# backward, the gate phase of each resident backward, and the two "none"
+# embeddings' touched-rows updates, each sorted by the one-block pre-pass
+NMT_LAUNCHES = {"lstm_fwd": 4, "lstm_bwd": 4, "lstm_bwd:resident": 4,
+                "lstm_gates": 4, "scatter_add_rows": 2,
+                "scatter_add_rows:block": 2, "scatter_presort": 2}
 # the card-versus-CPU step, at a reduced size in fp32
 NMT_CHECK = dict(vocab=4096, dim=256, seq=12, batch=16, dtype="float32")
 
@@ -266,21 +279,26 @@ def time_ms(fn, arg_sets, iters=60, warmup=6, what="a call"):
     return dev_ms, call_ms
 
 
-def traced_device_us(fn, arg_sets, reps, match=None):
+def traced_device_us(fn, arg_sets, reps):
     """Device microseconds per call by kernel name, from the profiler's
-    CUPTI trace of `reps` calls cycling `arg_sets` (only kernels whose
-    name holds `match`, when given); None when the trace holds no device
-    time, as happens in some runs on a sandboxed card. What it gives are
-    breakdowns printed beside the event timings, never those timings."""
+    CUPTI trace of `reps` calls cycling `arg_sets`; None when the trace
+    holds no device time, as happens in some runs on a sandboxed card.
+    What it gives are breakdowns printed beside the event timings, never
+    those timings."""
+    traced = traced_kernels(fn, arg_sets, reps)
+    return traced and {k: us for k, (_, us) in traced.items()}
+
+
+def traced_kernels(fn, arg_sets, reps):
+    """{kernel name: (launches, device us) per call} from the profiler's
+    trace, or None when the trace holds no device time."""
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for i in range(reps):
             fn(*arg_sets[i % len(arg_sets)])
         torch.cuda.synchronize()
-    per_kernel = {e.key: e.self_device_time_total / reps
-                  for e in prof.key_averages()
-                  if e.self_device_time_total > 0
-                  and (match is None or match in e.key)}
-    return per_kernel or None
+    per = {e.key: (e.count / reps, e.self_device_time_total / reps)
+           for e in prof.key_averages() if e.self_device_time_total > 0}
+    return per or None
 
 
 def timed(prefix, fn, arg_sets):
@@ -520,26 +538,53 @@ def topk_kernel(dev):
     r["b1_plain_ms"], r["b1_plain_call_ms"] = time_ms(
         lambda q, qs: topk_mod.mips_topk_reference(q, qs, codes, scales, K),
         one)
+    # at B = 1, as every cascade launch runs: the whole index and its
+    # scales read once, one query, one result
+    b1_bound, b1_by = bound(R * (TT_DIM + 4) + (TT_DIM + 4) + K * 12,
+                            2 * R, int8_ops=2 * R * TT_DIM)
     print_row(r, f" (B=64); at B=1: device {r['b1_ms']:.4f} ms (call "
               f"{r['b1_call_ms']:.4f} ms), plain {r['b1_plain_ms']:.4f} ms "
-              f"(call {r['b1_plain_call_ms']:.4f} ms)")
+              f"(call {r['b1_plain_call_ms']:.4f} ms), bound "
+              f"{1e3 * b1_bound:.2f} us ({b1_by})")
     return {r["name"]: r}
 
 
+def scatter_ids(gen, dev, n, kind):
+    """n row ids of the 8M-row table: "uniform" (the first 8 equal),
+    "equal" (every id the same row) or "zipf" (Zipf-skewed with exponent
+    1.05, as hot embedding rows are, the ranks spread over the table)."""
+    if kind == "equal":
+        return torch.full((n,), 4_321_987, dtype=torch.int64, device=dev)
+    if kind == "zipf":
+        seed = int(torch.randint(0, 2 ** 31, (1,), device=dev,
+                                 generator=gen))
+        rank = np.random.RandomState(seed).zipf(1.05, n) - 1
+        return torch.as_tensor((rank * 2_654_435_761) % (T * ROWS),
+                               device=dev)
+    ids = torch.randint(0, T * ROWS, (n,), device=dev, generator=gen)
+    ids[:8] = ids[0].clone()
+    return ids
+
+
 def scatter_kernels(dev, gen, table):
-    """Kernels 3 and 4 on the 8M-row table at n = 2,048 lookups (the
-    training step's, whose numbers the kernels' rows carry) and at
-    n = 16,384; the first 8 ids of every set are equal."""
+    """Kernels 3 and 4 and the pre-pass on the 8M-row table at n = 2,048
+    lookups (the training step's, whose numbers the kernels' rows carry)
+    in three sets of ids (uniform, all equal, Zipf-skewed) and at
+    n = 16,384 (the one-block pre-pass's limit, uniform), each held
+    bitwise to the plain version on the CPU."""
     rows = {}
     src = "dlrm_flexflow_tpu_torch/csrc/scatter_rows.cu"
     pallas = "dlrm_flexflow_tpu/ops/pallas/embedding_kernel.py"
     # 60 sets of 2,048 (or 20 of 16,384) lookups: 90 (240) MB of rows,
     # updates and residuals cycled, more than the 50 MB L2
-    for n, nsets in ((TRAIN_B * T * BAG, 60), (B * T * BAG, ID_SETS)):
+    for n, nsets, kind in ((TRAIN_B * T * BAG, 60, "uniform"),
+                           (TRAIN_B * T * BAG, 60, "equal"),
+                           (TRAIN_B * T * BAG, 60, "zipf"),
+                           (B * T * BAG, ID_SETS, "uniform")):
+        main = n == TRAIN_B * T * BAG and kind == "uniform"
         sets = []
         for _ in range(nsets):
-            ids = torch.randint(0, T * ROWS, (n,), device=dev, generator=gen)
-            ids[:8] = ids[0].clone()
+            ids = scatter_ids(gen, dev, n, kind)
             upd = torch.randn(n, D, device=dev, generator=gen)
             sets.append((ids, upd, table[ids], -LR * upd))
         ids, upd, fwd, _ = sets[0]
@@ -547,6 +592,30 @@ def scatter_kernels(dev, gen, table):
         uniq = torch.unique(ids)
         m = int(uniq.numel())
         cpu_args = (ids.cpu(), upd.cpu(), fwd.cpu())
+        # the pre-pass alone: bitwise to its plain version on the CPU
+        got = scat_mod.scatter_presort(ids)
+        want = scat_mod.presort_reference(ids.cpu())
+        check(all(torch.equal(a.cpu(), w) for a, w in zip(got, want))
+              and int((want[1][:, 0] >= 0).sum()) == m,
+              f"scatter_presort kernel disagrees with its plain version at "
+              f"n={n} ({kind} ids)")
+        if main:
+            i32 = [(s[0].to(torch.int32),) for s in sets]
+            rows["scatter_presort"] = {
+                "name": "scatter_presort", "route": "cuda", "source": src,
+                "replaces": f"{pallas}:432", "max_abs_err": 0.0,
+                # the ids read; the order (int32) and each lookup's
+                # segment (two int32) written
+                **dict(zip(("bound_ms", "bound_by"),
+                           bound(n * 8 + n * 4 + n * 8))),
+                **timed("", lambda i: scat_mod.scatter_presort(i),
+                        [(s[0],) for s in sets]),
+                **timed("plain_", lambda i: scat_mod.presort_reference(i),
+                        [(s[0],) for s in sets]),
+                **timed("library_", lambda i: torch.sort(i, stable=True),
+                        i32)}
+            print_row(rows["scatter_presort"], f" (n={n}; library: "
+                      f"torch.sort of int32 ids, stable)")
         for name, with_fwd, line in (("scatter_add_rows", False, 289),
                                      ("scatter_write_rows", True, 495)):
             kern = getattr(scat_mod, name)
@@ -564,10 +633,11 @@ def scatter_kernels(dev, gen, table):
             # both scale first, then sum a row's duplicates in lookup order
             check(torch.equal(got_rows, want_rows),
                   f"{name} kernel disagrees with its plain version at "
-                  f"n={n}: {err}")
+                  f"n={n} ({kind} ids): {err}")
             got[uniq] = table[uniq]
             check(torch.equal(got, table),
-                  f"{name} kernel changed rows it was not given (n={n})")
+                  f"{name} kernel changed rows it was not given (n={n}, "
+                  f"{kind} ids)")
             del got, want
             # the function reads the ids, the updates and one table (or
             # forward) row per distinct row, and writes that row
@@ -576,26 +646,31 @@ def scatter_kernels(dev, gen, table):
             r = {"name": name, "route": "cuda", "source": src,
                  "replaces": f"{pallas}:{line}", "max_abs_err": err,
                  "bound_ms": b_ms, "bound_by": b_by,
-                 **timed("", lambda *a: call(kern, scratch, *a), sets),
-                 **timed("plain_", lambda *a: call(plain, scratch, *a),
-                         sets),
-                 **timed("library_", lambda ids, _u, _f, scaled:
-                         scratch.index_add_(0, ids, scaled), sets)}
-            traced = traced_device_us(
-                lambda *a: call(kern, scratch, *a), sets, 60,
-                match="scatter_rows_kernel")
-            only = ("not measured (no device time traced)" if traced is None
-                    else f"{sum(traced.values()) / 1e3:.4f} ms traced")
-            print(f"kernel {name} at n={n} ({m} distinct rows): device "
-                  f"{r['ms']:.4f} ms, of it the scatter kernel {only} and "
-                  f"the stable sort the rest (call {r['call_ms']:.4f} ms); "
-                  f"plain "
-                  f"{r['plain_ms']:.4f} ms (call {r['plain_call_ms']:.4f} "
-                  f"ms); index_add_ {r['library_ms']:.4f} ms (call "
-                  f"{r['library_call_ms']:.4f} ms); bound "
-                  f"{1e3 * b_ms:.2f} us ({b_by}); max abs err {err:.3g}")
-            if n == TRAIN_B * T * BAG:
+                 **timed("", lambda *a: call(kern, scratch, *a), sets)}
+            if main:
+                r.update(**timed("plain_", lambda *a: call(plain, scratch, *a),
+                                 sets),
+                         **timed("library_", lambda ids, _u, _f, scaled:
+                                 scratch.index_add_(0, ids, scaled), sets))
+                traced = traced_kernels(
+                    lambda *a: call(kern, scratch, *a), sets, 20)
+                split = ("not measured (no device time traced)"
+                         if traced is None else ", ".join(
+                             f"{k[:40]} x{c:g} {us:.2f} us"
+                             for k, (c, us) in traced.items()))
+                more = (f"; plain {r['plain_ms']:.4f} ms (call "
+                        f"{r['plain_call_ms']:.4f} ms); index_add_ "
+                        f"{r['library_ms']:.4f} ms (call "
+                        f"{r['library_call_ms']:.4f} ms); kernel launches a "
+                        f"call, traced: {split}")
                 rows[name] = r
+            else:
+                more = ""
+            print(f"kernel {name} at n={n}, {kind} ids ({m} distinct rows): "
+                  f"bitwise equal to its plain version; device "
+                  f"{r['ms']:.4f} ms, pre-pass and update (call "
+                  f"{r['call_ms']:.4f} ms){more}; bound "
+                  f"{1e3 * b_ms:.2f} us ({b_by})")
         del sets
     return rows
 
@@ -618,7 +693,11 @@ def lstm_check(gen, dev, T, b, h, dtype):
     xp, wh, dys = lstm_inputs(gen, dev, T, b, h, dtype)
     ys, cs = lstm_mod.lstm_fwd(xp, wh)
     ys_r, cs_r = lstm_mod.lstm_fwd_reference(xp, wh)
+    route = "resident" if dtype == torch.bfloat16 else "streaming"
+    before = lstm_mod.lstm_bwd.routes[route]
     dzs = lstm_mod.lstm_bwd(xp, wh, ys_r, cs_r, dys)
+    check(lstm_mod.lstm_bwd.routes[route] == before + 1,
+          f"lstm_bwd at T={T}, b={b}, h={h} did not take the {route} route")
     dzs_r = lstm_mod.lstm_bwd_reference(xp, wh, ys_r, cs_r, dys)
     grads = []
     for fn in (lstm_mod.lstm_scan, lstm_mod.lstm_scan_reference):
@@ -645,10 +724,54 @@ def lstm_check(gen, dev, T, b, h, dtype):
         check(np.isfinite(v) and v <= (dwh_tol if k == "dwh_rel" else tol),
               f"LSTM kernels disagree with their plain versions at "
               f"{what}: {k} error {v:.3g}")
-    print(f"kernels lstm_fwd/lstm_bwd at {what}: max abs err "
+    print(f"kernels lstm_fwd/lstm_bwd ({route} route) at {what}: max abs "
+          f"err "
           + ", ".join(f"{k} {v:.3g}" for k, v in err.items())
           + f" (tolerance {tol:g}; dwh {dwh_tol:g} of its largest)")
     return err
+
+
+def lstm_bwd_phases(sets, T, b, h):
+    """The resident backward's gate phase (``lstm_gates``) at the NMT
+    layer's shape, against its plain version, timed beside it and beside
+    ``torch.addmm`` over the same bf16-rounded operands in fp32; and the
+    serial phase's T-1 barriers alone, over one block per group: (the
+    gate phase's row, the barriers' ms)."""
+    xp, wh, _, ys, _ = sets[0]
+    got = lstm_mod.lstm_gates(xp, wh, ys)
+    want = lstm_mod.lstm_gates_reference(xp, wh, ys)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    # products of bf16 values are exact in fp32; the sums take another
+    # order on the tensor cores than in cuBLAS's fp32 GEMM
+    check(err <= 1e-4, f"lstm_gates kernel disagrees with its plain "
+          f"version: {err}")
+    lib_args = []
+    for xp, wh, _, ys, _ in sets:
+        hp = torch.cat([torch.zeros_like(ys[:1]), ys[:-1]])
+        lib_args.append((xp.view(T * b, 4 * h),
+                         hp.view(T * b, h).to(wh.dtype).float(), wh.float()))
+    # xproj and the gates, ys and wh moved once; the products the data
+    # needs (none at t = 0)
+    b_ms, b_by = bound(2 * T * b * 4 * h * 4 + (T - 1) * b * h * 4
+                       + h * 4 * h * 2,
+                       bf16_flops=2 * (T - 1) * b * h * 4 * h)
+    r = {"name": "lstm_gates", "route": "cuda",
+         "source": "dlrm_flexflow_tpu_torch/csrc/lstm.cu",
+         "replaces": "dlrm_flexflow_tpu/ops/pallas/lstm_kernel.py:106",
+         "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+         **timed("", lambda xp, wh, _d, ys, _c: lstm_mod.lstm_gates(
+             xp, wh, ys), sets),
+         **timed("plain_", lambda xp, wh, _d, ys, _c:
+                 lstm_mod.lstm_gates_reference(xp, wh, ys), sets),
+         **timed("library_", torch.addmm, lib_args)}
+    print_row(r, f" (T={T}, b={b}, h={h}; library: torch.addmm of the "
+              f"bf16-rounded operands in fp32)")
+    groups = -(-h // lstm_mod.UNITS)
+    barrier_ms, _ = time_ms(lambda: lstm_mod.grid_barrier(
+        T - 1, groups, torch.device("cuda")), [()], iters=20, warmup=2,
+        what="barrier probe")
+    return r, barrier_ms
 
 
 def lstm_kernels(dev):
@@ -680,6 +803,8 @@ def lstm_kernels(dev):
         pbwd = time_ms(lambda xp, wh, dys, ys, cs:
                        lstm_mod.lstm_bwd_reference(xp, wh, ys, cs, dys),
                        sets, iters=4, warmup=1, what="plain lstm_bwd")
+        if dt == torch.bfloat16:
+            gate_row, barrier_ms = lstm_bwd_phases(sets, T, b, h)
         # cuDNN's layer and the port's layer (product + kernel) on the
         # same weights: weight_ih = wxᵀ, weight_hh = whᵀ, bias_ih = bias
         x = torch.randn(b, T, d, device=dev, generator=gen)
@@ -741,6 +866,14 @@ def lstm_kernels(dev):
               f"{my_fwd[0]:.4f} ms, forward+backward {my_both[0]:.4f} ms; "
               f"max abs difference of the outputs {layer_err:.3g}")
         if dt == torch.bfloat16:
+            gms = gate_row["ms"]
+            print(f"lstm_bwd split (bf16, resident route): gate phase "
+                  f"{gms:.4f} ms, serial phase {bwd[0] - gms:.4f} ms (the "
+                  f"whole call less the gate phase), of it {T - 1} "
+                  f"barriers alone {barrier_ms:.4f} ms "
+                  f"({1e3 * barrier_ms / (T - 1):.2f} us a "
+                  f"barrier over {-(-h // lstm_mod.UNITS)} blocks)")
+            rows["lstm_gates"] = gate_row
             src = "dlrm_flexflow_tpu_torch/csrc/lstm.cu"
             pallas = "dlrm_flexflow_tpu/ops/pallas/lstm_kernel.py"
             for kname, line, t, p_, lib, bd, e in (
@@ -758,12 +891,32 @@ def lstm_kernels(dev):
     return rows
 
 
-# every kernel wrapper of the port, each counting its own launches
+# every kernel wrapper of the port, each counting its own launches (and
+# those with several routes, each route's in ``routes``)
 LAUNCHED = (bag_mod.embedding_bag, inter_mod.fused_interaction,
             scat_mod.scatter_add_rows, scat_mod.scatter_write_rows,
-            topk_mod.mips_topk, bag_mod.embedding_bag_quant,
-            inter_mod.fused_interaction_quant, lstm_mod.lstm_fwd,
-            lstm_mod.lstm_bwd)
+            scat_mod.scatter_presort, topk_mod.mips_topk,
+            bag_mod.embedding_bag_quant, inter_mod.fused_interaction_quant,
+            lstm_mod.lstm_fwd, lstm_mod.lstm_gates, lstm_mod.lstm_bwd)
+
+
+def zero_counts():
+    for k in LAUNCHED:
+        k.launches = 0
+        for route in getattr(k, "routes", {}):
+            k.routes[route] = 0
+
+
+def read_counts():
+    """{wrapper: launches} and {"wrapper:route": launches} for each
+    route of a wrapper that has several."""
+    counts = {k.__name__: k.launches for k in LAUNCHED}
+    for k in LAUNCHED:
+        for route, v in getattr(k, "routes", {}).items():
+            counts[f"{k.__name__}:{route}"] = v
+    return counts
+
+
 # the kernels no path of the port calls yet, as in the JAX package
 OFF_PATH = {"embedding_bag_quant", "fused_interaction_quant"}
 
@@ -781,10 +934,12 @@ class PlainCalls:
                           (inter_mod, "fused_interaction_reference"),
                           (scat_mod, "scatter_add_rows_reference"),
                           (scat_mod, "scatter_write_rows_reference"),
+                          (scat_mod, "presort_reference"),
                           (topk_mod, "mips_topk_reference"),
                           (bag_mod, "embedding_bag_quant_reference"),
                           (inter_mod, "fused_interaction_quant_reference"),
                           (lstm_mod, "lstm_fwd_reference"),
+                          (lstm_mod, "lstm_gates_reference"),
                           (lstm_mod, "lstm_bwd_reference")):
             real = getattr(mod, name)
 
@@ -828,8 +983,7 @@ def serve_phase(mode):
     errors = []
 
     # the main path: every count at 0 just before, read just after
-    for k in LAUNCHED:
-        k.launches = 0
+    zero_counts()
     with PlainCalls() as plain:
         engine = InferenceEngine(model, ServeConfig(max_batch=256))
         with engine:
@@ -851,7 +1005,7 @@ def serve_phase(mode):
                 t.join(300)
             wall = time.perf_counter() - t0
             stats = engine.stats()
-    launches = {k.__name__: k.launches for k in LAUNCHED}
+    launches = read_counts()
     check(not errors and not any(t.is_alive() for t in threads),
           f"{mode}: requests failed: {errors[:3]}")
     check(len(results) == len(spans), f"{mode}: missing responses")
@@ -1028,8 +1182,7 @@ def cascade_phase():
         alone = [cascade.predict(feats) for feats in warm][2:]
         lookups0 = sum(r.shard.lookups for r in sset.shards)
         # the main path: every count at 0 just before, read just after
-        for k in LAUNCHED:
-            k.launches = 0
+        zero_counts()
         with PlainCalls() as plain:
             def client(c):
                 try:
@@ -1046,7 +1199,7 @@ def cascade_phase():
             for t in threads:
                 t.join(300)
             wall = time.perf_counter() - t0
-        launches = {k.__name__: k.launches for k in LAUNCHED}
+        launches = read_counts()
         shard_calls = sum(r.shard.lookups for r in sset.shards) - lookups0
         check(not errors and not any(t.is_alive() for t in threads),
               f"cascade: requests failed: {errors[:3]}")
@@ -1194,11 +1347,10 @@ def timed_steps(model, db, losses):
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
 
-    for k in LAUNCHED:
-        k.launches = 0
+    zero_counts()
     with PlainCalls() as plain:
         windows = [window()]
-    launches = {k.__name__: k.launches for k in LAUNCHED}
+    launches = read_counts()
     walls = []
     for _ in range(10):
         t0 = time.perf_counter()
@@ -1285,8 +1437,11 @@ def train_report(run):
     mode, model, db = run["mode"], run["model"], run["db"]
     launches, losses = run["launches"], run["losses"]
     kernel = "scatter_add_rows" if mode == "dot" else "scatter_write_rows"
-    check(launches[kernel] > 0,
-          f"train {mode}: the {kernel} kernel never launched")
+    check(launches[kernel] > 0
+          and launches[f"{kernel}:block"] == launches[kernel]
+          == launches["scatter_presort"],
+          f"train {mode}: the {kernel} kernel did not launch once a step "
+          f"after the one-block pre-pass: {launches}")
     check(run["plain_calls"] == 0,
           f"train {mode}: a plain version ran {run['plain_calls']} times")
     check(all(np.isfinite(losses)) and losses[-1] < losses[0],

@@ -1,5 +1,4 @@
-// LSTM forward and backward scans for Hopper (sm_90a): one source, two
-// kernels.
+// LSTM forward and backward scans for Hopper (sm_90a).
 //
 // Replaces two Pallas TPU kernels of
 // dlrm_flexflow_tpu/ops/pallas/lstm_kernel.py:
@@ -21,26 +20,53 @@
 // H = 1,024, bf16 wh) the forward does 2·b·H·4H·(T-1) = 20.9 GFLOP of
 // recurrent products (21 us on the bf16 tensor cores) and moves 71 MB
 // (21 us at 3.35 TB/s); the backward does twice the products (the gate
-// recompute and dz @ whᵀ) over 124 MB. The serial dependence is the
-// real limit: each step's product needs the whole previous h (or dz),
-// so a step cannot start before every part of the last one is done.
+// recompute and dz @ whᵀ, 42 us) over 124 MB. The serial dependence is
+// the real limit: each step's product needs the whole previous h (or
+// dz), so a step cannot start before every part of the last one is done.
 //
-// Design (a first version, right before fast): ONE cooperative launch
-// per call, the time loop inside the kernel and a grid-wide barrier
-// (cooperative_groups grid.sync) between steps, instead of the TPU's
-// sequential grid of T steps. A block owns groups of kUnits hidden units
-// j and all four gate columns of each (j, H+j, 2H+j, 3H+j), so the cell
-// update, the c carry and the dc carry stay with the thread that computes
-// them, in a (b, H) fp32 scratch that only that thread touches. After
+// Forward, and the backward's streaming route (fp32 wh, or a shape the
+// resident route does not take): ONE cooperative launch per call, the
+// time loop inside the kernel and a grid-wide barrier (cooperative_groups
+// grid.sync) between steps. A block owns groups of kUnits hidden units j
+// and all four gate columns of each (j, H+j, 2H+j, 3H+j), so the cell
+// update and the carries stay with the thread that computes them. After
 // the barrier a block reads the whole h_{t-1} (ys[t-1]) or, backward,
-// the whole dz[t+1] from global memory (L2; __ldcg so no stale L1 line
-// is read), staged in kChunk-wide slices through shared memory. wh is
-// read from global memory each step: at 8 MB (bf16) or 16 MB (fp32) it
-// stays in the 50 MB L2 across steps. The products are scalar fp32 FMAs
-// with a 2 rows × 4 gates register tile per thread: no wgmma, no TMA,
-// no shared-memory residency of wh yet. The wrapper sizes the grid to
-// what the occupancy query says can be co-resident and raises if the
-// cooperative launch is refused: there is no fallback.
+// the whole dz[t+1] from L2 (__ldcg, so no stale L1 line is read),
+// staged in kChunk-wide slices through shared memory, and wh from L2
+// too. The products are scalar fp32 FMAs (2 rows × 4 gates a thread).
+// The streaming backward recomputes the gates inside the serial loop.
+//
+// Backward, resident route (bf16 wh, b <= 128, one block per group of 8
+// units co-resident, the wh slice within shared memory; the wrapper
+// chooses the route by shape): two launches.
+//   1. lstm_gates_kernel, a parallel GEMM before the time loop: the gate
+//      pre-activations of every step, round_bf16(ys[t-1]) @ wh + xproj[t]
+//      ((T·b, H) × (H, 4H), zero h at t = 0), into a (T, b, 4H) fp32
+//      scratch. 128 × 128 tiles, 8 warps of mma.sync.m16n8k16 bf16 with
+//      fp32 accumulators fed by ldmatrix; ys is read as float4 and
+//      rounded to bf16 as it is staged, the next k tile's loads in
+//      flight during the current one's products. The gate recompute
+//      needs no carry, so it leaves the serial chain.
+//   2. lstm_bwd_resident_kernel, one cooperative launch of exactly one
+//      block per group: the block copies its 8 rows of wh (8 × 4H bf16,
+//      64 KB at H = 1,024, padded against bank conflicts) into dynamic
+//      shared memory once, and keeps them for the whole call. A step's
+//      carry dh = round_bf16(dz[t+1]) @ whᵀ is, for the block, an
+//      M = b, N = 8, K = 4H product: each of 8 warps takes one 16-row
+//      tile and a share of K and runs mma.sync.m16n8k16 with A read
+//      straight from global memory and B from the resident slice; the
+//      partial sums meet in shared memory. dz[t+1] is rounded to bf16
+//      ONCE, by the thread that writes it, into a two-slot bf16 ring laid
+//      out in mma fragment order, so a reader's A fragment is one 16-byte
+//      __ldcg (L2, never a stale L1 line) and eight of them stay in
+//      flight. A thread keeps its (row, unit) for the whole call, so c
+//      and the dc carry stay in registers, and it loads the step's
+//      carry-free inputs (gates[t], cs[t-1], dys[t]) before the barrier.
+//      Per step a block reads the 512 KB ring slot from L2 (64 MB for
+//      128 blocks) and waits at one grid.sync.
+// lstm_barrier_kernel runs the serial phase's barriers alone, to measure
+// their cost; no path calls it. A refused launch raises in the wrapper:
+// there is no fallback between routes.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -279,6 +305,341 @@ lstm_bwd_kernel(const float* __restrict__ xproj, const W* __restrict__ wh,
   }
 }
 
+// ---- the backward's resident route (bf16 wh) --------------------------
+
+// D += A·B on the bf16 tensor cores, one m16n8k16 tile, fp32 accumulate.
+// A fragment: a0 = (row g, k 2t..2t+1), a1 = (g+8, 2t..), a2 = (g,
+// 2t+8..), a3 = (g+8, 2t+8..); B fragment: b0 = (k 2t..2t+1, col g),
+// b1 = (k 2t+8.., col g); D: d0,d1 = (g, 2t..2t+1), d2,d3 = (g+8, ..),
+// for lane = 4g + t; the lower index in the lower 16 bits.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Four 8 × 8 bf16 matrices from shared memory into mma fragments; lane
+// l gives the address of row l % 8 of matrix l / 8. With .trans each
+// matrix is read transposed (a B fragment from a [k][n] tile).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+constexpr int kGateBM = 128, kGateBN = 128, kGateBK = 32;
+constexpr int kGateThreads = 256;            // 8 warps, 2 × 4, 64 × 32 each
+constexpr int kAStride = kGateBK + 8;        // bf16: 80 B rows, so the 8
+constexpr int kBStride = kGateBN + 8;        // rows of an ldmatrix hit 8
+                                             // different 16-byte bank groups
+constexpr int kAVecs = kGateBM * kGateBK / 4 / kGateThreads;   // 4 float4
+constexpr int kBVecs = kGateBK * kGateBN / 8 / kGateThreads;   // 2 × 8 bf16
+
+// gates[r, n] = xproj[r, n] + Σ_k round_bf16(hp[r, k]) · wh[k, n] over
+// the M = T·b rows r = t·b + row, with hp row r = ys row r - b (h_{t-1})
+// and zero at t = 0; N = 4H columns, K = H. A 128 × 128 tile a block:
+// ys and wh are each re-read from L2 N/128 and M/128 times.
+__global__ void __launch_bounds__(kGateThreads, 1)
+lstm_gates_kernel(const float* __restrict__ xproj,
+                  const __nv_bfloat16* __restrict__ wh,
+                  const float* __restrict__ ys, float* __restrict__ gates,
+                  int M, int b, int H) {
+  __shared__ __align__(16) __nv_bfloat16 As[kGateBM][kAStride];  // [m][k]
+  __shared__ __align__(16) __nv_bfloat16 Bs[kGateBK][kBStride];  // [k][n]
+  const int N = 4 * H;
+  const int m0 = blockIdx.y * kGateBM, n0 = blockIdx.x * kGateBN;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tg = lane % 4;
+  const int wm = (warp / 4) * 64, wn = (warp % 4) * 32;
+  const bool vec_a = H % 4 == 0, vec_b = N % 8 == 0;
+  float acc[4][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+  float4 ra[kAVecs];
+  uint4 rb[kBVecs];
+  // the next k tile into registers, while the current one is multiplied
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < kAVecs; ++i) {
+      const int e = tid + i * kGateThreads;
+      const int r = m0 + e / (kGateBK / 4), k = k0 + (e % (kGateBK / 4)) * 4;
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      if (r >= b && r < M) {
+        const float* p = ys + (size_t)(r - b) * H + k;
+        if (vec_a && k + 3 < H) {
+          const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+          v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+        } else {
+#pragma unroll
+          for (int x = 0; x < 4; ++x) v[x] = k + x < H ? __ldg(p + x) : 0.f;
+        }
+      }
+      ra[i] = make_float4(v[0], v[1], v[2], v[3]);
+    }
+#pragma unroll
+    for (int i = 0; i < kBVecs; ++i) {
+      const int e = tid + i * kGateThreads;
+      const int k = k0 + e / (kGateBN / 8), n = n0 + (e % (kGateBN / 8)) * 8;
+      const __nv_bfloat16* p = wh + (size_t)k * N + n;
+      if (k < H && vec_b && n + 7 < N) {
+        rb[i] = __ldg(reinterpret_cast<const uint4*>(p));
+      } else {
+        unsigned short v[8];
+#pragma unroll
+        for (int x = 0; x < 8; ++x)
+          v[x] = (k < H && n + x < N)
+                     ? reinterpret_cast<const unsigned short*>(p)[x] : 0;
+        rb[i] = make_uint4(v[0] | (uint32_t)v[1] << 16,
+                           v[2] | (uint32_t)v[3] << 16,
+                           v[4] | (uint32_t)v[5] << 16,
+                           v[6] | (uint32_t)v[7] << 16);
+      }
+    }
+  };
+  load(0);
+  for (int k0 = 0; k0 < H; k0 += kGateBK) {
+#pragma unroll
+    for (int i = 0; i < kAVecs; ++i) {   // ys rounded to bf16 as staged
+      const int e = tid + i * kGateThreads;
+      __nv_bfloat162 lo = __floats2bfloat162_rn(ra[i].x, ra[i].y);
+      __nv_bfloat162 hi = __floats2bfloat162_rn(ra[i].z, ra[i].w);
+      *reinterpret_cast<uint2*>(&As[e / (kGateBK / 4)]
+                                   [(e % (kGateBK / 4)) * 4]) =
+          make_uint2(*reinterpret_cast<uint32_t*>(&lo),
+                     *reinterpret_cast<uint32_t*>(&hi));
+    }
+#pragma unroll
+    for (int i = 0; i < kBVecs; ++i) {
+      const int e = tid + i * kGateThreads;
+      *reinterpret_cast<uint4*>(&Bs[e / (kGateBN / 8)]
+                                   [(e % (kGateBN / 8)) * 8]) = rb[i];
+    }
+    __syncthreads();
+    if (k0 + kGateBK < H) load(k0 + kGateBK);
+#pragma unroll
+    for (int ks = 0; ks < kGateBK; ks += 16) {
+      uint32_t a[4][4], bf[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+        ldmatrix_x4(a[mi], &As[wm + mi * 16 + lane % 16][ks + (lane / 16) * 8]);
+#pragma unroll
+      for (int nj = 0; nj < 2; ++nj)
+        ldmatrix_x4_trans(bf[nj], &Bs[ks + lane % 16]
+                                     [wn + nj * 16 + (lane / 16) * 8]);
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+          mma_bf16(acc[mi][ni], a[mi][0], a[mi][1], a[mi][2], a[mi][3],
+                   bf[ni / 2][(ni % 2) * 2], bf[ni / 2][(ni % 2) * 2 + 1]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = m0 + wm + mi * 16 + g + half * 8;
+        const int n = n0 + wn + ni * 8 + 2 * tg;
+        if (r >= M) continue;
+        const size_t idx = (size_t)r * N + n;
+        if (n + 1 < N) {
+          const float2 x = __ldg(reinterpret_cast<const float2*>(xproj + idx));
+          *reinterpret_cast<float2*>(gates + idx) =
+              make_float2(x.x + acc[mi][ni][2 * half],
+                          x.y + acc[mi][ni][2 * half + 1]);
+        } else if (n < N) {
+          gates[idx] = __ldg(xproj + idx) + acc[mi][ni][2 * half];
+        }
+      }
+}
+
+constexpr int kResThreads = 256;             // 8 warps
+constexpr int kResWarps = kResThreads / 32;
+constexpr int kResUnits = 8;                 // hidden units of the block
+constexpr int kResLanes = kResThreads / kResUnits;   // 32 row lanes
+constexpr int kResRows = 4;                  // batch rows per thread
+constexpr int kResMaxB = kResLanes * kResRows;       // 128
+constexpr int kResUnroll = 8;                // ring loads in flight a warp
+// partial carries: (K shares × 16-row tiles) <= 8 tiles of 16 × 8 fp32
+constexpr int kDhpFloats = kResWarps * 16 * kResUnits;
+
+// 4H padded to the product's depth of 16
+__host__ __device__ __forceinline__ int padded_k(int H) {
+  return (4 * H + 15) / 16 * 16;
+}
+// the slice's row stride in 32-bit words: 4 words of padding put the 8
+// rows' fragments in 8 different bank quads
+__host__ __device__ __forceinline__ int slice_stride(int H) {
+  return padded_k(H) / 2 + 4;
+}
+size_t resident_smem(int H) {
+  return (size_t)kResUnits * slice_stride(H) * 4 + kDhpFloats * 4;
+}
+
+// Where element (row, k) of dz[t] lives in a ring slot: 16-row tile rt,
+// depth step s, then the 32 lanes' 16-byte A fragments (mma_bf16's
+// layout), so a warp's fragment of one step is 512 contiguous bytes.
+__device__ __forceinline__ size_t ring_index(int row, int k, int S) {
+  const int rt = row >> 4, rr = row & 15, s = k >> 4, kk = k & 15;
+  const int lane = (rr & 7) * 4 + ((kk & 7) >> 1);
+  const int reg = (rr >> 3) + 2 * (kk >> 3);
+  return (((size_t)rt * S + s) * 32 + lane) * 8 + reg * 2 + (kk & 1);
+}
+
+__global__ void __launch_bounds__(kResThreads, 1)
+lstm_bwd_resident_kernel(const float* __restrict__ gates,
+                         const __nv_bfloat16* __restrict__ wh,
+                         const float* __restrict__ cs,
+                         const float* __restrict__ dys,
+                         float* __restrict__ dzs, __nv_bfloat16* ring,
+                         int T, int b, int H) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int Kp = padded_k(H), S = Kp / 16, rs = slice_stride(H);
+  uint32_t* slice = smem;                    // [kResUnits][rs] bf16 pairs
+  float* dhp = reinterpret_cast<float*>(smem + kResUnits * rs);
+  cg::grid_group grid = cg::this_grid();
+  const int tid = threadIdx.x, H4 = 4 * H, j0 = blockIdx.x * kResUnits;
+  const unsigned short* w16 = reinterpret_cast<const unsigned short*>(wh);
+  for (int e = tid; e < kResUnits * (Kp / 2); e += kResThreads) {
+    const int u = e / (Kp / 2), c = 2 * (e % (Kp / 2)), j = j0 + u;
+    const uint32_t lo = (j < H && c < H4) ? w16[(size_t)j * H4 + c] : 0u;
+    const uint32_t hi = (j < H && c + 1 < H4) ? w16[(size_t)j * H4 + c + 1]
+                                              : 0u;
+    slice[u * rs + c / 2] = lo | (hi << 16);
+  }
+  const int mtiles = (b + 15) / 16;
+  const int ksplit = mtiles >= kResWarps ? 1 : kResWarps / mtiles;
+  const int unit = tid % kResUnits, lane = tid / kResUnits, j = j0 + unit;
+  const int warp = tid / 32, wl = tid % 32, g = wl / 4, tg = wl % 4;
+  const size_t bh = (size_t)b * H, bh4 = (size_t)b * H4;
+  const size_t slot = (size_t)mtiles * 16 * Kp;
+  float gz[kResRows][4], cprev[kResRows], dy[kResRows], c[kResRows],
+      dcc[kResRows];
+  // the carry-free inputs of step t
+  auto load_step = [&](int t) {
+#pragma unroll
+    for (int r = 0; r < kResRows; ++r) {
+      const int row = lane + r * kResLanes;
+      if (row >= b || j >= H) continue;
+      const float* gp = gates + t * bh4 + (size_t)row * H4 + j;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) gz[r][q] = __ldg(gp + (size_t)q * H);
+      const size_t idx = (size_t)row * H + j;
+      cprev[r] = t > 0 ? __ldg(cs + (t - 1) * bh + idx) : 0.f;
+      dy[r] = __ldg(dys + t * bh + idx);
+    }
+  };
+#pragma unroll
+  for (int r = 0; r < kResRows; ++r) {
+    const int row = lane + r * kResLanes;
+    c[r] = (row < b && j < H) ? __ldg(cs + (T - 1) * bh + (size_t)row * H + j)
+                              : 0.f;
+    dcc[r] = 0.f;
+  }
+  load_step(T - 1);
+  __syncthreads();                           // the slice is in place
+  for (int t = T - 1; t >= 0; --t) {
+    const bool carry = t + 1 < T;
+    if (carry) {   // dh = round_bf16(dz[t+1]) @ whᵀ for the block's units
+      if (warp < mtiles * ksplit) {
+        const int m = warp % mtiles, kh = warp / mtiles;
+        const int s0 = kh * S / ksplit, s1 = (kh + 1) * S / ksplit;
+        const uint4* A = reinterpret_cast<const uint4*>(
+                             ring + ((t + 1) & 1) * slot) +
+                         (size_t)m * S * 32 + wl;
+        const uint32_t* Bp = slice + g * rs + tg;
+        float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+        int s = s0;
+        for (; s + kResUnroll <= s1; s += kResUnroll) {
+          uint4 a[kResUnroll];
+#pragma unroll
+          for (int u = 0; u < kResUnroll; ++u)
+            a[u] = __ldcg(A + (size_t)(s + u) * 32);
+#pragma unroll
+          for (int u = 0; u < kResUnroll; ++u) {
+            const uint32_t* bp = Bp + (s + u) * 8;
+            mma_bf16(acc[u & 1], a[u].x, a[u].y, a[u].z, a[u].w, bp[0],
+                     bp[4]);
+          }
+        }
+        for (; s < s1; ++s) {
+          const uint4 a = __ldcg(A + (size_t)s * 32);
+          const uint32_t* bp = Bp + s * 8;
+          mma_bf16(acc[0], a.x, a.y, a.z, a.w, bp[0], bp[4]);
+        }
+        float* out = dhp + (kh * mtiles + m) * 16 * kResUnits;
+        out[g * kResUnits + 2 * tg] = acc[0][0] + acc[1][0];
+        out[g * kResUnits + 2 * tg + 1] = acc[0][1] + acc[1][1];
+        out[(g + 8) * kResUnits + 2 * tg] = acc[0][2] + acc[1][2];
+        out[(g + 8) * kResUnits + 2 * tg + 1] = acc[0][3] + acc[1][3];
+      }
+      __syncthreads();
+    }
+    __nv_bfloat16* wr = ring + (t & 1) * slot;
+#pragma unroll
+    for (int r = 0; r < kResRows; ++r) {
+      const int row = lane + r * kResLanes;
+      if (row >= b || j >= H) continue;
+      float dhc = 0.f;
+      if (carry)
+        for (int kh = 0; kh < ksplit; ++kh)
+          dhc += dhp[((kh * mtiles + row / 16) * 16 + row % 16) * kResUnits
+                     + unit];
+      const float i = sigmoid(gz[r][0]), f = sigmoid(gz[r][1]);
+      const float gg = tanhf(gz[r][2]), o = sigmoid(gz[r][3]);
+      const float tanh_c = tanhf(c[r]);
+      const float dh = dy[r] + dhc;
+      const float dc = dcc[r] + dh * o * (1.f - tanh_c * tanh_c);
+      const float d[4] = {dc * gg * i * (1.f - i),
+                          dc * cprev[r] * f * (1.f - f),
+                          dc * i * (1.f - gg * gg),
+                          dh * tanh_c * o * (1.f - o)};
+      float* dz = dzs + t * bh4 + (size_t)row * H4;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        dz[q * H + j] = d[q];
+        wr[ring_index(row, q * H + j, S)] = __float2bfloat16_rn(d[q]);
+      }
+      dcc[r] = dc * f;
+      c[r] = cprev[r];
+    }
+    if (t > 0) {
+      load_step(t - 1);
+      grid.sync();
+    }
+  }
+}
+
+// `steps` grid-wide barriers and nothing else: the resident route's
+// serial phase with its work taken out.
+__global__ void __launch_bounds__(kResThreads, 1)
+lstm_barrier_kernel(int steps) {
+  cg::grid_group grid = cg::this_grid();
+  for (int s = 0; s < steps; ++s) grid.sync();
+}
+
 // A refused launch (a grid the card cannot hold at once) never ran; its
 // error is returned to the wrapper, which raises, and cleared from the
 // runtime's last error so that the next launch of another kernel, ours
@@ -315,12 +676,32 @@ int launch_bwd(const void* xproj, const void* wh, const void* ys,
       (cudaStream_t)stream));
 }
 
-const void* kernel_of(int backward, int wh_bf16) {
-  if (backward)
+// The kernel a capacity query is for: 0 the forward, 1 the streaming
+// backward, 2 the resident backward (bf16 only).
+const void* kernel_of(int kernel, int wh_bf16) {
+  if (kernel == 0)
+    return wh_bf16 ? (const void*)lstm_fwd_kernel<__nv_bfloat16>
+                   : (const void*)lstm_fwd_kernel<float>;
+  if (kernel == 1)
     return wh_bf16 ? (const void*)lstm_bwd_kernel<__nv_bfloat16>
                    : (const void*)lstm_bwd_kernel<float>;
-  return wh_bf16 ? (const void*)lstm_fwd_kernel<__nv_bfloat16>
-                 : (const void*)lstm_fwd_kernel<float>;
+  return (const void*)lstm_bwd_resident_kernel;
+}
+
+// Lets the resident kernel take `smem` bytes of dynamic shared memory
+// (above 48 KB only after this call); set once per device for the
+// largest size asked.
+cudaError_t allow_smem(size_t smem) {
+  static size_t allowed[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && smem <= allowed[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute((const void*)lstm_bwd_resident_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err == cudaSuccess && dev < 64) allowed[dev] = smem;
+  return err;
 }
 
 }  // namespace
@@ -328,26 +709,37 @@ const void* kernel_of(int backward, int wh_bf16) {
 extern "C" {
 
 // Hidden units a block owns per group: a call runs ceil(H / units)
-// groups over its grid.
+// groups over its grid (both routes).
 int ff_lstm_units() { return kUnits; }
 
-// How many blocks of the forward (backward = 0) or backward kernel can be
-// resident at once on the current device: *blocks_per_sm on each of
-// *sms multiprocessors. *cooperative is 0 when the device cannot take a
-// cooperative launch. Returns a CUDA error code.
-int ff_lstm_capacity(int backward, int wh_bf16, int* blocks_per_sm,
+// The largest batch the resident route takes (kResRows rows a thread).
+int ff_lstm_resident_max_b() { return kResMaxB; }
+
+// Dynamic shared memory of the resident route at hidden size H: the wh
+// slice and the partial carries.
+long long ff_lstm_resident_smem(int H) { return (long long)resident_smem(H); }
+
+// How many blocks of a kernel (see kernel_of; H sizes the resident
+// kernel's shared memory) can be resident at once on the current device:
+// *blocks_per_sm on each of *sms multiprocessors. *cooperative is 0 when
+// the device cannot take a cooperative launch. Returns a CUDA error code
+// (the resident kernel's shared memory above the card's limit is one).
+int ff_lstm_capacity(int kernel, int wh_bf16, int H, int* blocks_per_sm,
                      int* sms, int* cooperative) {
   int dev = 0;
+  size_t smem = kernel == 2 ? resident_smem(H) : 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(cooperative, cudaDevAttrCooperativeLaunch,
                                  dev);
+  if (err == cudaSuccess && kernel == 2) err = allow_smem(smem);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, kernel_of(backward, wh_bf16), kThreads, 0);
-  return (int)err;
+        blocks_per_sm, kernel_of(kernel, wh_bf16),
+        kernel == 2 ? kResThreads : kThreads, smem);
+  return refused_or_ok(err);
 }
 
 // xproj (T, b, 4H) fp32; wh (H, 4H) bf16 (wh_bf16 = 1) or fp32; ys
@@ -365,8 +757,9 @@ int ff_lstm_fwd(const void* xproj, const void* wh, int wh_bf16, void* ys,
                                      stream);
 }
 
-// ys, cs: the forward's outputs; dys (T, b, H) fp32; dzs (T, b, 4H) fp32
-// out, the gate cotangents; dcbuf (b, H) fp32 scratch. As ff_lstm_fwd.
+// The streaming backward. ys, cs: the forward's outputs; dys (T, b, H)
+// fp32; dzs (T, b, 4H) fp32 out, the gate cotangents; dcbuf (b, H) fp32
+// scratch. As ff_lstm_fwd.
 int ff_lstm_bwd(const void* xproj, const void* wh, int wh_bf16,
                 const void* ys, const void* cs, const void* dys, void* dzs,
                 void* dcbuf, int T, int b, int H, int grid, void* stream) {
@@ -375,6 +768,55 @@ int ff_lstm_bwd(const void* xproj, const void* wh, int wh_bf16,
                                              dcbuf, T, b, H, grid, stream)
                  : launch_bwd<float>(xproj, wh, ys, cs, dys, dzs, dcbuf, T,
                                      b, H, grid, stream);
+}
+
+// The resident route's gate phase: gates (T, b, 4H) fp32 out, from
+// xproj (T, b, 4H) fp32, wh (H, 4H) bf16 and ys (T, b, H) fp32. One
+// ordinary launch on `stream`; returns cudaGetLastError().
+int ff_lstm_gates(const void* xproj, const void* wh, const void* ys,
+                  void* gates, int T, int b, int H, void* stream) {
+  if (T <= 0 || b <= 0) return 0;
+  const int M = T * b;
+  const dim3 grid((4 * H + kGateBN - 1) / kGateBN,
+                  (M + kGateBM - 1) / kGateBM);
+  lstm_gates_kernel<<<grid, kGateThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)xproj, (const __nv_bfloat16*)wh, (const float*)ys,
+      (float*)gates, M, b, H);
+  return (int)cudaGetLastError();
+}
+
+// The resident route's serial phase: dzs (T, b, 4H) fp32 out from the
+// gate pre-activations (ff_lstm_gates), wh (H, 4H) bf16, cs and dys
+// (T, b, H) fp32; ring: 2 × ceil(b/16)·16 × padded 4H bf16 scratch,
+// ZEROED (its padding is read). One cooperative launch of `grid` >=
+// ceil(H / units) blocks, b <= ff_lstm_resident_max_b(); returns its
+// error code.
+int ff_lstm_bwd_resident(const void* gates, const void* wh, const void* cs,
+                         const void* dys, void* dzs, void* ring, int T,
+                         int b, int H, int grid, void* stream) {
+  if (T <= 0 || b <= 0) return 0;
+  if (b > kResMaxB) return (int)cudaErrorInvalidValue;
+  const size_t smem = resident_smem(H);
+  cudaError_t err = allow_smem(smem);
+  if (err != cudaSuccess) return refused_or_ok(err);
+  const float* g = (const float*)gates;
+  const __nv_bfloat16* w = (const __nv_bfloat16*)wh;
+  const float *c = (const float*)cs, *dy = (const float*)dys;
+  float* dz = (float*)dzs;
+  __nv_bfloat16* rg = (__nv_bfloat16*)ring;
+  void* args[] = {&g, &w, &c, &dy, &dz, &rg, &T, &b, &H};
+  return refused_or_ok(cudaLaunchCooperativeKernel(
+      (const void*)lstm_bwd_resident_kernel, dim3(grid), dim3(kResThreads),
+      args, smem, (cudaStream_t)stream));
+}
+
+// `steps` grid-wide barriers over `grid` blocks of the resident kernel's
+// size, nothing else: one cooperative launch; returns its error code.
+int ff_lstm_barrier(int steps, int grid, void* stream) {
+  void* args[] = {&steps};
+  return refused_or_ok(cudaLaunchCooperativeKernel(
+      (const void*)lstm_barrier_kernel, dim3(grid), dim3(kResThreads), args,
+      0, (cudaStream_t)stream));
 }
 
 const char* ff_error_string(int err) {

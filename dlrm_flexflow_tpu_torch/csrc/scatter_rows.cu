@@ -1,5 +1,5 @@
-// Touched-rows scatter updates for Hopper (sm_90a): one source, two
-// kernels.
+// Touched-rows scatter updates for Hopper (sm_90a): a pre-pass kernel
+// and one update kernel behind two entry points.
 //
 // Replaces two Pallas TPU kernels of
 // dlrm_flexflow_tpu/ops/pallas/embedding_kernel.py:
@@ -16,28 +16,48 @@
 // computes -lr * upd and then segment-sums:
 //   sum(row) = sum over lookups j with ids[j] == row, in ascending j, of
 //              scale * upd[j / div], starting from 0.
+// The multiply and the adds use __fmul_rn/__fadd_rn, so nvcc cannot
+// contract them into an FMA that would round differently from the
+// reference, and there are no atomics: the result is bitwise that of the
+// plain version.
 //
 // The TPU kernels rely on an XLA pre-pass (_dedup_tile_updates: argsort,
-// segment_sum, segment_max) to make every target distinct. Here the
-// wrapper only sorts the ids stably (torch.sort); the kernel finds the
-// segments itself: the thread group at sorted position k owns the
-// segment if k is its first position, and walks forward while the id
-// stays the same. One owner per distinct row, so no atomics, the sum
-// order is the sorted (= original, the sort being stable) order of the
-// JAX pre-pass, and the result is deterministic. The multiply and the
-// adds use __fmul_rn/__fadd_rn so nvcc cannot contract them into an FMA
-// that would round differently from the reference.
+// segment_sum, segment_max) to make every target distinct. Here:
 //
-// Bound: memory. The kernels read the sorted ids and the order (16 B a
-// lookup), the updates (n/div rows), one table row (read-modify-write)
-// or one forward row (write-only) per distinct row, and write one row
-// per distinct row: at the training shape (n = 2,048 lookups, d = 64)
-// about 1.6 MB, 0.5 us at 3.35 TB/s, so one launch is launch-bound.
+// 1. scatter_rank_kernel, for n up to kBlockSortMax = 16,384 lookups:
+//    the stable sorted order by rank. With keys (row id << 32 | lookup
+//    position), all distinct, a lookup's place in the order is the
+//    number of keys below its own; it is its row's first lookup when none
+//    of them has its row, and the keys with its row count the row's
+//    lookups. Each block holds all n keys in shared memory and ranks 16
+//    lookups, a warp's lanes striding over the keys: n² compares spread
+//    over the card with no barrier in the loop (at n = 2,048, 128 blocks
+//    of 2 × 64 compares a thread). It writes the order and, for each
+//    row's first lookup, where its segment starts in the order and how
+//    long it is. Row ids must fit in 31 bits (the wrapper checks rows <
+//    2^31). A one-block bitonic sort was tried first: its 66 dependent
+//    stages on one SM made it slower than this whole call, however the
+//    keys were spread over threads. Above the limit the wrapper sorts
+//    int32 ids with torch.sort (stable) and derives the same segments
+//    with tensor ops: the JAX pre-pass is XLA, not a Pallas kernel.
+// 2. scatter_rows_kernel hands each segment whole to the group of dim/4
+//    threads (one per 16-byte column chunk: d/4 neighbouring threads
+//    cover a 256-byte row at d = 64, so every row read and write is a run
+//    of float4s on neighbouring addresses) of its row's first lookup,
+//    which also gives the row id and, write-only, the forward row. The
+//    group walks the segment's sorted positions contiguously, eight
+//    lookups' loads in flight at once, and adds them in lookup order: a
+//    long segment (a hot row) is a serial chain of adds, which bitwise
+//    equality with the sequential sum requires. The groups of the other
+//    n - m lookups (m distinct rows) exit after one load: a grid sized
+//    before m is known idles that many groups in any layout.
 //
-// Design: one thread per 16-byte column chunk of a sorted position, as
-// the bag kernel; d/4 neighbouring threads cover a 256-byte row at
-// d = 64, so every row read and write is a run of float4s on
-// neighbouring addresses. Threads of non-head positions exit at once.
+// Bound: memory. The function reads the ids (8 B a lookup), the updates
+// (n/div rows), one table row (read-modify-write) or one forward row
+// (write-only) per distinct row, and writes one row per distinct row: at
+// the training shape (n = 2,048 lookups, d = 64) about 1.6 MB, 0.5 us at
+// 3.35 TB/s, so a call is launch- and latency-bound: two launches, each
+// a few dependent loads deep.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -45,49 +65,124 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kBlockSortMax = 16384;
+constexpr int kRankThreads = 256;          // 8 warps
+constexpr int kRankPerWarp = 2;            // lookups a warp ranks
+constexpr int kRankPerBlock = kRankThreads / 32 * kRankPerWarp;
+constexpr int kUnroll = 8;                 // a group's update loads in flight
 
+// The pre-pass: every lookup j's place p in the stable sorted order is
+// the number of keys below its own, key = (row id << 32 | position), all
+// keys distinct. A block copies the n keys into shared memory; each warp
+// ranks kRankPerWarp lookups, its lanes striding over the keys and summing
+// by shuffle. It writes order[p] = j and, for the first lookup of each
+// row (no smaller key with its row), seg[j] = (p, the row's lookup
+// count); (-1, 0) for every other lookup.
+__global__ void __launch_bounds__(kRankThreads)
+scatter_rank_kernel(const int64_t* __restrict__ ids, int n,
+                    int* __restrict__ order, int2* __restrict__ seg) {
+  extern __shared__ unsigned long long keys[];     // n keys
+  for (int i = threadIdx.x; i < n; i += kRankThreads)
+    keys[i] = ((unsigned long long)(uint32_t)ids[i] << 32) | (uint32_t)i;
+  __syncthreads();
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int j0 = blockIdx.x * kRankPerBlock + warp * kRankPerWarp;
+  unsigned long long mine[kRankPerWarp];
+  int less[kRankPerWarp], same[kRankPerWarp], before[kRankPerWarp];
+#pragma unroll
+  for (int q = 0; q < kRankPerWarp; ++q) {
+    mine[q] = j0 + q < n ? keys[j0 + q] : ~0ull;
+    less[q] = same[q] = before[q] = 0;
+  }
+  for (int i = lane; i < n; i += 32) {
+    const unsigned long long other = keys[i];
+#pragma unroll
+    for (int q = 0; q < kRankPerWarp; ++q) {
+      const bool smaller = other < mine[q];
+      const bool row = (uint32_t)(other >> 32) == (uint32_t)(mine[q] >> 32);
+      less[q] += smaller;
+      same[q] += row;
+      before[q] += smaller && row;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kRankPerWarp; ++q)
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) {
+      less[q] += __shfl_xor_sync(0xffffffffu, less[q], s);
+      same[q] += __shfl_xor_sync(0xffffffffu, same[q], s);
+      before[q] += __shfl_xor_sync(0xffffffffu, before[q], s);
+    }
+#pragma unroll
+  for (int q = 0; q < kRankPerWarp; ++q)
+    if (lane == q && j0 + q < n) {
+      order[less[q]] = j0 + q;
+      seg[j0 + q] = before[q] == 0 ? make_int2(less[q], same[q])
+                                   : make_int2(-1, 0);
+    }
+}
+
+__device__ __forceinline__ void add_scaled(float4& acc, float scale,
+                                           const float4 u) {
+  acc.x = __fadd_rn(acc.x, __fmul_rn(scale, u.x));
+  acc.y = __fadd_rn(acc.y, __fmul_rn(scale, u.y));
+  acc.z = __fadd_rn(acc.z, __fmul_rn(scale, u.z));
+  acc.w = __fadd_rn(acc.w, __fmul_rn(scale, u.w));
+}
+
+// Group g (vec threads, one per 16-byte chunk) serves the segment of row
+// ids[g] when lookup g is that row's first; the others exit at once.
 __global__ void __launch_bounds__(kThreads)
 scatter_rows_kernel(float4* __restrict__ table,
-                    const int64_t* __restrict__ sorted_ids,
-                    const int64_t* __restrict__ order,
+                    const int64_t* __restrict__ ids,
+                    const int* __restrict__ order,
+                    const int2* __restrict__ seg,
                     const float4* __restrict__ upd,
-                    const float4* __restrict__ fwd,
-                    int64_t n, int vec, int div, float scale) {
-  const int64_t g = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (g >= n * vec) return;
-  const int64_t k = g / vec;
-  const int c = (int)(g - k * vec);
-  const int64_t row = sorted_ids[k];
-  if (k > 0 && sorted_ids[k - 1] == row) return;   // not a segment head
+                    const float4* __restrict__ fwd, int n, int vec, int div,
+                    float scale) {
+  const int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const int64_t g = t / vec;
+  if (g >= n) return;
+  const int2 s = __ldg(seg + g);
+  if (s.x < 0) return;
+  const int c = (int)(t - g * vec);
+  const int64_t row = __ldg(ids + g);
+  // write-only: lookup g's forward row (every duplicate's holds the same
+  // pre-update value); its load overlaps the segment's
+  const float4 base = fwd ? __ldg(fwd + g * vec + c) : table[row * vec + c];
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  int64_t j = k;
-  do {
-    const float4 u = __ldg(upd + (order[j] / div) * vec + c);
-    acc.x = __fadd_rn(acc.x, __fmul_rn(scale, u.x));
-    acc.y = __fadd_rn(acc.y, __fmul_rn(scale, u.y));
-    acc.z = __fadd_rn(acc.z, __fmul_rn(scale, u.z));
-    acc.w = __fadd_rn(acc.w, __fmul_rn(scale, u.w));
-    ++j;
-  } while (j < n && sorted_ids[j] == row);
-  // write-only: any duplicate's forward row holds the same pre-update
-  // value, so the head's stands for the segment
-  const float4 base = fwd ? __ldg(fwd + order[k] * vec + c)
-                          : table[row * vec + c];
+  int k = s.x;
+  const int k1 = s.x + s.y;
+  for (; k + kUnroll <= k1; k += kUnroll) {   // loads in flight, then
+    int pos[kUnroll];                         // the adds in lookup order
+#pragma unroll
+    for (int i = 0; i < kUnroll; ++i) pos[i] = __ldg(order + k + i);
+    float4 u[kUnroll];
+#pragma unroll
+    for (int i = 0; i < kUnroll; ++i)
+      u[i] = __ldg(upd + (int64_t)(pos[i] / div) * vec + c);
+#pragma unroll
+    for (int i = 0; i < kUnroll; ++i) add_scaled(acc, scale, u[i]);
+  }
+  for (; k < k1; ++k)
+    add_scaled(acc, scale,
+               __ldg(upd + (int64_t)(__ldg(order + k) / div) * vec + c));
   table[row * vec + c] = make_float4(
       __fadd_rn(base.x, acc.x), __fadd_rn(base.y, acc.y),
       __fadd_rn(base.z, acc.z), __fadd_rn(base.w, acc.w));
 }
 
-int launch(void* table, const void* sorted_ids, const void* order,
-           const void* upd, const void* fwd, long long n, int dim, int div,
+int launch(void* table, const void* ids, const void* order, const void* seg,
+           const void* upd, const void* fwd, int n, int dim, int div,
            float scale, void* stream) {
   if (n <= 0) return 0;
   const int vec = dim / 4;
-  const long long blocks = (n * vec + kThreads - 1) / kThreads;
+  const long long blocks = ((long long)n * vec + kThreads - 1) / kThreads;
   scatter_rows_kernel<<<(unsigned)blocks, kThreads, 0,
                         (cudaStream_t)stream>>>(
-      (float4*)table, (const int64_t*)sorted_ids, (const int64_t*)order,
-      (const float4*)upd, (const float4*)fwd, n, vec, div, scale);
+      (float4*)table, (const int64_t*)ids, (const int*)order,
+      (const int2*)seg, (const float4*)upd, (const float4*)fwd, n, vec, div,
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -95,25 +190,56 @@ int launch(void* table, const void* sorted_ids, const void* order,
 
 extern "C" {
 
-// table: (rows, dim) fp32, updated in place; sorted_ids, order: (n,)
-// int64 from a stable sort of the lookups' row ids (sorted_ids =
-// ids[order]); upd: (n / div, dim) fp32. dim % 4 == 0 and 16-byte
-// aligned pointers (the wrapper checks). Launches on `stream`; returns
-// cudaGetLastError().
-int ff_scatter_add_rows(void* table, const void* sorted_ids,
-                        const void* order, const void* upd, long long n,
-                        int dim, int div, float scale, void* stream) {
-  return launch(table, sorted_ids, order, upd, nullptr, n, dim, div, scale,
+// The most lookups the pre-pass ranks (their keys fill a block's shared
+// memory: 128 KB).
+int ff_scatter_block_sort_max() { return kBlockSortMax; }
+
+// ids: (n,) int64 row ids in [0, 2^31); n <= kBlockSortMax. Writes
+// order (n,) int32, the lookups in stable order of their rows, and seg
+// (n, 2) int32: for the first lookup j of each row, (its place in order,
+// the row's lookup count); (-1, 0) for the others. One launch on
+// `stream`; returns cudaGetLastError().
+int ff_scatter_presort(const void* ids, int n, void* order, void* seg,
+                       void* stream) {
+  if (n <= 0) return 0;
+  if (n > kBlockSortMax) return (int)cudaErrorInvalidValue;
+  static bool allowed[64] = {};      // the dynamic shared memory, set
+  int dev = 0;                        // once per device
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64 || !allowed[dev]) {
+    err = cudaFuncSetAttribute((const void*)scatter_rank_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kBlockSortMax * (int)sizeof(unsigned long long));
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 64) allowed[dev] = true;
+  }
+  scatter_rank_kernel<<<(n + kRankPerBlock - 1) / kRankPerBlock,
+                        kRankThreads, n * sizeof(unsigned long long),
+                        (cudaStream_t)stream>>>(
+      (const int64_t*)ids, n, (int*)order, (int2*)seg);
+  return (int)cudaGetLastError();
+}
+
+// table: (rows, dim) fp32, updated in place; ids: (n,) int64, the
+// lookups' rows; order, seg: the pre-pass's outputs; upd: (n / div, dim)
+// fp32. dim % 4 == 0 and 16-byte aligned pointers (the wrapper checks).
+// Launches on `stream`; returns cudaGetLastError().
+int ff_scatter_add_rows(void* table, const void* ids, const void* order,
+                        const void* seg, const void* upd, int n, int dim,
+                        int div, float scale, void* stream) {
+  return launch(table, ids, order, seg, upd, nullptr, n, dim, div, scale,
                 stream);
 }
 
-// As ff_scatter_add_rows, but writes fwd[order[k]] + sum without reading
-// the table; fwd: (n, dim) fp32, the row each lookup read in the forward.
-int ff_scatter_write_rows(void* table, const void* sorted_ids,
-                          const void* order, const void* upd,
-                          const void* fwd, long long n, int dim, int div,
-                          float scale, void* stream) {
-  return launch(table, sorted_ids, order, upd, fwd, n, dim, div, scale,
+// As ff_scatter_add_rows, but writes fwd[first lookup] + sum without
+// reading the table; fwd: (n, dim) fp32, the row each lookup read in the
+// forward.
+int ff_scatter_write_rows(void* table, const void* ids, const void* order,
+                          const void* seg, const void* upd, const void* fwd,
+                          int n, int dim, int div, float scale,
+                          void* stream) {
+  return launch(table, ids, order, seg, upd, fwd, n, dim, div, scale,
                 stream);
 }
 

@@ -123,12 +123,15 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches``. Wrappers launch from several
+def count_launch(wrapper, route: str = None) -> None:
+    """Add one to ``wrapper.launches`` and, for a wrapper with several
+    routes, to ``wrapper.routes[route]``. Wrappers launch from several
     threads at once (serving clients, the shard pool), so the count is
     taken under a lock."""
     with _count_lock:
         wrapper.launches += 1
+        if route is not None:
+            wrapper.routes[route] += 1
 
 
 def stream_of(t: torch.Tensor) -> int:

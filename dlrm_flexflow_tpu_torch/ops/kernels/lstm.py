@@ -3,9 +3,7 @@
 Replaces the Pallas TPU kernels ``_fwd_kernel`` and ``_bwd_kernel``
 (dlrm_flexflow_tpu/ops/pallas/lstm_kernel.py:44 and :95) behind the JAX
 ``lstm_scan``. The CUDA source, ``csrc/lstm.cu``, states the kernels'
-bound (the recurrent products, serial in time) and design (one
-cooperative launch per call with a grid-wide barrier between steps; a
-block owns a group of hidden units and all four gate columns of each).
+bound (the recurrent products, serial in time) and design.
 
 Time-major, as the JAX kernels: ``xproj`` (T, b, 4h) fp32 is the input
 projection ``x @ wx + bias`` hoisted by the caller, ``wh`` (h, 4h) the
@@ -15,20 +13,32 @@ i, f, g, o; the initial h and c are zero.
 - ``lstm_fwd(xproj, wh, with_residuals)`` -> (ys, cs): the hidden states
   and, when a gradient will be taken, the cell states, (T, b, h) fp32.
 - ``lstm_bwd(xproj, wh, ys, cs, dys)`` -> dzs (T, b, 4h) fp32: the gate
-  cotangents [di, df, dg, do], the gates recomputed from ys and cs.
+  cotangents [di, df, dg, do], the gates recomputed from ys and cs. Two
+  routes, chosen by shape (``bwd_route``): "resident" (bf16 wh, b <= 128,
+  one block per group of units co-resident) launches ``lstm_gates``, the
+  gate pre-activations of every step at once, then the serial carry scan
+  with each block's wh rows resident in shared memory; "streaming" (fp32
+  wh, or any other shape) launches one kernel that recomputes the gates
+  inside the serial loop.
+- ``lstm_gates(xproj, wh, ys)`` -> gates (T, b, 4h) fp32:
+  ``round(h_{t-1}) @ wh + xproj[t]`` for every t, h_{-1} = 0.
 
 Each takes a CPU tensor to its plain version (``lstm_fwd_reference``,
-``lstm_bwd_reference``) and launches its kernel for a CUDA tensor,
-raising there if the kernel cannot be built, the grid cannot be
-co-resident or the cooperative launch is refused: it never falls back.
-``lstm_fwd.launches`` and ``lstm_bwd.launches`` count kernel launches.
+``lstm_bwd_reference``, ``lstm_gates_reference``) and launches its kernel
+for a CUDA tensor, raising there if the kernel cannot be built, the grid
+cannot be co-resident or the cooperative launch is refused: it never
+falls back, and no route stands in for another. ``lstm_carry_reference``
+is the plain serial phase given the gates: with ``lstm_gates_reference``
+it composes to ``lstm_bwd_reference``. ``.launches`` on each wrapper
+counts kernel launches; ``lstm_bwd.routes`` counts them by route.
 
 ``lstm_scan(xproj, wh)`` is the JAX ``lstm_scan`` as an autograd
 Function: the forward keeps cs only when a gradient is needed (as
 ``with_residuals=False`` skips it), the backward returns dxproj = dzs
 and dwh = Σ_t h_{t-1}ᵀ dz_t, one fp32 matmul outside the kernel cast to
 wh's dtype (``_vjp_bwd``, lstm_kernel.py:166-176). ``lstm_scan_reference``
-is the same Function over the plain versions.
+is the same Function over the plain versions. ``grid_barrier`` times the
+resident route's barriers alone; no path calls it.
 """
 
 from __future__ import annotations
@@ -43,12 +53,26 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "ff_lstm_units": ((), _I),
-    "ff_lstm_capacity": ((_I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I),
+    "ff_lstm_resident_max_b": ((), _I),
+    "ff_lstm_resident_smem": ((_I,), ctypes.c_longlong),
+    "ff_lstm_capacity": ((_I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I),
                           ctypes.POINTER(_I)), _I),
     "ff_lstm_fwd": ((_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P), _I),
     "ff_lstm_bwd": ((_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
                     _I),
+    "ff_lstm_gates": ((_P, _P, _P, _P, _I, _I, _I, _P), _I),
+    "ff_lstm_bwd_resident": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+                             _I),
+    "ff_lstm_barrier": ((_I, _I, _P), _I),
 }
+# the resident route's limits, as csrc/lstm.cu sets them: 8 units a block,
+# at most 4 batch rows a thread of 32 row lanes, and the shared memory of
+# the wh slice (8 rows of 4h bf16 padded to 16, plus 4 words a row) and
+# of the partial carries (8 tiles of 16 x 8 fp32)
+UNITS = 8
+RESIDENT_MAX_B = 128
+SMEM_LIMIT = 232_448     # bytes a block may use on Hopper (227 KB)
+KERNELS = {"fwd": 0, "bwd": 1, "resident": 2}
 
 
 def _cell(gates, cprev):
@@ -106,6 +130,59 @@ def lstm_bwd_reference(xproj, wh, ys, cs, dys):
     return torch.stack(dzs)
 
 
+def lstm_gates_reference(xproj, wh, ys):
+    """Plain PyTorch version of ``lstm_gates``: the gate pre-activations
+    of every step, ``xproj[t] + round(h_{t-1}) @ wh`` with h_{-1} = 0, as
+    one product over the T·b rows."""
+    T, b, h4 = xproj.shape
+    hs_prev = torch.cat([torch.zeros_like(ys[:1]), ys[:-1]])
+    return xproj + _recurrent(hs_prev.reshape(T * b, h4 // 4),
+                              wh).reshape(T, b, h4)
+
+
+def lstm_carry_reference(gates, wh, cs, dys):
+    """Plain PyTorch version of the backward's serial phase given the
+    gate pre-activations: the reverse loop of ``lstm_bwd_reference``
+    with the gates read, not recomputed."""
+    T, b, h4 = gates.shape
+    zeros = torch.zeros((b, h4 // 4), dtype=torch.float32,
+                        device=gates.device)
+    whT = wh.t()
+    dh_c, dc_c = zeros, zeros
+    dzs = [None] * T
+    for t in reversed(range(T)):
+        cprev = cs[t - 1] if t > 0 else zeros
+        i, f, g, o, _ = _cell(gates[t], cprev)
+        tanh_c = torch.tanh(cs[t])
+        dh = dys[t] + dh_c
+        dc = dc_c + dh * o * (1.0 - tanh_c * tanh_c)
+        dz = torch.cat([dc * g * i * (1.0 - i), dc * cprev * f * (1.0 - f),
+                        dc * i * (1.0 - g * g),
+                        dh * tanh_c * o * (1.0 - o)], dim=1)
+        dzs[t] = dz
+        dh_c = _recurrent(dz, whT)
+        dc_c = dc * f
+    return torch.stack(dzs)
+
+
+def resident_smem(h: int) -> int:
+    """Bytes of dynamic shared memory the resident route takes at hidden
+    size h (``ff_lstm_resident_smem``)."""
+    kp = -(-4 * h // 16) * 16
+    return UNITS * (kp // 2 + 4) * 4 + 8 * 16 * UNITS * 4
+
+
+def bwd_route(b: int, h: int, wh_dtype, blocks: int) -> str:
+    """The backward's route for a batch of b rows at hidden size h:
+    "resident" when wh is bf16, b <= RESIDENT_MAX_B, the wh slice fits a
+    block's shared memory and the ceil(h / UNITS) groups fit in
+    ``blocks`` co-resident blocks (one each); else "streaming"."""
+    if wh_dtype != torch.bfloat16 or b > RESIDENT_MAX_B \
+            or resident_smem(h) > SMEM_LIMIT:
+        return "streaming"
+    return "resident" if -(-h // UNITS) <= blocks else "streaming"
+
+
 def _check(xproj, wh, extra=()):
     if xproj.dim() != 3 or wh.dim() != 2:
         raise ValueError(f"lstm expects xproj (T, b, 4h) and wh (h, 4h), "
@@ -135,31 +212,33 @@ def _lib():
     return build.load("lstm", _SIGNATURES)
 
 
-def capacity(backward: bool, wh_dtype) -> int:
-    """How many blocks of the kernel the current card holds at once;
-    raises when it cannot take a cooperative launch or holds none."""
+def capacity(kernel: str, wh_dtype, h: int = 0) -> int:
+    """How many blocks of ``kernel`` ("fwd", "bwd" for the streaming
+    backward, or "resident" at hidden size h) the current card holds at
+    once; raises when it cannot take a cooperative launch or holds none."""
     lib = _lib()
     per_sm, sms, coop = _I(0), _I(0), _I(0)
-    err = lib.ff_lstm_capacity(int(backward), int(wh_dtype == torch.bfloat16),
+    err = lib.ff_lstm_capacity(KERNELS[kernel],
+                               int(wh_dtype == torch.bfloat16), h,
                                ctypes.byref(per_sm), ctypes.byref(sms),
                                ctypes.byref(coop))
-    build.check(lib, err, "lstm occupancy query")
+    build.check(lib, err, f"lstm {kernel} occupancy query")
     if not coop.value or per_sm.value < 1:
         raise RuntimeError(
-            f"lstm {'bwd' if backward else 'fwd'} kernel cannot run: "
-            f"cooperative launch {'supported' if coop.value else 'absent'}, "
-            f"{per_sm.value} resident blocks per SM")
+            f"lstm {kernel} kernel cannot run: cooperative launch "
+            f"{'supported' if coop.value else 'absent'}, {per_sm.value} "
+            f"resident blocks per SM")
     return per_sm.value * sms.value
 
 
-def _grid(h, backward, wh_dtype, grid):
+def _grid(h, kernel, wh_dtype, grid):
     """One block per group of hidden units, as many as can be resident;
     an explicit ``grid`` is launched as given (a grid the card cannot
     hold makes the launch fail, and the wrapper raise)."""
     if grid is not None:
         return int(grid)
-    groups = -(-h // _lib().ff_lstm_units())
-    return min(groups, capacity(backward, wh_dtype))
+    groups = -(-h // UNITS)
+    return min(groups, capacity(kernel, wh_dtype))
 
 
 def lstm_fwd(xproj: torch.Tensor, wh: torch.Tensor,
@@ -173,7 +252,7 @@ def lstm_fwd(xproj: torch.Tensor, wh: torch.Tensor,
     ys = torch.empty((T, b, h), dtype=torch.float32, device=xproj.device)
     cs = torch.empty_like(ys) if with_residuals else None
     cbuf = torch.empty((b, h), dtype=torch.float32, device=xproj.device)
-    g = _grid(h, False, wh.dtype, grid)
+    g = _grid(h, "fwd", wh.dtype, grid)
     lib = _lib()
     err = lib.ff_lstm_fwd(xproj.data_ptr(), wh.data_ptr(),
                           int(wh.dtype == torch.bfloat16), ys.data_ptr(),
@@ -185,9 +264,32 @@ def lstm_fwd(xproj: torch.Tensor, wh: torch.Tensor,
     return ys, cs
 
 
+def lstm_gates(xproj: torch.Tensor, wh: torch.Tensor,
+               ys: torch.Tensor) -> torch.Tensor:
+    """gates (T, b, 4h) fp32, the resident route's gate phase; wh bf16 on
+    the card (the kernel multiplies on the bf16 tensor cores)."""
+    tbh = (xproj.shape[0], xproj.shape[1], wh.shape[0])
+    T, b, h = _check(xproj, wh, (("ys", ys, tbh),))
+    if xproj.device.type == "cpu":
+        return lstm_gates_reference(xproj, wh, ys)
+    if wh.dtype != torch.bfloat16:
+        raise ValueError("the lstm_gates kernel takes bf16 wh")
+    xproj, wh, ys = xproj.contiguous(), wh.contiguous(), ys.contiguous()
+    gates = torch.empty_like(xproj)
+    lib = _lib()
+    err = lib.ff_lstm_gates(xproj.data_ptr(), wh.data_ptr(), ys.data_ptr(),
+                            gates.data_ptr(), T, b, h,
+                            build.stream_of(xproj))
+    build.check(lib, err, "lstm_gates kernel")
+    build.count_launch(lstm_gates)
+    return gates
+
+
 def lstm_bwd(xproj: torch.Tensor, wh: torch.Tensor, ys: torch.Tensor,
              cs: torch.Tensor, dys: torch.Tensor, grid=None):
-    """dzs (T, b, 4h) fp32; see the module docstring."""
+    """dzs (T, b, 4h) fp32; see the module docstring. ``grid`` overrides
+    the number of blocks (the tests use it): the route is chosen as if
+    the card held that many, and the launch takes them as given."""
     tbh = (xproj.shape[0], xproj.shape[1], wh.shape[0])
     T, b, h = _check(xproj, wh, (("ys", ys, tbh), ("cs", cs, tbh),
                                  ("dys", dys, tbh)))
@@ -196,21 +298,51 @@ def lstm_bwd(xproj: torch.Tensor, wh: torch.Tensor, ys: torch.Tensor,
     xproj, wh = xproj.contiguous(), wh.contiguous()
     ys, cs, dys = ys.contiguous(), cs.contiguous(), dys.contiguous()
     dzs = torch.empty_like(xproj)
-    dcbuf = torch.empty((b, h), dtype=torch.float32, device=xproj.device)
-    g = _grid(h, True, wh.dtype, grid)
+    # the occupancy query only for a shape the resident kernel can take:
+    # its shared memory may exceed what a block is allowed
+    route = bwd_route(b, h, wh.dtype, 1 << 30)
+    if route == "resident":
+        route = bwd_route(b, h, wh.dtype, grid if grid is not None
+                          else capacity("resident", wh.dtype, h))
     lib = _lib()
-    err = lib.ff_lstm_bwd(xproj.data_ptr(), wh.data_ptr(),
-                          int(wh.dtype == torch.bfloat16), ys.data_ptr(),
-                          cs.data_ptr(), dys.data_ptr(), dzs.data_ptr(),
-                          dcbuf.data_ptr(), T, b, h, g,
-                          build.stream_of(xproj))
-    build.check(lib, err, f"lstm_bwd kernel ({g} blocks)")
-    build.count_launch(lstm_bwd)
+    stream = build.stream_of(xproj)
+    if route == "resident":
+        g = -(-h // UNITS) if grid is None else int(grid)
+        gates = lstm_gates(xproj, wh, ys)
+        kp = -(-4 * h // 16) * 16
+        ring = torch.zeros(2 * -(-b // 16) * 16 * kp, dtype=torch.bfloat16,
+                           device=xproj.device)
+        err = lib.ff_lstm_bwd_resident(gates.data_ptr(), wh.data_ptr(),
+                                       cs.data_ptr(), dys.data_ptr(),
+                                       dzs.data_ptr(), ring.data_ptr(), T,
+                                       b, h, g, stream)
+    else:
+        g = _grid(h, "bwd", wh.dtype, grid)
+        dcbuf = torch.empty((b, h), dtype=torch.float32, device=xproj.device)
+        err = lib.ff_lstm_bwd(xproj.data_ptr(), wh.data_ptr(),
+                              int(wh.dtype == torch.bfloat16), ys.data_ptr(),
+                              cs.data_ptr(), dys.data_ptr(), dzs.data_ptr(),
+                              dcbuf.data_ptr(), T, b, h, g, stream)
+    build.check(lib, err, f"lstm_bwd kernel ({route}, {g} blocks)")
+    build.count_launch(lstm_bwd, route)
     return dzs
 
 
+def grid_barrier(steps: int, grid: int, device) -> None:
+    """``steps`` grid-wide barriers over ``grid`` blocks of the resident
+    kernel's size and nothing else, one cooperative launch on the current
+    stream: what the resident route's serial phase costs with its work
+    taken out. A measuring probe; no path calls it."""
+    lib = _lib()
+    err = lib.ff_lstm_barrier(int(steps), int(grid),
+                              torch.cuda.current_stream(device).cuda_stream)
+    build.check(lib, err, f"lstm barrier probe ({grid} blocks)")
+
+
 lstm_fwd.launches = 0
+lstm_gates.launches = 0
 lstm_bwd.launches = 0
+lstm_bwd.routes = {"resident": 0, "streaming": 0}
 
 
 class _LSTMScan(torch.autograd.Function):

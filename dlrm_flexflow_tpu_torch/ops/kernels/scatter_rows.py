@@ -6,7 +6,8 @@ Replaces the Pallas TPU kernels ``_scatter_unique_kernel``
 read-modify-write ``scatter_add_rows``) and ``_scatter_write_kernel``
 (:495, the write-only ``scatter_write_rows_packed``). The CUDA source,
 ``csrc/scatter_rows.cu``, states the kernels' bound (memory) and design
-(one owner per distinct row, found from a stable sort; no atomics).
+(each lookup's place in the stable order counted as a rank, then one
+owner per distinct row; no atomics).
 
 Both functions update ``table`` IN PLACE (the JAX kernels alias the
 table to their output) and return it. Lookup ``j`` targets row
@@ -17,12 +18,18 @@ table to their output) and return it. Lookup ``j`` targets row
 - ``scatter_write_rows``: table[row] = fwd[j] + sum, fwd[j] being the row
   a lookup of that row read in the forward pass (all equal).
 
-The pre-pass is a stable ``torch.sort`` of the ids, the row-granular
-counterpart of the JAX ``_dedup_tile_updates`` (the port stores tables
-unpacked, so no lane tiles). A CPU tensor takes the plain version; a
-CUDA tensor launches the kernel or raises, never falling back.
-``scatter_add_rows.launches`` and ``scatter_write_rows.launches`` count
-kernel launches.
+The pre-pass is the row-granular counterpart of the JAX
+``_dedup_tile_updates`` (the port stores tables unpacked, so no lane
+tiles): ``scatter_presort`` (a kernel; plain version
+``presort_reference``) for n <= BLOCK_SORT_MAX lookups, route "block";
+a stable ``torch.sort`` of int32 ids above it, route "sort"
+(``scatter_route``). Both give the lookups in stable order of their row
+ids and, for each row's first lookup, where its segment of that order
+starts and how long it is. A CPU tensor takes the plain version; a CUDA tensor
+launches the kernels or raises, never falling back.
+``scatter_add_rows.launches``, ``scatter_write_rows.launches`` and
+``scatter_presort.launches`` count kernel launches, ``.routes`` the
+update launches by route.
 """
 
 from __future__ import annotations
@@ -34,16 +41,20 @@ import torch
 from . import build
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
 _SIGNATURES = {
+    "ff_scatter_block_sort_max": ((), _I),
+    "ff_scatter_presort": ((_P, _I, _P, _P, _P), _I),
     "ff_scatter_add_rows": (
-        (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-         ctypes.c_float, _P),
-        ctypes.c_int),
+        (_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P), _I),
     "ff_scatter_write_rows": (
-        (_P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-         ctypes.c_float, _P),
-        ctypes.c_int),
+        (_P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P), _I),
 }
+# the pre-pass kernel's limit (kBlockSortMax in csrc/scatter_rows.cu): a
+# block holds every key, 8 bytes each, in its 227 KB of shared memory
+BLOCK_SORT_MAX = 16384
+# row ids travel as 31-bit keys
+MAX_ROWS = 2 ** 31
 
 
 def _segment_sums(ids, upd, scale, div):
@@ -75,6 +86,84 @@ def scatter_write_rows_reference(table, ids, upd, fwd, scale=1.0, div=1):
     return table
 
 
+def scatter_route(n: int, rows: int) -> str:
+    """The pre-pass for n lookups into a table of ``rows`` rows: "block"
+    (the rank kernel, every key in one block's shared memory) up to
+    BLOCK_SORT_MAX lookups, else "sort" (``torch.sort`` of int32 ids).
+    Raises when the row ids do not fit the kernels' 31-bit keys."""
+    if rows >= MAX_ROWS:
+        raise ValueError(f"scatter kernels take tables of fewer than 2^31 "
+                         f"rows (31-bit row keys), got {rows}")
+    return "block" if n <= BLOCK_SORT_MAX else "sort"
+
+
+def _segments(sorted_ids, order):
+    """seg (n, 2) int32 from ids sorted stably (``order`` their
+    positions): for the first lookup j of each row, (its place in the
+    order, the row's lookup count); (-1, 0) for the others. Tensor ops
+    that never wait for the device."""
+    n = sorted_ids.shape[0]
+    dev = sorted_ids.device
+    heads = torch.ones(n, dtype=torch.bool, device=dev)
+    heads[1:] = sorted_ids[1:] != sorted_ids[:-1]
+    number = torch.cumsum(heads, 0) - 1
+    counts = torch.zeros(n, dtype=torch.int32, device=dev).index_add_(
+        0, number, torch.ones(n, dtype=torch.int32, device=dev))
+    place = torch.arange(n, dtype=torch.int32, device=dev)
+    seg = torch.empty((n, 2), dtype=torch.int32, device=dev)
+    seg[order.long()] = torch.stack(
+        [torch.where(heads, place, -1),
+         torch.where(heads, counts[number], 0)], 1)
+    return seg
+
+
+def presort_reference(ids: torch.Tensor, chunk: int = 1024):
+    """Plain PyTorch version of ``scatter_presort``: the kernel's counts,
+    ``chunk`` lookups at a time. A lookup's place in the stable order is
+    the number of (row id, position) keys below its own; it is its row's
+    first when none of those has its row, and then its segment is (that
+    place, the number of lookups of its row). Returns order (n,) and
+    seg (n, 2), int32."""
+    n = ids.shape[0]
+    ids = ids.long()
+    pos = torch.arange(n, device=ids.device)
+    seg = torch.empty((n, 2), dtype=torch.int32, device=ids.device)
+    order = torch.empty(n, dtype=torch.int32, device=ids.device)
+    for lo in range(0, n, chunk):
+        mine, at = ids[lo:lo + chunk, None], pos[lo:lo + chunk, None]
+        row = ids[None] == mine
+        below = (ids[None] < mine) | (row & (pos[None] < at))
+        rank = below.sum(1)
+        first = ~(below & row).any(1)
+        order[rank] = pos[lo:lo + chunk].to(torch.int32)
+        seg[lo:lo + chunk, 0] = torch.where(first, rank, -1)
+        seg[lo:lo + chunk, 1] = torch.where(first, row.sum(1), 0)
+    return order, seg
+
+
+def scatter_presort(ids: torch.Tensor):
+    """The pre-pass kernel over n <= BLOCK_SORT_MAX int64 row ids in
+    [0, 2^31): (order, seg) as ``presort_reference`` returns them."""
+    if ids.dim() != 1 or ids.dtype != torch.int64:
+        raise ValueError(f"scatter_presort takes (n,) int64 ids, got "
+                         f"{tuple(ids.shape)} {ids.dtype}")
+    if ids.device.type == "cpu":
+        return presort_reference(ids)
+    n = ids.shape[0]
+    if n > BLOCK_SORT_MAX:
+        raise ValueError(f"scatter_presort ranks at most {BLOCK_SORT_MAX} "
+                         f"lookups, got {n}")
+    ids = ids.contiguous()
+    order = torch.empty(n, dtype=torch.int32, device=ids.device)
+    seg = torch.empty((n, 2), dtype=torch.int32, device=ids.device)
+    lib = build.load("scatter_rows", _SIGNATURES)
+    err = lib.ff_scatter_presort(ids.data_ptr(), n, order.data_ptr(),
+                                 seg.data_ptr(), build.stream_of(ids))
+    build.check(lib, err, "scatter_presort kernel")
+    build.count_launch(scatter_presort)
+    return order, seg
+
+
 def _check(table, ids, upd, fwd, div):
     if table.dim() != 2 or ids.dim() != 1 or upd.dim() != 2:
         raise ValueError(f"scatter expects table (rows, d), ids (n,) and "
@@ -89,9 +178,9 @@ def _check(table, ids, upd, fwd, div):
                          f"({n}, {d})")
 
 
-def _launch(entry, table, ids, upd, fwd, scale, div):
-    """Sort on the card, then one kernel launch; raises on any input the
-    kernel does not take."""
+def _launch(wrapper, entry, table, ids, upd, fwd, scale, div):
+    """The pre-pass, then one update launch; raises on any input the
+    kernels do not take."""
     floats = (table, upd) if fwd is None else (table, upd, fwd)
     if any(t.dtype != torch.float32 for t in floats) \
             or ids.dtype != torch.int64:
@@ -104,21 +193,29 @@ def _launch(entry, table, ids, upd, fwd, scale, div):
         raise ValueError(f"scatter kernels need a contiguous, 16-byte "
                          f"aligned table with d % 4 == 0 (d={d})")
     n = ids.shape[0]
+    route = scatter_route(n, table.shape[0])
     if n == 0:
         return table
     upd = upd.contiguous()
-    sorted_ids, order = torch.sort(ids, stable=True)
-    args = [table.data_ptr(), sorted_ids.data_ptr(), order.data_ptr(),
-            upd.data_ptr()]
+    ids = ids.contiguous()
+    if route == "block":
+        order, seg = scatter_presort(ids)
+    else:
+        sorted_ids, order = torch.sort(ids.to(torch.int32), stable=True)
+        order = order.to(torch.int32)
+        seg = _segments(sorted_ids, order)
+    args = [table.data_ptr(), ids.data_ptr(), order.data_ptr(),
+            seg.data_ptr(), upd.data_ptr()]
     if fwd is not None:
         fwd = fwd.contiguous()
         args.append(fwd.data_ptr())
-    if any(p % 16 for p in args[3:]):
+    if any(p % 16 for p in args[4:]):
         raise ValueError("scatter kernels need 16-byte aligned upd and fwd")
     lib = build.load("scatter_rows", _SIGNATURES)
     err = getattr(lib, entry)(*args, n, d, int(div), float(scale),
                               build.stream_of(table))
-    build.check(lib, err, f"{entry} kernel")
+    build.check(lib, err, f"{entry} kernel ({route} pre-pass)")
+    build.count_launch(wrapper, route)
     return table
 
 
@@ -134,9 +231,8 @@ def scatter_add_rows(table: torch.Tensor, ids: torch.Tensor,
     if table.device.type != "cuda":
         raise ValueError(f"scatter_add_rows runs on cpu or cuda, not "
                          f"{table.device}")
-    out = _launch("ff_scatter_add_rows", table, ids, upd, None, scale, div)
-    build.count_launch(scatter_add_rows)
-    return out
+    return _launch(scatter_add_rows, "ff_scatter_add_rows", table, ids, upd,
+                   None, scale, div)
 
 
 def scatter_write_rows(table: torch.Tensor, ids: torch.Tensor,
@@ -151,13 +247,15 @@ def scatter_write_rows(table: torch.Tensor, ids: torch.Tensor,
     if table.device.type != "cuda":
         raise ValueError(f"scatter_write_rows runs on cpu or cuda, not "
                          f"{table.device}")
-    out = _launch("ff_scatter_write_rows", table, ids, upd, fwd, scale, div)
-    build.count_launch(scatter_write_rows)
-    return out
+    return _launch(scatter_write_rows, "ff_scatter_write_rows", table, ids,
+                   upd, fwd, scale, div)
 
 
+scatter_presort.launches = 0
 scatter_add_rows.launches = 0
 scatter_write_rows.launches = 0
+scatter_add_rows.routes = {"block": 0, "sort": 0}
+scatter_write_rows.routes = {"block": 0, "sort": 0}
 
 
 def segment_sum_rows(ids: torch.Tensor, upd: torch.Tensor, num_rows: int,

@@ -12,7 +12,9 @@ Tolerances: the bag sums in fp32 in bag order on both sides (rtol, atol
 order than torch's bmm and matmul (1e-5). The scatter kernels are held
 BITWISE to their plain versions run on the CPU (the plain version on the
 card would add duplicates with atomics, in no fixed order): both scale
-first, then sum a row's duplicates in lookup order. A training step on
+first, then sum a row's duplicates in lookup order; the pre-pass kernel
+is held bitwise to its plain version and to torch.sort(stable=True).
+A training step on
 the card against the same step on the CPU: rtol 1e-5, atol 1e-7
 (cuBLAS and the CPU's BLAS sum the layers' products in other orders).
 The int8 MIPS top-k is held BITWISE to its plain version, scores, ids
@@ -44,6 +46,7 @@ from dlrm_flexflow_tpu_torch.ops.kernels.embedding_bag import (
 from dlrm_flexflow_tpu_torch.core.optimizers import SGDOptimizer
 from dlrm_flexflow_tpu_torch.models.nmt import build_nmt
 from dlrm_flexflow_tpu_torch.ops.kernels import lstm as lstm_mod
+from dlrm_flexflow_tpu_torch.ops.kernels import scatter_rows as scatter_rows_mod
 from dlrm_flexflow_tpu_torch.ops.kernels.interaction import (
     fused_interaction, fused_interaction_quant,
     fused_interaction_quant_reference, fused_interaction_reference)
@@ -57,8 +60,8 @@ from dlrm_flexflow_tpu_torch.retrieve import (CascadeConfig, CascadeEngine,
                                               item_embeddings,
                                               transfer_tower_params)
 from dlrm_flexflow_tpu_torch.ops.kernels.scatter_rows import (
-    scatter_add_rows, scatter_add_rows_reference, scatter_write_rows,
-    scatter_write_rows_reference)
+    presort_reference, scatter_add_rows, scatter_add_rows_reference,
+    scatter_presort, scatter_write_rows, scatter_write_rows_reference)
 from dlrm_flexflow_tpu_torch.serve import InferenceEngine, ServeConfig
 
 pytestmark = pytest.mark.cuda
@@ -240,17 +243,31 @@ def test_bag_kernel_returns_the_gathered_rows(cuda):
 
 
 @pytest.mark.parametrize("write", [False, True])
-@pytest.mark.parametrize("n,div", [(2048, 1), (16384, 1), (771, 3)])
-def test_scatter_kernels_match_plain(cuda, write, n, div):
+@pytest.mark.parametrize("n,div,ids_kind", [
+    (2048, 1, "uniform"), (16384, 1, "uniform"), (16385, 1, "uniform"),
+    (771, 3, "uniform"), (1, 1, "uniform"), (2048, 1, "equal"),
+    (16384, 4, "equal"), (2560, 1, "zipf")])
+def test_scatter_kernels_match_plain(cuda, write, n, div, ids_kind):
+    """Bitwise against the plain version on the CPU: at the one-block
+    pre-pass's limit (16,384) and one above it (the torch.sort route),
+    with div > 1, at n = 1, with every id equal and with Zipf-skewed
+    ids."""
     g = torch.Generator(device=cuda).manual_seed(n)
     table = torch.randn(50000, 64, device=cuda, generator=g)
     ids = torch.randint(0, 50000, (n,), device=cuda, generator=g)
-    ids[:8] = ids[0]
-    ids[8:12] = ids[9]
+    ids[:8] = ids[0].clone()
+    ids[8:12] = ids[9 % n].clone()
+    if ids_kind == "equal":
+        ids[:] = 4321
+    elif ids_kind == "zipf":
+        r = np.random.RandomState(n)
+        ids = torch.as_tensor((r.zipf(1.2, n) - 1) % 50000, device=cuda)
     upd = torch.randn(n // div, 64, device=cuda, generator=g)
     fwd = table[ids]
     kernel = scatter_write_rows if write else scatter_add_rows
+    route = "block" if n <= 16384 else "sort"
     before = kernel.launches
+    before_route = kernel.routes[route]
     got = table.clone()
     if write:
         kernel(got, ids, upd, fwd, scale=-0.01, div=div)
@@ -262,7 +279,29 @@ def test_scatter_kernels_match_plain(cuda, write, n, div):
                                           upd.cpu(), -0.01, div)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
+    assert kernel.routes[route] == before_route + 1
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("n", [1, 2, 1000, 2048, 16384])
+def test_scatter_presort_matches_plain(cuda, n):
+    """The one-block pre-pass against its plain version (the same
+    network, bitwise) and against torch.sort(stable=True)."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    ids = torch.randint(0, max(1, n // 3), (n,), device=cuda, generator=g)
+    before = scatter_presort.launches
+    got = scatter_presort(ids)
+    want = presort_reference(ids.cpu())
+    torch.cuda.synchronize()
+    assert scatter_presort.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    assert torch.equal(got[0].long().cpu(),
+                       torch.sort(ids.cpu(), stable=True).indices)
+    lib = build.load("scatter_rows", scatter_rows_mod._SIGNATURES)
+    assert lib.ff_scatter_block_sort_max() == scatter_rows_mod.BLOCK_SORT_MAX
+    with pytest.raises(ValueError, match="at most"):
+        scatter_presort(torch.zeros(16385, dtype=torch.int64, device=cuda))
 
 
 def test_cuda_call_raises_without_nvcc(cuda, tmp_path, monkeypatch):
@@ -436,21 +475,30 @@ def _lstm_inputs(cuda, T, b, h, dtype, seed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("T,b,h", [(5, 8, 128), (7, 24, 136), (3, 70, 40),
-                                   (40, 64, 1024)])
+                                   (40, 64, 1024), (1, 64, 128),
+                                   (6, 1, 64), (5, 96, 72), (4, 160, 64)])
 def test_lstm_kernels_match_plain(cuda, T, b, h, dtype):
     """Forward (ys, cs), backward (dzs from the same residuals) and the
     autograd Function (dxproj, dwh): small, ragged (b and h not multiples
-    of the block's 64 rows and 8 units; b above one tile) and the NMT
-    step's per-layer shape."""
+    of 16 rows and 8 units; b above one tile; b = 1; T = 1), the NMT
+    step's per-layer shape, and b = 160, which the resident backward
+    does not take. The backward's route: resident for bf16 wh and
+    b <= 128, streaming otherwise."""
     xp, wh, dys = _lstm_inputs(cuda, T, b, h, dtype, seed=T + b + h)
     tol = 4e-3 if dtype == torch.bfloat16 else 1e-5
-    before = (lstm_mod.lstm_fwd.launches, lstm_mod.lstm_bwd.launches)
+    route = "resident" if dtype == torch.bfloat16 and b <= 128 \
+        else "streaming"
+    before = (lstm_mod.lstm_fwd.launches, lstm_mod.lstm_bwd.launches,
+              dict(lstm_mod.lstm_bwd.routes), lstm_mod.lstm_gates.launches)
     ys, cs = lstm_mod.lstm_fwd(xp, wh)
     ys_r, cs_r = lstm_mod.lstm_fwd_reference(xp, wh)
     dzs = lstm_mod.lstm_bwd(xp, wh, ys_r, cs_r, dys)
     dzs_r = lstm_mod.lstm_bwd_reference(xp, wh, ys_r, cs_r, dys)
     assert (lstm_mod.lstm_fwd.launches, lstm_mod.lstm_bwd.launches) \
         == (before[0] + 1, before[1] + 1)
+    assert lstm_mod.lstm_bwd.routes[route] == before[2][route] + 1
+    assert lstm_mod.lstm_gates.launches \
+        == before[3] + (route == "resident")
     for got, want in ((ys, ys_r), (cs, cs_r), (dzs, dzs_r)):
         torch.testing.assert_close(got, want, rtol=0, atol=tol)
     ys_only, none = lstm_mod.lstm_fwd(xp, wh, with_residuals=False)
@@ -471,18 +519,47 @@ def test_lstm_grid_that_cannot_be_resident_raises(cuda):
     """A grid larger than the card holds at once: the cooperative launch
     is refused and the wrapper raises; it never runs the plain version."""
     xp, wh, dys = _lstm_inputs(cuda, 4, 8, 64, torch.bfloat16, seed=1)
-    too_many = lstm_mod.capacity(False, wh.dtype) + 1
+    too_many = lstm_mod.capacity("fwd", wh.dtype) + 1
     before = lstm_mod.lstm_fwd.launches
     with pytest.raises(RuntimeError, match="lstm_fwd kernel"):
         lstm_mod.lstm_fwd(xp, wh, grid=too_many)
     ys, cs = lstm_mod.lstm_fwd_reference(xp, wh)
-    with pytest.raises(RuntimeError, match="lstm_bwd kernel"):
-        lstm_mod.lstm_bwd(xp, wh, ys, cs, dys,
-                          grid=lstm_mod.capacity(True, wh.dtype) + 1)
+    for kernel in ("bwd", "resident"):  # fp32 wh takes the streaming one
+        w = wh if kernel == "resident" else wh.float()
+        with pytest.raises(RuntimeError, match="lstm_bwd kernel"):
+            lstm_mod.lstm_bwd(xp, w, ys, cs, dys,
+                              grid=lstm_mod.capacity(kernel, w.dtype, 64) + 1)
     assert lstm_mod.lstm_fwd.launches == before
     # a grid smaller than the groups of units: each block takes several
     ys1, _ = lstm_mod.lstm_fwd(xp, wh, grid=1)
     torch.testing.assert_close(ys1, ys, rtol=0, atol=4e-3)
+
+
+def test_lstm_gate_phase_and_resident_limits(cuda):
+    """The gate kernel against its plain version (the products of
+    bf16-rounded operands summed in another fp32 order); the wrapper's
+    mirror of the resident route's limits equals the kernel's."""
+    lib = lstm_mod._lib()
+    assert lib.ff_lstm_resident_max_b() == lstm_mod.RESIDENT_MAX_B
+    assert lib.ff_lstm_units() == lstm_mod.UNITS
+    for h in (5, 40, 136, 1024, 3000):
+        assert lib.ff_lstm_resident_smem(h) == lstm_mod.resident_smem(h)
+    for T, b, h in ((40, 64, 1024), (3, 5, 136), (1, 1, 8)):
+        xp, wh, _ = _lstm_inputs(cuda, T, b, h, torch.bfloat16, seed=h)
+        ys = torch.randn(T, b, h, device=cuda)
+        before = lstm_mod.lstm_gates.launches
+        got = lstm_mod.lstm_gates(xp, wh, ys)
+        assert lstm_mod.lstm_gates.launches == before + 1
+        torch.testing.assert_close(
+            got, lstm_mod.lstm_gates_reference(xp, wh, ys), rtol=0,
+            atol=1e-4)
+    with pytest.raises(ValueError, match="bf16"):
+        lstm_mod.lstm_gates(xp, wh.float(), ys)
+
+
+def test_lstm_barrier_probe_runs(cuda):
+    lstm_mod.grid_barrier(39, 128, cuda)
+    torch.cuda.synchronize()
 
 
 def _nmt(device, params=None):

@@ -20,6 +20,13 @@ Tolerances, and why:
   one package, moving that operand by one bf16 step (at most 2^-8 of
   it) and a gate by up to 2^-8 · |wh| (|wh| < 0.5 here); measured
   3.5e-5.
+- the backward's two phases (``lstm_gates_reference`` then
+  ``lstm_carry_reference``), composed: against ``_run_bwd`` at the
+  tolerances above, and against ``lstm_bwd_reference`` at atol 1e-6 in
+  fp32 (one batched product over the T·b rows against T per-step
+  products, which may sum in another order on the CPU; measured 0) and
+  4e-3 in bf16 (such an order change can round a carried dz to the other
+  bf16 neighbour).
 - dwh: within 1e-5 of its largest entry in fp32; in bf16 within 2^-7 of
   it, one bf16 step of the largest entry, since dwh is rounded to bf16
   after an fp32 product summed in another order (measured 7e-4).
@@ -115,6 +122,67 @@ def test_fwd_and_bwd_match_jax_kernels(b, T, h, bf16):
         x, tw, ys, cs, torch.from_numpy(dys)))
 
 
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,T,h", SHAPES + [(5, 1, 24)])
+def test_split_backward_matches_jax_and_reference(b, T, h, bf16):
+    """The resident route's split: the gate pre-activations of every step
+    at once, then the carry scan given them, against ``_run_bwd`` in
+    interpret mode and against the unsplit plain backward."""
+    xp, jw, tw, dys = _inputs(b, T, h, bf16, seed=4)
+    x = torch.from_numpy(xp)
+    ys, cs = plstm.lstm_fwd_reference(x, tw)
+    gates = plstm.lstm_gates_reference(x, tw, ys)
+    assert gates.shape == (T, b, 4 * h) and gates.dtype == torch.float32
+    assert torch.equal(gates[0], x[0])      # h_{-1} = 0
+    dzs = plstm.lstm_carry_reference(gates, tw, cs, torch.from_numpy(dys))
+    jys, jcs = jnp.asarray(ys.numpy()), jnp.asarray(cs.numpy())
+    zeros = jnp.zeros_like(jys[:1])
+    dzs_j = lk._run_bwd(jnp.asarray(xp), jw,
+                        jnp.concatenate([zeros, jys[:-1]]),
+                        jnp.concatenate([zeros, jcs[:-1]]), jcs,
+                        jnp.asarray(dys), True)
+    np.testing.assert_allclose(dzs.numpy(), np.asarray(dzs_j), rtol=0,
+                               atol=_tol(bf16))
+    want = plstm.lstm_bwd_reference(x, tw, ys, cs, torch.from_numpy(dys))
+    np.testing.assert_allclose(dzs.numpy(), want.numpy(), rtol=0,
+                               atol=4e-3 if bf16 else 1e-6)
+
+
+def test_gate_phase_on_cpu_is_the_plain_version_and_counts_nothing():
+    xp, _, tw, _ = _inputs(3, 4, 16, True, seed=5)
+    x = torch.from_numpy(xp)
+    ys, _ = plstm.lstm_fwd_reference(x, tw)
+    before = plstm.lstm_gates.launches
+    assert torch.equal(plstm.lstm_gates(x, tw, ys),
+                       plstm.lstm_gates_reference(x, tw, ys))
+    assert plstm.lstm_gates.launches == before
+    with pytest.raises(ValueError, match="ys"):
+        plstm.lstm_gates(x, tw, ys[:, :2])
+
+
+@pytest.mark.parametrize("b,h,dtype,blocks,route", [
+    (64, 1024, torch.bfloat16, 132, "resident"),    # the NMT layer
+    (64, 1024, torch.float32, 132, "streaming"),    # fp32 wh: scalar FMAs
+    (128, 64, torch.bfloat16, 132, "resident"),     # 4 rows a thread
+    (129, 64, torch.bfloat16, 132, "streaming"),    # a fifth row
+    (1, 8, torch.bfloat16, 1, "resident"),
+    (64, 1056, torch.bfloat16, 132, "resident"),    # 132 groups, 132 blocks
+    (64, 1064, torch.bfloat16, 132, "streaming"),   # 133 groups
+    (64, 1064, torch.bfloat16, 264, "resident"),    # two blocks an SM
+    (64, 8000, torch.bfloat16, 10_000, "streaming"),  # slice past 227 KB
+])
+def test_backward_route_by_shape(b, h, dtype, blocks, route):
+    assert plstm.bwd_route(b, h, dtype, blocks) == route
+
+
+def test_resident_shared_memory():
+    # 8 rows of 4h bf16 padded by 4 words, and 8 tiles of 16 x 8 fp32
+    assert plstm.resident_smem(1024) == 8 * (2048 + 4) * 4 + 4096 == 69_760
+    assert plstm.resident_smem(5) == 8 * (16 + 4) * 4 + 4096
+    assert plstm.resident_smem(3500) <= plstm.SMEM_LIMIT \
+        < plstm.resident_smem(3600)
+
+
 def test_scan_on_cpu_is_the_plain_version_and_counts_nothing():
     xp, _, tw, dys = _inputs(3, 4, 16, False, seed=2)
     before = (plstm.lstm_fwd.launches, plstm.lstm_bwd.launches)
@@ -128,6 +196,7 @@ def test_scan_on_cpu_is_the_plain_version_and_counts_nothing():
     for a, b in zip(*outs):
         assert torch.equal(a, b)
     assert (plstm.lstm_fwd.launches, plstm.lstm_bwd.launches) == before
+    assert plstm.lstm_bwd.routes == {"resident": 0, "streaming": 0}
 
 
 def test_scan_rejects_bad_arguments():

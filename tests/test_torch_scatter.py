@@ -13,6 +13,13 @@ row's duplicates in ascending lookup order starting from 0, then add
 (or write over the forward row). The packed Pallas tiles only add +0.0
 for the tile's other row, which changes no value here.
 
+The pre-pass's plain version (``presort_reference``: each lookup's place
+in the stable order counted as the number of (row id, position) keys
+below its own) must give exactly ``torch.sort(stable=True)``'s order,
+and each row's first lookup its segment (start in that order, lookup
+count), on hypothesis-drawn ids with heavy duplicates; the segments the
+torch.sort route derives above the kernel's limit must equal it.
+
 The backwards of the two ported kernels must match ``jax.vjp`` of the
 JAX custom VJPs in interpret mode at d=128 (the Pallas forward's
 width): the bag's dtable bitwise (the same sorted segment-sum), the
@@ -37,6 +44,9 @@ from dlrm_flexflow_tpu_torch.ops.kernels.embedding_bag import (
     EmbeddingBagFunction)
 from dlrm_flexflow_tpu_torch.ops.kernels.interaction import (
     FusedInteractionFunction)
+from hypothesis import given, settings, strategies as st
+
+from dlrm_flexflow_tpu_torch.ops.kernels import scatter_rows as sr
 from dlrm_flexflow_tpu_torch.ops.kernels.scatter_rows import (
     scatter_add_rows, scatter_write_rows, segment_sum_rows)
 
@@ -169,3 +179,82 @@ def test_fused_interaction_backward_matches_jax_vjp(relu, batch, bag):
     for name, t, ref in zip(("dtable", "dbottom", "dw", "db"), ins, want):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(ref),
                                    rtol=1e-5, atol=1e-5, err_msg=name)
+
+
+# ---------------------------------------------------------------------
+# the pre-pass
+
+
+def _want_segments(ids):
+    """(order, seg) from torch.sort(stable=True): seg[j] = (the place of
+    row ids[j]'s first lookup in the order, the row's lookup count) when
+    j is that first lookup, else (-1, 0)."""
+    t = torch.as_tensor(ids, dtype=torch.int64)
+    s, order = torch.sort(t, stable=True)
+    rows, counts = torch.unique_consecutive(s, return_counts=True)
+    starts = torch.cumsum(counts, 0) - counts
+    seg = torch.tensor([[-1, 0]] * len(ids), dtype=torch.int32)
+    for r, c, at in zip(rows.tolist(), counts.tolist(), starts.tolist()):
+        seg[int(order[at])] = torch.tensor([at, c])
+    return order.to(torch.int32), seg
+
+
+_IDS = st.one_of(
+    st.lists(st.integers(0, 5), min_size=1, max_size=300),      # few rows
+    st.lists(st.integers(0, 2 ** 31 - 1), min_size=1, max_size=60),
+    st.builds(lambda n, v: [v] * n, st.integers(1, 200),         # all equal
+              st.integers(0, 2 ** 31 - 1)))
+
+
+@settings(max_examples=80, deadline=None, derandomize=True, database=None)
+@given(ids=_IDS, chunk=st.sampled_from([1, 7, 1024]))
+def test_presort_plain_matches_stable_torch_sort(ids, chunk):
+    want_order, want_seg = _want_segments(ids)
+    order, seg = sr.presort_reference(torch.tensor(ids, dtype=torch.int64),
+                                      chunk=chunk)
+    assert order.dtype == seg.dtype == torch.int32
+    assert torch.equal(order, want_order)
+    assert torch.equal(seg, want_seg)
+
+
+@settings(max_examples=40, deadline=None, derandomize=True, database=None)
+@given(ids=_IDS)
+def test_sort_route_segments_match_the_plain_pre_pass(ids):
+    t = torch.tensor(ids, dtype=torch.int64)
+    s, order = torch.sort(t.to(torch.int32), stable=True)
+    seg = sr._segments(s, order.to(torch.int32))
+    assert torch.equal(seg, sr.presort_reference(t)[1])
+
+
+def test_presort_on_cpu_is_the_plain_version_and_counts_nothing():
+    ids = torch.tensor([5, 1, 5, 0, 1, 5], dtype=torch.int64)
+    before = sr.scatter_presort.launches
+    for a, b in zip(sr.scatter_presort(ids), sr.presort_reference(ids)):
+        assert torch.equal(a, b)
+    assert sr.scatter_presort.launches == before
+    with pytest.raises(ValueError, match="int64"):
+        sr.scatter_presort(ids.to(torch.int32))
+
+
+@pytest.mark.parametrize("n,rows,route", [
+    (1, 10, "block"), (2048, 8_000_000, "block"), (2560, 65_536, "block"),
+    (16384, 2 ** 31 - 1, "block"), (16385, 2 ** 31 - 1, "sort"),
+    (1_000_000, 100, "sort")])
+def test_scatter_route_by_lookups(n, rows, route):
+    assert sr.scatter_route(n, rows) == route
+
+
+@pytest.mark.parametrize("rows", [2 ** 31, 2 ** 40])
+def test_scatter_refuses_tables_past_31_bit_rows(rows):
+    with pytest.raises(ValueError, match="2\\^31"):
+        sr.scatter_route(8, rows)
+
+
+def test_scatter_on_cpu_counts_no_route():
+    table, ids, upd = _case(64, 9)
+    before = (dict(scatter_add_rows.routes), dict(scatter_write_rows.routes))
+    t = torch.from_numpy(table.copy())
+    scatter_add_rows(t, torch.from_numpy(ids), torch.from_numpy(upd))
+    scatter_write_rows(t, torch.from_numpy(ids), torch.from_numpy(upd),
+                       t[torch.from_numpy(ids)].clone())
+    assert (scatter_add_rows.routes, scatter_write_rows.routes) == before
