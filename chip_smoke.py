@@ -39,8 +39,8 @@ Phases:
    decoder LSTMs, bf16 compute, ``SGDOptimizer(lr=0.1)``, sparse
    categorical cross-entropy and accuracy), timed the same way: 20 steps
    back to back with every count at 0 just before and read just after
-   (exactly 4 ``lstm_fwd``, 4 ``lstm_bwd``, all on the resident route, 4
-   ``lstm_gates``, 2 ``scatter_presort`` and 2 ``scatter_add_rows``
+   (exactly 4 ``lstm_fwd`` and 4 ``lstm_bwd``, all on the resident
+   route, 4 ``lstm_gates``, 2 ``scatter_presort`` and 2 ``scatter_add_rows``
    launches a step, no plain version run, a finite loss that falls), ten
    steps alone and a second window. Its queued and profiled steps
    (device time, idle share, the host's top ops) and one fp32 step on the card against
@@ -85,17 +85,25 @@ Phases:
    and Zipf-skewed ids, and at n = 16,384, held bitwise to their plain
    versions run on the CPU (on the card the plain version adds
    duplicates with atomics, in no fixed order), with the kernel launches
-   a call and their split from the trace; the quantized bag and
+   a call and their split from the trace, timed as the ops call them
+   (ids in range, no check) and with the wrapper's range check; then pad
+   slots (-1 and -(rows + 1)) among the ids on both pre-pass routes
+   (n = 2,048 and 16,385), held bitwise with only the real rows changed,
+   and an id past the table raising; the quantized bag and
    interaction at the serving shape over the table quantized to int8
    (the bag also in fp8), which no path calls yet; the int8 MIPS top-k
    at B=64 and B=1 over a 1M x 32 index with planted duplicate rows,
    k=100, bitwise to its plain version on the card, and on one small
-   shape to the plain version on the CPU, with its bound at both; the
+   shape where k exceeds the chunks and on an all-tied index (both on
+   the overflow route) to the plain version on the CPU, with its bound
+   at both, its routes, its device time split into score, select and
+   sort from the trace and its median candidate count a query; the
    LSTM forward and backward scans at the NMT step's per-layer shape
    (T=40, b=64, h=1024) in bf16 and fp32 wh and at a ragged T=7, b=24,
    h=136, against their plain versions (ys, cs, dzs, and dxproj and dwh
-   through the autograd Function), the backward's route checked
-   (resident in bf16, streaming in fp32), timed beside cuDNN's LSTM
+   through the autograd Function), both kernels' routes checked
+   (resident in bf16, streaming in fp32), the forward's serial step (the
+   call over T) beside the barrier probe, timed beside cuDNN's LSTM
    layer (``torch.nn.LSTM``, which the port never calls) against "x·wx
    product + kernel"; the resident backward's gate phase
    (``lstm_gates``) against its plain version and ``torch.addmm``, the
@@ -181,7 +189,8 @@ NMT_B, NMT_SEQ, NMT_VOCAB, NMT_DIM, NMT_LAYERS, NMT_LR = (
 # per step: 4 LSTM layers (encoder and decoder, 2 each) forward and
 # backward, the gate phase of each resident backward, and the two "none"
 # embeddings' touched-rows updates, each sorted by the one-block pre-pass
-NMT_LAUNCHES = {"lstm_fwd": 4, "lstm_bwd": 4, "lstm_bwd:resident": 4,
+NMT_LAUNCHES = {"lstm_fwd": 4, "lstm_fwd:resident": 4, "lstm_bwd": 4,
+                "lstm_bwd:resident": 4,
                 "lstm_gates": 4, "scatter_add_rows": 2,
                 "scatter_add_rows:block": 2, "scatter_presort": 2}
 # the card-versus-CPU step, at a reduced size in fp32
@@ -482,11 +491,36 @@ def index_codes(gen, dev, rows=N_ITEMS, d=TT_DIM):
     return codes, scales
 
 
+TOPK_PHASES = (("score", ("chunk_max",)),
+               ("select", ("threshold", "compact")),
+               ("sort", ("sort_candidates",)),
+               ("overflow", ("score_chunks", "merge_chunks")))
+
+
+def topk_split(traced):
+    """Text for a traced top-k call's device us by phase: score (the
+    chunk maxima pass), select (threshold and compaction), sort, and the
+    overflow route's passes where they ran."""
+    if traced is None:
+        return "not measured (no device time traced)"
+    parts = []
+    for phase, names in TOPK_PHASES:
+        us = sum(v for k, v in traced.items() if any(n in k for n in names))
+        if us or phase != "overflow":
+            parts.append(f"{phase} {us:.2f} us")
+    return ", ".join(parts)
+
+
 def topk_kernel(dev):
     """Kernel 7, the int8 MIPS top-k, at the retrieval bench's query
     batch (B=64) over a 1M-row, d=32 index with k=100, and at B=1 (one
     user, as the cascade sends it): bitwise to its plain version on the
-    card; one small shape also against the plain version on the CPU."""
+    card, on the select route (or the overflow route where a planted
+    duplicate row reaches the top); one small shape, where k exceeds the
+    chunks (the overflow route), and an index whose scores all tie, also
+    against the plain version on the CPU. Each call's time is split into
+    its phases from the trace, with the candidate counts of the select
+    route."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     codes, scales = index_codes(gen, dev)
     qsets = [topk_mod.quantize_query(
@@ -508,21 +542,34 @@ def topk_kernel(dev):
               f"mips_topk scores not descending at B={b}")
     small = (qsets[1][0][:5], qsets[1][1][:5], codes[:20000],
              scales[:20000])
-    got_s, got_i = topk_mod.mips_topk(*small, 1000, base=3)
-    want_s, want_i = topk_mod.mips_topk_reference(
-        *(t.cpu() for t in small), 1000, base=3)
-    check(torch.equal(got_i.cpu(), want_i)
-          and torch.equal(got_s.cpu().view(torch.int32),
-                          want_s.view(torch.int32)),
-          "mips_topk kernel disagrees with its plain version on the CPU")
+    tied = (qsets[2][0][:5], qsets[2][1][:5],
+            codes[:50000].clone().copy_(codes[7]),
+            scales[:50000].clone().fill_(float(scales[7])))
+    for what, args, k, base in (("B=5, R=20000, k=1000, base=3", small, 1000,
+                                 3),
+                                ("an all-tied index, B=5, R=50000, k=100",
+                                 tied, K, 0)):
+        before = topk_mod.mips_topk.routes["overflow"]
+        got_s, got_i = topk_mod.mips_topk(*args, k, base=base)
+        want_s, want_i = topk_mod.mips_topk_reference(
+            *(t.cpu() for t in args), k, base=base)
+        check(topk_mod.mips_topk.routes["overflow"] == before + 1,
+              f"mips_topk at {what} did not take the overflow route")
+        check(torch.equal(got_i.cpu(), want_i)
+              and torch.equal(got_s.cpu().view(torch.int32),
+                              want_s.view(torch.int32)),
+              f"mips_topk kernel disagrees with its plain version on the "
+              f"CPU at {what}")
     print(f"kernel mips_topk: bitwise equal to its plain version at B=64 "
           f"and B=1 (R={N_ITEMS}, d={TT_DIM}, k={K}) and to the CPU's at "
-          f"B=5, R=20000, k=1000")
+          f"B=5, R=20000, k=1000, base=3 and on an all-tied index (both "
+          f"on the overflow route)")
     # the index's codes and scales read once, the queries, the results
     R = N_ITEMS
     b_ms, b_by = bound(R * (TT_DIM + 4) + TOPK_B * (TT_DIM + 4)
                        + TOPK_B * K * 12,
                        2 * TOPK_B * R, int8_ops=2 * TOPK_B * R * TT_DIM)
+    before = dict(topk_mod.mips_topk.routes)
     r = {"name": "mips_topk", "route": "cuda",
          "source": "dlrm_flexflow_tpu_torch/csrc/topk.cu",
          "replaces": "dlrm_flexflow_tpu/ops/pallas/topk_kernel.py:117",
@@ -538,6 +585,7 @@ def topk_kernel(dev):
     r["b1_plain_ms"], r["b1_plain_call_ms"] = time_ms(
         lambda q, qs: topk_mod.mips_topk_reference(q, qs, codes, scales, K),
         one)
+    routes = {k: v - before[k] for k, v in topk_mod.mips_topk.routes.items()}
     # at B = 1, as every cascade launch runs: the whole index and its
     # scales read once, one query, one result
     b1_bound, b1_by = bound(R * (TT_DIM + 4) + (TT_DIM + 4) + K * 12,
@@ -545,7 +593,18 @@ def topk_kernel(dev):
     print_row(r, f" (B=64); at B=1: device {r['b1_ms']:.4f} ms (call "
               f"{r['b1_call_ms']:.4f} ms), plain {r['b1_plain_ms']:.4f} ms "
               f"(call {r['b1_plain_call_ms']:.4f} ms), bound "
-              f"{1e3 * b1_bound:.2f} us ({b1_by})")
+              f"{1e3 * b1_bound:.2f} us ({b1_by}); routes of the timed "
+              f"calls {routes}")
+    for b, sets in ((TOPK_B, qsets), (1, one)):
+        counts = torch.cat([topk_mod.select_candidates(
+            q, qs, codes, scales, K)[2] for q, qs in sets]).float()
+        traced = traced_device_us(lambda q, qs: topk_mod.mips_topk(
+            q, qs, codes, scales, K), sets, 16)
+        print(f"mips_topk at B={b}: device per call by phase, traced: "
+              f"{topk_split(traced)}; candidates a query: median "
+              f"{float(counts.median()):g}, max {float(counts.max()):g} "
+              f"(buffer {topk_mod.CAP}, k={K}, chunks of "
+              f"{topk_mod.chunk_rows(R, K)} rows)")
     return {r["name"]: r}
 
 
@@ -621,10 +680,10 @@ def scatter_kernels(dev, gen, table):
             kern = getattr(scat_mod, name)
             plain = getattr(scat_mod, name + "_reference")
 
-            def call(fn, t, ids, upd, fwd, *_, with_fwd=with_fwd):
+            def call(fn, t, ids, upd, fwd, *_, with_fwd=with_fwd, **kw):
                 if with_fwd:
-                    return fn(t, ids, upd, fwd, -LR)
-                return fn(t, ids, upd, -LR)
+                    return fn(t, ids, upd, fwd, -LR, **kw)
+                return fn(t, ids, upd, -LR, **kw)
 
             got = call(kern, table.clone(), ids, upd, fwd)
             want = call(plain, table_cpu.clone(), *cpu_args)
@@ -643,22 +702,30 @@ def scatter_kernels(dev, gen, table):
             # forward) row per distinct row, and writes that row
             b_ms, b_by = bound(n * 8 + n * D * 4 + 2 * m * D * 4, 2 * n * D)
             scratch = table        # timing only: its values no longer matter
+            # as the ops call it (their ids wrapped into the table, so the
+            # wrapper's range check, a wait for the device, is skipped)
             r = {"name": name, "route": "cuda", "source": src,
                  "replaces": f"{pallas}:{line}", "max_abs_err": err,
                  "bound_ms": b_ms, "bound_by": b_by,
-                 **timed("", lambda *a: call(kern, scratch, *a), sets)}
+                 **timed("", lambda *a: call(kern, scratch, *a,
+                                             ids_in_range=True), sets)}
             if main:
                 r.update(**timed("plain_", lambda *a: call(plain, scratch, *a),
                                  sets),
                          **timed("library_", lambda ids, _u, _f, scaled:
-                                 scratch.index_add_(0, ids, scaled), sets))
+                                 scratch.index_add_(0, ids, scaled), sets),
+                         **timed("checked_", lambda *a: call(kern, scratch,
+                                                             *a), sets))
                 traced = traced_kernels(
-                    lambda *a: call(kern, scratch, *a), sets, 20)
+                    lambda *a: call(kern, scratch, *a, ids_in_range=True),
+                    sets, 20)
                 split = ("not measured (no device time traced)"
                          if traced is None else ", ".join(
                              f"{k[:40]} x{c:g} {us:.2f} us"
                              for k, (c, us) in traced.items()))
-                more = (f"; plain {r['plain_ms']:.4f} ms (call "
+                more = (f"; with the range check {r['checked_ms']:.4f} ms "
+                        f"(call {r['checked_call_ms']:.4f} ms); plain "
+                        f"{r['plain_ms']:.4f} ms (call "
                         f"{r['plain_call_ms']:.4f} ms); index_add_ "
                         f"{r['library_ms']:.4f} ms (call "
                         f"{r['library_call_ms']:.4f} ms); kernel launches a "
@@ -672,7 +739,60 @@ def scatter_kernels(dev, gen, table):
                   f"{r['call_ms']:.4f} ms){more}; bound "
                   f"{1e3 * b_ms:.2f} us ({b_by})")
         del sets
+    scatter_pads(dev, gen, table)
     return rows
+
+
+def scatter_pads(dev, gen, table):
+    """Pad slots among the ids (-1 and -(rows + 1), which the Pallas
+    kernels skip with ``@pl.when(row >= 0)``) on both pre-pass routes,
+    n = 2,048 ("block") and 16,385 ("sort"), each scatter held bitwise to
+    its plain version on the CPU with the last row (where -1 would wrap)
+    and every row it was not given untouched; an id past the table
+    raises."""
+    rows = table.shape[0]
+    table_cpu = table.cpu()
+    for n, route in ((TRAIN_B * T * BAG, "block"),
+                     (scat_mod.BLOCK_SORT_MAX + 1, "sort")):
+        ids = torch.randint(0, rows - 1, (n,), device=dev, generator=gen)
+        ids[100:300] = -1
+        ids[torch.randperm(n, device=dev, generator=gen)[:n // 10]] = \
+            -(rows + 1)
+        upd = torch.randn(n, D, device=dev, generator=gen)
+        fwd = table[ids.clamp(min=0)]
+        real = torch.unique(ids[ids >= 0])
+        for name, with_fwd in (("scatter_add_rows", False),
+                               ("scatter_write_rows", True)):
+            kern = getattr(scat_mod, name)
+            plain = getattr(scat_mod, name + "_reference")
+            extra = (fwd,) if with_fwd else ()
+            before = kern.routes[route]
+            got = kern(table.clone(), ids, upd, *extra, -LR)
+            want = plain(table_cpu.clone(), ids.cpu(), upd.cpu(),
+                         *(t.cpu() for t in extra), -LR)
+            check(kern.routes[route] == before + 1,
+                  f"{name} with pads did not take the {route} route")
+            got_real, want_real = got[real].cpu(), want[real.cpu()]
+            check(torch.equal(got_real, want_real),
+                  f"{name} kernel disagrees with its plain version with "
+                  f"pads (n={n}, {route} route)")
+            got[real] = table[real]
+            check(torch.equal(got, table),
+                  f"{name} kernel changed a row it was not given, with "
+                  f"pads (n={n}, {route} route)")
+            bad = ids.clone()
+            bad[7] = rows
+            try:
+                kern(table.clone(), bad, upd, *extra, -LR)
+                raised = False
+            except ValueError:
+                raised = True
+            check(raised, f"{name} took an id past the table")
+        print(f"kernels scatter_add_rows/scatter_write_rows at n={n} with "
+              f"{int((ids < 0).sum())} pad slots ({route} route): bitwise "
+              f"equal to their plain versions on the CPU, only the "
+              f"{real.numel()} real rows changed; an id past the table "
+              f"raises")
 
 
 def lstm_inputs(gen, dev, T, b, h, dtype):
@@ -691,9 +811,12 @@ def lstm_check(gen, dev, T, b, h, dtype):
     forward's residuals), and dxproj and dwh through the autograd
     Function. Returns the largest error of each."""
     xp, wh, dys = lstm_inputs(gen, dev, T, b, h, dtype)
-    ys, cs = lstm_mod.lstm_fwd(xp, wh)
-    ys_r, cs_r = lstm_mod.lstm_fwd_reference(xp, wh)
     route = "resident" if dtype == torch.bfloat16 else "streaming"
+    before = lstm_mod.lstm_fwd.routes[route]
+    ys, cs = lstm_mod.lstm_fwd(xp, wh)
+    check(lstm_mod.lstm_fwd.routes[route] == before + 1,
+          f"lstm_fwd at T={T}, b={b}, h={h} did not take the {route} route")
+    ys_r, cs_r = lstm_mod.lstm_fwd_reference(xp, wh)
     before = lstm_mod.lstm_bwd.routes[route]
     dzs = lstm_mod.lstm_bwd(xp, wh, ys_r, cs_r, dys)
     check(lstm_mod.lstm_bwd.routes[route] == before + 1,
@@ -865,6 +988,11 @@ def lstm_kernels(dev):
               f"{lib_both[0]:.4f} ms; x·wx product + kernel forward "
               f"{my_fwd[0]:.4f} ms, forward+backward {my_both[0]:.4f} ms; "
               f"max abs difference of the outputs {layer_err:.3g}")
+        froute = "resident" if dt == torch.bfloat16 else "streaming"
+        print(f"lstm_fwd ({name} wh, {froute} route): serial step "
+              f"{1e3 * fwd[0] / T:.2f} us (the call / T={T})"
+              + (f", beside {1e3 * barrier_ms / (T - 1):.2f} us a barrier "
+                 f"alone" if dt == torch.bfloat16 else ""))
         if dt == torch.bfloat16:
             gms = gate_row["ms"]
             print(f"lstm_bwd split (bf16, resident route): gate phase "
@@ -1208,7 +1336,9 @@ def cascade_phase():
               and not any(p.degraded for p in results.values()),
               f"cascade: {cascade.deadline_misses} deadline misses, "
               f"{sum(p.degraded for p in results.values())} degraded")
-        check(launches["mips_topk"] == shard_calls == len(reqs),
+        check(launches["mips_topk"] == shard_calls == len(reqs)
+              == launches["mips_topk:select"]
+              + launches["mips_topk:overflow"],
               f"cascade: {launches['mips_topk']} top-k launches for "
               f"{shard_calls} shard top-k calls and {len(reqs)} requests")
         check(launches["embedding_bag"] > 0,
@@ -1273,12 +1403,12 @@ def cascade_phase():
         if traced is None:
             device = "device not measured (no device time traced)"
         else:
-            dev_ms, score_ms, merge_ms = (
-                sum(us for k, us in traced.items() if name in k) / 1e3
-                for name in ("", "score_chunks", "merge_chunks"))
+            dev_ms = sum(traced.values()) / 1e3
+            topk_ms = sum(us for k, us in traced.items() if any(
+                n in k for _, names in TOPK_PHASES for n in names)) / 1e3
             device = (f"device per request {dev_ms:.3f} ms, of it the "
-                      f"top-k kernel {score_ms + merge_ms:.4f} ms (scoring "
-                      f"{score_ms:.4f} ms, merge passes {merge_ms:.4f} ms)")
+                      f"top-k kernels {topk_ms:.4f} ms "
+                      f"({topk_split(traced)})")
         # where a request's host time goes (tracing inflates it)
         with profile(activities=[ProfilerActivity.CPU]) as hprof:
             for feats in reqs[:reps]:

@@ -24,8 +24,24 @@
 // the real limit: each step's product needs the whole previous h (or
 // dz), so a step cannot start before every part of the last one is done.
 //
-// Forward, and the backward's streaming route (fp32 wh, or a shape the
-// resident route does not take): ONE cooperative launch per call, the
+// Forward, resident route (bf16 wh, b <= 128, one block per group of 8
+// units co-resident, the slice within shared memory; the wrapper chooses
+// the route by shape): lstm_fwd_resident_kernel, one cooperative launch.
+// The block copies its 32 columns of wh (the 4 gates of its 8 units over
+// all H rows: an N = 32, K = H bf16 B operand, 64 KB at H = 1,024,
+// padded against bank conflicts) into dynamic shared memory once. A
+// step's gates for the block are one M = b, N = 32, K = H product on
+// mma.sync.m16n8k16 bf16 with fp32 accumulators, its A operand
+// round_bf16(h_{t-1}) read from a two-slot bf16 ring in fragment order,
+// written once by the thread that computes h (as JAX's
+// hprev.astype(wh.dtype)) and read with __ldcg, 16 fragments in flight.
+// c stays in a register; xproj[t+1] is loaded before the barrier. Per
+// step a block reads the 128 KB ring slot from L2 (16 MB for 128 blocks)
+// and waits at one grid.sync.
+//
+// Forward, streaming route (fp32 wh, or a shape the resident route does
+// not take), and the backward's streaming route: ONE cooperative launch
+// per call, the
 // time loop inside the kernel and a grid-wide barrier (cooperative_groups
 // grid.sync) between steps. A block owns groups of kUnits hidden units j
 // and all four gate columns of each (j, H+j, 2H+j, 3H+j), so the cell
@@ -632,6 +648,185 @@ lstm_bwd_resident_kernel(const float* __restrict__ gates,
   }
 }
 
+// ---- the forward's resident route (bf16 wh) ---------------------------
+
+constexpr int kFwdCols = 4 * kResUnits;      // 32: the 4 gates of 8 units
+constexpr int kFwdUnroll = 16;               // ring loads in flight a warp
+// a partial gate tile's row stride in floats: 8 words of padding put the
+// 4 rows a warp's cell update reads in 4 different bank octets
+constexpr int kGateStride = kFwdCols + 8;
+
+// H padded to the product's depth of 16
+__host__ __device__ __forceinline__ int fwd_padded_k(int H) {
+  return (H + 15) / 16 * 16;
+}
+// the slice's column stride in 32-bit words: 4 words of padding put the
+// 8 columns a B fragment reads in 8 different bank quads
+__host__ __device__ __forceinline__ int fwd_slice_stride(int H) {
+  return fwd_padded_k(H) / 2 + 4;
+}
+size_t fwd_resident_smem(int H) {
+  return (size_t)kFwdCols * fwd_slice_stride(H) * 4 +
+         (size_t)kResWarps * 16 * kGateStride * 4;
+}
+
+// The forward's serial scan with the block's 32 columns of wh resident.
+// Block x owns units j0..j0+7 (j0 = 8x); column n = q·8 + u of its slice
+// is wh[:, q·H + j0 + u], stored [n][k] as bf16 pairs along k, so a
+// thread's mma D fragment holds all four gates of its two units. A step's
+// gates for the block are one M = b, N = 32, K = H product: each of 8
+// warps takes one 16-row tile and a share of K, reads A from the ring
+// (round_bf16(h_{t-1}) in fragment order, one 16-byte __ldcg a fragment,
+// kFwdUnroll in flight) and B from the slice; the partial tiles meet in
+// shared memory. The thread that computes h[t][row, j] rounds it to bf16
+// once and writes it to the ring (the even unit of a pair writes both
+// halves of the 32-bit word). A thread keeps its (row, unit) for the
+// whole call, so c stays in a register, and loads xproj[t+1]'s four gate
+// entries before the barrier.
+__global__ void __launch_bounds__(kResThreads, 1)
+lstm_fwd_resident_kernel(const float* __restrict__ xproj,
+                         const __nv_bfloat16* __restrict__ wh,
+                         float* __restrict__ ys, float* __restrict__ cs,
+                         __nv_bfloat16* ring, int T, int b, int H) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int Kp = fwd_padded_k(H), S = Kp / 16, rs = fwd_slice_stride(H);
+  uint32_t* slice = smem;                    // [kFwdCols][rs] bf16 pairs
+  float* part = reinterpret_cast<float*>(smem + kFwdCols * rs);
+  cg::grid_group grid = cg::this_grid();
+  const int tid = threadIdx.x, H4 = 4 * H, j0 = blockIdx.x * kResUnits;
+  unsigned short* s16 = reinterpret_cast<unsigned short*>(slice);
+  const unsigned short* w16 = reinterpret_cast<const unsigned short*>(wh);
+  if (H % 8 == 0 && reinterpret_cast<uintptr_t>(wh) % 16 == 0) {
+    // (k, q): the 8 units' entries of gate q, one 16-byte load
+    for (int e = tid; e < 4 * Kp; e += kResThreads) {
+      const int k = e >> 2, q = e & 3;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (k < H && j0 < H)
+        v = __ldg(reinterpret_cast<const uint4*>(
+            w16 + (size_t)k * H4 + (size_t)q * H + j0));
+      const unsigned short* p = reinterpret_cast<const unsigned short*>(&v);
+#pragma unroll
+      for (int u = 0; u < kResUnits; ++u)
+        s16[(size_t)(q * kResUnits + u) * rs * 2 + k] = p[u];
+    }
+  } else {
+    for (int e = tid; e < kFwdCols * Kp; e += kResThreads) {
+      const int k = e / kFwdCols, n = e % kFwdCols;
+      const int q = n / kResUnits, j = j0 + n % kResUnits;
+      s16[(size_t)n * rs * 2 + k] =
+          (k < H && j < H) ? w16[(size_t)k * H4 + (size_t)q * H + j] : 0;
+    }
+  }
+  const int mtiles = (b + 15) / 16;
+  const int ksplit = mtiles >= kResWarps ? 1 : kResWarps / mtiles;
+  const int unit = tid % kResUnits, lane = tid / kResUnits, j = j0 + unit;
+  const int warp = tid / 32, wl = tid % 32, g = wl / 4, tg = wl % 4;
+  const size_t bh = (size_t)b * H, bh4 = (size_t)b * H4;
+  const size_t slot = (size_t)mtiles * 16 * Kp;
+  float xg[kResRows][4], c[kResRows];
+  // xproj[t]'s four gate entries of the thread's rows: no carry
+  auto load_x = [&](int t) {
+#pragma unroll
+    for (int r = 0; r < kResRows; ++r) {
+      const int row = lane + r * kResLanes;
+      if (row >= b || j >= H) continue;
+      const float* xp = xproj + t * bh4 + (size_t)row * H4 + j;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) xg[r][q] = __ldg(xp + (size_t)q * H);
+    }
+  };
+#pragma unroll
+  for (int r = 0; r < kResRows; ++r) c[r] = 0.f;
+  load_x(0);
+  __syncthreads();                           // the slice is in place
+  for (int t = 0; t < T; ++t) {
+    if (t > 0) {   // the gates' product round_bf16(h_{t-1}) @ wh[:, cols]
+      if (warp < mtiles * ksplit) {
+        const int m = warp % mtiles, kh = warp / mtiles;
+        const int s0 = kh * S / ksplit, s1 = (kh + 1) * S / ksplit;
+        const uint4* A = reinterpret_cast<const uint4*>(
+                             ring + ((t - 1) & 1) * slot) +
+                         (size_t)m * S * 32 + wl;
+        const uint32_t* Bp = slice + g * rs + tg;
+        float acc[4][4];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+        int s = s0;
+        for (; s + kFwdUnroll <= s1; s += kFwdUnroll) {
+          uint4 a[kFwdUnroll];
+#pragma unroll
+          for (int u = 0; u < kFwdUnroll; ++u)
+            a[u] = __ldcg(A + (size_t)(s + u) * 32);
+#pragma unroll
+          for (int u = 0; u < kFwdUnroll; ++u)
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) {
+              const uint32_t* bp = Bp + nt * kResUnits * rs + (s + u) * 8;
+              mma_bf16(acc[nt], a[u].x, a[u].y, a[u].z, a[u].w, bp[0],
+                       bp[4]);
+            }
+        }
+        for (; s < s1; ++s) {
+          const uint4 a = __ldcg(A + (size_t)s * 32);
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            const uint32_t* bp = Bp + nt * kResUnits * rs + s * 8;
+            mma_bf16(acc[nt], a.x, a.y, a.z, a.w, bp[0], bp[4]);
+          }
+        }
+        float* out = part + (kh * mtiles + m) * 16 * kGateStride;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int n = nt * kResUnits + 2 * tg;
+          out[g * kGateStride + n] = acc[nt][0];
+          out[g * kGateStride + n + 1] = acc[nt][1];
+          out[(g + 8) * kGateStride + n] = acc[nt][2];
+          out[(g + 8) * kGateStride + n + 1] = acc[nt][3];
+        }
+      }
+      __syncthreads();
+    }
+    __nv_bfloat16* wr = ring + (t & 1) * slot;
+#pragma unroll
+    for (int r = 0; r < kResRows; ++r) {
+      const int row = lane + r * kResLanes;
+      const bool live = row < b && j < H;
+      float h = 0.f;
+      if (live) {
+        float z[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          float acc = 0.f;
+          if (t > 0)
+            for (int kh = 0; kh < ksplit; ++kh)
+              acc += part[((kh * mtiles + row / 16) * 16 + row % 16) *
+                              kGateStride + q * kResUnits + unit];
+          z[q] = xg[r][q] + acc;
+        }
+        const float i = sigmoid(z[0]), f = sigmoid(z[1]);
+        const float gg = tanhf(z[2]), o = sigmoid(z[3]);
+        c[r] = f * c[r] + i * gg;
+        h = o * tanhf(c[r]);
+        const size_t idx = (size_t)row * H + j;
+        ys[t * bh + idx] = h;
+        if (cs) cs[t * bh + idx] = c[r];
+      }
+      // h[t] rounded once into the ring: the even unit of each pair
+      // writes both halves of their 32-bit word
+      const float h1 = __shfl_down_sync(0xffffffffu, h, 1);
+      if (live && t + 1 < T && (unit & 1) == 0)
+        *reinterpret_cast<__nv_bfloat162*>(wr + ring_index(row, j, S)) =
+            __floats2bfloat162_rn(h, h1);
+    }
+    if (t + 1 < T) {
+      load_x(t + 1);
+      grid.sync();
+    }
+  }
+}
+
 // `steps` grid-wide barriers and nothing else: the resident route's
 // serial phase with its work taken out.
 __global__ void __launch_bounds__(kResThreads, 1)
@@ -676,8 +871,9 @@ int launch_bwd(const void* xproj, const void* wh, const void* ys,
       (cudaStream_t)stream));
 }
 
-// The kernel a capacity query is for: 0 the forward, 1 the streaming
-// backward, 2 the resident backward (bf16 only).
+// The kernel a capacity query is for: 0 the streaming forward, 1 the
+// streaming backward, 2 the resident backward, 3 the resident forward
+// (the resident ones bf16 only).
 const void* kernel_of(int kernel, int wh_bf16) {
   if (kernel == 0)
     return wh_bf16 ? (const void*)lstm_fwd_kernel<__nv_bfloat16>
@@ -685,22 +881,30 @@ const void* kernel_of(int kernel, int wh_bf16) {
   if (kernel == 1)
     return wh_bf16 ? (const void*)lstm_bwd_kernel<__nv_bfloat16>
                    : (const void*)lstm_bwd_kernel<float>;
-  return (const void*)lstm_bwd_resident_kernel;
+  if (kernel == 2) return (const void*)lstm_bwd_resident_kernel;
+  return (const void*)lstm_fwd_resident_kernel;
 }
 
-// Lets the resident kernel take `smem` bytes of dynamic shared memory
-// (above 48 KB only after this call); set once per device for the
-// largest size asked.
-cudaError_t allow_smem(size_t smem) {
-  static size_t allowed[64] = {};
+// Dynamic shared memory of a resident kernel (2 or 3) at hidden size H.
+size_t smem_of(int kernel, int H) {
+  return kernel == 2 ? resident_smem(H)
+                     : kernel == 3 ? fwd_resident_smem(H) : 0;
+}
+
+// Lets resident kernel 2 or 3 take `smem` bytes of dynamic shared memory
+// (above 48 KB only after this call); set once per device and kernel for
+// the largest size asked.
+cudaError_t allow_smem(int kernel, size_t smem) {
+  static size_t allowed[2][64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  if (dev < 64 && smem <= allowed[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute((const void*)lstm_bwd_resident_kernel,
+  size_t* done = dev < 64 ? &allowed[kernel == 3][dev] : nullptr;
+  if (done && smem <= *done) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel_of(kernel, 1),
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
-  if (err == cudaSuccess && dev < 64) allowed[dev] = smem;
+  if (err == cudaSuccess && done) *done = smem;
   return err;
 }
 
@@ -719,6 +923,12 @@ int ff_lstm_resident_max_b() { return kResMaxB; }
 // slice and the partial carries.
 long long ff_lstm_resident_smem(int H) { return (long long)resident_smem(H); }
 
+// Dynamic shared memory of the resident forward at hidden size H: the
+// 32 columns of wh and the partial gate tiles.
+long long ff_lstm_fwd_resident_smem(int H) {
+  return (long long)fwd_resident_smem(H);
+}
+
 // How many blocks of a kernel (see kernel_of; H sizes the resident
 // kernel's shared memory) can be resident at once on the current device:
 // *blocks_per_sm on each of *sms multiprocessors. *cooperative is 0 when
@@ -727,18 +937,19 @@ long long ff_lstm_resident_smem(int H) { return (long long)resident_smem(H); }
 int ff_lstm_capacity(int kernel, int wh_bf16, int H, int* blocks_per_sm,
                      int* sms, int* cooperative) {
   int dev = 0;
-  size_t smem = kernel == 2 ? resident_smem(H) : 0;
+  const bool resident = kernel >= 2;
+  const size_t smem = smem_of(kernel, H);
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(cooperative, cudaDevAttrCooperativeLaunch,
                                  dev);
-  if (err == cudaSuccess && kernel == 2) err = allow_smem(smem);
+  if (err == cudaSuccess && resident) err = allow_smem(kernel, smem);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         blocks_per_sm, kernel_of(kernel, wh_bf16),
-        kernel == 2 ? kResThreads : kThreads, smem);
+        resident ? kResThreads : kThreads, smem);
   return refused_or_ok(err);
 }
 
@@ -755,6 +966,28 @@ int ff_lstm_fwd(const void* xproj, const void* wh, int wh_bf16, void* ys,
                                              H, grid, stream)
                  : launch_fwd<float>(xproj, wh, ys, cs, cbuf, T, b, H, grid,
                                      stream);
+}
+
+// The resident forward (bf16 wh): ys, cs as ff_lstm_fwd; ring: 2 ×
+// ceil(b/16)·16 × H padded to 16 bf16 scratch, ZEROED (its padding is
+// read). One cooperative launch of `grid` >= ceil(H / units) blocks,
+// b <= ff_lstm_resident_max_b(); returns its error code.
+int ff_lstm_fwd_resident(const void* xproj, const void* wh, void* ys,
+                         void* cs, void* ring, int T, int b, int H, int grid,
+                         void* stream) {
+  if (T <= 0 || b <= 0) return 0;
+  if (b > kResMaxB) return (int)cudaErrorInvalidValue;
+  const size_t smem = fwd_resident_smem(H);
+  cudaError_t err = allow_smem(3, smem);
+  if (err != cudaSuccess) return refused_or_ok(err);
+  const float* xp = (const float*)xproj;
+  const __nv_bfloat16* w = (const __nv_bfloat16*)wh;
+  float *y = (float*)ys, *c = (float*)cs;
+  __nv_bfloat16* rg = (__nv_bfloat16*)ring;
+  void* args[] = {&xp, &w, &y, &c, &rg, &T, &b, &H};
+  return refused_or_ok(cudaLaunchCooperativeKernel(
+      (const void*)lstm_fwd_resident_kernel, dim3(grid), dim3(kResThreads),
+      args, smem, (cudaStream_t)stream));
 }
 
 // The streaming backward. ys, cs: the forward's outputs; dys (T, b, H)
@@ -797,7 +1030,7 @@ int ff_lstm_bwd_resident(const void* gates, const void* wh, const void* cs,
   if (T <= 0 || b <= 0) return 0;
   if (b > kResMaxB) return (int)cudaErrorInvalidValue;
   const size_t smem = resident_smem(H);
-  cudaError_t err = allow_smem(smem);
+  cudaError_t err = allow_smem(2, smem);
   if (err != cudaSuccess) return refused_or_ok(err);
   const float* g = (const float*)gates;
   const __nv_bfloat16* w = (const __nv_bfloat16*)wh;

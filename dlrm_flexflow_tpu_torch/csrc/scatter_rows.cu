@@ -70,6 +70,8 @@ constexpr int kRankThreads = 256;          // 8 warps
 constexpr int kRankPerWarp = 2;            // lookups a warp ranks
 constexpr int kRankPerBlock = kRankThreads / 32 * kRankPerWarp;
 constexpr int kUnroll = 8;                 // a group's update loads in flight
+// a pad slot's row key (row id < 0): after every real row (< 2^31)
+constexpr uint32_t kPadRow = 0xFFFFFFFFu;
 
 // The pre-pass: every lookup j's place p in the stable sorted order is
 // the number of keys below its own, key = (row id << 32 | position), all
@@ -77,13 +79,19 @@ constexpr int kUnroll = 8;                 // a group's update loads in flight
 // ranks kRankPerWarp lookups, its lanes striding over the keys and summing
 // by shuffle. It writes order[p] = j and, for the first lookup of each
 // row (no smaller key with its row), seg[j] = (p, the row's lookup
-// count); (-1, 0) for every other lookup.
+// count); (-1, 0) for every other lookup. A pad slot (row id < 0, which
+// the Pallas kernels skip with @pl.when(row >= 0)) is keyed as row
+// kPadRow, after every real row, and owns no segment, so the update
+// kernel never reads or writes its row.
 __global__ void __launch_bounds__(kRankThreads)
 scatter_rank_kernel(const int64_t* __restrict__ ids, int n,
                     int* __restrict__ order, int2* __restrict__ seg) {
   extern __shared__ unsigned long long keys[];     // n keys
-  for (int i = threadIdx.x; i < n; i += kRankThreads)
-    keys[i] = ((unsigned long long)(uint32_t)ids[i] << 32) | (uint32_t)i;
+  for (int i = threadIdx.x; i < n; i += kRankThreads) {
+    const int64_t id = ids[i];
+    keys[i] = ((unsigned long long)(id < 0 ? kPadRow : (uint32_t)id) << 32)
+              | (uint32_t)i;
+  }
   __syncthreads();
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int j0 = blockIdx.x * kRankPerBlock + warp * kRankPerWarp;
@@ -117,8 +125,9 @@ scatter_rank_kernel(const int64_t* __restrict__ ids, int n,
   for (int q = 0; q < kRankPerWarp; ++q)
     if (lane == q && j0 + q < n) {
       order[less[q]] = j0 + q;
-      seg[j0 + q] = before[q] == 0 ? make_int2(less[q], same[q])
-                                   : make_int2(-1, 0);
+      const bool pad = (uint32_t)(mine[q] >> 32) == kPadRow;
+      seg[j0 + q] = before[q] == 0 && !pad ? make_int2(less[q], same[q])
+                                           : make_int2(-1, 0);
     }
 }
 
@@ -194,11 +203,12 @@ extern "C" {
 // memory: 128 KB).
 int ff_scatter_block_sort_max() { return kBlockSortMax; }
 
-// ids: (n,) int64 row ids in [0, 2^31); n <= kBlockSortMax. Writes
+// ids: (n,) int64 row ids below 2^31, negative ones pads that own no
+// segment; n <= kBlockSortMax. Writes
 // order (n,) int32, the lookups in stable order of their rows, and seg
 // (n, 2) int32: for the first lookup j of each row, (its place in order,
-// the row's lookup count); (-1, 0) for the others. One launch on
-// `stream`; returns cudaGetLastError().
+// the row's lookup count); (-1, 0) for the others and the pads. One
+// launch on `stream`; returns cudaGetLastError().
 int ff_scatter_presort(const void* ids, int n, void* order, void* seg,
                        void* stream) {
   if (n <= 0) return 0;

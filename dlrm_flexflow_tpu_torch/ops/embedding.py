@@ -100,7 +100,8 @@ class Embedding(Op):
             div = idx.shape[-1]
             if self.aggr == AGGR_MODE_AVG:
                 ct = ct / div
-        scatter_add_rows(table, ids, ct, scale=-lr, div=div)
+        scatter_add_rows(table, ids, ct, scale=-lr, div=div,
+                         ids_in_range=True)   # wrapped by _ids
         return params
 
 
@@ -205,8 +206,10 @@ class EmbeddingBagStacked(Op):
         table = self._flat_table(params)
         if fwd is not None:
             gid, rows = fwd
-            scatter_write_rows(table, gid, ct, rows, scale=-lr, div=bag)
+            scatter_write_rows(table, gid, ct, rows, scale=-lr, div=bag,
+                               ids_in_range=True)   # wrapped ids
         else:
             gid = self._global_ids(idx).reshape(-1)
-            scatter_add_rows(table, gid, ct, scale=-lr, div=bag)
+            scatter_add_rows(table, gid, ct, scale=-lr, div=bag,
+                             ids_in_range=True)   # wrapped ids
         return params

@@ -12,6 +12,11 @@ i, f, g, o; the initial h and c are zero.
 
 - ``lstm_fwd(xproj, wh, with_residuals)`` -> (ys, cs): the hidden states
   and, when a gradient will be taken, the cell states, (T, b, h) fp32.
+  Two routes, chosen by shape (``fwd_route``) as the backward's:
+  "resident" (bf16 wh, b <= 128, one block per group of units
+  co-resident) keeps each block's 32 columns of wh in shared memory and
+  runs a step's gate product on the bf16 tensor cores; "streaming" (fp32
+  wh, or any other shape) re-reads wh from L2 every step.
 - ``lstm_bwd(xproj, wh, ys, cs, dys)`` -> dzs (T, b, 4h) fp32: the gate
   cotangents [di, df, dg, do], the gates recomputed from ys and cs. Two
   routes, chosen by shape (``bwd_route``): "resident" (bf16 wh, b <= 128,
@@ -30,7 +35,8 @@ cannot be co-resident or the cooperative launch is refused: it never
 falls back, and no route stands in for another. ``lstm_carry_reference``
 is the plain serial phase given the gates: with ``lstm_gates_reference``
 it composes to ``lstm_bwd_reference``. ``.launches`` on each wrapper
-counts kernel launches; ``lstm_bwd.routes`` counts them by route.
+counts kernel launches; ``lstm_fwd.routes`` and ``lstm_bwd.routes``
+count them by route.
 
 ``lstm_scan(xproj, wh)`` is the JAX ``lstm_scan`` as an autograd
 Function: the forward keeps cs only when a gradient is needed (as
@@ -55,9 +61,11 @@ _SIGNATURES = {
     "ff_lstm_units": ((), _I),
     "ff_lstm_resident_max_b": ((), _I),
     "ff_lstm_resident_smem": ((_I,), ctypes.c_longlong),
+    "ff_lstm_fwd_resident_smem": ((_I,), ctypes.c_longlong),
     "ff_lstm_capacity": ((_I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I),
                           ctypes.POINTER(_I)), _I),
     "ff_lstm_fwd": ((_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P), _I),
+    "ff_lstm_fwd_resident": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
     "ff_lstm_bwd": ((_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
                     _I),
     "ff_lstm_gates": ((_P, _P, _P, _P, _I, _I, _I, _P), _I),
@@ -65,14 +73,13 @@ _SIGNATURES = {
                              _I),
     "ff_lstm_barrier": ((_I, _I, _P), _I),
 }
-# the resident route's limits, as csrc/lstm.cu sets them: 8 units a block,
-# at most 4 batch rows a thread of 32 row lanes, and the shared memory of
-# the wh slice (8 rows of 4h bf16 padded to 16, plus 4 words a row) and
-# of the partial carries (8 tiles of 16 x 8 fp32)
+# the resident routes' limits, as csrc/lstm.cu sets them: 8 units a
+# block, at most 4 batch rows a thread of 32 row lanes, and the shared
+# memory of the wh slice and of the partial products
 UNITS = 8
 RESIDENT_MAX_B = 128
 SMEM_LIMIT = 232_448     # bytes a block may use on Hopper (227 KB)
-KERNELS = {"fwd": 0, "bwd": 1, "resident": 2}
+KERNELS = {"fwd": 0, "bwd": 1, "resident": 2, "fwd_resident": 3}
 
 
 def _cell(gates, cprev):
@@ -166,21 +173,41 @@ def lstm_carry_reference(gates, wh, cs, dys):
 
 
 def resident_smem(h: int) -> int:
-    """Bytes of dynamic shared memory the resident route takes at hidden
-    size h (``ff_lstm_resident_smem``)."""
+    """Bytes of dynamic shared memory the resident backward takes at
+    hidden size h (``ff_lstm_resident_smem``): its 8 rows of wh (4h bf16
+    padded to 16, plus 4 words a row) and the partial carries (8 tiles of
+    16 x 8 fp32)."""
     kp = -(-4 * h // 16) * 16
     return UNITS * (kp // 2 + 4) * 4 + 8 * 16 * UNITS * 4
 
 
-def bwd_route(b: int, h: int, wh_dtype, blocks: int) -> str:
-    """The backward's route for a batch of b rows at hidden size h:
+def fwd_resident_smem(h: int) -> int:
+    """Bytes of dynamic shared memory the resident forward takes at
+    hidden size h (``ff_lstm_fwd_resident_smem``): its 32 columns of wh
+    (h bf16 padded to 16, plus 4 words a column) and the partial gate
+    tiles (8 tiles of 16 rows of 32 + 8 fp32)."""
+    kp = -(-h // 16) * 16
+    return 4 * UNITS * (kp // 2 + 4) * 4 + 8 * 16 * (4 * UNITS + 8) * 4
+
+
+def _route(b, h, wh_dtype, blocks, smem):
+    if wh_dtype != torch.bfloat16 or b > RESIDENT_MAX_B or smem > SMEM_LIMIT:
+        return "streaming"
+    return "resident" if -(-h // UNITS) <= blocks else "streaming"
+
+
+def fwd_route(b: int, h: int, wh_dtype, blocks: int) -> str:
+    """The forward's route for a batch of b rows at hidden size h:
     "resident" when wh is bf16, b <= RESIDENT_MAX_B, the wh slice fits a
     block's shared memory and the ceil(h / UNITS) groups fit in
     ``blocks`` co-resident blocks (one each); else "streaming"."""
-    if wh_dtype != torch.bfloat16 or b > RESIDENT_MAX_B \
-            or resident_smem(h) > SMEM_LIMIT:
-        return "streaming"
-    return "resident" if -(-h // UNITS) <= blocks else "streaming"
+    return _route(b, h, wh_dtype, blocks, fwd_resident_smem(h))
+
+
+def bwd_route(b: int, h: int, wh_dtype, blocks: int) -> str:
+    """The backward's route, by the rule of ``fwd_route`` with the
+    resident backward's shared memory."""
+    return _route(b, h, wh_dtype, blocks, resident_smem(h))
 
 
 def _check(xproj, wh, extra=()):
@@ -213,9 +240,10 @@ def _lib():
 
 
 def capacity(kernel: str, wh_dtype, h: int = 0) -> int:
-    """How many blocks of ``kernel`` ("fwd", "bwd" for the streaming
-    backward, or "resident" at hidden size h) the current card holds at
-    once; raises when it cannot take a cooperative launch or holds none."""
+    """How many blocks of ``kernel`` ("fwd" and "bwd" for the streaming
+    routes, "fwd_resident" and "resident" (the backward's) at hidden size
+    h) the current card holds at once; raises when it cannot take a
+    cooperative launch or holds none."""
     lib = _lib()
     per_sm, sms, coop = _I(0), _I(0), _I(0)
     err = lib.ff_lstm_capacity(KERNELS[kernel],
@@ -244,23 +272,38 @@ def _grid(h, kernel, wh_dtype, grid):
 def lstm_fwd(xproj: torch.Tensor, wh: torch.Tensor,
              with_residuals: bool = True, grid=None):
     """(ys, cs or None), each (T, b, h) fp32; see the module docstring.
-    ``grid`` overrides the number of blocks (the tests use it)."""
+    ``grid`` overrides the number of blocks (the tests use it): the route
+    is chosen as if the card held that many, and the launch takes them as
+    given."""
     T, b, h = _check(xproj, wh)
     if xproj.device.type == "cpu":
         return lstm_fwd_reference(xproj, wh, with_residuals)
     xproj, wh = xproj.contiguous(), wh.contiguous()
     ys = torch.empty((T, b, h), dtype=torch.float32, device=xproj.device)
     cs = torch.empty_like(ys) if with_residuals else None
-    cbuf = torch.empty((b, h), dtype=torch.float32, device=xproj.device)
-    g = _grid(h, "fwd", wh.dtype, grid)
+    cs_ptr = cs.data_ptr() if cs is not None else None
+    # the occupancy query only for a shape the resident kernel can take
+    route = fwd_route(b, h, wh.dtype, 1 << 30)
+    if route == "resident":
+        route = fwd_route(b, h, wh.dtype, grid if grid is not None
+                          else capacity("fwd_resident", wh.dtype, h))
     lib = _lib()
-    err = lib.ff_lstm_fwd(xproj.data_ptr(), wh.data_ptr(),
-                          int(wh.dtype == torch.bfloat16), ys.data_ptr(),
-                          cs.data_ptr() if cs is not None else None,
-                          cbuf.data_ptr(), T, b, h, g,
-                          build.stream_of(xproj))
-    build.check(lib, err, f"lstm_fwd kernel ({g} blocks)")
-    build.count_launch(lstm_fwd)
+    stream = build.stream_of(xproj)
+    if route == "resident":
+        g = -(-h // UNITS) if grid is None else int(grid)
+        ring = torch.zeros(2 * -(-b // 16) * 16 * (-(-h // 16) * 16),
+                           dtype=torch.bfloat16, device=xproj.device)
+        err = lib.ff_lstm_fwd_resident(xproj.data_ptr(), wh.data_ptr(),
+                                       ys.data_ptr(), cs_ptr,
+                                       ring.data_ptr(), T, b, h, g, stream)
+    else:
+        g = _grid(h, "fwd", wh.dtype, grid)
+        cbuf = torch.empty((b, h), dtype=torch.float32, device=xproj.device)
+        err = lib.ff_lstm_fwd(xproj.data_ptr(), wh.data_ptr(),
+                              int(wh.dtype == torch.bfloat16), ys.data_ptr(),
+                              cs_ptr, cbuf.data_ptr(), T, b, h, g, stream)
+    build.check(lib, err, f"lstm_fwd kernel ({route}, {g} blocks)")
+    build.count_launch(lstm_fwd, route)
     return ys, cs
 
 
@@ -340,6 +383,7 @@ def grid_barrier(steps: int, grid: int, device) -> None:
 
 
 lstm_fwd.launches = 0
+lstm_fwd.routes = {"resident": 0, "streaming": 0}
 lstm_gates.launches = 0
 lstm_bwd.launches = 0
 lstm_bwd.routes = {"resident": 0, "streaming": 0}

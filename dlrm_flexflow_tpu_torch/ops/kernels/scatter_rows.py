@@ -12,7 +12,12 @@ owner per distinct row; no atomics).
 Both functions update ``table`` IN PLACE (the JAX kernels alias the
 table to their output) and return it. Lookup ``j`` targets row
 ``ids[j]`` with update row ``upd[j // div]``; each update is scaled as
-``scale * upd`` BEFORE duplicates are summed, in ascending lookup order:
+``scale * upd`` BEFORE duplicates are summed, in ascending lookup order.
+A lookup whose row is negative is a pad slot and changes nothing, as
+``@pl.when(row >= 0)`` skips it in the Pallas kernels; a row id >= the
+table's rows raises ``ValueError`` (on the card that check waits for the
+device, so callers whose ids are in range by construction, the ops that
+wrap their ids, pass ``ids_in_range=True``):
 
 - ``scatter_add_rows``:   table[row] = table[row] + sum
 - ``scatter_write_rows``: table[row] = fwd[j] + sum, fwd[j] being the row
@@ -55,14 +60,21 @@ _SIGNATURES = {
 BLOCK_SORT_MAX = 16384
 # row ids travel as 31-bit keys
 MAX_ROWS = 2 ** 31
+# the sort key of a pad slot (row < 0): above every real row, so pads
+# sort last on both routes (the rank kernel keys them as row 2^32 - 1)
+PAD_KEY = 2 ** 32 - 1
+PAD_KEY32 = 2 ** 31 - 1
 
 
 def _segment_sums(ids, upd, scale, div):
-    """(distinct sorted rows, first lookup of each, per-row sums): a
-    stable sort, then ``index_add_`` of the scaled updates in sorted
-    order — on the CPU a sequential loop, so each row's duplicates add
-    in ascending lookup order, starting from 0."""
-    sorted_ids, order = torch.sort(ids, stable=True)
+    """(distinct sorted rows, first lookup of each, per-row sums): the pad
+    slots (row < 0) masked out, a stable sort, then ``index_add_`` of the
+    scaled updates in sorted order — on the CPU a sequential loop, so
+    each row's duplicates add in ascending lookup order, starting from
+    0."""
+    real = torch.nonzero(ids >= 0).reshape(-1)
+    sorted_ids, order = torch.sort(ids[real], stable=True)
+    order = real[order]
     rows, inv, counts = torch.unique_consecutive(
         sorted_ids, return_inverse=True, return_counts=True)
     vals = scale * upd[order // div]
@@ -97,18 +109,23 @@ def scatter_route(n: int, rows: int) -> str:
     return "block" if n <= BLOCK_SORT_MAX else "sort"
 
 
-def _segments(sorted_ids, order):
+def _segments(sorted_ids, order, pad=None):
     """seg (n, 2) int32 from ids sorted stably (``order`` their
     positions): for the first lookup j of each row, (its place in the
-    order, the row's lookup count); (-1, 0) for the others. Tensor ops
-    that never wait for the device."""
+    order, the row's lookup count); (-1, 0) for the others and for the
+    pad slots, ``pad`` (n,) bool in sorted order. Tensor ops that never
+    wait for the device."""
     n = sorted_ids.shape[0]
     dev = sorted_ids.device
     heads = torch.ones(n, dtype=torch.bool, device=dev)
     heads[1:] = sorted_ids[1:] != sorted_ids[:-1]
+    ones = torch.ones(n, dtype=torch.int32, device=dev)
+    if pad is not None:         # pads sort last and count for no row
+        heads &= ~pad
+        ones = (~pad).to(torch.int32)
     number = torch.cumsum(heads, 0) - 1
     counts = torch.zeros(n, dtype=torch.int32, device=dev).index_add_(
-        0, number, torch.ones(n, dtype=torch.int32, device=dev))
+        0, number.clamp(min=0), ones)
     place = torch.arange(n, dtype=torch.int32, device=dev)
     seg = torch.empty((n, 2), dtype=torch.int32, device=dev)
     seg[order.long()] = torch.stack(
@@ -122,10 +139,12 @@ def presort_reference(ids: torch.Tensor, chunk: int = 1024):
     ``chunk`` lookups at a time. A lookup's place in the stable order is
     the number of (row id, position) keys below its own; it is its row's
     first when none of those has its row, and then its segment is (that
-    place, the number of lookups of its row). Returns order (n,) and
-    seg (n, 2), int32."""
+    place, the number of lookups of its row). A pad slot (row < 0) is
+    keyed as row ``PAD_KEY``, after every real row, and owns no segment.
+    Returns order (n,) and seg (n, 2), int32."""
     n = ids.shape[0]
-    ids = ids.long()
+    pads = ids < 0
+    ids = torch.where(pads, PAD_KEY, ids.long())
     pos = torch.arange(n, device=ids.device)
     seg = torch.empty((n, 2), dtype=torch.int32, device=ids.device)
     order = torch.empty(n, dtype=torch.int32, device=ids.device)
@@ -134,7 +153,7 @@ def presort_reference(ids: torch.Tensor, chunk: int = 1024):
         row = ids[None] == mine
         below = (ids[None] < mine) | (row & (pos[None] < at))
         rank = below.sum(1)
-        first = ~(below & row).any(1)
+        first = ~(below & row).any(1) & ~pads[lo:lo + chunk]
         order[rank] = pos[lo:lo + chunk].to(torch.int32)
         seg[lo:lo + chunk, 0] = torch.where(first, rank, -1)
         seg[lo:lo + chunk, 1] = torch.where(first, row.sum(1), 0)
@@ -142,8 +161,9 @@ def presort_reference(ids: torch.Tensor, chunk: int = 1024):
 
 
 def scatter_presort(ids: torch.Tensor):
-    """The pre-pass kernel over n <= BLOCK_SORT_MAX int64 row ids in
-    [0, 2^31): (order, seg) as ``presort_reference`` returns them."""
+    """The pre-pass kernel over n <= BLOCK_SORT_MAX int64 row ids below
+    2^31, negative ones pads: (order, seg) as ``presort_reference``
+    returns them."""
     if ids.dim() != 1 or ids.dtype != torch.int64:
         raise ValueError(f"scatter_presort takes (n,) int64 ids, got "
                          f"{tuple(ids.shape)} {ids.dtype}")
@@ -164,7 +184,7 @@ def scatter_presort(ids: torch.Tensor):
     return order, seg
 
 
-def _check(table, ids, upd, fwd, div):
+def _check(table, ids, upd, fwd, div, ids_in_range):
     if table.dim() != 2 or ids.dim() != 1 or upd.dim() != 2:
         raise ValueError(f"scatter expects table (rows, d), ids (n,) and "
                          f"upd (n/div, d), got {tuple(table.shape)}, "
@@ -176,6 +196,11 @@ def _check(table, ids, upd, fwd, div):
     if fwd is not None and fwd.shape != (n, d):
         raise ValueError(f"scatter: fwd {tuple(fwd.shape)} is not "
                          f"({n}, {d})")
+    # a device-to-host wait on the card: callers whose ids are in range
+    # by construction skip it
+    if not ids_in_range and n and int(ids.max()) >= table.shape[0]:
+        raise ValueError(f"scatter: row id {int(ids.max())} is past the "
+                         f"table's {table.shape[0]} rows")
 
 
 def _launch(wrapper, entry, table, ids, upd, fwd, scale, div):
@@ -201,9 +226,11 @@ def _launch(wrapper, entry, table, ids, upd, fwd, scale, div):
     if route == "block":
         order, seg = scatter_presort(ids)
     else:
-        sorted_ids, order = torch.sort(ids.to(torch.int32), stable=True)
+        pads = ids < 0
+        key = torch.where(pads, PAD_KEY32, ids).to(torch.int32)
+        sorted_ids, order = torch.sort(key, stable=True)
+        seg = _segments(sorted_ids, order.to(torch.int32), pads[order])
         order = order.to(torch.int32)
-        seg = _segments(sorted_ids, order)
     args = [table.data_ptr(), ids.data_ptr(), order.data_ptr(),
             seg.data_ptr(), upd.data_ptr()]
     if fwd is not None:
@@ -221,11 +248,14 @@ def _launch(wrapper, entry, table, ids, upd, fwd, scale, div):
 
 def scatter_add_rows(table: torch.Tensor, ids: torch.Tensor,
                      upd: torch.Tensor, scale: float = 1.0,
-                     div: int = 1) -> torch.Tensor:
+                     div: int = 1, ids_in_range: bool = False
+                     ) -> torch.Tensor:
     """In place: table[ids[j]] += scale * upd[j // div], duplicates summed
-    first in lookup order. table (rows, d) fp32; ids (n,) int64 in
-    [0, rows); upd (n // div, d)."""
-    _check(table, ids, upd, None, div)
+    first in lookup order. table (rows, d) fp32; ids (n,) int64 below
+    rows, a negative id a pad that changes nothing; upd (n // div, d).
+    ``ids_in_range``: the caller guarantees ids < rows, and the check
+    (a wait for the device on the card) is skipped."""
+    _check(table, ids, upd, None, div, ids_in_range)
     if table.device.type == "cpu":
         return scatter_add_rows_reference(table, ids, upd, scale, div)
     if table.device.type != "cuda":
@@ -237,11 +267,13 @@ def scatter_add_rows(table: torch.Tensor, ids: torch.Tensor,
 
 def scatter_write_rows(table: torch.Tensor, ids: torch.Tensor,
                        upd: torch.Tensor, fwd: torch.Tensor,
-                       scale: float = 1.0, div: int = 1) -> torch.Tensor:
+                       scale: float = 1.0, div: int = 1,
+                       ids_in_range: bool = False) -> torch.Tensor:
     """In place, write-only: table[ids[j]] = fwd[j] + sum of scale *
     upd[j' // div] over the lookups j' of that row. fwd (n, d): the row
-    lookup j read in the forward pass."""
-    _check(table, ids, upd, fwd, div)
+    lookup j read in the forward pass. Pads and ``ids_in_range`` as in
+    ``scatter_add_rows``."""
+    _check(table, ids, upd, fwd, div, ids_in_range)
     if table.device.type == "cpu":
         return scatter_write_rows_reference(table, ids, upd, fwd, scale, div)
     if table.device.type != "cuda":
@@ -263,7 +295,8 @@ def segment_sum_rows(ids: torch.Tensor, upd: torch.Tensor, num_rows: int,
     """A zero (num_rows, d) table with every lookup's update row summed
     into its row in sorted order: the dense ``dtable`` of the bag and
     fused-interaction backwards (JAX's sorted ``segment_sum``), through
-    ``scatter_add_rows`` — the kernel on the card."""
+    ``scatter_add_rows`` — the kernel on the card. The ids are those a
+    forward pass read rows of, so in range."""
     out = torch.zeros((num_rows, upd.shape[1]), dtype=upd.dtype,
                       device=upd.device)
-    return scatter_add_rows(out, ids, upd, 1.0, div)
+    return scatter_add_rows(out, ids, upd, 1.0, div, ids_in_range=True)

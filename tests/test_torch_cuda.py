@@ -19,7 +19,8 @@ the card against the same step on the CPU: rtol 1e-5, atol 1e-7
 (cuBLAS and the CPU's BLAS sum the layers' products in other orders).
 The int8 MIPS top-k is held BITWISE to its plain version, scores, ids
 and tie order (an exact integer dot and the same two fp32 products on
-both sides); the quantized bag bitwise at bag 1 (1e-6 above it, where
+both sides), on its select route and its overflow route, and its
+candidate counts exactly to the CPU mirror of the selection; the quantized bag bitwise at bag 1 (1e-6 above it, where
 torch sums the bag in another order); the quantized interaction as the
 fp32 one. The two-tower heads on the card against the CPU: rtol 1e-5,
 atol 1e-6. The LSTM scan kernels against their plain versions on the
@@ -50,6 +51,7 @@ from dlrm_flexflow_tpu_torch.ops.kernels import scatter_rows as scatter_rows_mod
 from dlrm_flexflow_tpu_torch.ops.kernels.interaction import (
     fused_interaction, fused_interaction_quant,
     fused_interaction_quant_reference, fused_interaction_reference)
+from dlrm_flexflow_tpu_torch.ops.kernels import topk as topk_mod
 from dlrm_flexflow_tpu_torch.ops.kernels.topk import (
     mips_topk, mips_topk_reference, quantize_query)
 from dlrm_flexflow_tpu_torch.quant import quantize_rows
@@ -129,6 +131,98 @@ def test_topk_kernel_ties_negative_zero(cuda):
     assert torch.equal(got_i.cpu(), want_i)
     assert torch.equal(got_s.cpu().view(torch.int32),
                        want_s.view(torch.int32))
+    # +-0.0 at the select route's threshold: 40 rows of a real scale, the
+    # rest underflow to +-0.0, so the 100th chunk maximum is a zero and
+    # every zero is a candidate (about 4,000, within the buffer)
+    codes = torch.randint(-127, 128, (8000, 32), device=cuda,
+                          generator=g).to(torch.int8)
+    scales = torch.full((8000,), 1e-30, device=cuda)
+    scales[::200] = 0.5
+    qs = torch.tensor([1e-20, 1e-20], device=cuda)
+    before = mips_topk.routes["select"]
+    got_s, got_i = mips_topk(q, qs, codes, scales, 100)
+    want_s, want_i = mips_topk_reference(q.cpu(), qs.cpu(), codes.cpu(),
+                                         scales.cpu(), 100)
+    assert mips_topk.routes["select"] == before + 1
+    assert bool(((got_s == 0) & torch.signbit(got_s)).any())
+    assert torch.equal(got_i.cpu(), want_i)
+    assert torch.equal(got_s.cpu().view(torch.int32),
+                       want_s.view(torch.int32))
+
+
+@pytest.mark.parametrize("k", [1, 100, 1024])
+@pytest.mark.parametrize("R", [1, 2047, 2049, 1_000_000])
+@pytest.mark.parametrize("B", [1, 5, 64])
+def test_topk_select_route_matches_plain(cuda, B, R, k):
+    """Random codes take the select route at every shape: bitwise to the
+    plain version, with base, and each query's candidate count equal to
+    the plain mirror of the selection."""
+    _select_matches_plain(cuda, B, R, 32, k)
+
+
+@pytest.mark.parametrize("B,R,d,k", [(16, 5000, 8, 10), (17, 300_000, 96, 50),
+                                     (130, 3000, 128, 7), (20, 3000, 160, 5)])
+def test_topk_select_route_other_widths(cuda, B, R, d, k):
+    """Other widths (d = 8, 96, 128, 160: code words loaded one or four
+    at a time) and query tiles of 16 cut ragged."""
+    _select_matches_plain(cuda, B, R, d, k)
+
+
+def _select_matches_plain(cuda, B, R, d, k):
+    g = torch.Generator(device=cuda).manual_seed(B * R + k + d)
+    codes, scales = quantize_rows(
+        torch.randn(R, d, device=cuda, generator=g), "int8")
+    q, qs = quantize_query(torch.randn(B, d, device=cuda, generator=g))
+    before = (mips_topk.launches, dict(mips_topk.routes))
+    got_s, got_i = mips_topk(q, qs, codes, scales, k, base=11)
+    want_s, want_i = mips_topk_reference(q, qs, codes, scales, k, 11)
+    torch.cuda.synchronize()
+    assert mips_topk.launches == before[0] + 1
+    assert mips_topk.routes == {"select": before[1]["select"] + 1,
+                                "overflow": before[1]["overflow"]}
+    assert got_s.shape == (B, min(k, R))
+    assert torch.equal(got_i, want_i)
+    assert torch.equal(got_s.view(torch.int32), want_s.view(torch.int32))
+    _, _, counts = topk_mod.select_candidates(q, qs, codes, scales,
+                                              min(k, R))
+    _, _, want_counts = topk_mod.mips_topk_select_reference(
+        q, qs, codes, scales, k)
+    assert torch.equal(counts.long(), want_counts)
+    lib = build.load("topk", topk_mod._SIGNATURES)
+    assert lib.ff_topk_chunk_rows(R, min(k, R)) \
+        == topk_mod.chunk_rows(R, min(k, R))
+
+
+@pytest.mark.parametrize("B", [5, 64])
+@pytest.mark.parametrize("case", ["all_tied", "k_past_chunks"])
+def test_topk_overflow_route_matches_plain(cuda, case, B):
+    """Candidates past the buffer take the overflow route, bitwise the
+    same: an index whose scores all tie (every row reaches the
+    threshold), and k above the number of chunks with more rows than the
+    buffer holds (R = 20,000, k = 1,000, base = 3); B = 5 in query
+    tiles of 4, B = 64 in tiles of 16."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    R, k, base = (50_000, 100, 0) if case == "all_tied" else (20_000, 1000, 3)
+    codes, scales = quantize_rows(
+        torch.randn(R, 32, device=cuda, generator=g), "int8")
+    if case == "all_tied":
+        codes[:] = codes[0].clone()
+        scales[:] = scales[0].clone()
+    q, qs = quantize_query(torch.randn(B, 32, device=cuda, generator=g))
+    before = dict(mips_topk.routes)
+    got_s, got_i = mips_topk(q, qs, codes, scales, k, base=base)
+    want_s, want_i = mips_topk_reference(q.cpu(), qs.cpu(), codes.cpu(),
+                                         scales.cpu(), k, base)
+    assert mips_topk.routes == {"select": before["select"],
+                                "overflow": before["overflow"] + 1}
+    assert torch.equal(got_i.cpu(), want_i)
+    assert torch.equal(got_s.cpu().view(torch.int32),
+                       want_s.view(torch.int32))
+    _, _, counts = topk_mod.select_candidates(q, qs, codes, scales, k)
+    assert int(counts.max()) > topk_mod.CAP
+    lib = build.load("topk", topk_mod._SIGNATURES)
+    assert (lib.ff_topk_cap(), lib.ff_topk_scores_max()) \
+        == (topk_mod.CAP, topk_mod.SCORES_MAX)
 
 
 def test_index_on_card_is_exact(cuda):
@@ -281,6 +375,50 @@ def test_scatter_kernels_match_plain(cuda, write, n, div, ids_kind):
     assert kernel.launches == before + 1
     assert kernel.routes[route] == before_route + 1
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("write", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("n", [2048, 16385])
+def test_scatter_kernels_skip_pads(cuda, write, d, n):
+    """Pad slots (-1 and -(rows + 1)) among the ids on both pre-pass
+    routes ("block" at 2,048, "sort" at 16,385): bitwise to the plain
+    version on the CPU, the pads' rows (the last, wrapped) untouched;
+    ids past the table raise."""
+    rows = 50000
+    g = torch.Generator(device=cuda).manual_seed(n + d)
+    table = torch.randn(rows, d, device=cuda, generator=g)
+    ids = torch.randint(0, rows - 1, (n,), device=cuda, generator=g)
+    ids[:8] = ids[0].clone()
+    ids[3] = -1
+    ids[100:300] = -1
+    ids[torch.randperm(n, device=cuda, generator=g)[:n // 10]] = -(rows + 1)
+    upd = torch.randn(n, d, device=cuda, generator=g)
+    fwd = table[ids.clamp(min=0)]
+    kernel = scatter_write_rows if write else scatter_add_rows
+    route = "block" if n <= 16384 else "sort"
+    before = kernel.routes[route]
+    got = table.clone()
+    if write:
+        kernel(got, ids, upd, fwd, scale=-0.01)
+        want = scatter_write_rows_reference(
+            table.cpu(), ids.cpu(), upd.cpu(), fwd.cpu(), -0.01)
+    else:
+        kernel(got, ids, upd, scale=-0.01)
+        want = scatter_add_rows_reference(table.cpu(), ids.cpu(),
+                                          upd.cpu(), -0.01)
+    torch.cuda.synchronize()
+    assert kernel.routes[route] == before + 1
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got[-1], table[-1])
+    changed = torch.nonzero((got != table).any(1)).reshape(-1)
+    assert bool(torch.isin(changed, ids[ids >= 0]).all())
+    ids[5] = rows
+    with pytest.raises(ValueError, match="past the table"):
+        if write:
+            kernel(got, ids, upd, fwd)
+        else:
+            kernel(got, ids, upd)
 
 
 @pytest.mark.parametrize("n", [1, 2, 1000, 2048, 16384])
@@ -476,21 +614,25 @@ def _lstm_inputs(cuda, T, b, h, dtype, seed):
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("T,b,h", [(5, 8, 128), (7, 24, 136), (3, 70, 40),
                                    (40, 64, 1024), (1, 64, 128),
-                                   (6, 1, 64), (5, 96, 72), (4, 160, 64)])
+                                   (6, 1, 64), (5, 96, 72), (4, 160, 64),
+                                   (3, 129, 64), (4, 20, 44)])
 def test_lstm_kernels_match_plain(cuda, T, b, h, dtype):
     """Forward (ys, cs), backward (dzs from the same residuals) and the
     autograd Function (dxproj, dwh): small, ragged (b and h not multiples
-    of 16 rows and 8 units; b above one tile; b = 1; T = 1), the NMT
-    step's per-layer shape, and b = 160, which the resident backward
-    does not take. The backward's route: resident for bf16 wh and
+    of 16 rows and 8 units, h = 44 loading the forward's wh slice two
+    bytes at a time; b above one tile; b = 1; T = 1), the NMT
+    step's per-layer shape, and b = 129 and 160, which the resident
+    routes do not take. Both kernels' route: resident for bf16 wh and
     b <= 128, streaming otherwise."""
     xp, wh, dys = _lstm_inputs(cuda, T, b, h, dtype, seed=T + b + h)
     tol = 4e-3 if dtype == torch.bfloat16 else 1e-5
     route = "resident" if dtype == torch.bfloat16 and b <= 128 \
         else "streaming"
     before = (lstm_mod.lstm_fwd.launches, lstm_mod.lstm_bwd.launches,
-              dict(lstm_mod.lstm_bwd.routes), lstm_mod.lstm_gates.launches)
+              dict(lstm_mod.lstm_bwd.routes), lstm_mod.lstm_gates.launches,
+              dict(lstm_mod.lstm_fwd.routes))
     ys, cs = lstm_mod.lstm_fwd(xp, wh)
+    assert lstm_mod.lstm_fwd.routes[route] == before[4][route] + 1
     ys_r, cs_r = lstm_mod.lstm_fwd_reference(xp, wh)
     dzs = lstm_mod.lstm_bwd(xp, wh, ys_r, cs_r, dys)
     dzs_r = lstm_mod.lstm_bwd_reference(xp, wh, ys_r, cs_r, dys)
@@ -533,6 +675,26 @@ def test_lstm_grid_that_cannot_be_resident_raises(cuda):
     # a grid smaller than the groups of units: each block takes several
     ys1, _ = lstm_mod.lstm_fwd(xp, wh, grid=1)
     torch.testing.assert_close(ys1, ys, rtol=0, atol=4e-3)
+
+
+def test_lstm_forward_grid_that_cannot_be_resident_raises(cuda):
+    """Each forward route refuses a grid past its kernel's capacity and
+    the wrapper raises, counting no launch; a grid with fewer blocks
+    than groups takes the streaming route."""
+    xp, wh, _ = _lstm_inputs(cuda, 4, 8, 64, torch.bfloat16, seed=2)
+    before = (lstm_mod.lstm_fwd.launches, dict(lstm_mod.lstm_fwd.routes))
+    for kernel, w in (("fwd_resident", wh), ("fwd", wh.float())):
+        with pytest.raises(RuntimeError, match="lstm_fwd kernel"):
+            lstm_mod.lstm_fwd(xp, w, grid=lstm_mod.capacity(
+                kernel, w.dtype, 64) + 1)
+    assert (lstm_mod.lstm_fwd.launches, lstm_mod.lstm_fwd.routes) == before
+    lstm_mod.lstm_fwd(xp, wh, grid=7)        # 8 groups of units
+    assert lstm_mod.lstm_fwd.routes["streaming"] \
+        == before[1]["streaming"] + 1
+    lib = lstm_mod._lib()
+    for h in (5, 40, 136, 1024, 3296, 3312):
+        assert lib.ff_lstm_fwd_resident_smem(h) \
+            == lstm_mod.fwd_resident_smem(h)
 
 
 def test_lstm_gate_phase_and_resident_limits(cuda):

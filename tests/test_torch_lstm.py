@@ -183,6 +183,38 @@ def test_resident_shared_memory():
         < plstm.resident_smem(3600)
 
 
+@pytest.mark.parametrize("b,h,dtype,blocks,route", [
+    (64, 1024, torch.bfloat16, 132, "resident"),    # the NMT layer
+    (64, 1024, torch.float32, 132, "streaming"),    # fp32 wh: scalar FMAs
+    (24, 136, torch.bfloat16, 132, "resident"),     # ragged
+    (128, 64, torch.bfloat16, 132, "resident"),     # 4 rows a thread
+    (129, 64, torch.bfloat16, 132, "streaming"),    # a fifth row
+    (1, 8, torch.bfloat16, 1, "resident"),
+    (64, 1064, torch.bfloat16, 132, "streaming"),   # 133 groups
+    (64, 1064, torch.bfloat16, 264, "resident"),    # two blocks an SM
+    (64, 3296, torch.bfloat16, 10_000, "resident"),   # slice at 227 KB
+    (64, 3312, torch.bfloat16, 10_000, "streaming"),  # slice past it
+])
+def test_forward_route_by_shape(b, h, dtype, blocks, route):
+    assert plstm.fwd_route(b, h, dtype, blocks) == route
+
+
+def test_forward_resident_shared_memory():
+    # 32 columns of h bf16 padded by 4 words, and 8 tiles of 16 x 40 fp32
+    assert plstm.fwd_resident_smem(1024) \
+        == 32 * (512 + 4) * 4 + 8 * 16 * 40 * 4 == 86_528
+    assert plstm.fwd_resident_smem(5) == 32 * (8 + 4) * 4 + 20_480
+    assert plstm.fwd_resident_smem(3296) <= plstm.SMEM_LIMIT \
+        < plstm.fwd_resident_smem(3312)
+
+
+def test_forward_on_cpu_counts_no_route():
+    xp, _, tw, _ = _inputs(3, 4, 16, True, seed=4)
+    before = dict(plstm.lstm_fwd.routes)
+    plstm.lstm_fwd(torch.from_numpy(xp), tw)
+    assert plstm.lstm_fwd.routes == before
+
+
 def test_scan_on_cpu_is_the_plain_version_and_counts_nothing():
     xp, _, tw, dys = _inputs(3, 4, 16, False, seed=2)
     before = (plstm.lstm_fwd.launches, plstm.lstm_bwd.launches)

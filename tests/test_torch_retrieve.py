@@ -53,6 +53,7 @@ import dlrm_flexflow_tpu_torch as pt
 from dlrm_flexflow_tpu_torch.models.dlrm import (DLRMConfig, build_dlrm,
                                                  synthetic_batch)
 from dlrm_flexflow_tpu_torch.ops.kernels import build
+from dlrm_flexflow_tpu_torch.ops.kernels import topk as topk_mod
 from dlrm_flexflow_tpu_torch.ops.kernels.topk import (
     mips_topk, mips_topk_reference, quantize_query)
 from dlrm_flexflow_tpu_torch.retrieve import (
@@ -321,6 +322,93 @@ class TestMergeExactness:
         finally:
             sys.setswitchinterval(old)
         assert wrapper.launches == 16 * 2000
+
+
+# ---------------------------------------------------------------------
+# the card's select-then-sort, mirrored in plain PyTorch
+# ---------------------------------------------------------------------
+def _select_case(kind, R, d=32, B=5, seed=0):
+    """Item codes whose scores are random, all tied (one row repeated),
+    or Zipf-skewed (rows drawn from 64 distinct ones by a Zipf law, so
+    hot scores repeat many times)."""
+    rng = np.random.RandomState(seed)
+    if kind == "random":
+        items = rng.randn(R, d)
+    elif kind == "tied":
+        items = np.tile(rng.randn(1, d), (R, 1))
+    else:
+        items = rng.randn(64, d)[np.minimum(rng.zipf(1.3, R) - 1, 63)]
+    codes, scales = jax_quantize_query(items.astype(np.float32))
+    q_codes, q_scales = jax_quantize_query(
+        rng.randn(B, d).astype(np.float32))
+    return q_codes, q_scales, codes, scales
+
+
+class TestSelect:
+    @pytest.mark.parametrize("kind", ["random", "tied", "zipf"])
+    @pytest.mark.parametrize("R,k,base", [
+        (20_000, 1, 0), (20_000, 100, 0), (20_000, 1000, 3),
+        (2047, 100, 0), (2049, 100, 7), (37, 100, 0), (1, 1, 0)])
+    def test_selection_matches_jax_oracle(self, kind, R, k, base):
+        """Chunk maxima -> threshold -> candidates -> sort equals the JAX
+        oracle bitwise: at least k rows reach the threshold."""
+        q_codes, q_scales, codes, scales = _select_case(kind, R, seed=R + k)
+        rs, ri = jax_mips_topk_reference(q_codes, q_scales, codes, scales,
+                                         k, base)
+        got_s, got_i, counts = topk_mod.mips_topk_select_reference(
+            *_t(q_codes, q_scales, codes, scales), k, base)
+        _equal_bits(got_s.numpy(), got_i.numpy(), rs, ri)
+        kk = min(k, R)
+        assert bool((counts >= kk).all())
+        if kind == "tied":          # every row reaches the threshold
+            assert bool((counts == R).all())
+
+    def test_random_scores_keep_few_candidates(self):
+        """At the cascade's shape cut to 200k rows: k = 100 keeps a
+        little more than k rows a query, far below the buffer."""
+        q_codes, q_scales, codes, scales = _select_case("random", 200_000,
+                                                        B=3)
+        _, _, counts = topk_mod.mips_topk_select_reference(
+            *_t(q_codes, q_scales, codes, scales), 100)
+        assert bool((counts >= 100).all()) and int(counts.max()) < 200
+
+    def test_negative_zero_threshold(self):
+        """Scores of +-0.0 at the threshold: both reach it, and the
+        order ties them as the oracle does."""
+        rng = np.random.RandomState(4)
+        codes = rng.randint(-127, 128, size=(4096, 32)).astype(np.int8)
+        scales = np.full(4096, 1e-30, np.float32)
+        scales[::5] = 0.5
+        q_codes = rng.randint(-127, 128, size=(3, 32)).astype(np.int8)
+        q_scales = np.asarray([1e-20, 1e-20, 1e-20], np.float32)
+        for k in (1, 100, 1000):
+            rs, ri = jax_mips_topk_reference(q_codes, q_scales, codes,
+                                             scales, k)
+            got_s, got_i, counts = topk_mod.mips_topk_select_reference(
+                *_t(q_codes, q_scales, codes, scales), k)
+            _equal_bits(got_s.numpy(), got_i.numpy(), rs, ri)
+        assert (np.signbit(rs) & (rs == 0)).any()
+
+    @pytest.mark.parametrize("R,k,c", [
+        (1_000_000, 100, 2048), (1_000_000, 1, 2048), (1_000_000, 1024, 128),
+        (20_000, 1000, 32), (20_000, 100, 32), (2049, 1, 512), (1, 1, 32)])
+    def test_chunk_rows(self, R, k, c):
+        assert topk_mod.chunk_rows(R, k) == c
+
+    def test_threshold_is_minus_inf_below_k_chunks(self):
+        scores = torch.randn(2, 100)
+        assert torch.equal(topk_mod.select_threshold(scores, 50),
+                           torch.full((2,), float("-inf")))
+        thr = topk_mod.select_threshold(scores, 2)    # 4 chunks of 32
+        maxima = torch.cat([scores, torch.full((2, 28), float("-inf"))],
+                           1).view(2, 4, 32).amax(2)
+        assert torch.equal(thr, maxima.sort(1, descending=True).values[:, 1])
+
+    def test_cpu_call_counts_no_route(self):
+        q_codes, q_scales, codes, scales = _select_case("random", 500)
+        before = dict(mips_topk.routes)
+        mips_topk(*_t(q_codes, q_scales, codes, scales), 10)
+        assert mips_topk.routes == before
 
 
 # ---------------------------------------------------------------------

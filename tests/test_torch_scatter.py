@@ -20,6 +20,12 @@ and each row's first lookup its segment (start in that order, lookup
 count), on hypothesis-drawn ids with heavy duplicates; the segments the
 torch.sort route derives above the kernel's limit must equal it.
 
+Pad slots: a negative row id (-1, or -(rows + 1)) is skipped, as the
+Pallas kernels' ``@pl.when(row >= 0)`` skips it. With pads among the
+ids, at d=64 and d=128, the port's scatters change exactly the rows the
+Pallas kernels change, bitwise; the pre-pass keys pads after every real
+row and gives them no segment, on both routes; ids >= rows raise.
+
 The backwards of the two ported kernels must match ``jax.vjp`` of the
 JAX custom VJPs in interpret mode at d=128 (the Pallas forward's
 width): the bag's dtable bitwise (the same sorted segment-sum), the
@@ -258,3 +264,115 @@ def test_scatter_on_cpu_counts_no_route():
     scatter_write_rows(t, torch.from_numpy(ids), torch.from_numpy(upd),
                        t[torch.from_numpy(ids)].clone())
     assert (scatter_add_rows.routes, scatter_write_rows.routes) == before
+
+
+def _pad_case(d, seed):
+    """A table of width d and 300 lookups with duplicates, a run of -1
+    pads and -(rows + 1) pads among them (some between duplicates)."""
+    rng = np.random.RandomState(seed)
+    table = rng.randn(ROWS, d).astype(np.float32)
+    # the last row is never looked up: an id of -1 that wrapped would
+    # change it
+    ids = rng.randint(0, ROWS - 1, size=300)
+    ids[:8] = ids[0]
+    ids[3] = -1
+    ids[20:40] = -1
+    ids[rng.choice(300, 25, replace=False)] = -(ROWS + 1)
+    upd = rng.randn(300, d).astype(np.float32)
+    return table, ids, upd
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_add_rows_skips_pads_as_the_pallas_kernel(d):
+    table, ids, upd = _pad_case(d, d)
+    want = np.asarray(jax_scatter_add(
+        jnp.asarray(table), jnp.asarray(ids, jnp.int32),
+        jnp.asarray(_jax_scaled(upd)), interpret=True))
+    got = scatter_add_rows(torch.from_numpy(table.copy()),
+                           torch.from_numpy(ids.astype(np.int64)),
+                           torch.from_numpy(upd), scale=-LR)
+    np.testing.assert_array_equal(got.numpy(), want)
+    changed = np.flatnonzero((got.numpy() != table).any(1))
+    assert set(changed) <= set(ids[ids >= 0]) and ROWS - 1 not in changed
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_write_rows_skips_pads_as_the_pallas_kernel(d):
+    table, ids, upd = _pad_case(d, d + 1)
+    per = 128 // d
+    view = table.reshape(ROWS // per, 128)
+    want = np.asarray(jax_scatter_write(
+        jnp.asarray(view), jnp.asarray(ids, jnp.int32),
+        jnp.asarray(_jax_scaled(upd)),
+        jnp.asarray(view[np.maximum(ids, 0) // per]), d,
+        interpret=True)).reshape(ROWS, d)
+    t = torch.from_numpy(table.copy())
+    fwd = t[torch.from_numpy(np.maximum(ids, 0))].clone()
+    got = scatter_write_rows(t, torch.from_numpy(ids.astype(np.int64)),
+                             torch.from_numpy(upd), fwd, scale=-LR)
+    np.testing.assert_array_equal(got.numpy(), want)
+    changed = np.flatnonzero((got.numpy() != table).any(1))
+    assert set(changed) <= set(ids[ids >= 0]) and ROWS - 1 not in changed
+
+
+def test_only_pads_change_nothing():
+    table, _, upd = _case(16, 11)
+    t = torch.from_numpy(table.copy())
+    ids = torch.tensor([-1] * 8 + [-(ROWS + 1)] * 8)
+    scatter_add_rows(t, ids, torch.from_numpy(upd), scale=-LR)
+    scatter_write_rows(t, ids, torch.from_numpy(upd), torch.zeros(16, D))
+    assert torch.equal(t, torch.from_numpy(table))
+
+
+@pytest.mark.parametrize("write", [False, True])
+@pytest.mark.parametrize("bad", [ROWS, ROWS + 7, 2 ** 40])
+def test_ids_past_the_table_raise(write, bad):
+    table, ids, upd = _case(64, 12)
+    ids[5] = bad
+    t = torch.from_numpy(table.copy())
+    args = (t, torch.from_numpy(ids), torch.from_numpy(upd))
+    with pytest.raises(ValueError, match="past the table"):
+        if write:
+            scatter_write_rows(*args, torch.zeros(64, D))
+        else:
+            scatter_add_rows(*args)
+    assert torch.equal(t, torch.from_numpy(table))
+
+
+_PADDED_IDS = st.lists(st.one_of(st.integers(0, 5), st.integers(-9, -1),
+                                 st.just(-(2 ** 40))),
+                       min_size=1, max_size=200)
+
+
+@settings(max_examples=60, deadline=None, derandomize=True, database=None)
+@given(ids=_PADDED_IDS, chunk=st.sampled_from([1, 7, 1024]))
+def test_presort_puts_pads_last_without_a_segment(ids, chunk):
+    """The pads' keys sort after every real row; the real lookups' order
+    and segments are those of the ids without the pads."""
+    t = torch.tensor(ids, dtype=torch.int64)
+    order, seg = sr.presort_reference(t, chunk=chunk)
+    real = torch.nonzero(t >= 0).reshape(-1)
+    npad = len(ids) - real.numel()
+    want = torch.cat([real[torch.sort(t[real], stable=True).indices],
+                      torch.nonzero(t < 0).reshape(-1)])
+    assert torch.equal(order.long(), want)
+    assert bool((seg[t < 0] == torch.tensor([-1, 0], dtype=torch.int32))
+                .all())
+    if real.numel():
+        sub = sr.presort_reference(t[real])[1]
+        assert torch.equal(seg[real], sub)
+    assert int((seg[:, 0] >= 0).sum()) == len(set(i for i in ids if i >= 0))
+    assert npad == int((t < 0).sum())
+
+
+@settings(max_examples=40, deadline=None, derandomize=True, database=None)
+@given(ids=_PADDED_IDS)
+def test_sort_route_keys_pads_as_the_pre_pass(ids):
+    t = torch.tensor(ids, dtype=torch.int64)
+    pads = t < 0
+    key = torch.where(pads, sr.PAD_KEY32, t).to(torch.int32)
+    s, order = torch.sort(key, stable=True)
+    seg = sr._segments(s, order.to(torch.int32), pads[order])
+    want_order, want_seg = sr.presort_reference(t)
+    assert torch.equal(order.to(torch.int32), want_order)
+    assert torch.equal(seg, want_seg)
