@@ -79,7 +79,13 @@ Phases:
    Otherwise the trace only splits a time into kernels (the scatter
    kernel against its sort, the top-k kernel's passes, the top kernels
    of a step), and prints "not measured" where it cannot. The bag and the interaction at the serving shape
-   (B=2048, T=8, bag=1, d=64, 8M-row table; H=1024); the two scatter
+   (B=2048, T=8, bag=1, d=64, 8M-row table; H=1024), then each at the
+   shapes its paths launch it at, every one held to its plain version
+   and timed beside its bound, its plain version and (the bag)
+   ``F.embedding_bag``, one JSON line ``{"shapes": [...]}``: the
+   interaction at B = 16, 64, 256 and 2,048, the bag at n = 64, d = 8
+   over 8 x 1M-row tables (the cascade's user head), n = 2,048 and
+   16,384 at d = 64 ("cat" training, a full bucket); the two scatter
    kernels and their pre-pass on the same table at the training step's
    n = 2,048 lookups, in uniform ids (the first 8 equal), all ids equal
    and Zipf-skewed ids, and at n = 16,384, held bitwise to their plain
@@ -122,6 +128,11 @@ Phases:
 The last two lines are a JSON object with every kernel's numbers and
 ``{"ok": true, "device": {...}}``. Without a GPU, or when any check
 fails, the script exits non-zero and prints no result.
+
+``python3 chip_smoke.py --shapes`` runs only the per-shape timings of
+the bag and the interaction (phase 5's ``{"shapes": [...]}``), with the
+package of the directory the script lies in: a copy of the script placed
+at the root of another tree of the port times that tree's kernels.
 """
 
 import json
@@ -343,6 +354,105 @@ def stacked_ids(gen, batch, dev):
     return ids + (torch.arange(T, device=dev) * ROWS)[None, :, None]
 
 
+# the shapes the paths launch the bag and the interaction at: serving
+# pads a batch to a power of two up to 256 and "dot" trains at 256; the
+# cascade's user head looks up 64 rows at d = 8 in each of 8 1M-row
+# tables, "cat" trains at 2,048 rows and a full bucket gathers 16,384
+INTER_BATCHES = (16, 64, 256, 2048)
+BAG_SHAPES = ((64, 8, "cascade user table"), (2048, 64, "\"cat\" step"),
+              (16384, 64, "full bucket"))
+
+
+def interaction_args(gen, dev, batch, d=D, h=H):
+    """Bottom rows, weight and bias of the first top layer (Glorot
+    uniform, as the model initialises it) for a batch of `batch`."""
+    P = (T + 1) * T // 2
+    bottom = torch.rand(batch, d, device=dev, generator=gen)
+    lim = (6.0 / (d + P + h)) ** 0.5
+    w = (torch.rand(d + P, h, device=dev, generator=gen) * 2 - 1) * lim
+    bias = 0.01 * torch.randn(h, device=dev, generator=gen)
+    return bottom, w, bias
+
+
+def interaction_bound(batch, d=D, h=H, row_bytes=D * 4, ops_per_row=0):
+    """bound() of one fused interaction call: the gathered rows and ids,
+    the bottom rows, W, bias and the output against the dots' and the
+    layer's fp32 operations."""
+    P = (T + 1) * T // 2
+    return bound(batch * T * BAG * (row_bytes + 8) + batch * d * 4
+                 + (d + P) * h * 4 + h * 4 + batch * h * 4,
+                 batch * T * BAG * ops_per_row
+                 + batch * (2 * P * d + 2 * (d + P) * h))
+
+
+def shape_phase(dev, gen, table):
+    """The bag and the interaction at each shape their paths launch
+    them at, each held to its plain version on the same inputs and
+    timed beside its bound, the plain version and (for the bag)
+    F.embedding_bag. Returns one row per shape."""
+    out = []
+    for batch in INTER_BATCHES:
+        id_sets = [stacked_ids(gen, batch, dev) for _ in range(ID_SETS)]
+        bottom, w, bias = interaction_args(gen, dev, batch)
+        got = inter_mod.fused_interaction(table, id_sets[0], bottom, w, bias)
+        want = inter_mod.fused_interaction_reference(table, id_sets[0],
+                                                     bottom, w, bias)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
+              f"fused_interaction disagrees with its plain version at "
+              f"B={batch}: {err}")
+        b_ms, b_by = interaction_bound(batch)
+        args = [(i,) for i in id_sets]
+        out.append({
+            "name": "fused_interaction", "shape": f"B={batch}",
+            "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+            **timed("", lambda i: inter_mod.fused_interaction(
+                table, i, bottom, w, bias), args),
+            **timed("plain_", lambda i: inter_mod.fused_interaction_reference(
+                table, i, bottom, w, bias), args),
+            "library_ms": None, "library_call_ms": None})
+        print_row(out[-1], f" at B={batch}")
+    print("  (the trace holds one fused kernel a call and cannot split it "
+          "into gather, dots and layer: tools/kernel_probe.py times "
+          "the kernel cut after each phase)")
+    user_tables = None
+    for n, d, what in BAG_SHAPES:
+        if d == D:
+            tab, nrows = table, T * ROWS
+        else:
+            if user_tables is None:
+                user_tables = torch.randn(T * ROWS, d, device=dev,
+                                          generator=gen)
+            tab, nrows = user_tables, ROWS
+        # each call looks up one table's rows, cycling the 8 tables
+        args = [(torch.randint(0, nrows, (n, BAG), device=dev, generator=gen)
+                 + (s % T) * ROWS * (d != D),) for s in range(ID_SETS)]
+        got = bag_mod.embedding_bag(tab, args[0][0], "sum")
+        want = bag_mod.embedding_bag_reference(tab, args[0][0], "sum")
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(torch.allclose(got, want, rtol=1e-6, atol=1e-6),
+              f"embedding_bag disagrees with its plain version at n={n}, "
+              f"d={d}: {err}")
+        b_ms, b_by = bound(n * BAG * d * 4 + n * d * 4 + n * BAG * 8,
+                           n * BAG * d)
+        out.append({
+            "name": "embedding_bag", "shape": f"n={n} d={d} ({what})",
+            "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+            **timed("", lambda i: bag_mod.embedding_bag(tab, i, "sum"), args),
+            **timed("plain_", lambda i: bag_mod.embedding_bag_reference(
+                tab, i, "sum"), args),
+            **timed("library_", lambda i: torch.nn.functional.embedding_bag(
+                i, tab, mode="sum"), args)})
+        print_row(out[-1], f" at n={n}, d={d} ({what})")
+    del user_tables
+    keys = ("name", "shape", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "max_abs_err")
+    print(json.dumps({"shapes": [{k: r[k] for k in keys} for r in out]}))
+    return out
+
+
 def kernel_phase(dev):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     table = 0.5 * torch.randn(T * ROWS, D, device=dev, generator=gen)
@@ -375,11 +485,7 @@ def kernel_phase(dev):
     }
 
     # -- kernel 2: fused gather -> X·Xᵀ -> tril -> first top layer -----
-    P = (T + 1) * T // 2
-    bottom = torch.rand(B, D, device=dev, generator=gen)
-    lim = (6.0 / (D + P + H)) ** 0.5
-    w = (torch.rand(D + P, H, device=dev, generator=gen) * 2 - 1) * lim
-    bias = 0.01 * torch.randn(H, device=dev, generator=gen)
+    bottom, w, bias = interaction_args(gen, dev, B)
     got = inter_mod.fused_interaction(table, id_sets[0], bottom, w, bias)
     want = inter_mod.fused_interaction_reference(table, id_sets[0], bottom,
                                                  w, bias)
@@ -389,10 +495,7 @@ def kernel_phase(dev):
     check(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
           f"fused_interaction kernel disagrees with its plain version: "
           f"{err}")
-    b_ms, b_by = bound(
-        B * T * BAG * (D * 4 + 8) + B * D * 4 + (D + P) * H * 4 + H * 4
-        + B * H * 4,
-        B * (2 * P * D + 2 * (D + P) * H))
+    b_ms, b_by = interaction_bound(B)
     args = [(i,) for i in id_sets]
     rows["fused_interaction"] = {
         "name": "fused_interaction", "route": "cuda",
@@ -409,6 +512,7 @@ def kernel_phase(dev):
         print_row(r)
     rows.update(quant_kernels(dev, gen, table, id_sets, bottom, w, bias))
     rows.update(scatter_kernels(dev, gen, table))
+    shape_phase(dev, gen, table)
     return rows
 
 
@@ -459,11 +563,7 @@ def quant_kernels(dev, gen, table, id_sets, bottom, w, bias):
     check(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
           f"fused_interaction_quant kernel disagrees with its plain "
           f"version: {err}")
-    P = (T + 1) * T // 2
-    b_ms, b_by = bound(
-        B * T * BAG * (D + 4 + 8) + B * D * 4 + (D + P) * H * 4 + H * 4
-        + B * H * 4,
-        B * T * BAG * 2 * D + B * (2 * P * D + 2 * (D + P) * H))
+    b_ms, b_by = interaction_bound(B, row_bytes=D + 4, ops_per_row=2 * D)
     args = [(i,) for i in id_sets]
     r = {"name": "fused_interaction_quant", "route": "cuda",
          "source": src + "interaction.cu",
@@ -1763,6 +1863,13 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
 
+    if sys.argv[1:] == ["--shapes"]:
+        # only the bag and the interaction at their paths' shapes: what
+        # the same script times on another tree of the port
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        table = 0.5 * torch.randn(T * ROWS, D, device=dev, generator=gen)
+        shape_phase(dev, gen, table)
+        return 0
     t0 = time.perf_counter()
     logs = build.build_all()
     print(f"build: {len(logs)} kernel sources in "

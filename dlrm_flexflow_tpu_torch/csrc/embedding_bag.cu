@@ -24,10 +24,22 @@
 // Design: one thread per 16-byte column chunk of an output row, so the
 // d/4 neighbouring threads of a row load the row's d*4 bytes as float4s
 // on neighbouring addresses (one 256-byte row at d=64 is 16 lanes, two
-// rows per warp). The TPU kernel's deep DMA pipeline has no counterpart:
+// rows per warp). A call that reads 2 MB of rows or more reads them with
+// non-allocating loads (ld.global.nc.L1::no_allocate: each is used
+// once), a smaller one through L1 (__ldg), which measured faster at the
+// "cat" step's n = 2,048 and slower at a full bucket's 16,384. The grid
+// is at most the blocks the card holds at once (8 of 256 threads an SM),
+// so up to 2^18 chunks (n = 16,896 at d = 64) every thread takes one
+// chunk and all of the call's row loads are in flight together; a larger
+// call loops. The TPU kernel's deep DMA pipeline has no counterpart:
 // many warps in flight on each SM hide the latency of the random row
-// reads. Unlike the TPU kernel, which needs d % 128 == 0, any d that is
-// a multiple of 4 works.
+// reads.
+// Measured on an H100 at the paths' shapes (n = 64 at d = 8, n = 2,048
+// and 16,384 at d = 64), handing ids out by warp shuffles, 2 to 8 chunks
+// a thread in flight and streaming stores (st.global.cs) were each
+// slower.
+// Unlike the TPU kernel, which needs d % 128 == 0, any d that is a
+// multiple of 4 works.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -37,6 +49,36 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kBlocksPerSm = 8;  // resident blocks an SM: the grid's cap
+// rows read by a call from which they are read without allocating in L1
+constexpr long long kStreamBytes = 2 << 20;
+
+// Column chunk c of row r, as load_row4 (quant_rows.cuh) computes it;
+// with kStream read without allocating in L1.
+template <int kMode, bool kStream>
+__device__ __forceinline__ float4 stream_row4(const void* __restrict__ table,
+                                              const float* __restrict__ scales,
+                                              int64_t r, int vec, int c) {
+  if constexpr (!kStream) {
+    return load_row4<kMode>(table, scales, r, vec, c);
+  } else if constexpr (kMode == kF32) {
+    const float4* p = static_cast<const float4*>(table) + r * vec + c;
+    float4 v;
+    asm("ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];"
+        : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+        : "l"(p));
+    return v;
+  } else {
+    const unsigned* p = static_cast<const unsigned*>(table) + r * vec + c;
+    unsigned u;
+    asm("ld.global.nc.L1::no_allocate.u32 %0, [%1];" : "=r"(u) : "l"(p));
+    const float s = __ldg(scales + r);
+    return make_float4(__fmul_rn(code_to_float<kMode>(u & 0xff), s),
+                       __fmul_rn(code_to_float<kMode>((u >> 8) & 0xff), s),
+                       __fmul_rn(code_to_float<kMode>((u >> 16) & 0xff), s),
+                       __fmul_rn(code_to_float<kMode>(u >> 24), s));
+  }
+}
 
 // bag_kernel<kF32> is the gather described above. Its quantized twin,
 // bag_kernel<kInt8> or <kFp8>, replaces _bag_kernel_quant
@@ -51,35 +93,38 @@ constexpr int kThreads = 256;
 // row reads bag rows of d code bytes and bag 4-byte scales, and writes
 // d*4 bytes; one thread takes 4 codes (a 4-byte load). The residual
 // rows_out is fp32-only.
-template <int kMode>
+template <int kMode, bool kStream>
 __global__ void __launch_bounds__(kThreads)
 bag_kernel(const void* __restrict__ table,
            const float* __restrict__ scales,
            const int64_t* __restrict__ ids,
            float4* __restrict__ out,
            float4* __restrict__ rows_out,
-           int64_t n_out, int bag, int vec_per_row, int mean) {
-  const int64_t g = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (g >= n_out * vec_per_row) return;
-  const int64_t row = g / vec_per_row;
-  const int c = (int)(g - row * vec_per_row);
-  const int64_t* rid = ids + row * bag;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int j = 0; j < bag; ++j) {
-    const float4 v = load_row4<kMode>(table, scales, rid[j], vec_per_row, c);
-    if constexpr (kMode == kF32) {
-      if (rows_out) rows_out[(row * bag + j) * vec_per_row + c] = v;
+           int64_t n_out, int bag, int vec, int mean) {
+  const int64_t total = n_out * vec;
+  for (int64_t g = (int64_t)blockIdx.x * kThreads + threadIdx.x; g < total;
+       g += (int64_t)gridDim.x * kThreads) {
+    const int64_t row = g / vec;
+    const int c = (int)(g - row * vec);
+    const int64_t* rid = ids + row * bag;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int j = 0; j < bag; ++j) {
+      const float4 v =
+          stream_row4<kMode, kStream>(table, scales, rid[j], vec, c);
+      if constexpr (kMode == kF32) {
+        if (rows_out) rows_out[(row * bag + j) * vec + c] = v;
+      }
+      add4(acc, v);
     }
-    add4(acc, v);
+    if (mean) {
+      const float n = (float)bag;
+      acc.x /= n;
+      acc.y /= n;
+      acc.z /= n;
+      acc.w /= n;
+    }
+    out[g] = acc;
   }
-  if (mean) {
-    const float n = (float)bag;
-    acc.x /= n;
-    acc.y /= n;
-    acc.z /= n;
-    acc.w /= n;
-  }
-  out[g] = acc;
 }
 
 template <int kMode>
@@ -87,9 +132,23 @@ int launch(const void* table, const void* scales, const void* ids, void* out,
            void* rows_out, long long n_out, int bag, int dim, int mean,
            void* stream) {
   if (n_out <= 0) return 0;
+  static int sms = 0;  // the card's SM count, read once
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+  }
   const int vec = dim / 4;
-  const long long blocks = (n_out * vec + kThreads - 1) / kThreads;
-  bag_kernel<kMode><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  long long blocks = (n_out * vec + kThreads - 1) / kThreads;
+  if (blocks > (long long)sms * kBlocksPerSm)
+    blocks = (long long)sms * kBlocksPerSm;
+  const long long row_bytes = (long long)n_out * bag * dim *
+                              (kMode == kF32 ? (int)sizeof(float) : 1);
+  auto kernel = row_bytes >= kStreamBytes ? bag_kernel<kMode, true>
+                                          : bag_kernel<kMode, false>;
+  kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
       table, (const float*)scales, (const int64_t*)ids, (float4*)out,
       (float4*)rows_out, n_out, bag, vec, mean);
   return (int)cudaGetLastError();

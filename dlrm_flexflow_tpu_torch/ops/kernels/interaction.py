@@ -5,9 +5,13 @@ Replaces the Pallas TPU kernel ``_interaction_kernel``
 (dlrm_flexflow_tpu/ops/pallas/interaction_kernel.py:92) behind
 ``fused_interaction``. The CUDA source, ``csrc/interaction.cu``, states
 the kernel's bound (fp32 operations of the first layer) and its design
-(a sample tile's X and lower-triangle dots in shared memory, one output
-column per thread, the tril rows of W indexed directly instead of the
-TPU's zero-padded scatter matrix).
+(a thread-block cluster along the output columns gathers a sample
+tile's X and forms its lower-triangle dots once, in shared memory; each
+block stages its W column tile with one TMA copy and computes a
+register tile of samples x columns; the tril rows of W are indexed directly
+instead of the TPU's zero-padded scatter matrix). ``interaction_tiles``
+chooses the tiles from B and H, here in Python so that the CPU tests
+reach it.
 
 ``fused_interaction`` takes CPU tensors to the plain version
 ``fused_interaction_reference`` and launches the kernel for CUDA
@@ -34,25 +38,116 @@ one scatter, the sorted segment-sum of the rows' gradients into
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Tuple
 
 import torch
 
 from . import build
 from .scatter_rows import segment_sum_rows
 
-# the most shared memory one block may take on an H100 (227 KB)
+# the most shared memory one block may take on an H100 (227 KB), and the
+# kernel's static part of it (the W tile's mbarrier, then the dynamic part
+# 128-byte aligned)
 MAX_SMEM_BYTES = 232448
+STATIC_SMEM_BYTES = 128
+# the blocks of a portable thread-block cluster
+CLUSTER_MAX = 8
+# blocks the tiles aim for: about two on each of the H100's 132 SMs
+TARGET_BLOCKS = 256
+# samples a block takes at most
+MAX_SAMPLE_TILE = 64
+# the kernel's threads a block at most (its __launch_bounds__)
+MAX_THREADS = 512
 
 _SIGNATURES = {
     "ff_fused_interaction_forward": (
-        (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,),
+        (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 10 + (ctypes.c_void_p,),
         ctypes.c_int),
     "ff_fused_interaction_quant_forward": (
-        (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,),
+        (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 11 + (ctypes.c_void_p,),
         ctypes.c_int),
     "ff_fused_interaction_smem_bytes": (
-        (ctypes.c_int, ctypes.c_int), ctypes.c_longlong),
+        (ctypes.c_int,) * 5, ctypes.c_longlong),
+    "ff_fused_interaction_max_clusters": (
+        (ctypes.c_int,) * 8, ctypes.c_int),
 }
+
+
+class Tiles(NamedTuple):
+    """One launch of the kernel: sample tiles of ``sb`` samples by
+    column tiles of ``hc`` columns, ``ss`` samples (by 4 columns) a
+    thread in the layer, ``cl`` column tiles a cluster; ``grid``
+    (sample tiles, column tiles padded to a multiple of ``cl``),
+    ``threads`` a block and ``smem`` bytes of dynamic shared memory a
+    block."""
+    sb: int
+    hc: int
+    ss: int
+    cl: int
+    grid: Tuple[int, int]
+    threads: int
+    smem: int
+
+
+def _odd_quads(n: int) -> int:
+    """n rounded up to a multiple of 4 whose quarter is odd (the
+    kernel's padded row stride, in floats)."""
+    q = -(-n // 4)
+    return 4 * (q + 1 - q % 2)
+
+
+def interaction_smem_bytes(T: int, d: int, sb: int, hc: int, cl: int) -> int:
+    """Dynamic shared memory one block takes, as the kernel lays it
+    out: the W column tile (K rounded up to 4 rows, hc columns), the
+    tile's feat rows and X of the samples the block gathers itself."""
+    F = T + 1
+    K = d + F * (F - 1) // 2
+    return 4 * (4 * -(-K // 4) * hc + sb * _odd_quads(K)
+                + -(-sb // cl) * F * _odd_quads(d))
+
+
+def _tiles(B, H, T, d, sb, hc) -> Tiles:
+    cl = min(-(-H // hc), CLUSTER_MAX)
+    ss = min(8, max(1, sb // 2))
+    ny = -(-H // hc)
+    layer = hc // 4 * (sb // ss)
+    return Tiles(sb, hc, ss, cl, (-(-B // sb), -(-ny // cl) * cl),
+                 max(128, -(-layer // 32) * 32),
+                 interaction_smem_bytes(T, d, sb, hc, cl))
+
+
+def interaction_tiles(B: int, H: int, T: int, d: int) -> Tiles:
+    """The kernel's tiles for a batch of B, H output columns, T tables
+    and width d. Column tiles: H split over one cluster of at most 8
+    (at most 256 columns a tile, 4 at least). Sample tiles: the largest
+    power of two up to 64 that still gives about 256 blocks, so that
+    B >= 64 fills the card; each thread then keeps up to 8 samples.
+    Halves the column and then the sample tile until a block's shared
+    memory fits (the column tile while W's takes half of it or more);
+    raises ValueError when even 4 columns of 1 sample do not."""
+    if B < 1 or H < 1:
+        raise ValueError(f"interaction_tiles: B={B}, H={H}")
+    hc = min(256, 4 * -(-H // (4 * CLUSTER_MAX)))
+    ny = -(-H // hc)
+    sb = MAX_SAMPLE_TILE
+    while sb > 1 and -(-B // sb) * ny < TARGET_BLOCKS:
+        sb //= 2
+    limit = MAX_SMEM_BYTES - STATIC_SMEM_BYTES
+    while True:
+        t = _tiles(B, H, T, d, sb, hc)
+        if t.smem <= limit:
+            break
+        w_tile = interaction_smem_bytes(T, d, 0, hc, t.cl)
+        if hc > 4 and (sb == 1 or 2 * w_tile >= MAX_SMEM_BYTES):
+            hc = 4 * -(-hc // 8)
+        elif sb > 1:
+            sb //= 2
+        else:
+            need = interaction_smem_bytes(T, d, 1, 4, 1) + STATIC_SMEM_BYTES
+            raise ValueError(
+                f"fused_interaction: T={T}, d={d} needs {need} B of shared "
+                f"memory per block, over {MAX_SMEM_BYTES}")
+    return t
 
 
 def tril_pairs(F: int):
@@ -169,17 +264,13 @@ def fused_interaction_quant(codes, scales, indices, bottom, w, bias,
     out = torch.empty((B, H), dtype=torch.float32, device=codes.device)
     if B == 0 or H == 0:
         return out
+    t = interaction_tiles(B, H, T, d)
     lib = build.load("interaction", _SIGNATURES)
-    smem = lib.ff_fused_interaction_smem_bytes(T, d)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"fused_interaction_quant: T={T}, d={d} needs "
-                         f"{smem} B of shared memory per block, over "
-                         f"{MAX_SMEM_BYTES}")
     err = lib.ff_fused_interaction_quant_forward(
         codes.data_ptr(), scales.data_ptr(), idx.data_ptr(),
         bottom.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
         B, T, bag, d, H, int(relu), int(codes.dtype == torch.float8_e4m3fn),
-        build.stream_of(codes))
+        t.sb, t.hc, t.ss, t.cl, build.stream_of(codes))
     build.check(lib, err, "fused_interaction_quant kernel")
     build.count_launch(fused_interaction_quant)
     return out
@@ -218,15 +309,12 @@ def fused_interaction(table, indices, bottom, w, bias,
     out = torch.empty((B, H), dtype=torch.float32, device=table.device)
     if B == 0 or H == 0:
         return out
+    t = interaction_tiles(B, H, T, d)
     lib = build.load("interaction", _SIGNATURES)
-    smem = lib.ff_fused_interaction_smem_bytes(T, d)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"fused_interaction: T={T}, d={d} needs {smem} B of "
-                         f"shared memory per block, over {MAX_SMEM_BYTES}")
     err = lib.ff_fused_interaction_forward(
         table.data_ptr(), idx.data_ptr(), bottom.data_ptr(), w.data_ptr(),
         bias.data_ptr(), out.data_ptr(), B, T, bag, d, H, int(relu),
-        build.stream_of(table))
+        t.sb, t.hc, t.ss, t.cl, build.stream_of(table))
     build.check(lib, err, "fused_interaction kernel")
     build.count_launch(fused_interaction)
     return out

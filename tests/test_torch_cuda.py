@@ -336,6 +336,154 @@ def test_bag_kernel_returns_the_gathered_rows(cuda):
                                rtol=1e-6, atol=1e-6)
 
 
+# the shapes the paths launch the bag at (the cascade's user tables at
+# n = 64, d = 8; the "cat" step at n = 2,048), an n that is not a
+# multiple of the rows a warp owns (8 at d = 64, 32 at d = 8), rows
+# wider than a warp (d = 132) and bags of 3
+BAG_EDGES = [(64, 1, 8), (2048, 1, 64), (1001, 1, 64), (77, 1, 8),
+             (33, 3, 8), (300, 3, 132), (16385, 1, 64), (1, 40, 16)]
+
+
+def _bag_order_sum(rows, aggr):
+    """The kernels' arithmetic on (n, bag, d) rows: 0 plus each row in
+    bag order, each add rounded, then the mean's one division. Bitwise
+    at any bag, where torch's own sum (the plain versions) takes another
+    order and the stated 1e-6 holds only for short bags."""
+    acc = torch.zeros_like(rows[:, 0])
+    for j in range(rows.shape[1]):
+        acc = acc + rows[:, j]
+    # a tensor divisor: torch may multiply by the reciprocal of a scalar
+    return acc / torch.full_like(acc, rows.shape[1]) if aggr == "avg" \
+        else acc
+
+
+@pytest.mark.parametrize("aggr", ["sum", "avg"])
+@pytest.mark.parametrize("n,bag,d", BAG_EDGES)
+def test_bag_kernel_edges_return_the_gathered_rows(cuda, aggr, n, bag, d):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    table = torch.randn(50000, d, device=cuda, generator=g)
+    ids = torch.randint(0, 50000, (n, bag), device=cuda, generator=g)
+    before = embedding_bag.launches
+    out, rows = embedding_bag(table, ids, aggr, return_rows=True)
+    alone = embedding_bag(table, ids, aggr)
+    torch.cuda.synchronize()
+    assert embedding_bag.launches == before + 2
+    assert torch.equal(rows, table[ids.reshape(-1)])
+    assert torch.equal(out, alone)
+    assert torch.equal(out, _bag_order_sum(table[ids], aggr))
+    if bag <= 3:
+        torch.testing.assert_close(
+            out, embedding_bag_reference(table, ids, aggr), rtol=1e-6,
+            atol=1e-6)
+
+
+@pytest.mark.parametrize("dt", ["int8", "fp8"])
+@pytest.mark.parametrize("n,bag,d", BAG_EDGES)
+def test_bag_quant_kernel_edges(cuda, dt, n, bag, d):
+    g = torch.Generator(device=cuda).manual_seed(8)
+    codes, scales = quantize_rows(
+        torch.randn(50000, d, device=cuda, generator=g), dt)
+    ids = torch.randint(0, 50000, (n, bag), device=cuda, generator=g)
+    got = embedding_bag_quant(codes, scales, ids, "sum")
+    torch.cuda.synchronize()
+    want = embedding_bag_quant_reference(codes, scales, ids, "sum")
+    rows = codes.view(torch.uint8)[ids].view(codes.dtype).float() \
+        * scales[ids][..., None]
+    assert torch.equal(got, _bag_order_sum(rows, "sum"))
+    if bag == 1:
+        assert torch.equal(got, want)
+    elif bag <= 3:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+def _interaction_inputs(cuda, seed, batch, T, bag, d, H):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    rows = 500
+    P = (T + 1) * T // 2
+    table = 0.5 * torch.randn(T * rows, d, device=cuda, generator=g)
+    idx = (torch.randint(0, rows, (batch, T, bag), device=cuda, generator=g)
+           + (torch.arange(T, device=cuda) * rows)[None, :, None])
+    bottom = 0.5 * torch.randn(batch, d, device=cuda, generator=g)
+    w = torch.randn(d + P, H, device=cuda, generator=g) / (d + P) ** 0.5
+    bias = 0.1 * torch.randn(H, device=cuda, generator=g)
+    return table, idx, bottom, w, bias
+
+
+# every tile choice and edge: one sample, a batch one under and one over
+# a multiple of 16, the paths' 64 and 256; one column tile of 4 columns
+# (H = 16), column tiles of 40 with a ragged last one (H = 300), the
+# model's 1,024
+INTER_EDGES = [(b, h) for b in (1, 15, 17, 64, 256) for h in (16, 300, 1024)]
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("T,bag,d", [(8, 1, 64), (8, 3, 128)])
+@pytest.mark.parametrize("batch,H", INTER_EDGES)
+def test_interaction_kernel_tile_edges(cuda, relu, T, bag, d, batch, H):
+    from dlrm_flexflow_tpu_torch.ops.kernels.interaction import (
+        interaction_tiles)
+    table, idx, bottom, w, bias = _interaction_inputs(cuda, 9, batch, T, bag,
+                                                      d, H)
+    before = fused_interaction.launches
+    got = fused_interaction(table, idx, bottom, w, bias, relu)
+    torch.cuda.synchronize()
+    assert fused_interaction.launches == before + 1
+    torch.testing.assert_close(
+        got, fused_interaction_reference(table, idx, bottom, w, bias, relu),
+        rtol=1e-5, atol=1e-5)
+    t = interaction_tiles(batch, H, T, d)
+    assert t.grid[0] * t.sb >= batch and t.grid[1] * t.hc >= H
+
+
+@pytest.mark.parametrize("dt", ["int8", "fp8"])
+@pytest.mark.parametrize("T,bag,d", [(8, 1, 64), (8, 3, 128)])
+@pytest.mark.parametrize("batch,H", INTER_EDGES)
+def test_interaction_quant_kernel_tile_edges(cuda, dt, T, bag, d, batch, H):
+    table, idx, bottom, w, bias = _interaction_inputs(cuda, 10, batch, T,
+                                                      bag, d, H)
+    codes, scales = quantize_rows(table, dt)
+    before = fused_interaction_quant.launches
+    got = fused_interaction_quant(codes, scales, idx, bottom, w, bias)
+    torch.cuda.synchronize()
+    assert fused_interaction_quant.launches == before + 1
+    torch.testing.assert_close(
+        got, fused_interaction_quant_reference(codes, scales, idx, bottom, w,
+                                               bias),
+        rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("batch,H,T,d", [(b, h, 8, 64) for b, h in
+                                         INTER_EDGES + [(2048, 1024)]]
+                         + [(2048, 1024, 26, 128), (37, 16, 3, 128)])
+def test_interaction_tiles_fit_the_card(cuda, batch, H, T, d):
+    """The Python mirror of the kernel's shared memory equals the C
+    side's, and a cluster of the chosen tiles fits on the card."""
+    from dlrm_flexflow_tpu_torch.ops.kernels import interaction as im
+    t = im.interaction_tiles(batch, H, T, d)
+    lib = build.load("interaction", im._SIGNATURES)
+    assert lib.ff_fused_interaction_smem_bytes(T, d, t.sb, t.hc,
+                                               t.cl) == t.smem
+    assert lib.ff_fused_interaction_max_clusters(
+        batch, T, d, H, t.sb, t.hc, t.ss, t.cl) >= 1
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("batch,T,bag,d,H", [(37, 3, 2, 128, 18),
+                                             (20, 22, 1, 64, 64)])
+def test_interaction_kernel_stages_w_without_tma(cuda, relu, batch, T, bag,
+                                                 d, H):
+    """W's tile comes element by element where TMA cannot take it: rows
+    not 16-byte aligned (H % 4 != 0) and K = d + P past the 256 rows of
+    one TMA box (T = 22: K = 64 + 253)."""
+    table, idx, bottom, w, bias = _interaction_inputs(cuda, 11, batch, T,
+                                                      bag, d, H)
+    got = fused_interaction(table, idx, bottom, w, bias, relu)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got, fused_interaction_reference(table, idx, bottom, w, bias, relu),
+        rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("write", [False, True])
 @pytest.mark.parametrize("n,div,ids_kind", [
     (2048, 1, "uniform"), (16384, 1, "uniform"), (16385, 1, "uniform"),

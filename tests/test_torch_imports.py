@@ -4,8 +4,8 @@ JAX package.
 
 The test process has imported both already (tests/conftest.py imports
 the JAX package for every test), so the import check runs in a fresh
-subprocess. An AST scan of every source of the port, and of
-``chip_smoke.py``, finds no import of either. ``chip_smoke.py`` run
+subprocess. An AST scan of every source of the port, of
+``chip_smoke.py`` and of ``tools/``, finds no import of either. ``chip_smoke.py`` run
 without a GPU fails and prints no result.
 """
 
@@ -65,7 +65,8 @@ def test_import_leaves_jax_out():
 
 
 @pytest.mark.parametrize("path", sorted(
-    [p for p in PORT.rglob("*.py")] + [REPO / "chip_smoke.py"]),
+    [p for p in PORT.rglob("*.py")] + [REPO / "chip_smoke.py"]
+    + list((REPO / "tools").glob("*.py"))),
     ids=lambda p: str(p.relative_to(REPO)))
 def test_sources_import_no_jax(path):
     bad = [m for m in _imported_modules(path)
