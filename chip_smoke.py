@@ -14,25 +14,32 @@ Phases:
 3. train — the full-width ``DLRMConfig.random_benchmark()`` model in the
    "cat" graph and in the fused "dot" graph, fp32, batch 256, timed
    first, before the process's first profiler session (a session leaves
-   the host's launch path slower for the rest of the process):
+   the host's launch path slower for the rest of the process), in six
+   runs (TRAIN_RUNS): both graphs under
    ``compile(SGDOptimizer(lr=0.01), "mean_squared_error", ["mse"])``,
-   ``init_layers``, one staged ``synthetic_batch``, a few warmup steps,
-   then 20 ``train_batch_device`` steps back to back, timed as one
-   window that ends in a synchronisation, with every launch count at 0
-   just before and read just after: the write-only scatter must launch
-   on "cat" (the touched-rows update), the read-modify-write scatter on
-   "dot" (its dense table gradient), each once a step on the pre-pass
-   kernel's route after one pre-pass launch, and no plain version may
-   run. The
-   loss must be finite and fall; on "cat" a sample of untouched table
-   rows must stay bitwise. Ten steps run one at a time give a step's
+   then "cat" under ``compile()``'s default optimizer (SGD, weight decay
+   1e-4), under ``SGDOptimizer(lr=0.01, momentum=0.9,
+   weight_decay=1e-4)`` and under ``AdamOptimizer(alpha=0.001)``, and
+   "dot" under Adam. Each: ``init_layers``, one staged
+   ``synthetic_batch``, a few warmup steps, then 20
+   ``train_batch_device`` steps back to back, timed as one window that
+   ends in a synchronisation, with every launch count at 0 just before
+   and read just after: exactly one pre-pass and one scatter a step,
+   on the pre-pass kernel's route, and no other scatter: the write-only
+   scatter on "cat" under plain SGD, the stateful touched-rows update
+   (``stateful_update_rows``) on "cat" under the other optimizers, the
+   read-modify-write scatter on "dot" (its dense table gradient); no
+   plain version may run. The loss must be finite and fall; on "cat" a
+   sample of untouched table rows must stay bitwise and their rows of
+   every optimizer state slab zero. Ten steps run one at a time give a step's
    wall time alone, and a second window of 20 a second read of the
    back-to-back step (the host's speed drifts within a run); ten steps
    queued behind a spin on the device (see phase 5) give the device's
    time for a step that the host never holds back and its idle share of
    the back-to-back step, ten under the profiler its busy time and top
-   kernels, and ten traced with the host the host's top ops. One step on the card must equal the same step on the
-   CPU from the same weights and batch, at a reduced 8 × 65,536 rows
+   kernels, and ten traced with the host the host's top ops. One step on
+   the card must equal the same step on the CPU from the same weights,
+   batch and non-zero optimizer state, at a reduced 8 × 65,536 rows
    (all widths full) so the CPU copy stays small;
    then NMT at full width as benchmarks/run_zoo.py's ``bench_nmt`` trains
    it (batch 64, sequences of 40, a 32k vocabulary, 2 x 1024 encoder and
@@ -95,7 +102,12 @@ Phases:
    (ids in range, no check) and with the wrapper's range check; then pad
    slots (-1 and -(rows + 1)) among the ids on both pre-pass routes
    (n = 2,048 and 16,385), held bitwise with only the real rows changed,
-   and an id past the table raising; the quantized bag and
+   and an id past the table raising; the stateful touched-rows update
+   on the same table with state slabs of its size at n = 2,048, for
+   compile()'s default SGD, momentum with weight decay and Adam, the
+   touched rows and slab rows held bitwise to the plain version on the
+   CPU (the same alpha_t), then timed under Adam beside its bound and
+   plain version; the quantized bag and
    interaction at the serving shape over the table quantized to int8
    (the bag also in fp8), which no path calls yet; the int8 MIPS top-k
    at B=64 and B=1 over a 1M x 32 index with planted duplicate rows,
@@ -146,7 +158,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from dlrm_flexflow_tpu_torch import FFConfig, FFModel
-from dlrm_flexflow_tpu_torch.core.optimizers import SGDOptimizer
+from dlrm_flexflow_tpu_torch.core.optimizers import (AdamOptimizer,
+                                                     SGDOptimizer)
 from dlrm_flexflow_tpu_torch.models.dlrm import (DLRMConfig, build_dlrm,
                                                  synthetic_batch)
 from dlrm_flexflow_tpu_torch.models.nmt import build_nmt
@@ -185,6 +198,21 @@ ID_SETS = 20     # distinct id batches cycled while timing: 80 MB of rows,
 LR = 0.01            # the training step's SGD rate (examples/native/dlrm.py)
 TRAIN_B = 256        # per-chip training batch (bench.py)
 TRAIN_STEPS = 20
+# the training runs' optimizers: bench.py's plain SGD; compile()'s
+# default (SGD at the config's lr 0.01 with weight decay 1e-4); SGD with
+# momentum and weight decay; Adam. All but plain SGD take the stateful
+# touched-rows update on "cat" ("dot" keeps its table in the fused
+# interaction, which takes the dense update)
+TRAIN_OPTS = {
+    "sgd": lambda: SGDOptimizer(lr=LR),
+    "default": lambda: None,
+    "momentum": lambda: SGDOptimizer(lr=LR, momentum=0.9, weight_decay=1e-4),
+    "adam": lambda: AdamOptimizer(alpha=0.001),
+}
+TRAIN_RUNS = (("cat", "sgd"), ("dot", "sgd"), ("cat", "default"),
+              ("cat", "momentum"), ("cat", "adam"), ("dot", "adam"))
+# the scatter kernels a training step may launch
+SCATTERS = ("scatter_add_rows", "scatter_write_rows", "stateful_update_rows")
 CHECK_ROWS = 65_536  # rows per table of the card-versus-CPU step check
 # the retrieve -> rank cascade (examples/native/serve_dlrm.py
 # _build_cascade around random_benchmark): a 1M-item index of width 32
@@ -512,6 +540,7 @@ def kernel_phase(dev):
         print_row(r)
     rows.update(quant_kernels(dev, gen, table, id_sets, bottom, w, bias))
     rows.update(scatter_kernels(dev, gen, table))
+    rows.update(stateful_kernel(dev, gen, table))
     shape_phase(dev, gen, table)
     return rows
 
@@ -843,6 +872,87 @@ def scatter_kernels(dev, gen, table):
     return rows
 
 
+def stateful_kernel(dev, gen, table):
+    """Kernel 2's stateful entry, ``stateful_update_rows``, on the 8M-row
+    table with state slabs of its size, at the "cat" step's n = 2,048
+    lookups (uniform ids, the first 8 equal) with the forward rows as
+    the step passes them: for each stateful optimizer of the training
+    runs, the touched rows and their slab rows held bitwise to the plain
+    version run on the CPU over the same rows (the same alpha_t tensor),
+    a sample of untouched rows unchanged; then, under Adam (two slabs),
+    timed beside its bound and its plain version. No one PyTorch call
+    computes a lazy row-wise optimizer step, so it has no library
+    time."""
+    src = "dlrm_flexflow_tpu_torch/csrc/scatter_rows.cu"
+    pallas = "dlrm_flexflow_tpu/ops/pallas/embedding_kernel.py"
+    n = TRAIN_B * T * BAG
+    slabs = {k: 1e-3 * torch.rand(T * ROWS, D, device=dev, generator=gen)
+             for k in ("m", "v")}
+    sets = []
+    for _ in range(60):       # 90 MB of rows, updates and residuals
+        ids = scatter_ids(gen, dev, n, "uniform")
+        sets.append((ids, torch.randn(n, D, device=dev, generator=gen),
+                     table[ids]))
+    ids, upd, fwd = sets[0]
+    uniq, inv = torch.unique(ids, return_inverse=True)
+    m = int(uniq.numel())
+    spare = torch.randint(0, T * ROWS, (4096,), device=dev, generator=gen)
+    spare = spare[~torch.isin(spare, uniq)]
+    step = torch.tensor(4, dtype=torch.int32, device=dev)
+    err = 0.0
+    for name in ("default", "momentum", "adam"):
+        opt = TRAIN_OPTS[name]() or SGDOptimizer(lr=LR, weight_decay=1e-4)
+        p, alpha_t = opt.row_params(), opt.alpha_t(step)
+        mine = {k: slabs[k] for k in opt.sparse_slab_names()}
+        for v in mine.values():   # fresh state (momentum's v may be < 0)
+            v.uniform_(0.0, 1e-3, generator=gen)
+        # the plain version over the touched rows alone, on the CPU: a
+        # compact table whose row i is uniq[i] (a monotone renaming, so
+        # each row's lookups keep their order)
+        want = table[uniq].cpu()
+        want_s = {k: v[uniq].cpu() for k, v in mine.items()}
+        spare_rows = [t[spare].clone() for t in (table, *mine.values())]
+        scat_mod.stateful_update_rows_reference(
+            want, inv.cpu(), upd.cpu(), fwd.cpu(), want_s, p,
+            None if alpha_t is None else alpha_t.cpu())
+        scat_mod.stateful_update_rows(table, ids, upd, fwd, mine, p,
+                                      alpha_t)
+        got = [table[uniq].cpu()] + [mine[k][uniq].cpu() for k in want_s]
+        for a, b in zip(got, [want] + list(want_s.values())):
+            err = max(err, float((a - b).abs().max()))
+            check(torch.equal(a, b), f"stateful_update_rows kernel ({name}) "
+                  f"disagrees with its plain version")
+        check(all(torch.equal(t[spare], r) for t, r in
+                  zip((table, *mine.values()), spare_rows)),
+              f"stateful_update_rows kernel ({name}) changed rows it was "
+              f"not given")
+    print(f"kernel stateful_update_rows at n={n} ({m} distinct rows, the "
+          f"forward rows as residual): bitwise equal to its plain version "
+          f"on the CPU under compile()'s default SGD (weight decay), "
+          f"momentum with weight decay and Adam; untouched rows kept")
+    # Adam: the ids, the updates, per distinct row its weight (forward
+    # row) read and written and its m and v rows read and written; about
+    # 12 operations an element of a distinct row and one add a lookup's
+    opt = TRAIN_OPTS["adam"]()
+    p, alpha_t = opt.row_params(), opt.alpha_t(step)
+    b_ms, b_by = bound(n * 8 + n * D * 4 + m * D * 4 * (2 + 2 * 2),
+                       n * D + 12 * m * D)
+    r = {"name": "stateful_update_rows", "route": "cuda", "source": src,
+         "replaces": f"{pallas}:495", "max_abs_err": err,
+         "bound_ms": b_ms, "bound_by": b_by,
+         **timed("", lambda i, u, f: scat_mod.stateful_update_rows(
+             table, i, u, f, slabs, p, alpha_t, ids_in_range=True), sets),
+         **timed("plain_", lambda i, u, f:
+                 scat_mod.stateful_update_rows_reference(
+                     table, i, u, f, slabs, p, alpha_t), sets),
+         "library_ms": None, "library_call_ms": None}
+    print_row(r, f" (n={n}, Adam, forward rows as residual; library: "
+              f"none)")
+    del slabs, sets
+    torch.cuda.empty_cache()
+    return {r["name"]: r}
+
+
 def scatter_pads(dev, gen, table):
     """Pad slots among the ids (-1 and -(rows + 1), which the Pallas
     kernels skip with ``@pl.when(row >= 0)``) on both pre-pass routes,
@@ -1123,6 +1233,7 @@ def lstm_kernels(dev):
 # those with several routes, each route's in ``routes``)
 LAUNCHED = (bag_mod.embedding_bag, inter_mod.fused_interaction,
             scat_mod.scatter_add_rows, scat_mod.scatter_write_rows,
+            scat_mod.stateful_update_rows,
             scat_mod.scatter_presort, topk_mod.mips_topk,
             bag_mod.embedding_bag_quant, inter_mod.fused_interaction_quant,
             lstm_mod.lstm_fwd, lstm_mod.lstm_gates, lstm_mod.lstm_bwd)
@@ -1162,6 +1273,7 @@ class PlainCalls:
                           (inter_mod, "fused_interaction_reference"),
                           (scat_mod, "scatter_add_rows_reference"),
                           (scat_mod, "scatter_write_rows_reference"),
+                          (scat_mod, "stateful_update_rows_reference"),
                           (scat_mod, "presort_reference"),
                           (topk_mod, "mips_topk_reference"),
                           (bag_mod, "embedding_bag_quant_reference"),
@@ -1553,12 +1665,16 @@ def train_config(mode, rows=ROWS):
     return cfg
 
 
-def train_model(mode, device, rows=ROWS):
+def train_model(mode, device, rows=ROWS, opt="sgd"):
     cfg = train_config(mode, rows)
     model = FFModel(FFConfig(batch_size=TRAIN_B, seed=SEED, device=device))
     build_dlrm(model, cfg, fuse_interaction=mode == "dot")
-    model.compile(SGDOptimizer(lr=LR), "mean_squared_error", ["mse"])
+    model.compile(TRAIN_OPTS[opt](), "mean_squared_error", ["mse"])
     return model, cfg
+
+
+def train_name(mode, opt):
+    return mode if opt == "sgd" else f"{mode} ({opt})"
 
 
 def timed_steps(model, db, losses):
@@ -1631,17 +1747,18 @@ def profiled_steps(model, db, what, ntop, step_ms, host_reps=10):
     return f"{spent}; traced: " + device_share(traced, step_ms, ntop)
 
 
-def train_timed(mode):
-    """Build, stage and time the full-width model of one graph. Runs
-    before the process's first profiler session: a session leaves the
-    host's launch path slower for the rest of the process (see PERF.md),
-    and this timing is the host's. Returns the run's state for
-    ``train_report``."""
-    model, cfg = train_model(mode, "cuda")
+def train_timed(mode, opt):
+    """Build, stage and time the full-width model of one graph under one
+    of TRAIN_OPTS. Runs before the process's first profiler session: a
+    session leaves the host's launch path slower for the rest of the
+    process (see PERF.md), and this timing is the host's. Returns the
+    run's state for ``train_report``."""
+    model, cfg = train_model(mode, "cuda", opt=opt)
     model.init_layers()
     x, y = synthetic_batch(cfg, TRAIN_B, seed=SEED + 3)
     x["label"] = y
-    run = {"mode": mode, "model": model, "db": model._device_batch(x)}
+    run = {"mode": mode, "opt": opt, "model": model,
+           "db": model._device_batch(x)}
     db = run["db"]
     if mode == "cat":
         # a sample of table rows the batch never looks up
@@ -1665,28 +1782,41 @@ def train_report(run):
     step against the CPU; returns the kernels' launch counts over the
     main path's 20 steps."""
     mode, model, db = run["mode"], run["model"], run["db"]
+    opt = run["opt"]
+    what = train_name(mode, opt)
     launches, losses = run["launches"], run["losses"]
-    kernel = "scatter_add_rows" if mode == "dot" else "scatter_write_rows"
-    check(launches[kernel] > 0
+    stateful = mode == "cat" and model._stateful_sparse()
+    kernel = ("scatter_add_rows" if mode == "dot" else
+              "stateful_update_rows" if stateful else "scatter_write_rows")
+    check(launches[kernel] == TRAIN_STEPS
           and launches[f"{kernel}:block"] == launches[kernel]
-          == launches["scatter_presort"],
-          f"train {mode}: the {kernel} kernel did not launch once a step "
-          f"after the one-block pre-pass: {launches}")
+          == launches["scatter_presort"]
+          and all(launches[k] == 0 for k in SCATTERS if k != kernel),
+          f"train {what}: the {kernel} kernel did not launch once a step "
+          f"after the one-block pre-pass, alone of the scatters: "
+          f"{launches}")
     check(run["plain_calls"] == 0,
-          f"train {mode}: a plain version ran {run['plain_calls']} times")
+          f"train {what}: a plain version ran {run['plain_calls']} times")
     check(all(np.isfinite(losses)) and losses[-1] < losses[0],
-          f"train {mode}: loss {losses[0]} -> {losses[-1]}")
+          f"train {what}: loss {losses[0]} -> {losses[-1]}")
     if mode == "cat":
         table, sample, before = run.pop("untouched")
         check(sample.numel() > 4000
               and torch.equal(table[sample], before),
-              "train cat: untouched table rows changed")
+              f"train {what}: untouched table rows changed")
+        # and their optimizer state never left zero (lazy: a dense
+        # update would have moved both)
+        for k in model.optimizer.sparse_slab_names():
+            slab = model.opt_state[k]["emb_stack"]["kernel"].view(T * ROWS,
+                                                                  D)
+            check(not bool(slab[sample].any()),
+                  f"train {what}: untouched rows' {k} state moved")
 
     windows, walls = run["windows"], run["walls"]
     step_ms = float(np.mean(windows))
-    device = profiled_steps(model, db, mode, 5, step_ms)
+    device = profiled_steps(model, db, what, 5, step_ms)
     per_step = {k: v / TRAIN_STEPS for k, v in launches.items() if v}
-    print(f"train {mode}: {TRAIN_STEPS} steps back to back "
+    print(f"train {what}: {TRAIN_STEPS} steps back to back "
           f"{windows[0]:.3f} / {windows[1]:.3f} ms/step (two windows), "
           f"{TRAIN_B / step_ms * 1e3:.1f} samples/s; one step "
           f"alone {np.median(walls):.3f} ms median (min {min(walls):.3f}, "
@@ -1696,44 +1826,70 @@ def train_report(run):
     run.clear()
     del model, db
     torch.cuda.empty_cache()
-    card_vs_cpu_step(mode)
+    card_vs_cpu_step(mode, opt)
     return launches
 
 
-def card_vs_cpu_step(mode):
+def card_vs_cpu_step(mode, opt="sgd"):
     """One step on the card against the same step on the CPU, from the
-    same weights and batch, at 8 × 65,536 rows (all widths full)."""
-    gpu, cfg = train_model(mode, "cuda", CHECK_ROWS)
+    same weights, batch and (for an optimizer with state) the same
+    non-zero state, at 8 × 65,536 rows (all widths full)."""
+    what = train_name(mode, opt)
+    gpu, cfg = train_model(mode, "cuda", CHECK_ROWS, opt)
     gpu.init_layers()
-    cpu, _ = train_model(mode, "cpu", CHECK_ROWS)
+    cpu, _ = train_model(mode, "cpu", CHECK_ROWS, opt)
     cpu.swap_params({op: {n: v.cpu() for n, v in p.items()}
                      for op, p in gpu.params.items()})
+    state = gpu.optimizer.init_state(gpu.params)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    for k, sub in state.items():
+        if k == "step":
+            sub.fill_(4)
+            continue
+        for p in sub.values():
+            for v in p.values():      # v of Adam positive, as it is
+                v.copy_(1e-3 * torch.rand(v.shape, device="cuda",
+                                          generator=gen))
+    gpu.opt_state = state
+    cpu.opt_state = {k: (v.cpu() if k == "step" else
+                         {op: {n: t.cpu() for n, t in p.items()}
+                          for op, p in v.items()})
+                     for k, v in state.items()}
     init = {op: {n: v.clone() for n, v in p.items()}
             for op, p in cpu.params.items()}
+    init_state = {k: {op: {n: t.clone() for n, t in p.items()}
+                      for op, p in v.items()}
+                  for k, v in cpu.opt_state.items() if k != "step"}
     x, y = synthetic_batch(cfg, TRAIN_B, seed=SEED + 4)
     x["label"] = y
     lg = float(gpu.train_batch(x)["loss"])
     lc = float(cpu.train_batch(x)["loss"])
     check(abs(lg - lc) <= 1e-5 * abs(lc),
-          f"train {mode}: card loss {lg} vs cpu {lc}")
+          f"train {what}: card loss {lg} vs cpu {lc}")
     # cuBLAS and the CPU's BLAS sum the products in other orders; a relu
     # unit whose input lies within that rounding of 0 can take the other
     # branch on one side, which changes that unit's gradient for that
     # sample outright: each update within 10 % of its parameter's largest
     worst = 0.0
-    for op, p in cpu.params.items():
-        for n, v in p.items():
-            dc = v - init[op][n]
-            dg = gpu.params[op][n].cpu() - init[op][n]
-            scale = float(dc.abs().max())
-            check(scale > 0, f"train {mode}: {op}.{n} did not move")
-            ratio = float((dg - dc).abs().max()) / scale
-            worst = max(worst, ratio)
-            check(ratio <= 0.1, f"train {mode}: {op}.{n} update differs "
-                  f"from the CPU's by {ratio:.3g} of its largest")
-    print(f"train {mode}: card vs cpu step ({CHECK_ROWS} rows per table): "
-          f"loss {lg:.7f} / {lc:.7f}; worst update error "
-          f"{worst:.3g} of its parameter's largest update")
+    pairs = [(cpu.params, gpu.params, init, "")]
+    pairs += [(cpu.opt_state[k], gpu.opt_state[k], init_state[k], f" {k}")
+              for k in init_state]
+    for tc, tg, t0, tag in pairs:
+        for op, p in tc.items():
+            for n, v in p.items():
+                dc = v - t0[op][n]
+                dg = tg[op][n].cpu() - t0[op][n]
+                scale = float(dc.abs().max())
+                check(scale > 0, f"train {what}: {op}.{n}{tag} did not move")
+                ratio = float((dg - dc).abs().max()) / scale
+                worst = max(worst, ratio)
+                check(ratio <= 0.1, f"train {what}: {op}.{n}{tag} update "
+                      f"differs from the CPU's by {ratio:.3g} of its "
+                      f"largest")
+    print(f"train {what}: card vs cpu step ({CHECK_ROWS} rows per table"
+          f"{', from non-zero state' if init_state else ''}): loss "
+          f"{lg:.7f} / {lc:.7f}; worst update error {worst:.3g} of its "
+          f"parameter's (or state's) largest update")
     del gpu, cpu
     torch.cuda.empty_cache()
 
@@ -1881,7 +2037,7 @@ def main() -> int:
 
     # training and the cascade are timed first, before any profiler
     # session (the cascade profiles only after its timed requests)
-    runs = [train_timed(mode) for mode in ("cat", "dot")]
+    runs = [train_timed(mode, opt) for mode, opt in TRAIN_RUNS]
     nmt_run = nmt_timed()
     launches = {}
 

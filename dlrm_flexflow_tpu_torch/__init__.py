@@ -7,9 +7,10 @@ Pallas TPU kernels and are built with nvcc at first use; on CPU tensors
 every kernel wrapper runs its plain PyTorch version instead.
 
 Ported so far: the DLRM serving path (``FFModel.forward_bucket`` under
-``serve.InferenceEngine``) and the DLRM SGD training step
-(``FFModel.train_batch_device`` and ``fit``), in the "cat" and the fused
-"dot" interaction; the retrieve -> rank cascade (``retrieve``); and NMT
+``serve.InferenceEngine``) and the DLRM training step
+(``FFModel.train_batch_device`` and ``fit``) under SGD (momentum,
+nesterov, weight decay) and Adam, the tables on the lazy touched-rows
+update, in the "cat" and the fused "dot" interaction; the retrieve -> rank cascade (``retrieve``); and NMT
 LSTM seq2seq training (``models.nmt.build_nmt``).
 """
 

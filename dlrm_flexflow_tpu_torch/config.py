@@ -37,8 +37,8 @@ class FFConfig:
     batch_size: int = 64
     learning_rate: float = 0.01
     # the default optimizer's decay (compile() without an optimizer);
-    # non-zero decay makes the sparse table update stateful, which the
-    # port does not take yet (ROADMAP queue 1 item 3)
+    # non-zero decay makes the touched-rows table update stateful (lazy
+    # decay on the touched rows, ops/embedding.py sparse_opt_update)
     weight_decay: float = 0.0001
     seed: int = 0
     compute_dtype: str = "float32"     # or "bfloat16"

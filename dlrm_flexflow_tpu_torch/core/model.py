@@ -17,18 +17,20 @@ and LSTM ops launch their hand-written kernels; on the CPU they run the
 kernels' plain versions.
 
 The training step mirrors the JAX ``train_step`` (core/model.py:996-1159
-there). Under plain SGD the embedding ops that support it take the
-touched-rows update: phase A, without grad, evaluates their ancestors
-and their lookups through ``apply_with_fwd``, which keeps the gathered
-rows; phase B runs the graph with the lookups' outputs as autograd
-leaves and differentiates the loss w.r.t. the dense parameters and those
-outputs, so the tables never enter autograd; then the dense parameters
-take the optimizer's update and the tables ``sparse_sgd_update``. When
-no op takes the sparse update (the fused "dot" graph keeps its table in
-a non-sparse op; ``sparse_embedding_update=False``), phase A is empty
-and the one autograd pass covers every parameter. Parameters and
-optimizer state are updated IN PLACE, where the JAX step returns new
-arrays and donates the old ones.
+there). The embedding ops that support it take the touched-rows update:
+phase A, without grad, evaluates their ancestors and their lookups
+through ``apply_with_fwd``, which keeps the gathered rows; phase B runs
+the graph with the lookups' outputs as autograd leaves and
+differentiates the loss w.r.t. the dense parameters and those outputs,
+so the tables never enter autograd; then the tables take
+``sparse_sgd_update`` (plain SGD) or ``sparse_opt_update`` (SGD with
+momentum or weight decay, Adam: the touched rows' weights and optimizer
+state, lazily) and the dense parameters the optimizer's update. When no
+op takes the sparse update (the fused "dot" graph keeps its table in a
+non-sparse op; ``sparse_embedding_update=False``), phase A is empty and
+the one autograd pass covers every parameter. Parameters and optimizer
+state are updated IN PLACE, where the JAX step returns new arrays and
+donates the old ones.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ from ..config import FFConfig
 from . import losses as losses_mod
 from . import metrics as metrics_mod
 from .op import InputOp, Op
-from .optimizers import SGDOptimizer
+from .optimizers import AdamOptimizer, SGDOptimizer
 from .tensor import Tensor
 
 
@@ -197,9 +199,7 @@ class FFModel:
         and the loss a cross-entropy, the loss takes the Softmax's input,
         the logits, and the metrics the probabilities (as in the JAX
         package). Which ops take the touched-rows update is resolved at
-        the first training step, and a stateful optimizer over such an op
-        raises there — so a serving model compiled with the defaults
-        never does."""
+        the first training step."""
         ops = [op for op in self.ops if not isinstance(op, InputOp)]
         if not ops:
             raise ValueError("compile() needs at least one op")
@@ -378,29 +378,28 @@ class FFModel:
     # ------------------------------------------------------------------
     def _select_sparse_update_ops(self) -> List[Op]:
         """Embedding ops (``Embedding``, ``EmbeddingBagStacked``) whose
-        tables take the touched-rows update: those that support it, under
-        plain SGD (momentum 0, weight decay 0), unless
-        ``config.sparse_embedding_update`` is off. A stateful SGD
-        over such an op needs the lazy touched-rows optimizer of the JAX
-        package, which is not ported yet: it raises."""
+        tables take the touched-rows update, unless
+        ``config.sparse_embedding_update`` is off: under plain SGD
+        (momentum 0, weight decay 0) through ``sparse_sgd_update``; under
+        SGD with momentum or weight decay, or Adam, through the stateful
+        ``sparse_opt_update`` (as the JAX package's selection,
+        core/model.py:875-903 there)."""
         from ..ops.embedding import Embedding, EmbeddingBagStacked
         if not self.config.sparse_embedding_update:
             return []
         opt = self.optimizer
-        ops = [op for op in self.ops
-               if isinstance(op, (Embedding, EmbeddingBagStacked))
-               and op.supports_sparse_update()]
-        if not (ops and isinstance(opt, SGDOptimizer)):
+        if not isinstance(opt, (SGDOptimizer, AdamOptimizer)):
             return []
-        if opt.sparse_slab_names() or opt.weight_decay != 0.0:
-            raise NotImplementedError(
-                f"the touched-rows update of {[op.name for op in ops]} "
-                f"under a stateful SGD (momentum={opt.momentum}, "
-                f"weight_decay={opt.weight_decay}) is not ported yet "
-                f"(ROADMAP queue 1 item 3); compile with "
-                f"SGDOptimizer(lr=...) or pass "
-                f"FFConfig(sparse_embedding_update=False)")
-        return ops
+        return [op for op in self.ops
+                if isinstance(op, (Embedding, EmbeddingBagStacked))
+                and op.supports_sparse_update()]
+
+    def _stateful_sparse(self) -> bool:
+        """Whether the touched-rows update carries optimizer state or
+        weight decay (``sparse_opt_update``) rather than plain SGD."""
+        opt = self.optimizer
+        return bool(opt.sparse_slab_names()) or (
+            isinstance(opt, SGDOptimizer) and opt.weight_decay != 0.0)
 
     def _ancestor_op_names(self, targets) -> set:
         out: set = set()
@@ -476,12 +475,38 @@ class FFModel:
         gev = {name: next(it) for name in emb_vals}
 
         with torch.no_grad():
-            self.optimizer.update({name: self.params[name] for name in gd},
-                                  gd, self.opt_state)
+            # the state of the sparse tables is not part of the dense
+            # update: split it out, update it touched-rows only, and merge
+            # it back (in place, the split shares the merged tensors), so
+            # opt_state stays one tree of the JAX package's shape
+            slab_names = self.optimizer.sparse_slab_names()
+            dense_state, sparse_state = {}, {}
+            for k, sub in self.opt_state.items():
+                if k in slab_names:
+                    dense_state[k] = {n: v for n, v in sub.items()
+                                      if n not in sparse_names}
+                    sparse_state[k] = {n: v for n, v in sub.items()
+                                       if n in sparse_names}
+                else:
+                    dense_state[k] = sub
+            # the sparse ops first: they take the step before the dense
+            # update counts this one (Adam's alpha_t)
+            step = self.opt_state.get("step")
             for op in sparse_ops:
-                op.sparse_sgd_update(self.params[op.name], emb_xs[op.name],
-                                     gev[op.name], self.optimizer.lr,
-                                     fwd=emb_fwd[op.name])
+                if self._stateful_sparse():
+                    op.sparse_opt_update(
+                        self.params[op.name], emb_xs[op.name], gev[op.name],
+                        self.optimizer,
+                        {k: sparse_state[k][op.name]["kernel"]
+                         for k in slab_names},
+                        step, fwd=emb_fwd[op.name])
+                else:
+                    op.sparse_sgd_update(self.params[op.name],
+                                         emb_xs[op.name], gev[op.name],
+                                         self.optimizer.lr,
+                                         fwd=emb_fwd[op.name])
+            self.optimizer.update({name: self.params[name] for name in gd},
+                                  gd, dense_state)
             preds = preds.detach()
             if ("crossentropy" in self.loss_type
                     and self._preds_tensor is self._logits_tensor):

@@ -1,32 +1,79 @@
 """Optimizers (the counterpart of ``dlrm_flexflow_tpu.core.optimizers``):
-``Optimizer`` and ``SGDOptimizer`` with momentum, nesterov and weight
-decay. ``AdamOptimizer`` and the stateful touched-rows update
-(``sparse_row_update``) are not ported yet (ROADMAP queue 1 item 3).
+``SGDOptimizer`` with momentum, nesterov and weight decay, and
+``AdamOptimizer``, each with its dense ``update`` and its touched-rows
+``sparse_row_update``.
 
 State mirrors the parameters: ``{slab: {op_name: {param_name:
-tensor}}}``. Where the JAX package returns new arrays (and donates the
-old ones), ``update`` here writes the parameters and the state IN PLACE
-and returns them.
+tensor}}}``, plus Adam's int32 ``"step"`` (a 0-d tensor on the
+parameters' device), as in the JAX package. Where the JAX package
+returns new arrays (and donates the old ones), ``update`` here writes
+the parameters and the state IN PLACE and returns them.
+
+The row math lives in one place, ``ops.kernels.scatter_rows.
+row_update_reference``, in the JAX optimizers' operation order: the
+dense ``update`` runs it on whole parameters, the touched-rows kernel's
+plain version on gathered rows, and the CUDA kernel repeats it.
+``row_params()`` hands it the hyperparameters; Adam's step size alpha_t
+is computed on the device from the step (``alpha_t``), so no step waits
+for the host.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
+
+from ..ops.kernels.scatter_rows import (row_update_reference, slab_names,
+                                        sqrt_rn)
 
 
 class Optimizer:
     def init_state(self, params) -> Dict[str, Any]:
         raise NotImplementedError
 
+    def row_params(self) -> Dict[str, Any]:
+        """The hyperparameters of the row math (see
+        ``row_update_reference``)."""
+        raise NotImplementedError
+
+    def alpha_t(self, step) -> Optional[torch.Tensor]:
+        """The step size for the pre-increment ``step``, where the row
+        math needs one (Adam); else None."""
+        return None
+
+    @torch.no_grad()
     def update(self, params, grads, state):
         """Apply one step in place; returns (params, state)."""
-        raise NotImplementedError
+        p = self.row_params()
+        names = self.sparse_slab_names()
+        alpha_t = self.alpha_t(state["step"]) if "step" in state else None
+        for op, ps in params.items():
+            for pn, w in ps.items():
+                row_update_reference(w, grads[op][pn],
+                                     {k: state[k][op][pn] for k in names},
+                                     p, alpha_t)
+        if "step" in state:
+            state["step"].add_(1)
+        return params, state
 
     def sparse_slab_names(self) -> tuple:
         """Table-shaped state slabs a touched-rows update must carry."""
-        return ()
+        return slab_names(self.row_params())
+
+    @torch.no_grad()
+    def sparse_row_update(self, w, g, slabs, touched, step):
+        """The JAX contract (core/optimizers.py:53 there): update gathered
+        rows w by g (m, k) fp32 with state ``slabs`` {name: (m, k)}, only
+        where ``touched`` (m, k) bool; ``step`` the pre-increment step.
+        Untouched lanes keep their weight and state. Returns (new_w,
+        new_slabs); the inputs are left as they were."""
+        wn = w.clone()
+        sn = {k: v.clone() for k, v in slabs.items()}
+        row_update_reference(wn, g, sn, self.row_params(),
+                             self.alpha_t(step))
+        return (torch.where(touched, wn, w),
+                {k: torch.where(touched, sn[k], slabs[k]) for k in sn})
 
 
 class SGDOptimizer(Optimizer):
@@ -53,23 +100,49 @@ class SGDOptimizer(Optimizer):
                           for op, p in params.items()}}
         return {}
 
-    @torch.no_grad()
-    def update(self, params, grads, state):
-        lr, m, wd = self.lr, self.momentum, self.weight_decay
-        for op, p in params.items():
-            for pn, w in p.items():
-                g = grads[op][pn]
-                gt = g + wd * w if wd > 0.0 else g
-                if m > 0.0:
-                    v = state["v"][op][pn]
-                    v.mul_(m).add_(gt)          # m * v + gt
-                    d = gt + m * v if self.nesterov else v
-                else:
-                    d = gt
-                # w - lr * d, as the JAX update writes it: lr * d rounds
-                # once, then the subtraction (no fused multiply-add)
-                w.sub_(lr * d)
-        return params, state
+    def row_params(self):
+        return {"kind": "sgd", "lr": self.lr, "momentum": self.momentum,
+                "nesterov": self.nesterov,
+                "weight_decay": self.weight_decay}
 
-    def sparse_slab_names(self):
-        return ("v",) if self.momentum > 0.0 else ()
+
+class AdamOptimizer(Optimizer):
+    """Adam (the reference's adam_update): an int32 step count in the
+    state, and the bias correction folded into alpha_t = alpha *
+    sqrt(1 - beta2^t) / (1 - beta1^t), t = step + 1, in fp32:
+
+        gt = g + weight_decay * w
+        m  = beta1 * m + (1 - beta1) * gt
+        v  = beta2 * v + (1 - beta2) * gt * gt
+        w  = w - alpha_t * m / (sqrt(v) + epsilon)
+    """
+
+    def __init__(self, alpha=0.001, beta1=0.9, beta2=0.999,
+                 weight_decay=0.0, epsilon=1e-8):
+        self.alpha = float(alpha)
+        self.beta1 = float(beta1)
+        self.beta2 = float(beta2)
+        self.weight_decay = float(weight_decay)
+        self.epsilon = float(epsilon)
+
+    def init_state(self, params):
+        def zeros():
+            return {op: {pn: torch.zeros_like(v) for pn, v in p.items()}
+                    for op, p in params.items()}
+
+        w = next((v for p in params.values() for v in p.values()), None)
+        return {"m": zeros(), "v": zeros(),
+                "step": torch.zeros((), dtype=torch.int32,
+                                    device=None if w is None else w.device)}
+
+    def row_params(self):
+        return {"kind": "adam", "beta1": self.beta1, "beta2": self.beta2,
+                "weight_decay": self.weight_decay, "epsilon": self.epsilon}
+
+    def alpha_t(self, step):
+        """alpha * sqrt(1 - beta2^t) / (1 - beta1^t) for t = step + 1, a
+        0-d fp32 tensor on the step's device (fp32 throughout, as the
+        JAX update computes it)."""
+        t = (step + 1).to(torch.float32)
+        return (self.alpha * sqrt_rn(1.0 - self.beta2 ** t)
+                / (1.0 - self.beta1 ** t))

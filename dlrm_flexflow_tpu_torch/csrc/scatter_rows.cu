@@ -1,5 +1,5 @@
 // Touched-rows scatter updates for Hopper (sm_90a): a pre-pass kernel
-// and one update kernel behind two entry points.
+// and two update kernels behind three entry points.
 //
 // Replaces two Pallas TPU kernels of
 // dlrm_flexflow_tpu/ops/pallas/embedding_kernel.py:
@@ -7,7 +7,12 @@
 //     _dedup_and_scatter): read-modify-write, table[row] += sum;
 //   _scatter_write_kernel (:495, behind scatter_write_rows_packed):
 //     write-only, table[row] = fwd_row + sum, where fwd_row is the value
-//     the forward pass gathered for that row.
+//     the forward pass gathered for that row; and, through
+//     scatter_write_tiles (:547), the weight and state-slab writes of the
+//     stateful touched-rows update (_stateful_update_tiles_packed,
+//     ops/embedding.py:460), where XLA computes each distinct tile's new
+//     weight and state between the dedup and the writes. Here one kernel,
+//     stateful_rows_kernel (item 3 below), does the row math and writes.
 //
 // Both apply n per-lookup updates to a (rows, dim) table. Lookup j
 // targets row ids[j] and carries update row upd[j / div] (div > 1 lets a
@@ -52,12 +57,25 @@
 //    n - m lookups (m distinct rows) exit after one load: a grid sized
 //    before m is known idles that many groups in any layout.
 //
+// 3. stateful_rows_kernel: the same owner groups and segment walk, the
+//    updates summed unscaled (the RAW gradient: Adam and momentum are not
+//    linear in it, so duplicates must be summed first, as _dedup_rows
+//    does). The owner then reads its weight (forward row or table row)
+//    and its row of each state slab (momentum's v; Adam's m and v), runs
+//    the optimizer's row math (update_lane, JAX's operation order, one
+//    rounding an operation) and writes the weight and each slab. Rows no
+//    lookup names are never read or written: their weight and state stay
+//    (lazy semantics; a dense update would decay them). Adam's alpha_t
+//    is a 0-d fp32 tensor computed on the device from the step, read
+//    here, so the step never travels to the host.
+//
 // Bound: memory. The function reads the ids (8 B a lookup), the updates
 // (n/div rows), one table row (read-modify-write) or one forward row
 // (write-only) per distinct row, and writes one row per distinct row: at
 // the training shape (n = 2,048 lookups, d = 64) about 1.6 MB, 0.5 us at
 // 3.35 TB/s, so a call is launch- and latency-bound: two launches, each
-// a few dependent loads deep.
+// a few dependent loads deep. The stateful update adds a read and a
+// write of each slab row per distinct row (Adam: 4 more rows).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -131,12 +149,47 @@ scatter_rank_kernel(const int64_t* __restrict__ ids, int n,
     }
 }
 
+template <bool kScaled>
 __device__ __forceinline__ void add_scaled(float4& acc, float scale,
                                            const float4 u) {
-  acc.x = __fadd_rn(acc.x, __fmul_rn(scale, u.x));
-  acc.y = __fadd_rn(acc.y, __fmul_rn(scale, u.y));
-  acc.z = __fadd_rn(acc.z, __fmul_rn(scale, u.z));
-  acc.w = __fadd_rn(acc.w, __fmul_rn(scale, u.w));
+  if (kScaled) {
+    acc.x = __fadd_rn(acc.x, __fmul_rn(scale, u.x));
+    acc.y = __fadd_rn(acc.y, __fmul_rn(scale, u.y));
+    acc.z = __fadd_rn(acc.z, __fmul_rn(scale, u.z));
+    acc.w = __fadd_rn(acc.w, __fmul_rn(scale, u.w));
+  } else {
+    acc.x = __fadd_rn(acc.x, u.x);
+    acc.y = __fadd_rn(acc.y, u.y);
+    acc.z = __fadd_rn(acc.z, u.z);
+    acc.w = __fadd_rn(acc.w, u.w);
+  }
+}
+
+// The sum over a row's segment s of the sorted order, in lookup order,
+// from 0, of (scale times, with kScaled) upd[pos / div]'s chunk c: the
+// loads of kUnroll lookups in flight, then their adds in order.
+template <bool kScaled>
+__device__ __forceinline__ float4 segment_sum(
+    const int2 s, const int* __restrict__ order,
+    const float4* __restrict__ upd, int vec, int c, int div, float scale) {
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  int k = s.x;
+  const int k1 = s.x + s.y;
+  for (; k + kUnroll <= k1; k += kUnroll) {
+    int pos[kUnroll];
+#pragma unroll
+    for (int i = 0; i < kUnroll; ++i) pos[i] = __ldg(order + k + i);
+    float4 u[kUnroll];
+#pragma unroll
+    for (int i = 0; i < kUnroll; ++i)
+      u[i] = __ldg(upd + (int64_t)(pos[i] / div) * vec + c);
+#pragma unroll
+    for (int i = 0; i < kUnroll; ++i) add_scaled<kScaled>(acc, scale, u[i]);
+  }
+  for (; k < k1; ++k)
+    add_scaled<kScaled>(
+        acc, scale, __ldg(upd + (int64_t)(__ldg(order + k) / div) * vec + c));
+  return acc;
 }
 
 // Group g (vec threads, one per 16-byte chunk) serves the segment of row
@@ -159,26 +212,81 @@ scatter_rows_kernel(float4* __restrict__ table,
   // write-only: lookup g's forward row (every duplicate's holds the same
   // pre-update value); its load overlaps the segment's
   const float4 base = fwd ? __ldg(fwd + g * vec + c) : table[row * vec + c];
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  int k = s.x;
-  const int k1 = s.x + s.y;
-  for (; k + kUnroll <= k1; k += kUnroll) {   // loads in flight, then
-    int pos[kUnroll];                         // the adds in lookup order
-#pragma unroll
-    for (int i = 0; i < kUnroll; ++i) pos[i] = __ldg(order + k + i);
-    float4 u[kUnroll];
-#pragma unroll
-    for (int i = 0; i < kUnroll; ++i)
-      u[i] = __ldg(upd + (int64_t)(pos[i] / div) * vec + c);
-#pragma unroll
-    for (int i = 0; i < kUnroll; ++i) add_scaled(acc, scale, u[i]);
-  }
-  for (; k < k1; ++k)
-    add_scaled(acc, scale,
-               __ldg(upd + (int64_t)(__ldg(order + k) / div) * vec + c));
+  const float4 acc = segment_sum<true>(s, order, upd, vec, c, div, scale);
   table[row * vec + c] = make_float4(
       __fadd_rn(base.x, acc.x), __fadd_rn(base.y, acc.y),
       __fadd_rn(base.z, acc.z), __fadd_rn(base.w, acc.w));
+}
+
+// The optimizer's hyperparameters, fp32 as JAX's weak-typed Python
+// floats round them (c1 = 1 - beta1 and c2 = 1 - beta2 computed in
+// double first); momentum and wd are 0 where the optimizer has none.
+struct OptParams {
+  int adam, nesterov;
+  float wd, lr, momentum, b1, c1, b2, c2, eps;
+};
+
+// One lane of a row: w and the state s0, s1 updated in place from the
+// summed gradient g, in the order of row_update_reference (and of the
+// JAX optimizers), one rounding an operation, never contracted:
+//   gt = g + wd*w
+//   SGD:  v = m*v + gt; d = gt + m*v (nesterov) | v | gt; w = w - lr*d
+//   Adam: m = b1*m + c1*gt; v = b2*v + (c2*gt)*gt;
+//         w = w - (alpha_t*m) / (sqrt(v) + eps)
+__device__ __forceinline__ void update_lane(float& w, float g, float& s0,
+                                            float& s1, const OptParams& p,
+                                            float alpha_t) {
+  const float gt = p.wd > 0.f ? __fadd_rn(g, __fmul_rn(p.wd, w)) : g;
+  if (p.adam) {
+    s0 = __fadd_rn(__fmul_rn(p.b1, s0), __fmul_rn(p.c1, gt));
+    s1 = __fadd_rn(__fmul_rn(p.b2, s1), __fmul_rn(__fmul_rn(p.c2, gt), gt));
+    w = __fsub_rn(w, __fdiv_rn(__fmul_rn(alpha_t, s0),
+                               __fadd_rn(__fsqrt_rn(s1), p.eps)));
+    return;
+  }
+  float d = gt;
+  if (p.momentum > 0.f) {
+    s0 = __fadd_rn(__fmul_rn(p.momentum, s0), gt);
+    d = p.nesterov ? __fadd_rn(gt, __fmul_rn(p.momentum, s0)) : s0;
+  }
+  w = __fsub_rn(w, __fmul_rn(p.lr, d));
+}
+
+// Group g serves row ids[g] when lookup g is that row's first, as in
+// scatter_rows_kernel: the row's summed gradient, then its weight and
+// state-slab rows through update_lane, each written back. slab0 is
+// Adam's m or momentum's v, slab1 Adam's v; either may be null.
+__global__ void __launch_bounds__(kThreads)
+stateful_rows_kernel(float4* __restrict__ table,
+                     const int64_t* __restrict__ ids,
+                     const int* __restrict__ order,
+                     const int2* __restrict__ seg,
+                     const float4* __restrict__ upd,
+                     const float4* __restrict__ fwd,
+                     float4* __restrict__ slab0, float4* __restrict__ slab1,
+                     const float* __restrict__ alpha_t, int n, int vec,
+                     int div, OptParams p) {
+  const int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const int64_t g = t / vec;
+  if (g >= n) return;
+  const int2 s = __ldg(seg + g);
+  if (s.x < 0) return;
+  const int c = (int)(t - g * vec);
+  const int64_t at = __ldg(ids + g) * vec + c;
+  // the weight, state and step loads overlap the segment's
+  float4 w = fwd ? __ldg(fwd + g * vec + c) : table[at];
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 s0 = slab0 ? slab0[at] : zero;
+  float4 s1 = slab1 ? slab1[at] : zero;
+  const float a = alpha_t ? __ldg(alpha_t) : 0.f;
+  const float4 acc = segment_sum<false>(s, order, upd, vec, c, div, 1.f);
+  update_lane(w.x, acc.x, s0.x, s1.x, p, a);
+  update_lane(w.y, acc.y, s0.y, s1.y, p, a);
+  update_lane(w.z, acc.z, s0.z, s1.z, p, a);
+  update_lane(w.w, acc.w, s0.w, s1.w, p, a);
+  table[at] = w;
+  if (slab0) slab0[at] = s0;
+  if (slab1) slab1[at] = s1;
 }
 
 int launch(void* table, const void* ids, const void* order, const void* seg,
@@ -251,6 +359,32 @@ int ff_scatter_write_rows(void* table, const void* ids, const void* order,
                           void* stream) {
   return launch(table, ids, order, seg, upd, fwd, n, dim, div, scale,
                 stream);
+}
+
+// The stateful touched-rows update: table, ids, order, seg, upd and fwd
+// as in ff_scatter_write_rows (fwd may be null: the table row is read),
+// upd the raw gradient rows (no scale). slab0, slab1: (rows, dim) fp32
+// state, updated in place, or null (see stateful_rows_kernel). alpha_t:
+// a device pointer to Adam's fp32 step size (null for SGD). adam 0 runs
+// SGD (lr, momentum, nesterov, wd), 1 Adam (wd, b1, c1, b2, c2, eps).
+// Launches on `stream`; returns cudaGetLastError().
+int ff_stateful_update_rows(void* table, const void* ids, const void* order,
+                            const void* seg, const void* upd, const void* fwd,
+                            void* slab0, void* slab1, const void* alpha_t,
+                            int n, int dim, int div, int adam, int nesterov,
+                            float wd, float lr, float momentum, float b1,
+                            float c1, float b2, float c2, float eps,
+                            void* stream) {
+  if (n <= 0) return 0;
+  const int vec = dim / 4;
+  const OptParams p{adam, nesterov, wd, lr, momentum, b1, c1, b2, c2, eps};
+  const long long blocks = ((long long)n * vec + kThreads - 1) / kThreads;
+  stateful_rows_kernel<<<(unsigned)blocks, kThreads, 0,
+                         (cudaStream_t)stream>>>(
+      (float4*)table, (const int64_t*)ids, (const int*)order,
+      (const int2*)seg, (const float4*)upd, (const float4*)fwd,
+      (float4*)slab0, (float4*)slab1, (const float*)alpha_t, n, vec, div, p);
+  return (int)cudaGetLastError();
 }
 
 const char* ff_error_string(int err) {

@@ -9,6 +9,12 @@ table order: one GPU holds every table, so the storage permutation
 work to do in the forward. The op still records it, because
 ``utils.weights.params_from_jax`` reads it to undo the JAX storage
 order when it carries weights across.
+
+Both ops take the touched-rows update: ``sparse_sgd_update`` under
+plain SGD, ``sparse_opt_update`` under a stateful optimizer (SGD with
+momentum or weight decay, Adam), which updates the touched rows'
+weights AND their optimizer state, and nothing else (lazy semantics, as
+the JAX ops).
 """
 
 from __future__ import annotations
@@ -20,7 +26,8 @@ import torch
 from ..core.initializers import GlorotUniform
 from ..core.op import Op, ParamDef
 from .kernels.embedding_bag import EmbeddingBagFunction, embedding_bag
-from .kernels.scatter_rows import scatter_add_rows, scatter_write_rows
+from .kernels.scatter_rows import (scatter_add_rows, scatter_write_rows,
+                                   stateful_update_rows)
 
 AGGR_MODE_SUM = "sum"
 AGGR_MODE_AVG = "avg"
@@ -74,7 +81,7 @@ class Embedding(Op):
         return [EmbeddingBagFunction.apply(params["kernel"], self._ids(idx),
                                            self.aggr)]
 
-    # ---- touched-rows SGD update ---------------------------------------
+    # ---- touched-rows updates -------------------------------------------
     def supports_sparse_update(self) -> bool:
         return self.aggr in (AGGR_MODE_SUM, AGGR_MODE_AVG, AGGR_MODE_NONE)
 
@@ -102,6 +109,32 @@ class Embedding(Op):
                 ct = ct / div
         scatter_add_rows(table, ids, ct, scale=-lr, div=div,
                          ids_in_range=True)   # wrapped by _ids
+        return params
+
+    @torch.no_grad()
+    def sparse_opt_update(self, params, xs, out_ct, opt, slabs, step,
+                          fwd=None):
+        """The stateful touched-rows update (lazy momentum, weight decay,
+        Adam), in place on the table and on ``slabs`` ({slab name: the
+        table's state}): each lookup's update is the RAW cotangent (its
+        slot's with "none", its bag's, / bag for "avg", otherwise), a
+        row's duplicates are summed in lookup order, and the optimizer's
+        row math updates that row's weight and state, as the JAX op's
+        ``_stateful_update_rows_xla``; untouched rows keep both. ``step``
+        is the optimizer's step before this one (Adam's alpha_t). The
+        table row is read (no residual: ``apply_with_fwd`` keeps none)."""
+        (idx,) = xs
+        table = params["kernel"]
+        ids = self._ids(idx).reshape(-1)
+        ct = out_ct.to(table.dtype).reshape(-1, self.out_dim)
+        div = 1
+        if self.aggr != AGGR_MODE_NONE:
+            div = idx.shape[-1]
+            if self.aggr == AGGR_MODE_AVG:
+                ct = ct / div
+        stateful_update_rows(table, ids, ct, None, slabs, opt.row_params(),
+                             opt.alpha_t(step), div=div,
+                             ids_in_range=True)   # wrapped by _ids
         return params
 
 
@@ -175,7 +208,7 @@ class EmbeddingBagStacked(Op):
                                          self._global_ids(idx), self.aggr)
         return [out.reshape(idx.shape[0], self.num_tables, self.out_dim)]
 
-    # ---- touched-rows SGD update ---------------------------------------
+    # ---- touched-rows updates -------------------------------------------
     def supports_sparse_update(self) -> bool:
         return self.aggr in (AGGR_MODE_SUM, AGGR_MODE_AVG)
 
@@ -212,4 +245,35 @@ class EmbeddingBagStacked(Op):
             gid = self._global_ids(idx).reshape(-1)
             scatter_add_rows(table, gid, ct, scale=-lr, div=bag,
                              ids_in_range=True)   # wrapped ids
+        return params
+
+    @torch.no_grad()
+    def sparse_opt_update(self, params, xs, out_ct, opt, slabs, step,
+                          fwd=None):
+        """The stateful touched-rows update, in place on the tables and on
+        ``slabs`` ({slab name: (T, rows, d) state}): each lookup's update
+        is its bag's RAW cotangent (/ bag for "avg"), a row's duplicates
+        summed in lookup order, then the optimizer's row math on that
+        row's weight (the residual of ``apply_with_fwd`` when given, else
+        the table row) and state; untouched rows keep both. The JAX op
+        permutes ids and cotangent into its storage order first; the
+        port stores tables in logical order, and a row's lookups keep
+        their relative order under that permutation (all of them lie in
+        one table), so its sums, and the result, are the same. ``step``:
+        the optimizer's step before this one."""
+        (idx,) = xs
+        bag = idx.shape[2]
+        ct = out_ct.to(params["kernel"].dtype).reshape(-1, self.out_dim)
+        if self.aggr == AGGR_MODE_AVG:
+            ct = ct / bag
+        if fwd is not None:
+            gid, rows = fwd
+        else:
+            gid, rows = self._global_ids(idx).reshape(-1), None
+        n = self.num_tables * self.num_entries
+        stateful_update_rows(
+            self._flat_table(params), gid, ct, rows,
+            {k: v.reshape(n, self.out_dim) for k, v in slabs.items()},
+            opt.row_params(), opt.alpha_t(step), div=bag,
+            ids_in_range=True)   # wrapped ids
         return params

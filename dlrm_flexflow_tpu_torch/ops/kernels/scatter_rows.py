@@ -4,7 +4,10 @@ versions.
 Replaces the Pallas TPU kernels ``_scatter_unique_kernel``
 (dlrm_flexflow_tpu/ops/pallas/embedding_kernel.py:289, the
 read-modify-write ``scatter_add_rows``) and ``_scatter_write_kernel``
-(:495, the write-only ``scatter_write_rows_packed``). The CUDA source,
+(:495, the write-only ``scatter_write_rows_packed``, and through
+``scatter_write_tiles`` (:547) the weight and state-slab writes of the
+stateful ``_stateful_update_tiles_packed``, ops/embedding.py:460: here
+``stateful_update_rows``). The CUDA source,
 ``csrc/scatter_rows.cu``, states the kernels' bound (memory) and design
 (each lookup's place in the stable order counted as a rank, then one
 owner per distinct row; no atomics).
@@ -21,7 +24,14 @@ wrap their ids, pass ``ids_in_range=True``):
 
 - ``scatter_add_rows``:   table[row] = table[row] + sum
 - ``scatter_write_rows``: table[row] = fwd[j] + sum, fwd[j] being the row
-  a lookup of that row read in the forward pass (all equal).
+  a lookup of that row read in the forward pass (all equal);
+- ``stateful_update_rows``: the optimizer's row math (SGD with weight
+  decay, momentum, nesterov; Adam) on each distinct row, from its summed
+  RAW gradient (no scale), its weight (fwd[j] or the table row) and its
+  state-slab rows; it writes the weight and every slab, and rows no
+  lookup touched keep their weight and their state (lazy semantics).
+  ``row_update_reference`` is that row math in PyTorch, in the JAX
+  optimizers' operation order; the dense optimizers run it too.
 
 The pre-pass is the row-granular counterpart of the JAX
 ``_dedup_tile_updates`` (the port stores tables unpacked, so no lane
@@ -32,9 +42,9 @@ a stable ``torch.sort`` of int32 ids above it, route "sort"
 ids and, for each row's first lookup, where its segment of that order
 starts and how long it is. A CPU tensor takes the plain version; a CUDA tensor
 launches the kernels or raises, never falling back.
-``scatter_add_rows.launches``, ``scatter_write_rows.launches`` and
-``scatter_presort.launches`` count kernel launches, ``.routes`` the
-update launches by route.
+``scatter_add_rows.launches``, ``scatter_write_rows.launches``,
+``stateful_update_rows.launches`` and ``scatter_presort.launches`` count
+kernel launches, ``.routes`` the update launches by route.
 """
 
 from __future__ import annotations
@@ -54,6 +64,9 @@ _SIGNATURES = {
         (_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P), _I),
     "ff_scatter_write_rows": (
         (_P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P), _I),
+    "ff_stateful_update_rows": (
+        (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I)
+        + (ctypes.c_float,) * 8 + (_P,), _I),
 }
 # the pre-pass kernel's limit (kBlockSortMax in csrc/scatter_rows.cu): a
 # block holds every key, 8 bytes each, in its 227 KB of shared memory
@@ -69,15 +82,17 @@ PAD_KEY32 = 2 ** 31 - 1
 def _segment_sums(ids, upd, scale, div):
     """(distinct sorted rows, first lookup of each, per-row sums): the pad
     slots (row < 0) masked out, a stable sort, then ``index_add_`` of the
-    scaled updates in sorted order — on the CPU a sequential loop, so
-    each row's duplicates add in ascending lookup order, starting from
-    0."""
+    updates (times ``scale`` unless it is None) in sorted order — on the
+    CPU a sequential loop, so each row's duplicates add in ascending
+    lookup order, starting from 0."""
     real = torch.nonzero(ids >= 0).reshape(-1)
     sorted_ids, order = torch.sort(ids[real], stable=True)
     order = real[order]
     rows, inv, counts = torch.unique_consecutive(
         sorted_ids, return_inverse=True, return_counts=True)
-    vals = scale * upd[order // div]
+    vals = upd[order // div]
+    if scale is not None:
+        vals = scale * vals
     sums = torch.zeros((rows.shape[0], upd.shape[1]), dtype=upd.dtype,
                        device=upd.device).index_add_(0, inv, vals)
     first = order[torch.cumsum(counts, 0) - counts]
@@ -95,6 +110,77 @@ def scatter_write_rows_reference(table, ids, upd, fwd, scale=1.0, div=1):
     """Plain PyTorch version of ``scatter_write_rows``."""
     rows, first, sums = _segment_sums(ids, upd, scale, div)
     table[rows] = fwd[first] + sums
+    return table
+
+
+def slab_names(p) -> tuple:
+    """The state slabs the row math of optimizer parameters ``p`` reads
+    and writes: Adam's ("m", "v"), momentum SGD's ("v",), else none."""
+    if p["kind"] == "adam":
+        return ("m", "v")
+    return ("v",) if p["momentum"] > 0.0 else ()
+
+
+def sqrt_rn(x):
+    """fp32 sqrt, correctly rounded, as XLA's and CUDA's are: PyTorch's
+    vectorized CPU sqrt can be an ulp off (about 0.6 % of the values on
+    an AVX-512 host), so on the CPU it is taken in float64 and rounded
+    once, which is exact for a square root of an fp32 value."""
+    if x.device.type == "cpu":
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
+
+
+@torch.no_grad()
+def row_update_reference(w, g, slabs, p, alpha_t=None):
+    """The optimizer's update of rows ``w`` by gradient rows ``g``, IN
+    PLACE on ``w`` and the state ``slabs`` ({name: tensor shaped as w}),
+    in the JAX optimizers' operation order, one rounding an operation
+    (no fused multiply-add), the constants rounded to fp32 as JAX's
+    weak-typed Python floats are. ``p`` (an optimizer's ``row_params()``):
+
+    - "sgd" (lr, momentum, nesterov, weight_decay): gt = g + wd·w;
+      v = m·v + gt; d = gt + m·v (nesterov) | v | gt (no momentum);
+      w = w - lr·d;
+    - "adam" (beta1, beta2, weight_decay, epsilon; ``alpha_t`` a 0-d
+      fp32 tensor, alpha·sqrt(1 - beta2^t)/(1 - beta1^t)): gt as above;
+      m = b1·m + (1 - b1)·gt; v = b2·v + ((1 - b2)·gt)·gt;
+      w = w - (alpha_t·m) / (sqrt(v) + eps).
+
+    The dense optimizers run it on whole parameters, the touched-rows
+    update's plain version on the gathered rows; the CUDA kernel repeats
+    it with __fmul_rn/__fadd_rn/__fsub_rn/__fdiv_rn/__fsqrt_rn."""
+    wd = p["weight_decay"]
+    gt = g + wd * w if wd > 0.0 else g
+    if p["kind"] == "adam":
+        b1, b2 = p["beta1"], p["beta2"]
+        slabs["m"].mul_(b1).add_((1.0 - b1) * gt)
+        sq = (1.0 - b2) * gt
+        slabs["v"].mul_(b2).add_(sq.mul_(gt))
+        den = sqrt_rn(slabs["v"]).add_(p["epsilon"])
+        w.sub_((alpha_t * slabs["m"]).div_(den))
+        return w
+    m = p["momentum"]
+    if m > 0.0:
+        v = slabs["v"]
+        v.mul_(m).add_(gt)
+        d = gt + m * v if p["nesterov"] else v
+    else:
+        d = gt
+    w.sub_(p["lr"] * d)
+    return w
+
+
+def stateful_update_rows_reference(table, ids, upd, fwd, slabs, p,
+                                   alpha_t=None, div=1):
+    """Plain PyTorch version of ``stateful_update_rows``."""
+    rows, first, sums = _segment_sums(ids, upd, None, div)
+    w = fwd[first] if fwd is not None else table[rows]
+    srows = {k: slabs[k][rows] for k in slab_names(p)}
+    row_update_reference(w, sums, srows, p, alpha_t)
+    table[rows] = w
+    for k, v in srows.items():
+        slabs[k][rows] = v
     return table
 
 
@@ -203,26 +289,33 @@ def _check(table, ids, upd, fwd, div, ids_in_range):
                          f"table's {table.shape[0]} rows")
 
 
-def _launch(wrapper, entry, table, ids, upd, fwd, scale, div):
-    """The pre-pass, then one update launch; raises on any input the
-    kernels do not take."""
-    floats = (table, upd) if fwd is None else (table, upd, fwd)
+def _presorted(table, ids, upd, fwd, slabs=()):
+    """Check what the update kernels take, then run the pre-pass: (route,
+    ids, upd, fwd, order, seg), the tensors contiguous; order is None
+    when there are no lookups. Raises on any input the kernels do not
+    take."""
+    floats = (table, upd, *slabs) + (() if fwd is None else (fwd,))
     if any(t.dtype != torch.float32 for t in floats) \
             or ids.dtype != torch.int64:
-        raise ValueError("scatter kernels take float32 table, upd and fwd "
-                         "and int64 ids")
+        raise ValueError("scatter kernels take float32 table, upd, fwd and "
+                         "slabs and int64 ids")
     if any(t.device != table.device for t in floats + (ids,)):
         raise ValueError("scatter inputs lie on different devices")
     d = table.shape[1]
-    if d % 4 or not table.is_contiguous() or table.data_ptr() % 16:
+    if d % 4 or any(not t.is_contiguous() or t.data_ptr() % 16
+                    for t in (table, *slabs)):
         raise ValueError(f"scatter kernels need a contiguous, 16-byte "
-                         f"aligned table with d % 4 == 0 (d={d})")
+                         f"aligned table and slabs with d % 4 == 0 (d={d})")
     n = ids.shape[0]
     route = scatter_route(n, table.shape[0])
-    if n == 0:
-        return table
     upd = upd.contiguous()
     ids = ids.contiguous()
+    fwd = None if fwd is None else fwd.contiguous()
+    if any(t.data_ptr() % 16 for t in (upd,) + (() if fwd is None
+                                                 else (fwd,))):
+        raise ValueError("scatter kernels need 16-byte aligned upd and fwd")
+    if n == 0:
+        return route, ids, upd, fwd, None, None
     if route == "block":
         order, seg = scatter_presort(ids)
     else:
@@ -231,16 +324,25 @@ def _launch(wrapper, entry, table, ids, upd, fwd, scale, div):
         sorted_ids, order = torch.sort(key, stable=True)
         seg = _segments(sorted_ids, order.to(torch.int32), pads[order])
         order = order.to(torch.int32)
+    return route, ids, upd, fwd, order, seg
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(wrapper, entry, table, ids, upd, fwd, scale, div):
+    """The pre-pass, then one update launch."""
+    route, ids, upd, fwd, order, seg = _presorted(table, ids, upd, fwd)
+    if order is None:
+        return table
     args = [table.data_ptr(), ids.data_ptr(), order.data_ptr(),
             seg.data_ptr(), upd.data_ptr()]
     if fwd is not None:
-        fwd = fwd.contiguous()
         args.append(fwd.data_ptr())
-    if any(p % 16 for p in args[4:]):
-        raise ValueError("scatter kernels need 16-byte aligned upd and fwd")
     lib = build.load("scatter_rows", _SIGNATURES)
-    err = getattr(lib, entry)(*args, n, d, int(div), float(scale),
-                              build.stream_of(table))
+    err = getattr(lib, entry)(*args, ids.shape[0], table.shape[1], int(div),
+                              float(scale), build.stream_of(table))
     build.check(lib, err, f"{entry} kernel ({route} pre-pass)")
     build.count_launch(wrapper, route)
     return table
@@ -283,11 +385,74 @@ def scatter_write_rows(table: torch.Tensor, ids: torch.Tensor,
                    upd, fwd, scale, div)
 
 
+def stateful_update_rows(table: torch.Tensor, ids: torch.Tensor,
+                         upd: torch.Tensor, fwd, slabs, opt_params,
+                         alpha_t=None, div: int = 1,
+                         ids_in_range: bool = False) -> torch.Tensor:
+    """In place, the stateful touched-rows update: for each distinct row
+    of ``ids``, g = the sum of upd[j // div] over its lookups j in lookup
+    order (the RAW gradient, no scale), w = fwd[j] (the row lookup j read
+    in the forward pass) or, with ``fwd`` None, table[row]; then
+    ``row_update_reference``'s math with ``opt_params`` (an optimizer's
+    ``row_params()``) writes table[row] and the row of each state slab
+    it names (``slabs``: {name: tensor shaped as table}). Adam reads
+    ``alpha_t``, a 0-d fp32 tensor on the table's device, there (the
+    step never comes back to the host). Pads and ``ids_in_range`` as in
+    ``scatter_add_rows``; rows no lookup names keep weight and state."""
+    _check(table, ids, upd, fwd, div, ids_in_range)
+    names = slab_names(opt_params)
+    if set(names) - set(slabs):
+        raise ValueError(f"stateful_update_rows: slabs {sorted(slabs)} "
+                         f"lack {sorted(set(names) - set(slabs))}")
+    if any(slabs[k].shape != table.shape for k in names):
+        raise ValueError("stateful_update_rows: a slab is not shaped as "
+                         "the table")
+    adam = opt_params["kind"] == "adam"
+    if adam and (alpha_t is None or alpha_t.dim() != 0
+                 or alpha_t.dtype != torch.float32
+                 or alpha_t.device != table.device):
+        raise ValueError("stateful_update_rows: Adam takes alpha_t, a 0-d "
+                         "float32 tensor on the table's device")
+    if table.device.type == "cpu":
+        return stateful_update_rows_reference(table, ids, upd, fwd, slabs,
+                                              opt_params, alpha_t, div)
+    if table.device.type != "cuda":
+        raise ValueError(f"stateful_update_rows runs on cpu or cuda, not "
+                         f"{table.device}")
+    slab = [slabs[k] for k in names]
+    route, ids, upd, fwd, order, seg = _presorted(table, ids, upd, fwd, slab)
+    if order is None:
+        return table
+    p = opt_params
+    # the constants as JAX's weak types round them: Python doubles
+    # (1 - beta computed in double first) cast to fp32 by ctypes
+    if adam:
+        hp = (p["weight_decay"], 0.0, 0.0, p["beta1"], 1.0 - p["beta1"],
+              p["beta2"], 1.0 - p["beta2"], p["epsilon"])
+    else:
+        hp = (p["weight_decay"], p["lr"], p["momentum"], 0.0, 0.0, 0.0,
+              0.0, 0.0)
+    slab += [None] * (2 - len(slab))
+    lib = build.load("scatter_rows", _SIGNATURES)
+    err = lib.ff_stateful_update_rows(
+        table.data_ptr(), ids.data_ptr(), order.data_ptr(), seg.data_ptr(),
+        upd.data_ptr(), _ptr(fwd), _ptr(slab[0]), _ptr(slab[1]),
+        _ptr(alpha_t) if adam else None, ids.shape[0], table.shape[1],
+        int(div), int(adam), int(bool(p.get("nesterov", False))),
+        *(float(x) for x in hp), build.stream_of(table))
+    build.check(lib, err, f"ff_stateful_update_rows kernel ({route} "
+                f"pre-pass)")
+    build.count_launch(stateful_update_rows, route)
+    return table
+
+
 scatter_presort.launches = 0
 scatter_add_rows.launches = 0
 scatter_write_rows.launches = 0
+stateful_update_rows.launches = 0
 scatter_add_rows.routes = {"block": 0, "sort": 0}
 scatter_write_rows.routes = {"block": 0, "sort": 0}
+stateful_update_rows.routes = {"block": 0, "sort": 0}
 
 
 def segment_sum_rows(ids: torch.Tensor, upd: torch.Tensor, num_rows: int,

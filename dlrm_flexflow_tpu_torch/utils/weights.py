@@ -21,6 +21,12 @@ for ``model``, ready for ``model.swap_params``:
 JAX layout (``_table_order`` re-applied, tables lane-packed to
 (T, N/r, r·d) as the JAX op's ``_pack_factor`` packs them), so a test can
 compare a trained port model with a trained JAX model array by array.
+
+``opt_state_from_jax`` and ``opt_state_to_jax`` carry an optimizer state
+(``{slab: {op_name: {param_name: array}}}`` plus Adam's int32
+``"step"``) across the same way: every slab mirrors the parameters and
+takes their layout transform, the step becomes a 0-d int32 tensor on
+the model's device and back.
 """
 
 from __future__ import annotations
@@ -85,4 +91,28 @@ def params_to_jax(model, params: Dict[str, Dict[str, torch.Tensor]]
                               op.out_dim * r)
             mine[pn] = v
         out[op.name] = mine
+    return out
+
+
+def opt_state_from_jax(model, state_np) -> Dict[str, object]:
+    """The port's optimizer state for ``model`` from the JAX optimizer
+    state as numpy, ready for ``model.opt_state``."""
+    out = {}
+    for k, sub in state_np.items():
+        if k == "step":
+            out[k] = torch.tensor(int(np.asarray(sub)), dtype=torch.int32,
+                                  device=model.device)
+        else:
+            out[k] = params_from_jax(model, sub)
+    return out
+
+
+def opt_state_to_jax(model, state) -> Dict[str, object]:
+    """The port's optimizer state as numpy in the JAX layout."""
+    out = {}
+    for k, sub in state.items():
+        if k == "step":
+            out[k] = np.asarray(int(sub), dtype=np.int32)
+        else:
+            out[k] = params_to_jax(model, sub)
     return out

@@ -14,6 +14,15 @@ BITWISE to their plain versions run on the CPU (the plain version on the
 card would add duplicates with atomics, in no fixed order): both scale
 first, then sum a row's duplicates in lookup order; the pre-pass kernel
 is held bitwise to its plain version and to torch.sort(stable=True).
+The stateful touched-rows kernel too, for every optimizer, Adam
+included (the same alpha_t tensor, copied): both sum a row's raw
+gradients in lookup order and run the row math one rounding an
+operation in the same order, square roots and quotients correctly
+rounded. A stateful training step on the card against the CPU: weights
+and state as the plain step, but under Adam each weight's update
+within 1e-2 of its parameter's largest update, since Adam's normalised
+step turns a gradient that differs only in its summation order into an
+update of full size where the gradient is near zero.
 A training step on
 the card against the same step on the CPU: rtol 1e-5, atol 1e-7
 (cuBLAS and the CPU's BLAS sum the layers' products in other orders).
@@ -44,7 +53,8 @@ from dlrm_flexflow_tpu_torch.ops.kernels import build
 from dlrm_flexflow_tpu_torch.ops.kernels.embedding_bag import (
     embedding_bag, embedding_bag_quant, embedding_bag_quant_reference,
     embedding_bag_reference)
-from dlrm_flexflow_tpu_torch.core.optimizers import SGDOptimizer
+from dlrm_flexflow_tpu_torch.core.optimizers import (AdamOptimizer,
+                                                     SGDOptimizer)
 from dlrm_flexflow_tpu_torch.models.nmt import build_nmt
 from dlrm_flexflow_tpu_torch.ops.kernels import lstm as lstm_mod
 from dlrm_flexflow_tpu_torch.ops.kernels import scatter_rows as scatter_rows_mod
@@ -63,7 +73,8 @@ from dlrm_flexflow_tpu_torch.retrieve import (CascadeConfig, CascadeEngine,
                                               transfer_tower_params)
 from dlrm_flexflow_tpu_torch.ops.kernels.scatter_rows import (
     presort_reference, scatter_add_rows, scatter_add_rows_reference,
-    scatter_presort, scatter_write_rows, scatter_write_rows_reference)
+    scatter_presort, scatter_write_rows, scatter_write_rows_reference,
+    stateful_update_rows, stateful_update_rows_reference)
 from dlrm_flexflow_tpu_torch.serve import InferenceEngine, ServeConfig
 
 pytestmark = pytest.mark.cuda
@@ -588,6 +599,144 @@ def test_scatter_presort_matches_plain(cuda, n):
     assert lib.ff_scatter_block_sort_max() == scatter_rows_mod.BLOCK_SORT_MAX
     with pytest.raises(ValueError, match="at most"):
         scatter_presort(torch.zeros(16385, dtype=torch.int64, device=cuda))
+
+
+STATEFUL = {
+    "sgd_wd": lambda: SGDOptimizer(lr=0.01, weight_decay=1e-4),
+    "momentum": lambda: SGDOptimizer(lr=0.01, momentum=0.9),
+    "nesterov_wd": lambda: SGDOptimizer(lr=0.1, momentum=0.9, nesterov=True,
+                                        weight_decay=1e-3),
+    "adam": lambda: AdamOptimizer(alpha=0.001),
+    "adam_wd": lambda: AdamOptimizer(alpha=0.01, weight_decay=1e-3),
+}
+
+
+def _stateful_ids(cuda, g, n, rows, kind):
+    """n ids below rows - 1 (the last row stays a pad's wrap target)."""
+    if kind == "distinct":
+        return torch.randperm(rows - 1, device=cuda, generator=g)[:n]
+    if kind == "equal":
+        return torch.full((n,), 4321, dtype=torch.int64, device=cuda)
+    if kind == "zipf":
+        r = np.random.RandomState(n)
+        return torch.as_tensor((r.zipf(1.2, n) - 1) % (rows - 1),
+                               device=cuda)
+    ids = torch.randint(0, rows - 1, (n,), device=cuda, generator=g)
+    ids[:8] = ids[0].clone()
+    if kind == "pads":
+        ids[3] = -1
+        ids[n // 2:n // 2 + n // 8] = -1
+        ids[n // 4] = -(rows + 1)
+    return ids
+
+
+@pytest.mark.parametrize("name", list(STATEFUL))
+@pytest.mark.parametrize("n,d,kind,residual", [
+    (64, 64, "distinct", True), (2048, 64, "uniform", True),
+    (2048, 64, "zipf", False), (2048, 8, "equal", True),
+    (2048, 132, "pads", False), (16385, 64, "uniform", False),
+    (16385, 132, "zipf", True), (16385, 8, "pads", True)])
+def test_stateful_kernel_matches_plain(cuda, name, n, d, kind, residual):
+    """The stateful touched-rows kernel, bitwise against its plain
+    version on the CPU, from non-zero state: on both pre-pass routes
+    (n = 64 and 2,048 "block", 16,385 "sort"), with distinct, uniform,
+    Zipf-skewed and all-equal ids and pad slots, at d = 8, 64 and 132,
+    with one slab (momentum) or two (Adam), reading the forward rows or
+    (no residual) the table; rows it was not given keep weight and
+    state, pads' rows (the last, where -1 wraps) included."""
+    rows = 50000
+    g = torch.Generator(device=cuda).manual_seed(n + d)
+    opt = STATEFUL[name]()
+    table = torch.randn(rows, d, device=cuda, generator=g)
+    ids = _stateful_ids(cuda, g, n, rows, kind)
+    upd = torch.randn(n, d, device=cuda, generator=g)
+    slabs = {k: torch.rand(rows, d, device=cuda, generator=g)
+             for k in opt.sparse_slab_names()}
+    fwd = table[ids.clamp(min=0)] if residual else None
+    alpha_t = opt.alpha_t(torch.tensor(6, dtype=torch.int32, device=cuda))
+    got, got_s = table.clone(), {k: v.clone() for k, v in slabs.items()}
+    route = "block" if n <= 16384 else "sort"
+    before = stateful_update_rows.routes[route]
+    stateful_update_rows(got, ids, upd, fwd, got_s, opt.row_params(),
+                         alpha_t)
+    want, want_s = table.cpu(), {k: v.cpu() for k, v in slabs.items()}
+    stateful_update_rows_reference(
+        want, ids.cpu(), upd.cpu(), None if fwd is None else fwd.cpu(),
+        want_s, opt.row_params(), None if alpha_t is None
+        else alpha_t.cpu())
+    torch.cuda.synchronize()
+    assert stateful_update_rows.routes[route] == before + 1
+    assert torch.equal(got.cpu(), want)
+    for k in slabs:
+        assert torch.equal(got_s[k].cpu(), want_s[k]), k
+    changed = torch.nonzero((got != table).any(1)).reshape(-1)
+    assert bool(torch.isin(changed, ids[ids >= 0]).all())
+    assert torch.equal(got[-1], table[-1])
+    for k in slabs:
+        assert torch.equal(got_s[k][-1], slabs[k][-1])
+
+
+def test_stateful_kernel_raises_on_what_it_does_not_take(cuda):
+    """An id past the table, Adam without its step size on the card, a
+    slab of another shape: ValueError before any launch."""
+    table = torch.zeros(100, 8, device=cuda)
+    ids = torch.arange(10, device=cuda)
+    upd = torch.ones(10, 8, device=cuda)
+    adam = AdamOptimizer()
+    slabs = {k: torch.zeros_like(table) for k in ("m", "v")}
+    alpha_t = adam.alpha_t(torch.zeros((), dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="past the table"):
+        stateful_update_rows(table, ids + 95, upd, None, slabs,
+                             adam.row_params(), alpha_t)
+    with pytest.raises(ValueError, match="alpha_t"):
+        stateful_update_rows(table, ids, upd, None, slabs,
+                             adam.row_params(), alpha_t.cpu())
+    with pytest.raises(ValueError, match="slab"):
+        stateful_update_rows(table, ids, upd, None,
+                             {"m": slabs["m"], "v": slabs["v"][:50]},
+                             adam.row_params(), alpha_t)
+
+
+@pytest.mark.parametrize("name", list(STATEFUL))
+def test_stateful_training_step_on_card_matches_cpu(cuda, name):
+    """Two "cat" steps under each stateful optimizer on the card against
+    the CPU from the same weights: the table takes the stateful kernel
+    once a step after one pre-pass, no write-only SGD scatter runs, and
+    the weights and state agree."""
+    gpu = _model("cat", "cuda")
+    cpu = _model("cat", "cpu", gpu.params)
+    for m in (gpu, cpu):
+        m.compile(STATEFUL[name](), "mean_squared_error", ["mse"])
+    init = {op: {n: v.clone() for n, v in p.items()}
+            for op, p in cpu.params.items()}
+    before = (stateful_update_rows.launches, scatter_write_rows.launches,
+              scatter_presort.launches)
+    for step in range(2):
+        x, y = synthetic_batch(DLRMConfig(**ARCH["cat"]), 16, seed=5 + step)
+        x["label"] = y
+        lg = float(gpu.train_batch(x)["loss"])
+        lc = float(cpu.train_batch(x)["loss"])
+        np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    assert (stateful_update_rows.launches - before[0],
+            scatter_write_rows.launches - before[1],
+            scatter_presort.launches - before[2]) == (2, 0, 2)
+    adam = isinstance(gpu.optimizer, AdamOptimizer)
+    trees = [(cpu.params, gpu.params, init)]
+    trees += [(cpu.opt_state[k], gpu.opt_state[k], None)
+              for k in gpu.optimizer.sparse_slab_names()]
+    for tc, tg, t0 in trees:
+        for op, p in tc.items():
+            for pn, v in p.items():
+                got = tg[op][pn].cpu()
+                if adam and t0 is not None:
+                    dc, dg = v - t0[op][pn], got - t0[op][pn]
+                    scale = float(dc.abs().max())
+                    assert float((dg - dc).abs().max()) <= 1e-2 * scale, \
+                        (op, pn)
+                else:
+                    torch.testing.assert_close(got, v, rtol=1e-5, atol=1e-7)
+    if adam:
+        assert int(gpu.opt_state["step"]) == int(cpu.opt_state["step"]) == 2
 
 
 def test_cuda_call_raises_without_nvcc(cuda, tmp_path, monkeypatch):

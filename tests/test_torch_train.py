@@ -236,17 +236,42 @@ def test_fit_refuses_checkpoints():
 
 def test_stateful_sgd_on_a_sparse_op_raises():
     """compile() without an optimizer takes SGD with the config's weight
-    decay (1e-4), as the JAX compile: a stateful touched-rows update."""
+    decay (1e-4), as the JAX compile: a stateful touched-rows update.
+    Until the stateful update was ported this test pinned the
+    NotImplementedError its first step raised; now both compiles, the
+    default and momentum 0.9, take a step on the stateful touched-rows
+    path (the table selected for the sparse update, its rows updated
+    through ``sparse_opt_update``, never ``sparse_sgd_update``), and
+    only the rows the batch looked up move. tests/test_torch_optimizers.py
+    holds the values to the JAX package."""
     m = pt.FFModel(pt.FFConfig(batch_size=BS, device="cpu"))
     build_dlrm(m, DLRMConfig(**ARCH["cat"]))
     m.compile()
     assert (m.optimizer.lr, m.optimizer.weight_decay) == (0.01, 1e-4)
     m.init_layers()
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        m.train_batch(_batch("cat", 0))
-    m.compile(SGDOptimizer(lr=0.01, momentum=0.9))
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        m.train_batch(_batch("cat", 0))
+    op = m.get_layer_by_name("emb_stack")
+    calls = []
+    op.sparse_opt_update = lambda *a, _f=op.sparse_opt_update, **k: (
+        calls.append("opt"), _f(*a, **k))[1]
+    op.sparse_sgd_update = lambda *a, **k: calls.append("sgd")
+    batch = _batch("cat", 0)
+    touched = np.zeros((T, 4096), bool)
+    for t in range(T):
+        touched[t, batch["sparse"][:, t].reshape(-1) % 4096] = True
+    for opt in (None, SGDOptimizer(lr=0.01, momentum=0.9)):
+        if opt is not None:
+            m.compile(opt)
+        before = m.params["emb_stack"]["kernel"].clone()
+        assert np.isfinite(float(m.train_batch(batch)["loss"]))
+        assert [o.name for o in m._sparse_ops] == ["emb_stack"]
+        assert m._stateful_sparse()
+        after = m.params["emb_stack"]["kernel"]
+        moved = (after != before).any(dim=-1).numpy()
+        assert moved.any() and not (moved & ~touched).any()
+        if opt is not None:
+            v = m.opt_state["v"]["emb_stack"]["kernel"]
+            assert not v[torch.from_numpy(~touched)].any()
+    assert calls == ["opt", "opt"]
 
 
 def test_config_training_flags():
