@@ -24,12 +24,17 @@ Phases:
    ``synthetic_batch``, a few warmup steps, then 20
    ``train_batch_device`` steps back to back, timed as one window that
    ends in a synchronisation, with every launch count at 0 just before
-   and read just after: exactly one pre-pass and one scatter a step,
-   on the pre-pass kernel's route, and no other scatter: the write-only
-   scatter on "cat" under plain SGD, the stateful touched-rows update
-   (``stateful_update_rows``) on "cat" under the other optimizers, the
-   read-modify-write scatter on "dot" (its dense table gradient); no
-   plain version may run. The loss must be finite and fall; on "cat" a
+   and read just after: exactly one dense update (``dense_update``,
+   every dense parameter in one launch) and one scatter a step, and no
+   other scatter: the write-only scatter on "cat" under plain SGD and
+   the read-modify-write scatter on "dot" (its dense table gradient),
+   each after one pre-pass on the pre-pass kernel's route; the stateful
+   touched-rows update (``stateful_update_rows``) on "cat" under the
+   other optimizers, on its one-launch route with no pre-pass; no plain
+   version may run. On "dot" under Adam, TRAIN_STEPS steps with the
+   dense update on its kernel and on its plain version (the eager
+   passes), in turn, each with one step's peak device memory. The loss
+   must be finite and fall; on "cat" a
    sample of untouched table rows must stay bitwise and their rows of
    every optimizer state slab zero. Ten steps run one at a time give a step's
    wall time alone, and a second window of 20 a second read of the
@@ -47,8 +52,9 @@ Phases:
    categorical cross-entropy and accuracy), timed the same way: 20 steps
    back to back with every count at 0 just before and read just after
    (exactly 4 ``lstm_fwd`` and 4 ``lstm_bwd``, all on the resident
-   route, 4 ``lstm_gates``, 2 ``scatter_presort`` and 2 ``scatter_add_rows``
-   launches a step, no plain version run, a finite loss that falls), ten
+   route, 4 ``lstm_gates``, 2 ``scatter_presort``, 2 ``scatter_add_rows``
+   and 1 ``dense_update`` launches a step, no plain version run, a
+   finite loss that falls), ten
    steps alone and a second window. Its queued and profiled steps
    (device time, idle share, the host's top ops) and one fp32 step on the card against
    the same step on the CPU at vocab 4,096, 2 x 256, seq 12, batch 16 run
@@ -103,11 +109,21 @@ Phases:
    slots (-1 and -(rows + 1)) among the ids on both pre-pass routes
    (n = 2,048 and 16,385), held bitwise with only the real rows changed,
    and an id past the table raising; the stateful touched-rows update
-   on the same table with state slabs of its size at n = 2,048, for
-   compile()'s default SGD, momentum with weight decay and Adam, the
-   touched rows and slab rows held bitwise to the plain version on the
-   CPU (the same alpha_t), then timed under Adam beside its bound and
-   plain version; the quantized bag and
+   on the same table with state slabs of its size at n = 2,048, on its
+   one-launch route and on the pre-pass route, for compile()'s default
+   SGD, momentum with weight decay and Adam, in uniform, all-equal and
+   Zipf ids and with pads, the touched rows and slab rows held bitwise
+   to the plain version on the CPU (the same alpha_t), then both routes
+   timed under Adam beside the bound and (n = 2,048) the plain version,
+   at n = 2,048, 4,096, 8,192 and 16,384; the dense update over the
+   full-width "dot" parameter set (the 8M x 64 table and the MLPs) and
+   the "cat" set, held bitwise to its plain version on the card under
+   plain SGD, compile()'s default, momentum with weight decay,
+   nesterov, Adam and Adam with weight decay, and timed under Adam and
+   SGD beside its bound, the plain version and one
+   ``torch._fused_adam_`` / ``_fused_sgd_`` call; Adam's 0-d step size
+   on the card against the CPU's, bitwise, for steps 0 to 99,999 (the
+   count that differ is printed); the quantized bag and
    interaction at the serving shape over the table quantized to int8
    (the bag also in fp8), which no path calls yet; the int8 MIPS top-k
    at B=64 and B=1 over a 1M x 32 index with planted duplicate rows,
@@ -147,6 +163,7 @@ package of the directory the script lies in: a copy of the script placed
 at the root of another tree of the port times that tree's kernels.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -163,7 +180,9 @@ from dlrm_flexflow_tpu_torch.core.optimizers import (AdamOptimizer,
 from dlrm_flexflow_tpu_torch.models.dlrm import (DLRMConfig, build_dlrm,
                                                  synthetic_batch)
 from dlrm_flexflow_tpu_torch.models.nmt import build_nmt
+from dlrm_flexflow_tpu_torch.core import optimizers as opt_mod
 from dlrm_flexflow_tpu_torch.ops.kernels import build
+from dlrm_flexflow_tpu_torch.ops.kernels import dense_update as dense_mod
 from dlrm_flexflow_tpu_torch.ops.kernels import embedding_bag as bag_mod
 from dlrm_flexflow_tpu_torch.ops.kernels import interaction as inter_mod
 from dlrm_flexflow_tpu_torch.ops.kernels import lstm as lstm_mod
@@ -211,6 +230,15 @@ TRAIN_OPTS = {
 }
 TRAIN_RUNS = (("cat", "sgd"), ("dot", "sgd"), ("cat", "default"),
               ("cat", "momentum"), ("cat", "adam"), ("dot", "adam"))
+# the settings the dense update is held to: the training runs' four,
+# nesterov, and Adam with weight decay
+DENSE_OPTS = {
+    **TRAIN_OPTS,
+    "default": lambda: SGDOptimizer(lr=LR, weight_decay=1e-4),
+    "nesterov": lambda: SGDOptimizer(lr=LR, momentum=0.9, nesterov=True,
+                                     weight_decay=1e-4),
+    "adam_wd": lambda: AdamOptimizer(alpha=0.001, weight_decay=1e-4),
+}
 # the scatter kernels a training step may launch
 SCATTERS = ("scatter_add_rows", "scatter_write_rows", "stateful_update_rows")
 CHECK_ROWS = 65_536  # rows per table of the card-versus-CPU step check
@@ -231,7 +259,11 @@ NMT_B, NMT_SEQ, NMT_VOCAB, NMT_DIM, NMT_LAYERS, NMT_LR = (
 NMT_LAUNCHES = {"lstm_fwd": 4, "lstm_fwd:resident": 4, "lstm_bwd": 4,
                 "lstm_bwd:resident": 4,
                 "lstm_gates": 4, "scatter_add_rows": 2,
-                "scatter_add_rows:block": 2, "scatter_presort": 2}
+                "scatter_add_rows:block": 2, "scatter_presort": 2,
+                "dense_update": 1}
+# Adam's step size is computed on the device from the step: checked
+# against the CPU's for steps 0 to ALPHA_STEPS - 1
+ALPHA_STEPS = 100_000
 # the card-versus-CPU step, at a reduced size in fp32
 NMT_CHECK = dict(vocab=4096, dim=256, seq=12, batch=16, dtype="float32")
 
@@ -872,85 +904,143 @@ def scatter_kernels(dev, gen, table):
     return rows
 
 
+def stateful_ids(gen, dev, n, kind):
+    """``scatter_ids``, or with kind "pads" uniform ids with pad slots
+    among them (-1 in a run and alone, and -(rows + 1))."""
+    if kind != "pads":
+        return scatter_ids(gen, dev, n, kind)
+    ids = scatter_ids(gen, dev, n, "uniform")
+    ids[3] = -1
+    ids[n // 2:n // 2 + n // 8] = -1
+    ids[n // 4] = -(T * ROWS + 1)
+    return ids
+
+
+def stateful_check(table, slabs, gen, dev, n, kind, name, fused):
+    """One ``stateful_update_rows`` call on its "fused" route (or on
+    the pre-pass routes) against the plain version on the CPU over the
+    same rows; returns the largest difference."""
+    opt = TRAIN_OPTS[name]() or SGDOptimizer(lr=LR, weight_decay=1e-4)
+    p = opt.row_params()
+    alpha_t = opt.alpha_t(torch.tensor(4, dtype=torch.int32, device=dev))
+    mine = {k: slabs[k] for k in opt.sparse_slab_names()}
+    for v in mine.values():   # fresh state (momentum's v may be < 0)
+        v.uniform_(0.0, 1e-3, generator=gen)
+    ids = stateful_ids(gen, dev, n, kind)
+    upd = torch.randn(n, D, device=dev, generator=gen)
+    fwd = table[ids.clamp(min=0)]
+    real = ids >= 0
+    uniq, inv = torch.unique(ids[real], return_inverse=True)
+    spare = torch.randint(0, T * ROWS, (4096,), device=dev, generator=gen)
+    spare = spare[~torch.isin(spare, uniq)]
+    spare_rows = [t[spare].clone() for t in (table, *mine.values())]
+    # the plain version over the touched rows alone, on the CPU: a
+    # compact table whose row i is uniq[i] (a monotone renaming, so each
+    # row's lookups keep their order; pads stay pads)
+    cids = ids.clone()
+    cids[real] = inv
+    want = table[uniq].cpu()
+    want_s = {k: v[uniq].cpu() for k, v in mine.items()}
+    scat_mod.stateful_update_rows_reference(
+        want, cids.cpu(), upd.cpu(), fwd.cpu(), want_s, p,
+        None if alpha_t is None else alpha_t.cpu())
+    route = "fused" if fused else scat_mod.scatter_route(n, T * ROWS)
+    before = scat_mod.stateful_update_rows.routes[route]
+    scat_mod._stateful_kernels(table, ids, upd, fwd, mine, p, alpha_t, 1,
+                               fused)
+    check(scat_mod.stateful_update_rows.routes[route] == before + 1,
+          f"stateful_update_rows did not take the {route} route")
+    got = [table[uniq].cpu()] + [mine[k][uniq].cpu() for k in want_s]
+    err = 0.0
+    for a, b in zip(got, [want] + list(want_s.values())):
+        err = max(err, float((a - b).abs().max()))
+        check(torch.equal(a, b), f"stateful_update_rows kernel ({route} "
+              f"route, {name}, n={n}, {kind} ids) disagrees with its "
+              f"plain version")
+    check(all(torch.equal(t[spare], r) for t, r in
+              zip((table, *mine.values()), spare_rows)),
+          f"stateful_update_rows kernel ({route} route, {name}) changed "
+          f"rows it was not given")
+    return err
+
+
 def stateful_kernel(dev, gen, table):
-    """Kernel 2's stateful entry, ``stateful_update_rows``, on the 8M-row
+    """Kernel 4's stateful entry, ``stateful_update_rows``, on the 8M-row
     table with state slabs of its size, at the "cat" step's n = 2,048
-    lookups (uniform ids, the first 8 equal) with the forward rows as
-    the step passes them: for each stateful optimizer of the training
-    runs, the touched rows and their slab rows held bitwise to the plain
-    version run on the CPU over the same rows (the same alpha_t tensor),
-    a sample of untouched rows unchanged; then, under Adam (two slabs),
-    timed beside its bound and its plain version. No one PyTorch call
-    computes a lazy row-wise optimizer step, so it has no library
-    time."""
+    lookups with the forward rows as the step passes them: on the
+    one-launch "fused" route the step takes and on the pre-pass route
+    the kernel had before it ("block", the one above BLOCK_SORT_MAX
+    being "sort"), for each stateful optimizer of the
+    training runs, in uniform (the first 8 equal), all-equal and Zipf
+    ids and with pad slots, the touched rows and their slab rows held
+    bitwise to the plain version run on the CPU over the same rows (the
+    same alpha_t tensor), a sample of untouched rows unchanged; then,
+    under Adam (two slabs), both routes timed beside the bound and the
+    plain version at n = 2,048, and at 4,096, 8,192 and FUSED_MAX
+    lookups (which set FUSED_MAX). No one PyTorch call computes a
+    lazy row-wise optimizer step, so it has no library time."""
     src = "dlrm_flexflow_tpu_torch/csrc/scatter_rows.cu"
     pallas = "dlrm_flexflow_tpu/ops/pallas/embedding_kernel.py"
     n = TRAIN_B * T * BAG
     slabs = {k: 1e-3 * torch.rand(T * ROWS, D, device=dev, generator=gen)
              for k in ("m", "v")}
-    sets = []
-    for _ in range(60):       # 90 MB of rows, updates and residuals
-        ids = scatter_ids(gen, dev, n, "uniform")
-        sets.append((ids, torch.randn(n, D, device=dev, generator=gen),
-                     table[ids]))
-    ids, upd, fwd = sets[0]
-    uniq, inv = torch.unique(ids, return_inverse=True)
-    m = int(uniq.numel())
-    spare = torch.randint(0, T * ROWS, (4096,), device=dev, generator=gen)
-    spare = spare[~torch.isin(spare, uniq)]
-    step = torch.tensor(4, dtype=torch.int32, device=dev)
     err = 0.0
-    for name in ("default", "momentum", "adam"):
-        opt = TRAIN_OPTS[name]() or SGDOptimizer(lr=LR, weight_decay=1e-4)
-        p, alpha_t = opt.row_params(), opt.alpha_t(step)
-        mine = {k: slabs[k] for k in opt.sparse_slab_names()}
-        for v in mine.values():   # fresh state (momentum's v may be < 0)
-            v.uniform_(0.0, 1e-3, generator=gen)
-        # the plain version over the touched rows alone, on the CPU: a
-        # compact table whose row i is uniq[i] (a monotone renaming, so
-        # each row's lookups keep their order)
-        want = table[uniq].cpu()
-        want_s = {k: v[uniq].cpu() for k, v in mine.items()}
-        spare_rows = [t[spare].clone() for t in (table, *mine.values())]
-        scat_mod.stateful_update_rows_reference(
-            want, inv.cpu(), upd.cpu(), fwd.cpu(), want_s, p,
-            None if alpha_t is None else alpha_t.cpu())
-        scat_mod.stateful_update_rows(table, ids, upd, fwd, mine, p,
-                                      alpha_t)
-        got = [table[uniq].cpu()] + [mine[k][uniq].cpu() for k in want_s]
-        for a, b in zip(got, [want] + list(want_s.values())):
-            err = max(err, float((a - b).abs().max()))
-            check(torch.equal(a, b), f"stateful_update_rows kernel ({name}) "
-                  f"disagrees with its plain version")
-        check(all(torch.equal(t[spare], r) for t, r in
-                  zip((table, *mine.values()), spare_rows)),
-              f"stateful_update_rows kernel ({name}) changed rows it was "
-              f"not given")
-    print(f"kernel stateful_update_rows at n={n} ({m} distinct rows, the "
-          f"forward rows as residual): bitwise equal to its plain version "
-          f"on the CPU under compile()'s default SGD (weight decay), "
-          f"momentum with weight decay and Adam; untouched rows kept")
-    # Adam: the ids, the updates, per distinct row its weight (forward
-    # row) read and written and its m and v rows read and written; about
-    # 12 operations an element of a distinct row and one add a lookup's
+    for kind in ("uniform", "equal", "zipf", "pads"):
+        for name in ("default", "momentum", "adam"):
+            for fused in (True, False):
+                err = max(err, stateful_check(table, slabs, gen, dev, n,
+                                              kind, name, fused))
+    print(f"kernel stateful_update_rows at n={n}, on the fused and the "
+          f"block route, in uniform, all-equal and Zipf ids and with pads: "
+          f"bitwise equal to its plain version on the CPU under compile()'s "
+          f"default SGD (weight decay), momentum with weight decay and "
+          f"Adam; untouched rows kept")
     opt = TRAIN_OPTS["adam"]()
-    p, alpha_t = opt.row_params(), opt.alpha_t(step)
-    b_ms, b_by = bound(n * 8 + n * D * 4 + m * D * 4 * (2 + 2 * 2),
-                       n * D + 12 * m * D)
-    r = {"name": "stateful_update_rows", "route": "cuda", "source": src,
-         "replaces": f"{pallas}:495", "max_abs_err": err,
-         "bound_ms": b_ms, "bound_by": b_by,
-         **timed("", lambda i, u, f: scat_mod.stateful_update_rows(
-             table, i, u, f, slabs, p, alpha_t, ids_in_range=True), sets),
-         **timed("plain_", lambda i, u, f:
-                 scat_mod.stateful_update_rows_reference(
-                     table, i, u, f, slabs, p, alpha_t), sets),
-         "library_ms": None, "library_call_ms": None}
-    print_row(r, f" (n={n}, Adam, forward rows as residual; library: "
-              f"none)")
-    del slabs, sets
+    p = opt.row_params()
+    alpha_t = opt.alpha_t(torch.tensor(4, dtype=torch.int32, device=dev))
+    row = None
+    for n_ in (n, 4096, 8192, scat_mod.FUSED_MAX):
+        # 90 MB of rows, updates and residuals at n = 2,048, cycled
+        sets = []
+        for _ in range(60 if n_ == n else 8):
+            ids = scatter_ids(gen, dev, n_, "uniform")
+            sets.append((ids, torch.randn(n_, D, device=dev, generator=gen),
+                         table[ids]))
+        m = int(torch.unique(sets[0][0]).numel())
+        # Adam: the ids, the updates, per distinct row its weight (forward
+        # row) read and written and its m and v rows read and written;
+        # about 12 operations an element of a distinct row and one add a
+        # lookup's
+        b_ms, b_by = bound(n_ * 8 + n_ * D * 4 + m * D * 4 * (2 + 2 * 2),
+                           n_ * D + 12 * m * D)
+
+        def run(fused):
+            return lambda i, u, f: scat_mod._stateful_kernels(
+                table, i, u, f, slabs, p, alpha_t, 1, fused)
+
+        r = {"name": "stateful_update_rows", "route": "cuda", "source": src,
+             "replaces": f"{pallas}:495", "max_abs_err": err,
+             "bound_ms": b_ms, "bound_by": b_by, **timed("", run(True), sets),
+             **timed("block_", run(False), sets)}
+        if n_ == n:
+            r.update(**timed("plain_", lambda i, u, f:
+                             scat_mod.stateful_update_rows_reference(
+                                 table, i, u, f, slabs, p, alpha_t), sets),
+                     library_ms=None, library_call_ms=None)
+            row = r
+            print_row(r, f" (n={n}, Adam, forward rows as residual, fused "
+                      f"route; the block route {r['block_ms']:.4f} ms, call "
+                      f"{r['block_call_ms']:.4f} ms; library: none)")
+        else:
+            print(f"kernel stateful_update_rows at n={n_} (Adam): fused "
+                  f"{r['ms']:.4f} ms (call {r['call_ms']:.4f} ms), block "
+                  f"{r['block_ms']:.4f} ms (call {r['block_call_ms']:.4f} "
+                  f"ms); bound {1e3 * b_ms:.2f} us ({b_by}); the wrapper "
+                  f"takes the {scat_mod.stateful_route(n_, T * ROWS)} route")
+        del sets
+    del slabs
     torch.cuda.empty_cache()
-    return {r["name"]: r}
+    return {row["name"]: row}
 
 
 def scatter_pads(dev, gen, table):
@@ -1229,12 +1319,150 @@ def lstm_kernels(dev):
     return rows
 
 
+def dense_params(mode):
+    """The dense parameters of the full-width model of one graph, as
+    its training step hands them to the optimizer: every parameter on
+    "dot" (its 8M x 64 table, 1.9 GiB, included), all but the table on
+    "cat" (which takes the touched-rows update)."""
+    model, _ = train_model(mode, "cuda")
+    model.init_layers()
+    sparse = {op.name for op in model._select_sparse_update_ops()}
+    return [v for op, p in model.params.items() if op not in sparse
+            for v in p.values()]
+
+
+def dense_state(gen, ws, names):
+    """Non-zero state for each weight: v positive, as a sum of squares
+    is (momentum's v too, which does not matter)."""
+    return [{k: 1e-3 * (torch.rand(w.shape, device=w.device, generator=gen)
+                        if k == "v" else torch.randn(
+                            w.shape, device=w.device, generator=gen))
+             for k in names} for w in ws]
+
+
+def library_update(opt, ws, gs, slabs, steps):
+    """One PyTorch call that computes the optimizer step over the same
+    tensor lists (``torch._fused_adam_`` / ``_fused_sgd_``, another
+    operation order, so not bitwise), or None where this PyTorch lacks
+    it. A yardstick only: the port never calls it."""
+    p = opt.row_params()
+    if p["kind"] == "adam" and hasattr(torch, "_fused_adam_"):
+        ms, vs = [s["m"] for s in slabs], [s["v"] for s in slabs]
+        return lambda: torch._fused_adam_(
+            ws, gs, ms, vs, [], steps, lr=opt.alpha, beta1=p["beta1"],
+            beta2=p["beta2"], weight_decay=p["weight_decay"],
+            eps=p["epsilon"], amsgrad=False, maximize=False)
+    if p["kind"] == "sgd" and hasattr(torch, "_fused_sgd_"):
+        bufs = [s["v"] for s in slabs] if p["momentum"] > 0 else []
+        return lambda: torch._fused_sgd_(
+            ws, gs, bufs, weight_decay=p["weight_decay"],
+            momentum=p["momentum"], lr=p["lr"], dampening=0.0,
+            nesterov=p["nesterov"], maximize=False, is_first_step=False)
+    return None
+
+
+def dense_kernel(dev):
+    """The dense update (``dense_update``, one launch for every dense
+    parameter of a step) over the full-width "dot" parameter set (the
+    8M x 64 table and the MLPs, 15 tensors) and the "cat" set (its 14
+    MLP tensors), from non-zero state, held BITWISE to its plain version
+    on the card (``dense_update_reference``: the same row math as
+    separate PyTorch ops, one rounding each) under all of DENSE_OPTS;
+    then timed beside its bound, the plain version and one
+    ``torch._fused_adam_`` / ``_fused_sgd_`` call over the same lists,
+    under Adam (the row) and plain SGD, on both sets."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    step = torch.tensor(4, dtype=torch.int32, device=dev)
+    print("kernel dense_update: blocks per SM "
+          + ", ".join(f"{k} slabs {dense_mod.blocks_per_sm(k)}"
+                      for k in range(3)))
+    row = None
+    for mode in ("dot", "cat"):
+        ws = dense_params(mode)
+        gs = [torch.randn(w.shape, device=dev, generator=gen) for w in ws]
+        nel = sum(w.numel() for w in ws)
+        err = 0.0
+        for name, make in DENSE_OPTS.items():
+            opt = make()
+            p, alpha_t = opt.row_params(), opt.alpha_t(step)
+            slabs = dense_state(gen, ws, opt.sparse_slab_names())
+            got_w = [w.clone() for w in ws]
+            got_s = [{k: v.clone() for k, v in s.items()} for s in slabs]
+            before = dense_mod.dense_update.launches
+            dense_mod.dense_update(got_w, gs, got_s, p, alpha_t)
+            made = dense_mod.dense_update.launches - before
+            check(made == 1, f"dense_update made {made} launches for "
+                  f"{len(ws)} tensors")
+            dense_mod.dense_update_reference(ws, gs, slabs, p, alpha_t)
+            for a, b in zip(got_w + [t for s in got_s for t in s.values()],
+                            ws + [t for s in slabs for t in s.values()]):
+                err = max(err, float((a - b).abs().max()))
+                check(torch.equal(a, b), f"dense_update kernel ({mode}, "
+                      f"{name}) disagrees with its plain version")
+            del got_w, got_s, slabs
+        print(f"kernel dense_update over the \"{mode}\" set ({len(ws)} "
+              f"tensors, {nel} elements): bitwise equal to its plain version "
+              f"on the card under {', '.join(DENSE_OPTS)}")
+        for name in ("adam", "sgd"):
+            opt = DENSE_OPTS[name]()
+            p, alpha_t = opt.row_params(), opt.alpha_t(step)
+            names = opt.sparse_slab_names()
+            slabs = dense_state(gen, ws, names)
+            steps = [torch.tensor(5.0, device=dev) for _ in ws]
+            lib = library_update(opt, ws, gs, slabs, steps)
+            # each element of w, g and every slab read once, w and every
+            # slab written once; Adam about 11 operations an element
+            b_ms, b_by = bound(nel * 4 * (3 + 2 * len(names)),
+                               nel * (11 if name == "adam" else 3))
+            r = {"name": "dense_update", "route": "cuda",
+                 "source": "dlrm_flexflow_tpu_torch/csrc/dense_update.cu",
+                 "replaces": "dlrm_flexflow_tpu/core/optimizers.py:167",
+                 "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+                 **timed("", lambda: dense_mod.dense_update(
+                     ws, gs, slabs, p, alpha_t), [()]),
+                 **timed("plain_", lambda: dense_mod.dense_update_reference(
+                     ws, gs, slabs, p, alpha_t), [()]),
+                 **(timed("library_", lib, [()]) if lib else
+                    {"library_ms": None, "library_call_ms": None})}
+            what = ("torch._fused_adam_" if name == "adam"
+                    else "torch._fused_sgd_")
+            print_row(r, f" (\"{mode}\" set, {name}; library: {what}"
+                      f"{'' if lib else ', which this PyTorch lacks'})")
+            if (mode, name) == ("dot", "adam"):
+                row = r
+            del slabs, steps, lib
+        del ws, gs
+        torch.cuda.empty_cache()
+    return {row["name"]: row}
+
+
+def alpha_t_check(dev):
+    """Adam's step size, the 0-d fp32 tensor the port computes on the
+    device from the int32 step (``AdamOptimizer.alpha_t``), against the
+    same computed on the CPU, for steps 0 to ALPHA_STEPS - 1, one 0-d
+    call each as a training step makes it: prints how many differ."""
+    opt = AdamOptimizer(alpha=0.001)
+    steps = torch.arange(ALPHA_STEPS, dtype=torch.int32)
+    on_card = steps.to(dev)
+    got = torch.stack([opt.alpha_t(on_card[i])
+                       for i in range(ALPHA_STEPS)]).cpu()
+    want = torch.stack([opt.alpha_t(steps[i]) for i in range(ALPHA_STEPS)])
+    differ = torch.nonzero(got.view(torch.int32)
+                           != want.view(torch.int32)).reshape(-1)
+    print(f"alpha_t: card against cpu, bitwise, steps 0-{ALPHA_STEPS - 1}: "
+          f"{differ.numel()} differ"
+          + (f" (steps {differ[:100].tolist()}; largest difference "
+             f"{float((got - want).abs().max()):.3g})"
+             if differ.numel() else ""))
+
+
 # every kernel wrapper of the port, each counting its own launches (and
 # those with several routes, each route's in ``routes``)
 LAUNCHED = (bag_mod.embedding_bag, inter_mod.fused_interaction,
             scat_mod.scatter_add_rows, scat_mod.scatter_write_rows,
             scat_mod.stateful_update_rows,
-            scat_mod.scatter_presort, topk_mod.mips_topk,
+            scat_mod.scatter_presort, dense_mod.dense_update,
+            topk_mod.mips_topk,
             bag_mod.embedding_bag_quant, inter_mod.fused_interaction_quant,
             lstm_mod.lstm_fwd, lstm_mod.lstm_gates, lstm_mod.lstm_bwd)
 
@@ -1275,6 +1503,8 @@ class PlainCalls:
                           (scat_mod, "scatter_write_rows_reference"),
                           (scat_mod, "stateful_update_rows_reference"),
                           (scat_mod, "presort_reference"),
+                          (scat_mod, "row_update_reference"),
+                          (dense_mod, "dense_update_reference"),
                           (topk_mod, "mips_topk_reference"),
                           (bag_mod, "embedding_bag_quant_reference"),
                           (inter_mod, "fused_interaction_quant_reference"),
@@ -1788,13 +2018,17 @@ def train_report(run):
     stateful = mode == "cat" and model._stateful_sparse()
     kernel = ("scatter_add_rows" if mode == "dot" else
               "stateful_update_rows" if stateful else "scatter_write_rows")
+    # the stateful update takes its one-launch route, the scatters one
+    # pre-pass each; one dense update a step
+    route, presorts = ("fused", 0) if stateful else ("block", TRAIN_STEPS)
     check(launches[kernel] == TRAIN_STEPS
-          and launches[f"{kernel}:block"] == launches[kernel]
-          == launches["scatter_presort"]
-          and all(launches[k] == 0 for k in SCATTERS if k != kernel),
+          and launches[f"{kernel}:{route}"] == launches[kernel]
+          and launches["scatter_presort"] == presorts
+          and all(launches[k] == 0 for k in SCATTERS if k != kernel)
+          and launches["dense_update"] == TRAIN_STEPS,
           f"train {what}: the {kernel} kernel did not launch once a step "
-          f"after the one-block pre-pass, alone of the scatters: "
-          f"{launches}")
+          f"on its {route} route after {presorts // TRAIN_STEPS} pre-pass, "
+          f"alone of the scatters, beside one dense update: {launches}")
     check(run["plain_calls"] == 0,
           f"train {what}: a plain version ran {run['plain_calls']} times")
     check(all(np.isfinite(losses)) and losses[-1] < losses[0],
@@ -1814,6 +2048,8 @@ def train_report(run):
 
     windows, walls = run["windows"], run["walls"]
     step_ms = float(np.mean(windows))
+    if (mode, opt) == ("dot", "adam"):
+        eager_dense_steps(model, db, what)
     device = profiled_steps(model, db, what, 5, step_ms)
     per_step = {k: v / TRAIN_STEPS for k, v in launches.items() if v}
     print(f"train {what}: {TRAIN_STEPS} steps back to back "
@@ -1828,6 +2064,51 @@ def train_report(run):
     torch.cuda.empty_cache()
     card_vs_cpu_step(mode, opt)
     return launches
+
+
+class EagerDense:
+    """While installed, the optimizers' dense update runs its plain
+    version on the card: the eager elementwise passes that the dense
+    update took before it had a kernel."""
+
+    def __enter__(self):
+        self._saved = opt_mod.dense_update
+        opt_mod.dense_update = dense_mod.dense_update_reference
+        return self
+
+    def __exit__(self, *exc):
+        opt_mod.dense_update = self._saved
+
+
+def eager_dense_steps(model, db, what):
+    """Steps of a timed model with the dense update on its kernel and,
+    in turn, on its plain version (EagerDense): each one window of
+    TRAIN_STEPS steps back to back, and each one step's peak device
+    memory, from a reset of the peak just before it. Prints both."""
+    res = {}
+    for label in ("kernel", "eager", "kernel ", "eager "):
+        with EagerDense() if label.startswith("eager") else \
+                contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TRAIN_STEPS):
+                model.train_batch_device(db)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            model.train_batch_device(db)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+        res.setdefault(label.strip(), []).append((ms, peak, base))
+    gib = 2 ** 30
+    print(f"train {what}: dense update on its kernel against its plain "
+          f"version (eager passes), in turn: " + "; ".join(
+              f"{k} " + ", ".join(
+                  f"{ms:.3f} ms/step, peak {peak / gib:.3f} GiB "
+                  f"({(peak - base) / gib:.3f} above the step's start)"
+                  for ms, peak, base in v)
+              for k, v in res.items()))
 
 
 def card_vs_cpu_step(mode, opt="sgd"):
@@ -2050,6 +2331,8 @@ def main() -> int:
         add(train_report(run))
     del runs
     rows = kernel_phase(dev)
+    rows.update(dense_kernel(dev))
+    alpha_t_check(dev)
     rows.update(topk_kernel(dev))
     rows.update(lstm_kernels(dev))
     torch.cuda.empty_cache()

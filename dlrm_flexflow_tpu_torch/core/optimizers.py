@@ -11,8 +11,10 @@ the parameters and the state IN PLACE and returns them.
 
 The row math lives in one place, ``ops.kernels.scatter_rows.
 row_update_reference``, in the JAX optimizers' operation order: the
-dense ``update`` runs it on whole parameters, the touched-rows kernel's
-plain version on gathered rows, and the CUDA kernel repeats it.
+dense ``update`` runs it on whole parameters (``ops.kernels.
+dense_update``: on the card one multi-tensor kernel launch for all of
+them), the touched-rows kernel's plain version on gathered rows, and
+both CUDA kernels repeat it (``csrc/row_math.cuh``).
 ``row_params()`` hands it the hyperparameters; Adam's step size alpha_t
 is computed on the device from the step (``alpha_t``), so no step waits
 for the host.
@@ -24,6 +26,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..ops.kernels.dense_update import dense_update
 from ..ops.kernels.scatter_rows import (row_update_reference, slab_names,
                                         sqrt_rn)
 
@@ -44,15 +47,17 @@ class Optimizer:
 
     @torch.no_grad()
     def update(self, params, grads, state):
-        """Apply one step in place; returns (params, state)."""
-        p = self.row_params()
+        """Apply one step in place, through ``dense_update`` over every
+        parameter (one kernel launch on the card); returns (params,
+        state)."""
         names = self.sparse_slab_names()
         alpha_t = self.alpha_t(state["step"]) if "step" in state else None
-        for op, ps in params.items():
-            for pn, w in ps.items():
-                row_update_reference(w, grads[op][pn],
-                                     {k: state[k][op][pn] for k in names},
-                                     p, alpha_t)
+        keys = [(op, pn) for op, ps in params.items() for pn in ps]
+        dense_update([params[op][pn] for op, pn in keys],
+                     [grads[op][pn] for op, pn in keys],
+                     [{k: state[k][op][pn] for k in names}
+                      for op, pn in keys],
+                     self.row_params(), alpha_t)
         if "step" in state:
             state["step"].add_(1)
         return params, state

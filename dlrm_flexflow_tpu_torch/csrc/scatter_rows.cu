@@ -1,5 +1,6 @@
-// Touched-rows scatter updates for Hopper (sm_90a): a pre-pass kernel
-// and two update kernels behind three entry points.
+// Touched-rows scatter updates for Hopper (sm_90a): a pre-pass kernel,
+// two update kernels that run after it, and a stateful update kernel
+// that needs none, behind five entry points.
 //
 // Replaces two Pallas TPU kernels of
 // dlrm_flexflow_tpu/ops/pallas/embedding_kernel.py:
@@ -67,18 +68,51 @@
 //    lookup names are never read or written: their weight and state stay
 //    (lazy semantics; a dense update would decay them). Adam's alpha_t
 //    is a 0-d fp32 tensor computed on the device from the step, read
-//    here, so the step never travels to the host.
+//    here, so the step never travels to the host. The row math is
+//    row_math.cuh's, which the dense update (dense_update.cu) shares.
+// 4. stateful_fused_kernel: the stateful update in ONE launch, no
+//    pre-pass, for n up to kFusedMax lookups (the wrapper's "fused"
+//    route; "sort" above it). Each block stages the n ids as int32 keys
+//    in shared memory (a pad as kPadKey32, which no real row id below
+//    2^31 - 1 equals; kPadKey32 also fills the keys up to a whole scan
+//    step, so a scan reads without bounds checks), and each of its warps
+//    serves one lookup g at a time. The warp scans the keys below g,
+//    kStep a step (every lane's kScan loads issued at once, one vote a
+//    step), and leaves when one names g's row: g is not the row's first
+//    lookup, so not its owner. The owner loads its weight and slab rows
+//    (which only it may touch) and scans the keys above g, one vote a
+//    step; in a step that holds lookups of its row, __ballot_sync and a
+//    prefix count compact them, in order, into the warp's buffer in
+//    shared memory as update-row indices, and every kUnroll of them are
+//    loaded at once and added as soon as they are there. The sum runs
+//    in ascending lookup order from 0, g's own update row first (loaded,
+//    with its forward row, before the keys are staged): the same serial
+//    chain per row as the segment walk, with no sort, no order and no
+//    grid barrier. The warp's lanes hold one 16-byte column chunk each
+//    (d = 64: 16 of 32 lanes; above d = 128 the owner repeats its scan
+//    for each 32 chunks). The scans are n^2/32 shared-memory compares
+//    over the card, which is why the route ends at kFusedMax, where it
+//    still beats the pre-pass route. Tried first: the matches taken from
+//    the ballot words one by one (slower on hot rows than the pre-pass
+//    route), and a hash table of the rows in shared memory, built with
+//    atomics, instead of the first scan (its build alone took longer
+//    than the whole call).
 //
 // Bound: memory. The function reads the ids (8 B a lookup), the updates
 // (n/div rows), one table row (read-modify-write) or one forward row
 // (write-only) per distinct row, and writes one row per distinct row: at
 // the training shape (n = 2,048 lookups, d = 64) about 1.6 MB, 0.5 us at
 // 3.35 TB/s, so a call is launch- and latency-bound: two launches, each
-// a few dependent loads deep. The stateful update adds a read and a
-// write of each slab row per distinct row (Adam: 4 more rows).
+// a few dependent loads deep (one on the stateful "fused" route). The
+// stateful update adds a read and a write of each slab row per distinct
+// row (Adam: 4 more rows).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
+
+#include "row_math.cuh"
 
 namespace {
 
@@ -90,6 +124,14 @@ constexpr int kRankPerBlock = kRankThreads / 32 * kRankPerWarp;
 constexpr int kUnroll = 8;                 // a group's update loads in flight
 // a pad slot's row key (row id < 0): after every real row (< 2^31)
 constexpr uint32_t kPadRow = 0xFFFFFFFFu;
+// the one-launch stateful route: its lookups, warps a block, and a pad
+// slot's int32 key (the wrapper keeps row ids below 2^31 - 1)
+constexpr int kFusedMax = 16384;
+constexpr int kFusedWarps = 8;
+constexpr int kStage = 8;        // ids a thread loads at once into the keys
+constexpr int kScan = 8;         // 32-key chunks a warp compares at once
+constexpr int kStep = 32 * kScan;  // keys a scan step
+constexpr int kPadKey32 = 0x7FFFFFFF;
 
 // The pre-pass: every lookup j's place p in the stable sorted order is
 // the number of keys below its own, key = (row id << 32 | position), all
@@ -218,40 +260,6 @@ scatter_rows_kernel(float4* __restrict__ table,
       __fadd_rn(base.z, acc.z), __fadd_rn(base.w, acc.w));
 }
 
-// The optimizer's hyperparameters, fp32 as JAX's weak-typed Python
-// floats round them (c1 = 1 - beta1 and c2 = 1 - beta2 computed in
-// double first); momentum and wd are 0 where the optimizer has none.
-struct OptParams {
-  int adam, nesterov;
-  float wd, lr, momentum, b1, c1, b2, c2, eps;
-};
-
-// One lane of a row: w and the state s0, s1 updated in place from the
-// summed gradient g, in the order of row_update_reference (and of the
-// JAX optimizers), one rounding an operation, never contracted:
-//   gt = g + wd*w
-//   SGD:  v = m*v + gt; d = gt + m*v (nesterov) | v | gt; w = w - lr*d
-//   Adam: m = b1*m + c1*gt; v = b2*v + (c2*gt)*gt;
-//         w = w - (alpha_t*m) / (sqrt(v) + eps)
-__device__ __forceinline__ void update_lane(float& w, float g, float& s0,
-                                            float& s1, const OptParams& p,
-                                            float alpha_t) {
-  const float gt = p.wd > 0.f ? __fadd_rn(g, __fmul_rn(p.wd, w)) : g;
-  if (p.adam) {
-    s0 = __fadd_rn(__fmul_rn(p.b1, s0), __fmul_rn(p.c1, gt));
-    s1 = __fadd_rn(__fmul_rn(p.b2, s1), __fmul_rn(__fmul_rn(p.c2, gt), gt));
-    w = __fsub_rn(w, __fdiv_rn(__fmul_rn(alpha_t, s0),
-                               __fadd_rn(__fsqrt_rn(s1), p.eps)));
-    return;
-  }
-  float d = gt;
-  if (p.momentum > 0.f) {
-    s0 = __fadd_rn(__fmul_rn(p.momentum, s0), gt);
-    d = p.nesterov ? __fadd_rn(gt, __fmul_rn(p.momentum, s0)) : s0;
-  }
-  w = __fsub_rn(w, __fmul_rn(p.lr, d));
-}
-
 // Group g serves row ids[g] when lookup g is that row's first, as in
 // scatter_rows_kernel: the row's summed gradient, then its weight and
 // state-slab rows through update_lane, each written back. slab0 is
@@ -280,13 +288,166 @@ stateful_rows_kernel(float4* __restrict__ table,
   float4 s1 = slab1 ? slab1[at] : zero;
   const float a = alpha_t ? __ldg(alpha_t) : 0.f;
   const float4 acc = segment_sum<false>(s, order, upd, vec, c, div, 1.f);
-  update_lane(w.x, acc.x, s0.x, s1.x, p, a);
-  update_lane(w.y, acc.y, s0.y, s1.y, p, a);
-  update_lane(w.z, acc.z, s0.z, s1.z, p, a);
-  update_lane(w.w, acc.w, s0.w, s1.w, p, a);
+  update_chunk(w, acc, s0, s1, p, a);
   table[at] = w;
   if (slab0) slab0[at] = s0;
   if (slab1) slab1[at] = s1;
+}
+
+// Adds to acc, in order, the chunk c of the update rows rows[0, count),
+// count <= kUnroll, all loads in flight first (warp-uniform; rows a
+// warp's buffer in shared memory).
+__device__ __forceinline__ void add_rows(float4& acc,
+                                         const float4* __restrict__ upd,
+                                         const int* rows, int count, int vec,
+                                         int c, bool on) {
+  int r[kUnroll];
+#pragma unroll
+  for (int i = 0; i < kUnroll; ++i) r[i] = i < count ? rows[i] : -1;
+  float4 u[kUnroll];
+#pragma unroll
+  for (int i = 0; i < kUnroll; ++i)
+    if (on && r[i] >= 0) u[i] = __ldg(upd + (int64_t)r[i] * vec + c);
+#pragma unroll
+  for (int i = 0; i < kUnroll; ++i)
+    if (on && r[i] >= 0) add_scaled<false>(acc, 1.f, u[i]);
+}
+
+// Warp-uniform: the warp's part of stateful_fused_kernel for lookup g,
+// whose own update and forward rows are u0 and f0 (lane < vec). keys32
+// holds the n keys and kPadKey32 after them up to a whole scan step;
+// buf is the warp's 2 * kStep ints of shared memory.
+__device__ __forceinline__ void fused_lookup(
+    float4* __restrict__ table, const float4* __restrict__ upd,
+    const float4* __restrict__ fwd, float4* __restrict__ slab0,
+    float4* __restrict__ slab1, const float* __restrict__ alpha_t,
+    const int* keys32, int* buf, int g, int lane, int n, int vec, int div,
+    const OptParams& p, float4 u0, float4 f0) {
+  const int key = keys32[g];
+  if (key == kPadKey32) return;                       // pads own nothing
+  for (int base = 0; base < g; base += kStep) {
+    int kv[kScan];                                    // all loads at once
+#pragma unroll
+    for (int q = 0; q < kScan; ++q) kv[q] = keys32[base + 32 * q + lane];
+    bool earlier = false;
+#pragma unroll
+    for (int q = 0; q < kScan; ++q)
+      earlier |= (kv[q] == key) & (base + 32 * q + lane < g);
+    if (__any_sync(0xffffffffu, earlier)) return;     // not the owner
+  }
+  const int64_t row = key;
+  const float a = alpha_t ? __ldg(alpha_t) : 0.f;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const unsigned below = (1u << lane) - 1;
+  for (int c0 = 0; c0 < vec; c0 += 32) {
+    const int c = c0 + lane;
+    const bool on = c < vec;
+    const int64_t at = row * vec + c;
+    float4 w = zero, s0 = zero, s1 = zero;
+    if (on) {
+      if (c0 > 0) {
+        u0 = __ldg(upd + (int64_t)(g / div) * vec + c);
+        if (fwd) f0 = __ldg(fwd + (int64_t)g * vec + c);
+      }
+      w = fwd ? f0 : table[at];
+      if (slab0) s0 = slab0[at];
+      if (slab1) s1 = slab1[at];
+    }
+    float4 acc = zero;
+    add_scaled<false>(acc, 1.f, u0);                  // lookup g, first
+    // the row's later lookups: each step's matches are compacted, in
+    // order, into buf as update-row indices; every kUnroll of them are
+    // added as soon as they are there, the rest carried to the next step
+    int pend = 0;
+    for (int base = g / kStep * kStep; base < n; base += kStep) {
+      int kv[kScan];
+#pragma unroll
+      for (int q = 0; q < kScan; ++q) kv[q] = keys32[base + 32 * q + lane];
+      bool any = false;
+#pragma unroll
+      for (int q = 0; q < kScan; ++q)
+        any |= (kv[q] == key) & (base + 32 * q + lane > g);
+      if (!__any_sync(0xffffffffu, any)) continue;   // most steps
+#pragma unroll
+      for (int q = 0; q < kScan; ++q) {
+        const int k = base + 32 * q + lane;
+        const bool hit = (kv[q] == key) & (k > g);
+        const unsigned m = __ballot_sync(0xffffffffu, hit);
+        if (hit) buf[pend + __popc(m & below)] = k / div;
+        pend += __popc(m);
+      }
+      if (pend >= kUnroll) {
+        __syncwarp();
+        int j = 0;
+        for (; j + kUnroll <= pend; j += kUnroll)
+          add_rows(acc, upd, buf + j, kUnroll, vec, c, on);
+        const int rest = pend - j;
+        const int carry = lane < rest ? buf[j + lane] : 0;
+        __syncwarp();
+        if (lane < rest) buf[lane] = carry;
+        __syncwarp();
+        pend = rest;
+      }
+    }
+    __syncwarp();
+    add_rows(acc, upd, buf, pend, vec, c, on);
+    __syncwarp();
+    if (on) {
+      update_chunk(w, acc, s0, s1, p, a);
+      table[at] = w;
+      if (slab0) slab0[at] = s0;
+      if (slab1) slab1[at] = s1;
+    }
+  }
+}
+
+// Warp w of the grid serves lookups w, w + the grid's warps, ... when
+// each is its row's first (item 4 above); slabs and alpha_t as in
+// stateful_rows_kernel. Shared memory: npad int32 keys, npad = n
+// rounded up to a scan step, then each warp's buffer of 2 * kStep ints.
+__global__ void __launch_bounds__(kFusedWarps * 32)
+stateful_fused_kernel(float4* __restrict__ table,
+                      const int64_t* __restrict__ ids,
+                      const float4* __restrict__ upd,
+                      const float4* __restrict__ fwd,
+                      float4* __restrict__ slab0, float4* __restrict__ slab1,
+                      const float* __restrict__ alpha_t, int n, int npad,
+                      int vec, int div, OptParams p) {
+  extern __shared__ int keys32[];
+  constexpr int kThreadsF = kFusedWarps * 32;
+  const int lane = threadIdx.x % 32;
+  int* buf = keys32 + npad + threadIdx.x / 32 * 2 * kStep;
+  // the warp's first lookup's own update and forward rows (read-only),
+  // in flight while the block stages the keys
+  const int g0 = blockIdx.x * kFusedWarps + threadIdx.x / 32;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 u0 = zero, f0 = zero;
+  if (g0 < n && lane < vec) {
+    u0 = __ldg(upd + (int64_t)(g0 / div) * vec + lane);
+    if (fwd) f0 = __ldg(fwd + (int64_t)g0 * vec + lane);
+  }
+  for (int i0 = 0; i0 < npad; i0 += kThreadsF * kStage) {
+    int64_t id[kStage];                               // all loads in flight
+#pragma unroll
+    for (int q = 0; q < kStage; ++q) {
+      const int i = i0 + q * kThreadsF + threadIdx.x;
+      id[q] = i < n ? __ldg(ids + i) : -1;
+    }
+#pragma unroll
+    for (int q = 0; q < kStage; ++q) {
+      const int i = i0 + q * kThreadsF + threadIdx.x;
+      if (i < npad) keys32[i] = id[q] < 0 ? kPadKey32 : (int)id[q];
+    }
+  }
+  __syncthreads();
+  for (int g = g0; g < n; g += gridDim.x * kFusedWarps) {  // warp-uniform
+    if (g != g0 && lane < vec) {
+      u0 = __ldg(upd + (int64_t)(g / div) * vec + lane);
+      if (fwd) f0 = __ldg(fwd + (int64_t)g * vec + lane);
+    }
+    fused_lookup(table, upd, fwd, slab0, slab1, alpha_t, keys32, buf, g,
+                 lane, n, vec, div, p, u0, f0);
+  }
 }
 
 int launch(void* table, const void* ids, const void* order, const void* seg,
@@ -384,6 +545,57 @@ int ff_stateful_update_rows(void* table, const void* ids, const void* order,
       (float4*)table, (const int64_t*)ids, (const int*)order,
       (const int2*)seg, (const float4*)upd, (const float4*)fwd,
       (float4*)slab0, (float4*)slab1, (const float*)alpha_t, n, vec, div, p);
+  return (int)cudaGetLastError();
+}
+
+// The most lookups the one-launch stateful route takes (their int32 keys
+// and the warps' buffers fill 80 KB of a block's shared memory).
+int ff_stateful_fused_max() { return kFusedMax; }
+
+// As ff_stateful_update_rows, in one launch and without the pre-pass's
+// order and seg: stateful_fused_kernel. n <= kFusedMax; row ids below
+// 2^31 - 1, a negative one a pad.
+int ff_stateful_update_fused(void* table, const void* ids, const void* upd,
+                             const void* fwd, void* slab0, void* slab1,
+                             const void* alpha_t, int n, int dim, int div,
+                             int adam, int nesterov, float wd, float lr,
+                             float momentum, float b1, float c1, float b2,
+                             float c2, float eps, void* stream) {
+  if (n <= 0) return 0;
+  if (n > kFusedMax) return (int)cudaErrorInvalidValue;
+  const int npad = (n + kStep - 1) / kStep * kStep;
+  const int bytes = (npad + kFusedWarps * 2 * kStep) * (int)sizeof(int);
+  // per device: the shared memory allowed (set once), and the blocks
+  // the card holds at once with the most of it
+  static int resident[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  int fit = dev < 64 ? resident[dev] : 0;
+  if (!fit) {
+    const int most = (kFusedMax + kFusedWarps * 2 * kStep) * (int)sizeof(int);
+    err = cudaFuncSetAttribute((const void*)stateful_fused_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               most);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &fit, stateful_fused_kernel, kFusedWarps * 32, most);
+    if (err != cudaSuccess) return (int)err;
+    int sms = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    fit *= sms;
+    if (dev < 64) resident[dev] = fit;
+  }
+  // a warp a lookup, or as many blocks as the card holds at once, each
+  // staging the keys once for several lookups a warp
+  const int blocks = std::min((n + kFusedWarps - 1) / kFusedWarps, fit);
+  const OptParams p{adam, nesterov, wd, lr, momentum, b1, c1, b2, c2, eps};
+  stateful_fused_kernel<<<blocks, kFusedWarps * 32, bytes,
+                          (cudaStream_t)stream>>>(
+      (float4*)table, (const int64_t*)ids, (const float4*)upd,
+      (const float4*)fwd, (float4*)slab0, (float4*)slab1,
+      (const float*)alpha_t, n, npad, dim / 4, div, p);
   return (int)cudaGetLastError();
 }
 

@@ -40,8 +40,11 @@ tiles): ``scatter_presort`` (a kernel; plain version
 a stable ``torch.sort`` of int32 ids above it, route "sort"
 (``scatter_route``). Both give the lookups in stable order of their row
 ids and, for each row's first lookup, where its segment of that order
-starts and how long it is. A CPU tensor takes the plain version; a CUDA tensor
-launches the kernels or raises, never falling back.
+starts and how long it is. ``stateful_update_rows`` needs no pre-pass
+up to FUSED_MAX lookups: route "fused" (``stateful_route``) is one
+launch that finds each row's first lookup and sums its lookups by
+scanning the ids itself. A CPU tensor takes the plain version; a CUDA
+tensor launches the kernels or raises, never falling back.
 ``scatter_add_rows.launches``, ``scatter_write_rows.launches``,
 ``stateful_update_rows.launches`` and ``scatter_presort.launches`` count
 kernel launches, ``.routes`` the update launches by route.
@@ -67,6 +70,10 @@ _SIGNATURES = {
     "ff_stateful_update_rows": (
         (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I)
         + (ctypes.c_float,) * 8 + (_P,), _I),
+    "ff_stateful_fused_max": ((), _I),
+    "ff_stateful_update_fused": (
+        (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I)
+        + (ctypes.c_float,) * 8 + (_P,), _I),
 }
 # the pre-pass kernel's limit (kBlockSortMax in csrc/scatter_rows.cu): a
 # block holds every key, 8 bytes each, in its 227 KB of shared memory
@@ -77,6 +84,10 @@ MAX_ROWS = 2 ** 31
 # sort last on both routes (the rank kernel keys them as row 2^32 - 1)
 PAD_KEY = 2 ** 32 - 1
 PAD_KEY32 = 2 ** 31 - 1
+# the one-launch stateful route's limit (kFusedMax in csrc/scatter_rows.cu):
+# a block holds every lookup's int32 key in shared memory. Measured on an
+# H100 (chip_smoke.py), it beats the pre-pass route at every n up to it
+FUSED_MAX = 16384
 
 
 def _segment_sums(ids, upd, scale, div):
@@ -132,6 +143,20 @@ def sqrt_rn(x):
 
 
 @torch.no_grad()
+def kernel_hyperparams(p) -> tuple:
+    """(adam, nesterov, wd, lr, momentum, b1, c1, b2, c2, eps): the row
+    math's arguments of the kernels' C entries (row_math.cuh's
+    OptParams) for optimizer parameters ``p``. The constants stay Python
+    doubles (1 - beta computed in double first), which ctypes casts to
+    fp32, as JAX's weak types round them."""
+    if p["kind"] == "adam":
+        return (1, 0, p["weight_decay"], 0.0, 0.0, p["beta1"],
+                1.0 - p["beta1"], p["beta2"], 1.0 - p["beta2"],
+                p["epsilon"])
+    return (0, int(bool(p.get("nesterov", False))), p["weight_decay"],
+            p["lr"], p["momentum"], 0.0, 0.0, 0.0, 0.0, 0.0)
+
+
 def row_update_reference(w, g, slabs, p, alpha_t=None):
     """The optimizer's update of rows ``w`` by gradient rows ``g``, IN
     PLACE on ``w`` and the state ``slabs`` ({name: tensor shaped as w}),
@@ -147,9 +172,10 @@ def row_update_reference(w, g, slabs, p, alpha_t=None):
       m = b1·m + (1 - b1)·gt; v = b2·v + ((1 - b2)·gt)·gt;
       w = w - (alpha_t·m) / (sqrt(v) + eps).
 
-    The dense optimizers run it on whole parameters, the touched-rows
-    update's plain version on the gathered rows; the CUDA kernel repeats
-    it with __fmul_rn/__fadd_rn/__fsub_rn/__fdiv_rn/__fsqrt_rn."""
+    The dense update's plain version runs it on whole parameters, the
+    touched-rows update's on the gathered rows; the CUDA kernels repeat
+    it with __fmul_rn/__fadd_rn/__fsub_rn/__fdiv_rn/__fsqrt_rn
+    (csrc/row_math.cuh)."""
     wd = p["weight_decay"]
     gt = g + wd * w if wd > 0.0 else g
     if p["kind"] == "adam":
@@ -193,6 +219,14 @@ def scatter_route(n: int, rows: int) -> str:
         raise ValueError(f"scatter kernels take tables of fewer than 2^31 "
                          f"rows (31-bit row keys), got {rows}")
     return "block" if n <= BLOCK_SORT_MAX else "sort"
+
+
+def stateful_route(n: int, rows: int) -> str:
+    """The route of ``stateful_update_rows`` for n lookups into a table of
+    ``rows`` rows: "fused" (one launch, no pre-pass) up to FUSED_MAX
+    lookups, else ``scatter_route``'s. Raises as ``scatter_route``."""
+    route = scatter_route(n, rows)
+    return "fused" if n <= FUSED_MAX else route
 
 
 def _segments(sorted_ids, order, pad=None):
@@ -289,11 +323,9 @@ def _check(table, ids, upd, fwd, div, ids_in_range):
                          f"table's {table.shape[0]} rows")
 
 
-def _presorted(table, ids, upd, fwd, slabs=()):
-    """Check what the update kernels take, then run the pre-pass: (route,
-    ids, upd, fwd, order, seg), the tensors contiguous; order is None
-    when there are no lookups. Raises on any input the kernels do not
-    take."""
+def _kernel_inputs(table, ids, upd, fwd, slabs=()):
+    """Check what the update kernels take: (ids, upd, fwd), contiguous.
+    Raises on any input the kernels do not take."""
     floats = (table, upd, *slabs) + (() if fwd is None else (fwd,))
     if any(t.dtype != torch.float32 for t in floats) \
             or ids.dtype != torch.int64:
@@ -306,14 +338,21 @@ def _presorted(table, ids, upd, fwd, slabs=()):
                     for t in (table, *slabs)):
         raise ValueError(f"scatter kernels need a contiguous, 16-byte "
                          f"aligned table and slabs with d % 4 == 0 (d={d})")
-    n = ids.shape[0]
-    route = scatter_route(n, table.shape[0])
     upd = upd.contiguous()
     ids = ids.contiguous()
     fwd = None if fwd is None else fwd.contiguous()
     if any(t.data_ptr() % 16 for t in (upd,) + (() if fwd is None
                                                  else (fwd,))):
         raise ValueError("scatter kernels need 16-byte aligned upd and fwd")
+    return ids, upd, fwd
+
+
+def _presorted(table, ids, upd, fwd, slabs=()):
+    """``_kernel_inputs``, then the pre-pass: (route, ids, upd, fwd,
+    order, seg); order is None when there are no lookups."""
+    n = ids.shape[0]
+    route = scatter_route(n, table.shape[0])
+    ids, upd, fwd = _kernel_inputs(table, ids, upd, fwd, slabs)
     if n == 0:
         return route, ids, upd, fwd, None, None
     if route == "block":
@@ -419,29 +458,42 @@ def stateful_update_rows(table: torch.Tensor, ids: torch.Tensor,
     if table.device.type != "cuda":
         raise ValueError(f"stateful_update_rows runs on cpu or cuda, not "
                          f"{table.device}")
+    fused = stateful_route(ids.shape[0], table.shape[0]) == "fused"
+    return _stateful_kernels(table, ids, upd, fwd, slabs, opt_params,
+                             alpha_t, div, fused)
+
+
+def _stateful_kernels(table, ids, upd, fwd, slabs, opt_params, alpha_t,
+                      div, fused):
+    """The kernels of ``stateful_update_rows`` on checked CUDA inputs:
+    with ``fused`` one launch (route "fused", n <= FUSED_MAX), else the
+    pre-pass of ``_presorted`` and one launch after it."""
+    names = slab_names(opt_params)
     slab = [slabs[k] for k in names]
-    route, ids, upd, fwd, order, seg = _presorted(table, ids, upd, fwd, slab)
-    if order is None:
-        return table
-    p = opt_params
-    # the constants as JAX's weak types round them: Python doubles
-    # (1 - beta computed in double first) cast to fp32 by ctypes
-    if adam:
-        hp = (p["weight_decay"], 0.0, 0.0, p["beta1"], 1.0 - p["beta1"],
-              p["beta2"], 1.0 - p["beta2"], p["epsilon"])
+    if fused:
+        route, order, seg = "fused", None, None
+        ids, upd, fwd = _kernel_inputs(table, ids, upd, fwd, slab)
     else:
-        hp = (p["weight_decay"], p["lr"], p["momentum"], 0.0, 0.0, 0.0,
-              0.0, 0.0)
+        route, ids, upd, fwd, order, seg = _presorted(table, ids, upd, fwd,
+                                                      slab)
+    n = ids.shape[0]
+    if n == 0:
+        return table
+    adam, nesterov, *hp = kernel_hyperparams(opt_params)
     slab += [None] * (2 - len(slab))
     lib = build.load("scatter_rows", _SIGNATURES)
-    err = lib.ff_stateful_update_rows(
-        table.data_ptr(), ids.data_ptr(), order.data_ptr(), seg.data_ptr(),
-        upd.data_ptr(), _ptr(fwd), _ptr(slab[0]), _ptr(slab[1]),
-        _ptr(alpha_t) if adam else None, ids.shape[0], table.shape[1],
-        int(div), int(adam), int(bool(p.get("nesterov", False))),
-        *(float(x) for x in hp), build.stream_of(table))
-    build.check(lib, err, f"ff_stateful_update_rows kernel ({route} "
-                f"pre-pass)")
+    common = (_ptr(slab[0]), _ptr(slab[1]),
+              _ptr(alpha_t) if adam else None, n, table.shape[1], int(div),
+              adam, nesterov, *(float(x) for x in hp), build.stream_of(table))
+    if fused:
+        err = lib.ff_stateful_update_fused(
+            table.data_ptr(), ids.data_ptr(), upd.data_ptr(), _ptr(fwd),
+            *common)
+    else:
+        err = lib.ff_stateful_update_rows(
+            table.data_ptr(), ids.data_ptr(), order.data_ptr(),
+            seg.data_ptr(), upd.data_ptr(), _ptr(fwd), *common)
+    build.check(lib, err, f"stateful_update_rows kernel ({route} route)")
     build.count_launch(stateful_update_rows, route)
     return table
 
@@ -452,7 +504,7 @@ scatter_write_rows.launches = 0
 stateful_update_rows.launches = 0
 scatter_add_rows.routes = {"block": 0, "sort": 0}
 scatter_write_rows.routes = {"block": 0, "sort": 0}
-stateful_update_rows.routes = {"block": 0, "sort": 0}
+stateful_update_rows.routes = {"fused": 0, "block": 0, "sort": 0}
 
 
 def segment_sum_rows(ids: torch.Tensor, upd: torch.Tensor, num_rows: int,

@@ -14,11 +14,12 @@ BITWISE to their plain versions run on the CPU (the plain version on the
 card would add duplicates with atomics, in no fixed order): both scale
 first, then sum a row's duplicates in lookup order; the pre-pass kernel
 is held bitwise to its plain version and to torch.sort(stable=True).
-The stateful touched-rows kernel too, for every optimizer, Adam
-included (the same alpha_t tensor, copied): both sum a row's raw
-gradients in lookup order and run the row math one rounding an
+The stateful touched-rows kernel too, on both its routes, for every
+optimizer, Adam included (the same alpha_t tensor, copied): both sum a
+row's raw gradients in lookup order and run the row math one rounding an
 operation in the same order, square roots and quotients correctly
-rounded. A stateful training step on the card against the CPU: weights
+rounded. The dense update kernel BITWISE to its plain version on the
+card and on the CPU, for the same reason (the same row math). A stateful training step on the card against the CPU: weights
 and state as the plain step, but under Adam each weight's update
 within 1e-2 of its parameter's largest update, since Adam's normalised
 step turns a gradient that differs only in its summation order into an
@@ -50,6 +51,7 @@ import dlrm_flexflow_tpu_torch as pt
 from dlrm_flexflow_tpu_torch.models.dlrm import (DLRMConfig, build_dlrm,
                                                  synthetic_batch)
 from dlrm_flexflow_tpu_torch.ops.kernels import build
+from dlrm_flexflow_tpu_torch.ops.kernels import dense_update as dense_mod
 from dlrm_flexflow_tpu_torch.ops.kernels.embedding_bag import (
     embedding_bag, embedding_bag_quant, embedding_bag_quant_reference,
     embedding_bag_reference)
@@ -74,7 +76,7 @@ from dlrm_flexflow_tpu_torch.retrieve import (CascadeConfig, CascadeEngine,
 from dlrm_flexflow_tpu_torch.ops.kernels.scatter_rows import (
     presort_reference, scatter_add_rows, scatter_add_rows_reference,
     scatter_presort, scatter_write_rows, scatter_write_rows_reference,
-    stateful_update_rows, stateful_update_rows_reference)
+    stateful_route, stateful_update_rows, stateful_update_rows_reference)
 from dlrm_flexflow_tpu_torch.serve import InferenceEngine, ServeConfig
 
 pytestmark = pytest.mark.cuda
@@ -597,6 +599,7 @@ def test_scatter_presort_matches_plain(cuda, n):
                        torch.sort(ids.cpu(), stable=True).indices)
     lib = build.load("scatter_rows", scatter_rows_mod._SIGNATURES)
     assert lib.ff_scatter_block_sort_max() == scatter_rows_mod.BLOCK_SORT_MAX
+    assert lib.ff_stateful_fused_max() == scatter_rows_mod.FUSED_MAX
     with pytest.raises(ValueError, match="at most"):
         scatter_presort(torch.zeros(16385, dtype=torch.int64, device=cuda))
 
@@ -634,12 +637,14 @@ def _stateful_ids(cuda, g, n, rows, kind):
 @pytest.mark.parametrize("n,d,kind,residual", [
     (64, 64, "distinct", True), (2048, 64, "uniform", True),
     (2048, 64, "zipf", False), (2048, 8, "equal", True),
-    (2048, 132, "pads", False), (16385, 64, "uniform", False),
+    (2048, 132, "pads", False), (16384, 64, "zipf", True),
+    (16385, 64, "uniform", False),
     (16385, 132, "zipf", True), (16385, 8, "pads", True)])
 def test_stateful_kernel_matches_plain(cuda, name, n, d, kind, residual):
     """The stateful touched-rows kernel, bitwise against its plain
-    version on the CPU, from non-zero state: on both pre-pass routes
-    (n = 64 and 2,048 "block", 16,385 "sort"), with distinct, uniform,
+    version on the CPU, from non-zero state: on the route the wrapper
+    takes (n = 64, 2,048 and 16,384 "fused", 16,385 "sort"), with
+    distinct, uniform,
     Zipf-skewed and all-equal ids and pad slots, at d = 8, 64 and 132,
     with one slab (momentum) or two (Adam), reading the forward rows or
     (no residual) the table; rows it was not given keep weight and
@@ -655,7 +660,7 @@ def test_stateful_kernel_matches_plain(cuda, name, n, d, kind, residual):
     fwd = table[ids.clamp(min=0)] if residual else None
     alpha_t = opt.alpha_t(torch.tensor(6, dtype=torch.int32, device=cuda))
     got, got_s = table.clone(), {k: v.clone() for k, v in slabs.items()}
-    route = "block" if n <= 16384 else "sort"
+    route = stateful_route(n, rows)
     before = stateful_update_rows.routes[route]
     stateful_update_rows(got, ids, upd, fwd, got_s, opt.row_params(),
                          alpha_t)
@@ -701,25 +706,28 @@ def test_stateful_kernel_raises_on_what_it_does_not_take(cuda):
 def test_stateful_training_step_on_card_matches_cpu(cuda, name):
     """Two "cat" steps under each stateful optimizer on the card against
     the CPU from the same weights: the table takes the stateful kernel
-    once a step after one pre-pass, no write-only SGD scatter runs, and
-    the weights and state agree."""
+    once a step on its one-launch route (no pre-pass), no write-only SGD
+    scatter runs, the dense update is one launch a step, and the weights
+    and state agree."""
     gpu = _model("cat", "cuda")
     cpu = _model("cat", "cpu", gpu.params)
     for m in (gpu, cpu):
         m.compile(STATEFUL[name](), "mean_squared_error", ["mse"])
     init = {op: {n: v.clone() for n, v in p.items()}
             for op, p in cpu.params.items()}
-    before = (stateful_update_rows.launches, scatter_write_rows.launches,
-              scatter_presort.launches)
+    before = (stateful_update_rows.routes["fused"],
+              scatter_write_rows.launches, scatter_presort.launches,
+              dense_mod.dense_update.launches)
     for step in range(2):
         x, y = synthetic_batch(DLRMConfig(**ARCH["cat"]), 16, seed=5 + step)
         x["label"] = y
         lg = float(gpu.train_batch(x)["loss"])
         lc = float(cpu.train_batch(x)["loss"])
         np.testing.assert_allclose(lg, lc, rtol=1e-5)
-    assert (stateful_update_rows.launches - before[0],
+    assert (stateful_update_rows.routes["fused"] - before[0],
             scatter_write_rows.launches - before[1],
-            scatter_presort.launches - before[2]) == (2, 0, 2)
+            scatter_presort.launches - before[2],
+            dense_mod.dense_update.launches - before[3]) == (2, 0, 0, 2)
     adam = isinstance(gpu.optimizer, AdamOptimizer)
     trees = [(cpu.params, gpu.params, init)]
     trees += [(cpu.opt_state[k], gpu.opt_state[k], None)
@@ -737,6 +745,201 @@ def test_stateful_training_step_on_card_matches_cpu(cuda, name):
                     torch.testing.assert_close(got, v, rtol=1e-5, atol=1e-7)
     if adam:
         assert int(gpu.opt_state["step"]) == int(cpu.opt_state["step"]) == 2
+
+
+@pytest.mark.parametrize("name", ["sgd_wd", "momentum", "adam"])
+@pytest.mark.parametrize("n,div,kind", [
+    (2048, 1, "uniform"), (2048, 1, "equal"), (2048, 1, "zipf"),
+    (2048, 1, "pads"), (2048, 8, "uniform"), (999, 3, "zipf"),
+    (16384, 1, "uniform"), (16384, 1, "pads")])
+def test_stateful_routes_match_plain(cuda, name, n, div, kind):
+    """The one-launch route and the pre-pass route on the same inputs,
+    each bitwise against the plain version on the CPU, with a bag
+    divisor (``div`` lookups sharing one update row) and pads."""
+    rows, d = 50000, 64
+    g = torch.Generator(device=cuda).manual_seed(n + div)
+    opt = STATEFUL[name]()
+    table = torch.randn(rows, d, device=cuda, generator=g)
+    ids = _stateful_ids(cuda, g, n, rows, kind)
+    upd = torch.randn(n // div, d, device=cuda, generator=g)
+    slabs = {k: torch.rand(rows, d, device=cuda, generator=g)
+             for k in opt.sparse_slab_names()}
+    alpha_t = opt.alpha_t(torch.tensor(2, dtype=torch.int32, device=cuda))
+    want, want_s = table.cpu(), {k: v.cpu() for k, v in slabs.items()}
+    stateful_update_rows_reference(
+        want, ids.cpu(), upd.cpu(), None, want_s, opt.row_params(),
+        None if alpha_t is None else alpha_t.cpu(), div)
+    for fused in (True, False):
+        got, got_s = table.clone(), {k: v.clone() for k, v in slabs.items()}
+        scatter_rows_mod._stateful_kernels(got, ids, upd, None, got_s,
+                                           opt.row_params(), alpha_t, div,
+                                           fused)
+        assert torch.equal(got.cpu(), want), fused
+        for k in slabs:
+            assert torch.equal(got_s[k].cpu(), want_s[k]), (fused, k)
+
+
+# the dense update's six settings: plain SGD, compile()'s default,
+# momentum with weight decay, nesterov, Adam, Adam with weight decay
+DENSE = {
+    "sgd": lambda: SGDOptimizer(lr=0.01),
+    "default": lambda: SGDOptimizer(lr=0.01, weight_decay=1e-4),
+    "momentum_wd": lambda: SGDOptimizer(lr=0.01, momentum=0.9,
+                                        weight_decay=1e-4),
+    "nesterov_wd": STATEFUL["nesterov_wd"],
+    "adam": STATEFUL["adam"],
+    "adam_wd": STATEFUL["adam_wd"],
+}
+
+
+def _dense_case(cuda, opt, sizes, offsets, seed):
+    """Weights, gradients and slabs of ``sizes`` elements, each a view
+    at its element offset (w, g, slab...) into a larger buffer, so that
+    some are 16-byte aligned alike, some at another offset each."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    names = opt.sparse_slab_names()
+
+    def at(n, off):
+        buf = torch.randn(n + 4, device=cuda, generator=g)
+        return buf[off:off + n]
+
+    ws, gs, slabs = [], [], []
+    for i, n in enumerate(sizes):
+        o = offsets[i % len(offsets)]
+        ws.append(at(n, o[0]))
+        gs.append(at(n, o[1]))
+        slabs.append({k: at(n, o[2 + j]).abs_() for j, k in
+                      enumerate(names)})
+    return ws, gs, slabs
+
+
+def _dense_matches_plain(cuda, opt, ws, gs, slabs, cpu=True):
+    """The kernel on copies of the inputs against the plain version on
+    the card (and, with ``cpu``, on the CPU); returns the launches."""
+    p = opt.row_params()
+    alpha_t = opt.alpha_t(torch.tensor(3, dtype=torch.int32, device=cuda))
+    if cpu:
+        cw = [w.cpu() for w in ws]
+        cs = [{k: v.cpu() for k, v in s.items()} for s in slabs]
+        dense_mod.dense_update_reference(
+            cw, [gr.cpu() for gr in gs], cs, p,
+            None if alpha_t is None else alpha_t.cpu())
+    kw = [w.clone() for w in ws]
+    ks = [{k: v.clone() for k, v in s.items()} for s in slabs]
+    before = dense_mod.dense_update.launches
+    dense_mod.dense_update(kw, gs, ks, p, alpha_t)
+    launches = dense_mod.dense_update.launches - before
+    dense_mod.dense_update_reference(ws, gs, slabs, p, alpha_t)
+    torch.cuda.synchronize()
+    for a, b in zip(kw, ws):
+        assert torch.equal(a, b)
+    for a, b in zip(ks, slabs):
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+    if cpu:
+        for a, b in zip(kw, cw):
+            assert torch.equal(a.cpu(), b)
+        for a, b in zip(ks, cs):
+            for k in a:
+                assert torch.equal(a[k].cpu(), b[k]), k
+    return launches
+
+
+@pytest.mark.parametrize("name", list(DENSE))
+@pytest.mark.parametrize("offsets", [[(0, 0, 0, 0)], [(1, 1, 1, 1)],
+                                     [(0, 1, 2, 3), (3, 3, 3, 3)]])
+def test_dense_kernel_matches_plain(cuda, name, offsets):
+    """One launch over tensors of 0, 1, 7, 35, 1,027 and 65,541
+    elements, from non-zero state, aligned alike (float4 spans, scalar
+    heads and tails) or at different offsets (scalar throughout),
+    bitwise to the plain version on the card."""
+    opt = DENSE[name]()
+    ws, gs, slabs = _dense_case(cuda, opt, [0, 1, 7, 35, 1027, 65541],
+                                offsets, len(name))
+    assert _dense_matches_plain(cuda, opt, ws, gs, slabs) == 1
+
+
+def test_dense_kernel_splits_long_lists(cuda):
+    """More tensors than one launch's descriptors: one launch for each
+    MAX_TENSORS, all bitwise to the plain version."""
+    opt = DENSE["adam_wd"]()
+    n = 2 * dense_mod.MAX_TENSORS + 5
+    ws, gs, slabs = _dense_case(cuda, opt, [1 + 37 * i for i in range(n)],
+                                [(0, 0, 0, 0), (2, 2, 2, 2), (1, 0, 3, 2)],
+                                7)
+    assert _dense_matches_plain(cuda, opt, ws, gs, slabs) == 3
+
+
+@pytest.mark.parametrize("name", ["sgd", "adam"])
+def test_dense_kernel_on_a_2gib_tensor(cuda, name):
+    """One tensor of 2^29 + 3 elements (past 2^31 bytes), a view one
+    element into its buffers: 64-bit offsets, a scalar head and tail,
+    bitwise to the plain version on the card."""
+    opt = DENSE[name]()
+    ws, gs, slabs = _dense_case(cuda, opt, [2 ** 29 + 3], [(1, 1, 1, 1)], 5)
+    assert _dense_matches_plain(cuda, opt, ws, gs, slabs, cpu=False) == 1
+    del ws, gs, slabs
+    torch.cuda.empty_cache()
+
+
+def test_dense_update_constants_match_the_source(cuda):
+    """The wrapper's launch plan assumes csrc/dense_update.cu's tile and
+    descriptor sizes."""
+    lib = build.load("dense_update", dense_mod._SIGNATURES)
+    assert (lib.ff_dense_update_max_tensors(), lib.ff_dense_update_threads(),
+            lib.ff_dense_update_tile_vecs()) == (
+        dense_mod.MAX_TENSORS, dense_mod.THREADS, dense_mod.TILE_VECS)
+    assert all(dense_mod.blocks_per_sm(k) >= 1 for k in range(3))
+
+
+def test_dense_update_raises_on_card(cuda):
+    """Mixed devices, a strided weight, a bf16 gradient, a missing or
+    misshapen slab, Adam without its step size on the card: ValueError
+    before any launch."""
+    adam = AdamOptimizer()
+    p = adam.row_params()
+    at = adam.alpha_t(torch.zeros((), dtype=torch.int32, device=cuda))
+    w = torch.zeros(8, 4, device=cuda)
+    s = {k: torch.zeros_like(w) for k in ("m", "v")}
+    before = dense_mod.dense_update.launches
+    cases = [([w], [w.cpu()], [s], at, "devices"),
+             ([w.t()], [w.t()], [s], at, "shaped|contiguous"),
+             ([w], [w.bfloat16()], [s], at, "float32"),
+             ([w], [w], [{"m": s["m"]}], at, "lack"),
+             ([w], [w], [{"m": s["m"], "v": s["v"][:4]}], at, "shaped"),
+             ([w], [w], [s], at.cpu(), "alpha_t")]
+    for ws, gs, sl, a, match in cases:
+        with pytest.raises(ValueError, match=match):
+            dense_mod.dense_update(ws, gs, sl, p, a)
+    assert dense_mod.dense_update.launches == before
+
+
+@pytest.mark.parametrize("opt", ["sgd", "adam"])
+@pytest.mark.parametrize("mode", ["cat", "dot"])
+def test_step_launches(cuda, mode, opt):
+    """One training step's launches: one dense update for every dense
+    parameter; on "cat" one write-only scatter after one pre-pass under
+    SGD, one stateful update on its one-launch route and no pre-pass
+    under Adam; on "dot" one read-modify-write scatter after one
+    pre-pass. No plain version runs."""
+    m = _model(mode, "cuda")
+    m.compile(DENSE[opt](), "mean_squared_error", ["mse"])
+    x, y = synthetic_batch(DLRMConfig(**ARCH[mode]), 16, seed=4)
+    x["label"] = y
+    m.train_batch(x)                     # the state is made at step 1
+    kernels = (dense_mod.dense_update, scatter_presort, scatter_add_rows,
+               scatter_write_rows, stateful_update_rows)
+    before = [k.launches for k in kernels]
+    fused = stateful_update_rows.routes["fused"]
+    m.train_batch(x)
+    got = [k.launches - b for k, b in zip(kernels, before)]
+    if mode == "dot":
+        want = [1, 1, 1, 0, 0]
+    else:
+        want = [1, 1, 0, 1, 0] if opt == "sgd" else [1, 0, 0, 0, 1]
+    assert got == want
+    assert stateful_update_rows.routes["fused"] - fused == \
+        (mode == "cat" and opt == "adam")
 
 
 def test_cuda_call_raises_without_nvcc(cuda, tmp_path, monkeypatch):
