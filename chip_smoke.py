@@ -39,7 +39,7 @@ Phases:
    every optimizer state slab zero. Ten steps run one at a time give a step's
    wall time alone, and a second window of 20 a second read of the
    back-to-back step (the host's speed drifts within a run); ten steps
-   queued behind a spin on the device (see phase 5) give the device's
+   queued behind a spin on the device (see phase 6) give the device's
    time for a step that the host never holds back and its idle share of
    the back-to-back step, ten under the profiler its busy time and top
    kernels, and ten traced with the host the host's top ops. One step on
@@ -58,9 +58,30 @@ Phases:
    steps alone and a second window. Its queued and profiled steps
    (device time, idle share, the host's top ops) and one fp32 step on the card against
    the same step on the CPU at vocab 4,096, 2 x 256, seq 12, batch 16 run
-   last, after phase 6: in one run, profiler sessions begun after NMT's
+   last, after phase 7: in one run, profiler sessions begun after NMT's
    recorded no device time for the scatter kernels;
-4. cascade — the retrieve -> rank cascade at full width, built as
+4. launch — the training runtime as users launch it, before any
+   profiler session, in ``build/smoke`` of the checkout (removed at the
+   end). (a) ``python -m dlrm_flexflow_tpu_torch.examples.native.dlrm``'s
+   ``main`` with the full-width ``random_benchmark()`` flags, batch 256,
+   from a ``.ffbin`` of 256 batches of synthetic samples written by the
+   port's ``write_ffbin``, once through the prefetch ring (depth 2) and
+   once with ``--no-prefetch``: every count at 0 just before and read
+   just after, one bag, one pre-pass, one write-only scatter and one
+   dense update a step and no plain version; samples/s, and ten steps
+   queued behind a spin for the device's time a step and its idle
+   share. (b) ``fit`` survives a restart, bitwise: "cat" at full width
+   under momentum 0.9 with weight decay 1e-4, 24 steps in one epoch;
+   uninterrupted (counts at 0 before, read after: one bag, one stateful
+   update on its one-launch route and one dense update a step), then a
+   fit with a snapshot every 12 steps (keep_last 1) stopped by an
+   exception as step 13 begins, then a fresh model with other weights
+   resumed from the directory: its parameters and momentum must equal
+   the uninterrupted fit's bitwise. The free disk space is checked
+   first; one snapshot (4.1 GB) is then saved and restored into another
+   model, bitwise, with its bytes, the copy to the host, the write and
+   the restore timed;
+5. cascade — the retrieve -> rank cascade at full width, built as
    ``examples/native/serve_dlrm.py``'s ``_build_cascade`` builds it
    around ``random_benchmark()``: two-tower user and item heads, the 1M
    items encoded on the card and quantized into a 1-shard int8 MIPS
@@ -78,7 +99,7 @@ Phases:
    ``forward_batch`` of the expanded rows; the same codes over 4 shards
    must answer as 1 shard does, bitwise. Runs before any profiler
    session, then traces 8 requests for the top-k kernel's device time;
-5. kernels — each kernel at its path's full-width shapes against its
+6. kernels — each kernel at its path's full-width shapes against its
    plain PyTorch version on the same inputs, then timed beside its
    bound, the plain version and, where one PyTorch call computes the
    same function, that call: device time between two CUDA events around
@@ -122,8 +143,8 @@ Phases:
    nesterov, Adam and Adam with weight decay, and timed under Adam and
    SGD beside its bound, the plain version and one
    ``torch._fused_adam_`` / ``_fused_sgd_`` call; Adam's 0-d step size
-   on the card against the CPU's, bitwise, for steps 0 to 99,999 (the
-   count that differ is printed); the quantized bag and
+   on the card against the CPU's, bitwise, for steps 0 to 99,999 (any
+   step that differs fails the run); the quantized bag and
    interaction at the serving shape over the table quantized to int8
    (the bag also in fp8), which no path calls yet; the int8 MIPS top-k
    at B=64 and B=1 over a 1M x 32 index with planted duplicate rows,
@@ -143,7 +164,7 @@ Phases:
    (``lstm_gates``) against its plain version and ``torch.addmm``, the
    serial phase as the whole call less it, and its 39 barriers alone
    (``grid_barrier``);
-6. serve — the same model in both graphs, each behind
+7. serve — the same model in both graphs, each behind
    ``InferenceEngine(ServeConfig(max_batch=256))`` taking a few dozen
    requests of 1-64 rows from 4 threads. Every kernel's launch count is
    set to 0 just before each run and read just after; the kernel of that
@@ -158,17 +179,19 @@ The last two lines are a JSON object with every kernel's numbers and
 fails, the script exits non-zero and prints no result.
 
 ``python3 chip_smoke.py --shapes`` runs only the per-shape timings of
-the bag and the interaction (phase 5's ``{"shapes": [...]}``), with the
+the bag and the interaction (phase 6's ``{"shapes": [...]}``), with the
 package of the directory the script lies in: a copy of the script placed
 at the root of another tree of the port times that tree's kernels.
 """
 
 import contextlib
 import json
+import shutil
 import subprocess
 import sys
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -261,9 +284,26 @@ NMT_LAUNCHES = {"lstm_fwd": 4, "lstm_fwd:resident": 4, "lstm_bwd": 4,
                 "lstm_gates": 4, "scatter_add_rows": 2,
                 "scatter_add_rows:block": 2, "scatter_presort": 2,
                 "dense_update": 1}
-# Adam's step size is computed on the device from the step: checked
-# against the CPU's for steps 0 to ALPHA_STEPS - 1
+# Adam's step size is looked up on the device from the step: checked
+# bitwise against the CPU's for steps 0 to ALPHA_STEPS - 1
 ALPHA_STEPS = 100_000
+# the launch phase: examples/native/dlrm.py's flow over the port, at the
+# full width of random_benchmark(), batch 256, from a .ffbin of
+# LAUNCH_STEPS batches (one epoch), with prefetch (depth 2) and without
+LAUNCH_STEPS = 256
+LAUNCH_ARGS = ["-b", str(TRAIN_B), "-e", "1", "--lr", str(LR),
+               "--arch-embedding-size", "-".join([str(ROWS)] * T),
+               "--arch-sparse-feature-size", str(D),
+               "--arch-mlp-bot", "64-512-512-64",
+               "--arch-mlp-top", "576-1024-1024-1024-1"]
+LAUNCH_RUNS = (("prefetch, depth 2", ["--prefetch-depth", "2"]),
+               ("no prefetch", ["--no-prefetch"]))
+# fit's restart check: FIT_STEPS steps of "cat" under momentum 0.9 with
+# weight decay 1e-4, a snapshot at FIT_STEPS // 2, keep_last 1
+FIT_STEPS = 24
+# where the launch phase writes its .ffbin and checkpoints: the build
+# directory of the checkout (git-ignored), removed at the end
+WORK_DIR = Path(__file__).resolve().parent / "build" / "smoke"
 # the card-versus-CPU step, at a reduced size in fp32
 NMT_CHECK = dict(vocab=4096, dim=256, seq=12, batch=16, dtype="float32")
 
@@ -1437,10 +1477,11 @@ def dense_kernel(dev):
 
 
 def alpha_t_check(dev):
-    """Adam's step size, the 0-d fp32 tensor the port computes on the
+    """Adam's step size, the 0-d fp32 tensor the port looks up on the
     device from the int32 step (``AdamOptimizer.alpha_t``), against the
-    same computed on the CPU, for steps 0 to ALPHA_STEPS - 1, one 0-d
-    call each as a training step makes it: prints how many differ."""
+    same on the CPU (which tests/test_torch_optimizers.py holds bitwise
+    to jitted JAX), for steps 0 to ALPHA_STEPS - 1, one 0-d call each as
+    a training step makes it: any step that differs fails the run."""
     opt = AdamOptimizer(alpha=0.001)
     steps = torch.arange(ALPHA_STEPS, dtype=torch.int32)
     on_card = steps.to(dev)
@@ -1450,10 +1491,10 @@ def alpha_t_check(dev):
     differ = torch.nonzero(got.view(torch.int32)
                            != want.view(torch.int32)).reshape(-1)
     print(f"alpha_t: card against cpu, bitwise, steps 0-{ALPHA_STEPS - 1}: "
-          f"{differ.numel()} differ"
-          + (f" (steps {differ[:100].tolist()}; largest difference "
-             f"{float((got - want).abs().max()):.3g})"
-             if differ.numel() else ""))
+          f"{differ.numel()} differ")
+    check(differ.numel() == 0,
+          f"alpha_t differs on the card at steps {differ[:100].tolist()} "
+          f"(largest difference {float((got - want).abs().max()):.3g})")
 
 
 # every kernel wrapper of the port, each counting its own launches (and
@@ -1884,6 +1925,218 @@ def cascade_phase():
     del ranker, user, items, index, index4, cascade, engine
     torch.cuda.empty_cache()
     return launches
+
+
+class SimulatedCrash(Exception):
+    """Raised inside a fit to stop it as a killed process would stop."""
+
+
+def launch_runs(work):
+    """The launcher as users run it (``python -m
+    dlrm_flexflow_tpu_torch.examples.native.dlrm``), at full width from a
+    .ffbin of LAUNCH_STEPS batches written by the port's ``write_ffbin``,
+    with prefetch and without (LAUNCH_RUNS). Each run: every count at 0
+    just before ``main`` and read just after (its warm-up step included):
+    one bag, one pre-pass, one write-only scatter and one dense update a
+    step, no plain version; then ten steps of its model queued behind a
+    spin give the device's time for a step and its idle share of the
+    launcher's step. Returns the launch counts."""
+    from dlrm_flexflow_tpu_torch.data.dataloader import write_ffbin
+    from dlrm_flexflow_tpu_torch.examples.native import dlrm as launcher
+    cfg = DLRMConfig.random_benchmark()
+    x, y = synthetic_batch(cfg, LAUNCH_STEPS * TRAIN_B, seed=SEED + 5)
+    path = work / "train.ffbin"
+    write_ffbin(str(path), x["dense"], x["sparse"], y)
+    batch = {k: v[:TRAIN_B] for k, v in x.items()}
+    batch["label"] = y[:TRAIN_B]
+    total = {}
+    for label, flags in LAUNCH_RUNS:
+        zero_counts()
+        with PlainCalls() as plain:
+            out = launcher.main(LAUNCH_ARGS + ["--data-path", str(path)]
+                                + flags)
+        launches = read_counts()
+        model = out["model"]
+        steps = out["steps"] + 1          # the warm-up step is counted
+        check(out["steps"] == LAUNCH_STEPS,
+              f"launch ({label}): {out['steps']} steps")
+        check(all(launches[k] == steps for k in (
+                  "embedding_bag", "scatter_presort", "scatter_write_rows",
+                  "dense_update"))
+              and launches["scatter_write_rows:block"] == steps
+              and all(launches[k] == 0 for k in SCATTERS
+                      if k != "scatter_write_rows"),
+              f"launch ({label}): not one bag, pre-pass, write-only "
+              f"scatter and dense update a step: {launches}")
+        check(plain.calls == 0,
+              f"launch ({label}): a plain version ran {plain.calls} times")
+        check(np.isfinite(model.perf.report()["mse"]),
+              f"launch ({label}): mse {model.perf.report()}")
+        step_ms = out["elapsed"] * 1e3 / out["steps"]
+        db = model._device_batch(batch)
+        reps = 10
+        queued, why_not = queued_ms(model.train_batch_device, [(db,)],
+                                    reps, reps * step_ms)
+        idle = (f"device {queued:.3f} ms/step queued, idle "
+                f"{100 * (1 - queued / step_ms):.1f}% of the launcher's "
+                f"step" if why_not is None
+                else f"device not measured queued ({why_not})")
+        per_step = {k: v / steps for k, v in launches.items() if v}
+        print(f"launch ({label}): {out['steps']} steps of {TRAIN_B} from "
+              f"{path.name}, {out['throughput']:.1f} samples/s, "
+              f"{step_ms:.3f} ms/step; {idle}; launches per step "
+              f"{per_step}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        del out, model, db
+        torch.cuda.empty_cache()
+    return total
+
+
+def _leaves(tree):
+    return [x for v in tree.values()
+            for x in (_leaves(v) if isinstance(v, dict) else [v])]
+
+
+def _model_bytes(model):
+    return sum(v.numel() * v.element_size()
+               for v in _leaves(model.params)
+               + _leaves(model.opt_state or {}))
+
+
+def fit_restart(work):
+    """``fit`` survives a restart, bitwise: full-width "cat" under SGD
+    with momentum 0.9 and weight decay 1e-4, FIT_STEPS steps of batch
+    256 in one epoch. One model fits them uninterrupted (every count at
+    0 just before, read just after); a second fits with a snapshot every
+    FIT_STEPS // 2 steps (keep_last 1) and is stopped by an exception as
+    the step after the snapshot begins; a third model, from other
+    weights, resumes from the directory to the end. Its parameters and
+    momentum must equal the first's bitwise. Then one snapshot of it is
+    saved and restored into a fourth model, timed: bytes, the copy to
+    the host and the write apart, the restore, GB/s. Free disk space is
+    checked first. Returns the uninterrupted run's launch counts."""
+    from dlrm_flexflow_tpu_torch.utils.checkpoint import CheckpointManager
+    half = FIT_STEPS // 2
+    cfg = train_config("cat")
+    x, y = synthetic_batch(cfg, FIT_STEPS * TRAIN_B, seed=SEED + 6)
+    kw = dict(epochs=1, batch_size=TRAIN_B, verbose=False)
+
+    def model(seed):
+        m, _ = train_model("cat", "cuda", opt="momentum")
+        m.init_layers(seed=seed)
+        return m
+
+    whole = model(SEED)
+    whole.opt_state = whole.optimizer.init_state(whole.params)
+    nbytes = _model_bytes(whole)
+    free = shutil.disk_usage(work).free
+    check(free >= 3 * nbytes,
+          f"fit restart: {free / 1e9:.1f} GB free under {work}, the check "
+          f"needs {3 * nbytes / 1e9:.1f} GB (three snapshots' worth)")
+    zero_counts()
+    with PlainCalls() as plain:
+        whole.fit(x, y, **kw)
+    launches = read_counts()
+    check(all(launches[k] == FIT_STEPS for k in (
+              "embedding_bag", "stateful_update_rows", "dense_update"))
+          and launches["stateful_update_rows:fused"] == FIT_STEPS
+          and plain.calls == 0,
+          f"fit restart: not one bag, stateful update and dense update a "
+          f"step, or a plain version ran: {launches}, {plain.calls}")
+
+    ckdir = work / "ckpt"
+    broken = model(SEED)
+    real, calls = broken.train_batch_staged, []
+
+    def crashing(staged):
+        calls.append(1)
+        if len(calls) == half + 1:
+            raise SimulatedCrash()
+        return real(staged)
+
+    broken.train_batch_staged = crashing
+    try:
+        broken.fit(x, y, checkpoint_dir=str(ckdir), save_every=half,
+                   keep_last=1, **kw)
+        check(False, "fit restart: the interrupted fit did not stop")
+    except SimulatedCrash:
+        pass
+    del broken
+    torch.cuda.empty_cache()
+    entries = json.loads((ckdir / "manifest.json").read_text())["entries"]
+    check([e["step"] for e in entries] == [half]
+          and entries[0]["loader_state"] == {"epoch": 0, "batch": half},
+          f"fit restart: the interrupted run left {entries}")
+
+    resumed = model(SEED + 1)
+    t0 = time.perf_counter()
+    out = resumed.fit(x, y, checkpoint_dir=str(ckdir), keep_last=1, **kw)
+    resume_s = time.perf_counter() - t0
+    check(out["num_samples"] == half * TRAIN_B
+          and resumed._step == whole._step == FIT_STEPS,
+          f"fit restart: resumed {out['num_samples']} samples to step "
+          f"{resumed._step}")
+
+    def same(a, b):
+        """Parameters and momentum, bitwise, on the card."""
+        pairs = [(a.params, b.params), (a.opt_state["v"], b.opt_state["v"])]
+        return all(set(ta) == set(tb) and all(
+            torch.equal(v, tb[op][pn]) for op, p in ta.items()
+            for pn, v in p.items()) for ta, tb in pairs)
+
+    check(same(resumed, whole),
+          "fit restart: the resumed fit's parameters or momentum differ "
+          "from the uninterrupted fit's")
+    entries = json.loads((ckdir / "manifest.json").read_text())["entries"]
+    check([e["step"] for e in entries] == [FIT_STEPS]
+          and len(list(ckdir.glob("ckpt-*.npz"))) == 1,
+          f"fit restart: keep_last 1 left {entries}")
+    del whole
+    torch.cuda.empty_cache()
+
+    mgr = CheckpointManager(str(ckdir), keep_last=1)
+    mgr.save(resumed, {"epoch": 1, "batch": 0})
+    st = mgr.last_save
+    fresh = model(SEED + 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    entry = mgr.restore_latest(fresh)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(entry is not None and entry["step"] == FIT_STEPS
+          and same(fresh, resumed),
+          "fit restart: the timed snapshot did not restore bitwise")
+    gb = st["bytes"] / 1e9
+    print(f"fit restart: {FIT_STEPS} steps, stopped after the snapshot at "
+          f"step {half}, resumed by a fresh model in {resume_s:.2f} s "
+          f"(restore and {half} steps and the final snapshot): parameters "
+          f"and momentum bitwise equal to the uninterrupted fit; snapshot "
+          f"{st['bytes']:,} bytes: copy to the host {st['gather_s']:.2f} s "
+          f"({gb / st['gather_s']:.2f} GB/s), write {st['write_s']:.2f} s "
+          f"({gb / st['write_s']:.2f} GB/s, checksum and fsync included), "
+          f"restore {restore_s:.2f} s ({gb / restore_s:.2f} GB/s, checksum "
+          f"included)")
+    del resumed, fresh
+    torch.cuda.empty_cache()
+    return launches
+
+
+def launch_phase():
+    """The training runtime as users launch it: ``launch_runs``, then
+    ``fit_restart``, in WORK_DIR, which is removed at the end whatever
+    happens. Returns the launch counts of both main paths."""
+    shutil.rmtree(WORK_DIR, ignore_errors=True)
+    WORK_DIR.mkdir(parents=True)
+    try:
+        t0 = time.perf_counter()
+        counts = launch_runs(WORK_DIR)
+        for k, v in fit_restart(WORK_DIR).items():
+            counts[k] = counts.get(k, 0) + v
+        print(f"launch phase: {time.perf_counter() - t0:.1f} s")
+        return counts
+    finally:
+        shutil.rmtree(WORK_DIR, ignore_errors=True)
 
 
 def train_config(mode, rows=ROWS):
@@ -2326,6 +2579,7 @@ def main() -> int:
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
 
+    add(launch_phase())
     add(cascade_phase())
     for run in runs:
         add(train_report(run))

@@ -5,11 +5,13 @@ and training slices read, under the same flag spellings
 (``-e/--epochs``, ``-b/--batch-size``, ``--lr/--learning-rate``,
 ``--wd/--weight-decay``, ``--seed``, ``--compute-dtype``,
 ``--dense-embedding-update``, the ``--serve-*`` flags, ``--retrieve-k``,
-``--retrieve-deadline-ms``, ``--retrieve-shards``), plus ``device``.
-Unknown flags land in ``unparsed``, as in the JAX package. The flags of
-the training runtime that is not ported yet (checkpoints, supersteps,
-the anomaly sentinel, prefetch) raise ``NotImplementedError``, as does
-``--no-pallas-lstm``: the port's LSTM always runs its scan kernels.
+``--retrieve-deadline-ms``, ``--retrieve-shards``, and the training
+runtime's ``--checkpoint-dir``, ``--save-every``, ``--keep-last``,
+``--prefetch-depth`` and ``--no-prefetch``), plus ``device``. Unknown
+flags land in ``unparsed``, as in the JAX package. The runtime flags
+that are not ported yet (``--superstep``, ``--anomaly-policy``) raise
+``NotImplementedError``, as does ``--no-pallas-lstm``: the port's LSTM
+always runs its scan kernels.
 
 ``device`` defaults to ``"cuda"``. A config that asks for CUDA on a
 machine without a GPU raises at construction: the port never carries on
@@ -26,9 +28,7 @@ import torch
 
 
 # flags of the JAX package's training runtime that the port refuses
-_RUNTIME_FLAGS = ("--checkpoint-dir", "--save-every", "--keep-last",
-                  "--superstep", "--anomaly-policy", "--prefetch-depth",
-                  "--no-prefetch")
+_RUNTIME_FLAGS = ("--superstep", "--anomaly-policy")
 
 
 @dataclass
@@ -46,6 +46,17 @@ class FFConfig:
     # scatter kernels) instead of a table-sized dense gradient; disable
     # with --dense-embedding-update
     sparse_embedding_update: bool = True
+    # ---- training runtime (FFModel.fit, data/) ------------------------
+    # batches staged ahead of the step by the prefetch ring
+    # (data/prefetch.py); 0 stages in the training loop. Set with
+    # --prefetch-depth N / --no-prefetch.
+    prefetch_depth: int = 2
+    # rolling-checkpoint defaults for fit(); its arguments override.
+    # save_every counts optimizer steps; 0 = only a final checkpoint.
+    # Set with --checkpoint-dir / --save-every / --keep-last.
+    checkpoint_dir: str = ""
+    save_every: int = 0
+    keep_last: int = 3
     # ---- online serving (serve/engine.py InferenceEngine) -------------
     serve_max_batch: int = 64
     serve_max_delay_ms: float = 5.0
@@ -120,9 +131,18 @@ class FFConfig:
                     "is not ported")
             elif a in _RUNTIME_FLAGS:
                 raise NotImplementedError(
-                    f"{a}: checkpoints, supersteps, the anomaly sentinel "
-                    f"and prefetch are not ported yet (ROADMAP queue 1 "
-                    f"item 6)")
+                    f"{a}: the fused supersteps and the anomaly sentinel "
+                    f"are not ported yet (ROADMAP queue 1 item 6)")
+            elif a == "--checkpoint-dir":
+                kw["checkpoint_dir"] = take()
+            elif a == "--save-every":
+                kw["save_every"] = int(take())
+            elif a == "--keep-last":
+                kw["keep_last"] = int(take())
+            elif a == "--prefetch-depth":
+                kw["prefetch_depth"] = int(take())
+            elif a == "--no-prefetch":
+                kw["prefetch_depth"] = 0
             elif a == "--seed":
                 kw["seed"] = int(take())
             elif a == "--compute-dtype":

@@ -5,7 +5,9 @@ The counterpart of ``dlrm_flexflow_tpu.core.model.FFModel``, cut to the
 serving and training slices: the op builders the DLRM, two-tower and
 NMT graphs use, ``compile``, ``init_layers``, ``forward_batch`` and the
 bucketed serving entries, ``swap_params``, and training: ``train_batch``,
-``train_batch_device``, ``reset_metrics`` and ``fit``. Op names,
+``train_batch_device``, ``train_batch_staged``, ``reset_metrics`` and
+``fit`` (rolling, resumable checkpoints in the JAX package's format,
+batches through the prefetch ring). Op names,
 parameter names and parameter layouts follow the JAX graph, so
 ``utils.weights.params_from_jax`` can carry a JAX model's weights
 across by name.
@@ -42,11 +44,15 @@ import numpy as np
 import torch
 
 from ..config import FFConfig
+from ..data.prefetch import StagedBatch, stage_batch
+from ..utils.logging import get_logger
 from . import losses as losses_mod
 from . import metrics as metrics_mod
 from .op import InputOp, Op
 from .optimizers import AdamOptimizer, SGDOptimizer
 from .tensor import Tensor
+
+log_model = get_logger("model")
 
 
 class FFModel:
@@ -64,6 +70,9 @@ class FFModel:
             # matmuls fp32 but lets cuDNN use TF32; both are set here)
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
+        # the side stream the prefetch ring copies batches on
+        self._stage_stream = (torch.cuda.Stream(self.device)
+                              if self.device.type == "cuda" else None)
         self._op_guid = 0
         self.ops: List[Op] = []          # topological (construction) order
         self.input_tensors: List[Tensor] = []
@@ -266,27 +275,41 @@ class FFModel:
     # ------------------------------------------------------------------
     # forward
     # ------------------------------------------------------------------
-    def _device_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """Stage a batch on ``self.device``: every model input, and the
-        ``"label"`` when the batch has one (int64 for the sparse
-        categorical loss, else float32). Inputs may be host arrays or
-        tensors already on a device (``item_embeddings`` feeds the item
-        head ids that never leave the card)."""
-        out = {}
+    def _batch_dtypes(self, batch: Dict[str, Any]) -> Dict[str, torch.dtype]:
+        """The device dtype of every model input and, when the batch has
+        one, of its ``"label"`` (int64 for the sparse categorical loss,
+        else float32)."""
         for t in self.input_tensors:
             if t.name not in batch:
                 raise ValueError(f"batch is missing input {t.name!r}")
-            v = batch[t.name]
+        out = {t.name: t.dtype for t in self.input_tensors}
+        if "label" in batch:
+            out["label"] = (torch.int64 if self.loss_type
+                            == losses_mod.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY
+                            else torch.float32)
+        return out
+
+    def _device_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """Stage a batch on ``self.device``: every model input, and the
+        ``"label"`` when the batch has one. Inputs may be host arrays or
+        tensors already on a device (``item_embeddings`` feeds the item
+        head ids that never leave the card)."""
+        out = {}
+        for k, dt in self._batch_dtypes(batch).items():
+            v = batch[k]
             if not isinstance(v, torch.Tensor):
                 v = torch.as_tensor(np.asarray(v))
-            out[t.name] = v.to(device=self.device, dtype=t.dtype)
-        if "label" in batch:
-            ldt = (torch.int64 if self.loss_type
-                   == losses_mod.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY
-                   else torch.float32)
-            out["label"] = torch.as_tensor(np.asarray(batch["label"]),
-                                           dtype=ldt).to(self.device)
+            out[k] = v.to(device=self.device, dtype=dt)
         return out
+
+    def _stage_step(self, batch: Dict[str, Any]) -> StagedBatch:
+        """Stage a host batch for one training step from a staging
+        thread (the prefetch ring's ``produce``): on the card through
+        pinned memory, a non-blocking copy on this model's side stream
+        and an event; ``train_batch_staged`` orders the step after it."""
+        dts = self._batch_dtypes(batch)
+        return stage_batch({k: batch[k] for k in dts}, dts, self.device,
+                           self._stage_stream)
 
     def _forward_env(self, params, batch: Dict[str, torch.Tensor],
                      overrides: Optional[Dict[str, torch.Tensor]] = None,
@@ -421,6 +444,12 @@ class FFModel:
         ``"label"``; see ``train_batch_device``."""
         return self.train_batch_device(self._device_batch(batch))
 
+    def train_batch_staged(self, staged: StagedBatch):
+        """One training step on a batch staged by ``_stage_step`` (the
+        prefetch ring's items): the step's stream waits for the copy,
+        then ``train_batch_device``."""
+        return self.train_batch_device(staged.wait())
+
     def train_batch_device(self, device_batch: Dict[str, torch.Tensor]):
         """One training step — forward, backward and the update, in
         place — on a batch already on ``self.device`` (as
@@ -534,46 +563,128 @@ class FFModel:
             verbose: bool = True,
             checkpoint_dir: Optional[str] = None,
             save_every: Optional[int] = None,
-            keep_last: Optional[int] = None):
+            keep_last: Optional[int] = None,
+            resume: bool = True):
         """Train for ``epochs`` (default ``config.epochs``) over host
         arrays in batches of ``batch_size`` (default
         ``config.batch_size``); the last ``len(labels) % batch_size``
-        samples of each epoch train as one smaller batch. Each batch is
-        staged to the device as it trains. Returns {"elapsed",
-        "throughput", "num_samples", "metrics"}. Checkpoints are not
-        ported yet (ROADMAP queue 1 item 6): asking for them raises, as
-        do the supersteps, the anomaly sentinel and prefetch, which the
-        config refuses."""
-        if checkpoint_dir or save_every or keep_last:
-            raise NotImplementedError(
-                "fit checkpoints (checkpoint_dir, save_every, keep_last) "
-                "are not ported yet (ROADMAP queue 1 item 6)")
+        samples of each epoch train as one smaller batch. Batches reach
+        the device through the prefetch ring (``config.prefetch_depth``
+        batches ahead, on a staging thread; 0 stages each in the loop).
+
+        With ``checkpoint_dir`` the run is fault-tolerant, as the JAX
+        ``fit``: rolling atomic snapshots every ``save_every`` optimizer
+        steps (written on a background thread; the last ``keep_last``
+        files and a manifest) and a final one; ``resume=True`` first
+        restores the newest valid snapshot (parameters, optimizer state,
+        step and the (epoch, batch) position) and skips corrupt,
+        truncated or foreign ones. The three default from the config
+        (``--checkpoint-dir``, ``--save-every``, ``--keep-last``).
+        Returns {"elapsed", "throughput", "num_samples", "metrics"}.
+        The rollback sentinel and the fused supersteps are not ported
+        yet (ROADMAP queue 1 item 6); the config refuses them."""
+        from ..data.prefetch import PrefetchPipeline
+        from ..utils.checkpoint import CheckpointManager
         epochs = epochs or self.config.epochs
         bs = batch_size or self.config.batch_size
+        checkpoint_dir = checkpoint_dir or (self.config.checkpoint_dir
+                                            or None)
+        save_every = (self.config.save_every if save_every is None
+                      else save_every)
+        keep_last = self.config.keep_last if keep_last is None else keep_last
         n = len(labels)
         if n < bs:
             raise ValueError(f"dataset has {n} samples < batch size {bs}")
+        num_batches, rem = divmod(n, bs)
         if self.params is None:
             self.init_layers()
-        bounds = [(b, b + bs) for b in range(0, n - bs + 1, bs)]
-        if n % bs:
-            bounds.append((n - n % bs, n))
+
+        mgr = None
+        start_epoch = start_batch = 0
+        if checkpoint_dir:
+            mgr = CheckpointManager(checkpoint_dir, keep_last=keep_last)
+            if resume:
+                entry = mgr.restore_latest(self)
+                if entry is not None:
+                    ls = entry.get("loader_state") or {}
+                    start_epoch = int(ls.get("epoch", 0))
+                    start_batch = min(int(ls.get("batch", 0)), num_batches)
+                    if verbose:
+                        print(f"resumed from checkpoint step "
+                              f"{entry['step']} (epoch {start_epoch}, "
+                              f"batch {start_batch})")
+            if start_epoch >= epochs:
+                log_model.warning(
+                    "checkpoint in %s is already at epoch %d >= epochs=%d; "
+                    "nothing to train", checkpoint_dir, start_epoch, epochs)
+                return {"elapsed": 0.0, "throughput": 0.0,
+                        "num_samples": 0, "metrics": self.perf.report()}
+
+        # one entry per step: (epoch, batch), batch "rem" the remainder
+        def epoch_batches(e):
+            bs_ = list(range(start_batch if e == start_epoch else 0,
+                             num_batches))
+            return bs_ + (["rem"] if rem else [])
+
+        sched = [(e, b) for e in range(start_epoch, epochs)
+                 for b in epoch_batches(e)]
+
+        def host_batch(b):
+            sl = (slice(num_batches * bs, n) if b == "rem"
+                  else slice(b * bs, (b + 1) * bs))
+            batch = {k: v[sl] for k, v in inputs.items()}
+            batch["label"] = labels[sl]
+            return batch
+
+        depth = max(int(self.config.prefetch_depth or 0), 0)
+        pipe = None
+        if depth and sched:
+            pipe = PrefetchPipeline(
+                lambda i: self._stage_step(host_batch(sched[i][1])),
+                depth=depth, num_items=len(sched), name="fit")
         mets = None
         num_samples = 0
         start = time.perf_counter()
-        for epoch in range(epochs):
-            self.reset_metrics()
-            for a, b in bounds:
-                batch = {k: v[a:b] for k, v in inputs.items()}
-                batch["label"] = labels[a:b]
-                mets = self.train_batch(batch)
-                num_samples += b - a
-            if verbose:
-                # the host syncs here only
-                print(f"epoch {epoch}: loss={float(mets['loss']):.6f} "
-                      + self.perf.summary_line())
-        float(mets["loss"])      # the readback waits for the last step
+        try:
+            for i, (epoch, b) in enumerate(sched):
+                if b == 0:
+                    self.reset_metrics()   # an epoch starts from batch 0
+                mets = (self.train_batch_staged(pipe.get())
+                        if pipe is not None
+                        else self.train_batch(host_batch(b)))
+                num_samples += rem if b == "rem" else bs
+                # position = the next (epoch, batch) to train
+                nxt = ((epoch + 1, 0) if b == "rem"
+                       else (epoch, b + 1))
+                if mgr is not None and save_every \
+                        and self._step % save_every == 0:
+                    mgr.save_async(self, {"epoch": nxt[0],
+                                          "batch": nxt[1]})
+                last = i + 1 == len(sched) or sched[i + 1][0] != epoch
+                if verbose and last:
+                    # the host syncs here only
+                    print(f"epoch {epoch}: "
+                          f"loss={float(mets['loss']):.6f} "
+                          + self.perf.summary_line())
+            if mets is not None:
+                float(mets["loss"])   # the readback waits for the last step
+        except BaseException:
+            # land a snapshot already copied to the host before the error
+            # leaves fit; the error itself is what the caller sees
+            if mgr is not None:
+                try:
+                    mgr.wait()
+                except Exception as e:
+                    log_model.warning("background checkpoint save failed "
+                                      "(%s)", e)
+            raise
+        finally:
+            if pipe is not None:
+                pipe.close()
         elapsed = time.perf_counter() - start
+        if mgr is not None:
+            mgr.wait()        # raise a background save's error
+            mgr.save(self, {"epoch": epochs, "batch": 0})  # final snapshot
         throughput = num_samples / elapsed if elapsed > 0 else float("inf")
         if verbose:
             print(f"ELAPSED TIME = {elapsed:.4f}s, "

@@ -15,20 +15,21 @@ dense ``update`` runs it on whole parameters (``ops.kernels.
 dense_update``: on the card one multi-tensor kernel launch for all of
 them), the touched-rows kernel's plain version on gathered rows, and
 both CUDA kernels repeat it (``csrc/row_math.cuh``).
-``row_params()`` hands it the hyperparameters; Adam's step size alpha_t
-is computed on the device from the step (``alpha_t``), so no step waits
-for the host.
+``row_params()`` hands it the hyperparameters. Adam's step size alpha_t
+is looked up on the device from the step (``alpha_t``), in a table of
+the fp32 values that the CPU computes (``adam_step_sizes``), so no step
+waits for the host and every device gives JAX's value.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from ..ops.kernels.dense_update import dense_update
-from ..ops.kernels.scatter_rows import (row_update_reference, slab_names,
-                                        sqrt_rn)
+from ..ops.kernels.scatter_rows import row_update_reference, slab_names
 
 
 class Optimizer:
@@ -129,6 +130,9 @@ class AdamOptimizer(Optimizer):
         self.beta2 = float(beta2)
         self.weight_decay = float(weight_decay)
         self.epsilon = float(epsilon)
+        self._step_sizes = adam_step_sizes(self.alpha, self.beta1,
+                                           self.beta2)
+        self._tables: Dict[torch.device, torch.Tensor] = {}
 
     def init_state(self, params):
         def zeros():
@@ -145,9 +149,46 @@ class AdamOptimizer(Optimizer):
                 "weight_decay": self.weight_decay, "epsilon": self.epsilon}
 
     def alpha_t(self, step):
-        """alpha * sqrt(1 - beta2^t) / (1 - beta1^t) for t = step + 1, a
-        0-d fp32 tensor on the step's device (fp32 throughout, as the
-        JAX update computes it)."""
-        t = (step + 1).to(torch.float32)
-        return (self.alpha * sqrt_rn(1.0 - self.beta2 ** t)
-                / (1.0 - self.beta1 ** t))
+        """alpha * sqrt(1 - beta2^t) / (1 - beta1^t) for t = step + 1, as
+        fp32 tensor(s) of the step's shape on the step's device: a gather
+        from ``adam_step_sizes``' table, whose last entry holds for every
+        later step. Nothing is read back to the host, and the step on the
+        device picks the value, so a captured step stays right."""
+        table = self._tables.get(step.device)
+        if table is None:
+            table = torch.from_numpy(self._step_sizes).to(step.device)
+            self._tables[step.device] = table
+        idx = torch.clamp(step, 0, table.numel() - 1).to(torch.int64)
+        return torch.take(table, idx)
+
+
+def adam_step_sizes(alpha: float, beta1: float, beta2: float) -> np.ndarray:
+    """Adam's fp32 step sizes alpha_t for steps 0, 1, 2, ... (t = step +
+    1), computed on the host as JAX computes them under ``jit`` on the
+    CPU: beta ** t by the C library's ``powf`` (numpy's float32 scalar
+    power), then 1 - p, the square root, the product and the quotient in
+    fp32, each correctly rounded. An fp32 power taken on the card, or a
+    correctly rounded one, differs from it at some steps (ROADMAP queue
+    3). The table ends at the first step whose beta1 ** t and beta2 ** t
+    are both at most 2^-26: from there on 1 - p rounds to 1, so that last
+    entry, fp32(alpha), is alpha_t for every later step: about 18,000
+    entries for beta2 = 0.999 (20 ms), 180,000 for 0.9999."""
+    if not (0.0 <= beta1 < 1.0 and 0.0 <= beta2 < 1.0):
+        raise ValueError(f"Adam's betas must lie in [0, 1), got "
+                         f"{beta1}, {beta2}")
+    f32 = np.float32
+    b1, b2, tiny = f32(beta1), f32(beta2), f32(2.0 ** -26)
+    p1, p2 = [], []
+    t = 1
+    while True:
+        p1.append(b1 ** f32(t))
+        p2.append(b2 ** f32(t))
+        if p1[-1] <= tiny and p2[-1] <= tiny:
+            break
+        t += 1
+    one = f32(1.0)
+    # the square root in float64, rounded once: exact for fp32
+    root = np.sqrt((one - np.asarray(p2, np.float32)).astype(
+        np.float64)).astype(np.float32)
+    return (f32(alpha) * root / (one - np.asarray(p1, np.float32))
+            ).astype(np.float32)

@@ -1,12 +1,51 @@
-"""Host-side batch helpers (own copies of the helpers of
-``dlrm_flexflow_tpu.data.dataloader`` that the serving path needs; the
-port imports nothing of the JAX package)."""
+"""Data loaders (the port of ``dlrm_flexflow_tpu.data.dataloader``).
+
+The dataset stays in host memory as numpy (or mmap'd by the native
+``.ffbin`` reader); ``next_batch`` hands back one batch on the model's
+device. Staging runs through the depth-K prefetch ring
+(``data/prefetch.py``): a background thread slices batch N+1..N+K and
+copies it to the card (pinned memory, a side CUDA stream) while the
+device trains batch N. ``FFConfig.prefetch_depth`` sets K (0 stages in
+the consumer's thread); ``state()``/``reset()``/``set_state()`` drain the
+ring first, so prefetching never changes the delivered sequence.
+
+The JAX package's HDF5 (``load_dlrm_hdf5``) and image loaders are not
+ported yet (ROADMAP queue 1 item 6).
+"""
 
 from __future__ import annotations
 
-from typing import Dict
+import ctypes
+import threading
+import time
+from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
+
+from ..utils import faults
+from ..utils.logging import get_logger
+
+log_data = get_logger("data")
+
+
+def read_with_retries(fn: Callable, site: str, retries: int = 3,
+                      backoff_s: float = 0.05):
+    """Run a read, absorbing up to `retries` transient IOError/OSErrors
+    with exponential backoff. Each attempt first gives the fault harness
+    (``utils.faults``) a chance to inject an error at `site`."""
+    for attempt in range(retries + 1):
+        try:
+            faults.maybe_io_error(site)
+            return fn()
+        except (IOError, OSError) as e:
+            if attempt >= retries:
+                raise
+            delay = backoff_s * (2 ** attempt)
+            log_data.warning(
+                "transient read error at %s (attempt %d/%d): %s — "
+                "retrying in %.0f ms", site, attempt + 1, retries, e,
+                1e3 * delay)
+            time.sleep(delay)
 
 
 def coalesce_batches(batches):
@@ -74,3 +113,326 @@ def zipf_indices(rng: np.random.RandomState, rows: int, size,
     n = int(np.prod(size))
     draws = np.searchsorted(cdf, rng.random_sample(n), side="right")
     return draws.reshape(size).astype(np.int64)
+
+
+def _config_depth(model, depth: Optional[int]) -> int:
+    if depth is not None:
+        return max(int(depth), 0)
+    cfg = getattr(model, "config", None)
+    return max(int(getattr(cfg, "prefetch_depth", 2) or 0), 0)
+
+
+class SingleDataLoader:
+    """Cycles a dict of full host arrays in batches.
+
+    Staging runs through the prefetch ring: which samples land in batch
+    ordinal i is a deterministic function of the seed, so the staging
+    thread can slice and copy ahead without changing the delivered
+    sequence; per-epoch shuffle orders are cached with their RNG
+    snapshots, so ``state()`` captures the exact resume point even while
+    the ring holds batches of the next epoch."""
+
+    def __init__(self, model, inputs: Dict[str, np.ndarray],
+                 labels: np.ndarray, batch_size: Optional[int] = None,
+                 shuffle: bool = False, seed: int = 0,
+                 prefetch: bool = True, depth: Optional[int] = None):
+        self.model = model
+        self.inputs = dict(inputs)
+        self.labels = labels
+        self.batch_size = batch_size or model.config.batch_size
+        self.shuffle = shuffle
+        self.rng = np.random.RandomState(seed)
+        self.num_samples = len(labels)
+        self.num_batches = self.num_samples // self.batch_size
+        if self.num_batches == 0:
+            raise ValueError(
+                f"dataset ({self.num_samples}) smaller than one batch "
+                f"({self.batch_size})")
+        order = np.arange(self.num_samples)
+        if self.shuffle:
+            self.rng.shuffle(order)
+        # per-epoch orders, computed lazily in sequence by whichever
+        # thread asks first, each with its post-shuffle RNG snapshot
+        self._orders: Dict[int, np.ndarray] = {0: order}
+        self._rng_states: Dict[int, tuple] = {0: self.rng.get_state()}
+        self._max_epoch = 0
+        self._sched_lock = threading.Lock()
+        self._idx = 0      # batches consumed (absolute ordinal)
+        self._depth = _config_depth(model, depth)
+        self._prefetch = bool(prefetch) and self._depth > 0
+        self._pipe = None
+
+    # --- schedule -------------------------------------------------------
+    def _epoch_order(self, e: int) -> np.ndarray:
+        with self._sched_lock:
+            while self._max_epoch < e:
+                nxt = self._orders[self._max_epoch]
+                if self.shuffle:
+                    nxt = nxt.copy()
+                    self.rng.shuffle(nxt)
+                self._max_epoch += 1
+                self._orders[self._max_epoch] = nxt
+                self._rng_states[self._max_epoch] = self.rng.get_state()
+            return self._orders[e]
+
+    def _consumed_epoch(self) -> int:
+        return (self._idx - 1) // self.num_batches if self._idx > 0 else 0
+
+    def _prune_epochs(self):
+        ce = self._consumed_epoch()
+        with self._sched_lock:
+            for e in [e for e in self._orders if e < ce]:
+                del self._orders[e]
+                del self._rng_states[e]
+
+    def _host_batch_at(self, ordinal: int) -> Dict[str, np.ndarray]:
+        e, b = divmod(ordinal, self.num_batches)
+        order = self._epoch_order(e)
+        sl = order[b * self.batch_size:(b + 1) * self.batch_size]
+        batch = {k: v[sl] for k, v in self.inputs.items()}
+        batch["label"] = self.labels[sl]
+        return batch
+
+    # --- prefetch ring --------------------------------------------------
+    def _ensure_pipe(self):
+        if self._pipe is None:
+            from .prefetch import PrefetchPipeline
+            base = self._idx
+
+            def produce(k):
+                hb = self._host_batch_at(base + k)
+                return (hb, self.model._stage_step(hb))
+
+            self._pipe = PrefetchPipeline(produce, depth=self._depth,
+                                          name="SingleDataLoader")
+        return self._pipe
+
+    def _close_pipe(self):
+        if self._pipe is not None:
+            self._pipe.close()
+            self._pipe = None
+
+    def close(self):
+        self._close_pipe()
+
+    def reset(self):
+        """Back to batch 0, reshuffling from the consumed epoch's order
+        when shuffling."""
+        self._close_pipe()
+        with self._sched_lock:
+            order = self._orders[min(self._consumed_epoch(),
+                                     self._max_epoch)]
+            if self.shuffle:
+                order = order.copy()
+                self.rng.shuffle(order)
+            self._orders = {0: order}
+            self._rng_states = {0: self.rng.get_state()}
+            self._max_epoch = 0
+        self._idx = 0
+
+    def next_host_batch(self) -> Dict[str, np.ndarray]:
+        """Next host-side (numpy) batch. Interleaves with next_batch:
+        both consume the same staged stream."""
+        if self._prefetch:
+            hb, _ = self._ensure_pipe().get()
+        else:
+            hb = self._host_batch_at(self._idx)
+        self._idx += 1
+        self._prune_epochs()
+        return hb
+
+    def next_batch(self) -> Dict:
+        """Next batch on the model's device; wraps around at the end of
+        the dataset."""
+        if self._prefetch:
+            _, staged = self._ensure_pipe().get()
+            db = staged.wait()
+        else:
+            db = self.model._device_batch(self._host_batch_at(self._idx))
+        self._idx += 1
+        self._prune_epochs()
+        return db
+
+    def state(self) -> Dict:
+        """Serializable position (cursor, shuffle order, RNG state):
+        ``set_state()`` on a fresh loader over the same data resumes the
+        exact batch sequence. Drains the prefetch ring."""
+        self._close_pipe()
+        ce = self._consumed_epoch()
+        s = self._rng_states[ce]
+        return {"idx": int(self._idx),
+                "order": [int(i) for i in self._orders[ce]],
+                "rng": [s[0], [int(v) for v in s[1]], int(s[2]),
+                        int(s[3]), float(s[4])]}
+
+    def set_state(self, state: Dict) -> None:
+        self._close_pipe()
+        self._idx = int(state["idx"])
+        order = np.asarray(state["order"], dtype=np.int64)
+        r = state["rng"]
+        self.rng.set_state((r[0], np.asarray(r[1], dtype=np.uint32),
+                            int(r[2]), int(r[3]), float(r[4])))
+        ce = self._consumed_epoch()
+        with self._sched_lock:
+            self._orders = {ce: order}
+            self._rng_states = {ce: self.rng.get_state()}
+            self._max_epoch = ce
+
+    def __iter__(self) -> Iterator[Dict]:
+        self.reset()
+        for _ in range(self.num_batches):
+            yield self.next_batch()
+
+
+class _PrefetchMixin:
+    """Prefetch plumbing for loaders whose host batches come from a
+    stateful sequential read (``_read_host_batch``). Ring items are
+    (host batch, staged batch or None); whether the staging thread also
+    copies to the device is decided by the consumer's first call, so a
+    loader driven only through next_host_batch never touches the
+    model's staging."""
+
+    _pipe = None
+    _pipe_stages_device = False
+
+    def _init_prefetch(self, model, prefetch: bool,
+                       depth: Optional[int]) -> None:
+        self._depth = _config_depth(model, depth)
+        self._prefetch_on = bool(prefetch) and self._depth > 0
+
+    def _read_host_batch(self) -> Dict[str, np.ndarray]:
+        raise NotImplementedError
+
+    def _ensure_pipe(self, stage_device: bool):
+        if self._pipe is None:
+            from .prefetch import PrefetchPipeline
+            self._pipe_stages_device = stage_device
+
+            def produce(_k):
+                hb = self._read_host_batch()
+                staged = (self.model._stage_step(hb)
+                          if self._pipe_stages_device else None)
+                return (hb, staged)
+
+            self._pipe = PrefetchPipeline(produce, depth=self._depth,
+                                          name=type(self).__name__)
+        return self._pipe
+
+    def _close_pipe(self):
+        if self._pipe is not None:
+            self._pipe.close()
+            self._pipe = None
+
+    def next_host_batch(self) -> Dict[str, np.ndarray]:
+        if not self._prefetch_on:
+            return self._read_host_batch()
+        return self._ensure_pipe(stage_device=False).get()[0]
+
+    def next_batch(self) -> Dict:
+        if not self._prefetch_on:
+            return self.model._device_batch(self._read_host_batch())
+        hb, staged = self._ensure_pipe(stage_device=True).get()
+        # a ring opened in host-only mode stages on the consumer instead
+        return (staged.wait() if staged is not None
+                else self.model._device_batch(hb))
+
+
+def write_ffbin(path: str, dense: np.ndarray, sparse: np.ndarray,
+                labels: np.ndarray) -> None:
+    """Write a dataset in the native loader's .ffbin format (see the
+    header of native/ffloader.cc). sparse may be (n, T) or (n, T, bag):
+    it is stored flattened per sample and reshaped on load."""
+    n = len(labels)
+    dense = np.ascontiguousarray(dense, dtype=np.float32).reshape(n, -1)
+    sparse = np.ascontiguousarray(sparse, dtype=np.int32).reshape(n, -1)
+    labels = np.ascontiguousarray(labels, dtype=np.float32).reshape(n)
+    with open(path, "wb") as f:
+        f.write(b"FFB1")
+        np.asarray([n, dense.shape[1], sparse.shape[1]],
+                   dtype=np.int64).tofile(f)
+        dense.tofile(f)
+        sparse.tofile(f)
+        labels.tofile(f)
+
+
+class FFBinDataLoader(_PrefetchMixin):
+    """Native prefetching loader over an .ffbin file.
+
+    The C++ side (native/ffloader.cc) keeps the dataset mmap'd and a
+    background thread assembling (shuffled) batches into a ring; on the
+    Python side the prefetch ring copies the assembled batches to the
+    card ahead of the training loop, so ``next_batch`` hands back a
+    staged batch. ``sparse_shape`` restores the per-sample sparse
+    layout, e.g. (T, bag). The native library is built with g++ at first
+    use; without a compiler this raises."""
+
+    def __init__(self, model, path: str, batch_size: Optional[int] = None,
+                 shuffle: bool = False, seed: int = 0,
+                 sparse_shape: Optional[tuple] = None,
+                 io_retries: int = 3, io_backoff_s: float = 0.05,
+                 prefetch: bool = True, depth: Optional[int] = None):
+        from ..native import get_lib
+        self._handle = None
+        self._lib = get_lib()
+        self.model = model
+        self.io_retries = io_retries
+        self.io_backoff_s = io_backoff_s
+        self.batch_size = batch_size or model.config.batch_size
+        self._init_prefetch(model, prefetch, depth)
+        self._handle = self._lib.ffloader_open(
+            path.encode(), self.batch_size, 1 if shuffle else 0, seed)
+        if not self._handle:
+            raise IOError(f"cannot open .ffbin dataset {path!r}")
+        meta = (ctypes.c_int64 * 4)()
+        self._lib.ffloader_meta(self._handle, meta)
+        self.num_samples, self.dense_dim, self._sparse_flat, \
+            self.num_batches = (int(meta[0]), int(meta[1]), int(meta[2]),
+                                int(meta[3]))
+        self.sparse_shape = tuple(sparse_shape) if sparse_shape else \
+            (self._sparse_flat, 1)
+        if int(np.prod(self.sparse_shape)) != self._sparse_flat:
+            self.close()
+            raise ValueError(
+                f"sparse_shape {self.sparse_shape} != stored width "
+                f"{self._sparse_flat}")
+
+    def _read_host_batch(self) -> Dict[str, np.ndarray]:
+        if not self._handle:
+            raise RuntimeError("loader is closed")
+        # fresh arrays each call: the C side copies straight into them
+        dense = np.empty((self.batch_size, self.dense_dim), dtype=np.float32)
+        sparse = np.empty((self.batch_size, self._sparse_flat),
+                          dtype=np.int32)
+        label = np.empty(self.batch_size, dtype=np.float32)
+        bi = read_with_retries(
+            lambda: self._lib.ffloader_next(
+                self._handle,
+                dense.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                sparse.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                label.ctypes.data_as(ctypes.POINTER(ctypes.c_float))),
+            "ffbin_read", retries=self.io_retries,
+            backoff_s=self.io_backoff_s)
+        if bi < 0:
+            raise RuntimeError("native loader stopped")
+        return {
+            "dense": dense,
+            "sparse": sparse.reshape(
+                (self.batch_size,) + self.sparse_shape),
+            "label": label.reshape(-1, 1),
+        }
+
+    def close(self):
+        self._close_pipe()
+        if self._handle:
+            self._lib.ffloader_close(self._handle)
+            self._handle = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:   # interpreter teardown: nothing to report to
+            pass
+
+    def __iter__(self) -> Iterator[Dict]:
+        for _ in range(self.num_batches):
+            yield self.next_batch()

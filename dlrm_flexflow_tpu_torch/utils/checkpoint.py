@@ -1,0 +1,448 @@
+"""Checkpoint / resume (the port of ``dlrm_flexflow_tpu.utils.checkpoint``),
+in the JAX package's own file format, so each package restores the
+other's snapshots.
+
+A snapshot is one ``.npz``: ``params/<op>/<param>`` in the JAX layout
+(``utils.weights.params_to_jax``: stacked tables lane-packed to
+(T, rows/r, r·d) in ``_table_order``), ``opt/<slab>/<op>/<param>`` and
+Adam's ``opt/step`` (``opt_state_to_jax``), and ``meta/step``. The port
+runs on one device and writes no ``meta/mesh_axes`` or
+``meta/num_devices``: the JAX package checks a mesh only when a file
+records one, so any JAX mesh takes the port's file, and the arrays are
+host-gathered either way. Restoring goes back through
+``params_from_jax``/``opt_state_from_jax``; a JAX file's mesh record is
+not checked here, because its arrays are whole.
+
+Fault tolerance, as in the JAX package:
+
+- every write is atomic — a temp file in the target directory, fsync,
+  ``os.replace`` — so a crash mid-save never corrupts an existing
+  snapshot (it leaves a ``*.tmp-<pid>`` orphan, which the manager
+  sweeps);
+- :class:`CheckpointManager` keeps the last K snapshots, with a JSON
+  manifest carrying each one's step, the model's fingerprint
+  (``config_fingerprint``, the JAX package's digest of the same graph),
+  a CRC-32 of the file and an opaque ``loader_state`` (``fit()`` stores
+  its epoch/batch position there);
+- ``save_async`` copies the state to the host inline (it must, for
+  consistency) and compresses nothing: the write, rename and manifest
+  update run on a background thread;
+- restore walks the manifest newest-first and skips corrupt, truncated,
+  missing or foreign snapshots.
+
+Fault-injection hooks from ``utils.faults`` sit on the write path. The
+delta chain of the JAX manager (``delta_entries``, ``append_delta_entry``,
+``reset_deltas``, ROADMAP queue 1 item 9.5) and its warm-cache
+directory are not ported yet.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import threading
+import time
+import zlib
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from . import faults
+from .logging import get_logger
+from .weights import (jax_param_shapes, opt_state_from_jax,
+                      opt_state_to_jax, params_from_jax, params_to_jax)
+
+log_ckpt = get_logger("checkpoint")
+
+
+def _flatten(tree, prefix=""):
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_flatten(v, f"{prefix}{k}/"))
+    else:
+        out[prefix.rstrip("/")] = tree
+    return out
+
+
+def _unflatten(flat):
+    tree = {}
+    for k, v in flat.items():
+        parts = k.split("/")
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return tree
+
+
+def _model_flat(model) -> Dict[str, np.ndarray]:
+    """A model's training state as npz-ready host arrays in the JAX
+    layout. The arrays own their bytes: a background writer writes them
+    while the training loop keeps updating the model's tensors in
+    place (a copy from the card is fresh host memory; a CPU tensor is
+    copied)."""
+    copy = model.device.type == "cpu"
+    flat: Dict[str, np.ndarray] = {}
+    for k, v in _flatten(params_to_jax(model, model.params)).items():
+        flat[f"params/{k}"] = np.array(v) if copy else v
+    opt = opt_state_to_jax(model, model.opt_state or {})
+    for k, v in _flatten(opt).items():
+        flat[f"opt/{k}"] = np.array(v) if copy else v
+    flat["meta/step"] = np.asarray(model._step)
+    return flat
+
+
+def _write_npz_atomic(path: str, flat: Dict[str, np.ndarray]) -> int:
+    """Write `flat` to `path` atomically; returns the file's CRC-32. The
+    temp file lives in the same directory (``os.replace`` must not cross
+    file systems) and is fsync'd before the rename, so a crash at any
+    point leaves either the previous file or the complete new one."""
+    d = os.path.dirname(os.path.abspath(path))
+    os.makedirs(d, exist_ok=True)
+    tmp = f"{path}.tmp-{os.getpid()}"
+    try:
+        with open(tmp, "wb") as f:
+            np.savez(f, **flat)
+            f.flush()
+            os.fsync(f.fileno())
+        crc = _file_crc32(tmp)
+        faults.maybe_abort_write(path)   # injected save crash (pre-rename)
+        faults.maybe_delay_write()       # injected kill window
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+    faults.maybe_truncate_file(path)     # injected torn write / bit rot
+    return crc
+
+
+def _file_crc32(path: str) -> int:
+    crc = 0
+    with open(path, "rb") as f:
+        while True:
+            chunk = f.read(1 << 22)
+            if not chunk:
+                return crc
+            crc = zlib.crc32(chunk, crc)
+
+
+def config_fingerprint(model) -> str:
+    """Short digest of what a checkpoint must agree with the model on:
+    the op graph (names and JAX class names, which the port's ops
+    share), every parameter's shape in the JAX layout, and the compute
+    dtype; the same digest as the JAX package's for the same graph, so
+    neither package skips the other's snapshots as foreign."""
+    desc: List[Any] = [str(model.config.compute_dtype)]
+    desc.append(sorted((op.name, type(op).__name__) for op in model.ops))
+    desc.append(sorted(
+        (f"{op}/{pn}", shape)
+        for op, shapes in jax_param_shapes(model).items()
+        for pn, shape in shapes.items()))
+    desc.append([])      # the JAX model's host-resident tables: none here
+    blob = json.dumps(desc, sort_keys=True, default=str).encode()
+    return hashlib.sha1(blob).hexdigest()[:12]
+
+
+def save_checkpoint(model, path: str):
+    """Save params, optimizer state and step to `path` (.npz),
+    atomically."""
+    if not path.endswith(".npz"):
+        path += ".npz"   # np.savez would have appended it anyway
+    _write_npz_atomic(path, _model_flat(model))
+
+
+def _split_sections(flat: Dict[str, np.ndarray]):
+    """A snapshot's flat arrays -> its params and opt sections."""
+    params_flat, opt_flat = {}, {}
+    for k, v in flat.items():
+        if k.startswith("params/"):
+            params_flat[k[len("params/"):]] = v
+        elif k.startswith("opt/"):
+            opt_flat[k[len("opt/"):]] = v
+        elif k.startswith(("state/", "hostparams/", "hostopt/")):
+            raise ValueError(
+                f"checkpoint holds {k!r}: op state and host-resident "
+                f"tables are not ported yet (ROADMAP queue 1 items 2.4 "
+                f"and 11)")
+    return params_flat, opt_flat
+
+
+def restore_checkpoint(model, path: str, params_only: bool = False):
+    """Restore a snapshot (the port's or the JAX package's) into a built
+    model: parameters, optimizer state and step. Every parameter is
+    checked against the model's before anything is replaced, and a
+    snapshot missing one of the model's ops raises.
+    ``params_only=True`` loads the parameters and step and leaves the
+    optimizer state as it is (serving)."""
+    with np.load(path if path.endswith(".npz") else path + ".npz") as data:
+        flat = {k: data[k] for k in data.files}
+    params_flat, opt_flat = _split_sections(flat)
+    return _apply_flat_state(model, params_flat,
+                             None if params_only else opt_flat,
+                             int(flat["meta/step"]))
+
+
+def restore_from_flat(model, flat: Dict[str, np.ndarray]):
+    """Restore a ``_model_flat`` snapshot held in memory."""
+    params_flat, opt_flat = _split_sections(flat)
+    return _apply_flat_state(model, params_flat, opt_flat,
+                             int(flat["meta/step"]))
+
+
+def _apply_flat_state(model, params_flat, opt_flat, step: int):
+    params_np = _unflatten(params_flat)
+    have = {op.name for op in model.ops if op.param_defs()}
+    extra = sorted(set(params_np) - have)
+    if extra:
+        raise ValueError(f"checkpoint has parameters for ops {extra} "
+                         f"which this model does not have")
+    params = params_from_jax(model, params_np)   # raises on a mismatch
+    state = None
+    if opt_flat is not None:
+        state = opt_state_from_jax(model, _unflatten(opt_flat))
+        opt = getattr(model, "optimizer", None)
+        if opt is not None:
+            want = set(opt.init_state({}))
+            if set(state) != want:
+                raise ValueError(
+                    f"checkpoint optimizer state {sorted(state)} does not "
+                    f"match this model's optimizer ({sorted(want)})")
+    model.swap_params(params)
+    if state is not None:
+        model.opt_state = state
+    model._step = int(step)
+    model._msums = None
+    return model
+
+
+class CheckpointManager:
+    """Atomic rolling checkpoints in a directory, with a manifest, in the
+    JAX package's layout::
+
+        <dir>/ckpt-00000042.npz     keep-last-K snapshot files
+        <dir>/manifest.json         entries, newest last (atomic writes)
+
+    ``save``/``save_async`` copy the model's state to the host, then
+    write, rename and update the manifest (on a background thread for
+    ``save_async``). ``restore_latest`` walks the entries newest-first
+    and restores the first whose file exists, passes its CRC-32 and
+    matches the model's fingerprint. ``last_save`` holds the last
+    snapshot's bytes, host-copy seconds and write seconds."""
+
+    MANIFEST = "manifest.json"
+
+    def __init__(self, directory: str, keep_last: int = 3):
+        if keep_last < 1:
+            raise ValueError(f"keep_last must be >= 1, got {keep_last}")
+        self.directory = os.path.abspath(directory)
+        self.keep_last = keep_last
+        os.makedirs(self.directory, exist_ok=True)
+        self._thread: Optional[threading.Thread] = None
+        self._thread_exc: Optional[BaseException] = None
+        self._manifest_lock = threading.Lock()
+        self.last_save: Dict[str, float] = {}
+        self._sweep_orphan_tmps()
+
+    # --- manifest ------------------------------------------------------
+    def _manifest_path(self) -> str:
+        return os.path.join(self.directory, self.MANIFEST)
+
+    def _read_manifest(self) -> Dict[str, Any]:
+        try:
+            with open(self._manifest_path()) as f:
+                m = json.load(f)
+            if isinstance(m, dict) and isinstance(m.get("entries"), list):
+                return m
+        except FileNotFoundError:
+            pass
+        except (json.JSONDecodeError, OSError) as e:
+            # a torn manifest must not kill resume: treat it as empty
+            log_ckpt.warning("unreadable manifest %s (%s); treating as "
+                             "empty", self._manifest_path(), e)
+        return {"version": 1, "entries": []}
+
+    def _write_manifest(self, manifest: Dict[str, Any]) -> None:
+        path = self._manifest_path()
+        tmp = f"{path}.tmp-{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump(manifest, f, indent=1, sort_keys=True)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+
+    def _sweep_orphan_tmps(self) -> None:
+        for name in os.listdir(self.directory):
+            if ".tmp-" in name:
+                try:
+                    os.unlink(os.path.join(self.directory, name))
+                    log_ckpt.info("removed orphan temp file %s (crashed "
+                                  "writer)", name)
+                except OSError:
+                    pass
+
+    # --- save ----------------------------------------------------------
+    def _snapshot(self, model):
+        t0 = time.perf_counter()
+        flat = _model_flat(model)
+        gather_s = time.perf_counter() - t0
+        nbytes = sum(int(v.nbytes) for v in flat.values())
+        return flat, {"bytes": nbytes, "gather_s": gather_s}
+
+    def save(self, model, loader_state: Optional[Dict[str, Any]] = None):
+        """Blocking snapshot of the model's current state."""
+        self.wait()
+        step = int(model._step)
+        flat, stats = self._snapshot(model)
+        self._write_snapshot(flat, step, config_fingerprint(model),
+                             dict(loader_state or {}), stats)
+
+    def save_async(self, model,
+                   loader_state: Optional[Dict[str, Any]] = None):
+        """Snapshot now (the copy to the host inline, for consistency),
+        write on a background thread. Joins any previous in-flight save
+        first: at most one writer; its errors raise here or at wait()."""
+        self.wait()
+        step = int(model._step)
+        flat, stats = self._snapshot(model)
+        fp = config_fingerprint(model)
+        state = dict(loader_state or {})
+
+        def work():
+            try:
+                self._write_snapshot(flat, step, fp, state, stats)
+            except BaseException as e:   # raised at wait()/next save
+                self._thread_exc = e
+
+        self._thread = threading.Thread(target=work, daemon=True,
+                                        name="ff-ckpt-writer")
+        self._thread.start()
+
+    def wait(self) -> None:
+        """Join the in-flight async save and raise its error, if any."""
+        t = self._thread
+        if t is not None:
+            t.join()
+            self._thread = None
+        exc = self._thread_exc
+        if exc is not None:
+            self._thread_exc = None
+            raise exc
+
+    def _write_snapshot(self, flat, step: int, fingerprint: str,
+                        loader_state: Dict[str, Any],
+                        stats: Dict[str, float]) -> Dict[str, Any]:
+        fname = f"ckpt-{step:08d}.npz"
+        path = os.path.join(self.directory, fname)
+        t0 = time.perf_counter()
+        crc = _write_npz_atomic(path, flat)
+        entry = {"file": fname, "step": step, "crc32": crc,
+                 "fingerprint": fingerprint, "time": time.time(),
+                 "loader_state": loader_state}
+        with self._manifest_lock:
+            manifest = self._read_manifest()
+            manifest["entries"] = [e for e in manifest["entries"]
+                                   if e.get("file") != fname] + [entry]
+            self._gc(manifest)
+            self._write_manifest(manifest)
+        write_s = time.perf_counter() - t0
+        self.last_save = dict(stats, write_s=write_s, step=step)
+        log_ckpt.info("saved checkpoint %s (step %d, %.0f ms)",
+                      fname, step, 1e3 * write_s)
+        return entry
+
+    def _gc(self, manifest: Dict[str, Any]) -> None:
+        """Keep the newest `keep_last` entries and delete the rest's
+        files; called under the manifest lock, before the manifest
+        write (a crash in between only loses superseded snapshots)."""
+        entries = sorted(manifest["entries"], key=lambda e: e.get("step", -1))
+        drop, keep = entries[:-self.keep_last], entries[-self.keep_last:]
+        for e in drop:
+            try:
+                os.unlink(os.path.join(self.directory, e["file"]))
+            except OSError:
+                pass
+        manifest["entries"] = keep
+
+    # --- restore -------------------------------------------------------
+    def entries(self) -> List[Dict[str, Any]]:
+        with self._manifest_lock:
+            return list(self._read_manifest()["entries"])
+
+    def _entry_valid(self, entry: Dict[str, Any],
+                     fingerprint: Optional[str]) -> bool:
+        path = os.path.join(self.directory, entry.get("file", ""))
+        if not os.path.isfile(path):
+            log_ckpt.warning("checkpoint %s listed in manifest but "
+                             "missing on disk; skipping", entry.get("file"))
+            return False
+        if (fingerprint is not None
+                and entry.get("fingerprint") not in (None, fingerprint)):
+            log_ckpt.warning(
+                "checkpoint %s was written by a differently-built model "
+                "(fingerprint %s != %s); skipping", entry["file"],
+                entry.get("fingerprint"), fingerprint)
+            return False
+        crc = entry.get("crc32")
+        if crc is not None and _file_crc32(path) != crc:
+            log_ckpt.warning("checkpoint %s fails its checksum (torn "
+                             "write / corruption); skipping", entry["file"])
+            return False
+        return True
+
+    def latest_valid(self, fingerprint: Optional[str] = None
+                     ) -> Optional[Dict[str, Any]]:
+        """Newest entry that exists, checksums clean and (when given)
+        matches `fingerprint`; None when no snapshot survives."""
+        for entry in reversed(self.entries()):
+            if self._entry_valid(entry, fingerprint):
+                return entry
+        return None
+
+    def restore_latest(self, model) -> Optional[Dict[str, Any]]:
+        """Restore the newest valid snapshot into `model`; returns its
+        manifest entry (step, loader_state, ...) or None when nothing
+        restorable is left."""
+        fp = config_fingerprint(model)
+        for entry in reversed(self.entries()):
+            if not self._entry_valid(entry, fp):
+                continue
+            path = os.path.join(self.directory, entry["file"])
+            try:
+                restore_checkpoint(model, path)
+            except (ValueError, KeyError, OSError, zlib.error) as e:
+                # the checksum passed but the content disagrees with
+                # this model, or the zip is unreadable: walk back
+                log_ckpt.warning("checkpoint %s did not restore (%s); "
+                                 "trying an older snapshot",
+                                 entry["file"], e)
+                continue
+            log_ckpt.info("resumed from %s (step %d)", entry["file"],
+                          entry["step"])
+            return entry
+        return None
+
+
+def get_weights(model, op_name: str) -> Dict[str, np.ndarray]:
+    """One op's parameters as host arrays, in the port's layout."""
+    return {k: v.detach().cpu().numpy().copy()
+            for k, v in model.params[op_name].items()}
+
+
+def set_weights(model, op_name: str, weights) -> None:
+    """Write host arrays into one op's parameters (same shapes)."""
+    cur = model.params[op_name]
+    for k, v in weights.items():
+        if k not in cur:
+            raise KeyError(f"{op_name} has no parameter {k}")
+        if tuple(v.shape) != tuple(cur[k].shape):
+            raise ValueError(f"{op_name}.{k}: shape {tuple(v.shape)} != "
+                             f"{tuple(cur[k].shape)}")
+    for k, v in weights.items():
+        with torch.no_grad():
+            cur[k].copy_(torch.as_tensor(np.asarray(v)).to(cur[k].dtype))

@@ -1,6 +1,9 @@
-"""Deadlines for the serving path (own copies of ``StallReport`` and
-``Deadline`` from ``dlrm_flexflow_tpu.utils.watchdog``; its worker
-watchdogs wait with the training runtime)."""
+"""Deadlines and stall reports (own copies of ``StallReport``,
+``WorkerStalled`` and ``Deadline`` from
+``dlrm_flexflow_tpu.utils.watchdog``): the serving path's deadlines and
+the prefetch ring's liveness deadline. The JAX package's other worker
+watchdogs, and the observability hooks of ``WorkerStalled``, wait with
+the items that port those workers."""
 
 from __future__ import annotations
 
@@ -27,6 +30,17 @@ class StallReport:
         if self.detail:
             s += f" [{self.detail}]"
         return s
+
+
+class WorkerStalled(RuntimeError):
+    """A background worker missed its liveness deadline. Raised at the
+    consumer's wait site, never from the worker thread, so a training
+    loop sees it at a step boundary; ``report`` carries the
+    :class:`StallReport`."""
+
+    def __init__(self, report: StallReport):
+        super().__init__(str(report))
+        self.report = report
 
 
 @dataclass

@@ -74,8 +74,27 @@ def _pack_factor(dim: int, rows: int) -> int:
     return 1
 
 
+def jax_param_shapes(model) -> Dict[str, Dict[str, tuple]]:
+    """Every parameter's shape in the JAX layout, as ``params_to_jax``
+    would give it, from the ops' definitions alone (no data moves)."""
+    out = {}
+    for op in model.ops:
+        defs = op.param_defs()
+        if not defs:
+            continue
+        shapes = {pn: tuple(int(x) for x in d.shape)
+                  for pn, d in defs.items()}
+        if isinstance(op, EmbeddingBagStacked) and "kernel" in shapes:
+            r = _pack_factor(op.out_dim, op.num_entries)
+            shapes["kernel"] = (op.num_tables, op.num_entries // r,
+                                op.out_dim * r)
+        out[op.name] = shapes
+    return out
+
+
 def params_to_jax(model, params: Dict[str, Dict[str, torch.Tensor]]
                   ) -> Dict[str, Dict[str, np.ndarray]]:
+    shapes = jax_param_shapes(model)
     out = {}
     for op in model.ops:
         if not op.param_defs():
@@ -86,9 +105,7 @@ def params_to_jax(model, params: Dict[str, Dict[str, torch.Tensor]]
             if isinstance(op, EmbeddingBagStacked) and pn == "kernel":
                 if op._table_order is not None:
                     v = v[np.asarray(op._table_order)]
-                r = _pack_factor(op.out_dim, op.num_entries)
-                v = v.reshape(op.num_tables, op.num_entries // r,
-                              op.out_dim * r)
+                v = v.reshape(shapes[op.name][pn])
             mine[pn] = v
         out[op.name] = mine
     return out

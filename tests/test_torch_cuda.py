@@ -1260,3 +1260,92 @@ def test_nmt_step_on_card_matches_cpu(cuda):
             ulps = 2 * 2 ** -23 * float(init[op][n].abs().max())
             torch.testing.assert_close(
                 dg, dc, rtol=0, atol=1e-3 * float(dc.abs().max()) + ulps)
+
+
+# ---- the training runtime: prefetch, checkpoints, Adam's step size ---------
+def test_prefetched_batches_on_card_equal_synchronous_ones(cuda, tmp_path):
+    """Batches the prefetch ring stages on its side stream equal the same
+    batches staged in the loop, over a run that trains on each; and
+    ``fit`` through the ring trains BITWISE as ``fit`` without it."""
+    from dlrm_flexflow_tpu_torch.data.dataloader import (FFBinDataLoader,
+                                                         write_ffbin)
+    cfg = DLRMConfig(**ARCH["cat"])
+    x, y = synthetic_batch(cfg, 16 * 7 + 5, seed=8)
+    path = str(tmp_path / "d.ffbin")
+    write_ffbin(path, x["dense"], x["sparse"], y)
+    m = _model("cat", "cuda")
+    bag = cfg.embedding_bag_size
+    staged = FFBinDataLoader(m, path, shuffle=True, seed=1,
+                             sparse_shape=(len(cfg.embedding_size), bag),
+                             depth=3)
+    host = FFBinDataLoader(m, path, shuffle=True, seed=1,
+                           sparse_shape=(len(cfg.embedding_size), bag),
+                           prefetch=False)
+    try:
+        for _ in range(24):
+            db, want = staged.next_batch(), m._device_batch(
+                host.next_host_batch())
+            m.train_batch_device(db)
+            for k, v in want.items():
+                assert torch.equal(db[k], v), k
+    finally:
+        staged.close()
+        host.close()
+    x["label"] = y
+    labels = x.pop("label")
+    runs = []
+    for depth in (0, 2):
+        fm = _model("cat", "cuda")
+        fm.config.prefetch_depth = depth
+        fm.compile(SGDOptimizer(lr=0.05, momentum=0.9), "mean_squared_error",
+                   ["mse"])
+        out = fm.fit(x, labels, epochs=2, batch_size=16, verbose=False)
+        assert out["num_samples"] == 2 * len(labels)
+        runs.append(fm)
+    for op, p in runs[0].params.items():
+        for pn, v in p.items():
+            assert torch.equal(v, runs[1].params[op][pn]), (op, pn)
+
+
+def test_checkpoint_from_card_restores_on_card_and_cpu(cuda, tmp_path):
+    from dlrm_flexflow_tpu_torch.utils.checkpoint import CheckpointManager
+    from dlrm_flexflow_tpu_torch.utils.weights import opt_state_to_jax
+    g = _model("cat", "cuda")
+    g.compile(AdamOptimizer(alpha=0.01), "mean_squared_error", ["mse"])
+    x, y = synthetic_batch(DLRMConfig(**ARCH["cat"]), 16, seed=5)
+    x["label"] = y
+    for _ in range(3):
+        g.train_batch(x)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(g, {"epoch": 0, "batch": 3})
+    assert mgr.last_save["bytes"] > 0
+    for dev in ("cuda", "cpu"):
+        r = _model("cat", dev)
+        r.compile(AdamOptimizer(alpha=0.01), "mean_squared_error", ["mse"])
+        assert mgr.restore_latest(r)["step"] == 3 and r._step == 3
+        for op, p in g.params.items():
+            for pn, v in p.items():
+                assert torch.equal(v.cpu(), r.params[op][pn].cpu())
+        want, got = opt_state_to_jax(g, g.opt_state), opt_state_to_jax(
+            r, r.opt_state)
+        for k in ("m", "v"):
+            for op in want[k]:
+                for pn in want[k][op]:
+                    np.testing.assert_array_equal(got[k][op][pn],
+                                                  want[k][op][pn])
+        assert int(got["step"]) == 3
+
+
+def test_adam_step_size_on_card_matches_cpu(cuda):
+    """``AdamOptimizer.alpha_t`` on the card BITWISE as on the CPU (which
+    tests/test_torch_optimizers.py holds to jitted JAX) for steps
+    0-99,999, vectorised and as 0-d steps."""
+    opt = AdamOptimizer(alpha=0.001)
+    steps = torch.arange(100_000, dtype=torch.int32)
+    on_card = opt.alpha_t(steps.to(cuda)).cpu()
+    want = opt.alpha_t(steps)
+    assert torch.equal(on_card.view(torch.int32), want.view(torch.int32))
+    for s in (0, 101, 3699, 18_013, 99_999):
+        one = opt.alpha_t(torch.tensor(s, dtype=torch.int32, device=cuda))
+        assert one.dim() == 0 and one.device.type == "cuda"
+        assert float(one) == float(want[s])

@@ -1,0 +1,98 @@
+"""The port's DLRM launcher, ``python -m
+dlrm_flexflow_tpu_torch.examples.native.dlrm``, on the CPU at a tiny size:
+from an ``.ffbin`` file with prefetch and without, from an ``.npz``, and
+from one synthetic batch; the same data in the same order gives BITWISE
+the same trained weights whatever the source and the staging. Every
+flag whose module is not ported raises, naming its ROADMAP item.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from dlrm_flexflow_tpu_torch.data.dataloader import write_ffbin
+from dlrm_flexflow_tpu_torch.examples.native import dlrm as launcher
+from dlrm_flexflow_tpu_torch.models.dlrm import DLRMConfig, synthetic_batch
+
+ARGS = ["--device", "cpu", "-b", "16", "-e", "2", "--lr", "0.05",
+        "--arch-embedding-size", "64-64-64-64",
+        "--arch-sparse-feature-size", "8", "--arch-mlp-bot", "4-16-8",
+        "--arch-mlp-top", "40-16-1"]
+
+
+@pytest.fixture(scope="module")
+def files(tmp_path_factory):
+    d = tmp_path_factory.mktemp("launch")
+    cfg = DLRMConfig(embedding_size=[64] * 4, sparse_feature_size=8,
+                     mlp_bot=[4, 16, 8], mlp_top=[40, 16, 1])
+    x, y = synthetic_batch(cfg, 96, seed=4)
+    write_ffbin(str(d / "train.ffbin"), x["dense"], x["sparse"], y)
+    np.savez(d / "train.npz", dense=x["dense"], sparse=x["sparse"], label=y)
+    return d
+
+
+def _params(out):
+    return {(op, pn): v.clone() for op, p in out["model"].params.items()
+            for pn, v in p.items()}
+
+
+def test_trains_from_ffbin_npz_and_synthetic(files, capsys):
+    runs = {}
+    for name, extra in (
+            ("ffbin", ["--data-path", str(files / "train.ffbin")]),
+            ("ffbin, no prefetch", ["--data-path",
+                                    str(files / "train.ffbin"),
+                                    "--no-prefetch"]),
+            ("ffbin, depth 4", ["--data-path", str(files / "train.ffbin"),
+                                "--prefetch-depth", "4"]),
+            ("npz", ["--data-path", str(files / "train.npz")])):
+        out = launcher.main(ARGS + extra)
+        assert out["steps"] == 2 * 6 and out["num_samples"] == 2 * 96
+        assert out["throughput"] > 0
+        assert out["model"].config.prefetch_depth == (
+            0 if "no prefetch" in name else 4 if "4" in name else 2)
+        runs[name] = _params(out)
+    printed = capsys.readouterr().out
+    assert printed.count("THROUGHPUT = ") == 4
+    assert printed.count(" samples/s") == 4
+    first = runs.pop("ffbin")
+    for name, params in runs.items():
+        for k, v in first.items():
+            assert torch.equal(v, params[k]), (name, k)
+    out = launcher.main(ARGS)                       # synthetic
+    assert out["steps"] == 2 * 64
+    assert all(torch.isfinite(v).all() for v in _params(out).values())
+    assert np.isfinite(out["model"].perf.report()["mse"])
+
+
+def test_sparse_ids_past_the_tables_raise(files, tmp_path):
+    with np.load(files / "train.npz") as z:
+        data = dict(z)
+    data["sparse"][3, 2, 0] = 64
+    np.savez(tmp_path / "bad.npz", **data)
+    with pytest.raises(ValueError, match="table 2: max categorical index 64"):
+        launcher.main(ARGS + ["--data-path", str(tmp_path / "bad.npz")])
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--budget", "10"], "item 8"),
+    (["--import", "best.pb"], "item 8"),
+    (["--export", "best.pb"], "item 8"),
+    (["-ll:gpu", "8"], "item 7"),
+    (["--nodes", "2"], "item 7"),
+    (["--profiling"], "item 6"),
+    (["--superstep", "4"], "item 6"),
+    (["--anomaly-policy", "raise"], "item 6"),
+    (["--data-path", "train.h5"], "item 6"),
+    (["--host-tables"], "item 2.4"),
+    (["--arch-interaction-op", "dot"], "item 4"),
+])
+def test_unported_flags_raise_with_their_item(flags, item):
+    with pytest.raises(NotImplementedError, match=item):
+        launcher.main(ARGS + flags)
+
+
+def test_multi_host_launch_raises(monkeypatch):
+    monkeypatch.setenv("NUM_PROCESSES", "2")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        launcher.main(ARGS)

@@ -103,6 +103,35 @@ def _slabs_np(rng, names, shape):
             .astype(np.float32) for k in names}
 
 
+# ---- Adam's step size -----------------------------------------------------
+@pytest.mark.parametrize("alpha,beta1,beta2", [(0.001, 0.9, 0.999),
+                                               (0.01, 0.8, 0.99),
+                                               (3e-4, 0.9, 0.9999)])
+def test_adam_step_size_matches_jitted_jax(alpha, beta1, beta2):
+    """``AdamOptimizer.alpha_t`` against the JAX update's alpha_t under
+    ``jax.jit`` on the CPU, BITWISE, for steps 0-299,999 (every step,
+    in one vectorised call each; the port's table ends after 1,794 to
+    180,180 steps, so its clamped last entry is held too), and one 0-d
+    step as a training step asks for it."""
+    n = 300_000
+
+    @jax.jit
+    def want_fn(step):
+        t = (step + 1).astype(jnp.float32)
+        return alpha * jnp.sqrt(1.0 - beta2 ** t) / (1.0 - beta1 ** t)
+
+    want = np.asarray(want_fn(jnp.arange(n, dtype=jnp.int32)))
+    opt = AdamOptimizer(alpha=alpha, beta1=beta1, beta2=beta2)
+    got = opt.alpha_t(torch.arange(n, dtype=torch.int32))
+    assert got.dtype == torch.float32 and got.shape == (n,)
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
+    one = opt.alpha_t(torch.tensor(4, dtype=torch.int32))
+    assert one.dim() == 0 and float(one) == float(want[4])
+    with pytest.raises(ValueError, match="betas"):
+        AdamOptimizer(beta2=1.0)
+
+
 # ---- the row math --------------------------------------------------------
 @pytest.mark.parametrize("wd", [0.0, 1e-3])
 def test_adam_dense_update_matches_jax(wd):

@@ -40,6 +40,8 @@ held BITWISE on a case where rounding the product to bf16 first would
 change the result — and the bf16 "cat" forward matches the JAX model.
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -224,12 +226,22 @@ def test_fit_trains_every_batch_and_the_remainder():
             assert torch.equal(v, b.params[op][pn]), (op, pn)
 
 
-def test_fit_refuses_checkpoints():
+def test_fit_refuses_checkpoints(tmp_path):
+    """Until checkpoints were ported this test pinned the raise of
+    ``fit(checkpoint_dir=...)``; now that call writes a snapshot and a
+    manifest, as the JAX ``fit`` does (tests/test_torch_checkpoint.py
+    holds the files to the JAX package), while the fused supersteps,
+    still not ported, keep raising."""
     m = _port_model("cat")
     data = _batch("cat", 0)
     labels = data.pop("label")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        m.fit(data, labels, checkpoint_dir="ckpt", verbose=False)
+    ckpt = tmp_path / "ckpt"
+    m.fit(data, labels, checkpoint_dir=str(ckpt), verbose=False)
+    assert sorted(p.name for p in ckpt.iterdir()) == [
+        "ckpt-00000001.npz", "manifest.json"]
+    (entry,) = json.loads((ckpt / "manifest.json").read_text())["entries"]
+    assert (entry["step"], entry["loader_state"]) == (
+        1, {"epoch": 1, "batch": 0})
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         pt.FFConfig.parse_args(["--device", "cpu", "--superstep", "4"])
 
