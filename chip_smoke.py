@@ -39,7 +39,7 @@ Phases:
    every optimizer state slab zero. Ten steps run one at a time give a step's
    wall time alone, and a second window of 20 a second read of the
    back-to-back step (the host's speed drifts within a run); ten steps
-   queued behind a spin on the device (see phase 6) give the device's
+   queued behind a spin on the device (see phase 7) give the device's
    time for a step that the host never holds back and its idle share of
    the back-to-back step, ten under the profiler its busy time and top
    kernels, and ten traced with the host the host's top ops. One step on
@@ -58,7 +58,7 @@ Phases:
    steps alone and a second window. Its queued and profiled steps
    (device time, idle share, the host's top ops) and one fp32 step on the card against
    the same step on the CPU at vocab 4,096, 2 x 256, seq 12, batch 16 run
-   last, after phase 7: in one run, profiler sessions begun after NMT's
+   last, after phase 8: in one run, profiler sessions begun after NMT's
    recorded no device time for the scatter kernels;
 4. launch — the training runtime as users launch it, before any
    profiler session, in ``build/smoke`` of the checkout (removed at the
@@ -72,16 +72,51 @@ Phases:
    queued behind a spin for the device's time a step and its idle
    share. (b) ``fit`` survives a restart, bitwise: "cat" at full width
    under momentum 0.9 with weight decay 1e-4, 24 steps in one epoch;
-   uninterrupted (counts at 0 before, read after: one bag, one stateful
-   update on its one-launch route and one dense update a step), then a
-   fit with a snapshot every 12 steps (keep_last 1) stopped by an
-   exception as step 13 begins, then a fresh model with other weights
-   resumed from the directory: its parameters and momentum must equal
-   the uninterrupted fit's bitwise. The free disk space is checked
+   uninterrupted, the dataset staged on the card (counts at 0 before,
+   read after: one bag, one stateful update on its one-launch route and
+   one dense update a step), then a fit through the prefetch ring with
+   a snapshot every 12 steps (keep_last 1) stopped by an exception as
+   step 13 begins, then a fresh model with other weights resumed from
+   the directory through a rebuilt ring: its parameters and momentum
+   must equal the uninterrupted fit's bitwise. The free disk space is checked
    first; one snapshot (4.1 GB) is then saved and restored into another
    model, bitwise, with its bytes, the copy to the host, the write and
    the restore timed;
-5. cascade — the retrieve -> rank cascade at full width, built as
+5. resilience — training that survives bad steps and trains off a
+   stream, at the full width of ``random_benchmark()``, batch 256, fp32,
+   before any profiler session, in ``build/smoke`` (removed at the end).
+   First the sentinel's kernels: the norm (``grad_sumsq``, one launch)
+   over the "cat" and "dot" steps' gradient lists against its plain
+   version (rtol 1e-5; the flag exact for NaN and ±Inf), timed beside
+   its bound, its plain version and ``torch._foreach_norm``; and each
+   guarded entry (the dense update under Adam and momentum, the add and
+   write scatters, the stateful update on both routes) at its path's
+   shape: the flag 0 leaves every output byte, 1 is bitwise the
+   unguarded call. (a) "cat" and "dot" under Adam with ``skip_step``:
+   24 steps with batch 10 poisoned by the NaN fault hook (counts at 0
+   just before, read just after: one norm, one dense update and the
+   graph's scatter a step, no plain version), bitwise a clean run over
+   the same batches without batch 10, parameters and Adam's m, v and
+   step; ``raise`` raises ``AnomalyError`` and leaves them bitwise; the
+   step time under "none", "skip_step" and "raise", two windows of 20
+   each. (b) ``fit`` of "cat" under plain SGD, 16 steps, ``rollback``
+   with no rolling snapshots (the seed and the final one, 2.06 GB each),
+   step 10 poisoned: one rollback, the parameters bitwise a clean
+   fit's, the recovery (restore and rewind) timed. (c) ``fit`` of "cat"
+   under plain SGD over 65,536 samples, staged on the card and through
+   the prefetch ring in turn, twice each: bitwise alike, samples/s in
+   fit's window (the staged one's starts after the staging, as the JAX
+   fit's) and over the whole call, the staging timed apart (the first
+   staged and the first ring fit counted, each: one bag, pre-pass,
+   write-only scatter and dense update a step). (d)
+   ``TraceReplay("drifting_zipf")`` at the model's shapes, 64 requests
+   of 256 served by a "cat" ranker behind ``InferenceEngine`` into a
+   ``FeedbackSpool`` while another "cat" model trains off it with
+   ``fit_stream`` on a thread (counted: one write-only scatter and one
+   dense update a trained step): all 64 trained, none dropped;
+   ``fit_stream`` over an ``ArrayStream`` bitwise a ``train_batch``
+   loop;
+6. cascade — the retrieve -> rank cascade at full width, built as
    ``examples/native/serve_dlrm.py``'s ``_build_cascade`` builds it
    around ``random_benchmark()``: two-tower user and item heads, the 1M
    items encoded on the card and quantized into a 1-shard int8 MIPS
@@ -99,7 +134,7 @@ Phases:
    ``forward_batch`` of the expanded rows; the same codes over 4 shards
    must answer as 1 shard does, bitwise. Runs before any profiler
    session, then traces 8 requests for the top-k kernel's device time;
-6. kernels — each kernel at its path's full-width shapes against its
+7. kernels — each kernel at its path's full-width shapes against its
    plain PyTorch version on the same inputs, then timed beside its
    bound, the plain version and, where one PyTorch call computes the
    same function, that call: device time between two CUDA events around
@@ -164,7 +199,7 @@ Phases:
    (``lstm_gates``) against its plain version and ``torch.addmm``, the
    serial phase as the whole call less it, and its 39 barriers alone
    (``grid_barrier``);
-7. serve — the same model in both graphs, each behind
+8. serve — the same model in both graphs, each behind
    ``InferenceEngine(ServeConfig(max_batch=256))`` taking a few dozen
    requests of 1-64 rows from 4 threads. Every kernel's launch count is
    set to 0 just before each run and read just after; the kernel of that
@@ -179,7 +214,7 @@ The last two lines are a JSON object with every kernel's numbers and
 fails, the script exits non-zero and prints no result.
 
 ``python3 chip_smoke.py --shapes`` runs only the per-shape timings of
-the bag and the interaction (phase 6's ``{"shapes": [...]}``), with the
+the bag and the interaction (phase 7's ``{"shapes": [...]}``), with the
 package of the directory the script lies in: a copy of the script placed
 at the root of another tree of the port times that tree's kernels.
 """
@@ -301,6 +336,19 @@ LAUNCH_RUNS = (("prefetch, depth 2", ["--prefetch-depth", "2"]),
 # fit's restart check: FIT_STEPS steps of "cat" under momentum 0.9 with
 # weight decay 1e-4, a snapshot at FIT_STEPS // 2, keep_last 1
 FIT_STEPS = 24
+# the resilience phase: a skip_step run of SENTINEL_STEPS batches with
+# batch POISON_AT poisoned, timed under SENTINEL_POLICIES; a rollback fit
+# of ROLLBACK_STEPS steps with step POISON_AT poisoned; staged and ring
+# fits over STAGE_SAMPLES samples; a served and trained trace of
+# STREAM_STEPS requests, and fit_stream against a loop over
+# STREAM_CHECK_STEPS steps
+SENTINEL_STEPS = 24
+POISON_AT = 10
+SENTINEL_POLICIES = ("none", "skip_step", "raise")
+ROLLBACK_STEPS = 16
+STAGE_SAMPLES = 65_536
+STREAM_STEPS = 64
+STREAM_CHECK_STEPS = 16
 # where the launch phase writes its .ffbin and checkpoints: the build
 # directory of the checkout (git-ignored), removed at the end
 WORK_DIR = Path(__file__).resolve().parent / "build" / "smoke"
@@ -1503,7 +1551,7 @@ LAUNCHED = (bag_mod.embedding_bag, inter_mod.fused_interaction,
             scat_mod.scatter_add_rows, scat_mod.scatter_write_rows,
             scat_mod.stateful_update_rows,
             scat_mod.scatter_presort, dense_mod.dense_update,
-            topk_mod.mips_topk,
+            dense_mod.grad_sumsq, topk_mod.mips_topk,
             bag_mod.embedding_bag_quant, inter_mod.fused_interaction_quant,
             lstm_mod.lstm_fwd, lstm_mod.lstm_gates, lstm_mod.lstm_bwd)
 
@@ -1546,6 +1594,7 @@ class PlainCalls:
                           (scat_mod, "presort_reference"),
                           (scat_mod, "row_update_reference"),
                           (dense_mod, "dense_update_reference"),
+                          (dense_mod, "grad_sumsq_reference"),
                           (topk_mod, "mips_topk_reference"),
                           (bag_mod, "embedding_bag_quant_reference"),
                           (inter_mod, "fused_interaction_quant_reference"),
@@ -2007,23 +2056,27 @@ def _model_bytes(model):
 def fit_restart(work):
     """``fit`` survives a restart, bitwise: full-width "cat" under SGD
     with momentum 0.9 and weight decay 1e-4, FIT_STEPS steps of batch
-    256 in one epoch. One model fits them uninterrupted (every count at
-    0 just before, read just after); a second fits with a snapshot every
-    FIT_STEPS // 2 steps (keep_last 1) and is stopped by an exception as
-    the step after the snapshot begins; a third model, from other
-    weights, resumes from the directory to the end. Its parameters and
-    momentum must equal the first's bitwise. Then one snapshot of it is
-    saved and restored into a fourth model, timed: bytes, the copy to
-    the host and the write apart, the restore, GB/s. Free disk space is
-    checked first. Returns the uninterrupted run's launch counts."""
+    256 in one epoch. One model fits them uninterrupted, the dataset
+    staged on the card (every count at 0 just before, read just after);
+    a second fits through the prefetch ring (``stage_dataset="never"``,
+    depth 2) with a snapshot every FIT_STEPS // 2 steps (keep_last 1) and
+    is stopped by an exception as the step after the snapshot begins; a
+    third model, from other weights, resumes from the directory to the
+    end through a ring rebuilt at the restored (epoch, batch). Its
+    parameters and momentum must equal the first's bitwise. Then one
+    snapshot of it is saved and restored into a fourth model, timed:
+    bytes, the copy to the host and the write apart, the restore, GB/s.
+    Free disk space is checked first. Returns the uninterrupted run's
+    launch counts."""
     from dlrm_flexflow_tpu_torch.utils.checkpoint import CheckpointManager
     half = FIT_STEPS // 2
     cfg = train_config("cat")
     x, y = synthetic_batch(cfg, FIT_STEPS * TRAIN_B, seed=SEED + 6)
     kw = dict(epochs=1, batch_size=TRAIN_B, verbose=False)
 
-    def model(seed):
+    def model(seed, stage="auto"):
         m, _ = train_model("cat", "cuda", opt="momentum")
+        m.config.stage_dataset = stage
         m.init_layers(seed=seed)
         return m
 
@@ -2046,7 +2099,7 @@ def fit_restart(work):
           f"step, or a plain version ran: {launches}, {plain.calls}")
 
     ckdir = work / "ckpt"
-    broken = model(SEED)
+    broken = model(SEED, "never")
     real, calls = broken.train_batch_staged, []
 
     def crashing(staged):
@@ -2069,7 +2122,7 @@ def fit_restart(work):
           and entries[0]["loader_state"] == {"epoch": 0, "batch": half},
           f"fit restart: the interrupted run left {entries}")
 
-    resumed = model(SEED + 1)
+    resumed = model(SEED + 1, "never")
     t0 = time.perf_counter()
     out = resumed.fit(x, y, checkpoint_dir=str(ckdir), keep_last=1, **kw)
     resume_s = time.perf_counter() - t0
@@ -2086,8 +2139,8 @@ def fit_restart(work):
             for pn, v in p.items()) for ta, tb in pairs)
 
     check(same(resumed, whole),
-          "fit restart: the resumed fit's parameters or momentum differ "
-          "from the uninterrupted fit's")
+          "fit restart: the ring-resumed fit's parameters or momentum "
+          "differ from the uninterrupted staged fit's")
     entries = json.loads((ckdir / "manifest.json").read_text())["entries"]
     check([e["step"] for e in entries] == [FIT_STEPS]
           and len(list(ckdir.glob("ckpt-*.npz"))) == 1,
@@ -2109,9 +2162,10 @@ def fit_restart(work):
           "fit restart: the timed snapshot did not restore bitwise")
     gb = st["bytes"] / 1e9
     print(f"fit restart: {FIT_STEPS} steps, stopped after the snapshot at "
-          f"step {half}, resumed by a fresh model in {resume_s:.2f} s "
-          f"(restore and {half} steps and the final snapshot): parameters "
-          f"and momentum bitwise equal to the uninterrupted fit; snapshot "
+          f"step {half} (through the ring), resumed by a fresh model "
+          f"through a rebuilt ring in {resume_s:.2f} s (restore and {half} "
+          f"steps and the final snapshot): parameters and momentum bitwise "
+          f"equal to the uninterrupted staged fit; snapshot "
           f"{st['bytes']:,} bytes: copy to the host {st['gather_s']:.2f} s "
           f"({gb / st['gather_s']:.2f} GB/s), write {st['write_s']:.2f} s "
           f"({gb / st['write_s']:.2f} GB/s, checksum and fsync included), "
@@ -2135,6 +2189,543 @@ def launch_phase():
             counts[k] = counts.get(k, 0) + v
         print(f"launch phase: {time.perf_counter() - t0:.1f} s")
         return counts
+    finally:
+        shutil.rmtree(WORK_DIR, ignore_errors=True)
+
+
+def _state_tensors(model):
+    """Every parameter and optimizer-state tensor of a model (Adam's step
+    included), in the order of their sorted names (a restore may rebuild
+    the dicts in another order)."""
+    def flat(tree):
+        return [x for k in sorted(tree) for x in (
+            flat(tree[k]) if isinstance(tree[k], dict) else [tree[k]])]
+    return flat(model.params) + flat(model.opt_state or {})
+
+
+def _same_state(a, b):
+    """Parameters and optimizer state, bitwise, on the card."""
+    ta, tb = _state_tensors(a), _state_tensors(b)
+    return len(ta) == len(tb) and all(torch.equal(x, y)
+                                      for x, y in zip(ta, tb))
+
+
+def sumsq_lists(dev, gen):
+    """The gradient lists of the sentinel's norm at its paths' shapes:
+    "cat" (its 14 dense MLP gradients and the lookups' 256 x 8 x 64
+    cotangent) and "dot" (every parameter's gradient, the 8M x 64 table
+    included), random normal."""
+    out = {}
+    for mode in ("cat", "dot"):
+        model, _ = train_model(mode, "cuda")
+        sparse = {op.name for op in model._select_sparse_update_ops()}
+        shapes = [tuple(d.shape) for op in model.ops
+                  if op.name not in sparse
+                  for d in op.param_defs().values()]
+        if mode == "cat":
+            shapes.append((TRAIN_B, T, D))
+        out[mode] = [torch.randn(s, device=dev, generator=gen)
+                     for s in shapes]
+        del model
+    return out
+
+
+def sumsq_kernel(dev):
+    """The sentinel's norm (``grad_sumsq``, one launch over every
+    gradient) on the "cat" and "dot" lists against its plain version on
+    the card (rtol 1e-5, the fp32 sum of squares in another order): a
+    rerun bitwise, the flag exactly for a NaN, +Inf or -Inf gradient and
+    a NaN loss; then timed beside its bound (each gradient read once,
+    two operations an element), the plain version and
+    ``torch._foreach_norm`` (one call, per-tensor norms only), the
+    "dot" list in the row."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    lists = sumsq_lists(dev, gen)
+    loss = torch.tensor(0.5, device=dev)
+    row = None
+    for mode in ("cat", "dot"):
+        gs = lists.pop(mode)
+        nel = sum(g.numel() for g in gs)
+        before = dense_mod.grad_sumsq.launches
+        gsq, norm, ok = dense_mod.grad_sumsq(gs, loss)
+        check(dense_mod.grad_sumsq.launches - before == 1,
+              f"grad_sumsq ({mode}): not one launch")
+        pgsq, pnorm, pok = dense_mod.grad_sumsq_reference(gs, loss)
+        err = abs(float(norm) - float(pnorm))
+        check(abs(float(gsq) - float(pgsq)) <= 1e-5 * abs(float(pgsq))
+              and err <= 1e-5 * abs(float(pnorm)) and int(ok) == 1
+              and int(pok) == 1,
+              f"grad_sumsq ({mode}): {float(gsq)}, {float(norm)}, "
+              f"{int(ok)} against the plain {float(pgsq)}, "
+              f"{float(pnorm)}, {int(pok)}")
+        again = dense_mod.grad_sumsq(gs, loss)
+        check(float(again[0]) == float(gsq) and float(again[1])
+              == float(norm), f"grad_sumsq ({mode}): a rerun differs")
+        last = gs[-1].view(-1)
+        keep = last[last.numel() // 3].clone()
+        for bad in (float("nan"), float("inf"), -float("inf")):
+            last[last.numel() // 3] = bad
+            flags = (int(dense_mod.grad_sumsq(gs, loss)[2]),
+                     int(dense_mod.grad_sumsq_reference(gs, loss)[2]))
+            check(flags == (0, 0), f"grad_sumsq ({mode}): a {bad} "
+                  f"gradient gives the flags {flags}")
+        last[last.numel() // 3] = keep
+        nan = torch.tensor(float("nan"), device=dev)
+        check(int(dense_mod.grad_sumsq(gs, nan)[2]) == 0,
+              f"grad_sumsq ({mode}): a NaN loss passes")
+        b_ms, b_by = bound(nel * 4, 2 * nel)
+        r = {"name": "grad_sumsq", "route": "cuda",
+             "source": "dlrm_flexflow_tpu_torch/csrc/dense_update.cu",
+             "replaces": "dlrm_flexflow_tpu/core/model.py:1120",
+             "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+             **timed("", lambda: dense_mod.grad_sumsq(gs, loss), [()]),
+             **timed("plain_", lambda: dense_mod.grad_sumsq_reference(
+                 gs, loss), [()]),
+             **timed("library_", lambda: torch._foreach_norm(gs), [()])}
+        print_row(r, f" (\"{mode}\" list: {len(gs)} tensors, {nel} "
+                  f"elements, {4 * nel / 1e6:.1f} MB; norm "
+                  f"{float(norm):.6g}; library: torch._foreach_norm)")
+        if mode == "dot":
+            row = r
+        del gs
+        torch.cuda.empty_cache()
+    return {row["name"]: row}
+
+
+def guarded_entries(dev):
+    """Each entry that writes a parameter or optimizer state, at its
+    path's shape: with the flag at 0 every output byte stays, with 1 the
+    result is bitwise the unguarded call's. The dense update over the
+    "cat" set under Adam and momentum; the add and write scatters and
+    the stateful update on both its routes over the 8M x 64 table at the
+    step's 2,048 lookups."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    rows, n = T * ROWS, TRAIN_B * T
+    table = 0.5 * torch.randn(rows, D, device=dev, generator=gen)
+    slabs = {k: 1e-3 * torch.rand(rows, D, device=dev, generator=gen)
+             for k in ("m", "v")}
+    ids = torch.randint(0, rows, (n,), device=dev, generator=gen)
+    ids[:8] = ids[0]
+    upd = torch.randn(n, D, device=dev, generator=gen)
+    fwd = table[ids]
+    adam = AdamOptimizer(alpha=0.001)
+    at = adam.alpha_t(torch.tensor(4, dtype=torch.int32, device=dev))
+    mom = TRAIN_OPTS["momentum"]()
+    ws = dense_params("cat")
+    gs = [torch.randn(w.shape, device=dev, generator=gen) for w in ws]
+    wst = dense_state(gen, ws, ("m", "v"))
+
+    def dense(opt, alpha_t, names):
+        def call(ok):
+            w = [x.clone() for x in ws]
+            s = [{k: st[k].clone() for k in names} for st in wst]
+            dense_mod.dense_update(w, gs, s, opt.row_params(), alpha_t, ok)
+            return w + [t for st in s for t in st.values()]
+        return call, ws + [st[k] for st in wst for k in names]
+
+    def scatter(fn):
+        def call(ok):
+            t = table.clone()
+            s = {k: v.clone() for k, v in slabs.items()}
+            fn(t, s, ok)
+            return [t, *s.values()]
+        return call, [table, *slabs.values()]
+
+    entries = {
+        "dense_update (Adam)": dense(adam, at, ("m", "v")),
+        "dense_update (momentum)": dense(mom, None, ("v",)),
+        "scatter_add_rows": scatter(lambda t, s, ok: scat_mod.scatter_add_rows(
+            t, ids, upd, -LR, ids_in_range=True, ok=ok)),
+        "scatter_write_rows": scatter(
+            lambda t, s, ok: scat_mod.scatter_write_rows(
+                t, ids, upd, fwd, -LR, ids_in_range=True, ok=ok)),
+        "stateful_update_rows (fused)": scatter(
+            lambda t, s, ok: scat_mod._stateful_kernels(
+                t, ids, upd, None, s, adam.row_params(), at, 1, True, ok)),
+        "stateful_update_rows (pre-pass)": scatter(
+            lambda t, s, ok: scat_mod._stateful_kernels(
+                t, ids, upd, None, s, adam.row_params(), at, 1, False, ok)),
+    }
+    flags = {v: torch.tensor(v, dtype=torch.int32, device=dev)
+             for v in (0, 1)}
+    for name, (call, before) in entries.items():
+        skipped = call(flags[0])
+        check(all(torch.equal(a, b) for a, b in zip(skipped, before)),
+              f"{name}: the flag 0 did not leave every output as it was")
+        del skipped
+        plain, guarded = call(None), call(flags[1])
+        check(all(torch.equal(a, b) for a, b in zip(plain, guarded))
+              and not torch.equal(plain[0], before[0]),
+              f"{name}: the flag 1 differs from the unguarded call")
+        del plain, guarded
+    print(f"sentinel guard: {', '.join(entries)}: the flag 0 leaves every "
+          f"output bitwise, 1 equals the unguarded call bitwise")
+    del table, slabs, ws, gs, wst, fwd
+    torch.cuda.empty_cache()
+
+
+def policy_windows(model, db):
+    """The step time under the anomaly policies "none", "skip_step" and
+    "raise" on one staged batch, each as two windows of TRAIN_STEPS
+    steps back to back, in turn: {policy: [ms, ms]}."""
+    out = {p: [] for p in SENTINEL_POLICIES}
+    for _ in range(2):
+        for p in SENTINEL_POLICIES:
+            model.config.anomaly_policy = p
+            model.train_batch_device(db)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TRAIN_STEPS):
+                mets = model.train_batch_device(db)
+            float(mets["loss"])
+            out[p].append((time.perf_counter() - t0) * 1e3 / TRAIN_STEPS)
+    model.config.anomaly_policy = "skip_step"
+    return out
+
+
+def sentinel_runs():
+    """(a) The sentinel at full width under Adam, "cat" and "dot": a
+    skip_step run over SENTINEL_STEPS batches whose batch POISON_AT is
+    poisoned to NaN by the fault hook (every count at 0 just before and
+    read just after: one norm launch and one dense update a step, the
+    graph's scatter, no plain version) against a clean run over the same
+    batches without batch POISON_AT, parameters and optimizer state
+    (Adam's m, v and step) bitwise; then "raise": a poisoned step raises
+    AnomalyError and leaves parameters and state bitwise; then the step
+    time under "none", "skip_step" and "raise", two windows each.
+    Returns the launch counts."""
+    from dlrm_flexflow_tpu_torch.core.model import AnomalyError
+    from dlrm_flexflow_tpu_torch.utils import faults
+    total = {}
+    for mode in ("cat", "dot"):
+        cfg = train_config(mode)
+        x, y = synthetic_batch(cfg, SENTINEL_STEPS * TRAIN_B,
+                               seed=SEED + 7)
+
+        def batch(i, x=x, y=y):
+            b = {k: v[i * TRAIN_B:(i + 1) * TRAIN_B] for k, v in x.items()}
+            b["label"] = y[i * TRAIN_B:(i + 1) * TRAIN_B]
+            return b
+
+        def model(policy):
+            m, _ = train_model(mode, "cuda", opt="adam")
+            m.config.anomaly_policy = policy
+            m.init_layers()
+            return m
+
+        dbs = None
+        skip = model("skip_step")
+        dbs = [skip._device_batch(batch(i)) for i in range(SENTINEL_STEPS)]
+        torch.cuda.synchronize()
+        zero_counts()
+        with PlainCalls() as plain, faults.active_plan(
+                faults.FaultPlan(nan_grad_steps={POISON_AT})) as fplan:
+            flags = [skip.train_batch_device(db)["anomaly"] for db in dbs]
+        launches = read_counts()
+        flags = [bool(f) for f in flags]
+        check(fplan.fired == [("nan_grad", POISON_AT)]
+              and flags == [i == POISON_AT for i in range(SENTINEL_STEPS)],
+              f"sentinel {mode}: the anomalies {flags}")
+        scatter = ("stateful_update_rows" if mode == "cat"
+                   else "scatter_add_rows")
+        check(all(launches[k] == SENTINEL_STEPS for k in (
+                  "grad_sumsq", "dense_update", scatter))
+              and plain.calls == 0,
+              f"sentinel {mode}: not one norm, dense update and {scatter} "
+              f"a step, or a plain version ran: {launches}, {plain.calls}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        clean = model("none")
+        for i, db in enumerate(dbs):
+            if i != POISON_AT:
+                clean.train_batch_device(db)
+        check(int(skip.opt_state["step"]) == SENTINEL_STEPS - 1
+              and _same_state(skip, clean),
+              f"sentinel {mode}: the skip_step run's parameters or state "
+              f"differ from the clean run without batch {POISON_AT}")
+        del clean
+        torch.cuda.empty_cache()
+
+        skip.config.anomaly_policy = "raise"
+        before = [t.clone() for t in _state_tensors(skip)]
+        raised = None
+        with faults.active_plan(
+                faults.FaultPlan(nan_grad_steps={skip._step})):
+            try:
+                skip.train_batch_device(dbs[0])
+            except AnomalyError as e:
+                raised = e
+        check(raised is not None and raised.step == SENTINEL_STEPS
+              and all(torch.equal(a, b) for a, b in zip(
+                  before, _state_tensors(skip))),
+              f"sentinel {mode}: raise did not raise ({raised}) or the "
+              f"state moved")
+        del before
+        torch.cuda.empty_cache()
+        win = policy_windows(skip, dbs[1])
+        base = float(np.mean(win["none"]))
+        print(f"sentinel {mode} (adam): {SENTINEL_STEPS} skip_step steps, "
+              f"batch {POISON_AT} poisoned: parameters and m, v, step "
+              f"bitwise the clean run without it; raise leaves them "
+              f"bitwise; ms/step (two windows of {TRAIN_STEPS}): "
+              + ", ".join(f"{p} {w[0]:.3f} / {w[1]:.3f}"
+                          for p, w in win.items())
+              + "; overhead " + ", ".join(
+                  f"{p} {np.mean(win[p]) / base:.3f}"
+                  for p in SENTINEL_POLICIES[1:])
+              + f"; launches per step "
+              f"{ {k: v / SENTINEL_STEPS for k, v in launches.items() if v} }")
+        del skip, dbs
+        torch.cuda.empty_cache()
+    return total
+
+
+def rollback_run(work):
+    """(b) ``fit`` under "rollback", full-width "cat", plain SGD, ROLLBACK_
+    STEPS steps in one epoch, save_every 0 (the snapshots: the seed of
+    the initial state and the final one, 2.06 GB each), step POISON_AT
+    poisoned: one rollback, to the seed, and the parameters bitwise a
+    clean fit's. The recovery (the wait for the manager, the restore and
+    the rewind) is timed from the failing step's end to the next step's
+    start. Free disk space is checked first."""
+    from dlrm_flexflow_tpu_torch.utils import faults
+    cfg = train_config("cat")
+    x, y = synthetic_batch(cfg, ROLLBACK_STEPS * TRAIN_B, seed=SEED + 8)
+    kw = dict(epochs=1, batch_size=TRAIN_B, verbose=False)
+    rb, _ = train_model("cat", "cuda")
+    rb.config.anomaly_policy = "rollback"
+    rb.init_layers()
+    nbytes = _model_bytes(rb)
+    free = shutil.disk_usage(work).free
+    check(free >= 3 * nbytes,
+          f"rollback: {free / 1e9:.1f} GB free under {work}, the check "
+          f"needs {3 * nbytes / 1e9:.1f} GB")
+    real, marks = rb.train_batch_device, []
+
+    def marked(db):
+        marks.append(("start", time.perf_counter()))
+        try:
+            return real(db)
+        finally:
+            marks.append(("end", time.perf_counter()))
+
+    rb.train_batch_device = marked
+    t0 = time.perf_counter()
+    with faults.active_plan(faults.FaultPlan(nan_grad_steps={POISON_AT})):
+        out = rb.fit(x, y, checkpoint_dir=str(work / "rollback"), **kw)
+    fit_s = time.perf_counter() - t0
+    # the failing step is the (POISON_AT + 1)-th; its end, then the
+    # restored run's first start
+    k = 2 * POISON_AT + 1
+    recovery_s = marks[k + 1][1] - marks[k][1]
+    check(out["rollbacks"] == 1 and rb._step == ROLLBACK_STEPS
+          and out["num_samples"] == (POISON_AT + ROLLBACK_STEPS) * TRAIN_B,
+          f"rollback: {out['rollbacks']} rollbacks, step {rb._step}, "
+          f"{out['num_samples']} samples")
+    clean, _ = train_model("cat", "cuda")
+    clean.init_layers()
+    clean.fit(x, y, **kw)
+    check(_same_state(rb, clean),
+          "rollback: the parameters differ from a clean fit's")
+    entries = json.loads((work / "rollback" / "manifest.json").read_text())
+    steps = [e["step"] for e in entries["entries"]]
+    check(steps == [0, ROLLBACK_STEPS], f"rollback: snapshots {steps}")
+    print(f"rollback: fit of {ROLLBACK_STEPS} steps, step {POISON_AT} "
+          f"poisoned: 1 rollback to the seed snapshot (step 0, "
+          f"{nbytes:,} bytes), parameters bitwise a clean fit's; recovery "
+          f"(restore and rewind) {recovery_s:.2f} s; the whole fit "
+          f"{fit_s:.2f} s (seed and final snapshots included)")
+    del rb, clean
+    torch.cuda.empty_cache()
+
+
+def staging_runs():
+    """(c) ``fit`` on full-width "cat" under plain SGD over STAGE_SAMPLES
+    samples in one epoch: the dataset staged on the card
+    (``stage_dataset="auto"``) and through the prefetch ring ("never",
+    depth 2), in turn, twice each, from the same weights: the fits'
+    parameters bitwise alike; samples/s of each, in fit's own window
+    (which, as the JAX fit's, starts after the one-off staging) and over
+    the whole call (the staging included, timed apart). The first staged
+    fit and the first ring fit are main paths (counts at 0 just before,
+    read just after, each: one bag, one pre-pass, one write-only scatter
+    and one dense update a step). Returns their launch counts, summed."""
+    cfg = train_config("cat")
+    x, y = synthetic_batch(cfg, STAGE_SAMPLES, seed=SEED + 9)
+    steps = STAGE_SAMPLES // TRAIN_B
+    model, _ = train_model("cat", "cuda")
+    rates = {"auto": [], "never": []}
+    walls = {"auto": [], "never": []}
+    first, launches = None, {}
+    for rep in range(2):
+        for mode in ("auto", "never"):
+            model.config.stage_dataset = mode
+            model.init_layers(SEED)
+            counted = rep == 0
+            if counted:
+                zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with PlainCalls() as plain:
+                out = model.fit(x, y, epochs=1, batch_size=TRAIN_B,
+                                verbose=False)
+            wall_s = time.perf_counter() - t0   # fit ends on a readback
+            if counted:
+                got = read_counts()
+                check(all(got[k] == steps for k in (
+                          "embedding_bag", "scatter_presort",
+                          "scatter_write_rows", "dense_update"))
+                      and plain.calls == 0,
+                      f"staging ({mode}): not one bag, pre-pass, write-only "
+                      f"scatter and dense update a step: {got}, "
+                      f"{plain.calls}")
+                for k, v in got.items():
+                    launches[k] = launches.get(k, 0) + v
+            if first is None:
+                first = [v.clone() for v in _leaves(model.params)]
+            else:
+                check(all(torch.equal(a, b) for a, b in zip(
+                          first, _leaves(model.params))),
+                      f"staging: the {mode} fit differs from the staged one")
+            check(out["num_samples"] == STAGE_SAMPLES,
+                  f"staging: {out['num_samples']} samples")
+            rates[mode].append(out["throughput"])
+            walls[mode].append((wall_s, wall_s - out["elapsed"]))
+    (wa, sa), (wb, sb) = walls["auto"]
+    (wr, _), (wq, _) = walls["never"]
+    print(f"staging: fit of {STAGE_SAMPLES} samples ({steps} steps of "
+          f"{TRAIN_B}), parameters bitwise alike; staged on the card "
+          f"{rates['auto'][0]:.1f} / {rates['auto'][1]:.1f} samples/s in "
+          f"fit's window (the staging excluded, as the JAX fit's clock), "
+          f"{STAGE_SAMPLES / wa:.1f} / {STAGE_SAMPLES / wb:.1f} samples/s "
+          f"over the whole call (the staging of {steps} batches, "
+          f"{sa:.3f} / {sb:.3f} s, included); through the ring (depth 2) "
+          f"{rates['never'][0]:.1f} / {rates['never'][1]:.1f} samples/s "
+          f"in fit's window, {STAGE_SAMPLES / wr:.1f} / "
+          f"{STAGE_SAMPLES / wq:.1f} over the whole call")
+    del model, first
+    torch.cuda.empty_cache()
+    return launches
+
+
+def stream_runs():
+    """(d) The serve -> train loop at full width: ``TraceReplay`` of
+    "drifting_zipf" at the model's shapes (8 tables of 1M rows, bag 1,
+    dense 64, batch 256, STREAM_STEPS steps); each request served by a
+    "cat" ranker behind ``InferenceEngine`` and offered with its labels
+    and scores to a ``FeedbackSpool``, while a second "cat" model (plain
+    SGD) trains on ``spool.source`` with ``fit_stream`` on a thread, as
+    the JAX scenario runner drives it (every count at 0 just before, read
+    just after): every step trained, nothing dropped. Then
+    ``fit_stream`` over an ``ArrayStream`` against a ``train_batch``
+    loop over the same batches, bitwise. Returns the launch counts."""
+    from dlrm_flexflow_tpu_torch.data.replay import (FeedbackSpool,
+                                                     TraceReplay,
+                                                     scenario_spec)
+    from dlrm_flexflow_tpu_torch.data.stream import ArrayStream
+    cfg = train_config("cat")
+    spec = scenario_spec("drifting_zipf", steps=STREAM_STEPS, batch=TRAIN_B,
+                         seed=SEED, rows=ROWS)
+    rp = TraceReplay(T, ROWS, BAG, cfg.mlp_bot[0], spec)
+    t0 = time.perf_counter()
+    trace = [rp.request(i) for i in range(STREAM_STEPS)]
+    labels = [rp.labels(i, f) for i, f in enumerate(trace)]
+    trace_s = time.perf_counter() - t0
+    ranker = FFModel(FFConfig(batch_size=TRAIN_B, seed=SEED, device="cuda"))
+    build_dlrm(ranker, cfg)
+    ranker.compile()
+    ranker.init_layers()
+    trainer, _ = train_model("cat", "cuda")
+    trainer.init_layers(SEED + 1)
+    spool = FeedbackSpool(capacity=2 * STREAM_STEPS)
+    result, errors = {}, []
+
+    def train():
+        try:
+            result.update(trainer.fit_stream(spool.source, steps=None,
+                                             verbose=False))
+        except BaseException as e:   # noqa: BLE001 — reported below
+            errors.append(repr(e))
+
+    zero_counts()
+    with PlainCalls() as plain:
+        with InferenceEngine(ranker, ServeConfig(max_batch=TRAIN_B)) as eng:
+            th = threading.Thread(target=train, name="stream-trainer")
+            t0 = time.perf_counter()
+            th.start()
+            for i, f in enumerate(trace):
+                scores = eng.predict(f, timeout=120).scores
+                check(scores.shape == (TRAIN_B, 1)
+                      and np.isfinite(scores).all(),
+                      f"stream: bad scores for request {i}")
+                spool.offer(f, labels[i], scores=scores, step=i)
+            spool.close()
+            th.join(600)
+            wall = time.perf_counter() - t0
+    launches = read_counts()
+    st = spool.stats()
+    check(not errors and not th.is_alive()
+          and result.get("steps") == STREAM_STEPS
+          and trainer._step == STREAM_STEPS
+          and st["landed"] == st["consumed"] == STREAM_STEPS
+          and st["dropped_faults"] == st["dropped_overflow"] == 0,
+          f"stream: {errors}, {result}, {st}")
+    check(plain.calls == 0 and launches["embedding_bag"] > 0
+          and launches["scatter_write_rows"] == STREAM_STEPS
+          and launches["dense_update"] == STREAM_STEPS,
+          f"stream: launches {launches}, plain calls {plain.calls}")
+    check(np.isfinite(trainer.perf.report()["mse"]),
+          f"stream: mse {trainer.perf.report()}")
+    del ranker, trainer
+    torch.cuda.empty_cache()
+
+    x, y = synthetic_batch(cfg, 8 * TRAIN_B, seed=SEED + 10)
+    streamed, _ = train_model("cat", "cuda")
+    looped, _ = train_model("cat", "cuda")
+    for m in (streamed, looped):
+        m.init_layers(SEED)
+    out = streamed.fit_stream(ArrayStream(x, y, TRAIN_B, seed=1),
+                              steps=STREAM_CHECK_STEPS, verbose=False)
+    src = ArrayStream(x, y, TRAIN_B, seed=1)
+    for i in range(STREAM_CHECK_STEPS):
+        looped.train_batch(src(i))
+    check(out["steps"] == STREAM_CHECK_STEPS
+          and _same_state(streamed, looped),
+          "stream: fit_stream over an ArrayStream differs from the "
+          "train_batch loop")
+    print(f"stream: drifting_zipf trace of {STREAM_STEPS} requests of "
+          f"{TRAIN_B} (made in {trace_s:.2f} s) served and trained off the "
+          f"spool on a thread in {wall:.2f} s: {result['throughput']:.1f} "
+          f"samples/s trained, {STREAM_STEPS / wall:.1f} requests/s "
+          f"served; spool {st}; fit_stream over an ArrayStream "
+          f"({STREAM_CHECK_STEPS} steps, {out['throughput']:.1f} samples/s) "
+          f"bitwise the train_batch loop")
+    del streamed, looped
+    torch.cuda.empty_cache()
+    return launches
+
+
+def resilience_phase():
+    """The anomaly sentinel, rollback, whole-dataset staging and the
+    stream, in WORK_DIR (removed at the end whatever happens): (a)
+    ``sentinel_runs`` with the guarded entries and the norm kernel held
+    to their plain versions first, (b) ``rollback_run``, (c)
+    ``staging_runs``, (d) ``stream_runs``. Returns ({"grad_sumsq": its
+    kernel row}, the main paths' launch counts)."""
+    shutil.rmtree(WORK_DIR, ignore_errors=True)
+    WORK_DIR.mkdir(parents=True)
+    dev = torch.device("cuda", 0)
+    try:
+        t0 = time.perf_counter()
+        row = sumsq_kernel(dev)
+        guarded_entries(dev)
+        counts = sentinel_runs()
+        rollback_run(WORK_DIR)
+        for part in (staging_runs(), stream_runs()):
+            for k, v in part.items():
+                counts[k] = counts.get(k, 0) + v
+        print(f"resilience phase: {time.perf_counter() - t0:.1f} s")
+        return row, counts
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
 
@@ -2580,12 +3171,15 @@ def main() -> int:
             launches[k] = launches.get(k, 0) + v
 
     add(launch_phase())
+    sumsq_row, counts = resilience_phase()
+    add(counts)
     add(cascade_phase())
     for run in runs:
         add(train_report(run))
     del runs
     rows = kernel_phase(dev)
     rows.update(dense_kernel(dev))
+    rows.update(sumsq_row)
     alpha_t_check(dev)
     rows.update(topk_kernel(dev))
     rows.update(lstm_kernels(dev))

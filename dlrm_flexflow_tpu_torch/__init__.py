@@ -10,12 +10,16 @@ Ported so far: the DLRM serving path (``FFModel.forward_bucket`` under
 ``serve.InferenceEngine``) and the DLRM training step
 (``FFModel.train_batch_device`` and ``fit``) under SGD (momentum,
 nesterov, weight decay) and Adam, the tables on the lazy touched-rows
-update, in the "cat" and the fused "dot" interaction; the retrieve -> rank cascade (``retrieve``); and NMT
-LSTM seq2seq training (``models.nmt.build_nmt``).
+update, in the "cat" and the fused "dot" interaction, guarded by the
+anomaly sentinel (``FFConfig.anomaly_policy``; ``AnomalyError``), with
+``fit``'s checkpoints, rollback and whole-dataset staging and
+``fit_stream`` over ``data.stream`` and ``data.replay`` sources; the
+retrieve -> rank cascade (``retrieve``); and NMT LSTM seq2seq training
+(``models.nmt.build_nmt``).
 """
 
 from .config import FFConfig
-from .core.model import FFModel
+from .core.model import AnomalyError, FFModel
 from .core.tensor import Tensor
 
-__all__ = ["FFConfig", "FFModel", "Tensor"]
+__all__ = ["AnomalyError", "FFConfig", "FFModel", "Tensor"]

@@ -7,11 +7,11 @@ and training slices read, under the same flag spellings
 ``--dense-embedding-update``, the ``--serve-*`` flags, ``--retrieve-k``,
 ``--retrieve-deadline-ms``, ``--retrieve-shards``, and the training
 runtime's ``--checkpoint-dir``, ``--save-every``, ``--keep-last``,
-``--prefetch-depth`` and ``--no-prefetch``), plus ``device``. Unknown
-flags land in ``unparsed``, as in the JAX package. The runtime flags
-that are not ported yet (``--superstep``, ``--anomaly-policy``) raise
-``NotImplementedError``, as does ``--no-pallas-lstm``: the port's LSTM
-always runs its scan kernels.
+``--prefetch-depth``, ``--no-prefetch``, ``--anomaly-policy``,
+``--stage-dataset`` and ``--profile-dir``), plus ``device``. Unknown
+flags land in ``unparsed``, as in the JAX package. ``--superstep``, not
+ported yet, raises ``NotImplementedError``, as does
+``--no-pallas-lstm``: the port's LSTM always runs its scan kernels.
 
 ``device`` defaults to ``"cuda"``. A config that asks for CUDA on a
 machine without a GPU raises at construction: the port never carries on
@@ -28,7 +28,9 @@ import torch
 
 
 # flags of the JAX package's training runtime that the port refuses
-_RUNTIME_FLAGS = ("--superstep", "--anomaly-policy")
+_RUNTIME_FLAGS = ("--superstep",)
+ANOMALY_POLICIES = ("none", "skip_step", "rollback", "raise")
+STAGE_MODES = ("auto", "always", "never")
 
 
 @dataclass
@@ -57,6 +59,25 @@ class FFConfig:
     checkpoint_dir: str = ""
     save_every: int = 0
     keep_last: int = 3
+    # the anomaly sentinel: a finiteness check of each step's loss and
+    # global gradient norm on the device, and what a non-finite step
+    # does: "none" (no check), "skip_step" (its update is suppressed on
+    # the device, no host sync), "rollback" (fit restores the last good
+    # snapshot and rewinds; needs a checkpoint directory) or "raise"
+    # (AnomalyError at the step's end). rollback and raise read the flag
+    # back once a step. Set with --anomaly-policy.
+    anomaly_policy: str = "none"
+    # rollbacks a fit may make before the anomaly is raised
+    max_rollbacks: int = 3
+    # fit(): stage the whole dataset on the device once when it fits
+    # ("auto"), always ("always": the caller vouches for the memory),
+    # or never ("never": batches go through the prefetch ring). Set
+    # with --stage-dataset.
+    stage_dataset: str = "auto"
+    # a torch.profiler trace of fit's loop (and the launcher's timed
+    # loop) lands here as Chrome trace JSON; "" traces nothing. Set with
+    # --profile-dir.
+    profile_dir: str = ""
     # ---- online serving (serve/engine.py InferenceEngine) -------------
     serve_max_batch: int = 64
     serve_max_delay_ms: float = 5.0
@@ -85,6 +106,14 @@ class FFConfig:
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype expects float32|bfloat16, "
                              f"got {self.compute_dtype!r}")
+        if self.anomaly_policy not in ANOMALY_POLICIES:
+            raise ValueError(f"anomaly_policy must be "
+                             f"{'|'.join(ANOMALY_POLICIES)}, got "
+                             f"{self.anomaly_policy!r}")
+        if self.stage_dataset not in STAGE_MODES:
+            raise ValueError(f"stage_dataset must be "
+                             f"{'|'.join(STAGE_MODES)}, got "
+                             f"{self.stage_dataset!r}")
         dev = torch.device(self.device)
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -131,8 +160,23 @@ class FFConfig:
                     "is not ported")
             elif a in _RUNTIME_FLAGS:
                 raise NotImplementedError(
-                    f"{a}: the fused supersteps and the anomaly sentinel "
-                    f"are not ported yet (ROADMAP queue 1 item 6)")
+                    f"{a}: the fused supersteps are not ported yet "
+                    f"(ROADMAP queue 1 item 6)")
+            elif a == "--anomaly-policy":
+                v = take()
+                if v not in ANOMALY_POLICIES:
+                    raise ValueError(
+                        f"--anomaly-policy expects "
+                        f"{'|'.join(ANOMALY_POLICIES)}, got {v!r}")
+                kw["anomaly_policy"] = v
+            elif a == "--stage-dataset":
+                v = take()
+                if v not in STAGE_MODES:
+                    raise ValueError(f"--stage-dataset expects "
+                                     f"{'|'.join(STAGE_MODES)}, got {v!r}")
+                kw["stage_dataset"] = v
+            elif a == "--profile-dir":
+                kw["profile_dir"] = take()
             elif a == "--checkpoint-dir":
                 kw["checkpoint_dir"] = take()
             elif a == "--save-every":

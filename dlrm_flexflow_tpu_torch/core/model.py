@@ -5,9 +5,11 @@ The counterpart of ``dlrm_flexflow_tpu.core.model.FFModel``, cut to the
 serving and training slices: the op builders the DLRM, two-tower and
 NMT graphs use, ``compile``, ``init_layers``, ``forward_batch`` and the
 bucketed serving entries, ``swap_params``, and training: ``train_batch``,
-``train_batch_device``, ``train_batch_staged``, ``reset_metrics`` and
-``fit`` (rolling, resumable checkpoints in the JAX package's format,
-batches through the prefetch ring). Op names,
+``train_batch_device``, ``train_batch_staged``, ``reset_metrics``, ``fit``
+(rolling, resumable checkpoints in the JAX package's format, rollback to
+the last snapshot after a non-finite step, the whole dataset staged on
+the device when it fits, else batches through the prefetch ring) and
+``fit_stream`` (training off a batch source). Op names,
 parameter names and parameter layouts follow the JAX graph, so
 ``utils.weights.params_from_jax`` can carry a JAX model's weights
 across by name.
@@ -33,6 +35,17 @@ non-sparse op; ``sparse_embedding_update=False``), phase A is empty and
 the one autograd pass covers every parameter. Parameters and optimizer
 state are updated IN PLACE, where the JAX step returns new arrays and
 donates the old ones.
+
+The anomaly sentinel (``config.anomaly_policy`` other than "none")
+mirrors the JAX step's (core/model.py:1111-1135 there): after the
+backward one ``grad_sumsq`` launch computes the global gradient norm
+over the dense gradients and the lookups' cotangents and the flag ok =
+isfinite(loss) & isfinite(norm) on the device, before any update runs;
+every update kernel takes the flag and changes nothing where it is 0,
+and Adam's step advances by it. The JAX step keeps the pre-step values
+with ``jnp.where``; updating in place, the port keeps them by not
+writing. "raise" and "rollback" read the flag back at the step's end
+(one host sync) and raise ``AnomalyError``; "skip_step" never syncs.
 """
 
 from __future__ import annotations
@@ -45,6 +58,8 @@ import torch
 
 from ..config import FFConfig
 from ..data.prefetch import StagedBatch, stage_batch
+from ..ops.kernels.dense_update import grad_sumsq
+from ..utils import faults
 from ..utils.logging import get_logger
 from . import losses as losses_mod
 from . import metrics as metrics_mod
@@ -53,6 +68,32 @@ from .optimizers import AdamOptimizer, SGDOptimizer
 from .tensor import Tensor
 
 log_model = get_logger("model")
+
+
+class AnomalyError(RuntimeError):
+    """A training step produced a non-finite loss or gradient norm and the
+    anomaly policy is "rollback" or "raise" (``FFConfig.anomaly_policy``).
+    Under "rollback", ``fit(checkpoint_dir=...)`` catches it, restores the
+    last good snapshot and rewinds; elsewhere it propagates. The step's
+    update was already suppressed on the device: the parameters and the
+    optimizer state keep their pre-step values."""
+
+    def __init__(self, step: int, loss: float, grad_norm: float):
+        super().__init__(
+            f"non-finite training step {step}: loss={loss}, "
+            f"global grad norm={grad_norm}")
+        self.step = step
+        self.loss = loss
+        self.grad_norm = grad_norm
+
+
+def _tree_bytes(tree) -> int:
+    """Bytes of every tensor in a nested dict."""
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return 0
 
 
 class FFModel:
@@ -91,6 +132,9 @@ class FFModel:
         # running metric sums of the epoch, 0-d tensors on self.device
         self.perf = metrics_mod.PerfMetrics()
         self._msums: Optional[Dict[str, torch.Tensor]] = None
+        # whether the step under way has begun to write parameters or
+        # optimizer state (its error then cannot be undone)
+        self._updating = False
 
     # ------------------------------------------------------------------
     # graph construction
@@ -455,12 +499,22 @@ class FFModel:
         place — on a batch already on ``self.device`` (as
         ``_device_batch`` stages it, ``"label"`` included). Returns the
         step's metric sums and its ``"loss"`` as 0-d tensors on the
-        device: nothing here waits for the device."""
+        device, and under the anomaly sentinel its ``"anomaly"`` (bool)
+        and ``"grad_norm"``: nothing here waits for the device, except
+        that "raise" and "rollback" read the flag back at the end and
+        raise ``AnomalyError`` for a non-finite step (whose update the
+        kernels suppressed)."""
         if self._preds_tensor is None or self.params is None:
             raise ValueError("call compile() and init_layers() (or "
                              "swap_params()) first")
         if "label" not in device_batch:
             raise ValueError("a training batch needs its 'label'")
+        policy = self.config.anomaly_policy
+        self._updating = False
+        if faults.active() is not None and faults.take_nan_grad(self._step):
+            # the fault harness: NaNs flow through the real backward into
+            # the loss and the gradient norm the sentinel watches
+            device_batch = faults.poison_batch(device_batch)
         if self._sparse_ops is None:
             self._sparse_ops = self._select_sparse_update_ops()
         if self.opt_state is None:
@@ -504,6 +558,11 @@ class FFModel:
         gev = {name: next(it) for name in emb_vals}
 
         with torch.no_grad():
+            # the sentinel's flag exists before the first update reads it
+            ok = gnorm = None
+            if policy != "none":
+                _, gnorm, ok = grad_sumsq(grads, loss.detach())
+            self._updating = True
             # the state of the sparse tables is not part of the dense
             # update: split it out, update it touched-rows only, and merge
             # it back (in place, the split shares the merged tensors), so
@@ -528,14 +587,14 @@ class FFModel:
                         self.optimizer,
                         {k: sparse_state[k][op.name]["kernel"]
                          for k in slab_names},
-                        step, fwd=emb_fwd[op.name])
+                        step, fwd=emb_fwd[op.name], ok=ok)
                 else:
                     op.sparse_sgd_update(self.params[op.name],
                                          emb_xs[op.name], gev[op.name],
                                          self.optimizer.lr,
-                                         fwd=emb_fwd[op.name])
+                                         fwd=emb_fwd[op.name], ok=ok)
             self.optimizer.update({name: self.params[name] for name in gd},
-                                  gd, dense_state)
+                                  gd, dense_state, ok)
             preds = preds.detach()
             if ("crossentropy" in self.loss_type
                     and self._preds_tensor is self._logits_tensor):
@@ -546,17 +605,66 @@ class FFModel:
             if self._msums is None:
                 self._msums = {k: torch.zeros_like(v)
                                for k, v in mets.items()}
+            passed = None if ok is None else ok.bool()
             for k, v in mets.items():
-                self._msums[k] += v
+                # a skipped step adds nothing: its NaNs would spoil the
+                # epoch's sums for good
+                self._msums[k] += (v if passed is None
+                                   else torch.where(passed, v, 0.0))
         self.perf.sums = dict(self._msums)
-        self._step += 1
+        self._updating = False
+        self._step += 1          # a skipped step counts, as in JAX
         mets["loss"] = loss.detach()
+        if ok is not None:
+            mets["anomaly"] = ~passed
+            mets["grad_norm"] = gnorm
+            if policy in ("rollback", "raise") and not bool(ok):
+                # the one host sync these policies add
+                raise AnomalyError(step=self._step - 1,
+                                   loss=float(loss.detach()),
+                                   grad_norm=float(gnorm))
         return mets
 
     def reset_metrics(self):
         """Start a new epoch's running metric sums."""
         self.perf.reset()
         self._msums = None
+
+
+    def _untrainable_shape(self, exc: BaseException) -> bool:
+        """Whether a step's error says its batch cannot train at its
+        shape: it was raised before the step wrote any parameter or
+        optimizer state (in the forward, the backward or the sentinel's
+        norm), and it is no error of the card (CUDA's errors surface late,
+        at whatever call syncs next) or a stalled worker's. Anything else
+        leaves the run in a state no later step may build on."""
+        from ..utils.watchdog import WorkerStalled
+        card = tuple(t for t in (getattr(torch, "AcceleratorError", None),
+                                 torch.cuda.OutOfMemoryError) if t)
+        return not (self._updating or isinstance(exc, (AnomalyError,
+                                                        WorkerStalled) + card)
+                    or "CUDA" in str(exc))
+
+    def _staging_budget(self) -> float:
+        """The bytes ``fit`` may stage the dataset into: 0.7 of the card's
+        memory less what the parameters and the optimizer state hold
+        there (the rest is room for activations and workspace), as the
+        JAX ``fit`` sizes it against its chip's HBM; 2e9 on the CPU, the
+        JAX package's cap for a second copy of the dataset in host
+        memory."""
+        if self.device.type != "cuda":
+            return 2e9
+        total = torch.cuda.get_device_properties(self.device).total_memory
+        resident = _tree_bytes(self.params) + _tree_bytes(self.opt_state)
+        return max(0.0, 0.7 * total - resident)
+
+    def _staging_bytes(self, inputs, labels) -> float:
+        """The device bytes of the whole dataset, in the dtypes a staged
+        batch holds."""
+        dts = self._batch_dtypes({**inputs, "label": labels})
+        sizes = {**{k: np.asarray(v).size for k, v in inputs.items()},
+                 "label": np.asarray(labels).size}
+        return float(sum(sizes[k] * dt.itemsize for k, dt in dts.items()))
 
     def fit(self, inputs: Dict[str, np.ndarray], labels: np.ndarray,
             epochs: Optional[int] = None, batch_size: Optional[int] = None,
@@ -568,9 +676,16 @@ class FFModel:
         """Train for ``epochs`` (default ``config.epochs``) over host
         arrays in batches of ``batch_size`` (default
         ``config.batch_size``); the last ``len(labels) % batch_size``
-        samples of each epoch train as one smaller batch. Batches reach
-        the device through the prefetch ring (``config.prefetch_depth``
-        batches ahead, on a staging thread; 0 stages each in the loop).
+        samples of each epoch train as one smaller batch, which is
+        dropped with a warning when its step fails before any update
+        (``_untrainable_shape``; any other error raises). When the
+        dataset fits the staging budget (``_staging_budget``;
+        ``config.stage_dataset``: "auto", "always" trusts the caller,
+        "never" forces the ring) every batch is staged
+        on the device once, as the JAX ``fit`` stages it; otherwise
+        batches reach the device through the prefetch ring
+        (``config.prefetch_depth`` batches ahead, on a staging thread; 0
+        stages each in the loop). Both give the same result, bitwise.
 
         With ``checkpoint_dir`` the run is fault-tolerant, as the JAX
         ``fit``: rolling atomic snapshots every ``save_every`` optimizer
@@ -579,12 +694,20 @@ class FFModel:
         restores the newest valid snapshot (parameters, optimizer state,
         step and the (epoch, batch) position) and skips corrupt,
         truncated or foreign ones. The three default from the config
-        (``--checkpoint-dir``, ``--save-every``, ``--keep-last``).
-        Returns {"elapsed", "throughput", "num_samples", "metrics"}.
-        The rollback sentinel and the fused supersteps are not ported
-        yet (ROADMAP queue 1 item 6); the config refuses them."""
+        (``--checkpoint-dir``, ``--save-every``, ``--keep-last``). Under
+        ``anomaly_policy="rollback"`` (which needs the directory; it is
+        seeded with the initial state when it holds no valid snapshot) a
+        non-finite step restores the newest snapshot and training goes
+        on from its position, at most ``config.max_rollbacks`` times;
+        then the ``AnomalyError`` is raised. With
+        ``config.profile_dir`` the loop runs under a ``torch.profiler``
+        trace written there. Returns {"elapsed", "throughput",
+        "num_samples", "rollbacks", "metrics"}. The fused supersteps are
+        not ported yet (ROADMAP queue 1 item 6); the config refuses
+        them."""
         from ..data.prefetch import PrefetchPipeline
         from ..utils.checkpoint import CheckpointManager
+        from ..utils.profiling import TraceContext
         epochs = epochs or self.config.epochs
         bs = batch_size or self.config.batch_size
         checkpoint_dir = checkpoint_dir or (self.config.checkpoint_dir
@@ -592,12 +715,17 @@ class FFModel:
         save_every = (self.config.save_every if save_every is None
                       else save_every)
         keep_last = self.config.keep_last if keep_last is None else keep_last
+        policy = self.config.anomaly_policy
         n = len(labels)
         if n < bs:
             raise ValueError(f"dataset has {n} samples < batch size {bs}")
         num_batches, rem = divmod(n, bs)
+        rem_ok = rem > 0
         if self.params is None:
             self.init_layers()
+        if self.optimizer is not None and self.opt_state is None:
+            # a snapshot (a rollback's seed among them) carries the state
+            self.opt_state = self.optimizer.init_state(self.params)
 
         mgr = None
         start_epoch = start_batch = 0
@@ -618,16 +746,15 @@ class FFModel:
                     "checkpoint in %s is already at epoch %d >= epochs=%d; "
                     "nothing to train", checkpoint_dir, start_epoch, epochs)
                 return {"elapsed": 0.0, "throughput": 0.0,
-                        "num_samples": 0, "metrics": self.perf.report()}
-
-        # one entry per step: (epoch, batch), batch "rem" the remainder
-        def epoch_batches(e):
-            bs_ = list(range(start_batch if e == start_epoch else 0,
-                             num_batches))
-            return bs_ + (["rem"] if rem else [])
-
-        sched = [(e, b) for e in range(start_epoch, epochs)
-                 for b in epoch_batches(e)]
+                        "num_samples": 0, "rollbacks": 0,
+                        "metrics": self.perf.report()}
+            if policy == "rollback" and mgr.latest_valid() is None:
+                # a rollback needs a target from the first step on
+                mgr.save(self, {"epoch": start_epoch, "batch": start_batch})
+        elif policy == "rollback":
+            raise ValueError(
+                'anomaly_policy="rollback" needs fit(checkpoint_dir=...) '
+                "(or FFConfig.checkpoint_dir) to roll back to")
 
         def host_batch(b):
             sl = (slice(num_batches * bs, n) if b == "rem"
@@ -636,38 +763,113 @@ class FFModel:
             batch["label"] = labels[sl]
             return batch
 
+        # the whole dataset on the device once, when it fits
+        staged = staged_rem = None
+        mode = self.config.stage_dataset
+        cost = (float("inf") if mode == "never" else 0.0 if mode == "always"
+                else self._staging_bytes(inputs, labels))
+        if cost <= self._staging_budget():
+            staged = [self._device_batch(host_batch(b))
+                      for b in range(num_batches)]
+            if rem_ok:
+                staged_rem = self._device_batch(host_batch("rem"))
+
+        # one entry per step from (e0, b0) on: (epoch, batch), batch "rem"
+        # the remainder
+        def schedule(e0, b0):
+            return [(e, b) for e in range(e0, epochs)
+                    for b in list(range(b0 if e == e0 else 0, num_batches))
+                    + (["rem"] if rem_ok else [])]
+
         depth = max(int(self.config.prefetch_depth or 0), 0)
+        use_pipe = staged is None and depth > 0
         pipe = None
-        if depth and sched:
-            pipe = PrefetchPipeline(
-                lambda i: self._stage_step(host_batch(sched[i][1])),
-                depth=depth, num_items=len(sched), name="fit")
+
+        def build_pipe(sched):
+            nonlocal pipe
+            if pipe is not None:
+                pipe.close()
+                pipe = None
+            if use_pipe and sched:
+                pipe = PrefetchPipeline(
+                    lambda i: self._stage_step(host_batch(sched[i][1])),
+                    depth=depth, num_items=len(sched), name="fit")
+
+        sched = schedule(start_epoch, start_batch)
+        build_pipe(sched)
         mets = None
         num_samples = 0
+        rollbacks = 0
+        i = 0
         start = time.perf_counter()
         try:
-            for i, (epoch, b) in enumerate(sched):
-                if b == 0:
-                    self.reset_metrics()   # an epoch starts from batch 0
-                mets = (self.train_batch_staged(pipe.get())
-                        if pipe is not None
-                        else self.train_batch(host_batch(b)))
-                num_samples += rem if b == "rem" else bs
-                # position = the next (epoch, batch) to train
-                nxt = ((epoch + 1, 0) if b == "rem"
-                       else (epoch, b + 1))
-                if mgr is not None and save_every \
-                        and self._step % save_every == 0:
-                    mgr.save_async(self, {"epoch": nxt[0],
-                                          "batch": nxt[1]})
-                last = i + 1 == len(sched) or sched[i + 1][0] != epoch
-                if verbose and last:
-                    # the host syncs here only
-                    print(f"epoch {epoch}: "
-                          f"loss={float(mets['loss']):.6f} "
-                          + self.perf.summary_line())
-            if mets is not None:
-                float(mets["loss"])   # the readback waits for the last step
+            with TraceContext(self.config.profile_dir or None):
+                while i < len(sched):
+                    epoch, b = sched[i]
+                    if b == 0:
+                        self.reset_metrics()   # an epoch starts at batch 0
+                    if staged is not None:
+                        step, arg = self.train_batch_device, (
+                            staged_rem if b == "rem" else staged[b])
+                    elif pipe is not None:
+                        # the ring's errors (sticky, a missed deadline)
+                        # raise here, outside the step's handlers
+                        step, arg = self.train_batch_staged, pipe.get()
+                    else:
+                        step, arg = self.train_batch, host_batch(b)
+                    try:
+                        mets = step(arg)
+                    except AnomalyError as exc:
+                        if (policy != "rollback" or mgr is None
+                                or rollbacks >= self.config.max_rollbacks):
+                            raise
+                        rollbacks += 1
+                        mgr.wait()
+                        entry = mgr.restore_latest(self)
+                        if entry is None:
+                            raise
+                        ls = entry.get("loader_state") or {}
+                        e0 = int(ls.get("epoch", 0))
+                        b0 = min(int(ls.get("batch", 0)), num_batches)
+                        log_model.warning(
+                            "anomaly at step %d (%s); rolled back to step "
+                            "%d (epoch %d, batch %d) — recovery %d/%d",
+                            exc.step, exc, entry["step"], e0, b0,
+                            rollbacks, self.config.max_rollbacks)
+                        # staged-ahead batches are dropped: the ring
+                        # restarts at the restored position
+                        sched, i = schedule(e0, b0), 0
+                        build_pipe(sched)
+                        continue
+                    except Exception as e:
+                        if b != "rem" or not self._untrainable_shape(e):
+                            raise
+                        rem_ok = False
+                        log_model.warning(
+                            "dropping the remainder batch (%d samples): it "
+                            "cannot train at its own shape (%s) — pad the "
+                            "dataset or pick a batch size dividing %d",
+                            rem, e, n)
+                        sched, i = schedule(epoch + 1, 0), 0
+                        build_pipe(sched)
+                        continue
+                    num_samples += rem if b == "rem" else bs
+                    # position = the next (epoch, batch) to train
+                    nxt = ((epoch + 1, 0) if b == "rem"
+                           else (epoch, b + 1))
+                    if mgr is not None and save_every \
+                            and self._step % save_every == 0:
+                        mgr.save_async(self, {"epoch": nxt[0],
+                                              "batch": nxt[1]})
+                    last = i + 1 == len(sched) or sched[i + 1][0] != epoch
+                    if verbose and last:
+                        # the host syncs here only
+                        print(f"epoch {epoch}: "
+                              f"loss={float(mets['loss']):.6f} "
+                              + self.perf.summary_line())
+                    i += 1
+                if mets is not None:
+                    float(mets["loss"])   # waits for the last step
         except BaseException:
             # land a snapshot already copied to the host before the error
             # leaves fit; the error itself is what the caller sees
@@ -690,4 +892,80 @@ class FFModel:
             print(f"ELAPSED TIME = {elapsed:.4f}s, "
                   f"THROUGHPUT = {throughput:.2f} samples/s")
         return {"elapsed": elapsed, "throughput": throughput,
-                "num_samples": num_samples, "metrics": self.perf.report()}
+                "num_samples": num_samples, "rollbacks": rollbacks,
+                "metrics": self.perf.report()}
+
+    def fit_stream(self, source, steps: Optional[int] = None,
+                   publisher=None, publish_every: Optional[int] = None,
+                   verbose: bool = True, callbacks=None,
+                   resume: bool = False):
+        """Train off a streaming source, as the JAX ``fit_stream``.
+
+        ``source(i)`` returns the i-th host batch, a feature dict with its
+        ``"label"`` (``data.stream.ArrayStream`` wraps in-memory arrays,
+        ``data.replay.FeedbackSpool.source`` replays served traffic; any
+        deterministic callable works). ``None``, ``StopIteration`` or
+        ``IndexError`` ends the stream; ``steps`` bounds it (None: until
+        the source ends). Batches ride the prefetch ring, as ``fit``'s do
+        (at least one batch ahead). After each step every callback gets
+        ``(model, steps trained, the step's metrics)``.
+
+        The anomaly policy "rollback" is refused (a stream has no epoch
+        to rewind); "skip_step" and "raise" work as in any step. The
+        delta publisher (``publisher``, ``publish_every``) and ``resume``
+        wait for ``utils/delta.py`` (ROADMAP queue 1 item 9.5) and raise.
+        Returns {"steps", "elapsed", "throughput", "publishes",
+        "publisher"}."""
+        from ..data.prefetch import PrefetchPipeline
+        if self.config.anomaly_policy == "rollback":
+            raise ValueError(
+                'anomaly_policy="rollback" is not supported by '
+                "fit_stream (no epoch position to re-wind); use "
+                '"skip_step" or "raise"')
+        if publisher is not None or resume:
+            raise NotImplementedError(
+                "fit_stream(publisher=..., resume=True): the delta "
+                "publisher (DeltaPublisher, utils/delta.py) is not ported "
+                "yet (ROADMAP queue 1 item 9.5)")
+        if self.params is None:
+            self.init_layers()
+
+        def produce(i):
+            try:
+                batch = source(i)
+            except (StopIteration, IndexError):
+                raise IndexError("stream exhausted") from None
+            if batch is None:
+                raise IndexError("stream exhausted")
+            return self._stage_step(batch)
+
+        depth = max(int(self.config.prefetch_depth or 0), 1)
+        pipe = PrefetchPipeline(produce, depth=depth, num_items=steps,
+                                name="fit_stream")
+        trained = 0
+        mets = None
+        t0 = time.perf_counter()
+        try:
+            while steps is None or trained < steps:
+                try:
+                    staged = pipe.get()
+                except IndexError:
+                    break
+                mets = self.train_batch_staged(staged)
+                trained += 1
+                if callbacks:
+                    for cb in callbacks:
+                        cb(self, trained, mets)
+            if mets is not None:
+                float(mets["loss"])   # waits for the last step
+        finally:
+            pipe.close()
+        elapsed = time.perf_counter() - t0
+        bs = int(self.config.batch_size)
+        rate = trained * bs / max(elapsed, 1e-9)
+        if verbose and mets is not None:
+            print(f"fit_stream: {trained} steps, "
+                  f"loss={float(mets['loss']):.6f}, {rate:.2f} samples/s, "
+                  f"0 publish(es)")
+        return {"steps": trained, "elapsed": elapsed, "throughput": rate,
+                "publishes": 0, "publisher": None}

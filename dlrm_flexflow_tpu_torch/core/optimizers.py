@@ -47,10 +47,14 @@ class Optimizer:
         return None
 
     @torch.no_grad()
-    def update(self, params, grads, state):
+    def update(self, params, grads, state, ok=None):
         """Apply one step in place, through ``dense_update`` over every
         parameter (one kernel launch on the card); returns (params,
-        state)."""
+        state). ``ok``, the anomaly sentinel's 0-d int32 flag on the
+        parameters' device (None: no sentinel), guards the step: where it
+        is 0 the parameters and the state keep their values and Adam's
+        step does not advance (it advances by ``ok``), as the JAX step
+        keeps its pre-step state, with no wait for the device."""
         names = self.sparse_slab_names()
         alpha_t = self.alpha_t(state["step"]) if "step" in state else None
         keys = [(op, pn) for op, ps in params.items() for pn in ps]
@@ -58,9 +62,9 @@ class Optimizer:
                      [grads[op][pn] for op, pn in keys],
                      [{k: state[k][op][pn] for k in names}
                       for op, pn in keys],
-                     self.row_params(), alpha_t)
+                     self.row_params(), alpha_t, ok)
         if "step" in state:
-            state["step"].add_(1)
+            state["step"].add_(1 if ok is None else ok)
         return params, state
 
     def sparse_slab_names(self) -> tuple:

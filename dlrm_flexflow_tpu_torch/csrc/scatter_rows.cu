@@ -106,6 +106,14 @@
 // a few dependent loads deep (one on the stateful "fused" route). The
 // stateful update adds a read and a write of each slab row per distinct
 // row (Adam: 4 more rows).
+//
+// The guard: the four update entries take `ok`, a device pointer to the
+// anomaly sentinel's int32 flag, or null. With a non-null `ok` whose
+// value is 0, every thread of the update kernel returns before any load
+// or store, so a non-finite step leaves the table and its state as they
+// were (the JAX step keeps them with jnp.where(step_ok, new, old),
+// dlrm_flexflow_tpu/core/model.py:1124-1130). The pre-pass writes no
+// parameter and takes no flag.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -243,7 +251,8 @@ scatter_rows_kernel(float4* __restrict__ table,
                     const int2* __restrict__ seg,
                     const float4* __restrict__ upd,
                     const float4* __restrict__ fwd, int n, int vec, int div,
-                    float scale) {
+                    float scale, const int* __restrict__ ok) {
+  if (ok && __ldg(ok) == 0) return;       // the sentinel skips this step
   const int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   const int64_t g = t / vec;
   if (g >= n) return;
@@ -273,7 +282,8 @@ stateful_rows_kernel(float4* __restrict__ table,
                      const float4* __restrict__ fwd,
                      float4* __restrict__ slab0, float4* __restrict__ slab1,
                      const float* __restrict__ alpha_t, int n, int vec,
-                     int div, OptParams p) {
+                     int div, OptParams p, const int* __restrict__ ok) {
+  if (ok && __ldg(ok) == 0) return;       // the sentinel skips this step
   const int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   const int64_t g = t / vec;
   if (g >= n) return;
@@ -412,7 +422,9 @@ stateful_fused_kernel(float4* __restrict__ table,
                       const float4* __restrict__ fwd,
                       float4* __restrict__ slab0, float4* __restrict__ slab1,
                       const float* __restrict__ alpha_t, int n, int npad,
-                      int vec, int div, OptParams p) {
+                      int vec, int div, OptParams p,
+                      const int* __restrict__ ok) {
+  if (ok && __ldg(ok) == 0) return;       // the sentinel skips this step
   extern __shared__ int keys32[];
   constexpr int kThreadsF = kFusedWarps * 32;
   const int lane = threadIdx.x % 32;
@@ -452,7 +464,7 @@ stateful_fused_kernel(float4* __restrict__ table,
 
 int launch(void* table, const void* ids, const void* order, const void* seg,
            const void* upd, const void* fwd, int n, int dim, int div,
-           float scale, void* stream) {
+           float scale, const void* ok, void* stream) {
   if (n <= 0) return 0;
   const int vec = dim / 4;
   const long long blocks = ((long long)n * vec + kThreads - 1) / kThreads;
@@ -460,7 +472,7 @@ int launch(void* table, const void* ids, const void* order, const void* seg,
                         (cudaStream_t)stream>>>(
       (float4*)table, (const int64_t*)ids, (const int*)order,
       (const int2*)seg, (const float4*)upd, (const float4*)fwd, n, vec, div,
-      scale);
+      scale, (const int*)ok);
   return (int)cudaGetLastError();
 }
 
@@ -503,12 +515,13 @@ int ff_scatter_presort(const void* ids, int n, void* order, void* seg,
 // table: (rows, dim) fp32, updated in place; ids: (n,) int64, the
 // lookups' rows; order, seg: the pre-pass's outputs; upd: (n / div, dim)
 // fp32. dim % 4 == 0 and 16-byte aligned pointers (the wrapper checks).
+// ok: the sentinel's device int32 flag (0: change nothing), or null.
 // Launches on `stream`; returns cudaGetLastError().
 int ff_scatter_add_rows(void* table, const void* ids, const void* order,
                         const void* seg, const void* upd, int n, int dim,
-                        int div, float scale, void* stream) {
+                        int div, float scale, const void* ok, void* stream) {
   return launch(table, ids, order, seg, upd, nullptr, n, dim, div, scale,
-                stream);
+                ok, stream);
 }
 
 // As ff_scatter_add_rows, but writes fwd[first lookup] + sum without
@@ -517,8 +530,8 @@ int ff_scatter_add_rows(void* table, const void* ids, const void* order,
 int ff_scatter_write_rows(void* table, const void* ids, const void* order,
                           const void* seg, const void* upd, const void* fwd,
                           int n, int dim, int div, float scale,
-                          void* stream) {
-  return launch(table, ids, order, seg, upd, fwd, n, dim, div, scale,
+                          const void* ok, void* stream) {
+  return launch(table, ids, order, seg, upd, fwd, n, dim, div, scale, ok,
                 stream);
 }
 
@@ -528,14 +541,15 @@ int ff_scatter_write_rows(void* table, const void* ids, const void* order,
 // state, updated in place, or null (see stateful_rows_kernel). alpha_t:
 // a device pointer to Adam's fp32 step size (null for SGD). adam 0 runs
 // SGD (lr, momentum, nesterov, wd), 1 Adam (wd, b1, c1, b2, c2, eps).
-// Launches on `stream`; returns cudaGetLastError().
+// ok as in ff_scatter_add_rows. Launches on `stream`; returns
+// cudaGetLastError().
 int ff_stateful_update_rows(void* table, const void* ids, const void* order,
                             const void* seg, const void* upd, const void* fwd,
                             void* slab0, void* slab1, const void* alpha_t,
                             int n, int dim, int div, int adam, int nesterov,
                             float wd, float lr, float momentum, float b1,
                             float c1, float b2, float c2, float eps,
-                            void* stream) {
+                            const void* ok, void* stream) {
   if (n <= 0) return 0;
   const int vec = dim / 4;
   const OptParams p{adam, nesterov, wd, lr, momentum, b1, c1, b2, c2, eps};
@@ -544,7 +558,8 @@ int ff_stateful_update_rows(void* table, const void* ids, const void* order,
                          (cudaStream_t)stream>>>(
       (float4*)table, (const int64_t*)ids, (const int*)order,
       (const int2*)seg, (const float4*)upd, (const float4*)fwd,
-      (float4*)slab0, (float4*)slab1, (const float*)alpha_t, n, vec, div, p);
+      (float4*)slab0, (float4*)slab1, (const float*)alpha_t, n, vec, div, p,
+      (const int*)ok);
   return (int)cudaGetLastError();
 }
 
@@ -560,7 +575,8 @@ int ff_stateful_update_fused(void* table, const void* ids, const void* upd,
                              const void* alpha_t, int n, int dim, int div,
                              int adam, int nesterov, float wd, float lr,
                              float momentum, float b1, float c1, float b2,
-                             float c2, float eps, void* stream) {
+                             float c2, float eps, const void* ok,
+                             void* stream) {
   if (n <= 0) return 0;
   if (n > kFusedMax) return (int)cudaErrorInvalidValue;
   const int npad = (n + kStep - 1) / kStep * kStep;
@@ -595,7 +611,7 @@ int ff_stateful_update_fused(void* table, const void* ids, const void* upd,
                           (cudaStream_t)stream>>>(
       (float4*)table, (const int64_t*)ids, (const float4*)upd,
       (const float4*)fwd, (float4*)slab0, (float4*)slab1,
-      (const float*)alpha_t, n, npad, dim / 4, div, p);
+      (const float*)alpha_t, n, npad, dim / 4, div, p, (const int*)ok);
   return (int)cudaGetLastError();
 }
 

@@ -14,7 +14,9 @@ Both ops take the touched-rows update: ``sparse_sgd_update`` under
 plain SGD, ``sparse_opt_update`` under a stateful optimizer (SGD with
 momentum or weight decay, Adam), which updates the touched rows'
 weights AND their optimizer state, and nothing else (lazy semantics, as
-the JAX ops).
+the JAX ops). Each takes ``ok``, the anomaly sentinel's 0-d int32 flag
+(None: no sentinel), and hands it to its scatter: a step whose flag is 0
+writes no row.
 """
 
 from __future__ import annotations
@@ -92,7 +94,7 @@ class Embedding(Op):
         return self.apply(params, xs), None
 
     @torch.no_grad()
-    def sparse_sgd_update(self, params, xs, out_ct, lr, fwd=None):
+    def sparse_sgd_update(self, params, xs, out_ct, lr, fwd=None, ok=None):
         """table[row] -= lr * ct for the touched rows only, in place: with
         "none" each slot's cotangent row; with "sum"/"avg" the bag's
         cotangent (/ bag for "avg") for every row of the bag. A row's
@@ -108,12 +110,12 @@ class Embedding(Op):
             if self.aggr == AGGR_MODE_AVG:
                 ct = ct / div
         scatter_add_rows(table, ids, ct, scale=-lr, div=div,
-                         ids_in_range=True)   # wrapped by _ids
+                         ids_in_range=True, ok=ok)   # wrapped by _ids
         return params
 
     @torch.no_grad()
     def sparse_opt_update(self, params, xs, out_ct, opt, slabs, step,
-                          fwd=None):
+                          fwd=None, ok=None):
         """The stateful touched-rows update (lazy momentum, weight decay,
         Adam), in place on the table and on ``slabs`` ({slab name: the
         table's state}): each lookup's update is the RAW cotangent (its
@@ -134,7 +136,7 @@ class Embedding(Op):
                 ct = ct / div
         stateful_update_rows(table, ids, ct, None, slabs, opt.row_params(),
                              opt.alpha_t(step), div=div,
-                             ids_in_range=True)   # wrapped by _ids
+                             ids_in_range=True, ok=ok)   # wrapped by _ids
         return params
 
 
@@ -224,7 +226,7 @@ class EmbeddingBagStacked(Op):
         return [out], (gid.reshape(-1), rows)
 
     @torch.no_grad()
-    def sparse_sgd_update(self, params, xs, out_ct, lr, fwd=None):
+    def sparse_sgd_update(self, params, xs, out_ct, lr, fwd=None, ok=None):
         """table[row] -= lr * ct, for the touched rows only, in place:
         each lookup's update is -lr * (its bag's cotangent, / bag for
         "avg"), and a row's duplicates sum in lookup order before they
@@ -240,16 +242,16 @@ class EmbeddingBagStacked(Op):
         if fwd is not None:
             gid, rows = fwd
             scatter_write_rows(table, gid, ct, rows, scale=-lr, div=bag,
-                               ids_in_range=True)   # wrapped ids
+                               ids_in_range=True, ok=ok)   # wrapped ids
         else:
             gid = self._global_ids(idx).reshape(-1)
             scatter_add_rows(table, gid, ct, scale=-lr, div=bag,
-                             ids_in_range=True)   # wrapped ids
+                             ids_in_range=True, ok=ok)   # wrapped ids
         return params
 
     @torch.no_grad()
     def sparse_opt_update(self, params, xs, out_ct, opt, slabs, step,
-                          fwd=None):
+                          fwd=None, ok=None):
         """The stateful touched-rows update, in place on the tables and on
         ``slabs`` ({slab name: (T, rows, d) state}): each lookup's update
         is its bag's RAW cotangent (/ bag for "avg"), a row's duplicates
@@ -275,5 +277,5 @@ class EmbeddingBagStacked(Op):
             self._flat_table(params), gid, ct, rows,
             {k: v.reshape(n, self.out_dim) for k, v in slabs.items()},
             opt.row_params(), opt.alpha_t(step), div=bag,
-            ids_in_range=True)   # wrapped ids
+            ids_in_range=True, ok=ok)   # wrapped ids
         return params

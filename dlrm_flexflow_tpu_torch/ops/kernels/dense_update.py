@@ -1,4 +1,5 @@
-"""The optimizer's dense update: the Hopper kernel and its plain version.
+"""The optimizer's dense update and the anomaly sentinel's gradient norm:
+the Hopper kernels and their plain versions.
 
 No Pallas kernel computes it in the JAX package: XLA fuses each
 parameter's update there (dlrm_flexflow_tpu/core/optimizers.py:93-114
@@ -18,13 +19,25 @@ the weights ``ws``, from the gradients ``gs``, and the state ``slabs``
 runs that function on each tensor in turn. CPU tensors take the plain
 version; CUDA tensors launch the kernel (``dense_update.launches``
 counts the launches: one for up to MAX_TENSORS tensors) or raise, never
-falling back.
+falling back. With ``ok`` (the sentinel's 0-d int32 flag on the weights'
+device) a step whose flag is 0 changes nothing: the kernel returns
+before any store, and the plain version leaves its tensors as they are.
+
+``grad_sumsq(gs, loss)`` is the sentinel's predicate, computed by XLA in
+the JAX step (dlrm_flexflow_tpu/core/model.py:1120-1123): gsq, the fp32
+sum of the squares of every gradient in ``gs``, its square root and ok =
+isfinite(loss) & isfinite(sqrt(gsq)), as 0-d device tensors (ok int32).
+On the card it is one launch over every gradient on ``dense_update``'s
+launch plan (``grad_sumsq.launches``), deterministic to the bit; its
+plain version ``grad_sumsq_reference`` sums each tensor's squares in
+fp32 and adds the sums in list order.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, NamedTuple, Sequence
+import threading
+from typing import Dict, List, NamedTuple, Sequence
 
 import torch
 
@@ -40,7 +53,11 @@ _SIGNATURES = {
     "ff_dense_update_blocks_per_sm": ((_I, ctypes.POINTER(_I)), _I),
     "ff_dense_update": (
         (_P, _I, ctypes.c_longlong, _I, _P, _I, _I)
-        + (ctypes.c_float,) * 8 + (_P,), _I),
+        + (ctypes.c_float,) * 8 + (_P, _P), _I),
+    "ff_grad_sumsq_blocks_per_sm": ((ctypes.POINTER(_I),), _I),
+    "ff_grad_sumsq": (
+        (_P, _I, ctypes.c_longlong, _P, ctypes.c_longlong,
+         ctypes.c_longlong, _I, _P, _P, _P, _P, _P), _I),
 }
 # csrc/dense_update.cu's kMaxTensors (descriptors a launch carries in its
 # 4 KB of arguments), kThreads (elements a scalar tile) and kTileVecs
@@ -112,9 +129,12 @@ class _Desc(ctypes.Structure):
                 ("n", ctypes.c_longlong), ("tile0", ctypes.c_longlong)]
 
 
-def dense_update_reference(ws, gs, slabs, opt_params, alpha_t=None):
+def dense_update_reference(ws, gs, slabs, opt_params, alpha_t=None,
+                           ok=None):
     """Plain PyTorch version of ``dense_update``: ``row_update_reference``
-    on each tensor in turn."""
+    on each tensor in turn, or nothing when ``ok`` is 0."""
+    if scatter_rows.skipped(ok):
+        return ws
     for w, g, s in zip(ws, gs, slabs):
         scatter_rows.row_update_reference(w, g, s, opt_params, alpha_t)
     return ws
@@ -160,20 +180,24 @@ def blocks_per_sm(slabs: int) -> int:
 
 
 def dense_update(ws: Sequence[torch.Tensor], gs: Sequence[torch.Tensor],
-                 slabs: Sequence[dict], opt_params, alpha_t=None):
+                 slabs: Sequence[dict], opt_params, alpha_t=None, ok=None):
     """In place, one optimizer step on every weight of ``ws`` from its
     gradient in ``gs`` and its state in ``slabs`` ({name: tensor shaped
     as the weight} per weight, the names ``slab_names(opt_params)``
     gives), with ``row_update_reference``'s math; ``opt_params`` an
     optimizer's ``row_params()``; Adam reads ``alpha_t``, a 0-d fp32
-    tensor on the weights' device. Raises on non-fp32 tensors, mixed
-    devices, a missing or misshapen slab, and (on the card) a weight or
-    slab that is not contiguous. Returns ``ws``."""
+    tensor on the weights' device; ``ok``, the sentinel's 0-d int32 flag
+    there, or None: where it is 0 nothing changes. Raises on non-fp32
+    tensors, mixed devices, a missing or misshapen slab, and (on the
+    card) a weight or slab that is not contiguous. Returns ``ws``."""
     names = scatter_rows.slab_names(opt_params)
     adam = opt_params["kind"] == "adam"
     _check(ws, gs, slabs, names, adam, alpha_t)
+    if ws:
+        scatter_rows.check_ok(ok, ws[0].device)
     if not ws or ws[0].device.type == "cpu":
-        return dense_update_reference(ws, gs, slabs, opt_params, alpha_t)
+        return dense_update_reference(ws, gs, slabs, opt_params, alpha_t,
+                                      ok)
     if ws[0].device.type != "cuda":
         raise ValueError(f"dense_update runs on cpu or cuda, not "
                          f"{ws[0].device}")
@@ -195,10 +219,90 @@ def dense_update(ws: Sequence[torch.Tensor], gs: Sequence[torch.Tensor],
             d.w, d.g, d.s0, d.s1 = p
             d.head, d.nvec, d.n, d.tile0 = e.head, e.nvec, e.n, e.tile0
         err = lib.ff_dense_update(descs, len(entries), tiles, len(names),
-                                  at, int(adam), nesterov, *hp, stream)
+                                  at, int(adam), nesterov, *hp,
+                                  None if ok is None else ok.data_ptr(),
+                                  stream)
         build.check(lib, err, "dense_update kernel")
         build.count_launch(dense_update)
     return ws
 
 
 dense_update.launches = 0
+
+
+def grad_sumsq_reference(gs: Sequence[torch.Tensor], loss: torch.Tensor):
+    """Plain PyTorch version of ``grad_sumsq``: each gradient's fp32 sum
+    of squares, added in list order from 0; (gsq, norm, ok)."""
+    gsq = torch.zeros((), dtype=torch.float32, device=loss.device)
+    for g in gs:
+        g = g.float()
+        gsq = gsq + torch.sum(g * g)
+    norm = torch.sqrt(gsq)
+    ok = (torch.isfinite(loss.float()) & torch.isfinite(norm)).to(
+        torch.int32)
+    return gsq, norm, ok
+
+
+# per (device, stream): the uint32 counter the last block of a launch
+# finds itself by and resets (a launch on another stream may overlap)
+_counters: Dict[tuple, torch.Tensor] = {}
+_counters_lock = threading.Lock()
+
+
+def _counter(dev, stream) -> torch.Tensor:
+    with _counters_lock:
+        c = _counters.get((dev, stream))
+        if c is None:
+            c = _counters[(dev, stream)] = torch.zeros(
+                1, dtype=torch.int32, device=dev)
+        return c
+
+
+def grad_sumsq(gs: Sequence[torch.Tensor], loss: torch.Tensor):
+    """The anomaly sentinel's predicate over a step's gradients ``gs`` and
+    its 0-d ``loss``: (gsq, norm, ok), 0-d tensors on the loss's device —
+    gsq the fp32 sum of every gradient's squares, norm its square root,
+    ok int32, 1 when the loss and the norm are finite. Nothing waits for
+    the device. Gradients that are not fp32 are read as fp32 copies;
+    raises when they lie on another device than the loss."""
+    dev = loss.device
+    if loss.dim() != 0:
+        raise ValueError(f"grad_sumsq takes a 0-d loss, got "
+                         f"{tuple(loss.shape)}")
+    if any(g.device != dev for g in gs):
+        raise ValueError("grad_sumsq: the gradients and the loss lie on "
+                         "different devices")
+    if dev.type == "cpu":
+        return grad_sumsq_reference(gs, loss)
+    if dev.type != "cuda":
+        raise ValueError(f"grad_sumsq runs on cpu or cuda, not {dev}")
+    gs = [(g if g.dtype == torch.float32 else g.float()).contiguous()
+          for g in gs]
+    loss = loss if loss.dtype == torch.float32 else loss.float()
+    plan = launch_plan([g.numel() for g in gs],
+                       [(g.data_ptr(),) for g in gs])
+    total = sum(tiles for _, tiles in plan)
+    partials = torch.empty(max(total, 1), dtype=torch.float32, device=dev)
+    res = torch.empty(3, dtype=torch.float32, device=dev)
+    ok = res[2:].view(torch.int32)
+    stream = build.stream_of(loss)
+    counter = _counter(dev, stream)
+    lib = build.load("dense_update", _SIGNATURES)
+    base = 0
+    for k, (entries, tiles) in enumerate(plan or [([], 0)]):
+        descs = (_Desc * max(len(entries), 1))()
+        for d, e in zip(descs, entries):
+            d.g = gs[e.index].data_ptr()
+            d.head, d.nvec, d.n, d.tile0 = e.head, e.nvec, e.n, e.tile0
+        err = lib.ff_grad_sumsq(descs, len(entries), tiles,
+                                partials.data_ptr(), base, total,
+                                int(k == max(len(plan), 1) - 1),
+                                counter.data_ptr(), loss.data_ptr(),
+                                res.data_ptr(), ok.data_ptr(), stream)
+        build.check(lib, err, "grad_sumsq kernel")
+        build.count_launch(grad_sumsq)
+        base += tiles
+    return res[0], res[1], ok[0]
+
+
+grad_sumsq.launches = 0

@@ -48,6 +48,11 @@ tensor launches the kernels or raises, never falling back.
 ``scatter_add_rows.launches``, ``scatter_write_rows.launches``,
 ``stateful_update_rows.launches`` and ``scatter_presort.launches`` count
 kernel launches, ``.routes`` the update launches by route.
+
+The three updates take ``ok``, the anomaly sentinel's 0-d int32 flag on
+the table's device, or None: where it is 0 nothing changes (the update
+kernel returns before any store; the plain version returns at once).
+The pre-pass still runs: it writes no parameter.
 """
 
 from __future__ import annotations
@@ -64,16 +69,16 @@ _SIGNATURES = {
     "ff_scatter_block_sort_max": ((), _I),
     "ff_scatter_presort": ((_P, _I, _P, _P, _P), _I),
     "ff_scatter_add_rows": (
-        (_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P), _I),
+        (_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P, _P), _I),
     "ff_scatter_write_rows": (
-        (_P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P), _I),
+        (_P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P, _P), _I),
     "ff_stateful_update_rows": (
         (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I)
-        + (ctypes.c_float,) * 8 + (_P,), _I),
+        + (ctypes.c_float,) * 8 + (_P, _P), _I),
     "ff_stateful_fused_max": ((), _I),
     "ff_stateful_update_fused": (
         (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I)
-        + (ctypes.c_float,) * 8 + (_P,), _I),
+        + (ctypes.c_float,) * 8 + (_P, _P), _I),
 }
 # the pre-pass kernel's limit (kBlockSortMax in csrc/scatter_rows.cu): a
 # block holds every key, 8 bytes each, in its 227 KB of shared memory
@@ -110,15 +115,36 @@ def _segment_sums(ids, upd, scale, div):
     return rows, first, sums
 
 
-def scatter_add_rows_reference(table, ids, upd, scale=1.0, div=1):
+def skipped(ok) -> bool:
+    """Whether the sentinel's flag ``ok`` (None: no sentinel) says to
+    change nothing: what the plain versions read (on the card, a wait for
+    the device)."""
+    return ok is not None and not bool(ok)
+
+
+def check_ok(ok, dev):
+    """Raise unless ``ok`` is None or a 0-d int32 tensor on ``dev``."""
+    if ok is not None and (ok.dim() != 0 or ok.dtype != torch.int32
+                           or ok.device != dev):
+        raise ValueError(f"the sentinel's ok is a 0-d int32 tensor on "
+                         f"{dev}, got {tuple(ok.shape)} {ok.dtype} on "
+                         f"{ok.device}")
+
+
+def scatter_add_rows_reference(table, ids, upd, scale=1.0, div=1, ok=None):
     """Plain PyTorch version of ``scatter_add_rows``."""
+    if skipped(ok):
+        return table
     rows, _, sums = _segment_sums(ids, upd, scale, div)
     table[rows] = table[rows] + sums
     return table
 
 
-def scatter_write_rows_reference(table, ids, upd, fwd, scale=1.0, div=1):
+def scatter_write_rows_reference(table, ids, upd, fwd, scale=1.0, div=1,
+                                 ok=None):
     """Plain PyTorch version of ``scatter_write_rows``."""
+    if skipped(ok):
+        return table
     rows, first, sums = _segment_sums(ids, upd, scale, div)
     table[rows] = fwd[first] + sums
     return table
@@ -198,8 +224,10 @@ def row_update_reference(w, g, slabs, p, alpha_t=None):
 
 
 def stateful_update_rows_reference(table, ids, upd, fwd, slabs, p,
-                                   alpha_t=None, div=1):
+                                   alpha_t=None, div=1, ok=None):
     """Plain PyTorch version of ``stateful_update_rows``."""
+    if skipped(ok):
+        return table
     rows, first, sums = _segment_sums(ids, upd, None, div)
     w = fwd[first] if fwd is not None else table[rows]
     srows = {k: slabs[k][rows] for k in slab_names(p)}
@@ -370,7 +398,7 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch(wrapper, entry, table, ids, upd, fwd, scale, div):
+def _launch(wrapper, entry, table, ids, upd, fwd, scale, div, ok):
     """The pre-pass, then one update launch."""
     route, ids, upd, fwd, order, seg = _presorted(table, ids, upd, fwd)
     if order is None:
@@ -381,7 +409,7 @@ def _launch(wrapper, entry, table, ids, upd, fwd, scale, div):
         args.append(fwd.data_ptr())
     lib = build.load("scatter_rows", _SIGNATURES)
     err = getattr(lib, entry)(*args, ids.shape[0], table.shape[1], int(div),
-                              float(scale), build.stream_of(table))
+                              float(scale), _ptr(ok), build.stream_of(table))
     build.check(lib, err, f"{entry} kernel ({route} pre-pass)")
     build.count_launch(wrapper, route)
     return table
@@ -389,45 +417,51 @@ def _launch(wrapper, entry, table, ids, upd, fwd, scale, div):
 
 def scatter_add_rows(table: torch.Tensor, ids: torch.Tensor,
                      upd: torch.Tensor, scale: float = 1.0,
-                     div: int = 1, ids_in_range: bool = False
-                     ) -> torch.Tensor:
+                     div: int = 1, ids_in_range: bool = False, *,
+                     ok=None) -> torch.Tensor:
     """In place: table[ids[j]] += scale * upd[j // div], duplicates summed
     first in lookup order. table (rows, d) fp32; ids (n,) int64 below
     rows, a negative id a pad that changes nothing; upd (n // div, d).
     ``ids_in_range``: the caller guarantees ids < rows, and the check
-    (a wait for the device on the card) is skipped."""
+    (a wait for the device on the card) is skipped. ``ok``: the
+    sentinel's flag (see the module's docstring)."""
     _check(table, ids, upd, None, div, ids_in_range)
+    check_ok(ok, table.device)
     if table.device.type == "cpu":
-        return scatter_add_rows_reference(table, ids, upd, scale, div)
+        return scatter_add_rows_reference(table, ids, upd, scale, div, ok)
     if table.device.type != "cuda":
         raise ValueError(f"scatter_add_rows runs on cpu or cuda, not "
                          f"{table.device}")
     return _launch(scatter_add_rows, "ff_scatter_add_rows", table, ids, upd,
-                   None, scale, div)
+                   None, scale, div, ok)
 
 
 def scatter_write_rows(table: torch.Tensor, ids: torch.Tensor,
                        upd: torch.Tensor, fwd: torch.Tensor,
                        scale: float = 1.0, div: int = 1,
-                       ids_in_range: bool = False) -> torch.Tensor:
+                       ids_in_range: bool = False, *,
+                       ok=None) -> torch.Tensor:
     """In place, write-only: table[ids[j]] = fwd[j] + sum of scale *
     upd[j' // div] over the lookups j' of that row. fwd (n, d): the row
-    lookup j read in the forward pass. Pads and ``ids_in_range`` as in
-    ``scatter_add_rows``."""
+    lookup j read in the forward pass. Pads, ``ids_in_range`` and ``ok``
+    as in ``scatter_add_rows``."""
     _check(table, ids, upd, fwd, div, ids_in_range)
+    check_ok(ok, table.device)
     if table.device.type == "cpu":
-        return scatter_write_rows_reference(table, ids, upd, fwd, scale, div)
+        return scatter_write_rows_reference(table, ids, upd, fwd, scale, div,
+                                            ok)
     if table.device.type != "cuda":
         raise ValueError(f"scatter_write_rows runs on cpu or cuda, not "
                          f"{table.device}")
     return _launch(scatter_write_rows, "ff_scatter_write_rows", table, ids,
-                   upd, fwd, scale, div)
+                   upd, fwd, scale, div, ok)
 
 
 def stateful_update_rows(table: torch.Tensor, ids: torch.Tensor,
                          upd: torch.Tensor, fwd, slabs, opt_params,
                          alpha_t=None, div: int = 1,
-                         ids_in_range: bool = False) -> torch.Tensor:
+                         ids_in_range: bool = False, *,
+                         ok=None) -> torch.Tensor:
     """In place, the stateful touched-rows update: for each distinct row
     of ``ids``, g = the sum of upd[j // div] over its lookups j in lookup
     order (the RAW gradient, no scale), w = fwd[j] (the row lookup j read
@@ -436,9 +470,11 @@ def stateful_update_rows(table: torch.Tensor, ids: torch.Tensor,
     ``row_params()``) writes table[row] and the row of each state slab
     it names (``slabs``: {name: tensor shaped as table}). Adam reads
     ``alpha_t``, a 0-d fp32 tensor on the table's device, there (the
-    step never comes back to the host). Pads and ``ids_in_range`` as in
-    ``scatter_add_rows``; rows no lookup names keep weight and state."""
+    step never comes back to the host). Pads, ``ids_in_range`` and ``ok``
+    as in ``scatter_add_rows``; rows no lookup names keep weight and
+    state."""
     _check(table, ids, upd, fwd, div, ids_in_range)
+    check_ok(ok, table.device)
     names = slab_names(opt_params)
     if set(names) - set(slabs):
         raise ValueError(f"stateful_update_rows: slabs {sorted(slabs)} "
@@ -454,17 +490,17 @@ def stateful_update_rows(table: torch.Tensor, ids: torch.Tensor,
                          "float32 tensor on the table's device")
     if table.device.type == "cpu":
         return stateful_update_rows_reference(table, ids, upd, fwd, slabs,
-                                              opt_params, alpha_t, div)
+                                              opt_params, alpha_t, div, ok)
     if table.device.type != "cuda":
         raise ValueError(f"stateful_update_rows runs on cpu or cuda, not "
                          f"{table.device}")
     fused = stateful_route(ids.shape[0], table.shape[0]) == "fused"
     return _stateful_kernels(table, ids, upd, fwd, slabs, opt_params,
-                             alpha_t, div, fused)
+                             alpha_t, div, fused, ok)
 
 
 def _stateful_kernels(table, ids, upd, fwd, slabs, opt_params, alpha_t,
-                      div, fused):
+                      div, fused, ok=None):
     """The kernels of ``stateful_update_rows`` on checked CUDA inputs:
     with ``fused`` one launch (route "fused", n <= FUSED_MAX), else the
     pre-pass of ``_presorted`` and one launch after it."""
@@ -484,7 +520,8 @@ def _stateful_kernels(table, ids, upd, fwd, slabs, opt_params, alpha_t,
     lib = build.load("scatter_rows", _SIGNATURES)
     common = (_ptr(slab[0]), _ptr(slab[1]),
               _ptr(alpha_t) if adam else None, n, table.shape[1], int(div),
-              adam, nesterov, *(float(x) for x in hp), build.stream_of(table))
+              adam, nesterov, *(float(x) for x in hp), _ptr(ok),
+              build.stream_of(table))
     if fused:
         err = lib.ff_stateful_update_fused(
             table.data_ptr(), ids.data_ptr(), upd.data_ptr(), _ptr(fwd),

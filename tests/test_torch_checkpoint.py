@@ -354,14 +354,17 @@ def test_interrupted_fit_resumes_bitwise(name, crash_at, tmp_path):
     a snapshot every 3 steps. The interrupted run crashes as step
     ``crash_at`` begins: 5 resumes inside epoch 0 at batch 3, 8 resumes
     at the start of epoch 1 (after the remainder). A fresh model with
-    other weights resumes from the directory."""
+    other weights resumes from the directory. The interrupted and the
+    resumed runs take their batches through the prefetch ring
+    (``stage_dataset="never"``), the uninterrupted one stages the whole
+    dataset, so the two paths are held to each other too."""
     data = _batch(0, 5 * BS + 6)
     labels = data.pop("label")
     kw = dict(epochs=2, batch_size=BS, verbose=False)
     whole = _port_model(name)
     whole.fit(data, labels, **kw)
 
-    broken = _port_model(name)
+    broken = _port_model(name, stage_dataset="never")
     real, calls = broken.train_batch_staged, []
 
     def crashing(staged):
@@ -380,7 +383,7 @@ def test_interrupted_fit_resumes_bitwise(name, crash_at, tmp_path):
     want = {5: {"epoch": 0, "batch": 3}, 8: {"epoch": 1, "batch": 0}}
     assert last["loader_state"] == want[crash_at]
 
-    resumed = _port_model(name, seed=7)
+    resumed = _port_model(name, seed=7, stage_dataset="never")
     out = resumed.fit(data, labels, checkpoint_dir=d, save_every=3,
                       keep_last=2, **kw)
     assert resumed._step == whole._step == 12

@@ -40,7 +40,14 @@ before each product, and a sum near the midpoint of two bf16 values can
 round the other way, moving that operand by one bf16 step); dwh within
 1e-5 of its largest entry in fp32, two bf16 steps (2^-6) in bf16. An
 NMT step on the card against the CPU: every update within 1e-3 of its
-parameter's largest update, plus two fp32 steps of the parameter.
+parameter's largest update, plus two fp32 steps of the parameter. The
+anomaly sentinel's gradient norm (``grad_sumsq``) against its plain
+version on the CPU: rtol 1e-5 (the fp32 sum of squares in another
+order), the flag exactly for NaN and +-Inf, a rerun bitwise. The guarded
+update entries: with ok = 0 every output bitwise as it was, with ok = 1
+bitwise the unguarded call. A skip_step run on the card against the same
+run on the CPU as the stateful step above; the poisoned step, bitwise
+nothing.
 """
 
 import numpy as np
@@ -1297,6 +1304,7 @@ def test_prefetched_batches_on_card_equal_synchronous_ones(cuda, tmp_path):
     for depth in (0, 2):
         fm = _model("cat", "cuda")
         fm.config.prefetch_depth = depth
+        fm.config.stage_dataset = "never"     # not the staged dataset
         fm.compile(SGDOptimizer(lr=0.05, momentum=0.9), "mean_squared_error",
                    ["mse"])
         out = fm.fit(x, labels, epochs=2, batch_size=16, verbose=False)
@@ -1349,3 +1357,161 @@ def test_adam_step_size_on_card_matches_cpu(cuda):
         one = opt.alpha_t(torch.tensor(s, dtype=torch.int32, device=cuda))
         assert one.dim() == 0 and one.device.type == "cuda"
         assert float(one) == float(want[s])
+
+
+# ---- the anomaly sentinel ---------------------------------------------------
+def _sumsq_case(cuda, sizes, offsets, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    out = []
+    for i, n in enumerate(sizes):
+        o = offsets[i % len(offsets)]
+        out.append(torch.randn(n + 4, device=cuda, generator=g)[o:o + n])
+    return out
+
+
+@pytest.mark.parametrize("sizes,offsets", [
+    ([5000, 17, 0, 4096 * 4 + 3, 64 * 1024], [0, 1, 2, 3]),
+    ([33] * 60, [0, 3]),                     # two launches
+    ([1 << 22, 7, 256], [0]),
+    ([], [0]),
+])
+def test_grad_sumsq_matches_plain(cuda, sizes, offsets):
+    gs = _sumsq_case(cuda, sizes, offsets, seed=len(sizes))
+    loss = torch.tensor(0.25, device=cuda)
+    plan = dense_mod.launch_plan([g.numel() for g in gs],
+                                 [(g.data_ptr(),) for g in gs])
+    before = dense_mod.grad_sumsq.launches
+    gsq, norm, ok = dense_mod.grad_sumsq(gs, loss)
+    assert dense_mod.grad_sumsq.launches - before == max(len(plan), 1)
+    want = dense_mod.grad_sumsq_reference([g.cpu() for g in gs],
+                                          loss.cpu())
+    exact = sum(float((g.double() ** 2).sum()) for g in gs)
+    for got, w in zip((gsq, norm), want):
+        assert got.dim() == 0 and got.device.type == "cuda"
+        np.testing.assert_allclose(float(got), float(w), rtol=1e-5)
+    np.testing.assert_allclose(float(gsq), exact, rtol=1e-5)
+    assert ok.dtype == torch.int32 and int(ok) == int(want[2]) == 1
+    again = dense_mod.grad_sumsq(gs, loss)
+    assert float(again[0]) == float(gsq) and float(again[1]) == float(norm)
+    if gs:
+        for bad in (float("nan"), float("inf"), -float("inf")):
+            g2 = [g.clone() for g in gs]
+            g2[-1][g2[-1].numel() // 2] = bad
+            assert int(dense_mod.grad_sumsq(g2, loss)[2]) == 0
+            assert int(dense_mod.grad_sumsq(
+                gs, torch.tensor(bad, device=cuda))[2]) == 0
+        big = [torch.full((1024,), 3e19, device=cuda)]   # gsq overflows
+        assert int(dense_mod.grad_sumsq(big, loss)[2]) == 0
+
+
+def _guarded_calls(cuda):
+    """Each guarded entry as a call (table, slabs, ok): the dense update
+    under Adam and SGD, the add and write scatters, the stateful update
+    on its one-launch and its pre-pass route."""
+    g = torch.Generator(device=cuda).manual_seed(21)
+    rows, d, n = 4096, 64, 2048
+    ids = torch.randint(0, rows, (n,), device=cuda, generator=g)
+    ids[:8] = ids[0]
+    upd = torch.randn(n, d, device=cuda, generator=g)
+    fwd_src = torch.randn(rows, d, device=cuda, generator=g)
+    adam = AdamOptimizer(alpha=0.01)
+    at = adam.alpha_t(torch.tensor(3, dtype=torch.int32, device=cuda))
+    sgd = SGDOptimizer(lr=0.1, momentum=0.9)
+    grads = torch.randn(rows, d, device=cuda, generator=g)
+    return {
+        "dense_adam": lambda t, s, ok: dense_mod.dense_update(
+            [t], [grads], [s], adam.row_params(), at, ok),
+        "dense_momentum": lambda t, s, ok: dense_mod.dense_update(
+            [t], [grads], [{"v": s["v"]}], sgd.row_params(), None, ok),
+        "add": lambda t, s, ok: scatter_rows_mod.scatter_add_rows(
+            t, ids, upd, -0.1, ok=ok),
+        "write": lambda t, s, ok: scatter_rows_mod.scatter_write_rows(
+            t, ids, upd, fwd_src[ids], -0.1, ok=ok),
+        "stateful_fused": lambda t, s, ok: scatter_rows_mod._stateful_kernels(
+            t, ids, upd, None, s, adam.row_params(), at, 1, True, ok),
+        "stateful_presort": lambda t, s, ok:
+            scatter_rows_mod._stateful_kernels(
+                t, ids, upd, None, s, adam.row_params(), at, 1, False, ok),
+    }, (rows, d)
+
+
+@pytest.mark.parametrize("entry", ["dense_adam", "dense_momentum", "add",
+                                   "write", "stateful_fused",
+                                   "stateful_presort"])
+def test_guarded_entries_honour_the_flag(cuda, entry):
+    calls, (rows, d) = _guarded_calls(cuda)
+    g = torch.Generator(device=cuda).manual_seed(22)
+    table = torch.randn(rows, d, device=cuda, generator=g)
+    slabs = {k: torch.rand(rows, d, device=cuda, generator=g)
+             for k in ("m", "v")}
+    outs = {}
+    for ok in (None, 0, 1):
+        t, s = table.clone(), {k: v.clone() for k, v in slabs.items()}
+        calls[entry](t, s, None if ok is None else torch.tensor(
+            ok, dtype=torch.int32, device=cuda))
+        outs[ok] = [t, *s.values()]
+    for a, b in zip(outs[0], [table, *slabs.values()]):
+        assert torch.equal(a, b)
+    for a, b in zip(outs[1], outs[None]):
+        assert torch.equal(a, b)
+    assert not torch.equal(outs[None][0], table)
+
+
+def test_skip_step_on_card_matches_cpu(cuda):
+    """Three "cat" steps under Adam with skip_step, the second poisoned,
+    on the card and on the CPU from the same weights: one norm launch a
+    step, the poisoned step leaves weights, state and Adam's step
+    bitwise, and the runs agree as the stateful step does."""
+    from dlrm_flexflow_tpu_torch.utils import faults
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        m = _model("cat", dev, None if dev == "cuda" else runs["cuda"][1])
+        m.config.anomaly_policy = "skip_step"
+        m.compile(AdamOptimizer(alpha=0.001), "mean_squared_error", ["mse"])
+        init = {op: {n: v.clone() for n, v in p.items()}
+                for op, p in m.params.items()}
+        before = dense_mod.grad_sumsq.launches
+        with faults.active_plan(faults.FaultPlan(nan_grad_steps={1})):
+            for step in range(3):
+                x, y = synthetic_batch(DLRMConfig(**ARCH["cat"]), 16,
+                                       seed=5 + step)
+                x["label"] = y
+                if step == 1:
+                    snap = ([v.clone() for p in m.params.values()
+                             for v in p.values()],
+                            int(m.opt_state["step"]))
+                mets = m.train_batch(x)
+                assert bool(mets["anomaly"]) == (step == 1)
+                if step == 1:
+                    assert all(torch.equal(a, b) for a, b in zip(
+                        snap[0], [v for p in m.params.values()
+                                  for v in p.values()]))
+                    assert int(m.opt_state["step"]) == snap[1] == 1
+        if dev == "cuda":
+            assert dense_mod.grad_sumsq.launches - before == 3
+        runs[dev] = (m, init)
+    gpu, cpu = runs["cuda"][0], runs["cpu"][0]
+    init = runs["cuda"][1]
+    assert int(gpu.opt_state["step"]) == int(cpu.opt_state["step"]) == 2
+    for op, p in cpu.params.items():
+        for pn, v in p.items():
+            dc = v - init[op][pn].cpu()
+            dg = gpu.params[op][pn].cpu() - init[op][pn].cpu()
+            assert float((dg - dc).abs().max()) <= 1e-2 * float(
+                dc.abs().max()), (op, pn)
+
+
+def test_staged_fit_on_card_equals_ring_fit(cuda):
+    x, y = synthetic_batch(DLRMConfig(**ARCH["cat"]), 16 * 6 + 5, seed=9)
+    runs = []
+    for stage in ("auto", "never"):
+        fm = _model("cat", "cuda")
+        fm.config.stage_dataset = stage
+        fm.compile(SGDOptimizer(lr=0.05, momentum=0.9), "mean_squared_error",
+                   ["mse"])
+        out = fm.fit(x, y, epochs=2, batch_size=16, verbose=False)
+        assert out["num_samples"] == 2 * len(y)
+        runs.append(fm)
+    for op, p in runs[0].params.items():
+        for pn, v in p.items():
+            assert torch.equal(v, runs[1].params[op][pn]), (op, pn)

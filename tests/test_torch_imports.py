@@ -56,6 +56,14 @@ def test_import_leaves_jax_out():
             "import dlrm_flexflow_tpu_torch.ops.rnn\n"
             "import dlrm_flexflow_tpu_torch.ops.elementwise\n"
             "import dlrm_flexflow_tpu_torch.ops.kernels.lstm\n"
+            "import dlrm_flexflow_tpu_torch.ops.kernels.dense_update\n"
+            "import dlrm_flexflow_tpu_torch.data.prefetch\n"
+            "import dlrm_flexflow_tpu_torch.data.stream\n"
+            "import dlrm_flexflow_tpu_torch.data.replay\n"
+            "import dlrm_flexflow_tpu_torch.utils.faults\n"
+            "import dlrm_flexflow_tpu_torch.utils.profiling\n"
+            "import dlrm_flexflow_tpu_torch.utils.checkpoint\n"
+            "import dlrm_flexflow_tpu_torch.examples.native.dlrm\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad\n")

@@ -257,7 +257,9 @@ def test_transient_io_error_mid_prefetch_recovers():
 def _fit_params(depth, n=44, epochs=3, **kw):
     # 44 samples / batch 8: 5 full batches and a remainder of 4
     xs, ys = _data(n, seed=7)
-    m = _mlp(prefetch_depth=depth)
+    # through the ring (depth > 0) or staged in the loop (depth 0), not
+    # the whole dataset staged at once
+    m = _mlp(prefetch_depth=depth, stage_dataset="never")
     res = m.fit(xs, ys, epochs=epochs, verbose=False, **kw)
     return m, res
 

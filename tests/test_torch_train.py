@@ -212,7 +212,9 @@ def test_fit_trains_every_batch_and_the_remainder():
     b.swap_params({op: {pn: v.clone() for pn, v in p.items()}
                    for op, p in a.params.items()})
     out = a.fit(data, labels, epochs=2, batch_size=BS, verbose=False)
-    assert set(out) == {"elapsed", "throughput", "num_samples", "metrics"}
+    assert set(out) == {"elapsed", "throughput", "num_samples",
+                        "rollbacks", "metrics"}
+    assert out["rollbacks"] == 0
     assert out["num_samples"] == 2 * n
     assert out["metrics"]["train_all"] == n
     assert np.isfinite(out["metrics"]["mse"])
