@@ -207,11 +207,44 @@ Phases:
    Every response must equal ``forward_batch`` of its rows, and a small
    batch must agree with the same weights run on the CPU. One full
    bucket (256 rows) is timed and traced: its wall time against the
-   device time of its kernels gives the device's idle share.
+   device time of its kernels gives the device's idle share;
+9. the online loop and the serving app — run after the cascade phase,
+   before any profiler session, in ``build/smoke`` (removed at the end).
+   (a) A full-width "dot" trainer at batch 2,048 under the launcher's
+   SGD runs ``fit_stream`` over 48 batches of fresh samples with a
+   ``DeltaPublisher`` publishing every 8 steps: a full base, four
+   deltas (the fourth torn by ``FF_FAULT_DELTA_TORN=1``) and a
+   compaction (``full_every`` 4). An in-process
+   ``InferenceEngine(checkpoint_dir=...)`` and
+   ``python -m dlrm_flexflow_tpu_torch.examples.native.serve_dlrm`` as a
+   child process on 127.0.0.1 (``--obs on``, started on the empty
+   directory; the kernels are built before it starts) poll every 50 ms.
+   After each publish the training thread waits until both serve the
+   version, or reject the torn delta with its CRC reason and keep
+   serving: the engine's scores at 1, 64 and 256 rows BITWISE the
+   trainer's ``forward_bucket`` on the same bucket, the app's /predict
+   at 64 rows within rtol 1e-5, atol 1e-6 (the line says whether
+   bitwise), each reaching every clean version (three by delta reload)
+   and recovering at the compaction, while 4 client threads post
+   /predict; then a 3 s window with no reload, /healthz 200, /metrics's
+   reload series, and SIGTERM with exit 0. Every count at 0 just before
+   the loop and read just after: one fused interaction a forward, one
+   read-modify-write scatter with its pre-pass and one dense update a
+   step, no plain version. Printed: each publish's split (the copy to
+   the host, the diff, the write, the checksum), freshness (publish
+   start to served, p50 and p99, delta and full, engine and app) and
+   /predict requests/s with and without a reload in flight. (b) The
+   app serving full-width "cat" with ``--retrieve on`` (1M items,
+   k = 100), initialized weights, no checkpoint directory: /predict of
+   two users answers 100 candidates each, /retrieve at k = 10 ids among
+   them, SIGTERM exits 0.
 
 The last two lines are a JSON object with every kernel's numbers and
 ``{"ok": true, "device": {...}}``. Without a GPU, or when any check
 fails, the script exits non-zero and prints no result.
+
+``python3 chip_smoke.py --serving-app`` runs only phase 9 (the kernels
+built first).
 
 ``python3 chip_smoke.py --shapes`` runs only the per-shape timings of
 the bag and the interaction (phase 7's ``{"shapes": [...]}``), with the
@@ -349,9 +382,22 @@ ROLLBACK_STEPS = 16
 STAGE_SAMPLES = 65_536
 STREAM_STEPS = 64
 STREAM_CHECK_STEPS = 16
+# the continual loop: "dot" at full width, batch LOOP_B, a publish every
+# LOOP_EVERY steps, a compaction after LOOP_DELTAS deltas (the last one
+# torn), the bitwise checks at LOOP_SIZES rows, LOOP_CLIENTS /predict
+# client threads, a LOOP_RATE_S window without a reload
+LOOP_B = 2048
+LOOP_EVERY = 8
+LOOP_DELTAS = 4
+LOOP_STEPS = LOOP_EVERY * (LOOP_DELTAS + 2)
+LOOP_SIZES = (1, 64, 256)
+LOOP_CLIENTS = 4
+LOOP_RATE_S = 3.0
+# the checkout's root, where the serving app runs as a module
+REPO = Path(__file__).resolve().parent
 # where the launch phase writes its .ffbin and checkpoints: the build
 # directory of the checkout (git-ignored), removed at the end
-WORK_DIR = Path(__file__).resolve().parent / "build" / "smoke"
+WORK_DIR = REPO / "build" / "smoke"
 # the card-versus-CPU step, at a reduced size in fp32
 NMT_CHECK = dict(vocab=4096, dim=256, seq=12, batch=16, dtype="float32")
 
@@ -2730,6 +2776,446 @@ def resilience_phase():
         shutil.rmtree(WORK_DIR, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------
+# the continual loop and the serving app (phases 9 and 10)
+# ---------------------------------------------------------------------
+def app_flags(cfg, extra):
+    """The serving app's argv for a DLRMConfig, on 127.0.0.1 at a port
+    the OS picks."""
+    return ["--arch-embedding-size", "-".join(map(str, cfg.embedding_size)),
+            "--arch-sparse-feature-size", str(cfg.sparse_feature_size),
+            "--arch-mlp-bot", "-".join(map(str, cfg.mlp_bot)),
+            "--arch-mlp-top", "-".join(map(str, cfg.mlp_top)),
+            "--arch-interaction-op", cfg.arch_interaction_op,
+            "--lr", str(LR), "--host", "127.0.0.1", "--port", "0"] + extra
+
+
+class AppProcess:
+    """``python -m dlrm_flexflow_tpu_torch.examples.native.serve_dlrm`` as
+    a child process of the checkout (its kernels already built by this
+    process), its stderr in ``log``; ``call`` speaks HTTP to it and
+    ``stop`` sends SIGTERM and checks a clean exit."""
+
+    def __init__(self, argv, log):
+        import os
+        import queue
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("FF_FAULT_")}
+        env["PYTHONPATH"] = str(REPO)
+        self.log = log
+        self._err = open(log, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m",
+             "dlrm_flexflow_tpu_torch.examples.native.serve_dlrm", *argv],
+            cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=self._err,
+            text=True)
+        self._lines = queue.Queue()
+        threading.Thread(target=lambda: [self._lines.put(ln) for ln in
+                                         self.proc.stdout],
+                         daemon=True).start()
+        self.url = None
+        self.t0 = time.perf_counter()
+
+    def wait_ready(self, timeout=600):
+        """Block until the app prints its address; returns the seconds
+        since the process started."""
+        import queue
+        try:
+            line = self._lines.get(timeout=timeout)
+        except queue.Empty:
+            line = ""
+        if not line.startswith("serving DLRM on http://"):
+            self.proc.kill()
+            tail = Path(self.log).read_text()[-3000:]
+            raise SmokeFailure(f"the serving app did not start (exit "
+                               f"{self.proc.poll()}): {line!r}\n{tail}")
+        self.url = line.split(" on ", 1)[1].strip()
+        return time.perf_counter() - self.t0
+
+    def call(self, path, body=None):
+        """(status, parsed JSON or text) of one request."""
+        import urllib.error
+        import urllib.request
+        data = None if body is None else (
+            body if isinstance(body, bytes) else json.dumps(body).encode())
+        req = urllib.request.Request(self.url + path, data=data,
+                                     method="GET" if data is None
+                                     else "POST")
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                code, text = r.status, r.read().decode()
+        except urllib.error.HTTPError as e:
+            code, text = e.code, e.read().decode()
+        try:
+            return code, json.loads(text)
+        except ValueError:
+            return code, text
+
+    def stop(self, timeout=120):
+        """SIGTERM, then the exit code (must be 0)."""
+        import signal
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            rc = self.proc.wait(30)
+        finally:
+            self._err.close()
+        return rc
+
+
+class Clients:
+    """LOOP_CLIENTS threads posting one /predict body back to back; each
+    ``window`` counts the answers between its start and its stop."""
+
+    def __init__(self, app, body, n=None):
+        self.app, self.body = app, json.dumps(body).encode()
+        self.n = n or LOOP_CLIENTS
+        self.errors = []
+
+    def start(self):
+        self._stop = threading.Event()
+        self._done = [0] * self.n
+        self._threads = [threading.Thread(target=self._run, args=(i,))
+                         for i in range(self.n)]
+        self._t0 = time.perf_counter()
+        for t in self._threads:
+            t.start()
+
+    def _run(self, i):
+        while not self._stop.is_set():
+            code, out = self.app.call("/predict", self.body)
+            if code != 200:
+                self.errors.append((code, str(out)[:200]))
+                return
+            self._done[i] += 1
+
+    def stop(self):
+        """(answers, seconds) of the window."""
+        self._stop.set()
+        for t in self._threads:
+            t.join(300)
+        return sum(self._done), time.perf_counter() - self._t0
+
+
+def wait_for(cond, what, timeout=300):
+    """Poll ``cond`` every 5 ms; returns the perf_counter when it held."""
+    t_end = time.perf_counter() + timeout
+    while not cond():
+        check(time.perf_counter() < t_end, f"loop: {what} within "
+              f"{timeout} s")
+        time.sleep(0.005)
+    return time.perf_counter()
+
+
+def _loop(work, app_holder):
+    """(a) The continual loop at full width: a "dot" trainer (batch
+    LOOP_B, the launcher's SGD) runs ``fit_stream`` over an
+    ``ArrayStream`` with a ``DeltaPublisher`` (a publish every LOOP_EVERY
+    steps, a compaction after LOOP_DELTAS deltas, the last of them torn
+    by FF_FAULT_DELTA_TORN=1), followed by an in-process
+    ``InferenceEngine(checkpoint_dir=...)`` and by the serving app as a
+    child process on 127.0.0.1 (``--obs on``), both polling every 50 ms.
+    After each publish the training thread waits until both reach the
+    version (or reject the torn delta with its reason): the engine's
+    scores at 1, 64 and 256 rows must be BITWISE the trainer's
+    ``forward_bucket`` on the same bucket, the app's /predict at 64 rows
+    within rtol 1e-5, atol 1e-6 of it (the line says whether bitwise),
+    while LOOP_CLIENTS client threads post /predict (requests/s with a
+    reload in flight; then a LOOP_RATE_S window without). Every count at
+    0 just before the loop and read just after. Returns the counts."""
+    import os
+    from dlrm_flexflow_tpu_torch.data.stream import ArrayStream
+    from dlrm_flexflow_tpu_torch.utils import faults
+    from dlrm_flexflow_tpu_torch.utils.delta import DeltaPublisher
+    cfg = train_config("dot")
+    ckdir = work / "loop"
+    ckdir.mkdir()
+    # this phase's own memory: its peak over what earlier phases hold
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    torn_step = LOOP_EVERY * (LOOP_DELTAS + 1)
+    app = AppProcess(app_flags(cfg, [
+        "-b", str(LOOP_B), "--seed", str(SEED + 2),
+        "--checkpoint-dir", str(ckdir), "--serve-poll", "0.05",
+        "--serve-max-batch", "256", "--obs", "on"]), work / "loop_app.log")
+    app_holder.append(app)
+
+    def model(seed, batch):
+        m = FFModel(FFConfig(batch_size=batch, seed=seed, device="cuda"))
+        build_dlrm(m, cfg, fuse_interaction=True)
+        m.compile(SGDOptimizer(lr=LR), "mean_squared_error", ["mse"])
+        m.init_layers()
+        return m
+
+    trainer, server = model(SEED, LOOP_B), model(SEED + 1, 256)
+    nbytes = _model_bytes(trainer)
+    free = shutil.disk_usage(work).free
+    check(free >= 4 * nbytes, f"loop: {free / 1e9:.1f} GB free under "
+          f"{work}, the loop keeps up to 3 snapshots of "
+          f"{nbytes / 1e9:.2f} GB")
+    x, y = synthetic_batch(cfg, LOOP_B * LOOP_STEPS, seed=SEED + 20)
+    queries = {n: synthetic_batch(cfg, n, seed=SEED + 30 + n)[0]
+               for n in LOOP_SIZES}
+    q_app = queries[64]
+    pub = DeltaPublisher(trainer, str(ckdir), keep_last=2,
+                         full_every=LOOP_DELTAS)
+    published = []
+    publish = pub.publish
+
+    def timed_publish(loader_state):
+        t0 = time.perf_counter()
+        entry = publish(loader_state)
+        published.append((int(trainer._step), t0, time.perf_counter(),
+                          dict(pub.last_publish)))
+        return entry
+
+    pub.publish = timed_publish
+    engine = InferenceEngine(server, ServeConfig(max_batch=256, poll_s=0.05),
+                             checkpoint_dir=str(ckdir))
+    t_ready = app.wait_ready()
+    clients = Clients(app, {k: v.tolist() for k, v in q_app.items()})
+    rows, rejects, app_exact = [], {}, []
+
+    def app_version():
+        return app.call("/stats")[1]
+
+    def on_step(m, k, mets):
+        if k == torn_step - 1:
+            rejects["engine"] = engine.stats()["reload_rejects"]
+            rejects["app"] = app_version()["reload_rejects"]
+            os.environ["FF_FAULT_DELTA_TORN"] = "1"
+            faults.install(faults.plan_from_env())
+        if k % LOOP_EVERY:
+            return
+        step, t0, t1, split = published[-1]
+        check(step == k, f"loop: published step {step} at step {k}")
+        torn = k == torn_step
+        if torn:
+            plan = faults.active()
+            faults.clear()
+            del os.environ["FF_FAULT_DELTA_TORN"]
+            check(plan.fired and plan.fired[0][0] == "torn_delta",
+                  f"loop: the torn-delta fault did not fire: {plan.fired}")
+        clients.start()
+        if torn:
+            t_eng = wait_for(lambda: engine.stats()["reload_rejects"]
+                             > rejects["engine"], "the engine's reject")
+            t_app = wait_for(lambda: app_version()["reload_rejects"]
+                             > rejects["app"], "the app's reject")
+        else:
+            t_eng = wait_for(lambda: engine.version == k,
+                             f"the engine at version {k}")
+            t_app = wait_for(lambda: app_version()["version"] == k,
+                             f"the app at version {k}")
+        n, dt = clients.stop()
+        rows.append((split["kind"] if not torn else "torn", k, t1 - t0,
+                     t_eng - t0, t_app - t0, n, dt, split))
+        if torn:
+            st, ast = engine.stats(), app_version()
+            for who, s in (("engine", st), ("app", ast)):
+                check("fails its CRC-32" in s["last_reload_reject"]
+                      and s["version"] == k - LOOP_EVERY,
+                      f"loop: the {who} did not reject the torn delta "
+                      f"with its reason: {s['last_reload_reject']!r}, "
+                      f"version {s['version']}")
+            p = engine.predict(queries[1], timeout=120)
+            check(p.version == k - LOOP_EVERY and np.isfinite(
+                p.scores).all(), "loop: the engine stopped serving after "
+                "the torn delta")
+            return
+        for n_rows, q in queries.items():
+            got = engine.predict(q, timeout=120)
+            want = trainer.forward_bucket(q, n_rows).cpu().numpy()
+            check(got.version == k and np.array_equal(got.scores, want),
+                  f"loop: the engine at version {k} is not bitwise the "
+                  f"trainer on {n_rows} rows (largest difference "
+                  f"{float(np.abs(got.scores - want).max()):.3g})")
+        code, out = app.call("/predict", {kk: v.tolist()
+                                          for kk, v in q_app.items()})
+        want = trainer.forward_bucket(q_app, 64).cpu().numpy().reshape(-1)
+        got = np.asarray(out["scores"], np.float32) if code == 200 else None
+        check(code == 200 and out["version"] == k
+              and np.allclose(got, want, rtol=1e-5, atol=1e-6),
+              f"loop: the app at version {k} answered {code} "
+              f"{str(out)[:200]}")
+        app_exact.append(bool(np.array_equal(got, want)))
+
+    zero_counts()
+    with PlainCalls() as plain:
+        with engine:
+            t0 = time.perf_counter()
+            out = trainer.fit_stream(ArrayStream(x, y, LOOP_B, seed=1),
+                                     steps=LOOP_STEPS, publisher=pub,
+                                     publish_every=LOOP_EVERY,
+                                     callbacks=[on_step], verbose=False)
+            wall = time.perf_counter() - t0
+            est = engine.stats()
+    launches = read_counts()
+    check(not clients.errors, f"loop: /predict failed: {clients.errors[:3]}")
+    check(out["steps"] == LOOP_STEPS and len(rows) == LOOP_DELTAS + 2,
+          f"loop: {out['steps']} steps, {len(rows)} publishes")
+    kinds = [r[0] for r in rows]
+    check(kinds == ["full"] + ["delta"] * (LOOP_DELTAS - 1)
+          + ["torn", "full"], f"loop: publishes {kinds}")
+    check(est["delta_reloads"] == LOOP_DELTAS - 1
+          and est["full_reloads"] == 2 and est["reload_rejects"] == 1,
+          f"loop: engine reloads {est}")
+    check(plain.calls == 0 and launches["fused_interaction"] > 0
+          and launches["scatter_add_rows"] == LOOP_STEPS
+          and launches["dense_update"] == LOOP_STEPS,
+          f"loop: launches {launches}, plain calls {plain.calls}")
+
+    # the app at the last version: requests/s with no reload in flight,
+    # /healthz, /metrics, then a clean exit
+    clients.start()
+    time.sleep(LOOP_RATE_S)
+    n_idle, dt_idle = clients.stop()
+    check(not clients.errors, f"loop: /predict failed: {clients.errors[:3]}")
+    ast = app_version()
+    code, hz = app.call("/healthz")
+    mcode, metrics = app.call("/metrics")
+    mem = subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    rc = app.stop()
+    check(ast["version"] == LOOP_STEPS
+          and ast["delta_reloads"] == LOOP_DELTAS - 1
+          and ast["full_reloads"] == 2 and ast["reload_rejects"] == 1,
+          f"loop: the app's reloads {ast}")
+    check(code == 200 and hz["ok"], f"loop: /healthz {code} {hz}")
+    check(mcode == 200 and f'ff_serve_delta_reloads_total{{replica=""}} '
+          f'{LOOP_DELTAS - 1}' in metrics
+          and "ff_watcher_polls_total" in metrics
+          and f'ff_serve_version{{replica=""}} {LOOP_STEPS}' in metrics,
+          f"loop: /metrics {str(metrics)[:300]}")
+    check(rc == 0, f"loop: the app exited {rc}: "
+          f"{Path(app.log).read_text()[-2000:]}")
+
+    def pct(vals):
+        s = sorted(vals)
+        return f"p50 {percentile(s, 50):.3f} s, p99 {percentile(s, 99):.3f} s"
+
+    for kind, k, pub_s, eng_s, app_s, n, dt, split in rows:
+        extra = "" if kind == "torn" else (
+            f"; split: copy to host {split['copy_s']:.3f} s"
+            + (f", diff {split['diff_s']:.3f} s" if "diff_s" in split
+               else "")
+            + f", write {split['write_s']:.3f} s, checksum "
+            f"{split['crc_s']:.3f} s, {split['bytes'] / 1e6:.1f} MB "
+            f"({split['bytes'] / 1e9 / max(split['write_s'], 1e-9):.2f} "
+            f"GB/s written)")
+        print(f"loop: step {k} {kind} publish {pub_s:.3f} s{extra}; "
+              f"publish to served: engine {eng_s:.3f} s, app {app_s:.3f} s; "
+              f"{n} /predict in {dt:.3f} s meanwhile "
+              f"({n / max(dt, 1e-9):.1f} req/s)")
+    for kind in ("delta", "full"):
+        sel = [r for r in rows if r[0] == kind]
+        print(f"loop: freshness ({kind}, {len(sel)} publishes): engine "
+              f"{pct([r[3] for r in sel])}; app {pct([r[4] for r in sel])}; "
+              f"/predict with a {kind} reload in flight "
+              f"{sum(r[5] for r in sel) / sum(r[6] for r in sel):.1f} "
+              f"req/s")
+    print(f"loop: {LOOP_STEPS} steps of {LOOP_B} in {wall:.1f} s "
+          f"({out['throughput']:.1f} samples/s with the publishes and "
+          f"waits); app ready {t_ready:.1f} s after its start; /predict "
+          f"({LOOP_CLIENTS} clients, 64 rows) with no reload "
+          f"{n_idle / dt_idle:.1f} req/s; the app's answers "
+          f"{'bitwise' if all(app_exact) else 'within 1e-5 but not bitwise'}"
+          f" the trainer at {len(app_exact)} versions; the engine's "
+          f"bitwise at {LOOP_SIZES} rows; card memory in use (every "
+          f"process, earlier phases' cache included) {mem}; the trainer's "
+          f"and the engine's peak "
+          f"{(torch.cuda.max_memory_allocated() - held) / 1e9:.2f} GB; engine "
+          f"reloads {est['full_reloads']} full, {est['delta_reloads']} "
+          f"delta, {est['reload_rejects']} reject; launches {launches}")
+    del trainer, server, engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+def loop_phase(work):
+    """See ``_loop``; the app's process is stopped and the torn-delta
+    fault cleared whatever happens."""
+    import os
+    from dlrm_flexflow_tpu_torch.utils import faults
+    apps = []
+    try:
+        return _loop(work, apps)
+    finally:
+        os.environ.pop("FF_FAULT_DELTA_TORN", None)
+        faults.clear()
+        for app in apps:
+            if app.proc.poll() is None:
+                app.proc.kill()
+                app.proc.wait(30)
+
+
+def app_phase(work):
+    """(b) The app's other paths: "cat" at full width with ``--retrieve
+    on`` (1M items, k=100, one index shard), from initialized weights and
+    no checkpoint directory. /predict of two users answers 100 re-ranked
+    candidates each, none degraded; /retrieve at k=10 answers ids among
+    them. The bag (ranker and user head) and the top-k run on the card in
+    the child process: a wrapper given a CUDA tensor launches its kernel
+    or raises, so an answer is the kernels' (their counts live in that
+    process)."""
+    cfg = train_config("cat")
+    app = AppProcess(app_flags(cfg, [
+        "-b", str(ITEM_BATCH), "--seed", str(SEED), "--retrieve", "on",
+        "--retrieve-k", str(K), "--retrieve-deadline-ms", "5000",
+        "--serve-max-batch", "256"]), work / "retrieve_app.log")
+    try:
+        t_ready = app.wait_ready()
+        users = synthetic_batch(cfg, 2, seed=SEED + 40)[0]
+        body = {k: v.tolist() for k, v in users.items()}
+        t0 = time.perf_counter()
+        code, out = app.call("/predict", body)
+        t_pred = time.perf_counter() - t0
+        check(code == 200, f"app: /predict {code} {str(out)[:300]}")
+        cand = np.asarray(out["candidates"])
+        check(cand.shape == (2, K) and not out["degraded"]
+              and np.isfinite(np.asarray(out["scores"])).all()
+              and set(out) == {"candidates", "scores", "version",
+                               "retrieve_versions", "degraded",
+                               "latency_ms", "stage_ms"},
+              f"app: /predict answered {str(out)[:300]}")
+        code, r = app.call("/retrieve", dict(body, k=10))
+        check(code == 200, f"app: /retrieve {code} {str(r)[:300]}")
+        ids = np.asarray(r["ids"])
+        check(ids.shape == (2, 10) and not r["degraded"] and all(
+            set(ids[i]) <= set(cand[i]) for i in range(2)),
+            f"app: /retrieve answered {str(r)[:300]}")
+        code, st = app.call("/stats")
+        check(code == 200 and st["cascade"]["requests"] == 1,
+              f"app: /stats {str(st)[:300]}")
+    finally:
+        rc = app.stop()
+    check(rc == 0, f"app: exited {rc}: {Path(app.log).read_text()[-2000:]}")
+    print(f"app: \"cat\" with --retrieve on (1M items, k={K}) ready "
+          f"{t_ready:.1f} s after its start; /predict of 2 users "
+          f"{t_pred * 1e3:.1f} ms (stages {out['stage_ms']} ms), /retrieve "
+          f"k=10 {r['latency_ms']} ms, ids among the candidates; exit 0")
+
+
+def serving_app_phase():
+    """Phases 9 and 10 in WORK_DIR (removed at the end whatever happens).
+    Returns the loop's launch counts."""
+    shutil.rmtree(WORK_DIR, ignore_errors=True)
+    WORK_DIR.mkdir(parents=True)
+    try:
+        t0 = time.perf_counter()
+        counts = loop_phase(WORK_DIR)
+        app_phase(WORK_DIR)
+        print(f"serving app phases: {time.perf_counter() - t0:.1f} s")
+        return counts
+    finally:
+        shutil.rmtree(WORK_DIR, ignore_errors=True)
+
+
 def train_config(mode, rows=ROWS):
     cfg = DLRMConfig.random_benchmark()
     cfg.embedding_size = [rows] * T
@@ -3144,6 +3630,13 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
 
+    if sys.argv[1:] == ["--serving-app"]:
+        # only phase 9 (its kernels built first, as the child loads them)
+        build.build_all()
+        counts = serving_app_phase()
+        print(json.dumps({"launches": {k: v for k, v in counts.items()
+                                       if v}}))
+        return 0
     if sys.argv[1:] == ["--shapes"]:
         # only the bag and the interaction at their paths' shapes: what
         # the same script times on another tree of the port
@@ -3174,6 +3667,7 @@ def main() -> int:
     sumsq_row, counts = resilience_phase()
     add(counts)
     add(cascade_phase())
+    add(serving_app_phase())
     for run in runs:
         add(train_report(run))
     del runs

@@ -8,7 +8,10 @@ and training slices read, under the same flag spellings
 ``--retrieve-deadline-ms``, ``--retrieve-shards``, and the training
 runtime's ``--checkpoint-dir``, ``--save-every``, ``--keep-last``,
 ``--prefetch-depth``, ``--no-prefetch``, ``--anomaly-policy``,
-``--stage-dataset`` and ``--profile-dir``), plus ``device``. Unknown
+``--stage-dataset`` and ``--profile-dir``; the continual loop's
+``--publish-every``, ``--delta-compact-frac``, ``--delta-full-every``
+and ``--serve-poll``; observability's ``--obs``, ``--obs-trace-dir``
+and ``--obs-drift-threshold``), plus ``device``. Unknown
 flags land in ``unparsed``, as in the JAX package. ``--superstep``, not
 ported yet, raises ``NotImplementedError``, as does
 ``--no-pallas-lstm``: the port's LSTM always runs its scan kernels.
@@ -78,6 +81,28 @@ class FFConfig:
     # loop) lands here as Chrome trace JSON; "" traces nothing. Set with
     # --profile-dir.
     profile_dir: str = ""
+    # ---- continual learning (FFModel.fit_stream + utils/delta.py) -----
+    # optimizer steps between snapshot publishes in fit_stream; 0 = no
+    # periodic publication. Set with --publish-every N.
+    publish_every: int = 0
+    # compaction: when the live delta chain's bytes exceed this fraction
+    # of its base checkpoint's, the next publish is a full checkpoint.
+    # Set with --delta-compact-frac.
+    delta_compact_frac: float = 0.5
+    # a full checkpoint every N delta publishes whatever their size (0:
+    # compaction by size only). Set with --delta-full-every N.
+    delta_full_every: int = 0
+    # ---- observability (obs/) -----------------------------------------
+    # "on": the metrics registry (GET /metrics of the serving app), span
+    # tracing and fit's / fit_stream's drift monitor; "off" keeps every
+    # instrument a no-op. Set with --obs {off,on}.
+    obs: str = "off"
+    # where fit / fit_stream (and the serving app at shutdown) export the
+    # span ring as Chrome-trace JSON; "" keeps it in memory. Set with
+    # --obs-trace-dir DIR.
+    obs_trace_dir: str = ""
+    # the drift monitor's alarm ratio. Set with --obs-drift-threshold R.
+    obs_drift_threshold: float = 1.5
     # ---- online serving (serve/engine.py InferenceEngine) -------------
     serve_max_batch: int = 64
     serve_max_delay_ms: float = 5.0
@@ -89,6 +114,9 @@ class FFConfig:
     serve_cache_warm: str = ""
     serve_batching: str = "continuous"
     serve_replicas: int = 1
+    # the snapshot watcher's poll interval (hot reload of a checkpoint
+    # directory). Set with --serve-poll SECONDS.
+    serve_poll_s: float = 0.5
     # ---- retrieval cascade (retrieve/) --------------------------------
     # candidates out of the retrieve stage per user. --retrieve-k N.
     retrieve_k: int = 100
@@ -216,6 +244,27 @@ class FFConfig:
                 if kw["serve_replicas"] < 1:
                     raise ValueError(f"--serve-replicas expects N >= 1, "
                                      f"got {kw['serve_replicas']}")
+            elif a == "--serve-poll":
+                kw["serve_poll_s"] = float(take())
+            elif a == "--publish-every":
+                kw["publish_every"] = int(take())
+            elif a == "--delta-compact-frac":
+                kw["delta_compact_frac"] = float(take())
+            elif a == "--delta-full-every":
+                kw["delta_full_every"] = int(take())
+            elif a == "--obs":
+                v = take()
+                if v not in ("off", "on"):
+                    raise ValueError(f"--obs expects off|on, got {v!r}")
+                kw["obs"] = v
+            elif a == "--obs-trace-dir":
+                kw["obs_trace_dir"] = take()
+            elif a == "--obs-drift-threshold":
+                kw["obs_drift_threshold"] = float(take())
+                if kw["obs_drift_threshold"] <= 0:
+                    raise ValueError(
+                        f"--obs-drift-threshold expects R > 0, got "
+                        f"{kw['obs_drift_threshold']}")
             elif a == "--retrieve-k":
                 kw["retrieve_k"] = int(take())
                 if kw["retrieve_k"] < 1:

@@ -4,12 +4,14 @@ the training step.
 The counterpart of ``dlrm_flexflow_tpu.core.model.FFModel``, cut to the
 serving and training slices: the op builders the DLRM, two-tower and
 NMT graphs use, ``compile``, ``init_layers``, ``forward_batch`` and the
-bucketed serving entries, ``swap_params``, and training: ``train_batch``,
+bucketed serving entries, the hot-reload hooks ``swap_params`` and
+``apply_delta``, and training: ``train_batch``,
 ``train_batch_device``, ``train_batch_staged``, ``reset_metrics``, ``fit``
 (rolling, resumable checkpoints in the JAX package's format, rollback to
 the last snapshot after a non-finite step, the whole dataset staged on
 the device when it fits, else batches through the prefetch ring) and
-``fit_stream`` (training off a batch source). Op names,
+``fit_stream`` (training off a batch source, publishing delta snapshots
+through ``utils.delta.DeltaPublisher``, resumable). Op names,
 parameter names and parameter layouts follow the JAX graph, so
 ``utils.weights.params_from_jax`` can carry a JAX model's weights
 across by name.
@@ -58,6 +60,7 @@ import torch
 
 from ..config import FFConfig
 from ..data.prefetch import StagedBatch, stage_batch
+from ..obs import trace as obstrace
 from ..ops.kernels.dense_update import grad_sumsq
 from ..utils import faults
 from ..utils.logging import get_logger
@@ -85,6 +88,12 @@ class AnomalyError(RuntimeError):
         self.step = step
         self.loss = loss
         self.grad_norm = grad_norm
+        # the sentinel's fires land in the obs layer (no-op when off)
+        from ..obs import metrics as obsm
+        obsm.counter("ff_anomalies_total",
+                     "non-finite training steps the sentinel caught").inc()
+        obstrace.instant("anomaly", cat="sentinel", step=int(step),
+                         loss=repr(loss), grad_norm=repr(grad_norm))
 
 
 def _tree_bytes(tree) -> int:
@@ -291,11 +300,25 @@ class FFModel:
         self.reset_metrics()
         return self
 
-    def swap_params(self, params: Dict[str, Dict[str, torch.Tensor]]):
-        """Install new parameters, checked first against every op's
-        ParamDefs (names, shapes, dtypes); a mismatch raises before
-        anything is replaced. The serving engine's batcher thread is the
-        only caller during serving, between dispatches."""
+    def swap_params(self, params: Optional[Dict[str, Dict[str, torch.Tensor]]]
+                    = None, host_params=None, op_state=None):
+        """Install new parameters (the hot-reload hook, with the JAX
+        signature), checked first against every op's ParamDefs (names,
+        shapes, dtypes, device); a mismatch raises before anything is
+        replaced. The serving engine's batcher thread is the only caller
+        during serving, between dispatches. The port has no host-resident
+        tables (``host_params``: ROADMAP queue 1 item 2.4) and no op
+        state (a non-empty ``op_state``: item 11)."""
+        if host_params is not None:
+            raise NotImplementedError(
+                "swap_params(host_params=...): host-resident tables are "
+                "not ported yet (ROADMAP queue 1 item 2.4)")
+        if op_state and any(op_state.values()):
+            raise NotImplementedError(
+                "swap_params(op_state=...): op state is not ported yet "
+                "(ROADMAP queue 1 item 11)")
+        if params is None:
+            return
         want = {op.name: op.param_defs() for op in self.ops
                 if not isinstance(op, InputOp) and op.param_defs()}
         if set(params) != set(want):
@@ -315,6 +338,99 @@ class FFModel:
                         f"{v.dtype} on {v.device}, expected "
                         f"{tuple(d.shape)} {d.dtype} on {self.device}")
         self.params = params
+
+    def apply_delta(self, delta: Dict[str, Any]):
+        """Install a delta snapshot in place (the continual loop's hot
+        path; see ``utils/delta.py``), as the JAX ``apply_delta``.
+
+        ``delta`` is a ``load_delta_file`` payload: ``rows[key] = (idx,
+        vals)`` replaces rows of a parameter in the JAX stored layout
+        flattened to 2-D, ``full[key]`` replaces whole arrays, ``step``
+        becomes the model's step. A payload from ``stage_delta_rows``
+        also carries the rows already on the device in the port's layout
+        (``"staged"``) and the staging stream's event (``"ready"``),
+        which the current stream waits on before the first write.
+
+        Everything is validated BEFORE anything is installed: an unknown
+        key, a row index out of range or a width mismatch raises with
+        the key named and the model untouched. The rows are then written
+        with ``index_copy_`` on the (rows, width) view of the tensor, IN
+        PLACE: the serving engine calls this only on its batcher thread
+        between dispatches, where no queued kernel of another thread
+        reads the tensor."""
+        from ..utils.weights import (jax_param_shapes, param_from_jax,
+                                     rows_from_jax)
+        step = int(delta["step"])
+        rows = delta.get("rows") or {}
+        full = delta.get("full") or {}
+        staged = delta.get("staged") or {}
+        shapes = jax_param_shapes(self)
+        ops = {op.name: op for op in self.ops}
+
+        def leaf(key, what):
+            parts = key.split("/")
+            if parts[0] != "params":
+                raise ValueError(
+                    f"delta {what} targets unsupported section {key!r} "
+                    f"(the port has no op state or host tables)")
+            if (len(parts) != 3 or parts[1] not in shapes
+                    or parts[2] not in shapes[parts[1]]):
+                raise ValueError(
+                    f"delta {what} {key!r} does not exist in this model "
+                    f"(differently-built model?)")
+            return parts[1], parts[2], shapes[parts[1]][parts[2]]
+
+        # ---- validate first, install second ----------------------------
+        plan = []
+        for key, (idx, vals) in rows.items():
+            opname, pn, shape = leaf(key, "row update")
+            vals = np.asarray(vals)
+            if len(shape) < 2 or vals.shape[-1:] != shape[-1:]:
+                raise ValueError(
+                    f"delta rows for {key!r} have width "
+                    f"{vals.shape[-1:]} but the stored array is {shape}")
+            nrows = int(np.prod(shape[:-1]))
+            idx_np = np.asarray(idx)
+            if idx_np.size and (int(idx_np.max()) >= nrows
+                                or int(idx_np.min()) < 0):
+                raise ValueError(
+                    f"delta rows for {key!r} index up to "
+                    f"{int(idx_np.max())} but the stored array has only "
+                    f"{nrows} rows")
+            plan.append((key, opname, pn, idx_np, vals))
+        fulls = []
+        for key, v in full.items():
+            opname, pn, shape = leaf(key, "full update")
+            fulls.append((opname, pn,
+                          param_from_jax(self, ops[opname], pn, v)))
+        # ---- install ---------------------------------------------------
+        ready = delta.get("ready")
+        if ready is not None:
+            torch.cuda.current_stream(self.device).wait_event(ready)
+        with torch.no_grad():
+            for key, opname, pn, idx_np, vals in plan:
+                cur = self.params[opname][pn]
+                if key in staged:
+                    i, v = staged[key]
+                    if ready is not None:
+                        # made on the staging stream, read on this one
+                        i.record_stream(torch.cuda.current_stream(
+                            self.device))
+                        v.record_stream(torch.cuda.current_stream(
+                            self.device))
+                else:
+                    pidx, pvals = rows_from_jax(ops[opname], pn, idx_np,
+                                                vals)
+                    i = torch.from_numpy(pidx).to(self.device)
+                    v = torch.from_numpy(np.ascontiguousarray(pvals))
+                    v = v.to(self.device)
+                cur.view(-1, cur.shape[-1]).index_copy_(
+                    0, i, v.to(cur.dtype))
+            for opname, pn, t in fulls:
+                self.params[opname][pn] = t
+        self._step = step
+        self._msums = None
+        return self
 
     # ------------------------------------------------------------------
     # forward
@@ -504,6 +620,10 @@ class FFModel:
         that "raise" and "rollback" read the flag back at the end and
         raise ``AnomalyError`` for a non-finite step (whose update the
         kernels suppressed)."""
+        with obstrace.span("train/step", step=self._step):
+            return self._train_step(device_batch)
+
+    def _train_step(self, device_batch: Dict[str, torch.Tensor]):
         if self._preds_tensor is None or self.params is None:
             raise ValueError("call compile() and init_layers() (or "
                              "swap_params()) first")
@@ -701,11 +821,14 @@ class FFModel:
         on from its position, at most ``config.max_rollbacks`` times;
         then the ``AnomalyError`` is raised. With
         ``config.profile_dir`` the loop runs under a ``torch.profiler``
-        trace written there. Returns {"elapsed", "throughput",
-        "num_samples", "rollbacks", "metrics"}. The fused supersteps are
+        trace written there. With ``--obs on`` a drift monitor watches
+        each step's wall time (``"drift"`` in the result) and the span
+        ring is exported to ``--obs-trace-dir``. Returns {"elapsed",
+        "throughput", "num_samples", "rollbacks", "metrics"}. The fused supersteps are
         not ported yet (ROADMAP queue 1 item 6); the config refuses
         them."""
         from ..data.prefetch import PrefetchPipeline
+        from ..obs import configure as obs_configure
         from ..utils.checkpoint import CheckpointManager
         from ..utils.profiling import TraceContext
         epochs = epochs or self.config.epochs
@@ -795,6 +918,12 @@ class FFModel:
                     lambda i: self._stage_step(host_batch(sched[i][1])),
                     depth=depth, num_items=len(sched), name="fit")
 
+        drift = None
+        if obs_configure(self.config):
+            # --obs on: the drift monitor watches each step's wall time
+            from ..obs.drift import DriftMonitor
+            drift = DriftMonitor.from_model(self, name="fit")
+            drift.audit_collectives()
         sched = schedule(start_epoch, start_batch)
         build_pipe(sched)
         mets = None
@@ -817,6 +946,7 @@ class FFModel:
                         step, arg = self.train_batch_staged, pipe.get()
                     else:
                         step, arg = self.train_batch, host_batch(b)
+                    t_step = time.perf_counter()
                     try:
                         mets = step(arg)
                     except AnomalyError as exc:
@@ -853,6 +983,8 @@ class FFModel:
                         sched, i = schedule(epoch + 1, 0), 0
                         build_pipe(sched)
                         continue
+                    if drift is not None:
+                        drift.observe_step(time.perf_counter() - t_step)
                     num_samples += rem if b == "rem" else bs
                     # position = the next (epoch, batch) to train
                     nxt = ((epoch + 1, 0) if b == "rem"
@@ -891,15 +1023,20 @@ class FFModel:
         if verbose:
             print(f"ELAPSED TIME = {elapsed:.4f}s, "
                   f"THROUGHPUT = {throughput:.2f} samples/s")
-        return {"elapsed": elapsed, "throughput": throughput,
-                "num_samples": num_samples, "rollbacks": rollbacks,
-                "metrics": self.perf.report()}
+        out = {"elapsed": elapsed, "throughput": throughput,
+               "num_samples": num_samples, "rollbacks": rollbacks,
+               "metrics": self.perf.report()}
+        if drift is not None:
+            out["drift"] = drift.report()
+            obstrace.export_to_dir()   # no-op without --obs-trace-dir
+        return out
 
     def fit_stream(self, source, steps: Optional[int] = None,
                    publisher=None, publish_every: Optional[int] = None,
                    verbose: bool = True, callbacks=None,
                    resume: bool = False):
-        """Train off a streaming source, as the JAX ``fit_stream``.
+        """Train off a streaming source, publishing snapshots for the
+        serving fleet, as the JAX ``fit_stream``.
 
         ``source(i)`` returns the i-th host batch, a feature dict with its
         ``"label"`` (``data.stream.ArrayStream`` wraps in-memory arrays,
@@ -907,42 +1044,73 @@ class FFModel:
         deterministic callable works). ``None``, ``StopIteration`` or
         ``IndexError`` ends the stream; ``steps`` bounds it (None: until
         the source ends). Batches ride the prefetch ring, as ``fit``'s do
-        (at least one batch ahead). After each step every callback gets
+        (at least one batch ahead), and each is shown to the publisher's
+        ``TouchedRowTracker`` before it is staged. Every ``publish_every``
+        steps (default ``--publish-every``) the publisher
+        (``utils.delta.DeltaPublisher``) writes a delta or, when the
+        chain compacts, a full checkpoint, inline on the training thread
+        (the copy must see a quiesced step), with the stream position as
+        ``loader_state["stream_step"]``; a partial last interval is
+        published at the end. After each step every callback gets
         ``(model, steps trained, the step's metrics)``.
 
+        ``resume=True`` restores the newest valid full checkpoint of the
+        publisher's directory and continues the stream at its
+        ``stream_step``; the publisher starts a fresh chain on a new full
+        base (a dead trainer's chain cannot be extended). With ``--obs
+        on`` a drift monitor watches each step's wall time and the trace
+        ring is exported to ``--obs-trace-dir`` at the end.
+
         The anomaly policy "rollback" is refused (a stream has no epoch
-        to rewind); "skip_step" and "raise" work as in any step. The
-        delta publisher (``publisher``, ``publish_every``) and ``resume``
-        wait for ``utils/delta.py`` (ROADMAP queue 1 item 9.5) and raise.
-        Returns {"steps", "elapsed", "throughput", "publishes",
-        "publisher"}."""
+        to rewind); "skip_step" and "raise" work as in any step. Returns
+        {"steps", "elapsed", "throughput", "publishes", "publisher"} and,
+        with obs on, "drift"."""
         from ..data.prefetch import PrefetchPipeline
+        from ..obs import configure as obs_configure
         if self.config.anomaly_policy == "rollback":
             raise ValueError(
                 'anomaly_policy="rollback" is not supported by '
                 "fit_stream (no epoch position to re-wind); use "
                 '"skip_step" or "raise"')
-        if publisher is not None or resume:
-            raise NotImplementedError(
-                "fit_stream(publisher=..., resume=True): the delta "
-                "publisher (DeltaPublisher, utils/delta.py) is not ported "
-                "yet (ROADMAP queue 1 item 9.5)")
+        if publish_every is None:
+            publish_every = int(self.config.publish_every)
+        if publisher is not None and publish_every < 1:
+            raise ValueError(
+                "fit_stream(publisher=...) needs publish_every >= 1 "
+                "(--publish-every N)")
         if self.params is None:
             self.init_layers()
+        start = 0
+        if resume and publisher is not None:
+            entry = publisher.mgr.restore_latest(self)
+            if entry is not None:
+                start = int((entry.get("loader_state") or {})
+                            .get("stream_step", 0))
+                if verbose:
+                    print(f"resumed stream from checkpoint step "
+                          f"{entry['step']} (stream position {start})")
 
         def produce(i):
             try:
-                batch = source(i)
+                batch = source(start + i)
             except (StopIteration, IndexError):
                 raise IndexError("stream exhausted") from None
             if batch is None:
                 raise IndexError("stream exhausted")
+            if publisher is not None:
+                publisher.observe_batch(batch)
             return self._stage_step(batch)
 
+        drift = None
+        if obs_configure(self.config):
+            from ..obs.drift import DriftMonitor
+            drift = DriftMonitor.from_model(self, name="fit_stream")
+            drift.audit_collectives()
         depth = max(int(self.config.prefetch_depth or 0), 1)
         pipe = PrefetchPipeline(produce, depth=depth, num_items=steps,
                                 name="fit_stream")
         trained = 0
+        publishes = 0
         mets = None
         t0 = time.perf_counter()
         try:
@@ -951,8 +1119,14 @@ class FFModel:
                     staged = pipe.get()
                 except IndexError:
                     break
+                t_step = time.perf_counter()
                 mets = self.train_batch_staged(staged)
+                if drift is not None:
+                    drift.observe_step(time.perf_counter() - t_step)
                 trained += 1
+                if publisher is not None and trained % publish_every == 0:
+                    publisher.publish({"stream_step": start + trained})
+                    publishes += 1
                 if callbacks:
                     for cb in callbacks:
                         cb(self, trained, mets)
@@ -960,12 +1134,22 @@ class FFModel:
                 float(mets["loss"])   # waits for the last step
         finally:
             pipe.close()
+        if publisher is not None and trained % publish_every:
+            # the partial last interval: the fleet must not miss the tail
+            publisher.publish({"stream_step": start + trained})
+            publishes += 1
         elapsed = time.perf_counter() - t0
         bs = int(self.config.batch_size)
         rate = trained * bs / max(elapsed, 1e-9)
         if verbose and mets is not None:
             print(f"fit_stream: {trained} steps, "
                   f"loss={float(mets['loss']):.6f}, {rate:.2f} samples/s, "
-                  f"0 publish(es)")
-        return {"steps": trained, "elapsed": elapsed, "throughput": rate,
-                "publishes": 0, "publisher": None}
+                  f"{publishes} publish(es)")
+        out = {"steps": trained, "elapsed": elapsed, "throughput": rate,
+               "publishes": publishes,
+               "publisher": (publisher.stats()
+                             if publisher is not None else None)}
+        if drift is not None:
+            out["drift"] = drift.report()
+            obstrace.export_to_dir()   # no-op without --obs-trace-dir
+        return out

@@ -9,8 +9,10 @@ device trains batch N. ``FFConfig.prefetch_depth`` sets K (0 stages in
 the consumer's thread); ``state()``/``reset()``/``set_state()`` drain the
 ring first, so prefetching never changes the delivered sequence.
 
-The JAX package's HDF5 (``load_dlrm_hdf5``) and image loaders are not
-ported yet (ROADMAP queue 1 item 6).
+Image datasets (``write_img_ffbin``, ``ImgDataLoader4D``,
+``ImgDataLoader2D``) ride the same ``.ffbin`` reader and ring, or load
+``.npz`` / ``.npy`` into memory; ``load_dlrm_hdf5`` reads a Criteo HDF5
+file. All return the JAX loaders' arrays.
 """
 
 from __future__ import annotations
@@ -436,3 +438,137 @@ class FFBinDataLoader(_PrefetchMixin):
     def __iter__(self) -> Iterator[Dict]:
         for _ in range(self.num_batches):
             yield self.next_batch()
+
+
+def write_img_ffbin(path: str, images: np.ndarray,
+                    labels: np.ndarray) -> None:
+    """Store an image dataset in the .ffbin format: images flattened
+    into the dense block (sparse width 0), labels into the label block,
+    so the same reader and ring serve images and DLRM alike."""
+    n = len(labels)
+    imgs = np.ascontiguousarray(images, dtype=np.float32).reshape(n, -1)
+    write_ffbin(path, imgs, np.empty((n, 0), np.int32), labels)
+
+
+class ImgDataLoader4D(_PrefetchMixin):
+    """On-disk image loader feeding 4-D (N, C, H, W) inputs.
+
+    Sources by extension:
+      - ``.ffbin`` — the native reader and the prefetch ring staging
+        reshaped batches to the device (write with ``write_img_ffbin``);
+        ``image_shape`` restores (C, H, W);
+      - ``.npz`` — arrays ``images`` (N, C, H, W) and ``labels``;
+      - ``.npy`` — the images; labels from ``<stem>_labels.npy``.
+
+    ``next_batch()`` returns a staged dict {input_name: (b, C, H, W),
+    "label": (b, 1)} for ``train_batch_device``; ``next_host_batch()``
+    the same as host arrays (labels int32)."""
+
+    rank = 4
+
+    def __init__(self, model, path: str, image_shape=None,
+                 input_name: str = "image", batch_size: Optional[int] = None,
+                 shuffle: bool = False, seed: int = 0,
+                 prefetch: bool = True, depth: Optional[int] = None):
+        self.model = model
+        self.input_name = input_name
+        self.batch_size = batch_size or model.config.batch_size
+        self._init_prefetch(model, prefetch, depth)
+        self._native = None
+        if path.endswith(".ffbin"):
+            if self.rank == 4 and image_shape is None:
+                raise ValueError(
+                    ".ffbin stores images flattened; pass "
+                    "image_shape=(C, H, W)")
+            # the inner reader stays synchronous; THIS loader's ring
+            # stages the reshaped batches
+            self._native = FFBinDataLoader(model, path,
+                                           batch_size=self.batch_size,
+                                           shuffle=shuffle, seed=seed,
+                                           sparse_shape=(0, 1),
+                                           prefetch=False)
+            flat = self._native.dense_dim
+            if self.rank == 4:
+                if int(np.prod(image_shape)) != flat:
+                    raise ValueError(f"image_shape {image_shape} != stored "
+                                     f"width {flat}")
+                self.image_shape = tuple(image_shape)
+            else:
+                self.image_shape = (flat,)
+            self.num_samples = self._native.num_samples
+            self.num_batches = self._native.num_batches
+            return
+        if path.endswith(".npz"):
+            with np.load(path) as d:
+                images, labels = d["images"], d["labels"]
+        elif path.endswith(".npy"):
+            images = np.load(path)
+            labels = np.load(path[:-len(".npy")] + "_labels.npy")
+        else:
+            raise ValueError(f"unsupported image dataset {path!r} "
+                             f"(.ffbin/.npz/.npy)")
+        images = np.asarray(images, np.float32)
+        if self.rank == 2:
+            images = images.reshape(len(images), -1)
+        self.image_shape = images.shape[1:]
+        self._fallback = SingleDataLoader(
+            model, {input_name: images},
+            np.asarray(labels, np.int32).reshape(len(labels), -1),
+            batch_size=self.batch_size, shuffle=shuffle, seed=seed,
+            prefetch=prefetch, depth=depth)
+        self.num_samples = self._fallback.num_samples
+        self.num_batches = self._fallback.num_batches
+
+    def _read_host_batch(self) -> Dict[str, np.ndarray]:
+        raw = self._native._read_host_batch()
+        imgs = raw["dense"].reshape((self.batch_size,) + self.image_shape)
+        return {self.input_name: imgs,
+                "label": raw["label"].astype(np.int32)}
+
+    def next_host_batch(self) -> Dict[str, np.ndarray]:
+        if self._native is None:
+            return self._fallback.next_host_batch()
+        return _PrefetchMixin.next_host_batch(self)
+
+    def next_batch(self) -> Dict:
+        if self._native is None:
+            return self._fallback.next_batch()
+        return _PrefetchMixin.next_batch(self)
+
+    def close(self):
+        self._close_pipe()
+        if self._native is not None:
+            self._native.close()
+        else:
+            self._fallback.close()
+
+    def __iter__(self) -> Iterator[Dict]:
+        for _ in range(self.num_batches):
+            yield self.next_batch()
+
+
+class ImgDataLoader2D(ImgDataLoader4D):
+    """Flattened (N, D) variant."""
+
+    rank = 2
+
+
+def load_dlrm_hdf5(path: str):
+    """Criteo DLRM HDF5 (datasets ``X_int`` dense, ``X_cat`` sparse ids,
+    ``y`` labels, as examples/native/preprocess_hdf.py writes them) ->
+    ({"dense": (n, 13) fp32, "sparse": (n, T, 1) int32}, (n, 1) fp32
+    labels). Needs ``h5py``; without it, raises ImportError."""
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError(
+            f"reading {path!r} needs h5py, which is not installed; convert "
+            f"the dataset to .ffbin with data.dataloader.write_ffbin on a "
+            f"machine that has h5py") from e
+    with h5py.File(path, "r") as f:
+        x_int = np.asarray(f["X_int"], dtype=np.float32)
+        x_cat = np.asarray(f["X_cat"], dtype=np.int32)
+        y = np.asarray(f["y"], dtype=np.float32).reshape(-1, 1)
+    if x_cat.ndim == 2:
+        x_cat = x_cat[:, :, None]  # (n, T) -> (n, T, bag=1)
+    return {"dense": x_int, "sparse": x_cat}, y

@@ -28,8 +28,9 @@ and ``record_stream``-s each tensor to it, so the caching allocator does
 not hand a staged buffer to the next copy while a step still reads it.
 Neither takes a host synchronisation.
 
-The JAX module's observability metrics and trace spans wait for ROADMAP
-queue 1 item 9.5; ``stats()`` reports the same staging accounting.
+With ``--obs on`` each staging call is a ``prefetch/produce`` span on
+the staging thread's lane, and the ring's ``stats()`` are scraped as the
+JAX ring's ``ff_prefetch_*`` series.
 """
 
 from __future__ import annotations
@@ -43,6 +44,8 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from ..obs import metrics as obsm
+from ..obs import trace as obstrace
 from ..utils.watchdog import StallReport, WorkerStalled
 
 # every staging thread in the process is distinguishable in a stack dump
@@ -158,10 +161,21 @@ class PrefetchPipeline:
         self._produce_s = 0.0
         self._wait_s = 0.0
         self.name = name
+        obsm.register_collector(self._obs_collect)
         self._thread = threading.Thread(
             target=self._run, daemon=True,
             name=f"ff-prefetch-{next(_PIPE_SEQ)}")
         self._thread.start()
+
+    def _obs_collect(self):
+        """Registry collector: the ring's ``stats()`` as samples."""
+        s = self.stats()
+        lab = {"pipeline": self.name}
+        yield "ff_prefetch_items_total", lab, s["items"]
+        yield "ff_prefetch_produce_seconds_total", lab, s["produce_s"]
+        yield "ff_prefetch_wait_seconds_total", lab, s["wait_s"]
+        yield "ff_prefetch_overlap_fraction", lab, s["overlap_fraction"]
+        yield "ff_prefetch_ring_depth", lab, len(self._buf)
 
     # --- producer side -------------------------------------------------
     def _run(self):
@@ -178,10 +192,12 @@ class PrefetchPipeline:
             t0 = time.perf_counter()
             try:
                 faults.maybe_stall("prefetch")   # a wedged stager
-                item = read_with_retries(lambda: self._produce(i),
-                                         self._io_site,
-                                         retries=self._io_retries,
-                                         backoff_s=self._io_backoff_s)
+                with obstrace.span("prefetch/produce", pipeline=self.name,
+                                   item=i):
+                    item = read_with_retries(lambda: self._produce(i),
+                                             self._io_site,
+                                             retries=self._io_retries,
+                                             backoff_s=self._io_backoff_s)
             except BaseException as e:   # raised to the consumer at get()
                 with self._cond:
                     self._exc = e
@@ -240,6 +256,7 @@ class PrefetchPipeline:
         Never raises: pending staging errors die with the pipeline. The
         join is bounded: a wedged staging thread is abandoned (it is a
         daemon) rather than waited on forever."""
+        obsm.unregister_collector(self._obs_collect)
         with self._cond:
             self._stopped = True
             self._buf.clear()

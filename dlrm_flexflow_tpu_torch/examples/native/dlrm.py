@@ -11,21 +11,26 @@ root of a checkout::
 Data: ``--data-path file.ffbin`` (``data.dataloader.write_ffbin``'s
 format, read by the native loader and staged to the card by the prefetch
 ring, ``--prefetch-depth N`` / ``--no-prefetch``), ``file.npz`` (arrays
-``dense``, ``sparse``, ``label``), or, without it, one synthetic batch
+``dense``, ``sparse``, ``label``), a Criteo ``file.h5`` / ``.hdf5``
+(``load_dlrm_hdf5``; needs h5py, which raises ImportError where it is
+missing), or, without it, one synthetic batch
 staged once and trained 64 times per epoch. The graph is "cat" unless
 ``--arch-interaction-op`` says otherwise, trained with
 ``SGDOptimizer(lr=--lr)`` and the mean squared error.
 ``--anomaly-policy`` guards each step (a non-finite step is skipped, or
 raises ``AnomalyError``); ``--profile-dir DIR`` writes a
 ``torch.profiler`` trace of the timed loop into DIR; ``--stage-dataset``
-is parsed for ``fit``, which this loop does not call.
+is parsed for ``fit``, which this loop does not call, as are the
+continual loop's ``--publish-every``, ``--delta-compact-frac``,
+``--delta-full-every`` and ``--serve-poll`` (``fit_stream``, the serving
+app) and ``--obs*`` (``fit``, ``fit_stream``), as in the JAX launcher.
 
 What the port does not have yet raises, naming its ROADMAP item, rather
 than being ignored: the strategy search and its files (item 8), a
 multi-host or multi-device launch (item 7), the unfused "dot"
-interaction (item 4, raised by ``build_dlrm``), HDF5 input, supersteps,
-the per-op profile and ``--debug-nans`` (item 6), and the other JAX
-runtime flags below.
+interaction (item 4, raised by ``build_dlrm``), supersteps, the per-op
+profile and ``--debug-nans`` (item 6), and the other JAX runtime flags
+below.
 """
 
 from __future__ import annotations
@@ -39,7 +44,8 @@ import numpy as np
 from ...config import FFConfig
 from ...core.model import FFModel
 from ...core.optimizers import SGDOptimizer
-from ...data.dataloader import FFBinDataLoader, SingleDataLoader
+from ...data.dataloader import (FFBinDataLoader, SingleDataLoader,
+                                load_dlrm_hdf5)
 from ...models.dlrm import DLRMConfig, build_dlrm, synthetic_batch
 from ...utils.logging import get_logger
 from ...utils.profiling import TraceContext
@@ -64,16 +70,15 @@ _UNPORTED = {
     **dict.fromkeys(("--emb-dtype", "--emb-update-rule"),
                     "5 (quantization in training)"),
     **dict.fromkeys(("--no-nhwc", "--conv-s2d"), "11 (the zoo)"),
-    **dict.fromkeys(("--publish-every", "--delta-compact-frac",
-                     "--delta-full-every", "--compile-cache-dir",
-                     "--eval-exec-cache", "--obs", "--obs-trace-dir",
-                     "--obs-drift-threshold", "--serve-poll",
-                     "--serve-retries", "--serve-hedge-ms",
+    **dict.fromkeys(("--compile-cache-dir", "--eval-exec-cache"),
+                    "9.5 (the warm executable caches)"),
+    **dict.fromkeys(("--serve-retries", "--serve-hedge-ms",
                      "--serve-canary-fraction", "--serve-slo-ms",
-                     "--serve-min-replicas", "--serve-max-replicas",
-                     "--serve-shards", "--serve-lookup-deadline-ms",
+                     "--serve-min-replicas", "--serve-max-replicas"),
+                    "9.4 (the serving fleet)"),
+    **dict.fromkeys(("--serve-shards", "--serve-lookup-deadline-ms",
                      "--serve-degrade", "--serve-transport",
-                     "--serve-shard-procs"), "9 (serving)"),
+                     "--serve-shard-procs"), "9.3 (the shard tier)"),
     "--retrieve": "10 (retrieval)",
 }
 
@@ -123,10 +128,6 @@ def main(argv=None):
     data_path = None
     if "--data-path" in rest:
         data_path = rest[rest.index("--data-path") + 1]
-    if data_path and data_path.endswith((".h5", ".hdf5")):
-        raise NotImplementedError(
-            "HDF5 input (load_dlrm_hdf5) is not ported yet (ROADMAP queue "
-            "1 item 6); convert it to .ffbin with write_ffbin")
     log_app.info("device=%s batch=%d tables=%d zipf_alpha=%g", cfg.device,
                  cfg.batch_size, len(dcfg.embedding_size), dcfg.zipf_alpha)
 
@@ -141,6 +142,12 @@ def main(argv=None):
         loader = FFBinDataLoader(
             model, data_path,
             sparse_shape=(len(dcfg.embedding_size), dcfg.embedding_bag_size))
+        num_batches = loader.num_batches
+        next_batch = loader.next_batch
+    elif data_path and data_path.endswith((".h5", ".hdf5")):
+        x, y = load_dlrm_hdf5(data_path)
+        _check_sparse_bounds(x["sparse"], dcfg)
+        loader = SingleDataLoader(model, x, y)
         num_batches = loader.num_batches
         next_batch = loader.next_batch
     elif data_path:

@@ -1,0 +1,419 @@
+"""DLRM online serving app over the port, the counterpart of
+``examples/native/serve_dlrm.py``'s single-engine path: dynamic-batched
+JSON inference over HTTP, on one card (or, with ``--device cpu``, on the
+CPU). Run it as a module from the root of a checkout::
+
+    # terminal 1: train, publishing snapshots (fit_stream with a
+    # utils.delta.DeltaPublisher into /tmp/dlrm-ckpt, or fit with
+    # --checkpoint-dir /tmp/dlrm-ckpt --save-every N)
+    # terminal 2: serve them, hot-reloading as they land
+    python -m dlrm_flexflow_tpu_torch.examples.native.serve_dlrm \\
+        --checkpoint-dir /tmp/dlrm-ckpt --serve-max-batch 64 --port 8000
+
+    curl -s localhost:8000/healthz
+    curl -s -X POST localhost:8000/predict -d \\
+        '{"dense": [[0.1, 0.2, 0.3, 0.4]], "sparse": [[[1],[2],[3],[4]]]}'
+
+The app builds the trainer's graph from the same flags (so the
+fingerprints match), restores the newest valid snapshot of
+``--checkpoint-dir`` params-only through the snapshot watcher, then
+serves it with ``serve.InferenceEngine`` while the engine's watcher
+hot-reloads every later full or delta snapshot (``--serve-poll``).
+Without ``--checkpoint-dir`` it serves the initialized weights.
+``--retrieve on`` puts the retrieve -> rank cascade in front of the
+ranker: two-tower user and item heads sized to the DLRM's inputs, the
+item catalog encoded into an int8 MIPS index over ``--retrieve-shards``
+standalone index shards (at least one), ``--retrieve-k`` candidates
+under ``--retrieve-deadline-ms``. ``--host`` (default 0.0.0.0) and
+``--port`` (default 8000; 0 picks a free one) say where to listen; the
+app prints ``serving DLRM on http://HOST:PORT`` once it accepts requests,
+and SIGTERM or SIGINT stop it cleanly.
+
+Endpoints (the JAX app's, with its status codes and JSON keys):
+  POST /predict  {"dense": [...], "sparse": [...]} ->
+                 {"scores": [...], "version": N, "latency_ms": ...};
+                 429 on Overloaded, 504 on DeadlineExceeded, 400 on a
+                 malformed request (--retrieve on: the request describes
+                 users; the response holds "candidates", "scores",
+                 "version", "retrieve_versions", "degraded",
+                 "latency_ms", "stage_ms")
+  POST /retrieve {"dense": [...], "sparse": [...][, "k": N]} ->
+                 {"ids", "scores", "versions", "degraded",
+                 "dropped_slots", "latency_ms"} (--retrieve on only;
+                 404 otherwise)
+  GET  /stats    the engine's stats() (and the cascade's)
+  GET  /healthz  200 {"ok": true, ...} while the engine takes requests,
+                 503 {"ok": false, ...} when its queue is full, it is
+                 draining or its batcher died
+  GET  /metrics  Prometheus text of the obs registry (``--obs on``;
+                 with obs off, a comment saying so)
+
+Scores go out as ``tolist()`` of the float32 array: every float32 value
+survives the float64 JSON round trip exactly.
+
+The JAX app's other deployments raise ``NotImplementedError`` naming
+their ROADMAP queue 1 item: the fleet (``--serve-replicas`` > 1, the
+autoscaler's ``--serve-slo-ms`` / ``--serve-min-replicas`` /
+``--serve-max-replicas``, ``--serve-retries``, ``--serve-hedge-ms``,
+``--serve-canary-fraction``: 9.4), the shard tier (``--serve-shards``,
+``--serve-shard-procs``, ``--serve-transport tcp``, ``--serve-degrade``,
+``--serve-lookup-deadline-ms``: 9.3), the row cache
+(``--serve-cache-rows``, ``--serve-cache-warm``: 9.2, after 2.4) and the
+warm executable caches (``--compile-cache-dir``, ``--eval-exec-cache``:
+9.5).
+"""
+
+from __future__ import annotations
+
+import json
+import signal
+import sys
+import threading
+
+import numpy as np
+import torch
+
+from ...config import FFConfig
+from ...core.model import FFModel
+from ...core.optimizers import SGDOptimizer
+from ...models.dlrm import DLRMConfig, build_dlrm
+from ...serve import (DeadlineExceeded, InferenceEngine, Overloaded,
+                      SnapshotWatcher)
+from ...utils.logging import get_logger
+
+log_app = get_logger("serve_dlrm")
+
+# flags of the JAX app that the port does not serve yet, by the ROADMAP
+# queue 1 item that ports what they drive
+_UNPORTED = {
+    **dict.fromkeys(("--serve-slo-ms", "--serve-min-replicas",
+                     "--serve-max-replicas", "--serve-retries",
+                     "--serve-hedge-ms", "--serve-canary-fraction"),
+                    "9.4 (the serving fleet)"),
+    **dict.fromkeys(("--serve-shards", "--serve-shard-procs",
+                     "--serve-degrade", "--serve-lookup-deadline-ms"),
+                    "9.3 (the shard tier)"),
+    **dict.fromkeys(("--compile-cache-dir", "--eval-exec-cache"),
+                    "9.5 (the warm executable caches)"),
+}
+
+
+def _flag(rest, name, default=None):
+    return rest[rest.index(name) + 1] if name in rest else default
+
+
+def _refuse_unported(rest):
+    for a in rest:
+        if a in _UNPORTED:
+            raise NotImplementedError(
+                f"{a} is not ported yet (ROADMAP queue 1 item "
+                f"{_UNPORTED[a]})")
+    transport = _flag(rest, "--serve-transport", "inproc")
+    if transport != "inproc":
+        raise NotImplementedError(
+            f"--serve-transport {transport}: the wire transport and "
+            f"shard processes are not ported yet (ROADMAP queue 1 item "
+            f"9.3)")
+
+
+def build_server_model(cfg, dcfg):
+    """The trainer's graph (fingerprints must match for hot reload),
+    compiled as the training launcher compiles it, initialized from
+    ``--seed``. ``--arch-interaction-op dot`` builds the fused "dot"
+    graph (``build_dlrm(fuse_interaction=True)``), the port's only "dot"
+    graph: the JAX app builds the unfused one, which waits for ROADMAP
+    queue 1 item 4, and whose snapshots the watcher would refuse by their
+    fingerprint."""
+    model = FFModel(cfg)
+    build_dlrm(model, dcfg,
+               fuse_interaction=dcfg.arch_interaction_op == "dot")
+    model.compile(SGDOptimizer(lr=cfg.learning_rate), "mean_squared_error",
+                  ["mse"])
+    model.init_layers()
+    return model
+
+
+def make_handler(serve, input_names, cascade=None):
+    """The HTTP handler class over ``serve`` (an InferenceEngine);
+    ``cascade`` (a retrieve.CascadeEngine) switches /predict to cascade
+    mode and opens POST /retrieve."""
+    from http.server import BaseHTTPRequestHandler
+
+    class Handler(BaseHTTPRequestHandler):
+        def _reply(self, code, payload):
+            body = json.dumps(payload).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _reply_text(self, code, text,
+                        ctype="text/plain; version=0.0.4"):
+            body = text.encode()
+            self.send_response(code)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, fmt, *args):   # route through our logger
+            log_app.debug(fmt, *args)
+
+        def do_GET(self):
+            if self.path == "/healthz":
+                hz = serve.healthz()
+                # 503 tells a balancer to stop routing here; a 200 with
+                # ok:false would keep the traffic coming
+                self._reply(200 if hz["ok"] else 503, hz)
+            elif self.path == "/stats":
+                st = serve.stats()
+                if cascade is not None:
+                    st = dict(st)
+                    st["cascade"] = cascade.stats()
+                self._reply(200, st)
+            elif self.path == "/metrics":
+                from ...obs import metrics as obsm
+                if obsm.enabled():
+                    self._reply_text(200,
+                                     obsm.registry().prometheus_text())
+                else:
+                    self._reply_text(
+                        200, "# observability is off — restart with "
+                             "--obs on to populate this endpoint\n")
+            else:
+                self._reply(404, {"error": f"no route {self.path}"})
+
+        def do_POST(self):
+            if self.path not in ("/predict", "/retrieve"):
+                self._reply(404, {"error": f"no route {self.path}"})
+                return
+            if self.path == "/retrieve" and cascade is None:
+                self._reply(404, {"error": "retrieval is off — restart "
+                                           "with --retrieve on"})
+                return
+            try:
+                n = int(self.headers.get("Content-Length", 0))
+                req = json.loads(self.rfile.read(n) or b"{}")
+                feats = {}
+                for name in input_names:
+                    if name not in req:
+                        raise ValueError(f"missing input {name!r}")
+                    arr = np.asarray(req[name])
+                    feats[name] = (arr.astype(np.int32)
+                                   if name == "sparse"
+                                   else arr.astype(np.float32))
+            except (ValueError, json.JSONDecodeError) as e:
+                self._reply(400, {"error": str(e)})
+                return
+            try:
+                if self.path == "/retrieve":
+                    k = int(req.get("k", cascade.config.k))
+                    r = cascade.index.topk(
+                        cascade.user_encoder(feats), k,
+                        deadline_s=cascade.config.retrieve_deadline_ms
+                        / 1e3)
+                    self._reply(200, {
+                        "ids": r.ids.tolist(),
+                        "scores": r.scores.tolist(),
+                        "versions": {str(s): int(v)
+                                     for s, v in r.versions.items()},
+                        "degraded": bool(r.degraded),
+                        "dropped_slots": list(r.dropped_slots),
+                        "latency_ms": round(r.latency_ms, 3)})
+                    return
+                if cascade is not None:
+                    cp = cascade.predict(feats)
+                    body = {
+                        "candidates": cp.ids.tolist(),
+                        "scores": cp.scores.tolist(),
+                        "version": cp.rank_version,
+                        "retrieve_versions": {
+                            str(s): int(v)
+                            for s, v in cp.retrieve_versions.items()},
+                        "degraded": bool(cp.degraded),
+                        "latency_ms": round(cp.latency_ms, 3),
+                        "stage_ms": {s: round(v, 3)
+                                     for s, v in cp.stage_ms.items()}}
+                    self._reply(200, body)
+                    return
+                pred = serve.predict(feats)
+                self._reply(200, {
+                    "scores": np.asarray(pred.scores).reshape(-1).tolist(),
+                    "version": pred.version,
+                    "latency_ms": round(pred.latency_ms, 3)})
+            except Overloaded as e:
+                self._reply(429, {"error": str(e)})
+            except (DeadlineExceeded, TimeoutError) as e:
+                self._reply(504, {"error": str(e)})
+            except ValueError as e:
+                self._reply(400, {"error": str(e)})
+            except Exception as e:   # noqa: BLE001 — an uncaught handler
+                # error would drop the connection without any status
+                log_app.exception("predict failed")
+                self._reply(500, {"error": f"{type(e).__name__}: {e}"})
+
+    return Handler
+
+
+def _retrieve_on(cfg, rest) -> bool:
+    """``--retrieve on|off`` (default off); ``--retrieve-shards``
+    without it is refused, as in the JAX app."""
+    v = _flag(rest, "--retrieve", "off")
+    if v not in ("on", "off"):
+        raise ValueError(f"--retrieve expects on|off, got {v!r}")
+    if v == "off" and cfg.retrieve_shards > 0:
+        raise SystemExit(
+            "--retrieve-shards does nothing without --retrieve on — "
+            "refusing to silently ignore it")
+    return v == "on"
+
+
+def _build_cascade(cfg, dcfg, serve):
+    """The retrieval stage in front of the ranker, as the JAX app builds
+    it: two-tower user/item heads sized to the DLRM's own inputs (so
+    /predict's features feed both stages), both serving the same
+    initialization, the item catalog encoded and attached as the MIPS
+    index over ``--retrieve-shards`` standalone shards. Returns
+    ``(CascadeEngine, the index's shard set)``."""
+    from ...retrieve import (CascadeConfig, CascadeEngine,
+                             ShardedMIPSIndex, TwoTowerConfig,
+                             build_two_tower, dlrm_candidate_features,
+                             item_embeddings, transfer_tower_params)
+    tcfg = TwoTowerConfig(
+        n_items=int(dcfg.embedding_size[0]), dim=32,
+        user_dense_dim=int(dcfg.mlp_bot[0]),
+        user_embedding_size=list(dcfg.embedding_size),
+        user_sparse_dim=8, user_bag_size=int(dcfg.embedding_bag_size))
+
+    def build_head(head):
+        m = FFModel(cfg)
+        build_two_tower(m, tcfg, head=head)
+        m.compile(SGDOptimizer(lr=cfg.learning_rate),
+                  "mean_squared_error", ["mse"])
+        m.init_layers()
+        return m
+
+    user_model = build_head("user")
+    item_model = build_head("item")
+    transfer_tower_params(user_model, item_model)
+
+    def encode(feats):
+        """The user head over the request's users in batches of its
+        compiled batch, zero-padded: (n, dim) fp32 on the device."""
+        dense = np.asarray(feats["dense"], np.float32)
+        sparse = np.asarray(feats["sparse"], np.int64)
+        n, ub = dense.shape[0], user_model.config.batch_size
+        out = []
+        for lo in range(0, n, ub):
+            d, s = dense[lo:lo + ub], sparse[lo:lo + ub]
+            pad = ub - d.shape[0]
+            if pad:
+                d = np.concatenate([d, np.zeros((pad,) + d.shape[1:],
+                                                np.float32)])
+                s = np.concatenate([s, np.zeros((pad,) + s.shape[1:],
+                                                np.int64)])
+            out.append(user_model.forward_batch(
+                {"user_dense": d, "user_sparse": s})[:ub - pad])
+        return torch.cat(out)
+
+    items = item_embeddings(item_model, tcfg)
+    del item_model
+    m = max(1, int(cfg.retrieve_shards))
+    sset = ShardedMIPSIndex.standalone_set(m)
+    index = ShardedMIPSIndex.build(sset, items, device=cfg.device)
+    cascade = CascadeEngine(
+        index, encode, serve,
+        dlrm_candidate_features(len(dcfg.embedding_size),
+                                list(dcfg.embedding_size)),
+        CascadeConfig.from_config(cfg))
+    log_app.info("retrieval cascade on: %d-item index (%d standalone "
+                 "index shard(s)), k=%d, retrieve deadline %.0f ms",
+                 index.n_items, m, cascade.config.k,
+                 cascade.config.retrieve_deadline_ms)
+    return cascade, sset
+
+
+class App:
+    """One serving app: the engine (started), its HTTP server bound to
+    ``address`` and, with ``--retrieve on``, the cascade. ``serve``
+    blocks until ``shutdown`` (from another thread or a signal);
+    ``close`` releases everything."""
+
+    def __init__(self, argv=None):
+        from http.server import ThreadingHTTPServer
+
+        from ... import obs
+        cfg = FFConfig.parse_args(argv)
+        # --obs on lands BEFORE the engine is built: instruments resolve
+        # at creation time
+        if obs.configure(cfg):
+            log_app.info("observability on: GET /metrics serves the "
+                         "registry%s",
+                         f", traces export to {cfg.obs_trace_dir}"
+                         if cfg.obs_trace_dir else "")
+        rest = list(cfg.unparsed)
+        _refuse_unported(rest)
+        dcfg = DLRMConfig.parse_args(rest)
+        port = int(_flag(rest, "--port", 8000))
+        host = _flag(rest, "--host", "0.0.0.0")
+        retrieve = _retrieve_on(cfg, rest)
+        ckpt_dir = cfg.checkpoint_dir or None
+        model = build_server_model(cfg, dcfg)
+        self.engine = InferenceEngine(model, checkpoint_dir=ckpt_dir)
+        if ckpt_dir:
+            # the first restore through the watcher's READ-ONLY manifest
+            # scan (a CheckpointManager would sweep temp files under a
+            # live trainer): params only, the newest valid snapshot
+            if SnapshotWatcher(self.engine, ckpt_dir).poll_once():
+                log_app.info("serving snapshot version %d",
+                             self.engine.version)
+            else:
+                log_app.warning(
+                    "no restorable snapshot in %s — serving fresh init "
+                    "until the trainer publishes one", ckpt_dir)
+        self.cascade = self._index_set = None
+        if retrieve:
+            self.cascade, self._index_set = _build_cascade(cfg, dcfg,
+                                                           self.engine)
+        self.engine.start()
+        self.httpd = ThreadingHTTPServer(
+            (host, port), make_handler(
+                self.engine, [t.name for t in model.input_tensors],
+                cascade=self.cascade))
+        self.address = self.httpd.server_address[:2]
+
+    def serve(self):
+        self.httpd.serve_forever()
+
+    def shutdown(self):
+        """Stop ``serve`` (safe from a signal handler: it must not wait
+        on the thread it interrupts)."""
+        threading.Thread(target=self.httpd.shutdown, daemon=True).start()
+
+    def close(self):
+        from ...obs import trace as obstrace
+        self.httpd.server_close()
+        self.engine.close()
+        if self._index_set is not None:
+            self._index_set.close()
+        path = obstrace.export_to_dir()
+        if path:
+            log_app.info("exported serving trace to %s", path)
+
+
+def main(argv=None):
+    app = App(argv)
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, lambda *_: app.shutdown())
+    host, port = app.address
+    print(f"serving DLRM on http://{host}:{port}", flush=True)
+    try:
+        app.serve()
+    finally:
+        app.close()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

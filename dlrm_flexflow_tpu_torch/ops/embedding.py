@@ -10,6 +10,13 @@ work to do in the forward. The op still records it, because
 ``utils.weights.params_from_jax`` reads it to undo the JAX storage
 order when it carries weights across.
 
+For the delta publisher (``utils/delta.py``) both ops map a host batch's
+ids to the rows of the JAX op's STORED kernel, flattened to 2-D
+(``delta_touched_rows``: the rows a touched-rows update may change), and
+to their flat lookup-id space (``flat_lookup_ids``, for the id-frequency
+sketch), as the JAX ops do; a delta file's row indices are in that
+stored layout, and ``utils.weights.rows_from_jax`` maps them back.
+
 Both ops take the touched-rows update: ``sparse_sgd_update`` under
 plain SGD, ``sparse_opt_update`` under a stateful optimizer (SGD with
 momentum or weight decay, Adam), which updates the touched rows'
@@ -23,6 +30,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..core.initializers import GlorotUniform
@@ -82,6 +90,20 @@ class Embedding(Op):
             return [params["kernel"][self._ids(idx)]]
         return [EmbeddingBagFunction.apply(params["kernel"], self._ids(idx),
                                            self.aggr)]
+
+    # ---- delta publication (utils/delta.py) -------------------------
+    def lookup_id_space(self) -> int:
+        return self.num_entries
+
+    def flat_lookup_ids(self, idx_np) -> np.ndarray:
+        """Batch ids -> the flat lookup-id space (wrapped)."""
+        return (np.asarray(idx_np).astype(np.int64).reshape(-1)
+                % self.num_entries)
+
+    def delta_touched_rows(self, idx_np) -> np.ndarray:
+        """The table rows a touched-rows update of this batch may change
+        (the JAX op stores the table unpacked, as the port does)."""
+        return np.unique(self.flat_lookup_ids(idx_np))
 
     # ---- touched-rows updates -------------------------------------------
     def supports_sparse_update(self) -> bool:
@@ -209,6 +231,33 @@ class EmbeddingBagStacked(Op):
         out = EmbeddingBagFunction.apply(self._flat_table(params),
                                          self._global_ids(idx), self.aggr)
         return [out.reshape(idx.shape[0], self.num_tables, self.out_dim)]
+
+    # ---- delta publication (utils/delta.py) -------------------------
+    def lookup_id_space(self) -> int:
+        return self.num_tables * self.num_entries
+
+    def flat_lookup_ids(self, idx_np) -> np.ndarray:
+        """(batch, T, bag) ids -> flat t*rows + ix lookup ids."""
+        rows = self.num_entries
+        g = np.asarray(idx_np).astype(np.int64) % rows
+        offs = (np.arange(self.num_tables, dtype=np.int64)
+                * rows)[None, :, None]
+        return (g + offs).reshape(-1)
+
+    def delta_touched_rows(self, idx_np) -> np.ndarray:
+        """The rows of the JAX op's stored kernel, (T, rows/r, r*d)
+        flattened to (T*rows/r, r*d), that this batch touches: logical
+        table t lives at stored slot inv[t] (``_table_order``'s
+        inverse), logical row ix at packed row ix // r of that slot."""
+        from ..utils.weights import _pack_factor
+        r, rows = _pack_factor(self.out_dim, self.num_entries), \
+            self.num_entries
+        g = np.asarray(idx_np).astype(np.int64) % rows   # (batch, T, bag)
+        slot = np.arange(self.num_tables, dtype=np.int64)
+        if self._table_order is not None:
+            slot = np.argsort(np.asarray(self._table_order)).astype(np.int64)
+        flat = slot[None, :, None] * (rows // r) + g // r
+        return np.unique(flat.reshape(-1))
 
     # ---- touched-rows updates -------------------------------------------
     def supports_sparse_update(self) -> bool:

@@ -15,12 +15,26 @@ pays a first call) and the padding is sliced off before the response.
   :class:`Overloaded` immediately.
 - **Deadlines**: a request still queued past ``deadline_ms`` fails with
   :class:`DeadlineExceeded` instead of taking a batch slot.
+- **Zero-downtime reload**: with ``checkpoint_dir``, a
+  :class:`~.watcher.SnapshotWatcher` polls the trainer's directory and
+  hands full snapshots to ``install_snapshot`` and delta snapshots to
+  ``install_delta``. Both PARK the new state; the batcher thread applies
+  it between dispatches (the model is only ever touched by that
+  thread), so a batch runs entirely on the old weights or entirely on
+  the new ones, and every response carries the version (checkpoint
+  step) it was computed with. A delta is written in place
+  (``FFModel.apply_delta``), which is safe only there: no other thread
+  queues kernels that read the tables.
+- **Observability**: ``stats()`` (latency percentiles, batch fill,
+  reload counters), ``healthz()`` for a load balancer, and with
+  ``--obs on`` the JAX engine's ``ff_serve_*`` series and
+  ``serve/...`` spans.
 
 The batcher thread launches the model's kernels on its current CUDA
 stream; copying the scores to the host is the synchronisation. The
-snapshot watcher, the embedding-row cache, the shard tier, fault
-injection and the metrics registry of the JAX engine are not ported
-yet.
+JAX engine's embedding-row cache (ROADMAP queue 1 item 9.2, after 2.4),
+fleet hooks (9.4), shard tier (9.3) and wire transport (``serve()``,
+``serve_forever``: 9.4) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -36,6 +50,12 @@ from typing import Any, Dict, List, NamedTuple, Optional
 import numpy as np
 
 from ..data.dataloader import coalesce_batches
+from ..obs import metrics as obsm
+from ..obs import trace as obstrace
+from ..obs.metrics import percentile  # noqa: F401 — re-exported
+from ..utils.logging import get_logger
+
+log_serve = get_logger("serve")
 
 
 class Overloaded(RuntimeError):
@@ -69,21 +89,6 @@ class Prediction(NamedTuple):
     degraded: bool = False
 
 
-def percentile(sorted_vals, p: float) -> Optional[float]:
-    """Linear-interpolated percentile over an ASCENDING sequence
-    (numpy's default method); None on an empty window, never a
-    flawless p99 for a server that answered nothing."""
-    n = len(sorted_vals)
-    if n == 0:
-        return None
-    if n == 1:
-        return float(sorted_vals[0])
-    k = (p / 100.0) * (n - 1)
-    f = int(k)
-    c = min(f + 1, n - 1)
-    return float(sorted_vals[f] + (k - f) * (sorted_vals[c] - sorted_vals[f]))
-
-
 @dataclass
 class ServeConfig:
     """Engine knobs; ``from_config`` lifts the ``--serve-*`` flags."""
@@ -92,6 +97,7 @@ class ServeConfig:
     max_delay_ms: float = 5.0    # flush-mode deadline for a partial batch
     queue_capacity: int = 256    # bounded queue -> Overloaded past this
     deadline_ms: float = 0.0     # per-request budget; 0 = none
+    poll_s: float = 0.5          # snapshot-watcher poll interval
     warmup: bool = True          # run every bucket once at start()
     continuous: bool = True      # iteration-level admission; False =
     #                              pure size/deadline flush
@@ -101,17 +107,18 @@ class ServeConfig:
         if cfg.serve_cache_rows > 0 or cfg.serve_cache_warm:
             raise NotImplementedError(
                 "the serving row cache (--serve-cache-rows, "
-                "--serve-cache-warm) is not ported yet (ROADMAP queue 1, "
-                "item 9)")
+                "--serve-cache-warm) caches host-resident tables and is "
+                "not ported yet (ROADMAP queue 1 item 9.2, after 2.4)")
         if cfg.serve_replicas > 1:
             raise NotImplementedError(
                 "the serving fleet (--serve-replicas) is not ported yet "
-                "(ROADMAP queue 1, item 9)")
+                "(ROADMAP queue 1 item 9.4)")
         return ServeConfig(
             max_batch=int(cfg.serve_max_batch),
             max_delay_ms=float(cfg.serve_max_delay_ms),
             queue_capacity=int(cfg.serve_queue),
             deadline_ms=float(cfg.serve_deadline_ms),
+            poll_s=float(cfg.serve_poll_s),
             continuous=cfg.serve_batching != "flush")
 
 
@@ -131,10 +138,13 @@ class InferenceEngine:
 
     The model must be compiled and hold parameters. The engine owns the
     model's serving lifecycle from ``start()`` to ``close()``; its
-    batcher thread is the only one that runs the model meanwhile.
+    batcher thread is the only one that runs the model meanwhile. With
+    ``checkpoint_dir`` it follows a trainer's published snapshots
+    (:class:`~.watcher.SnapshotWatcher`, started by ``start()``).
     """
 
-    def __init__(self, model, config: Optional[ServeConfig] = None):
+    def __init__(self, model, config: Optional[ServeConfig] = None,
+                 checkpoint_dir: Optional[str] = None):
         if model.params is None:
             raise ValueError("InferenceEngine needs an initialized model "
                              "(init_layers() or swap_params())")
@@ -150,16 +160,36 @@ class InferenceEngine:
         # would fail the whole batch
         self._input_sample_shapes = {t.name: tuple(t.shape[1:])
                                      for t in model.input_tensors}
+        self._checkpoint_dir = checkpoint_dir
+        self._watcher = None
         self._q: "deque[_Request]" = deque()
         self._q_rows = 0
         self._cond = threading.Condition()
         self._closing = False
         self._started = False
         self._thread: Optional[threading.Thread] = None
+        # parked installs, applied in order by the batcher between
+        # dispatches: ("full", state, ...) replaces everything queued
+        # before it, ("delta", payload, ...) and ("call", fn, ...)
+        # append. The lock guards only the hand-off, never device work.
+        self._swap_lock = threading.Lock()
+        self._pending: List[tuple] = []
         self._version = int(model._step)
+        # the version of the weights the batcher has applied: the tag
+        # on each response (== _version once the parked install lands)
+        self._applied_version = self._version
+        # whether any install was applied: until then the engine serves
+        # the model's own state, whose step can coincide with a
+        # published step without being that state
+        self._applied_any = False
         # stats have their own lock: stats() readers race the batcher
         self._stats_lock = threading.Lock()
-        self._lat_ms: "deque[float]" = deque(maxlen=4096)
+        # the JAX engine's series carry its fleet replica id; a lone
+        # engine's is ""
+        self._lat_ms = obsm.latency_reservoir(
+            "ff_serve_request_latency_ms",
+            "end-to-end request latency at the engine", maxlen=4096,
+            replica="")
         self._n_requests = 0
         self._n_responses = 0
         self._n_overloaded = 0
@@ -167,12 +197,17 @@ class InferenceEngine:
         self._n_batches = 0
         self._rows_served = 0
         self._rows_padded = 0
+        self._reloads = 0
+        self._delta_reloads = 0
+        self._reload_rejects = 0
+        self._last_reject = ""
         self._warmup_s = 0.0
         self._flushes = {"continuous": 0, "size": 0, "deadline": 0}
 
     # --- lifecycle -----------------------------------------------------
     def start(self) -> "InferenceEngine":
-        """Run every bucket once, then start the batcher thread."""
+        """Run every bucket once, start the batcher thread and, with a
+        checkpoint directory, the snapshot watcher."""
         if self._started:
             return self
         self._started = True
@@ -181,17 +216,42 @@ class InferenceEngine:
         self._thread = threading.Thread(target=self._batcher, daemon=True,
                                         name="ff-serve-batcher")
         self._thread.start()
+        # the stats() counters as scrapeable series (no-op with obs off)
+        obsm.register_collector(self._obs_collect)
+        if self._checkpoint_dir:
+            from .watcher import SnapshotWatcher
+            self._watcher = SnapshotWatcher(
+                self, self._checkpoint_dir, poll_s=self.config.poll_s)
+            self._watcher.start()
         return self
 
+    def serve(self, host: str = "127.0.0.1", port: int = 0):
+        """The JAX engine's wire server (predict / health / stats over a
+        socket): not ported yet."""
+        raise NotImplementedError(
+            "InferenceEngine.serve(): the wire transport is not ported "
+            "yet (ROADMAP queue 1 item 9.4); examples/native/serve_dlrm.py "
+            "serves the engine over HTTP")
+
+    def serve_forever(self, host: str = "127.0.0.1", port: int = 0):
+        """The JAX ranker-replica process body: not ported yet."""
+        raise NotImplementedError(
+            "InferenceEngine.serve_forever(): the wire transport is not "
+            "ported yet (ROADMAP queue 1 item 9.4)")
+
     def close(self, deadline_s: float = 10.0) -> None:
-        """Drain the queue (pending requests still get answers) and stop
-        the batcher; raises TimeoutError if it does not stop in time."""
+        """Drain the queue (pending requests still get answers), stop
+        the watcher and the batcher; raises TimeoutError if the batcher
+        does not stop in time."""
         with self._cond:
             if not self._started or self._closing:
                 self._closing = True
                 return
             self._closing = True
             self._cond.notify_all()
+        obsm.unregister_collector(self._obs_collect)
+        if self._watcher is not None:
+            self._watcher.stop()
         t = self._thread
         if t is not None and t.is_alive():
             t.join(deadline_s if deadline_s > 0 else None)
@@ -247,7 +307,7 @@ class InferenceEngine:
                 f"request rows {n} exceed serve max_batch "
                 f"{self.max_batch}; split the request")
         req = _Request(feats, n, self.config.deadline_ms / 1e3)
-        with self._cond:
+        with obstrace.span("serve/enqueue", rows=n), self._cond:
             if self._closing:
                 raise RuntimeError("engine is closed")
             if not self._started:
@@ -269,13 +329,21 @@ class InferenceEngine:
     # --- batcher -------------------------------------------------------
     def _batcher(self) -> None:
         while True:
+            # parked installs apply HERE, between dispatches: an idle
+            # engine picks one up within a wakeup, a busy one between
+            # batches
+            self._apply_pending_swap()
             take: List[_Request] = []
             flush = "continuous"
+            t_form = time.perf_counter()
             with self._cond:
-                while not self._q and not self._closing:
+                while (not self._q and not self._closing
+                        and not self._pending):
                     self._cond.wait(0.1)
                 if not self._q and self._closing:
                     return
+                if not self._q:   # woken only to apply a parked install
+                    continue
                 if not self.config.continuous:
                     # flush-cycle mode: a batch is open from the moment
                     # its OLDEST request arrived; flush on size or on
@@ -297,6 +365,8 @@ class InferenceEngine:
                     rows += r.rows
                     take.append(r)
             if take:
+                obstrace.complete("serve/batch-form", t_form,
+                                  requests=len(take), flush=flush)
                 with self._stats_lock:
                     self._flushes[flush] += 1
                 try:
@@ -326,13 +396,18 @@ class InferenceEngine:
         batch = coalesce_batches([r.features for r in live])
         n = sum(r.rows for r in live)
         bucket = next(b for b in self._buckets if b >= n)
-        out = self._model.forward_bucket(batch, bucket=bucket)
-        scores = out.cpu().numpy()      # device -> host: the sync
+        # a parked install lands first; the batch then runs with no lock
+        # held, entirely on the weights it tags
+        self._apply_pending_swap()
+        version = self._applied_version
+        with obstrace.span("serve/dispatch", rows=n, bucket=bucket):
+            out = self._model.forward_bucket(batch, bucket=bucket)
+            scores = out.cpu().numpy()      # device -> host: the sync
         t_done = time.monotonic()
         off = 0
         for r in live:
             r.future.set_result(Prediction(
-                scores[off:off + r.rows], self._version,
+                scores[off:off + r.rows], version,
                 1e3 * (t_done - r.t0), versions=None, degraded=False))
             off += r.rows
         with self._stats_lock:
@@ -343,7 +418,189 @@ class InferenceEngine:
             self._rows_served += n
             self._rows_padded += bucket - n
 
+    # --- hot reload (called by SnapshotWatcher) ------------------------
+    def install_snapshot(self, state: Dict[str, Any], version: int,
+                         source: str = "") -> None:
+        """Swap in a loaded snapshot state (``checkpoint.
+        load_params_for_swap``: its parameters already on the device,
+        read and copied outside any lock) between dispatches. The state
+        is PARKED; the batcher applies it, and the call returns once it
+        has been applied. A full install supersedes every install parked
+        before it (their callers are released). On an engine with no
+        running batcher the install applies inline."""
+        applied = threading.Event()
+        with self._swap_lock:
+            superseded = self._pending
+            self._pending = ([e for e in superseded if e[0] == "call"]
+                             + [("full", dict(state), int(version),
+                                 source, applied)])
+            self._version = int(version)
+            self._reloads += 1
+            for entry in superseded:
+                if entry[0] != "call":
+                    entry[4].set()
+        self._await_applied(applied)
+
+    def install_delta(self, payload: Dict[str, Any], version: int,
+                      source: str = "") -> None:
+        """Park an incremental delta (a ``load_delta_file`` payload,
+        its rows staged on the device by ``stage_delta_rows`` outside
+        any lock). The batcher applies it between dispatches with
+        ``FFModel.apply_delta``, which makes its stream wait on the
+        staging event first. Deltas append to the queue (dropping one
+        would corrupt the chain); the call returns once applied."""
+        applied = threading.Event()
+        with self._swap_lock:
+            self._pending.append(("delta", dict(payload), int(version),
+                                  source, applied))
+            self._version = int(version)
+            self._reloads += 1
+            self._delta_reloads += 1
+        self._await_applied(applied)
+
+    def run_quiesced(self, fn, label: str = ""):
+        """Run ``fn()`` on the batcher thread between dispatches and
+        return its result: the batch in flight finishes before ``fn``
+        runs and the next one starts after it, with no lock held across
+        the call. A failed ``fn`` re-raises here and counts as a reload
+        reject; the batcher lives on."""
+        box: Dict[str, Any] = {}
+
+        def call():
+            try:
+                box["result"] = fn()
+            except BaseException as e:   # noqa: BLE001 — re-raised to
+                box["error"] = e         # the run_quiesced caller below
+                raise
+
+        applied = threading.Event()
+        with self._swap_lock:
+            self._pending.append(
+                ("call", call, self._version,
+                 label or getattr(fn, "__name__", "call"), applied))
+        self._await_applied(applied)
+        if "error" in box:
+            raise box["error"]
+        return box.get("result")
+
+    def _await_applied(self, applied: threading.Event) -> None:
+        t = self._thread
+        if (t is None or not t.is_alive()
+                or t is threading.current_thread()):
+            self._apply_pending_swap()
+            return
+        with self._cond:
+            self._cond.notify_all()   # wake an idle batcher to apply now
+        while not applied.wait(0.05):
+            t = self._thread
+            if t is None or not t.is_alive():   # batcher died mid-wait:
+                self._apply_pending_swap()      # no dispatch racer left
+                return
+
+    def _apply_pending_swap(self) -> None:
+        """Drain the parked installs in order into the model: on the
+        batcher thread between dispatches (or inline without one). The
+        model changes OUTSIDE the lock, which guards only the hand-off."""
+        with self._swap_lock:
+            pending, self._pending = self._pending, []
+        for kind, state, version, source, applied in pending:
+            t_swap = time.perf_counter()
+            try:
+                if kind == "call":
+                    state()
+                    obstrace.complete("serve/quiesced", t_swap,
+                                      label=source)
+                    continue
+                if kind == "full":
+                    self._model.swap_params(
+                        params=state["params"],
+                        host_params=state.get("host_params"),
+                        op_state=state.get("op_state"))
+                    self._model._step = int(version)
+                else:
+                    self._model.apply_delta(state)
+                self._applied_version = version
+                self._applied_any = True
+                obstrace.complete("serve/swap", t_swap, kind=kind,
+                                  version=version)
+                log_serve.info("hot-%s weights to version %d%s",
+                               "reloaded" if kind == "full"
+                               else "delta-patched", version,
+                               f" from {source}" if source else "")
+            except BaseException as e:   # noqa: BLE001 — a failed apply
+                # must release the installer and show in stats, not kill
+                # the batcher; the version rolls back to what is applied
+                # so the watcher retries or falls back
+                with self._swap_lock:
+                    if not self._pending:
+                        self._version = self._applied_version
+                self.record_reload_reject(
+                    f"staged {kind} (version {version}) failed to "
+                    f"apply: {e}")
+            finally:
+                applied.set()
+
+    def record_reload_reject(self, reason: str) -> None:
+        self._reload_rejects += 1
+        self._last_reject = reason
+        log_serve.warning("snapshot reload rejected: %s — continuing to "
+                          "serve version %d", reason, self._version)
+
+    @property
+    def version(self) -> int:
+        return self._version
+
+    @property
+    def has_applied_snapshot(self) -> bool:
+        """True once any install (full or delta) has been applied."""
+        return self._applied_any
+
+    @property
+    def version_floor(self) -> int:
+        """The oldest version in this engine's serving path: its own
+        (the JAX engine's shard tier, which can lag, is not ported)."""
+        return self._version
+
+    @property
+    def model(self):
+        return self._model
+
+    def healthz(self) -> Dict[str, Any]:
+        """Readiness for a /healthz endpoint: ``ok`` is False while the
+        engine is draining (closing or never started), its batcher died,
+        or the bounded queue is full (submits raise Overloaded now)."""
+        depth = len(self._q)
+        saturated = depth >= self.config.queue_capacity
+        draining = self._closing or not self._started
+        t = self._thread
+        batcher_alive = bool(t is not None and t.is_alive())
+        dead = self._started and not self._closing and not batcher_alive
+        return {
+            "ok": not (saturated or draining or dead),
+            "version": self._version,
+            "draining": draining,
+            "saturated": saturated,
+            "batcher_alive": batcher_alive,
+            "queue_depth": depth,
+            "queue_capacity": self.config.queue_capacity,
+        }
+
     # --- observability -------------------------------------------------
+    def _obs_collect(self):
+        """Registry collector: the stats() counters as scrapeable
+        samples, read through at scrape time."""
+        lab = {"replica": ""}
+        yield "ff_serve_requests_total", lab, self._n_requests
+        yield "ff_serve_responses_total", lab, self._n_responses
+        yield "ff_serve_overloaded_total", lab, self._n_overloaded
+        yield "ff_serve_timeouts_total", lab, self._n_timeouts
+        yield "ff_serve_batches_total", lab, self._n_batches
+        yield "ff_serve_queue_depth", lab, len(self._q)
+        yield "ff_serve_reloads_total", lab, self._reloads
+        yield "ff_serve_delta_reloads_total", lab, self._delta_reloads
+        yield "ff_serve_reload_rejects_total", lab, self._reload_rejects
+        yield "ff_serve_version", lab, self._version
+
     def stats(self) -> Dict[str, Any]:
         with self._stats_lock:
             lat = sorted(self._lat_ms)
@@ -363,9 +620,16 @@ class InferenceEngine:
             "p50_ms": percentile(lat, 50),
             "p99_ms": percentile(lat, 99),
             "version": self._version,
+            "reloads": self._reloads,
+            "full_reloads": self._reloads - self._delta_reloads,
+            "delta_reloads": self._delta_reloads,
+            "reload_rejects": self._reload_rejects,
+            "last_reload_reject": self._last_reject,
             "buckets": list(self._buckets),
             "warmup_s": round(self._warmup_s, 4),
             "flushes": flushes,
             "continuous": self.config.continuous,
         })
+        if self._watcher is not None:
+            out["watcher"] = self._watcher.stats()
         return out

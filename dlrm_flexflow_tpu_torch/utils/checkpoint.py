@@ -30,10 +30,17 @@ Fault tolerance, as in the JAX package:
 - restore walks the manifest newest-first and skips corrupt, truncated,
   missing or foreign snapshots.
 
+The manifest also carries the continual loop's delta chain
+(``utils/delta.py``: ``delta_entries``, ``append_delta_entry``,
+``reset_deltas``, a ``"deltas"`` list beside ``"entries"``) and sidecar
+keys (``set_manifest_extra``: the id histogram), in the JAX manager's
+layout, so each package's manager and watcher read the other's
+manifest. ``load_params_for_swap`` reads a snapshot's parameters onto
+the card without touching the model, for the serving hot reload.
+
 Fault-injection hooks from ``utils.faults`` sit on the write path. The
-delta chain of the JAX manager (``delta_entries``, ``append_delta_entry``,
-``reset_deltas``, ROADMAP queue 1 item 9.5) and its warm-cache
-directory are not ported yet.
+JAX manager's warm-cache directory (``utils/warmcache.py``) is not
+ported yet (ROADMAP queue 1 item 9.5).
 """
 
 from __future__ import annotations
@@ -44,7 +51,7 @@ import os
 import threading
 import time
 import zlib
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -95,20 +102,28 @@ def _model_flat(model) -> Dict[str, np.ndarray]:
     return flat
 
 
-def _write_npz_atomic(path: str, flat: Dict[str, np.ndarray]) -> int:
+def _write_npz_atomic(path: str, flat: Dict[str, np.ndarray],
+                      timings: Optional[Dict[str, float]] = None) -> int:
     """Write `flat` to `path` atomically; returns the file's CRC-32. The
     temp file lives in the same directory (``os.replace`` must not cross
     file systems) and is fsync'd before the rename, so a crash at any
-    point leaves either the previous file or the complete new one."""
+    point leaves either the previous file or the complete new one.
+    ``timings``, when given, receives the seconds of the write (with its
+    fsync) as ``write_s`` and of the checksum pass as ``crc_s``."""
     d = os.path.dirname(os.path.abspath(path))
     os.makedirs(d, exist_ok=True)
     tmp = f"{path}.tmp-{os.getpid()}"
     try:
+        t0 = time.perf_counter()
         with open(tmp, "wb") as f:
             np.savez(f, **flat)
             f.flush()
             os.fsync(f.fileno())
+        t1 = time.perf_counter()
         crc = _file_crc32(tmp)
+        if timings is not None:
+            timings["write_s"] = t1 - t0
+            timings["crc_s"] = time.perf_counter() - t1
         faults.maybe_abort_write(path)   # injected save crash (pre-rename)
         faults.maybe_delay_write()       # injected kill window
         os.replace(tmp, path)
@@ -123,13 +138,52 @@ def _write_npz_atomic(path: str, flat: Dict[str, np.ndarray]) -> int:
 
 
 def _file_crc32(path: str) -> int:
+    """The file's CRC-32, in 64 MB reads (few turns for the interpreter
+    lock: a serving process's request threads hold it)."""
     crc = 0
     with open(path, "rb") as f:
         while True:
-            chunk = f.read(1 << 22)
+            chunk = f.read(1 << 26)
             if not chunk:
                 return crc
             crc = zlib.crc32(chunk, crc)
+
+
+def read_npz(path: str, keep: Optional[Callable[[str], bool]] = None
+             ) -> Dict[str, np.ndarray]:
+    """The arrays of an ``np.savez`` file (``keep`` selects the keys),
+    each read from the zip in ONE call into its array. ``np.load`` copies
+    a member through the interpreter in 256 KB chunks, and each chunk
+    then waits its turn for the interpreter lock: in a serving process
+    whose request threads hold it, loading a 2 GB snapshot that way took
+    tens of seconds instead of about one. A torn file raises as
+    ``np.load`` does (``zipfile.BadZipFile``: not a zip, or a member
+    failing its CRC-32)."""
+    import zipfile
+    fmt = np.lib.format
+    out: Dict[str, np.ndarray] = {}
+    with zipfile.ZipFile(path) as zf:
+        for name in zf.namelist():
+            key = name[:-len(".npy")] if name.endswith(".npy") else name
+            if keep is not None and not keep(key):
+                continue
+            with zf.open(name) as f:
+                major, _ = fmt.read_magic(f)
+                if major not in (1, 2):
+                    out[key] = fmt.read_array(f, allow_pickle=False)
+                    continue
+                shape, fortran, dtype = (
+                    fmt.read_array_header_1_0 if major == 1
+                    else fmt.read_array_header_2_0)(f)
+                if dtype.hasobject:
+                    raise ValueError(f"{path}: {key} holds Python objects")
+                arr = np.empty(shape, dtype=dtype,
+                               order="F" if fortran else "C")
+                view = memoryview(arr.reshape(-1, order="A")).cast("B")
+                if f.readinto(view) != arr.nbytes:
+                    raise zipfile.BadZipFile(f"{path}: {key} is truncated")
+            out[key] = arr
+    return out
 
 
 def config_fingerprint(model) -> str:
@@ -180,12 +234,31 @@ def restore_checkpoint(model, path: str, params_only: bool = False):
     snapshot missing one of the model's ops raises.
     ``params_only=True`` loads the parameters and step and leaves the
     optimizer state as it is (serving)."""
-    with np.load(path if path.endswith(".npz") else path + ".npz") as data:
-        flat = {k: data[k] for k in data.files}
+    flat = read_npz(path if path.endswith(".npz") else path + ".npz")
     params_flat, opt_flat = _split_sections(flat)
     return _apply_flat_state(model, params_flat,
                              None if params_only else opt_flat,
                              int(flat["meta/step"]))
+
+
+def load_params_for_swap(model, path: str) -> Dict[str, Any]:
+    """Read a snapshot's inference state (the port's or the JAX
+    package's) WITHOUT touching the model: its parameters checked against
+    the model's and copied to the model's device, returned for
+    ``InferenceEngine.install_snapshot`` (which swaps them in between
+    dispatches). Optimizer state is not read. Raises with a reason on a
+    mismatch; the watcher rejects the snapshot and keeps serving."""
+    flat = read_npz(path if path.endswith(".npz") else path + ".npz",
+                    keep=lambda k: not k.startswith(("opt/", "hostopt/")))
+    params_flat, _ = _split_sections(flat)
+    params_np = _unflatten(params_flat)
+    have = {op.name for op in model.ops if op.param_defs()}
+    extra = sorted(set(params_np) - have)
+    if extra:
+        raise ValueError(f"checkpoint has parameters for ops {extra} "
+                         f"which this model does not have")
+    return {"params": params_from_jax(model, params_np), "op_state": {},
+            "host_params": None, "step": int(flat["meta/step"])}
 
 
 def restore_from_flat(model, flat: Dict[str, np.ndarray]):
@@ -340,7 +413,8 @@ class CheckpointManager:
         fname = f"ckpt-{step:08d}.npz"
         path = os.path.join(self.directory, fname)
         t0 = time.perf_counter()
-        crc = _write_npz_atomic(path, flat)
+        parts: Dict[str, float] = {}
+        crc = _write_npz_atomic(path, flat, parts)
         entry = {"file": fname, "step": step, "crc32": crc,
                  "fingerprint": fingerprint, "time": time.time(),
                  "loader_state": loader_state}
@@ -351,7 +425,10 @@ class CheckpointManager:
             self._gc(manifest)
             self._write_manifest(manifest)
         write_s = time.perf_counter() - t0
-        self.last_save = dict(stats, write_s=write_s, step=step)
+        self.last_save = dict(stats, write_s=write_s, step=step,
+                              file_write_s=parts.get("write_s", 0.0),
+                              crc_s=parts.get("crc_s", 0.0),
+                              file_bytes=os.path.getsize(path))
         log_ckpt.info("saved checkpoint %s (step %d, %.0f ms)",
                       fname, step, 1e3 * write_s)
         return entry
@@ -359,15 +436,69 @@ class CheckpointManager:
     def _gc(self, manifest: Dict[str, Any]) -> None:
         """Keep the newest `keep_last` entries and delete the rest's
         files; called under the manifest lock, before the manifest
-        write (a crash in between only loses superseded snapshots)."""
+        write (a crash in between only loses superseded snapshots). A
+        snapshot that a live delta chain names as its base is kept
+        beyond keep_last (watchers behind the chain still need it); it
+        goes at the next chain reset."""
         entries = sorted(manifest["entries"], key=lambda e: e.get("step", -1))
         drop, keep = entries[:-self.keep_last], entries[-self.keep_last:]
+        chained = {d.get("base_file") for d in manifest.get("deltas", [])}
+        chained.discard(None)
+        spared = [e for e in drop if e.get("file") in chained]
         for e in drop:
+            if e.get("file") in chained:
+                continue
             try:
                 os.unlink(os.path.join(self.directory, e["file"]))
             except OSError:
                 pass
-        manifest["entries"] = keep
+        manifest["entries"] = sorted(spared + keep,
+                                     key=lambda e: e.get("step", -1))
+
+    def set_manifest_extra(self, key: str, value: Any) -> None:
+        """Set one top-level manifest key (a sidecar pointer such as the
+        id histogram's); "entries" and "deltas" are refused."""
+        if key in ("entries", "deltas"):
+            raise ValueError(f"manifest key {key!r} is reserved")
+        with self._manifest_lock:
+            manifest = self._read_manifest()
+            manifest[key] = value
+            self._write_manifest(manifest)
+
+    # --- delta chain (utils/delta.py DeltaPublisher) -------------------
+    def delta_entries(self) -> List[Dict[str, Any]]:
+        with self._manifest_lock:
+            return list(self._read_manifest().get("deltas", []))
+
+    def append_delta_entry(self, entry: Dict[str, Any]) -> None:
+        """Append one delta entry to the chain. The delta FILE must
+        already be on disk: a crash between the two leaves an unlisted
+        file, never a listed but missing one."""
+        with self._manifest_lock:
+            manifest = self._read_manifest()
+            deltas = manifest.setdefault("deltas", [])
+            manifest["deltas"] = [e for e in deltas
+                                  if e.get("file") != entry.get("file")] \
+                + [entry]
+            self._write_manifest(manifest)
+
+    def reset_deltas(self) -> int:
+        """Retire the delta chain: drop every delta entry from the
+        manifest, then delete the files (in that order: a crash between
+        leaves orphan files, never dangling entries). Returns how many
+        entries were retired."""
+        with self._manifest_lock:
+            manifest = self._read_manifest()
+            retired = list(manifest.get("deltas", []))
+            if retired:
+                manifest["deltas"] = []
+                self._write_manifest(manifest)
+        for e in retired:
+            try:
+                os.unlink(os.path.join(self.directory, e.get("file", "")))
+            except OSError:
+                pass
+        return len(retired)
 
     # --- restore -------------------------------------------------------
     def entries(self) -> List[Dict[str, Any]]:

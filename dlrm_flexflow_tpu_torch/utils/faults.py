@@ -1,6 +1,7 @@
 """Deterministic fault injection for resilience testing (own copy of the
 part of ``dlrm_flexflow_tpu.utils.faults`` that the training step, the
-checkpoint, data, prefetch and feedback-spool modules call).
+checkpoint, data, prefetch, feedback-spool, delta-publish and
+hot-reload modules call).
 
 Failures are injected at fixed, reproducible points so every recovery
 branch runs under test:
@@ -28,6 +29,18 @@ branch runs under test:
   feedback spool (``data/replay.py``) with this probability, from a
   seeded generator, so the serve->train loop must train on what
   survives.
+- **Torn deltas** (`torn_deltas`): truncate a published delta file
+  right after its rename; the watcher's chain CRC check must reject the
+  chain and fall back to a full snapshot.
+- **Publish aborts** (`publish_aborts`): raise before a delta file's
+  rename (a trainer crashing mid-publish); no torn file may appear and
+  the manifest must not list it.
+- **Delta gaps** (`delta_gaps`): drop a published delta's manifest
+  entry, so the next delta's link points at an unlisted step.
+- **Corrupt reloads** (`corrupt_reloads`): truncate a snapshot as the
+  serving hot reload is about to load it; the reload must reject it.
+- **Poisoned reloads** (`poison_reloads`): scale the float parameters
+  of a loaded snapshot (a valid file, garbage weights).
 
 Faults are consume-once: each injection decrements its budget. Activate
 them programmatically::
@@ -45,10 +58,17 @@ or from the environment (read once, at the first hook call):
 - ``FF_FAULT_IO_ERRORS=ffbin_read:2``  2 transient IOErrors at that site
 - ``FF_FAULT_FEEDBACK_LOSS=0.2``   drop 20 % of feedback records
   (a probability in 0..1)
+- ``FF_FAULT_DELTA_TORN=1``        truncate the next 1 published delta
+- ``FF_FAULT_PUBLISH_ABORT=2``     abort the next 2 delta publishes
+- ``FF_FAULT_DELTA_GAP=1``         drop the next 1 delta's manifest entry
+- ``FF_FAULT_CORRUPT_RELOAD=1``    truncate the next 1 snapshot file as
+  the serving hot reload opens it
+- ``FF_FAULT_POISON_RELOAD=1``     scale the params of the next 1
+  snapshot the hot reload loads
 
-The JAX package's other hooks (device loss and return, serving,
-network, cache and shard faults) wait for the modules they drive
-(ROADMAP queue 1 items 7 and 9): their ``FF_FAULT_*`` keys, and
+The JAX package's other hooks (device loss and return, fleet, network,
+cache, quantized-scale and shard faults) wait for the modules they
+drive (ROADMAP queue 1 items 5, 7 and 9): their ``FF_FAULT_*`` keys, and
 unknown ones, are a warning here, never a silent no-op. A malformed
 value raises ``ValueError`` naming the variable.
 """
@@ -91,6 +111,21 @@ class FaultPlan:
     # probability in 0..1 of dropping each record offered to the feedback
     # spool before it lands, drawn from a dedicated seeded generator
     feedback_loss_p: float = 0.0
+    # hot-reload snapshot loads whose float params are scaled by
+    # poison_reload_scale (a valid file, garbage weights)
+    poison_reloads: int = 0
+    poison_reload_scale: float = 1e3
+    # hot-reload snapshot opens to truncate to corrupt_reload_bytes
+    corrupt_reloads: int = 0
+    corrupt_reload_bytes: int = 64
+    # published delta files to truncate to torn_delta_bytes after their
+    # rename
+    torn_deltas: int = 0
+    torn_delta_bytes: int = 64
+    # delta publishes to abort before their rename
+    publish_aborts: int = 0
+    # delta publishes whose manifest entry is dropped after the file lands
+    delta_gaps: int = 0
     # record of (hook, detail) actually fired, for test assertions
     fired: List[tuple] = field(default_factory=list)
 
@@ -108,17 +143,22 @@ class FaultPlan:
 _ACTIVE: Optional[FaultPlan] = None
 _ENV_CHECKED = False
 
-_ENV_KEYS = ("FF_FAULT_NAN_STEPS", "FF_FAULT_TRUNCATE_CKPTS",
-             "FF_FAULT_ABORT_WRITES", "FF_FAULT_WRITE_DELAY",
-             "FF_FAULT_IO_ERRORS", "FF_FAULT_FEEDBACK_LOSS")
+# the plan's integer budgets set from the environment
+_ENV_BUDGETS = {"FF_FAULT_TRUNCATE_CKPTS": "truncate_checkpoints",
+                "FF_FAULT_ABORT_WRITES": "abort_writes",
+                "FF_FAULT_DELTA_TORN": "torn_deltas",
+                "FF_FAULT_PUBLISH_ABORT": "publish_aborts",
+                "FF_FAULT_DELTA_GAP": "delta_gaps",
+                "FF_FAULT_CORRUPT_RELOAD": "corrupt_reloads",
+                "FF_FAULT_POISON_RELOAD": "poison_reloads"}
+_ENV_KEYS = ("FF_FAULT_NAN_STEPS", "FF_FAULT_WRITE_DELAY",
+             "FF_FAULT_IO_ERRORS", "FF_FAULT_FEEDBACK_LOSS") \
+    + tuple(_ENV_BUDGETS)
 # keys of the JAX package's plan whose hooks are not ported yet
 _UNPORTED_ENV_KEYS = (
     "FF_FAULT_DROP_DEVICE", "FF_FAULT_RETURN_DEVICE",
     "FF_FAULT_STALL_COLLECTIVE", "FF_FAULT_SERVE_DELAY",
-    "FF_FAULT_CORRUPT_RELOAD", "FF_FAULT_REPLICA_DOWN",
-    "FF_FAULT_POISON_RELOAD", "FF_FAULT_DELTA_TORN",
-    "FF_FAULT_PUBLISH_ABORT", "FF_FAULT_DELTA_GAP",
-    "FF_FAULT_CACHE_CORRUPT", "FF_FAULT_SHARD_DOWN",
+    "FF_FAULT_REPLICA_DOWN", "FF_FAULT_CACHE_CORRUPT", "FF_FAULT_SHARD_DOWN",
     "FF_FAULT_LOOKUP_DELAY", "FF_FAULT_QUANT_SCALE", "FF_FAULT_NET_DROP",
     "FF_FAULT_NET_DUP", "FF_FAULT_NET_REORDER", "FF_FAULT_NET_SLOW",
     "FF_FAULT_SKETCH_SKEW",
@@ -154,26 +194,23 @@ def plan_from_env() -> Optional[FaultPlan]:
         if k in _UNPORTED_ENV_KEYS:
             log_faults.warning(
                 "%s is set but its hook is not ported yet (ROADMAP queue "
-                "1 items 7 and 9); it injects nothing here", k)
+                "1 items 5, 7 and 9); it injects nothing here", k)
         else:
             log_faults.warning("unknown fault variable %s ignored; known: "
                                "%s", k, list(_ENV_KEYS))
     nan = os.environ.get("FF_FAULT_NAN_STEPS", "")
-    trunc = os.environ.get("FF_FAULT_TRUNCATE_CKPTS", "")
-    aborts = os.environ.get("FF_FAULT_ABORT_WRITES", "")
     delay = os.environ.get("FF_FAULT_WRITE_DELAY", "")
     ioerrs = os.environ.get("FF_FAULT_IO_ERRORS", "")
     feedback_loss = os.environ.get("FF_FAULT_FEEDBACK_LOSS", "")
-    if not any((nan, trunc, aborts, delay, ioerrs, feedback_loss)):
+    budgets = {k: os.environ.get(k, "") for k in _ENV_BUDGETS}
+    if not any((nan, delay, ioerrs, feedback_loss, *budgets.values())):
         return None
     plan = FaultPlan()
     if nan:
         plan.nan_grad_steps = _env_int_set("FF_FAULT_NAN_STEPS", nan)
-    if trunc:
-        plan.truncate_checkpoints = _env_int("FF_FAULT_TRUNCATE_CKPTS",
-                                             trunc)
-    if aborts:
-        plan.abort_writes = _env_int("FF_FAULT_ABORT_WRITES", aborts)
+    for k, raw in budgets.items():
+        if raw:
+            setattr(plan, _ENV_BUDGETS[k], _env_int(k, raw))
     if delay:
         plan.write_delay_s = _env_float("FF_FAULT_WRITE_DELAY", delay)
     for part in ioerrs.split(","):
@@ -351,3 +388,91 @@ def maybe_io_error(site: str) -> None:
             plan._record("io_error", site)
             raise IOError(f"injected transient IO error at {site!r} "
                           f"({left - 1} left)")
+
+
+def maybe_abort_publish(path: str) -> None:
+    """Raise IOError before a delta file's atomic rename (the trainer
+    crashing mid-publish): the writer removes its temp file, and the
+    manifest never gains the entry."""
+    plan = active()
+    if plan is None:
+        return
+    with plan._lock:
+        if plan.publish_aborts > 0:
+            plan.publish_aborts -= 1
+            plan._record("publish_abort", path)
+            raise IOError(f"injected delta publish abort: {path}")
+
+
+def maybe_torn_delta(path: str) -> bool:
+    """Truncate a just-published delta file (a torn write after the
+    rename): the watcher's chain CRC check must reject the chain."""
+    plan = active()
+    if plan is None:
+        return False
+    with plan._lock:
+        if plan.torn_deltas <= 0:
+            return False
+        plan.torn_deltas -= 1
+        plan._record("torn_delta", path)
+    with open(path, "r+b") as f:
+        f.truncate(plan.torn_delta_bytes)
+    return True
+
+
+def take_delta_gap() -> bool:
+    """True once per budgeted gap: the publisher drops this delta's
+    manifest entry after the file lands, so the next delta links to an
+    unlisted step and the watcher must see the gap."""
+    plan = active()
+    if plan is None:
+        return False
+    with plan._lock:
+        if plan.delta_gaps <= 0:
+            return False
+        plan.delta_gaps -= 1
+        plan._record("delta_gap", None)
+    return True
+
+
+def maybe_corrupt_reload(path: str) -> bool:
+    """Truncate a snapshot as the serving hot reload is about to load it
+    (after the manifest listed it as valid): the load must reject it and
+    the engine keep serving the old weights."""
+    plan = active()
+    if plan is None:
+        return False
+    with plan._lock:
+        if plan.corrupt_reloads <= 0:
+            return False
+        plan.corrupt_reloads -= 1
+        plan._record("corrupt_reload", path)
+    try:
+        with open(path, "r+b") as f:
+            f.truncate(plan.corrupt_reload_bytes)
+    except OSError:
+        return False
+    return True
+
+
+def maybe_poison_reload(state: dict) -> dict:
+    """Scale the float parameters of a loaded snapshot state (the output
+    of ``checkpoint.load_params_for_swap``) while the budget lasts: a
+    snapshot that passes every integrity check but computes garbage.
+    Returns a new state; the tensors keep their device and dtype."""
+    plan = active()
+    if plan is None:
+        return state
+    with plan._lock:
+        if plan.poison_reloads <= 0:
+            return state
+        plan.poison_reloads -= 1
+        scale = plan.poison_reload_scale
+        plan._record("poison_reload", scale)
+    out = dict(state)
+    if out.get("params") is not None:
+        out["params"] = {
+            op: {pn: (v * scale if v.is_floating_point() else v)
+                 for pn, v in p.items()}
+            for op, p in out["params"].items()}
+    return out

@@ -1,7 +1,8 @@
 """Deadlines and stall reports (own copies of ``StallReport``,
-``WorkerStalled`` and ``Deadline`` from
-``dlrm_flexflow_tpu.utils.watchdog``): the serving path's deadlines and
-the prefetch ring's liveness deadline. The JAX package's other worker
+``WorkerStalled``, ``Sustained`` and ``Deadline`` from
+``dlrm_flexflow_tpu.utils.watchdog``): the serving path's deadlines,
+the prefetch ring's liveness deadline and the drift monitor's
+debouncer. The JAX package's other worker
 watchdogs, and the observability hooks of ``WorkerStalled``, wait with
 the items that port those workers."""
 
@@ -41,6 +42,28 @@ class WorkerStalled(RuntimeError):
     def __init__(self, report: StallReport):
         super().__init__(str(report))
         self.report = report
+
+
+class Sustained:
+    """Consecutive-observation debouncer: ``observe(breach)`` is True
+    once the condition has held for ``periods`` observations in a row;
+    any non-breach resets the count. Single-threaded by design (one
+    loop owns each instance)."""
+
+    __slots__ = ("periods", "count")
+
+    def __init__(self, periods: int):
+        if periods < 1:
+            raise ValueError(f"periods must be >= 1, got {periods}")
+        self.periods = int(periods)
+        self.count = 0
+
+    def observe(self, breach: bool) -> bool:
+        self.count = self.count + 1 if breach else 0
+        return self.count >= self.periods
+
+    def reset(self) -> None:
+        self.count = 0
 
 
 @dataclass

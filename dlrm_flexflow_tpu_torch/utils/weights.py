@@ -22,6 +22,11 @@ JAX layout (``_table_order`` re-applied, tables lane-packed to
 (T, N/r, r·d) as the JAX op's ``_pack_factor`` packs them), so a test can
 compare a trained port model with a trained JAX model array by array.
 
+``param_from_jax`` carries one array across the same way (a delta's
+whole-array update), and ``rows_from_jax`` maps rows of a JAX stored
+array, flattened to 2-D over all but its last axis (a delta's row
+update), to rows of the port's tensor flattened the same way.
+
 ``opt_state_from_jax`` and ``opt_state_to_jax`` carry an optimizer state
 (``{slab: {op_name: {param_name: array}}}`` plus Adam's int32
 ``"step"``) across the same way: every slab mirrors the parameters and
@@ -39,6 +44,23 @@ import torch
 from ..ops.embedding import EmbeddingBagStacked
 
 
+def param_from_jax(model, op, pn: str, v) -> torch.Tensor:
+    """One JAX parameter array -> the port's tensor of ``op.pn`` on the
+    model's device (checked against the op's ParamDef)."""
+    d = op.param_defs()[pn]
+    v = np.array(v, dtype=np.float32)   # a writable copy
+    if isinstance(op, EmbeddingBagStacked) and pn == "kernel":
+        v = v.reshape(op.num_tables, op.num_entries, op.out_dim)
+        if op._table_order is not None:
+            inv = np.argsort(np.asarray(op._table_order))
+            v = v[inv]
+    if tuple(v.shape) != tuple(d.shape):
+        raise ValueError(f"{op.name}.{pn}: JAX array of shape "
+                         f"{v.shape}, the port expects {d.shape}")
+    return torch.from_numpy(np.ascontiguousarray(v)).to(
+        device=model.device, dtype=d.dtype)
+
+
 def params_from_jax(model, params_np: Dict[str, Dict[str, np.ndarray]]
                     ) -> Dict[str, Dict[str, torch.Tensor]]:
     out = {}
@@ -49,21 +71,30 @@ def params_from_jax(model, params_np: Dict[str, Dict[str, np.ndarray]]
         if op.name not in params_np:
             raise KeyError(f"JAX params hold no op {op.name!r}")
         src = params_np[op.name]
-        mine = {}
-        for pn, d in defs.items():
-            v = np.array(src[pn], dtype=np.float32)   # a writable copy
-            if isinstance(op, EmbeddingBagStacked) and pn == "kernel":
-                v = v.reshape(op.num_tables, op.num_entries, op.out_dim)
-                if op._table_order is not None:
-                    inv = np.argsort(np.asarray(op._table_order))
-                    v = v[inv]
-            if tuple(v.shape) != tuple(d.shape):
-                raise ValueError(f"{op.name}.{pn}: JAX array of shape "
-                                 f"{v.shape}, the port expects {d.shape}")
-            mine[pn] = torch.from_numpy(np.ascontiguousarray(v)).to(
-                device=model.device, dtype=d.dtype)
-        out[op.name] = mine
+        out[op.name] = {pn: param_from_jax(model, op, pn, src[pn])
+                        for pn in defs}
     return out
+
+
+def rows_from_jax(op, pn: str, idx: np.ndarray, vals: np.ndarray):
+    """Rows ``idx`` of the JAX stored array of ``op.pn`` (flattened to
+    (rows, width) over all but the last axis) holding ``vals`` -> (the
+    same rows' indices in the port's tensor flattened the same way, their
+    values). A stacked table's packed row q of stored slot s holds the r
+    logical rows q*r .. q*r+r-1 of logical table order[s]; every other
+    parameter has one layout in both packages."""
+    idx = np.asarray(idx, dtype=np.int64).reshape(-1)
+    vals = np.asarray(vals)
+    if not (isinstance(op, EmbeddingBagStacked) and pn == "kernel"):
+        return idx, vals
+    rows = op.num_entries
+    r = _pack_factor(op.out_dim, rows)
+    slot, q = np.divmod(idx, rows // r)
+    t = (slot if op._table_order is None
+         else np.asarray(op._table_order, dtype=np.int64)[slot])
+    base = t * rows + q * r
+    out = (base[:, None] + np.arange(r, dtype=np.int64)[None, :]).reshape(-1)
+    return out, vals.reshape(-1, op.out_dim)
 
 
 def _pack_factor(dim: int, rows: int) -> int:

@@ -47,7 +47,11 @@ order), the flag exactly for NaN and +-Inf, a rerun bitwise. The guarded
 update entries: with ok = 0 every output bitwise as it was, with ok = 1
 bitwise the unguarded call. A skip_step run on the card against the same
 run on the CPU as the stateful step above; the poisoned step, bitwise
-nothing.
+nothing. A delta installed on the card (``apply_delta``, plain and
+staged on the side stream) BITWISE the CPU install (rows and arrays are
+copied); deltas staged and installed through the engine while clients
+keep its batcher busy give BITWISE the scores of a model that took them
+quiesced (the same kernels at the same shapes).
 """
 
 import numpy as np
@@ -1515,3 +1519,88 @@ def test_staged_fit_on_card_equals_ring_fit(cuda):
     for op, p in runs[0].params.items():
         for pn, v in p.items():
             assert torch.equal(v, runs[1].params[op][pn]), (op, pn)
+
+
+def _delta_payload(model, seed, n_rows=24):
+    """A delta of random rows of every table and one whole bias, in the
+    JAX stored layout (what ``utils.delta.load_delta_file`` returns)."""
+    from dlrm_flexflow_tpu_torch.utils.weights import jax_param_shapes
+    rng = np.random.RandomState(seed)
+    rows, full = {}, {}
+    for op, shapes in jax_param_shapes(model).items():
+        for pn, shape in shapes.items():
+            if len(shape) >= 2:
+                n = int(np.prod(shape[:-1]))
+                idx = np.sort(rng.choice(n, size=min(n_rows, n),
+                                         replace=False)).astype(np.int64)
+                rows[f"params/{op}/{pn}"] = (
+                    idx, rng.randn(len(idx), shape[-1]).astype(np.float32))
+            else:
+                full[f"params/{op}/{pn}"] = rng.randn(*shape).astype(
+                    np.float32)
+    return {"step": 7, "prev_step": 0, "base_step": 0, "rows": rows,
+            "full": full}
+
+
+@pytest.mark.parametrize("mode", ["cat", "dot"])
+def test_apply_delta_on_card_matches_cpu(cuda, mode):
+    """A delta installed on the card, plain and staged on the side
+    stream, is bitwise the CPU install (copies only)."""
+    from dlrm_flexflow_tpu_torch.utils.delta import stage_delta_rows
+    gpu = _model(mode, "cuda")
+    staged = _model(mode, "cuda", gpu.params)
+    cpu = _model(mode, "cpu", gpu.params)
+    payload = _delta_payload(gpu, seed=1)
+    gpu.apply_delta(payload)
+    cpu.apply_delta(payload)
+    st = stage_delta_rows(staged, payload)
+    assert st["ready"] is not None and all(
+        i.is_cuda and v.is_cuda for i, v in st["staged"].values())
+    staged.apply_delta(st)
+    for op, p in cpu.params.items():
+        for pn, v in p.items():
+            assert torch.equal(gpu.params[op][pn].cpu(), v), (op, pn)
+            assert torch.equal(staged.params[op][pn].cpu(), v), (op, pn)
+    assert gpu._step == staged._step == cpu._step == 7
+
+
+@pytest.mark.parametrize("mode", ["cat", "dot"])
+def test_staged_delta_under_traffic_serves_as_quiesced(cuda, mode):
+    """Deltas staged on the side stream and installed through the engine
+    while client threads keep the batcher busy give, after the last
+    install, the scores of a model that took the same deltas quiesced;
+    every answer before is finite and tagged with an installed
+    version."""
+    import threading
+    from dlrm_flexflow_tpu_torch.utils.delta import stage_delta_rows
+    live = _model(mode, "cuda")
+    quiet = _model(mode, "cuda", live.params)
+    x, _ = synthetic_batch(DLRMConfig(**ARCH[mode]), 16, seed=5)
+    payloads = [dict(_delta_payload(live, seed=s), step=s)
+                for s in (1, 2, 3)]
+    for p in payloads:
+        quiet.apply_delta(p)
+    stop, errors, tags = threading.Event(), [], set()
+    with InferenceEngine(live, ServeConfig(max_batch=16)) as eng:
+        def client():
+            try:
+                while not stop.is_set():
+                    r = eng.predict(x, timeout=60)
+                    assert np.isfinite(r.scores).all()
+                    tags.add(r.version)
+            except Exception as e:   # noqa: BLE001 — asserted below
+                errors.append(e)
+
+        threads = [threading.Thread(target=client) for _ in range(3)]
+        for t in threads:
+            t.start()
+        for p in payloads:
+            eng.install_delta(stage_delta_rows(live, p), p["step"])
+        stop.set()
+        for t in threads:
+            t.join(60)
+        got = eng.predict(x, timeout=60)
+    assert not errors and tags <= {0, 1, 2, 3}
+    assert got.version == 3 and eng.stats()["reload_rejects"] == 0
+    want = quiet.forward_bucket(x, 16).cpu().numpy()
+    np.testing.assert_array_equal(got.scores, want)

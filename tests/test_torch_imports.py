@@ -64,6 +64,11 @@ def test_import_leaves_jax_out():
             "import dlrm_flexflow_tpu_torch.utils.profiling\n"
             "import dlrm_flexflow_tpu_torch.utils.checkpoint\n"
             "import dlrm_flexflow_tpu_torch.examples.native.dlrm\n"
+            "import dlrm_flexflow_tpu_torch.examples.native.serve_dlrm\n"
+            "import dlrm_flexflow_tpu_torch.obs.drift\n"
+            "import dlrm_flexflow_tpu_torch.utils.delta\n"
+            "import dlrm_flexflow_tpu_torch.utils.histogram\n"
+            "import dlrm_flexflow_tpu_torch.serve.watcher\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad\n")

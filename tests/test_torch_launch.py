@@ -83,7 +83,7 @@ def test_sparse_ids_past_the_tables_raise(files, tmp_path):
     (["--profiling"], "item 6"),
     (["--superstep", "4"], "item 6"),
     (["--debug-nans"], "item 6"),
-    (["--data-path", "train.h5"], "item 6"),
+    (["--debug-nans", "--profiling"], "item 6"),
     (["--host-tables"], "item 2.4"),
     (["--arch-interaction-op", "dot"], "item 4"),
 ])

@@ -1,0 +1,236 @@
+"""The port's serving app, ``python -m
+dlrm_flexflow_tpu_torch.examples.native.serve_dlrm``, on the CPU through a
+real ``ThreadingHTTPServer`` on 127.0.0.1 (port 0): its endpoints, status
+codes and JSON keys are the JAX app's.
+
+- ``/predict`` answers the engine's scores, and the JSON round trip of
+  the float32 scores is EXACT (``tolist()``, float64 text): BITWISE the
+  app model's ``forward_bucket`` on the same bucket; with
+  ``--checkpoint-dir`` the app restores the newest snapshot and then
+  hot-reloads a published delta, answering the trainer's scores bitwise.
+- ``/healthz`` 200 while serving and 503 once draining; ``/stats`` the
+  engine's stats with the reload counters; ``/metrics`` the Prometheus
+  text with the JAX engine's series names under ``--obs on`` and a
+  comment without it; 400, 404, 429 and 504 where the JAX app answers
+  them.
+- ``--retrieve on``: ``/predict`` answers candidates and ``/retrieve``
+  the index stage alone, with the JAX app's keys.
+- The JAX app's other deployments raise, naming their ROADMAP item.
+"""
+
+import json
+import threading
+import time
+import urllib.error
+import urllib.request
+
+import numpy as np
+import pytest
+
+from dlrm_flexflow_tpu_torch.data.stream import ArrayStream
+from dlrm_flexflow_tpu_torch.examples.native import serve_dlrm
+from dlrm_flexflow_tpu_torch.models.dlrm import DLRMConfig, synthetic_batch
+from dlrm_flexflow_tpu_torch.obs import metrics, trace
+from dlrm_flexflow_tpu_torch.serve import DeadlineExceeded, Overloaded
+from dlrm_flexflow_tpu_torch.utils import delta
+
+from test_torch_delta import (BS, MIN_ELEMS, NO_SIZE_COMPACTION, SMALL,
+                              _data, _port_model)
+
+ARCH = ["--arch-embedding-size", "-".join(["64"] * 8),
+        "--arch-sparse-feature-size", "8", "--embedding-bag-size", "2",
+        "--arch-mlp-bot", "4-16-8", "--arch-mlp-top", "72-16-1"]
+BASE = ["--device", "cpu", "-b", str(BS), "--host", "127.0.0.1",
+        "--port", "0", "--serve-max-batch", "8"] + ARCH
+
+
+@pytest.fixture(autouse=True)
+def _obs_off(monkeypatch):
+    for mod in (metrics, trace):
+        monkeypatch.setattr(mod, "_ENABLED", False)
+    yield
+    metrics.registry().reset()
+    trace.clear()
+
+
+class _Running:
+    """An app serving on a thread; ``close`` stops and releases it."""
+
+    def __init__(self, argv):
+        self.app = serve_dlrm.App(argv)
+        host, port = self.app.address
+        self.url = f"http://{host}:{port}"
+        self._th = threading.Thread(target=self.app.serve, daemon=True)
+        self._th.start()
+
+    def get(self, path):
+        return self._call(urllib.request.Request(self.url + path))
+
+    def post(self, path, body):
+        data = body if isinstance(body, bytes) else json.dumps(body).encode()
+        return self._call(urllib.request.Request(self.url + path, data=data,
+                                                 method="POST"))
+
+    @staticmethod
+    def _call(req):
+        try:
+            with urllib.request.urlopen(req, timeout=60) as r:
+                return r.status, r.read().decode()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read().decode()
+
+    def close(self):
+        self.app.shutdown()
+        self._th.join(30)
+        self.app.close()
+
+
+def _request(n=3, seed=4):
+    x, _ = synthetic_batch(DLRMConfig(**SMALL), n, seed=seed)
+    return x, {k: v.tolist() for k, v in x.items()}
+
+
+def test_endpoints_codes_and_keys(monkeypatch):
+    srv = _Running(BASE)
+    try:
+        x, body = _request()
+        code, text = srv.post("/predict", body)
+        assert code == 200
+        out = json.loads(text)
+        assert set(out) == {"scores", "version", "latency_ms"}
+        want = srv.app.engine.model.forward_bucket(x, 4).numpy().reshape(-1)
+        np.testing.assert_array_equal(np.asarray(out["scores"], np.float32),
+                                      want)
+        assert out["version"] == 0
+        code, text = srv.get("/healthz")
+        assert code == 200 and json.loads(text)["ok"] is True
+        code, text = srv.get("/stats")
+        st = json.loads(text)
+        assert code == 200 and st["responses"] == 1
+        assert {"reloads", "full_reloads", "delta_reloads",
+                "reload_rejects"} <= set(st)
+        code, text = srv.get("/metrics")
+        assert code == 200 and text.startswith("# observability is off")
+        assert srv.get("/nope")[0] == 404
+        assert srv.post("/retrieve", body)[0] == 404
+        assert srv.post("/predict", {"dense": body["dense"]})[0] == 400
+        assert srv.post("/predict", b"{not json")[0] == 400
+        bad = dict(body, dense=[[0.0] * 5] * 3)
+        assert srv.post("/predict", bad)[0] == 400
+        eng = srv.app.engine
+        for exc, status in ((Overloaded(3, 3), 429),
+                            (DeadlineExceeded("late"), 504),
+                            (RuntimeError("boom"), 500)):
+            def fail(*a, _e=exc, **k):
+                raise _e
+            monkeypatch.setattr(eng, "predict", fail)
+            code, text = srv.post("/predict", body)
+            assert code == status and "error" in json.loads(text)
+        monkeypatch.undo()
+        eng.close()                       # draining: a balancer must stop
+        code, text = srv.get("/healthz")
+        assert code == 503 and json.loads(text)["draining"] is True
+    finally:
+        srv.close()
+
+
+def test_restores_then_hot_reloads_the_trainers_chain(tmp_path):
+    """A trainer publishes a full base; the app restores it params-only
+    at start, then follows a delta (--serve-poll 0.01): /predict answers
+    the trainer's forward_bucket bitwise at each version, and /metrics
+    (--obs on) shows the reload series."""
+    pm = _port_model(seed=2, order=None)      # the app's storage order
+    pub = delta.DeltaPublisher(pm, str(tmp_path),
+                               compact_frac=NO_SIZE_COMPACTION,
+                               row_delta_min_elems=MIN_ELEMS)
+    x, y = _data()
+    src = ArrayStream(x, y, BS, seed=1)
+
+    def train(a, b):
+        for i in range(a, b):
+            pub.observe_batch(src(i))
+            pm.train_batch(src(i))
+        pub.publish({"stream_step": b})
+
+    train(0, 2)
+    srv = _Running(BASE + ["--checkpoint-dir", str(tmp_path),
+                           "--serve-poll", "0.01", "--obs", "on"])
+    try:
+        q, body = _request(n=5)
+        for version in (2, 4):
+            if version == 4:
+                train(2, 4)
+                deadline = time.monotonic() + 30
+                while (srv.app.engine.version != 4
+                       and time.monotonic() < deadline):
+                    time.sleep(0.01)
+            out = json.loads(srv.post("/predict", body)[1])
+            assert out["version"] == version
+            np.testing.assert_array_equal(
+                np.asarray(out["scores"], np.float32),
+                pm.forward_bucket(q, 8).numpy().reshape(-1))
+        st = json.loads(srv.get("/stats")[1])
+        assert (st["full_reloads"], st["delta_reloads"]) == (1, 1)
+        code, text = srv.get("/metrics")
+        assert code == 200
+        for name in ("ff_serve_reloads_total", "ff_serve_delta_reloads_total",
+                     "ff_serve_reload_rejects_total", "ff_serve_version",
+                     "ff_watcher_polls_total",
+                     "ff_serve_request_latency_ms_count"):
+            assert name in text, name
+        assert 'ff_serve_version{replica=""} 4' in text
+    finally:
+        srv.close()
+
+
+def test_retrieve_on_answers_candidates():
+    srv = _Running(BASE + ["--serve-max-batch", "16",
+                           "--retrieve", "on", "--retrieve-k", "5",
+                           "--retrieve-shards", "2",
+                           "--retrieve-deadline-ms", "10000"])
+    try:
+        _, body = _request(n=2)
+        code, text = srv.post("/predict", body)
+        assert code == 200
+        out = json.loads(text)
+        assert set(out) == {"candidates", "scores", "version",
+                            "retrieve_versions", "degraded", "latency_ms",
+                            "stage_ms"}
+        assert np.asarray(out["candidates"]).shape == (2, 5)
+        assert out["degraded"] is False
+        code, text = srv.post("/retrieve", dict(body, k=3))
+        out = json.loads(text)
+        assert code == 200 and set(out) == {
+            "ids", "scores", "versions", "degraded", "dropped_slots",
+            "latency_ms"}
+        ids = np.asarray(out["ids"])
+        assert ids.shape == (2, 3) and (ids >= 0).all() and (ids < 64).all()
+        assert "cascade" in json.loads(srv.get("/stats")[1])
+    finally:
+        srv.close()
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--serve-replicas", "2"], "item 9.4"),
+    (["--serve-slo-ms", "20"], "item 9.4"),
+    (["--serve-min-replicas", "1"], "item 9.4"),
+    (["--serve-max-replicas", "4"], "item 9.4"),
+    (["--serve-hedge-ms", "5"], "item 9.4"),
+    (["--serve-canary-fraction", "0.2"], "item 9.4"),
+    (["--serve-shards", "2"], "item 9.3"),
+    (["--serve-shard-procs", "2"], "item 9.3"),
+    (["--serve-transport", "tcp"], "item 9.3"),
+    (["--serve-degrade", "fail"], "item 9.3"),
+    (["--serve-lookup-deadline-ms", "9"], "item 9.3"),
+    (["--serve-cache-rows", "64"], "item 9.2"),
+    (["--serve-cache-warm", "x.npz"], "item 9.2"),
+    (["--compile-cache-dir", "x"], "item 9.5"),
+])
+def test_unported_deployments_raise_with_their_item(flags, item):
+    with pytest.raises(NotImplementedError, match=item):
+        serve_dlrm.App(BASE + flags)
+
+
+def test_retrieve_shards_without_retrieve_is_refused():
+    with pytest.raises(SystemExit, match="--retrieve on"):
+        serve_dlrm.App(BASE + ["--retrieve-shards", "2"])

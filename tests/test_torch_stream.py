@@ -314,9 +314,15 @@ def test_fit_stream_under_skip_step_and_its_refusals():
     with pytest.raises(ValueError) as ej:
         jrb.fit_stream(JaxArrayStream(x, y, 8), steps=2)
     assert str(ep.value) == str(ej.value)
-    for kw in ({"publisher": object()}, {"resume": True}):
-        with pytest.raises(NotImplementedError, match="item 9.5"):
-            pm.fit_stream(src, steps=2, **kw)
+    # a publisher needs publish_every >= 1, as the JAX fit_stream says
+    for kw in ({"publish_every": 0}, {}):
+        with pytest.raises(ValueError) as ep:
+            pm.fit_stream(src, steps=2, publisher=object(), **kw)
+        with pytest.raises(ValueError) as ej:
+            jm.fit_stream(JaxArrayStream(x, y, 8), steps=2,
+                          publisher=object(), **kw)
+        assert str(ep.value) == str(ej.value)
+        assert "publish_every >= 1" in str(ep.value)
 
 
 def test_fit_stream_trains_off_a_spool_on_a_thread():
