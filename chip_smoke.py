@@ -210,7 +210,8 @@ Phases:
    device time of its kernels gives the device's idle share;
 9. the online loop and the serving app — run after the cascade phase,
    before any profiler session, in ``build/smoke`` (removed at the end).
-   (a) A full-width "dot" trainer at batch 2,048 under the launcher's
+   (a) A full-width trainer of the unfused "dot" graph (as the app
+   builds it from the same flags) at batch 2,048 under the launcher's
    SGD runs ``fit_stream`` over 48 batches of fresh samples with a
    ``DeltaPublisher`` publishing every 8 steps: a full base, four
    deltas (the fourth torn by ``FF_FAULT_DELTA_TORN=1``) and a
@@ -228,9 +229,9 @@ Phases:
    and recovering at the compaction, while 4 client threads post
    /predict; then a 3 s window with no reload, /healthz 200, /metrics's
    reload series, and SIGTERM with exit 0. Every count at 0 just before
-   the loop and read just after: one fused interaction a forward, one
-   read-modify-write scatter with its pre-pass and one dense update a
-   step, no plain version. Printed: each publish's split (the copy to
+   the loop and read just after: bags on every forward, one write-only
+   scatter with its pre-pass and one dense update a step, no plain
+   version. Printed: each publish's split (the copy to
    the host, the diff, the write, the checksum), freshness (publish
    start to served, p50 and p99, delta and full, engine and app) and
    /predict requests/s with and without a reload in flight. (b) The
@@ -238,6 +239,42 @@ Phases:
    k = 100), initialized weights, no checkpoint directory: /predict of
    two users answers 100 candidates each, /retrieve at k = 10 ids among
    them, SIGTERM exits 0.
+
+10. criteo — Criteo's shapes, after phase 9. (0) Kernels 1-3 and the
+   stateful entry at the Criteo-Kaggle step's shape: 6,656 lookups
+   (batch 256 x 26 tables) at d = 16 into the 11,386,880-row
+   concatenated table (``EmbeddingBagConcat``'s global ids of synthetic
+   batches), the bag within 1e-6 of its plain version, the scatters and
+   the stateful update (Adam) bitwise against theirs on the CPU, each
+   timed beside its bound, its plain version and ``F.embedding_bag`` /
+   ``index_add_``: one JSON line ``{"criteo_shapes": [...]}``. (a)
+   Criteo-Kaggle (``DLRMConfig.criteo_kaggle()``, 26 tables of 4 to
+   3,166,985 rows x 16, 0.73 GB) at batch 256 in the "cat" and the
+   unfused "dot" graph under SGD and Adam: four steps on the kernels
+   held against the same four steps, from the same weights and batches,
+   on the plain versions of the bag, the scatters, the stateful entry
+   and the dense update on the card (loss within rtol 1e-4; every
+   parameter's and slab's change within 1e-3 of its largest change,
+   1e-2 under Adam), counted (one bag, one scatter and one dense update
+   a step; none in the plain run), then 20 steps timed:
+   ms a step and samples/s. (c) The launcher with
+   ``run_criteo_kaggle.sh``'s flags on the synthetic batch, on device
+   tables and with ``--host-tables``, counted. (b) Criteo-Terabyte's
+   widths with ``--host-tables``: the unfused "dot", 26 tables at d =
+   128, bottom 13-512-256-128, top 479-1024-512-256-1, batch 2,048, SGD;
+   the tables' rows are cut by one common factor (the tables of 1M rows
+   or more) only as far as the host memory the process may still take
+   (``MemAvailable``, and a memory cgroup's limit less its use where it
+   has one) less 12 GiB forces, printed;
+   the host init timed; the dense update over the model's dense set
+   held bitwise to its plain version under every optimizer; a batch trained five times in exact mode must
+   lower its loss; then 8 steps in exact and 8 in async mode (the next
+   batch's ids passed, as ``fit`` passes them), each with samples/s and
+   per step the host gather, the copy to the card, the cotangents'
+   readback, the host scatter, the wall time, the device's busy time and
+   idle share; one dense update a step and no bag or scatter on the
+   card; untouched host rows unchanged. ``python3 chip_smoke.py
+   --criteo`` runs only this phase (the kernels built first).
 
 The last two lines are a JSON object with every kernel's numbers and
 ``{"ok": true, "device": {...}}``. Without a GPU, or when any check
@@ -1495,6 +1532,37 @@ def library_update(opt, ws, gs, slabs, steps):
     return None
 
 
+def dense_matches_plain(ws, gs, gen, what):
+    """``dense_update`` over the weights `ws` and gradients `gs`, from
+    non-zero state, in one launch, held BITWISE to its plain version on
+    the card (``dense_update_reference``) under all of DENSE_OPTS; `ws`
+    ends as the plain version left it. Returns the largest difference."""
+    step = torch.tensor(4, dtype=torch.int32, device=ws[0].device)
+    err = 0.0
+    for name, make in DENSE_OPTS.items():
+        opt = make()
+        p, alpha_t = opt.row_params(), opt.alpha_t(step)
+        slabs = dense_state(gen, ws, opt.sparse_slab_names())
+        got_w = [w.clone() for w in ws]
+        got_s = [{k: v.clone() for k, v in s.items()} for s in slabs]
+        before = dense_mod.dense_update.launches
+        dense_mod.dense_update(got_w, gs, got_s, p, alpha_t)
+        made = dense_mod.dense_update.launches - before
+        check(made == 1, f"dense_update made {made} launches for "
+              f"{len(ws)} tensors")
+        dense_mod.dense_update_reference(ws, gs, slabs, p, alpha_t)
+        for a, b in zip(got_w + [t for s in got_s for t in s.values()],
+                        ws + [t for s in slabs for t in s.values()]):
+            err = max(err, float((a - b).abs().max()))
+            check(torch.equal(a, b), f"dense_update kernel ({what}, "
+                  f"{name}) disagrees with its plain version")
+        del got_w, got_s, slabs
+    print(f"kernel dense_update over {what} ({len(ws)} tensors, "
+          f"{sum(w.numel() for w in ws)} elements): bitwise equal to its "
+          f"plain version on the card under {', '.join(DENSE_OPTS)}")
+    return err
+
+
 def dense_kernel(dev):
     """The dense update (``dense_update``, one launch for every dense
     parameter of a step) over the full-width "dot" parameter set (the
@@ -1515,28 +1583,7 @@ def dense_kernel(dev):
         ws = dense_params(mode)
         gs = [torch.randn(w.shape, device=dev, generator=gen) for w in ws]
         nel = sum(w.numel() for w in ws)
-        err = 0.0
-        for name, make in DENSE_OPTS.items():
-            opt = make()
-            p, alpha_t = opt.row_params(), opt.alpha_t(step)
-            slabs = dense_state(gen, ws, opt.sparse_slab_names())
-            got_w = [w.clone() for w in ws]
-            got_s = [{k: v.clone() for k, v in s.items()} for s in slabs]
-            before = dense_mod.dense_update.launches
-            dense_mod.dense_update(got_w, gs, got_s, p, alpha_t)
-            made = dense_mod.dense_update.launches - before
-            check(made == 1, f"dense_update made {made} launches for "
-                  f"{len(ws)} tensors")
-            dense_mod.dense_update_reference(ws, gs, slabs, p, alpha_t)
-            for a, b in zip(got_w + [t for s in got_s for t in s.values()],
-                            ws + [t for s in slabs for t in s.values()]):
-                err = max(err, float((a - b).abs().max()))
-                check(torch.equal(a, b), f"dense_update kernel ({mode}, "
-                      f"{name}) disagrees with its plain version")
-            del got_w, got_s, slabs
-        print(f"kernel dense_update over the \"{mode}\" set ({len(ws)} "
-              f"tensors, {nel} elements): bitwise equal to its plain version "
-              f"on the card under {', '.join(DENSE_OPTS)}")
+        err = dense_matches_plain(ws, gs, gen, f"the \"{mode}\" set")
         for name in ("adam", "sgd"):
             opt = DENSE_OPTS[name]()
             p, alpha_t = opt.row_params(), opt.alpha_t(step)
@@ -2148,11 +2195,11 @@ def fit_restart(work):
     broken = model(SEED, "never")
     real, calls = broken.train_batch_staged, []
 
-    def crashing(staged):
+    def crashing(staged, **kw):
         calls.append(1)
         if len(calls) == half + 1:
             raise SimulatedCrash()
-        return real(staged)
+        return real(staged, **kw)
 
     broken.train_batch_staged = crashing
     try:
@@ -2548,10 +2595,10 @@ def rollback_run(work):
           f"needs {3 * nbytes / 1e9:.1f} GB")
     real, marks = rb.train_batch_device, []
 
-    def marked(db):
+    def marked(db, **kw):
         marks.append(("start", time.perf_counter()))
         try:
-            return real(db)
+            return real(db, **kw)
         finally:
             marks.append(("end", time.perf_counter()))
 
@@ -2945,8 +2992,9 @@ def _loop(work, app_holder):
     app_holder.append(app)
 
     def model(seed, batch):
+        # the unfused "dot", as the app builds it from the same flags
         m = FFModel(FFConfig(batch_size=batch, seed=seed, device="cuda"))
-        build_dlrm(m, cfg, fuse_interaction=True)
+        build_dlrm(m, cfg)
         m.compile(SGDOptimizer(lr=LR), "mean_squared_error", ["mse"])
         m.init_layers()
         return m
@@ -3064,8 +3112,9 @@ def _loop(work, app_holder):
     check(est["delta_reloads"] == LOOP_DELTAS - 1
           and est["full_reloads"] == 2 and est["reload_rejects"] == 1,
           f"loop: engine reloads {est}")
-    check(plain.calls == 0 and launches["fused_interaction"] > 0
-          and launches["scatter_add_rows"] == LOOP_STEPS
+    check(plain.calls == 0 and launches["embedding_bag"] > 0
+          and launches["scatter_write_rows"] == LOOP_STEPS
+          and launches["scatter_presort"] == LOOP_STEPS
           and launches["dense_update"] == LOOP_STEPS,
           f"loop: launches {launches}, plain calls {plain.calls}")
 
@@ -3202,7 +3251,7 @@ def app_phase(work):
 
 
 def serving_app_phase():
-    """Phases 9 and 10 in WORK_DIR (removed at the end whatever happens).
+    """Phase 9, (a) and (b), in WORK_DIR (removed at the end whatever happens).
     Returns the loop's launch counts."""
     shutil.rmtree(WORK_DIR, ignore_errors=True)
     WORK_DIR.mkdir(parents=True)
@@ -3619,6 +3668,578 @@ def nmt_card_vs_cpu():
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------
+# Criteo's shapes (phase 10): non-uniform tables, the unfused "dot" and
+# host-resident tables
+# ---------------------------------------------------------------------
+KAGGLE_D = 16
+KAGGLE_CHECK_STEPS = 4   # steps of each run held against the plain run
+KAGGLE_TIMED = 20        # back-to-back steps timed
+# id sets cycled when timing the kernels at the Kaggle step's shape:
+# 160 x (6,656 ids, updates and rows) = 143 MB, more than the 50 MB L2
+KAGGLE_SETS = 160
+KAGGLE_RUNS = (("cat", "sgd"), ("cat", "adam"), ("dot", "sgd"),
+               ("dot", "adam"))
+# examples/native/run_criteo_kaggle.sh's flags, on the synthetic batch
+KAGGLE_FLAGS = ["-b", str(TRAIN_B), "-e", "1", "--lr", str(LR),
+                "--arch-embedding-size",
+                "-".join(map(str, DLRMConfig.criteo_kaggle().embedding_size)),
+                "--arch-sparse-feature-size", str(KAGGLE_D),
+                "--arch-mlp-bot", "13-512-256-64-16",
+                "--arch-mlp-top", "224-512-256-1"]
+# Criteo-Terabyte (the MLPerf DLRM shapes) with --host-tables: batch
+# 2,048, "dot", TB_STEPS timed steps in each mode; the tables of at
+# least TB_LARGE rows are the ones cut, by one common factor, when the
+# host memory this process may still take (``host_headroom``) cannot
+# hold them whole with TB_RESERVE bytes left: the process grows while it
+# trains (the init's draws, a step's rows, cotangents and batches, the
+# allocators' caches), and a process that meets the machine's limit is
+# killed
+TB_B = 2048
+TB_STEPS = 8
+TB_LARGE = 1_000_000
+TB_RESERVE = 12 << 30
+
+
+def kaggle_model(mode, opt, device="cuda", **cfg):
+    """The full Criteo-Kaggle DLRM (26 tables, 11,386,880 concatenated
+    rows x 16) in one graph, built as the launcher builds it, compiled
+    under one of TRAIN_OPTS; not initialized."""
+    dcfg = DLRMConfig.criteo_kaggle()
+    dcfg.arch_interaction_op = mode
+    m = FFModel(FFConfig(batch_size=TRAIN_B, device=device, seed=SEED,
+                         **cfg))
+    build_dlrm(m, dcfg)
+    m.compile(TRAIN_OPTS[opt](), "mean_squared_error", ["mse"])
+    return m, dcfg
+
+
+@contextlib.contextmanager
+def plain_embedding_kernels():
+    """The embedding ops' kernels 1-3 and the stateful entry, and the
+    optimizers' dense update, replaced by their plain PyTorch versions,
+    run on the card's tensors (the ops look them up as globals of
+    ``ops/embedding.py``, the optimizers as one of ``core/optimizers.py``,
+    as EagerDense swaps it). On the card the plain scatters add a row's
+    duplicates with atomics, in no fixed order."""
+    from dlrm_flexflow_tpu_torch.ops import embedding as emb_mod
+
+    class PlainBag:
+        @staticmethod
+        def apply(table, ids, aggr):
+            return bag_mod.embedding_bag_reference(table, ids, aggr)
+
+    swaps = {
+        "embedding_bag": lambda table, ids, aggr="sum", return_rows=False:
+            bag_mod.embedding_bag_reference(table, ids, aggr, return_rows),
+        "EmbeddingBagFunction": PlainBag,
+        "scatter_add_rows": lambda table, ids, upd, scale=1.0, div=1,
+            ids_in_range=False, ok=None: scat_mod.scatter_add_rows_reference(
+                table, ids, upd, scale, div, ok),
+        "scatter_write_rows": lambda table, ids, upd, fwd, scale=1.0, div=1,
+            ids_in_range=False, ok=None:
+            scat_mod.scatter_write_rows_reference(table, ids, upd, fwd,
+                                                  scale, div, ok),
+        "stateful_update_rows": lambda table, ids, upd, fwd, slabs, p,
+            alpha_t=None, div=1, ids_in_range=False, ok=None:
+            scat_mod.stateful_update_rows_reference(
+                table, ids, upd, fwd, slabs, p, alpha_t, div, ok),
+    }
+    saved = {k: getattr(emb_mod, k) for k in swaps}
+    try:
+        for k, v in swaps.items():
+            setattr(emb_mod, k, v)
+        with EagerDense():
+            yield
+    finally:
+        for k, v in saved.items():
+            setattr(emb_mod, k, v)
+
+
+def add_counts(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def criteo_kernels(dev):
+    """Kernels 1-3 and the stateful entry at the Criteo-Kaggle step's
+    shape: 6,656 lookups (batch 256 x 26 tables) at d = 16 into the
+    11,386,880-row concatenated table, the ids as ``EmbeddingBagConcat``
+    makes them from synthetic batches; each held to its plain version
+    (the bag within 1e-6, the scatters and the stateful update bitwise
+    against the plain versions on the CPU) and timed beside its bound,
+    its plain version and the PyTorch call that computes the same
+    function. Prints a JSON line {"criteo_shapes": [...]}."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    model, dcfg = kaggle_model("cat", "sgd")
+    op = model.get_layer_by_name("emb_concat")
+    nrows, d = op.total_rows, KAGGLE_D
+    table = 0.05 * torch.randn(nrows, d, device=dev, generator=gen)
+    n = TRAIN_B * len(dcfg.embedding_size)
+    sets = []
+    for s in range(KAGGLE_SETS):
+        x, _ = synthetic_batch(dcfg, TRAIN_B, seed=SEED + 1000 + s)
+        gid = op._global_ids(torch.as_tensor(x["sparse"], device=dev))
+        upd = torch.randn(n, d, device=dev, generator=gen)
+        sets.append((gid, upd))
+    del model
+    shape = f"n={n} d={d} (Criteo-Kaggle step, {nrows:,}-row table)"
+    out = []
+    ids2, upd = sets[0]
+    ids = ids2.reshape(-1)
+    uniq = torch.unique(ids)
+    m = int(uniq.numel())
+
+    # kernel 1: the bag
+    got = bag_mod.embedding_bag(table, ids2, "sum")
+    want = bag_mod.embedding_bag_reference(table, ids2, "sum")
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(torch.allclose(got, want, rtol=1e-6, atol=1e-6),
+          f"embedding_bag disagrees with its plain version at {shape}: "
+          f"{err}")
+    b_ms, b_by = bound(n * d * 4 + n * d * 4 + n * 8, n * d)
+    args = [(g,) for g, _ in sets]
+    out.append({
+        "name": "embedding_bag", "shape": shape, "max_abs_err": err,
+        "bound_ms": b_ms, "bound_by": b_by,
+        **timed("", lambda i: bag_mod.embedding_bag(table, i, "sum"), args),
+        **timed("plain_", lambda i: bag_mod.embedding_bag_reference(
+            table, i, "sum"), args),
+        **timed("library_", lambda i: torch.nn.functional.embedding_bag(
+            i, table, mode="sum"), args)})
+    print_row(out[-1], f" at {shape}; library: F.embedding_bag")
+
+    # kernels 2 and 3: the write-only and the read-modify-write scatter
+    table_cpu = table.cpu()
+    fwd = table[ids]
+    flat_sets = [(g.reshape(-1), u, table[g.reshape(-1)], -LR * u)
+                 for g, u in sets]
+    for name, with_fwd in (("scatter_write_rows", True),
+                           ("scatter_add_rows", False)):
+        kern = getattr(scat_mod, name)
+        plain = getattr(scat_mod, name + "_reference")
+
+        def call(fn, t, i, u, f, *_, with_fwd=with_fwd, **kw):
+            if with_fwd:
+                return fn(t, i, u, f, -LR, **kw)
+            return fn(t, i, u, -LR, **kw)
+
+        got = call(kern, table.clone(), ids, upd, fwd, ids_in_range=True)
+        want = call(plain, table_cpu.clone(), ids.cpu(), upd.cpu(),
+                    fwd.cpu())
+        got_rows, want_rows = got[uniq].cpu(), want[uniq.cpu()]
+        err = float((got_rows - want_rows).abs().max())
+        check(torch.equal(got.cpu(), want),
+              f"{name} disagrees with its plain version at {shape}: {err}")
+        del got, want
+        b_ms, b_by = bound(n * 8 + n * d * 4 + 2 * m * d * 4, 2 * n * d)
+        scratch = table.clone()
+        out.append({
+            "name": name, "shape": shape, "max_abs_err": err,
+            "bound_ms": b_ms, "bound_by": b_by,
+            **timed("", lambda *a: call(kern, scratch, *a,
+                                        ids_in_range=True), flat_sets),
+            **timed("plain_", lambda *a: call(plain, scratch, *a),
+                    flat_sets),
+            **timed("library_", lambda i, _u, _f, scaled:
+                    scratch.index_add_(0, i, scaled), flat_sets)})
+        print_row(out[-1], f" at {shape} ({m} distinct rows); library: "
+                  f"index_add_")
+        del scratch
+
+    # the stateful entry under Adam, on its one-launch route
+    opt = TRAIN_OPTS["adam"]()
+    p = opt.row_params()
+    alpha_t = opt.alpha_t(torch.tensor(4, dtype=torch.int32, device=dev))
+    slabs = {k: 1e-3 * torch.rand(nrows, d, device=dev, generator=gen)
+             for k in ("m", "v")}
+    check(scat_mod.stateful_route(n, nrows) == "fused",
+          "the Kaggle step's stateful update is not on the fused route")
+    got, got_s = table.clone(), {k: v.clone() for k, v in slabs.items()}
+    scat_mod.stateful_update_rows(got, ids, upd, fwd, got_s, p, alpha_t,
+                                  ids_in_range=True)
+    want, want_s = table_cpu.clone(), {k: v.cpu() for k, v in slabs.items()}
+    scat_mod.stateful_update_rows_reference(want, ids.cpu(), upd.cpu(),
+                                            fwd.cpu(), want_s, p,
+                                            alpha_t.cpu())
+    err = float((got[uniq].cpu() - want[uniq.cpu()]).abs().max())
+    check(torch.equal(got.cpu(), want)
+          and all(torch.equal(got_s[k].cpu(), want_s[k]) for k in slabs),
+          f"stateful_update_rows disagrees with its plain version at "
+          f"{shape} (Adam)")
+    del got, got_s, want, want_s, table_cpu
+    b_ms, b_by = bound(n * 8 + n * d * 4 + m * d * 4 * (2 + 2 * 2),
+                       n * d + 12 * m * d)
+    st_sets = [(i, u, f) for i, u, f, _ in flat_sets]
+    out.append({
+        "name": "stateful_update_rows", "shape": shape, "max_abs_err": err,
+        "bound_ms": b_ms, "bound_by": b_by,
+        **timed("", lambda i, u, f: scat_mod.stateful_update_rows(
+            table, i, u, f, slabs, p, alpha_t, ids_in_range=True), st_sets),
+        **timed("plain_", lambda i, u, f:
+                scat_mod.stateful_update_rows_reference(
+                    table, i, u, f, slabs, p, alpha_t), st_sets),
+        "library_ms": None, "library_call_ms": None})
+    print_row(out[-1], f" at {shape} (Adam, fused route; library: none)")
+    del slabs, sets, flat_sets, st_sets, table
+    torch.cuda.empty_cache()
+    keys = ("name", "shape", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "max_abs_err")
+    print(json.dumps({"criteo_shapes": [{k: r[k] for k in keys}
+                                        for r in out]}))
+
+
+def same_changes(before, a, b, frac, what):
+    """Each tensor's change in `b` within `frac` of its largest change in
+    `a`; returns the largest such fraction seen."""
+    worst = 0.0
+    for op in a:
+        for pn in a[op]:
+            da = (a[op][pn] - before[op][pn]).float()
+            db = (b[op][pn] - before[op][pn]).float()
+            scale = float(da.abs().max())
+            diff = float((db - da).abs().max())
+            check(diff <= frac * scale + 1e-7,
+                  f"{what}: {op}.{pn} changed by up to {diff:.3g} more or "
+                  f"less than on the kernels (largest change {scale:.3g})")
+            worst = max(worst, diff / scale if scale else 0.0)
+    return worst
+
+
+def kaggle_runs():
+    """Criteo-Kaggle at its full size on the card, in the "cat" and the
+    unfused "dot" graph, under SGD and Adam: KAGGLE_CHECK_STEPS steps on
+    the kernels held against the same steps on the plain versions of
+    the bag, the scatters, the stateful entry and the dense update from
+    the same weights and batches (the loss within rtol 1e-4; every parameter's and slab's
+    change within 1e-3 of its largest change under SGD, 1e-2 under Adam:
+    the plain scatters add duplicates in no fixed order, and Adam turns
+    those differences of small gradients into update differences of
+    their own size), then KAGGLE_TIMED steps back to back. Launches
+    counted in both: one bag, one scatter (the write-only under SGD, the
+    stateful under Adam) and one dense update a step; none in the plain
+    run. Returns the launch counts."""
+    total = {}
+    for mode, opt in KAGGLE_RUNS:
+        a, dcfg = kaggle_model(mode, opt)
+        a.init_layers()
+        b, _ = kaggle_model(mode, opt)
+        b.swap_params({op: {n: v.clone() for n, v in p.items()}
+                       for op, p in a.params.items()})
+        before = {op: {n: v.clone() for n, v in p.items()}
+                  for op, p in a.params.items()}
+        dbs = []
+        for s in range(KAGGLE_CHECK_STEPS):
+            x, y = synthetic_batch(dcfg, TRAIN_B, seed=SEED + 200 + s)
+            x["label"] = y
+            dbs.append(a._device_batch(x))
+        scatter = ("stateful_update_rows" if opt == "adam"
+                   else "scatter_write_rows")
+        zero_counts()
+        with PlainCalls() as plain:
+            la = [float(a.train_batch_device(db)["loss"]) for db in dbs]
+        counts = read_counts()
+        add_counts(total, counts)
+        steps = KAGGLE_CHECK_STEPS
+        check(plain.calls == 0 and counts["embedding_bag"] == steps
+              and counts[scatter] == steps
+              and counts["dense_update"] == steps
+              and sum(counts[k] for k in SCATTERS) == steps,
+              f"criteo-kaggle {mode} {opt}: launches {counts}, plain "
+              f"calls {plain.calls}")
+        zero_counts()
+        with plain_embedding_kernels():
+            lb = [float(b.train_batch_device(db)["loss"]) for db in dbs]
+        counts = read_counts()
+        check(counts["embedding_bag"] == 0
+              and sum(counts[k] for k in SCATTERS) == 0
+              and counts["dense_update"] == 0,
+              f"criteo-kaggle {mode} {opt}: the plain run launched "
+              f"{counts}")
+        check(all(np.isfinite(la)) and np.allclose(la, lb, rtol=1e-4),
+              f"criteo-kaggle {mode} {opt}: losses {la} on the kernels, "
+              f"{lb} on the plain versions")
+        frac = 1e-2 if opt == "adam" else 1e-3
+        worst = same_changes(before, b.params, a.params, frac,
+                             f"criteo-kaggle {mode} {opt}")
+        for k in b.optimizer.sparse_slab_names():
+            zeros = {op: {n: torch.zeros_like(v) for n, v in p.items()}
+                     for op, p in b.opt_state[k].items()}
+            worst = max(worst, same_changes(zeros, b.opt_state[k],
+                                            a.opt_state[k], frac,
+                                            f"criteo-kaggle {mode} {opt} "
+                                            f"slab {k}"))
+        del b, before
+        # timed, back to back
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s in range(KAGGLE_TIMED):
+            mets = a.train_batch_device(dbs[s % len(dbs)])
+        float(mets["loss"])
+        ms = (time.perf_counter() - t0) * 1e3 / KAGGLE_TIMED
+        counts = read_counts()
+        add_counts(total, counts)
+        check(counts["embedding_bag"] == KAGGLE_TIMED
+              and counts[scatter] == KAGGLE_TIMED
+              and counts["dense_update"] == KAGGLE_TIMED,
+              f"criteo-kaggle {mode} {opt} timed: launches {counts}")
+        print(f"criteo-kaggle {mode} {opt}: {ms:.3f} ms a step, "
+              f"{TRAIN_B * 1e3 / ms:,.0f} samples/s (batch {TRAIN_B}, "
+              f"{a.get_layer_by_name('emb_concat').total_rows:,} x "
+              f"{KAGGLE_D} concatenated rows); {KAGGLE_CHECK_STEPS} steps "
+              f"on the kernels against the plain versions: loss rel diff "
+              f"{max(abs(p - q) / abs(q) for p, q in zip(la, lb)):.2g}, "
+              f"largest change diff {worst:.2g} of the change")
+        del a, dbs
+        torch.cuda.empty_cache()
+    return total
+
+
+def host_headroom():
+    """(bytes this process may still take, how it was read): the
+    kernel's MemAvailable and, where the process's memory cgroup has a
+    limit (v2 ``memory.max``, v1 ``memory.limit_in_bytes``), no more
+    than that limit less the group's use."""
+    with open("/proc/meminfo") as f:
+        avail = next(int(line.split()[1]) * 1024 for line in f
+                     if line.startswith("MemAvailable:"))
+    how = f"MemAvailable {avail / 1e9:.2f} GB"
+    with open("/proc/self/cgroup") as f:
+        groups = [line.strip().split(":", 2) for line in f]
+    for _, ctrl, path in groups:
+        if ctrl == "":
+            files = (f"/sys/fs/cgroup{path}/memory.max",
+                     f"/sys/fs/cgroup{path}/memory.current")
+        elif "memory" in ctrl.split(","):
+            files = (f"/sys/fs/cgroup/memory{path}/memory.limit_in_bytes",
+                     f"/sys/fs/cgroup/memory{path}/memory.usage_in_bytes")
+        else:
+            continue
+        try:
+            limit, used = (Path(f).read_text().strip() for f in files)
+        except OSError:
+            continue
+        if limit.isdigit() and int(limit) < 1 << 60:
+            room = int(limit) - int(used)
+            how += (f", cgroup limit {int(limit) / 1e9:.2f} GB of which "
+                    f"{int(used) / 1e9:.2f} GB used")
+            avail = min(avail, room)
+    return avail, how
+
+
+def terabyte_sizes(d):
+    """Criteo-Terabyte's 26 table sizes, the large ones cut by one
+    common factor when the host cannot hold them whole; (sizes, factor,
+    the bytes they take, how the host memory was read)."""
+    sizes = DLRMConfig.terabyte().embedding_size
+    pad = 8192
+
+    def nbytes(ss):
+        return -(-sum(ss) // pad) * pad * d * 4
+
+    avail, how = host_headroom()
+    budget = avail - TB_RESERVE
+    if nbytes(sizes) <= budget:
+        return sizes, 1.0, nbytes(sizes), how
+    large = sum(s for s in sizes if s >= TB_LARGE)
+    small = sum(s for s in sizes if s < TB_LARGE)
+    factor = (budget // (d * 4) - pad - small) / large
+    check(factor > 0.1, f"host RAM ({how}) holds less than a tenth of "
+          f"Criteo-Terabyte's tables")
+    cut = [int(s * factor) if s >= TB_LARGE else s for s in sizes]
+    return cut, factor, nbytes(cut), how
+
+
+def span_ms(name, steps):
+    """Milliseconds a step in the trace ring's spans of `name`."""
+    from dlrm_flexflow_tpu_torch.obs import trace as obst
+    return sum(e["dur"] for e in obst.events()
+               if e["name"] == name) / 1e3 / steps
+
+
+def terabyte_runs():
+    """Criteo-Terabyte's widths with --host-tables: the unfused "dot",
+    26 tables at d = 128, bottom 13-512-256-128, top 479-1024-512-256-1,
+    batch 2,048, SGD, the tables in host RAM (cut as ``terabyte_sizes``
+    says, printed). The host init is timed. Then TB_STEPS steps in exact
+    mode and in async mode (the next batch's ids passed, as ``fit``
+    passes them), each with: samples/s, and per step the host gather,
+    the copy of the rows to the card, the cotangents' readback (which
+    waits for the step's device work), the host scatter (the spans of
+    ``obs.trace``), the step's wall time, the device's busy time (the
+    profiler's kernel sum) and idle share. One dense update a step and no
+    bag or scatter on the card; finite losses; the exact-mode loss of one
+    batch trained five times falls; touched host rows change and a
+    sample of untouched rows does not. Before the steps, the dense
+    update over this model's dense set is held bitwise to its plain
+    version (``dense_matches_plain``). Returns the launch counts."""
+    from dlrm_flexflow_tpu_torch.obs import trace as obst
+    d = 128
+    sizes, factor, nbytes, how = terabyte_sizes(d)
+    full = DLRMConfig.terabyte().embedding_size
+    if factor < 1.0:
+        print(f"criteo-terabyte: host memory ({how}) holds "
+              f"not the full {sum(full):,} rows x {d} fp32 "
+              f"({-(-sum(full) // 8192) * 8192 * d * 4 / 1e9:.2f} GB) with "
+              f"{TB_RESERVE / 2 ** 30:.0f} GiB left for the process: the "
+              f"rows of the {sum(s >= TB_LARGE for s in full)} tables of "
+              f">= {TB_LARGE:,} rows cut by {factor:.4f}, to {sum(sizes):,} "
+              f"rows ({nbytes / 1e9:.2f} GB); the widths unchanged")
+    else:
+        print(f"criteo-terabyte: host memory ({how}) holds the full "
+              f"{sum(sizes):,} rows x {d} ({nbytes / 1e9:.2f} GB)")
+    dcfg = DLRMConfig.terabyte()
+    dcfg.embedding_size = sizes
+    dcfg.arch_interaction_op = "dot"
+    model = FFModel(FFConfig(batch_size=TB_B, seed=SEED,
+                             host_resident_tables=True,
+                             host_tables_async=False))
+    build_dlrm(model, dcfg)
+    model.compile(SGDOptimizer(lr=LR), "mean_squared_error", ["mse"])
+    check(model.get_layer_by_name("top_dense_0").in_dim == 128 + 351,
+          "the Terabyte top MLP does not take 479 features")
+    t0 = time.perf_counter()
+    model.init_layers()
+    init_s = time.perf_counter() - t0
+    kernel = model.host_params["emb_concat"]["kernel"]
+    print(f"criteo-terabyte: host init {init_s:.1f} s for "
+          f"{kernel.nbytes / 1e9:.2f} GB ({kernel.shape[0]:,} x "
+          f"{kernel.shape[1]} fp32, {len(sizes)} tables drawn on "
+          f"threads); the card holds {_model_bytes(model) / 1e6:.1f} MB "
+          f"of dense parameters")
+    # the dense update at this model's dense set (its MLPs, the tables
+    # being in host RAM), held to its plain version on copies
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    ws = [v.clone() for p in model.params.values() for v in p.values()]
+    dense_matches_plain(ws, [torch.randn(w.shape, device=w.device,
+                                         generator=gen) for w in ws],
+                        gen, "Criteo-Terabyte's dense set")
+    del ws
+    dbs, hidx = [], []
+    for s in range(4):
+        x, y = synthetic_batch(dcfg, TB_B, seed=SEED + 300 + s)
+        x["label"] = y
+        dbs.append(model._device_batch(x))
+        hidx.append({"emb_concat": x["sparse"]})
+    check(dbs[0]["sparse"].device.type == "cpu",
+          "the host tables' ids went to the card")
+    touched = np.unique(np.concatenate([
+        model.get_layer_by_name("emb_concat").host_flat_indices(
+            h["emb_concat"]).reshape(-1) for h in hidx]))
+    rng = np.random.RandomState(SEED)
+    spare = rng.randint(0, kernel.shape[0], 4096)
+    spare = spare[~np.isin(spare, touched)]
+    spare_rows = kernel[spare].copy()
+    seen_rows = kernel[touched[:4096]].copy()
+    total = {}
+    # exact: one batch five times, its loss must fall
+    losses = [float(model.train_batch_device(dbs[0])["loss"])
+              for _ in range(5)]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"criteo-terabyte exact: the loss of one batch did not fall: "
+          f"{losses}")
+    for mode in ("exact", "async"):
+        model.config.host_tables_async = mode == "async"
+        nxt = (lambda s: hidx[(s + 1) % len(hidx)]) if mode == "async" \
+            else (lambda s: None)
+        for s in (2, 3):        # warm up; the last chains dbs[0]'s rows
+            model.train_batch_device(dbs[s], nxt(s))
+        model._host_drain()
+        zero_counts()
+        obst.clear()
+        with obst.override(True, capacity=65536):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for s in range(TB_STEPS):
+                mets = model.train_batch_device(dbs[s % len(dbs)], nxt(s))
+            loss = float(mets["loss"])
+            model._host_drain()
+            el = time.perf_counter() - t0
+            spans = {k: span_ms(f"host/{k}", TB_STEPS)
+                     for k in ("gather", "h2d", "readback", "scatter")}
+        counts = read_counts()
+        add_counts(total, counts)
+        check(np.isfinite(loss) and counts["dense_update"] == TB_STEPS
+              and counts["embedding_bag"] == 0
+              and sum(counts[k] for k in SCATTERS) == 0,
+              f"criteo-terabyte {mode}: loss {loss}, launches {counts}")
+        step_ms = el * 1e3 / TB_STEPS
+        traced = traced_device_us(
+            lambda db: model.train_batch_device(db), [(dbs[0],)], 4)
+        model._host_drain()
+        copies = (None if traced is None else sum(
+            us for k, us in traced.items() if k.startswith("Memcpy")) / 1e3)
+        print(f"criteo-terabyte {mode} (batch {TB_B}, SGD): "
+              f"{TB_STEPS * TB_B / el:,.0f} samples/s, {step_ms:.2f} ms a "
+              f"step; per step: host gather {spans['gather']:.2f} ms, "
+              f"copy to the card {spans['h2d']:.2f} ms, cotangent "
+              f"readback {spans['readback']:.2f} ms (waits for the step's "
+              f"device work), host scatter {spans['scatter']:.2f} ms"
+              + (" (on the worker thread, overlapped)" if mode == "async"
+                 else "")
+              + "; " + device_share(traced, step_ms, 4)
+              + ("" if copies is None else
+                 f"; of the busy time, copies {copies:.3f} ms"))
+    model._host_drain()
+    check(np.array_equal(kernel[spare], spare_rows)
+          and not np.array_equal(kernel[touched[:4096]], seen_rows),
+          "criteo-terabyte: the host scatter changed untouched rows or "
+          "no touched row")
+    del model, kernel, dbs
+    torch.cuda.empty_cache()
+    return total
+
+
+def kaggle_launcher_runs():
+    """The launcher with run_criteo_kaggle.sh's flags (the synthetic
+    batch), on device tables and with --host-tables: a warm-up step and
+    64 timed ones; every count at 0 just before and read just after: a
+    bag, a pre-pass, a write-only scatter and a dense update a step on
+    device tables, only the dense update with host tables; no plain
+    version. Returns the launch counts."""
+    from dlrm_flexflow_tpu_torch.examples.native import dlrm as launcher
+    total = {}
+    for name, extra in (("device tables", []),
+                        ("--host-tables", ["--host-tables"])):
+        zero_counts()
+        with PlainCalls() as plain:
+            out = launcher.main(KAGGLE_FLAGS + extra)
+        counts = read_counts()
+        add_counts(total, counts)
+        steps = out["steps"] + 1
+        host = bool(extra)
+        want = {"dense_update": steps,
+                "embedding_bag": 0 if host else steps,
+                "scatter_write_rows": 0 if host else steps,
+                "scatter_presort": 0 if host else steps}
+        check(plain.calls == 0
+              and all(counts[k] == v for k, v in want.items())
+              and counts["scatter_add_rows"] == 0,
+              f"the Criteo-Kaggle launcher ({name}): launches {counts}, "
+              f"plain calls {plain.calls}")
+        print(f"criteo-kaggle launcher ({name}): "
+              f"{out['throughput']:,.0f} samples/s over {out['steps']} "
+              f"steps")
+        del out
+        torch.cuda.empty_cache()
+    return total
+
+
+def criteo_phase():
+    """Phase 10: Criteo's shapes. Returns the launch counts of its runs
+    on the main paths."""
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    criteo_kernels(dev)
+    total = kaggle_runs()
+    add_counts(total, kaggle_launcher_runs())
+    add_counts(total, terabyte_runs())
+    print(f"criteo phase: {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3634,6 +4255,13 @@ def main() -> int:
         # only phase 9 (its kernels built first, as the child loads them)
         build.build_all()
         counts = serving_app_phase()
+        print(json.dumps({"launches": {k: v for k, v in counts.items()
+                                       if v}}))
+        return 0
+    if sys.argv[1:] == ["--criteo"]:
+        # only phase 10, its kernels built first
+        build.build_all()
+        counts = criteo_phase()
         print(json.dumps({"launches": {k: v for k, v in counts.items()
                                        if v}}))
         return 0
@@ -3660,14 +4288,14 @@ def main() -> int:
     launches = {}
 
     def add(counts):
-        for k, v in counts.items():
-            launches[k] = launches.get(k, 0) + v
+        add_counts(launches, counts)
 
     add(launch_phase())
     sumsq_row, counts = resilience_phase()
     add(counts)
     add(cascade_phase())
     add(serving_app_phase())
+    add(criteo_phase())
     for run in runs:
         add(train_report(run))
     del runs

@@ -8,7 +8,9 @@ and training slices read, under the same flag spellings
 ``--retrieve-deadline-ms``, ``--retrieve-shards``, and the training
 runtime's ``--checkpoint-dir``, ``--save-every``, ``--keep-last``,
 ``--prefetch-depth``, ``--no-prefetch``, ``--anomaly-policy``,
-``--stage-dataset`` and ``--profile-dir``; the continual loop's
+``--stage-dataset`` and ``--profile-dir``; the host-resident tables'
+``--host-tables``, ``--host-tables-async`` and
+``--no-host-tables-async``; the continual loop's
 ``--publish-every``, ``--delta-compact-frac``, ``--delta-full-every``
 and ``--serve-poll``; observability's ``--obs``, ``--obs-trace-dir``
 and ``--obs-drift-threshold``), plus ``device``. Unknown
@@ -51,6 +53,21 @@ class FFConfig:
     # scatter kernels) instead of a table-sized dense gradient; disable
     # with --dense-embedding-update
     sparse_embedding_update: bool = True
+    # store every embedding table in host RAM (numpy), gathered and
+    # updated there around each step, as the reference's hetero
+    # placement (embedding_avx2.cc): tables larger than the card train.
+    # The dense part still runs on the card. Set with --host-tables.
+    host_resident_tables: bool = False
+    # overlap the host-table work with the card (on by default, as in the
+    # JAX package): the cotangent readback and the host scatter run on a
+    # worker thread; when the next batch is known (fit passes it), the
+    # worker first gathers the next step's rows, then scatters this
+    # step's update. Bounded one-step staleness: step N+1's forward sees
+    # every update through step N-1, maybe N (exactly N-1 when fit
+    # chains the gather), and a racing gather sees a table before or
+    # after a scatter, never torn. --no-host-tables-async gives exact
+    # ordering; --host-tables-async sets the default again.
+    host_tables_async: bool = True
     # ---- training runtime (FFModel.fit, data/) ------------------------
     # batches staged ahead of the step by the prefetch ring
     # (data/prefetch.py); 0 stages in the training loop. Set with
@@ -180,6 +197,12 @@ class FFConfig:
                 kw["weight_decay"] = float(take())
             elif a == "--dense-embedding-update":
                 kw["sparse_embedding_update"] = False
+            elif a == "--host-tables":
+                kw["host_resident_tables"] = True
+            elif a == "--host-tables-async":
+                kw["host_tables_async"] = True
+            elif a == "--no-host-tables-async":
+                kw["host_tables_async"] = False
             elif a == "--no-pallas-lstm":
                 raise NotImplementedError(
                     "--no-pallas-lstm: the LSTM always runs its scan "

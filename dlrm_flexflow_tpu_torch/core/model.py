@@ -48,10 +48,23 @@ and Adam's step advances by it. The JAX step keeps the pre-step values
 with ``jnp.where``; updating in place, the port keeps them by not
 writing. "raise" and "rollback" read the flag back at the step's end
 (one host sync) and raise ``AnomalyError``; "skip_step" never syncs.
+
+Host-resident tables (``config.host_resident_tables``, ``--host-tables``;
+the JAX step's core/model.py:1893-2130 there): the embedding ops with a
+host form keep their tables in ``host_params`` (numpy, in host RAM) and
+their optimizer slabs in ``host_opt_state``; the ids only they read
+never reach the card. Each step gathers their rows on the host, copies
+them to the card, where they enter the graph as the ops' outputs (as
+phase A's lookups do), and brings their cotangents back for the host's
+touched-rows update, guarded by the sentinel's flag: inline, or on the
+``ff-scatter`` worker thread (``host_tables_async``), which gathers the
+next step's rows first when the caller passes them (bounded one-step
+staleness) and whose error surfaces at the next ``_host_drain``.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -94,6 +107,12 @@ class AnomalyError(RuntimeError):
                      "non-finite training steps the sentinel caught").inc()
         obstrace.instant("anomaly", cat="sentinel", step=int(step),
                          loss=repr(loss), grad_norm=repr(grad_norm))
+
+
+def _same_ids(a, b) -> bool:
+    """Whether two {op name: ids} maps hold the same ids."""
+    return a is b or (a.keys() == b.keys()
+                      and all(np.array_equal(a[k], b[k]) for k in a))
 
 
 def _tree_bytes(tree) -> int:
@@ -144,6 +163,22 @@ class FFModel:
         # whether the step under way has begun to write parameters or
         # optimizer state (its error then cannot be undone)
         self._updating = False
+        # host-resident tables (config.host_resident_tables): the ops
+        # whose tables live in host RAM, as numpy, with their optimizer
+        # slabs; the inputs only they read, which never go to the card
+        self._host_resident_list: List[Op] = []
+        self._host_only_inputs: set = set()
+        self.host_params: Dict[str, Dict[str, np.ndarray]] = {}
+        self.host_opt_state: Dict[str, Dict[str, np.ndarray]] = {}
+        # the async pipeline: the table lock (gathers against the
+        # scatter worker), the worker and its error, the next step's
+        # chained gather, and the tables' generation
+        self._host_table_lock = threading.Lock()
+        self._host_scatter_thread: Optional[threading.Thread] = None
+        self._host_scatter_exc: Optional[BaseException] = None
+        self._host_gather_pending = None
+        self._host_gather_next = None
+        self._host_gen = 0
 
     # ------------------------------------------------------------------
     # graph construction
@@ -197,6 +232,14 @@ class FFModel:
                                    num_entries, out_dim, aggr,
                                    kernel_initializer, name).outputs[0]
 
+    def embedding_concat(self, input_tensor, table_sizes, out_dim,
+                         aggr="sum", kernel_initializer=None, name=None):
+        """Non-uniform tables (one width, different row counts) in one
+        concatenated-rows table: see ops.embedding.EmbeddingBagConcat."""
+        from ..ops.embedding import EmbeddingBagConcat
+        return EmbeddingBagConcat(self, input_tensor, table_sizes, out_dim,
+                                  aggr, kernel_initializer, name).outputs[0]
+
     def concat(self, tensors, axis, name=None):
         from ..ops.tensor_ops import Concat
         return Concat(self, list(tensors), axis, name).outputs[0]
@@ -209,9 +252,22 @@ class FFModel:
         from ..ops.tensor_ops import Reshape
         return Reshape(self, input_tensor, shape, name).outputs[0]
 
+    def transpose(self, input_tensor, name=None):
+        from ..ops.tensor_ops import Transpose
+        return Transpose(self, input_tensor, name).outputs[0]
+
     def reverse(self, input_tensor, axis, name=None):
         from ..ops.tensor_ops import Reverse
         return Reverse(self, input_tensor, axis, name).outputs[0]
+
+    def index_select(self, input_tensor, indices, axis, name=None):
+        from ..ops.tensor_ops import IndexSelect
+        return IndexSelect(self, input_tensor, indices, axis,
+                           name).outputs[0]
+
+    def batch_matmul(self, a, b, trans_a=True, trans_b=False, name=None):
+        from ..ops.batch_matmul import BatchMatmul
+        return BatchMatmul(self, a, b, trans_a, trans_b, name).outputs[0]
 
     def softmax(self, input_tensor, name=None):
         from ..ops.elementwise import Softmax
@@ -281,8 +337,52 @@ class FFModel:
             self._logits_tensor = preds
         self._sparse_ops = None
         self.opt_state = None
+        self._resolve_host_ops()
+        if self._host_resident_list and not isinstance(
+                self.optimizer, (SGDOptimizer, AdamOptimizer)):
+            raise ValueError(
+                "host-resident tables support SGD (plain/momentum/"
+                "weight-decay) and Adam — stateful optimizers take the "
+                "lazy touched-rows host update")
+        self.host_opt_state = {}
         self.reset_metrics()
         return self
+
+    def _resolve_host_ops(self):
+        """The ops whose tables are host-resident: under
+        ``config.host_resident_tables`` every op with a host form, as the
+        JAX package's global flag selects them (core/model.py:636-657
+        there). The JAX package can also select single ops by a strategy
+        file's ZCM memory type; strategy files come with ROADMAP queue 1
+        items 7 and 8. An input that only host-resident ops read stays on
+        the host."""
+        hres = []
+        if self.config.host_resident_tables:
+            hres = [op for op in self.ops if not isinstance(op, InputOp)
+                    and hasattr(op, "host_lookup")]
+        for op in hres:
+            if any(t.owner_op is not None
+                   and not isinstance(t.owner_op, InputOp)
+                   for t in op.inputs):
+                raise ValueError(
+                    f"host-resident table op {op.name!r} must consume "
+                    f"a model input directly (use the fused DLRM "
+                    f"embedding layout)")
+            if (getattr(op, "aggr", None) == "none"
+                    and not getattr(op, "host_aggr_none_ok", False)):
+                raise ValueError(
+                    f"host-resident table op {op.name!r}: aggr='none' "
+                    f"is not implemented on the host path for this op")
+        names = {op.name for op in hres}
+        consumers: Dict[str, List[Op]] = {}
+        for op in self.ops:
+            for t in op.inputs:
+                if isinstance(t.owner_op, InputOp):
+                    consumers.setdefault(t.name, []).append(op)
+        self._host_resident_list = hres
+        self._host_only_inputs = {
+            name for name, cons in consumers.items()
+            if cons and all(c.name in names for c in cons)}
 
     def init_layers(self, seed: Optional[int] = None):
         """Draw every op's parameters on ``self.device`` from one
@@ -290,11 +390,21 @@ class FFModel:
         seed = self.config.seed if seed is None else seed
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed))
-        params = {}
-        for op in self.ops:
-            if not isinstance(op, InputOp) and op.param_defs():
+        self._host_drain()
+        self._host_prefetch_invalidate()
+        self._resolve_host_ops()
+        hres = {op.name for op in self._host_resident_list}
+        params, host = {}, {}
+        for i, op in enumerate(self.ops):
+            if op.name in hres:
+                # drawn in host RAM by numpy, as the JAX package draws
+                # them: the same seed gives the same tables
+                host[op.name] = op.host_init(seed + i)
+            elif not isinstance(op, InputOp) and op.param_defs():
                 params[op.name] = op.init_params(gen, self.device)
         self.params = params
+        self.host_params = host
+        self.host_opt_state = {}
         self.opt_state = None
         self._step = 0
         self.reset_metrics()
@@ -304,23 +414,47 @@ class FFModel:
                     = None, host_params=None, op_state=None):
         """Install new parameters (the hot-reload hook, with the JAX
         signature), checked first against every op's ParamDefs (names,
-        shapes, dtypes, device); a mismatch raises before anything is
-        replaced. The serving engine's batcher thread is the only caller
-        during serving, between dispatches. The port has no host-resident
-        tables (``host_params``: ROADMAP queue 1 item 2.4) and no op
-        state (a non-empty ``op_state``: item 11)."""
-        if host_params is not None:
-            raise NotImplementedError(
-                "swap_params(host_params=...): host-resident tables are "
-                "not ported yet (ROADMAP queue 1 item 2.4)")
+        shapes, dtypes, device), and host-resident tables
+        (``host_params``, {op name: {"kernel": numpy table}}) against the
+        model's host layout; a mismatch raises before anything is
+        replaced. An in-flight host scatter lands first, and a chained
+        gather is dropped. The serving engine's batcher thread is the
+        only caller during serving, between dispatches. The port has no
+        op state (a non-empty ``op_state``: ROADMAP queue 1 item 11)."""
+        from ..utils.weights import host_param_shapes
         if op_state and any(op_state.values()):
             raise NotImplementedError(
                 "swap_params(op_state=...): op state is not ported yet "
                 "(ROADMAP queue 1 item 11)")
-        if params is None:
-            return
+        if host_params is not None:
+            want_host = host_param_shapes(self)
+            if set(host_params) != set(want_host):
+                raise ValueError(
+                    f"swap_params: host tables {sorted(host_params)} do "
+                    f"not match the model's {sorted(want_host)}")
+            for name, shapes in want_host.items():
+                got = host_params[name]
+                if set(got) != set(shapes) or any(
+                        np.asarray(got[pn]).shape != shape
+                        or np.asarray(got[pn]).dtype != np.float32
+                        for pn, shape in shapes.items()):
+                    raise ValueError(
+                        f"swap_params: host table {name} does not hold "
+                        f"{shapes} in float32")
+        if params is not None:
+            self._check_params(params)
+        self._host_drain()
+        self._host_prefetch_invalidate()
+        if host_params is not None:
+            self.host_params = host_params
+        if params is not None:
+            self.params = params
+
+    def _check_params(self, params):
+        hres = {op.name for op in self._host_resident_list}
         want = {op.name: op.param_defs() for op in self.ops
-                if not isinstance(op, InputOp) and op.param_defs()}
+                if not isinstance(op, InputOp) and op.param_defs()
+                and op.name not in hres}
         if set(params) != set(want):
             raise ValueError(f"swap_params: ops {sorted(params)} do not "
                              f"match the model's {sorted(want)}")
@@ -337,7 +471,6 @@ class FFModel:
                         f"swap_params: {name}.{pn} is {tuple(v.shape)} "
                         f"{v.dtype} on {v.device}, expected "
                         f"{tuple(d.shape)} {d.dtype} on {self.device}")
-        self.params = params
 
     def apply_delta(self, delta: Dict[str, Any]):
         """Install a delta snapshot in place (the continual loop's hot
@@ -372,7 +505,8 @@ class FFModel:
             if parts[0] != "params":
                 raise ValueError(
                     f"delta {what} targets unsupported section {key!r} "
-                    f"(the port has no op state or host tables)")
+                    f"(the port applies no op-state or host-table deltas "
+                    f"yet: ROADMAP queue 1 items 11, 9.2 and 9.3)")
             if (len(parts) != 3 or parts[1] not in shapes
                     or parts[2] not in shapes[parts[1]]):
                 raise ValueError(
@@ -453,13 +587,15 @@ class FFModel:
         """Stage a batch on ``self.device``: every model input, and the
         ``"label"`` when the batch has one. Inputs may be host arrays or
         tensors already on a device (``item_embeddings`` feeds the item
-        head ids that never leave the card)."""
+        head ids that never leave the card). An input that only
+        host-resident tables read stays on the host, as a CPU tensor."""
         out = {}
         for k, dt in self._batch_dtypes(batch).items():
             v = batch[k]
             if not isinstance(v, torch.Tensor):
                 v = torch.as_tensor(np.asarray(v))
-            out[k] = v.to(device=self.device, dtype=dt)
+            dev = "cpu" if k in self._host_only_inputs else self.device
+            out[k] = v.to(device=dev, dtype=dt)
         return out
 
     def _stage_step(self, batch: Dict[str, Any]) -> StagedBatch:
@@ -468,8 +604,13 @@ class FFModel:
         pinned memory, a non-blocking copy on this model's side stream
         and an event; ``train_batch_staged`` orders the step after it."""
         dts = self._batch_dtypes(batch)
-        return stage_batch({k: batch[k] for k in dts}, dts, self.device,
-                           self._stage_stream)
+        host = self._host_only_inputs
+        staged = stage_batch({k: batch[k] for k in dts if k not in host},
+                             {k: v for k, v in dts.items() if k not in host},
+                             self.device, self._stage_stream)
+        staged.host = {k: torch.as_tensor(np.array(batch[k])).to(dts[k])
+                       for k in dts if k in host}
+        return staged
 
     def _forward_env(self, params, batch: Dict[str, torch.Tensor],
                      overrides: Optional[Dict[str, torch.Tensor]] = None,
@@ -509,9 +650,13 @@ class FFModel:
         if self._preds_tensor is None or self.params is None:
             raise ValueError("call compile() and init_layers() (or "
                              "swap_params()) first")
-        db = self._device_batch(batch)
+        db, host_idx = self._split_host_idx(self._device_batch(batch))
+        rows = None
+        if host_idx is not None:
+            self._host_drain()   # eval sees the last step's scatter
+            rows = self._host_emb_forward(host_idx)
         with torch.inference_mode():
-            env = self._forward_env(self.params, db)
+            env = self._forward_env(self.params, db, overrides=rows)
         return env[self._preds_tensor.guid]
 
     # --- serving entry points (serve/engine.py) -----------------------
@@ -560,22 +705,26 @@ class FFModel:
     # training
     # ------------------------------------------------------------------
     def _select_sparse_update_ops(self) -> List[Op]:
-        """Embedding ops (``Embedding``, ``EmbeddingBagStacked``) whose
-        tables take the touched-rows update, unless
+        """Embedding ops (``Embedding``, ``EmbeddingBagStacked``,
+        ``EmbeddingBagConcat``) on the card whose tables take the
+        touched-rows update, unless
         ``config.sparse_embedding_update`` is off: under plain SGD
         (momentum 0, weight decay 0) through ``sparse_sgd_update``; under
         SGD with momentum or weight decay, or Adam, through the stateful
         ``sparse_opt_update`` (as the JAX package's selection,
         core/model.py:875-903 there)."""
-        from ..ops.embedding import Embedding, EmbeddingBagStacked
+        from ..ops.embedding import (Embedding, EmbeddingBagConcat,
+                                     EmbeddingBagStacked)
         if not self.config.sparse_embedding_update:
             return []
         opt = self.optimizer
         if not isinstance(opt, (SGDOptimizer, AdamOptimizer)):
             return []
+        host = {op.name for op in self._host_resident_list}
         return [op for op in self.ops
-                if isinstance(op, (Embedding, EmbeddingBagStacked))
-                and op.supports_sparse_update()]
+                if isinstance(op, (Embedding, EmbeddingBagStacked,
+                                   EmbeddingBagConcat))
+                and op.supports_sparse_update() and op.name not in host]
 
     def _stateful_sparse(self) -> bool:
         """Whether the touched-rows update carries optimizer state or
@@ -599,18 +748,21 @@ class FFModel:
             visit(op)
         return out
 
-    def train_batch(self, batch: Dict[str, Any]):
+    def train_batch(self, batch: Dict[str, Any], next_host_idx=None):
         """One training step on a host batch holding every input and the
         ``"label"``; see ``train_batch_device``."""
-        return self.train_batch_device(self._device_batch(batch))
+        return self.train_batch_device(self._device_batch(batch),
+                                       next_host_idx=next_host_idx)
 
-    def train_batch_staged(self, staged: StagedBatch):
+    def train_batch_staged(self, staged: StagedBatch, next_host_idx=None):
         """One training step on a batch staged by ``_stage_step`` (the
         prefetch ring's items): the step's stream waits for the copy,
         then ``train_batch_device``."""
-        return self.train_batch_device(staged.wait())
+        return self.train_batch_device(staged.wait(),
+                                       next_host_idx=next_host_idx)
 
-    def train_batch_device(self, device_batch: Dict[str, torch.Tensor]):
+    def train_batch_device(self, device_batch: Dict[str, torch.Tensor],
+                           next_host_idx=None):
         """One training step — forward, backward and the update, in
         place — on a batch already on ``self.device`` (as
         ``_device_batch`` stages it, ``"label"`` included). Returns the
@@ -619,11 +771,37 @@ class FFModel:
         and ``"grad_norm"``: nothing here waits for the device, except
         that "raise" and "rollback" read the flag back at the end and
         raise ``AnomalyError`` for a non-finite step (whose update the
-        kernels suppressed)."""
-        with obstrace.span("train/step", step=self._step):
-            return self._train_step(device_batch)
+        kernels suppressed).
 
-    def _train_step(self, device_batch: Dict[str, torch.Tensor]):
+        With host-resident tables the step gathers their rows on the
+        host (or takes the rows the last step's worker gathered), copies
+        them to the card, where they enter the graph as the ops' outputs,
+        and brings their cotangents back for the host update: inline
+        under ``--no-host-tables-async``, else on the ``ff-scatter``
+        worker thread, which first gathers ``next_host_idx`` ({op name:
+        ids}, or a callable giving it; the next step's ids, when the
+        caller knows them) and then scatters this step's update. The
+        sentinel's flag guards the host update under every policy: the
+        one readback a policy costs there."""
+        with obstrace.span("train/step", step=self._step):
+            return self._train_step(device_batch, next_host_idx)
+
+    def _split_host_idx(self, device_batch: Dict[str, torch.Tensor]):
+        """(the batch less the inputs only host tables read, {op name:
+        numpy ids} or None)."""
+        if not self._host_resident_list:
+            return device_batch, None
+        out = dict(device_batch)
+        host_idx = {}
+        for op in self._host_resident_list:
+            name = op.inputs[0].name
+            host_idx[op.name] = out[name].cpu().numpy()
+            if name in self._host_only_inputs:
+                out.pop(name)
+        return out, host_idx
+
+    def _train_step(self, device_batch: Dict[str, torch.Tensor],
+                    next_host_idx=None):
         if self._preds_tensor is None or self.params is None:
             raise ValueError("call compile() and init_layers() (or "
                              "swap_params()) first")
@@ -641,10 +819,17 @@ class FFModel:
             self.opt_state = self.optimizer.init_state(self.params)
         sparse_ops = self._sparse_ops
         sparse_names = {op.name for op in sparse_ops}
+        device_batch, host_idx = self._split_host_idx(device_batch)
 
         # phase A (no grad): the lookups' ancestors, then the lookups
         # themselves, keeping their gathered rows for the update
         emb_vals, emb_fwd, emb_xs = {}, {}, {}
+        if host_idx is not None:
+            self._ensure_host_opt_state()
+            # the host tables' rows enter as plain leaves; their
+            # cotangents leave for the host update
+            for name, v in self._host_emb_input(host_idx).items():
+                emb_vals[name] = v.requires_grad_()
         if sparse_ops:
             with torch.no_grad():
                 anc = self._forward_env(
@@ -732,6 +917,11 @@ class FFModel:
                 self._msums[k] += (v if passed is None
                                    else torch.where(passed, v, 0.0))
         self.perf.sums = dict(self._msums)
+        if host_idx is not None:
+            self._host_update_after_step(
+                host_idx, {op.name: gev[op.name]
+                           for op in self._host_resident_list},
+                ok, next_host_idx)
         self._updating = False
         self._step += 1          # a skipped step counts, as in JAX
         mets["loss"] = loss.detach()
@@ -749,6 +939,154 @@ class FFModel:
         """Start a new epoch's running metric sums."""
         self.perf.reset()
         self._msums = None
+
+    # ------------------------------------------------------------------
+    # host-resident tables (the JAX package's core/model.py:1893-2130)
+    # ------------------------------------------------------------------
+    def _ensure_host_opt_state(self):
+        """The stateful optimizers' table-shaped slabs of each host table,
+        zero, in host RAM beside it (made at the first step: the port's
+        ``init_layers`` may run before ``compile``)."""
+        for op in self._host_resident_list:
+            slabs = self.host_opt_state.setdefault(op.name, {})
+            for k in self.optimizer.sparse_slab_names():
+                if k not in slabs:
+                    slabs[k] = np.zeros_like(
+                        self.host_params[op.name]["kernel"])
+
+    def _host_update_after_step(self, host_idx, cts, ok, next_host_idx):
+        """The host update of the step just queued (see
+        ``train_batch_device``); ``step`` is this step's number before it
+        counts, as Adam's bias correction reads it."""
+        step = self._step
+        if not self.config.host_tables_async:
+            # exact ordering: the readback is the step's completion
+            if ok is None or bool(ok):
+                self._host_emb_update(host_idx, cts, step)
+            return
+        # one worker in flight: land the previous one first
+        self._host_drain()
+        nh = next_host_idx() if callable(next_host_idx) else next_host_idx
+        gathered = threading.Event()
+        self._host_gather_pending = ((nh, gathered) if nh is not None
+                                     else None)
+        gen = self._host_gen
+
+        def scatter():
+            try:
+                try:
+                    if nh is not None:
+                        self._host_gather_next = (
+                            nh, self._host_emb_forward(nh))
+                finally:
+                    gathered.set()   # never leave the consumer waiting
+                faults.maybe_stall("scatter")
+                if gen != self._host_gen:
+                    # the tables were replaced under an abandoned worker:
+                    # a late scatter would corrupt them
+                    return
+                if ok is None or bool(ok):
+                    self._host_emb_update(host_idx, cts, step)
+            except BaseException as e:   # raised again at the drain
+                self._host_scatter_exc = e
+
+        t = threading.Thread(target=scatter, daemon=True, name="ff-scatter")
+        self._host_scatter_thread = t
+        t.start()
+
+    def _host_drain(self, deadline_s: Optional[float] = None):
+        """Join the in-flight host scatter, if any, and raise the error it
+        hit: a dropped scatter would corrupt training. Everything that
+        reads the host tables for the latest update calls it first (eval,
+        checkpoints, ``swap_params``, the end of ``fit``). With
+        ``deadline_s`` a worker still running after it raises
+        ``WorkerStalled`` and is left running."""
+        from ..utils.watchdog import StallReport, WorkerStalled
+        t = self._host_scatter_thread
+        if t is not None and t.is_alive():
+            if deadline_s:
+                t0 = time.perf_counter()
+                t.join(deadline_s)
+                if t.is_alive():
+                    raise WorkerStalled(StallReport(
+                        worker=t.name, waiting_for="host-table scatter "
+                        "completion", waited_s=time.perf_counter() - t0,
+                        deadline_s=deadline_s, detail=f"step {self._step}"))
+            else:
+                t.join()
+        self._host_scatter_thread = None
+        exc = self._host_scatter_exc
+        if exc is not None:
+            self._host_scatter_exc = None
+            raise exc
+
+    def _host_abandon(self):
+        """Drop the in-flight worker without joining it (a stalled one)
+        and any chained gather; the tables' generation moves on, so a late
+        scatter of that worker writes nothing."""
+        self._host_gen += 1
+        self._host_scatter_thread = None
+        self._host_scatter_exc = None
+        self._host_prefetch_invalidate()
+
+    def _host_prefetch_invalidate(self):
+        """Drop a chained gather: stale once the tables are replaced."""
+        self._host_gather_next = None
+        self._host_gather_pending = None
+
+    def _host_emb_input(self, host_idx):
+        """This step's host rows on the card: the rows the last step's
+        worker gathered for these ids when it did (it gathers before its
+        scatter: the bounded one-step staleness of the async mode), else
+        a gather now."""
+        pending = self._host_gather_pending
+        if pending is not None and _same_ids(pending[0], host_idx):
+            self._host_gather_pending = None
+            pending[1].wait()
+            got = self._host_gather_next
+            self._host_gather_next = None
+            if got is not None and _same_ids(got[0], host_idx):
+                return got[1]
+            # the worker died before its gather: its error surfaces here
+            self._host_drain()
+        return self._host_emb_forward(host_idx)
+
+    def _host_emb_forward(self, host_idx):
+        """Gather the host tables' rows for ``host_idx`` and copy them to
+        the card. Only the table reads hold the table lock (a lookup
+        returns fresh arrays); the copy runs after it."""
+        rows = {}
+        with obstrace.span("host/gather", cat="host"), self._host_table_lock:
+            for op in self._host_resident_list:
+                rows[op.name] = op.host_lookup(self.host_params[op.name],
+                                               host_idx[op.name])
+        with obstrace.span("host/h2d", cat="host"):
+            return {k: torch.from_numpy(v).to(self.device)
+                    for k, v in rows.items()}
+
+    def _host_emb_update(self, host_idx, cts, step):
+        """Read the cotangents back (outside the table lock: the part the
+        async mode overlaps) and update the host tables' touched rows:
+        the SGD scatter, or the lazy stateful update under momentum,
+        weight decay or Adam."""
+        opt = self.optimizer
+        stateful = bool(opt.sparse_slab_names()) or (
+            isinstance(opt, SGDOptimizer) and opt.weight_decay != 0.0)
+        with obstrace.span("host/readback", cat="host"):
+            cts_np = {k: v.detach().float().cpu().numpy()
+                      for k, v in cts.items()}
+        with obstrace.span("host/scatter", cat="host"), \
+                self._host_table_lock:
+            for op in self._host_resident_list:
+                if stateful:
+                    op.host_opt_update(
+                        self.host_params[op.name], host_idx[op.name],
+                        cts_np[op.name], opt,
+                        self.host_opt_state.get(op.name, {}), step)
+                else:
+                    op.host_sgd_update(self.host_params[op.name],
+                                       host_idx[op.name],
+                                       cts_np[op.name], opt.lr)
 
 
     def _untrainable_shape(self, exc: BaseException) -> bool:
@@ -824,9 +1162,12 @@ class FFModel:
         trace written there. With ``--obs on`` a drift monitor watches
         each step's wall time (``"drift"`` in the result) and the span
         ring is exported to ``--obs-trace-dir``. Returns {"elapsed",
-        "throughput", "num_samples", "rollbacks", "metrics"}. The fused supersteps are
-        not ported yet (ROADMAP queue 1 item 6); the config refuses
-        them."""
+        "throughput", "num_samples", "rollbacks", "metrics"}. With
+        host-resident tables in async mode each step passes the next
+        step's ids, so the worker gathers them before its scatter, and
+        the last scatter lands before ``fit`` returns. The fused
+        supersteps are not ported yet (ROADMAP queue 1 item 6); the
+        config refuses them."""
         from ..data.prefetch import PrefetchPipeline
         from ..obs import configure as obs_configure
         from ..utils.checkpoint import CheckpointManager
@@ -879,12 +1220,27 @@ class FFModel:
                 'anomaly_policy="rollback" needs fit(checkpoint_dir=...) '
                 "(or FFConfig.checkpoint_dir) to roll back to")
 
+        def rows_of(b):
+            return (slice(num_batches * bs, n) if b == "rem"
+                    else slice(b * bs, (b + 1) * bs))
+
         def host_batch(b):
-            sl = (slice(num_batches * bs, n) if b == "rem"
-                  else slice(b * bs, (b + 1) * bs))
+            sl = rows_of(b)
             batch = {k: v[sl] for k, v in inputs.items()}
             batch["label"] = labels[sl]
             return batch
+
+        chain = bool(self._host_resident_list
+                     and self.config.host_tables_async)
+
+        def next_ids(j):
+            # the host tables' ids of step j, which the async worker of
+            # the step before gathers ahead
+            if not chain or j >= len(sched):
+                return None
+            sl = rows_of(sched[j][1])
+            return {op.name: np.asarray(inputs[op.inputs[0].name][sl])
+                    for op in self._host_resident_list}
 
         # the whole dataset on the device once, when it fits
         staged = staged_rem = None
@@ -947,8 +1303,9 @@ class FFModel:
                     else:
                         step, arg = self.train_batch, host_batch(b)
                     t_step = time.perf_counter()
+                    nh = next_ids(i + 1)
                     try:
-                        mets = step(arg)
+                        mets = step(arg, next_host_idx=nh)
                     except AnomalyError as exc:
                         if (policy != "rollback" or mgr is None
                                 or rollbacks >= self.config.max_rollbacks):
@@ -1002,6 +1359,7 @@ class FFModel:
                     i += 1
                 if mets is not None:
                     float(mets["loss"])   # waits for the last step
+                self._host_drain()        # and the last host scatter
         except BaseException:
             # land a snapshot already copied to the host before the error
             # leaves fit; the error itself is what the caller sees
@@ -1132,6 +1490,7 @@ class FFModel:
                         cb(self, trained, mets)
             if mets is not None:
                 float(mets["loss"])   # waits for the last step
+            self._host_drain()        # and the last host scatter
         finally:
             pipe.close()
         if publisher is not None and trained % publish_every:

@@ -1,7 +1,8 @@
 """Optimizers (the counterpart of ``dlrm_flexflow_tpu.core.optimizers``):
 ``SGDOptimizer`` with momentum, nesterov and weight decay, and
-``AdamOptimizer``, each with its dense ``update`` and its touched-rows
-``sparse_row_update``.
+``AdamOptimizer``, each with its dense ``update``, its touched-rows
+``sparse_row_update`` and that update's numpy twin for host-resident
+tables, ``sparse_row_update_np``.
 
 State mirrors the parameters: ``{slab: {op_name: {param_name:
 tensor}}}``, plus Adam's int32 ``"step"`` (a 0-d tensor on the
@@ -85,6 +86,14 @@ class Optimizer:
         return (torch.where(touched, wn, w),
                 {k: torch.where(touched, sn[k], slabs[k]) for k in sn})
 
+    def sparse_row_update_np(self, w, g, slabs, step):
+        """The host twin of the touched-rows update, for host-resident
+        tables: numpy rows w, g (m, k), all touched and their duplicates
+        summed, state ``slabs`` {name: (m, k)}, ``step`` the
+        pre-increment step; the JAX optimizers' numpy expressions as
+        they are. Returns (new_w, new_slabs)."""
+        raise NotImplementedError
+
 
 class SGDOptimizer(Optimizer):
     """SGD with momentum / nesterov / weight decay, as the reference's
@@ -114,6 +123,15 @@ class SGDOptimizer(Optimizer):
         return {"kind": "sgd", "lr": self.lr, "momentum": self.momentum,
                 "nesterov": self.nesterov,
                 "weight_decay": self.weight_decay}
+
+    def sparse_row_update_np(self, w, g, slabs, step):
+        lr, m, wd = self.lr, self.momentum, self.weight_decay
+        gt = g + wd * w if wd > 0.0 else g
+        if m > 0.0:
+            vn = m * slabs["v"] + gt
+            d = gt + m * vn if self.nesterov else vn
+            return w - lr * d, {"v": vn}
+        return w - lr * gt, {}
 
 
 class AdamOptimizer(Optimizer):
@@ -151,6 +169,17 @@ class AdamOptimizer(Optimizer):
     def row_params(self):
         return {"kind": "adam", "beta1": self.beta1, "beta2": self.beta2,
                 "weight_decay": self.weight_decay, "epsilon": self.epsilon}
+
+    def sparse_row_update_np(self, w, g, slabs, step):
+        t = float(step) + 1.0
+        alpha_t = (self.alpha * np.sqrt(1.0 - self.beta2 ** t)
+                   / (1.0 - self.beta1 ** t))
+        wd, b1, b2, eps = (self.weight_decay, self.beta1, self.beta2,
+                           self.epsilon)
+        gt = g + wd * w if wd > 0.0 else g
+        mn = b1 * slabs["m"] + (1.0 - b1) * gt
+        vn = b2 * slabs["v"] + (1.0 - b2) * gt * gt
+        return w - alpha_t * mn / (np.sqrt(vn) + eps), {"m": mn, "v": vn}
 
     def alpha_t(self, step):
         """alpha * sqrt(1 - beta2^t) / (1 - beta1^t) for t = step + 1, as

@@ -80,26 +80,29 @@ def stack_batches(batches):
 class StagedBatch:
     """A batch staged on its device by a staging thread: the tensors and,
     on a CUDA device, the event recorded on the staging stream after the
-    last copy."""
+    last copy; ``host`` holds the inputs that stay on the host (CPU
+    tensors: the ids only host-resident tables read)."""
 
     def __init__(self, tensors: Dict[str, torch.Tensor],
                  event: Optional["torch.cuda.Event"] = None,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None,
+                 host: Optional[Dict[str, torch.Tensor]] = None):
         self.tensors = tensors
         self.event = event
         self.device = device
+        self.host = host or {}
 
     def wait(self) -> Dict[str, torch.Tensor]:
         """The tensors, ready for the calling thread's current stream:
         that stream waits on the staging event, and each tensor is
-        recorded as used by it."""
+        recorded as used by it. The host inputs join them as they are."""
         if self.event is not None:
             stream = torch.cuda.current_stream(self.device)
             stream.wait_event(self.event)
             for t in self.tensors.values():
                 t.record_stream(stream)
             self.event = None
-        return self.tensors
+        return {**self.tensors, **self.host} if self.host else self.tensors
 
 
 def stage_batch(arrays: Dict[str, np.ndarray],

@@ -15,8 +15,13 @@ ring, ``--prefetch-depth N`` / ``--no-prefetch``), ``file.npz`` (arrays
 (``load_dlrm_hdf5``; needs h5py, which raises ImportError where it is
 missing), or, without it, one synthetic batch
 staged once and trained 64 times per epoch. The graph is "cat" unless
-``--arch-interaction-op`` says otherwise, trained with
-``SGDOptimizer(lr=--lr)`` and the mean squared error.
+``--arch-interaction-op dot`` asks for the unfused "dot" interaction, as
+the JAX launcher builds it; non-uniform ``--arch-embedding-size`` tables
+(Criteo's) are one concatenated-rows table. It trains with
+``SGDOptimizer(lr=--lr)`` and the mean squared error. ``--host-tables``
+keeps the tables in host RAM (``--host-tables-async``, the default,
+overlaps their update with the card; ``--no-host-tables-async`` orders it
+exactly), so Criteo-Terabyte's 96 GB of tables train on one card.
 ``--anomaly-policy`` guards each step (a non-finite step is skipped, or
 raises ``AnomalyError``); ``--profile-dir DIR`` writes a
 ``torch.profiler`` trace of the timed loop into DIR; ``--stage-dataset``
@@ -27,8 +32,7 @@ app) and ``--obs*`` (``fit``, ``fit_stream``), as in the JAX launcher.
 
 What the port does not have yet raises, naming its ROADMAP item, rather
 than being ignored: the strategy search and its files (item 8), a
-multi-host or multi-device launch (item 7), the unfused "dot"
-interaction (item 4, raised by ``build_dlrm``), supersteps, the per-op
+multi-host or multi-device launch (item 7), supersteps, the per-op
 profile and ``--debug-nans`` (item 6), and the other JAX runtime flags
 below.
 """
@@ -64,9 +68,6 @@ _UNPORTED = {
                      "--worker-deadline"), "7 (multi-GPU)"),
     **dict.fromkeys(("--profiling", "--debug-nans"),
                     "6 (training runtime)"),
-    **dict.fromkeys(("--host-tables", "--host-tables-async",
-                     "--no-host-tables-async"),
-                    "2.4 (host-resident tables)"),
     **dict.fromkeys(("--emb-dtype", "--emb-update-rule"),
                     "5 (quantization in training)"),
     **dict.fromkeys(("--no-nhwc", "--conv-s2d"), "11 (the zoo)"),
@@ -177,6 +178,7 @@ def main(argv=None):
                 for _ in range(num_batches):
                     mets = model.train_batch_device(next_batch())
             float(mets["loss"])   # the readback waits for the last step
+            model._host_drain()   # and the last host-table scatter
         elapsed = time.perf_counter() - t0
         if getattr(loader, "_pipe", None) is not None:
             ring = loader._pipe.stats()

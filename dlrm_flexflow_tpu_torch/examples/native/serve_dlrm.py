@@ -118,15 +118,14 @@ def _refuse_unported(rest):
 
 def build_server_model(cfg, dcfg):
     """The trainer's graph (fingerprints must match for hot reload),
-    compiled as the training launcher compiles it, initialized from
-    ``--seed``. ``--arch-interaction-op dot`` builds the fused "dot"
-    graph (``build_dlrm(fuse_interaction=True)``), the port's only "dot"
-    graph: the JAX app builds the unfused one, which waits for ROADMAP
-    queue 1 item 4, and whose snapshots the watcher would refuse by their
-    fingerprint."""
+    built with ``build_dlrm(model, dcfg)`` as the training launcher and
+    the JAX app build it (``--arch-interaction-op dot``: the unfused
+    graph), compiled as the launcher compiles it, initialized from
+    ``--seed``. A snapshot of either package's trainer loads in either
+    package's app. With ``--host-tables`` the tables stay in host RAM
+    and every forward gathers their rows there."""
     model = FFModel(cfg)
-    build_dlrm(model, dcfg,
-               fuse_interaction=dcfg.arch_interaction_op == "dot")
+    build_dlrm(model, dcfg)
     model.compile(SGDOptimizer(lr=cfg.learning_rate), "mean_squared_error",
                   ["mse"])
     model.init_layers()

@@ -1,13 +1,20 @@
 """DLRM, the flagship model (the counterpart of
 ``dlrm_flexflow_tpu.models.dlrm``).
 
-Per-table embedding bags stacked into one op, a bottom MLP over the
-dense features, the feature interaction, and a top MLP with a sigmoid
-head, built with the same op names as the JAX graph (``bot_dense_i``,
-``emb_stack``, ``interaction_concat``, ``fused_interaction``,
-``top_dense_i``). The "cat" interaction and the fused "dot" interaction
-(``fuse_interaction=True``) are ported; the unfused "dot" graph, the
-per-table and concatenated-rows embedding layouts are not yet.
+Per-table embedding bags, a bottom MLP over the dense features, the
+feature interaction, and a top MLP with a sigmoid head, built with the
+same op names as the JAX graph (``bot_dense_i``, ``emb_stack``,
+``emb_concat``, ``emb_i``, ``interaction_concat``, ``interaction_bmm``,
+``interaction_tril``, ``fused_interaction``, ``top_dense_i``), so
+parameter names and checkpoint fingerprints match the JAX package's.
+
+The tables are one ``EmbeddingBagStacked`` when their sizes are uniform,
+one ``EmbeddingBagConcat`` when they are not (Criteo's 26 tables), or
+one ``Embedding`` per table with ``fuse_embeddings=False``. The
+interaction is "cat", the unfused "dot" (``BatchMatmul`` of the stacked
+features with themselves, then the strictly-lower triangle by
+``IndexSelect``), or the fused "dot" (``fuse_interaction=True``, one
+CUDA kernel on the card).
 """
 
 from __future__ import annotations
@@ -133,7 +140,11 @@ def create_mlp(model: FFModel, input_tensor, sizes: List[int],
 def interact_features(model: FFModel, bottom_out, embedding_outs_3d,
                       arch_op: str, cfg: DLRMConfig):
     """"cat": concat the bottom-MLP output and the flattened embeddings
-    along the feature dim."""
+    along the feature dim. "dot": the pairwise dot products of the
+    bottom-MLP output and the T embeddings, stacked to (batch, T+1, d):
+    Z = X·Xᵀ by ``BatchMatmul``, flattened, its strictly-lower triangle
+    (i > j) picked by ``IndexSelect`` and concatenated after the bottom
+    output."""
     d = cfg.sparse_feature_size
     T = len(cfg.embedding_size)
     batch = bottom_out.shape[0]
@@ -144,10 +155,20 @@ def interact_features(model: FFModel, bottom_out, embedding_outs_3d,
         return model.concat([bottom_out] + flat_embs, axis=1,
                             name="interaction_concat")
     if arch_op == "dot":
-        raise NotImplementedError(
-            "the unfused 'dot' interaction (BatchMatmul, IndexSelect) is "
-            "not ported yet (ROADMAP queue 1, item 4); build with "
-            "fuse_interaction=True")
+        bot3 = model.reshape(bottom_out, (batch, 1, d), name="bot3d")
+        parts = [bot3]
+        for e in embedding_outs_3d:
+            parts.append(e if e.num_dims == 3
+                         else model.reshape(e, (batch, 1, d)))
+        x = model.concat(parts, axis=1, name="interaction_stack")  # (b,F,d)
+        z = model.batch_matmul(x, x, trans_a=False, trans_b=True,
+                               name="interaction_bmm")            # (b,F,F)
+        F = x.shape[1]
+        zf = model.reshape(z, (batch, F * F), name="interaction_flat")
+        tril = [i * F + j for i in range(F) for j in range(i)]
+        zt = model.index_select(zf, tril, axis=1, name="interaction_tril")
+        return model.concat([bottom_out, zt], axis=1,
+                            name="interaction_concat")
     raise ValueError(f"unknown interaction op {arch_op}")
 
 
@@ -205,14 +226,25 @@ def build_dlrm(model: FFModel, cfg: DLRMConfig,
         inputs = {"dense": (batch, cfg.mlp_bot[0]),
                   "sparse": (batch, T, cfg.embedding_bag_size)}
         return inputs, out
-    if not (fuse_embeddings and uniform):
-        raise NotImplementedError(
-            "only uniform stacked tables are ported; the per-table "
-            "(Embedding) and concatenated-rows (EmbeddingBagConcat) "
-            "layouts are ROADMAP queue 1, item 2")
-    embs = [model.embedding_stacked(
-        sparse_in, T, cfg.embedding_size[0], d, aggr="sum",
-        kernel_initializer=emb_init, name="emb_stack")]  # (b,T,d)
+    if fuse_embeddings and uniform:
+        embs = [model.embedding_stacked(
+            sparse_in, T, cfg.embedding_size[0], d, aggr="sum",
+            kernel_initializer=emb_init, name="emb_stack")]  # (b,T,d)
+    elif fuse_embeddings:
+        # non-uniform row counts (Criteo's 26 tables): one
+        # concatenated-rows table, one gather and one scatter a step
+        embs = [model.embedding_concat(
+            sparse_in, cfg.embedding_size, d, aggr="sum",
+            kernel_initializer=emb_init, name="emb_concat")]  # (b,T,d)
+    else:
+        cols = model.split(sparse_in, [1] * T, axis=1, name="sparse_split")
+        embs = []
+        for i, (rows, col) in enumerate(zip(cfg.embedding_size, cols)):
+            idx2d = model.reshape(col, (batch, cfg.embedding_bag_size),
+                                  name=f"idx_{i}")
+            embs.append(model.embedding(
+                idx2d, rows, d, aggr="sum", kernel_initializer=emb_init,
+                name=f"emb_{i}"))
     inter = interact_features(model, bottom, embs, cfg.arch_interaction_op,
                               cfg)
     out = create_mlp(model, inter, [inter.shape[1]] + cfg.mlp_top[1:],

@@ -1,19 +1,21 @@
-"""The port's host C++ (``ffloader.cc``), built with g++ at first use and
-bound with ctypes.
+"""The port's host C++, built with g++ at first use and bound with
+ctypes: ``ffloader.cc`` (the ``.ffbin`` reader, ``get_lib``) and
+``ffemb.cc`` (the threaded bag gather and scatter of host-resident
+tables, ``get_emb_lib``), each into its own library:
 
     g++ -O2 -std=c++17 -shared -fPIC -pthread
-        -o build/native/libffloader-<hash>.so native/ffloader.cc
+        -o build/native/lib<name>-<hash>.so native/<name>.cc
 
 into ``build/native/`` at the root of the checkout. The name carries a
 hash of the source and the flags, so an edited source never loads a
 stale library. The compiler writes a per-process temp file that is then
 renamed into place, so parallel processes never load a half-written
 library. Nothing here runs at import. A missing compiler, or a failed
-build, raises: there is no pure-Python fallback reader.
+build, raises: there is no pure-Python fallback reader, and the host
+tables never drop to numpy for want of the library.
 
-The JAX package's ``ffemb.cc`` (host-resident tables, ROADMAP queue 1
-item 2.4) and ``ffsim.cc`` (the strategy simulator, item 8) are not
-ported yet.
+The JAX package's ``ffsim.cc`` (the strategy simulator, ROADMAP queue 1
+item 8) is not ported yet.
 """
 
 from __future__ import annotations
@@ -27,36 +29,45 @@ import threading
 from pathlib import Path
 
 SRC = Path(__file__).resolve().parent / "ffloader.cc"
+EMB_SRC = SRC.with_name("ffemb.cc")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 GXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _lock = threading.Lock()
 _lib = None
+_emb_lib = None
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SRC.read_bytes()
+def library_path(src: Path = SRC) -> Path:
+    digest = hashlib.sha256(src.read_bytes()
                             + " ".join(GXX_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"libffloader-{digest[:16]}.so"
+    return BUILD_DIR / f"lib{src.stem}-{digest[:16]}.so"
 
 
-def _build(out: Path) -> None:
+def _build(out: Path, src: Path = SRC) -> None:
     gxx = shutil.which("g++")
     if gxx is None:
-        raise RuntimeError("g++ not found on PATH: the native .ffbin "
-                           "loader (native/ffloader.cc) cannot be built")
+        raise RuntimeError(f"g++ not found on PATH: native/{src.name} "
+                           f"cannot be built")
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
     try:
-        res = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp), str(SRC)],
+        res = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp), str(src)],
                              capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"g++ failed to build {SRC.name}:\n"
+            raise RuntimeError(f"g++ failed to build {src.name}:\n"
                                f"{res.stdout}{res.stderr}")
         os.replace(tmp, out)
     finally:
         if tmp.exists():
             tmp.unlink()
+
+
+def _load(src: Path) -> ctypes.CDLL:
+    out = library_path(src)
+    if not out.exists():
+        _build(out, src)
+    return ctypes.CDLL(str(out))
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -82,8 +93,32 @@ def get_lib() -> ctypes.CDLL:
         return _lib
     with _lock:
         if _lib is None:
-            out = library_path()
-            if not out.exists():
-                _build(out)
-            _lib = _bind(ctypes.CDLL(str(out)))
+            _lib = _bind(_load(SRC))
     return _lib
+
+
+def _bind_emb(lib: ctypes.CDLL) -> ctypes.CDLL:
+    c = ctypes
+    lib.ffemb_bag_gather.restype = None
+    lib.ffemb_bag_gather.argtypes = [
+        c.POINTER(c.c_float), c.c_int64, c.c_int64,
+        c.POINTER(c.c_int64), c.c_int64, c.c_int64, c.c_int32,
+        c.POINTER(c.c_float)]
+    lib.ffemb_bag_scatter.restype = None
+    lib.ffemb_bag_scatter.argtypes = [
+        c.POINTER(c.c_float), c.c_int64, c.c_int64,
+        c.POINTER(c.c_int64), c.c_int64, c.c_int64, c.c_int32,
+        c.POINTER(c.c_float), c.c_float]
+    return lib
+
+
+def get_emb_lib() -> ctypes.CDLL:
+    """The bound host-table gather/scatter library (``ffemb.cc``), built
+    first if it is missing; raises when it cannot be built or loaded."""
+    global _emb_lib
+    if _emb_lib is not None:
+        return _emb_lib
+    with _lock:
+        if _emb_lib is None:
+            _emb_lib = _bind_emb(_load(EMB_SRC))
+    return _emb_lib

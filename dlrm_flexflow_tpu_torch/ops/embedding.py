@@ -1,6 +1,7 @@
-"""Embedding bags: ``Embedding`` (one table) and ``EmbeddingBagStacked``
-(the counterparts of ``dlrm_flexflow_tpu.ops.embedding``;
-``EmbeddingBagConcat`` is not ported yet).
+"""Embedding bags: ``Embedding`` (one table), ``EmbeddingBagStacked``
+(T tables of one size) and ``EmbeddingBagConcat`` (T tables of one width
+and different row counts, concatenated row-wise), the counterparts of
+``dlrm_flexflow_tpu.ops.embedding``.
 
 The JAX op stores its T tables lane-packed as (T, rows/r, r·d) for the
 TPU's 128-lane tiles. The port keeps them as (T, rows, d) in LOGICAL
@@ -17,22 +18,36 @@ to their flat lookup-id space (``flat_lookup_ids``, for the id-frequency
 sketch), as the JAX ops do; a delta file's row indices are in that
 stored layout, and ``utils.weights.rows_from_jax`` maps them back.
 
-Both ops take the touched-rows update: ``sparse_sgd_update`` under
+The ops take the touched-rows update: ``sparse_sgd_update`` under
 plain SGD, ``sparse_opt_update`` under a stateful optimizer (SGD with
 momentum or weight decay, Adam), which updates the touched rows'
 weights AND their optimizer state, and nothing else (lazy semantics, as
 the JAX ops). Each takes ``ok``, the anomaly sentinel's 0-d int32 flag
 (None: no sentinel), and hands it to its scatter: a step whose flag is 0
 writes no row.
+
+Host-resident tables (``FFConfig.host_resident_tables``, the reference's
+hetero placement that lets tables larger than the card's memory train):
+each op's ``host_*`` methods keep its table in host RAM as numpy, in the
+JAX op's host layout, and look it up and update its touched rows there
+with the helpers below, which are the JAX package's (its
+``_host_init_table`` draws from a seeded numpy ``RandomState``, so one
+seed gives both packages the same host tables bit for bit). The bag
+gather and the SGD scatter run on ``native/ffemb.cc``'s thread pool (the
+port's own copy, built by g++ at first use; a failed build raises) or
+on numpy, whichever was faster the first time a shape was gathered, as
+in the JAX package: both compute the same results.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import os
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from ..core import initializers as I
 from ..core.initializers import GlorotUniform
 from ..core.op import Op, ParamDef
 from .kernels.embedding_bag import EmbeddingBagFunction, embedding_bag
@@ -42,6 +57,154 @@ from .kernels.scatter_rows import (scatter_add_rows, scatter_write_rows,
 AGGR_MODE_SUM = "sum"
 AGGR_MODE_AVG = "avg"
 AGGR_MODE_NONE = "none"
+
+# elements a host-table draw makes at once: the generator's float64
+# draws for a chunk (8 MB) are a small fraction of a multi-GB table, so
+# a table drawn on each core costs little RAM beside the tables
+_HOST_INIT_CHUNK = 1 << 20
+
+
+def _host_init_table(initializer, shape, seed: int,
+                     out: Optional[np.ndarray] = None) -> np.ndarray:
+    """The JAX package's ``_host_init_table``: numpy draws for a host
+    table from ``RandomState(seed & 0x7FFFFFFF)``, bit for bit, for the
+    port's initializers (zeros, uniform, and Glorot uniform over the last
+    two dims for any other). The draws are made a chunk of rows at a
+    time (``_HOST_INIT_CHUNK`` elements) into ``out`` (a float32 array of ``shape``; a new one when
+    None): a RandomState continues its stream from call to call, so the
+    chunks hold what one draw of the whole shape would, without its
+    float64 temporary."""
+    shape = tuple(int(s) for s in shape)
+    if out is None:
+        out = np.empty(shape, np.float32)
+    if isinstance(initializer, I.ZeroInitializer):
+        out[...] = 0.0
+        return out
+    rng = np.random.RandomState(seed & 0x7FFFFFFF)
+    if isinstance(initializer, I.UniformInitializer):
+        lo, hi = initializer.min_val, initializer.max_val
+    else:
+        lim = float(np.sqrt(6.0 / (shape[-2] + shape[-1])))
+        lo, hi = -lim, lim
+    flat = out.reshape(-1, shape[-1])
+    step = max(1, _HOST_INIT_CHUNK // shape[-1])
+    for r0 in range(0, flat.shape[0], step):
+        r1 = min(r0 + step, flat.shape[0])
+        flat[r0:r1] = rng.uniform(lo, hi, (r1 - r0, shape[-1]))
+    return out
+
+
+# the gather route for each (table shape, ids shape, aggr), chosen by
+# timing both once, as the JAX package chooses: the threaded native
+# gather wins on many-core hosts, numpy's on small CPU quotas
+_GATHER_CHOICE: Dict[tuple, str] = {}
+
+
+def _native_gather(lib, table, g, aggr, d):
+    import ctypes
+    batch, T, bag = g.shape
+    gf = np.ascontiguousarray(g.reshape(batch * T, bag), np.int64)
+    out = np.empty((batch * T, d), np.float32)
+    fp = ctypes.POINTER(ctypes.c_float)
+    ip = ctypes.POINTER(ctypes.c_int64)
+    lib.ffemb_bag_gather(
+        table.ctypes.data_as(fp), table.shape[0], d,
+        gf.ctypes.data_as(ip), batch * T, bag,
+        1 if aggr == AGGR_MODE_AVG else 0, out.ctypes.data_as(fp))
+    return out.reshape(batch, T, d)
+
+
+def _numpy_gather(table, g, aggr, d):
+    rows = table[g.reshape(-1)].reshape(g.shape + (d,))
+    out = rows.mean(axis=2) if aggr == AGGR_MODE_AVG else rows.sum(axis=2)
+    return np.ascontiguousarray(out, np.float32)
+
+
+def _native_ok(table) -> bool:
+    return table.dtype == np.float32 and table.flags["C_CONTIGUOUS"]
+
+
+def _host_bag_lookup(table, g, aggr):
+    """table (rows, d) numpy; g (batch, T, bag) global rows ->
+    (batch, T, d)."""
+    import time
+
+    from .. import native
+    d = table.shape[-1]
+    if not _native_ok(table):
+        return _numpy_gather(table, g, aggr, d)
+    lib = native.get_emb_lib()
+    key = (table.shape, g.shape, aggr)
+    choice = _GATHER_CHOICE.get(key)
+    if choice is None:
+        # warm both first (the pool's threads start, caches fill), then
+        # time each once
+        _native_gather(lib, table, g, aggr, d)
+        _numpy_gather(table, g, aggr, d)
+        t0 = time.perf_counter()
+        out_n = _native_gather(lib, table, g, aggr, d)
+        t_native = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out_p = _numpy_gather(table, g, aggr, d)
+        t_numpy = time.perf_counter() - t0
+        choice = "native" if t_native <= t_numpy else "numpy"
+        _GATHER_CHOICE[key] = choice
+        return out_n if choice == "native" else out_p
+    if choice == "native":
+        return _native_gather(lib, table, g, aggr, d)
+    return _numpy_gather(table, g, aggr, d)
+
+
+def _host_bag_update(table, g, ct, lr, aggr):
+    """In place, table[g] -= lr * d(out)/d(rows) · ct, duplicates
+    adding up."""
+    import ctypes
+
+    from .. import native
+    d = table.shape[-1]
+    if _native_ok(table):
+        lib = native.get_emb_lib()
+        batch, T, bag = g.shape
+        gf = np.ascontiguousarray(g.reshape(batch * T, bag), np.int64)
+        cf = np.ascontiguousarray(ct.reshape(batch * T, d), np.float32)
+        fp = ctypes.POINTER(ctypes.c_float)
+        ip = ctypes.POINTER(ctypes.c_int64)
+        lib.ffemb_bag_scatter(
+            table.ctypes.data_as(fp), table.shape[0], d,
+            gf.ctypes.data_as(ip), batch * T, bag,
+            1 if aggr == AGGR_MODE_AVG else 0,
+            cf.ctypes.data_as(fp), float(lr))
+        return
+    bag = g.shape[-1]
+    c = ct / bag if aggr == AGGR_MODE_AVG else ct
+    upd = np.broadcast_to(c[..., None, :], g.shape + (d,))
+    np.add.at(table, g.reshape(-1), -lr * upd.reshape(-1, d))
+
+
+def _host_dedup_rows(flat, upd):
+    """Duplicate lookups summed into one gradient row each (stateful
+    optimizers are nonlinear in the gradient): (distinct rows, sums)."""
+    uniq, inv = np.unique(flat, return_inverse=True)
+    summed = np.zeros((uniq.shape[0], upd.shape[-1]), np.float32)
+    np.add.at(summed, inv, upd)
+    return uniq, summed
+
+
+def _host_stateful_update(table, g, ct, opt, slabs, step, aggr):
+    """The lazy stateful touched-rows update on a host table: table
+    (rows, d) and slabs {name: (rows, d)} updated in place on the rows g
+    (batch, T, bag) names, from ct (batch, T, d)."""
+    d = table.shape[-1]
+    bag = g.shape[-1]
+    c = ct / bag if aggr == AGGR_MODE_AVG else ct
+    upd = np.broadcast_to(c[..., None, :],
+                          g.shape + (d,)).reshape(-1, d)
+    uniq, summed = _host_dedup_rows(g.reshape(-1), upd)
+    slab_rows = {k: v[uniq] for k, v in slabs.items()}
+    wn, sn = opt.sparse_row_update_np(table[uniq], summed, slab_rows, step)
+    table[uniq] = wn
+    for k in slabs:
+        slabs[k][uniq] = sn[k]
 
 
 class Embedding(Op):
@@ -105,6 +268,65 @@ class Embedding(Op):
         (the JAX op stores the table unpacked, as the port does)."""
         return np.unique(self.flat_lookup_ids(idx_np))
 
+    # ---- host-resident table (FFConfig.host_resident_tables) --------
+    # per-slot (aggr="none") outputs work on the host path too
+    host_aggr_none_ok = True
+
+    def host_init(self, seed: int):
+        return {"kernel": _host_init_table(
+            self.kernel_initializer, (self.num_entries, self.out_dim), seed)}
+
+    def host_flat_indices(self, idx_np):
+        """Per-sample flat row ids, (batch, 1, bag)."""
+        g = np.asarray(idx_np).astype(np.int64) % self.num_entries
+        if g.ndim == 1:
+            g = g[:, None]
+        return g[:, None, :]
+
+    def host_lookup_rows(self, rows_2d, g3):
+        """``host_lookup`` against a (rows, d) row matrix and flat ids."""
+        if self.aggr == AGGR_MODE_NONE:
+            # per-slot outputs: no reduction, (batch, bag, d)
+            return np.ascontiguousarray(rows_2d[g3[:, 0]], np.float32)
+        return _host_bag_lookup(rows_2d, g3, self.aggr)[:, 0]  # (batch,d)
+
+    def host_lookup(self, host_params, idx_np):
+        return self.host_lookup_rows(host_params["kernel"],
+                                     self.host_flat_indices(idx_np))
+
+    def host_sgd_update(self, host_params, idx_np, ct_np, lr):
+        g = np.asarray(idx_np).astype(np.int64) % self.num_entries
+        if g.ndim == 1:
+            g = g[:, None]
+        if self.aggr == AGGR_MODE_NONE:
+            # ct (batch, bag, d): each slot's cotangent lands on its row
+            np.add.at(host_params["kernel"], g.reshape(-1),
+                      -lr * ct_np.reshape(-1, self.out_dim))
+            return
+        _host_bag_update(host_params["kernel"], g[:, None, :],
+                         ct_np[:, None, :], lr, self.aggr)
+
+    def host_opt_update(self, host_params, idx_np, ct_np, opt, slabs,
+                        step):
+        """The lazy stateful (momentum, Adam) host update."""
+        g = np.asarray(idx_np).astype(np.int64) % self.num_entries
+        if g.ndim == 1:
+            g = g[:, None]
+        if self.aggr == AGGR_MODE_NONE:
+            uniq, summed = _host_dedup_rows(
+                g.reshape(-1), ct_np.reshape(-1, self.out_dim))
+            tbl = host_params["kernel"]
+            slab_rows = {k: v[uniq] for k, v in slabs.items()}
+            wn, sn = opt.sparse_row_update_np(tbl[uniq], summed,
+                                              slab_rows, step)
+            tbl[uniq] = wn
+            for k in slabs:
+                slabs[k][uniq] = sn[k]
+            return
+        _host_stateful_update(host_params["kernel"], g[:, None, :],
+                              ct_np[:, None, :], opt, slabs, step,
+                              self.aggr)
+
     # ---- touched-rows updates -------------------------------------------
     def supports_sparse_update(self) -> bool:
         return self.aggr in (AGGR_MODE_SUM, AGGR_MODE_AVG, AGGR_MODE_NONE)
@@ -162,8 +384,124 @@ class Embedding(Op):
         return params
 
 
-class EmbeddingBagStacked(Op):
-    """input: int (batch, num_tables, bag) -> (batch, num_tables, dim)."""
+class _FlatTableBag(Op):
+    """What ``EmbeddingBagStacked`` and ``EmbeddingBagConcat`` share: T
+    bags over one flat (rows, d) view of the tables, looked up by global
+    row ids in one bag-kernel launch and updated in one scatter, on the
+    card or, for a host-resident table, in host RAM. A subclass gives the
+    ids (``_global_ids``, ``host_flat_indices``) and ``_flat``, the flat
+    view of its kernel, of an optimizer slab shaped like it, and of its
+    host table."""
+
+    def _flat(self, t):
+        raise NotImplementedError
+
+    def apply(self, params, xs):
+        (idx,) = xs                       # (batch, T, bag)
+        out = EmbeddingBagFunction.apply(self._flat(params["kernel"]),
+                                         self._global_ids(idx), self.aggr)
+        return [out.reshape(idx.shape[0], self.num_tables, self.out_dim)]
+
+    # ---- delta publication (utils/delta.py) -------------------------
+    def flat_lookup_ids(self, idx_np) -> np.ndarray:
+        """(batch, T, bag) ids -> flat lookup ids into the flat table."""
+        return self.host_flat_indices(idx_np).reshape(-1)
+
+    # ---- host-resident table (FFConfig.host_resident_tables) --------
+    def host_delta_touched_rows(self, idx_np) -> np.ndarray:
+        return np.unique(self.flat_lookup_ids(idx_np))
+
+    def host_lookup_rows(self, rows_2d, g3):
+        return _host_bag_lookup(rows_2d, g3, self.aggr)
+
+    def host_lookup(self, host_params, idx_np):
+        return self.host_lookup_rows(self._flat(host_params["kernel"]),
+                                     self.host_flat_indices(idx_np))
+
+    def host_sgd_update(self, host_params, idx_np, ct_np, lr):
+        _host_bag_update(self._flat(host_params["kernel"]),
+                         self.host_flat_indices(idx_np), ct_np, lr,
+                         self.aggr)
+
+    def host_opt_update(self, host_params, idx_np, ct_np, opt, slabs,
+                        step):
+        _host_stateful_update(
+            self._flat(host_params["kernel"]), self.host_flat_indices(idx_np),
+            ct_np, opt, {k: self._flat(v) for k, v in slabs.items()}, step,
+            self.aggr)
+
+    # ---- touched-rows updates -------------------------------------------
+    def supports_sparse_update(self) -> bool:
+        return True                       # sum and avg, the only aggrs
+
+    def apply_with_fwd(self, params, xs):
+        """apply() plus the forward residual: (global row ids (n,), the
+        gathered rows (n, d)), both in (batch, T, bag) order — the order
+        ``sparse_sgd_update`` applies its updates in."""
+        (idx,) = xs
+        gid = self._global_ids(idx)
+        out, rows = embedding_bag(self._flat(params["kernel"]), gid,
+                                  self.aggr, return_rows=True)
+        out = out.reshape(idx.shape[0], self.num_tables, self.out_dim)
+        return [out], (gid.reshape(-1), rows)
+
+    def _update_rows(self, params, xs, out_ct, fwd):
+        """(bag, each lookup's cotangent (n, d), / bag for "avg", and
+        (global row ids (n,), the gathered rows or None))."""
+        (idx,) = xs
+        bag = idx.shape[2]
+        ct = out_ct.to(params["kernel"].dtype).reshape(-1, self.out_dim)
+        if self.aggr == AGGR_MODE_AVG:
+            ct = ct / bag
+        if fwd is None:
+            fwd = (self._global_ids(idx).reshape(-1), None)
+        return bag, ct, fwd
+
+    @torch.no_grad()
+    def sparse_sgd_update(self, params, xs, out_ct, lr, fwd=None, ok=None):
+        """table[row] -= lr * ct, for the touched rows only, in place:
+        each lookup's update is -lr * (its bag's cotangent, / bag for
+        "avg"), and a row's duplicates sum in lookup order before they
+        land. With the residual of ``apply_with_fwd`` the write-only
+        kernel writes fwd_row + sum; without it the read-modify-write
+        kernel adds the sum to the table."""
+        bag, ct, (gid, rows) = self._update_rows(params, xs, out_ct, fwd)
+        table = self._flat(params["kernel"])
+        if rows is not None:
+            scatter_write_rows(table, gid, ct, rows, scale=-lr, div=bag,
+                               ids_in_range=True, ok=ok)   # wrapped ids
+        else:
+            scatter_add_rows(table, gid, ct, scale=-lr, div=bag,
+                             ids_in_range=True, ok=ok)   # wrapped ids
+        return params
+
+    @torch.no_grad()
+    def sparse_opt_update(self, params, xs, out_ct, opt, slabs, step,
+                          fwd=None, ok=None):
+        """The stateful touched-rows update, in place on the tables and on
+        ``slabs`` ({slab name: state shaped as the kernel}): each
+        lookup's update is its bag's RAW cotangent (/ bag for "avg"), a
+        row's duplicates summed in lookup order, then the optimizer's row
+        math on that row's weight (the residual of ``apply_with_fwd``
+        when given, else the table row) and state; untouched rows keep
+        both. ``step``: the optimizer's step before this one."""
+        bag, ct, (gid, rows) = self._update_rows(params, xs, out_ct, fwd)
+        stateful_update_rows(
+            self._flat(params["kernel"]), gid, ct, rows,
+            {k: self._flat(v) for k, v in slabs.items()},
+            opt.row_params(), opt.alpha_t(step), div=bag,
+            ids_in_range=True, ok=ok)   # wrapped ids
+        return params
+
+
+class EmbeddingBagStacked(_FlatTableBag):
+    """input: int (batch, num_tables, bag) -> (batch, num_tables, dim).
+
+    The port stores the tables in logical order. The JAX op permutes ids
+    and cotangent into its storage order before a touched-rows update; a
+    row's lookups keep their relative order under that permutation (all
+    of them lie in one table), so its sums, and the result, are the
+    same."""
 
     type_name = "EmbedStack"
 
@@ -222,27 +560,13 @@ class EmbeddingBagStacked(Op):
             + offs[None, :, None]
         return flat.reshape(-1, idx.shape[2])
 
-    def _flat_table(self, params):
-        return params["kernel"].reshape(self.num_tables * self.num_entries,
-                                        self.out_dim)
-
-    def apply(self, params, xs):
-        (idx,) = xs                       # (batch, T, bag)
-        out = EmbeddingBagFunction.apply(self._flat_table(params),
-                                         self._global_ids(idx), self.aggr)
-        return [out.reshape(idx.shape[0], self.num_tables, self.out_dim)]
+    def _flat(self, t):
+        # (T, rows, d) -> the stacked (T*rows, d) view
+        return t.reshape(self.num_tables * self.num_entries, self.out_dim)
 
     # ---- delta publication (utils/delta.py) -------------------------
     def lookup_id_space(self) -> int:
         return self.num_tables * self.num_entries
-
-    def flat_lookup_ids(self, idx_np) -> np.ndarray:
-        """(batch, T, bag) ids -> flat t*rows + ix lookup ids."""
-        rows = self.num_entries
-        g = np.asarray(idx_np).astype(np.int64) % rows
-        offs = (np.arange(self.num_tables, dtype=np.int64)
-                * rows)[None, :, None]
-        return (g + offs).reshape(-1)
 
     def delta_touched_rows(self, idx_np) -> np.ndarray:
         """The rows of the JAX op's stored kernel, (T, rows/r, r*d)
@@ -259,72 +583,151 @@ class EmbeddingBagStacked(Op):
         flat = slot[None, :, None] * (rows // r) + g // r
         return np.unique(flat.reshape(-1))
 
-    # ---- touched-rows updates -------------------------------------------
-    def supports_sparse_update(self) -> bool:
-        return self.aggr in (AGGR_MODE_SUM, AGGR_MODE_AVG)
+    # ---- host-resident table (FFConfig.host_resident_tables) --------
+    # the host table is (T, rows, d) in logical table order, unpacked
+    def host_init(self, seed: int):
+        return {"kernel": _host_init_table(
+            self.kernel_initializer,
+            (self.num_tables, self.num_entries, self.out_dim), seed)}
 
-    def apply_with_fwd(self, params, xs):
-        """apply() plus the forward residual: (global row ids (n,), the
-        gathered rows (n, d)), both in (batch, T, bag) order — the order
-        ``sparse_sgd_update`` applies its updates in."""
-        (idx,) = xs
-        gid = self._global_ids(idx)
-        out, rows = embedding_bag(self._flat_table(params), gid, self.aggr,
-                                  return_rows=True)
-        out = out.reshape(idx.shape[0], self.num_tables, self.out_dim)
-        return [out], (gid.reshape(-1), rows)
+    def host_flat_indices(self, idx_np):
+        """Per-sample flat row ids, (batch, T, bag), into the (T*rows, d)
+        flattened table: t*rows + ix."""
+        offs = (np.arange(self.num_tables, dtype=np.int64)
+                * self.num_entries)[None, :, None]
+        return np.asarray(idx_np).astype(np.int64) % self.num_entries + offs
 
-    @torch.no_grad()
-    def sparse_sgd_update(self, params, xs, out_ct, lr, fwd=None, ok=None):
-        """table[row] -= lr * ct, for the touched rows only, in place:
-        each lookup's update is -lr * (its bag's cotangent, / bag for
-        "avg"), and a row's duplicates sum in lookup order before they
-        land. With the residual of ``apply_with_fwd`` the write-only
-        kernel writes fwd_row + sum; without it the read-modify-write
-        kernel adds the sum to the table."""
-        (idx,) = xs
-        bag = idx.shape[2]
-        ct = out_ct.to(params["kernel"].dtype).reshape(-1, self.out_dim)
-        if self.aggr == AGGR_MODE_AVG:
-            ct = ct / bag
-        table = self._flat_table(params)
-        if fwd is not None:
-            gid, rows = fwd
-            scatter_write_rows(table, gid, ct, rows, scale=-lr, div=bag,
-                               ids_in_range=True, ok=ok)   # wrapped ids
-        else:
-            gid = self._global_ids(idx).reshape(-1)
-            scatter_add_rows(table, gid, ct, scale=-lr, div=bag,
-                             ids_in_range=True, ok=ok)   # wrapped ids
-        return params
 
-    @torch.no_grad()
-    def sparse_opt_update(self, params, xs, out_ct, opt, slabs, step,
-                          fwd=None, ok=None):
-        """The stateful touched-rows update, in place on the tables and on
-        ``slabs`` ({slab name: (T, rows, d) state}): each lookup's update
-        is its bag's RAW cotangent (/ bag for "avg"), a row's duplicates
-        summed in lookup order, then the optimizer's row math on that
-        row's weight (the residual of ``apply_with_fwd`` when given, else
-        the table row) and state; untouched rows keep both. The JAX op
-        permutes ids and cotangent into its storage order first; the
-        port stores tables in logical order, and a row's lookups keep
-        their relative order under that permutation (all of them lie in
-        one table), so its sums, and the result, are the same. ``step``:
-        the optimizer's step before this one."""
-        (idx,) = xs
-        bag = idx.shape[2]
-        ct = out_ct.to(params["kernel"].dtype).reshape(-1, self.out_dim)
-        if self.aggr == AGGR_MODE_AVG:
-            ct = ct / bag
-        if fwd is not None:
-            gid, rows = fwd
-        else:
-            gid, rows = self._global_ids(idx).reshape(-1), None
-        n = self.num_tables * self.num_entries
-        stateful_update_rows(
-            self._flat_table(params), gid, ct, rows,
-            {k: v.reshape(n, self.out_dim) for k, v in slabs.items()},
-            opt.row_params(), opt.alpha_t(step), div=bag,
-            ids_in_range=True, ok=ok)   # wrapped ids
-        return params
+class EmbeddingBagConcat(_FlatTableBag):
+    """T tables of one width and different row counts, concatenated
+    row-wise into one (total_rows, d) table: each lookup wraps into its
+    table (``% table_sizes[t]``) and adds the table's row offset, so the
+    T gathers are ONE bag-kernel launch over (batch·T, bag) global ids and
+    the update one scatter (the non-uniform form of
+    ``EmbeddingBagStacked``: Criteo-Kaggle's 26 tables of 4 to 3.2M
+    rows).
+
+    As in the JAX op, the total is padded up to a multiple of
+    ``_ROW_PAD`` rows (the pad rows are zero and no id reaches them), the
+    tables lie at ``_offsets`` in order, and each is initialized at its
+    own (rows_t, d) shape, so a shape-dependent initializer scales each
+    table as the per-table ops would. The JAX op stores the table
+    lane-packed as (total_rows/r, r·d) (``_pack_factor``); the port keeps
+    it logical, and ``utils.weights`` carries it across by a reshape.
+
+    input: int (batch, T, bag) -> (batch, T, d)."""
+
+    type_name = "EmbedConcat"
+
+    # row padding so the concatenated row count divides any power-of-two
+    # mesh (the JAX op shards it over one)
+    _ROW_PAD = 8192
+
+    def __init__(self, model, input_tensor, table_sizes, out_dim: int,
+                 aggr: str = AGGR_MODE_SUM, kernel_initializer=None,
+                 name: Optional[str] = None):
+        super().__init__(model, [input_tensor], name)
+        self.table_sizes = tuple(int(s) for s in table_sizes)
+        self.num_tables = len(self.table_sizes)
+        if input_tensor.num_dims != 3 \
+                or input_tensor.shape[1] != self.num_tables:
+            raise ValueError(f"EmbeddingBagConcat expects (batch, "
+                             f"{self.num_tables}, bag) ids, got "
+                             f"{input_tensor.shape}")
+        if aggr not in (AGGR_MODE_SUM, AGGR_MODE_AVG):
+            raise ValueError(f"EmbeddingBagConcat aggr expects sum|avg, "
+                             f"got {aggr!r}")
+        self.out_dim = int(out_dim)
+        self.aggr = aggr
+        self.kernel_initializer = kernel_initializer or GlorotUniform()
+        total = sum(self.table_sizes)
+        self.total_rows = -(-total // self._ROW_PAD) * self._ROW_PAD
+        offs = [0]
+        for s in self.table_sizes[:-1]:
+            offs.append(offs[-1] + s)
+        self._offsets = tuple(offs)
+        self._consts = {}       # device -> (sizes, offsets) as tensors
+        batch = input_tensor.shape[0]
+        self.outputs = [self._make_output(
+            (batch, self.num_tables, self.out_dim))]
+
+    def set_device_groups(self, dev_of):
+        """The JAX op regroups its tables by the strategy's device, one
+        equal row block per device; the port runs on one card."""
+        raise NotImplementedError(
+            "EmbeddingBagConcat.set_device_groups: tables on several "
+            "devices need multi-GPU (ROADMAP queue 1 item 7)")
+
+    def param_defs(self):
+        return {"kernel": ParamDef((self.total_rows, self.out_dim),
+                                   torch.float32, self.kernel_initializer)}
+
+    def init_params(self, generator, device):
+        # each table at its own (rows_t, d) shape, at its offset; the pad
+        # rows stay zero
+        kernel = torch.zeros((self.total_rows, self.out_dim),
+                             dtype=torch.float32, device=device)
+        for off, rows in zip(self._offsets, self.table_sizes):
+            kernel[off:off + rows] = self.kernel_initializer(
+                generator, (rows, self.out_dim), torch.float32, device)
+        return {"kernel": kernel}
+
+    def _global_ids(self, idx):
+        """(batch, T, bag) ids -> (batch*T, bag) rows of the concatenated
+        table: each id wraps into its table as jnp's floor-mod % does
+        (negative ids too), then its table's offset is added."""
+        consts = self._consts.get(idx.device)
+        if consts is None:
+            with torch.inference_mode(False):   # plain tensors, kept
+                consts = self._consts[idx.device] = tuple(
+                    torch.tensor(v, dtype=torch.int64,
+                                 device=idx.device)[None, :, None]
+                    for v in (self.table_sizes, self._offsets))
+        sizes, offs = consts
+        flat = torch.remainder(idx.long(), sizes) + offs
+        return flat.reshape(-1, idx.shape[2])
+
+    def _flat(self, t):
+        return t                          # stored as (total_rows, d)
+
+    # ---- delta publication (utils/delta.py) -------------------------
+    def lookup_id_space(self) -> int:
+        return self.total_rows
+
+    def delta_touched_rows(self, idx_np) -> np.ndarray:
+        """Rows of the JAX op's stored kernel, (total_rows/r, r*d), that
+        this batch touches: r logical rows a packed row."""
+        from ..utils.weights import _pack_factor
+        r = _pack_factor(self.out_dim, self.total_rows)
+        return np.unique(self.flat_lookup_ids(idx_np) // r)
+
+    # ---- host-resident table (FFConfig.host_resident_tables) --------
+    # the host table is the unpacked (total_rows, d) concatenation
+    def host_init(self, seed: int):
+        """Table t drawn from ``seed + t`` into its rows, as the JAX op's;
+        the tables are drawn on a thread each (a draw releases the
+        interpreter lock; each table has its own generator, so the result
+        does not depend on the order)."""
+        from concurrent.futures import ThreadPoolExecutor
+        logical = np.zeros((self.total_rows, self.out_dim), np.float32)
+
+        def draw(i):
+            off, rows = self._offsets[i], self.table_sizes[i]
+            _host_init_table(self.kernel_initializer, (rows, self.out_dim),
+                             seed + i, out=logical[off:off + rows])
+
+        workers = max(1, min(self.num_tables, os.cpu_count() or 1))
+        with ThreadPoolExecutor(workers) as pool:
+            # largest first, so the longest draw starts at once
+            order = sorted(range(self.num_tables),
+                           key=lambda i: -self.table_sizes[i])
+            for f in [pool.submit(draw, i) for i in order]:
+                f.result()
+        return {"kernel": logical}
+
+    def host_flat_indices(self, idx_np):
+        """Per-sample flat row ids, (batch, T, bag), into the
+        (total_rows, d) concatenated table."""
+        sizes = np.asarray(self.table_sizes, np.int64)[None, :, None]
+        offs = np.asarray(self._offsets, np.int64)[None, :, None]
+        return np.asarray(idx_np).astype(np.int64) % sizes + offs

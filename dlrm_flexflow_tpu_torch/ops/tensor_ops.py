@@ -1,6 +1,6 @@
-"""Shape operators: Concat, Split, Reshape and Reverse (the counterparts
-of ``dlrm_flexflow_tpu.ops.tensor_ops``; Flat, Transpose and IndexSelect
-are not ported yet)."""
+"""Shape operators: Concat, Split, Reshape, Transpose, IndexSelect and
+Reverse (the counterparts of ``dlrm_flexflow_tpu.ops.tensor_ops``; Flat
+is not ported yet)."""
 
 from __future__ import annotations
 
@@ -84,6 +84,56 @@ class Reshape(Op):
             # re-derives its target against the live batch
             shape = (x.shape[0],) + tuple(shape[1:])
         return [x.reshape(shape)]
+
+
+class Transpose(Op):
+    """Swap the innermost two dims; batch dims untouched."""
+
+    type_name = "Transpose"
+
+    def __init__(self, model, input_tensor, name: Optional[str] = None):
+        super().__init__(model, [input_tensor], name)
+        if input_tensor.num_dims < 2:
+            raise ValueError("transpose needs rank >= 2")
+        shape = list(input_tensor.shape)
+        shape[-1], shape[-2] = shape[-2], shape[-1]
+        self.outputs = [self._make_output(shape, input_tensor.dtype)]
+
+    def apply(self, params, xs):
+        return [xs[0].transpose(-1, -2)]
+
+
+class IndexSelect(Op):
+    """Static-index gather along one axis (``torch.index_select``
+    semantics): the strictly-lower-triangle selection of the DLRM "dot"
+    interaction."""
+
+    type_name = "IndexSelect"
+
+    def __init__(self, model, input_tensor, indices, axis: int,
+                 name: Optional[str] = None):
+        super().__init__(model, [input_tensor], name)
+        self.axis = axis % input_tensor.num_dims
+        self.indices = [int(i) for i in indices]
+        ext = input_tensor.shape[self.axis]
+        for i in self.indices:
+            if not 0 <= i < ext:
+                raise ValueError(f"index {i} out of range for dim {ext}")
+        shape = list(input_tensor.shape)
+        shape[self.axis] = len(self.indices)
+        self.outputs = [self._make_output(shape, input_tensor.dtype)]
+        self._idx = {}          # device -> the indices as a tensor there
+
+    def apply(self, params, xs):
+        (x,) = xs
+        idx = self._idx.get(x.device)
+        if idx is None:
+            # a plain tensor even when made under inference mode: the
+            # backward of a training step saves it
+            with torch.inference_mode(False):
+                idx = self._idx[x.device] = torch.tensor(
+                    self.indices, dtype=torch.int64, device=x.device)
+        return [torch.index_select(x, self.axis, idx)]
 
 
 class Reverse(Op):

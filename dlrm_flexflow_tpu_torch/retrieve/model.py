@@ -15,9 +15,9 @@ package by name (``utils.weights.params_from_jax``):
   item  : item ids only    -> (B, d) item embeddings (index builder)
 
 Not ported yet: the ``train`` head (in-batch logits through
-``BatchMatmul`` and the sparse softmax cross-entropy, ROADMAP queue 1
-item 4) and the self-attention over the user features
-(``attention_heads > 0``, queue 1 item 11).
+``BatchMatmul``, which is ported, and the in-batch sampled softmax
+cross-entropy, ROADMAP queue 1 item 10.2) and the self-attention over
+the user features (``attention_heads > 0``, queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -112,8 +112,8 @@ def build_two_tower(model: FFModel, cfg: TwoTowerConfig,
     if head == "train":
         raise NotImplementedError(
             "the two-tower 'train' head (in-batch logits through "
-            "BatchMatmul and the sparse softmax cross-entropy) is not "
-            "ported yet (ROADMAP queue 1 item 4)")
+            "BatchMatmul into the sparse softmax cross-entropy) is not "
+            "ported yet (ROADMAP queue 1 item 10.2)")
     T = len(cfg.user_embedding_size)
     if cfg.attention_heads > 0 and T > 1:
         raise NotImplementedError(

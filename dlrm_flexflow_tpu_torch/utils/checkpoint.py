@@ -5,7 +5,10 @@ other's snapshots.
 A snapshot is one ``.npz``: ``params/<op>/<param>`` in the JAX layout
 (``utils.weights.params_to_jax``: stacked tables lane-packed to
 (T, rows/r, r·d) in ``_table_order``), ``opt/<slab>/<op>/<param>`` and
-Adam's ``opt/step`` (``opt_state_to_jax``), and ``meta/step``. The port
+Adam's ``opt/step`` (``opt_state_to_jax``), host-resident tables as
+``hostparams/<op>/kernel`` and their optimizer slabs as
+``hostopt/<op>/<slab>`` (unpacked, as both packages keep them on the
+host), and ``meta/step``. The port
 runs on one device and writes no ``meta/mesh_axes`` or
 ``meta/num_devices``: the JAX package checks a mesh only when a file
 records one, so any JAX mesh takes the port's file, and the arrays are
@@ -58,8 +61,9 @@ import torch
 
 from . import faults
 from .logging import get_logger
-from .weights import (jax_param_shapes, opt_state_from_jax,
-                      opt_state_to_jax, params_from_jax, params_to_jax)
+from .weights import (host_param_shapes, jax_param_shapes,
+                      opt_state_from_jax, opt_state_to_jax,
+                      params_from_jax, params_to_jax)
 
 log_ckpt = get_logger("checkpoint")
 
@@ -85,12 +89,15 @@ def _unflatten(flat):
     return tree
 
 
-def _model_flat(model) -> Dict[str, np.ndarray]:
+def _model_flat(model, copy_host: bool = True) -> Dict[str, np.ndarray]:
     """A model's training state as npz-ready host arrays in the JAX
-    layout. The arrays own their bytes: a background writer writes them
-    while the training loop keeps updating the model's tensors in
-    place (a copy from the card is fresh host memory; a CPU tensor is
-    copied)."""
+    layout, after the last host scatter landed. The arrays own their
+    bytes: a background writer writes them while the training loop keeps
+    updating the model's tensors in place (a copy from the card is fresh
+    host memory; a CPU tensor is copied; the host tables are copied
+    unless ``copy_host`` is False, for a write made before any other
+    step)."""
+    model._host_drain()
     copy = model.device.type == "cpu"
     flat: Dict[str, np.ndarray] = {}
     for k, v in _flatten(params_to_jax(model, model.params)).items():
@@ -98,6 +105,10 @@ def _model_flat(model) -> Dict[str, np.ndarray]:
     opt = opt_state_to_jax(model, model.opt_state or {})
     for k, v in _flatten(opt).items():
         flat[f"opt/{k}"] = np.array(v) if copy else v
+    for sec, tree in (("hostparams", model.host_params),
+                      ("hostopt", model.host_opt_state)):
+        for k, v in _flatten(tree).items():
+            flat[f"{sec}/{k}"] = np.array(v) if copy_host else v
     flat["meta/step"] = np.asarray(model._step)
     return flat
 
@@ -194,11 +205,11 @@ def config_fingerprint(model) -> str:
     neither package skips the other's snapshots as foreign."""
     desc: List[Any] = [str(model.config.compute_dtype)]
     desc.append(sorted((op.name, type(op).__name__) for op in model.ops))
-    desc.append(sorted(
-        (f"{op}/{pn}", shape)
-        for op, shapes in jax_param_shapes(model).items()
-        for pn, shape in shapes.items()))
-    desc.append([])      # the JAX model's host-resident tables: none here
+    for shapes_of in (jax_param_shapes, host_param_shapes):
+        desc.append(sorted(
+            (f"{op}/{pn}", shape)
+            for op, shapes in shapes_of(model).items()
+            for pn, shape in shapes.items()))
     blob = json.dumps(desc, sort_keys=True, default=str).encode()
     return hashlib.sha1(blob).hexdigest()[:12]
 
@@ -208,23 +219,38 @@ def save_checkpoint(model, path: str):
     atomically."""
     if not path.endswith(".npz"):
         path += ".npz"   # np.savez would have appended it anyway
-    _write_npz_atomic(path, _model_flat(model))
+    _write_npz_atomic(path, _model_flat(model, copy_host=False))
 
 
-def _split_sections(flat: Dict[str, np.ndarray]):
-    """A snapshot's flat arrays -> its params and opt sections."""
-    params_flat, opt_flat = {}, {}
+_SECTIONS = ("params", "opt", "hostparams", "hostopt")
+
+
+def _split_sections(flat: Dict[str, np.ndarray]) -> Dict[str, Dict]:
+    """A snapshot's flat arrays -> {section: its flat arrays} for the
+    params, opt, hostparams and hostopt sections."""
+    out: Dict[str, Dict] = {sec: {} for sec in _SECTIONS}
     for k, v in flat.items():
-        if k.startswith("params/"):
-            params_flat[k[len("params/"):]] = v
-        elif k.startswith("opt/"):
-            opt_flat[k[len("opt/"):]] = v
-        elif k.startswith(("state/", "hostparams/", "hostopt/")):
+        sec, _, rest = k.partition("/")
+        if sec in out:
+            out[sec][rest] = v
+        elif sec == "state":
             raise ValueError(
-                f"checkpoint holds {k!r}: op state and host-resident "
-                f"tables are not ported yet (ROADMAP queue 1 items 2.4 "
-                f"and 11)")
-    return params_flat, opt_flat
+                f"checkpoint holds {k!r}: op state is not ported yet "
+                f"(ROADMAP queue 1 item 11)")
+    return out
+
+
+def _host_tables(model, sections, opt: bool):
+    """The snapshot's host tables (and, with ``opt``, their optimizer
+    slabs), checked against the model's host-resident ops: a snapshot of
+    device tables for a host-table model raises, as does the reverse."""
+    host = _unflatten(sections["hostparams"])
+    if set(host) != {op.name for op in model._host_resident_list}:
+        raise ValueError(
+            f"checkpoint has host-resident tables {sorted(host)} but the "
+            f"model keeps {sorted(op.name for op in model._host_resident_list)}"
+            f" on the host (--host-tables must match the writer's)")
+    return host, (_unflatten(sections["hostopt"]) if opt else None)
 
 
 def restore_checkpoint(model, path: str, params_only: bool = False):
@@ -235,10 +261,8 @@ def restore_checkpoint(model, path: str, params_only: bool = False):
     ``params_only=True`` loads the parameters and step and leaves the
     optimizer state as it is (serving)."""
     flat = read_npz(path if path.endswith(".npz") else path + ".npz")
-    params_flat, opt_flat = _split_sections(flat)
-    return _apply_flat_state(model, params_flat,
-                             None if params_only else opt_flat,
-                             int(flat["meta/step"]))
+    return _apply_flat_state(model, _split_sections(flat),
+                             int(flat["meta/step"]), opt=not params_only)
 
 
 def load_params_for_swap(model, path: str) -> Dict[str, Any]:
@@ -250,45 +274,49 @@ def load_params_for_swap(model, path: str) -> Dict[str, Any]:
     mismatch; the watcher rejects the snapshot and keeps serving."""
     flat = read_npz(path if path.endswith(".npz") else path + ".npz",
                     keep=lambda k: not k.startswith(("opt/", "hostopt/")))
-    params_flat, _ = _split_sections(flat)
+    sections = _split_sections(flat)
+    host, _ = _host_tables(model, sections, opt=False)
+    return {"params": _params_of(model, sections["params"]),
+            "op_state": {}, "host_params": host or None,
+            "step": int(flat["meta/step"])}
+
+
+def _params_of(model, params_flat):
     params_np = _unflatten(params_flat)
-    have = {op.name for op in model.ops if op.param_defs()}
+    have = set(jax_param_shapes(model))
     extra = sorted(set(params_np) - have)
     if extra:
         raise ValueError(f"checkpoint has parameters for ops {extra} "
                          f"which this model does not have")
-    return {"params": params_from_jax(model, params_np), "op_state": {},
-            "host_params": None, "step": int(flat["meta/step"])}
+    return params_from_jax(model, params_np)   # raises on a mismatch
 
 
 def restore_from_flat(model, flat: Dict[str, np.ndarray]):
     """Restore a ``_model_flat`` snapshot held in memory."""
-    params_flat, opt_flat = _split_sections(flat)
-    return _apply_flat_state(model, params_flat, opt_flat,
+    return _apply_flat_state(model, _split_sections(flat),
                              int(flat["meta/step"]))
 
 
-def _apply_flat_state(model, params_flat, opt_flat, step: int):
-    params_np = _unflatten(params_flat)
-    have = {op.name for op in model.ops if op.param_defs()}
-    extra = sorted(set(params_np) - have)
-    if extra:
-        raise ValueError(f"checkpoint has parameters for ops {extra} "
-                         f"which this model does not have")
-    params = params_from_jax(model, params_np)   # raises on a mismatch
+def _apply_flat_state(model, sections, step: int, opt: bool = True):
+    host, host_opt = _host_tables(model, sections, opt)
+    params = _params_of(model, sections["params"])
     state = None
-    if opt_flat is not None:
-        state = opt_state_from_jax(model, _unflatten(opt_flat))
-        opt = getattr(model, "optimizer", None)
-        if opt is not None:
-            want = set(opt.init_state({}))
+    if opt:
+        state = opt_state_from_jax(model, _unflatten(sections["opt"]))
+        optimizer = getattr(model, "optimizer", None)
+        if optimizer is not None:
+            want = set(optimizer.init_state({}))
             if set(state) != want:
                 raise ValueError(
                     f"checkpoint optimizer state {sorted(state)} does not "
                     f"match this model's optimizer ({sorted(want)})")
-    model.swap_params(params)
+    # swap_params lands an in-flight host scatter and drops a chained
+    # gather before it installs
+    model.swap_params(params, host_params=host or None)
     if state is not None:
         model.opt_state = state
+    if host_opt is not None:
+        model.host_opt_state = host_opt
     model._step = int(step)
     model._msums = None
     return model

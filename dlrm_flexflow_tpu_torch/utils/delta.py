@@ -30,10 +30,13 @@ those candidate rows against the last published state, and diffs every
 row where candidates are missing or incomplete (a table on the dense
 update, a batch the tracker never saw), so a delta is always exact.
 
-Left for later items: the per-shard routing of the serving shard tier
-(``shard_slice_crc``, ``shard_chain_crc``, ``split_host_rows_by_shard``,
-ROADMAP queue 1 item 9.3) and quantized row payloads (item 5): a
-quantized delta is refused when written and rejected when loaded.
+Left for later items: host-resident tables' row deltas and the per-shard
+routing of the serving shard tier (``shard_slice_crc``,
+``shard_chain_crc``, ``split_host_rows_by_shard``, ROADMAP queue 1
+items 9.2 and 9.3: a publisher over a host-table model raises, and
+``FFModel.apply_delta`` rejects a ``hostparams`` key) and quantized row
+payloads (item 5): a quantized delta is refused when written and
+rejected when loaded.
 """
 
 from __future__ import annotations
@@ -402,6 +405,11 @@ class DeltaPublisher:
                 "DeltaPublisher over a quantized storage policy (row "
                 "payloads as codes + scales) is not ported yet (ROADMAP "
                 "queue 1 item 5)")
+        if model._host_resident_list:
+            raise NotImplementedError(
+                "DeltaPublisher over host-resident tables (hostparams row "
+                "deltas and their shard routing) is not ported yet "
+                "(ROADMAP queue 1 items 9.2 and 9.3)")
         self.model = model
         self.mgr = manager or CheckpointManager(directory,
                                                 keep_last=keep_last)

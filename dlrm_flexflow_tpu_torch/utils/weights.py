@@ -15,7 +15,16 @@ for ``model``, ready for ``model.swap_params``:
   (T, N/r, r·d) in storage order: it is reshaped to (T, N, d) and the
   op's ``_table_order`` (stored slot s holds logical table order[s]) is
   undone, giving the port's logical layout. Set the same order on the
-  port's op (``set_table_order``) that the JAX op carries.
+  port's op (``set_table_order``) that the JAX op carries;
+- an EmbeddingBagConcat kernel is stored lane-packed as
+  (total_rows/r, r·d): a reshape gives the port's (total_rows, d).
+
+Host-resident tables are no parameters: the ops whose tables live on
+the host (``model._host_resident_list``) have no entry in ``params``
+here or in the JAX model, and ``host_param_shapes`` gives their host
+tables' shapes, which both packages keep unpacked: (rows, d) for an
+``Embedding``, (T, rows, d) for a stacked table, (total_rows, d) for a
+concatenated one.
 
 ``params_to_jax`` is the inverse: the port's parameters as numpy in the
 JAX layout (``_table_order`` re-applied, tables lane-packed to
@@ -41,7 +50,33 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..ops.embedding import EmbeddingBagStacked
+from ..ops.embedding import (Embedding, EmbeddingBagConcat,
+                             EmbeddingBagStacked)
+
+
+def _device_ops(model):
+    """The ops with parameters on the device: all but the host-resident
+    tables."""
+    host = {op.name for op in model._host_resident_list}
+    return [op for op in model.ops
+            if op.param_defs() and op.name not in host]
+
+
+def host_param_shapes(model) -> Dict[str, Dict[str, tuple]]:
+    """Every host-resident table's shape, {op name: {"kernel": shape}}."""
+    out = {}
+    for op in model._host_resident_list:
+        if isinstance(op, EmbeddingBagStacked):
+            shape = (op.num_tables, op.num_entries, op.out_dim)
+        elif isinstance(op, EmbeddingBagConcat):
+            shape = (op.total_rows, op.out_dim)
+        elif isinstance(op, Embedding):
+            shape = (op.num_entries, op.out_dim)
+        else:
+            raise TypeError(f"{op.name}: no host table layout for "
+                            f"{type(op).__name__}")
+        out[op.name] = {"kernel": shape}
+    return out
 
 
 def param_from_jax(model, op, pn: str, v) -> torch.Tensor:
@@ -54,6 +89,8 @@ def param_from_jax(model, op, pn: str, v) -> torch.Tensor:
         if op._table_order is not None:
             inv = np.argsort(np.asarray(op._table_order))
             v = v[inv]
+    elif isinstance(op, EmbeddingBagConcat) and pn == "kernel":
+        v = v.reshape(op.total_rows, op.out_dim)
     if tuple(v.shape) != tuple(d.shape):
         raise ValueError(f"{op.name}.{pn}: JAX array of shape "
                          f"{v.shape}, the port expects {d.shape}")
@@ -64,10 +101,8 @@ def param_from_jax(model, op, pn: str, v) -> torch.Tensor:
 def params_from_jax(model, params_np: Dict[str, Dict[str, np.ndarray]]
                     ) -> Dict[str, Dict[str, torch.Tensor]]:
     out = {}
-    for op in model.ops:
+    for op in _device_ops(model):
         defs = op.param_defs()
-        if not defs:
-            continue
         if op.name not in params_np:
             raise KeyError(f"JAX params hold no op {op.name!r}")
         src = params_np[op.name]
@@ -85,6 +120,12 @@ def rows_from_jax(op, pn: str, idx: np.ndarray, vals: np.ndarray):
     parameter has one layout in both packages."""
     idx = np.asarray(idx, dtype=np.int64).reshape(-1)
     vals = np.asarray(vals)
+    if isinstance(op, EmbeddingBagConcat) and pn == "kernel":
+        # packed row q holds the r logical rows q*r .. q*r+r-1
+        r = _pack_factor(op.out_dim, op.total_rows)
+        out = (idx[:, None] * r
+               + np.arange(r, dtype=np.int64)[None, :]).reshape(-1)
+        return out, vals.reshape(-1, op.out_dim)
     if not (isinstance(op, EmbeddingBagStacked) and pn == "kernel"):
         return idx, vals
     rows = op.num_entries
@@ -109,16 +150,16 @@ def jax_param_shapes(model) -> Dict[str, Dict[str, tuple]]:
     """Every parameter's shape in the JAX layout, as ``params_to_jax``
     would give it, from the ops' definitions alone (no data moves)."""
     out = {}
-    for op in model.ops:
-        defs = op.param_defs()
-        if not defs:
-            continue
+    for op in _device_ops(model):
         shapes = {pn: tuple(int(x) for x in d.shape)
-                  for pn, d in defs.items()}
+                  for pn, d in op.param_defs().items()}
         if isinstance(op, EmbeddingBagStacked) and "kernel" in shapes:
             r = _pack_factor(op.out_dim, op.num_entries)
             shapes["kernel"] = (op.num_tables, op.num_entries // r,
                                 op.out_dim * r)
+        elif isinstance(op, EmbeddingBagConcat) and "kernel" in shapes:
+            r = _pack_factor(op.out_dim, op.total_rows)
+            shapes["kernel"] = (op.total_rows // r, op.out_dim * r)
         out[op.name] = shapes
     return out
 
@@ -127,15 +168,15 @@ def params_to_jax(model, params: Dict[str, Dict[str, torch.Tensor]]
                   ) -> Dict[str, Dict[str, np.ndarray]]:
     shapes = jax_param_shapes(model)
     out = {}
-    for op in model.ops:
-        if not op.param_defs():
-            continue
+    for op in _device_ops(model):
         mine = {}
         for pn, v in params[op.name].items():
             v = v.detach().cpu().numpy()
             if isinstance(op, EmbeddingBagStacked) and pn == "kernel":
                 if op._table_order is not None:
                     v = v[np.asarray(op._table_order)]
+                v = v.reshape(shapes[op.name][pn])
+            elif isinstance(op, EmbeddingBagConcat) and pn == "kernel":
                 v = v.reshape(shapes[op.name][pn])
             mine[pn] = v
         out[op.name] = mine

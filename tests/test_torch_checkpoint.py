@@ -367,11 +367,11 @@ def test_interrupted_fit_resumes_bitwise(name, crash_at, tmp_path):
     broken = _port_model(name, stage_dataset="never")
     real, calls = broken.train_batch_staged, []
 
-    def crashing(staged):
+    def crashing(staged, **kw):
         calls.append(1)
         if len(calls) == crash_at:
             raise _Crash()
-        return real(staged)
+        return real(staged, **kw)
 
     broken.train_batch_staged = crashing
     d = str(tmp_path / "ckpt")

@@ -1604,3 +1604,142 @@ def test_staged_delta_under_traffic_serves_as_quiesced(cuda, mode):
     assert got.version == 3 and eng.stats()["reload_rejects"] == 0
     want = quiet.forward_bucket(x, 16).cpu().numpy()
     np.testing.assert_array_equal(got.scores, want)
+
+
+# ---------------------------------------------------------------------
+# Criteo's non-uniform tables: the concatenated table at d = 16
+# ---------------------------------------------------------------------
+KAGGLE = DLRMConfig.criteo_kaggle().embedding_size
+
+
+def _kaggle_ids(cuda, batch=256, seed=0, zipf=0.0):
+    """The global ids of a batch into the concatenated Criteo-Kaggle
+    table (11,386,880 rows), as ``EmbeddingBagConcat`` makes them."""
+    m = pt.FFModel(pt.FFConfig(batch_size=batch, device="cuda"))
+    ids = m.create_tensor((batch, len(KAGGLE), 1), dtype=torch.int64,
+                          name="ids")
+    m.embedding_concat(ids, KAGGLE, 16, name="emb")
+    op = m.get_layer_by_name("emb")
+    cfg = DLRMConfig.criteo_kaggle()
+    cfg.zipf_alpha = zipf
+    x, _ = synthetic_batch(cfg, batch, seed=seed)
+    gid = op._global_ids(torch.as_tensor(x["sparse"], device=cuda))
+    return op, gid
+
+
+def test_concat_bag_kernel_matches_plain_at_kaggle(cuda):
+    """The bag kernel over the concatenated table at d = 16 and the
+    Kaggle step's 6,656 lookups, against its plain version on the CPU
+    (rtol, atol 1e-6; bag 1: a copy), the gathered rows bitwise."""
+    op, gid = _kaggle_ids(cuda)
+    assert op.total_rows == 11_386_880 and gid.shape == (256 * 26, 1)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    table = torch.randn(op.total_rows, 16, device=cuda, generator=g)
+    before = embedding_bag.launches
+    out, rows = embedding_bag(table, gid, "sum", return_rows=True)
+    torch.cuda.synchronize()
+    assert embedding_bag.launches == before + 1
+    want, want_rows = embedding_bag_reference(table.cpu(), gid.cpu(), "sum",
+                                              return_rows=True)
+    torch.testing.assert_close(out.cpu(), want, rtol=1e-6, atol=1e-6)
+    assert torch.equal(rows.cpu(), want_rows)
+
+
+@pytest.mark.parametrize("write", [False, True])
+@pytest.mark.parametrize("zipf", [0.0, 1.1])
+def test_concat_scatters_match_plain_at_kaggle(cuda, write, zipf):
+    """Both scatters on the concatenated Kaggle table at d = 16, the
+    step's 6,656 lookups (uniform and Zipf-skewed ids), bitwise against
+    their plain versions on the CPU."""
+    _, gid = _kaggle_ids(cuda, seed=1, zipf=zipf)
+    ids = gid.reshape(-1)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    table = torch.randn(11_386_880, 16, device=cuda, generator=g)
+    upd = torch.randn(ids.shape[0], 16, device=cuda, generator=g)
+    fwd = table[ids]
+    got = table.clone()
+    if write:
+        scatter_write_rows(got, ids, upd, fwd, scale=-0.01,
+                           ids_in_range=True)
+        want = scatter_write_rows_reference(table.cpu(), ids.cpu(),
+                                            upd.cpu(), fwd.cpu(), -0.01)
+    else:
+        scatter_add_rows(got, ids, upd, scale=-0.01, ids_in_range=True)
+        want = scatter_add_rows_reference(table.cpu(), ids.cpu(), upd.cpu(),
+                                          -0.01)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("name", ["momentum", "adam"])
+def test_concat_stateful_matches_plain_at_kaggle(cuda, name):
+    """The stateful update on the concatenated Kaggle table at d = 16,
+    6,656 lookups on the one-launch route, bitwise against its plain
+    version on the CPU."""
+    _, gid = _kaggle_ids(cuda, seed=2, zipf=1.1)
+    ids = gid.reshape(-1)
+    rows = 11_386_880
+    g = torch.Generator(device=cuda).manual_seed(5)
+    opt = STATEFUL[name]()
+    table = torch.randn(rows, 16, device=cuda, generator=g)
+    upd = torch.randn(ids.shape[0], 16, device=cuda, generator=g)
+    slabs = {k: torch.rand(rows, 16, device=cuda, generator=g)
+             for k in opt.sparse_slab_names()}
+    fwd = table[ids]
+    alpha_t = opt.alpha_t(torch.tensor(3, dtype=torch.int32, device=cuda))
+    assert stateful_route(ids.shape[0], rows) == "fused"
+    got, got_s = table.clone(), {k: v.clone() for k, v in slabs.items()}
+    stateful_update_rows(got, ids, upd, fwd, got_s, opt.row_params(),
+                         alpha_t, ids_in_range=True)
+    want, want_s = table.cpu(), {k: v.cpu() for k, v in slabs.items()}
+    stateful_update_rows_reference(
+        want, ids.cpu(), upd.cpu(), fwd.cpu(), want_s, opt.row_params(),
+        None if alpha_t is None else alpha_t.cpu())
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    for k in slabs:
+        assert torch.equal(got_s[k].cpu(), want_s[k]), k
+
+
+CRITEO_SMALL = dict(embedding_size=[1396, 550, 24681, 687, 20, 15],
+                    sparse_feature_size=16, mlp_bot=[13, 64, 16])
+
+
+@pytest.mark.parametrize("mode,host", [("cat", False), ("dot", False),
+                                       ("cat", True), ("dot", True)])
+def test_non_uniform_step_on_card_matches_cpu(cuda, mode, host):
+    """One SGD step of a non-uniform DLRM (one concatenated table, "cat"
+    or the unfused "dot", device tables or host tables in exact mode) on
+    the card against the same step on the CPU from the same weights:
+    rtol 1e-5, atol 1e-7, as the uniform step above."""
+    T, d = 6, 16
+    top0 = d + (T * d if mode == "cat" else (T + 1) * T // 2)
+    dcfg = DLRMConfig(**CRITEO_SMALL, mlp_top=[top0, 32, 1],
+                      arch_interaction_op=mode)
+    models = []
+    for dev in ("cuda", "cpu"):
+        m = pt.FFModel(pt.FFConfig(batch_size=64, device=dev, seed=3,
+                                   host_resident_tables=host,
+                                   host_tables_async=False))
+        build_dlrm(m, dcfg)
+        m.compile(SGDOptimizer(lr=0.05), "mean_squared_error", ["mse"])
+        m.init_layers()
+        models.append(m)
+    gpu, cpu = models
+    cpu.swap_params({op: {n: v.cpu() for n, v in p.items()}
+                     for op, p in gpu.params.items()},
+                    host_params={k: {n: v.copy() for n, v in p.items()}
+                                 for k, p in gpu.host_params.items()}
+                    if host else None)
+    x, y = synthetic_batch(dcfg, 64, seed=5)
+    x["label"] = y
+    lg = float(gpu.train_batch(dict(x))["loss"])
+    lc = float(cpu.train_batch(dict(x))["loss"])
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    for op, p in cpu.params.items():
+        for pn, v in p.items():
+            torch.testing.assert_close(gpu.params[op][pn].cpu(), v,
+                                       rtol=1e-5, atol=1e-7)
+    for op, p in cpu.host_params.items():
+        np.testing.assert_allclose(gpu.host_params[op]["kernel"],
+                                   p["kernel"], rtol=1e-5, atol=1e-7)

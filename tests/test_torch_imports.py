@@ -69,6 +69,10 @@ def test_import_leaves_jax_out():
             "import dlrm_flexflow_tpu_torch.utils.delta\n"
             "import dlrm_flexflow_tpu_torch.utils.histogram\n"
             "import dlrm_flexflow_tpu_torch.serve.watcher\n"
+            "import dlrm_flexflow_tpu_torch.ops.batch_matmul\n"
+            "import dlrm_flexflow_tpu_torch.ops.tensor_ops\n"
+            "import dlrm_flexflow_tpu_torch.ops.embedding\n"
+            "import dlrm_flexflow_tpu_torch.native\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad\n")

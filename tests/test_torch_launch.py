@@ -3,7 +3,9 @@ dlrm_flexflow_tpu_torch.examples.native.dlrm``, on the CPU at a tiny size:
 from an ``.ffbin`` file with prefetch and without, from an ``.npz``, and
 from one synthetic batch; the same data in the same order gives BITWISE
 the same trained weights whatever the source and the staging. Every
-flag whose module is not ported raises, naming its ROADMAP item.
+flag whose module is not ported raises, naming its ROADMAP item; the
+flags of items since ported (``--host-tables``, ``--arch-interaction-op
+dot``) train, and the Criteo-Kaggle flags train on non-uniform tables.
 """
 
 import numpy as np
@@ -88,6 +90,24 @@ def test_sparse_ids_past_the_tables_raise(files, tmp_path):
     (["--arch-interaction-op", "dot"], "item 4"),
 ])
 def test_unported_flags_raise_with_their_item(flags, item):
+    if item in ("item 2.4", "item 4"):
+        # host-resident tables (item 2.4) and the unfused "dot"
+        # interaction (item 4) are ported: the launcher trains with them
+        args = list(ARGS)
+        if item == "item 4":
+            args[args.index("40-16-1")] = "18-16-1"  # 8 + 5·4/2 features
+        out = launcher.main(args + flags)
+        model = out["model"]
+        assert out["steps"] == 2 * 64 and out["throughput"] > 0
+        assert np.isfinite(model.perf.report()["mse"])
+        if item == "item 2.4":
+            assert [op.name for op in model._host_resident_list] == [
+                "emb_stack"]
+            assert model._host_scatter_thread is None   # drained
+            assert np.isfinite(model.host_params["emb_stack"]["kernel"]).all()
+        else:
+            model.get_layer_by_name("interaction_bmm")
+        return
     with pytest.raises(NotImplementedError, match=item):
         launcher.main(ARGS + flags)
 
@@ -96,3 +116,33 @@ def test_multi_host_launch_raises(monkeypatch):
     monkeypatch.setenv("NUM_PROCESSES", "2")
     with pytest.raises(NotImplementedError, match="item 7"):
         launcher.main(ARGS)
+
+
+CRITEO_SHAPED = ["--device", "cpu", "-b", "16", "-e", "1", "--lr", "0.05",
+                 "--arch-embedding-size", "1396-550-24-687-20-3",
+                 "--arch-sparse-feature-size", "16",
+                 "--arch-mlp-bot", "13-64-16", "--arch-mlp-top",
+                 "112-32-1"]
+
+
+@pytest.mark.parametrize("extra", [[], ["--host-tables"],
+                                   ["--host-tables", "--no-host-tables-async"],
+                                   ["--arch-interaction-op", "dot"]])
+def test_trains_criteo_shaped_flags(extra):
+    """Non-uniform tables, as ``run_criteo_kaggle.sh`` passes them (at
+    small sizes), train as one concatenated table, on the device or in
+    host RAM."""
+    args = list(CRITEO_SHAPED)
+    if "dot" in extra:
+        args[args.index("112-32-1")] = "37-32-1"    # 16 + 7·6/2
+    out = launcher.main(args + extra)
+    model = out["model"]
+    assert out["steps"] == 64 and out["throughput"] > 0
+    assert np.isfinite(model.perf.report()["mse"])
+    host = "--host-tables" in extra
+    assert ("emb_concat" in model.host_params) == host
+    assert ("emb_concat" in model.params) == (not host)
+    if host:
+        assert model.config.host_tables_async == (
+            "--no-host-tables-async" not in extra)
+        assert model.host_params["emb_concat"]["kernel"].shape == (8192, 16)

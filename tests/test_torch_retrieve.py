@@ -536,7 +536,7 @@ class TestHeads:
             for n, v in p.items():
                 assert torch.equal(again.params[op][n], v)
         m = pt.FFModel(pt.FFConfig(batch_size=HB, device="cpu"))
-        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 10.2"):
             build_two_tower(m, TwoTowerConfig(**TT), head="train")
         with pytest.raises(NotImplementedError, match="queue 1 item 11"):
             build_two_tower(m, TwoTowerConfig(**TT, attention_heads=2),

@@ -458,10 +458,10 @@ def test_a_remainder_that_cannot_train_is_dropped(stage, capsys):
     m = _mlp_port("none", jm, stage_dataset=stage)
     train = m.train_batch_device
 
-    def refuse(batch):
+    def refuse(batch, **kw):
         if len(batch["label"]) != 8:
             raise RuntimeError("an op bakes the batch of 8 into its shape")
-        return train(batch)
+        return train(batch, **kw)
 
     m.train_batch_device = refuse
     out = m.fit(xs, ys, epochs=2, verbose=False)
@@ -505,11 +505,11 @@ def test_a_remainder_error_after_the_sparse_update_raises(stage):
     train, update = m.train_batch_device, m.optimizer.update
     before, failed = {}, []
 
-    def step(batch):
+    def step(batch, **kw):
         if len(batch["label"]) == 8:      # 40 = 2 x 16 + a remainder of 8
             before.update({op.name: m.params[op.name]["kernel"].clone()
                            for op in m._sparse_ops})
-        return train(batch)
+        return train(batch, **kw)
 
     def fail_on_the_remainder(*args, **kw):
         if before and not failed:

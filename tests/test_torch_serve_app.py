@@ -27,6 +27,8 @@ import urllib.request
 import numpy as np
 import pytest
 
+import jax
+
 from dlrm_flexflow_tpu_torch.data.stream import ArrayStream
 from dlrm_flexflow_tpu_torch.examples.native import serve_dlrm
 from dlrm_flexflow_tpu_torch.models.dlrm import DLRMConfig, synthetic_batch
@@ -234,3 +236,56 @@ def test_unported_deployments_raise_with_their_item(flags, item):
 def test_retrieve_shards_without_retrieve_is_refused():
     with pytest.raises(SystemExit, match="--retrieve on"):
         serve_dlrm.App(BASE + ["--retrieve-shards", "2"])
+
+
+@pytest.mark.parametrize("flags", [["--arch-interaction-op", "dot"],
+                                   ["--host-tables"],
+                                   ["--arch-interaction-op", "dot",
+                                    "--host-tables"]])
+def test_serves_a_jax_trainers_snapshot_of_dot_and_host_tables(flags,
+                                                               tmp_path):
+    """The app builds the graph the JAX app builds from the same flags:
+    the unfused "dot" (``build_dlrm``), host-resident tables under
+    ``--host-tables``; a JAX trainer's snapshot of that graph restores at
+    start (same fingerprint), and /predict answers the JAX model's
+    forward within rtol 1e-5, atol 1e-6 (the MLPs' sums run in another
+    order)."""
+    import dlrm_flexflow_tpu as ff
+    from dlrm_flexflow_tpu.models.dlrm import (DLRMConfig as JaxDLRMConfig,
+                                               build_dlrm as jax_build_dlrm)
+    from dlrm_flexflow_tpu.parallel.mesh import make_mesh
+    from dlrm_flexflow_tpu.utils.checkpoint import \
+        CheckpointManager as JaxManager
+    dot = "dot" in flags
+    arch = dict(SMALL, mlp_top=[8 + 36 if dot else 72, 16, 1],
+                arch_interaction_op="dot" if dot else "cat")
+    jm = ff.FFModel(ff.FFConfig(batch_size=BS, seed=5,
+                                host_resident_tables="--host-tables" in flags,
+                                host_tables_async=False))
+    jax_build_dlrm(jm, JaxDLRMConfig(**arch))
+    jm.compile(ff.SGDOptimizer(lr=0.1), "mean_squared_error", ["mse"],
+               mesh=make_mesh(devices=jax.devices()[:1]))
+    jm.init_layers()
+    x, y = _data()
+    for i in range(2):
+        b = {k: v[i * BS:(i + 1) * BS] for k, v in x.items()}
+        b["label"] = y[i * BS:(i + 1) * BS]
+        jm.train_batch(b)
+    JaxManager(str(tmp_path)).save(jm, {"epoch": 0, "batch": 2})
+    argv = list(BASE)
+    argv[argv.index("72-16-1")] = "-".join(map(str, arch["mlp_top"]))
+    srv = _Running(argv + flags + ["--checkpoint-dir", str(tmp_path)])
+    try:
+        model = srv.app.engine.model
+        assert bool(model._host_resident_list) == ("--host-tables" in flags)
+        if dot:
+            model.get_layer_by_name("interaction_bmm")
+        q, body = _request(n=5)
+        out = json.loads(srv.post("/predict", body)[1])
+        assert out["version"] == 2
+        np.testing.assert_allclose(
+            np.asarray(out["scores"], np.float32),
+            np.asarray(jm.forward_batch(q)).reshape(-1),
+            rtol=1e-5, atol=1e-6)
+    finally:
+        srv.close()

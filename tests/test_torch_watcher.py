@@ -294,8 +294,15 @@ def test_installs_run_on_the_batcher_between_dispatches():
 
 def test_swap_params_refuses_what_the_port_lacks():
     pm = _port_model()
-    with pytest.raises(NotImplementedError, match="item 2.4"):
+    # host-resident tables are ported: a host-table model installs new
+    # tables, and a model of device tables refuses any
+    with pytest.raises(ValueError, match="host tables"):
         pm.swap_params(pm.params, host_params={"x": {}})
+    hm = _port_model(host_resident_tables=True)
+    new = {"emb_stack": {"kernel": np.zeros_like(
+        hm.host_params["emb_stack"]["kernel"])}}
+    hm.swap_params(hm.params, host_params=new)
+    assert hm.host_params is new
     with pytest.raises(NotImplementedError, match="item 11"):
         pm.swap_params(pm.params, op_state={"bn": {"mean": 1}})
     pm.swap_params(pm.params, op_state={})
