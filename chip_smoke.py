@@ -276,6 +276,33 @@ Phases:
    card; untouched host rows unchanged. ``python3 chip_smoke.py
    --criteo`` runs only this phase (the kernels built first).
 
+11. shard tier — serving host-resident tables, after phase 10:
+   Criteo-Kaggle uncut with ``--host-tables``, the unfused "dot", 4
+   in-process shards (``serve/shardtier.py``). (1) Freshness: a trainer
+   at batch 2,048 runs ``fit_stream`` with a ``DeltaPublisher`` (a
+   publish every 8 steps: a full base, deltas, the last torn, a
+   compaction) into an in-process engine on the tier and the app as a
+   child process (``--host-tables --serve-shards 4 --serve-cache-rows
+   65536``); at every version the tier's blocks are bitwise the
+   trainer's host table slot by slot, the engine bitwise the trainer,
+   the app within 1e-5, version vectors never go back, the torn delta
+   is rejected by both; freshness p50/p99, counted (one dense update a
+   step). (2) The read path: 64 requests of 64 rows through the host
+   gather, the row cache pre-warmed from the trainer's
+   ``id_histogram.npz`` and 4 shards plus the cache, bitwise equal one
+   request at a time, then requests/s and p50/p99 from 4 threads, the
+   cache's hit rate and one tier gather's split. (3)
+   ``FF_FAULT_SHARD_DOWN`` on slot 1 under traffic: no request fails,
+   degraded answers flagged and counted, a publish lands meanwhile, the
+   replacement boots from the shard warm cache, replays it from the
+   history and is admitted by its probe; every outage request bitwise
+   the trainer afterwards. (4) The cascade riding the tier: one publish
+   moves ranking rows and ``augment_delta``'s item rows, the top-k
+   kernel bitwise its plain version on every shard's rewritten block,
+   the bag on the towers' tables, 32 users counted (top-k and bag); the
+   app with ``--retrieve on --serve-shards 4``. ``python3 chip_smoke.py
+   --shard-tier`` runs only this phase (the kernels built first).
+
 The last two lines are a JSON object with every kernel's numbers and
 ``{"ok": true, "device": {...}}``. Without a GPU, or when any check
 fails, the script exits non-zero and prints no result.
@@ -324,7 +351,10 @@ from dlrm_flexflow_tpu_torch.retrieve import (CascadeConfig, CascadeEngine,
                                               dlrm_candidate_features,
                                               item_embeddings,
                                               transfer_tower_params)
-from dlrm_flexflow_tpu_torch.serve import InferenceEngine, ServeConfig
+from dlrm_flexflow_tpu_torch.serve import (EmbeddingShardSet,
+                                           InferenceEngine, ServeConfig,
+                                           ShardTierConfig)
+from dlrm_flexflow_tpu_torch.serve import shardtier as tier_mod
 from dlrm_flexflow_tpu_torch.ops.rnn import lstm_layer
 from dlrm_flexflow_tpu_torch.serve.engine import percentile
 
@@ -430,6 +460,31 @@ LOOP_STEPS = LOOP_EVERY * (LOOP_DELTAS + 2)
 LOOP_SIZES = (1, 64, 256)
 LOOP_CLIENTS = 4
 LOOP_RATE_S = 3.0
+# the shard tier (phase 11): Criteo-Kaggle uncut with host tables, the
+# unfused "dot", TIER_SHARDS in-process shards; a trainer at batch TIER_B
+# publishing every TIER_EVERY steps (a full base, TIER_DELTAS deltas, the
+# last torn, a compaction) on zipf(TIER_ZIPF) traffic; TIER_POOL
+# requests of TIER_REQ_ROWS rows served TIER_PASSES times from
+# TIER_CLIENTS threads per read path; TIER_OUTAGE_POOL new requests under
+# the shard outage; TIER_CASCADE users through the cascade. Shard lookups
+# get TIER_DEADLINE_MS (the app's default is 50 ms): a lookup that waits
+# out the interpreter lock behind 4 client threads must not degrade an
+# answer the bitwise checks read
+TIER_SHARDS = 4
+TIER_B = 2048
+TIER_EVERY = 8
+TIER_DELTAS = 4
+TIER_STEPS = TIER_EVERY * (TIER_DELTAS + 2)
+TIER_ZIPF = 1.05
+TIER_CACHE = 65_536
+TIER_REQ_ROWS = 64
+TIER_POOL = 64
+TIER_PASSES = 2
+TIER_CLIENTS = 4
+TIER_OUTAGE_POOL = 48
+TIER_CASCADE = 32
+TIER_DEADLINE_MS = 500.0
+TIER_DEV = "cuda"
 # the checkout's root, where the serving app runs as a module
 REPO = Path(__file__).resolve().parent
 # where the launch phase writes its .ffbin and checkpoints: the build
@@ -4240,6 +4295,739 @@ def criteo_phase():
     return total
 
 
+# ---------------------------------------------------------------------
+# phase 11: the shard tier over Criteo-Kaggle's host tables
+# ---------------------------------------------------------------------
+def tier_model(batch, seed):
+    """Criteo-Kaggle uncut with ``--host-tables`` (26 tables in one
+    11,386,880-row concatenated host table x 16, 0.73 GB), the unfused
+    "dot" as the app builds it, SGD at the launcher's rate, initialized
+    from ``seed``. Returns (model, its DLRMConfig)."""
+    dcfg = DLRMConfig.criteo_kaggle()
+    dcfg.arch_interaction_op = "dot"
+    dcfg.zipf_alpha = TIER_ZIPF
+    m = FFModel(FFConfig(batch_size=batch, device=TIER_DEV, seed=seed,
+                         host_resident_tables=True))
+    build_dlrm(m, dcfg)
+    m.compile(SGDOptimizer(lr=LR), "mean_squared_error", ["mse"])
+    m.init_layers()
+    return m, dcfg
+
+
+def tier_flat(model):
+    """The model's concatenated host table, (rows, 16)."""
+    (op,) = model._host_resident_list
+    kern = model.host_params[op.name]["kernel"]
+    return op.name, kern.reshape(-1, kern.shape[-1])
+
+
+def at_version(vv, version):
+    """Whether a version vector read some shards, all at ``version``."""
+    return bool(vv) and all(v == version for v in vv.values())
+
+
+def check_tier_blocks(sset, model, what):
+    """Every shard's block BITWISE the model's rows it owns."""
+    name, flat = tier_flat(model)
+    for rep in sset.shards:
+        lo, hi = rep.shard.owned_range(name)
+        blk = rep.shard.blocks_copy()[0][name]
+        check(np.array_equal(blk, flat[lo:hi]),
+              f"tier: {what}: slot {rep.slot}'s rows [{lo}, {hi}) are not "
+              f"bitwise the trainer's")
+
+
+def _tier_loop(work, apps):
+    """(1) Freshness: a Criteo-Kaggle trainer (host tables, batch TIER_B)
+    runs ``fit_stream`` with a ``DeltaPublisher`` (a publish every
+    TIER_EVERY steps: a full base, deltas, the last one torn by
+    FF_FAULT_DELTA_TORN=1, a compaction), followed by an in-process
+    engine on a TIER_SHARDS-shard tier (its ranker's tables released) and
+    by the app as a child process (``--host-tables --serve-shards 4
+    --serve-cache-rows``), both polling every 50 ms. At every version the
+    in-process tier's blocks are BITWISE the trainer's host table, slot by
+    slot; the engine's scores BITWISE the trainer's, the app's within
+    1e-5; the version vectors of both never go back; the torn delta is
+    rejected with its reason. Counts at 0 just before the loop, read just
+    after. Returns (trainer, dcfg, checkpoint directory, launches,
+    freshness rows)."""
+    import os
+    from dlrm_flexflow_tpu_torch.data.stream import ArrayStream
+    from dlrm_flexflow_tpu_torch.utils import faults
+    from dlrm_flexflow_tpu_torch.utils.delta import DeltaPublisher
+    ckdir = work / "tier"
+    ckdir.mkdir()
+    t0 = time.perf_counter()
+    trainer, dcfg = tier_model(TIER_B, SEED)
+    server, _ = tier_model(256, SEED + 1)
+    t_init = time.perf_counter() - t0
+    sset = EmbeddingShardSet.build(
+        server, TIER_SHARDS,
+        config=ShardTierConfig(nshards=TIER_SHARDS,
+                               lookup_deadline_ms=TIER_DEADLINE_MS))
+    freed = EmbeddingShardSet.release_ranker_tables(server)
+    nbytes = tier_flat(trainer)[1].nbytes
+    free = shutil.disk_usage(work).free
+    check(free >= 6 * nbytes, f"tier: {free / 1e9:.1f} GB free under "
+          f"{work}, the loop keeps up to 3 snapshots of "
+          f"{nbytes / 1e9:.2f} GB")
+    torn_step = TIER_EVERY * (TIER_DELTAS + 1)
+    app = AppProcess(app_flags(dcfg, [
+        "-b", "256", "--seed", str(SEED + 2), "--host-tables",
+        "--serve-shards", str(TIER_SHARDS),
+        "--serve-lookup-deadline-ms", str(TIER_DEADLINE_MS),
+        "--serve-cache-rows", str(TIER_CACHE),
+        "--serve-cache-warm", str(ckdir), "--checkpoint-dir", str(ckdir),
+        "--serve-poll", "0.05", "--serve-max-batch", "256"]),
+        work / "tier_app.log")
+    apps.append(app)
+    x, y = synthetic_batch(dcfg, TIER_B * TIER_STEPS, seed=SEED + 50)
+    q = synthetic_batch(dcfg, TIER_REQ_ROWS, seed=SEED + 51)[0]
+    q_body = {k: v.tolist() for k, v in q.items()}
+    pub = DeltaPublisher(trainer, str(ckdir), keep_last=2,
+                         full_every=TIER_DELTAS)
+    published = []
+    publish = pub.publish
+
+    def timed_publish(loader_state):
+        t_pub = time.perf_counter()
+        entry = publish(loader_state)
+        published.append((int(trainer._step), t_pub, time.perf_counter(),
+                          dict(pub.last_publish)))
+        return entry
+
+    pub.publish = timed_publish
+    engine = InferenceEngine(server, ServeConfig(max_batch=256, poll_s=0.05),
+                             checkpoint_dir=str(ckdir), shard_set=sset)
+    t_ready = app.wait_ready()
+    clients = Clients(app, q_body)
+    rows, rejects, app_exact, vectors = [], {}, [], {"engine": [], "app": []}
+
+    def app_stats():
+        return app.call("/stats")[1]
+
+    def monotonic(seq, who):
+        for a, b in zip(seq, seq[1:]):
+            check(all(b[s] >= a[s] for s in set(a) & set(b)),
+                  f"tier: the {who}'s version vector went back: {a} -> {b}")
+
+    def on_step(m, k, mets):
+        if k == torn_step - 1:
+            rejects["engine"] = engine.stats()["reload_rejects"]
+            rejects["app"] = app_stats()["reload_rejects"]
+            os.environ["FF_FAULT_DELTA_TORN"] = "1"
+            faults.install(faults.plan_from_env())
+        if k % TIER_EVERY:
+            return
+        step, t_pub, t1, split = published[-1]
+        check(step == k, f"tier: published step {step} at step {k}")
+        torn = k == torn_step
+        if torn:
+            plan = faults.active()
+            faults.clear()
+            del os.environ["FF_FAULT_DELTA_TORN"]
+            check(plan.fired and plan.fired[0][0] == "torn_delta",
+                  f"tier: the torn-delta fault did not fire: {plan.fired}")
+        clients.start()
+        if torn:
+            t_eng = wait_for(lambda: engine.stats()["reload_rejects"]
+                             > rejects["engine"], "the engine's reject")
+            t_app = wait_for(lambda: app_stats()["reload_rejects"]
+                             > rejects["app"], "the app's reject")
+        else:
+            t_eng = wait_for(lambda: engine.version == k
+                             and sset.min_version() == k,
+                             f"the engine's tier at version {k}")
+            t_app = wait_for(lambda: app_stats()["version"] == k,
+                             f"the app at version {k}")
+        n, dt = clients.stop()
+        rows.append((split["kind"] if not torn else "torn", k, t1 - t_pub,
+                     t_eng - t_pub, t_app - t_pub, n, dt, split))
+        if torn:
+            for who, s in (("engine", engine.stats()), ("app", app_stats())):
+                check("fails its CRC-32" in s["last_reload_reject"]
+                      and s["version"] == k - TIER_EVERY,
+                      f"tier: the {who} did not reject the torn delta with "
+                      f"its reason: {s['last_reload_reject']!r}")
+            check(sset.version_vector() == {s: k - TIER_EVERY
+                                            for s in range(TIER_SHARDS)},
+                  f"tier: the tier moved on a torn delta: "
+                  f"{sset.version_vector()}")
+            return
+        check_tier_blocks(sset, trainer, f"version {k}")
+        want = trainer.forward_bucket(q, TIER_REQ_ROWS).cpu().numpy()
+        got = engine.predict(q, timeout=120)
+        check(got.version == k and not got.degraded
+              and at_version(got.versions, k)
+              and np.array_equal(got.scores, want),
+              f"tier: the engine at version {k} is not bitwise the trainer "
+              f"(versions {got.versions}, largest difference "
+              f"{float(np.abs(got.scores - want).max()):.3g})")
+        vectors["engine"].append(got.versions)
+        code, out = app.call("/predict", q_body)
+        agot = np.asarray(out["scores"], np.float32) if code == 200 else None
+        check(code == 200 and out["version"] == k and not out["degraded"]
+              and at_version(out["versions"], k)
+              and np.allclose(agot, want.reshape(-1), rtol=1e-5, atol=1e-6),
+              f"tier: the app at version {k} answered {code} "
+              f"{str(out)[:300]}")
+        vectors["app"].append({int(s): v for s, v in out["versions"].items()})
+        app_exact.append(bool(np.array_equal(agot, want.reshape(-1))))
+
+    zero_counts()
+    with PlainCalls() as plain:
+        with engine:
+            t0 = time.perf_counter()
+            out = trainer.fit_stream(ArrayStream(x, y, TIER_B, seed=1),
+                                     steps=TIER_STEPS, publisher=pub,
+                                     publish_every=TIER_EVERY,
+                                     callbacks=[on_step], verbose=False)
+            wall = time.perf_counter() - t0
+            est = engine.stats()
+    launches = read_counts()
+    check(not clients.errors, f"tier: /predict failed: {clients.errors[:3]}")
+    kinds = [r[0] for r in rows]
+    check(out["steps"] == TIER_STEPS and kinds == ["full"] + ["delta"] * (
+        TIER_DELTAS - 1) + ["torn", "full"], f"tier: publishes {kinds}")
+    check(est["delta_reloads"] == TIER_DELTAS - 1
+          and est["full_reloads"] == 2 and est["reload_rejects"] == 1
+          and est["degraded_responses"] == 0, f"tier: engine reloads {est}")
+    monotonic(vectors["engine"], "engine")
+    monotonic(vectors["app"], "app")
+    check(plain.calls == 0 and launches["dense_update"] == TIER_STEPS
+          and launches["embedding_bag"] == 0
+          and not any(launches[s] for s in SCATTERS),
+          f"tier: launches {launches}, plain calls {plain.calls}")
+    ast = app_stats()
+    rc = app.stop()
+    check(ast["version"] == TIER_STEPS and ast["reload_rejects"] == 1
+          and ast["shard_set"]["nshards"] == TIER_SHARDS
+          and ast["degraded_responses"] == 0, f"tier: the app's stats "
+          f"{str(ast)[:400]}")
+    check(rc == 0, f"tier: the app exited {rc}: "
+          f"{Path(app.log).read_text()[-2000:]}")
+    check_tier_blocks(sset, trainer, "the last version")
+    sset.close()
+    for kind, k, pub_s, eng_s, app_s, n, dt, split in rows:
+        extra = "" if kind == "torn" else (
+            f" (copy to host {split['copy_s']:.3f} s"
+            + (f", diff {split['diff_s']:.3f} s" if "diff_s" in split
+               else "")
+            + f", write {split['write_s']:.3f} s, checksum "
+            f"{split['crc_s']:.3f} s, {split['bytes'] / 1e6:.1f} MB)")
+        print(f"tier: step {k} {kind} publish {pub_s:.3f} s{extra}; "
+              f"publish to served: engine's tier {eng_s:.3f} s, app "
+              f"{app_s:.3f} s; {n} app /predict meanwhile "
+              f"({n / max(dt, 1e-9):.1f} req/s)")
+
+    def pct(vals):
+        s = sorted(vals)
+        return f"p50 {percentile(s, 50):.3f} s, p99 {percentile(s, 99):.3f} s"
+
+    for kind in ("delta", "full"):
+        sel = [r for r in rows if r[0] == kind]
+        print(f"tier: freshness ({kind}, {len(sel)} publishes): engine's "
+              f"tier {pct([r[3] for r in sel])}; app "
+              f"{pct([r[4] for r in sel])}")
+    print(f"tier: {TIER_STEPS} steps of {TIER_B} in {wall:.1f} s "
+          f"({out['throughput']:.1f} samples/s with the publishes and "
+          f"waits); two models' host init {t_init:.1f} s; the ranker "
+          f"released {freed / 1e9:.2f} GB to the tier; app ready "
+          f"{t_ready:.1f} s after its start; the tier bitwise the trainer "
+          f"slot by slot at every version, the engine bitwise at "
+          f"{TIER_REQ_ROWS} rows, the app's answers "
+          f"{'bitwise' if all(app_exact) else 'within 1e-5 but not bitwise'}"
+          f" at {len(app_exact)} versions; torn delta rejected by both; "
+          f"launches {launches}")
+    del server, engine
+    return trainer, dcfg, ckdir, launches
+
+
+def serve_pool(engine, pool, passes=TIER_PASSES, clients=TIER_CLIENTS):
+    """``pool`` (requests of TIER_REQ_ROWS rows) once one at a time, each
+    its own batch at one bucket (the answers the paths are held to
+    bitwise: a batch of other rows runs other GEMM shapes), then
+    ``passes`` timed passes from ``clients`` threads, each answer within
+    1e-5 of the request's own. Returns (the scores of each request alone,
+    the timed passes' predictions, requests/s, latencies, the cache's
+    counts after the first pass)."""
+    alone = {}
+    for i, feats in enumerate(pool):
+        p = engine.predict(feats, timeout=120)
+        check(not p.degraded, f"tier: request {i} degraded")
+        alone[i] = p.scores
+    first = (dict(engine._cache.stats()) if engine._cache is not None
+             else None)
+    preds, lat, errors = [], [], []
+    lock = threading.Lock()
+
+    def run(c):
+        try:
+            for i in range(c, len(pool), clients):
+                p = engine.predict(pool[i], timeout=120)
+                with lock:
+                    lat.append(p.latency_ms)
+                    preds.append((i, p))
+        except Exception as e:   # noqa: BLE001 — reported below
+            errors.append(repr(e))
+
+    t0 = time.perf_counter()
+    for _ in range(passes):
+        threads = [threading.Thread(target=run, args=(c,))
+                   for c in range(clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        check(not errors and not any(t.is_alive() for t in threads),
+              f"tier: requests failed: {errors[:3]}")
+    wall = time.perf_counter() - t0
+    for i, p in preds:
+        check(not p.degraded and np.allclose(p.scores, alone[i], rtol=1e-5,
+                                             atol=1e-6),
+              f"tier: request {i} in a shared batch is not within 1e-5 of "
+              f"its answer alone")
+    return alone, preds, passes * len(pool) / wall, sorted(lat), first
+
+
+def fetch_split(model, sset, feats, reps=20):
+    """One request's shard-tier gather cut into its steps, as the engine's
+    ``_shard_gather`` runs them on a cache miss: the flat ids and their
+    unique set, the fetch (its shards' locked lookups, and the routing and
+    copying around them), the assembly of the bags, the copy to the
+    card. Median ms over ``reps``."""
+    (op,) = model._host_resident_list
+    idx = np.asarray(feats["sparse"], np.int64).reshape(
+        (-1,) + tuple(op.inputs[0].shape[1:]))
+    parts = {k: [] for k in ("plan", "fetch", "lookups", "assemble", "h2d")}
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        g3 = op.host_flat_indices(idx)
+        u, inv = np.unique(g3, return_inverse=True)
+        t1 = time.perf_counter()
+        res = sset.fetch({op.name: u})
+        t2 = time.perf_counter()
+        owners = tier_mod.row_owners(u, sset._flat_rows[op.name],
+                                     sset.nshards)
+        t_look = 0.0
+        for rep in sset.shards:
+            ids = u[owners == rep.slot]
+            ta = time.perf_counter()
+            rep.shard.lookup({op.name: ids})
+            t_look += time.perf_counter() - ta
+        t3 = time.perf_counter()
+        rows = op.host_lookup_rows(res.rows[op.name],
+                                   inv.reshape(g3.shape).astype(np.int64))
+        t4 = time.perf_counter()
+        if torch.from_numpy(np.ascontiguousarray(rows)).to(TIER_DEV).is_cuda:
+            torch.cuda.synchronize()
+        t5 = time.perf_counter()
+        for k, v in (("plan", t1 - t0), ("fetch", t2 - t1),
+                     ("lookups", t_look), ("assemble", t4 - t3),
+                     ("h2d", t5 - t4)):
+            parts[k].append(1e3 * v)
+    med = {k: float(np.median(v)) for k, v in parts.items()}
+    return med, int(u.size)
+
+
+def tier_read_paths(trainer, dcfg, ckdir, work):
+    """(2) The read path: the same TIER_POOL requests of TIER_REQ_ROWS
+    rows through (a) the plain host gather, (b) ``--serve-cache-rows
+    TIER_CACHE`` pre-warmed from the trainer's ``id_histogram.npz`` and
+    (c) a TIER_SHARDS-shard tier (its warm cache in ``work``) plus the row
+    cache, each one request at a time (the scores BITWISE equal across
+    the three), then TIER_PASSES passes from TIER_CLIENTS threads (timed).
+    Returns (the tier, its engine, the pool, the pool's scores)."""
+    pool = [synthetic_batch(dcfg, TIER_REQ_ROWS, seed=SEED + 100 + i)[0]
+            for i in range(TIER_POOL)]
+    results = {}
+    engines = {
+        "host gather": ServeConfig(max_batch=256),
+        f"row cache {TIER_CACHE}, pre-warmed": ServeConfig(
+            max_batch=256, cache_rows=TIER_CACHE, cache_warm=str(ckdir)),
+    }
+    for what, scfg in engines.items():
+        eng = InferenceEngine(trainer, scfg)
+        with eng:
+            warm = len(eng._cache) if eng._cache is not None else 0
+            results[what] = serve_pool(eng, pool) + (warm,
+                                                     eng.stats())
+    sset = EmbeddingShardSet.build(
+        trainer, TIER_SHARDS,
+        config=ShardTierConfig(nshards=TIER_SHARDS,
+                               lookup_deadline_ms=TIER_DEADLINE_MS,
+                               cooldown_s=0.2, replace_after=2),
+        cache_dir=str(work / "shardcache"))
+    eng = InferenceEngine(trainer, ServeConfig(max_batch=256,
+                                               cache_rows=TIER_CACHE),
+                          shard_set=sset).start()
+    what = f"{TIER_SHARDS} shards + row cache"
+    results[what] = serve_pool(eng, pool) + (0, eng.stats())
+    ref = results["host gather"][0]
+    for name, (scores, preds, rate, lat, first, warm, st) in results.items():
+        check(all(np.array_equal(scores[i], ref[i]) for i in ref),
+              f"tier: the {name} path's scores are not bitwise the host "
+              f"gather's")
+        cache = st.get("embedding_cache")
+        hits = ""
+        if cache is not None:
+            first_rate = first["hits"] / max(first["hits"]
+                                             + first["misses"], 1)
+            hits = (f"; cache: {warm} entries pre-warmed, hit rate "
+                    f"{first_rate:.4f} on the first pass (one request at "
+                    f"a time), {cache['hit_rate']:.4f} over all "
+                    f"{TIER_PASSES + 1}")
+        print(f"tier: read path ({name}): {TIER_POOL} requests of "
+              f"{TIER_REQ_ROWS} rows, bitwise one at a time, then "
+              f"{TIER_PASSES} passes from "
+              f"{TIER_CLIENTS} threads: {rate:.1f} req/s, p50 "
+              f"{percentile(lat, 50):.3f} ms, p99 "
+              f"{percentile(lat, 99):.3f} ms, batch fill "
+              f"{st['batch_fill']:.3f}{hits}")
+    split, uniq = fetch_split(trainer, sset, pool[0])
+    print(f"tier: one {TIER_REQ_ROWS}-row request's tier gather "
+          f"({uniq} unique rows over {TIER_SHARDS} shards), median ms: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+          + f" (fetch less its lookups: {split['fetch'] - split['lookups']:.4f}"
+          f" routing, copies and deadline bookkeeping); the tier's own "
+          f"fetch p50 {sset.stats()['fetch_p50_ms']:.4f} ms, p99 "
+          f"{sset.stats()['fetch_p99_ms']:.4f} ms; all three paths' scores "
+          f"bitwise equal")
+    return sset, eng, pool, ref
+
+
+def tier_outage(trainer, dcfg, sset, eng):
+    """(3) Degradation and replace-dead: FF_FAULT_SHARD_DOWN on slot 1
+    under TIER_CLIENTS threads of new requests (cache misses). A publish
+    lands while the slot is ejected; then the set's health thread probes
+    it, replaces it from the shard warm cache, the replacement replays
+    the publish from the set's history and is admitted by its probe.
+    Zero requests fail; degraded answers are flagged (slot 1 absent from
+    their version vector) and counted; after the recovery every request
+    of the outage is answered BITWISE the trainer's forward with the same
+    publish applied (nothing degraded was cached). Returns the publish's
+    payload and version."""
+    from dlrm_flexflow_tpu_torch.utils import faults
+    name, flat = tier_flat(trainer)
+    pool = [synthetic_batch(dcfg, TIER_REQ_ROWS, seed=SEED + 300 + i)[0]
+            for i in range(TIER_OUTAGE_POOL)]
+    got, errors = [], []
+    stop = threading.Event()
+    lock = threading.Lock()
+
+    def client(c):
+        k = c
+        while not stop.is_set():
+            i = k % len(pool)
+            try:
+                p = eng.predict(pool[i], timeout=120)
+                with lock:
+                    got.append((time.perf_counter(), i, p))
+            except Exception as e:   # noqa: BLE001 — reported below
+                errors.append(repr(e))
+                return
+            k += TIER_CLIENTS
+
+    rng = np.random.RandomState(SEED + 301)
+    rows = np.unique(np.concatenate([
+        rng.randint(lo, hi, 256) for lo, hi in sset._ranges[name][:2]]))
+    version = sset.version + 1
+    payload = {"step": version, "full": {}, "rows": {
+        f"hostparams/{name}/kernel": (rows.astype(np.int64),
+                                      flat[rows] + np.float32(0.25))}}
+    degraded0 = eng.stats()["degraded_responses"]
+    plan = faults.FaultPlan()
+    plan.shard_down[1] = -1
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(TIER_CLIENTS)]
+    faults.install(plan)
+    try:
+        t_down = time.perf_counter()
+        for t in threads:
+            t.start()
+        wait_for(lambda: sset.shards[1].state == "ejected",
+                 "slot 1's ejection", 120)
+        t_ej = time.perf_counter()
+        eng.install_delta(payload, version)
+        check(sset.shards[1].shard.version < version
+              and sset.lagging_slots() == [] and sset.min_version() == version,
+              f"tier: the ejected slot took the publish: "
+              f"{sset.version_vector()}")
+        sset.start_health(0.05)
+        wait_for(lambda: all(r.state == "healthy" for r in sset.shards),
+                 "the replacement's admission", 120)
+        t_back = time.perf_counter()
+        n_back = len(got)
+        wait_for(lambda: len(got) >= n_back + 4 * TIER_CLIENTS,
+                 "answers after the recovery", 120)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(120)
+        faults.clear()
+        sset.stop_health()
+    check(not errors and not any(t.is_alive() for t in threads),
+          f"tier: requests failed under the outage: {errors[:3]}")
+    deg = [p for _, _, p in got if p.degraded]
+    # the requests queued before the admission (one a client at most)
+    # are answered first: the batcher serves in order
+    late = [p for _, _, p in got[n_back + 2 * TIER_CLIENTS:]]
+    st = eng.stats()
+    check(deg and all(1 not in p.versions for p in deg)
+          and st["degraded_responses"] - degraded0 == len(deg),
+          f"tier: {len(deg)} degraded answers, engine counted "
+          f"{st['degraded_responses'] - degraded0}")
+    bad = [(p.degraded, p.versions) for p in late
+           if p.degraded or not at_version(p.versions, version)]
+    check(not bad, f"tier: {len(bad)} of {len(late)} answers after the "
+          f"recovery degraded or stale: {bad[:3]}")
+    slot1 = next(r for r in sset.shards if r.slot == 1)
+    sc = sset.stats()["shard_cache"]
+    check(sset.replacements == 1 and slot1.sid != 1
+          and slot1.shard.version == version and sc["hits"] >= 1
+          and sset.replace_rejects == 0,
+          f"tier: the replacement: {sset.replacements} replacements, slot 1 "
+          f"sid {slot1.sid} at version {slot1.shard.version}, shard cache "
+          f"{sc}, last reject {sset.last_replace_reject!r}")
+    # the reference: the trainer's own tables with the same publish
+    trainer.apply_delta(payload)
+    check_tier_blocks(sset, trainer, "after the replace-dead catch-up")
+    for i, feats in enumerate(pool):
+        p = eng.predict(feats, timeout=120)
+        want = trainer.forward_bucket(feats, TIER_REQ_ROWS).cpu().numpy()
+        check(not p.degraded and np.array_equal(p.scores, want),
+              f"tier: outage request {i} after the recovery is not bitwise "
+              f"the trainer's (a degraded answer was cached?)")
+    print(f"tier: FF_FAULT_SHARD_DOWN on slot 1 under {TIER_CLIENTS} "
+          f"threads: {len(got)} answers, 0 failed, {len(deg)} degraded "
+          f"(flagged, counted, slot 1 absent from their version vectors); "
+          f"ejected {t_ej - t_down:.3f} s after the fault, healthy again "
+          f"{t_back - t_ej:.3f} s after the ejection (a publish of "
+          f"{rows.size} rows landed meanwhile; the replacement booted from "
+          f"the shard warm cache at version {version - 1} and replayed it "
+          f"from the history; probes {slot1.probes}); every outage request "
+          f"bitwise the trainer's afterwards")
+    return payload, version
+
+
+def tier_cascade(trainer, dcfg, sset, eng):
+    """(4) The cascade riding the tier: the two-tower heads sized to the
+    ranker's inputs and the 1,396-item index attached to the same
+    TIER_SHARDS shards, as the app's ``_build_cascade`` builds it with
+    ``--serve-shards``. One publish carries ranking rows and
+    ``augment_delta``'s re-encoded item rows through the engine; the
+    top-k kernel on every shard's rewritten block is held BITWISE to its
+    plain version, the bag at the towers' shapes BITWISE to its plain
+    version (bag 1: a row copy). Then the main path, counted from 0:
+    TIER_CASCADE users from TIER_CLIENTS threads. Returns the counts."""
+    tcfg = two_tower_config(dcfg)
+
+    def head(name, batch):
+        m = FFModel(FFConfig(batch_size=batch, seed=SEED, device=TIER_DEV))
+        build_two_tower(m, tcfg, head=name)
+        m.compile()
+        m.init_layers()
+        return m
+
+    user, item = head("user", FFConfig().batch_size), head("item", 2048)
+    transfer_tower_params(user, item)
+    items = item_embeddings(item, tcfg)
+    index = ShardedMIPSIndex.build(sset, items)
+    check(index.table.q.is_cuda and all(
+        r.shard._blocks[index.op_name].q.is_cuda for r in sset.shards),
+        "tier: the index does not lie on the card")
+    ub = user.config.batch_size
+
+    def encode(feats):
+        dense = np.asarray(feats["dense"], np.float32)
+        sparse = np.asarray(feats["sparse"], np.int64)
+        n = dense.shape[0]
+        d = np.concatenate([dense, np.zeros((ub - n,) + dense.shape[1:],
+                                            np.float32)])
+        s = np.concatenate([sparse, np.zeros((ub - n,) + sparse.shape[1:],
+                                             np.int64)])
+        return user.forward_batch({"user_dense": d,
+                                   "user_sparse": s})[:n]
+
+    # one publish, both stages: ranking rows and re-encoded item rows
+    name, flat = tier_flat(trainer)
+    rng = np.random.RandomState(SEED + 400)
+    ids = np.unique(rng.randint(0, tcfg.n_items, 400))
+    rows = np.unique(rng.randint(0, flat.shape[0], 512))
+    new = items[torch.as_tensor(ids, device=TIER_DEV)].cpu().numpy() * 1.5
+    version = sset.version + 1
+    payload = {"step": version, "full": {}, "rows": {
+        f"hostparams/{name}/kernel": (rows.astype(np.int64),
+                                      flat[rows] - np.float32(0.125))}}
+    index.augment_delta(payload, ids, new)
+    eng.install_delta(payload, version)
+    trainer.apply_delta({"step": version, "full": {}, "rows": {
+        k: v for k, v in payload["rows"].items() if name in k}})
+    check(sset.version_vector() == {s: version for s in range(TIER_SHARDS)},
+          f"tier: the publish did not advance every shard: "
+          f"{sset.version_vector()}")
+    users = synthetic_batch(dcfg, TOPK_B, seed=SEED + 401)[0]
+    qc, qs = topk_mod.quantize_query(encode(users))
+    for rep in sset.shards:
+        blk = rep.shard.blocks_copy()[0][index.op_name]
+        lo, _ = rep.shard.owned_range(index.op_name)
+        got_s, got_i = topk_mod.mips_topk(qc, qs, blk.q, blk.scales, K,
+                                          base=lo)
+        want_s, want_i = topk_mod.mips_topk_reference(qc, qs, blk.q,
+                                                      blk.scales, K, base=lo)
+        check(torch.equal(got_i, want_i) and torch.equal(
+            got_s.view(torch.int32), want_s.view(torch.int32)),
+            f"tier: the top-k kernel disagrees with its plain version on "
+            f"slot {rep.slot}'s rewritten block")
+    one, _ = synthetic_batch(dcfg, 1, seed=SEED + 402)
+    uid = torch.zeros((ub, len(tcfg.user_embedding_size)), dtype=torch.int64,
+                      device=TIER_DEV)
+    uid[0] = torch.as_tensor(one["sparse"][0, :, 0])
+    bags = [("item head", item.params["item_emb"]["kernel"],
+             torch.arange(tcfg.n_items, device=TIER_DEV)[:, None])]
+    for t, r in enumerate(tcfg.user_embedding_size):
+        bags.append((f"user table {t}", user.params[f"user_emb_{t}"]["kernel"],
+                     torch.remainder(uid[:, t:t + 1], r)))
+    for what, tab, bid in bags:
+        check(torch.equal(bag_mod.embedding_bag(tab, bid, "sum"),
+                          bag_mod.embedding_bag_reference(tab, bid, "sum")),
+              f"tier: the bag kernel disagrees with its plain version on "
+              f"the {what}")
+    del item, bags
+    cascade = CascadeEngine(
+        index, encode, eng,
+        dlrm_candidate_features(len(dcfg.embedding_size),
+                                list(dcfg.embedding_size)),
+        CascadeConfig(k=K, retrieve_deadline_ms=1000.0))
+    data = synthetic_batch(dcfg, TIER_CASCADE, seed=SEED + 403)[0]
+    reqs = [{k: v[i:i + 1] for k, v in data.items()}
+            for i in range(TIER_CASCADE)]
+    for feats in reqs[:4]:
+        cascade.predict(feats)           # warmup
+    results, errors = {}, []
+    lookups0 = sum(r.shard.lookups for r in sset.shards)
+    zero_counts()
+    with PlainCalls() as plain:
+        def client(c):
+            try:
+                for i in range(c, len(reqs), TIER_CLIENTS):
+                    results[i] = cascade.predict(reqs[i])
+            except Exception as e:   # noqa: BLE001 — reported below
+                errors.append(repr(e))
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(TIER_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        wall = time.perf_counter() - t0
+    launches = read_counts()
+    calls = sum(r.shard.lookups for r in sset.shards) - lookups0
+    check(not errors and len(results) == len(reqs),
+          f"tier: cascade requests failed: {errors[:3]}")
+    bad = [(p.degraded, p.retrieve_versions, p.rank_versions)
+           for p in results.values() if p.degraded
+           or p.retrieve_versions != {s: version
+                                      for s in range(TIER_SHARDS)}
+           or not at_version(p.rank_versions, version)]
+    check(not bad, f"tier: {len(bad)} cascade answers degraded or read "
+          f"another version than {version}: {bad[:2]}")
+    check(plain.calls == 0
+          and launches["mips_topk"] == TIER_SHARDS * len(reqs)
+          and launches["embedding_bag"] > 0 and calls >= launches["mips_topk"],
+          f"tier: cascade launches {launches}, {calls} shard calls, plain "
+          f"calls {plain.calls}")
+    for i in range(0, len(reqs), 8):
+        p = results[i]
+        s, sid = index.exact_scan(encode(reqs[i]), K)
+        o = np.lexsort((p.ids[0], -p.retrieve_scores[0]))
+        check(np.array_equal(p.ids[0][o], sid[0]),
+              f"tier: cascade request {i}'s retrieval differs from "
+              f"exact_scan after the publish")
+    lat = sorted(p.latency_ms for p in results.values())
+    print(f"tier: cascade riding the {TIER_SHARDS}-shard tier "
+          f"({tcfg.n_items} items, k={K}): one publish moved "
+          f"{rows.size} ranking rows and {ids.size} item rows to version "
+          f"{version}; the top-k kernel bitwise its plain version on every "
+          f"shard's rewritten block ({TOPK_B} queries), the bag bitwise on "
+          f"the item head and the {len(tcfg.user_embedding_size)} user "
+          f"tables; {len(reqs)} users from {TIER_CLIENTS} threads in "
+          f"{wall:.3f} s ({len(reqs) / wall:.1f} req/s), p50 "
+          f"{percentile(lat, 50):.3f} ms, p99 {percentile(lat, 99):.3f} ms; "
+          f"retrieval bitwise exact_scan; launches {launches}")
+    del user, cascade, index
+    return launches
+
+
+def tier_app_cascade(dcfg, work):
+    """The app with ``--retrieve on --serve-shards 4 --host-tables``:
+    /predict of two users answers candidates from the index riding the
+    app's own tier, with its version vector, none degraded; exit 0."""
+    app = AppProcess(app_flags(dcfg, [
+        "-b", "256", "--seed", str(SEED), "--host-tables",
+        "--serve-shards", str(TIER_SHARDS), "--retrieve", "on",
+        "--retrieve-k", str(K), "--retrieve-deadline-ms", "5000",
+        "--serve-max-batch", "256"]), work / "tier_retrieve_app.log")
+    try:
+        t_ready = app.wait_ready()
+        users = synthetic_batch(dcfg, 2, seed=SEED + 41)[0]
+        body = {k: v.tolist() for k, v in users.items()}
+        code, out = app.call("/predict", body)
+        check(code == 200 and np.asarray(out["candidates"]).shape == (2, K)
+              and not out["degraded"]
+              and out["retrieve_versions"]
+              == {str(s): 0 for s in range(TIER_SHARDS)}
+              and at_version(out["versions"], 0),
+              f"tier app: /predict {code} {str(out)[:300]}")
+        code, st = app.call("/stats")
+        check(code == 200 and st["shard_set"]["topk_queries"] >= 1,
+              f"tier app: /stats {str(st)[:300]}")
+    finally:
+        rc = app.stop()
+    check(rc == 0, f"tier app: exited {rc}: "
+          f"{Path(app.log).read_text()[-2000:]}")
+    print(f"tier: the app with --retrieve on --serve-shards {TIER_SHARDS} "
+          f"--host-tables ready {t_ready:.1f} s after its start; /predict "
+          f"of 2 users: {K} candidates each from the index riding its tier, "
+          f"version vector {out['versions']}; exit 0")
+
+
+def shard_tier_phase():
+    """Phase 11, parts (1)-(4) in run order, in WORK_DIR (removed at the end whatever
+    happens). Returns the launch counts of its main paths: the loop's
+    trainer and the cascade."""
+    import os
+    from dlrm_flexflow_tpu_torch.utils import faults
+    shutil.rmtree(WORK_DIR, ignore_errors=True)
+    WORK_DIR.mkdir(parents=True)
+    apps = []
+    t0 = time.perf_counter()
+    try:
+        trainer, dcfg, ckdir, counts = _tier_loop(WORK_DIR, apps)
+        sset, eng, _pool, _ref = tier_read_paths(trainer, dcfg, ckdir,
+                                                 WORK_DIR)
+        try:
+            tier_outage(trainer, dcfg, sset, eng)
+            add_counts(counts, tier_cascade(trainer, dcfg, sset, eng))
+        finally:
+            eng.close()
+            sset.close()
+        tier_app_cascade(dcfg, WORK_DIR)
+        print(f"shard tier phase: {time.perf_counter() - t0:.1f} s")
+        return counts
+    finally:
+        os.environ.pop("FF_FAULT_DELTA_TORN", None)
+        faults.clear()
+        for app in apps:
+            if app.proc.poll() is None:
+                app.proc.kill()
+                app.proc.wait(30)
+        shutil.rmtree(WORK_DIR, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4262,6 +5050,14 @@ def main() -> int:
         # only phase 10, its kernels built first
         build.build_all()
         counts = criteo_phase()
+        print(json.dumps({"launches": {k: v for k, v in counts.items()
+                                       if v}}))
+        return 0
+    if sys.argv[1:] == ["--shard-tier"]:
+        # only phase 11, its kernels built first (the app children load
+        # them)
+        build.build_all()
+        counts = shard_tier_phase()
         print(json.dumps({"launches": {k: v for k, v in counts.items()
                                        if v}}))
         return 0
@@ -4296,6 +5092,7 @@ def main() -> int:
     add(cascade_phase())
     add(serving_app_phase())
     add(criteo_phase())
+    add(shard_tier_phase())
     for run in runs:
         add(train_report(run))
     del runs

@@ -125,12 +125,33 @@ class FFConfig:
     serve_max_delay_ms: float = 5.0
     serve_queue: int = 256
     serve_deadline_ms: float = 0.0
-    # the row cache, its warm start and the fleet are not ported yet;
-    # ServeConfig.from_config refuses a config that asks for them
+    # the host-table row cache's capacity in samples (0: off) and the
+    # id histogram (or the directory holding it) it is pre-warmed from.
+    # Set with --serve-cache-rows N and --serve-cache-warm PATH.
     serve_cache_rows: int = 0
     serve_cache_warm: str = ""
     serve_batching: str = "continuous"
+    # the fleet is not ported yet (ROADMAP queue 1 item 9.4);
+    # ServeConfig.from_config refuses more than one replica
     serve_replicas: int = 1
+    # ---- the serving shard tier (serve/shardtier.py) ------------------
+    # lookup shards that row-shard the host tables (0: the ranker keeps
+    # its tables). Set with --serve-shards N.
+    serve_shards: int = 0
+    # per-shard lookup budget, retries included; a spent budget degrades
+    # per serve_degrade. Set with --serve-lookup-deadline-ms MS.
+    serve_lookup_deadline_ms: float = 50.0
+    # "cache": answer from cache hits and per-table default rows, flagged
+    # degraded; "fail": raise. Set with --serve-degrade {cache,fail}.
+    serve_degrade: str = "cache"
+    # the tier's hedge: a duplicate lookup after this many ms, the first
+    # answer wins (0: off). Set with --serve-hedge-ms MS.
+    serve_hedge_ms: float = 0.0
+    # "inproc" (method calls); "tcp" and shard processes
+    # (--serve-shard-procs) are ROADMAP queue 1 item 9.4, and the app
+    # refuses them. Set with --serve-transport {inproc,tcp}.
+    serve_transport: str = "inproc"
+    serve_shard_procs: int = 0
     # the snapshot watcher's poll interval (hot reload of a checkpoint
     # directory). Set with --serve-poll SECONDS.
     serve_poll_s: float = 0.5
@@ -267,6 +288,29 @@ class FFConfig:
                 if kw["serve_replicas"] < 1:
                     raise ValueError(f"--serve-replicas expects N >= 1, "
                                      f"got {kw['serve_replicas']}")
+            elif a == "--serve-shards":
+                kw["serve_shards"] = int(take())
+                if kw["serve_shards"] < 0:
+                    raise ValueError(f"--serve-shards expects N >= 0, got "
+                                     f"{kw['serve_shards']}")
+            elif a == "--serve-lookup-deadline-ms":
+                kw["serve_lookup_deadline_ms"] = float(take())
+            elif a == "--serve-degrade":
+                v = take()
+                if v not in ("cache", "fail"):
+                    raise ValueError(f"--serve-degrade expects cache|fail, "
+                                     f"got {v!r}")
+                kw["serve_degrade"] = v
+            elif a == "--serve-hedge-ms":
+                kw["serve_hedge_ms"] = float(take())
+            elif a == "--serve-transport":
+                v = take()
+                if v not in ("inproc", "tcp"):
+                    raise ValueError(f"--serve-transport expects "
+                                     f"inproc|tcp, got {v!r}")
+                kw["serve_transport"] = v
+            elif a == "--serve-shard-procs":
+                kw["serve_shard_procs"] = int(take())
             elif a == "--serve-poll":
                 kw["serve_poll_s"] = float(take())
             elif a == "--publish-every":

@@ -66,7 +66,7 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -179,6 +179,9 @@ class FFModel:
         self._host_gather_pending = None
         self._host_gather_next = None
         self._host_gen = 0
+        # set by EmbeddingShardSet.release_ranker_tables: the host tables
+        # live in the serving shard tier, this model keeps 0-row stubs
+        self._host_tables_released = False
 
     # ------------------------------------------------------------------
     # graph construction
@@ -490,34 +493,44 @@ class FFModel:
         with ``index_copy_`` on the (rows, width) view of the tensor, IN
         PLACE: the serving engine calls this only on its batcher thread
         between dispatches, where no queued kernel of another thread
-        reads the tensor."""
-        from ..utils.weights import (jax_param_shapes, param_from_jax,
-                                     rows_from_jax)
+        reads the tensor. Host tables (``hostparams/<op>/kernel``) take
+        their rows and whole arrays in place under the table lock, as the
+        JAX package's do. A delta for op state (``state/``) raises: the
+        port has none yet (ROADMAP queue 1 item 11)."""
+        from ..utils.weights import (host_param_shapes, jax_param_shapes,
+                                     param_from_jax, rows_from_jax)
         step = int(delta["step"])
         rows = delta.get("rows") or {}
         full = delta.get("full") or {}
         staged = delta.get("staged") or {}
-        shapes = jax_param_shapes(self)
+        shapes = {"params": jax_param_shapes(self),
+                  "hostparams": host_param_shapes(self)}
         ops = {op.name: op for op in self.ops}
 
         def leaf(key, what):
             parts = key.split("/")
-            if parts[0] != "params":
+            if parts[0] not in shapes:
                 raise ValueError(
                     f"delta {what} targets unsupported section {key!r} "
-                    f"(the port applies no op-state or host-table deltas "
-                    f"yet: ROADMAP queue 1 items 11, 9.2 and 9.3)")
-            if (len(parts) != 3 or parts[1] not in shapes
-                    or parts[2] not in shapes[parts[1]]):
+                    f"(the port has no op state yet: ROADMAP queue 1 item "
+                    f"11)")
+            sec = shapes[parts[0]]
+            if (len(parts) != 3 or parts[1] not in sec
+                    or parts[2] not in sec[parts[1]]):
                 raise ValueError(
                     f"delta {what} {key!r} does not exist in this model "
                     f"(differently-built model?)")
-            return parts[1], parts[2], shapes[parts[1]][parts[2]]
+            if parts[0] == "hostparams" and self._host_tables_released:
+                raise ValueError(
+                    f"delta {what} {key!r}: this model's host tables were "
+                    f"released to the serving shard tier, which applies "
+                    f"their rows")
+            return parts[0], parts[1], parts[2], sec[parts[1]][parts[2]]
 
         # ---- validate first, install second ----------------------------
-        plan = []
+        plan, host_plan = [], []
         for key, (idx, vals) in rows.items():
-            opname, pn, shape = leaf(key, "row update")
+            sec, opname, pn, shape = leaf(key, "row update")
             vals = np.asarray(vals)
             if len(shape) < 2 or vals.shape[-1:] != shape[-1:]:
                 raise ValueError(
@@ -531,12 +544,22 @@ class FFModel:
                     f"delta rows for {key!r} index up to "
                     f"{int(idx_np.max())} but the stored array has only "
                     f"{nrows} rows")
-            plan.append((key, opname, pn, idx_np, vals))
-        fulls = []
+            if sec == "hostparams":
+                host_plan.append((opname, pn, idx_np, vals))
+            else:
+                plan.append((key, opname, pn, idx_np, vals))
+        fulls, host_fulls = [], []
         for key, v in full.items():
-            opname, pn, shape = leaf(key, "full update")
-            fulls.append((opname, pn,
-                          param_from_jax(self, ops[opname], pn, v)))
+            sec, opname, pn, shape = leaf(key, "full update")
+            if sec == "hostparams":
+                if tuple(np.shape(v)) != tuple(shape):
+                    raise ValueError(
+                        f"delta full update {key!r} is {np.shape(v)} but "
+                        f"the host table is {shape}")
+                host_fulls.append((opname, pn, v))
+            else:
+                fulls.append((opname, pn,
+                              param_from_jax(self, ops[opname], pn, v)))
         # ---- install ---------------------------------------------------
         ready = delta.get("ready")
         if ready is not None:
@@ -562,6 +585,18 @@ class FFModel:
                     0, i, v.to(cur.dtype))
             for opname, pn, t in fulls:
                 self.params[opname][pn] = t
+        if host_plan or host_fulls:
+            # an in-flight training scatter lands first; a chained gather
+            # of the old rows is dropped
+            self._host_drain()
+            self._host_prefetch_invalidate()
+            with self._host_table_lock:
+                for opname, pn, idx_np, vals in host_plan:
+                    tbl = self.host_params[opname][pn]
+                    mi = np.unravel_index(idx_np, tbl.shape[:-1])
+                    tbl[mi] = np.asarray(vals, dtype=tbl.dtype)
+                for opname, pn, v in host_fulls:
+                    self.host_params[opname][pn] = np.array(v, np.float32)
         self._step = step
         self._msums = None
         return self
@@ -643,10 +678,15 @@ class FFModel:
                 env[t.guid] = v
         return env
 
-    def forward_batch(self, batch: Dict[str, Any]) -> torch.Tensor:
+    def forward_batch(self, batch: Dict[str, Any],
+                      host_gather: Optional[Callable] = None
+                      ) -> torch.Tensor:
         """Forward pass for one host batch (no labels): the output
         tensor's value, on ``self.device``. The caller's ``.cpu()`` is
-        the synchronisation."""
+        the synchronisation. ``host_gather`` replaces the host tables'
+        row gather ({op name: numpy ids} -> {op name: rows on the
+        device}): the serving engine passes its cached or shard-tier
+        gather; the default is ``_host_emb_forward``."""
         if self._preds_tensor is None or self.params is None:
             raise ValueError("call compile() and init_layers() (or "
                              "swap_params()) first")
@@ -654,7 +694,7 @@ class FFModel:
         rows = None
         if host_idx is not None:
             self._host_drain()   # eval sees the last step's scatter
-            rows = self._host_emb_forward(host_idx)
+            rows = (host_gather or self._host_emb_forward)(host_idx)
         with torch.inference_mode():
             env = self._forward_env(self.params, db, overrides=rows)
         return env[self._preds_tensor.guid]
@@ -670,7 +710,9 @@ class FFModel:
         return tuple(out)
 
     def forward_bucket(self, batch: Dict[str, Any],
-                       bucket: Optional[int] = None) -> torch.Tensor:
+                       bucket: Optional[int] = None,
+                       host_gather: Optional[Callable] = None
+                       ) -> torch.Tensor:
         """Zero-pad the batch's rows up to `bucket` (default: the smallest
         power of two >= rows), run it, and return predictions for ONLY
         the real rows."""
@@ -683,10 +725,11 @@ class FFModel:
         if bucket < n:
             raise ValueError(f"bucket {bucket} < batch rows {n}")
         padded = pad_batch_rows(batch, bucket) if bucket > n else batch
-        out = self.forward_batch(padded)
+        out = self.forward_batch(padded, host_gather=host_gather)
         return out[:n] if bucket > n else out
 
-    def warmup_buckets(self, buckets: Sequence[int]) -> float:
+    def warmup_buckets(self, buckets: Sequence[int],
+                       host_gather: Optional[Callable] = None) -> float:
         """Run one zero batch of every bucket size, so no live request
         pays the first-call costs (kernel build and load, cuBLAS handle
         and workspace). Returns the warmup seconds."""
@@ -698,7 +741,7 @@ class FFModel:
                 dtype = np.float32 if t.dtype.is_floating_point \
                     else np.int64
                 batch[t.name] = np.zeros(shape, dtype)
-            self.forward_batch(batch).cpu()
+            self.forward_batch(batch, host_gather=host_gather).cpu()
         return time.perf_counter() - t0
 
     # ------------------------------------------------------------------

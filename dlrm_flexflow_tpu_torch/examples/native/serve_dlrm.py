@@ -20,10 +20,26 @@ fingerprints match), restores the newest valid snapshot of
 serves it with ``serve.InferenceEngine`` while the engine's watcher
 hot-reloads every later full or delta snapshot (``--serve-poll``).
 Without ``--checkpoint-dir`` it serves the initialized weights.
+With ``--host-tables`` the tables stay in host RAM:
+``--serve-cache-rows N`` fronts their gather with an N-sample row cache,
+pre-warmed from ``--serve-cache-warm PATH`` (a trainer's
+``id_histogram.npz`` or the directory holding it), and
+``--serve-shards N`` row-shards them over N in-process lookup shards
+(``serve/shardtier.py``; the ranker releases its own copy) under
+``--serve-lookup-deadline-ms``, ``--serve-hedge-ms`` and
+``--serve-degrade cache|fail``; the trainer's publishes reach the shards
+through the watcher, and each /predict answer carries the per-shard
+version vector it read and whether it was degraded::
+
+    python -m dlrm_flexflow_tpu_torch.examples.native.serve_dlrm \
+        --host-tables --serve-shards 4 --serve-cache-rows 65536 \
+        --serve-cache-warm /tmp/dlrm-ckpt --checkpoint-dir /tmp/dlrm-ckpt
+
 ``--retrieve on`` puts the retrieve -> rank cascade in front of the
 ranker: two-tower user and item heads sized to the DLRM's inputs, the
-item catalog encoded into an int8 MIPS index over ``--retrieve-shards``
-standalone index shards (at least one), ``--retrieve-k`` candidates
+item catalog encoded into an int8 MIPS index that rides the ranker's
+shard tier under ``--serve-shards`` (else ``--retrieve-shards``
+standalone index shards, at least one), ``--retrieve-k`` candidates
 under ``--retrieve-deadline-ms``. ``--host`` (default 0.0.0.0) and
 ``--port`` (default 8000; 0 picks a free one) say where to listen; the
 app prints ``serving DLRM on http://HOST:PORT`` once it accepts requests,
@@ -31,12 +47,15 @@ and SIGTERM or SIGINT stop it cleanly.
 
 Endpoints (the JAX app's, with its status codes and JSON keys):
   POST /predict  {"dense": [...], "sparse": [...]} ->
-                 {"scores": [...], "version": N, "latency_ms": ...};
+                 {"scores": [...], "version": N, "latency_ms": ...}
+                 (with --serve-shards also "versions", the per-shard
+                 version vector read, and "degraded");
                  429 on Overloaded, 504 on DeadlineExceeded, 400 on a
                  malformed request (--retrieve on: the request describes
                  users; the response holds "candidates", "scores",
                  "version", "retrieve_versions", "degraded",
-                 "latency_ms", "stage_ms")
+                 "latency_ms", "stage_ms", and "versions" with
+                 --serve-shards)
   POST /retrieve {"dense": [...], "sparse": [...][, "k": N]} ->
                  {"ids", "scores", "versions", "degraded",
                  "dropped_slots", "latency_ms"} (--retrieve on only;
@@ -52,19 +71,19 @@ Scores go out as ``tolist()`` of the float32 array: every float32 value
 survives the float64 JSON round trip exactly.
 
 The JAX app's other deployments raise ``NotImplementedError`` naming
-their ROADMAP queue 1 item: the fleet (``--serve-replicas`` > 1, the
-autoscaler's ``--serve-slo-ms`` / ``--serve-min-replicas`` /
-``--serve-max-replicas``, ``--serve-retries``, ``--serve-hedge-ms``,
-``--serve-canary-fraction``: 9.4), the shard tier (``--serve-shards``,
-``--serve-shard-procs``, ``--serve-transport tcp``, ``--serve-degrade``,
-``--serve-lookup-deadline-ms``: 9.3), the row cache
-(``--serve-cache-rows``, ``--serve-cache-warm``: 9.2, after 2.4) and the
-warm executable caches (``--compile-cache-dir``, ``--eval-exec-cache``:
-9.5).
+their ROADMAP queue 1 item: the fleet and shard processes
+(``--serve-replicas`` > 1, the autoscaler's ``--serve-slo-ms`` /
+``--serve-min-replicas`` / ``--serve-max-replicas``,
+``--serve-retries``, ``--serve-canary-fraction``,
+``--serve-shard-procs``, ``--serve-transport tcp``: 9.4) and the warm
+executable caches (``--compile-cache-dir``, ``--eval-exec-cache``: 9.5;
+without them a replaced shard has no warm cache to boot from, so a dead
+shard of the app's tier heals by its probe alone).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import signal
 import sys
@@ -79,6 +98,7 @@ from ...core.optimizers import SGDOptimizer
 from ...models.dlrm import DLRMConfig, build_dlrm
 from ...serve import (DeadlineExceeded, InferenceEngine, Overloaded,
                       SnapshotWatcher)
+from ...serve.shardtier import EmbeddingShardSet, ShardTierConfig
 from ...utils.logging import get_logger
 
 log_app = get_logger("serve_dlrm")
@@ -88,11 +108,8 @@ log_app = get_logger("serve_dlrm")
 _UNPORTED = {
     **dict.fromkeys(("--serve-slo-ms", "--serve-min-replicas",
                      "--serve-max-replicas", "--serve-retries",
-                     "--serve-hedge-ms", "--serve-canary-fraction"),
+                     "--serve-canary-fraction"),
                     "9.4 (the serving fleet)"),
-    **dict.fromkeys(("--serve-shards", "--serve-shard-procs",
-                     "--serve-degrade", "--serve-lookup-deadline-ms"),
-                    "9.3 (the shard tier)"),
     **dict.fromkeys(("--compile-cache-dir", "--eval-exec-cache"),
                     "9.5 (the warm executable caches)"),
 }
@@ -102,18 +119,32 @@ def _flag(rest, name, default=None):
     return rest[rest.index(name) + 1] if name in rest else default
 
 
-def _refuse_unported(rest):
+def _refuse_unported(cfg, rest):
     for a in rest:
         if a in _UNPORTED:
             raise NotImplementedError(
                 f"{a} is not ported yet (ROADMAP queue 1 item "
                 f"{_UNPORTED[a]})")
-    transport = _flag(rest, "--serve-transport", "inproc")
-    if transport != "inproc":
+    if cfg.serve_shard_procs > 0 or cfg.serve_transport != "inproc":
         raise NotImplementedError(
-            f"--serve-transport {transport}: the wire transport and "
-            f"shard processes are not ported yet (ROADMAP queue 1 item "
-            f"9.3)")
+            f"--serve-transport {cfg.serve_transport} / "
+            f"--serve-shard-procs {cfg.serve_shard_procs}: the wire "
+            f"transport and shard processes are not ported yet (ROADMAP "
+            f"queue 1 item 9.4); --serve-shards runs the tier in process")
+
+
+def _build_shard_set(cfg, model):
+    """Row-shard the model's host tables over ``--serve-shards``
+    in-process lookup shards and release the ranker's own copies (the
+    point of the split). No warm cache: its directory is
+    ``--compile-cache-dir``'s, item 9.5."""
+    shard_set = EmbeddingShardSet.build(
+        model, cfg.serve_shards, config=ShardTierConfig.from_config(cfg))
+    freed = EmbeddingShardSet.release_ranker_tables(model)
+    log_app.info("sharded serving tier: %d in-process lookup shard(s), "
+                 "ranker released %.1f MB of tables", cfg.serve_shards,
+                 freed / 1e6)
+    return shard_set
 
 
 def build_server_model(cfg, dcfg):
@@ -234,13 +265,24 @@ def make_handler(serve, input_names, cascade=None):
                         "latency_ms": round(cp.latency_ms, 3),
                         "stage_ms": {s: round(v, 3)
                                      for s, v in cp.stage_ms.items()}}
+                    if cp.rank_versions is not None:
+                        body["versions"] = {
+                            str(s): int(v)
+                            for s, v in cp.rank_versions.items()}
                     self._reply(200, body)
                     return
                 pred = serve.predict(feats)
-                self._reply(200, {
+                body = {
                     "scores": np.asarray(pred.scores).reshape(-1).tolist(),
                     "version": pred.version,
-                    "latency_ms": round(pred.latency_ms, 3)})
+                    "latency_ms": round(pred.latency_ms, 3)}
+                if pred.versions is not None:
+                    # the shard tier: the per-shard version vector this
+                    # answer read, and whether default rows went into it
+                    body["versions"] = {str(k): int(v)
+                                        for k, v in pred.versions.items()}
+                    body["degraded"] = bool(pred.degraded)
+                self._reply(200, body)
             except Overloaded as e:
                 self._reply(429, {"error": str(e)})
             except (DeadlineExceeded, TimeoutError) as e:
@@ -255,26 +297,37 @@ def make_handler(serve, input_names, cascade=None):
     return Handler
 
 
-def _retrieve_on(cfg, rest) -> bool:
-    """``--retrieve on|off`` (default off); ``--retrieve-shards``
-    without it is refused, as in the JAX app."""
+def _validate_retrieve(cfg, rest) -> bool:
+    """``--retrieve on|off`` (default off), with the JAX app's rules,
+    checked before any model is built: ``--retrieve-shards`` needs
+    ``--retrieve on``, and with ``--serve-shards N`` the index rides
+    those N shards, so ``--retrieve-shards`` must be 0 or N."""
     v = _flag(rest, "--retrieve", "off")
     if v not in ("on", "off"):
         raise ValueError(f"--retrieve expects on|off, got {v!r}")
-    if v == "off" and cfg.retrieve_shards > 0:
+    if v == "off":
+        if cfg.retrieve_shards > 0:
+            raise SystemExit(
+                "--retrieve-shards does nothing without --retrieve on — "
+                "refusing to silently ignore it")
+        return False
+    n = cfg.serve_shards
+    if n > 0 and cfg.retrieve_shards not in (0, n):
         raise SystemExit(
-            "--retrieve-shards does nothing without --retrieve on — "
-            "refusing to silently ignore it")
-    return v == "on"
+            f"--retrieve-shards {cfg.retrieve_shards} conflicts with "
+            f"--serve-shards {n}: with a sharded ranker tier the index "
+            f"rides THOSE shards (pass 0, or match the count)")
+    return True
 
 
-def _build_cascade(cfg, dcfg, serve):
+def _build_cascade(cfg, dcfg, serve, shard_set=None):
     """The retrieval stage in front of the ranker, as the JAX app builds
     it: two-tower user/item heads sized to the DLRM's own inputs (so
     /predict's features feed both stages), both serving the same
     initialization, the item catalog encoded and attached as the MIPS
-    index over ``--retrieve-shards`` standalone shards. Returns
-    ``(CascadeEngine, the index's shard set)``."""
+    index: to the ranker's shard set when there is one, else over
+    ``--retrieve-shards`` standalone shards. Returns ``(CascadeEngine,
+    the standalone set or None)``."""
     from ...retrieve import (CascadeConfig, CascadeEngine,
                              ShardedMIPSIndex, TwoTowerConfig,
                              build_two_tower, dlrm_candidate_features,
@@ -285,8 +338,13 @@ def _build_cascade(cfg, dcfg, serve):
         user_embedding_size=list(dcfg.embedding_size),
         user_sparse_dim=8, user_bag_size=int(dcfg.embedding_bag_size))
 
+    # the heads keep their tables on the device: ``--host-tables`` is the
+    # ranker's (a host table must read a model input, and the user head
+    # splits its input; the JAX app passes the flag on and fails here)
+    head_cfg = dataclasses.replace(cfg, host_resident_tables=False)
+
     def build_head(head):
-        m = FFModel(cfg)
+        m = FFModel(head_cfg)
         build_two_tower(m, tcfg, head=head)
         m.compile(SGDOptimizer(lr=cfg.learning_rate),
                   "mean_squared_error", ["mse"])
@@ -318,19 +376,24 @@ def _build_cascade(cfg, dcfg, serve):
 
     items = item_embeddings(item_model, tcfg)
     del item_model
-    m = max(1, int(cfg.retrieve_shards))
-    sset = ShardedMIPSIndex.standalone_set(m)
-    index = ShardedMIPSIndex.build(sset, items, device=cfg.device)
+    owned = None
+    if shard_set is not None:
+        index = ShardedMIPSIndex.build(shard_set, items, device=cfg.device)
+        where = f"riding the {shard_set.nshards}-shard ranker tier"
+    else:
+        m = max(1, int(cfg.retrieve_shards))
+        owned = ShardedMIPSIndex.standalone_set(m)
+        index = ShardedMIPSIndex.build(owned, items, device=cfg.device)
+        where = f"{m} standalone index shard(s)"
     cascade = CascadeEngine(
         index, encode, serve,
         dlrm_candidate_features(len(dcfg.embedding_size),
                                 list(dcfg.embedding_size)),
         CascadeConfig.from_config(cfg))
-    log_app.info("retrieval cascade on: %d-item index (%d standalone "
-                 "index shard(s)), k=%d, retrieve deadline %.0f ms",
-                 index.n_items, m, cascade.config.k,
-                 cascade.config.retrieve_deadline_ms)
-    return cascade, sset
+    log_app.info("retrieval cascade on: %d-item index (%s), k=%d, "
+                 "retrieve deadline %.0f ms", index.n_items, where,
+                 cascade.config.k, cascade.config.retrieve_deadline_ms)
+    return cascade, owned
 
 
 class App:
@@ -352,14 +415,18 @@ class App:
                          f", traces export to {cfg.obs_trace_dir}"
                          if cfg.obs_trace_dir else "")
         rest = list(cfg.unparsed)
-        _refuse_unported(rest)
+        _refuse_unported(cfg, rest)
         dcfg = DLRMConfig.parse_args(rest)
         port = int(_flag(rest, "--port", 8000))
         host = _flag(rest, "--host", "0.0.0.0")
-        retrieve = _retrieve_on(cfg, rest)
+        retrieve = _validate_retrieve(cfg, rest)
         ckpt_dir = cfg.checkpoint_dir or None
         model = build_server_model(cfg, dcfg)
-        self.engine = InferenceEngine(model, checkpoint_dir=ckpt_dir)
+        self.shard_set = None
+        if cfg.serve_shards > 0:
+            self.shard_set = _build_shard_set(cfg, model)
+        self.engine = InferenceEngine(model, checkpoint_dir=ckpt_dir,
+                                      shard_set=self.shard_set)
         if ckpt_dir:
             # the first restore through the watcher's READ-ONLY manifest
             # scan (a CheckpointManager would sweep temp files under a
@@ -373,8 +440,12 @@ class App:
                     "until the trainer publishes one", ckpt_dir)
         self.cascade = self._index_set = None
         if retrieve:
-            self.cascade, self._index_set = _build_cascade(cfg, dcfg,
-                                                           self.engine)
+            self.cascade, self._index_set = _build_cascade(
+                cfg, dcfg, self.engine, self.shard_set)
+        if self.shard_set is not None:
+            # no autoscaler drives the shards' health: the set probes,
+            # re-admits and replaces on its own thread
+            self.shard_set.start_health()
         self.engine.start()
         self.httpd = ThreadingHTTPServer(
             (host, port), make_handler(
@@ -394,6 +465,8 @@ class App:
         from ...obs import trace as obstrace
         self.httpd.server_close()
         self.engine.close()
+        if self.shard_set is not None:
+            self.shard_set.close()      # stops its health thread first
         if self._index_set is not None:
             self._index_set.close()
         path = obstrace.export_to_dir()

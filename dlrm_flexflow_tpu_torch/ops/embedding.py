@@ -276,6 +276,11 @@ class Embedding(Op):
         return {"kernel": _host_init_table(
             self.kernel_initializer, (self.num_entries, self.out_dim), seed)}
 
+    def host_delta_touched_rows(self, idx_np) -> np.ndarray:
+        """The host table's rows this batch reads (and its update may
+        change): the host table is (num_entries, out_dim), unpacked."""
+        return np.unique(self.flat_lookup_ids(idx_np))
+
     def host_flat_indices(self, idx_np):
         """Per-sample flat row ids, (batch, 1, bag)."""
         g = np.asarray(idx_np).astype(np.int64) % self.num_entries

@@ -85,6 +85,14 @@ class QuantTable:
         self.q[idx] = q
         self.scales[idx] = s
 
+    def set_all(self, arr) -> None:
+        """Quantize and store a whole block (a full publish's slice), on
+        this table's device."""
+        arr = torch.as_tensor(arr).to(self.device)
+        q, s = quantize_rows(arr.reshape(-1, arr.shape[-1]), self.dtype)
+        self.q = q
+        self.scales = s.to(torch.float32).contiguous()
+
     def copy(self) -> "QuantTable":
         return QuantTable(self.q.clone(), self.scales.clone(), self.dtype)
 

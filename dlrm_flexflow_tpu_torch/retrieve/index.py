@@ -18,7 +18,11 @@ exact scan over the same codes, bit for bit, ties included.
 absent from the merge, flagged ``degraded`` with the dropped slots
 named.
 
-``augment_delta`` (publishes) waits with the shard tier's publish path.
+**One publish, both stages.** ``augment_delta`` folds re-encoded item
+rows into a delta payload under ``hostparams/<op>/kernel``; the shard
+set routes them through the same split, CRC and apply path as the
+ranking tables' rows, so one publish advances ranking and retrieval
+together, and each shard's top-k reads the one version its lookups do.
 """
 
 from __future__ import annotations
@@ -37,6 +41,10 @@ from ..quant.store import QuantTable
 from ..serve.shardtier import (EmbeddingShard, EmbeddingShardSet,
                                ShardReplica, ShardTierConfig,
                                as_device_table)
+
+# the delta-payload key the index publishes under: the
+# "hostparams/<op>/kernel" namespace split_host_rows_by_shard routes
+INDEX_DELTA_KEY = "hostparams/{op}/kernel"
 
 
 class RetrievalResult(NamedTuple):
@@ -133,7 +141,8 @@ class ShardedMIPSIndex:
             config.nshards = nshards
         shards = [ShardReplica(EmbeddingShard(slot, slot, {}, {}))
                   for slot in range(nshards)]
-        return EmbeddingShardSet(shards, config)
+        return EmbeddingShardSet(shards, config,
+                                 fingerprint="retrieve-standalone")
 
     # --- the query path -------------------------------------------------
     def topk(self, user_emb, k: int, deadline_s: Optional[float] = None,
@@ -184,6 +193,28 @@ class ShardedMIPSIndex:
                            device=items.device)
         s, i = topk_select(users @ items.T, ids, int(k))
         return s.cpu().numpy(), i.cpu().numpy()
+
+    # --- freshness (one publish, both stages) ---------------------------
+    def delta_key(self) -> str:
+        return INDEX_DELTA_KEY.format(op=self.op_name)
+
+    def augment_delta(self, payload: Dict[str, Any], ids, embeddings
+                      ) -> Dict[str, Any]:
+        """Fold re-encoded item rows ((n,) ids, (n, d) fp32 embeddings)
+        into a delta payload, so that ONE publish advances the ranking
+        tables and the index: the shard set routes the added
+        ``hostparams/<op>/kernel`` entry like every table row. The kept
+        oracle table takes the same rows, so the exact scan keeps
+        describing what the shards serve. Returns ``payload``."""
+        ids = np.asarray(ids, np.int64).reshape(-1)
+        vals = np.asarray(embeddings, np.float32)
+        if vals.shape != (ids.size, self.dim):
+            raise ValueError(f"augment_delta: embeddings {vals.shape} != "
+                             f"({ids.size}, {self.dim})")
+        payload.setdefault("rows", {})[self.delta_key()] = (ids, vals)
+        if self.table is not None:
+            self.table.set_rows(ids, vals)
+        return payload
 
     def stats(self) -> Dict[str, Any]:
         return {

@@ -25,16 +25,25 @@ pays a first call) and the padding is sliced off before the response.
   step) it was computed with. A delta is written in place
   (``FFModel.apply_delta``), which is safe only there: no other thread
   queues kernels that read the tables.
+- **Host-resident tables**: with ``cache_rows`` the host gather goes
+  through a per-sample LRU row cache (``serve/cache.py``), pre-warmed
+  from a published id histogram (``cache_warm``); a full reload drops
+  it, a delta drops only the samples whose rows it rewrote. With a
+  shard set attached (``attach_shard_set``, ``serve/shardtier.py``) the
+  engine is a stateless ranker: every op's cache misses go to the shard
+  tier in one fetch, host-table rows of a publish route to the owning
+  shards, and each response carries the per-shard version vector read
+  and whether it was answered with default rows (``degraded``). Rows
+  gathered on the host go to the card after the table lock is released.
 - **Observability**: ``stats()`` (latency percentiles, batch fill,
-  reload counters), ``healthz()`` for a load balancer, and with
-  ``--obs on`` the JAX engine's ``ff_serve_*`` series and
-  ``serve/...`` spans.
+  reload counters, the cache and the tier), ``healthz()`` for a load
+  balancer, and with ``--obs on`` the JAX engine's ``ff_serve_*``
+  series and ``serve/...`` spans.
 
 The batcher thread launches the model's kernels on its current CUDA
-stream; copying the scores to the host is the synchronisation. The
-JAX engine's embedding-row cache (ROADMAP queue 1 item 9.2, after 2.4),
-fleet hooks (9.4), shard tier (9.3) and wire transport (``serve()``,
-``serve_forever``: 9.4) are not ported yet and raise.
+stream; copying the scores to the host is the synchronisation. The JAX
+engine's fleet hooks and wire transport (``serve()``,
+``serve_forever``) are ROADMAP queue 1 item 9.4 and raise.
 """
 
 from __future__ import annotations
@@ -48,12 +57,14 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, NamedTuple, Optional
 
 import numpy as np
+import torch
 
 from ..data.dataloader import coalesce_batches
 from ..obs import metrics as obsm
 from ..obs import trace as obstrace
 from ..obs.metrics import percentile  # noqa: F401 — re-exported
 from ..utils.logging import get_logger
+from .cache import EmbeddingCache
 
 log_serve = get_logger("serve")
 
@@ -97,6 +108,9 @@ class ServeConfig:
     max_delay_ms: float = 5.0    # flush-mode deadline for a partial batch
     queue_capacity: int = 256    # bounded queue -> Overloaded past this
     deadline_ms: float = 0.0     # per-request budget; 0 = none
+    cache_rows: int = 0          # embedding-row cache capacity; 0 = off
+    cache_warm: str = ""         # id-histogram npz (or checkpoint dir)
+    #                              to pre-warm the row cache from
     poll_s: float = 0.5          # snapshot-watcher poll interval
     warmup: bool = True          # run every bucket once at start()
     continuous: bool = True      # iteration-level admission; False =
@@ -104,11 +118,6 @@ class ServeConfig:
 
     @staticmethod
     def from_config(cfg) -> "ServeConfig":
-        if cfg.serve_cache_rows > 0 or cfg.serve_cache_warm:
-            raise NotImplementedError(
-                "the serving row cache (--serve-cache-rows, "
-                "--serve-cache-warm) caches host-resident tables and is "
-                "not ported yet (ROADMAP queue 1 item 9.2, after 2.4)")
         if cfg.serve_replicas > 1:
             raise NotImplementedError(
                 "the serving fleet (--serve-replicas) is not ported yet "
@@ -118,6 +127,8 @@ class ServeConfig:
             max_delay_ms=float(cfg.serve_max_delay_ms),
             queue_capacity=int(cfg.serve_queue),
             deadline_ms=float(cfg.serve_deadline_ms),
+            cache_rows=int(cfg.serve_cache_rows),
+            cache_warm=str(cfg.serve_cache_warm),
             poll_s=float(cfg.serve_poll_s),
             continuous=cfg.serve_batching != "flush")
 
@@ -140,15 +151,22 @@ class InferenceEngine:
     model's serving lifecycle from ``start()`` to ``close()``; its
     batcher thread is the only one that runs the model meanwhile. With
     ``checkpoint_dir`` it follows a trainer's published snapshots
-    (:class:`~.watcher.SnapshotWatcher`, started by ``start()``).
+    (:class:`~.watcher.SnapshotWatcher`, started by ``start()``). With
+    ``shard_set`` (or :meth:`attach_shard_set` before ``start()``) it
+    resolves host-table ids through that shard tier.
     """
 
     def __init__(self, model, config: Optional[ServeConfig] = None,
-                 checkpoint_dir: Optional[str] = None):
+                 checkpoint_dir: Optional[str] = None, shard_set=None):
         if model.params is None:
             raise ValueError("InferenceEngine needs an initialized model "
                              "(init_layers() or swap_params())")
         self._model = model
+        # the row-sharded lookup tier: when set, host-table ids resolve
+        # through it (fronted by the row cache), publishes' host rows
+        # route to its shards, and responses carry its version vector
+        self._shard_set = shard_set
+        self._lookup_meta = None   # the batcher's per-batch scratch
         self.config = config or ServeConfig.from_config(model.config)
         if self.config.max_batch < 1:
             raise ValueError("serve max_batch must be >= 1")
@@ -160,6 +178,10 @@ class InferenceEngine:
         # would fail the whole batch
         self._input_sample_shapes = {t.name: tuple(t.shape[1:])
                                      for t in model.input_tensors}
+        # the row cache applies to host-resident tables only
+        self._cache: Optional[EmbeddingCache] = None
+        if self.config.cache_rows > 0 and model._host_resident_list:
+            self._cache = EmbeddingCache(self.config.cache_rows)
         self._checkpoint_dir = checkpoint_dir
         self._watcher = None
         self._q: "deque[_Request]" = deque()
@@ -201,6 +223,8 @@ class InferenceEngine:
         self._delta_reloads = 0
         self._reload_rejects = 0
         self._last_reject = ""
+        self._n_degraded = 0
+        self._last_versions: Dict[int, int] = {}
         self._warmup_s = 0.0
         self._flushes = {"continuous": 0, "size": 0, "deadline": 0}
 
@@ -212,7 +236,9 @@ class InferenceEngine:
             return self
         self._started = True
         if self.config.warmup:
-            self._warmup_s = self._model.warmup_buckets(self._buckets)
+            self._warmup_s = self._model.warmup_buckets(
+                self._buckets, **self._gather_kw())
+        self._prewarm_cache()
         self._thread = threading.Thread(target=self._batcher, daemon=True,
                                         name="ff-serve-batcher")
         self._thread.start()
@@ -377,6 +403,183 @@ class InferenceEngine:
                         if not r.future.done():
                             r.future.set_exception(e)
 
+    def prewarm_cache_from(self, sketches) -> None:
+        """Pre-warm the row cache from live sketches ({op name:
+        IdFrequencySketch}) instead of a published file."""
+        self._prewarm_cache(hists=sketches)
+
+    def _prewarm_cache(self, hists=None) -> None:
+        """Pre-warm the row cache from a published id histogram
+        (``cache_warm``: the ``id_histogram.npz`` a DeltaPublisher writes
+        beside its snapshots, or the directory holding it), or from
+        ``hists``. Index tuples are drawn from each table's observed
+        marginal (``sample_range``, one RandomState(0) stream, as the JAX
+        engine draws them), so a fresh replica starts with the hot
+        working set cached. A missing or unreadable histogram starts the
+        cache cold."""
+        if self._cache is None:
+            return
+        if hists is None and not self.config.cache_warm:
+            return
+        model = self._model
+        if model._host_tables_released:
+            log_serve.info("cache pre-warm skipped: ranker tables released "
+                           "to the shard tier (warm hits come from live "
+                           "traffic instead)")
+            return
+        if hists is None:
+            import os
+
+            from ..utils.histogram import HISTOGRAM_FILE, load_histograms
+            path = self.config.cache_warm
+            if os.path.isdir(path):
+                path = os.path.join(path, HISTOGRAM_FILE)
+            try:
+                hists = load_histograms(path)
+            except (IOError, OSError, ValueError, KeyError) as e:
+                log_serve.warning("cache pre-warm skipped: cannot read id "
+                                  "histogram %s (%s)", path, e)
+                return
+        else:
+            path = "<live sketches>"
+        rng = np.random.RandomState(0)
+        n = max(min(self.config.cache_rows, 2048), 1)
+        warmed = 0
+        for op in model._host_resident_list:
+            sk = hists.get(op.name)
+            if sk is None:
+                continue
+            sample_shape = tuple(op.inputs[0].shape[1:])  # (T, bag)|(bag,)
+            if hasattr(op, "table_sizes"):        # concat: offset ranges
+                bag = sample_shape[-1]
+                cols = [sk.sample_range(rng, off, off + sz, (n, bag))
+                        for off, sz in zip(op._offsets, op.table_sizes)]
+                idx = np.stack(cols, axis=1)
+            elif len(sample_shape) == 2:          # stacked (T, bag)
+                rows = op.num_entries
+                cols = [sk.sample_range(rng, t * rows, (t + 1) * rows,
+                                        (n, sample_shape[1]))
+                        for t in range(sample_shape[0])]
+                idx = np.stack(cols, axis=1)
+            else:                                 # one table, (bag,)
+                idx = sk.sample_range(rng, 0, op.num_entries,
+                                      (n,) + sample_shape)
+            idx = np.ascontiguousarray(idx, np.int32)
+            with model._host_table_lock:
+                warmed += self._cache.prewarm(
+                    op, model.host_params[op.name], idx)
+        if warmed:
+            log_serve.info("pre-warmed %d embedding-cache entr%s from %s",
+                           warmed, "y" if warmed == 1 else "ies", path)
+
+    def _host_gather(self):
+        """The host-table gather the dispatch passes the model: the
+        shard-tier gather with a shard set, the cached gather with a
+        cache, else None (the model's own)."""
+        if self._shard_set is not None:
+            return self._shard_gather()
+        if self._cache is None:
+            return None
+        model = self._model
+        cache = self._cache
+
+        def gather(host_idx):
+            # rows come out under the table lock (fresh arrays); their
+            # copy to the card runs after it is released
+            rows = {}
+            with obstrace.span("host/gather", cat="host"), \
+                    model._host_table_lock:
+                for op in model._host_resident_list:
+                    rows[op.name] = cache.lookup(
+                        op, model.host_params[op.name], host_idx[op.name])
+            with obstrace.span("host/h2d", cat="host"):
+                return {k: torch.from_numpy(v).to(model.device)
+                        for k, v in rows.items()}
+
+        return gather
+
+    def _gather_kw(self) -> Dict[str, Any]:
+        """``host_gather=`` for the model's forward, when this engine has
+        a gather of its own."""
+        gather = self._host_gather()
+        return {} if gather is None else {"host_gather": gather}
+
+    def attach_shard_set(self, shard_set) -> "InferenceEngine":
+        """Wire this ranker to a (shared) EmbeddingShardSet, before
+        ``start()`` (the bucket warmup runs through the gather)."""
+        if self._started:
+            raise RuntimeError("attach_shard_set before start()")
+        self._shard_set = shard_set
+        return self
+
+    @property
+    def shard_set(self):
+        return self._shard_set
+
+    def _shard_gather(self):
+        """The shard-tier gather: probe the cache per sample and op,
+        batch EVERY op's misses into ONE ``EmbeddingShardSet.fetch`` (one
+        locked read per shard: the version-vector consistency unit),
+        assemble the miss samples through the op's ``host_lookup_rows``
+        (bitwise the local host path), and cache only the samples no
+        default row went into. The batch's version vector and per-row
+        degraded marks are left for ``_dispatch`` to tag the responses
+        with."""
+        model = self._model
+        cache = self._cache
+        shard_set = self._shard_set
+
+        def gather(host_idx):
+            plan = {}
+            per_op = {}
+            n_rows = None
+            for op in model._host_resident_list:
+                idx = np.asarray(host_idx[op.name])
+                n_rows = int(idx.shape[0])
+                if cache is not None:
+                    vals, miss = cache.probe(op, idx)
+                else:
+                    vals, miss = [None] * n_rows, list(range(n_rows))
+                entry = {"idx": idx, "vals": vals, "miss": miss}
+                if miss:
+                    g3 = op.host_flat_indices(idx[np.asarray(miss)])
+                    u, inv = np.unique(g3, return_inverse=True)
+                    entry.update(g3=g3, u=u, inv=inv.reshape(-1))
+                    plan[op.name] = u
+                per_op[op] = entry
+            with obstrace.span("serve/shard-fetch", cat="host"):
+                fetch = shard_set.fetch(plan) if plan else None
+            row_degraded = np.zeros(n_rows or 0, bool)
+            out_rows = {}
+            for op, entry in per_op.items():
+                vals, miss = entry["vals"], entry["miss"]
+                if miss:
+                    g3, inv = entry["g3"], entry["inv"]
+                    rows = fetch.rows[op.name]
+                    local = inv.reshape(g3.shape).astype(np.int64)
+                    sub = np.asarray(op.host_lookup_rows(rows, local))
+                    # the miss samples assembled from default rows:
+                    # flagged degraded, never cached
+                    dm = fetch.default_mask[op.name][inv].reshape(g3.shape)
+                    sample_deg = dm.reshape(dm.shape[0], -1).any(axis=1)
+                    if cache is not None:
+                        sub = cache.insert(op, entry["idx"], miss, sub,
+                                           ok=~sample_deg)
+                    for j, i in enumerate(miss):
+                        vals[i] = np.ascontiguousarray(sub[j])
+                    row_degraded[np.asarray(miss)[sample_deg]] = True
+                out_rows[op.name] = np.stack(vals, axis=0)
+            self._lookup_meta = {
+                "versions": (dict(fetch.versions) if fetch
+                             else shard_set.version_vector()),
+                "row_degraded": row_degraded,
+            }
+            with obstrace.span("host/h2d", cat="host"):
+                return {k: torch.from_numpy(v).to(model.device)
+                        for k, v in out_rows.items()}
+
+        return gather
+
     def _dispatch(self, reqs: List[_Request]) -> None:
         # expired requests fail instead of wasting a batch slot
         live: List[_Request] = []
@@ -400,23 +603,38 @@ class InferenceEngine:
         # held, entirely on the weights it tags
         self._apply_pending_swap()
         version = self._applied_version
+        self._lookup_meta = None
         with obstrace.span("serve/dispatch", rows=n, bucket=bucket):
-            out = self._model.forward_bucket(batch, bucket=bucket)
+            out = self._model.forward_bucket(batch, bucket=bucket,
+                                             **self._gather_kw())
             scores = out.cpu().numpy()      # device -> host: the sync
+        # the shard tier's notes on THIS batch: the version vector read
+        # and which rows took default rows (padding rows past n count
+        # for nothing)
+        meta, self._lookup_meta = self._lookup_meta, None
+        versions = meta["versions"] if meta else None
+        rowdeg = meta["row_degraded"] if meta else None
         t_done = time.monotonic()
         off = 0
+        n_degraded = 0
         for r in live:
+            deg = bool(rowdeg is not None
+                       and rowdeg[off:off + r.rows].any())
+            n_degraded += int(deg)
             r.future.set_result(Prediction(
                 scores[off:off + r.rows], version,
-                1e3 * (t_done - r.t0), versions=None, degraded=False))
+                1e3 * (t_done - r.t0), versions=versions, degraded=deg))
             off += r.rows
         with self._stats_lock:
             for r in live:
                 self._lat_ms.append(1e3 * (t_done - r.t0))
             self._n_responses += len(live)
+            self._n_degraded += n_degraded
             self._n_batches += 1
             self._rows_served += n
             self._rows_padded += bucket - n
+            if versions is not None:
+                self._last_versions = versions
 
     # --- hot reload (called by SnapshotWatcher) ------------------------
     def install_snapshot(self, state: Dict[str, Any], version: int,
@@ -512,13 +730,39 @@ class InferenceEngine:
                                       label=source)
                     continue
                 if kind == "full":
+                    host_params = state.get("host_params")
+                    if self._shard_set is not None:
+                        # the host tables belong to the shard set
+                        # (idempotent per version: every ranker's watcher
+                        # routes the same snapshot); the ranker swaps its
+                        # dense parameters only
+                        if host_params is not None:
+                            self._shard_set.install_full(host_params,
+                                                         int(version))
+                        host_params = None
                     self._model.swap_params(
-                        params=state["params"],
-                        host_params=state.get("host_params"),
+                        params=state["params"], host_params=host_params,
                         op_state=state.get("op_state"))
                     self._model._step = int(version)
+                    if self._cache is not None:
+                        # as cold as a fresh start: re-warm against the
+                        # new tables (a no-op without cache_warm)
+                        self._cache.invalidate()
+                        self._prewarm_cache()
+                elif self._shard_set is not None:
+                    # host-table rows route to their owning shards; the
+                    # ranker applies the dense rest
+                    self._shard_set.apply_delta(state, int(version))
+                    dense = dict(state)
+                    for part in ("rows", "full"):
+                        dense[part] = {k: v for k, v in
+                                       (state.get(part) or {}).items()
+                                       if not k.startswith("hostparams/")}
+                    self._model.apply_delta(dense)
+                    self._invalidate_cache_rows(state)
                 else:
                     self._model.apply_delta(state)
+                    self._invalidate_cache_rows(state)
                 self._applied_version = version
                 self._applied_any = True
                 obstrace.complete("serve/swap", t_swap, kind=kind,
@@ -540,6 +784,20 @@ class InferenceEngine:
             finally:
                 applied.set()
 
+    def _invalidate_cache_rows(self, payload: Dict[str, Any]) -> None:
+        """After a delta: drop only the cached samples a rewritten host
+        row feeds (a whole host array replaced drops everything)."""
+        if self._cache is None:
+            return
+        if any(k.startswith("hostparams/")
+               for k in (payload.get("full") or {})):
+            self._cache.invalidate()
+            return
+        for key, (idx, _vals) in (payload.get("rows") or {}).items():
+            if key.startswith("hostparams/"):
+                self._cache.invalidate_rows(key.split("/")[1],
+                                            np.asarray(idx))
+
     def record_reload_reject(self, reason: str) -> None:
         self._reload_rejects += 1
         self._last_reject = reason
@@ -557,9 +815,15 @@ class InferenceEngine:
 
     @property
     def version_floor(self) -> int:
-        """The oldest version in this engine's serving path: its own
-        (the JAX engine's shard tier, which can lag, is not ported)."""
-        return self._version
+        """The oldest version anywhere in this engine's serving path: its
+        own and (with a shard set) the oldest live shard's. The watcher
+        keys its catch-up on it, so a replacement shard that booted stale
+        keeps the chain replaying (idempotent per shard) until the whole
+        tier is at the tip."""
+        if self._shard_set is None:
+            return self._version
+        floor = self._shard_set.min_version()
+        return self._version if floor is None else min(self._version, floor)
 
     @property
     def model(self):
@@ -568,14 +832,17 @@ class InferenceEngine:
     def healthz(self) -> Dict[str, Any]:
         """Readiness for a /healthz endpoint: ``ok`` is False while the
         engine is draining (closing or never started), its batcher died,
-        or the bounded queue is full (submits raise Overloaded now)."""
+        or the bounded queue is full (submits raise Overloaded now).
+        ``degraded`` (with a shard set) is True while a shard is out of
+        the routable set: answers are still served, flagged; degraded is
+        not down."""
         depth = len(self._q)
         saturated = depth >= self.config.queue_capacity
         draining = self._closing or not self._started
         t = self._thread
         batcher_alive = bool(t is not None and t.is_alive())
         dead = self._started and not self._closing and not batcher_alive
-        return {
+        out = {
             "ok": not (saturated or draining or dead),
             "version": self._version,
             "draining": draining,
@@ -584,6 +851,11 @@ class InferenceEngine:
             "queue_depth": depth,
             "queue_capacity": self.config.queue_capacity,
         }
+        if self._shard_set is not None:
+            out["degraded"] = self._shard_set.degraded_now()
+            out["shard_states"] = {r.slot: r.state
+                                   for r in self._shard_set.shards}
+        return out
 
     # --- observability -------------------------------------------------
     def _obs_collect(self):
@@ -600,6 +872,12 @@ class InferenceEngine:
         yield "ff_serve_delta_reloads_total", lab, self._delta_reloads
         yield "ff_serve_reload_rejects_total", lab, self._reload_rejects
         yield "ff_serve_version", lab, self._version
+        if self._shard_set is not None:
+            yield "ff_serve_degraded_responses_total", lab, self._n_degraded
+        if self._cache is not None:
+            cs = self._cache.stats()
+            yield "ff_serve_cache_hits_total", lab, cs["hits"]
+            yield "ff_serve_cache_misses_total", lab, cs["misses"]
 
     def stats(self) -> Dict[str, Any]:
         with self._stats_lock:
@@ -630,6 +908,12 @@ class InferenceEngine:
             "flushes": flushes,
             "continuous": self.config.continuous,
         })
+        if self._shard_set is not None:
+            out["degraded_responses"] = self._n_degraded
+            out["shard_versions"] = dict(self._last_versions)
+            out["shard_set"] = self._shard_set.stats()
+        if self._cache is not None:
+            out["embedding_cache"] = self._cache.stats()
         if self._watcher is not None:
             out["watcher"] = self._watcher.stats()
         return out

@@ -9,15 +9,17 @@ the fleet's replicas and its router are not ported yet).
     PROBING --(readmit)-------------------------> HEALTHY
 
 The shard tier wraps each ``EmbeddingShard`` in it (``ShardReplica``):
-an ejected shard receives no traffic until it is re-admitted. The
-fleet's prober, which decides when to probe (its cooldown) and whether
-a probe failed, is not ported yet.
+an ejected shard receives no traffic until its admission probe succeeds
+(``EmbeddingShardSet.health_tick``, after ``cooldown_s``); a unit born
+PROBING (a replacement) is probed at the next tick, and a failed probe
+sends it back to EJECTED with its cooldown restarted.
 """
 
 from __future__ import annotations
 
 import logging
 import threading
+import time
 from typing import Any, Dict
 
 log_fleet = logging.getLogger("dlrm_flexflow_tpu_torch.serve.fleet")
@@ -37,8 +39,12 @@ class CircuitBreaker:
     def __init__(self, rid: int, state: str = HEALTHY):
         self.rid = rid
         self.state = state
+        # a unit born PROBING (a replacement) takes no traffic until its
+        # end-to-end admission probe succeeds
+        self.awaiting_admission = state == PROBING
         self._lock = threading.Lock()
         self.consecutive_errors = 0
+        self.ejected_at = 0.0
         self.last_error = ""
         # counters (monotonic, surfaced in stats)
         self.ejections = 0
@@ -66,15 +72,31 @@ class CircuitBreaker:
             if self.state == EJECTED:
                 return
             self.state = EJECTED
+            self.ejected_at = time.monotonic()
             self.ejections += 1
             self.last_error = reason
         log_fleet.warning("ejected %s %d (%s)", self.KIND, self.rid, reason)
+
+    def due_for_probe(self, cooldown_s: float) -> bool:
+        with self._lock:
+            if self.awaiting_admission:     # born PROBING: at once
+                return True
+            return (self.state == EJECTED
+                    and time.monotonic() - self.ejected_at >= cooldown_s)
 
     def begin_probe(self) -> None:
         with self._lock:
             if self.state == EJECTED:
                 self.state = PROBING
+            self.awaiting_admission = False
             self.probes += 1
+
+    def probe_failed(self, reason: str) -> None:
+        with self._lock:
+            if self.state == PROBING:
+                self.state = EJECTED
+                self.ejected_at = time.monotonic()   # restart the cooldown
+            self.last_error = f"probe failed: {reason}"
 
     def readmit(self) -> None:
         with self._lock:

@@ -30,13 +30,14 @@ those candidate rows against the last published state, and diffs every
 row where candidates are missing or incomplete (a table on the dense
 update, a batch the tracker never saw), so a delta is always exact.
 
-Left for later items: host-resident tables' row deltas and the per-shard
-routing of the serving shard tier (``shard_slice_crc``,
-``shard_chain_crc``, ``split_host_rows_by_shard``, ROADMAP queue 1
-items 9.2 and 9.3: a publisher over a host-table model raises, and
-``FFModel.apply_delta`` rejects a ``hostparams`` key) and quantized row
-payloads (item 5): a quantized delta is refused when written and
-rejected when loaded.
+Host-resident tables publish too: the tracker's candidates for a host
+table are its ``hostparams/<op>/kernel`` rows (a host update is always
+touched-rows-only), and ``FFModel.apply_delta`` writes them in place.
+The serving shard tier routes a delta per shard
+(:func:`split_host_rows_by_shard`, :func:`shard_slice_crc`,
+:func:`shard_chain_crc`; the CRCs equal the JAX package's integer for
+integer). Quantized row payloads (ROADMAP queue 1 item 5) are refused
+when written and rejected when loaded.
 """
 
 from __future__ import annotations
@@ -74,13 +75,19 @@ class ChainError(ValueError):
 
 
 def serving_flat(model) -> Dict[str, np.ndarray]:
-    """The serving state of a model — its parameters; the port has no
-    op state or host tables — as host arrays keyed and laid out as in
-    the checkpoint npz. The arrays own their bytes: the trainer keeps
-    updating its tensors in place."""
+    """The serving state of a model (its parameters and host tables; the
+    port has no op state) as host arrays keyed and laid out as in the
+    checkpoint npz. The arrays own their bytes: the trainer keeps
+    updating its tensors and host tables in place."""
     copy = model.device.type == "cpu"
-    return {f"params/{k}": (np.array(v) if copy else v)
-            for k, v in _flatten(params_to_jax(model, model.params)).items()}
+    out = {f"params/{k}": (np.array(v) if copy else v)
+           for k, v in _flatten(params_to_jax(model, model.params)).items()}
+    if model.host_params:
+        model._host_drain()
+        with model._host_table_lock:
+            for k, v in _flatten(model.host_params).items():
+                out[f"hostparams/{k}"] = np.array(v)
+    return out
 
 
 def _row_view(arr: np.ndarray) -> np.ndarray:
@@ -126,10 +133,20 @@ class TouchedRowTracker:
         self._merged: Dict[str, np.ndarray] = {}
         self._pending: Dict[str, List[np.ndarray]] = {}
         self._batches = 0
-        self._tracked = [(op, op.inputs[0].name, f"params/{op.name}/kernel")
-                         for op in model.ops
-                         if op.inputs and hasattr(op, "delta_touched_rows")
-                         and _sparse_update_active(op)]
+        # (op, input name, flat key, host table?): a host table's update
+        # is always touched-rows-only; a device table is tracked only on
+        # the touched-rows update
+        hres = {op.name for op in model._host_resident_list}
+        self._tracked = []
+        for op in model.ops:
+            if not op.inputs or not hasattr(op, "delta_touched_rows"):
+                continue
+            if op.name in hres:
+                self._tracked.append((op, op.inputs[0].name,
+                                      f"hostparams/{op.name}/kernel", True))
+            elif _sparse_update_active(op):
+                self._tracked.append((op, op.inputs[0].name,
+                                      f"params/{op.name}/kernel", False))
         self._sketch_ops = [(op, op.inputs[0].name) for op in model.ops
                             if op.inputs and hasattr(op, "flat_lookup_ids")]
         self._sketches = {op.name: IdFrequencySketch(op.lookup_id_space())
@@ -137,8 +154,9 @@ class TouchedRowTracker:
 
     def observe(self, batch: Dict[str, np.ndarray]) -> None:
         """Record one (about to be trained) host batch's candidates."""
-        adds = [(key, op.delta_touched_rows(batch[name]))
-                for op, name, key in self._tracked if name in batch]
+        adds = [(key, op.host_delta_touched_rows(batch[name]) if host
+                 else op.delta_touched_rows(batch[name]))
+                for op, name, key, host in self._tracked if name in batch]
         flats = [(op.name, op.flat_lookup_ids(batch[name]))
                  for op, name in self._sketch_ops if name in batch]
         with self._lock:
@@ -293,6 +311,92 @@ def stage_delta_rows(model, payload: Dict[str, Any]) -> Dict[str, Any]:
 
 
 # ---------------------------------------------------------------------
+# per-shard routing (the serving shard tier, serve/shardtier.py)
+# ---------------------------------------------------------------------
+# A row-sharded serving tier splits every host table's flat row space
+# over N lookup shards, so a delta publish touches only the shards that
+# own its rows, and each shard validates exactly its own slice.
+# ``split_host_rows_by_shard`` cuts a payload's ``hostparams/`` updates
+# along the shard ranges and stamps each slice with a CRC the owning
+# shard recomputes before it applies the slice. A shard the publish did
+# not touch gets None (a version bump, no row work).
+
+
+def shard_slice_crc(sub: Dict[str, Any]) -> int:
+    """Deterministic CRC-32 over one shard's delta slice (sorted keys,
+    index bytes, row bytes): computed at split time and again by the
+    shard at apply time, so corruption between the two is a reject with
+    its reason, never silently wrong rows."""
+    import zlib
+    crc = 0
+    for key in sorted(sub.get("rows", {})):
+        idx, vals = sub["rows"][key]
+        crc = zlib.crc32(key.encode(), crc)
+        crc = zlib.crc32(np.ascontiguousarray(idx, np.int64), crc)
+        crc = zlib.crc32(np.ascontiguousarray(vals), crc)
+    for key in sorted(sub.get("full", {})):
+        crc = zlib.crc32(key.encode(), crc)
+        crc = zlib.crc32(np.ascontiguousarray(sub["full"][key]), crc)
+    return crc
+
+
+def shard_chain_crc(prev_crc: int, step: int, slice_crc: int) -> int:
+    """One link of a shard's publish chain: CRC over (previous link,
+    step, this slice's CRC). Two shards that applied the same publishes
+    in the same order agree on it."""
+    import zlib
+    blob = np.asarray([prev_crc, step, slice_crc], np.int64)
+    return zlib.crc32(blob.tobytes())
+
+
+def split_host_rows_by_shard(payload: Dict[str, Any],
+                             ranges_by_op: Dict[str, list],
+                             ) -> Dict[int, Optional[Dict[str, Any]]]:
+    """Split an ``apply_delta`` payload's host-table updates into
+    per-shard slices. ``ranges_by_op`` maps op name -> the tier's
+    ``[(lo, hi), ...]`` flat-row ranges. Row updates
+    (``rows["hostparams/<op>/kernel"]``) go to their owners; full-array
+    host replacements are sliced along the same ranges. Returns ``{slot:
+    slice | None}``, each slice with its ``crc``; other keys are the
+    ranker's and are ignored here."""
+    from ..serve.shardtier import row_owners
+    nshards = max((len(r) for r in ranges_by_op.values()), default=0)
+    subs: Dict[int, Dict[str, Any]] = {}
+
+    def _sub(slot):
+        return subs.setdefault(slot, {"rows": {}, "full": {}})
+
+    for key, (idx, vals) in (payload.get("rows") or {}).items():
+        if not key.startswith("hostparams/"):
+            continue
+        ranges = ranges_by_op.get(key.split("/")[1])
+        if ranges is None:
+            continue
+        owners = row_owners(idx, ranges[-1][1], len(ranges))
+        for slot in np.unique(owners):
+            m = owners == slot
+            _sub(int(slot))["rows"][key] = (np.asarray(idx)[m],
+                                            np.asarray(vals)[m])
+    for key, arr in (payload.get("full") or {}).items():
+        if not key.startswith("hostparams/"):
+            continue
+        ranges = ranges_by_op.get(key.split("/")[1])
+        if ranges is None:
+            continue
+        flat = np.asarray(arr).reshape(-1, arr.shape[-1])
+        for slot, (lo, hi) in enumerate(ranges):
+            if hi > lo:
+                _sub(slot)["full"][key] = flat[lo:hi]
+    out: Dict[int, Optional[Dict[str, Any]]] = {}
+    for slot in range(nshards):
+        sub = subs.get(slot)
+        if sub is not None:
+            sub["crc"] = shard_slice_crc(sub)
+        out[slot] = sub
+    return out
+
+
+# ---------------------------------------------------------------------
 # chain validation (the publisher's and the watcher's)
 # ---------------------------------------------------------------------
 def resolve_chain(manifest: Dict[str, Any], fingerprint: Optional[str],
@@ -405,11 +509,6 @@ class DeltaPublisher:
                 "DeltaPublisher over a quantized storage policy (row "
                 "payloads as codes + scales) is not ported yet (ROADMAP "
                 "queue 1 item 5)")
-        if model._host_resident_list:
-            raise NotImplementedError(
-                "DeltaPublisher over host-resident tables (hostparams row "
-                "deltas and their shard routing) is not ported yet "
-                "(ROADMAP queue 1 items 9.2 and 9.3)")
         self.model = model
         self.mgr = manager or CheckpointManager(directory,
                                                 keep_last=keep_last)

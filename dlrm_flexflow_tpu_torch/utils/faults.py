@@ -65,10 +65,20 @@ or from the environment (read once, at the first hook call):
   the serving hot reload opens it
 - ``FF_FAULT_POISON_RELOAD=1``     scale the params of the next 1
   snapshot the hot reload loads
+- ``FF_FAULT_CACHE_CORRUPT=1``     truncate the next 1 shard warm-cache
+  entry as it is read
+- ``FF_FAULT_SHARD_DOWN=1``        serving shard 1 is dead (every lookup
+  and probe raises); ``1:8`` fails its next 8 attempts, then recovers
+- ``FF_FAULT_LOOKUP_DELAY=0.05``   sleep 50 ms inside every shard lookup;
+  ``1:0.2`` slows only shard 1
+- ``FF_FAULT_INDEX_STALE=0:2``     shard 0 answers its next 2 top-k calls
+  from the index block the last publish displaced (strictly ``sid:n``)
+- ``FF_FAULT_TOPK_DROP=1``         shard 1's top-k raises for good;
+  ``1:3`` fails its next 3, then recovers
 
 The JAX package's other hooks (device loss and return, fleet, network,
-cache, quantized-scale and shard faults) wait for the modules they
-drive (ROADMAP queue 1 items 5, 7 and 9): their ``FF_FAULT_*`` keys, and
+quantized-scale and sketch faults) wait for the modules they drive
+(ROADMAP queue 1 items 5, 7, 8 and 9.4): their ``FF_FAULT_*`` keys, and
 unknown ones, are a warning here, never a silent no-op. A malformed
 value raises ``ValueError`` naming the variable.
 """
@@ -126,6 +136,27 @@ class FaultPlan:
     publish_aborts: int = 0
     # delta publishes whose manifest entry is dropped after the file lands
     delta_gaps: int = 0
+    # shard warm-cache (utils.warmcache.ShardCache) entry reads to
+    # corrupt: the file is truncated to corrupt_cache_bytes as it is
+    # read, and the read must reject it with its reason
+    corrupt_cache_entries: int = 0
+    corrupt_cache_bytes: int = 16
+    # serving embedding-shard id -> failed lookups left: the shard raises
+    # ShardDown from its lookup, top-k and probe; -1 = dead until the
+    # plan clears, N > 0 = the next N attempts fail, then it recovers
+    shard_down: Dict[int, int] = field(default_factory=dict)
+    # seconds to sleep inside EVERY shard lookup (not consume-once: a
+    # deadline test needs a steadily slow shard); per-shard entries
+    # override the global one
+    lookup_delay_s: float = 0.0
+    lookup_delay_shard: Dict[int, float] = field(default_factory=dict)
+    # shard id -> top-k answers left to serve from the index block the
+    # last publish displaced (consume-once per answer; -1 = until the
+    # plan clears)
+    index_stale: Dict[int, int] = field(default_factory=dict)
+    # shard id -> failed top-k calls left: only the retrieval surface
+    # dies, lookups keep serving (budgets as shard_down)
+    topk_drop: Dict[int, int] = field(default_factory=dict)
     # record of (hook, detail) actually fired, for test assertions
     fired: List[tuple] = field(default_factory=list)
 
@@ -150,19 +181,21 @@ _ENV_BUDGETS = {"FF_FAULT_TRUNCATE_CKPTS": "truncate_checkpoints",
                 "FF_FAULT_PUBLISH_ABORT": "publish_aborts",
                 "FF_FAULT_DELTA_GAP": "delta_gaps",
                 "FF_FAULT_CORRUPT_RELOAD": "corrupt_reloads",
-                "FF_FAULT_POISON_RELOAD": "poison_reloads"}
+                "FF_FAULT_POISON_RELOAD": "poison_reloads",
+                "FF_FAULT_CACHE_CORRUPT": "corrupt_cache_entries"}
+# the shard tier's per-shard lists ('sid:value,...')
+_ENV_SHARD_KEYS = ("FF_FAULT_SHARD_DOWN", "FF_FAULT_LOOKUP_DELAY",
+                   "FF_FAULT_INDEX_STALE", "FF_FAULT_TOPK_DROP")
 _ENV_KEYS = ("FF_FAULT_NAN_STEPS", "FF_FAULT_WRITE_DELAY",
              "FF_FAULT_IO_ERRORS", "FF_FAULT_FEEDBACK_LOSS") \
-    + tuple(_ENV_BUDGETS)
+    + tuple(_ENV_BUDGETS) + _ENV_SHARD_KEYS
 # keys of the JAX package's plan whose hooks are not ported yet
 _UNPORTED_ENV_KEYS = (
     "FF_FAULT_DROP_DEVICE", "FF_FAULT_RETURN_DEVICE",
     "FF_FAULT_STALL_COLLECTIVE", "FF_FAULT_SERVE_DELAY",
-    "FF_FAULT_REPLICA_DOWN", "FF_FAULT_CACHE_CORRUPT", "FF_FAULT_SHARD_DOWN",
-    "FF_FAULT_LOOKUP_DELAY", "FF_FAULT_QUANT_SCALE", "FF_FAULT_NET_DROP",
+    "FF_FAULT_REPLICA_DOWN", "FF_FAULT_QUANT_SCALE", "FF_FAULT_NET_DROP",
     "FF_FAULT_NET_DUP", "FF_FAULT_NET_REORDER", "FF_FAULT_NET_SLOW",
-    "FF_FAULT_SKETCH_SKEW",
-    "FF_FAULT_INDEX_STALE", "FF_FAULT_TOPK_DROP")
+    "FF_FAULT_SKETCH_SKEW")
 
 
 def _env_int(key: str, raw: str) -> int:
@@ -185,6 +218,30 @@ def _env_int_set(key: str, raw: str) -> Set[int]:
     return {_env_int(key, s) for s in raw.split(",") if s.strip()}
 
 
+def _env_pairs(key: str, raw: str, val, bare=None) -> list:
+    """Parse 'a:b,c:d' lists: each item is (int(a), val(b)); a bare item
+    (no colon) maps through ``bare`` (None = reject it)."""
+    out = []
+    for part in raw.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if ":" in part:
+            head, tail = part.split(":", 1)
+            if ":" in tail:
+                raise ValueError(
+                    f"{key}={raw!r}: item {part!r} has more than one "
+                    f"':' — expected 'id:value'")
+            out.append((_env_int(key, head), val(key, tail)))
+        elif bare is None:
+            raise ValueError(
+                f"{key}={raw!r}: item {part!r} is missing its ':' "
+                f"(expected 'id:value')")
+        else:
+            out.append((None, bare(key, part)))
+    return out
+
+
 def plan_from_env() -> Optional[FaultPlan]:
     """Build a plan from the ``FF_FAULT_*`` variables this module
     honours; None when none is set. The others warn."""
@@ -194,7 +251,7 @@ def plan_from_env() -> Optional[FaultPlan]:
         if k in _UNPORTED_ENV_KEYS:
             log_faults.warning(
                 "%s is set but its hook is not ported yet (ROADMAP queue "
-                "1 items 5, 7 and 9); it injects nothing here", k)
+                "1 items 5, 7 and 9.4); it injects nothing here", k)
         else:
             log_faults.warning("unknown fault variable %s ignored; known: "
                                "%s", k, list(_ENV_KEYS))
@@ -203,7 +260,9 @@ def plan_from_env() -> Optional[FaultPlan]:
     ioerrs = os.environ.get("FF_FAULT_IO_ERRORS", "")
     feedback_loss = os.environ.get("FF_FAULT_FEEDBACK_LOSS", "")
     budgets = {k: os.environ.get(k, "") for k in _ENV_BUDGETS}
-    if not any((nan, delay, ioerrs, feedback_loss, *budgets.values())):
+    shard = {k: os.environ.get(k, "") for k in _ENV_SHARD_KEYS}
+    if not any((nan, delay, ioerrs, feedback_loss, *budgets.values(),
+                *shard.values())):
         return None
     plan = FaultPlan()
     if nan:
@@ -224,6 +283,32 @@ def plan_from_env() -> Optional[FaultPlan]:
                 f"ffbin_read:2)")
         site, n = part.rsplit(":", 1)
         plan.io_errors[site.strip()] = _env_int("FF_FAULT_IO_ERRORS", n)
+    for sid, n in _env_pairs("FF_FAULT_SHARD_DOWN",
+                             shard["FF_FAULT_SHARD_DOWN"], _env_int,
+                             bare=_env_int):
+        if sid is None:                       # bare sid: dead for good
+            plan.shard_down[n] = -1
+        else:                                 # "sid:N": N failed lookups
+            plan.shard_down[sid] = n
+    for sid, secs in _env_pairs("FF_FAULT_LOOKUP_DELAY",
+                                shard["FF_FAULT_LOOKUP_DELAY"], _env_float,
+                                bare=_env_float):
+        if sid is None:                       # bare seconds: every shard
+            plan.lookup_delay_s = secs
+        else:                                 # "sid:secs": one shard
+            plan.lookup_delay_shard[sid] = secs
+    # strictly 'sid:n': a bare sid is ambiguous between "stale once" and
+    # "stale for good"
+    for sid, n in _env_pairs("FF_FAULT_INDEX_STALE",
+                             shard["FF_FAULT_INDEX_STALE"], _env_int):
+        plan.index_stale[sid] = n
+    for sid, n in _env_pairs("FF_FAULT_TOPK_DROP",
+                             shard["FF_FAULT_TOPK_DROP"], _env_int,
+                             bare=_env_int):
+        if sid is None:                       # bare sid: dropped for good
+            plan.topk_drop[n] = -1
+        else:                                 # "sid:N": N failed top-ks
+            plan.topk_drop[sid] = n
     if feedback_loss:
         plan.feedback_loss_p = _env_float("FF_FAULT_FEEDBACK_LOSS",
                                           feedback_loss)
@@ -476,3 +561,77 @@ def maybe_poison_reload(state: dict) -> dict:
                  for pn, v in p.items()}
             for op, p in out["params"].items()}
     return out
+
+
+def maybe_corrupt_cache(path: str) -> bool:
+    """Truncate a shard warm-cache entry as it is about to be read (a
+    torn write or bit rot): the read must reject it with its reason and
+    the replacement shard boot cold, never load garbage."""
+    plan = active()
+    if plan is None:
+        return False
+    with plan._lock:
+        if plan.corrupt_cache_entries <= 0:
+            return False
+        if not os.path.isfile(path):
+            return False    # nothing to corrupt yet; keep the budget
+        plan.corrupt_cache_entries -= 1
+        plan._record("cache_corrupt", path)
+    try:
+        with open(path, "r+b") as f:
+            f.truncate(plan.corrupt_cache_bytes)
+    except OSError:
+        return False
+    return True
+
+
+def _take_budget(table: str, hook: str,
+                 shard_id: Optional[int]) -> bool:
+    plan = active()
+    if plan is None or shard_id is None:
+        return False
+    with plan._lock:
+        left = getattr(plan, table).get(shard_id)
+        if left is None or left == 0:
+            return False
+        if left > 0:
+            getattr(plan, table)[shard_id] = left - 1
+        if (hook, shard_id) not in plan.fired:
+            plan._record(hook, shard_id)
+    return True
+
+
+def take_shard_down(shard_id: Optional[int]) -> bool:
+    """True while a serving embedding shard is scheduled dead: it raises
+    ``ShardDown`` from its lookup, top-k and probe, and the tier's
+    circuit breaker must absorb that (the ranker degrades to cache hits
+    plus default rows). ``-1`` = dead until the plan clears, ``N > 0`` =
+    the next N attempts fail, then the shard recovers."""
+    return _take_budget("shard_down", "shard_down", shard_id)
+
+
+def take_topk_drop(shard_id: Optional[int]) -> bool:
+    """True while a shard's retrieval surface is scheduled dead: its
+    ``topk`` raises ``ShardDown`` while lookups keep serving, and the
+    cascade must drop that shard's candidates, flagged."""
+    return _take_budget("topk_drop", "topk_drop", shard_id)
+
+
+def take_index_stale(shard_id: Optional[int]) -> bool:
+    """True when this top-k answer comes from the index block the last
+    publish displaced (consume-once per answer); the shard reports that
+    block's version, so the version vector tells the truth."""
+    return _take_budget("index_stale", "index_stale", shard_id)
+
+
+def maybe_lookup_delay(shard_id: Optional[int] = None) -> None:
+    """Sleep inside a shard lookup (every lookup while the plan is
+    active); a per-shard entry overrides the global delay."""
+    plan = active()
+    if plan is None:
+        return
+    secs = plan.lookup_delay_s
+    if shard_id is not None:
+        secs = plan.lookup_delay_shard.get(shard_id, secs)
+    if secs > 0:
+        time.sleep(secs)

@@ -84,6 +84,9 @@ class Deadline:
             return float("inf")
         return self.seconds - self.elapsed()
 
+    def expired(self) -> bool:
+        return self.seconds > 0 and self.remaining() <= 0
+
     def report(self, worker: str, waiting_for: str, detail: str = "",
                alive: bool = True) -> StallReport:
         """StallReport snapshot of this deadline's state."""

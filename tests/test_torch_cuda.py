@@ -1743,3 +1743,89 @@ def test_non_uniform_step_on_card_matches_cpu(cuda, mode, host):
     for op, p in cpu.host_params.items():
         np.testing.assert_allclose(gpu.host_params[op]["kernel"],
                                    p["kernel"], rtol=1e-5, atol=1e-7)
+
+
+def test_topk_on_a_rewritten_shard_block_matches_plain(cuda):
+    """The index riding a 4-shard ranker tier on the card: a publish
+    rewrites rows of every shard's block (``augment_delta`` through the
+    tier's routing), and each shard's top-k kernel on its rewritten block
+    is BITWISE its plain version on the same codes."""
+    from dlrm_flexflow_tpu_torch.serve import EmbeddingShardSet
+    dcfg = DLRMConfig(embedding_size=[5000] * 4, sparse_feature_size=16,
+                      mlp_bot=[13, 64, 16], mlp_top=[80, 32, 1])
+    m = pt.FFModel(pt.FFConfig(batch_size=64, device="cuda", seed=3,
+                               host_resident_tables=True,
+                               host_tables_async=False))
+    build_dlrm(m, dcfg)
+    m.compile(SGDOptimizer(lr=0.05), "mean_squared_error", ["mse"])
+    m.init_layers()
+    sset = EmbeddingShardSet.build(m, 4)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    idx = ShardedMIPSIndex.build(
+        sset, torch.randn(20_000, 32, device=cuda, generator=g))
+    try:
+        rng = np.random.RandomState(2)
+        ids = np.unique(rng.randint(0, 20_000, 3000))
+        payload = {"rows": {}, "full": {}}
+        idx.augment_delta(payload, ids,
+                          5 * rng.randn(ids.size, 32).astype(np.float32))
+        assert sset.apply_delta(payload, 8) == 4
+        users = torch.randn(64, 32, device=cuda, generator=g)
+        qc, qs = quantize_query(users)
+        for rep in sset.shards:
+            blk = rep.shard.blocks_copy()[0]["retrieve_index"]
+            lo, _ = rep.shard.owned_range("retrieve_index")
+            before = mips_topk.launches
+            got_s, got_i = mips_topk(qc, qs, blk.q, blk.scales, 100,
+                                     base=lo)
+            torch.cuda.synchronize()
+            assert mips_topk.launches == before + 1
+            want_s, want_i = mips_topk_reference(qc, qs, blk.q, blk.scales,
+                                                 100, base=lo)
+            assert torch.equal(got_i, want_i)
+            assert torch.equal(got_s.view(torch.int32),
+                               want_s.view(torch.int32))
+        r = idx.topk(users, 100, deadline_s=60.0)
+        s, i = idx.exact_scan(users, 100)
+        assert r.versions == {0: 8, 1: 8, 2: 8, 3: 8}
+        np.testing.assert_array_equal(r.ids, i)
+        np.testing.assert_array_equal(r.scores.view(np.uint32),
+                                      s.view(np.uint32))
+    finally:
+        sset.close()
+
+
+def test_sharded_engine_rows_match_plain(cuda):
+    """An engine on a 4-shard tier with the row cache, on the card: the
+    rows it gathers through the tier and copies in are BITWISE the host
+    gather's, and its scores BITWISE the model's direct forward (the same
+    kernels at the same shapes)."""
+    from dlrm_flexflow_tpu_torch.serve import EmbeddingShardSet
+    dcfg = DLRMConfig(embedding_size=[1396, 550, 24681, 687, 20, 15],
+                      sparse_feature_size=16, mlp_bot=[13, 64, 16],
+                      mlp_top=[37, 32, 1], arch_interaction_op="dot")
+    m = pt.FFModel(pt.FFConfig(batch_size=64, device="cuda", seed=3,
+                               host_resident_tables=True,
+                               host_tables_async=False))
+    build_dlrm(m, dcfg)
+    m.compile(SGDOptimizer(lr=0.05), "mean_squared_error", ["mse"])
+    m.init_layers()
+    x, _ = synthetic_batch(dcfg, 32, seed=6)
+    direct = m.forward_bucket(x, bucket=32).cpu().numpy()
+    sset = EmbeddingShardSet.build(m, 4)
+    eng = InferenceEngine(m, ServeConfig(max_batch=32, cache_rows=64),
+                          shard_set=sset).start()
+    try:
+        (op,) = m._host_resident_list
+        host_idx = {op.name: np.asarray(x["sparse"])}
+        plain = m._host_emb_forward(host_idx)[op.name]
+        got = eng._shard_gather()(host_idx)[op.name]
+        assert got.device.type == "cuda"
+        assert torch.equal(got, plain)
+        for _ in range(2):          # misses, then cache hits
+            p = eng.predict(x)
+            np.testing.assert_array_equal(p.scores, direct)
+            assert p.versions == {0: 0, 1: 0, 2: 0, 3: 0}
+    finally:
+        eng.close()
+        sset.close()

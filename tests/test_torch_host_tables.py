@@ -630,7 +630,7 @@ def test_swap_params_installs_host_tables():
     assert pm.host_params is new
 
 
-def test_host_tables_refuse_what_jax_refuses():
+def test_host_tables_refuse_what_jax_refuses(tmp_path):
     from dlrm_flexflow_tpu_torch.core.optimizers import Optimizer
 
     class Exotic(Optimizer):
@@ -651,9 +651,12 @@ def test_host_tables_refuse_what_jax_refuses():
     with pytest.raises(ValueError, match="must consume a model input"):
         per_table.compile(SGDOptimizer(lr=0.1), "mean_squared_error",
                           ["mse"])
+    # a DeltaPublisher over host tables is ported: its tracker takes the
+    # host table's touched rows as candidates
     from dlrm_flexflow_tpu_torch.utils.delta import DeltaPublisher
-    with pytest.raises(NotImplementedError, match="items 9.2 and 9.3"):
-        DeltaPublisher(_port(arch), "unused-dir")
+    pub = DeltaPublisher(_port(arch), str(tmp_path))
+    assert [key for _, _, key, _ in pub.tracker._tracked] == [
+        "hostparams/emb_concat/kernel"]
 
 
 def test_the_host_tables_flags_parse():

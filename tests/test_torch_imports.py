@@ -52,6 +52,8 @@ def test_import_leaves_jax_out():
             "import dlrm_flexflow_tpu_torch.quant\n"
             "import dlrm_flexflow_tpu_torch.retrieve\n"
             "import dlrm_flexflow_tpu_torch.serve.shardtier\n"
+            "import dlrm_flexflow_tpu_torch.serve.cache\n"
+            "import dlrm_flexflow_tpu_torch.utils.warmcache\n"
             "import dlrm_flexflow_tpu_torch.models.nmt\n"
             "import dlrm_flexflow_tpu_torch.ops.rnn\n"
             "import dlrm_flexflow_tpu_torch.ops.elementwise\n"

@@ -302,9 +302,11 @@ def test_flags_parse_like_jax():
     assert (sc.max_batch, sc.queue_capacity, sc.continuous) == (128, 9,
                                                                  False)
     assert cfg.unparsed == ["--not-a-flag"]
-    with pytest.raises(NotImplementedError, match="cache"):
-        ServeConfig.from_config(pt.FFConfig.parse_args(
-            ["--device", "cpu", "--serve-cache-rows", "8"]))
+    # the row cache is ported: its flags reach the engine's config
+    sc = ServeConfig.from_config(pt.FFConfig.parse_args(
+        ["--device", "cpu", "--serve-cache-rows", "8",
+         "--serve-cache-warm", "hist.npz"]))
+    assert (sc.cache_rows, sc.cache_warm) == (8, "hist.npz")
     argv = ["--arch-embedding-size", "5-6", "--arch-mlp-top", "12-4-1",
             "--arch-interaction-op", "dot", "--zipf-alpha", "1.1"]
     assert (vars(DLRMConfig.parse_args(argv))

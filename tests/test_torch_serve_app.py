@@ -212,25 +212,68 @@ def test_retrieve_on_answers_candidates():
         srv.close()
 
 
+# the shard tier, its degradation knobs and the row cache are ported:
+# their cases (item None) keep their IDs and now check that the app
+# serves with the flag; shard processes and tcp moved to item 9.4
 @pytest.mark.parametrize("flags,item", [
-    (["--serve-replicas", "2"], "item 9.4"),
-    (["--serve-slo-ms", "20"], "item 9.4"),
-    (["--serve-min-replicas", "1"], "item 9.4"),
-    (["--serve-max-replicas", "4"], "item 9.4"),
-    (["--serve-hedge-ms", "5"], "item 9.4"),
-    (["--serve-canary-fraction", "0.2"], "item 9.4"),
-    (["--serve-shards", "2"], "item 9.3"),
-    (["--serve-shard-procs", "2"], "item 9.3"),
-    (["--serve-transport", "tcp"], "item 9.3"),
-    (["--serve-degrade", "fail"], "item 9.3"),
-    (["--serve-lookup-deadline-ms", "9"], "item 9.3"),
-    (["--serve-cache-rows", "64"], "item 9.2"),
-    (["--serve-cache-warm", "x.npz"], "item 9.2"),
-    (["--compile-cache-dir", "x"], "item 9.5"),
+    pytest.param(["--serve-replicas", "2"], "item 9.4",
+                 id="flags0-item 9.4"),
+    pytest.param(["--serve-slo-ms", "20"], "item 9.4", id="flags1-item 9.4"),
+    pytest.param(["--serve-min-replicas", "1"], "item 9.4",
+                 id="flags2-item 9.4"),
+    pytest.param(["--serve-max-replicas", "4"], "item 9.4",
+                 id="flags3-item 9.4"),
+    pytest.param(["--serve-hedge-ms", "5"], None, id="flags4-item 9.4"),
+    pytest.param(["--serve-canary-fraction", "0.2"], "item 9.4",
+                 id="flags5-item 9.4"),
+    pytest.param(["--serve-shards", "2"], None, id="flags6-item 9.3"),
+    pytest.param(["--serve-shard-procs", "2"], "item 9.4",
+                 id="flags7-item 9.3"),
+    pytest.param(["--serve-transport", "tcp"], "item 9.4",
+                 id="flags8-item 9.3"),
+    pytest.param(["--serve-degrade", "fail"], None, id="flags9-item 9.3"),
+    pytest.param(["--serve-lookup-deadline-ms", "9"], None,
+                 id="flags10-item 9.3"),
+    pytest.param(["--serve-cache-rows", "64"], None, id="flags11-item 9.2"),
+    pytest.param(["--serve-cache-warm", "x.npz"], None,
+                 id="flags12-item 9.2"),
+    pytest.param(["--compile-cache-dir", "x"], "item 9.5",
+                 id="flags13-item 9.5"),
 ])
 def test_unported_deployments_raise_with_their_item(flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        serve_dlrm.App(BASE + flags)
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            serve_dlrm.App(BASE + flags)
+        return
+    # ported: a host-table app on a 2-shard tier with a row cache takes
+    # the flag, and its /predict answers the tier's version vector
+    extra = ["--host-tables", "--serve-shards", "2",
+             "--serve-cache-rows", "16"]
+    srv = _Running(BASE + extra + flags)
+    try:
+        cfg = srv.app.engine.model.config
+        want = {"--serve-hedge-ms": ("serve_hedge_ms", 5.0),
+                "--serve-degrade": ("serve_degrade", "fail"),
+                "--serve-lookup-deadline-ms":
+                    ("serve_lookup_deadline_ms", 9.0),
+                "--serve-cache-warm": ("serve_cache_warm", "x.npz")
+                }.get(flags[0])
+        if want is not None:
+            assert getattr(cfg, want[0]) == want[1]
+        tcfg = srv.app.shard_set.config
+        assert (tcfg.nshards, tcfg.hedge_ms, tcfg.degrade,
+                tcfg.lookup_deadline_ms) == (
+            2, cfg.serve_hedge_ms, cfg.serve_degrade,
+            cfg.serve_lookup_deadline_ms)
+        _x, body = _request(2)
+        code, text = srv.post("/predict", body)
+        out = json.loads(text)
+        assert code == 200 and out["versions"] == {"0": 0, "1": 0}
+        assert out["degraded"] is False
+        assert srv.app.engine.stats()["embedding_cache"]["capacity"] == (
+            64 if flags[0] == "--serve-cache-rows" else 16)
+    finally:
+        srv.close()
 
 
 def test_retrieve_shards_without_retrieve_is_refused():
