@@ -302,6 +302,36 @@ Phases:
    the bag on the towers' tables, 32 users counted (top-k and bag); the
    app with ``--retrieve on --serve-shards 4``. ``python3 chip_smoke.py
    --shard-tier`` runs only this phase (the kernels built first).
+12. fleet — serving across processes. (a) Shard processes over TCP,
+   riding phase 11's loop: a ranker seeds the shard warm cache, 4
+   ``serve.shard_server`` processes boot from it (none holds a CUDA
+   context), an engine on the card reaches them through
+   ``EmbeddingShardSet.connect`` and the app runs with
+   ``--serve-transport tcp --serve-shard-procs 4 --compile-cache-dir``;
+   at every version every process's block is bitwise the trainer's
+   (read back over the wire), the engine bitwise the trainer, the app
+   within 1e-5, the torn delta rejected by both. After the loop 64
+   requests of 64 rows, each alone bitwise the in-process tier, timed
+   from 4 threads through both; a shard process killed with SIGKILL
+   under traffic (degraded, 0 failed, the slot replaced from the warm
+   cache); ``FF_FAULT_NET_DROP``, ``DUP``, ``SLOW`` (this process) and
+   ``REORDER`` (the shard processes) on the lookup seam, every answer
+   bitwise. (b) Kaggle with device tables, 3 replicas behind a
+   ``FleetRouter``: each request alone bitwise one engine, counted from
+   4 threads (``embedding_bag`` once a dispatched batch, no plain
+   version), the hedge, ``FF_FAULT_REPLICA_DOWN`` (0 failed, ejected,
+   re-admitted), ``--retrieve on``'s cascade in front of the fleet
+   bitwise the cascade in front of one engine (counted: ``mips_topk``
+   once a user), shadow traffic never reaching a client, a poisoned
+   canary rolled back and a good one promoted, the autoscaler growing 1
+   to 2 replicas under a forced SLO breach and shrinking back when idle.
+   (c) Two ranker processes (``chip_smoke.py --ranker-child``: the
+   Kaggle ranker behind ``InferenceEngine.serve_forever()``) behind
+   ``Fleet.connect`` and a router: bitwise (b)'s engine, one killed with
+   SIGKILL under traffic, 0 failed. Requests/s and client p50/p99, each
+   seam's RTT floor, eject and re-admit seconds and the autoscaler's
+   grow time print, with a ``{"fleet": ...}`` line. ``python3
+   chip_smoke.py --fleet`` runs phase 11's loop and phase 12 only.
 
 The last two lines are a JSON object with every kernel's numbers and
 ``{"ok": true, "device": {...}}``. Without a GPU, or when any check
@@ -317,6 +347,7 @@ at the root of another tree of the port times that tree's kernels.
 """
 
 import contextlib
+import gc
 import json
 import shutil
 import subprocess
@@ -485,6 +516,34 @@ TIER_OUTAGE_POOL = 48
 TIER_CASCADE = 32
 TIER_DEADLINE_MS = 500.0
 TIER_DEV = "cuda"
+# serving across processes (phase 12): FLEET_SHARDS shard processes,
+# FLEET_REPLICAS in-process replicas, RANKER_CHILDREN ranker processes;
+# FLEET_POOL requests of TIER_REQ_ROWS rows from FLEET_CLIENTS threads;
+# the lookup tier's re-lookups; the network drill's drop probability,
+# duplicated frames, ms a frame and frames held a process, over
+# FLEET_DRILL requests a fault; the hedge's delay; the failed attempts
+# FF_FAULT_REPLICA_DOWN gives replica 1; FLEET_CASCADE users; an SLO
+# every request misses
+FLEET_SHARDS = 4
+FLEET_REPLICAS = 3
+RANKER_CHILDREN = 2
+FLEET_POOL = 64
+FLEET_CLIENTS = 4
+FLEET_RETRIES = 3
+FLEET_DROP = 0.2
+FLEET_DUP = 8
+FLEET_SLOW_MS = 2.0
+FLEET_REORDER = 8
+FLEET_DRILL = 16
+FLEET_HEDGE_MS = 20.0
+FLEET_DOWN_BUDGET = 6
+FLEET_CASCADE = 16
+FLEET_SLO_MS = 0.001
+# the canary's score-divergence tolerance: a canary of the snapshot
+# poisoned by FF_FAULT_POISON_RELOAD saturates Criteo-Kaggle's scores to
+# 0 or 1 (their mean 0.5625 against 0.5005 on the CPU, 64 requests),
+# one SGD step moves the mean by about 1e-3
+FLEET_SCORE_TOL = 0.02
 # the checkout's root, where the serving app runs as a module
 REPO = Path(__file__).resolve().parent
 # where the launch phase writes its .ffbin and checkpoints: the build
@@ -2910,7 +2969,7 @@ class AppProcess:
             [sys.executable, "-m",
              "dlrm_flexflow_tpu_torch.examples.native.serve_dlrm", *argv],
             cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=self._err,
-            text=True)
+            text=True, start_new_session=True)
         self._lines = queue.Queue()
         threading.Thread(target=lambda: [self._lines.put(ln) for ln in
                                          self.proc.stdout],
@@ -2927,7 +2986,7 @@ class AppProcess:
         except queue.Empty:
             line = ""
         if not line.startswith("serving DLRM on http://"):
-            self.proc.kill()
+            self.kill()
             tail = Path(self.log).read_text()[-3000:]
             raise SmokeFailure(f"the serving app did not start (exit "
                                f"{self.proc.poll()}): {line!r}\n{tail}")
@@ -2953,6 +3012,17 @@ class AppProcess:
         except ValueError:
             return code, text
 
+    def kill(self):
+        """SIGKILL to the app and everything it started (its shard
+        processes share its process group)."""
+        import os
+        import signal
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        self.proc.wait(30)
+
     def stop(self, timeout=120):
         """SIGTERM, then the exit code (must be 0)."""
         import signal
@@ -2961,7 +3031,7 @@ class AppProcess:
         try:
             rc = self.proc.wait(timeout)
         except subprocess.TimeoutExpired:
-            self.proc.kill()
+            self.kill()
             rc = self.proc.wait(30)
         finally:
             self._err.close()
@@ -3253,9 +3323,7 @@ def loop_phase(work):
         os.environ.pop("FF_FAULT_DELTA_TORN", None)
         faults.clear()
         for app in apps:
-            if app.proc.poll() is None:
-                app.proc.kill()
-                app.proc.wait(30)
+            app.kill()
 
 
 def app_phase(work):
@@ -4243,6 +4311,10 @@ def terabyte_runs():
           "criteo-terabyte: the host scatter changed untouched rows or "
           "no touched row")
     del model, kernel, dbs
+    # a model's ops and closures form cycles: its 88 GB of host tables go
+    # back only when the cycle collector runs, which phase 11's own
+    # models and processes must not wait on
+    gc.collect()
     torch.cuda.empty_cache()
     return total
 
@@ -4337,7 +4409,7 @@ def check_tier_blocks(sset, model, what):
               f"bitwise the trainer's")
 
 
-def _tier_loop(work, apps):
+def _tier_loop(work, apps, fleet=None):
     """(1) Freshness: a Criteo-Kaggle trainer (host tables, batch TIER_B)
     runs ``fit_stream`` with a ``DeltaPublisher`` (a publish every
     TIER_EVERY steps: a full base, deltas, the last one torn by
@@ -4349,8 +4421,10 @@ def _tier_loop(work, apps):
     slot; the engine's scores BITWISE the trainer's, the app's within
     1e-5; the version vectors of both never go back; the torn delta is
     rejected with its reason. Counts at 0 just before the loop, read just
-    after. Returns (trainer, dcfg, checkpoint directory, launches,
-    freshness rows)."""
+    after. With ``fleet`` (phase 12's figures) the loop also drives phase
+    12 (a)'s readers over shard processes (``TcpReaders``, checked at
+    every publish by ``tcp_follow``), then ``tcp_after_loop``. Returns
+    (trainer, dcfg, checkpoint directory, launches)."""
     import os
     from dlrm_flexflow_tpu_torch.data.stream import ArrayStream
     from dlrm_flexflow_tpu_torch.utils import faults
@@ -4399,7 +4473,10 @@ def _tier_loop(work, apps):
     pub.publish = timed_publish
     engine = InferenceEngine(server, ServeConfig(max_batch=256, poll_s=0.05),
                              checkpoint_dir=str(ckdir), shard_set=sset)
+    tcp = None if fleet is None else TcpReaders(work, dcfg, ckdir, apps)
     t_ready = app.wait_ready()
+    if tcp is not None:
+        t_tcp_ready = tcp.app.wait_ready()
     clients = Clients(app, q_body)
     rows, rejects, app_exact, vectors = [], {}, [], {"engine": [], "app": []}
 
@@ -4415,6 +4492,10 @@ def _tier_loop(work, apps):
         if k == torn_step - 1:
             rejects["engine"] = engine.stats()["reload_rejects"]
             rejects["app"] = app_stats()["reload_rejects"]
+            if tcp is not None:
+                rejects["tcp_engine"] = tcp.engine.stats()["reload_rejects"]
+                rejects["tcp_app"] = tcp.app.call("/stats")[1][
+                    "reload_rejects"]
             os.environ["FF_FAULT_DELTA_TORN"] = "1"
             faults.install(faults.plan_from_env())
         if k % TIER_EVERY:
@@ -4443,6 +4524,10 @@ def _tier_loop(work, apps):
         n, dt = clients.stop()
         rows.append((split["kind"] if not torn else "torn", k, t1 - t_pub,
                      t_eng - t_pub, t_app - t_pub, n, dt, split))
+        if tcp is not None:
+            want = (None if torn else
+                    trainer.forward_bucket(q, TIER_REQ_ROWS).cpu().numpy())
+            tcp_follow(tcp, k, torn, trainer, q, q_body, want, rejects)
         if torn:
             for who, s in (("engine", engine.stats()), ("app", app_stats())):
                 check("fails its CRC-32" in s["last_reload_reject"]
@@ -4474,17 +4559,47 @@ def _tier_loop(work, apps):
         vectors["app"].append({int(s): v for s, v in out["versions"].items()})
         app_exact.append(bool(np.array_equal(agot, want.reshape(-1))))
 
+    engine.start()
+    if tcp is not None:
+        tcp.engine.start()
     zero_counts()
     with PlainCalls() as plain:
-        with engine:
-            t0 = time.perf_counter()
-            out = trainer.fit_stream(ArrayStream(x, y, TIER_B, seed=1),
-                                     steps=TIER_STEPS, publisher=pub,
-                                     publish_every=TIER_EVERY,
-                                     callbacks=[on_step], verbose=False)
-            wall = time.perf_counter() - t0
-            est = engine.stats()
+        t0 = time.perf_counter()
+        out = trainer.fit_stream(ArrayStream(x, y, TIER_B, seed=1),
+                                 steps=TIER_STEPS, publisher=pub,
+                                 publish_every=TIER_EVERY,
+                                 callbacks=[on_step], verbose=False)
+        wall = time.perf_counter() - t0
+        est = engine.stats()
     launches = read_counts()
+    if tcp is not None:
+        try:
+            tst = tcp.engine.stats()
+            check(tst["reload_rejects"] == 1
+                  and tst["degraded_responses"] == 0
+                  and tst["version"] == TIER_STEPS,
+                  f"fleet: the engine over shard processes: {tst}")
+            ast = tcp.app.call("/stats")[1]
+            check(ast["version"] == TIER_STEPS and ast["reload_rejects"] == 1
+                  and ast["degraded_responses"] == 0
+                  and all(s.get("remote") for s in
+                          ast["shard_set"]["shards"].values()),
+                  f"fleet: the tcp app's stats {str(ast)[:400]}")
+            rc = tcp.app.stop()
+            check(rc == 0, f"fleet: the tcp app exited {rc}: "
+                  f"{Path(tcp.app.log).read_text()[-2000:]}")
+            print(f"fleet: (a) the warm cache seeded in {tcp.seed_s:.1f} s, "
+                  f"{FLEET_SHARDS} shard processes booted in "
+                  f"{tcp.boot_s:.1f} s (no CUDA context); the tcp app ready "
+                  f"{t_tcp_ready:.1f} s after its start; at every version "
+                  f"every shard process's block bitwise the trainer's, the "
+                  f"engine over them bitwise the trainer, the tcp app "
+                  f"{'bitwise' if all(tcp.exact) else 'within 1e-5'} at "
+                  f"{len(tcp.exact)} versions; the torn delta rejected by "
+                  f"both")
+        except BaseException:
+            tcp.close()
+            raise
     check(not clients.errors, f"tier: /predict failed: {clients.errors[:3]}")
     kinds = [r[0] for r in rows]
     check(out["steps"] == TIER_STEPS and kinds == ["full"] + ["delta"] * (
@@ -4507,6 +4622,13 @@ def _tier_loop(work, apps):
     check(rc == 0, f"tier: the app exited {rc}: "
           f"{Path(app.log).read_text()[-2000:]}")
     check_tier_blocks(sset, trainer, "the last version")
+    if tcp is not None:
+        # phase 12 (a) after the loop, the phase 11 app stopped
+        try:
+            tcp_after_loop(tcp, trainer, dcfg, engine, fleet)
+        finally:
+            tcp.close()
+    engine.close()
     sset.close()
     for kind, k, pub_s, eng_s, app_s, n, dt, split in rows:
         extra = "" if kind == "torn" else (
@@ -4994,18 +5116,24 @@ def tier_app_cascade(dcfg, work):
           f"version vector {out['versions']}; exit 0")
 
 
-def shard_tier_phase():
+def shard_tier_phase(fleet=None, loop_only=False):
     """Phase 11, parts (1)-(4) in run order, in WORK_DIR (removed at the end whatever
-    happens). Returns the launch counts of its main paths: the loop's
-    trainer and the cascade."""
+    happens); with ``fleet`` (phase 12's figures) the loop also drives
+    phase 12 (a); ``loop_only`` stops after the loop. Returns the launch
+    counts of its main paths: the loop's trainer and the cascade."""
     import os
     from dlrm_flexflow_tpu_torch.utils import faults
     shutil.rmtree(WORK_DIR, ignore_errors=True)
     WORK_DIR.mkdir(parents=True)
     apps = []
+    gc.collect()
+    print(f"shard tier phase: host memory at its start: "
+          f"{host_headroom()[1]}")
     t0 = time.perf_counter()
     try:
-        trainer, dcfg, ckdir, counts = _tier_loop(WORK_DIR, apps)
+        trainer, dcfg, ckdir, counts = _tier_loop(WORK_DIR, apps, fleet)
+        if loop_only:
+            return counts
         sset, eng, _pool, _ref = tier_read_paths(trainer, dcfg, ckdir,
                                                  WORK_DIR)
         try:
@@ -5021,14 +5149,1010 @@ def shard_tier_phase():
         os.environ.pop("FF_FAULT_DELTA_TORN", None)
         faults.clear()
         for app in apps:
-            if app.proc.poll() is None:
-                app.proc.kill()
-                app.proc.wait(30)
+            app.kill()
         shutil.rmtree(WORK_DIR, ignore_errors=True)
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------
+# phase 12: serving across processes (the wire, shard processes, the
+# replica fleet with its router and autoscaler, ranker processes)
+# ---------------------------------------------------------------------
+def fleet_tier_config():
+    """The tcp tier's knobs: the app's deadline of phase 11, and retries
+    enough that a dropped frame costs a retry, never an answer (each
+    WireClient retries too: a drop of p = FLEET_DROP loses a lookup with
+    p^((1 + FLEET_RETRIES)^2))."""
+    return ShardTierConfig(nshards=FLEET_SHARDS,
+                           lookup_deadline_ms=TIER_DEADLINE_MS,
+                           retries=FLEET_RETRIES, cooldown_s=0.2,
+                           replace_after=2)
+
+
+def cuda_pids():
+    """The pids that hold a CUDA context on the card (nvidia-smi)."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout
+    return {int(p) for p in out.split() if p.strip().isdigit()}
+
+
+class TcpReaders:
+    """Phase 12 (a)'s publish followers, driven by phase 11's loop: a
+    ranker (the loop's server model's seed) seeds the shard warm cache,
+    FLEET_SHARDS ``serve.shard_server`` processes boot from it (all
+    started at once), the engine on the card reaches them through
+    ``EmbeddingShardSet.connect`` and follows the trainer's publishes
+    (full ones travel as block installs over the wire, deltas as
+    per-shard slices), and the app runs with ``--serve-transport tcp
+    --serve-shard-procs FLEET_SHARDS --compile-cache-dir``."""
+
+    def __init__(self, work, dcfg, ckdir, apps):
+        from dlrm_flexflow_tpu_torch.examples.native.serve_dlrm import \
+            ShardProcs
+        self.cache = work / "fleet_cache"
+        self.procs = ShardProcs()
+        self.ranker, _ = tier_model(256, SEED + 1)
+        t0 = time.perf_counter()
+        EmbeddingShardSet.seed_shard_cache(self.ranker, FLEET_SHARDS,
+                                           str(self.cache))
+        t1 = time.perf_counter()
+        addrs = self.procs.spawn(str(self.cache), FLEET_SHARDS)
+        t2 = time.perf_counter()
+        self.sset = EmbeddingShardSet.connect(addrs,
+                                              config=fleet_tier_config(),
+                                              cache_dir=str(self.cache))
+        EmbeddingShardSet.release_ranker_tables(self.ranker)
+        self.engine = InferenceEngine(
+            self.ranker, ServeConfig(max_batch=256, poll_s=0.05),
+            checkpoint_dir=str(ckdir), shard_set=self.sset)
+        self.app = AppProcess(app_flags(dcfg, [
+            "-b", "256", "--seed", str(SEED + 2), "--host-tables",
+            "--serve-transport", "tcp",
+            "--serve-shard-procs", str(FLEET_SHARDS),
+            "--serve-lookup-deadline-ms", str(TIER_DEADLINE_MS),
+            "--compile-cache-dir", str(work / "fleet_app_cache"),
+            "--checkpoint-dir", str(ckdir), "--serve-poll", "0.05",
+            "--serve-max-batch", "256"]), work / "fleet_app.log")
+        apps.append(self.app)
+        self.seed_s, self.boot_s = t1 - t0, t2 - t1
+        held = cuda_pids() & {p.pid for p in self.procs.procs}
+        check(not held, f"fleet: shard processes {sorted(held)} hold a "
+              f"CUDA context")
+        self.exact = []
+
+    def close(self):
+        try:
+            self.engine.close()
+            self.sset.close()
+        finally:
+            self.procs.stop()
+
+
+def check_remote_blocks(sset, model, what, chunk=1 << 20):
+    """Every shard process's block BITWISE the model's rows it owns, read
+    back over the wire in chunks of ``chunk`` rows, the slots at once."""
+    from concurrent.futures import ThreadPoolExecutor
+    from dlrm_flexflow_tpu_torch.serve import wire
+    name, flat = tier_flat(model)
+
+    def slot(rep):
+        lo, hi = sset._ranges[name][rep.slot]
+        for a in range(lo, hi, chunk):
+            ids = np.arange(a, min(a + chunk, hi), dtype=np.int64)
+            _op, data = rep.shard.transport.request(
+                wire.OP_LOOKUP, wire.encode_lookup_request({name: ids}),
+                deadline_s=120)
+            out, _ver = wire.decode_lookup_response(data)
+            if not np.array_equal(out[name], flat[a:a + ids.size]):
+                return a
+        return None
+
+    with ThreadPoolExecutor(len(sset.shards)) as ex:
+        bad = list(ex.map(slot, sset.shards))
+    check(all(b is None for b in bad), f"fleet: {what}: shard process "
+          f"rows differ from the trainer's at {bad}")
+
+
+def tcp_follow(tcp, k, torn, trainer, q, q_body, want, rejects):
+    """At one publish of phase 11's loop: the tcp readers reach version
+    ``k`` (or reject the torn delta with its reason), every shard
+    process's block is the trainer's, the engine's scores are BITWISE the
+    trainer's, the app's within 1e-5."""
+    def app_stats():
+        return tcp.app.call("/stats")[1]
+
+    if torn:
+        wait_for(lambda: tcp.engine.stats()["reload_rejects"]
+                 > rejects["tcp_engine"], "the tcp engine's reject")
+        wait_for(lambda: app_stats()["reload_rejects"] > rejects["tcp_app"],
+                 "the tcp app's reject")
+        for who, s in (("tcp engine", tcp.engine.stats()),
+                       ("tcp app", app_stats())):
+            check("fails its CRC-32" in s["last_reload_reject"]
+                  and s["version"] == k - TIER_EVERY,
+                  f"fleet: the {who} did not reject the torn delta with "
+                  f"its reason: {s['last_reload_reject']!r}")
+        check(tcp.sset.version_vector() == {s: k - TIER_EVERY
+                                            for s in range(FLEET_SHARDS)},
+              f"fleet: the shard processes moved on a torn delta: "
+              f"{tcp.sset.version_vector()}")
+        return
+    wait_for(lambda: tcp.engine.version == k and tcp.sset.min_version() == k,
+             f"the tcp tier at version {k}")
+    wait_for(lambda: app_stats()["version"] == k, f"the tcp app at {k}")
+    check_remote_blocks(tcp.sset, trainer, f"version {k}")
+    got = tcp.engine.predict(q, timeout=120)
+    check(got.version == k and not got.degraded
+          and at_version(got.versions, k)
+          and np.array_equal(got.scores, want),
+          f"fleet: the engine over shard processes at version {k} is not "
+          f"bitwise the trainer (versions {got.versions})")
+    code, out = tcp.app.call("/predict", q_body)
+    agot = np.asarray(out["scores"], np.float32) if code == 200 else None
+    check(code == 200 and out["version"] == k and not out["degraded"]
+          and at_version(out["versions"], k)
+          and np.allclose(agot, want.reshape(-1), rtol=1e-5, atol=1e-6),
+          f"fleet: the tcp app at version {k} answered {code} "
+          f"{str(out)[:300]}")
+    tcp.exact.append(bool(np.array_equal(agot, want.reshape(-1))))
+
+
+def client_pool(fn, pool, passes=2, clients=FLEET_CLIENTS):
+    """``passes`` passes of ``pool`` from ``clients`` threads through
+    ``fn`` (a predict); returns (answers by request, requests/s, sorted
+    client-observed latencies in ms, errors)."""
+    answers, lat, errors = {}, [], []
+    lock = threading.Lock()
+
+    def run(c):
+        for i in range(c, len(pool), clients):
+            t = time.perf_counter()
+            try:
+                p = fn(pool[i])
+            except Exception as e:   # noqa: BLE001 — reported by callers
+                errors.append(repr(e))
+                return
+            with lock:
+                lat.append(1e3 * (time.perf_counter() - t))
+                answers.setdefault(i, []).append(p)
+
+    t0 = time.perf_counter()
+    for _ in range(passes):
+        threads = [threading.Thread(target=run, args=(c,))
+                   for c in range(clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+    wall = time.perf_counter() - t0
+    return answers, passes * len(pool) / wall, sorted(lat), errors
+
+
+def rate_line(what, rate, lat):
+    return (f"{what}: {rate:.1f} req/s, client p50 "
+            f"{percentile(lat, 50):.3f} ms, p99 {percentile(lat, 99):.3f} ms")
+
+
+def within(answers, alone, what):
+    """Every answer of a shared batch within 1e-5 of its request alone."""
+    for i, ps in answers.items():
+        for p in ps:
+            check(not getattr(p, "degraded", False)
+                  and np.allclose(p.scores, alone[i], rtol=1e-5, atol=1e-6),
+                  f"fleet: {what}: request {i} in a shared batch is not "
+                  f"within 1e-5 of its answer alone")
+
+
+def tcp_after_loop(tcp, trainer, dcfg, engine, figures):
+    """Phase 12 (a) after phase 11's loop, everything at its last
+    version: FLEET_POOL requests of TIER_REQ_ROWS rows, each alone
+    BITWISE through the shard processes and through phase 11's
+    in-process tier, then timed from FLEET_CLIENTS threads through both;
+    a shard process ``kill -9``ed under traffic (degraded, 0 failed,
+    the slot replaced from the warm cache and re-admitted); and, on a
+    fresh set of shard processes, FF_FAULT_NET_DROP, DUP and SLOW in
+    this process and FF_FAULT_NET_REORDER in the shard processes on the
+    lookup seam, each answer BITWISE the trainer's."""
+    import signal
+    from dlrm_flexflow_tpu_torch.serve import transport as tp
+    from dlrm_flexflow_tpu_torch.utils import faults
+    t_start = time.perf_counter()
+    # nothing is published any more: the watchers stop (each poll reads
+    # the newest full snapshot's 0.73 GB for its checksum, which would
+    # share the host with the timed windows)
+    for eng in (engine, tcp.engine):
+        if eng._watcher is not None:
+            eng._watcher.stop()
+    pool = [synthetic_batch(dcfg, TIER_REQ_ROWS, seed=SEED + 500 + i)[0]
+            for i in range(FLEET_POOL)]
+    alone = {}
+    for i, feats in enumerate(pool):
+        a = tcp.engine.predict(feats, timeout=120)
+        b = engine.predict(feats, timeout=120)
+        check(not a.degraded and a.versions == b.versions
+              and np.array_equal(a.scores, b.scores),
+              f"fleet: request {i} over the shard processes is not bitwise "
+              f"the in-process tier's")
+        alone[i] = b.scores
+    for what, eng in (("in-process tier", engine),
+                      ("shard processes", tcp.engine)):
+        ans, rate, lat, errors = client_pool(
+            lambda f, e=eng: e.predict(f, timeout=120), pool)
+        check(not errors, f"fleet: {what}: requests failed: {errors[:3]}")
+        within(ans, alone, what)
+        figures[what] = (rate, lat)
+        print("fleet: " + rate_line(f"{FLEET_POOL} requests of "
+                                    f"{TIER_REQ_ROWS} rows x 2 from "
+                                    f"{FLEET_CLIENTS} threads, {what}",
+                                    rate, lat))
+    figures["lookup rtt floor"] = tp.measured_rtt_floor("lookup")
+    # kill -9 of slot 1's process under traffic
+    sset = tcp.sset
+    got, errors = [], []
+    stop = threading.Event()
+
+    def client(c):
+        k = c
+        while not stop.is_set():
+            try:
+                got.append((time.perf_counter(),
+                            tcp.engine.predict(pool[k % len(pool)],
+                                               timeout=120)))
+            except Exception as e:   # noqa: BLE001 — reported below
+                errors.append(repr(e))
+                return
+            k += FLEET_CLIENTS
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(FLEET_CLIENTS)]
+    for t in threads:
+        t.start()
+    try:
+        wait_for(lambda: len(got) >= 2 * FLEET_CLIENTS, "traffic", 120)
+        sset.start_health(0.05)
+        victim = tcp.procs.procs[1]
+        t_kill = time.perf_counter()
+        victim.send_signal(signal.SIGKILL)
+        victim.wait(60)
+        wait_for(lambda: sset.shards[1].state == "ejected",
+                 "the dead shard's ejection", 120)
+        t_ej = time.perf_counter()
+        wait_for(lambda: all(r.state == "healthy" for r in sset.shards),
+                 "the replaced slot's admission", 120)
+        t_back = time.perf_counter()
+        n_back = len(got)
+        wait_for(lambda: len(got) >= n_back + 4 * FLEET_CLIENTS,
+                 "answers after the recovery", 120)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(120)
+        sset.stop_health()
+    check(not errors, f"fleet: requests failed while a shard process was "
+          f"dead: {errors[:3]}")
+    deg = [p for _, p in got if p.degraded]
+    late = [p for _, p in got[n_back + 2 * FLEET_CLIENTS:]]
+    check(deg and all(1 not in p.versions for p in deg)
+          and not any(p.degraded for p in late),
+          f"fleet: {len(deg)} degraded answers under the kill, "
+          f"{sum(p.degraded for p in late)} after the recovery")
+    slot1 = next(r for r in sset.shards if r.slot == 1)
+    check(sset.replacements == 1 and not getattr(slot1.shard, "remote",
+                                                  False)
+          and sset.stats()["shard_cache"]["hits"] >= 1,
+          f"fleet: slot 1 was not replaced from the warm cache: "
+          f"{sset.replacements} replacements, last reject "
+          f"{sset.last_replace_reject!r}")
+    for i in range(0, FLEET_POOL, 8):
+        p = tcp.engine.predict(pool[i], timeout=120)
+        check(not p.degraded and np.array_equal(p.scores, alone[i]),
+              f"fleet: request {i} after the replacement is not bitwise")
+    figures["shard eject s"] = t_ej - t_kill
+    figures["shard readmit s"] = t_back - t_ej
+    print(f"fleet: kill -9 of shard process 1 under {FLEET_CLIENTS} "
+          f"threads: {len(got)} answers, 0 failed, {len(deg)} degraded "
+          f"(flagged, slot 1 absent from their version vectors); ejected "
+          f"{t_ej - t_kill:.3f} s after the kill, the slot replaced from "
+          f"the warm cache (an in-process shard) and re-admitted "
+          f"{t_back - t_ej:.3f} s after the ejection; answers bitwise "
+          f"again")
+    # the network faults on the lookup seam, on a fresh set of shard
+    # processes (the reorder is injected inside them, at their boot)
+    tcp.engine.close()
+    tcp.sset.close()
+    drill = type(tcp.procs)()
+    try:
+        addrs = drill.spawn(str(tcp.cache), FLEET_SHARDS, env={
+            "FF_FAULT_NET_REORDER": f"lookup:{FLEET_REORDER}"})
+        dset = EmbeddingShardSet.connect(addrs, config=fleet_tier_config(),
+                                         cache_dir=str(tcp.cache))
+        check(at_version(dset.version_vector(), trainer._step),
+              f"fleet: the drill's shard processes booted at "
+              f"{dset.version_vector()}, not the trainer's "
+              f"{trainer._step}")
+        deng = InferenceEngine(tcp.ranker, ServeConfig(max_batch=256),
+                               shard_set=dset).start()
+        tp.reset_wire_stats()
+        plans = (("drop", faults.FaultPlan(net_drop={"lookup": FLEET_DROP})),
+                 ("dup", faults.FaultPlan(net_dup={"lookup": FLEET_DUP})),
+                 ("slow", faults.FaultPlan(net_slow_ms={"lookup":
+                                                        FLEET_SLOW_MS})),
+                 ("reorder", None))
+        try:
+            for what, plan in plans:
+                faults.install(plan)
+                try:
+                    for i in range(FLEET_DRILL):
+                        feats = pool[i]
+                        p = deng.predict(feats, timeout=120)
+                        check(not p.degraded
+                              and np.array_equal(p.scores, alone[i]),
+                              f"fleet: under FF_FAULT_NET_{what.upper()} "
+                              f"request {i} is degraded or not bitwise")
+                finally:
+                    faults.clear()
+            st = tp.wire_stats()["lookup"]
+            # what the shard processes counted: frames held, duplicates
+            # answered from their dedup windows
+            reorders = dedup = 0
+            from dlrm_flexflow_tpu_torch.serve import wire
+            for rep in dset.shards:
+                _op, data = rep.shard.transport.request(
+                    wire.OP_STATS, wire.encode_payload({}))
+                meta, _ = wire.decode_payload(data)
+                reorders += meta["wire"]["lookup"].get("reorders", 0)
+                dedup += meta["wire"]["lookup"].get("dedup_hits", 0)
+        finally:
+            deng.close()
+            dset.close()
+    finally:
+        drill.stop()
+    # every process holds at least its first frame (the connect probe)
+    check(st.get("drops", 0) >= 1 and st.get("dups", 0) == FLEET_DUP
+          and dedup == FLEET_DUP and st.get("retries", 0)
+          >= st.get("drops", 0) and FLEET_SHARDS <= reorders
+          <= FLEET_SHARDS * FLEET_REORDER,
+          f"fleet: the network faults did not all fire: client {st}, "
+          f"server-side reorders {reorders}, dedup hits {dedup}")
+    print(f"fleet: network faults on the lookup seam, {FLEET_DRILL} "
+          f"requests each, all bitwise and none degraded: drop p "
+          f"{FLEET_DROP} ({st['drops']} frames dropped, {st['retries']} "
+          f"retries), dup {FLEET_DUP} ({dedup} answered by the servers' "
+          f"dedup windows), slow {FLEET_SLOW_MS} ms a frame, reorder "
+          f"{FLEET_REORDER} a process ({reorders} frames held server-side); "
+          f"(a) after the loop {time.perf_counter() - t_start:.1f} s")
+
+
+def fleet_model():
+    """Criteo-Kaggle with its tables on the card, the unfused "dot", the
+    seed SEED: every replica the same model."""
+    m, _dcfg = kaggle_model("dot", "sgd")
+    m.init_layers()
+    return m
+
+
+def _gate(engine):
+    """Wedge ``engine``'s batcher on an Event (a parked ``run_quiesced``
+    call); returns the Event that opens it."""
+    entered, release = threading.Event(), threading.Event()
+    threading.Thread(target=engine.run_quiesced, args=(
+        lambda: entered.set() or release.wait(120),), daemon=True).start()
+    check(entered.wait(60), "fleet: the gate did not close")
+    return release
+
+
+def fleet_batches(router):
+    return sum(r.engine.stats()["batches"] for r in router.fleet)
+
+
+def fleet_inproc(work, figures):
+    """Phase 12 (b): FLEET_REPLICAS replicas of Kaggle with device tables
+    behind a FleetRouter on the card. Returns its windows' launch counts
+    and the answers of one engine to the pool (part (c) is held to
+    them)."""
+    from dlrm_flexflow_tpu_torch.serve import (Fleet, FleetRouter,
+                                               RouterConfig)
+    from dlrm_flexflow_tpu_torch.serve import transport as tp
+    from dlrm_flexflow_tpu_torch.utils import faults
+    t_start = time.perf_counter()
+    dcfg = DLRMConfig.criteo_kaggle()
+    dcfg.arch_interaction_op = "dot"
+    pool = [synthetic_batch(dcfg, TIER_REQ_ROWS, seed=SEED + 600 + i)[0]
+            for i in range(FLEET_POOL)]
+    scfg = ServeConfig(max_batch=256, queue_capacity=4096)
+    ref = InferenceEngine(fleet_model(), scfg).start()
+    router = FleetRouter(
+        Fleet.build(lambda i: fleet_model(), FLEET_REPLICAS, scfg),
+        RouterConfig(retries=3, backoff_ms=2.0, eject_after=3,
+                     cooldown_s=0.2, probe_deadline_s=30.0,
+                     health_interval_s=0.05, canary_fraction=0.5,
+                     canary_min_samples=16,
+                     canary_score_tol=FLEET_SCORE_TOL,
+                     canary_p99_ratio=1e9)).start()
+    launches = {}
+    try:
+        alone = {}
+        for i, feats in enumerate(pool):
+            want = ref.predict(feats, timeout=120).scores
+            got = router.predict(feats, timeout=120)
+            check(np.array_equal(got.scores, want),
+                  f"fleet: request {i} through the router is not bitwise "
+                  f"one engine's")
+            alone[i] = want
+        per = [r.engine.stats()["requests"] for r in router.fleet]
+        check(min(per) > 0, f"fleet: a replica took no request: {per}")
+        # the main path, counted from 0: the router from 4 threads
+        b0 = fleet_batches(router)
+        zero_counts()
+        with PlainCalls() as plain:
+            ans, rate3, lat3, errors = client_pool(
+                lambda f: router.predict(f, timeout=120), pool)
+        counts = read_counts()
+        batches = fleet_batches(router) - b0
+        check(not errors, f"fleet: requests failed: {errors[:3]}")
+        within(ans, alone, "the router")
+        check(plain.calls == 0 and counts["embedding_bag"] == batches
+              and counts["fused_interaction"] == 0,
+              f"fleet: launches {counts} for {batches} dispatched batches, "
+              f"plain calls {plain.calls}")
+        add_counts(launches, counts)
+        print(f"fleet: {FLEET_REPLICAS} replicas: {FLEET_POOL} requests "
+              f"each alone bitwise one engine's, split {per}; "
+              f"{2 * FLEET_POOL} from {FLEET_CLIENTS} threads in "
+              f"{batches} batches, embedding_bag launched {batches} times, "
+              f"no plain version")
+        figures[f"{FLEET_REPLICAS} replicas"] = (rate3, lat3)
+        # the hedge: replica 0 wedged, one request at a time
+        router.config.hedge_ms = FLEET_HEDGE_MS
+        release = _gate(router.fleet.get(0).engine)
+        try:
+            for i in range(FLEET_REPLICAS + 1):
+                p = router.predict(pool[i], timeout=120)
+                check(np.array_equal(p.scores, alone[i]),
+                      f"fleet: hedged request {i} is not bitwise")
+                if router.stats()["hedge_wins"]:
+                    break
+        finally:
+            release.set()
+            router.config.hedge_ms = 0.0
+        st = router.stats()
+        check(st["hedges"] >= 1 and st["hedge_wins"] >= 1,
+              f"fleet: the hedge did not run: {st['hedges']} hedges, "
+              f"{st['hedge_wins']} won")
+        # FF_FAULT_REPLICA_DOWN under traffic: eject, then re-admit
+        rep = router.fleet.get(1)
+        ej0, ra0 = rep.ejections, rep.readmissions
+        stop, errors, n_ok = threading.Event(), [], [0]
+
+        def client(c):
+            k = c
+            while not stop.is_set():
+                try:
+                    p = router.predict(pool[k % len(pool)], timeout=120)
+                    check(np.allclose(p.scores, alone[k % len(pool)],
+                                      rtol=1e-5, atol=1e-6), "scores")
+                    n_ok[0] += 1
+                except Exception as e:   # noqa: BLE001 — reported below
+                    errors.append(repr(e))
+                    return
+                k += FLEET_CLIENTS
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(FLEET_CLIENTS)]
+        for t in threads:
+            t.start()
+        try:
+            wait_for(lambda: n_ok[0] >= 8, "traffic", 120)
+            faults.install(faults.FaultPlan(
+                replica_down={1: FLEET_DOWN_BUDGET}))
+            t_down = time.perf_counter()
+            wait_for(lambda: rep.ejections > ej0, "replica 1's ejection",
+                     120)
+            t_ej = time.perf_counter()
+            wait_for(lambda: rep.readmissions > ra0 and rep.state ==
+                     "healthy", "replica 1's re-admission", 120)
+            t_back = time.perf_counter()
+            n_back = n_ok[0]
+            wait_for(lambda: n_ok[0] >= n_back + 8, "traffic after", 120)
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(120)
+            faults.clear()
+        check(not errors and router.stats()["failed"] == 0,
+              f"fleet: requests failed under FF_FAULT_REPLICA_DOWN: "
+              f"{errors[:3]}")
+        figures["replica eject s"] = t_ej - t_down
+        figures["replica readmit s"] = t_back - t_ej
+        print(f"fleet: the hedge answered a request wedged on replica 0 "
+              f"({st['hedges']} hedges, {st['hedge_wins']} won); "
+              f"FF_FAULT_REPLICA_DOWN=1:{FLEET_DOWN_BUDGET} under "
+              f"{FLEET_CLIENTS} threads: {n_ok[0]} answers, 0 failed, "
+              f"replica 1 ejected {t_ej - t_down:.3f} s after the fault, "
+              f"re-admitted {t_back - t_ej:.3f} s after the ejection")
+        add_counts(launches, fleet_cascade(dcfg, router, ref))
+        fleet_deploys(work, router, ref, pool, alone)
+        # one replica, timed as the three were: the bare engine, then
+        # behind a router of its own (the router's cost and the batching
+        # it leaves a replica, apart from replicas sharing the card)
+        windows = {f"{FLEET_REPLICAS} replicas": batches}
+        b0 = ref.stats()["batches"]
+        ans, rate1, lat1, errors = client_pool(
+            lambda f: ref.predict(f, timeout=120), pool)
+        check(not errors, f"fleet: one engine: {errors[:3]}")
+        within(ans, alone, "one engine")
+        figures["1 replica"] = (rate1, lat1)
+        windows["1 replica"] = ref.stats()["batches"] - b0
+        one = FleetRouter(Fleet.build(lambda i: fleet_model(), 1, scfg),
+                          RouterConfig(retries=3, backoff_ms=2.0)).start()
+        try:
+            for i, feats in enumerate(pool):
+                check(np.array_equal(one.predict(feats, timeout=120).scores,
+                                     alone[i]),
+                      f"fleet: request {i} through a 1-replica router is "
+                      f"not bitwise one engine's")
+            b0 = fleet_batches(one)
+            ans, rate, lat, errors = client_pool(
+                lambda f: one.predict(f, timeout=120), pool)
+            windows["1 replica, router"] = fleet_batches(one) - b0
+        finally:
+            one.close()
+        check(not errors, f"fleet: a 1-replica router: {errors[:3]}")
+        within(ans, alone, "a 1-replica router")
+        figures["1 replica, router"] = (rate, lat)
+        for what in ("1 replica", "1 replica, router",
+                     f"{FLEET_REPLICAS} replicas"):
+            rate, lat = figures[what]
+            print("fleet: " + rate_line(f"{FLEET_POOL} requests of "
+                                        f"{TIER_REQ_ROWS} rows x 2 from "
+                                        f"{FLEET_CLIENTS} threads, {what}",
+                                        rate, lat)
+                  + f", {windows[what]} dispatched batches")
+    finally:
+        router.close()
+    fleet_autoscale(scfg, pool, figures)
+    figures["dispatch rtt floor"] = tp.measured_rtt_floor("dispatch")
+    print(f"fleet: (b) {time.perf_counter() - t_start:.1f} s")
+    return launches, ref, pool, alone
+
+
+def fleet_cascade(dcfg, router, ref):
+    """``--retrieve on`` in front of the fleet: the two-tower heads sized
+    to Kaggle's inputs and an item index on one standalone shard on the
+    card, as the app's ``_build_cascade`` builds them; users answered
+    through the router BITWISE as through one engine; then the main path
+    counted: FLEET_CASCADE users from FLEET_CLIENTS threads, mips_topk
+    once a user, embedding_bag the ranker's dispatched batches plus the
+    user head's bags, no plain version. Returns the counts."""
+    tcfg = two_tower_config(dcfg)
+
+    def head(name, batch):
+        m = FFModel(FFConfig(batch_size=batch, seed=SEED))
+        build_two_tower(m, tcfg, head=name)
+        m.compile()
+        m.init_layers()
+        return m
+
+    user, item = head("user", FFConfig().batch_size), head("item", 2048)
+    transfer_tower_params(user, item)
+    index = ShardedMIPSIndex.build(ShardedMIPSIndex.standalone_set(1),
+                                   item_embeddings(item, tcfg))
+    del item
+    ub = user.config.batch_size
+
+    def encode(feats):
+        dense = np.asarray(feats["dense"], np.float32)
+        sparse = np.asarray(feats["sparse"], np.int64)
+        n = dense.shape[0]
+        d = np.concatenate([dense, np.zeros((ub - n,) + dense.shape[1:],
+                                            np.float32)])
+        s = np.concatenate([sparse, np.zeros((ub - n,) + sparse.shape[1:],
+                                             np.int64)])
+        return user.forward_batch({"user_dense": d,
+                                   "user_sparse": s})[:n]
+
+    feats_fn = dlrm_candidate_features(len(dcfg.embedding_size),
+                                       list(dcfg.embedding_size))
+    ccfg = CascadeConfig(k=K, retrieve_deadline_ms=1000.0)
+    fleet_c = CascadeEngine(index, encode, router, feats_fn, ccfg)
+    one_c = CascadeEngine(index, encode, ref, feats_fn, ccfg)
+    data = synthetic_batch(dcfg, FLEET_CASCADE, seed=SEED + 700)[0]
+    reqs = [{k: v[i:i + 1] for k, v in data.items()}
+            for i in range(FLEET_CASCADE)]
+    for i, feats in enumerate(reqs[:8]):
+        a, b = fleet_c.predict(feats), one_c.predict(feats)
+        check(np.array_equal(a.ids, b.ids) and np.array_equal(a.scores,
+                                                              b.scores)
+              and not a.degraded,
+              f"fleet: cascade user {i} through the fleet is not bitwise "
+              f"through one engine")
+    zero_counts()
+    encode(reqs[0])
+    per_user = read_counts()["embedding_bag"]
+    b0 = fleet_batches(router)
+    results, errors = {}, []
+    zero_counts()
+    with PlainCalls() as plain:
+        def client(c):
+            try:
+                for i in range(c, len(reqs), FLEET_CLIENTS):
+                    results[i] = fleet_c.predict(reqs[i])
+            except Exception as e:   # noqa: BLE001 — reported below
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(FLEET_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+    counts = read_counts()
+    batches = fleet_batches(router) - b0
+    check(not errors and len(results) == len(reqs)
+          and not any(p.degraded for p in results.values()),
+          f"fleet: cascade requests failed or degraded: {errors[:3]}")
+    check(plain.calls == 0 and counts["mips_topk"] == len(reqs)
+          and counts["embedding_bag"] == batches + per_user * len(reqs),
+          f"fleet: cascade launches {counts} for {batches} ranker batches "
+          f"and {len(reqs)} users ({per_user} bags a user), plain calls "
+          f"{plain.calls}")
+    print(f"fleet: --retrieve on in front of {FLEET_REPLICAS} replicas: 8 "
+          f"users bitwise the cascade in front of one engine; "
+          f"{len(reqs)} users from {FLEET_CLIENTS} threads: mips_topk "
+          f"{counts['mips_topk']}, embedding_bag {counts['embedding_bag']} "
+          f"({batches} ranker batches + {per_user} a user), no plain "
+          f"version")
+    return counts
+
+
+def fleet_deploys(work, router, ref, pool, alone):
+    """Shadow, a poisoned canary and a good one, from one snapshot: a
+    replica's model after one SGD step at batch TRAIN_B."""
+    from dlrm_flexflow_tpu_torch.utils import faults
+    from dlrm_flexflow_tpu_torch.utils.checkpoint import save_checkpoint
+    trained, dcfg = kaggle_model("dot", "sgd")
+    trained.init_layers()
+    x, y = synthetic_batch(dcfg, TRAIN_B, seed=SEED + 800)
+    trained.train_batch({**x, "label": y})
+    path = str(work / "fleet_snapshot.npz")
+    save_checkpoint(trained, path)
+    want = {i: trained.forward_bucket(pool[i], TIER_REQ_ROWS).cpu().numpy()
+            for i in range(8)}
+    del trained
+    # shadow: clients answered by the stable replicas, bitwise
+    rid = router.start_shadow(path)
+    for i in range(16):
+        p = router.predict(pool[i % 8], timeout=120)
+        check(np.array_equal(p.scores, alone[i % 8]),
+              f"fleet: a client saw the shadow's answer (request {i})")
+    wait_for(lambda: router.shadow_report()["n"] >= 8 * TIER_REQ_ROWS,
+             "the shadow's comparisons", 120)
+    report = router.stop_shadow()
+    check(report["mean_abs_diff"] > 0 and report["errors"] == 0
+          and np.array_equal(router.fleet.get(rid).engine.predict(
+              pool[0], timeout=120).scores, alone[0]),
+          f"fleet: shadow report {report}")
+    # a poisoned canary rolls back with 0 failed requests
+    faults.install(faults.FaultPlan(poison_reloads=1))
+    try:
+        ids = router.start_canary(path)
+    finally:
+        faults.clear()
+    t0 = time.perf_counter()
+    failed0 = router.stats()["failed"]
+    i = 0
+    while router.stats()["canary"]["active"]:
+        check(time.perf_counter() - t0 < 120, "fleet: no rollback")
+        router.predict(pool[i % len(pool)], timeout=120)
+        i += 1
+    st = router.stats()
+    check(st["canary"]["rollbacks"] == 1 and st["failed"] == failed0
+          and "score divergence" in st["canary"]["last_rollback_reason"]
+          and np.array_equal(router.fleet.get(ids[0]).engine.predict(
+              pool[0], timeout=120).scores, alone[0]),
+          f"fleet: the poisoned canary: {st['canary']}")
+    t_rb = time.perf_counter() - t0
+    # a good canary is promoted on every replica
+    router.start_canary(path)
+    for j in range(16):
+        router.predict(pool[j % 8], timeout=120)
+    router.promote_canary()
+    st = router.stats()
+    check(st["canary"]["promotions"] == 1 and not st["canary"]["active"]
+          and st["failed"] == failed0, f"fleet: promotion {st['canary']}")
+    for rep in router.fleet:
+        for j in range(0, 8, 3):
+            p = rep.engine.predict(pool[j], timeout=120)
+            check(rep.cohort == "stable" and p.version == 1
+                  and np.array_equal(p.scores, want[j]),
+                  f"fleet: replica {rep.rid} after the promotion is not "
+                  f"bitwise the snapshot's model")
+    print(f"fleet: shadow on replica {rid}: {report['n']} scores compared "
+          f"(mean |diff| {report['mean_abs_diff']:.3g}), no client saw "
+          f"one; a poisoned canary on replica {ids[0]} rolled back after "
+          f"{i} requests ({t_rb:.3f} s), 0 failed; a good canary promoted "
+          f"on all {FLEET_REPLICAS}, bitwise the snapshot's model")
+
+
+def fleet_autoscale(scfg, pool, figures):
+    """The autoscaler grows a 1-replica fleet to 2 under a forced SLO
+    breach (an SLO of FLEET_SLO_MS, which every request misses) and
+    shrinks it back when idle (the SLO raised), with 0 failed
+    requests. The grow time: from the autoscaler's start (the breach is
+    there from the first request) to the new replica's admission; it
+    holds the sustain periods, the model's build and warmup, and the
+    probe."""
+    from dlrm_flexflow_tpu_torch.serve import (AutoscaleConfig, Autoscaler,
+                                               Fleet, FleetRouter,
+                                               RouterConfig)
+    router = FleetRouter(Fleet.build(lambda i: fleet_model(), 1, scfg),
+                         RouterConfig(retries=3, cooldown_s=0.2,
+                                      health_interval_s=0.05)).start()
+    scaler = Autoscaler(router, AutoscaleConfig(
+        slo_ms=FLEET_SLO_MS, min_replicas=1, max_replicas=2,
+        interval_s=0.05, sustain=2, idle_sustain=4, cooldown_s=0.2))
+    stop, errors = threading.Event(), []
+
+    def client():
+        k = 0
+        while not stop.is_set():
+            try:
+                router.predict(pool[k % len(pool)], timeout=120)
+            except Exception as e:   # noqa: BLE001 — reported below
+                errors.append(repr(e))
+                return
+            k += 1
+
+    t = threading.Thread(target=client)
+    t.start()
+    try:
+        wait_for(lambda: router.stats()["p99_ms"] is not None,
+                 "a first answer", 120)
+        t_on = time.time()
+        scaler.start()
+        wait_for(lambda: len(router.fleet) == 2
+                 and len(router.fleet.healthy()) == 2,
+                 "the grown replica's admission", 300)
+        t_ok = time.time()
+        d = scaler.stats()["decisions"][0]
+        scaler.config.slo_ms = 1e9        # the breach is over: idle
+        wait_for(lambda: len(router.fleet) == 1, "the shrink", 120)
+    finally:
+        stop.set()
+        t.join(120)
+        scaler.close()
+        router.close()
+    st = scaler.stats()
+    check(not errors and st["grows"] == 1 and st["shrinks"] == 1
+          and d["action"] == "grow", f"fleet: autoscaler {st}, errors "
+          f"{errors[:3]}")
+    figures["grow s"] = t_ok - t_on
+    print(f"fleet: the autoscaler grew 1 -> 2 replicas on a forced SLO "
+          f"breach ({d['reason']}): the decision {d['t'] - t_on:.3f} s "
+          f"after its start (the new replica built and warmed), the "
+          f"admission {t_ok - t_on:.3f} s after it; shrank back to 1 when "
+          f"idle; 0 failed")
+
+
+class RankerEngine(InferenceEngine):
+    """Part (c)'s ranker: its ``stats()``, which ``EngineServer`` answers
+    over the wire, carry this process's kernel launch counts and the
+    calls of the plain versions (``plain`` counts them for the
+    process's whole life)."""
+
+    def __init__(self, model, config, plain):
+        super().__init__(model, config)
+        self.plain = plain
+
+    def stats(self):
+        return dict(super().stats(), kernels=read_counts(),
+                    plain_calls=self.plain.calls)
+
+
+def ranker_child():
+    """``chip_smoke.py --ranker-child``: one ranker replica as a process,
+    the Kaggle ranker of part (b) on the card behind the engine's wire
+    server. Prints ``RANKER_OK port=P`` once it listens; runs until
+    killed."""
+    plain = PlainCalls().__enter__()
+    engine = RankerEngine(fleet_model(),
+                          ServeConfig(max_batch=256, queue_capacity=4096),
+                          plain).start()
+    server = engine.serve(port=0)
+    print(f"RANKER_OK port={server.address[1]}", flush=True)
+    server.serve_forever()
+
+
+class RankerChildren:
+    """RANKER_CHILDREN ``chip_smoke.py --ranker-child`` processes, started
+    at once through the app's ``ShardProcs``; ``addrs`` holds their
+    addresses once each printed its port, ``stop`` kills them."""
+
+    def __init__(self, work):
+        import os
+        from dlrm_flexflow_tpu_torch.examples.native.serve_dlrm import \
+            ShardProcs
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("FF_FAULT_")}
+        env["PYTHONPATH"] = str(REPO)
+        work.mkdir(parents=True, exist_ok=True)
+        self.log = open(work / "rankers.log", "w")
+        self.children = ShardProcs()
+        self.procs = self.children.procs
+        t0 = time.perf_counter()
+        try:
+            self.addrs = self.children.start(
+                [[sys.executable, str(REPO / "chip_smoke.py"),
+                  "--ranker-child"]] * RANKER_CHILDREN,
+                "RANKER_OK", "ranker process", env, stderr=self.log,
+                boot_s=600)
+        except SystemExit as e:
+            self.stop()
+            check(False, f"fleet: {e}: "
+                  f"{Path(self.log.name).read_text()[-2000:]}")
+        self.ready_s = time.perf_counter() - t0
+
+    def stop(self):
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+        self.children.stop()
+        self.log.close()
+
+
+def fleet_procs(children, pool, alone, figures):
+    """Phase 12 (c): the ranker processes behind ``Fleet.connect`` and a
+    router: each request alone BITWISE part (b)'s engine, timed from
+    FLEET_CLIENTS threads, then one process ``kill -9``ed under traffic
+    with 0 failed requests. Returns the timed window's launch counts in
+    the processes."""
+    import signal
+    from dlrm_flexflow_tpu_torch.serve import Fleet, FleetRouter, RouterConfig
+    from dlrm_flexflow_tpu_torch.serve import transport as tp
+    t_start = time.perf_counter()
+    router = FleetRouter(Fleet.connect(children.addrs, deadline_s=120.0),
+                         RouterConfig(retries=3, backoff_ms=2.0,
+                                      eject_after=2, cooldown_s=1.0,
+                                      health_interval_s=0.05)).start()
+    try:
+        for i, feats in enumerate(pool):
+            p = router.predict(feats, timeout=120)
+            check(np.array_equal(p.scores, alone[i]),
+                  f"fleet: request {i} through the ranker processes is "
+                  f"not bitwise part (b)'s engine")
+        # the window counted in the children, from their stats over the
+        # wire: launches and batches read before and after it
+        k0, p0, b0 = child_counts(router)
+        ans, rate, lat, errors = client_pool(
+            lambda f: router.predict(f, timeout=120), pool)
+        k1, p1, b1 = child_counts(router)
+        check(not errors, f"fleet: ranker processes: {errors[:3]}")
+        within(ans, alone, "the ranker processes")
+        counts = {k: v - k0.get(k, 0) for k, v in k1.items()}
+        batches = b1 - b0
+        check(p1 == p0 and batches > 0
+              and counts["embedding_bag"] == batches
+              and counts["fused_interaction"] == 0,
+              f"fleet: ranker processes launched {counts} for {batches} "
+              f"dispatched batches, plain calls {p1 - p0}")
+        print(f"fleet: the ranker processes' window: embedding_bag "
+              f"launched {batches} times for {batches} dispatched batches, "
+              f"no plain version")
+        figures[f"{RANKER_CHILDREN} ranker processes"] = (rate, lat)
+        print("fleet: " + rate_line(
+            f"{FLEET_POOL} requests of {TIER_REQ_ROWS} rows x 2 from "
+            f"{FLEET_CLIENTS} threads, {RANKER_CHILDREN} ranker processes",
+            rate, lat))
+        figures["dispatch rtt floor"] = tp.measured_rtt_floor("dispatch")
+        stop, errors, n_ok = threading.Event(), [], [0]
+
+        def client(c):
+            k = c
+            while not stop.is_set():
+                try:
+                    router.predict(pool[k % len(pool)], timeout=120)
+                    n_ok[0] += 1
+                except Exception as e:   # noqa: BLE001 — reported below
+                    errors.append(repr(e))
+                    return
+                k += FLEET_CLIENTS
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(FLEET_CLIENTS)]
+        for t in threads:
+            t.start()
+        rep = router.fleet.get(1)
+        try:
+            wait_for(lambda: n_ok[0] >= 8, "traffic", 120)
+            t_kill = time.perf_counter()
+            children.procs[1].send_signal(signal.SIGKILL)
+            children.procs[1].wait(60)
+            wait_for(lambda: rep.state != "healthy", "the ejection", 120)
+            t_ej = time.perf_counter()
+            n_at = n_ok[0]
+            wait_for(lambda: n_ok[0] >= n_at + 16, "traffic after", 120)
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(120)
+        st = router.stats()
+        check(not errors and st["failed"] == 0,
+              f"fleet: requests failed when a ranker process died: "
+              f"{errors[:3]}")
+        figures["ranker process eject s"] = t_ej - t_kill
+        print(f"fleet: {RANKER_CHILDREN} ranker processes ready "
+              f"{children.ready_s:.1f} s after their start; kill -9 of one "
+              f"under "
+              f"{FLEET_CLIENTS} threads: {n_ok[0]} answers, 0 failed "
+              f"({st['retries']} retries), ejected {t_ej - t_kill:.3f} s "
+              f"after the kill; (c) {time.perf_counter() - t_start:.1f} s")
+    finally:
+        router.close()
+    return counts
+
+
+def child_counts(router):
+    """Kernel launches ({wrapper: n}), plain-version calls and dispatched
+    batches summed over the ranker processes, each read from its
+    ``stats()`` over the wire."""
+    kernels, plain, batches = {}, 0, 0
+    for r in router.fleet:
+        st = r.engine.stats()
+        check("unreachable" not in st,
+              f"fleet: ranker {r.rid}'s stats: {st.get('unreachable')}")
+        add_counts(kernels, st["kernels"])
+        plain += st["plain_calls"]
+        batches += st["batches"]
+    return kernels, plain, batches
+
+
+def fleet_figures(figures):
+    """Phase 12's figures on one line of JSON."""
+    out = {}
+    for k, v in figures.items():
+        if isinstance(v, tuple):
+            rate, lat = v
+            out[k] = {"req_s": round(rate, 1),
+                      "p50_ms": round(percentile(lat, 50), 3),
+                      "p99_ms": round(percentile(lat, 99), 3)}
+        else:
+            out[k] = None if v is None else round(v, 4)
+    print(json.dumps({"fleet": out}))
+
+
+def fleet_phase(figures):
+    """Phase 12 (b) and (c) in WORK_DIR (part (a) rides phase 11's loop).
+    The ranker processes of (c) boot first, alone: a boot beside (b)
+    would share the host's cores with its timed windows. Returns the
+    launch counts of (b)'s and (c)'s windows."""
+    import os
+    from dlrm_flexflow_tpu_torch.utils import faults
+    t0 = time.perf_counter()
+    work = WORK_DIR / "fleet"
+    work.mkdir(parents=True, exist_ok=True)
+    gc.collect()
+    children = RankerChildren(work)
+    try:
+        counts, ref, pool, alone = fleet_inproc(work, figures)
+        ref.close()
+        add_counts(counts, fleet_procs(children, pool, alone, figures))
+        fleet_figures(figures)
+        print(f"fleet phase (b) and (c): {time.perf_counter() - t0:.1f} s")
+        return counts
+    finally:
+        os.environ.pop("FF_FAULT_NET_REORDER", None)
+        faults.clear()
+        children.stop()
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
+    if sys.argv[1:] == ["--ranker-child"]:
+        # one ranker replica of phase 12 (c), a child of this script
+        ranker_child()
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -5058,6 +6182,16 @@ def main() -> int:
         # them)
         build.build_all()
         counts = shard_tier_phase()
+        print(json.dumps({"launches": {k: v for k, v in counts.items()
+                                       if v}}))
+        return 0
+    if sys.argv[1:] == ["--fleet"]:
+        # phase 11's loop (which drives phase 12 (a)) and phase 12, the
+        # kernels built first (the children load them)
+        build.build_all()
+        figures = {}
+        counts = shard_tier_phase(figures, loop_only=True)
+        add_counts(counts, fleet_phase(figures))
         print(json.dumps({"launches": {k: v for k, v in counts.items()
                                        if v}}))
         return 0
@@ -5092,7 +6226,9 @@ def main() -> int:
     add(cascade_phase())
     add(serving_app_phase())
     add(criteo_phase())
-    add(shard_tier_phase())
+    figures = {}
+    add(shard_tier_phase(figures))
+    add(fleet_phase(figures))
     for run in runs:
         add(train_report(run))
     del runs

@@ -131,9 +131,21 @@ class FFConfig:
     serve_cache_rows: int = 0
     serve_cache_warm: str = ""
     serve_batching: str = "continuous"
-    # the fleet is not ported yet (ROADMAP queue 1 item 9.4);
-    # ServeConfig.from_config refuses more than one replica
+    # ---- the serving fleet (serve/fleet.py, router.py, autoscale.py) --
+    # ranker replicas behind a FleetRouter (1: one engine). Set with
+    # --serve-replicas N.
     serve_replicas: int = 1
+    # the router's re-dispatches after a failed attempt, and the share
+    # of traffic a canary takes. --serve-retries N,
+    # --serve-canary-fraction F.
+    serve_retries: int = 2
+    serve_canary_fraction: float = 0.1
+    # the autoscaler's p99 objective (0: no autoscaler) and its replica
+    # bounds. --serve-slo-ms MS, --serve-min-replicas N,
+    # --serve-max-replicas N.
+    serve_slo_ms: float = 0.0
+    serve_min_replicas: int = 1
+    serve_max_replicas: int = 8
     # ---- the serving shard tier (serve/shardtier.py) ------------------
     # lookup shards that row-shard the host tables (0: the ranker keeps
     # its tables). Set with --serve-shards N.
@@ -147,9 +159,9 @@ class FFConfig:
     # the tier's hedge: a duplicate lookup after this many ms, the first
     # answer wins (0: off). Set with --serve-hedge-ms MS.
     serve_hedge_ms: float = 0.0
-    # "inproc" (method calls); "tcp" and shard processes
-    # (--serve-shard-procs) are ROADMAP queue 1 item 9.4, and the app
-    # refuses them. Set with --serve-transport {inproc,tcp}.
+    # "inproc" (method calls) or "tcp" (the wire protocol); with tcp,
+    # --serve-shard-procs N spawns N shard processes. Set with
+    # --serve-transport {inproc,tcp} and --serve-shard-procs N.
     serve_transport: str = "inproc"
     serve_shard_procs: int = 0
     # the snapshot watcher's poll interval (hot reload of a checkpoint
@@ -288,6 +300,24 @@ class FFConfig:
                 if kw["serve_replicas"] < 1:
                     raise ValueError(f"--serve-replicas expects N >= 1, "
                                      f"got {kw['serve_replicas']}")
+            elif a == "--serve-retries":
+                kw["serve_retries"] = int(take())
+            elif a == "--serve-canary-fraction":
+                kw["serve_canary_fraction"] = float(take())
+            elif a == "--serve-slo-ms":
+                kw["serve_slo_ms"] = float(take())
+            elif a == "--serve-min-replicas":
+                kw["serve_min_replicas"] = int(take())
+                if kw["serve_min_replicas"] < 1:
+                    raise ValueError(
+                        f"--serve-min-replicas expects N >= 1, got "
+                        f"{kw['serve_min_replicas']}")
+            elif a == "--serve-max-replicas":
+                kw["serve_max_replicas"] = int(take())
+                if kw["serve_max_replicas"] < 1:
+                    raise ValueError(
+                        f"--serve-max-replicas expects N >= 1, got "
+                        f"{kw['serve_max_replicas']}")
             elif a == "--serve-shards":
                 kw["serve_shards"] = int(take())
                 if kw["serve_shards"] < 0:

@@ -73,9 +73,6 @@ _UNPORTED = {
     **dict.fromkeys(("--no-nhwc", "--conv-s2d"), "11 (the zoo)"),
     **dict.fromkeys(("--compile-cache-dir", "--eval-exec-cache"),
                     "9.5 (the warm executable caches)"),
-    **dict.fromkeys(("--serve-retries", "--serve-canary-fraction",
-                     "--serve-slo-ms", "--serve-min-replicas",
-                     "--serve-max-replicas"), "9.4 (the serving fleet)"),
     "--retrieve": "10 (retrieval)",
 }
 

@@ -1,7 +1,7 @@
 """DLRM online serving app over the port, the counterpart of
-``examples/native/serve_dlrm.py``'s single-engine path: dynamic-batched
-JSON inference over HTTP, on one card (or, with ``--device cpu``, on the
-CPU). Run it as a module from the root of a checkout::
+``examples/native/serve_dlrm.py``: dynamic-batched JSON inference over
+HTTP, on one card (or, with ``--device cpu``, on the CPU). Run it as a
+module from the root of a checkout::
 
     # terminal 1: train, publishing snapshots (fit_stream with a
     # utils.delta.DeltaPublisher into /tmp/dlrm-ckpt, or fit with
@@ -35,8 +35,31 @@ version vector it read and whether it was degraded::
         --host-tables --serve-shards 4 --serve-cache-rows 65536 \
         --serve-cache-warm /tmp/dlrm-ckpt --checkpoint-dir /tmp/dlrm-ckpt
 
+``--serve-replicas N`` turns the engine into a FLEET: N replicas (each
+its own model on the card) behind a ``serve.FleetRouter``: queue-depth
+load balancing, ``--serve-retries`` re-dispatches with backoff, a circuit
+breaker that ejects and re-admits replicas, ``--serve-hedge-ms``
+hedging, canary and shadow rollouts (``--serve-canary-fraction``); each
+replica follows the trainer's snapshots. ``--serve-slo-ms MS`` adds the
+autoscaler (``serve/autoscale.py``), which grows the fleet under a
+sustained p99 breach up to ``--serve-max-replicas``, replaces replicas
+below ``--serve-min-replicas`` and shrinks it when idle.
+
+``--serve-transport tcp --serve-shard-procs N`` moves the lookup tier
+into N processes: the app seeds the shard warm cache from its model into
+``--compile-cache-dir`` (``auto``: ``<checkpoint-dir>/cache``; the port
+has no executables to cache, so the flag serves this role only, and the
+executable half is ROADMAP queue 1 item 9.5), spawns ``python -m
+dlrm_flexflow_tpu_torch.serve.shard_server`` once a slot, connects to
+them over loopback TCP (``serve/wire.py``, ``serve/transport.py``),
+releases its own tables, and reaps the children when it stops. A killed
+shard process degrades answers (never fails them) until the health loop
+replaces the slot from the warm cache; a shard process that fails to
+boot stops the app, naming its slot. ``--compile-cache-dir`` also gives
+the in-process tier (``--serve-shards``) its warm replace-dead.
+
 ``--retrieve on`` puts the retrieve -> rank cascade in front of the
-ranker: two-tower user and item heads sized to the DLRM's inputs, the
+ranker (or the fleet): two-tower user and item heads sized to the DLRM's inputs, the
 item catalog encoded into an int8 MIPS index that rides the ranker's
 shard tier under ``--serve-shards`` (else ``--retrieve-shards``
 standalone index shards, at least one), ``--retrieve-k`` candidates
@@ -70,24 +93,26 @@ Endpoints (the JAX app's, with its status codes and JSON keys):
 Scores go out as ``tolist()`` of the float32 array: every float32 value
 survives the float64 JSON round trip exactly.
 
-The JAX app's other deployments raise ``NotImplementedError`` naming
-their ROADMAP queue 1 item: the fleet and shard processes
-(``--serve-replicas`` > 1, the autoscaler's ``--serve-slo-ms`` /
-``--serve-min-replicas`` / ``--serve-max-replicas``,
-``--serve-retries``, ``--serve-canary-fraction``,
-``--serve-shard-procs``, ``--serve-transport tcp``: 9.4) and the warm
-executable caches (``--compile-cache-dir``, ``--eval-exec-cache``: 9.5;
-without them a replaced shard has no warm cache to boot from, so a dead
-shard of the app's tier heals by its probe alone).
+Refused at start-up, before any model is built, as the JAX app refuses
+them: ``--serve-shard-procs`` without ``--serve-transport tcp``, and
+``--retrieve on`` with ``--serve-transport tcp`` or shard processes. The
+port also refuses ``--serve-transport tcp`` with in-process
+``--serve-shards`` (the JAX app builds that tier in process): a tcp tier
+never quietly turns into method calls. ``--eval-exec-cache`` raises
+``NotImplementedError`` naming ROADMAP queue 1 item 9.5.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import selectors
 import signal
+import subprocess
 import sys
 import threading
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -96,23 +121,24 @@ from ...config import FFConfig
 from ...core.model import FFModel
 from ...core.optimizers import SGDOptimizer
 from ...models.dlrm import DLRMConfig, build_dlrm
-from ...serve import (DeadlineExceeded, InferenceEngine, Overloaded,
+from ...serve import (AutoscaleConfig, Autoscaler, DeadlineExceeded, Fleet,
+                      FleetRouter, FleetUnavailable, InferenceEngine,
+                      Overloaded, RouterConfig, ServeConfig,
                       SnapshotWatcher)
 from ...serve.shardtier import EmbeddingShardSet, ShardTierConfig
 from ...utils.logging import get_logger
+from ...utils.warmcache import cache_dir_for
 
 log_app = get_logger("serve_dlrm")
 
 # flags of the JAX app that the port does not serve yet, by the ROADMAP
 # queue 1 item that ports what they drive
-_UNPORTED = {
-    **dict.fromkeys(("--serve-slo-ms", "--serve-min-replicas",
-                     "--serve-max-replicas", "--serve-retries",
-                     "--serve-canary-fraction"),
-                    "9.4 (the serving fleet)"),
-    **dict.fromkeys(("--compile-cache-dir", "--eval-exec-cache"),
-                    "9.5 (the warm executable caches)"),
-}
+_UNPORTED = {"--eval-exec-cache": "9.5 (the warm executable caches)"}
+
+# the checkout's root: the shard processes run the package from there
+_ROOT = Path(__file__).resolve().parents[3]
+# how long a shard process may take to print its SHARD_SERVER_OK line
+SHARD_BOOT_S = 300.0
 
 
 def _flag(rest, name, default=None):
@@ -120,29 +146,136 @@ def _flag(rest, name, default=None):
 
 
 def _refuse_unported(cfg, rest):
+    """The flags the port does not serve, and the transport combinations
+    the JAX app refuses, before any model is built."""
     for a in rest:
         if a in _UNPORTED:
             raise NotImplementedError(
                 f"{a} is not ported yet (ROADMAP queue 1 item "
                 f"{_UNPORTED[a]})")
-    if cfg.serve_shard_procs > 0 or cfg.serve_transport != "inproc":
-        raise NotImplementedError(
-            f"--serve-transport {cfg.serve_transport} / "
-            f"--serve-shard-procs {cfg.serve_shard_procs}: the wire "
-            f"transport and shard processes are not ported yet (ROADMAP "
-            f"queue 1 item 9.4); --serve-shards runs the tier in process")
+    if cfg.serve_shard_procs > 0 and cfg.serve_transport != "tcp":
+        raise SystemExit(
+            "--serve-shard-procs requires --serve-transport tcp "
+            "(separate processes cannot share in-process method calls)")
+    if cfg.serve_transport == "tcp" and cfg.serve_shard_procs == 0 \
+            and cfg.serve_shards > 0:
+        raise SystemExit(
+            "--serve-transport tcp carries the shard tier to shard "
+            "processes: pass --serve-shard-procs N (--serve-shards N keeps "
+            "the tier in process, over --serve-transport inproc)")
 
 
-def _build_shard_set(cfg, model):
-    """Row-shard the model's host tables over ``--serve-shards``
-    in-process lookup shards and release the ranker's own copies (the
-    point of the split). No warm cache: its directory is
-    ``--compile-cache-dir``'s, item 9.5."""
-    shard_set = EmbeddingShardSet.build(
-        model, cfg.serve_shards, config=ShardTierConfig.from_config(cfg))
+def _shard_cache_dir(cfg, rest, ckpt_dir):
+    """The shard warm cache's directory: ``--compile-cache-dir`` (or its
+    ``auto``), as the JAX app takes it; None when unset."""
+    configured = _flag(rest, "--compile-cache-dir", "")
+    if configured:
+        log_app.info("--compile-cache-dir %s: the shard warm cache's "
+                     "directory (the port has no executables to cache; "
+                     "that half is ROADMAP queue 1 item 9.5)", configured)
+    return cache_dir_for(ckpt_dir, configured)
+
+
+def _wants_shard_tier(cfg):
+    return cfg.serve_shards > 0 or cfg.serve_shard_procs > 0
+
+
+class ShardProcs:
+    """The app's child processes: spawned, each read until its OK line,
+    reaped by :meth:`stop`."""
+
+    def __init__(self):
+        self.procs: list = []
+
+    def spawn(self, cache_dir: str, nshards: int, env=None) -> list:
+        """One ``shard_server`` process a slot, booted from the seeded
+        warm cache; returns their addresses. ``env`` adds variables to
+        the children's environment."""
+        child_env = dict(os.environ)
+        child_env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (str(_ROOT), child_env.get("PYTHONPATH", "")) if p)
+        child_env.update(env or {})
+        return self.start(
+            [[sys.executable, "-m",
+              "dlrm_flexflow_tpu_torch.serve.shard_server",
+              "--cache-dir", cache_dir, "--nshards", str(nshards),
+              "--slot", str(slot), "--port", "0"]
+             for slot in range(nshards)],
+            "SHARD_SERVER_OK", "shard server slot", child_env)
+
+    def start(self, cmds, ok_prefix: str, what: str, env, stderr=None,
+              boot_s: float = SHARD_BOOT_S) -> list:
+        """One process a command, all started at once, each read until
+        its first line ``<ok_prefix> port=P``; returns their addresses on
+        127.0.0.1. A process that exits or stays silent for ``boot_s``
+        before its OK line stops the app, naming it as ``what`` and its
+        index."""
+        first = len(self.procs)
+        for cmd in cmds:
+            self.procs.append(subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=stderr, text=True,
+                env=env))
+        addresses = []
+        for i, proc in enumerate(self.procs[first:]):
+            sel = selectors.DefaultSelector()
+            sel.register(proc.stdout, selectors.EVENT_READ)
+            ready = sel.select(boot_s)
+            sel.close()
+            line = proc.stdout.readline().strip() if ready else ""
+            if not line.startswith(ok_prefix):
+                raise SystemExit(
+                    f"{what} {i} failed to boot (got {line!r}, "
+                    f"exit={proc.poll()})")
+            port = int(dict(kv.split("=", 1)
+                            for kv in line.split()[1:])["port"])
+            addresses.append(("127.0.0.1", port))
+            log_app.info("%s %d up: pid=%d port=%d", what, i, proc.pid,
+                         port)
+        return addresses
+
+    def stop(self) -> None:
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.terminate()
+        for proc in self.procs:
+            try:
+                proc.wait(timeout=5)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=5)
+            if proc.stdout is not None:
+                proc.stdout.close()
+        self.procs.clear()
+
+
+def _build_shard_set(cfg, model, cache_dir, procs: ShardProcs):
+    """Row-shard the model's host tables into the lookup tier, then
+    release the ranker's own copies (the point of the split): over
+    ``--serve-shard-procs`` processes booted from the warm cache seeded
+    from this model, or over ``--serve-shards`` in-process shards (warm
+    replace-dead with a cache directory)."""
+    tier_cfg = ShardTierConfig.from_config(cfg)
+    n_procs = cfg.serve_shard_procs
+    if n_procs > 0:
+        if not cache_dir:
+            raise SystemExit(
+                "--serve-shard-procs needs a shard cache directory to boot "
+                "the child processes from — set --checkpoint-dir or "
+                "--compile-cache-dir")
+        EmbeddingShardSet.seed_shard_cache(model, n_procs, cache_dir,
+                                           config=tier_cfg)
+        shard_set = EmbeddingShardSet.connect(
+            procs.spawn(cache_dir, n_procs), config=tier_cfg,
+            cache_dir=cache_dir)
+        n = n_procs
+    else:
+        n = cfg.serve_shards
+        shard_set = EmbeddingShardSet.build(model, n, config=tier_cfg,
+                                            cache_dir=cache_dir)
     freed = EmbeddingShardSet.release_ranker_tables(model)
-    log_app.info("sharded serving tier: %d in-process lookup shard(s), "
-                 "ranker released %.1f MB of tables", cfg.serve_shards,
+    log_app.info("sharded serving tier: %d lookup shard(s) [%s], ranker "
+                 "released %.1f MB of tables", n,
+                 "tcp, separate processes" if n_procs > 0 else "inproc",
                  freed / 1e6)
     return shard_set
 
@@ -164,7 +297,8 @@ def build_server_model(cfg, dcfg):
 
 
 def make_handler(serve, input_names, cascade=None):
-    """The HTTP handler class over ``serve`` (an InferenceEngine);
+    """The HTTP handler class over ``serve`` (an InferenceEngine or a
+    FleetRouter: both expose predict, stats and healthz);
     ``cascade`` (a retrieve.CascadeEngine) switches /predict to cascade
     mode and opens POST /retrieve."""
     from http.server import BaseHTTPRequestHandler
@@ -276,7 +410,7 @@ def make_handler(serve, input_names, cascade=None):
                     "scores": np.asarray(pred.scores).reshape(-1).tolist(),
                     "version": pred.version,
                     "latency_ms": round(pred.latency_ms, 3)}
-                if pred.versions is not None:
+                if getattr(pred, "versions", None) is not None:
                     # the shard tier: the per-shard version vector this
                     # answer read, and whether default rows went into it
                     body["versions"] = {str(k): int(v)
@@ -285,6 +419,8 @@ def make_handler(serve, input_names, cascade=None):
                 self._reply(200, body)
             except Overloaded as e:
                 self._reply(429, {"error": str(e)})
+            except FleetUnavailable as e:
+                self._reply(503, {"error": str(e)})
             except (DeadlineExceeded, TimeoutError) as e:
                 self._reply(504, {"error": str(e)})
             except ValueError as e:
@@ -300,8 +436,10 @@ def make_handler(serve, input_names, cascade=None):
 def _validate_retrieve(cfg, rest) -> bool:
     """``--retrieve on|off`` (default off), with the JAX app's rules,
     checked before any model is built: ``--retrieve-shards`` needs
-    ``--retrieve on``, and with ``--serve-shards N`` the index rides
-    those N shards, so ``--retrieve-shards`` must be 0 or N."""
+    ``--retrieve on``, the cascade scores through in-process shards (no
+    ``--serve-transport tcp``, no ``--serve-shard-procs``), and with
+    ``--serve-shards N`` the index rides those N shards, so
+    ``--retrieve-shards`` must be 0 or N."""
     v = _flag(rest, "--retrieve", "off")
     if v not in ("on", "off"):
         raise ValueError(f"--retrieve expects on|off, got {v!r}")
@@ -311,6 +449,15 @@ def _validate_retrieve(cfg, rest) -> bool:
                 "--retrieve-shards does nothing without --retrieve on — "
                 "refusing to silently ignore it")
         return False
+    if cfg.serve_transport != "inproc":
+        raise SystemExit(
+            "--retrieve on requires --serve-transport inproc: the "
+            "cascade scores candidates through in-process shard calls "
+            "(the wire path for retrieval is not plumbed yet)")
+    if cfg.serve_shard_procs > 0:
+        raise SystemExit(
+            "--retrieve on is incompatible with --serve-shard-procs: "
+            "the index attaches to in-process shards")
     n = cfg.serve_shards
     if n > 0 and cfg.retrieve_shards not in (0, n):
         raise SystemExit(
@@ -396,11 +543,54 @@ def _build_cascade(cfg, dcfg, serve, shard_set=None):
     return cascade, owned
 
 
+def _restore(engine, ckpt_dir, who="serving"):
+    """The first restore through the watcher's READ-ONLY manifest scan
+    (a CheckpointManager would sweep temp files under a live trainer):
+    params only, the newest valid snapshot."""
+    if SnapshotWatcher(engine, ckpt_dir).poll_once():
+        log_app.info("%s snapshot version %d", who, engine.version)
+    else:
+        log_app.warning("%s: no restorable snapshot in %s — serving fresh "
+                        "init until the trainer publishes one", who,
+                        ckpt_dir)
+
+
+def _build_fleet(cfg, dcfg, n, ckpt_dir, cache_dir, procs):
+    """N replicas, each its own model on the card, behind a FleetRouter.
+    With a shard tier the FIRST model built seeds the one shared set;
+    every ranker then releases its own tables and resolves ids through
+    the set (the autoscaler's grown replicas too)."""
+    holder = {}
+
+    def factory(i):
+        model = build_server_model(cfg, dcfg)
+        if _wants_shard_tier(cfg):
+            if "set" not in holder:
+                holder["set"] = _build_shard_set(cfg, model, cache_dir,
+                                                 procs)
+            else:
+                EmbeddingShardSet.release_ranker_tables(model)
+        return model
+
+    fleet = Fleet.build(factory, n, ServeConfig.from_config(cfg),
+                        checkpoint_dir=ckpt_dir)
+    if holder:
+        fleet.shard_set = holder["set"]
+        for rep in fleet:
+            rep.engine.attach_shard_set(fleet.shard_set)
+    if ckpt_dir:
+        for rep in fleet:
+            _restore(rep.engine, ckpt_dir, f"replica {rep.rid}")
+    return FleetRouter(fleet, RouterConfig.from_config(cfg))
+
+
 class App:
-    """One serving app: the engine (started), its HTTP server bound to
-    ``address`` and, with ``--retrieve on``, the cascade. ``serve``
+    """One serving app: the engine or, with ``--serve-replicas`` > 1, the
+    router over its fleet (started), its HTTP server bound to
+    ``address``, with ``--serve-slo-ms`` the autoscaler, with
+    ``--retrieve on`` the cascade, and its shard processes. ``serve``
     blocks until ``shutdown`` (from another thread or a signal);
-    ``close`` releases everything."""
+    ``close`` releases everything and reaps the children."""
 
     def __init__(self, argv=None):
         from http.server import ThreadingHTTPServer
@@ -421,36 +611,56 @@ class App:
         host = _flag(rest, "--host", "0.0.0.0")
         retrieve = _validate_retrieve(cfg, rest)
         ckpt_dir = cfg.checkpoint_dir or None
-        model = build_server_model(cfg, dcfg)
-        self.shard_set = None
-        if cfg.serve_shards > 0:
-            self.shard_set = _build_shard_set(cfg, model)
-        self.engine = InferenceEngine(model, checkpoint_dir=ckpt_dir,
-                                      shard_set=self.shard_set)
-        if ckpt_dir:
-            # the first restore through the watcher's READ-ONLY manifest
-            # scan (a CheckpointManager would sweep temp files under a
-            # live trainer): params only, the newest valid snapshot
-            if SnapshotWatcher(self.engine, ckpt_dir).poll_once():
-                log_app.info("serving snapshot version %d",
-                             self.engine.version)
-            else:
-                log_app.warning(
-                    "no restorable snapshot in %s — serving fresh init "
-                    "until the trainer publishes one", ckpt_dir)
+        cache_dir = _shard_cache_dir(cfg, rest, ckpt_dir)
+        self.procs = ShardProcs()
+        self.shard_set = self.router = self.scaler = None
         self.cascade = self._index_set = None
-        if retrieve:
-            self.cascade, self._index_set = _build_cascade(
-                cfg, dcfg, self.engine, self.shard_set)
-        if self.shard_set is not None:
-            # no autoscaler drives the shards' health: the set probes,
-            # re-admits and replaces on its own thread
-            self.shard_set.start_health()
-        self.engine.start()
-        self.httpd = ThreadingHTTPServer(
-            (host, port), make_handler(
-                self.engine, [t.name for t in model.input_tensors],
-                cascade=self.cascade))
+        self.httpd = None
+        try:
+            n = cfg.serve_replicas
+            if n > 1:
+                self.router = _build_fleet(cfg, dcfg, n, ckpt_dir,
+                                           cache_dir, self.procs)
+                self.shard_set = self.router.fleet.shard_set
+                self.engine = self.router.fleet.replicas[0].engine
+                model = self.engine.model
+                serve = self.router
+            else:
+                model = build_server_model(cfg, dcfg)
+                if _wants_shard_tier(cfg):
+                    self.shard_set = _build_shard_set(cfg, model,
+                                                      cache_dir, self.procs)
+                self.engine = InferenceEngine(model,
+                                              checkpoint_dir=ckpt_dir,
+                                              shard_set=self.shard_set)
+                if ckpt_dir:
+                    _restore(self.engine, ckpt_dir)
+                serve = self.engine
+            if retrieve:
+                self.cascade, self._index_set = _build_cascade(
+                    cfg, dcfg, serve, self.shard_set)
+            # the autoscaler over the fleet: fleet mode only, a single
+            # engine has nothing to grow
+            if n > 1 and cfg.serve_slo_ms > 0:
+                self.scaler = Autoscaler(self.router,
+                                         AutoscaleConfig.from_config(cfg))
+                log_app.info("autoscaler on: SLO %.0f ms, %d..%d replicas",
+                             cfg.serve_slo_ms, cfg.serve_min_replicas,
+                             cfg.serve_max_replicas)
+            if self.shard_set is not None and self.scaler is None:
+                # no autoscaler drives the shards' health: the set
+                # probes, re-admits and replaces on its own thread
+                self.shard_set.start_health()
+            serve.start()
+            if self.scaler is not None:
+                self.scaler.start()
+            self.httpd = ThreadingHTTPServer(
+                (host, port), make_handler(
+                    serve, [t.name for t in model.input_tensors],
+                    cascade=self.cascade))
+        except BaseException:
+            self.close()
+            raise
         self.address = self.httpd.server_address[:2]
 
     def serve(self):
@@ -463,12 +673,21 @@ class App:
 
     def close(self):
         from ...obs import trace as obstrace
-        self.httpd.server_close()
-        self.engine.close()
-        if self.shard_set is not None:
-            self.shard_set.close()      # stops its health thread first
-        if self._index_set is not None:
-            self._index_set.close()
+        try:
+            if self.httpd is not None:
+                self.httpd.server_close()
+            if self.scaler is not None:
+                self.scaler.close()
+            if self.router is not None:
+                self.router.close()
+            elif getattr(self, "engine", None) is not None:
+                self.engine.close()
+            if self.shard_set is not None:
+                self.shard_set.close()   # stops its health thread first
+            if self._index_set is not None:
+                self._index_set.close()
+        finally:
+            self.procs.stop()
         path = obstrace.export_to_dir()
         if path:
             log_app.info("exported serving trace to %s", path)

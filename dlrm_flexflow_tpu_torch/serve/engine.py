@@ -39,11 +39,20 @@ pays a first call) and the padding is sliced off before the response.
   reload counters, the cache and the tier), ``healthz()`` for a load
   balancer, and with ``--obs on`` the JAX engine's ``ff_serve_*``
   series and ``serve/...`` spans.
+- **Fleet hooks**: ``replica_id``, ``queue_depth``, ``alive()``, the
+  batcher's :class:`~..utils.watchdog.Heartbeat` (``heartbeat_age``),
+  ``drain_pending`` and ``state_snapshot``: what ``serve/fleet.py``'s
+  ``Replica`` and ``serve/router.py``'s ``FleetRouter`` read.
+  ``FF_FAULT_REPLICA_DOWN`` fails a replica's dispatches with
+  :class:`ReplicaDown`; ``FF_FAULT_SERVE_DELAY`` slows them.
+- **The process boundary**: ``serve()`` puts the engine behind a wire
+  server (``serve/transport.py`` ``EngineServer``) and
+  ``serve_forever()`` is the body of a ranker-replica process, which a
+  router reaches through ``RemoteEngineClient``.
 
 The batcher thread launches the model's kernels on its current CUDA
-stream; copying the scores to the host is the synchronisation. The JAX
-engine's fleet hooks and wire transport (``serve()``,
-``serve_forever``) are ROADMAP queue 1 item 9.4 and raise.
+stream; copying the scores to the host is the synchronisation. Replicas
+sharing a card each launch on their batcher thread's current stream.
 """
 
 from __future__ import annotations
@@ -63,7 +72,9 @@ from ..data.dataloader import coalesce_batches
 from ..obs import metrics as obsm
 from ..obs import trace as obstrace
 from ..obs.metrics import percentile  # noqa: F401 — re-exported
+from ..utils import faults
 from ..utils.logging import get_logger
+from ..utils.watchdog import Heartbeat
 from .cache import EmbeddingCache
 
 log_serve = get_logger("serve")
@@ -84,6 +95,19 @@ class Overloaded(RuntimeError):
 
 class DeadlineExceeded(TimeoutError):
     """A request missed its per-request deadline while queued."""
+
+
+class ReplicaDown(RuntimeError):
+    """This replica is gone: a crash (``FF_FAULT_REPLICA_DOWN``), a dead
+    batcher or its process, or the router's circuit breaker draining an
+    ejected replica's queue. Retryable: the fleet router re-routes the
+    request to a surviving replica."""
+
+    def __init__(self, replica_id: Optional[int] = None, detail: str = ""):
+        rid = "?" if replica_id is None else replica_id
+        super().__init__(f"serving replica {rid} is down"
+                         + (f": {detail}" if detail else ""))
+        self.replica_id = replica_id
 
 
 class Prediction(NamedTuple):
@@ -118,10 +142,6 @@ class ServeConfig:
 
     @staticmethod
     def from_config(cfg) -> "ServeConfig":
-        if cfg.serve_replicas > 1:
-            raise NotImplementedError(
-                "the serving fleet (--serve-replicas) is not ported yet "
-                "(ROADMAP queue 1 item 9.4)")
         return ServeConfig(
             max_batch=int(cfg.serve_max_batch),
             max_delay_ms=float(cfg.serve_max_delay_ms),
@@ -157,11 +177,15 @@ class InferenceEngine:
     """
 
     def __init__(self, model, config: Optional[ServeConfig] = None,
-                 checkpoint_dir: Optional[str] = None, shard_set=None):
+                 checkpoint_dir: Optional[str] = None,
+                 replica_id: Optional[int] = None, shard_set=None):
         if model.params is None:
             raise ValueError("InferenceEngine needs an initialized model "
                              "(init_layers() or swap_params())")
         self._model = model
+        # the fleet's name for this engine (None: a lone engine); fault
+        # hooks, thread names and metric labels key on it
+        self.replica_id = replica_id
         # the row-sharded lookup tier: when set, host-table ids resolve
         # through it (fronted by the row cache), publishes' host rows
         # route to its shards, and responses carry its version vector
@@ -206,12 +230,11 @@ class InferenceEngine:
         self._applied_any = False
         # stats have their own lock: stats() readers race the batcher
         self._stats_lock = threading.Lock()
-        # the JAX engine's series carry its fleet replica id; a lone
-        # engine's is ""
+        # the series carry the fleet replica id; a lone engine's is ""
         self._lat_ms = obsm.latency_reservoir(
             "ff_serve_request_latency_ms",
             "end-to-end request latency at the engine", maxlen=4096,
-            replica="")
+            replica="" if replica_id is None else str(replica_id))
         self._n_requests = 0
         self._n_responses = 0
         self._n_overloaded = 0
@@ -227,6 +250,13 @@ class InferenceEngine:
         self._last_versions: Dict[int, int] = {}
         self._warmup_s = 0.0
         self._flushes = {"continuous": 0, "size": 0, "deadline": 0}
+        # the batcher beats once around its loop; the router ejects a
+        # replica whose heartbeat goes stale (a wedged dispatch)
+        self._heartbeat = Heartbeat(self._thread_name())
+
+    def _thread_name(self) -> str:
+        return ("ff-serve-batcher" if self.replica_id is None
+                else f"ff-serve-batcher-{self.replica_id}")
 
     # --- lifecycle -----------------------------------------------------
     def start(self) -> "InferenceEngine":
@@ -240,7 +270,7 @@ class InferenceEngine:
                 self._buckets, **self._gather_kw())
         self._prewarm_cache()
         self._thread = threading.Thread(target=self._batcher, daemon=True,
-                                        name="ff-serve-batcher")
+                                        name=self._thread_name())
         self._thread.start()
         # the stats() counters as scrapeable series (no-op with obs off)
         obsm.register_collector(self._obs_collect)
@@ -252,18 +282,20 @@ class InferenceEngine:
         return self
 
     def serve(self, host: str = "127.0.0.1", port: int = 0):
-        """The JAX engine's wire server (predict / health / stats over a
-        socket): not ported yet."""
-        raise NotImplementedError(
-            "InferenceEngine.serve(): the wire transport is not ported "
-            "yet (ROADMAP queue 1 item 9.4); examples/native/serve_dlrm.py "
-            "serves the engine over HTTP")
+        """This engine's dispatch surface (predict, health, stats, probe)
+        on a wire socket: the started :class:`~.transport.EngineServer`
+        (its ``address`` holds the port the system chose for
+        ``port=0``). The engine must be started."""
+        from .transport import EngineServer
+        return EngineServer(self, host=host, port=port).start()
 
-    def serve_forever(self, host: str = "127.0.0.1", port: int = 0):
-        """The JAX ranker-replica process body: not ported yet."""
-        raise NotImplementedError(
-            "InferenceEngine.serve_forever(): the wire transport is not "
-            "ported yet (ROADMAP queue 1 item 9.4)")
+    def serve_forever(self, host: str = "127.0.0.1",
+                      port: int = 0) -> None:
+        """This engine as a blocking socket server: the body of a
+        ranker-replica process, reached through
+        :class:`~.transport.RemoteEngineClient`."""
+        from .transport import EngineServer
+        EngineServer(self, host=host, port=port).serve_forever()
 
     def close(self, deadline_s: float = 10.0) -> None:
         """Drain the queue (pending requests still get answers), stop
@@ -363,9 +395,11 @@ class InferenceEngine:
             flush = "continuous"
             t_form = time.perf_counter()
             with self._cond:
+                self._heartbeat.beat()
                 while (not self._q and not self._closing
                         and not self._pending):
                     self._cond.wait(0.1)
+                    self._heartbeat.beat()
                 if not self._q and self._closing:
                     return
                 if not self._q:   # woken only to apply a parked install
@@ -382,6 +416,7 @@ class InferenceEngine:
                         if left <= 0:
                             break
                         self._cond.wait(left)
+                        self._heartbeat.beat()
                     flush = ("size" if self._q_rows >= self.max_batch
                              else "deadline")
                 rows = 0
@@ -596,6 +631,11 @@ class InferenceEngine:
                 live.append(r)
         if not live:
             return
+        # a crashed replica answers nothing: ReplicaDown fails the whole
+        # batch and the fleet router re-routes every request
+        if faults.take_replica_down(self.replica_id):
+            raise ReplicaDown(self.replica_id, "fault injection")
+        faults.maybe_serve_delay(self.replica_id)
         batch = coalesce_batches([r.features for r in live])
         n = sum(r.rows for r in live)
         bucket = next(b for b in self._buckets if b >= n)
@@ -798,6 +838,29 @@ class InferenceEngine:
                 self._cache.invalidate_rows(key.split("/")[1],
                                             np.asarray(idx))
 
+    def state_snapshot(self) -> tuple:
+        """(state, version) of what this engine serves: the newest parked
+        FULL install when there is one (it is the next batch's weights),
+        else the model's current parameters, by reference. The fleet's
+        rollback capture and canary promotion read through this. With a
+        shard set the host tables are the tier's, not the ranker's:
+        ``host_params`` is None."""
+        m = self._model
+        host = None if self._shard_set is not None else m.host_params
+        with self._swap_lock:
+            pending = self._pending
+            if pending and pending[-1][0] == "full":
+                _, state, version, _, _ = pending[-1]
+                if self._shard_set is None and \
+                        state.get("host_params") is not None:
+                    host = state["host_params"]
+                return ({"params": state.get("params", m.params),
+                         "host_params": host,
+                         "op_state": state.get("op_state") or {}},
+                        version)
+        return ({"params": m.params, "host_params": host, "op_state": {}},
+                self._applied_version)
+
     def record_reload_reject(self, reason: str) -> None:
         self._reload_rejects += 1
         self._last_reject = reason
@@ -828,6 +891,46 @@ class InferenceEngine:
     @property
     def model(self):
         return self._model
+
+    # --- fleet hooks (serve/fleet.py, serve/router.py) -----------------
+    @property
+    def queue_depth(self) -> int:
+        """Requests queued now: the router's load-balancing signal."""
+        return len(self._q)
+
+    def alive(self) -> bool:
+        """True while the batcher runs and the engine is started and not
+        draining."""
+        t = self._thread
+        return bool(self._started and not self._closing
+                    and t is not None and t.is_alive())
+
+    def heartbeat_age(self) -> float:
+        """Seconds since the batcher last went around its loop: past the
+        dispatch latency only when it is wedged."""
+        return self._heartbeat.age()
+
+    @property
+    def heartbeat(self) -> Heartbeat:
+        return self._heartbeat
+
+    def drain_pending(self, exc: Optional[BaseException] = None) -> int:
+        """Fail every queued (not yet dispatched) request with ``exc``
+        (default: this replica's ReplicaDown) and empty the queue: the
+        router's ejection, whose retries re-route them to survivors.
+        Returns how many were failed."""
+        if exc is None:
+            exc = ReplicaDown(self.replica_id, "queue drained on ejection")
+        with self._cond:
+            taken = list(self._q)
+            self._q.clear()
+            self._q_rows = 0
+        n = 0
+        for r in taken:
+            if not r.future.done():
+                r.future.set_exception(exc)
+                n += 1
+        return n
 
     def healthz(self) -> Dict[str, Any]:
         """Readiness for a /healthz endpoint: ``ok`` is False while the
@@ -861,7 +964,8 @@ class InferenceEngine:
     def _obs_collect(self):
         """Registry collector: the stats() counters as scrapeable
         samples, read through at scrape time."""
-        lab = {"replica": ""}
+        lab = {"replica": ("" if self.replica_id is None
+                           else str(self.replica_id))}
         yield "ff_serve_requests_total", lab, self._n_requests
         yield "ff_serve_responses_total", lab, self._n_responses
         yield "ff_serve_overloaded_total", lab, self._n_overloaded
@@ -908,6 +1012,8 @@ class InferenceEngine:
             "flushes": flushes,
             "continuous": self.config.continuous,
         })
+        if self.replica_id is not None:
+            out["replica_id"] = self.replica_id
         if self._shard_set is not None:
             out["degraded_responses"] = self._n_degraded
             out["shard_versions"] = dict(self._last_versions)

@@ -34,10 +34,16 @@ instead. Replace-dead boots a replacement from the warm cache
 (``utils.warmcache.ShardCache``), replays the publishes it missed from
 the set's history, and admits it only when its probe succeeds.
 
-Everything here runs in one process ("inproc"). Shard processes behind
-the wire transport (``connect``, ``EmbeddingShard.serve``,
-``serve_forever``, ``transport="tcp"``) are ROADMAP queue 1 item 9.4 and
-raise.
+**The process boundary.** ``EmbeddingShard.serve`` puts a shard behind
+a wire server (``serve/transport.py`` ``ShardServer``);
+``serve_forever`` is the body of a shard process
+(``python -m dlrm_flexflow_tpu_torch.serve.shard_server``, booted from
+the warm cache :meth:`EmbeddingShardSet.seed_shard_cache` writes).
+:meth:`EmbeddingShardSet.connect` builds the tier over such processes
+(``transport="tcp"``): one ``RemoteShard`` a slot, driven by the same
+breaker, degradation, publish fan-out and replace-dead as a local
+shard; a killed process is replaced by an in-process shard booted from
+the same warm cache.
 """
 
 from __future__ import annotations
@@ -62,9 +68,6 @@ from ..utils.watchdog import Deadline
 from .fleet import EJECTED, HEALTHY, PROBING, CircuitBreaker
 
 log_shard = get_logger("serve.shardtier")
-
-_ITEM_94 = "ROADMAP queue 1 item 9.4"
-
 
 class ShardDown(RuntimeError):
     """This lookup shard is gone: a crash (``FF_FAULT_SHARD_DOWN``) or
@@ -106,7 +109,7 @@ class ShardTierConfig:
     replace_after: int = 2            # failed probes -> replace-dead
     degrade: str = "cache"            # cache (default rows) | fail
     failure_domains: int = 0          # spread shards over N domains
-    transport: str = "inproc"         # inproc (method calls); tcp: 9.4
+    transport: str = "inproc"         # inproc (method calls) | tcp
 
     def __post_init__(self):
         if self.nshards < 1:
@@ -114,11 +117,7 @@ class ShardTierConfig:
         if self.degrade not in ("cache", "fail"):
             raise ValueError(
                 f"degrade must be 'cache' or 'fail', got {self.degrade!r}")
-        if self.transport == "tcp":
-            raise NotImplementedError(
-                f"the shard tier's tcp transport (shard processes) is not "
-                f"ported yet ({_ITEM_94}); use transport='inproc'")
-        if self.transport != "inproc":
+        if self.transport not in ("inproc", "tcp"):
             raise ValueError(f"transport must be 'inproc' or 'tcp', got "
                              f"{self.transport!r}")
 
@@ -207,6 +206,17 @@ def _table_bounds(op, flat_rows: int) -> List[Tuple[int, int]]:
     tables = int(getattr(op, "num_tables", 1))
     rows = flat_rows // max(tables, 1)
     return [(t * rows, (t + 1) * rows) for t in range(tables)]
+
+
+def _parse_address(addr) -> Tuple[str, int]:
+    """``"host:port"`` or ``(host, port)`` -> ``(host, port)``."""
+    if isinstance(addr, (tuple, list)) and len(addr) == 2:
+        return str(addr[0]), int(addr[1])
+    s = str(addr)
+    host, sep, port = s.rpartition(":")
+    if not sep or not host or not port.isdigit():
+        raise ValueError(f"shard address {addr!r} is not host:port")
+    return host, int(port)
 
 
 def _tier_layout(model, nshards: int) -> Dict[str, Any]:
@@ -561,16 +571,22 @@ class EmbeddingShard:
             "hbm_bytes": self.hbm_bytes(),
         }
 
-    # --- the process boundary (item 9.4) ---------------------------------
+    # --- the process boundary -------------------------------------------
     def serve(self, host: str = "127.0.0.1", port: int = 0):
-        raise NotImplementedError(
-            f"EmbeddingShard.serve(): shard processes behind the wire "
-            f"transport are not ported yet ({_ITEM_94})")
+        """This shard's serving surface (lookup, publish, install, probe,
+        stats) on a wire socket: the started
+        :class:`~.transport.ShardServer` (its ``address`` holds the port
+        the system chose for ``port=0``)."""
+        from .transport import ShardServer
+        return ShardServer(self, host=host, port=port).start()
 
-    def serve_forever(self, host: str = "127.0.0.1", port: int = 0):
-        raise NotImplementedError(
-            f"EmbeddingShard.serve_forever(): shard processes are not "
-            f"ported yet ({_ITEM_94})")
+    def serve_forever(self, host: str = "127.0.0.1",
+                      port: int = 0) -> None:
+        """This shard as a blocking socket server: the body of a shard
+        process (``python -m dlrm_flexflow_tpu_torch.serve.
+        shard_server``)."""
+        from .transport import ShardServer
+        ShardServer(self, host=host, port=port).serve_forever()
 
 
 class ShardReplica(CircuitBreaker):
@@ -714,7 +730,7 @@ class EmbeddingShardSet:
                          config: Optional[ShardTierConfig] = None):
         """Slice ``model`` once and persist every slot's blocks and the
         tier-geometry sidecar into ``cache_dir``: the boot source of
-        shard processes (item 9.4) and of replacements. Returns the
+        shard processes and of replacements. Returns the
         :class:`~..utils.warmcache.ShardCache`."""
         from ..utils.warmcache import ShardCache
         config = config or ShardTierConfig(nshards=nshards)
@@ -728,12 +744,85 @@ class EmbeddingShardSet:
         return cache
 
     @classmethod
-    def connect(cls, addresses, config=None, cache_dir=None, meta=None):
-        """The JAX package's tier over shard processes: not ported yet."""
-        raise NotImplementedError(
-            f"EmbeddingShardSet.connect(): shard processes over the wire "
-            f"transport are not ported yet ({_ITEM_94}); build an "
-            f"in-process set with EmbeddingShardSet.build")
+    def connect(cls, addresses: List[Any],
+                config: Optional[ShardTierConfig] = None,
+                cache_dir: Optional[str] = None,
+                meta: Optional[Dict[str, Any]] = None
+                ) -> "EmbeddingShardSet":
+        """The lookup tier over shard PROCESSES: one
+        :class:`~.transport.RemoteShard` per ``host:port`` (or
+        ``(host, port)``) address, slot = list position. The geometry
+        comes from ``meta`` or the ``cache_dir`` sidecar
+        (:meth:`seed_shard_cache`); each shard is probed once here, so an
+        unreachable process fails now, naming its slot. With
+        ``cache_dir`` a killed shard process is replaced by an in-process
+        shard booted from the same warm cache."""
+        from .transport import RemoteShard, WireClient, WireError
+        if not addresses:
+            raise ValueError("connect() needs at least one shard address")
+        nshards = len(addresses)
+        config = config or ShardTierConfig(nshards=nshards,
+                                           transport="tcp")
+        config.nshards = nshards
+        cache = None
+        if cache_dir:
+            from ..utils.warmcache import ShardCache
+            cache = ShardCache(cache_dir)
+        if meta is None:
+            if cache is None:
+                raise ValueError(
+                    "connect() needs the tier geometry: pass meta= or "
+                    "cache_dir= (seed it with seed_shard_cache)")
+            meta = cache.get_meta(nshards)
+            if meta is None:
+                raise ValueError(
+                    f"no tier meta for {nshards} shard(s) in "
+                    f"{cache_dir!r}: {cache.last_reject or 'missing'} — "
+                    f"run seed_shard_cache first")
+        if cache is not None:
+            cache.fingerprint = str(meta.get("fingerprint", ""))
+        ranges_by_op = {k: [(int(lo), int(hi)) for lo, hi in v]
+                        for k, v in meta["ranges"].items()}
+        flat_rows = {k: int(v) for k, v in meta["flat_rows"].items()}
+        dims = {k: int(v) for k, v in meta["dims"].items()}
+        bounds = {k: [(int(lo), int(hi)) for lo, hi in v]
+                  for k, v in meta["bounds"].items()}
+        defaults = {k: np.asarray(v, np.float32)
+                    for k, v in meta["defaults"].items()}
+        qmap = {str(k): str(v)
+                for k, v in (meta.get("quant") or {}).items()}
+        domains = list(meta.get("domains") or [""] * nshards)
+        lookup_s = max(config.lookup_deadline_ms / 1e3, 0.001)
+        shards = []
+        try:
+            for slot, addr in enumerate(addresses):
+                host, port = _parse_address(addr)
+                client = WireClient(
+                    (host, port), seam="lookup", retries=config.retries,
+                    backoff_ms=config.backoff_ms,
+                    default_deadline_s=max(10.0, lookup_s),
+                    name=f"shard{slot}")
+                remote = RemoteShard(slot, slot, client,
+                                     domain=domains[slot], quant=qmap,
+                                     lookup_deadline_s=lookup_s)
+                shards.append(ShardReplica(remote))
+                try:
+                    remote.refresh()   # fail fast on a dead process
+                except WireError as e:
+                    raise ShardDown(slot, f"slot {slot} at {host}:{port} "
+                                          f"did not answer its probe: {e}"
+                                    ) from e
+        except BaseException:
+            for rep in shards:
+                rep.shard.close()
+            raise
+        out = cls(shards, config, ranges_by_op, flat_rows, defaults,
+                  bounds, dims, fingerprint=str(meta.get("fingerprint", "")),
+                  cache=cache)
+        out._quant = qmap
+        log_shard.info("shard set connected: %d remote shard(s) over tcp, "
+                       "version %d", nshards, out.version)
+        return out
 
     @staticmethod
     def release_ranker_tables(model) -> int:
@@ -760,6 +849,10 @@ class EmbeddingShardSet:
         obsm.unregister_collector(self._obs_collect)
         # wait=False: an abandoned (delayed) lookup must not wedge close
         self._pool.shutdown(wait=False)
+        for rep in self.shards:
+            closer = getattr(rep.shard, "close", None)
+            if closer is not None:
+                closer()   # a RemoteShard's connection pool
 
     def __enter__(self) -> "EmbeddingShardSet":
         return self
@@ -1120,6 +1213,7 @@ class EmbeddingShardSet:
             if (int(version) <= self._version and self._installed_any
                     and not self.lagging_slots()):
                 return False
+            remote_blocks = {}
             for rep in list(self.shards):
                 if rep.state == EJECTED:
                     continue   # as apply_delta
@@ -1142,12 +1236,22 @@ class EmbeddingShardSet:
                     blocks[op_name] = flat[lo:hi].copy()
                 if blocks:
                     rep.shard.install_blocks(blocks, version)
+                    if getattr(rep.shard, "remote", False):
+                        remote_blocks[rep.slot] = (blocks,
+                                                   rep.shard.chain_crc)
                 else:
                     rep.shard.apply_publish(None, version)
             self._version = max(self._version, int(version))
             self._installed_any = True
             self._history.clear()
             self._persist_all()
+            if self._cache is not None:
+                # a shard process's blocks live there, but this install's
+                # are in hand: the warm cache a replacement boots from
+                # stays at the chain anchor the history replays from
+                for slot, (blocks, crc) in remote_blocks.items():
+                    self._cache.put(self.nshards, slot, blocks,
+                                    int(version), crc)
         return True
 
     def lagging_slots(self) -> List[int]:
@@ -1164,6 +1268,10 @@ class EmbeddingShardSet:
         for rep in self.shards:
             if rep.state == EJECTED:
                 continue   # don't clobber the entry with stale blocks
+            if getattr(rep.shard, "remote", False):
+                # a shard process's blocks live there; its boot source,
+                # the seeded cache, already covers a replacement
+                continue
             blocks, ver, crc = rep.shard.blocks_copy()
             self._cache.put(self.nshards, rep.slot, blocks, ver, crc)
 

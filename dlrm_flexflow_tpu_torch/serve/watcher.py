@@ -29,9 +29,14 @@ Transient IO is retried by ``read_with_retries``; consecutive failing
 polls back off exponentially with jitter up to ``backoff_max_s``, and a
 poll that installs something returns to the base interval.
 ``stats()`` shows the polls, failures, delta installs and fallbacks.
-The JAX watcher's wire mode (a publish directory in another process,
-ROADMAP queue 1 item 9.4) and cross-mesh reshard (item 7) are not
-ported.
+
+**Wire mode** (``wire=`` a ``serve/transport.py``
+``SnapshotWireSource``): the publish directory lives in another process
+(a ``SnapshotServer``); manifest polls and file reads go over the wire
+with their own retry and backoff, and fetched files spool into the
+source's local directory, so the loaders' zip validation and chain CRCs
+run unchanged on local paths. The JAX watcher's cross-mesh reshard is
+ROADMAP queue 1 item 7.
 """
 
 from __future__ import annotations
@@ -60,9 +65,14 @@ class SnapshotWatcher:
     MANIFEST = "manifest.json"
 
     def __init__(self, engine, directory: str, poll_s: float = 0.5,
-                 backoff_max_s: float = 30.0):
+                 backoff_max_s: float = 30.0, wire=None):
         self._engine = engine
         self.directory = os.path.abspath(directory)
+        # wire mode: the files are read through ``wire`` and spooled to
+        # its local directory, where the loaders find them
+        self._wire = wire
+        self._fs_dir = (self.directory if wire is None
+                        else os.path.abspath(wire.spool_dir))
         self.poll_s = max(float(poll_s), 0.01)
         self.backoff_max_s = max(float(backoff_max_s), self.poll_s)
         self._fingerprint = config_fingerprint(engine.model)
@@ -114,6 +124,9 @@ class SnapshotWatcher:
             self._chain_fallbacks
         yield "ff_watcher_consecutive_failures", lab, \
             self._consecutive_failures
+        if self._wire is not None:
+            yield "ff_watcher_wire_retries_total", lab, \
+                self._wire.wire_retries
 
     def stop(self) -> None:
         obsm.unregister_collector(self._obs_collect)
@@ -158,6 +171,14 @@ class SnapshotWatcher:
 
     # --- manifest read -------------------------------------------------
     def _read_manifest(self) -> Optional[Dict[str, Any]]:
+        if self._wire is not None:
+            try:
+                m = self._wire.read_manifest()
+            except Exception as e:   # noqa: BLE001 — wire budget spent
+                self._record_failure(
+                    f"manifest unreadable over the wire: {e}")
+                return None
+            return m if isinstance(m, dict) else None
         path = os.path.join(self.directory, self.MANIFEST)
         if not os.path.isfile(path):
             return None   # nothing published yet, not a failure
@@ -175,13 +196,28 @@ class SnapshotWatcher:
             return None
         return m if isinstance(m, dict) else None
 
+    def _fetch_local(self, name: str) -> Optional[str]:
+        """A published file's local path: in the publish directory, or in
+        wire mode the spooled copy (a failed fetch reads as a missing
+        file, which the callers already skip)."""
+        if not name:
+            return None
+        if self._wire is None:
+            return os.path.join(self.directory, name)
+        try:
+            return self._wire.fetch_file(name)
+        except Exception as e:   # noqa: BLE001 — wire budget spent
+            self._record_failure(
+                f"fetch of {name} over the wire failed: {e}")
+            return None
+
     def _latest_valid(self, entries: list) -> Optional[Dict[str, Any]]:
         """The newest entry that exists, matches this model's
         fingerprint and checksums clean (read-only)."""
         for entry in sorted(entries,
                             key=lambda e: e.get("step", -1), reverse=True):
-            path = os.path.join(self.directory, entry.get("file", ""))
-            if not entry.get("file") or not os.path.isfile(path):
+            path = self._fetch_local(entry.get("file", ""))
+            if path is None or not os.path.isfile(path):
                 continue
             fp = entry.get("fingerprint")
             if fp not in (None, self._fingerprint):
@@ -232,9 +268,26 @@ class SnapshotWatcher:
         key = ("chain", tip_step)
         if key in self._rejected:
             return False   # already fell back for this tip
+        if self._wire is not None:
+            # spool every file the chain could touch (the deltas and the
+            # candidate bases) so resolve_chain checks local copies; a
+            # failed fetch falls back like any other chain problem
+            try:
+                for e in deltas:
+                    if e.get("file"):
+                        self._wire.fetch_file(e["file"])
+                for e in (manifest.get("entries") or []):
+                    if isinstance(e, dict) and e.get("file"):
+                        self._wire.fetch_file(e["file"])
+            except Exception as e:   # noqa: BLE001 — wire budget spent
+                self._chain_fallbacks += 1
+                self._reject_once(
+                    key, f"delta chain fetch over the wire failed: {e} — "
+                         f"falling back to full reload")
+                return False
         try:
             base_entry, chain = resolve_chain(manifest, self._fingerprint,
-                                              self.directory)
+                                              self._fs_dir)
         except ChainError as e:
             self._chain_fallbacks += 1
             self._reject_once(
@@ -272,14 +325,13 @@ class SnapshotWatcher:
             # rows' copy to the device
             payloads = []
             for e in pending:
-                path = os.path.join(self.directory, e["file"])
+                path = os.path.join(self._fs_dir, e["file"])
                 payload = read_with_retries(
                     lambda p=path: load_delta_file(p), site="delta_reload")
                 payloads.append(stage_delta_rows(self._engine.model,
                                                  payload))
             if need_base:
-                base_path = os.path.join(self.directory,
-                                         base_entry["file"])
+                base_path = os.path.join(self._fs_dir, base_entry["file"])
                 faults.maybe_corrupt_reload(base_path)
                 self._engine.install_snapshot(
                     self._load_full(base_path), base_step,
@@ -314,14 +366,19 @@ class SnapshotWatcher:
     # --- full-snapshot path ---------------------------------------------
     def _try_full(self, manifest: Dict[str, Any]) -> bool:
         entries = manifest.get("entries")
-        entry = self._latest_valid(entries if isinstance(entries, list)
-                                   else [])
+        entries = entries if isinstance(entries, list) else []
+        if self._wire is not None:
+            # spool only snapshots that could install: each wire fetch
+            # reads the whole file again
+            entries = [e for e in entries if isinstance(e, dict)
+                       and int(e.get("step", -1)) > self._engine.version]
+        entry = self._latest_valid(entries)
         if entry is None:
             return False
         step = int(entry.get("step", -1))
         if step <= self._engine.version:
             return False
-        path = os.path.join(self.directory, entry["file"])
+        path = os.path.join(self._fs_dir, entry["file"])
         # fault window: the file torn AFTER the CRC check and BEFORE the
         # load below; the load must reject it
         faults.maybe_corrupt_reload(path)
@@ -347,4 +404,8 @@ class SnapshotWatcher:
                 "delta_installs": self._delta_installs,
                 "chain_fallbacks": self._chain_fallbacks,
                 "reload_failures": self._reload_failures,
-                "last_reload_error": self._last_reload_error}
+                "last_reload_error": self._last_reload_error,
+                "wire_retries": (0 if self._wire is None
+                                 else self._wire.wire_retries),
+                "last_wire_error": ("" if self._wire is None
+                                    else self._wire.last_wire_error)}

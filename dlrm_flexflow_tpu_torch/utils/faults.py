@@ -1,7 +1,7 @@
 """Deterministic fault injection for resilience testing (own copy of the
 part of ``dlrm_flexflow_tpu.utils.faults`` that the training step, the
-checkpoint, data, prefetch, feedback-spool, delta-publish and
-hot-reload modules call).
+checkpoint, data, prefetch, feedback-spool, delta-publish, hot-reload,
+serving-fleet and wire-transport modules call).
 
 Failures are injected at fixed, reproducible points so every recovery
 branch runs under test:
@@ -41,6 +41,21 @@ branch runs under test:
   serving hot reload is about to load it; the reload must reject it.
 - **Poisoned reloads** (`poison_reloads`): scale the float parameters
   of a loaded snapshot (a valid file, garbage weights).
+- **Replica crash** (`replica_down`): every dispatch and probe of a
+  serving replica raises ``ReplicaDown``; the fleet router must eject
+  it, drain its queue onto the survivors and, with a finite budget,
+  re-admit it. Not consume-once by default: a crashed process stays
+  crashed until the budget (if any) runs out.
+- **Serving delay** (`serve_delay_s`, per replica
+  `serve_delay_replica`): sleep inside every batch dispatch, so one
+  replica can be made slow while its siblings stay fast.
+- **Network faults** (`net_drop`, `net_dup`, `net_reorder`,
+  `net_slow_ms`), applied by ``serve/transport.py`` against real frames
+  on a named seam (``lookup``, ``dispatch``, ``publish``, ``manifest``
+  or ``any``): a dropped frame is a transient error the client's retry
+  absorbs, a duplicated one must be answered from the server's
+  request-id dedup window, a reordered one is held until a later frame
+  is handled, a slow link sleeps before every frame.
 
 Faults are consume-once: each injection decrements its budget. Activate
 them programmatically::
@@ -76,9 +91,20 @@ or from the environment (read once, at the first hook call):
 - ``FF_FAULT_TOPK_DROP=1``         shard 1's top-k raises for good;
   ``1:3`` fails its next 3, then recovers
 
-The JAX package's other hooks (device loss and return, fleet, network,
-quantized-scale and sketch faults) wait for the modules they drive
-(ROADMAP queue 1 items 5, 7, 8 and 9.4): their ``FF_FAULT_*`` keys, and
+- ``FF_FAULT_SERVE_DELAY=0.05``    sleep 50 ms inside every serving
+  batch dispatch; ``1:0.2`` delays only replica 1, and ``0.05,1:0.2``
+  combines them
+- ``FF_FAULT_REPLICA_DOWN=1``      serving replica 1 is dead (every
+  dispatch and probe raises); ``1:8`` fails its next 8 attempts, then
+  recovers
+- ``FF_FAULT_NET_DROP=lookup:0.3`` drop each lookup frame with
+  probability 0.3 (a seeded draw); ``FF_FAULT_NET_DUP=seam:n``,
+  ``FF_FAULT_NET_REORDER=seam:n`` duplicate or reorder the seam's next
+  n frames; ``FF_FAULT_NET_SLOW=seam:ms`` adds ms to every frame
+
+The JAX package's other hooks (device loss and return, the stalled
+collective, quantized-scale and sketch faults) wait for the modules they
+drive (ROADMAP queue 1 items 5, 7 and 8): their ``FF_FAULT_*`` keys, and
 unknown ones, are a warning here, never a silent no-op. A malformed
 value raises ``ValueError`` naming the variable.
 """
@@ -157,6 +183,23 @@ class FaultPlan:
     # shard id -> failed top-k calls left: only the retrieval surface
     # dies, lookups keep serving (budgets as shard_down)
     topk_drop: Dict[int, int] = field(default_factory=dict)
+    # seconds to sleep inside EVERY serving batch dispatch (not
+    # consume-once); per-replica entries override it for one replica
+    serve_delay_s: float = 0.0
+    serve_delay_replica: Dict[int, float] = field(default_factory=dict)
+    # replica id -> failed dispatches left: the engine raises ReplicaDown
+    # from its dispatch; -1 = dead until the plan clears, N > 0 = the
+    # next N attempts fail, then it recovers
+    replica_down: Dict[int, int] = field(default_factory=dict)
+    # the wire transport's faults, by seam ("lookup", "dispatch",
+    # "publish", "manifest" or "any"): the probability each frame is
+    # dropped before it is sent; frames left to send twice under one
+    # request id; frames left for the server to hold until a later one
+    # is handled; milliseconds slept before every frame
+    net_drop: Dict[str, float] = field(default_factory=dict)
+    net_dup: Dict[str, int] = field(default_factory=dict)
+    net_reorder: Dict[str, int] = field(default_factory=dict)
+    net_slow_ms: Dict[str, float] = field(default_factory=dict)
     # record of (hook, detail) actually fired, for test assertions
     fired: List[tuple] = field(default_factory=list)
 
@@ -165,6 +208,9 @@ class FaultPlan:
         # the feedback-loss draws: the same plan drops the same offers,
         # with the JAX package's seed
         self._fb_rng = random.Random(0xFEED)
+        # the frame-drop draws, with the JAX package's seed: the same
+        # plan drops the same frames in the same order
+        self._net_rng = random.Random(0xF0F0)
 
     def _record(self, hook: str, detail) -> None:
         self.fired.append((hook, detail))
@@ -186,16 +232,22 @@ _ENV_BUDGETS = {"FF_FAULT_TRUNCATE_CKPTS": "truncate_checkpoints",
 # the shard tier's per-shard lists ('sid:value,...')
 _ENV_SHARD_KEYS = ("FF_FAULT_SHARD_DOWN", "FF_FAULT_LOOKUP_DELAY",
                    "FF_FAULT_INDEX_STALE", "FF_FAULT_TOPK_DROP")
+# the fleet's per-replica lists and the wire's per-seam lists
+_ENV_REPLICA_KEYS = ("FF_FAULT_SERVE_DELAY", "FF_FAULT_REPLICA_DOWN")
+_ENV_NET_KEYS = ("FF_FAULT_NET_DROP", "FF_FAULT_NET_DUP",
+                 "FF_FAULT_NET_REORDER", "FF_FAULT_NET_SLOW")
 _ENV_KEYS = ("FF_FAULT_NAN_STEPS", "FF_FAULT_WRITE_DELAY",
              "FF_FAULT_IO_ERRORS", "FF_FAULT_FEEDBACK_LOSS") \
-    + tuple(_ENV_BUDGETS) + _ENV_SHARD_KEYS
+    + tuple(_ENV_BUDGETS) + _ENV_SHARD_KEYS + _ENV_REPLICA_KEYS \
+    + _ENV_NET_KEYS
 # keys of the JAX package's plan whose hooks are not ported yet
 _UNPORTED_ENV_KEYS = (
     "FF_FAULT_DROP_DEVICE", "FF_FAULT_RETURN_DEVICE",
-    "FF_FAULT_STALL_COLLECTIVE", "FF_FAULT_SERVE_DELAY",
-    "FF_FAULT_REPLICA_DOWN", "FF_FAULT_QUANT_SCALE", "FF_FAULT_NET_DROP",
-    "FF_FAULT_NET_DUP", "FF_FAULT_NET_REORDER", "FF_FAULT_NET_SLOW",
+    "FF_FAULT_STALL_COLLECTIVE", "FF_FAULT_QUANT_SCALE",
     "FF_FAULT_SKETCH_SKEW")
+# the serving seams the transport tags its frames with; an unknown seam
+# head would parse and inject nothing, so the parser refuses it
+NET_SEAMS = ("lookup", "dispatch", "publish", "manifest", "any")
 
 
 def _env_int(key: str, raw: str) -> int:
@@ -242,6 +294,32 @@ def _env_pairs(key: str, raw: str, val, bare=None) -> list:
     return out
 
 
+def _env_seam_pairs(key: str, raw: str, val) -> Dict[str, float]:
+    """Parse the FF_FAULT_NET_* 'seam:value,...' lists: a missing ':',
+    an empty seam or an unknown seam raises, naming the variable."""
+    out: Dict[str, float] = {}
+    for part in raw.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if ":" not in part:
+            raise ValueError(
+                f"{key}={raw!r}: item {part!r} is missing its ':' "
+                f"(expected 'seam:value', e.g. {key}=lookup:0.3)")
+        seam, tail = part.rsplit(":", 1)
+        seam = seam.strip()
+        if not seam:
+            raise ValueError(
+                f"{key}={raw!r}: item {part!r} has an empty seam name "
+                f"(expected 'seam:value', e.g. {key}=lookup:0.3)")
+        if seam not in NET_SEAMS:
+            raise ValueError(
+                f"{key}={raw!r}: unknown seam {seam!r} — valid seams "
+                f"are {', '.join(NET_SEAMS)}")
+        out[seam] = val(key, tail)
+    return out
+
+
 def plan_from_env() -> Optional[FaultPlan]:
     """Build a plan from the ``FF_FAULT_*`` variables this module
     honours; None when none is set. The others warn."""
@@ -251,7 +329,7 @@ def plan_from_env() -> Optional[FaultPlan]:
         if k in _UNPORTED_ENV_KEYS:
             log_faults.warning(
                 "%s is set but its hook is not ported yet (ROADMAP queue "
-                "1 items 5, 7 and 9.4); it injects nothing here", k)
+                "1 items 5, 7 and 8); it injects nothing here", k)
         else:
             log_faults.warning("unknown fault variable %s ignored; known: "
                                "%s", k, list(_ENV_KEYS))
@@ -261,8 +339,10 @@ def plan_from_env() -> Optional[FaultPlan]:
     feedback_loss = os.environ.get("FF_FAULT_FEEDBACK_LOSS", "")
     budgets = {k: os.environ.get(k, "") for k in _ENV_BUDGETS}
     shard = {k: os.environ.get(k, "") for k in _ENV_SHARD_KEYS}
+    replica = {k: os.environ.get(k, "") for k in _ENV_REPLICA_KEYS}
+    net = {k: os.environ.get(k, "") for k in _ENV_NET_KEYS}
     if not any((nan, delay, ioerrs, feedback_loss, *budgets.values(),
-                *shard.values())):
+                *shard.values(), *replica.values(), *net.values())):
         return None
     plan = FaultPlan()
     if nan:
@@ -309,6 +389,38 @@ def plan_from_env() -> Optional[FaultPlan]:
             plan.topk_drop[n] = -1
         else:                                 # "sid:N": N failed top-ks
             plan.topk_drop[sid] = n
+    for rid, secs in _env_pairs("FF_FAULT_SERVE_DELAY",
+                                replica["FF_FAULT_SERVE_DELAY"],
+                                _env_float, bare=_env_float):
+        if rid is None:                       # bare seconds: every replica
+            plan.serve_delay_s = secs
+        else:                                 # "rid:secs": one replica
+            plan.serve_delay_replica[rid] = secs
+    for rid, n in _env_pairs("FF_FAULT_REPLICA_DOWN",
+                             replica["FF_FAULT_REPLICA_DOWN"], _env_int,
+                             bare=_env_int):
+        if rid is None:                       # bare rid: dead for good
+            plan.replica_down[n] = -1
+        else:                                 # "rid:N": N failures
+            plan.replica_down[rid] = n
+    raw = net["FF_FAULT_NET_DROP"]
+    if raw:
+        plan.net_drop = _env_seam_pairs("FF_FAULT_NET_DROP", raw,
+                                        _env_float)
+        for seam, p in plan.net_drop.items():
+            if not 0.0 <= p <= 1.0:
+                raise ValueError(
+                    f"FF_FAULT_NET_DROP={raw!r}: drop probability for "
+                    f"seam {seam!r} is {p} (expected 0..1)")
+    if net["FF_FAULT_NET_DUP"]:
+        plan.net_dup = _env_seam_pairs(
+            "FF_FAULT_NET_DUP", net["FF_FAULT_NET_DUP"], _env_int)
+    if net["FF_FAULT_NET_REORDER"]:
+        plan.net_reorder = _env_seam_pairs(
+            "FF_FAULT_NET_REORDER", net["FF_FAULT_NET_REORDER"], _env_int)
+    if net["FF_FAULT_NET_SLOW"]:
+        plan.net_slow_ms = _env_seam_pairs(
+            "FF_FAULT_NET_SLOW", net["FF_FAULT_NET_SLOW"], _env_float)
     if feedback_loss:
         plan.feedback_loss_p = _env_float("FF_FAULT_FEEDBACK_LOSS",
                                           feedback_loss)
@@ -635,3 +747,95 @@ def maybe_lookup_delay(shard_id: Optional[int] = None) -> None:
         secs = plan.lookup_delay_shard.get(shard_id, secs)
     if secs > 0:
         time.sleep(secs)
+
+
+def maybe_serve_delay(replica_id: Optional[int] = None) -> None:
+    """Sleep inside a serving batch dispatch (every dispatch while the
+    plan is active); a per-replica entry overrides the global delay, so
+    one replica of a fleet can be made slow."""
+    plan = active()
+    if plan is None:
+        return
+    secs = plan.serve_delay_s
+    if replica_id is not None:
+        secs = plan.serve_delay_replica.get(replica_id, secs)
+    if secs > 0:
+        time.sleep(secs)
+
+
+def take_replica_down(replica_id: Optional[int]) -> bool:
+    """True while a serving replica is scheduled dead: the engine raises
+    ``ReplicaDown`` from its dispatch, which the router's circuit breaker
+    must absorb. ``-1`` = dead until the plan clears, ``N > 0`` = the
+    next N attempts fail, then the replica recovers."""
+    return _take_budget("replica_down", "replica_down", replica_id)
+
+
+def _net_value(table: Dict[str, float], seam: str):
+    """A seam's entry, with ``any`` as the fallback (the exact seam
+    wins)."""
+    if seam in table:
+        return seam, table[seam]
+    if "any" in table:
+        return "any", table["any"]
+    return None, None
+
+
+def take_net_drop(seam: str) -> bool:
+    """True when this seam's next frame is dropped before it is sent
+    (``FF_FAULT_NET_DROP=seam:p``, a draw per frame from the plan's
+    seeded generator): the transport raises a transient error and its
+    bounded retry must absorb it."""
+    plan = active()
+    if plan is None or not plan.net_drop:
+        return False
+    with plan._lock:
+        key, p = _net_value(plan.net_drop, seam)
+        if key is None or p <= 0:
+            return False
+        if plan._net_rng.random() >= p:
+            return False
+        if ("net_drop", seam) not in plan.fired:
+            plan._record("net_drop", seam)
+    return True
+
+
+def _take_net(table: str, hook: str, seam: str) -> bool:
+    plan = active()
+    if plan is None or not getattr(plan, table):
+        return False
+    with plan._lock:
+        key, left = _net_value(getattr(plan, table), seam)
+        if key is None or not left:
+            return False
+        if left > 0:
+            getattr(plan, table)[key] = left - 1
+        plan._record(hook, seam)
+    return True
+
+
+def take_net_dup(seam: str) -> bool:
+    """True when this seam's next frame is sent twice under one request
+    id (``FF_FAULT_NET_DUP=seam:n``, consume-once): the server's dedup
+    window must answer the second from its cache."""
+    return _take_net("net_dup", "net_dup", seam)
+
+
+def take_net_reorder(seam: str) -> bool:
+    """True when this seam's next received frame is held until a later
+    frame has been handled (``FF_FAULT_NET_REORDER=seam:n``,
+    consume-once; bounded by a timeout so a lone frame cannot
+    deadlock)."""
+    return _take_net("net_reorder", "net_reorder", seam)
+
+
+def maybe_net_slow(seam: str) -> None:
+    """Sleep before sending a frame on this seam
+    (``FF_FAULT_NET_SLOW=seam:ms``, every frame while the plan is
+    active)."""
+    plan = active()
+    if plan is None or not plan.net_slow_ms:
+        return
+    _key, ms = _net_value(plan.net_slow_ms, seam)
+    if ms and ms > 0:
+        time.sleep(ms / 1e3)

@@ -1,8 +1,9 @@
 """Deadlines and stall reports (own copies of ``StallReport``,
-``WorkerStalled``, ``Sustained`` and ``Deadline`` from
+``WorkerStalled``, ``Heartbeat``, ``Sustained`` and ``Deadline`` from
 ``dlrm_flexflow_tpu.utils.watchdog``): the serving path's deadlines,
-the prefetch ring's liveness deadline and the drift monitor's
-debouncer. The JAX package's other worker
+the prefetch ring's liveness deadline, the serving batcher's heartbeat
+(the fleet router ejects a replica whose heartbeat goes stale) and the
+drift monitor's and autoscaler's debouncer. The JAX package's other worker
 watchdogs, and the observability hooks of ``WorkerStalled``, wait with
 the items that port those workers."""
 
@@ -42,6 +43,34 @@ class WorkerStalled(RuntimeError):
     def __init__(self, report: StallReport):
         super().__init__(str(report))
         self.report = report
+
+
+class Heartbeat:
+    """Last sign of life of a long-lived worker: the worker calls
+    :meth:`beat` each time around its loop, a monitor on another thread
+    reads :meth:`age` and, past its deadline, builds a
+    :class:`StallReport`. A float store and load are atomic under the
+    interpreter lock, so neither side locks."""
+
+    __slots__ = ("name", "_t")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._t = time.monotonic()
+
+    def beat(self) -> None:
+        self._t = time.monotonic()
+
+    def age(self) -> float:
+        """Seconds since the last beat."""
+        return time.monotonic() - self._t
+
+    def report(self, deadline_s: float, waiting_for: str,
+               detail: str = "", alive: bool = True) -> StallReport:
+        """StallReport for a monitor that found this heartbeat stale."""
+        return StallReport(worker=self.name, waiting_for=waiting_for,
+                           waited_s=self.age(), deadline_s=deadline_s,
+                           detail=detail, alive=alive)
 
 
 class Sustained:

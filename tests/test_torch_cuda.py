@@ -1829,3 +1829,62 @@ def test_sharded_engine_rows_match_plain(cuda):
     finally:
         eng.close()
         sset.close()
+
+
+def test_fleet_replicas_and_a_remote_shard_answer_bitwise(cuda, tmp_path):
+    """Two in-process replicas on the card behind the router answer each
+    request BITWISE as one engine does (each replica its own model of the
+    same seed, the same kernels at the same shapes); an engine on the
+    card whose tier is a RemoteShard per slot over loopback answers
+    BITWISE as the engine on the in-process tier."""
+    from dlrm_flexflow_tpu_torch.serve import (EmbeddingShardSet, Fleet,
+                                               FleetRouter, RouterConfig)
+    from dlrm_flexflow_tpu_torch.serve.shard_server import build_shard
+    dcfg = DLRMConfig(embedding_size=[1396, 550, 24681, 687, 20, 15],
+                      sparse_feature_size=16, mlp_bot=[13, 64, 16],
+                      mlp_top=[37, 32, 1], arch_interaction_op="dot")
+
+    def model(host):
+        m = pt.FFModel(pt.FFConfig(batch_size=64, device="cuda", seed=3,
+                                   host_resident_tables=host,
+                                   host_tables_async=False))
+        build_dlrm(m, dcfg)
+        m.compile(SGDOptimizer(lr=0.05), "mean_squared_error", ["mse"])
+        m.init_layers()
+        return m
+
+    reqs = [synthetic_batch(dcfg, 16, seed=20 + i)[0] for i in range(6)]
+    one = InferenceEngine(model(False), ServeConfig(max_batch=16)).start()
+    router = FleetRouter(Fleet.build(lambda i: model(False), 2,
+                                     ServeConfig(max_batch=16)),
+                         RouterConfig()).start()
+    try:
+        for x in reqs:
+            np.testing.assert_array_equal(router.predict(x).scores,
+                                          one.predict(x).scores)
+        per = [r.engine.stats()["requests"] for r in router.fleet]
+        assert sum(per) == len(reqs) and min(per) > 0
+    finally:
+        router.close()
+        one.close()
+    m = model(True)
+    local = EmbeddingShardSet.build(m, 2)
+    EmbeddingShardSet.seed_shard_cache(m, 2, str(tmp_path))
+    servers = [build_shard(str(tmp_path), 2, s).serve() for s in range(2)]
+    remote = EmbeddingShardSet.connect([s.address for s in servers],
+                                       cache_dir=str(tmp_path))
+    engines = [InferenceEngine(m, ServeConfig(max_batch=16),
+                               shard_set=s).start() for s in (local, remote)]
+    try:
+        for x in reqs:
+            a, b = (e.predict(x) for e in engines)
+            np.testing.assert_array_equal(a.scores, b.scores)
+            assert a.versions == b.versions == {0: 0, 1: 0}
+            assert not b.degraded
+    finally:
+        for e in engines:
+            e.close()
+        remote.close()
+        local.close()
+        for s in servers:
+            s.close()

@@ -5,8 +5,10 @@ JAX package.
 The test process has imported both already (tests/conftest.py imports
 the JAX package for every test), so the import check runs in a fresh
 subprocess. An AST scan of every source of the port, of
-``chip_smoke.py`` and of ``tools/``, finds no import of either. ``chip_smoke.py`` run
-without a GPU fails and prints no result.
+``chip_smoke.py`` and of ``tools/``, finds no import of either. A shard
+server child (``serve/shard_server.py``'s boot and serve path) imports
+neither and creates no CUDA context. ``chip_smoke.py`` run without a GPU
+fails and prints no result.
 """
 
 import ast
@@ -75,6 +77,13 @@ def test_import_leaves_jax_out():
             "import dlrm_flexflow_tpu_torch.ops.tensor_ops\n"
             "import dlrm_flexflow_tpu_torch.ops.embedding\n"
             "import dlrm_flexflow_tpu_torch.native\n"
+            "import dlrm_flexflow_tpu_torch.serve.wire\n"
+            "import dlrm_flexflow_tpu_torch.serve.transport\n"
+            "import dlrm_flexflow_tpu_torch.serve.shard_server\n"
+            "import dlrm_flexflow_tpu_torch.serve.fleet\n"
+            "import dlrm_flexflow_tpu_torch.serve.router\n"
+            "import dlrm_flexflow_tpu_torch.serve.autoscale\n"
+            "import dlrm_flexflow_tpu_torch.utils.watchdog\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad\n")
@@ -91,6 +100,24 @@ def test_sources_import_no_jax(path):
     bad = [m for m in _imported_modules(path)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path} imports {bad}"
+
+
+def test_a_shard_server_child_imports_no_jax(tmp_path):
+    from dlrm_flexflow_tpu_torch.serve import EmbeddingShardSet
+
+    from test_torch_shardtier import _port
+    EmbeddingShardSet.seed_shard_cache(_port(), 1, str(tmp_path))
+    code = ("import sys, torch\n"
+            "from dlrm_flexflow_tpu_torch.serve import shard_server\n"
+            f"shard = shard_server.build_shard({str(tmp_path)!r}, 1, 0)\n"
+            "shard.serve().close()\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]\n"
+            "assert not bad, bad\n"
+            "assert not torch.cuda.is_initialized()\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
 
 
 def test_chip_smoke_without_gpu_fails_without_result():

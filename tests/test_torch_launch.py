@@ -112,6 +112,24 @@ def test_unported_flags_raise_with_their_item(flags, item):
         launcher.main(ARGS + flags)
 
 
+def test_the_serving_fleet_flags_train_unchanged(files):
+    """The fleet's flags (item 9.4) are parsed and leave training alone,
+    as the JAX launcher does: the same run with and without them trains
+    the same weights bitwise."""
+    extra = ["--data-path", str(files / "train.ffbin"), "--no-prefetch"]
+    fleet = ["--serve-replicas", "2", "--serve-retries", "3",
+             "--serve-canary-fraction", "0.2", "--serve-slo-ms", "20",
+             "--serve-min-replicas", "1", "--serve-max-replicas", "4"]
+    plain = _params(launcher.main(ARGS + extra))
+    out = launcher.main(ARGS + extra + fleet)
+    cfg = out["model"].config
+    assert (cfg.serve_replicas, cfg.serve_retries, cfg.serve_slo_ms,
+            cfg.serve_max_replicas) == (2, 3, 20.0, 4)
+    got = _params(out)
+    assert set(got) == set(plain)
+    assert all(torch.equal(got[k], plain[k]) for k in plain)
+
+
 def test_multi_host_launch_raises(monkeypatch):
     monkeypatch.setenv("NUM_PROCESSES", "2")
     with pytest.raises(NotImplementedError, match="item 7"):

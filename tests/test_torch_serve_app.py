@@ -15,7 +15,9 @@ codes and JSON keys are the JAX app's.
   them.
 - ``--retrieve on``: ``/predict`` answers candidates and ``/retrieve``
   the index stage alone, with the JAX app's keys.
-- The JAX app's other deployments raise, naming their ROADMAP item.
+- The JAX app's deployment flags serve as the JAX app serves them (the
+  fleet, its router's and autoscaler's knobs, the shard warm cache of
+  ``--compile-cache-dir``) or are refused with its messages.
 """
 
 import json
@@ -212,41 +214,81 @@ def test_retrieve_on_answers_candidates():
         srv.close()
 
 
-# the shard tier, its degradation knobs and the row cache are ported:
-# their cases (item None) keep their IDs and now check that the app
-# serves with the flag; shard processes and tcp moved to item 9.4
+# every deployment flag of the JAX app is ported: each case keeps its ID
+# and checks what the JAX app does with the same flags. "tier" cases serve
+# a host-table app on a 2-shard tier with a row cache; "fleet" serves two
+# replicas behind the router; "engine" serves one engine with the knob
+# set (the JAX app's autoscaler and router need --serve-replicas > 1, and
+# tcp carries only a shard tier); "refused" is the JAX app's start-up
+# refusal; "cache" is --compile-cache-dir as the tier's warm cache
 @pytest.mark.parametrize("flags,item", [
-    pytest.param(["--serve-replicas", "2"], "item 9.4",
-                 id="flags0-item 9.4"),
-    pytest.param(["--serve-slo-ms", "20"], "item 9.4", id="flags1-item 9.4"),
-    pytest.param(["--serve-min-replicas", "1"], "item 9.4",
+    pytest.param(["--serve-replicas", "2"], "fleet", id="flags0-item 9.4"),
+    pytest.param(["--serve-slo-ms", "20"], "engine", id="flags1-item 9.4"),
+    pytest.param(["--serve-min-replicas", "1"], "engine",
                  id="flags2-item 9.4"),
-    pytest.param(["--serve-max-replicas", "4"], "item 9.4",
+    pytest.param(["--serve-max-replicas", "4"], "engine",
                  id="flags3-item 9.4"),
-    pytest.param(["--serve-hedge-ms", "5"], None, id="flags4-item 9.4"),
-    pytest.param(["--serve-canary-fraction", "0.2"], "item 9.4",
+    pytest.param(["--serve-hedge-ms", "5"], "tier", id="flags4-item 9.4"),
+    pytest.param(["--serve-canary-fraction", "0.2"], "engine",
                  id="flags5-item 9.4"),
-    pytest.param(["--serve-shards", "2"], None, id="flags6-item 9.3"),
-    pytest.param(["--serve-shard-procs", "2"], "item 9.4",
+    pytest.param(["--serve-shards", "2"], "tier", id="flags6-item 9.3"),
+    pytest.param(["--serve-shard-procs", "2"], "refused",
                  id="flags7-item 9.3"),
-    pytest.param(["--serve-transport", "tcp"], "item 9.4",
+    pytest.param(["--serve-transport", "tcp"], "engine",
                  id="flags8-item 9.3"),
-    pytest.param(["--serve-degrade", "fail"], None, id="flags9-item 9.3"),
-    pytest.param(["--serve-lookup-deadline-ms", "9"], None,
+    pytest.param(["--serve-degrade", "fail"], "tier", id="flags9-item 9.3"),
+    pytest.param(["--serve-lookup-deadline-ms", "9"], "tier",
                  id="flags10-item 9.3"),
-    pytest.param(["--serve-cache-rows", "64"], None, id="flags11-item 9.2"),
-    pytest.param(["--serve-cache-warm", "x.npz"], None,
+    pytest.param(["--serve-cache-rows", "64"], "tier", id="flags11-item 9.2"),
+    pytest.param(["--serve-cache-warm", "x.npz"], "tier",
                  id="flags12-item 9.2"),
-    pytest.param(["--compile-cache-dir", "x"], "item 9.5",
+    pytest.param(["--compile-cache-dir", "x"], "cache",
                  id="flags13-item 9.5"),
 ])
-def test_unported_deployments_raise_with_their_item(flags, item):
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
+def test_unported_deployments_raise_with_their_item(flags, item, tmp_path,
+                                                    monkeypatch):
+    if item == "refused":
+        with pytest.raises(SystemExit,
+                           match="--serve-shard-procs requires "
+                                 "--serve-transport tcp"):
             serve_dlrm.App(BASE + flags)
         return
-    # ported: a host-table app on a 2-shard tier with a row cache takes
-    # the flag, and its /predict answers the tier's version vector
+    x, body = _request(3)
+    if item in ("fleet", "engine"):
+        srv = _Running(BASE + flags)
+        try:
+            cfg = srv.app.engine.model.config
+            code, text = srv.post("/predict", body)
+            out = json.loads(text)
+            want = srv.app.engine.model.forward_bucket(x, 4).numpy()
+            assert code == 200 and set(out) == {"scores", "version",
+                                                "latency_ms"}
+            np.testing.assert_array_equal(
+                np.asarray(out["scores"], np.float32), want.reshape(-1))
+            st = json.loads(srv.get("/stats")[1])
+            hz = json.loads(srv.get("/healthz")[1])
+            assert srv.app.scaler is None
+            if item == "fleet":
+                assert srv.app.router is not None
+                assert st["fleet"]["size"] == 2 and st["responses"] == 1
+                assert st["failed"] == 0 and hz["healthy"] == 2
+            else:
+                assert srv.app.router is None and st["responses"] == 1
+                key, val = {
+                    "--serve-slo-ms": ("serve_slo_ms", 20.0),
+                    "--serve-min-replicas": ("serve_min_replicas", 1),
+                    "--serve-max-replicas": ("serve_max_replicas", 4),
+                    "--serve-canary-fraction":
+                        ("serve_canary_fraction", 0.2),
+                    "--serve-transport": ("serve_transport", "tcp"),
+                }[flags[0]]
+                assert getattr(cfg, key) == val
+        finally:
+            srv.close()
+        return
+    # a host-table app on a 2-shard tier with a row cache takes the flag,
+    # and its /predict answers the tier's version vector
+    monkeypatch.chdir(tmp_path)
     extra = ["--host-tables", "--serve-shards", "2",
              "--serve-cache-rows", "16"]
     srv = _Running(BASE + extra + flags)
@@ -265,6 +307,15 @@ def test_unported_deployments_raise_with_their_item(flags, item):
                 tcfg.lookup_deadline_ms) == (
             2, cfg.serve_hedge_ms, cfg.serve_degrade,
             cfg.serve_lookup_deadline_ms)
+        cache = srv.app.shard_set._cache
+        if item == "cache":
+            # the JAX app's shard warm cache: every slot persisted there,
+            # the replace-dead boot source
+            assert cache.directory == str(tmp_path / "x")
+            assert cache.get(2, 0) is not None and cache.get(2, 1) \
+                is not None
+        else:
+            assert cache is None
         _x, body = _request(2)
         code, text = srv.post("/predict", body)
         out = json.loads(text)

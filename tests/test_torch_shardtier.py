@@ -498,13 +498,29 @@ class TestShardedLookup:
         sset.close()
 
     def test_the_process_boundary_raises_naming_item_9_4(self):
+        """The process boundary is ported (the name is kept): a shard
+        serves over the wire, connect() needs the tier's geometry as the
+        JAX connect() does, and tcp is a transport the config takes."""
+        from dlrm_flexflow_tpu_torch.serve.transport import (
+            RemoteShard, WireClient)
         sset = EmbeddingShardSet.build(_port(), 2)
-        for call in (lambda: EmbeddingShardSet.connect(["h:1"]),
-                     sset.shards[0].shard.serve,
-                     sset.shards[0].shard.serve_forever,
-                     lambda: ShardTierConfig(transport="tcp")):
-            with pytest.raises(NotImplementedError, match="item 9.4"):
-                call()
+        shard = sset.shards[0].shard
+        server = shard.serve()
+        remote = RemoteShard(0, 0, WireClient(server.address))
+        try:
+            lo, hi = shard.owned_range("emb_stack")
+            ids = np.arange(lo, min(hi, lo + 5), dtype=np.int64)
+            got, ver = remote.lookup({"emb_stack": ids})
+            want, wver = shard.lookup({"emb_stack": ids})
+            np.testing.assert_array_equal(got["emb_stack"],
+                                          want["emb_stack"])
+            assert ver == wver == remote.refresh()["version"]
+        finally:
+            remote.close()
+            server.close()
+        with pytest.raises(ValueError, match="tier geometry"):
+            EmbeddingShardSet.connect(["h:1"])
+        assert ShardTierConfig(transport="tcp").transport == "tcp"
         with pytest.raises(ValueError, match="transport"):
             ShardTierConfig(transport="udp")
         sset.close()
@@ -819,14 +835,18 @@ class TestReplaceDead:
         results, errors = [], []
         stop = threading.Event()
         served = threading.Semaphore(0)
+        # set once every slot is healthy again: a request sent after it
+        # is looked up after the re-admission
+        readmitted = threading.Event()
 
         def client(i):
             k = 0
             while not stop.is_set():
+                after = readmitted.is_set()
                 try:
                     p = eng.predict(reqs[(i * 13 + k) % len(reqs)],
                                     timeout=THREAD_TIMEOUT_S)
-                    results.append((p.degraded, dict(p.versions)))
+                    results.append((after, p.degraded, dict(p.versions)))
                     served.release()
                 except Exception as e:   # noqa: BLE001
                     errors.append(e)
@@ -845,7 +865,7 @@ class TestReplaceDead:
             with faults.active_plan(plan):
                 n0 = len(results)
                 deadline = time.monotonic() + THREAD_TIMEOUT_S
-                while (not any(d for d, _ in results[n0:])
+                while (not any(d for _, d, _ in results[n0:])
                        and time.monotonic() < deadline):
                     assert served.acquire(timeout=THREAD_TIMEOUT_S)
                 replaced = False
@@ -858,13 +878,16 @@ class TestReplaceDead:
                        and time.monotonic() < deadline):
                     sset.health_tick()
             assert all(r.state == HEALTHY for r in sset.shards)
-            # the requests queued before the re-admission (at most one a
-            # client) are answered first: the batcher serves in order
-            for _ in range(2 * len(threads)):
-                assert served.acquire(timeout=THREAD_TIMEOUT_S)
-            n_before = len(results)
-            for _ in range(20):                   # the recovered phase
-                assert served.acquire(timeout=THREAD_TIMEOUT_S)
+            # the recovered phase: the requests sent after the
+            # re-admission (one sent before it may be answered, degraded,
+            # after it, so the answers' order cannot mark this point)
+            readmitted.set()
+            deadline = time.monotonic() + THREAD_TIMEOUT_S
+            while (sum(a for a, _, _ in results) < 20
+                   and time.monotonic() < deadline):
+                served.acquire(timeout=THREAD_TIMEOUT_S)
+            assert sum(a for a, _, _ in results) >= 20, \
+                "recovered phase stalled"
         finally:
             stop.set()
             for t in threads:
@@ -873,9 +896,9 @@ class TestReplaceDead:
             sset.close()
         assert not any(t.is_alive() for t in threads)
         assert not errors, errors[:3]
-        assert any(deg for deg, _ in results[:n_before])
-        tail = results[n_before:]
-        assert tail and not any(deg for deg, _ in tail)
+        assert any(deg for after, deg, _ in results if not after)
+        tail = [deg for after, deg, _ in results if after]
+        assert len(tail) >= 20 and not any(tail)
         assert eng.stats()["degraded_responses"] > 0
 
 

@@ -285,8 +285,21 @@ def test_installs_run_on_the_batcher_between_dispatches():
         eng.install_delta(bad, 6)
         assert eng.version == 5 and "nope" in eng.stats()[
             "last_reload_reject"]
-        with pytest.raises(NotImplementedError, match="item 9.4"):
-            eng.serve()
+        # the JAX engine's wire server: predict over loopback answers
+        # the engine's own scores bitwise, with its version
+        from dlrm_flexflow_tpu_torch.serve.transport import \
+            RemoteEngineClient
+        server = eng.serve()
+        client = RemoteEngineClient(server.address, rid=0)
+        try:
+            q = _query(3)
+            got = client.predict(q, timeout=30)
+            np.testing.assert_array_equal(got.scores,
+                                          eng.predict(q, timeout=30).scores)
+            assert got.version == 5 and client.healthz()["ok"] is True
+        finally:
+            client.close()
+            server.close()
     finally:
         eng.close()
     assert eng.healthz()["ok"] is False and eng.healthz()["draining"]
@@ -309,6 +322,7 @@ def test_swap_params_refuses_what_the_port_lacks():
     # the row cache is ported (a host-table engine builds one)
     assert ServeConfig.from_config(type(pm.config)(
         device="cpu", serve_cache_rows=8)).cache_rows == 8
-    with pytest.raises(NotImplementedError, match="item 9.4"):
-        ServeConfig.from_config(type(pm.config)(device="cpu",
-                                                serve_replicas=2))
+    # the fleet is ported: a config of two replicas gives each replica
+    # its engine config, as the JAX ServeConfig.from_config does
+    assert ServeConfig.from_config(type(pm.config)(
+        device="cpu", serve_replicas=2, serve_max_batch=8)).max_batch == 8
