@@ -332,6 +332,30 @@ Phases:
    seam's RTT floor, eject and re-admit seconds and the autoscaler's
    grow time print, with a ``{"fleet": ...}`` line. ``python3
    chip_smoke.py --fleet`` runs phase 11's loop and phase 12 only.
+13. ranks — DLRM trained across ranks as ``run_random.sh`` launches it:
+   two ``chip_smoke.py --dist-rank`` processes on the one card (gloo:
+   NCCL refuses two ranks on one GPU), each its own kernels, the full
+   width of ``random_benchmark()``, 4 of the 8 tables (1.07 GB) a rank.
+   Each rank trains 3 SGD steps of a global batch of 2,048 under
+   ``dlrm_strategy`` and again under
+   ``strategies/dlrm_strategy_8embs_8gpus.pb`` (loaded as ``--import``
+   loads it), every count at 0 just before and read just after: one
+   windowed scatter (``sharded_scatter_add_rows``, kernel 4) and one
+   ``dense_update`` a rank a step, no plain version. Each rank holds its
+   tables and MLP weights to a world-1 run of the same steps from the
+   same seed on the card: bitwise at the start, the losses within 1e-5,
+   each update within 10 % of its parameter's largest (the
+   card-versus-CPU step's bound: cuBLAS sums each rank's half of the
+   batch, the world-1 call all of it, and a relu unit within that
+   rounding of 0 can take the other branch), the weights' own error
+   printed; the ranks' MLP weights are bitwise equal (their hashes). Then the launcher itself, ``run_random.sh``'s flags
+   at 2 devices (``-ll:gpu 2 -b 512``) with ``--import``, counted the
+   same way. The kernel is held bitwise to its plain version on the CPU
+   at a rank's shape (8,192 ids on a 4M-row block, and with pads and
+   ids outside the window) and timed with ``index_add_`` after a masked
+   select beside it. The phase's seconds, each world's step time and
+   every collective's bytes print. ``python3 chip_smoke.py --dist`` runs
+   only this phase.
 
 The last two lines are a JSON object with every kernel's numbers and
 ``{"ok": true, "device": {...}}``. Without a GPU, or when any check
@@ -544,6 +568,26 @@ FLEET_SLO_MS = 0.001
 # 0 or 1 (their mean 0.5625 against 0.5005 on the CPU, 64 requests),
 # one SGD step moves the mean by about 1e-3
 FLEET_SCORE_TOL = 0.02
+# training across ranks (phase 13): DIST_WORLD ranks on the card, a
+# global batch of DIST_B, DIST_STEPS SGD steps a strategy; each update
+# held to the world-1 run's within DIST_UPDATE_TOL of its parameter's
+# largest (the card-versus-CPU step's bound: the ranks' cuBLAS calls sum
+# half the batch each, the world-1 call all of it, and a relu unit within
+# that rounding of 0 can take the other branch), the losses within
+# DIST_LOSS_RTOL; run_random.sh's flags at DIST_WORLD devices for the
+# launcher
+DIST_WORLD = 2
+DIST_B = 2048
+DIST_STEPS = 3
+DIST_UPDATE_TOL = 0.1
+DIST_LOSS_RTOL = 1e-5
+DIST_PB = "strategies/dlrm_strategy_8embs_8gpus.pb"
+DIST_LAUNCH = ["-ll:gpu", str(DIST_WORLD), "-b", str(256 * DIST_WORLD),
+               "-e", "1", "--lr", str(LR),
+               "--arch-embedding-size", "-".join([str(ROWS)] * T),
+               "--arch-sparse-feature-size", str(D),
+               "--arch-mlp-bot", "64-512-512-64",
+               "--arch-mlp-top", "576-1024-1024-1024-1"]
 # the checkout's root, where the serving app runs as a module
 REPO = Path(__file__).resolve().parent
 # where the launch phase writes its .ffbin and checkpoints: the build
@@ -1756,7 +1800,7 @@ def alpha_t_check(dev):
 # those with several routes, each route's in ``routes``)
 LAUNCHED = (bag_mod.embedding_bag, inter_mod.fused_interaction,
             scat_mod.scatter_add_rows, scat_mod.scatter_write_rows,
-            scat_mod.stateful_update_rows,
+            scat_mod.stateful_update_rows, scat_mod.sharded_scatter_add_rows,
             scat_mod.scatter_presort, dense_mod.dense_update,
             dense_mod.grad_sumsq, topk_mod.mips_topk,
             bag_mod.embedding_bag_quant, inter_mod.fused_interaction_quant,
@@ -1797,6 +1841,7 @@ class PlainCalls:
                           (inter_mod, "fused_interaction_reference"),
                           (scat_mod, "scatter_add_rows_reference"),
                           (scat_mod, "scatter_write_rows_reference"),
+                          (scat_mod, "sharded_scatter_add_rows_reference"),
                           (scat_mod, "stateful_update_rows_reference"),
                           (scat_mod, "presort_reference"),
                           (scat_mod, "row_update_reference"),
@@ -6148,10 +6193,323 @@ def fleet_phase(figures):
         torch.cuda.empty_cache()
 
 
+def window_kernel(dev, gen):
+    """Kernel 4 at a rank's shape: a 4M-row block (4 of the 8 tables of
+    1M rows), rank 1's window [4M, 8M) of the stacked ids, 8,192 lookups
+    (a global batch of 2,048 on its 4 tables, bag 1): held bitwise to its
+    plain version on the CPU, with the ranks' ids and again with a fifth
+    of them pads and a fifth outside the window, and timed beside its
+    plain version on the card and ``index_add_`` after a masked select."""
+    tl, n = T // DIST_WORLD, DIST_B * (T // DIST_WORLD) * BAG
+    lo, rows = tl * ROWS, tl * ROWS
+    block = 0.5 * torch.randn(rows, D, device=dev, generator=gen)
+    src = "dlrm_flexflow_tpu_torch/csrc/scatter_rows.cu"
+    pallas = "dlrm_flexflow_tpu/ops/pallas/embedding_kernel.py"
+    sets = []
+    for _ in range(ID_SETS):
+        ids = lo + torch.randint(0, ROWS, (DIST_B, tl, BAG), device=dev,
+                                 generator=gen) \
+            + (torch.arange(tl, device=dev) * ROWS)[None, :, None]
+        upd = torch.randn(n, D, device=dev, generator=gen)
+        sets.append((ids.reshape(-1), upd))
+    ids, upd = sets[0]
+    mixed = ids.clone()
+    pick = torch.rand(n, device=dev, generator=gen)
+    mixed[pick < 0.2] = -1                              # pads
+    mixed[(pick >= 0.2) & (pick < 0.4)] -= lo           # the block before
+    block_cpu = block.cpu()
+    errs = []
+    for what, i in (("the ranks' ids", ids), ("pads and ids outside the "
+                                              "window", mixed)):
+        got = scat_mod.sharded_scatter_add_rows(block.clone(), i, upd, lo,
+                                                scale=-LR)
+        want = scat_mod.sharded_scatter_add_rows_reference(
+            block_cpu.clone(), i.cpu(), upd.cpu(), lo, scale=-LR)
+        got = got.cpu()
+        errs.append(float((got - want).abs().max()))
+        check(torch.equal(got, want),
+              f"sharded_scatter_add_rows kernel disagrees with its plain "
+              f"version ({what}): {errs[-1]}")
+        local = i[(i >= lo) & (i < lo + rows)] - lo
+        changed = (got != block_cpu).any(dim=1).nonzero().reshape(-1)
+        check(set(changed.tolist()) <= set(local.cpu().tolist()),
+              f"sharded_scatter_add_rows changed rows no id names ({what})")
+        del got, want
+    m = int(torch.unique(ids).numel())
+    b_ms, b_by = bound(n * 8 + n * D * 4 + 2 * m * D * 4, 2 * n * D)
+    scaled = [(i, -LR * u) for i, u in sets]
+
+    def library(i, scaled_upd):
+        keep = (i >= lo) & (i < lo + rows)
+        block.index_add_(0, i[keep] - lo, scaled_upd[keep])
+
+    r = {"name": "sharded_scatter_add_rows", "route": "cuda", "source": src,
+         "replaces": f"{pallas}:584", "max_abs_err": max(errs),
+         "bound_ms": b_ms, "bound_by": b_by,
+         **timed("", lambda i, u: scat_mod.sharded_scatter_add_rows(
+             block, i, u, lo, scale=-LR), sets),
+         **timed("plain_", lambda i, u:
+                 scat_mod.sharded_scatter_add_rows_reference(
+                     block, i, u, lo, scale=-LR), sets),
+         **timed("library_", library, scaled)}
+    print_row(r, f" (n={n} on a {rows:,}-row block, {m} distinct rows; "
+              f"bitwise its plain version with the ranks' ids and with pads "
+              f"and ids outside the window; library: index_add_ after a "
+              f"masked select)")
+    del block, sets, scaled
+    return {"sharded_scatter_add_rows": r}
+
+
+def _dist_models(strategy):
+    """The full-width "cat" model split over the process group's ranks
+    under ``strategy`` ("dlrm_strategy", or the ``.pb`` loaded as
+    ``--import`` loads it), and the same model on a mesh of this rank
+    alone (a world of 1): both from one seed, batch DIST_B, plain SGD."""
+    from dlrm_flexflow_tpu_torch.models.dlrm import dlrm_strategy
+    from dlrm_flexflow_tpu_torch.parallel import distributed
+    from dlrm_flexflow_tpu_torch.parallel.mesh import make_mesh
+    from dlrm_flexflow_tpu_torch.parallel.strategy_io import load_strategies
+    out = []
+    for mesh in (make_mesh(), make_mesh(devices=[distributed.rank()])):
+        cfg = train_config("cat")
+        model = FFModel(FFConfig(batch_size=DIST_B, seed=SEED,
+                                 device="cuda:0"))
+        build_dlrm(model, cfg)
+        strat = (dlrm_strategy(model, cfg, mesh.size)
+                 if strategy == "dlrm_strategy"
+                 else load_strategies(str(REPO / strategy)))
+        model.compile(SGDOptimizer(lr=LR), "mean_squared_error", ["mse"],
+                      mesh=mesh, strategies=strat)
+        model.init_layers()
+        out.append(model)
+    return out
+
+
+def _timed_steps(model, batches):
+    """Each step's loss, and the wall ms of the steps after the first,
+    each ended by a synchronisation."""
+    losses, ms = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        losses.append(float(model.train_batch(b)["loss"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms[1:]
+
+
+def _worst(got, want):
+    """max |got - want| over max |want| (0 for equal tensors)."""
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-30)
+
+
+def _dist_params(split, alone):
+    """{name: (the split model's tensor, the world-1 model's)}: each MLP
+    parameter, and the split model's tables beside this rank's slots of
+    the world-1 model's."""
+    op = split.get_layer_by_name("emb_stack")
+    order = torch.tensor(op._table_order or tuple(range(T)))
+    mine = order[op.local_slots().start:op.local_slots().stop]
+    out = {"tables": (split.params["emb_stack"]["kernel"],
+                      alone.params["emb_stack"]["kernel"][
+                          mine.to(split.device)])}
+    for name in sorted(split.params):
+        if name != "emb_stack":
+            for pn in sorted(split.params[name]):
+                out[f"{name}.{pn}"] = (split.params[name][pn],
+                                       alone.params[name][pn])
+    return out
+
+
+def dist_rank_child(rank, world, store):
+    """``chip_smoke.py --dist-rank RANK WORLD STORE``: one rank of phase
+    13. Joins the gloo group through the file store, then for each
+    strategy trains the split model and a world-1 model DIST_STEPS steps
+    on the same global batches, counts the split model's launches, holds
+    its weights to the world-1 model's, and runs the launcher with
+    ``run_random.sh``'s flags. Prints ``DIST_RESULT {json}``."""
+    import hashlib
+
+    from dlrm_flexflow_tpu_torch.examples.native import dlrm as launcher
+    from dlrm_flexflow_tpu_torch.parallel import distributed
+    distributed.initialize_distributed(
+        init_method=f"file://{store}", num_processes=world,
+        process_id=rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    batches = []
+    for s in range(DIST_STEPS):
+        x, y = synthetic_batch(train_config("cat"), DIST_B, seed=70 + s)
+        x["label"] = y
+        batches.append(x)
+    result = {"rank": rank, "backend": torch.distributed.get_backend(),
+              "runs": {}}
+    for strategy in ("dlrm_strategy", DIST_PB):
+        split, alone = _dist_models(strategy)
+        op = split.get_layer_by_name("emb_stack")
+        # one seed: the rank's tables and MLPs start bitwise the world-1
+        # model's
+        init = {k: a.clone() for k, (a, _) in
+                _dist_params(split, alone).items()}
+        same_init = all(torch.equal(a, b) for a, b in
+                        _dist_params(split, alone).values())
+        zero_counts()
+        with PlainCalls() as plain:
+            losses, ms = _timed_steps(split, batches)
+        counts = read_counts()
+        losses1, ms1 = _timed_steps(alone, batches)
+        errs, updates = {}, {}
+        digest = hashlib.sha256()
+        for k, (a, b) in _dist_params(split, alone).items():
+            errs[k] = _worst(a, b)
+            updates[k] = _worst(a - init[k], b - init[k])
+            if k != "tables":
+                digest.update(a.cpu().numpy().tobytes())
+        del init
+        result["runs"][strategy] = {
+            "losses": losses, "world1_losses": losses1, "step_ms": ms,
+            "world1_step_ms": ms1, "errs": errs, "updates": updates,
+            "same_init": same_init,
+            "mlp_sha256": digest.hexdigest(), "plain_calls": plain.calls,
+            "counts": {k: v for k, v in counts.items() if v},
+            "order": list(op._table_order or ()),
+            "slots": list(op.local_slots()),
+            "collectives": split._collectives.stats}
+        del split, alone
+        torch.cuda.empty_cache()
+    zero_counts()
+    with PlainCalls() as plain:
+        out = launcher.main(DIST_LAUNCH + ["--import", str(REPO / DIST_PB)])
+    result["launcher"] = {
+        "steps": out["steps"], "throughput": out["throughput"],
+        "plain_calls": plain.calls, "loss_finite": bool(np.isfinite(
+            out["model"].perf.report()["mse"])),
+        "counts": {k: v for k, v in read_counts().items() if v},
+        "collectives": out["model"]._collectives.stats}
+    print("DIST_RESULT " + json.dumps(result), flush=True)
+    torch.distributed.destroy_process_group()
+
+
+def dist_phase(dev):
+    """Phase 13: the kernel at a rank's shape (``window_kernel``), then
+    DIST_WORLD ``--dist-rank`` children on the card, their results held.
+    Returns (the kernel's row, the children's launch counts summed)."""
+    import os
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    rows = window_kernel(dev, gen)
+    torch.cuda.empty_cache()
+    work = WORK_DIR / "dist"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("FF_FAULT_")}
+    env["PYTHONPATH"] = str(REPO)
+    store = work / "store"
+    procs, logs, outs = [], [], []
+    try:
+        for r in range(DIST_WORLD):
+            logs.append(open(work / f"rank{r}.log", "w+"))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(REPO / "chip_smoke.py"), "--dist-rank",
+                 str(r), str(DIST_WORLD), str(store)],
+                stdout=subprocess.PIPE, stderr=logs[-1], text=True, env=env))
+        for r, p in enumerate(procs):
+            try:
+                text, _ = p.communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                text = ""
+            logs[r].seek(0)
+            check(p.returncode == 0,
+                  f"ranks: rank {r} exited {p.returncode}: "
+                  f"{logs[r].read()[-3000:]}")
+            lines = [ln for ln in text.splitlines()
+                     if ln.startswith("DIST_RESULT ")]
+            check(len(lines) == 1, f"ranks: rank {r} printed no result")
+            outs.append(json.loads(lines[0][len("DIST_RESULT "):]))
+            for ln in text.splitlines():
+                if ln.startswith(("ELAPSED TIME", "[Metrics]")):
+                    print(f"  rank {r}: {ln}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+        shutil.rmtree(work, ignore_errors=True)
+    counts = {}
+    for out in outs:
+        check(out["backend"] == "gloo", f"ranks: backend {out['backend']}")
+        for strategy, run in out["runs"].items():
+            c = run["counts"]
+            check(c.get("sharded_scatter_add_rows") == DIST_STEPS
+                  and c.get("dense_update") == DIST_STEPS
+                  and run["plain_calls"] == 0
+                  and not any(c.get(k) for k in SCATTERS),
+                  f"ranks ({strategy}), rank {out['rank']}: launches {c}, "
+                  f"{run['plain_calls']} plain calls")
+            bad = {k: v for k, v in run["updates"].items()
+                   if not v <= DIST_UPDATE_TOL}
+            check(run["same_init"] and not bad,
+                  f"ranks ({strategy}), rank {out['rank']}: start bitwise "
+                  f"the world-1 run's {run['same_init']}; updates beyond "
+                  f"{DIST_UPDATE_TOL} of the world-1 run's largest: {bad}")
+            check(all(np.isfinite(run["losses"])) and np.allclose(
+                run["losses"], run["world1_losses"], rtol=DIST_LOSS_RTOL),
+                f"ranks ({strategy}): losses {run['losses']} against the "
+                f"world-1 run's {run['world1_losses']}")
+            add_counts(counts, c)
+        lr = out["launcher"]
+        c = lr["counts"]
+        check(c.get("sharded_scatter_add_rows") == lr["steps"] + 1
+              and c.get("dense_update") == lr["steps"] + 1
+              and lr["plain_calls"] == 0 and lr["loss_finite"],
+              f"ranks (launcher), rank {out['rank']}: launches {c}, "
+              f"{lr['plain_calls']} plain calls, finite "
+              f"{lr['loss_finite']}")
+        add_counts(counts, c)
+    for strategy in outs[0]["runs"]:
+        runs = [out["runs"][strategy] for out in outs]
+        check(len({r["mlp_sha256"] for r in runs}) == 1,
+              f"ranks ({strategy}): the ranks' MLP weights differ")
+        check(sorted(s for r in runs for s in r["slots"]) == list(range(T)),
+              f"ranks ({strategy}): slots {[r['slots'] for r in runs]}")
+        worst = max(max(r["errs"].values()) for r in runs)
+        worst_update = max(max(r["updates"].values()) for r in runs)
+        order = runs[0]["order"] or "as declared"
+        print(f"ranks, {strategy}: table order {order}; step ms (after the "
+              f"first) world {DIST_WORLD}: "
+              f"{[round(v, 3) for v in runs[0]['step_ms']]} (rank 0), "
+              f"{[round(v, 3) for v in runs[1]['step_ms']]} (rank 1); "
+              f"world 1: {[round(v, 3) for v in runs[0]['world1_step_ms']]};"
+              f" from the world-1 run's weights: each update within "
+              f"{worst_update:.3g} of its parameter's largest, each weight "
+              f"within {worst:.3g} of its parameter's largest (tables "
+              f"{max(r['errs']['tables'] for r in runs):.3g}, their updates "
+              f"{max(r['updates']['tables'] for r in runs):.3g}); losses "
+              f"{runs[0]['losses']} against {runs[0]['world1_losses']}; the "
+              f"ranks' MLP weights bitwise equal")
+        for name, st in runs[0]["collectives"].items():
+            print(f"  {name}: {st['calls']} calls, {st['bytes']:,} bytes "
+                  f"sent and received by rank 0, {st['seconds']:.4f} s "
+                  f"(host clock, the host copies under gloo included)")
+    lr = outs[0]["launcher"]
+    print(f"ranks, launcher ({' '.join(DIST_LAUNCH[:4])} --import "
+          f"{DIST_PB}): {lr['steps']} steps, {lr['throughput']:.2f} "
+          f"samples/s; collectives {lr['collectives']}")
+    print(f"ranks phase: {time.perf_counter() - t0:.1f} s")
+    return rows, counts
+
+
 def main() -> int:
     if sys.argv[1:] == ["--ranker-child"]:
         # one ranker replica of phase 12 (c), a child of this script
         ranker_child()
+        return 0
+    if sys.argv[1:2] == ["--dist-rank"] and torch.cuda.is_available():
+        # one rank of phase 13, a child of this script
+        dist_rank_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -6195,6 +6553,15 @@ def main() -> int:
         print(json.dumps({"launches": {k: v for k, v in counts.items()
                                        if v}}))
         return 0
+    if sys.argv[1:] == ["--dist"]:
+        # only phase 13, its kernels built first (the ranks load them)
+        build.build_all()
+        rows, counts = dist_phase(dev)
+        rows["sharded_scatter_add_rows"]["launches"] = counts.get(
+            "sharded_scatter_add_rows", 0)
+        print(json.dumps({"launches": {k: v for k, v in counts.items()
+                                       if v}, "kernel": rows}))
+        return 0
     if sys.argv[1:] == ["--shapes"]:
         # only the bag and the interaction at their paths' shapes: what
         # the same script times on another tree of the port
@@ -6229,6 +6596,8 @@ def main() -> int:
     figures = {}
     add(shard_tier_phase(figures))
     add(fleet_phase(figures))
+    dist_rows, counts = dist_phase(dev)
+    add(counts)
     for run in runs:
         add(train_report(run))
     del runs
@@ -6238,6 +6607,7 @@ def main() -> int:
     alpha_t_check(dev)
     rows.update(topk_kernel(dev))
     rows.update(lstm_kernels(dev))
+    rows.update(dist_rows)
     torch.cuda.empty_cache()
     for mode in ("cat", "dot"):
         add(serve_phase(mode))

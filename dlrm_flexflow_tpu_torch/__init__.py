@@ -14,8 +14,9 @@ update, in the "cat" and the fused "dot" interaction, guarded by the
 anomaly sentinel (``FFConfig.anomaly_policy``; ``AnomalyError``), with
 ``fit``'s checkpoints, rollback and whole-dataset staging and
 ``fit_stream`` over ``data.stream`` and ``data.replay`` sources; the
-retrieve -> rank cascade (``retrieve``); and NMT LSTM seq2seq training
-(``models.nmt.build_nmt``).
+retrieve -> rank cascade (``retrieve``); NMT LSTM seq2seq training
+(``models.nmt.build_nmt``); and DLRM training across ranks, one process
+a rank, under the reference's strategy files (``parallel``).
 """
 
 from .config import FFConfig

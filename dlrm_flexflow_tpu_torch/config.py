@@ -13,7 +13,9 @@ runtime's ``--checkpoint-dir``, ``--save-every``, ``--keep-last``,
 ``--no-host-tables-async``; the continual loop's
 ``--publish-every``, ``--delta-compact-frac``, ``--delta-full-every``
 and ``--serve-poll``; observability's ``--obs``, ``--obs-trace-dir``
-and ``--obs-drift-threshold``), plus ``device``. Unknown
+and ``--obs-drift-threshold``; the placement's ``-ll:gpu`` (devices a
+node), ``--nodes``, ``--import`` (a strategy file) and
+``--strict-strategies``), plus ``device``. Unknown
 flags land in ``unparsed``, as in the JAX package. ``--superstep``, not
 ported yet, raises ``NotImplementedError``, as does
 ``--no-pallas-lstm``: the port's LSTM always runs its scan kernels.
@@ -177,6 +179,18 @@ class FFConfig:
     # index shards of a standalone (index-only) shard set; 0 means one.
     # --retrieve-shards M.
     retrieve_shards: int = 0
+    # ---- placement across ranks (parallel/) ---------------------------
+    # devices a node (-ll:gpu; 0: every rank of the process group) and
+    # nodes (--nodes): num_devices is their product, as in the JAX
+    # package
+    workers_per_node: int = 0
+    num_nodes: int = 1
+    # a strategy file (.pb or .json) compile() loads when it is given no
+    # strategies (--import); with strict_strategies a config the shapes
+    # or the mesh cannot take raises instead of being clamped with a
+    # warning (--strict-strategies)
+    import_strategy_file: str = ""
+    strict_strategies: bool = False
     device: str = "cuda"
     unparsed: List[str] = field(default_factory=list)
 
@@ -198,6 +212,14 @@ class FFConfig:
                 f"FFConfig(device={self.device!r}) but no CUDA device is "
                 f"available; pass device='cpu' (--device cpu) to run the "
                 f"plain PyTorch path on the CPU")
+
+    @property
+    def num_devices(self) -> int:
+        """Devices a node (``-ll:gpu``, else the process group's ranks)
+        times the nodes, as the JAX package's property counts them."""
+        from .parallel.distributed import world_size
+        per_node = self.workers_per_node or world_size()
+        return per_node * self.num_nodes
 
     @property
     def torch_compute_dtype(self) -> torch.dtype:
@@ -277,6 +299,14 @@ class FFConfig:
                 kw["compute_dtype"] = take()
             elif a == "--device":
                 kw["device"] = take()
+            elif a == "-ll:gpu":       # the reference's devices a node
+                kw["workers_per_node"] = int(take())
+            elif a == "--nodes":
+                kw["num_nodes"] = int(take())
+            elif a == "--import":
+                kw["import_strategy_file"] = take()
+            elif a == "--strict-strategies":
+                kw["strict_strategies"] = True
             elif a == "--serve-max-batch":
                 kw["serve_max_batch"] = int(take())
             elif a == "--serve-max-delay-ms":

@@ -16,11 +16,14 @@ parameter names and parameter layouts follow the JAX graph, so
 ``utils.weights.params_from_jax`` can carry a JAX model's weights
 across by name.
 
-There is no mesh and no jit: the graph runs eagerly on
-``config.device``, op by op — serving under ``torch.inference_mode``,
-training under autograd. On a CUDA device the embedding, interaction
-and LSTM ops launch their hand-written kernels; on the CPU they run the
-kernels' plain versions.
+There is no jit: the graph runs eagerly on ``config.device``, op by op
+— serving under ``torch.inference_mode``, training under autograd. On a
+CUDA device the embedding, interaction and LSTM ops launch their
+hand-written kernels; on the CPU they run the kernels' plain versions.
+``compile`` resolves the JAX package's placement on a mesh over ranks
+(``parallel/``); on a mesh of several ranks, one process each, each
+rank trains on its rows of the global batch, the stacked tables split
+by table over the ranks (``EmbeddingBagStacked.shard_tables``).
 
 The training step mirrors the JAX ``train_step`` (core/model.py:996-1159
 there). The embedding ops that support it take the touched-rows update:
@@ -153,6 +156,12 @@ class FFModel:
         self._preds_tensor: Optional[Tensor] = None
         self._logits_tensor: Optional[Tensor] = None
         self._sparse_ops: Optional[List[Op]] = None  # resolved at 1st step
+        # set by compile(): the mesh over ranks, each op's strategy and
+        # placement, and the collectives of a mesh of several ranks
+        self.mesh = None
+        self.strategies: Dict[str, Any] = {}
+        self._op_pc: Dict[str, Any] = {}
+        self._collectives = None
         # set by init_layers() / swap_params()
         self.params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
         self.opt_state = None                        # built at 1st step
@@ -313,6 +322,7 @@ class FFModel:
     def compile(self, optimizer=None,
                 loss_type: str = "mean_squared_error",
                 metrics: Sequence[str] = ("mean_squared_error",),
+                mesh=None, strategies=None,
                 final_tensor: Optional[Tensor] = None):
         """Fix the optimizer (default, as in the JAX package: SGD at
         ``config.learning_rate`` with ``config.weight_decay``), the loss,
@@ -320,7 +330,24 @@ class FFModel:
         and the loss a cross-entropy, the loss takes the Softmax's input,
         the logits, and the metrics the probabilities (as in the JAX
         package). Which ops take the touched-rows update is resolved at
-        the first training step."""
+        the first training step.
+
+        The placement, as the JAX ``compile`` resolves it
+        (core/model.py:360-460 there): ``mesh`` (default
+        ``make_mesh(num_devices=config.num_devices)``), ``strategies``
+        ({op name: ParallelConfig}, default the file
+        ``config.import_strategy_file`` names, loaded and checked against
+        the mesh and the ops), the reference's generic keys resolved
+        (``_resolve_generic_strategy_keys``), data parallelism for every
+        other op, each config clamped to the shapes and the mesh
+        (``_effective_pc``) and placed on its axes (``_build_placement``).
+        On a mesh of one rank that changes nothing the step does. On more
+        (one rank a process, ``parallel.distributed``), each rank trains
+        on its rows of the global batch: the stacked tables split by
+        table over every rank, every other op data-parallel with its
+        weights replicated (``_build_placement`` says what raises). The
+        loss is the global batch's mean; one all-reduce sums the dense
+        gradients before the one dense update, another the metrics."""
         ops = [op for op in self.ops if not isinstance(op, InputOp)]
         if not ops:
             raise ValueError("compile() needs at least one op")
@@ -329,6 +356,23 @@ class FFModel:
             weight_decay=self.config.weight_decay)
         self.loss_type = losses_mod.canonical_loss(loss_type)
         self.metrics = metrics_mod.canonical_metrics(list(metrics))
+        from ..parallel.mesh import make_mesh
+        self.mesh = mesh if mesh is not None else make_mesh(
+            num_devices=self.config.num_devices)
+        ndev = self.mesh.size
+        self.strategies = dict(strategies or {})
+        if not self.strategies and self.config.import_strategy_file:
+            from ..ops.embedding import Embedding, EmbeddingBagStacked
+            from ..parallel.strategy_io import load_strategies
+            self.strategies = load_strategies(
+                self.config.import_strategy_file, num_devices=ndev,
+                known_ops={op.name for op in self.ops},
+                row_shard_ops={op.name for op in self.ops if isinstance(
+                    op, (Embedding, EmbeddingBagStacked))})
+        self._resolve_generic_strategy_keys(ndev)
+        for op in ops:
+            if op.name not in self.strategies:
+                self.strategies[op.name] = op.default_parallel_config(ndev)
         from ..ops.elementwise import Softmax
         preds = final_tensor if final_tensor is not None \
             else ops[-1].outputs[0]
@@ -347,22 +391,303 @@ class FFModel:
                 "host-resident tables support SGD (plain/momentum/"
                 "weight-decay) and Adam — stateful optimizers take the "
                 "lazy touched-rows host update")
+        self._build_placement()
         self.host_opt_state = {}
         self.reset_metrics()
         return self
+
+    def _resolve_generic_strategy_keys(self, ndev: int):
+        """Translate the reference's generic strategy keys onto this
+        graph's ops, as the JAX package does (core/model.py:451-594
+        there): "embedding{i}" per table (dims (1, 1), the whole table on
+        ``device_ids[0]``) becomes the table-dim degree of a fused
+        embedding, the number of distinct devices (at most the tables and
+        the mesh), with its tables stored grouped by device
+        (``set_table_order``) where the groups are even, or the i-th
+        unfused ``Embedding``'s config; "linear" and "concat" apply to
+        every op of that type. The JAX warnings, word for word."""
+        from ..ops.embedding import (Embedding, EmbeddingBagConcat,
+                                     EmbeddingBagStacked)
+        from ..ops.linear import Linear
+        from ..ops.tensor_ops import Concat
+        from ..parallel.pconfig import ParallelConfig
+        strategies = self.strategies
+        if not strategies:
+            return
+        emb_keys = sorted((k for k in strategies
+                           if k.startswith("embedding")
+                           and k[len("embedding"):].isdigit()),
+                          key=lambda k: int(k[len("embedding"):]))
+        fused_types = (EmbeddingBagStacked, EmbeddingBagConcat)
+        emb_ops = [op for op in self.ops
+                   if isinstance(op, (Embedding,) + fused_types)]
+        for i, op in enumerate(emb_ops):
+            if op.name in strategies:
+                continue
+            if isinstance(op, fused_types) and emb_keys:
+                pcs = [strategies[k] for k in emb_keys]
+                distinct = {pc.device_ids[:1] for pc in pcs if pc.device_ids}
+                degree = max(1, min(len(distinct), op.num_tables, ndev))
+                dtyp = pcs[0].device_type
+                if any(pc.device_type != dtyp for pc in pcs):
+                    log_model.warning(
+                        "per-table strategies mix device types %s; the "
+                        "fused embedding %r uses %r for all tables",
+                        sorted({pc.device_type for pc in pcs}), op.name,
+                        dtyp)
+                # a table marked ZCM makes the fused op host-resident
+                zcm = ["ZCM" in pc.memory_types for pc in pcs]
+                mem = ("ZCM",) if any(zcm) else ()
+                if any(zcm) and not all(zcm):
+                    log_model.warning(
+                        "per-table strategies mark only %d/%d tables ZCM; "
+                        "the fused embedding %r stores ALL tables "
+                        "host-resident (fusion constraint)",
+                        sum(zcm), len(zcm), op.name)
+                # row-shard degrees fuse to the largest requested
+                pd = max((getattr(pc, "param_degree", 1) for pc in pcs),
+                         default=1)
+                if pd > 1 and not mem:
+                    batch = op.inputs[0].shape[0]
+                    ds = ndev if batch % max(ndev, 1) == 0 else 1
+                    exch = ("dedup" if any(
+                        getattr(pc, "exchange", "dense") == "dedup"
+                        for pc in pcs) else "dense")
+                    frac = max((getattr(pc, "hot_fraction", 0.0)
+                                for pc in pcs), default=0.0)
+                    ovl = any(getattr(pc, "overlap", False)
+                              for pc in pcs)
+                    strategies[op.name] = ParallelConfig(
+                        (ds, 1, 1), device_type=dtyp, param_degree=pd,
+                        exchange=exch, hot_fraction=frac, overlap=ovl)
+                    continue
+                strategies[op.name] = ParallelConfig(
+                    (1, degree, 1), device_type=dtyp, memory_types=mem)
+                # the per-table device assignment: tables grouped by
+                # their strategy device, so block-splitting the stacked
+                # dim lands table i on device_ids[i] (the reference's
+                # round robin, dlrm_strategy.cc:242-296)
+                dev_of = [pc.device_ids[0] if pc.device_ids else None
+                          for pc in pcs]
+                if len(emb_keys) == op.num_tables and None not in dev_of:
+                    devs = sorted(set(dev_of))
+                    if hasattr(op, "set_device_groups") and len(devs) > 1:
+                        before = op.total_rows
+                        op.set_device_groups(dev_of)
+                        if op.total_rows > 1.25 * before:
+                            log_model.warning(
+                                "honoring per-table device placement "
+                                "pads %r from %d to %d rows (+%d%%): "
+                                "groups pad to the LARGEST device's row "
+                                "count — skewed placements cost memory",
+                                op.name, before, op.total_rows,
+                                round(100 * (op.total_rows / before - 1)))
+                        if len(devs) != ndev:
+                            log_model.warning(
+                                "strategy places tables on %d devices "
+                                "but the mesh has %d; row blocks land "
+                                "in device order, placement is "
+                                "approximate", len(devs), ndev)
+                    elif hasattr(op, "set_table_order"):
+                        per = op.num_tables // max(len(devs), 1)
+                        if (len(devs) == degree
+                                and all(dev_of.count(g) == per
+                                        for g in devs)):
+                            op.set_table_order(tuple(
+                                i for g in devs
+                                for i, dg in enumerate(dev_of)
+                                if dg == g))
+                        elif len(devs) > 1:
+                            log_model.warning(
+                                "per-table device_ids place %d tables "
+                                "unevenly across %d devices (counts %s); "
+                                "the stacked uniform embedding can only "
+                                "block-shard equal groups — PLACEMENT "
+                                "INTENT DROPPED, executing degree-%d "
+                                "table sharding in declaration order",
+                                op.num_tables, len(devs),
+                                [dev_of.count(g) for g in devs], degree)
+            elif not isinstance(op, fused_types) and i < len(emb_keys):
+                strategies[op.name] = strategies[emb_keys[i]]
+        for op in self.ops:
+            if isinstance(op, InputOp) or op.name in strategies:
+                continue
+            generic = None
+            if isinstance(op, Linear):
+                generic = "linear"
+            elif isinstance(op, Concat):
+                generic = "concat"
+            if generic and generic in strategies:
+                pc = strategies[generic]
+                nd = op.outputs[0].num_dims
+                degs = tuple(pc.degrees[:nd]) + (1,) * (nd - len(pc.degrees))
+                strategies[op.name] = ParallelConfig(
+                    degs, device_type=pc.device_type,
+                    device_ids=pc.device_ids)
+
+    def _effective_pc(self, op: Op):
+        """The op's strategy with each degree clamped to divide its output
+        dim and to be feasible on the mesh, as the JAX package clamps it:
+        a change warns, or raises under ``config.strict_strategies``."""
+        from ..parallel.pconfig import ParallelConfig
+        from ..parallel.sharding import AxisAssigner
+        pc = self.strategies[op.name]
+        shape = op.outputs[0].shape
+        degs = list(pc.degrees)[:len(shape)]
+        degs += [1] * (len(shape) - len(degs))
+        feas = AxisAssigner(self.mesh).feasible_degrees()
+        for i, d in enumerate(degs):
+            d = min(d, shape[i])
+            while d > 1 and (shape[i] % d != 0 or d not in feas):
+                d -= 1
+            degs[i] = max(d, 1)
+        eff = ParallelConfig(tuple(degs), pc.device_type, pc.device_ids)
+        requested = tuple(pc.degrees)[:len(shape)]
+        requested += (1,) * (len(shape) - len(requested))
+        if tuple(degs) != requested and not op.raw_degree_semantics:
+            msg = (f"strategy for {op.name!r} requests degrees {requested} "
+                   f"but output shape {shape} / mesh "
+                   f"{tuple(self.mesh.shape.values())} only admits "
+                   f"{tuple(degs)}; executing the clamped config")
+            if self.config.strict_strategies:
+                raise ValueError(msg)
+            log_model.warning(msg)
+        return eff
+
+    def _build_placement(self):
+        """Place every op on the mesh, as the JAX ``_build_shardings``
+        does (core/model.py:626-758 there): its clamped config
+        (``_op_pc``) and the mesh axes of each output dim (``_out_axes``;
+        degrees that cannot be placed together run replicated, with a
+        warning or, strict, a raise). On a mesh of more than one rank, the
+        ``EmbeddingBagStacked`` tables whose table dim spans the whole
+        mesh split over the ranks (``shard_tables``), and every other op
+        runs data-parallel: set up here when the process group is the
+        mesh, else at the first use. What the port does not split across
+        ranks yet raises ``NotImplementedError`` then (ROADMAP queue 1
+        item 7, ``_check_across_ranks``): a row-sharded config
+        (``param_degree`` > 1), other tables, stacked tables split over
+        part of the mesh or off the touched-rows SGD update (a stateful
+        optimizer, a dense table update), host-resident tables, a model
+        parallel split of a ``Linear``, and the anomaly sentinel."""
+        from ..ops.embedding import EmbeddingBagStacked
+        from ..parallel.pconfig import ParallelConfig
+        from ..parallel.sharding import AxisAssigner
+        asn = AxisAssigner(self.mesh)
+        self._op_pc, self._out_axes = {}, {}
+        for op in self.ops:
+            if isinstance(op, InputOp):
+                continue
+            pc = self._effective_pc(op)
+            try:
+                out_axes = op.output_axes(pc, asn,
+                                          self.strategies.get(op.name, pc))
+            except ValueError:
+                msg = (f"strategy for {op.name!r} degrees {pc.degrees} are "
+                       f"not jointly assignable on mesh "
+                       f"{dict(self.mesh.shape)}; executing replicated")
+                if self.config.strict_strategies:
+                    raise ValueError(msg) from None
+                log_model.warning(msg)
+                pc = ParallelConfig((1,) * op.outputs[0].num_dims)
+                out_axes = asn.assign(pc.degrees)
+            self._op_pc[op.name] = pc
+            self._out_axes[op.name] = out_axes
+        self._collectives = None
+        for op in self.ops:
+            if isinstance(op, EmbeddingBagStacked):
+                op.shard_tables(0, 1, None)
+        from ..parallel.distributed import world_size
+        if self.mesh.size > 1 and world_size() == self.mesh.size:
+            self._dist()
+
+    def _check_across_ranks(self):
+        """Raise for what a step across the mesh's ranks cannot run yet
+        (see ``_build_placement``)."""
+        from ..ops.embedding import (Embedding, EmbeddingBagConcat,
+                                     EmbeddingBagStacked)
+        from ..ops.linear import Linear
+        from ..parallel.sharding import AxisAssigner
+        asn = AxisAssigner(self.mesh)
+        world = self.mesh.size
+        item7 = "is not ported yet (ROADMAP queue 1 item 7)"
+        for name, raw in self.strategies.items():
+            if getattr(raw, "param_degree", 1) > 1:
+                raise NotImplementedError(
+                    f"{name!r}: row-sharded tables across ranks "
+                    f"(param_degree {raw.param_degree}) {item7}")
+        if self._host_resident_list:
+            raise NotImplementedError(
+                f"host-resident tables across {world} ranks {item7}")
+        for op in self.ops:
+            if isinstance(op, Linear) and asn.degree(
+                    self._out_axes[op.name][-1]) > 1:
+                raise NotImplementedError(
+                    f"{op.name!r}: a Linear split by channel "
+                    f"({self._op_pc[op.name].degrees}) across ranks {item7}")
+            if isinstance(op, EmbeddingBagStacked):
+                axes = self._out_axes[op.name][1]
+                if asn.degree(axes) != world:
+                    raise NotImplementedError(
+                        f"{op.name!r}: stacked tables split over "
+                        f"{asn.degree(axes)} of {world} ranks {item7}")
+            elif isinstance(op, (Embedding, EmbeddingBagConcat)):
+                raise NotImplementedError(
+                    f"{op.name!r}: {type(op).__name__} tables across "
+                    f"ranks {item7}")
+        batch = self.input_tensors[0].shape[0] if self.input_tensors else 0
+        if batch % world:
+            raise ValueError(f"the global batch {batch} does not divide "
+                             f"over {world} ranks")
+        if self.config.anomaly_policy != "none":
+            raise NotImplementedError(
+                f"the anomaly sentinel across ranks {item7}")
+        if self._stateful_sparse():
+            raise NotImplementedError(
+                f"stateful optimizers (momentum, weight decay, Adam) "
+                f"across ranks {item7}")
+        split = {op.name for op in self._select_sparse_update_ops()}
+        for op in self.ops:
+            if isinstance(op, EmbeddingBagStacked) and op.name not in split:
+                raise NotImplementedError(
+                    f"{op.name!r}: a dense table update across ranks "
+                    f"{item7}")
+
+    def _dist(self):
+        """The collectives of a mesh of more than one rank (made at the
+        first use; the mesh must be the process group), or None."""
+        if self.mesh is None or self.mesh.size == 1:
+            return None
+        if self._collectives is None:
+            from ..ops.embedding import EmbeddingBagStacked
+            from ..parallel import distributed
+            if self.mesh.ranks != tuple(range(distributed.world_size())):
+                raise ValueError(
+                    f"the mesh spans ranks {self.mesh.ranks} but the "
+                    f"process group has {distributed.world_size()}: "
+                    f"initialize_distributed() with as many ranks")
+            self._check_across_ranks()
+            self._collectives = distributed.Collectives()
+            me = distributed.rank()
+            for op in self.ops:
+                if isinstance(op, EmbeddingBagStacked):
+                    op.shard_tables(self.mesh.linear_index(
+                        me, self._out_axes[op.name][1]), self.mesh.size,
+                        self._collectives)
+        return self._collectives
 
     def _resolve_host_ops(self):
         """The ops whose tables are host-resident: under
         ``config.host_resident_tables`` every op with a host form, as the
         JAX package's global flag selects them (core/model.py:636-657
         there). The JAX package can also select single ops by a strategy
-        file's ZCM memory type; strategy files come with ROADMAP queue 1
-        items 7 and 8. An input that only host-resident ops read stays on
-        the host."""
-        hres = []
-        if self.config.host_resident_tables:
-            hres = [op for op in self.ops if not isinstance(op, InputOp)
-                    and hasattr(op, "host_lookup")]
+        file's ZCM memory type, and so does the port. An input that only
+        host-resident ops read stays on the host."""
+        hres = [op for op in self.ops if not isinstance(op, InputOp)
+                and hasattr(op, "host_lookup")
+                and (self.config.host_resident_tables
+                     or "ZCM" in getattr(self.strategies.get(op.name),
+                                         "memory_types", ()))]
         for op in hres:
             if any(t.owner_op is not None
                    and not isinstance(t.owner_op, InputOp)
@@ -391,6 +716,7 @@ class FFModel:
         """Draw every op's parameters on ``self.device`` from one
         ``torch.Generator`` seeded with ``seed`` (default config.seed)."""
         seed = self.config.seed if seed is None else seed
+        self._dist()       # a table-parallel op draws only its tables
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed))
         self._host_drain()
@@ -618,12 +944,21 @@ class FFModel:
                             else torch.float32)
         return out
 
-    def _device_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    def _device_batch(self, batch: Dict[str, Any], local: bool = False
+                      ) -> Dict[str, torch.Tensor]:
         """Stage a batch on ``self.device``: every model input, and the
         ``"label"`` when the batch has one. Inputs may be host arrays or
         tensors already on a device (``item_embeddings`` feeds the item
         head ids that never leave the card). An input that only
-        host-resident tables read stays on the host, as a CPU tensor."""
+        host-resident tables read stays on the host, as a CPU tensor.
+        On a mesh of several ranks the batch is the global one and this
+        rank stages its rows of it (``host_local_slice``), unless
+        ``local`` says they are its rows already."""
+        if not local and self.mesh is not None and self.mesh.size > 1:
+            from ..parallel.distributed import host_local_slice
+            self._dist()
+            batch = host_local_slice(
+                {k: batch[k] for k in self._batch_dtypes(batch)})
         out = {}
         for k, dt in self._batch_dtypes(batch).items():
             v = batch[k]
@@ -851,6 +1186,14 @@ class FFModel:
         if "label" not in device_batch:
             raise ValueError("a training batch needs its 'label'")
         policy = self.config.anomaly_policy
+        coll = self._dist()
+        if coll is not None:
+            rows = int(next(iter(device_batch.values())).shape[0])
+            want = self.input_tensors[0].shape[0] // self.mesh.size
+            if rows != want:
+                raise ValueError(f"a rank of {self.mesh.size} trains on "
+                                 f"{want} rows of the global batch, got "
+                                 f"{rows}")
         self._updating = False
         if faults.active() is not None and faults.take_nan_grad(self._step):
             # the fault harness: NaNs flow through the real backward into
@@ -896,6 +1239,10 @@ class FFModel:
         preds = env[self._preds_tensor.guid]
         loss = losses_mod.loss_fn(self.loss_type)(
             env[self._logits_tensor.guid], device_batch["label"])
+        if coll is not None:
+            # the global batch's mean: each rank's mean over its equal
+            # share, over the ranks (a power of two scales exactly)
+            loss = loss * (1.0 / self.mesh.size)
         flat = [v for p in leaves.values() for v in p.values()] \
             + list(emb_vals.values())
         grads = torch.autograd.grad(loss, flat, allow_unused=True)
@@ -904,6 +1251,18 @@ class FFModel:
         it = iter(grads)
         gd = {name: {pn: next(it) for pn in p} for name, p in leaves.items()}
         gev = {name: next(it) for name in emb_vals}
+        if coll is not None:
+            # the dense gradients summed over the ranks, in one buffer:
+            # every rank gets the same bits, so its replicated weights
+            # stay equal
+            dense = [g for p in gd.values() for g in p.values()]
+            if dense:
+                buf = coll.all_reduce_sum_(
+                    torch.cat([g.reshape(-1) for g in dense]))
+                at = 0
+                for g in dense:
+                    g.copy_(buf[at:at + g.numel()].view_as(g))
+                    at += g.numel()
 
         with torch.no_grad():
             # the sentinel's flag exists before the first update reads it
@@ -950,6 +1309,14 @@ class FFModel:
                 preds = torch.softmax(preds.float(), dim=-1)
             mets = metrics_mod.compute_metrics(
                 self.metrics, self.loss_type, preds, device_batch["label"])
+            loss = loss.detach()
+            if coll is not None:
+                # the metrics' sums and the loss over the ranks, at once
+                keys = list(mets)
+                both = coll.all_reduce_sum_(torch.stack(
+                    [mets[k].float() for k in keys] + [loss.float()]))
+                mets = {k: both[i] for i, k in enumerate(keys)}
+                loss = both[-1]
             if self._msums is None:
                 self._msums = {k: torch.zeros_like(v)
                                for k, v in mets.items()}
@@ -967,7 +1334,7 @@ class FFModel:
                 ok, next_host_idx)
         self._updating = False
         self._step += 1          # a skipped step counts, as in JAX
-        mets["loss"] = loss.detach()
+        mets["loss"] = loss
         if ok is not None:
             mets["anomaly"] = ~passed
             mets["grad_norm"] = gnorm
@@ -977,6 +1344,12 @@ class FFModel:
                                    loss=float(loss.detach()),
                                    grad_norm=float(gnorm))
         return mets
+
+    def _refuse_across_ranks(self, what: str):
+        if self.mesh is not None and self.mesh.size > 1:
+            raise NotImplementedError(
+                f"{what} across {self.mesh.size} ranks is not ported yet "
+                f"(ROADMAP queue 1 item 7): train with train_batch")
 
     def reset_metrics(self):
         """Start a new epoch's running metric sums."""
@@ -1211,6 +1584,7 @@ class FFModel:
         the last scatter lands before ``fit`` returns. The fused
         supersteps are not ported yet (ROADMAP queue 1 item 6); the
         config refuses them."""
+        self._refuse_across_ranks("fit (checkpoints, staging, data files)")
         from ..data.prefetch import PrefetchPipeline
         from ..obs import configure as obs_configure
         from ..utils.checkpoint import CheckpointManager
@@ -1466,6 +1840,7 @@ class FFModel:
         to rewind); "skip_step" and "raise" work as in any step. Returns
         {"steps", "elapsed", "throughput", "publishes", "publisher"} and,
         with obs on, "drift"."""
+        self._refuse_across_ranks("fit_stream")
         from ..data.prefetch import PrefetchPipeline
         from ..obs import configure as obs_configure
         if self.config.anomaly_policy == "rollback":

@@ -65,6 +65,25 @@ class Op:
               xs: List[torch.Tensor]) -> List[torch.Tensor]:
         raise NotImplementedError
 
+    # ---- placement (compile(); parallel/) -------------------------------
+    # an op whose table-dim degree is intent rather than an output split
+    # (the concatenated-rows embedding) is clamped by compile() without a
+    # warning, as in the JAX package
+    raw_degree_semantics: bool = False
+
+    def output_axes(self, pc, assigner, raw_pc=None):
+        """The mesh axes of each output dim under config ``pc``: the
+        degrees' positional axes (``raw_pc``, the unclamped strategy, is
+        for ops that read their intent from it)."""
+        return assigner.assign(pc.degrees)
+
+    def default_parallel_config(self, num_devices: int):
+        """Data parallelism over the sample dim (the reference's
+        Op::get_data_parallel_config, model.cc:282-293)."""
+        from ..parallel.pconfig import ParallelConfig
+        return ParallelConfig.data_parallel(self.outputs[0].num_dims,
+                                            num_devices)
+
     def __repr__(self):
         return (f"{type(self).__name__}(name={self.name!r}, "
                 f"in={[t.shape for t in self.inputs]}, "

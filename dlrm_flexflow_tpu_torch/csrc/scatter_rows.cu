@@ -1,11 +1,20 @@
 // Touched-rows scatter updates for Hopper (sm_90a): a pre-pass kernel,
 // two update kernels that run after it, and a stateful update kernel
-// that needs none, behind five entry points.
+// that needs none, behind seven entry points.
 //
-// Replaces two Pallas TPU kernels of
+// Replaces three Pallas TPU kernels of
 // dlrm_flexflow_tpu/ops/pallas/embedding_kernel.py:
 //   _scatter_unique_kernel (:289, behind scatter_add_rows and
 //     _dedup_and_scatter): read-modify-write, table[row] += sum;
+//   sharded_scatter_add_packed (:584), a shard_map of it over a table
+//     whose rows are split in blocks over the chips: each chip masks
+//     the ids outside its block to pads (:621-632) and runs :289 on its
+//     block. Here each rank's block is a table of its own and the ids
+//     stay global: ff_scatter_presort_window and
+//     ff_scatter_add_rows_window take the block's first row `lo` and
+//     its `rows`; the window test and the shift happen in the kernels,
+//     beside the pad test (an id outside [lo, lo + rows) is keyed and
+//     skipped as a pad), so no masked copy of the ids is made;
 //   _scatter_write_kernel (:495, behind scatter_write_rows_packed):
 //     write-only, table[row] = fwd_row + sum, where fwd_row is the value
 //     the forward pass gathered for that row; and, through
@@ -98,6 +107,11 @@
 //    atomics, instead of the first scan (its build alone took longer
 //    than the whole call).
 //
+// The window (item 1 and 2 with lo, rows): ids in [lo, lo + rows) are
+// row id - lo of the block; any other id, and a pad, is keyed kPadRow,
+// sorts last and owns no segment, so it is never read or written. The
+// plain scatter is the window lo = 0, rows = 2^63 - 1.
+//
 // Bound: memory. The function reads the ids (8 B a lookup), the updates
 // (n/div rows), one table row (read-modify-write) or one forward row
 // (write-only) per distinct row, and writes one row per distinct row: at
@@ -151,13 +165,17 @@ constexpr int kPadKey32 = 0x7FFFFFFF;
 // the Pallas kernels skip with @pl.when(row >= 0)) is keyed as row
 // kPadRow, after every real row, and owns no segment, so the update
 // kernel never reads or writes its row.
+// Only ids in the window [lo, lo + rows) are rows (id - lo); the
+// others are keyed as pads too.
 __global__ void __launch_bounds__(kRankThreads)
-scatter_rank_kernel(const int64_t* __restrict__ ids, int n,
-                    int* __restrict__ order, int2* __restrict__ seg) {
+scatter_rank_kernel(const int64_t* __restrict__ ids, int n, int64_t lo,
+                    int64_t rows, int* __restrict__ order,
+                    int2* __restrict__ seg) {
   extern __shared__ unsigned long long keys[];     // n keys
   for (int i = threadIdx.x; i < n; i += kRankThreads) {
-    const int64_t id = ids[i];
-    keys[i] = ((unsigned long long)(id < 0 ? kPadRow : (uint32_t)id) << 32)
+    const int64_t id = ids[i] - lo;
+    const bool in = ids[i] >= 0 && id >= 0 && id < rows;
+    keys[i] = ((unsigned long long)(in ? (uint32_t)id : kPadRow) << 32)
               | (uint32_t)i;
   }
   __syncthreads();
@@ -243,7 +261,8 @@ __device__ __forceinline__ float4 segment_sum(
 }
 
 // Group g (vec threads, one per 16-byte chunk) serves the segment of row
-// ids[g] when lookup g is that row's first; the others exit at once.
+// ids[g] - lo when lookup g is that row's first; the others exit at once
+// (the pre-pass gave no segment to a pad or an id outside the window).
 __global__ void __launch_bounds__(kThreads)
 scatter_rows_kernel(float4* __restrict__ table,
                     const int64_t* __restrict__ ids,
@@ -251,7 +270,7 @@ scatter_rows_kernel(float4* __restrict__ table,
                     const int2* __restrict__ seg,
                     const float4* __restrict__ upd,
                     const float4* __restrict__ fwd, int n, int vec, int div,
-                    float scale, const int* __restrict__ ok) {
+                    float scale, int64_t lo, const int* __restrict__ ok) {
   if (ok && __ldg(ok) == 0) return;       // the sentinel skips this step
   const int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   const int64_t g = t / vec;
@@ -259,7 +278,7 @@ scatter_rows_kernel(float4* __restrict__ table,
   const int2 s = __ldg(seg + g);
   if (s.x < 0) return;
   const int c = (int)(t - g * vec);
-  const int64_t row = __ldg(ids + g);
+  const int64_t row = __ldg(ids + g) - lo;
   // write-only: lookup g's forward row (every duplicate's holds the same
   // pre-update value); its load overlaps the segment's
   const float4 base = fwd ? __ldg(fwd + g * vec + c) : table[row * vec + c];
@@ -464,7 +483,7 @@ stateful_fused_kernel(float4* __restrict__ table,
 
 int launch(void* table, const void* ids, const void* order, const void* seg,
            const void* upd, const void* fwd, int n, int dim, int div,
-           float scale, const void* ok, void* stream) {
+           float scale, int64_t lo, const void* ok, void* stream) {
   if (n <= 0) return 0;
   const int vec = dim / 4;
   const long long blocks = ((long long)n * vec + kThreads - 1) / kThreads;
@@ -472,9 +491,35 @@ int launch(void* table, const void* ids, const void* order, const void* seg,
                         (cudaStream_t)stream>>>(
       (float4*)table, (const int64_t*)ids, (const int*)order,
       (const int2*)seg, (const float4*)upd, (const float4*)fwd, n, vec, div,
-      scale, (const int*)ok);
+      scale, lo, (const int*)ok);
   return (int)cudaGetLastError();
 }
+
+// The pre-pass over the window [lo, lo + rows) (see ff_scatter_presort).
+int presort(const void* ids, int n, int64_t lo, int64_t rows, void* order,
+            void* seg, void* stream) {
+  if (n <= 0) return 0;
+  if (n > kBlockSortMax) return (int)cudaErrorInvalidValue;
+  static bool allowed[64] = {};      // the dynamic shared memory, set
+  int dev = 0;                        // once per device
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64 || !allowed[dev]) {
+    err = cudaFuncSetAttribute((const void*)scatter_rank_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kBlockSortMax * (int)sizeof(unsigned long long));
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 64) allowed[dev] = true;
+  }
+  scatter_rank_kernel<<<(n + kRankPerBlock - 1) / kRankPerBlock,
+                        kRankThreads, n * sizeof(unsigned long long),
+                        (cudaStream_t)stream>>>(
+      (const int64_t*)ids, n, lo, rows, (int*)order, (int2*)seg);
+  return (int)cudaGetLastError();
+}
+
+// the plain scatter's window: every id >= 0
+constexpr int64_t kAllRows = INT64_MAX;
 
 }  // namespace
 
@@ -492,24 +537,15 @@ int ff_scatter_block_sort_max() { return kBlockSortMax; }
 // launch on `stream`; returns cudaGetLastError().
 int ff_scatter_presort(const void* ids, int n, void* order, void* seg,
                        void* stream) {
-  if (n <= 0) return 0;
-  if (n > kBlockSortMax) return (int)cudaErrorInvalidValue;
-  static bool allowed[64] = {};      // the dynamic shared memory, set
-  int dev = 0;                        // once per device
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= 64 || !allowed[dev]) {
-    err = cudaFuncSetAttribute((const void*)scatter_rank_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kBlockSortMax * (int)sizeof(unsigned long long));
-    if (err != cudaSuccess) return (int)err;
-    if (dev < 64) allowed[dev] = true;
-  }
-  scatter_rank_kernel<<<(n + kRankPerBlock - 1) / kRankPerBlock,
-                        kRankThreads, n * sizeof(unsigned long long),
-                        (cudaStream_t)stream>>>(
-      (const int64_t*)ids, n, (int*)order, (int2*)seg);
-  return (int)cudaGetLastError();
+  return presort(ids, n, 0, kAllRows, order, seg, stream);
+}
+
+// As ff_scatter_presort over the window [lo, lo + rows): an id in it is
+// row id - lo, any other id is keyed and skipped as a pad.
+int ff_scatter_presort_window(const void* ids, int n, long long lo,
+                              long long rows, void* order, void* seg,
+                              void* stream) {
+  return presort(ids, n, lo, rows, order, seg, stream);
 }
 
 // table: (rows, dim) fp32, updated in place; ids: (n,) int64, the
@@ -520,7 +556,21 @@ int ff_scatter_presort(const void* ids, int n, void* order, void* seg,
 int ff_scatter_add_rows(void* table, const void* ids, const void* order,
                         const void* seg, const void* upd, int n, int dim,
                         int div, float scale, const void* ok, void* stream) {
-  return launch(table, ids, order, seg, upd, nullptr, n, dim, div, scale,
+  return launch(table, ids, order, seg, upd, nullptr, n, dim, div, scale, 0,
+                ok, stream);
+}
+
+// As ff_scatter_add_rows on a block of a larger table: table holds its
+// rows [lo, lo + rows), ids are rows of the whole table, and order and
+// seg come from ff_scatter_presort_window over the same window, so an id
+// outside it changes nothing. Lookup g of a segment updates table row
+// ids[g] - lo.
+int ff_scatter_add_rows_window(void* table, const void* ids,
+                               const void* order, const void* seg,
+                               const void* upd, int n, int dim, int div,
+                               float scale, long long lo, const void* ok,
+                               void* stream) {
+  return launch(table, ids, order, seg, upd, nullptr, n, dim, div, scale, lo,
                 ok, stream);
 }
 
@@ -531,7 +581,7 @@ int ff_scatter_write_rows(void* table, const void* ids, const void* order,
                           const void* seg, const void* upd, const void* fwd,
                           int n, int dim, int div, float scale,
                           const void* ok, void* stream) {
-  return launch(table, ids, order, seg, upd, fwd, n, dim, div, scale, ok,
+  return launch(table, ids, order, seg, upd, fwd, n, dim, div, scale, 0, ok,
                 stream);
 }
 

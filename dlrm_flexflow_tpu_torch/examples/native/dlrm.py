@@ -1,12 +1,27 @@
 """DLRM training app, the port of ``examples/native/dlrm.py``: the same
-flag spellings, graph, optimizer, data sources and report line, on one
-card (or, with ``--device cpu``, on the CPU). Run it as a module from the
-root of a checkout::
+flag spellings, graph, optimizer, data sources, strategies and report
+line, on one card (or, with ``--device cpu``, on the CPU) or across
+ranks. Run it as a module from the root of a checkout::
 
     python -m dlrm_flexflow_tpu_torch.examples.native.dlrm -b 256 -e 1 \\
         --arch-embedding-size 1000000-1000000-1000000-1000000-1000000-1000000-1000000-1000000 \\
         --arch-sparse-feature-size 64 --arch-mlp-bot 64-512-512-64 \\
         --arch-mlp-top 576-1024-1024-1024-1 --data-path train.ffbin
+
+Across ranks, as ``run_random.sh`` launches the JAX app with ``-ll:gpu
+$ndev -b $((256*ndev))``: one process a rank, under torchrun
+(``torchrun --nproc-per-node N -m
+dlrm_flexflow_tpu_torch.examples.native.dlrm -ll:gpu N ...``) or the JAX
+package's environment (``COORDINATOR_ADDRESS`` host:port,
+``NUM_PROCESSES``, ``PROCESS_ID``; ``parallel.distributed``). Each rank
+trains on its rows of the synthetic global batch under the hand-written
+``dlrm_strategy`` (the stacked tables split by table over the ranks,
+every other op data-parallel) or the strategy file ``--import`` names
+(``.pb`` or ``.json``), and rank 0 prints the report. Without a process
+group the world is one rank, so ``-ll:gpu 8`` or ``--nodes 2`` trains on
+one card, as the JAX app does on a host with one chip. Across ranks,
+data files, checkpoints and the anomaly sentinel raise (ROADMAP queue 1
+item 7).
 
 Data: ``--data-path file.ffbin`` (``data.dataloader.write_ffbin``'s
 format, read by the native loader and staged to the card by the prefetch
@@ -31,10 +46,9 @@ continual loop's ``--publish-every``, ``--delta-compact-frac``,
 app) and ``--obs*`` (``fit``, ``fit_stream``), as in the JAX launcher.
 
 What the port does not have yet raises, naming its ROADMAP item, rather
-than being ignored: the strategy search and its files (item 8), a
-multi-host or multi-device launch (item 7), supersteps, the per-op
-profile and ``--debug-nans`` (item 6), and the other JAX runtime flags
-below.
+than being ignored: the strategy search and ``--export`` (item 8), the
+elastic runtime (item 7), supersteps, the per-op profile and
+``--debug-nans`` (item 6), and the other JAX runtime flags below.
 """
 
 from __future__ import annotations
@@ -50,7 +64,11 @@ from ...core.model import FFModel
 from ...core.optimizers import SGDOptimizer
 from ...data.dataloader import (FFBinDataLoader, SingleDataLoader,
                                 load_dlrm_hdf5)
-from ...models.dlrm import DLRMConfig, build_dlrm, synthetic_batch
+from ...models.dlrm import (DLRMConfig, build_dlrm, dlrm_strategy,
+                            synthetic_batch)
+from ...parallel import distributed
+from ...parallel.mesh import make_mesh
+from ...parallel.strategy_io import load_strategies
 from ...utils.logging import get_logger
 from ...utils.profiling import TraceContext
 
@@ -60,12 +78,12 @@ log_app = get_logger("dlrm")
 # the ROADMAP queue 1 item that ports what they drive
 _UNPORTED = {
     **dict.fromkeys(("--budget", "--search-budget", "--alpha",
-                     "--search-alpha", "--import", "--export",
-                     "--measure-ops", "--simulation", "-dm:memorize",
-                     "--strict-strategies"), "8 (strategy search)"),
-    **dict.fromkeys(("--nodes", "--elastic", "--elastic-budget",
-                     "--max-recoveries", "--elastic-expand",
-                     "--worker-deadline"), "7 (multi-GPU)"),
+                     "--search-alpha", "--export", "--measure-ops",
+                     "--simulation", "-dm:memorize"),
+                    "8 (strategy search)"),
+    **dict.fromkeys(("--elastic", "--elastic-budget", "--max-recoveries",
+                     "--elastic-expand", "--worker-deadline"),
+                    "7 (multi-GPU)"),
     **dict.fromkeys(("--profiling", "--debug-nans"),
                     "6 (training runtime)"),
     **dict.fromkeys(("--emb-dtype", "--emb-update-rule"),
@@ -78,15 +96,11 @@ _UNPORTED = {
 
 
 def _refuse_unported(rest):
-    for i, a in enumerate(rest):
+    for a in rest:
         if a in _UNPORTED:
             raise NotImplementedError(
                 f"{a} is not ported yet (ROADMAP queue 1 item "
                 f"{_UNPORTED[a]})")
-        if a == "-ll:gpu" and rest[i + 1:i + 2] != ["1"]:
-            raise NotImplementedError(
-                "-ll:gpu: the port trains on one card; more devices are "
-                "ROADMAP queue 1 item 7 (multi-GPU)")
 
 
 def _check_sparse_bounds(sparse, dcfg):
@@ -105,16 +119,16 @@ def _check_sparse_bounds(sparse, dcfg):
 
 
 def main(argv=None):
-    """Train as the flags say; prints the metrics and the
+    """Train as the flags say; prints (rank 0) the metrics and the
     ``THROUGHPUT = ... samples/s`` line, and returns {"elapsed",
     "throughput", "num_samples", "steps", "model", "prefetch"} (the
-    timed loop: every epoch's batches after one warm-up step;
-    "prefetch" the ring's ``stats()``, None without a ring)."""
-    if os.environ.get("NUM_PROCESSES") or os.environ.get(
-            "COORDINATOR_ADDRESS"):
-        raise NotImplementedError(
-            "a multi-host launch (NUM_PROCESSES / COORDINATOR_ADDRESS) is "
-            "not ported yet (ROADMAP queue 1 item 7)")
+    timed loop: every epoch's batches after one warm-up step, samples of
+    the global batch; "prefetch" the ring's ``stats()``, None without a
+    ring)."""
+    if any(os.environ.get(k) for k in ("NUM_PROCESSES",
+                                       "COORDINATOR_ADDRESS", "WORLD_SIZE")):
+        # one process a rank (the reference's run_summit.sh over GASNet)
+        distributed.initialize_distributed()
     cfg = FFConfig.parse_args(argv)
     dcfg = DLRMConfig.parse_args(cfg.unparsed)
     rest = cfg.unparsed
@@ -122,13 +136,33 @@ def main(argv=None):
     data_path = None
     if "--data-path" in rest:
         data_path = rest[rest.index("--data-path") + 1]
-    log_app.info("device=%s batch=%d tables=%d zipf_alpha=%g", cfg.device,
-                 cfg.batch_size, len(dcfg.embedding_size), dcfg.zipf_alpha)
+    world = distributed.world_size()
+    if world > 1:
+        # each rank computes on its card (its own under NCCL)
+        cfg.device = str(distributed.local_device(cfg.device))
+    ndev = min(cfg.num_devices, world)
+    if ndev < world:
+        raise ValueError(f"-ll:gpu x --nodes = {cfg.num_devices} device(s) "
+                         f"for {world} ranks: every rank trains")
+    mesh = make_mesh(num_devices=ndev)
+    log_app.info("device=%s devices=%d batch=%d tables=%d zipf_alpha=%g",
+                 cfg.device, ndev, cfg.batch_size, len(dcfg.embedding_size),
+                 dcfg.zipf_alpha)
+    if world > 1 and data_path:
+        raise NotImplementedError(
+            "--data-path across ranks (a rank's shard of the file) is not "
+            "ported yet (ROADMAP queue 1 item 7)")
 
     model = FFModel(cfg)
     build_dlrm(model, dcfg)
+    # strategy: --import file > the hand-written DLRM strategy
+    if cfg.import_strategy_file:
+        strategies = load_strategies(cfg.import_strategy_file)
+        log_app.info("imported strategies from %s", cfg.import_strategy_file)
+    else:
+        strategies = dlrm_strategy(model, dcfg, ndev)
     model.compile(SGDOptimizer(lr=cfg.learning_rate), "mean_squared_error",
-                  ["mse"])
+                  ["mse"], mesh=mesh, strategies=strategies)
     model.init_layers()
 
     loader = None
@@ -154,7 +188,9 @@ def main(argv=None):
     else:   # synthetic, one batch staged once
         x, y = synthetic_batch(dcfg, cfg.batch_size)
         x["label"] = y
-        staged = model._device_batch(x)
+        # each rank stages its rows of the global batch
+        staged = distributed.global_batch_from_host_local(
+            distributed.host_local_slice(x), model)
         num_batches = 64
         next_batch = lambda: staged  # noqa: E731
 
@@ -180,9 +216,10 @@ def main(argv=None):
             loader.close()
     steps = cfg.epochs * num_batches
     n_samples = steps * cfg.batch_size
-    print(f"{model.perf.summary_line()}")
-    print(f"ELAPSED TIME = {elapsed:.4f}s, THROUGHPUT = "
-          f"{n_samples / elapsed:.2f} samples/s")
+    if distributed.rank() == 0:
+        print(f"{model.perf.summary_line()}")
+        print(f"ELAPSED TIME = {elapsed:.4f}s, THROUGHPUT = "
+              f"{n_samples / elapsed:.2f} samples/s")
     return {"elapsed": elapsed, "throughput": n_samples / elapsed,
             "num_samples": n_samples, "steps": steps, "model": model,
             "prefetch": ring}

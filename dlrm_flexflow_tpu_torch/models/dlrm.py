@@ -27,6 +27,7 @@ import torch
 
 from ..core.initializers import UniformInitializer
 from ..core.model import FFModel
+from ..parallel.pconfig import ParallelConfig, StrategyMap
 
 
 @dataclass
@@ -252,6 +253,54 @@ def build_dlrm(model: FFModel, cfg: DLRMConfig,
     inputs = {"dense": (batch, cfg.mlp_bot[0]),
               "sparse": (batch, T, cfg.embedding_bag_size)}
     return inputs, out
+
+
+def dlrm_strategy(model: FFModel, cfg: DLRMConfig, num_devices: int,
+                  row_shard: bool = False) -> StrategyMap:
+    """The hand-written DLRM strategy of the JAX package (its
+    models/dlrm.py:277-315, after the reference's
+    src/runtime/dlrm_strategy.cc:242-296): the stacked tables
+    table-parallel, with the largest degree that divides both the table
+    count and ``num_devices``, and every other op data-parallel over all
+    of them. Its other branches shard what the port cannot split across
+    ranks yet: over more than one device, ``row_shard=True``,
+    ``EmbeddingBagConcat`` (row blocks of the concatenated table) and
+    ``Embedding`` (width sharding) raise ``NotImplementedError`` (ROADMAP
+    queue 1 item 7); over one device they give the JAX package's
+    unsharded configs."""
+    strat: StrategyMap = {}
+    batch = model.config.batch_size
+    for op in model.ops:
+        tname = type(op).__name__
+        nd = op.outputs[0].num_dims if op.outputs else 0
+        if row_shard and batch % max(num_devices, 1) == 0 and tname in (
+                "EmbeddingBagStacked", "EmbeddingBagConcat", "Embedding"):
+            if num_devices > 1:
+                raise NotImplementedError(
+                    f"dlrm_strategy(row_shard=True): row-sharded tables "
+                    f"across ranks are not ported yet (ROADMAP queue 1 "
+                    f"item 7)")
+            strat[op.name] = ParallelConfig(
+                (num_devices,) + (1,) * (nd - 1), param_degree=num_devices)
+        elif tname == "EmbeddingBagStacked":
+            # (batch, T, d): the table dim over the largest common
+            # divisor of the table count and the device count
+            dt = next(d for d in range(min(num_devices, op.num_tables), 0, -1)
+                      if op.num_tables % d == 0 and num_devices % d == 0)
+            strat[op.name] = ParallelConfig((1, dt, 1))
+        elif tname in ("EmbeddingBagConcat", "Embedding") \
+                and num_devices > 1:
+            raise NotImplementedError(
+                f"dlrm_strategy: {tname} {op.name!r} over {num_devices} "
+                f"devices (row blocks of the concatenated table, or width "
+                f"sharding) is not ported yet (ROADMAP queue 1 item 7)")
+        elif tname == "EmbeddingBagConcat":
+            strat[op.name] = ParallelConfig((1, 1, 1))
+        elif tname == "Embedding":
+            strat[op.name] = ParallelConfig((1, 1))
+        elif nd > 0:
+            strat[op.name] = ParallelConfig.data_parallel(nd, num_devices)
+    return strat
 
 
 def synthetic_batch(cfg: DLRMConfig, batch: int, seed: int = 0,

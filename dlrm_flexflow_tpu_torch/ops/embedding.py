@@ -4,12 +4,13 @@ and different row counts, concatenated row-wise), the counterparts of
 ``dlrm_flexflow_tpu.ops.embedding``.
 
 The JAX op stores its T tables lane-packed as (T, rows/r, r·d) for the
-TPU's 128-lane tiles. The port keeps them as (T, rows, d) in LOGICAL
-table order: one GPU holds every table, so the storage permutation
-``_table_order`` that the JAX op uses to place tables on devices has no
-work to do in the forward. The op still records it, because
-``utils.weights.params_from_jax`` reads it to undo the JAX storage
-order when it carries weights across.
+TPU's 128-lane tiles. On one card the port keeps them as (T, rows, d)
+in LOGICAL table order: the storage permutation ``_table_order`` that
+the JAX op uses to place tables on devices has no work to do there, and
+``utils.weights.params_from_jax`` reads it to undo the JAX storage order
+when it carries weights across. Split over ranks
+(``EmbeddingBagStacked.shard_tables``), a rank holds its block of the
+storage slots, in slot order, as the JAX op's devices do.
 
 For the delta publisher (``utils/delta.py``) both ops map a host batch's
 ids to the rows of the JAX op's STORED kernel, flattened to 2-D
@@ -52,6 +53,7 @@ from ..core.initializers import GlorotUniform
 from ..core.op import Op, ParamDef
 from .kernels.embedding_bag import EmbeddingBagFunction, embedding_bag
 from .kernels.scatter_rows import (scatter_add_rows, scatter_write_rows,
+                                   sharded_scatter_add_rows,
                                    stateful_update_rows)
 
 AGGR_MODE_SUM = "sum"
@@ -506,7 +508,24 @@ class EmbeddingBagStacked(_FlatTableBag):
     and cotangent into its storage order before a touched-rows update; a
     row's lookups keep their relative order under that permutation (all
     of them lie in one table), so its sums, and the result, are the
-    same."""
+    same.
+
+    Table parallelism across D ranks (``shard_tables``, set by
+    ``compile`` when the strategy splits the table dim over the whole
+    mesh): rank k holds the storage slots [k·T/D, (k+1)·T/D), slot s
+    holding logical table ``order[s]`` (``set_table_order``), as the JAX
+    op's stored kernel split in D blocks; its ``kernel`` is (T/D, rows,
+    d) in slot order. Each rank has its rows of the batch, all T tables.
+    The forward sends every rank its tables' ids (one
+    ``all_to_all_single``), looks them up for the global batch with the
+    bag kernel, and sends the bags back to the ranks whose rows they are
+    (a second one). The touched-rows SGD update sends the cotangent the
+    reverse way (a third) and runs the windowed scatter
+    (``sharded_scatter_add_rows``, kernel 4) on the rank's block with
+    global stacked ids slot·rows + id, in the (batch, table, bag) order
+    of the JAX op's ``gidx``. The write route is closed there, as in the
+    JAX op (``_fwd_residual_ok`` needs an unsharded table), and so are
+    the stateful updates and host tables (ROADMAP queue 1 item 7)."""
 
     type_name = "EmbedStack"
 
@@ -531,6 +550,7 @@ class EmbeddingBagStacked(_FlatTableBag):
         self.outputs = [self._make_output(
             (batch, self.num_tables, self.out_dim))]
         self._table_order = None
+        self._shard = None
 
     def set_table_order(self, order):
         """Record the JAX op's storage order: stored slot s holds logical
@@ -541,19 +561,63 @@ class EmbeddingBagStacked(_FlatTableBag):
         self._table_order = (None if order == tuple(range(self.num_tables))
                              else order)
 
+    # ---- table parallelism across ranks -----------------------------
+    def shard_tables(self, block: int, blocks: int, collectives):
+        """Hold storage slots [block·T/blocks, (block+1)·T/blocks) of
+        ``blocks`` ranks, exchanging with them through ``collectives``
+        (``parallel.distributed.Collectives``, whose rank ``block`` this
+        process is); ``blocks`` 1 holds every table, as on one card."""
+        if blocks <= 1:
+            self._shard = None
+            return
+        if self.num_tables % blocks:
+            raise ValueError(f"{self.name}: {self.num_tables} tables do not "
+                             f"split over {blocks} ranks")
+        self._shard = (int(block), int(blocks), collectives)
+
+    @property
+    def local_tables(self) -> int:
+        """Tables this rank holds."""
+        return self.num_tables // (self._shard[1] if self._shard else 1)
+
+    def local_slots(self) -> range:
+        """The storage slots this rank holds (every table's, unsharded)."""
+        if self._shard is None:
+            return range(self.num_tables)
+        tl = self.local_tables
+        return range(self._shard[0] * tl, (self._shard[0] + 1) * tl)
+
+    def _order(self, device):
+        """Storage slot -> logical table, as a tensor on ``device``."""
+        order = self._table_order or tuple(range(self.num_tables))
+        return torch.tensor(order, dtype=torch.int64, device=device)
+
     def param_defs(self):
         return {"kernel": ParamDef(
-            (self.num_tables, self.num_entries, self.out_dim),
+            (self.local_tables, self.num_entries, self.out_dim),
             torch.float32, self.kernel_initializer)}
 
     def init_params(self, generator, device):
         # each table at its own (rows, d) shape, so shape-dependent
-        # initializers (Glorot fans) match the JAX op's per-table draws
-        return {"kernel": torch.stack([
-            self.kernel_initializer(generator,
-                                    (self.num_entries, self.out_dim),
-                                    torch.float32, device)
-            for _ in range(self.num_tables)])}
+        # initializers (Glorot fans) match the JAX op's per-table draws;
+        # a rank holding some tables draws them all, in logical order, and
+        # keeps its own, so every rank and a single card agree
+        if self._shard is None:        # every table, in logical order
+            return {"kernel": torch.stack([
+                self.kernel_initializer(generator,
+                                        (self.num_entries, self.out_dim),
+                                        torch.float32, device)
+                for _ in range(self.num_tables)])}
+        order = self._table_order or tuple(range(self.num_tables))
+        mine = {order[s]: s for s in self.local_slots()}
+        kept = {}
+        for t in range(self.num_tables):
+            table = self.kernel_initializer(
+                generator, (self.num_entries, self.out_dim), torch.float32,
+                device)
+            if t in mine:
+                kept[mine[t]] = table
+        return {"kernel": torch.stack([kept[s] for s in self.local_slots()])}
 
     def _global_ids(self, idx):
         """(batch, T, bag) ids -> (batch*T, bag) rows of the stacked
@@ -566,8 +630,70 @@ class EmbeddingBagStacked(_FlatTableBag):
         return flat.reshape(-1, idx.shape[2])
 
     def _flat(self, t):
-        # (T, rows, d) -> the stacked (T*rows, d) view
-        return t.reshape(self.num_tables * self.num_entries, self.out_dim)
+        # (T, rows, d) -> the stacked (T*rows, d) view (the rank's tables
+        # under table parallelism)
+        return t.reshape(-1, self.out_dim)
+
+    # ---- the table-parallel lookup and update ---------------------------
+    def apply(self, params, xs):
+        if self._shard is None:
+            return super().apply(params, xs)
+        return self.apply_with_fwd(params, xs)[0]
+
+    def apply_with_fwd(self, params, xs):
+        if self._shard is None:
+            return super().apply_with_fwd(params, xs)
+        (idx,) = xs                        # this rank's rows, (b, T, bag)
+        block, blocks, coll = self._shard
+        b, T, bag = idx.shape
+        tl, rows, d = self.local_tables, self.num_entries, self.out_dim
+        order = self._order(idx.device)
+        # chunk j: this rank's ids of rank j's slots
+        send = idx.long().index_select(1, order).reshape(b, blocks, tl, bag)
+        got = coll.all_to_all(send.transpose(0, 1))    # (blocks, b, tl, bag)
+        local = torch.remainder(got.reshape(blocks * b, tl, bag), rows) \
+            + (torch.arange(tl, device=idx.device) * rows)[None, :, None]
+        rows_out = embedding_bag(self._flat(params["kernel"]),
+                                 local.reshape(-1, bag), self.aggr)
+        # chunk j: the bags of rank j's rows, back to it
+        back = coll.all_to_all(rows_out.reshape(blocks, b, tl, d))
+        out = back.transpose(0, 1).reshape(b, T, d).index_select(
+            1, torch.argsort(order))
+        gid = local + block * tl * rows        # global stacked row ids
+        return [out], (gid.reshape(-1), None)
+
+    @torch.no_grad()
+    def sparse_sgd_update(self, params, xs, out_ct, lr, fwd=None, ok=None):
+        if self._shard is None:
+            return super().sparse_sgd_update(params, xs, out_ct, lr, fwd, ok)
+        if fwd is None:
+            raise ValueError(f"{self.name}: the table-parallel update takes "
+                             f"the ids of apply_with_fwd (fwd)")
+        (idx,) = xs
+        block, blocks, coll = self._shard
+        b, T, bag = idx.shape
+        tl, d = self.local_tables, self.out_dim
+        ct = out_ct.to(params["kernel"].dtype)
+        if self.aggr == AGGR_MODE_AVG:
+            ct = ct / bag
+        # chunk j: this rank's cotangents of rank j's slots
+        send = ct.index_select(1, self._order(ct.device)).reshape(
+            b, blocks, tl, d)
+        got = coll.all_to_all(send.transpose(0, 1))    # (blocks, b, tl, d)
+        sharded_scatter_add_rows(
+            self._flat(params["kernel"]), fwd[0], got.reshape(-1, d),
+            lo=block * tl * self.num_entries, scale=-lr, div=bag, ok=ok)
+        return params
+
+    def sparse_opt_update(self, params, xs, out_ct, opt, slabs, step,
+                          fwd=None, ok=None):
+        if self._shard is not None:
+            raise NotImplementedError(
+                f"{self.name}: stateful optimizers (momentum, weight "
+                f"decay, Adam) on tables split across ranks are not ported "
+                f"yet (ROADMAP queue 1 item 7)")
+        return super().sparse_opt_update(params, xs, out_ct, opt, slabs,
+                                         step, fwd, ok)
 
     # ---- delta publication (utils/delta.py) -------------------------
     def lookup_id_space(self) -> int:
@@ -624,6 +750,10 @@ class EmbeddingBagConcat(_FlatTableBag):
 
     type_name = "EmbedConcat"
 
+    # the table-dim degree is intent ("split the concatenated rows"), not
+    # an output split: compile() clamps it without a warning, as in JAX
+    raw_degree_semantics = True
+
     # row padding so the concatenated row count divides any power-of-two
     # mesh (the JAX op shards it over one)
     _ROW_PAD = 8192
@@ -662,6 +792,17 @@ class EmbeddingBagConcat(_FlatTableBag):
         raise NotImplementedError(
             "EmbeddingBagConcat.set_device_groups: tables on several "
             "devices need multi-GPU (ROADMAP queue 1 item 7)")
+
+    def output_axes(self, pc, assigner, raw_pc=None):
+        """The JAX op's layout: under table parallelism (the RAW
+        degrees[1] > 1) its rows split over the whole mesh and its output
+        is batch-split over every axis, as its data-parallel consumers'
+        (when the batch divides)."""
+        raw = raw_pc or pc
+        if len(raw.degrees) > 1 and raw.degrees[1] > 1 \
+                and self.outputs[0].shape[0] % assigner.mesh.size == 0:
+            return [tuple(assigner.axis_names), (), ()]
+        return assigner.assign(pc.degrees)
 
     def param_defs(self):
         return {"kernel": ParamDef((self.total_rows, self.out_dim),

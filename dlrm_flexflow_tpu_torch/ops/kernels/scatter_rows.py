@@ -3,7 +3,10 @@ versions.
 
 Replaces the Pallas TPU kernels ``_scatter_unique_kernel``
 (dlrm_flexflow_tpu/ops/pallas/embedding_kernel.py:289, the
-read-modify-write ``scatter_add_rows``) and ``_scatter_write_kernel``
+read-modify-write ``scatter_add_rows``), its ``shard_map`` over the row
+blocks of a table split across chips, ``sharded_scatter_add_packed``
+(:584; here ``sharded_scatter_add_rows``: a rank's block, global ids, the
+window test in the kernel), and ``_scatter_write_kernel
 (:495, the write-only ``scatter_write_rows_packed``, and through
 ``scatter_write_tiles`` (:547) the weight and state-slab writes of the
 stateful ``_stateful_update_tiles_packed``, ops/embedding.py:460: here
@@ -23,6 +26,8 @@ device, so callers whose ids are in range by construction, the ops that
 wrap their ids, pass ``ids_in_range=True``):
 
 - ``scatter_add_rows``:   table[row] = table[row] + sum
+- ``sharded_scatter_add_rows``: block[row - lo] = block[row - lo] + sum,
+  for the rows in [lo, lo + block rows); every other id changes nothing
 - ``scatter_write_rows``: table[row] = fwd[j] + sum, fwd[j] being the row
   a lookup of that row read in the forward pass (all equal);
 - ``stateful_update_rows``: the optimizer's row math (SGD with weight
@@ -70,6 +75,11 @@ _SIGNATURES = {
     "ff_scatter_presort": ((_P, _I, _P, _P, _P), _I),
     "ff_scatter_add_rows": (
         (_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P, _P), _I),
+    "ff_scatter_presort_window": (
+        (_P, _I, ctypes.c_longlong, ctypes.c_longlong, _P, _P, _P), _I),
+    "ff_scatter_add_rows_window": (
+        (_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, ctypes.c_longlong,
+         _P, _P), _I),
     "ff_scatter_write_rows": (
         (_P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P, _P), _I),
     "ff_stateful_update_rows": (
@@ -138,6 +148,22 @@ def scatter_add_rows_reference(table, ids, upd, scale=1.0, div=1, ok=None):
     rows, _, sums = _segment_sums(ids, upd, scale, div)
     table[rows] = table[rows] + sums
     return table
+
+
+def window_ids(ids, lo: int, rows: int):
+    """The ids of a block's window as the JAX wrapper masks them
+    (embedding_kernel.py:621-632): id - lo for an id in [lo, lo + rows),
+    -1 (a pad) for any other id and for a pad."""
+    local = ids - lo
+    return torch.where((ids >= 0) & (local >= 0) & (local < rows), local,
+                       torch.full_like(local, -1))
+
+
+def sharded_scatter_add_rows_reference(block, ids, upd, lo, scale=1.0,
+                                       div=1, ok=None):
+    """Plain PyTorch version of ``sharded_scatter_add_rows``."""
+    return scatter_add_rows_reference(
+        block, window_ids(ids, int(lo), block.shape[0]), upd, scale, div, ok)
 
 
 def scatter_write_rows_reference(table, ids, upd, fwd, scale=1.0, div=1,
@@ -375,23 +401,43 @@ def _kernel_inputs(table, ids, upd, fwd, slabs=()):
     return ids, upd, fwd
 
 
-def _presorted(table, ids, upd, fwd, slabs=()):
+def _presorted(table, ids, upd, fwd, slabs=(), lo=None):
     """``_kernel_inputs``, then the pre-pass: (route, ids, upd, fwd,
-    order, seg); order is None when there are no lookups."""
+    order, seg); order is None when there are no lookups. With ``lo``
+    the table is the block [lo, lo + rows) of a larger one and an id
+    outside it counts as a pad."""
     n = ids.shape[0]
     route = scatter_route(n, table.shape[0])
     ids, upd, fwd = _kernel_inputs(table, ids, upd, fwd, slabs)
     if n == 0:
         return route, ids, upd, fwd, None, None
-    if route == "block":
+    if route == "block" and lo is not None:
+        order, seg = _presort_window(ids, lo, table.shape[0])
+    elif route == "block":
         order, seg = scatter_presort(ids)
     else:
-        pads = ids < 0
-        key = torch.where(pads, PAD_KEY32, ids).to(torch.int32)
+        local = ids if lo is None else window_ids(ids, lo, table.shape[0])
+        pads = local < 0
+        key = torch.where(pads, PAD_KEY32, local).to(torch.int32)
         sorted_ids, order = torch.sort(key, stable=True)
         seg = _segments(sorted_ids, order.to(torch.int32), pads[order])
         order = order.to(torch.int32)
     return route, ids, upd, fwd, order, seg
+
+
+def _presort_window(ids, lo, rows):
+    """``scatter_presort``'s kernel over the window [lo, lo + rows) of
+    the ids (checked inputs, n <= BLOCK_SORT_MAX)."""
+    n = ids.shape[0]
+    order = torch.empty(n, dtype=torch.int32, device=ids.device)
+    seg = torch.empty((n, 2), dtype=torch.int32, device=ids.device)
+    lib = build.load("scatter_rows", _SIGNATURES)
+    err = lib.ff_scatter_presort_window(ids.data_ptr(), n, int(lo), int(rows),
+                                        order.data_ptr(), seg.data_ptr(),
+                                        build.stream_of(ids))
+    build.check(lib, err, "scatter_presort kernel (window)")
+    build.count_launch(scatter_presort)
+    return order, seg
 
 
 def _ptr(t):
@@ -434,6 +480,43 @@ def scatter_add_rows(table: torch.Tensor, ids: torch.Tensor,
                          f"{table.device}")
     return _launch(scatter_add_rows, "ff_scatter_add_rows", table, ids, upd,
                    None, scale, div, ok)
+
+
+def sharded_scatter_add_rows(block: torch.Tensor, ids: torch.Tensor,
+                             upd: torch.Tensor, lo: int, scale: float = 1.0,
+                             div: int = 1, *, ok=None) -> torch.Tensor:
+    """In place, on one rank's block of a table split in row blocks:
+    block[ids[j] - lo] += scale * upd[j // div] for each id in [lo, lo +
+    block rows), duplicates summed first in lookup order; an id outside
+    the window, or a pad (< 0), changes nothing. block (rows, d) fp32,
+    the rows [lo, lo + rows) of the whole table; ids (n,) int64, rows of
+    the whole table, replicated or not; upd (n // div, d). On the card:
+    the pre-pass over the window, then ``ff_scatter_add_rows_window``,
+    which tests the window and shifts the id itself (no masked copy of
+    the ids). ``ok``: the sentinel's flag."""
+    _check(block, ids, upd, None, div, True)
+    check_ok(ok, block.device)
+    if block.device.type == "cpu":
+        return sharded_scatter_add_rows_reference(block, ids, upd, lo, scale,
+                                                  div, ok)
+    if block.device.type != "cuda":
+        raise ValueError(f"sharded_scatter_add_rows runs on cpu or cuda, "
+                         f"not {block.device}")
+    if int(lo) < 0:
+        raise ValueError(f"sharded_scatter_add_rows: lo {lo} < 0")
+    route, ids, upd, _, order, seg = _presorted(block, ids, upd, None,
+                                                lo=int(lo))
+    if order is None:
+        return block
+    lib = build.load("scatter_rows", _SIGNATURES)
+    err = lib.ff_scatter_add_rows_window(
+        block.data_ptr(), ids.data_ptr(), order.data_ptr(), seg.data_ptr(),
+        upd.data_ptr(), ids.shape[0], block.shape[1], int(div), float(scale),
+        int(lo), _ptr(ok), build.stream_of(block))
+    build.check(lib, err, f"ff_scatter_add_rows_window kernel ({route} "
+                          f"pre-pass)")
+    build.count_launch(sharded_scatter_add_rows, route)
+    return block
 
 
 def scatter_write_rows(table: torch.Tensor, ids: torch.Tensor,
@@ -537,9 +620,11 @@ def _stateful_kernels(table, ids, upd, fwd, slabs, opt_params, alpha_t,
 
 scatter_presort.launches = 0
 scatter_add_rows.launches = 0
+sharded_scatter_add_rows.launches = 0
 scatter_write_rows.launches = 0
 stateful_update_rows.launches = 0
 scatter_add_rows.routes = {"block": 0, "sort": 0}
+sharded_scatter_add_rows.routes = {"block": 0, "sort": 0}
 scatter_write_rows.routes = {"block": 0, "sort": 0}
 stateful_update_rows.routes = {"fused": 0, "block": 0, "sort": 0}
 

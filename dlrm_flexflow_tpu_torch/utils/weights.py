@@ -19,6 +19,12 @@ for ``model``, ready for ``model.swap_params``:
 - an EmbeddingBagConcat kernel is stored lane-packed as
   (total_rows/r, r·d): a reshape gives the port's (total_rows, d).
 
+Under table parallelism (``EmbeddingBagStacked.shard_tables``) a rank
+holds the storage slots ``local_slots()`` of the stacked kernel, in slot
+order: ``params_from_jax`` takes those slots of the JAX stored kernel,
+and ``params_to_jax`` gives them back in the JAX layout, (T/D, N/r,
+r·d), so the ranks' blocks in rank order are the JAX kernel.
+
 Host-resident tables are no parameters: the ops whose tables live on
 the host (``model._host_resident_list``) have no entry in ``params``
 here or in the JAX model, and ``host_param_shapes`` gives their host
@@ -86,7 +92,9 @@ def param_from_jax(model, op, pn: str, v) -> torch.Tensor:
     v = np.array(v, dtype=np.float32)   # a writable copy
     if isinstance(op, EmbeddingBagStacked) and pn == "kernel":
         v = v.reshape(op.num_tables, op.num_entries, op.out_dim)
-        if op._table_order is not None:
+        if op._shard is not None:
+            v = v[op.local_slots().start:op.local_slots().stop]
+        elif op._table_order is not None:
             inv = np.argsort(np.asarray(op._table_order))
             v = v[inv]
     elif isinstance(op, EmbeddingBagConcat) and pn == "kernel":
@@ -155,7 +163,7 @@ def jax_param_shapes(model) -> Dict[str, Dict[str, tuple]]:
                   for pn, d in op.param_defs().items()}
         if isinstance(op, EmbeddingBagStacked) and "kernel" in shapes:
             r = _pack_factor(op.out_dim, op.num_entries)
-            shapes["kernel"] = (op.num_tables, op.num_entries // r,
+            shapes["kernel"] = (op.local_tables, op.num_entries // r,
                                 op.out_dim * r)
         elif isinstance(op, EmbeddingBagConcat) and "kernel" in shapes:
             r = _pack_factor(op.out_dim, op.total_rows)
@@ -173,7 +181,7 @@ def params_to_jax(model, params: Dict[str, Dict[str, torch.Tensor]]
         for pn, v in params[op.name].items():
             v = v.detach().cpu().numpy()
             if isinstance(op, EmbeddingBagStacked) and pn == "kernel":
-                if op._table_order is not None:
+                if op._table_order is not None and op._shard is None:
                     v = v[np.asarray(op._table_order)]
                 v = v.reshape(shapes[op.name][pn])
             elif isinstance(op, EmbeddingBagConcat) and pn == "kernel":

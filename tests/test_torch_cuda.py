@@ -593,6 +593,36 @@ def test_scatter_kernels_skip_pads(cuda, write, d, n):
             kernel(got, ids, upd)
 
 
+@pytest.mark.parametrize("div", [1, 4])
+@pytest.mark.parametrize("n", [8192, 16388])
+def test_windowed_scatter_matches_plain(cuda, n, div):
+    """Kernel 4 (``sharded_scatter_add_rows``) on a block [lo, lo + rows)
+    of a larger table, on both pre-pass routes ("block" at 8,192, "sort"
+    at 16,388), with pads, ids below and above the window and a hot row:
+    bitwise to its plain version on the CPU, and no row outside what the
+    in-window ids name changed."""
+    rows, lo, d = 40000, 80000, 64
+    g = torch.Generator(device=cuda).manual_seed(n + div)
+    block = torch.randn(rows, d, device=cuda, generator=g)
+    ids = torch.randint(lo - rows, lo + 2 * rows, (n,), device=cuda,
+                        generator=g)
+    ids[:8] = lo + 17
+    ids[100:300] = -1
+    upd = torch.randn(n // div, d, device=cuda, generator=g)
+    kernel = scatter_rows_mod.sharded_scatter_add_rows
+    route = "block" if n <= 16384 else "sort"
+    before = kernel.routes[route]
+    got = kernel(block.clone(), ids, upd, lo, scale=-0.01, div=div)
+    want = scatter_rows_mod.sharded_scatter_add_rows_reference(
+        block.cpu(), ids.cpu(), upd.cpu(), lo, scale=-0.01, div=div)
+    torch.cuda.synchronize()
+    assert kernel.routes[route] == before + 1
+    assert torch.equal(got.cpu(), want)
+    inside = ids[(ids >= lo) & (ids < lo + rows)] - lo
+    changed = torch.nonzero((got != block).any(1)).reshape(-1)
+    assert len(changed) and bool(torch.isin(changed, inside).all())
+
+
 @pytest.mark.parametrize("n", [1, 2, 1000, 2048, 16384])
 def test_scatter_presort_matches_plain(cuda, n):
     """The one-block pre-pass against its plain version (the same

@@ -5,7 +5,11 @@ from one synthetic batch; the same data in the same order gives BITWISE
 the same trained weights whatever the source and the staging. Every
 flag whose module is not ported raises, naming its ROADMAP item; the
 flags of items since ported (``--host-tables``, ``--arch-interaction-op
-dot``) train, and the Criteo-Kaggle flags train on non-uniform tables.
+dot``) train, ``--import`` reads a strategy file (a missing one raises
+the codec's error naming it), ``-ll:gpu 8`` and ``--nodes 2`` train on
+one rank without a process group, as the JAX launcher does on a
+one-chip host, and the Criteo-Kaggle flags train on non-uniform tables.
+A multi-process environment without an address to meet at raises.
 """
 
 import numpy as np
@@ -90,6 +94,25 @@ def test_sparse_ids_past_the_tables_raise(files, tmp_path):
     (["--arch-interaction-op", "dot"], "item 4"),
 ])
 def test_unported_flags_raise_with_their_item(flags, item):
+    if flags[0] == "--import":
+        # strategy files are ported (item 7): a missing one raises the
+        # codec's own error, naming the file
+        with pytest.raises(FileNotFoundError, match="best.pb"):
+            launcher.main(ARGS + flags)
+        return
+    if item == "item 7":
+        # devices come from the process group (item 7): without one the
+        # world is one rank, and the run is the run without the flag
+        out = launcher.main(ARGS + flags)
+        cfg = out["model"].config
+        assert out["model"].mesh.size == 1
+        assert (cfg.workers_per_node, cfg.num_nodes) == (
+            (8, 1) if flags[0] == "-ll:gpu" else (0, 2))
+        plain = _params(launcher.main(ARGS))
+        got = _params(out)
+        assert set(got) == set(plain)
+        assert all(torch.equal(got[k], plain[k]) for k in plain)
+        return
     if item in ("item 2.4", "item 4"):
         # host-resident tables (item 2.4) and the unfused "dot"
         # interaction (item 4) are ported: the launcher trains with them
@@ -131,8 +154,11 @@ def test_the_serving_fleet_flags_train_unchanged(files):
 
 
 def test_multi_host_launch_raises(monkeypatch):
+    """A multi-process launch is ported (item 7), but two processes with
+    no address to meet at raise, naming the variable that is missing."""
     monkeypatch.setenv("NUM_PROCESSES", "2")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    monkeypatch.delenv("COORDINATOR_ADDRESS", raising=False)
+    with pytest.raises(ValueError, match="COORDINATOR_ADDRESS"):
         launcher.main(ARGS)
 
 
