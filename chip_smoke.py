@@ -340,8 +340,9 @@ Phases:
    ``dlrm_strategy`` and again under
    ``strategies/dlrm_strategy_8embs_8gpus.pb`` (loaded as ``--import``
    loads it), every count at 0 just before and read just after: one
-   windowed scatter (``sharded_scatter_add_rows``, kernel 4) and one
-   ``dense_update`` a rank a step, no plain version. Each rank holds its
+   windowed scatter (``sharded_scatter_add_rows``, kernel 4), its 8,192
+   lookups sorted by the radix pre-pass, and one ``dense_update`` a rank
+   a step, no plain version. Each rank holds its
    tables and MLP weights to a world-1 run of the same steps from the
    same seed on the card: bitwise at the start, the losses within 1e-5,
    each update within 10 % of its parameter's largest (the
@@ -468,7 +469,7 @@ NMT_B, NMT_SEQ, NMT_VOCAB, NMT_DIM, NMT_LAYERS, NMT_LR = (
     64, 40, 32 * 1024, 1024, 2, 0.1)
 # per step: 4 LSTM layers (encoder and decoder, 2 each) forward and
 # backward, the gate phase of each resident backward, and the two "none"
-# embeddings' touched-rows updates, each sorted by the one-block pre-pass
+# embeddings' touched-rows updates, each sorted by the "block" pre-pass
 NMT_LAUNCHES = {"lstm_fwd": 4, "lstm_fwd:resident": 4, "lstm_bwd": 4,
                 "lstm_bwd:resident": 4,
                 "lstm_gates": 4, "scatter_add_rows": 2,
@@ -708,6 +709,17 @@ def traced_kernels(fn, arg_sets, reps):
     per = {e.key: (e.count / reps, e.self_device_time_total / reps)
            for e in prof.key_averages() if e.self_device_time_total > 0}
     return per or None
+
+
+def traced_split(fn, arg_sets, reps=20):
+    """The profiler's split of a call into its kernels, "name xN us"
+    each per call, or "not measured" when the trace holds no device
+    time."""
+    traced = traced_kernels(fn, arg_sets, reps)
+    if traced is None:
+        return "not measured (no device time traced)"
+    return ", ".join(f"{k[:40]} x{c:g} {us:.2f} us"
+                     for k, (c, us) in traced.items())
 
 
 def timed(prefix, fn, arg_sets):
@@ -1119,8 +1131,9 @@ def scatter_kernels(dev, gen, table):
     """Kernels 3 and 4 and the pre-pass on the 8M-row table at n = 2,048
     lookups (the training step's, whose numbers the kernels' rows carry)
     in three sets of ids (uniform, all equal, Zipf-skewed) and at
-    n = 16,384 (the one-block pre-pass's limit, uniform), each held
-    bitwise to the plain version on the CPU."""
+    n = 16,384 (the cluster pre-pass's limit, uniform), each held
+    bitwise to the plain version on the CPU; then the pre-pass alone at
+    the main path's other lookup counts (``presort_sizes``)."""
     rows = {}
     src = "dlrm_flexflow_tpu_torch/csrc/scatter_rows.cu"
     pallas = "dlrm_flexflow_tpu/ops/pallas/embedding_kernel.py"
@@ -1206,13 +1219,9 @@ def scatter_kernels(dev, gen, table):
                                  scratch.index_add_(0, ids, scaled), sets),
                          **timed("checked_", lambda *a: call(kern, scratch,
                                                              *a), sets))
-                traced = traced_kernels(
+                split = traced_split(
                     lambda *a: call(kern, scratch, *a, ids_in_range=True),
-                    sets, 20)
-                split = ("not measured (no device time traced)"
-                         if traced is None else ", ".join(
-                             f"{k[:40]} x{c:g} {us:.2f} us"
-                             for k, (c, us) in traced.items()))
+                    sets)
                 more = (f"; with the range check {r['checked_ms']:.4f} ms "
                         f"(call {r['checked_call_ms']:.4f} ms); plain "
                         f"{r['plain_ms']:.4f} ms (call "
@@ -1229,8 +1238,49 @@ def scatter_kernels(dev, gen, table):
                   f"{r['call_ms']:.4f} ms){more}; bound "
                   f"{1e3 * b_ms:.2f} us ({b_by})")
         del sets
+    presort_sizes(dev, gen, table.shape[0])
     scatter_pads(dev, gen, table)
     return rows
+
+
+def presort_sizes(dev, gen, nrows):
+    """The pre-pass's two kernels, the rank kernel and the cluster radix
+    kernel, on uniform ids of a table of ``nrows`` rows at the main
+    path's lookup counts (the "cat" step's 2,048, Criteo-Kaggle's step's
+    6,656, a rank's share of a global batch of 2,048 on 4 tables, 8,192):
+    each held bitwise to the plain version on the CPU and timed in turns
+    (rank, radix, radix, rank) beside ``torch.sort`` of the int32 ids;
+    the wrapper takes the rank kernel below RADIX_MIN lookups."""
+    plan = scat_mod.presort_cluster
+    for n in (TRAIN_B * T * BAG, TRAIN_B * KAGGLE_TABLES,
+              DIST_B * (T // DIST_WORLD) * BAG):
+        ids = [torch.randint(0, nrows, (n,), device=dev, generator=gen)
+               for _ in range(ID_SETS)]
+        want = scat_mod.presort_reference(ids[0].cpu())
+        times = {"rank": [], "radix": []}
+        try:
+            for name in ("rank", "radix", "radix", "rank"):
+                cluster = 0 if name == "rank" else scat_mod.RADIX_CLUSTER
+                scat_mod.presort_cluster = lambda n_, c=cluster: c
+                got = scat_mod.scatter_presort(ids[0], 0, nrows)
+                check(all(torch.equal(a.cpu(), w)
+                          for a, w in zip(got, want)),
+                      f"scatter_presort's {name} kernel disagrees with its "
+                      f"plain version at n={n}")
+                times[name].append(timed(
+                    "", lambda i: scat_mod.scatter_presort(i, 0, nrows),
+                    [(i,) for i in ids])["ms"])
+        finally:
+            scat_mod.presort_cluster = plan
+        lib = timed("", lambda i: torch.sort(i, stable=True),
+                    [(i.to(torch.int32),) for i in ids])
+        route = "radix" if plan(n) else "rank"
+        print(f"kernel scatter_presort at n={n} on a {nrows:,}-row table: "
+              f"both kernels bitwise equal to the plain version; device ms "
+              f"rank {times['rank'][0]:.4f}, {times['rank'][1]:.4f}, radix "
+              f"(C={scat_mod.RADIX_CLUSTER}) {times['radix'][0]:.4f}, "
+              f"{times['radix'][1]:.4f}; the wrapper takes the {route} "
+              f"kernel; torch.sort of int32 ids {lib['ms']:.4f} ms")
 
 
 def stateful_ids(gen, dev, n, kind):
@@ -3841,6 +3891,7 @@ def nmt_card_vs_cpu():
 # host-resident tables
 # ---------------------------------------------------------------------
 KAGGLE_D = 16
+KAGGLE_TABLES = 26       # Criteo-Kaggle's sparse features
 KAGGLE_CHECK_STEPS = 4   # steps of each run held against the plain run
 KAGGLE_TIMED = 20        # back-to-back steps timed
 # id sets cycled when timing the kernels at the Kaggle step's shape:
@@ -4012,8 +4063,10 @@ def criteo_kernels(dev):
                     flat_sets),
             **timed("library_", lambda i, _u, _f, scaled:
                     scratch.index_add_(0, i, scaled), flat_sets)})
+        split = traced_split(lambda *a: call(kern, scratch, *a,
+                                             ids_in_range=True), flat_sets)
         print_row(out[-1], f" at {shape} ({m} distinct rows); library: "
-                  f"index_add_")
+                  f"index_add_; kernel launches a call, traced: {split}")
         del scratch
 
     # the stateful entry under Adam, on its one-launch route
@@ -4368,8 +4421,9 @@ def kaggle_launcher_runs():
     """The launcher with run_criteo_kaggle.sh's flags (the synthetic
     batch), on device tables and with --host-tables: a warm-up step and
     64 timed ones; every count at 0 just before and read just after: a
-    bag, a pre-pass, a write-only scatter and a dense update a step on
-    device tables, only the dense update with host tables; no plain
+    bag, a pre-pass (the radix kernel: 6,656 lookups), a write-only
+    scatter and a dense update a step on device tables, only the dense
+    update with host tables; no plain
     version. Returns the launch counts."""
     from dlrm_flexflow_tpu_torch.examples.native import dlrm as launcher
     total = {}
@@ -4385,7 +4439,8 @@ def kaggle_launcher_runs():
         want = {"dense_update": steps,
                 "embedding_bag": 0 if host else steps,
                 "scatter_write_rows": 0 if host else steps,
-                "scatter_presort": 0 if host else steps}
+                "scatter_presort": 0 if host else steps,
+                "scatter_presort:radix": 0 if host else steps}
         check(plain.calls == 0
               and all(counts[k] == v for k, v in want.items())
               and counts["scatter_add_rows"] == 0,
@@ -6256,6 +6311,16 @@ def window_kernel(dev, gen):
               f"bitwise its plain version with the ranks' ids and with pads "
               f"and ids outside the window; library: index_add_ after a "
               f"masked select)")
+    split = traced_split(lambda i, u: scat_mod.sharded_scatter_add_rows(
+        block, i, u, lo, scale=-LR), sets)
+    pre = timed("", lambda i: scat_mod.scatter_presort(i, lo, rows),
+                [(i,) for i, _ in sets])
+    lib = timed("", lambda i: torch.sort(i, stable=True),
+                [((i - lo).to(torch.int32),) for i, _ in sets])
+    print(f"kernel sharded_scatter_add_rows at n={n}: kernel launches a "
+          f"call, traced: {split}; the pre-pass alone {pre['ms']:.4f} ms "
+          f"(call {pre['call_ms']:.4f} ms), torch.sort of the int32 "
+          f"window rows {lib['ms']:.4f} ms (call {lib['call_ms']:.4f} ms)")
     del block, sets, scaled
     return {"sharded_scatter_add_rows": r}
 
@@ -6444,6 +6509,7 @@ def dist_phase(dev):
         for strategy, run in out["runs"].items():
             c = run["counts"]
             check(c.get("sharded_scatter_add_rows") == DIST_STEPS
+                  and c.get("scatter_presort:radix") == DIST_STEPS
                   and c.get("dense_update") == DIST_STEPS
                   and run["plain_calls"] == 0
                   and not any(c.get(k) for k in SCATTERS),
@@ -6561,6 +6627,19 @@ def main() -> int:
             "sharded_scatter_add_rows", 0)
         print(json.dumps({"launches": {k: v for k, v in counts.items()
                                        if v}, "kernel": rows}))
+        return 0
+    if sys.argv[1:] == ["--scatter"]:
+        # only the touched-rows scatters and their pre-pass at the paths'
+        # shapes: kernels 2 and 3 (n = 2,048 and Criteo-Kaggle's 6,656),
+        # the stateful entry, and kernel 4 at a rank's shape
+        build.build_all()
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        table = 0.5 * torch.randn(T * ROWS, D, device=dev, generator=gen)
+        scatter_kernels(dev, gen, table)
+        del table
+        torch.cuda.empty_cache()
+        criteo_kernels(dev)
+        window_kernel(dev, torch.Generator(device=dev).manual_seed(SEED + 13))
         return 0
     if sys.argv[1:] == ["--shapes"]:
         # only the bag and the interaction at their paths' shapes: what

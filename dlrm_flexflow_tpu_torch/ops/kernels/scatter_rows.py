@@ -12,8 +12,9 @@ window test in the kernel), and ``_scatter_write_kernel
 stateful ``_stateful_update_tiles_packed``, ops/embedding.py:460: here
 ``stateful_update_rows``). The CUDA source,
 ``csrc/scatter_rows.cu``, states the kernels' bound (memory) and design
-(each lookup's place in the stable order counted as a rank, then one
-owner per distinct row; no atomics).
+(the stable order by ranks or, from RADIX_MIN lookups, by a radix sort
+in one thread-block cluster; then one owner per distinct row; no
+atomics).
 
 Both functions update ``table`` IN PLACE (the JAX kernels alias the
 table to their output) and return it. Lookup ``j`` targets row
@@ -40,9 +41,11 @@ wrap their ids, pass ``ids_in_range=True``):
 
 The pre-pass is the row-granular counterpart of the JAX
 ``_dedup_tile_updates`` (the port stores tables unpacked, so no lane
-tiles): ``scatter_presort`` (a kernel; plain version
-``presort_reference``) for n <= BLOCK_SORT_MAX lookups, route "block";
-a stable ``torch.sort`` of int32 ids above it, route "sort"
+tiles): ``scatter_presort`` (one launch: below RADIX_MIN lookups the
+rank kernel, n^2 compares; from it a radix sort of ``key_bits(rows)``-bit
+keys by one cluster of RADIX_CLUSTER blocks, ``presort_cluster``; plain
+version ``presort_reference``) for n <= BLOCK_SORT_MAX lookups, route
+"block"; a stable ``torch.sort`` of int32 ids above it, route "sort"
 (``scatter_route``). Both give the lookups in stable order of their row
 ids and, for each row's first lookup, where its segment of that order
 starts and how long it is. ``stateful_update_rows`` needs no pre-pass
@@ -52,7 +55,8 @@ scanning the ids itself. A CPU tensor takes the plain version; a CUDA
 tensor launches the kernels or raises, never falling back.
 ``scatter_add_rows.launches``, ``scatter_write_rows.launches``,
 ``stateful_update_rows.launches`` and ``scatter_presort.launches`` count
-kernel launches, ``.routes`` the update launches by route.
+kernel launches, ``.routes`` the update launches by route and the
+pre-pass's by kernel ("rank", "radix").
 
 The three updates take ``ok``, the anomaly sentinel's 0-d int32 flag on
 the table's device, or None: where it is 0 nothing changes (the update
@@ -72,14 +76,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "ff_scatter_block_sort_max": ((), _I),
-    "ff_scatter_presort": ((_P, _I, _P, _P, _P), _I),
+    "ff_scatter_presort": (
+        (_P, _I, ctypes.c_longlong, ctypes.c_longlong, _I, _I, _P, _P, _P),
+        _I),
     "ff_scatter_add_rows": (
-        (_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P, _P), _I),
-    "ff_scatter_presort_window": (
-        (_P, _I, ctypes.c_longlong, ctypes.c_longlong, _P, _P, _P), _I),
-    "ff_scatter_add_rows_window": (
         (_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, ctypes.c_longlong,
-         _P, _P), _I),
+         ctypes.c_longlong, _P, _P), _I),
     "ff_scatter_write_rows": (
         (_P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P, _P), _I),
     "ff_stateful_update_rows": (
@@ -90,18 +92,31 @@ _SIGNATURES = {
         (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I)
         + (ctypes.c_float,) * 8 + (_P, _P), _I),
 }
-# the pre-pass kernel's limit (kBlockSortMax in csrc/scatter_rows.cu): a
-# block holds every key, 8 bytes each, in its 227 KB of shared memory
+# the pre-pass kernels' limit (kBlockSortMax in csrc/scatter_rows.cu): a
+# block (rank) or one cluster's blocks (radix) hold every key, 8 bytes
+# each, in shared memory
 BLOCK_SORT_MAX = 16384
+# keys one block of the radix pre-pass's cluster holds at most
+# (kSliceMax in csrc/scatter_rows.cu)
+SLICE_MAX = 2048
+# the least lookup count the radix kernel takes (below it the rank kernel
+# is faster) and its cluster's blocks: measured on an H100 with
+# tools/presort_probe.py (PERF.md, section 6)
+RADIX_MIN = 4608
+RADIX_CLUSTER = 8
 # row ids travel as 31-bit keys
 MAX_ROWS = 2 ** 31
-# the sort key of a pad slot (row < 0): above every real row, so pads
-# sort last on both routes (the rank kernel keys them as row 2^32 - 1)
+# the sort key of a pad slot (row < 0) in the plain pre-pass: above every
+# real row, so pads sort last on both routes (the kernels key a pad, and
+# an id outside the window, as 2^32 - 1 (rank) or the window's rows
+# (radix))
 PAD_KEY = 2 ** 32 - 1
 PAD_KEY32 = 2 ** 31 - 1
 # the one-launch stateful route's limit (kFusedMax in csrc/scatter_rows.cu):
 # a block holds every lookup's int32 key in shared memory. Measured on an
-# H100 (chip_smoke.py), it beats the pre-pass route at every n up to it
+# H100 (chip_smoke.py), it beat the rank pre-pass route at every n up to
+# it; the radix pre-pass route beats it from about 8,192 lookups (PERF.md,
+# section 6), which this limit does not follow yet
 FUSED_MAX = 16384
 
 
@@ -266,7 +281,7 @@ def stateful_update_rows_reference(table, ids, upd, fwd, slabs, p,
 
 def scatter_route(n: int, rows: int) -> str:
     """The pre-pass for n lookups into a table of ``rows`` rows: "block"
-    (the rank kernel, every key in one block's shared memory) up to
+    (the rank or the radix kernel, every key in shared memory) up to
     BLOCK_SORT_MAX lookups, else "sort" (``torch.sort`` of int32 ids).
     Raises when the row ids do not fit the kernels' 31-bit keys."""
     if rows >= MAX_ROWS:
@@ -308,14 +323,31 @@ def _segments(sorted_ids, order, pad=None):
     return seg
 
 
+def key_bits(rows: int) -> int:
+    """The bits of the pre-pass's keys over a window of ``rows`` rows:
+    the window rows 0..rows - 1 and the pad key ``rows``, so the bit
+    width of ``rows`` (22 for a 4M-row block, 23 for 8M rows, 32 for
+    the 2^31 of a pre-pass without a table)."""
+    return int(rows).bit_length()
+
+
+def presort_cluster(n: int) -> int:
+    """The pre-pass kernel for n lookups: 0, the rank kernel, below
+    RADIX_MIN; else the blocks of the radix kernel's one cluster."""
+    return 0 if n < RADIX_MIN else RADIX_CLUSTER
+
+
 def presort_reference(ids: torch.Tensor, chunk: int = 1024):
-    """Plain PyTorch version of ``scatter_presort``: the kernel's counts,
-    ``chunk`` lookups at a time. A lookup's place in the stable order is
-    the number of (row id, position) keys below its own; it is its row's
+    """Plain PyTorch version of ``scatter_presort`` over the ids as its
+    window makes them (``window_ids``), ``chunk`` lookups at a time: the
+    rank kernel's counts. A lookup's place in the stable order is the
+    number of (row id, position) keys below its own; it is its row's
     first when none of those has its row, and then its segment is (that
     place, the number of lookups of its row). A pad slot (row < 0) is
     keyed as row ``PAD_KEY``, after every real row, and owns no segment.
-    Returns order (n,) and seg (n, 2), int32."""
+    The keys being distinct, the order and the segments are unique: the
+    radix kernel's sort gives the same. Returns order (n,) and seg (n, 2),
+    int32."""
     n = ids.shape[0]
     pads = ids < 0
     ids = torch.where(pads, PAD_KEY, ids.long())
@@ -334,15 +366,21 @@ def presort_reference(ids: torch.Tensor, chunk: int = 1024):
     return order, seg
 
 
-def scatter_presort(ids: torch.Tensor):
-    """The pre-pass kernel over n <= BLOCK_SORT_MAX int64 row ids below
-    2^31, negative ones pads: (order, seg) as ``presort_reference``
-    returns them."""
+def scatter_presort(ids: torch.Tensor, lo: int = 0, rows: int = None):
+    """The pre-pass kernel over n <= BLOCK_SORT_MAX int64 ids, the rows
+    of the window [lo, lo + rows) of a table (``rows`` None: every id in
+    [0, 2^31)): (order, seg) as ``presort_reference(window_ids(ids, lo,
+    rows))`` returns them, every pad and every id outside the window
+    keyed last and owning no segment."""
     if ids.dim() != 1 or ids.dtype != torch.int64:
         raise ValueError(f"scatter_presort takes (n,) int64 ids, got "
                          f"{tuple(ids.shape)} {ids.dtype}")
+    rows = MAX_ROWS if rows is None else int(rows)
+    if int(lo) < 0 or not 0 <= rows <= MAX_ROWS:
+        raise ValueError(f"scatter_presort: window [{lo}, {lo} + {rows}) "
+                         f"is not within [0, 2^31) rows of a table")
     if ids.device.type == "cpu":
-        return presort_reference(ids)
+        return presort_reference(window_ids(ids, int(lo), rows))
     n = ids.shape[0]
     if n > BLOCK_SORT_MAX:
         raise ValueError(f"scatter_presort ranks at most {BLOCK_SORT_MAX} "
@@ -351,10 +389,12 @@ def scatter_presort(ids: torch.Tensor):
     order = torch.empty(n, dtype=torch.int32, device=ids.device)
     seg = torch.empty((n, 2), dtype=torch.int32, device=ids.device)
     lib = build.load("scatter_rows", _SIGNATURES)
-    err = lib.ff_scatter_presort(ids.data_ptr(), n, order.data_ptr(),
+    cluster = presort_cluster(n)
+    err = lib.ff_scatter_presort(ids.data_ptr(), n, int(lo), rows,
+                                 key_bits(rows), cluster, order.data_ptr(),
                                  seg.data_ptr(), build.stream_of(ids))
     build.check(lib, err, "scatter_presort kernel")
-    build.count_launch(scatter_presort)
+    build.count_launch(scatter_presort, "radix" if cluster else "rank")
     return order, seg
 
 
@@ -411,10 +451,8 @@ def _presorted(table, ids, upd, fwd, slabs=(), lo=None):
     ids, upd, fwd = _kernel_inputs(table, ids, upd, fwd, slabs)
     if n == 0:
         return route, ids, upd, fwd, None, None
-    if route == "block" and lo is not None:
-        order, seg = _presort_window(ids, lo, table.shape[0])
-    elif route == "block":
-        order, seg = scatter_presort(ids)
+    if route == "block":
+        order, seg = scatter_presort(ids, lo or 0, table.shape[0])
     else:
         local = ids if lo is None else window_ids(ids, lo, table.shape[0])
         pads = local < 0
@@ -425,37 +463,31 @@ def _presorted(table, ids, upd, fwd, slabs=(), lo=None):
     return route, ids, upd, fwd, order, seg
 
 
-def _presort_window(ids, lo, rows):
-    """``scatter_presort``'s kernel over the window [lo, lo + rows) of
-    the ids (checked inputs, n <= BLOCK_SORT_MAX)."""
-    n = ids.shape[0]
-    order = torch.empty(n, dtype=torch.int32, device=ids.device)
-    seg = torch.empty((n, 2), dtype=torch.int32, device=ids.device)
-    lib = build.load("scatter_rows", _SIGNATURES)
-    err = lib.ff_scatter_presort_window(ids.data_ptr(), n, int(lo), int(rows),
-                                        order.data_ptr(), seg.data_ptr(),
-                                        build.stream_of(ids))
-    build.check(lib, err, "scatter_presort kernel (window)")
-    build.count_launch(scatter_presort)
-    return order, seg
-
-
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch(wrapper, entry, table, ids, upd, fwd, scale, div, ok):
-    """The pre-pass, then one update launch."""
-    route, ids, upd, fwd, order, seg = _presorted(table, ids, upd, fwd)
+def _launch(wrapper, table, ids, upd, fwd, scale, div, ok, lo=None):
+    """The pre-pass, then one update launch: ``ff_scatter_write_rows``
+    with ``fwd``, else ``ff_scatter_add_rows`` over the window [lo, lo +
+    table rows) (``lo`` None: the whole table)."""
+    route, ids, upd, fwd, order, seg = _presorted(table, ids, upd, fwd,
+                                                  lo=lo)
     if order is None:
         return table
-    args = [table.data_ptr(), ids.data_ptr(), order.data_ptr(),
-            seg.data_ptr(), upd.data_ptr()]
-    if fwd is not None:
-        args.append(fwd.data_ptr())
+    args = (table.data_ptr(), ids.data_ptr(), order.data_ptr(),
+            seg.data_ptr(), upd.data_ptr())
+    common = (ids.shape[0], table.shape[1], int(div), float(scale))
     lib = build.load("scatter_rows", _SIGNATURES)
-    err = getattr(lib, entry)(*args, ids.shape[0], table.shape[1], int(div),
-                              float(scale), _ptr(ok), build.stream_of(table))
+    if fwd is not None:
+        entry = "ff_scatter_write_rows"
+        err = lib.ff_scatter_write_rows(*args, fwd.data_ptr(), *common,
+                                        _ptr(ok), build.stream_of(table))
+    else:
+        entry = "ff_scatter_add_rows"
+        err = lib.ff_scatter_add_rows(*args, *common, lo or 0,
+                                      table.shape[0], _ptr(ok),
+                                      build.stream_of(table))
     build.check(lib, err, f"{entry} kernel ({route} pre-pass)")
     build.count_launch(wrapper, route)
     return table
@@ -478,8 +510,7 @@ def scatter_add_rows(table: torch.Tensor, ids: torch.Tensor,
     if table.device.type != "cuda":
         raise ValueError(f"scatter_add_rows runs on cpu or cuda, not "
                          f"{table.device}")
-    return _launch(scatter_add_rows, "ff_scatter_add_rows", table, ids, upd,
-                   None, scale, div, ok)
+    return _launch(scatter_add_rows, table, ids, upd, None, scale, div, ok)
 
 
 def sharded_scatter_add_rows(block: torch.Tensor, ids: torch.Tensor,
@@ -491,7 +522,7 @@ def sharded_scatter_add_rows(block: torch.Tensor, ids: torch.Tensor,
     the window, or a pad (< 0), changes nothing. block (rows, d) fp32,
     the rows [lo, lo + rows) of the whole table; ids (n,) int64, rows of
     the whole table, replicated or not; upd (n // div, d). On the card:
-    the pre-pass over the window, then ``ff_scatter_add_rows_window``,
+    the pre-pass over the window, then ``ff_scatter_add_rows`` over it,
     which tests the window and shifts the id itself (no masked copy of
     the ids). ``ok``: the sentinel's flag."""
     _check(block, ids, upd, None, div, True)
@@ -504,19 +535,8 @@ def sharded_scatter_add_rows(block: torch.Tensor, ids: torch.Tensor,
                          f"not {block.device}")
     if int(lo) < 0:
         raise ValueError(f"sharded_scatter_add_rows: lo {lo} < 0")
-    route, ids, upd, _, order, seg = _presorted(block, ids, upd, None,
-                                                lo=int(lo))
-    if order is None:
-        return block
-    lib = build.load("scatter_rows", _SIGNATURES)
-    err = lib.ff_scatter_add_rows_window(
-        block.data_ptr(), ids.data_ptr(), order.data_ptr(), seg.data_ptr(),
-        upd.data_ptr(), ids.shape[0], block.shape[1], int(div), float(scale),
-        int(lo), _ptr(ok), build.stream_of(block))
-    build.check(lib, err, f"ff_scatter_add_rows_window kernel ({route} "
-                          f"pre-pass)")
-    build.count_launch(sharded_scatter_add_rows, route)
-    return block
+    return _launch(sharded_scatter_add_rows, block, ids, upd, None, scale,
+                   div, ok, lo=int(lo))
 
 
 def scatter_write_rows(table: torch.Tensor, ids: torch.Tensor,
@@ -536,8 +556,7 @@ def scatter_write_rows(table: torch.Tensor, ids: torch.Tensor,
     if table.device.type != "cuda":
         raise ValueError(f"scatter_write_rows runs on cpu or cuda, not "
                          f"{table.device}")
-    return _launch(scatter_write_rows, "ff_scatter_write_rows", table, ids,
-                   upd, fwd, scale, div, ok)
+    return _launch(scatter_write_rows, table, ids, upd, fwd, scale, div, ok)
 
 
 def stateful_update_rows(table: torch.Tensor, ids: torch.Tensor,
@@ -619,6 +638,7 @@ def _stateful_kernels(table, ids, upd, fwd, slabs, opt_params, alpha_t,
 
 
 scatter_presort.launches = 0
+scatter_presort.routes = {"rank": 0, "radix": 0}
 scatter_add_rows.launches = 0
 sharded_scatter_add_rows.launches = 0
 scatter_write_rows.launches = 0

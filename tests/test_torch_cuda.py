@@ -12,8 +12,10 @@ Tolerances: the bag sums in fp32 in bag order on both sides (rtol, atol
 order than torch's bmm and matmul (1e-5). The scatter kernels are held
 BITWISE to their plain versions run on the CPU (the plain version on the
 card would add duplicates with atomics, in no fixed order): both scale
-first, then sum a row's duplicates in lookup order; the pre-pass kernel
-is held bitwise to its plain version and to torch.sort(stable=True).
+first, then sum a row's duplicates in lookup order; both pre-pass
+kernels (the rank kernel and the radix kernel, on clusters of 1 to 16
+blocks) are held bitwise to the plain version and to
+torch.sort(stable=True).
 The stateful touched-rows kernel too, on both its routes, for every
 optimizer, Adam included (the same alpha_t tensor, copied): both sum a
 row's raw gradients in lookup order and run the row math one rounding an
@@ -514,7 +516,7 @@ def test_interaction_kernel_stages_w_without_tma(cuda, relu, batch, T, bag,
     (771, 3, "uniform"), (1, 1, "uniform"), (2048, 1, "equal"),
     (16384, 4, "equal"), (2560, 1, "zipf")])
 def test_scatter_kernels_match_plain(cuda, write, n, div, ids_kind):
-    """Bitwise against the plain version on the CPU: at the one-block
+    """Bitwise against the plain version on the CPU: at the cluster
     pre-pass's limit (16,384) and one above it (the torch.sort route),
     with div > 1, at n = 1, with every id equal and with Zipf-skewed
     ids."""
@@ -593,14 +595,16 @@ def test_scatter_kernels_skip_pads(cuda, write, d, n):
             kernel(got, ids, upd)
 
 
-@pytest.mark.parametrize("div", [1, 4])
-@pytest.mark.parametrize("n", [8192, 16388])
+@pytest.mark.parametrize("n,div", [
+    (1, 1), (2, 1), (1000, 1), (1000, 4), (2048, 1), (6656, 4), (8192, 1),
+    (8192, 4), (16384, 1), (16388, 1), (16388, 4)])
 def test_windowed_scatter_matches_plain(cuda, n, div):
     """Kernel 4 (``sharded_scatter_add_rows``) on a block [lo, lo + rows)
-    of a larger table, on both pre-pass routes ("block" at 8,192, "sort"
-    at 16,388), with pads, ids below and above the window and a hot row:
-    bitwise to its plain version on the CPU, and no row outside what the
-    in-window ids name changed."""
+    of a larger table, on both pre-pass routes ("block" up to 16,384,
+    "sort" at 16,388), with pads, ids below and above the window and a
+    hot row: bitwise to its plain version on the CPU, one pre-pass
+    launch on the "block" route, and no row outside what the in-window
+    ids name changed."""
     rows, lo, d = 40000, 80000, 64
     g = torch.Generator(device=cuda).manual_seed(n + div)
     block = torch.randn(rows, d, device=cuda, generator=g)
@@ -611,38 +615,143 @@ def test_windowed_scatter_matches_plain(cuda, n, div):
     upd = torch.randn(n // div, d, device=cuda, generator=g)
     kernel = scatter_rows_mod.sharded_scatter_add_rows
     route = "block" if n <= 16384 else "sort"
-    before = kernel.routes[route]
+    before = kernel.routes[route], scatter_presort.launches
     got = kernel(block.clone(), ids, upd, lo, scale=-0.01, div=div)
     want = scatter_rows_mod.sharded_scatter_add_rows_reference(
         block.cpu(), ids.cpu(), upd.cpu(), lo, scale=-0.01, div=div)
     torch.cuda.synchronize()
-    assert kernel.routes[route] == before + 1
+    assert kernel.routes[route] == before[0] + 1
+    assert scatter_presort.launches == before[1] + (route == "block")
     assert torch.equal(got.cpu(), want)
     inside = ids[(ids >= lo) & (ids < lo + rows)] - lo
     changed = torch.nonzero((got != block).any(1)).reshape(-1)
-    assert len(changed) and bool(torch.isin(changed, inside).all())
+    assert bool(torch.isin(changed, inside).all())
+    assert len(changed) or not len(inside)
 
 
-@pytest.mark.parametrize("n", [1, 2, 1000, 2048, 16384])
+def _window_ids(cuda, g, n, lo, rows, kind):
+    """n ids around the window [lo, lo + rows): "spread" over it with
+    pads and ids below and above it among them, "hot" all one row of
+    it, "pads" all pads, "outside" all below or above it."""
+    spread = torch.randint(lo, lo + rows, (n,), device=cuda, generator=g)
+    if kind == "hot":
+        return torch.full_like(spread, lo + rows - 1)
+    if kind == "pads":
+        return torch.where(spread % 2 == 0, torch.full_like(spread, -1),
+                           torch.full_like(spread, -(2 ** 40)))
+    if kind == "outside":
+        return torch.where(spread % 2 == 0, lo - 1 - spread % (lo + 1),
+                           lo + rows + spread % 1000)
+    spread[3::7] = -1
+    spread[5::11] = lo - 1
+    spread[6::13] = lo + rows
+    return spread
+
+
+@pytest.mark.parametrize("kind", ["spread", "hot", "pads", "outside"])
+@pytest.mark.parametrize("rows", [2 ** 8 - 1, 2 ** 8, 2 ** 8 + 1,
+                                  2 ** 22 - 1, 2 ** 22, 2 ** 22 + 1])
+@pytest.mark.parametrize("n", [1000, 8192])
+def test_windowed_scatter_edge_windows(cuda, n, rows, kind):
+    """Kernel 4 where the pre-pass's key bits change (rows 2^k - 1, 2^k,
+    2^k + 1 take k, k + 1, k + 1 bits, the pad key being rows), with
+    every id one row, every id a pad and every id outside the window:
+    bitwise to the plain version on the CPU."""
+    lo, d = 3 * rows + 5, 16
+    g = torch.Generator(device=cuda).manual_seed(n + rows)
+    block = torch.randn(rows, d, device=cuda, generator=g)
+    ids = _window_ids(cuda, g, n, lo, rows, kind)
+    upd = torch.randn(n, d, device=cuda, generator=g)
+    got = scatter_rows_mod.sharded_scatter_add_rows(block.clone(), ids, upd,
+                                                    lo, scale=-0.5)
+    want = scatter_rows_mod.sharded_scatter_add_rows_reference(
+        block.cpu(), ids.cpu(), upd.cpu(), lo, scale=-0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    if kind in ("pads", "outside"):
+        assert torch.equal(got, block)
+
+
+@pytest.mark.parametrize("n", [1, 2, 1000, 2048,
+                               scatter_rows_mod.RADIX_MIN - 1,
+                               scatter_rows_mod.RADIX_MIN, 6656, 8192,
+                               16384])
 def test_scatter_presort_matches_plain(cuda, n):
-    """The one-block pre-pass against its plain version (the same
-    network, bitwise) and against torch.sort(stable=True)."""
+    """The pre-pass (the rank kernel below RADIX_MIN, the cluster radix
+    kernel from it) against its plain version on the CPU (bitwise) and
+    against torch.sort(stable=True), one launch a call: without a window
+    (ids with many duplicates) and over a rank's 4M-row window (ids
+    spread over it with pads and ids outside)."""
     g = torch.Generator(device=cuda).manual_seed(n)
     ids = torch.randint(0, max(1, n // 3), (n,), device=cuda, generator=g)
-    before = scatter_presort.launches
+    kernel = "rank" if n < scatter_rows_mod.RADIX_MIN else "radix"
+    before = scatter_presort.launches, scatter_presort.routes[kernel]
     got = scatter_presort(ids)
     want = presort_reference(ids.cpu())
     torch.cuda.synchronize()
-    assert scatter_presort.launches == before + 1
+    assert scatter_presort.launches == before[0] + 1
+    assert scatter_presort.routes[kernel] == before[1] + 1
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
     assert torch.equal(got[0].long().cpu(),
                        torch.sort(ids.cpu(), stable=True).indices)
+    lo = rows = 4_000_000
+    ids = _window_ids(cuda, g, n, lo, rows, "spread")
+    got = scatter_presort(ids, lo, rows)
+    want = presort_reference(scatter_rows_mod.window_ids(ids.cpu(), lo,
+                                                         rows))
+    torch.cuda.synchronize()
+    assert scatter_presort.launches == before[0] + 2
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
     lib = build.load("scatter_rows", scatter_rows_mod._SIGNATURES)
     assert lib.ff_scatter_block_sort_max() == scatter_rows_mod.BLOCK_SORT_MAX
     assert lib.ff_stateful_fused_max() == scatter_rows_mod.FUSED_MAX
     with pytest.raises(ValueError, match="at most"):
         scatter_presort(torch.zeros(16385, dtype=torch.int64, device=cuda))
+
+
+@pytest.mark.parametrize("cluster", [0, 1, 2, 8, 16])
+@pytest.mark.parametrize("kind", ["spread", "hot", "pads", "outside"])
+@pytest.mark.parametrize("rows", [2 ** 8 - 1, 2 ** 8, 2 ** 8 + 1,
+                                  2 ** 23 - 1, 2 ** 23, 2 ** 23 + 1])
+@pytest.mark.parametrize("n", [1, 1000, 2048])
+def test_scatter_presort_edge_windows(cuda, monkeypatch, n, rows, kind,
+                                      cluster):
+    """Both pre-pass kernels (the rank kernel, cluster 0, and the radix
+    kernel on clusters of 1 to 16 blocks), where the radix kernel's key
+    bits change, on one row, all pads and all ids outside the window:
+    bitwise to the plain version."""
+    monkeypatch.setattr(scatter_rows_mod, "presort_cluster",
+                        lambda n: cluster)
+    lo = rows + 7
+    g = torch.Generator(device=cuda).manual_seed(n + rows)
+    ids = _window_ids(cuda, g, n, lo, rows, kind)
+    got = scatter_presort(ids, lo, rows)
+    want = presort_reference(scatter_rows_mod.window_ids(ids.cpu(), lo,
+                                                         rows))
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("n", [2048, 8192, 16384])
+def test_scatter_presort_kernels_agree(cuda, monkeypatch, n):
+    """The rank kernel and the radix kernel at every cluster that holds
+    n, on the same ids: bitwise the same (order, seg)."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    ids = _window_ids(cuda, g, n, 0, 8_000_000, "spread")
+    want = presort_reference(scatter_rows_mod.window_ids(ids.cpu(), 0,
+                                                         8_000_000))
+    for cluster in (0, 1, 2, 4, 8, 16):
+        if cluster and -(-n // cluster) > scatter_rows_mod.SLICE_MAX:
+            continue
+        monkeypatch.setattr(scatter_rows_mod, "presort_cluster",
+                            lambda n, c=cluster: c)
+        got = scatter_presort(ids, 0, 8_000_000)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b), cluster
 
 
 STATEFUL = {
