@@ -59,6 +59,7 @@
 #include <stdint.h>
 
 #include "quant_rows.cuh"
+#include "tma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -459,30 +460,6 @@ int launch_ss(const void* table, const void* scales, const void* ids,
     return (int)e;
   }
   return (int)cudaGetLastError();
-}
-
-// cuTensorMapEncodeTiled of the CUDA library, found once through the
-// runtime (so that nothing links against libcuda).
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess) {
-      (void)cudaGetLastError();
-      return (EncodeTiled) nullptr;
-    }
-    return (EncodeTiled)p;
-  }();
-  return fn;
 }
 
 // A tensor map of W (K rows of H fp32) whose box is one block's W tile,

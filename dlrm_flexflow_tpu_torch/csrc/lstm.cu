@@ -55,14 +55,56 @@
 // Backward, resident route (bf16 wh, b <= 128, one block per group of 8
 // units co-resident, the wh slice within shared memory; the wrapper
 // chooses the route by shape): two launches.
-//   1. lstm_gates_kernel, a parallel GEMM before the time loop: the gate
+//   1. The gate phase, a parallel GEMM before the time loop: the gate
 //      pre-activations of every step, round_bf16(ys[t-1]) @ wh + xproj[t]
 //      ((T·b, H) × (H, 4H), zero h at t = 0), into a (T, b, 4H) fp32
-//      scratch. 128 × 128 tiles, 8 warps of mma.sync.m16n8k16 bf16 with
-//      fp32 accumulators fed by ldmatrix; ys is read as float4 and
-//      rounded to bf16 as it is staged, the next k tile's loads in
-//      flight during the current one's products. The gate recompute
-//      needs no carry, so it leaves the serial chain.
+//      scratch. It replaces the gate recompute inside _bwd_kernel
+//      (lstm_kernel.py:106, xp + dot(hprev.astype(bf16), wh)), which
+//      needs no carry and so leaves the serial chain. Bound: bytes. At
+//      NMT's shape (T·b = 2,560, H = 1,024) xproj in and the gates out
+//      (83.9 MB), the ys rows used (10.2 MB) and wh (8.4 MB) are 102.5
+//      MB, 0.0306 ms at 3.35 TB/s; the 20.9 GFLOP of bf16 products take
+//      0.021 ms on the tensor cores. 82 % of the bytes are the
+//      epilogue's. Two routes, by shape alone (ff_lstm_gates_route):
+//      "wgmma" where TMA can describe ys (H % 4 == 0), else "mma".
+//      "wgmma", lstm_gates_wgmma_kernel: persistent, as many clusters
+//      of 2 × 2 CTAs as the card holds at once (one CTA an SM, at most
+//      the tiles), each walking 256 × 512 supertiles, M fastest, so that
+//      the clusters running together share wh's tiles in L2; CTA (i, j)
+//      of a cluster takes the 128 × 256 tile (i, j) of its supertile.
+//      Warp-specialised: one producer thread issues TMA copies into a
+//      ring of kWgStages stages (7 × 32 KB), each with a full and an
+//      empty mbarrier; two consumer warpgroups take 64 rows each, with
+//      setmaxnreg's 232 registers (a 64 × 256 fp32 accumulator is 128 a
+//      thread). A stage is a 32-deep k slice: ys as fp32, by a tensor
+//      map over (T·b, H) read at row m0 - b, so TMA's zero fill gives
+//      h_{-1} = 0 and the k tail and the main loop has no mask; a
+//      consumer rounds its rows to bf16 (nearest even) as it moves them
+//      from shared memory into wgmma's A registers, once per use as the
+//      JAX kernel's astype; wh (bf16, N-contiguous: an MN-major B
+//      operand) in 128-byte swizzled boxes of 64 columns, read by
+//      descriptor with wgmma's transpose. wgmma.m64n256k16 accumulates
+//      in fp32, one stage in flight. L2 to SM bytes, K·(M·⌈N/BN⌉·4/CN +
+//      N·⌈M/BM⌉·2/CM) for clusters of CM × CN: the "mma" kernel's
+//      128 × 128 tiles 500 MB; 128 × 256 tiles 336 MB; with the cluster,
+//      whose two CTAs of an m-tile share its ys rows and two of an
+//      n-tile its wh columns (each CTA loads half and multicasts it),
+//      168 MB. The copies ask L2 to keep ys and wh, which every tile of
+//      their row or column reads again, and to evict xproj first. The
+//      epilogue is streamed: after a tile's last k slice the producer
+//      lands its xproj in the ring, 64 columns a stage, while the
+//      consumers finish; they write gates = xproj + acc (fp32, one add
+//      at the end) over it in place, and a storer thread of the producer
+//      warpgroup stores each stage by TMA (which clips the ragged M and
+//      N edges, so no mask is needed anywhere) and releases it, while
+//      the consumers start the next tile. Each output is summed by one
+//      warpgroup in k order (no split-K, no atomics): two calls are
+//      bitwise equal. tools/gates_probe.py times it cut after each
+//      phase and at other tilings and clusters.
+//      "mma", lstm_gates_kernel: 128 × 128 tiles, 8 warps of
+//      mma.sync.m16n8k16 bf16 with fp32 accumulators fed by ldmatrix;
+//      ys is read as float4 and rounded to bf16 as it is staged, the
+//      next k tile's loads in flight during the current one's products.
 //   2. lstm_bwd_resident_kernel, one cooperative launch of exactly one
 //      block per group: the block copies its 8 rows of wh (8 × 4H bf16,
 //      64 KB at H = 1,024, padded against bank conflicts) into dynamic
@@ -88,6 +130,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -491,6 +535,584 @@ lstm_gates_kernel(const float* __restrict__ xproj,
       }
 }
 
+// ---- The "wgmma" route of the gate phase: lstm_gates_wgmma_kernel ----
+//
+// A persistent, warp-specialised GEMM in clusters with a streamed
+// epilogue (see the header comment). A tile is kWgBM = 128 rows by kWgBN
+// columns; a ring stage holds one kWgBK-deep k slice of it (ys fp32, wh
+// bf16), or, in the epilogue, kWgChunk columns of the tile's xproj and
+// then of its gates.
+constexpr int kWgBM = 128;                  // 2 consumer warpgroups × 64
+constexpr int kWgBN = 256;
+constexpr int kWgBK = 32;
+constexpr int kWgThreads = 384;             // producer warpgroup + 2
+// a cluster of kWgCM × kWgCN CTAs: the kWgCN CTAs of one m-tile share
+// its ys tile and the kWgCM of one n-tile its wh tile, each CTA loading
+// its part and multicasting it to the others
+constexpr int kWgCM = 2, kWgCN = 2;
+constexpr int kWgCS = kWgCM * kWgCN;
+constexpr int kWgARows = kWgBM / kWgCN;     // ys rows a CTA loads a box
+constexpr int kWgBox = 128 * 32 * 4;        // an fp32 box: 128 rows × 128 B
+constexpr int kWgABoxes = kWgBK / 32;       // ys boxes a stage
+constexpr int kWgBBox = kWgBK * 128;        // a bf16 box: kWgBK rows × 64
+constexpr int kWgBBoxes = kWgBN / 64;       // wh boxes a stage
+constexpr int kWgStage = kWgABoxes * kWgBox + kWgBBoxes * kWgBBox;
+// the most xproj boxes (128 rows × 32 columns) a stage holds that divide
+// the tile's kWgBN / 32
+constexpr int xboxes(int most, int all) {
+  return all % most == 0 ? most : xboxes(most - 1, all);
+}
+constexpr int kWgXBoxes = xboxes(kWgStage / kWgBox < kWgBN / 32
+                                     ? kWgStage / kWgBox : kWgBN / 32,
+                                 kWgBN / 32);
+constexpr int kWgChunk = 32 * kWgXBoxes;    // columns an epilogue stage
+constexpr int kWgChunks = kWgBN / kWgChunk;
+// the card's 227 KB a block, less the 1,024-byte alignment of the ring
+// and the static barriers
+constexpr int kWgStages = (232448 - 1024 - 512) / kWgStage;
+constexpr size_t kWgSmem = (size_t)kWgStages * kWgStage + 1024;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// an arrival on the barrier at this CTA's shared address bar, in CTA
+// `cta` of the cluster. Its release is the CTA's, as a local arrival's:
+// the arriving warp only read the stage, and a release at cluster scope
+// (.release.cluster) slows the ring down by far (tools/gates_probe.py,
+// "cluster-scope arrivals")
+__device__ __forceinline__ void mbar_arrive_cta(uint32_t bar, uint32_t cta) {
+  asm volatile(
+      "{\n .reg .b32 ra;\n mapa.shared::cluster.u32 ra, %0, %1;\n"
+      " mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n" ::
+          "r"(bar),
+      "r"(cta)
+      : "memory");
+}
+
+// `count` arrivals at once, on this CTA's barrier or CTA `cta`'s
+__device__ __forceinline__ void mbar_arrive_n(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_cta_n(uint32_t bar, uint32_t cta,
+                                                  uint32_t count) {
+  asm volatile(
+      "{\n .reg .b32 ra;\n mapa.shared::cluster.u32 ra, %0, %1;\n"
+      " mbarrier.arrive.shared::cluster.b64 _, [ra], %2;\n}\n" ::"r"(bar),
+      "r"(cta), "r"(count)
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done;
+}
+
+// Waits until the barrier's phase of `parity` has completed. A copy that
+// never lands (a bad tensor map) ends the kernel with an error after a
+// few seconds instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try(bar, parity))
+    if (clock64() - t0 > (1LL << 33)) __trap();
+}
+
+// An L2 eviction policy for the copies and stores that name it.
+__device__ __forceinline__ uint64_t evict_last() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n"
+               : "=l"(p));
+  return p;
+}
+__device__ __forceinline__ uint64_t evict_first() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(p));
+  return p;
+}
+
+// One TMA copy of the box at (column c0, row r0) of the map's 2-D tensor
+// into shared memory at dst, completing on bar, under L2 policy `pol`;
+// what lies outside the tensor, negative rows included, reads as zero.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int r0, uint32_t bar,
+                                         uint64_t pol) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes.L2::cache_hint"
+      " [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(r0), "r"(bar),
+      "l"(pol)
+      : "memory");
+}
+
+// tma_load into the same shared-memory offset, completing on the same
+// barrier, of every CTA of the cluster in `mask`
+__device__ __forceinline__ void tma_load_mc(uint32_t dst,
+                                            const CUtensorMap* map, int c0,
+                                            int r0, uint32_t bar,
+                                            uint16_t mask, uint64_t pol) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster.L2::cache_hint"
+      " [%0], [%1, {%2, %3}], [%4], %5, %6;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(r0), "r"(bar),
+      "h"(mask), "l"(pol)
+      : "memory");
+}
+
+
+// One TMA copy of the box at (column c0, row r0) of the map's tensor
+// from shared memory at src (the map's swizzled layout), in the thread's
+// bulk group; what lies past the tensor's edge is not written.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          uint32_t src, int c0, int r0,
+                                          uint64_t pol) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group.L2::cache_hint"
+      " [%0, {%2, %3}], [%1], %4;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(r0), "l"(pol)
+      : "memory");
+}
+
+__device__ __forceinline__ void sts_f2(uint32_t addr, float2 v) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(v.x),
+               "f"(v.y)
+               : "memory");
+}
+
+__device__ __forceinline__ float2 lds_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(addr));
+  return v;
+}
+
+// two floats rounded to bf16 (nearest even), the lower in the low half
+__device__ __forceinline__ uint32_t bf16x2(float2 v) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(v.x, v.y);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// wgmma's descriptor of an MN-major bf16 B operand (wh's rows are
+// N-contiguous) in 128-byte swizzled boxes of 64 columns: 8-row k groups
+// 1,024 bytes apart (the stride byte offset), the boxes kWgBBox bytes
+// apart (the leading byte offset), layout 1 (128-byte swizzle)
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         (uint64_t)(kWgBBox >> 4) << 16 | (uint64_t)(1024 >> 4) << 32 |
+         (uint64_t)1 << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int kLeft>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kLeft) : "memory");
+}
+
+// The accumulators as written by the last wgmma the wait retired: the
+// compiler may not move a read of them above this point.
+template <int kN>
+__device__ __forceinline__ void fence_acc(float (&d)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 × kN fp32, this warpgroup's) = A · B (+ D unless scale_d is 0),
+// one m64nNk16 step: A from registers in mma.sync's m16n8k16 fragment
+// order (warp w of the warpgroup rows 16w..16w+15), B by descriptor,
+// transposed (MN-major). D: d[4j + 2h + e] is row 16w + g + 8h, column
+// 8j + 2t + e, for lane = 4g + t.
+template <int kN>
+__device__ __forceinline__ void wgmma_rs(float (&d)[kN / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc, int scale_d);
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// A place in the ring: stage s at data + s·kWgStage, its full and empty
+// barriers, and the parity of the stage's current use.
+struct Ring {
+  uint32_t data, full, empty;
+  int s = 0;
+  uint32_t phase = 0;
+  __device__ uint32_t stage() const { return data + s * kWgStage; }
+  __device__ uint32_t full_bar() const { return full + 8 * s; }
+  __device__ uint32_t empty_bar(int at) const { return empty + 8 * at; }
+  __device__ void next() {
+    if (++s == kWgStages) {
+      s = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// A consumer warp is done with stage `at`: one arrival a warp on the
+// stage's empty barrier in every CTA of the cluster (a CTA's copies land
+// in its peers' stages too), lane c arriving in CTA c.
+__device__ __forceinline__ void release(const Ring& r, int at) {
+  __syncwarp();
+  const uint32_t lane = threadIdx.x % 32;
+  if (kWgCS == 1) {
+    if (lane == 0) mbar_arrive(r.empty_bar(at));
+  } else if (lane < kWgCS) {
+    mbar_arrive_cta(r.empty_bar(at), lane);
+  }
+}
+
+// One k stage of a consumer warpgroup: A fragments of its 64 rows, the
+// fp32 ys rounded to bf16 (nearest even) once per use, into `a`; the
+// stage's wgmmas, one group; then the wait that retires the last stage's
+// group, whose stage is released. `a` is read by the group until that
+// wait in the NEXT stage: the caller alternates two arrays, so that no
+// stage rewrites registers a group in flight still reads (one array in a
+// loop body would be the same registers in every iteration).
+__device__ __forceinline__ void gates_step(Ring& r, int& prev,
+                                           float (&acc)[kWgBN / 2],
+                                           uint32_t (&a)[kWgBK / 16][4],
+                                           uint32_t row_off, int g, int tg,
+                                           bool first) {
+  mbar_wait(r.full_bar(), r.phase);
+  const uint32_t st = r.stage();
+  // a thread's rows r0 and r0 + 8 (row_off, + 1,024 bytes), its two words
+  // of 16-byte chunk q at ((q ^ g) << 4): the 128-byte swizzle XORs the
+  // chunk index with the row's index mod 8, which is g for both rows
+#pragma unroll
+  for (int kk = 0; kk < kWgBK / 16; ++kk) {
+    const uint32_t base = st + (kk / 2) * kWgBox + row_off;
+    const int q = 4 * (kk % 2) + tg / 2;
+    a[kk][0] = bf16x2(lds_f2(base + ((q ^ g) << 4)));
+    a[kk][1] = bf16x2(lds_f2(base + 1024 + ((q ^ g) << 4)));
+    a[kk][2] = bf16x2(lds_f2(base + (((q + 2) ^ g) << 4)));
+    a[kk][3] = bf16x2(lds_f2(base + 1024 + (((q + 2) ^ g) << 4)));
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kWgBK / 16; ++kk)
+    wgmma_rs<kWgBN>(acc, a[kk], b_desc(st + kWgABoxes * kWgBox + kk * 2048),
+                    !first || kk > 0);
+  wgmma_commit();
+  wgmma_wait<1>();
+  if (!first) release(r, prev);
+  prev = r.s;
+  r.next();
+}
+
+// gates[r, n] = xproj[r, n] + Σ_k round_bf16(ys[r - b, k]) · wh[k, n],
+// zero ys rows above the first (t = 0); M = T·b rows, N = 4H, K = H.
+__global__ void __launch_bounds__(kWgThreads, 1)
+lstm_gates_wgmma_kernel(const __grid_constant__ CUtensorMap ys_map,
+                        const __grid_constant__ CUtensorMap wh_map,
+                        const __grid_constant__ CUtensorMap xp_map,
+                        const __grid_constant__ CUtensorMap gt_map, int M,
+                        int b, int H) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  __shared__ __align__(8) uint64_t full[kWgStages], empty[kWgStages],
+      written[kWgStages];
+  Ring r{(smem_addr(smem) + 1023) & ~1023u, smem_addr(full),
+         smem_addr(empty)};
+  const int N = 4 * H;
+  // the cluster's tiles: kWgCM × kWgCN tiles, CTA (rm, rn) of the cluster
+  // taking the one at (rm, rn), M fastest; a tile past M or N (where mt or
+  // nt is not a multiple) is computed on zeros and stores nothing
+  const int rank = kWgCS > 1 ? (int)cluster_rank() : 0;
+  const int rm = rank % kWgCM, rn = rank / kWgCM;
+  const int mts = ((M + kWgBM - 1) / kWgBM + kWgCM - 1) / kWgCM;
+  const int tiles = mts * (((N + kWgBN - 1) / kWgBN + kWgCN - 1) / kWgCN);
+  const int kbs = (H + kWgBK - 1) / kWgBK;
+  const int cl = blockIdx.x / kWgCS, ncl = gridDim.x / kWgCS;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(r.full + 8 * s, 1);     // the producer's expect_tx
+      mbar_init(r.empty + 8 * s, 8 * kWgCS);   // the cluster's consumers
+      mbar_init(smem_addr(&written[s]), 8);    // this CTA's consumers
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (kWgCS > 1)
+    cluster_sync();       // no peer copies or arrives before the init
+  else
+    __syncthreads();
+  if (threadIdx.x < 128) {
+    // the producer warpgroup: thread 32 stores, thread 0 issues every
+    // copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 32) {
+      // the storer: each epilogue stage, once the consumers have written
+      // the gates over its xproj, to global memory by TMA; then it
+      // releases the stage for the consumers (8 arrivals in each CTA of
+      // the cluster), so that they go on to the next tile meanwhile
+      const uint64_t out = evict_first();     // the gates, written once
+      uint32_t parity = 0;                    // written[s]'s, bit s
+      for (int t = cl; t < tiles; t += ncl) {
+        const int m0 = ((t % mts) * kWgCM + rm) * kWgBM;
+        const int n0 = ((t / mts) * kWgCN + rn) * kWgBN;
+        for (int kb = 0; kb < kbs; ++kb) r.next();
+        for (int c = 0; c < kWgChunks; ++c) {
+          const uint32_t st = r.stage();
+          mbar_wait(smem_addr(&written[r.s]), (parity >> r.s) & 1);
+          parity ^= 1u << r.s;
+#pragma unroll
+          for (int x = 0; x < kWgXBoxes; ++x)
+            tma_store(&gt_map, st + x * kWgBox, n0 + c * kWgChunk + 32 * x,
+                      m0, out);
+          asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+          asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+          if (kWgCS == 1) {
+            mbar_arrive_n(r.empty_bar(r.s), 8);
+          } else {
+            for (int cta = 0; cta < kWgCS; ++cta)
+              mbar_arrive_cta_n(r.empty_bar(r.s), cta, 8);
+          }
+          r.next();
+        }
+      }
+      asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+      return;
+    }
+    if (threadIdx.x != 0) return;
+    // L2 keeps the operands, which every tile of their row or column
+    // reads again, and evicts xproj, read once, first
+    const uint64_t keep = evict_last(), once = evict_first();
+    // the CTAs sharing this CTA's ys rows (its m-tile) and wh columns
+    uint16_t a_mask = 0, b_mask = ((1 << kWgCM) - 1) << (kWgCM * rn);
+    for (int j = 0; j < kWgCN; ++j) a_mask |= 1 << (rm + kWgCM * j);
+    for (int t = cl; t < tiles; t += ncl) {
+      const int m0 = ((t % mts) * kWgCM + rm) * kWgBM;
+      const int n0 = ((t / mts) * kWgCN + rn) * kWgBN;
+      for (int kb = 0; kb < kbs; ++kb) {
+        const uint32_t st = r.stage(), bar = r.full_bar();
+        mbar_wait(r.empty_bar(r.s), r.phase ^ 1);
+        mbar_expect_tx(bar, kWgStage);
+        // ys: rows [rn·kWgARows, + kWgARows) of each box, to the m-tile's
+        // CTAs; wh: boxes [rm·kWgBBoxes/kWgCM, ...), to the n-tile's
+#pragma unroll
+        for (int a = 0; a < kWgABoxes; ++a) {
+          const uint32_t dst = st + a * kWgBox + rn * kWgARows * 128;
+          const int k0 = kb * kWgBK + 32 * a, r0 = m0 - b + rn * kWgARows;
+          if (kWgCN > 1)
+            tma_load_mc(dst, &ys_map, k0, r0, bar, a_mask, keep);
+          else
+            tma_load(dst, &ys_map, k0, r0, bar, keep);
+        }
+#pragma unroll
+        for (int i = 0; i < kWgBBoxes / kWgCM; ++i) {
+          const int j = rm * (kWgBBoxes / kWgCM) + i;
+          const uint32_t dst = st + kWgABoxes * kWgBox + j * kWgBBox;
+          if (kWgCM > 1)
+            tma_load_mc(dst, &wh_map, n0 + 64 * j, kb * kWgBK, bar, b_mask,
+                        keep);
+          else
+            tma_load(dst, &wh_map, n0 + 64 * j, kb * kWgBK, bar, keep);
+        }
+        r.next();
+      }
+      for (int c = 0; c < kWgChunks; ++c) {
+        const uint32_t st = r.stage(), bar = r.full_bar();
+        mbar_wait(r.empty_bar(r.s), r.phase ^ 1);
+        mbar_expect_tx(bar, kWgXBoxes * kWgBox);
+#pragma unroll
+        for (int x = 0; x < kWgXBoxes; ++x)
+          tma_load(st + x * kWgBox, &xp_map, n0 + c * kWgChunk + 32 * x, m0,
+                   bar, once);
+        r.next();
+      }
+    }
+    // stay until the cluster's consumers have released every stage: they
+    // arrive on this CTA's barriers, and its copies land in their stages
+    for (int i = 0; i < kWgStages; ++i) {
+      mbar_wait(r.empty_bar(r.s), r.phase ^ 1);
+      r.next();
+    }
+  } else {
+    // two consumer warpgroups, 64 rows of the tile each
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int ct = threadIdx.x - 128, g = ct % 32 / 4, tg = ct % 4;
+    const int r0 = 16 * (ct / 32) + g;      // rows r0 and r0 + 8 of the tile
+    // the thread's row r0 in an fp32 box and its two words of a chunk
+    const uint32_t row_off = r0 * 128 + (tg & 1) * 8;
+    float acc[kWgBN / 2];
+    uint32_t a0[kWgBK / 16][4], a1[kWgBK / 16][4];
+    for (int t = cl; t < tiles; t += ncl) {
+      const int m0 = ((t % mts) * kWgCM + rm) * kWgBM;
+      const int n0 = ((t / mts) * kWgCN + rn) * kWgBN;
+      int prev = 0, kb = 0;
+      for (; kb + 1 < kbs; kb += 2) {
+        gates_step(r, prev, acc, a0, row_off, g, tg, kb == 0);
+        gates_step(r, prev, acc, a1, row_off, g, tg, false);
+      }
+      if (kb < kbs) gates_step(r, prev, acc, a0, row_off, g, tg, kb == 0);
+      wgmma_wait<0>();
+      fence_acc(acc);
+      release(r, prev);
+      // the streamed epilogue: xproj lands chunk by chunk in the ring;
+      // gates = xproj + acc in fp32, written over it in place for the
+      // storer, which stores the chunk and releases the stage
+#pragma unroll
+      for (int c = 0; c < kWgChunks; ++c) {
+        const uint32_t st = r.stage();
+        mbar_wait(r.full_bar(), r.phase);
+#pragma unroll
+        for (int x = 0; x < kWgXBoxes; ++x)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int jn = c * kWgChunk / 8 + 4 * x + j;
+              const uint32_t at = st + x * kWgBox + row_off + h * 1024 +
+                                  (((2 * j + tg / 2) ^ g) << 4);
+              const float2 v = lds_f2(at);
+              sts_f2(at, make_float2(v.x + acc[4 * jn + 2 * h],
+                                     v.y + acc[4 * jn + 2 * h + 1]));
+            }
+        // the writes seen by TMA (the async proxy), then the storer told
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        __syncwarp();
+        if (ct % 32 == 0) mbar_arrive(smem_addr(&written[r.s]));
+        r.next();
+      }
+    }
+  }
+}
+
 constexpr int kResThreads = 256;             // 8 warps
 constexpr int kResWarps = kResThreads / 32;
 constexpr int kResUnits = 8;                 // hidden units of the block
@@ -873,7 +1495,8 @@ int launch_bwd(const void* xproj, const void* wh, const void* ys,
 
 // The kernel a capacity query is for: 0 the streaming forward, 1 the
 // streaming backward, 2 the resident backward, 3 the resident forward
-// (the resident ones bf16 only).
+// (the resident ones bf16 only); 4, for allow_smem only, the wgmma gate
+// GEMM.
 const void* kernel_of(int kernel, int wh_bf16) {
   if (kernel == 0)
     return wh_bf16 ? (const void*)lstm_fwd_kernel<__nv_bfloat16>
@@ -882,6 +1505,7 @@ const void* kernel_of(int kernel, int wh_bf16) {
     return wh_bf16 ? (const void*)lstm_bwd_kernel<__nv_bfloat16>
                    : (const void*)lstm_bwd_kernel<float>;
   if (kernel == 2) return (const void*)lstm_bwd_resident_kernel;
+  if (kernel == 4) return (const void*)lstm_gates_wgmma_kernel;
   return (const void*)lstm_fwd_resident_kernel;
 }
 
@@ -891,21 +1515,61 @@ size_t smem_of(int kernel, int H) {
                      : kernel == 3 ? fwd_resident_smem(H) : 0;
 }
 
-// Lets resident kernel 2 or 3 take `smem` bytes of dynamic shared memory
+// Lets kernel 2, 3 or 4 take `smem` bytes of dynamic shared memory
 // (above 48 KB only after this call); set once per device and kernel for
 // the largest size asked.
 cudaError_t allow_smem(int kernel, size_t smem) {
-  static size_t allowed[2][64] = {};
+  static size_t allowed[5][64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  size_t* done = dev < 64 ? &allowed[kernel == 3][dev] : nullptr;
+  size_t* done = dev < 64 ? &allowed[kernel][dev] : nullptr;
   if (done && smem <= *done) return cudaSuccess;
   err = cudaFuncSetAttribute(kernel_of(kernel, 1),
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err == cudaSuccess && done) *done = smem;
   return err;
+}
+
+// The wgmma route's tensor maps, each in 128-byte swizzled boxes: ys
+// (M rows of H fp32, boxes of kWgARows rows × 32), wh (H rows of 4H bf16,
+// kWgBK rows × 64), xproj and the gates (M rows of 4H fp32, 128 rows ×
+// 32). 0, or a
+// CUDA error code where CUDA has no encoder or refuses a map (a
+// base not 16-byte aligned, a row stride not a multiple of 16 bytes).
+int gates_maps(CUtensorMap (&maps)[4], const void* ys, const void* wh,
+               const void* xproj, const void* gates, int M, int H) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t N = 4ull * (cuuint64_t)H;
+  struct Map {
+    const void* base;
+    CUtensorMapDataType type;
+    cuuint64_t cols, rows, bytes;
+    cuuint32_t box_cols, box_rows;
+  };
+  const Map spec[4] = {
+      {ys, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, (cuuint64_t)H, (cuuint64_t)M, 4,
+       32, kWgARows},
+      {wh, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, N, (cuuint64_t)H, 2, 64, kWgBK},
+      {xproj, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, N, (cuuint64_t)M, 4, 32,
+       128},
+      {gates, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, N, (cuuint64_t)M, 4, 32,
+       128}};
+  const cuuint32_t step[2] = {1, 1};
+  for (int i = 0; i < 4; ++i) {
+    const Map& m = spec[i];
+    const cuuint64_t dims[2] = {m.cols, m.rows};
+    const cuuint64_t strides[1] = {m.cols * m.bytes};
+    const cuuint32_t box[2] = {m.box_cols, m.box_rows};
+    if (encode(&maps[i], m.type, 2, const_cast<void*>(m.base), dims, strides,
+               box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+               CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return (int)cudaErrorInvalidValue;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -1003,9 +1667,10 @@ int ff_lstm_bwd(const void* xproj, const void* wh, int wh_bf16,
                                      b, H, grid, stream);
 }
 
-// The resident route's gate phase: gates (T, b, 4H) fp32 out, from
-// xproj (T, b, 4H) fp32, wh (H, 4H) bf16 and ys (T, b, H) fp32. One
-// ordinary launch on `stream`; returns cudaGetLastError().
+// The resident route's gate phase on the "mma" route: gates (T, b, 4H)
+// fp32 out, from xproj (T, b, 4H) fp32, wh (H, 4H) bf16 and ys (T, b, H)
+// fp32. One ordinary launch of lstm_gates_kernel on `stream`; returns
+// cudaGetLastError().
 int ff_lstm_gates(const void* xproj, const void* wh, const void* ys,
                   void* gates, int T, int b, int H, void* stream) {
   if (T <= 0 || b <= 0) return 0;
@@ -1016,6 +1681,60 @@ int ff_lstm_gates(const void* xproj, const void* wh, const void* ys,
       (const float*)xproj, (const __nv_bfloat16*)wh, (const float*)ys,
       (float*)gates, M, b, H);
   return (int)cudaGetLastError();
+}
+
+// The gate phase's route at hidden size H: 1 for "wgmma"
+// (ff_lstm_gates_wgmma), where TMA can describe ys, whose rows of H fp32
+// must be a multiple of 16 bytes apart; 0 for "mma" (ff_lstm_gates).
+int ff_lstm_gates_route(int H) { return H % 4 == 0; }
+
+// The gate phase on the "wgmma" route: as ff_lstm_gates, by
+// lstm_gates_wgmma_kernel in clusters of kWgCS CTAs, as many as the card
+// holds at once and at most the supertiles. Returns a CUDA error code:
+// the launch's, or cudaErrorInvalidValue for an H of the "mma" route or a
+// tensor map CUDA refuses.
+int ff_lstm_gates_wgmma(const void* xproj, const void* wh, const void* ys,
+                        void* gates, int T, int b, int H, void* stream) {
+  if (T <= 0 || b <= 0) return 0;
+  if (!ff_lstm_gates_route(H)) return (int)cudaErrorInvalidValue;
+  const int M = T * b;
+  CUtensorMap maps[4];
+  const int bad = gates_maps(maps, ys, wh, xproj, gates, M, H);
+  if (bad) return bad;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kWgCS;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(kWgCS);
+  cfg.blockDim = dim3(kWgThreads);
+  cfg.dynamicSmemBytes = kWgSmem;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // the clusters the card holds at once, once per device
+  static int resident[64] = {};
+  int dev = 0, clusters = 0;
+  cudaError_t err = allow_smem(4, kWgSmem);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    clusters = dev < 64 ? resident[dev] : 0;
+    if (clusters == 0) {
+      err = cudaOccupancyMaxActiveClusters(
+          &clusters, (void*)lstm_gates_wgmma_kernel, &cfg);
+      if (err == cudaSuccess && clusters < 1) err = cudaErrorInvalidValue;
+      if (err == cudaSuccess && dev < 64) resident[dev] = clusters;
+    }
+  }
+  if (err != cudaSuccess) return refused_or_ok(err);
+  const long long tiles =
+      (long long)(((M + kWgBM - 1) / kWgBM + kWgCM - 1) / kWgCM) *
+      (((4 * H + kWgBN - 1) / kWgBN + kWgCN - 1) / kWgCN);
+  cfg.gridDim = dim3(kWgCS * (int)(tiles < clusters ? tiles : clusters));
+  return refused_or_ok(cudaLaunchKernelEx(&cfg, lstm_gates_wgmma_kernel,
+                                          maps[0], maps[1], maps[2], maps[3],
+                                          M, b, H));
 }
 
 // The resident route's serial phase: dzs (T, b, 4H) fp32 out from the

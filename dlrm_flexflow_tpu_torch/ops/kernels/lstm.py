@@ -26,7 +26,11 @@ i, f, g, o; the initial h and c are zero.
   wh, or any other shape) launches one kernel that recomputes the gates
   inside the serial loop.
 - ``lstm_gates(xproj, wh, ys)`` -> gates (T, b, 4h) fp32:
-  ``round(h_{t-1}) @ wh + xproj[t]`` for every t, h_{-1} = 0.
+  ``round(h_{t-1}) @ wh + xproj[t]`` for every t, h_{-1} = 0. Two
+  routes, chosen by shape (``gates_route``): "wgmma" (h % 4 == 0, where
+  TMA can describe ys) launches the persistent TMA + wgmma kernel;
+  "mma" (any other h) the mma.sync kernel. ``route=`` forces one (the
+  tests and chip_smoke.py's side-by-side timing).
 
 Each takes a CPU tensor to its plain version (``lstm_fwd_reference``,
 ``lstm_bwd_reference``, ``lstm_gates_reference``) and launches its kernel
@@ -35,8 +39,8 @@ cannot be co-resident or the cooperative launch is refused: it never
 falls back, and no route stands in for another. ``lstm_carry_reference``
 is the plain serial phase given the gates: with ``lstm_gates_reference``
 it composes to ``lstm_bwd_reference``. ``.launches`` on each wrapper
-counts kernel launches; ``lstm_fwd.routes`` and ``lstm_bwd.routes``
-count them by route.
+counts kernel launches; ``lstm_fwd.routes``, ``lstm_bwd.routes`` and
+``lstm_gates.routes`` count them by route.
 
 ``lstm_scan(xproj, wh)`` is the JAX ``lstm_scan`` as an autograd
 Function: the forward keeps cs only when a gradient is needed (as
@@ -69,6 +73,8 @@ _SIGNATURES = {
     "ff_lstm_bwd": ((_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
                     _I),
     "ff_lstm_gates": ((_P, _P, _P, _P, _I, _I, _I, _P), _I),
+    "ff_lstm_gates_wgmma": ((_P, _P, _P, _P, _I, _I, _I, _P), _I),
+    "ff_lstm_gates_route": ((_I,), _I),
     "ff_lstm_bwd_resident": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
                              _I),
     "ff_lstm_barrier": ((_I, _I, _P), _I),
@@ -210,6 +216,13 @@ def bwd_route(b: int, h: int, wh_dtype, blocks: int) -> str:
     return _route(b, h, wh_dtype, blocks, resident_smem(h))
 
 
+def gates_route(h: int) -> str:
+    """The gate phase's route at hidden size h (``ff_lstm_gates_route``):
+    "wgmma" where TMA can describe ys, whose rows of h fp32 must lie a
+    multiple of 16 bytes apart (h % 4 == 0); else "mma"."""
+    return "wgmma" if h % 4 == 0 else "mma"
+
+
 def _check(xproj, wh, extra=()):
     if xproj.dim() != 3 or wh.dim() != 2:
         raise ValueError(f"lstm expects xproj (T, b, 4h) and wh (h, 4h), "
@@ -307,12 +320,18 @@ def lstm_fwd(xproj: torch.Tensor, wh: torch.Tensor,
     return ys, cs
 
 
-def lstm_gates(xproj: torch.Tensor, wh: torch.Tensor,
-               ys: torch.Tensor) -> torch.Tensor:
+def lstm_gates(xproj: torch.Tensor, wh: torch.Tensor, ys: torch.Tensor,
+               route=None) -> torch.Tensor:
     """gates (T, b, 4h) fp32, the resident route's gate phase; wh bf16 on
-    the card (the kernel multiplies on the bf16 tensor cores)."""
+    the card (both kernels multiply on the bf16 tensor cores). ``route``
+    ("wgmma" or "mma") overrides ``gates_route(h)``: the tests and
+    chip_smoke.py time both routes side by side; "wgmma" at an h it
+    cannot take raises."""
     tbh = (xproj.shape[0], xproj.shape[1], wh.shape[0])
     T, b, h = _check(xproj, wh, (("ys", ys, tbh),))
+    route = gates_route(h) if route is None else route
+    if route not in lstm_gates.routes:
+        raise ValueError(f"lstm_gates has no route {route!r}")
     if xproj.device.type == "cpu":
         return lstm_gates_reference(xproj, wh, ys)
     if wh.dtype != torch.bfloat16:
@@ -320,11 +339,13 @@ def lstm_gates(xproj: torch.Tensor, wh: torch.Tensor,
     xproj, wh, ys = xproj.contiguous(), wh.contiguous(), ys.contiguous()
     gates = torch.empty_like(xproj)
     lib = _lib()
-    err = lib.ff_lstm_gates(xproj.data_ptr(), wh.data_ptr(), ys.data_ptr(),
-                            gates.data_ptr(), T, b, h,
-                            build.stream_of(xproj))
-    build.check(lib, err, "lstm_gates kernel")
-    build.count_launch(lstm_gates)
+    stream = build.stream_of(xproj)
+    ptrs = (xproj.data_ptr(), wh.data_ptr(), ys.data_ptr(), gates.data_ptr())
+    launch = lib.ff_lstm_gates_wgmma if route == "wgmma" \
+        else lib.ff_lstm_gates
+    err = launch(*ptrs, T, b, h, stream)
+    build.check(lib, err, f"lstm_gates kernel ({route} route)")
+    build.count_launch(lstm_gates, route)
     return gates
 
 
@@ -385,6 +406,7 @@ def grid_barrier(steps: int, grid: int, device) -> None:
 lstm_fwd.launches = 0
 lstm_fwd.routes = {"resident": 0, "streaming": 0}
 lstm_gates.launches = 0
+lstm_gates.routes = {"wgmma": 0, "mma": 0}
 lstm_bwd.launches = 0
 lstm_bwd.routes = {"resident": 0, "streaming": 0}
 

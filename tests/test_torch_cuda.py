@@ -1369,6 +1369,51 @@ def test_lstm_gate_phase_and_resident_limits(cuda):
         lstm_mod.lstm_gates(xp, wh.float(), ys)
 
 
+@pytest.mark.parametrize("route", ["wgmma", "mma"])
+@pytest.mark.parametrize("T,b,h", [(40, 64, 1024), (3, 5, 136), (1, 1, 8),
+                                   (2, 100, 1000), (40, 64, 3296)])
+def test_lstm_gate_routes_match_plain(cuda, T, b, h, route):
+    """Each gate route against the plain version (products of bf16
+    values, exact in fp32, summed in another order: atol 1e-4), at the
+    NMT layer, K = 136 (not a multiple of the k depth), one row, a tile
+    straddling t = 0's zero rows with N = 4,000 (not a multiple of 256)
+    and the largest resident h; the launch counted on its route."""
+    xp, wh, _ = _lstm_inputs(cuda, T, b, h, torch.bfloat16, seed=T + b + h)
+    ys = torch.randn(T, b, h, device=cuda)
+    before = (lstm_mod.lstm_gates.launches, dict(lstm_mod.lstm_gates.routes))
+    got = lstm_mod.lstm_gates(xp, wh, ys, route=route)
+    assert lstm_mod.lstm_gates.launches == before[0] + 1
+    assert lstm_mod.lstm_gates.routes \
+        == {**before[1], route: before[1][route] + 1}
+    torch.testing.assert_close(
+        got, lstm_mod.lstm_gates_reference(xp, wh, ys), rtol=0, atol=1e-4)
+
+
+def test_lstm_gate_route_by_shape_on_card(cuda):
+    """The C route rule equals ``gates_route``; h = 138 (h % 4 = 2)
+    takes the "mma" route and matches, and the "wgmma" route refuses it
+    (raises, counts nothing); two "wgmma" calls on the same inputs are
+    bitwise equal."""
+    lib = lstm_mod._lib()
+    for h in [*range(1, 300), 1024, 3296, 4095, 4096]:
+        assert bool(lib.ff_lstm_gates_route(h)) \
+            == (lstm_mod.gates_route(h) == "wgmma")
+    xp, wh, _ = _lstm_inputs(cuda, 3, 7, 138, torch.bfloat16, seed=138)
+    ys = torch.randn(3, 7, 138, device=cuda)
+    before = dict(lstm_mod.lstm_gates.routes)
+    got = lstm_mod.lstm_gates(xp, wh, ys)
+    assert lstm_mod.lstm_gates.routes == {**before, "mma": before["mma"] + 1}
+    torch.testing.assert_close(
+        got, lstm_mod.lstm_gates_reference(xp, wh, ys), rtol=0, atol=1e-4)
+    with pytest.raises(RuntimeError, match="wgmma route"):
+        lstm_mod.lstm_gates(xp, wh, ys, route="wgmma")
+    assert lstm_mod.lstm_gates.routes == {**before, "mma": before["mma"] + 1}
+    xp, wh, _ = _lstm_inputs(cuda, 40, 64, 1024, torch.bfloat16, seed=21)
+    ys = torch.randn(40, 64, 1024, device=cuda)
+    first = lstm_mod.lstm_gates(xp, wh, ys, route="wgmma")
+    assert torch.equal(first, lstm_mod.lstm_gates(xp, wh, ys, route="wgmma"))
+
+
 def test_lstm_barrier_probe_runs(cuda):
     lstm_mod.grid_barrier(39, 128, cuda)
     torch.cuda.synchronize()

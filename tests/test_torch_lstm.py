@@ -152,12 +152,27 @@ def test_gate_phase_on_cpu_is_the_plain_version_and_counts_nothing():
     xp, _, tw, _ = _inputs(3, 4, 16, True, seed=5)
     x = torch.from_numpy(xp)
     ys, _ = plstm.lstm_fwd_reference(x, tw)
-    before = plstm.lstm_gates.launches
+    before = (plstm.lstm_gates.launches, dict(plstm.lstm_gates.routes))
     assert torch.equal(plstm.lstm_gates(x, tw, ys),
                        plstm.lstm_gates_reference(x, tw, ys))
-    assert plstm.lstm_gates.launches == before
+    assert torch.equal(plstm.lstm_gates(x, tw, ys, route="mma"),
+                       plstm.lstm_gates_reference(x, tw, ys))
+    assert (plstm.lstm_gates.launches, plstm.lstm_gates.routes) == before
+    with pytest.raises(ValueError, match="route"):
+        plstm.lstm_gates(x, tw, ys, route="cuda")
     with pytest.raises(ValueError, match="ys"):
         plstm.lstm_gates(x, tw, ys[:, :2])
+
+
+@pytest.mark.parametrize("h,route", [
+    (1024, "wgmma"),    # the NMT layer
+    (136, "wgmma"),     # K not a multiple of the k depth
+    (8, "wgmma"),
+    (138, "mma"),       # ys rows 552 bytes apart: no tensor map
+    (5, "mma"),
+])
+def test_gate_route_by_shape(h, route):
+    assert plstm.gates_route(h) == route
 
 
 @pytest.mark.parametrize("b,h,dtype,blocks,route", [
