@@ -360,6 +360,35 @@ Phases:
    select beside it. The phase's seconds, each world's step time and
    every collective's bytes print. ``python3 chip_smoke.py --dist`` runs
    only this phase.
+14. quant — quantized tables and the two-tower train head, run after
+   the cascade phase. (a) The two-tower "train" head at the cascade's own
+   ``TwoTowerConfig`` (1M items, dim 32, 8 user tables of 1M x 8):
+   ``fit`` over ``synthetic_two_tower_batch`` batches of 1,024 under the
+   sparse softmax cross-entropy, every count at 0 just before and read
+   just after (the bag and the touched-rows scatter of each table, one
+   dense update a step, no plain version), the towers handed to the
+   user and item heads by ``transfer_tower_params``, the catalog indexed
+   and the cascade answering users, retrieval bitwise to ``exact_scan``.
+   (b) ``random_benchmark()`` "cat" at full width, SGD, ``--emb-dtype
+   int8 --emb-update-rule stochastic_rounding``: one ``fake_quant_rows``
+   launch a step (route "philox") over the whole 2.05 GB table, counted
+   the same way; every stored row a fixed point of nearest int8
+   quantization; two runs from one seed bitwise; the drift from fp32
+   training printed in code steps; the unfused "dot" re-quantized once
+   a step, the fused "dot" (its table in the fused interaction, no
+   embedding op) under no policy, as in the JAX package. (c) fp8 under
+   stochastic rounding for a step (nearest), master_weight int8 bitwise
+   fp32 training. (d) A delta publish from (b)'s trainer (a 2.05 GB full
+   base in ``build/smoke/quant``, then int8 row payloads) reloaded by an
+   engine: the served rows bitwise the dequantized payload, its scores
+   the trainer's. (e) The kernel against its plain version at d = 8, 16,
+   64, 128 with all-zero rows and rows at +-qmax codes: nearest (int8,
+   fp8, bf16), the ``u``-tensor entry and the Philox entry bitwise; each
+   Philox code floor or floor + 1 of x / s, 2,048 draws of a row
+   unbiased within 6 standard errors; bitwise at the "cat" table's
+   shape; timed there (Philox and nearest) and at Criteo-Kaggle's table
+   beside the bound and the plain version. ``python3 chip_smoke.py
+   --quant`` runs only this phase.
 
 The last two lines are a JSON object with every kernel's numbers and
 ``{"ok": true, "device": {...}}``. Without a GPU, or when any check
@@ -400,6 +429,7 @@ from dlrm_flexflow_tpu_torch.ops.kernels import dense_update as dense_mod
 from dlrm_flexflow_tpu_torch.ops.kernels import embedding_bag as bag_mod
 from dlrm_flexflow_tpu_torch.ops.kernels import interaction as inter_mod
 from dlrm_flexflow_tpu_torch.ops.kernels import lstm as lstm_mod
+from dlrm_flexflow_tpu_torch.ops.kernels import quant_rows as qr_mod
 from dlrm_flexflow_tpu_torch.ops.kernels import scatter_rows as scat_mod
 from dlrm_flexflow_tpu_torch.ops.kernels import topk as topk_mod
 from dlrm_flexflow_tpu_torch.quant import quantize_rows
@@ -409,6 +439,7 @@ from dlrm_flexflow_tpu_torch.retrieve import (CascadeConfig, CascadeEngine,
                                               build_two_tower,
                                               dlrm_candidate_features,
                                               item_embeddings,
+                                              synthetic_two_tower_batch,
                                               transfer_tower_params)
 from dlrm_flexflow_tpu_torch.serve import (EmbeddingShardSet,
                                            InferenceEngine, ServeConfig,
@@ -1883,7 +1914,8 @@ LAUNCHED = (bag_mod.embedding_bag, inter_mod.fused_interaction,
             scat_mod.scatter_presort, dense_mod.dense_update,
             dense_mod.grad_sumsq, topk_mod.mips_topk,
             bag_mod.embedding_bag_quant, inter_mod.fused_interaction_quant,
-            lstm_mod.lstm_fwd, lstm_mod.lstm_gates, lstm_mod.lstm_bwd)
+            lstm_mod.lstm_fwd, lstm_mod.lstm_gates, lstm_mod.lstm_bwd,
+            qr_mod.fake_quant_rows)
 
 
 def zero_counts():
@@ -1934,7 +1966,8 @@ class PlainCalls:
                           (inter_mod, "fused_interaction_quant_reference"),
                           (lstm_mod, "lstm_fwd_reference"),
                           (lstm_mod, "lstm_gates_reference"),
-                          (lstm_mod, "lstm_bwd_reference")):
+                          (lstm_mod, "lstm_bwd_reference"),
+                          (qr_mod, "fake_quant_rows_reference")):
             real = getattr(mod, name)
 
             def counted(*a, _real=real, **kw):
@@ -6600,6 +6633,509 @@ def dist_phase(dev):
     return rows, counts
 
 
+# ---------------------------------------------------------------------
+# phase 14: quantized tables trained, published and served, the row
+# fake-quant kernel, and the two-tower train head
+# ---------------------------------------------------------------------
+QUANT_STEPS = 4      # stochastic-rounding steps of "cat" at full width
+QUANT_DS = (8, 16, 64, 128)   # the kernel's widths held to the plain one
+QUANT_ROWS = 4096    # rows of each of those checks
+QUANT_DRAWS = 2048   # draws of one row for the unbiasedness check
+QUANT_SIGMAS = 6.0   # its bound, in standard errors of the mean
+TT_B = 1024          # the train head's batch: (1024, 1024) logits
+TT_STEPS = 4
+TT_USERS = 8         # users the cascade answers on the trained towers
+
+
+def quant_model(mode="cat", fuse=False, seed=SEED, **cfg):
+    """random_benchmark() at full width under a storage policy (``cfg``:
+    emb_dtype, emb_update_rule), SGD, batch TRAIN_B, initialised."""
+    dcfg = train_config(mode)
+    model = FFModel(FFConfig(batch_size=TRAIN_B, seed=seed, device="cuda",
+                             **cfg))
+    build_dlrm(model, dcfg, fuse_interaction=fuse)
+    model.compile(SGDOptimizer(lr=LR), "mean_squared_error", ["mse"])
+    model.init_layers()
+    return model, dcfg
+
+
+def fixed_point_error(t, w, dt):
+    """How far the w-wide rows of ``t`` (on the card) are from quantized
+    images: (the largest |x / s - code| of an int8 row under its own
+    scale s, 0 for fp8; the largest |fake_quant(x) - x| over (qmax + 1)
+    ulps of the row's scale, over the rows whose largest code is qmax;
+    the rows whose largest code is 126). A stochastic-rounding row is
+    its integer codes times the scale it was quantized with, s = amax /
+    127 before the rounding: its largest value's x / s lies within an ulp
+    of 127 and rounds to 127, or to 126 where it fell short and u was
+    smaller than the shortfall; such a row is still codes times one
+    scale, s = amax / 126, but nearest re-quantization (scale amax / 127)
+    moves it by up to half a code. A row whose largest code is qmax is a
+    fixed point of nearest quantization: re-quantizing recomputes its
+    scale within an ulp, which moves q * s by at most |q| <= qmax
+    ulps."""
+    v = t.detach().reshape(-1, w)
+    qmax = 127.0 if dt == "int8" else 448.0
+    code_err, ulp_err, short = 0.0, 0.0, 0
+    for lo in range(0, v.shape[0], 1 << 18):
+        c = v[lo:lo + (1 << 18)]
+        amax = c.abs().amax(dim=1)
+        top = torch.ones_like(amax)
+        if dt == "int8":
+            errs = []
+            for n in (127.0, 126.0):
+                sc = amax / torch.full_like(amax, n)
+                y = c / torch.where(sc > 0, sc, torch.ones_like(sc))[:, None]
+                errs.append((y - torch.round(y)).abs().amax(dim=1))
+            top = errs[0] < 1e-3
+            short += int((~top & (errs[1] < 1e-3)).sum())
+            code_err = max(code_err, float(torch.minimum(*errs).max()))
+        fq = qr_mod.fake_quant_rows_reference(c.clone(), dt, "nearest")
+        s = amax / torch.full_like(amax, qmax)
+        _, e = torch.frexp(s)
+        ulp = torch.ldexp(torch.ones_like(s), e - 24)[:, None]
+        moved = torch.where(s[:, None] > 0, (fq - c).abs() / (
+            (qmax + 1) * ulp), (fq - c).abs())
+        ulp_err = max(ulp_err, float(torch.where(
+            top.bool()[:, None], moved, torch.zeros_like(moved)).max()))
+    return code_err, ulp_err, short
+
+
+def check_fixed_point(t, w, dt, what):
+    code_err, ulp_err, short = fixed_point_error(t, w, dt)
+    check(code_err < 1e-3 and ulp_err <= 1.0,
+          f"quant: {what}: a stored row is not its codes times one scale "
+          f"(code error {code_err:.3g}) or moves under nearest {dt} "
+          f"re-quantization ({ulp_err:.3g} x (qmax + 1) ulps of its scale)")
+    return code_err, ulp_err, short
+
+
+def same_params(a, b):
+    return all(torch.equal(a.params[op][pn], b.params[op][pn])
+               for op in a.params for pn in a.params[op])
+
+
+def user_encoder(user):
+    """The user head over a request's users in batches of its compiled
+    batch, zero-padded: (n, dim) fp32 on the card."""
+    def encode(feats):
+        dense = np.asarray(feats["dense"], np.float32)
+        sparse = np.asarray(feats["sparse"], np.int64)
+        ub, out = user.config.batch_size, []
+        for lo in range(0, dense.shape[0], ub):
+            d, s = dense[lo:lo + ub], sparse[lo:lo + ub]
+            pad = ub - d.shape[0]
+            d = np.concatenate([d, np.zeros((pad,) + d.shape[1:],
+                                            np.float32)])
+            s = np.concatenate([s, np.zeros((pad,) + s.shape[1:],
+                                            np.int64)])
+            out.append(user.forward_batch({"user_dense": d,
+                                           "user_sparse": s})[:ub - pad])
+        return torch.cat(out)
+    return encode
+
+
+def two_tower_train():
+    """(a) The two-tower train head at the cascade's own TwoTowerConfig
+    (``_build_cascade``'s, around random_benchmark(): 1M items, dim 32,
+    8 user tables of 1M x 8): TT_STEPS ``fit`` steps of TT_B on
+    ``synthetic_two_tower_batch`` batches under the sparse softmax
+    cross-entropy, every count at 0 just before and read just after;
+    then the towers handed to the user and item heads by
+    ``transfer_tower_params``, the catalog encoded into a 1-shard index
+    and the cascade (the "cat" ranker behind an engine) answering
+    TT_USERS users, retrieval bitwise to ``exact_scan``."""
+    dcfg = DLRMConfig.random_benchmark()
+    tcfg = two_tower_config(dcfg)
+    t0 = time.perf_counter()
+    model = FFModel(FFConfig(batch_size=TT_B, seed=SEED, device="cuda"))
+    build_two_tower(model, tcfg, head="train")
+    model.compile(SGDOptimizer(lr=0.1), "sparse_categorical_crossentropy",
+                  ["accuracy"])
+    model.init_layers()
+    parts = [synthetic_two_tower_batch(tcfg, TT_B, seed=SEED + 40 + k)
+             for k in range(TT_STEPS)]
+    x = {k: np.concatenate([p[0][k] for p in parts]) for k in parts[0][0]}
+    y = np.concatenate([p[1] for p in parts])
+    model.fit({k: v[:TT_B] for k, v in x.items()}, y[:TT_B], epochs=1,
+              batch_size=TT_B, verbose=False)    # the kernels' first use
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    zero_counts()
+    with PlainCalls() as plain:
+        t0 = time.perf_counter()
+        model.fit(x, y, epochs=1, batch_size=TT_B, verbose=False)
+        mets = model.train_batch({**{k: v[:TT_B] for k, v in x.items()},
+                                  "label": y[:TT_B]})
+        loss = float(mets["loss"])
+        t_fit = time.perf_counter() - t0
+    counts = read_counts()
+    check(plain.calls == 0, f"quant (a): a plain version ran {plain.calls} "
+          f"times")
+    check(np.isfinite(loss), f"quant (a): the train head's loss is {loss}")
+    steps = TT_STEPS + 1
+    sparse = {op.name for op in model._sparse_ops}
+    check({"item_emb", "user_emb_0"} <= sparse,
+          f"quant (a): the towers' tables take no touched-rows update "
+          f"({sorted(sparse)})")
+    check(counts["embedding_bag"] >= steps * len(sparse)
+          and counts["scatter_add_rows"] == steps * len(sparse)
+          and counts["dense_update"] == steps,
+          f"quant (a): launches {counts}")
+
+    def head(name, batch):
+        m = FFModel(FFConfig(batch_size=batch, seed=SEED + 1, device="cuda"))
+        build_two_tower(m, tcfg, head=name)
+        m.compile()
+        m.init_layers()
+        check(transfer_tower_params(model, m) > 0,
+              f"quant (a): nothing moved to the {name} head")
+        for op, p in m.params.items():
+            for pn, v in p.items():
+                check(torch.equal(v, model.params[op][pn]),
+                      f"quant (a): {op}.{pn} did not reach the {name} head")
+        return m
+
+    user, item = head("user", 64), head("item", ITEM_BATCH)
+    items = item_embeddings(item, tcfg)
+    del item
+    sset = ShardedMIPSIndex.standalone_set(1)
+    index = ShardedMIPSIndex.build(sset, items)
+    ranker = FFModel(FFConfig(batch_size=256, seed=SEED, device="cuda",
+                              retrieve_deadline_ms=1000.0))
+    build_dlrm(ranker, dcfg)
+    ranker.compile()
+    ranker.init_layers()
+    encode = user_encoder(user)
+    expand = dlrm_candidate_features(T, list(dcfg.embedding_size))
+    data, _ = synthetic_batch(dcfg, TT_USERS, seed=SEED + 41)
+    with InferenceEngine(ranker, ServeConfig(max_batch=256)) as engine:
+        cascade = CascadeEngine(index, encode, engine, expand,
+                                CascadeConfig.from_config(ranker.config))
+        for i in range(TT_USERS):
+            feats = {k: v[i:i + 1] for k, v in data.items()}
+            p = cascade.predict(feats)
+            check(not p.degraded and p.ids.shape == (1, K)
+                  and np.isfinite(p.scores).all(),
+                  f"quant (a): bad cascade answer for user {i}")
+            want_s, want_i = index.exact_scan(encode(feats), K)
+            o = np.lexsort((p.ids[0], -p.retrieve_scores[0]))
+            check(np.array_equal(p.ids[0][o], want_i[0])
+                  and np.array_equal(p.retrieve_scores[0][o].view(np.uint32),
+                                     want_s[0].view(np.uint32)),
+                  f"quant (a): user {i}'s retrieval differs from exact_scan")
+    sset.close()
+    print(f"quant (a): two-tower train head at the cascade's config "
+          f"({tcfg.n_items} items, dim {tcfg.dim}, "
+          f"{len(tcfg.user_embedding_size)} user tables of "
+          f"{tcfg.user_embedding_size[0]} x {tcfg.user_sparse_dim}), batch "
+          f"{TT_B}: {steps} steps in {t_fit:.3f} s after {t_build:.2f} s of "
+          f"build and a first step, loss {loss:.4f}; launches "
+          f"{ {k: v for k, v in counts.items() if v} }; towers served: "
+          f"{TT_USERS} cascade answers, retrieval bitwise to exact_scan")
+    del model, user, items, index, ranker, cascade, engine
+    torch.cuda.empty_cache()
+    return counts
+
+
+def quant_training(work):
+    """(b) stochastic rounding at full width, (c) the other rules, (d) a
+    quantized delta publish. Returns (b)'s launch counts."""
+    sr = dict(emb_dtype="int8", emb_update_rule="stochastic_rounding")
+    w = D * 2            # the stored row: two 64-wide rows lane-packed
+    a, dcfg = quant_model(**sr)
+    x, y = synthetic_batch(dcfg, TRAIN_B * QUANT_STEPS, seed=SEED + 42)
+    init = fixed_point_error(a.params["emb_stack"]["kernel"], w, "int8")
+    check(init[0] < 1e-3 and init[1] <= 1.0 and init[2] == 0,
+          f"quant (b): the initial table is not quantized ({init})")
+    a.fit(x, y, epochs=1, batch_size=TRAIN_B, verbose=False)  # warm
+    zero_counts()
+    with PlainCalls() as plain:
+        t0 = time.perf_counter()
+        a.fit(x, y, epochs=1, batch_size=TRAIN_B, verbose=False)
+        torch.cuda.synchronize()
+        t_sr = time.perf_counter() - t0
+    counts = read_counts()
+    check(plain.calls == 0, f"quant (b): a plain version ran "
+          f"{plain.calls} times")
+    check(counts["fake_quant_rows"] == QUANT_STEPS
+          == counts["fake_quant_rows:philox"],
+          f"quant (b): {counts['fake_quant_rows']} re-quantize launches in "
+          f"{QUANT_STEPS} steps")
+    fp = check_fixed_point(a.params["emb_stack"]["kernel"], w, "int8",
+                           "\"cat\" after stochastic rounding")
+    b, _ = quant_model(**sr)
+    b.fit(x, y, epochs=1, batch_size=TRAIN_B, verbose=False)
+    b.fit(x, y, epochs=1, batch_size=TRAIN_B, verbose=False)
+    check(same_params(a, b), "quant (b): two runs from one seed differ")
+    del b
+    base, _ = quant_model()
+    base.fit(x, y, epochs=1, batch_size=TRAIN_B, verbose=False)
+    t0 = time.perf_counter()
+    base.fit(x, y, epochs=1, batch_size=TRAIN_B, verbose=False)
+    torch.cuda.synchronize()
+    t_base = time.perf_counter() - t0
+    _, s = quantize_rows(a.params["emb_stack"]["kernel"].view(-1, w), "int8")
+    drift = float((a.params["emb_stack"]["kernel"]
+                   - base.params["emb_stack"]["kernel"]).abs().max())
+    nrows = a.params["emb_stack"]["kernel"].numel() // w
+    print(f"quant (b): \"cat\" int8 stochastic rounding, {QUANT_STEPS} SGD "
+          f"steps of {TRAIN_B} in {t_sr:.3f} s "
+          f"({1e3 * t_sr / QUANT_STEPS:.3f} ms a step; the same fit at "
+          f"fp32 {1e3 * t_base / QUANT_STEPS:.3f}), one re-quantize "
+          f"launch a step over the whole 2.05 GB table; every row its "
+          f"codes times one scale (code error {fp[0]:.2g}); rows whose "
+          f"largest code is 127 fixed points of nearest quantization "
+          f"({fp[1]:.3g} x 128 ulps), {fp[2]} of {nrows} rows with largest "
+          f"code 126; bitwise across two runs; {2 * QUANT_STEPS} steps from "
+          f"fp32 training's table: {drift:.3g} "
+          f"({drift / float(s.max()):.2f} of the largest code step)")
+    # the graphs a "dot" user trains: the launcher's unfused one (its
+    # stacked table re-quantized) and the fused one, whose table lives in
+    # the fused interaction, no embedding op: no policy, as in the JAX
+    # package
+    for fuse in (False, True):
+        m, dd = quant_model("dot", fuse, **sr)
+        xd, yd = synthetic_batch(dd, TRAIN_B, seed=SEED + 43)
+        n0 = qr_mod.fake_quant_rows.launches
+        m.fit(xd, yd, epochs=1, batch_size=TRAIN_B, verbose=False)
+        n = qr_mod.fake_quant_rows.launches - n0
+        if fuse:
+            check(not m.quant_policies() and n == 0,
+                  f"quant (b): the fused \"dot\" re-quantized ({n})")
+        else:
+            check(n == 1, f"quant (b): unfused \"dot\" launched {n}")
+            check_fixed_point(m.params["emb_stack"]["kernel"], w, "int8",
+                              "unfused \"dot\"")
+        del m
+    # (c) fp8 under stochastic rounding rounds to nearest; master_weight
+    # trains bitwise as fp32
+    m, _ = quant_model(emb_dtype="fp8", emb_update_rule="stochastic_rounding")
+    n0 = qr_mod.fake_quant_rows.routes["nearest"]
+    m.fit({k: v[:TRAIN_B] for k, v in x.items()}, y[:TRAIN_B], epochs=1,
+          batch_size=TRAIN_B, verbose=False)
+    check(qr_mod.fake_quant_rows.routes["nearest"] - n0 == 1,
+          "quant (c): fp8's step did not re-quantize once")
+    fp8 = check_fixed_point(m.params["emb_stack"]["kernel"], w, "fp8",
+                            "fp8 stochastic rounding")
+    del m
+    mw, _ = quant_model(emb_dtype="int8")
+    n0 = qr_mod.fake_quant_rows.launches
+    for _ in range(2):
+        mw.fit(x, y, epochs=1, batch_size=TRAIN_B, verbose=False)
+    check(qr_mod.fake_quant_rows.launches == n0 and same_params(mw, base),
+          "quant (c): master_weight int8 training is not fp32 training")
+    del mw, base
+    torch.cuda.empty_cache()
+    print(f"quant (c): fp8 stochastic rounding one step, a fixed point "
+          f"of nearest fp8 quantization ({fp8[1]:.3g} x 449 ulps); "
+          f"master_weight int8 "
+          f"{2 * QUANT_STEPS} steps bitwise the fp32 run, no re-quantize")
+
+    # (d) a quantized delta publish from (b)'s trainer to an engine
+    from dlrm_flexflow_tpu_torch.serve.watcher import SnapshotWatcher
+    from dlrm_flexflow_tpu_torch.utils.delta import (DeltaPublisher,
+                                                     load_delta_file)
+    from dlrm_flexflow_tpu_torch.utils.weights import rows_from_jax
+    nbytes = _model_bytes(a)
+    check(shutil.disk_usage(work).free >= 3 * nbytes,
+          f"quant (d): too little free disk under {work}")
+    pub = DeltaPublisher(a, str(work), compact_frac=1e9)
+    pub.publish_full()
+    a.fit({k: v[:2 * TRAIN_B] for k, v in x.items()}, y[:2 * TRAIN_B],
+          epochs=1, batch_size=TRAIN_B, verbose=False)
+    entry = pub.publish()
+    check(entry is not None and entry["kind"] == "delta",
+          f"quant (d): the publish was {entry}")
+    payload = load_delta_file(str(work / entry["file"]))
+    key = "params/emb_stack/kernel"
+    idx, q, scales, dt = payload["qrows"][key]
+    check(dt == "int8" and q.dtype == np.int8 and idx.size > 0,
+          f"quant (d): the row payload is {dt} {q.dtype}")
+    server, _ = quant_model(seed=SEED + 1, **sr)
+    engine = InferenceEngine(server, ServeConfig(max_batch=256,
+                                                 warmup=False))
+    check(SnapshotWatcher(engine, str(work)).poll_once(),
+          "quant (d): the engine took no reload")
+    op = server.get_layer_by_name("emb_stack")
+    from dlrm_flexflow_tpu_torch.quant import dequantize_rows_np
+    pidx, pvals = rows_from_jax(op, "kernel", idx,
+                                dequantize_rows_np(q, scales, dt))
+    got = server.params["emb_stack"]["kernel"].view(-1, D)[
+        torch.as_tensor(pidx, device=server.device)].cpu().numpy()
+    check(np.array_equal(got.view(np.uint32),
+                         np.ascontiguousarray(pvals, np.float32)
+                         .view(np.uint32)),
+          "quant (d): the served rows are not the dequantized payload")
+    # the publish quantizes to nearest: a row whose largest code was 126
+    # moves by up to half a code; every other row arrives as trained
+    ka = a.params["emb_stack"]["kernel"].view(-1, w)
+    ks = server.params["emb_stack"]["kernel"].view(-1, w)
+    moved = (ka - ks).abs().amax(dim=1)
+    _, short_rows = quantize_rows(ka, "int8")
+    n_moved = int((moved > 0).sum())
+    half = float((moved / torch.where(short_rows > 0, short_rows,
+                                      torch.ones_like(short_rows))).max())
+    check(half <= 0.5 + 1e-3, f"quant (d): a served row moved {half:.3g} "
+          f"codes from the trainer's")
+    check(all(torch.equal(server.params[op][pn], a.params[op][pn])
+              for op in a.params if op != "emb_stack"
+              for pn in a.params[op]),
+          "quant (d): the engine's dense weights are not the trainer's")
+    feats = synthetic_batch(dcfg, 64, seed=SEED + 44)[0]
+    with engine:
+        got = engine.predict(feats).scores
+    want = server.forward_bucket(feats, bucket=64).cpu().numpy()[:64]
+    check(np.array_equal(np.asarray(got).reshape(-1).view(np.uint32),
+                         np.ascontiguousarray(want.reshape(-1)).view(
+                             np.uint32)),
+          "quant (d): the engine's scores are not its model's")
+    trained = a.forward_bucket(feats, bucket=64).cpu().numpy()[:64]
+    print(f"quant (d): a delta of {idx.size} quantized packed rows "
+          f"({entry['bytes'] / 1e6:.3f} MB, {pub.last_publish}) served "
+          f"bitwise as its dequantized payload; {n_moved} of {ka.shape[0]} "
+          f"served rows differ from the trainer's (largest code 126: at "
+          f"most {half:.3f} of a code); 64 scores bitwise the engine "
+          f"model's forward, within "
+          f"{float(np.abs(np.asarray(got).reshape(-1) - trained.reshape(-1)).max()):.3g} "
+          f"of the trainer's")
+    del a, server, engine
+    torch.cuda.empty_cache()
+    return counts
+
+
+def quant_kernel(dev):
+    """(e) The row kernel against its plain version on the card: both
+    modes at d in QUANT_DS with all-zero rows and rows at +-qmax codes,
+    the "noise" entry and the Philox entry bitwise; each Philox code
+    floor or floor + 1 of x / s and QUANT_DRAWS draws of one row
+    unbiased within QUANT_SIGMAS standard errors; then timed at the
+    "cat" step's shape (its 2.05 GB table, 4,194,304 rows of 128) on the
+    main path's route ("philox") and "nearest", and at Criteo-Kaggle's
+    table, beside the bound and the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    fq, plain = qr_mod.fake_quant_rows, qr_mod.fake_quant_rows_reference
+
+    def rows_with_edges(d):
+        x = torch.randn(QUANT_ROWS, d, device=dev, generator=gen) \
+            * torch.rand(QUANT_ROWS, 1, device=dev, generator=gen)
+        x[0], x[1] = 0.0, -0.0
+        sign = torch.where(torch.arange(d, device=dev) % 2 == 1, 1.0, -1.0)
+        x[2], x[3] = sign * 1.27, sign * 224.0
+        return x
+
+    def same(p, q):
+        return torch.equal(p.view(torch.int32), q.view(torch.int32))
+
+    for d in QUANT_DS:
+        x = rows_with_edges(d)
+        for dt in ("int8", "fp8", "bf16"):
+            k, r = fq(x.clone(), dt), plain(x.clone(), dt)
+            check(same(k, r), f"fake_quant_rows {dt} nearest d={d} differs "
+                  f"from its plain version")
+        u = torch.rand(x.shape, device=dev, generator=gen)
+        check(same(fq(x.clone(), "int8", "stochastic", u=u),
+                   plain(x.clone(), "int8", "stochastic", u=u)),
+              f"fake_quant_rows noise entry d={d} differs")
+        key = dict(seed=SEED + 5, step=3, salt=0x51, row0=77)
+        check(same(fq(x.clone(), "int8", "stochastic", **key),
+                   plain(x.clone(), "int8", "stochastic", **key)),
+              f"fake_quant_rows Philox entry d={d} differs")
+    row = torch.randn(1, 64, device=dev, generator=gen) * 0.02
+    r = fq(row.repeat(QUANT_DRAWS, 1).contiguous(), "int8", "stochastic",
+           seed=SEED, step=1, salt=0x51)
+    s = row.abs().amax() / torch.tensor(127.0, device=dev)
+    codes, want = (r / s).double(), (row / s).double()
+    lo = torch.floor(want)
+    check(bool((((codes - lo).abs() < 1e-3)
+                | ((codes - lo - 1).abs() < 1e-3)).all()),
+          "fake_quant_rows: a stochastic code is neither floor nor floor+1")
+    frac = want - lo
+    se = torch.sqrt(frac * (1 - frac) / QUANT_DRAWS)
+    dev_se = float(((codes.mean(0) - want[0]).abs()
+                    / (se[0] + 1e-6)).max())
+    check(dev_se <= QUANT_SIGMAS, f"fake_quant_rows: the mean of "
+          f"{QUANT_DRAWS} draws is {dev_se:.2f} standard errors off")
+
+    # the main path's shape: "cat"'s stacked table as 128-wide rows
+    table = 0.05 * torch.randn(T * ROWS * D // 128, 128, device=dev,
+                               generator=gen)
+    key = dict(seed=SEED, step=7, salt=0x51)
+    k, r = fq(table.clone(), "int8", "stochastic", **key), \
+        plain(table.clone(), "int8", "stochastic", **key)
+    check(same(k, r), "fake_quant_rows differs from its plain version at "
+          "the \"cat\" table's shape")
+    del k, r
+    nel = table.numel()
+    b_ms, b_by = bound(2 * nel * 4, 6 * nel)
+
+    def event_ms(fn, n=2):
+        """The plain version's wall: events around n back-to-back calls
+        (it is host-bound: ten or more launches a block of rows)."""
+        fn()
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(n):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / n
+
+    dev_ms, call_ms = time_ms(lambda: fq(table, "int8", "stochastic", **key),
+                              [()], iters=20, warmup=2,
+                              what="fake_quant_rows philox")
+    near_ms, _ = time_ms(lambda: fq(table, "int8"), [()], iters=20, warmup=2,
+                         what="fake_quant_rows nearest")
+    p_ms = event_ms(lambda: plain(table, "int8", "stochastic", **key))
+    pn_ms = event_ms(lambda: plain(table, "int8"))
+    row = {"name": "fake_quant_rows", "route": "cuda",
+           "source": "dlrm_flexflow_tpu_torch/csrc/quant_rows.cu",
+           "replaces": "dlrm_flexflow_tpu/quant/codec.py:176",
+           "max_abs_err": 0.0, "bound_ms": b_ms, "bound_by": b_by,
+           "ms": dev_ms, "call_ms": call_ms, "plain_ms": p_ms,
+           "plain_call_ms": p_ms, "library_ms": None,
+           "library_call_ms": None}
+    print_row(row, f" (\"cat\" table {tuple(table.shape)}, philox route; "
+              f"nearest {near_ms:.4f} ms, its plain version {pn_ms:.4f} ms; "
+              f"no one PyTorch call computes it)")
+    del table
+    torch.cuda.empty_cache()
+    # Criteo-Kaggle's concatenated table, stored as 128-wide rows
+    km = FFModel(FFConfig(batch_size=TRAIN_B, device="cuda"))
+    build_dlrm(km, DLRMConfig.criteo_kaggle())
+    op = next(o for o in km.ops if hasattr(o, "total_rows"))
+    from dlrm_flexflow_tpu_torch.ops.embedding import quant_row_width
+    kw = quant_row_width(op)
+    kt = 0.05 * torch.randn(op.total_rows * op.out_dim // kw, kw,
+                            device=dev, generator=gen)
+    k_ms, _ = time_ms(lambda: fq(kt, "int8", "stochastic", **key), [()],
+                      iters=20, warmup=2, what="fake_quant_rows kaggle")
+    kb_ms, _ = bound(2 * kt.numel() * 4, 6 * kt.numel())
+    print(f"kernel fake_quant_rows at Criteo-Kaggle's table "
+          f"{tuple(kt.shape)} ({kt.numel() * 4 / 1e9:.3f} GB): device "
+          f"{k_ms:.4f} ms, bound {kb_ms:.4f} ms (bytes); d={QUANT_DS} "
+          f"bitwise to the plain version in both modes and both entries; "
+          f"{QUANT_DRAWS} draws within {dev_se:.2f} standard errors")
+    del kt, km
+    torch.cuda.empty_cache()
+    return {"fake_quant_rows": row}
+
+
+def quant_phase(dev):
+    """Phase 14. Returns ({"fake_quant_rows": row}, launch counts of (a)
+    and (b)'s main paths)."""
+    counts = two_tower_train()
+    shutil.rmtree(WORK_DIR / "quant", ignore_errors=True)
+    (WORK_DIR / "quant").mkdir(parents=True)
+    try:
+        add_counts(counts, quant_training(WORK_DIR / "quant"))
+    finally:
+        shutil.rmtree(WORK_DIR / "quant", ignore_errors=True)
+    return quant_kernel(dev), counts
+
+
 def main() -> int:
     if sys.argv[1:] == ["--ranker-child"]:
         # one ranker replica of phase 12 (c), a child of this script
@@ -6673,6 +7209,14 @@ def main() -> int:
         criteo_kernels(dev)
         window_kernel(dev, torch.Generator(device=dev).manual_seed(SEED + 13))
         return 0
+    if sys.argv[1:] == ["--quant"]:
+        # only phase 14, its kernels built first
+        build.build_all()
+        rows, counts = quant_phase(dev)
+        rows["fake_quant_rows"]["launches"] = counts.get("fake_quant_rows", 0)
+        print(json.dumps({"launches": {k: v for k, v in counts.items()
+                                       if v}, "kernel": rows}))
+        return 0
     if sys.argv[1:] == ["--shapes"]:
         # only the bag and the interaction at their paths' shapes: what
         # the same script times on another tree of the port
@@ -6702,6 +7246,8 @@ def main() -> int:
     sumsq_row, counts = resilience_phase()
     add(counts)
     add(cascade_phase())
+    quant_rows_row, counts = quant_phase(dev)
+    add(counts)
     add(serving_app_phase())
     add(criteo_phase())
     figures = {}
@@ -6719,6 +7265,7 @@ def main() -> int:
     rows.update(topk_kernel(dev))
     rows.update(lstm_kernels(dev))
     rows.update(dist_rows)
+    rows.update(quant_rows_row)
     torch.cuda.empty_cache()
     for mode in ("cat", "dot"):
         add(serve_phase(mode))

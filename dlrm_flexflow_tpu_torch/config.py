@@ -70,6 +70,17 @@ class FFConfig:
     # after a scatter, never torn. --no-host-tables-async gives exact
     # ordering; --host-tables-async sets the default again.
     host_tables_async: bool = True
+    # model-wide default quantized STORAGE policy of the embedding tables
+    # (quant/: "fp32" | "bf16" | "int8" | "fp8"): int8/fp8 rows store one
+    # fp32 scale per row. A strategy entry's quant_dtype overrides it per
+    # table. Set with --emb-dtype.
+    emb_dtype: str = "fp32"
+    # the update rule under it: "master_weight" trains the exact fp32
+    # master (bitwise fp32 training; the quantized rows ship at storage
+    # boundaries); "stochastic_rounding" re-quantizes every updated table
+    # in the step (unbiased rounding, no master). Set with
+    # --emb-update-rule.
+    emb_update_rule: str = "master_weight"
     # ---- training runtime (FFModel.fit, data/) ------------------------
     # batches staged ahead of the step by the prefetch ring
     # (data/prefetch.py); 0 stages in the training loop. Set with
@@ -275,6 +286,20 @@ class FFConfig:
                         f"--anomaly-policy expects "
                         f"{'|'.join(ANOMALY_POLICIES)}, got {v!r}")
                 kw["anomaly_policy"] = v
+            elif a == "--emb-dtype":
+                v = take()
+                if v not in ("fp32", "bf16", "int8", "fp8"):
+                    raise ValueError(
+                        f"--emb-dtype expects fp32|bf16|int8|fp8, "
+                        f"got {v!r}")
+                kw["emb_dtype"] = v
+            elif a == "--emb-update-rule":
+                v = take()
+                if v not in ("master_weight", "stochastic_rounding"):
+                    raise ValueError(
+                        f"--emb-update-rule expects "
+                        f"master_weight|stochastic_rounding, got {v!r}")
+                kw["emb_update_rule"] = v
             elif a == "--stage-dataset":
                 v = take()
                 if v not in STAGE_MODES:

@@ -63,6 +63,19 @@ touched-rows update, guarded by the sentinel's flag: inline, or on the
 ``ff-scatter`` worker thread (``host_tables_async``), which gathers the
 next step's rows first when the caller passes them (bounded one-step
 staleness) and whose error surfaces at the next ``_host_drain``.
+
+Quantized tables (``quant/``; the JAX step's core/model.py:1219-1290
+there): ``compile`` resolves each table op's storage policy (a strategy
+entry's ``quant_dtype`` / ``quant_update``, else ``--emb-dtype`` /
+``--emb-update-rule``). Training keeps every table as the fp32 image of
+its codes. Under ``master_weight`` nothing in the step changes (bitwise
+fp32 training; the codes are made at storage boundaries). Under
+``stochastic_rounding`` a table starts fake-quantized (nearest) and the
+step re-quantizes every updated table whole after the updates, one
+``fake_quant_rows`` launch a parameter with Philox draws keyed by
+(seed, step, op, parameter), guarded by the sentinel's flag; a host
+table re-quantizes exactly its touched rows after the host scatter,
+with the JAX package's per-step ``RandomState`` (bitwise its host path).
 """
 
 from __future__ import annotations
@@ -78,6 +91,7 @@ from ..config import FFConfig
 from ..data.prefetch import StagedBatch, stage_batch
 from ..obs import trace as obstrace
 from ..ops.kernels.dense_update import grad_sumsq
+from ..quant.codec import fake_quant_np, fake_quant_stochastic_np
 from ..utils import faults
 from ..utils.logging import get_logger
 from . import losses as losses_mod
@@ -385,6 +399,13 @@ class FFModel:
         self._sparse_ops = None
         self.opt_state = None
         self._resolve_host_ops()
+        # the tables' quantized-storage policies (strategy quant_dtype /
+        # --emb-dtype), resolved at every compile as in the JAX package
+        from ..ops.embedding import configure_quant
+        self._quant_policies = {}
+        for op in ops:
+            if hasattr(op, "host_lookup"):
+                configure_quant(op, self.strategies.get(op.name))
         if self._host_resident_list and not isinstance(
                 self.optimizer, (SGDOptimizer, AdamOptimizer)):
             raise ValueError(
@@ -729,8 +750,10 @@ class FFModel:
                 # drawn in host RAM by numpy, as the JAX package draws
                 # them: the same seed gives the same tables
                 host[op.name] = op.host_init(seed + i)
+                self._quant_init_host(op, host[op.name])
             elif not isinstance(op, InputOp) and op.param_defs():
-                params[op.name] = op.init_params(gen, self.device)
+                params[op.name] = self._quant_init_device(
+                    op, op.init_params(gen, self.device))
         self.params = params
         self.host_params = host
         self.host_opt_state = {}
@@ -1302,6 +1325,10 @@ class FFModel:
                                          fwd=emb_fwd[op.name], ok=ok)
             self.optimizer.update({name: self.params[name] for name in gd},
                                   gd, dense_state, ok)
+            # stochastic_rounding: re-quantize every updated table of a
+            # policy op in the step (master_weight trains the exact fp32
+            # master); a step the sentinel skips writes nothing here
+            self._requant_sr_params(ok)
             preds = preds.detach()
             if ("crossentropy" in self.loss_type
                     and self._preds_tensor is self._logits_tensor):
@@ -1503,6 +1530,111 @@ class FFModel:
                     op.host_sgd_update(self.host_params[op.name],
                                        host_idx[op.name],
                                        cts_np[op.name], opt.lr)
+                pol = self._sr_policy_of(op.name)
+                if pol is not None:
+                    # stochastic_rounding: re-quantize exactly the rows
+                    # this scatter touched, with the JAX package's
+                    # per-step RandomState (bitwise its host path)
+                    rows = np.unique(np.asarray(
+                        op.host_delta_touched_rows(host_idx[op.name])))
+                    kern = self.host_params[op.name]["kernel"]
+                    v = kern.reshape(-1, kern.shape[-1])
+                    rng = np.random.RandomState(
+                        (self.config.seed ^ (int(step) * 2654435761))
+                        & 0x7FFFFFFF)
+                    v[rows] = fake_quant_stochastic_np(v[rows], pol.dtype,
+                                                       rng)
+
+    # ------------------------------------------------------------------
+    # quantized embedding storage (quant/)
+    # ------------------------------------------------------------------
+    def quant_policies(self):
+        """The non-default quantized-storage policies ``compile``
+        resolved, {op name: QuantPolicy}: what the training step, the
+        delta publisher, the serving cache and shard tier and the
+        checkpoint manifest read."""
+        return dict(getattr(self, "_quant_policies", {}) or {})
+
+    def _sr_quant_ops(self):
+        """The device-table ops whose policy re-quantizes in the step
+        (stochastic_rounding with a dtype other than fp32), sorted by
+        name: the order that numbers their draws."""
+        hres = {op.name for op in self._host_resident_list}
+        return sorted(
+            (name, pol) for name, pol in self.quant_policies().items()
+            if pol.update_rule == "stochastic_rounding"
+            and pol.dtype != "fp32" and name not in hres)
+
+    def _sr_policy_of(self, op_name: str):
+        pol = self.quant_policies().get(op_name)
+        if pol is None or pol.dtype == "fp32" \
+                or pol.update_rule != "stochastic_rounding":
+            return None
+        return pol
+
+    def _requant_sr_params(self, ok=None):
+        """The step's stochastic-rounding hook: re-quantize, in place,
+        the WHOLE table (``kernel``, and a ``hot_kernel`` where there is
+        one) of every stochastic-rounding op, one ``fake_quant_rows``
+        launch a parameter, over the JAX op's stored rows
+        (``quant_row_width``). Re-quantizing only the touched rows would
+        be another function: the codec's scale moves by an ulp, which
+        moves untouched rows' codes under stochastic rounding. The draws
+        are keyed by (seed, step, 0x51 + 2i + j) for the i-th op and j-th
+        parameter, as the JAX step folds its key; ``ok`` 0 (a step the
+        sentinel skips) writes nothing."""
+        sr = self._sr_quant_ops()
+        if not sr:
+            return
+        from ..ops.embedding import quant_row_width
+        from ..ops.kernels.quant_rows import fake_quant_rows
+        ops = {op.name: op for op in self.ops}
+        for i, (name, pol) in enumerate(sr):
+            if name not in self.params:
+                continue
+            op = ops[name]
+            w = quant_row_width(op)
+            row0 = 0
+            shard = getattr(op, "_shard", None)
+            if shard is not None:
+                # a rank's block of the stacked slots: its rows' global
+                # numbers key the draws
+                row0 = op.local_slots().start * op.num_entries * \
+                    op.out_dim // w
+            for j, pname in enumerate(("kernel", "hot_kernel")):
+                p = self.params[name].get(pname)
+                if p is None:
+                    continue
+                fake_quant_rows(p.view(-1, w), pol.dtype, "stochastic",
+                                seed=int(self.config.seed),
+                                step=int(self._step), salt=0x51 + 2 * i + j,
+                                row0=row0, ok=ok)
+
+    def _quant_init_device(self, op, p):
+        """Under stochastic_rounding training starts from the stored
+        representation: the fresh table is fake-quantized once (nearest)
+        at init. master_weight tables stay exact fp32."""
+        pol = self._sr_policy_of(op.name)
+        if pol is None:
+            return p
+        from ..ops.embedding import quant_row_width
+        from ..ops.kernels.quant_rows import fake_quant_rows
+        w = quant_row_width(op)
+        for n in ("kernel", "hot_kernel"):
+            if n in p:
+                fake_quant_rows(p[n].view(-1, w), pol.dtype, "nearest")
+        return p
+
+    def _quant_init_host(self, op, tbl):
+        """The host table's counterpart of ``_quant_init_device`` (the
+        JAX package's numpy codec, over unpacked rows)."""
+        pol = self._sr_policy_of(op.name)
+        if pol is None or "kernel" not in tbl:
+            return
+        k = tbl["kernel"]
+        tbl["kernel"] = fake_quant_np(
+            k.reshape(-1, k.shape[-1]), pol.dtype).reshape(
+                k.shape).astype(np.float32)
 
 
     def _untrainable_shape(self, exc: BaseException) -> bool:

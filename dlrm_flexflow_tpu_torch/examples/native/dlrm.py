@@ -86,8 +86,6 @@ _UNPORTED = {
                     "7 (multi-GPU)"),
     **dict.fromkeys(("--profiling", "--debug-nans"),
                     "6 (training runtime)"),
-    **dict.fromkeys(("--emb-dtype", "--emb-update-rule"),
-                    "5 (quantization in training)"),
     **dict.fromkeys(("--no-nhwc", "--conv-s2d"), "11 (the zoo)"),
     **dict.fromkeys(("--compile-cache-dir", "--eval-exec-cache"),
                     "9.5 (the warm executable caches)"),

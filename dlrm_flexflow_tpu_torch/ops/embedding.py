@@ -55,6 +55,9 @@ from .kernels.embedding_bag import EmbeddingBagFunction, embedding_bag
 from .kernels.scatter_rows import (scatter_add_rows, scatter_write_rows,
                                    sharded_scatter_add_rows,
                                    stateful_update_rows)
+from ..utils.logging import get_logger
+
+log_emb = get_logger("embedding")
 
 AGGR_MODE_SUM = "sum"
 AGGR_MODE_AVG = "avg"
@@ -877,3 +880,39 @@ class EmbeddingBagConcat(_FlatTableBag):
         sizes = np.asarray(self.table_sizes, np.int64)[None, :, None]
         offs = np.asarray(self._offsets, np.int64)[None, :, None]
         return np.asarray(idx_np).astype(np.int64) % sizes + offs
+
+
+def configure_quant(op, raw_pc) -> None:
+    """Resolve ``op``'s quantized-storage policy (the JAX package's
+    ``configure_quant``): its strategy entry's ``quant_dtype`` /
+    ``quant_update`` win, then the model's ``--emb-dtype`` /
+    ``--emb-update-rule``, then fp32. Sets ``op._quant_policy``, which
+    ``quant.effective_policy`` reads, and registers a non-default
+    policy in ``model._quant_policies`` for the training step, the
+    publisher, the serving tier and the checkpoint manifest."""
+    from ..quant.policy import FP32, policy_from_config, policy_from_pc
+    pol = policy_from_pc(raw_pc) \
+        or policy_from_config(op.model.config) or FP32
+    op._quant_policy = pol
+    reg = getattr(op.model, "_quant_policies", None)
+    if reg is None:
+        reg = op.model._quant_policies = {}
+    if pol.is_default:
+        reg.pop(op.name, None)
+        return
+    reg[op.name] = pol
+    log_emb.info("quantized storage for %r: dtype=%s update_rule=%s",
+                 op.name, pol.dtype, pol.update_rule)
+
+
+def quant_row_width(op) -> int:
+    """The width of the rows the quantization acts on: the rows of the
+    JAX op's STORED table, lane-packed for a stacked or concatenated
+    table (r logical rows of d a row, ``_pack_factor``), so a device
+    table's row scales cover the same values in both packages."""
+    from ..utils.weights import _pack_factor
+    if isinstance(op, EmbeddingBagStacked):
+        return _pack_factor(op.out_dim, op.num_entries) * op.out_dim
+    if isinstance(op, EmbeddingBagConcat):
+        return _pack_factor(op.out_dim, op.total_rows) * op.out_dim
+    return op.out_dim

@@ -34,7 +34,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 KERNELS = ("dense_update", "embedding_bag", "interaction", "lstm",
-           "scatter_rows", "topk")
+           "quant_rows", "scatter_rows", "topk")
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()

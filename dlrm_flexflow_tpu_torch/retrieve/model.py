@@ -11,13 +11,18 @@ One graph, shared op NAMES across heads (``head=``), so weights move
 between heads by name (``transfer_tower_params``) and from the JAX
 package by name (``utils.weights.params_from_jax``):
 
+  train : both towers      -> (B, B) in-batch logits (row b scores user
+          b against every item of the batch; the diagonal is the
+          positive), trained with ``sparse_categorical_crossentropy``
+          against ``in_batch_labels`` (the in-batch sampled softmax)
   user  : user inputs only -> (B, d) user embeddings (query encoder)
   item  : item ids only    -> (B, d) item embeddings (index builder)
 
-Not ported yet: the ``train`` head (in-batch logits through
-``BatchMatmul``, which is ported, and the in-batch sampled softmax
-cross-entropy, ROADMAP queue 1 item 10.2) and the self-attention over
-the user features (``attention_heads > 0``, queue 1 item 11).
+``synthetic_two_tower_batch`` draws the JAX package's batches (the same
+numpy ``RandomState`` draws, so bitwise the same arrays) and
+``two_tower_strategy`` its strategy. Not ported yet: the self-attention
+over the user features (``attention_heads > 0``, ROADMAP queue 1 item
+11).
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Dict, List, Tuple
 
+import numpy as np
 import torch
 
 from ..core.initializers import UniformInitializer
@@ -104,27 +110,75 @@ def _item_tower(model: FFModel, cfg: TwoTowerConfig, batch: int):
 
 def build_two_tower(model: FFModel, cfg: TwoTowerConfig,
                     head: str = "train") -> Tuple[Dict[str, tuple], object]:
-    """Build one serving head of the two-tower graph on ``model``.
-    Returns (input_specs, output_tensor) like ``build_dlrm``."""
+    """Build one head of the two-tower graph on ``model``. Returns
+    (input_specs, output_tensor) like ``build_dlrm``."""
     if head not in ("train", "user", "item"):
         raise ValueError(f"build_two_tower: unknown head {head!r} "
                          f"(train|user|item)")
-    if head == "train":
-        raise NotImplementedError(
-            "the two-tower 'train' head (in-batch logits through "
-            "BatchMatmul into the sparse softmax cross-entropy) is not "
-            "ported yet (ROADMAP queue 1 item 10.2)")
     T = len(cfg.user_embedding_size)
     if cfg.attention_heads > 0 and T > 1:
         raise NotImplementedError(
             "the user tower's self-attention (attention_heads > 0) is not "
             "ported yet (ROADMAP queue 1 item 11)")
     batch = model.config.batch_size
+    user_inputs = {"user_dense": (batch, cfg.user_dense_dim),
+                   "user_sparse": (batch, T, cfg.user_bag_size)}
     if head == "user":
-        return ({"user_dense": (batch, cfg.user_dense_dim),
-                 "user_sparse": (batch, T, cfg.user_bag_size)},
-                _user_tower(model, cfg, batch))
-    return {"item_ids": (batch, 1)}, _item_tower(model, cfg, batch)
+        return dict(user_inputs), _user_tower(model, cfg, batch)
+    if head == "item":
+        return {"item_ids": (batch, 1)}, _item_tower(model, cfg, batch)
+    u = _user_tower(model, cfg, batch)
+    v = _item_tower(model, cfg, batch)
+    # (B, d) x (B, d) -> (B, B) in-batch logits: row b scores user b
+    # against every in-batch item (the diagonal is the positive)
+    u3 = model.reshape(u, (1, batch, cfg.dim), name="logits_u3")
+    v3 = model.reshape(v, (1, batch, cfg.dim), name="logits_v3")
+    z = model.batch_matmul(u3, v3, trans_a=False, trans_b=True,
+                           name="logits_bmm")
+    logits = model.reshape(z, (batch, batch), name="logits")
+    inputs = dict(user_inputs)
+    inputs["item_ids"] = (batch, 1)
+    return inputs, logits
+
+
+def in_batch_labels(batch: int) -> np.ndarray:
+    """Labels of the in-batch sampled softmax: row b's positive is
+    column b."""
+    return np.arange(batch, dtype=np.int32).reshape(batch, 1)
+
+
+def synthetic_two_tower_batch(cfg: TwoTowerConfig, batch: int,
+                              seed: int = 0, zipf_alpha: float = 0.0):
+    """Synthetic (inputs, labels) for one train-head batch, the JAX
+    package's draws from ``RandomState(seed)``: item ids zipf-skewed,
+    and user features that carry a signal of the positive item, so
+    training moves recall."""
+    from ..data.dataloader import zipf_indices
+    rng = np.random.RandomState(seed)
+    T = len(cfg.user_embedding_size)
+    items = zipf_indices(rng, cfg.n_items, (batch, 1),
+                         zipf_alpha).astype(np.int32)
+    dense = rng.rand(batch, cfg.user_dense_dim).astype(np.float32)
+    # the planted signal: dense feature 0 tracks the positive's id
+    dense[:, 0] = items[:, 0].astype(np.float32) / float(cfg.n_items)
+    sparse = np.stack(
+        [(items[:, 0] * (t + 3)) % rows
+         for t, rows in enumerate(cfg.user_embedding_size)],
+        axis=1).astype(np.int32)[:, :, None]
+    sparse = np.broadcast_to(
+        sparse, (batch, T, cfg.user_bag_size)).copy()
+    inputs = {"user_dense": dense, "user_sparse": sparse,
+              "item_ids": items}
+    return inputs, in_batch_labels(batch)
+
+
+def two_tower_strategy(model: FFModel, num_devices: int,
+                       row_shard: bool = False):
+    """The strategy of any two-tower head: ``dlrm_strategy``'s table and
+    data-parallel rules never read the DLRM config, so the same
+    generator covers this graph (over the ranks it takes)."""
+    from ..models.dlrm import dlrm_strategy
+    return dlrm_strategy(model, None, num_devices, row_shard=row_shard)
 
 
 def transfer_tower_params(src: FFModel, dst: FFModel) -> int:

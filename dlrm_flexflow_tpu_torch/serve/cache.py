@@ -20,9 +20,12 @@ Invalidation has two granularities:
   table rows it was gathered from (``op.host_delta_touched_rows``), so
   the hot working set survives a delta that rewrote cold rows.
 
-The JAX package's quantized cache values (codes + row scales under a
-storage policy) are ROADMAP queue 1 item 5 and raise here; its
-``make_lock`` (a checked lock) is item 12, so the lock is a plain one.
+Under a quantized storage policy (``quant``: {op name: "int8"|"fp8"})
+an op's entries hold codes and row scales (about 4x more entries a MB)
+and dequantize on every hit; ``insert`` returns the miss values through
+the same codec, so a hit and the miss that filled it return the same
+rows bitwise. The JAX package's ``make_lock`` (a checked lock) is
+ROADMAP item 12, so the lock is a plain one.
 """
 
 from __future__ import annotations
@@ -42,25 +45,34 @@ class EmbeddingCache:
     def __init__(self, capacity: int, quant: Optional[Dict[str, str]] = None):
         if capacity < 1:
             raise ValueError(f"cache capacity must be >= 1, got {capacity}")
-        if quant:
-            raise NotImplementedError(
-                "quantized cache values (codes + row scales under a "
-                "storage policy) are not ported yet (ROADMAP queue 1 "
-                "item 5)")
         self.capacity = int(capacity)
-        # key -> (value, the host-table rows it was gathered from | None)
-        self._d: "OrderedDict[tuple, Tuple[np.ndarray, object]]" = \
+        # key -> (value, the host-table rows it was gathered from | None);
+        # a quantized op's value is (codes, scales, dtype)
+        self._d: "OrderedDict[tuple, Tuple[object, object]]" = \
             OrderedDict()
+        # op name -> storage dtype: those ops' entries store quantized
+        self.quant = dict(quant or {})
         self._lock = threading.Lock()
         self.hits = 0
         self.misses = 0
         self.invalidations = 0
         self.row_invalidations = 0
 
+    @staticmethod
+    def _thaw(stored) -> np.ndarray:
+        """A stored value as fp32 rows (dequantized when quantized)."""
+        if isinstance(stored, tuple):
+            from ..quant.codec import dequantize_rows_np
+            return dequantize_rows_np(*stored)
+        return stored
+
     def stored_bytes(self) -> int:
-        """Bytes the cached values occupy."""
+        """Bytes the cached values occupy (codes and scales when
+        quantized)."""
         with self._lock:
-            return int(sum(v.nbytes for v, _ in self._d.values()))
+            return int(sum(v[0].nbytes + v[1].nbytes
+                           if isinstance(v, tuple) else v.nbytes
+                           for v, _ in self._d.values()))
 
     def probe(self, op, idx_np: np.ndarray):
         """The read half of :meth:`lookup` over a batch: ``(vals, miss)``,
@@ -78,7 +90,7 @@ class EmbeddingCache:
                     miss.append(i)
                 else:
                     self._d.move_to_end(key)
-                    vals[i] = hit[0]
+                    vals[i] = self._thaw(hit[0])
             self.hits += rows - len(miss)
             self.misses += len(miss)
         return vals, miss
@@ -90,8 +102,14 @@ class EmbeddingCache:
         out samples that must NOT be cached: the shard tier passes False
         for samples assembled from degraded default rows, so an outage
         never outlives itself as cache entries. Returns the values
-        callers hand out."""
+        callers hand out: under a quantized policy the codec's image of
+        ``sub``, so a later hit returns the same rows bitwise."""
         sub = np.asarray(sub)
+        dt = self.quant.get(op.name)
+        if dt:
+            from ..quant.codec import dequantize_rows_np, quantize_rows_np
+            q_all, s_all = quantize_rows_np(np.asarray(sub, np.float32), dt)
+            sub = dequantize_rows_np(q_all, s_all, dt)
         # the host rows each missed sample read, so a delta invalidates
         # only the samples a rewritten row feeds (None: drop on any)
         deps = {}
@@ -104,7 +122,10 @@ class EmbeddingCache:
                 if ok is not None and not ok[j]:
                     continue
                 key = (op.name, idx_np[i].tobytes())
-                self._d[key] = (np.ascontiguousarray(sub[j]), deps.get(i))
+                stored = ((np.ascontiguousarray(q_all[j]),
+                           np.ascontiguousarray(s_all[j]), dt) if dt
+                          else np.ascontiguousarray(sub[j]))
+                self._d[key] = (stored, deps.get(i))
                 self._d.move_to_end(key)
             while len(self._d) > self.capacity:
                 self._d.popitem(last=False)

@@ -205,7 +205,12 @@ class InferenceEngine:
         # the row cache applies to host-resident tables only
         self._cache: Optional[EmbeddingCache] = None
         if self.config.cache_rows > 0 and model._host_resident_list:
-            self._cache = EmbeddingCache(self.config.cache_rows)
+            # a quantized policy's entries hold codes + row scales
+            quant = {name: pol.dtype
+                     for name, pol in model.quant_policies().items()
+                     if pol.is_quantized}
+            self._cache = EmbeddingCache(self.config.cache_rows,
+                                         quant=quant)
         self._checkpoint_dir = checkpoint_dir
         self._watcher = None
         self._q: "deque[_Request]" = deque()

@@ -223,8 +223,10 @@ def _tier_layout(model, nshards: int) -> Dict[str, Any]:
     """Slice ``model``'s host tables into the tier's static layout:
     per-op slot ranges, flat row counts, row widths, per-table bounds and
     default (mean) rows, the per-slot row blocks and the model's
-    fingerprint. The JAX package's quantized-storage map is empty here:
-    storage policies are ROADMAP queue 1 item 5."""
+    fingerprint, and the quantized-storage map: a policy op's tables are
+    taken through the codec (``fake_quant_np``) first, so its defaults
+    and blocks are the dequantized image every lookup serves, and its
+    shards store the blocks as codes + row scales."""
     host_ops = model._host_resident_list
     if not host_ops:
         raise ValueError(
@@ -240,10 +242,15 @@ def _tier_layout(model, nshards: int) -> Dict[str, Any]:
     dims: Dict[str, int] = {}
     slot_blocks: List[Dict[str, np.ndarray]] = [dict()
                                                 for _ in range(nshards)]
+    qmap = {name: pol.dtype for name, pol in model.quant_policies().items()
+            if pol.is_quantized}
+    from ..quant.codec import fake_quant_np
     for op in host_ops:
         kern = model.host_params[op.name]["kernel"]
         flat = np.ascontiguousarray(kern.reshape(-1, kern.shape[-1]),
                                     np.float32)
+        if op.name in qmap:
+            flat = fake_quant_np(flat, qmap[op.name])
         R = int(flat.shape[0])
         ranges = shard_row_ranges(R, nshards)
         ranges_by_op[op.name] = ranges
@@ -267,7 +274,7 @@ def _tier_layout(model, nshards: int) -> Dict[str, Any]:
         "bounds": bounds,
         "dims": dims,
         "slot_blocks": slot_blocks,
-        "qmap": {},
+        "qmap": qmap,
         "fingerprint": config_fingerprint(model),
     }
 
@@ -315,9 +322,12 @@ class EmbeddingShard:
         self.sid = int(sid)
         self.slot = int(slot)
         self.domain = domain
-        # ops whose block is a QuantTable (the index's "int8")
+        # ops whose block is a QuantTable (codes + row scales: a table
+        # under a quantized storage policy, the index's "int8"); their
+        # lookups ship the codes and the ranker dequantizes
         self.quant = dict(quant or {})
-        self._blocks = {k: self._wrap_block(v) for k, v in blocks.items()}
+        self._blocks = {k: self._wrap_block(k, v)
+                        for k, v in blocks.items()}
         self._ranges = {k: (int(lo), int(hi))
                         for k, (lo, hi) in ranges.items()}
         self._lock = threading.Lock()
@@ -334,11 +344,15 @@ class EmbeddingShard:
         self._index_ops: set = set()
         self._prev_index: Dict[str, Tuple[QuantTable, int]] = {}
 
-    @staticmethod
-    def _wrap_block(arr):
-        """A QuantTable stays as it is; table rows become fp32 numpy."""
+    def _wrap_block(self, op_name: str, arr):
+        """A QuantTable stays as it is (a warm-cache boot); a policy op's
+        fp32 rows are quantized on the CPU; other rows become fp32
+        numpy."""
         if isinstance(arr, QuantTable):
             return arr
+        dt = self.quant.get(op_name)
+        if dt:
+            return QuantTable.from_dense(np.asarray(arr, np.float32), dt)
         return np.ascontiguousarray(arr, np.float32)
 
     @property
@@ -540,7 +554,8 @@ class EmbeddingShard:
                 if k not in self._ranges:
                     raise ValueError(f"shard {self.sid} owns no range "
                                      f"of {k!r}")
-            new_blocks = {k: self._wrap_block(v) for k, v in blocks.items()}
+            new_blocks = {k: self._wrap_block(k, v)
+                          for k, v in blocks.items()}
             for k in self._index_ops:
                 if k not in new_blocks and k in self._blocks:
                     new_blocks[k] = self._blocks[k]
@@ -711,7 +726,8 @@ class EmbeddingShardSet:
             shard = EmbeddingShard(
                 slot, slot, lay["slot_blocks"][slot],
                 {name: ranges_by_op[name][slot] for name in ranges_by_op},
-                version=lay["version"], domain=domains[slot])
+                version=lay["version"], domain=domains[slot],
+                quant=lay["qmap"])
             shards.append(ShardReplica(shard))
         out = cls(shards, config, ranges_by_op, lay["flat_rows"],
                   lay["defaults"], lay["bounds"], lay["dims"],
@@ -736,9 +752,14 @@ class EmbeddingShardSet:
         config = config or ShardTierConfig(nshards=nshards)
         lay = _tier_layout(model, nshards)
         cache = ShardCache(cache_dir, fingerprint=lay["fingerprint"])
+        qmap = lay["qmap"]
         for slot in range(nshards):
-            cache.put(nshards, slot, lay["slot_blocks"][slot],
-                      lay["version"], 0)
+            # the representation a live shard holds: a policy op's block
+            # as codes + scales (the codes of the fake-quantized slice)
+            blocks = {k: (QuantTable.from_dense(v, qmap[k]) if k in qmap
+                          else v)
+                      for k, v in lay["slot_blocks"][slot].items()}
+            cache.put(nshards, slot, blocks, lay["version"], 0)
         cache.put_meta(nshards, _layout_meta(lay, nshards,
                                              _domains(config, nshards)))
         return cache
@@ -1342,7 +1363,8 @@ class EmbeddingShardSet:
             sid, slot, blocks,
             {name: self._ranges[name][slot] for name in self._ranges},
             version=ver, chain_crc=chain_crc,
-            domain=old.shard.domain if old is not None else "")
+            domain=old.shard.domain if old is not None else "",
+            quant=self._quant)
         if self._index_op is not None:
             shard._index_ops.add(self._index_op)
             shard.quant[self._index_op] = "int8"
@@ -1518,15 +1540,25 @@ def serving_footprint(model, replicas: int, nshards: int = 0,
     ranker replica and (sharded) one lookup shard must hold. A replicated
     fleet's replicas each hold every table; the sharded tier's rankers
     hold the dense parameters, and each shard ~1/nshards of the tables.
-    Tables count at fp32 (quantized storage is item 5)."""
+    Tables count at their stored bytes under their storage policy
+    (``quant.param_storage_bytes``: int8 rows and fp32 row scales, not
+    the trainer's fp32 master), over the JAX op's stored (lane-packed)
+    shapes, as the JAX package prices them."""
     from ..core.op import InputOp
+    from ..ops.embedding import quant_row_width
+    from ..quant.policy import param_storage_bytes
     dense = 0
     tables = 0
     for op in model.ops:
         if isinstance(op, InputOp) or not op.param_defs():
             continue
         if hasattr(op, "host_lookup"):
-            tables += _param_bytes(op)
+            # the stored rows: (numel / w, w), w the packed row width
+            w = quant_row_width(op)
+            shapes = {n: ((int(np.prod(d.shape)) // w, w)
+                          if n == "kernel" else tuple(d.shape))
+                      for n, d in op.param_defs().items()}
+            tables += int(param_storage_bytes(op, None, shapes))
         else:
             dense += _param_bytes(op)
     if ranker_holds_tables is None:

@@ -113,6 +113,16 @@ def _model_flat(model, copy_host: bool = True) -> Dict[str, np.ndarray]:
     return flat
 
 
+def mesh_meta(model) -> Dict[str, Any]:
+    """The manifest entry's ``"mesh"`` (the JAX manager's ``mesh_meta``
+    key): here ``"quant"``, the non-default storage policies ``compile``
+    resolved ({op: {"dtype", "update_rule"}}), which the JAX package's
+    shardcheck compares a strategy file against; empty without one."""
+    quant = {name: {"dtype": pol.dtype, "update_rule": pol.update_rule}
+             for name, pol in model.quant_policies().items()}
+    return {"quant": quant} if quant else {}
+
+
 def _write_npz_atomic(path: str, flat: Dict[str, np.ndarray],
                       timings: Optional[Dict[str, float]] = None) -> int:
     """Write `flat` to `path` atomically; returns the file's CRC-32. The
@@ -401,7 +411,8 @@ class CheckpointManager:
         step = int(model._step)
         flat, stats = self._snapshot(model)
         self._write_snapshot(flat, step, config_fingerprint(model),
-                             dict(loader_state or {}), stats)
+                             dict(loader_state or {}), stats,
+                             mesh_meta(model))
 
     def save_async(self, model,
                    loader_state: Optional[Dict[str, Any]] = None):
@@ -413,10 +424,11 @@ class CheckpointManager:
         flat, stats = self._snapshot(model)
         fp = config_fingerprint(model)
         state = dict(loader_state or {})
+        mmeta = mesh_meta(model)
 
         def work():
             try:
-                self._write_snapshot(flat, step, fp, state, stats)
+                self._write_snapshot(flat, step, fp, state, stats, mmeta)
             except BaseException as e:   # raised at wait()/next save
                 self._thread_exc = e
 
@@ -437,7 +449,9 @@ class CheckpointManager:
 
     def _write_snapshot(self, flat, step: int, fingerprint: str,
                         loader_state: Dict[str, Any],
-                        stats: Dict[str, float]) -> Dict[str, Any]:
+                        stats: Dict[str, float],
+                        mesh: Optional[Dict[str, Any]] = None
+                        ) -> Dict[str, Any]:
         fname = f"ckpt-{step:08d}.npz"
         path = os.path.join(self.directory, fname)
         t0 = time.perf_counter()
@@ -446,6 +460,8 @@ class CheckpointManager:
         entry = {"file": fname, "step": step, "crc32": crc,
                  "fingerprint": fingerprint, "time": time.time(),
                  "loader_state": loader_state}
+        if mesh:
+            entry["mesh"] = mesh      # mesh_meta(): degrees, quant
         with self._manifest_lock:
             manifest = self._read_manifest()
             manifest["entries"] = [e for e in manifest["entries"]

@@ -36,8 +36,12 @@ touched-rows-only), and ``FFModel.apply_delta`` writes them in place.
 The serving shard tier routes a delta per shard
 (:func:`split_host_rows_by_shard`, :func:`shard_slice_crc`,
 :func:`shard_chain_crc`; the CRCs equal the JAX package's integer for
-integer). Quantized row payloads (ROADMAP queue 1 item 5) are refused
-when written and rejected when loaded.
+integer). Under a quantized storage policy (``quant/``) a table's row
+payloads ship as codes and per-row fp32 scales (``rows/`` at one byte a
+value, ``scl/``, ``qdt/`` the dtype, ``sbd/`` the publish-time bound of
+the scales), as the JAX package writes them; the loader validates the
+scales (a corrupt one is a ``ChainError``, never served; the
+``FF_FAULT_QUANT_SCALE`` hook drills it) and dequantizes.
 """
 
 from __future__ import annotations
@@ -54,7 +58,8 @@ from ..obs import metrics as obsm
 from ..obs import trace as obstrace
 from . import faults
 from .checkpoint import (CheckpointManager, _file_crc32, _flatten,
-                         _write_npz_atomic, config_fingerprint, read_npz)
+                         _write_npz_atomic, config_fingerprint, mesh_meta,
+                         read_npz)
 from .logging import get_logger
 from .weights import params_to_jax, rows_from_jax
 
@@ -229,11 +234,15 @@ def write_delta_file(path: str, step: int, prev_step: int, base_step: int,
     """Atomically write one delta npz; returns its CRC-32. The
     publish-abort injection fires before the rename (the mid-publish
     crash window), the torn-delta injection truncates after it.
-    ``timings`` receives the write's and the checksum's seconds."""
-    if quant:
-        raise NotImplementedError(
-            "quantized delta payloads (codes + row scales) are not ported "
-            "yet (ROADMAP queue 1 item 5)")
+    ``timings`` receives the write's and the checksum's seconds.
+
+    ``quant`` maps flat keys to a quantized dtype: those keys' row
+    payloads ship as codes + per-row fp32 scales (``rows/`` the codes,
+    fp8 as uint8 bit patterns, ``scl/`` the scales, ``qdt/`` the dtype,
+    ``sbd/`` the largest scale, the bound the loader checks). Other keys
+    keep the fp32 layout, so an unquantized model writes the same file
+    as before."""
+    from ..quant.codec import quantize_rows_np
     flat: Dict[str, np.ndarray] = {
         "meta/step": np.asarray(step, np.int64),
         "meta/prev_step": np.asarray(prev_step, np.int64),
@@ -241,7 +250,16 @@ def write_delta_file(path: str, step: int, prev_step: int, base_step: int,
     }
     for key, (idx, vals) in rows.items():
         flat[f"idx/{key}"] = idx
-        flat[f"rows/{key}"] = vals
+        dt = (quant or {}).get(key)
+        if dt:
+            q, scales = quantize_rows_np(vals, dt)
+            flat[f"rows/{key}"] = q
+            flat[f"scl/{key}"] = scales
+            flat[f"qdt/{key}"] = np.asarray(dt)
+            flat[f"sbd/{key}"] = np.asarray(
+                float(scales.max()) if scales.size else 0.0, np.float32)
+        else:
+            flat[f"rows/{key}"] = vals
     for key, v in full.items():
         flat[f"full/{key}"] = v
     faults.maybe_abort_publish(path)
@@ -252,27 +270,48 @@ def write_delta_file(path: str, step: int, prev_step: int, base_step: int,
 
 def load_delta_file(path: str) -> Dict[str, Any]:
     """Read a delta npz (the port's or the JAX package's) into an
-    ``apply_delta`` payload of host arrays. A quantized payload is a
-    :class:`ChainError` (ROADMAP queue 1 item 5): the watcher falls back
-    to the newest full snapshot."""
+    ``apply_delta`` payload of host arrays.
+
+    Quantized row payloads are validated first (scales finite,
+    non-negative and within the publish-time bound: a corrupt scale is a
+    :class:`ChainError`, and the watcher falls back to the newest valid
+    full snapshot instead of serving amplified rows), then dequantized
+    into ``rows``; the codes and scales stay under ``qrows`` ({key:
+    (idx, codes, scales, dtype)}, fp8 codes as uint8 bit patterns) for
+    the consumers that store them quantized."""
+    from ..quant.codec import dequantize_rows_np, validate_scales
     rows: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
+    qrows: Dict[str, Tuple[np.ndarray, np.ndarray, np.ndarray, str]] = {}
     full: Dict[str, np.ndarray] = {}
     data = read_npz(path)
     for k in data:
-        if k.startswith("scl/"):
-            raise ChainError(
-                f"delta {os.path.basename(path)} holds quantized row "
-                f"payloads ({k[len('scl/'):]}); quantized deltas are not "
-                f"ported yet (ROADMAP queue 1 item 5)")
         if k.startswith("idx/"):
             key = k[len("idx/"):]
-            rows[key] = (data[k], data[f"rows/{key}"])
+            vals = data[f"rows/{key}"]
+            if f"scl/{key}" in data:
+                dt = str(data[f"qdt/{key}"])
+                scales = faults.maybe_corrupt_quant_scale(
+                    key, data[f"scl/{key}"])
+                bound = (float(data[f"sbd/{key}"])
+                         if f"sbd/{key}" in data else None)
+                try:
+                    validate_scales(key, scales, bound)
+                except ValueError as e:
+                    raise ChainError(str(e)) from None
+                q = np.ascontiguousarray(vals).view(
+                    np.uint8 if dt == "fp8" else np.int8)
+                qrows[key] = (data[k], q, scales, dt)
+                vals = dequantize_rows_np(q, scales, dt)
+            rows[key] = (data[k], vals)
         elif k.startswith("full/"):
             full[k[len("full/"):]] = data[k]
-    return {"step": int(data["meta/step"]),
-            "prev_step": int(data["meta/prev_step"]),
-            "base_step": int(data["meta/base_step"]),
-            "rows": rows, "full": full}
+    out = {"step": int(data["meta/step"]),
+           "prev_step": int(data["meta/prev_step"]),
+           "base_step": int(data["meta/base_step"]),
+           "rows": rows, "full": full}
+    if qrows:
+        out["qrows"] = qrows
+    return out
 
 
 def stage_delta_rows(model, payload: Dict[str, Any]) -> Dict[str, Any]:
@@ -503,12 +542,6 @@ class DeltaPublisher:
         if compact_frac <= 0:
             raise ValueError(
                 f"compact_frac must be > 0, got {compact_frac}")
-        pols = (getattr(model, "quant_policies", dict)() or {}).values()
-        if any(getattr(p, "is_quantized", False) for p in pols):
-            raise NotImplementedError(
-                "DeltaPublisher over a quantized storage policy (row "
-                "payloads as codes + scales) is not ported yet (ROADMAP "
-                "queue 1 item 5)")
         self.model = model
         self.mgr = manager or CheckpointManager(directory,
                                                 keep_last=keep_last)
@@ -517,6 +550,15 @@ class DeltaPublisher:
         self.max_chain = int(max_chain)
         self.row_delta_min_elems = int(row_delta_min_elems)
         self.tracker = TouchedRowTracker(model)
+        # the flat keys whose row payloads publish as codes + row scales
+        # (a quantized storage policy); empty for an unquantized model
+        self._quant_keys: Dict[str, str] = {}
+        for op_name, pol in model.quant_policies().items():
+            if pol.is_quantized:
+                for sec in ("params", "hostparams"):
+                    for pname in ("kernel", "hot_kernel"):
+                        self._quant_keys[f"{sec}/{op_name}/{pname}"] = \
+                            pol.dtype
         # candidates are trustworthy only if the tracker saw every batch
         # trained after this point (fit_stream observes at staging time)
         self._track_origin = int(model._step)
@@ -593,7 +635,8 @@ class DeltaPublisher:
         step = int(model._step)
         flat, stats = self.mgr._snapshot(model)
         entry = self.mgr._write_snapshot(
-            flat, step, self._fingerprint, dict(loader_state or {}), stats)
+            flat, step, self._fingerprint, dict(loader_state or {}), stats,
+            mesh_meta(model))
         removed = self.mgr.reset_deltas()
         if removed:
             log_delta.info("retired %d delta(s) of the previous chain",
@@ -678,7 +721,7 @@ class DeltaPublisher:
             path = os.path.join(self.mgr.directory, fname)
             crc = write_delta_file(path, step, self._last_step,
                                    self._base_step, rows, full,
-                                   timings=parts)
+                                   quant=self._quant_keys, timings=parts)
         except (IOError, OSError) as e:
             # the atomic writer left no torn file and the manifest never
             # saw an entry; the next delta covers this interval's rows

@@ -101,11 +101,14 @@ or from the environment (read once, at the first hook call):
   probability 0.3 (a seeded draw); ``FF_FAULT_NET_DUP=seam:n``,
   ``FF_FAULT_NET_REORDER=seam:n`` duplicate or reorder the seam's next
   n frames; ``FF_FAULT_NET_SLOW=seam:ms`` adds ms to every frame
+- ``FF_FAULT_QUANT_SCALE=emb:1e3`` multiply op ``emb``'s quantized-row
+  scales by 1e3 as the next payload of it loads (a delta's rows, a warm
+  cache entry; consume-once per op): the load must reject it
 
 The JAX package's other hooks (device loss and return, the stalled
-collective, quantized-scale and sketch faults) wait for the modules they
-drive (ROADMAP queue 1 items 5, 7 and 8): their ``FF_FAULT_*`` keys, and
-unknown ones, are a warning here, never a silent no-op. A malformed
+collective, sketch faults) wait for the modules they drive (ROADMAP
+queue 1 items 7 and 8): their ``FF_FAULT_*`` keys, and unknown ones,
+are a warning here, never a silent no-op. A malformed
 value raises ``ValueError`` naming the variable.
 """
 
@@ -200,6 +203,10 @@ class FaultPlan:
     net_dup: Dict[str, int] = field(default_factory=dict)
     net_reorder: Dict[str, int] = field(default_factory=dict)
     net_slow_ms: Dict[str, float] = field(default_factory=dict)
+    # op name -> scale factor: the next quantized payload of that op to
+    # load has its row scales multiplied by it (consume-once per op);
+    # quant.codec.validate_scales must reject it
+    quant_scale: Dict[str, float] = field(default_factory=dict)
     # record of (hook, detail) actually fired, for test assertions
     fired: List[tuple] = field(default_factory=list)
 
@@ -237,14 +244,14 @@ _ENV_REPLICA_KEYS = ("FF_FAULT_SERVE_DELAY", "FF_FAULT_REPLICA_DOWN")
 _ENV_NET_KEYS = ("FF_FAULT_NET_DROP", "FF_FAULT_NET_DUP",
                  "FF_FAULT_NET_REORDER", "FF_FAULT_NET_SLOW")
 _ENV_KEYS = ("FF_FAULT_NAN_STEPS", "FF_FAULT_WRITE_DELAY",
-             "FF_FAULT_IO_ERRORS", "FF_FAULT_FEEDBACK_LOSS") \
+             "FF_FAULT_IO_ERRORS", "FF_FAULT_FEEDBACK_LOSS",
+             "FF_FAULT_QUANT_SCALE") \
     + tuple(_ENV_BUDGETS) + _ENV_SHARD_KEYS + _ENV_REPLICA_KEYS \
     + _ENV_NET_KEYS
 # keys of the JAX package's plan whose hooks are not ported yet
 _UNPORTED_ENV_KEYS = (
     "FF_FAULT_DROP_DEVICE", "FF_FAULT_RETURN_DEVICE",
-    "FF_FAULT_STALL_COLLECTIVE", "FF_FAULT_QUANT_SCALE",
-    "FF_FAULT_SKETCH_SKEW")
+    "FF_FAULT_STALL_COLLECTIVE", "FF_FAULT_SKETCH_SKEW")
 # the serving seams the transport tags its frames with; an unknown seam
 # head would parse and inject nothing, so the parser refuses it
 NET_SEAMS = ("lookup", "dispatch", "publish", "manifest", "any")
@@ -329,7 +336,7 @@ def plan_from_env() -> Optional[FaultPlan]:
         if k in _UNPORTED_ENV_KEYS:
             log_faults.warning(
                 "%s is set but its hook is not ported yet (ROADMAP queue "
-                "1 items 5, 7 and 8); it injects nothing here", k)
+                "1 items 7 and 8); it injects nothing here", k)
         else:
             log_faults.warning("unknown fault variable %s ignored; known: "
                                "%s", k, list(_ENV_KEYS))
@@ -337,11 +344,13 @@ def plan_from_env() -> Optional[FaultPlan]:
     delay = os.environ.get("FF_FAULT_WRITE_DELAY", "")
     ioerrs = os.environ.get("FF_FAULT_IO_ERRORS", "")
     feedback_loss = os.environ.get("FF_FAULT_FEEDBACK_LOSS", "")
+    quant_scale = os.environ.get("FF_FAULT_QUANT_SCALE", "")
     budgets = {k: os.environ.get(k, "") for k in _ENV_BUDGETS}
     shard = {k: os.environ.get(k, "") for k in _ENV_SHARD_KEYS}
     replica = {k: os.environ.get(k, "") for k in _ENV_REPLICA_KEYS}
     net = {k: os.environ.get(k, "") for k in _ENV_NET_KEYS}
-    if not any((nan, delay, ioerrs, feedback_loss, *budgets.values(),
+    if not any((nan, delay, ioerrs, feedback_loss, quant_scale,
+                *budgets.values(),
                 *shard.values(), *replica.values(), *net.values())):
         return None
     plan = FaultPlan()
@@ -421,6 +430,19 @@ def plan_from_env() -> Optional[FaultPlan]:
     if net["FF_FAULT_NET_SLOW"]:
         plan.net_slow_ms = _env_seam_pairs(
             "FF_FAULT_NET_SLOW", net["FF_FAULT_NET_SLOW"], _env_float)
+    for part in quant_scale.split(","):
+        # 'op:factor': op names are strings, so not _env_pairs' int heads
+        part = part.strip()
+        if not part:
+            continue
+        if ":" not in part:
+            raise ValueError(
+                f"FF_FAULT_QUANT_SCALE={quant_scale!r}: item {part!r} "
+                f"is missing its ':' (expected 'op:factor', e.g. "
+                f"emb_stack:1e3)")
+        op_name, factor = part.rsplit(":", 1)
+        plan.quant_scale[op_name.strip()] = _env_float(
+            "FF_FAULT_QUANT_SCALE", factor)
     if feedback_loss:
         plan.feedback_loss_p = _env_float("FF_FAULT_FEEDBACK_LOSS",
                                           feedback_loss)
@@ -839,3 +861,26 @@ def maybe_net_slow(seam: str) -> None:
     _key, ms = _net_value(plan.net_slow_ms, seam)
     if ms and ms > 0:
         time.sleep(ms / 1e3)
+
+
+def maybe_corrupt_quant_scale(key: str, scales):
+    """Corrupt a quantized payload's row scales as it loads
+    (``FF_FAULT_QUANT_SCALE=op:factor``): any key naming the op fires,
+    once per op. The caller's ``quant.codec.validate_scales`` must
+    reject the payload: a scaled-up scale serves amplified rows with no
+    NaN for the sentinel to see."""
+    plan = active()
+    if plan is None or not plan.quant_scale:
+        return scales
+    with plan._lock:
+        hit = None
+        for op_name, factor in plan.quant_scale.items():
+            if op_name and op_name in key:
+                hit = (op_name, factor)
+                break
+        if hit is None:
+            return scales
+        del plan.quant_scale[hit[0]]
+        plan._record("quant_scale", f"{key}:{hit[1]:g}")
+    import numpy as np
+    return np.asarray(scales, np.float32) * np.float32(hit[1])

@@ -13,7 +13,9 @@ geometry sidecar (``shard-<n>x.meta.json``) sits beside them.
 The cache fails OPEN with a named reason: a missing, torn, CRC-failing,
 foreign (fingerprint) or wrong-geometry entry is a miss with
 ``last_reject`` set, and the caller rebuilds cold. ``FF_FAULT_CACHE_
-CORRUPT=n`` truncates the next n entries as they are read.
+CORRUPT=n`` truncates the next n entries as they are read;
+``FF_FAULT_QUANT_SCALE=op:f`` scales a quantized block's scales as it
+loads, which the scale check then rejects.
 
 The JAX package's ``PlanCache`` and ``CompileCache`` (strategy plans and
 serialized XLA executables) port with ROADMAP queue 1 items 8 and 9.5.
@@ -169,7 +171,10 @@ class ShardCache:
                     continue
                 op = k[len("block/"):]
                 if f"scale/{op}" in files:
-                    scales = np.array(data[f"scale/{op}"])
+                    # a corrupt scale rejects the entry (a cold rebuild),
+                    # never boots a shard serving amplified rows
+                    scales = faults.maybe_corrupt_quant_scale(
+                        op, np.array(data[f"scale/{op}"]))
                     bound = (float(data[f"sbd/{op}"])
                              if f"sbd/{op}" in files else None)
                     validate_scales(op, scales, bound)

@@ -53,7 +53,12 @@ nothing. A delta installed on the card (``apply_delta``, plain and
 staged on the side stream) BITWISE the CPU install (rows and arrays are
 copied); deltas staged and installed through the engine while clients
 keep its batcher busy give BITWISE the scores of a model that took them
-quiesced (the same kernels at the same shapes).
+quiesced (the same kernels at the same shapes). The row fake-quant
+kernel BITWISE its plain version on the card, nearest for int8, fp8 and
+bf16 and both stochastic entries (the caller's u, and Philox against the
+plain version's ``philox_uniform``: the same IEEE operations, one
+rounding each); its Philox codes floor or floor + 1 of x / s and the
+mean of 2,048 draws within 6 standard errors of x / s.
 """
 
 import numpy as np
@@ -2072,3 +2077,125 @@ def test_fleet_replicas_and_a_remote_shard_answer_bitwise(cuda, tmp_path):
         local.close()
         for s in servers:
             s.close()
+
+
+# ---------------------------------------------------------------------
+# the row fake-quant kernel (csrc/quant_rows.cu)
+# ---------------------------------------------------------------------
+def _quant_rows(cuda, rows, d, seed):
+    """Rows with the codec's edges: all-zero, -0.0, at +-qmax codes, one
+    value a row, fp8 subnormals, then random rows."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(rows, d, device=cuda, generator=g) * torch.rand(
+        rows, 1, device=cuda, generator=g)
+    x[0] = 0.0
+    x[1] = -0.0
+    sign = torch.where(torch.arange(d, device=cuda) % 2 == 1, 1.0, -1.0)
+    x[2] = sign * 127.0 * 0.01
+    x[3] = sign * 448.0 * 0.5
+    x[4] = 3.0
+    x[5] = x[5] * 1e-30
+    return x
+
+
+@pytest.mark.parametrize("dt", ["int8", "fp8", "bf16"])
+@pytest.mark.parametrize("d", [8, 16, 64, 128, 10, 200, 1024])
+def test_fake_quant_kernel_matches_plain(cuda, dt, d):
+    """Nearest on every dtype and the "noise" stochastic entry (int8):
+    BITWISE the plain version on the card fed the same draws."""
+    from dlrm_flexflow_tpu_torch.ops.kernels.quant_rows import (
+        fake_quant_rows, fake_quant_rows_reference)
+    x = _quant_rows(cuda, 3000, d, seed=d)
+    a, b = x.clone(), x.clone()
+    fake_quant_rows(a, dt, "nearest")
+    fake_quant_rows_reference(b, dt, "nearest")
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    if dt == "int8":
+        u = torch.rand(x.shape, device=cuda,
+                       generator=torch.Generator(device=cuda).manual_seed(1))
+        a, b = x.clone(), x.clone()
+        fake_quant_rows(a, dt, "stochastic", u=u)
+        fake_quant_rows_reference(b, dt, "stochastic", u=u)
+        torch.cuda.synchronize()
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("d", [8, 64, 128, 10])
+def test_fake_quant_kernel_philox_matches_plain(cuda, d):
+    """The Philox entry draws the plain version's philox_uniform bits:
+    BITWISE; its codes are floor or floor + 1 of x / s, and the mean of
+    2,048 draws of one row is within 6 standard errors of x / s."""
+    from dlrm_flexflow_tpu_torch.ops.kernels.quant_rows import (
+        fake_quant_rows, fake_quant_rows_reference)
+    x = _quant_rows(cuda, 5000, d, seed=7)
+    a, b = x.clone(), x.clone()
+    key = dict(seed=(3 << 40) + 17, step=9, salt=0x53, row0=123)
+    fake_quant_rows(a, "int8", "stochastic", **key)
+    fake_quant_rows_reference(b, "int8", "stochastic", **key)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    row = x[6:7]
+    reps = 2048
+    r = row.repeat(reps, 1).contiguous()
+    fake_quant_rows(r, "int8", "stochastic", seed=5, step=1, salt=0x51)
+    s = row.abs().amax() / torch.tensor(127.0, device=cuda)
+    codes, want = (r / s).double(), (row / s).double()
+    lo = torch.floor(want)
+    assert bool((((codes - lo).abs() < 1e-3)
+                 | ((codes - lo - 1).abs() < 1e-3)).all())
+    frac = want - lo
+    se = torch.sqrt(frac * (1 - frac) / reps) + 1e-6
+    assert bool(((codes.mean(0) - want[0]).abs() <= 6 * se[0] + 1e-4).all())
+
+
+def test_fake_quant_kernel_honours_the_flag_and_raises(cuda):
+    from dlrm_flexflow_tpu_torch.ops.kernels.quant_rows import (
+        fake_quant_rows)
+    x = _quant_rows(cuda, 100, 64, seed=3)
+    y = x.clone()
+    fake_quant_rows(y, "int8", "stochastic", seed=1,
+                    ok=torch.zeros((), dtype=torch.int32, device=cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(y, x)
+    fake_quant_rows(y, "int8", "stochastic", seed=1,
+                    ok=torch.ones((), dtype=torch.int32, device=cuda))
+    z = x.clone()
+    fake_quant_rows(z, "int8", "stochastic", seed=1)
+    assert torch.equal(y, z)
+    with pytest.raises(ValueError, match="contiguous"):
+        fake_quant_rows(x.t(), "int8")
+    with pytest.raises(ValueError, match="at most"):
+        fake_quant_rows(torch.zeros(2, 2048, device=cuda), "int8")
+
+
+def test_stochastic_rounding_step_launches_once_per_table(cuda):
+    """A device step under stochastic rounding re-quantizes its stacked
+    table with one kernel launch, and the table holds quantized rows
+    afterwards."""
+    from dlrm_flexflow_tpu_torch.ops.kernels.quant_rows import (
+        fake_quant_rows)
+    dcfg = DLRMConfig(embedding_size=[4096] * 4, sparse_feature_size=64,
+                      mlp_bot=[4, 16, 64], mlp_top=[320, 16, 1])
+    m = pt.FFModel(pt.FFConfig(batch_size=64, emb_dtype="int8",
+                               emb_update_rule="stochastic_rounding"))
+    build_dlrm(m, dcfg)
+    m.compile(SGDOptimizer(lr=0.05), "mean_squared_error", ["mse"])
+    m.init_layers()
+    x, y = synthetic_batch(dcfg, 64, seed=1)
+    x["label"] = y
+    n0 = fake_quant_rows.launches
+    m.train_batch(x)
+    m.train_batch(x)
+    assert fake_quant_rows.launches - n0 == 2
+    # every row its integer codes times one scale: amax / 127, or amax /
+    # 126 where the rounding took the largest value (an ulp short of
+    # 127) down to 126
+    v = m.params["emb_stack"]["kernel"].view(-1, 128)
+    amax = v.abs().amax(dim=1)
+    errs = []
+    for n in (127.0, 126.0):
+        s = amax / torch.full_like(amax, n)
+        y = v / torch.where(s > 0, s, torch.ones_like(s))[:, None]
+        errs.append((y - torch.round(y)).abs().amax(dim=1))
+    assert float(torch.minimum(*errs).max()) < 1e-3

@@ -513,7 +513,9 @@ def test_fit_stream_resume_is_bitwise(tmp_path):
 def test_failed_publish_is_retried_and_quantized_payloads_refused(tmp_path):
     """An aborted delta publish leaves no file and no entry; the next
     delta covers its rows, and the chain still installs bitwise. A
-    quantized payload is refused on write and rejected on load."""
+    quantized payload (the test keeps its name from before quantized
+    payloads were ported) is written and loaded, and one with a corrupt
+    scale is rejected on load."""
     from dlrm_flexflow_tpu_torch.utils import faults
     pm = _port_model()
     x, y = _data()
@@ -531,15 +533,28 @@ def test_failed_publish_is_retried_and_quantized_payloads_refused(tmp_path):
     eng = InferenceEngine(sv, ServeConfig(max_batch=8, warmup=False))
     assert SnapshotWatcher(eng, str(tmp_path)).poll_once()
     _assert_trees_equal(_port_params(sv), _port_params(pm))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        delta.write_delta_file(str(tmp_path / "q.npz"), 1, 0, 0, {}, {},
-                               quant={"params/emb_stack/kernel": "int8"})
+    # a quantized payload is written as codes + scales and loads back
+    # as their dequantized rows (tests/test_torch_quant_train.py holds it
+    # to the JAX package's); a corrupt scale is a ChainError
+    key = "params/emb_stack/kernel"
+    vals = np.random.RandomState(0).randn(3, 4).astype(np.float32)
+    delta.write_delta_file(str(tmp_path / "q.npz"), 1, 0, 0,
+                           {key: (np.arange(3), vals)}, {},
+                           quant={key: "int8"})
+    got = delta.load_delta_file(str(tmp_path / "q.npz"))
+    _, q, scales, dt = got["qrows"][key]
+    assert dt == "int8" and q.dtype == np.int8
+    np.testing.assert_allclose(got["rows"][key][1], vals,
+                               atol=float(scales.max()) / 2 + 1e-7)
     np.savez(tmp_path / "q.npz", **{"meta/step": 1, "meta/prev_step": 0,
                                     "meta/base_step": 0,
                                     "idx/params/a/kernel": np.zeros(1),
-                                    "rows/params/a/kernel": np.zeros((1, 2)),
-                                    "scl/params/a/kernel": np.ones(1)})
-    with pytest.raises(delta.ChainError, match="item 5"):
+                                    "rows/params/a/kernel": np.zeros(
+                                        (1, 2), np.int8),
+                                    "scl/params/a/kernel": -np.ones(1),
+                                    "qdt/params/a/kernel": np.asarray(
+                                        "int8")})
+    with pytest.raises(delta.ChainError, match="negative row scale"):
         delta.load_delta_file(str(tmp_path / "q.npz"))
 
 

@@ -16,6 +16,14 @@
   ``params_from_jax``; ``forward_batch`` and ``item_embeddings`` agree
   within rtol 1e-5, atol 1e-6 (the MLPs' products sum in other fp32
   orders in XLA and in PyTorch).
+- The train head (in-batch logits, the sampled softmax over the batch):
+  its batches and labels bitwise the JAX package's, its strategy the
+  same configs; 3 SGD steps from the JAX weights: the loss within rtol
+  1e-5 and every parameter's update within 1e-3 of its largest update
+  (the MLPs and the logits' product sum in other fp32 orders; the
+  tables take the touched-rows update in both); the towers then serve
+  through ``transfer_tower_params``: the user and item heads within rtol
+  1e-5, atol 1e-6 of the JAX heads given the JAX towers.
 - Cascade: a fixed-projection encoder on both sides (as
   benchmarks/bench_retrieve.py does) and a small DLRM ranker with the
   same weights: retrieval ids and scores bitwise, ranker scores within
@@ -46,7 +54,11 @@ from dlrm_flexflow_tpu.retrieve import (
     ShardedMIPSIndex as JaxIndex, TwoTowerConfig as JaxTwoTowerConfig,
     build_two_tower as jax_build_two_tower,
     dlrm_candidate_features as jax_candidate_features,
-    item_embeddings as jax_item_embeddings)
+    in_batch_labels as jax_in_batch_labels,
+    item_embeddings as jax_item_embeddings,
+    synthetic_two_tower_batch as jax_synthetic_two_tower_batch,
+    transfer_tower_params as jax_transfer_tower_params,
+    two_tower_strategy as jax_two_tower_strategy)
 from dlrm_flexflow_tpu.serve.engine import Prediction as JaxPrediction
 
 import dlrm_flexflow_tpu_torch as pt
@@ -58,8 +70,9 @@ from dlrm_flexflow_tpu_torch.ops.kernels.topk import (
     mips_topk, mips_topk_reference, quantize_query)
 from dlrm_flexflow_tpu_torch.retrieve import (
     CascadeConfig, CascadeEngine, ShardedMIPSIndex, TwoTowerConfig,
-    build_two_tower, dlrm_candidate_features, item_embeddings,
-    merge_partials, transfer_tower_params)
+    build_two_tower, dlrm_candidate_features, in_batch_labels,
+    item_embeddings, merge_partials, synthetic_two_tower_batch,
+    transfer_tower_params, two_tower_strategy)
 from dlrm_flexflow_tpu_torch.serve import (DeadlineExceeded,
                                            InferenceEngine, Prediction,
                                            ServeConfig)
@@ -536,13 +549,94 @@ class TestHeads:
             for n, v in p.items():
                 assert torch.equal(again.params[op][n], v)
         m = pt.FFModel(pt.FFConfig(batch_size=HB, device="cpu"))
-        with pytest.raises(NotImplementedError, match="queue 1 item 10.2"):
-            build_two_tower(m, TwoTowerConfig(**TT), head="train")
+        # the train head builds (item 10.2); the attention does not
+        inputs, logits = build_two_tower(m, TwoTowerConfig(**TT),
+                                         head="train")
+        assert tuple(logits.shape) == (HB, HB)
+        assert set(inputs) == {"user_dense", "user_sparse", "item_ids"}
+        m = pt.FFModel(pt.FFConfig(batch_size=HB, device="cpu"))
         with pytest.raises(NotImplementedError, match="queue 1 item 11"):
             build_two_tower(m, TwoTowerConfig(**TT, attention_heads=2),
                             head="user")
         with pytest.raises(ValueError, match="unknown head"):
             build_two_tower(m, TwoTowerConfig(**TT), head="both")
+
+
+class TestTrainHead:
+    def test_batches_labels_and_strategy_equal_jax(self):
+        for zipf in (0.0, 1.1):
+            px, py = synthetic_two_tower_batch(TwoTowerConfig(**TT), HB,
+                                               seed=4, zipf_alpha=zipf)
+            jx, jy = jax_synthetic_two_tower_batch(
+                JaxTwoTowerConfig(**TT), HB, seed=4, zipf_alpha=zipf)
+            assert set(px) == set(jx)
+            for k in px:
+                assert px[k].dtype == jx[k].dtype, k
+                np.testing.assert_array_equal(px[k], jx[k])
+            np.testing.assert_array_equal(py, jy)
+        np.testing.assert_array_equal(in_batch_labels(5),
+                                      jax_in_batch_labels(5))
+        jm, pm = _jax_head("train"), pt.FFModel(
+            pt.FFConfig(batch_size=HB, device="cpu"))
+        build_two_tower(pm, TwoTowerConfig(**TT), head="train")
+        want = jax_two_tower_strategy(jm, 1)
+        got = two_tower_strategy(pm, 1)
+        assert {k: tuple(v.degrees) for k, v in got.items()} == {
+            k: tuple(v.degrees) for k, v in want.items()}
+
+    def test_trains_like_jax_then_serves(self):
+        cfg = TwoTowerConfig(**TT)
+        jm = ff.FFModel(ff.FFConfig(batch_size=HB, seed=3))
+        jax_build_two_tower(jm, JaxTwoTowerConfig(**TT), head="train")
+        jm.compile(ff.SGDOptimizer(lr=0.1),
+                   "sparse_categorical_crossentropy", ["accuracy"],
+                   mesh=make_mesh(devices=jax.devices()[:1]))
+        jm.init_layers(seed=3)
+        p0 = jax.tree.map(np.asarray, jm.params)
+        pm = pt.FFModel(pt.FFConfig(batch_size=HB, device="cpu", seed=3))
+        build_two_tower(pm, cfg, head="train")
+        from dlrm_flexflow_tpu_torch.core.optimizers import SGDOptimizer
+        pm.compile(SGDOptimizer(lr=0.1), "sparse_categorical_crossentropy",
+                   ["accuracy"])
+        pm.swap_params(params_from_jax(pm, p0))
+        lj, lp = [], []
+        for step in range(3):
+            x, y = synthetic_two_tower_batch(cfg, HB, seed=10 + step)
+            lj.append(float(jm.train_batch(dict(x, label=y))["loss"]))
+            lp.append(float(pm.train_batch(dict(x, label=y))["loss"]))
+        np.testing.assert_allclose(lp, lj, rtol=1e-5)
+        assert {op.name for op in pm._sparse_ops} >= {
+            "user_emb_0", "user_emb_1", "item_emb"}
+        from dlrm_flexflow_tpu_torch.utils.weights import params_to_jax
+        pj, pp = jax.tree.map(np.asarray, jm.params), params_to_jax(
+            pm, pm.params)
+        assert set(pp) == set(pj)
+        for op in pj:
+            for pn in pj[op]:
+                dw = pj[op][pn] - p0[op][pn]
+                err = np.abs(pp[op][pn] - pj[op][pn]).max()
+                assert err <= 1e-3 * np.abs(dw).max() + 1e-7, (op, pn)
+        # the towers serve: the port's heads given the port's towers
+        # against the JAX heads given the JAX towers
+        rng = np.random.RandomState(8)
+        feats = {"user_dense": rng.rand(HB, 4).astype(np.float32),
+                 "user_sparse": rng.randint(0, 16, (HB, 2, 1))}
+        ids = rng.randint(0, 64, HB)
+        for head in ("user", "item"):
+            jh = _jax_head(head)
+            ph = pt.FFModel(pt.FFConfig(batch_size=HB, device="cpu"))
+            build_two_tower(ph, cfg, head=head)
+            ph.compile()
+            ph.init_layers(seed=1)
+            assert transfer_tower_params(pm, ph) == \
+                jax_transfer_tower_params(jm, jh) > 0
+            if head == "user":
+                got = ph.forward_batch(feats).numpy()
+                want = np.asarray(jh.forward_batch(feats))
+            else:
+                got = item_embeddings(ph, cfg, ids).numpy()
+                want = jax_item_embeddings(jh, JaxTwoTowerConfig(**TT), ids)
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
 # ---------------------------------------------------------------------

@@ -240,8 +240,16 @@ class TestEmbeddingCache:
         assert pc.invalidate_rows("other_op", dirty) == 0
         pc.invalidate()
         assert len(pc) == 0 and pc.stats()["invalidations"] == 1
-        with pytest.raises(NotImplementedError, match="item 5"):
-            port_cache.EmbeddingCache(8, quant={"emb_stack": "int8"})
+        # a quantized cache evicts the same keys (its values are codes
+        # and scales: tests/test_torch_quant_train.py)
+        qc = port_cache.EmbeddingCache(64, quant={"emb_stack": "int8"})
+        qj = jax_cache.EmbeddingCache(64, quant={"emb_stack": "int8"})
+        for seed in range(3):
+            qc.lookup(pop, pm.host_params[pop.name], self._ids(seed))
+            qj.lookup(jop, jm.host_params[jop.name], self._ids(seed))
+        assert qc.invalidate_rows(pop.name, dirty) == \
+            qj.invalidate_rows(jop.name, dirty) > 0
+        assert list(qc._d) == list(qj._d)
 
     def test_prewarm_inserts_what_jax_inserts(self, pair, tmp_path):
         jm, pm = pair
