@@ -358,8 +358,10 @@ Phases:
    at a rank's shape (8,192 ids on a 4M-row block, and with pads and
    ids outside the window) and timed with ``index_add_`` after a masked
    select beside it. The phase's seconds, each world's step time and
-   every collective's bytes print. ``python3 chip_smoke.py --dist`` runs
-   only this phase.
+   every collective's bytes print, and, for each world, the first step's
+   bias gradients (all-reduced across the ranks) against an fp64 sum of
+   the per-sample cotangents of the whole batch (``BiasProbe``).
+   ``python3 chip_smoke.py --dist`` runs only this phase.
 14. quant — quantized tables and the two-tower train head, run after
    the cascade phase. (a) The two-tower "train" head at the cascade's own
    ``TwoTowerConfig`` (1M items, dim 32, 8 user tables of 1M x 8):
@@ -389,6 +391,35 @@ Phases:
    shape; timed there (Philox and nearest) and at Criteo-Kaggle's table
    beside the bound and the plain version. ``python3 chip_smoke.py
    --quant`` runs only this phase.
+
+15. row shards — every table's rows split over the ranks (the
+   all-to-all exchange of ``parallel/alltoall.py``), run after phase 13.
+   The exchange's owner side at a rank's shape (2 peers x 8,192 slots, a
+   4M-row block): the owner's gather (the bag kernel at bag 1, the
+   sentinel clamped), the canonical combine (its segment sums on the
+   scatter kernel), the routed SGD, gradient, momentum and Adam updates,
+   each bitwise its plain version on the CPU. Then DIST_WORLD
+   ``--rowshard-rank`` children on the card (gloo), each with half of
+   every table of ``random_benchmark()`` at full width, a global batch of
+   2,048, 3 steps a run, every count at 0 just before and read just
+   after each split run: (a) the dense exchange under SGD and (c) under
+   Adam, each held to a world-1 run from the same seed (bitwise at the
+   start, the losses within DIST_LOSS_RTOL, each update within
+   DIST_UPDATE_TOL of its parameter's largest), phase 13's split by table
+   timed beside them; (b) on zipf(1.05) ids the dense, dedup, hybrid (hot
+   head 0.05 of each table) and overlap exchanges under SGD, and (c) dedup
+   under Adam, each BITWISE the dense exchange on the same ids (losses,
+   MLPs, the bit sums of every table and slab, every touched row); the
+   ranks' MLP weights bitwise equal; exact launch counts a step (the bag
+   kernel 2, 3 with the hot head; the scatter kernel 2 to 6; the stateful
+   entry 1 under Adam; no plain version). (d) The launcher with
+   run_criteo_kaggle.sh's flags at 2 devices and an imported JSON
+   strategy that splits the concatenated table's rows (``param_dim`` 2):
+   the bag kernel and the scatter kernel twice a step. Each run's step
+   ms, every collective's calls, bytes and host seconds a step beside the
+   balanced and the padded exchange's bytes, and the distinct ids a rank
+   under zipf print. ``python3 chip_smoke.py --rowshard`` runs only this
+   phase.
 
 The last two lines are a JSON object with every kernel's numbers and
 ``{"ok": true, "device": {...}}``. Without a GPU, or when any check
@@ -625,6 +656,17 @@ DIST_LAUNCH = ["-ll:gpu", str(DIST_WORLD), "-b", str(256 * DIST_WORLD),
                "--arch-sparse-feature-size", str(D),
                "--arch-mlp-bot", "64-512-512-64",
                "--arch-mlp-top", "576-1024-1024-1024-1"]
+# row-sharded tables across ranks (phase 15): DIST_WORLD ranks on the
+# card, every table's rows split over them (dlrm_strategy(row_shard=
+# True)), a global batch of DIST_B, DIST_STEPS steps a run; the skew
+# forms on zipf(RS_ZIPF) ids, the hybrid's hot head RS_HOT of each table;
+# run_criteo_kaggle.sh's flags at DIST_WORLD devices for the launcher,
+# the concatenated table split by rows (an imported JSON strategy)
+RS_ZIPF = 1.05
+RS_HOT = 0.05
+RS_FORMS = (("dedup", dict(exchange="dedup")),
+            ("hybrid", dict(exchange="dedup", hot_fraction=RS_HOT)),
+            ("overlap", dict(overlap=True)))
 # the checkout's root, where the serving app runs as a module
 REPO = Path(__file__).resolve().parent
 # where the launch phase writes its .ffbin and checkpoints: the build
@@ -6415,15 +6457,18 @@ def _dist_models(strategy):
     return out
 
 
-def _timed_steps(model, batches):
+def _timed_steps(model, batches, after_first=None):
     """Each step's loss, and the wall ms of the steps after the first,
-    each ended by a synchronisation."""
+    each ended by a synchronisation; ``after_first()`` runs between the
+    first step and the second, outside the clock."""
     losses, ms = [], []
-    for b in batches:
+    for i, b in enumerate(batches):
         t0 = time.perf_counter()
         losses.append(float(model.train_batch(b)["loss"]))
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0 and after_first is not None:
+            after_first()
     return losses, ms[1:]
 
 
@@ -6449,6 +6494,75 @@ def _dist_params(split, alone):
                 out[f"{name}.{pn}"] = (split.params[name][pn],
                                        alone.params[name][pn])
     return out
+
+
+class BiasProbe:
+    """The first step's bias gradient of every ``Linear`` of ``model``, as
+    the dense update receives it (across ranks: all-reduced), beside an
+    fp64 sum of the per-sample cotangents of the layer's pre-activation
+    output over the whole global batch (across ranks: gathered from
+    every rank). While installed, each Linear runs its own ``apply``'s
+    operations with a hook on the pre-activation sum; the update is
+    wrapped to read the gradients it is handed."""
+
+    def __init__(self, model):
+        from dlrm_flexflow_tpu_torch.ops.linear import Linear
+        self.model = model
+        self.ops = [op for op in model.ops
+                    if isinstance(op, Linear) and op.use_bias]
+        self.dz, self.grads, self.batch_dz = {}, None, {}
+
+    def _apply(self, op):
+        from dlrm_flexflow_tpu_torch.ops.common import apply_activation
+
+        def apply(params, xs):
+            (x,) = xs
+            cdt = op.model.compute_dtype
+            z = torch.matmul(x.to(cdt).float(),
+                             params["kernel"].to(cdt).float()) \
+                + params["bias"]
+            if z.requires_grad and op.name not in self.dz:
+                z.register_hook(lambda g: self.dz.setdefault(
+                    op.name, g.detach().clone()))
+            return [apply_activation(z, op.activation).to(x.dtype)]
+        return apply
+
+    def __enter__(self):
+        opt = self.model.optimizer
+        real = opt.update
+
+        def update(params, grads, state, ok=None):
+            if self.grads is None:
+                self.grads = {n: g["bias"].detach().clone()
+                              for n, g in grads.items() if "bias" in g}
+            return real(params, grads, state, ok)
+
+        opt.update = update
+        for op in self.ops:
+            op.apply = self._apply(op)
+        return self
+
+    def __exit__(self, *exc):
+        del self.model.optimizer.update
+        for op in self.ops:
+            del op.apply
+
+    def errors(self):
+        """{layer: max |bias gradient - fp64 sum| / max |fp64 sum|}."""
+        out = {}
+        for op in self.ops:
+            dz = self.dz[op.name].cpu()
+            if self.model._dist() is not None:
+                parts = [torch.empty_like(dz)
+                         for _ in range(torch.distributed.get_world_size())]
+                torch.distributed.all_gather(parts, dz)
+                dz = torch.cat(parts)
+            self.batch_dz[op.name] = dz
+            want = dz.double().sum(0)
+            got = self.grads[op.name].cpu().double()
+            out[op.name] = float((got - want).abs().max()
+                                 / max(float(want.abs().max()), 1e-300))
+        return out
 
 
 def dist_rank_child(rank, world, store):
@@ -6483,11 +6597,18 @@ def dist_rank_child(rank, world, store):
                 _dist_params(split, alone).items()}
         same_init = all(torch.equal(a, b) for a, b in
                         _dist_params(split, alone).values())
+        probes = (BiasProbe(split), BiasProbe(alone))
         zero_counts()
-        with PlainCalls() as plain:
+        with PlainCalls() as plain, probes[0]:
             losses, ms = _timed_steps(split, batches)
         counts = read_counts()
-        losses1, ms1 = _timed_steps(alone, batches)
+        with probes[1]:
+            losses1, ms1 = _timed_steps(alone, batches)
+        bias_errs = [p.errors() for p in probes]
+        # the per-sample cotangents themselves, world 2's (gathered, in
+        # rank order: the global batch's) against world 1's
+        bias_errs.append({k: _worst(v, probes[1].batch_dz[k])
+                          for k, v in probes[0].batch_dz.items()})
         errs, updates = {}, {}
         digest = hashlib.sha256()
         for k, (a, b) in _dist_params(split, alone).items():
@@ -6499,7 +6620,7 @@ def dist_rank_child(rank, world, store):
         result["runs"][strategy] = {
             "losses": losses, "world1_losses": losses1, "step_ms": ms,
             "world1_step_ms": ms1, "errs": errs, "updates": updates,
-            "same_init": same_init,
+            "same_init": same_init, "bias_errs": bias_errs,
             "mlp_sha256": digest.hexdigest(), "plain_calls": plain.calls,
             "counts": {k: v for k, v in counts.items() if v},
             "order": list(op._table_order or ()),
@@ -6524,7 +6645,6 @@ def dist_phase(dev):
     """Phase 13: the kernel at a rank's shape (``window_kernel``), then
     DIST_WORLD ``--dist-rank`` children on the card, their results held.
     Returns (the kernel's row, the children's launch counts summed)."""
-    import os
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED + 13)
     rows = window_kernel(dev, gen)
@@ -6532,41 +6652,9 @@ def dist_phase(dev):
     work = WORK_DIR / "dist"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
-    env = {k: v for k, v in os.environ.items()
-           if not k.startswith("FF_FAULT_")}
-    env["PYTHONPATH"] = str(REPO)
-    store = work / "store"
-    procs, logs, outs = [], [], []
     try:
-        for r in range(DIST_WORLD):
-            logs.append(open(work / f"rank{r}.log", "w+"))
-            procs.append(subprocess.Popen(
-                [sys.executable, str(REPO / "chip_smoke.py"), "--dist-rank",
-                 str(r), str(DIST_WORLD), str(store)],
-                stdout=subprocess.PIPE, stderr=logs[-1], text=True, env=env))
-        for r, p in enumerate(procs):
-            try:
-                text, _ = p.communicate(timeout=300)
-            except subprocess.TimeoutExpired:
-                text = ""
-            logs[r].seek(0)
-            check(p.returncode == 0,
-                  f"ranks: rank {r} exited {p.returncode}: "
-                  f"{logs[r].read()[-3000:]}")
-            lines = [ln for ln in text.splitlines()
-                     if ln.startswith("DIST_RESULT ")]
-            check(len(lines) == 1, f"ranks: rank {r} printed no result")
-            outs.append(json.loads(lines[0][len("DIST_RESULT "):]))
-            for ln in text.splitlines():
-                if ln.startswith(("ELAPSED TIME", "[Metrics]")):
-                    print(f"  rank {r}: {ln}")
+        outs = run_rank_children("--dist-rank", "DIST_RESULT", work)
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for f in logs:
-            f.close()
         shutil.rmtree(work, ignore_errors=True)
     counts = {}
     for out in outs:
@@ -6621,6 +6709,16 @@ def dist_phase(dev):
               f"{max(r['updates']['tables'] for r in runs):.3g}); losses "
               f"{runs[0]['losses']} against {runs[0]['world1_losses']}; the "
               f"ranks' MLP weights bitwise equal")
+        split_b, alone_b, dz_b = runs[0]["bias_errs"]
+        print(f"  first step's bias gradients against an fp64 sum of the "
+              f"per-sample cotangents (max |err| / max |sum| by layer): "
+              f"world {DIST_WORLD}, all-reduced, "
+              f"{ {k: float(f'{v:.3g}') for k, v in split_b.items()} }; "
+              f"world 1 { {k: float(f'{v:.3g}') for k, v in alone_b.items()} }"
+              f"; worst {max(split_b.values()):.3g} against "
+              f"{max(alone_b.values()):.3g}; the per-sample cotangents "
+              f"of world {DIST_WORLD} against world 1's (max |diff| / max "
+              f"|world 1's|) {_fmt(dz_b)}")
         for name, st in runs[0]["collectives"].items():
             print(f"  {name}: {st['calls']} calls, {st['bytes']:,} bytes "
                   f"sent and received by rank 0, {st['seconds']:.4f} s "
@@ -6631,6 +6729,564 @@ def dist_phase(dev):
           f"samples/s; collectives {lr['collectives']}")
     print(f"ranks phase: {time.perf_counter() - t0:.1f} s")
     return rows, counts
+
+
+# ---------------------------------------------------------------------
+# phase 15: row-sharded tables across ranks (parallel/alltoall.py)
+# ---------------------------------------------------------------------
+def rowshard_kernels(dev):
+    """The exchange's owner side at a rank's shape (DIST_WORLD peers x
+    8,192 received slots, a 4M-row block, d = 64; duplicate-heavy ids and
+    sentinel pads): the owner's gather (the bag kernel at bag 1, the
+    sentinel clamped and its row zeroed), the canonical combine (its
+    segment sums on the scatter kernel), the SGD and gradient updates
+    (the scatter kernel) and the stateful update (momentum, Adam), each
+    held bitwise to its plain version on the CPU. Checks, not the path:
+    the phase's counts are the ranks'."""
+    from dlrm_flexflow_tpu_torch.parallel import alltoall as a2a
+    S, n = DIST_WORLD, DIST_B // DIST_WORLD * T * BAG
+    block = T * ROWS // DIST_WORLD
+    g = torch.Generator(device="cpu").manual_seed(SEED + 15)
+    rid, pos, upd = [], [], []
+    for j in range(S):
+        k = int(torch.randint(n // 2, n, (1,), generator=g))
+        ids = torch.where(torch.rand(k, generator=g) < 0.5,
+                          torch.randint(0, 64, (k,), generator=g),
+                          torch.randint(0, block, (k,), generator=g))
+        p = torch.sort(torch.randperm(n, generator=g)[:k]).values
+        rid.append(torch.cat([ids, torch.full((n - k,), block)]))
+        pos.append(torch.cat([j * n + p, torch.full((n - k,), 2 ** 31 - 1)]))
+        upd.append(torch.cat([torch.randn(k, D, generator=g),
+                              torch.zeros(n - k, D)]))
+    rid, pos, upd = (torch.cat(v) for v in (rid, pos, upd))
+    table = 0.5 * torch.randn(block, D, generator=g)
+    valid, safe = rid < block, rid.clamp(max=block - 1)
+    got = torch.where(valid.to(dev)[:, None],
+                      a2a._gather_rows(table.to(dev), safe.to(dev)), 0.0)
+    want = torch.where(valid[:, None], bag_mod.embedding_bag_reference(
+        table, safe.reshape(-1, 1)), 0.0)
+    check(torch.equal(got.cpu(), want),
+          "row exchange: the owner's gather disagrees with its plain version")
+    gid, gp = a2a._combine_received(rid.to(dev), pos.to(dev), upd.to(dev),
+                                    n, block)
+    wid, wp = a2a._combine_received(rid, pos, upd, n, block)
+    check(torch.equal(gid.cpu(), wid) and torch.equal(gp.cpu(), wp),
+          "row exchange: the canonical combine disagrees with its plain "
+          "version")
+    for what, base, scale in (("SGD", table, -LR),
+                              ("gradient", torch.zeros_like(table), 1.0)):
+        got = scat_mod.scatter_add_rows(base.to(dev, copy=True), gid, gp,
+                                        scale,
+                                        ids_in_range=True).cpu()
+        want = scat_mod.scatter_add_rows_reference(base.clone(), wid, wp,
+                                                   scale)
+        check(torch.equal(got, want), f"row exchange: the routed {what} "
+              f"update disagrees with its plain version")
+        del got, want
+    for name in ("momentum", "adam"):
+        opt = TRAIN_OPTS[name]()
+        slabs = {k: torch.rand(block, D, generator=g)
+                 for k in opt.sparse_slab_names()}
+        alpha_t = opt.alpha_t(torch.tensor(2, dtype=torch.int32))
+        got_s = {k: v.to(dev, copy=True) for k, v in slabs.items()}
+        got = scat_mod.stateful_update_rows(
+            table.to(dev, copy=True), gid, gp, None, got_s, opt.row_params(),
+            None if alpha_t is None else alpha_t.to(dev),
+            ids_in_range=True).cpu()
+        want = scat_mod.stateful_update_rows_reference(
+            table.clone(), wid, wp, None, slabs, opt.row_params(), alpha_t)
+        check(torch.equal(got, want) and all(
+            torch.equal(got_s[k].cpu(), slabs[k]) for k in slabs),
+            f"row exchange: the routed {name} update disagrees with its "
+            f"plain version")
+        del got, want, got_s, slabs
+    print(f"row exchange at a rank's shape ({S} peers x {n} slots, "
+          f"{int(valid.sum())} lookups, {int((wid >= 0).sum())} partials "
+          f"on a {block:,}-row block): the owner's gather, the combine, "
+          f"the SGD, gradient, momentum and Adam updates bitwise their "
+          f"plain versions")
+
+
+def _rs_model(opt, mesh, strategy="row", form=None):
+    """The full-width "cat" model on ``mesh`` (a world of 1: this rank's
+    own) under ``strategy``: "row" (``dlrm_strategy(row_shard=True)``,
+    the table's config refined by ``form``) or "table" (phase 13's
+    ``dlrm_strategy``); one seed, batch DIST_B."""
+    import dataclasses
+
+    from dlrm_flexflow_tpu_torch.models.dlrm import dlrm_strategy
+    cfg = train_config("cat")
+    model = FFModel(FFConfig(batch_size=DIST_B, seed=SEED, device="cuda:0"))
+    build_dlrm(model, cfg)
+    strat = dlrm_strategy(model, cfg, mesh.size, row_shard=strategy == "row")
+    if form:
+        strat["emb_stack"] = dataclasses.replace(strat["emb_stack"], **form)
+    model.compile(TRAIN_OPTS[opt](), "mean_squared_error", ["mse"],
+                  mesh=mesh, strategies=strat)
+    model.init_layers()
+    return model
+
+
+def _bit_sums(t):
+    """Per table, the sum of the int32 bit patterns of ``t`` (T, rows, d)
+    as int64: exact, and the same whichever ranks hold which rows."""
+    return [int(t[i].view(torch.int32).to(torch.int64).sum())
+            for i in range(t.shape[0])]
+
+
+def _rs_digest(model, rank, batches, path):
+    """What the bitwise checks of the skew forms compare, for this rank:
+    each table's bit sums over the rows it holds (the replicated hot head
+    counted by rank 0 only), of the weights and of every state slab, the
+    MLPs' sha256, and (written to ``path``) the values of every touched
+    row it holds, by logical id t * ROWS + row."""
+    import hashlib
+    op = model.get_layer_by_name("emb_stack")
+    H, rl, s = op._hot_rows, op._row_plan.rows_local, op._row_ex.shard
+    trees = {"weights": model.params["emb_stack"]}
+    for k in model.optimizer.sparse_slab_names():
+        trees[k] = model.opt_state[k]["emb_stack"]
+    sums = {}
+    for name, tree in trees.items():
+        v = _bit_sums(tree["kernel"])
+        if H and rank == 0:
+            v = [a + b for a, b in zip(v, _bit_sums(tree["hot_kernel"]))]
+        sums[name] = v
+    touched = np.unique(np.concatenate(
+        [(np.asarray(b["sparse"], np.int64) % ROWS
+          + np.arange(T)[None, :, None] * ROWS).reshape(-1)
+         for b in batches]))
+    t, ix = touched // ROWS, touched % ROWS
+    mine_hot = (ix < H) & (rank == 0)
+    c = ix - H
+    mine_cold = (ix >= H) & (c // rl == s)
+    w = model.params["emb_stack"]
+    vals = np.concatenate([
+        w["hot_kernel"][t[mine_hot], ix[mine_hot]].cpu().numpy()
+        if mine_hot.any() else np.zeros((0, D), np.float32),
+        w["kernel"][t[mine_cold], c[mine_cold] % rl].cpu().numpy()])
+    np.savez(path, ids=np.concatenate([touched[mine_hot],
+                                       touched[mine_cold]]), vals=vals)
+    digest = hashlib.sha256()
+    for name in sorted(model.params):
+        if name != "emb_stack":
+            for pn in sorted(model.params[name]):
+                digest.update(model.params[name][pn].cpu().numpy().tobytes())
+    return {"bit_sums": sums, "mlp_sha256": digest.hexdigest()}
+
+
+def _rs_named(tree, rows=None):
+    """{name: tensor} of a {op: {param: tensor}} tree: the tables (rows
+    ``rows`` of each, a slice, when given), and each MLP parameter."""
+    t = tree["emb_stack"]["kernel"]
+    out = {"tables": t if rows is None else t[:, rows]}
+    for name in sorted(tree):
+        if name != "emb_stack":
+            for pn in sorted(tree[name]):
+                out[f"{name}.{pn}"] = tree[name][pn]
+    return out
+
+
+def _rs_state(model, rows=None):
+    """{"slab: name": a copy of the tensor} of the optimizer's slabs."""
+    return {f"{sl}: {k}": v.clone()
+            for sl in model.optimizer.sparse_slab_names()
+            for k, v in _rs_named(model.opt_state[sl], rows).items()}
+
+
+def _rs_vs_world1(split, alone, init, rows):
+    """The split model against the world-1 model (``rows``: this rank's
+    block of its tables), each over max |the world-1 model's|: (each
+    weight, each update from the split model's initial weights ``init``,
+    the share of values whose update is off by more than
+    DIST_UPDATE_TOL of the largest)."""
+    a, b = _rs_named(split.params), _rs_named(alone.params, rows)
+    beyond = {}
+    for k in a:
+        d, w = a[k] - init[k], b[k] - init[k]
+        off = (d - w).abs() > DIST_UPDATE_TOL * float(w.abs().max())
+        beyond[k] = float(off.float().mean())
+    return ({k: _worst(a[k], b[k]) for k in a},
+            {k: _worst(a[k] - init[k], b[k] - init[k]) for k in a}, beyond)
+
+
+def _rs_exchange_figures(model, batches, rank):
+    """Per step: every collective's calls, bytes (sent and received, less
+    the kept blocks), bytes handed over and host seconds, beside the
+    balanced exchange's bytes (``exchange_bytes_per_step``; under dedup
+    at this rank's distinct routed ids a step, the hot head's left out)
+    and the padded buffers' (``dense_exchange_hlo_bytes`` or the dedup
+    one)."""
+    from dlrm_flexflow_tpu_torch.parallel import alltoall as a2a
+    op = model.get_layer_by_name("emb_stack")
+    plan, H = op._row_plan, op._hot_rows
+    look = DIST_B * T * BAG
+    padded = (a2a.dedup_exchange_hlo_bytes if plan.dedup
+              else a2a.dense_exchange_hlo_bytes)(plan, look, D)
+    distinct = None
+    if plan.dedup:
+        b = DIST_B // DIST_WORLD
+        distinct = float(np.mean([np.unique(
+            (ids + np.arange(T)[None, :, None] * ROWS)[ids >= H]).size
+            for ids in (np.asarray(x["sparse"][rank * b:(rank + 1) * b],
+                                   np.int64) for x in batches)]))
+    per = {k: {f: v[f] / len(batches) for f in v}
+           for k, v in model._collectives.stats.items() if v["calls"]}
+    return {"per_step": per, "padded": padded, "distinct": distinct,
+            "dedup": plan.dedup,
+            "balanced": a2a.exchange_bytes_per_step(
+                plan, look, D, distinct_per_device=distinct)}
+
+
+def rowshard_rank_child(rank, world, store):
+    """``chip_smoke.py --rowshard-rank RANK WORLD STORE``: one rank of
+    phase 15. Joins the gloo group through the file store; trains every
+    run of the phase DIST_STEPS steps, counting the split model's
+    launches; holds (a) and (c) to world-1 runs; writes the skew forms'
+    touched rows beside the store; runs the launcher on
+    run_criteo_kaggle.sh's flags with the JSON strategy beside the store.
+    Prints ``RS_RESULT {json}``."""
+    from dlrm_flexflow_tpu_torch.examples.native import dlrm as launcher
+    from dlrm_flexflow_tpu_torch.parallel import distributed
+    from dlrm_flexflow_tpu_torch.parallel.mesh import make_mesh
+    distributed.initialize_distributed(
+        init_method=f"file://{store}", num_processes=world,
+        process_id=rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    work = Path(store).parent
+    uniform, zipf = [], []
+    for s in range(DIST_STEPS):
+        for out, alpha in ((uniform, 0.0), (zipf, RS_ZIPF)):
+            x, y = synthetic_batch(train_config("cat"), DIST_B, seed=90 + s,
+                                   zipf_alpha=alpha)
+            x["label"] = y
+            out.append(x)
+    mine = slice(rank * DIST_B // world, (rank + 1) * DIST_B // world)
+    distinct = [int(np.unique((np.asarray(b["sparse"][mine], np.int64)
+                               + np.arange(T)[None, :, None] * ROWS)
+                              ).size) for b in zipf]
+    result = {"rank": rank, "backend": torch.distributed.get_backend(),
+              "distinct": distinct, "runs": {}}
+
+    def counted(model, batches, after_first=None):
+        zero_counts()
+        with PlainCalls() as plain:
+            losses, ms = _timed_steps(model, batches, after_first)
+        return {"losses": losses, "step_ms": ms, "plain_calls": plain.calls,
+                "counts": {k: v for k, v in read_counts().items() if v}}
+
+    # (a) the dense exchange under SGD and (c) under Adam, each held to a
+    # world-1 run of the same steps; phase 13's split by table timed
+    for opt, batches in (("sgd", uniform), ("adam", zipf)):
+        split = _rs_model(opt, make_mesh())
+        init = {k: v.clone() for k, v in _rs_named(split.params).items()}
+        first = {}
+        run = counted(split, batches,
+                      lambda: first.update(split=_rs_state(split)))
+        run["exchange"] = _rs_exchange_figures(split, batches, rank)
+        run.update(_rs_digest(split, rank, batches,
+                              work / f"rows_{opt}_dense_{rank}.npz"))
+        alone = _rs_model(opt, make_mesh(devices=[rank]))
+        s = split.get_layer_by_name("emb_stack")._row_ex.shard
+        rl = split.get_layer_by_name("emb_stack")._row_plan.rows_local
+        rows = slice(s * rl, (s + 1) * rl)
+        run["same_init"] = bool(torch.equal(
+            init["tables"], alone.params["emb_stack"]["kernel"][:, rows]))
+        run["world1_losses"], run["world1_step_ms"] = _timed_steps(
+            alone, batches,
+            lambda: first.update(alone=_rs_state(alone, rows)))
+        run["errs"], run["updates"], run["beyond"] = _rs_vs_world1(
+            split, alone, init, rows)
+        # the first step's optimizer state (Adam's m and v: (1 - b1)·g
+        # and (1 - b2)·g², linear and quadratic in the gradient)
+        run["first_state"] = {k: _worst(v, first["alone"][k])
+                              for k, v in first.get("split", {}).items()}
+        del first
+        result["runs"][f"{opt} dense"] = run
+        del split, alone, init
+        torch.cuda.empty_cache()
+    table = _rs_model("sgd", make_mesh(), strategy="table")
+    result["table_parallel_step_ms"] = _timed_steps(table, uniform)[1]
+    del table
+    torch.cuda.empty_cache()
+    # (b) the skew forms on zipf ids under SGD (their baseline: the dense
+    # exchange on the same ids), (c) dedup under Adam
+    runs = [("sgd", "dense", None)] + [("sgd", n, f) for n, f in RS_FORMS] \
+        + [("adam", "dedup", dict(exchange="dedup"))]
+    for opt, name, form in runs:
+        model = _rs_model(opt, make_mesh(), form=form)
+        batches = zipf
+        run = counted(model, batches)
+        run["exchange"] = _rs_exchange_figures(model, batches, rank)
+        run["hot_rows"] = model.get_layer_by_name("emb_stack")._hot_rows
+        run.update(_rs_digest(model, rank, batches,
+                              work / f"rows_{opt}_{name}_zipf_{rank}.npz"))
+        result["runs"][f"{opt} {name} zipf"] = run
+        del model
+        torch.cuda.empty_cache()
+    # (d) the launcher: run_criteo_kaggle.sh's flags at DIST_WORLD devices,
+    # the concatenated table split by rows
+    zero_counts()
+    with PlainCalls() as plain:
+        out = launcher.main(rowshard_kaggle_flags(work))
+    op = out["model"].get_layer_by_name("emb_concat")
+    result["launcher"] = {
+        "steps": out["steps"], "throughput": out["throughput"],
+        "plain_calls": plain.calls, "loss_finite": bool(np.isfinite(
+            out["model"].perf.report()["mse"])),
+        "nshards": op._row_plan.nshards if op._row_plan else 0,
+        "counts": {k: v for k, v in read_counts().items() if v},
+        "collectives": out["model"]._collectives.stats}
+    print("RS_RESULT " + json.dumps(result), flush=True)
+    torch.distributed.destroy_process_group()
+
+
+def rowshard_kaggle_flags(work):
+    """run_criteo_kaggle.sh's flags at DIST_WORLD devices (-b scaled as
+    run_random.sh scales it) with ``--import`` of a JSON strategy that
+    splits the concatenated table's rows over the ranks (``param_dim``)
+    and runs every other op data-parallel, written by the port's own
+    ``save_strategies``."""
+    from dlrm_flexflow_tpu_torch.parallel.pconfig import ParallelConfig
+    from dlrm_flexflow_tpu_torch.parallel.strategy_io import save_strategies
+    from dlrm_flexflow_tpu_torch.core.op import InputOp
+    flags = ["-ll:gpu", str(DIST_WORLD), "-b", str(TRAIN_B * DIST_WORLD)] \
+        + KAGGLE_FLAGS[2:]
+    path = work / "kaggle_row_shard.json"
+    if not path.exists():
+        model = FFModel(FFConfig(batch_size=TRAIN_B * DIST_WORLD,
+                                 device="cpu"))
+        build_dlrm(model, DLRMConfig.parse_args(flags))
+        strat = {}
+        for op in model.ops:
+            if isinstance(op, InputOp):
+                continue
+            nd = op.outputs[0].num_dims
+            strat[op.name] = (ParallelConfig(
+                (DIST_WORLD,) + (1,) * (nd - 1), param_degree=DIST_WORLD)
+                if op.name == "emb_concat"
+                else ParallelConfig.data_parallel(nd, DIST_WORLD))
+        save_strategies(str(path), strat)
+    return flags + ["--import", str(path)]
+
+
+# each split run's launches a step: the bag kernel looks up on the owner
+# and sums the bags (and, hybrid, looks up the hot head); the scatter
+# kernel sums each combine's segments (the receiver's, the dedup
+# sender's, the hot stream's two) and applies SGD to the block (and the
+# hot head); the stateful entry applies Adam
+RS_LAUNCHES = {
+    "sgd dense": {"embedding_bag": 2, "scatter_add_rows": 2},
+    "sgd dense zipf": {"embedding_bag": 2, "scatter_add_rows": 2},
+    "sgd dedup zipf": {"embedding_bag": 2, "scatter_add_rows": 3},
+    "sgd hybrid zipf": {"embedding_bag": 3, "scatter_add_rows": 6},
+    "sgd overlap zipf": {"embedding_bag": 2, "scatter_add_rows": 2},
+    "adam dense": {"embedding_bag": 2, "scatter_add_rows": 1,
+                   "stateful_update_rows": 1},
+    "adam dedup zipf": {"embedding_bag": 2, "scatter_add_rows": 2,
+                        "stateful_update_rows": 1},
+}
+
+
+def run_rank_children(flag, marker, work, timeout=300):
+    """DIST_WORLD ``chip_smoke.py FLAG RANK WORLD STORE`` children on the
+    card, the store in ``work``; each child's one ``MARKER {json}`` line,
+    in rank order. Every child is stopped before this returns."""
+    import os
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("FF_FAULT_")}
+    env["PYTHONPATH"] = str(REPO)
+    store = work / "store"
+    procs, logs, outs = [], [], []
+    try:
+        for r in range(DIST_WORLD):
+            logs.append(open(work / f"rank{r}.log", "w+"))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(REPO / "chip_smoke.py"), flag,
+                 str(r), str(DIST_WORLD), str(store)],
+                stdout=subprocess.PIPE, stderr=logs[-1], text=True, env=env))
+        for r, p in enumerate(procs):
+            try:
+                text, _ = p.communicate(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                text = ""
+            logs[r].seek(0)
+            check(p.returncode == 0,
+                  f"ranks: rank {r} exited {p.returncode}: "
+                  f"{logs[r].read()[-3000:]}")
+            lines = [ln for ln in text.splitlines()
+                     if ln.startswith(marker + " ")]
+            check(len(lines) == 1, f"ranks: rank {r} printed no result")
+            outs.append(json.loads(lines[0][len(marker) + 1:]))
+            for ln in text.splitlines():
+                if ln.startswith(("ELAPSED TIME", "[Metrics]")):
+                    print(f"  rank {r}: {ln}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    return outs
+
+
+def _fmt(d):
+    return "{" + ", ".join(f"{k}: {v:.3g}" for k, v in d.items()) + "}"
+
+
+def _touched_rows(work, run):
+    """{logical id: row} over every rank's file of ``run``."""
+    out = {}
+    for r in range(DIST_WORLD):
+        f = np.load(work / f"rows_{run}_{r}.npz")
+        for i, v in zip(f["ids"].tolist(), f["vals"]):
+            check(i not in out, f"row exchange ({run}): row {i} held by "
+                  f"two ranks")
+            out[i] = v
+    return out
+
+
+def rowshard_phase(dev):
+    """Phase 15: the owner side at a rank's shape (``rowshard_kernels``),
+    then DIST_WORLD ``--rowshard-rank`` children on the card, their
+    results held. Returns the children's launch counts, summed."""
+    t0 = time.perf_counter()
+    rowshard_kernels(dev)
+    torch.cuda.empty_cache()
+    work = WORK_DIR / "rowshard"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    rowshard_kaggle_flags(work)          # the strategy file, once
+    try:
+        outs = run_rank_children("--rowshard-rank", "RS_RESULT", work)
+        counts = {}
+        for out in outs:
+            check(out["backend"] == "gloo", f"ranks: backend {out['backend']}")
+            for name, run in out["runs"].items():
+                c, steps = run["counts"], DIST_STEPS
+                want = dict(RS_LAUNCHES[name], dense_update=1)
+                bad = {k: c.get(k, 0) for k, v in want.items()
+                       if c.get(k, 0) != v * steps}
+                check(not bad and run["plain_calls"] == 0
+                      and not c.get("scatter_write_rows")
+                      and not c.get("sharded_scatter_add_rows"),
+                      f"row shards ({name}), rank {out['rank']}: launches "
+                      f"{c} (off: {bad}), {run['plain_calls']} plain calls")
+                check(all(np.isfinite(run["losses"])),
+                      f"row shards ({name}): losses {run['losses']}")
+                add_counts(counts, c)
+            for name in ("sgd dense", "adam dense"):
+                run = out["runs"][name]
+                # SGD's updates are linear in the gradient. Adam's step is
+                # about alpha times the sign of the gradient wherever |g|
+                # is above eps, so a gradient that the other summation
+                # order moves across 0 (a relu unit at 0, phase 13) flips
+                # a whole step of a few values, and the steps after it
+                # see other weights; Adam's first step's moments, linear
+                # and quadratic in its gradient, are held instead
+                held = (run["updates"] if name == "sgd dense"
+                        else run["first_state"])
+                bad = {k: v for k, v in held.items()
+                       if not v <= DIST_UPDATE_TOL}
+                print(f"row shards ({name}), rank {out['rank']}, against "
+                      f"the world-1 run: updates {_fmt(run['updates'])}; "
+                      f"share of values whose update is off by more than "
+                      f"{DIST_UPDATE_TOL} of the largest "
+                      f"{_fmt(run['beyond'])}; the first step's state "
+                      f"{_fmt(run['first_state'])}")
+                check(run["same_init"] and held and not bad,
+                      f"row shards ({name}), rank {out['rank']}: start "
+                      f"bitwise the world-1 run's {run['same_init']}; "
+                      f"{'updates' if name == 'sgd dense' else 'state'} "
+                      f"beyond {DIST_UPDATE_TOL} of the world-1 run's "
+                      f"largest: {bad}")
+                check(np.allclose(run["losses"], run["world1_losses"],
+                                  rtol=DIST_LOSS_RTOL),
+                      f"row shards ({name}): losses {run['losses']} against "
+                      f"the world-1 run's {run['world1_losses']}")
+            lr = out["launcher"]
+            c = lr["counts"]
+            steps = lr["steps"] + 1
+            check(c.get("embedding_bag") == 2 * steps
+                  and c.get("scatter_add_rows") == 2 * steps
+                  and c.get("dense_update") == steps
+                  and lr["plain_calls"] == 0 and lr["loss_finite"]
+                  and lr["nshards"] == DIST_WORLD,
+                  f"row shards (launcher), rank {out['rank']}: launches {c}, "
+                  f"{lr['plain_calls']} plain calls, finite "
+                  f"{lr['loss_finite']}, {lr['nshards']} row shards")
+            add_counts(counts, c)
+        # the ranks' replicated weights, and the forms among themselves
+        for name in outs[0]["runs"]:
+            check(len({o["runs"][name]["mlp_sha256"] for o in outs}) == 1,
+                  f"row shards ({name}): the ranks' MLP weights differ")
+        for name, base in [(f"sgd {n} zipf", "sgd dense zipf")
+                           for n, _ in RS_FORMS] \
+                + [("adam dedup zipf", "adam dense")]:
+            runs = [o["runs"][name] for o in outs]
+            bases = [o["runs"][base] for o in outs]
+            check(runs[0]["losses"] == bases[0]["losses"]
+                  and runs[0]["mlp_sha256"] == bases[0]["mlp_sha256"],
+                  f"row shards: {name} differs from {base} (losses "
+                  f"{runs[0]['losses']} against {bases[0]['losses']})")
+            for k in runs[0]["bit_sums"]:
+                got = np.sum([r["bit_sums"][k] for r in runs], axis=0)
+                want = np.sum([r["bit_sums"][k] for r in bases], axis=0)
+                check(np.array_equal(got, want),
+                      f"row shards: {name}'s {k} differ from {base}'s")
+            a = _touched_rows(work, name.replace(" ", "_"))
+            b = _touched_rows(work, base.replace(" ", "_"))
+            check(a.keys() == b.keys() and all(
+                np.array_equal(a[i], b[i]) for i in a),
+                f"row shards: {name}'s touched rows differ from {base}'s")
+        _rs_report(outs)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"row shards phase: {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def _rs_report(outs):
+    runs = outs[0]["runs"]
+    med = lambda v: float(np.median(v)) if v else float("nan")  # noqa
+    tp = med(outs[0]["table_parallel_step_ms"])
+    for name, run in runs.items():
+        w1 = (f", world 1 {med(run['world1_step_ms']):.3f} ms"
+              if "world1_step_ms" in run else "")
+        ex = run["exchange"]
+        print(f"row shards, {name}: step ms (median after the first, rank "
+              f"0) {med(run['step_ms']):.3f}{w1}, split by table (phase 13's "
+              f"strategy) {tp:.3f}; losses {run['losses']}")
+        for k, st in ex["per_step"].items():
+            print(f"  {k} a step: {st['calls']:g} calls, {st['bytes']:,.0f} "
+                  f"bytes sent and received less the kept blocks, "
+                  f"{st['sent']:,.0f} handed over, {st['seconds']:.4f} s "
+                  f"(host clock, gloo's host copies included)")
+        at = ("" if ex["distinct"] is None else
+              f" at {ex['distinct']:.1f} distinct routed ids")
+        print(f"  the row exchange's bytes a rank a step: balanced "
+              f"(exchange_bytes_per_step{at}) {ex['balanced']:,}, padded "
+              f"buffers handed over ({'dedup' if ex['dedup'] else 'dense'}"
+              f"_exchange_hlo_bytes) {ex['padded']:,}")
+        if "updates" in run:
+            print(f"  against the world-1 run: each update within "
+                  f"{max(run['updates'].values()):.3g} of its parameter's "
+                  f"largest (tables {run['updates']['tables']:.3g}), each "
+                  f"weight within {max(run['errs'].values()):.3g}; losses "
+                  f"{run['world1_losses']}")
+    n_local = DIST_B // DIST_WORLD * T * BAG
+    print(f"row shards: distinct ids a rank a step under zipf({RS_ZIPF}): "
+          f"{[o['distinct'] for o in outs]} of {n_local} lookups; hot rows "
+          f"a table {runs['sgd hybrid zipf']['hot_rows']:,}; dedup, hybrid "
+          f"and overlap bitwise the dense exchange (SGD), dedup bitwise it "
+          f"(Adam); the ranks' MLP weights bitwise equal")
+    lr = outs[0]["launcher"]
+    print(f"row shards, launcher (run_criteo_kaggle.sh's flags, -ll:gpu "
+          f"{DIST_WORLD} -b {TRAIN_B * DIST_WORLD}, the concatenated table "
+          f"split by rows): {lr['steps']} steps, {lr['throughput']:.2f} "
+          f"samples/s; collectives {lr['collectives']}")
 
 
 # ---------------------------------------------------------------------
@@ -7145,6 +7801,10 @@ def main() -> int:
         # one rank of phase 13, a child of this script
         dist_rank_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
         return 0
+    if sys.argv[1:2] == ["--rowshard-rank"] and torch.cuda.is_available():
+        # one rank of phase 15, a child of this script
+        rowshard_rank_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -7195,6 +7855,13 @@ def main() -> int:
             "sharded_scatter_add_rows", 0)
         print(json.dumps({"launches": {k: v for k, v in counts.items()
                                        if v}, "kernel": rows}))
+        return 0
+    if sys.argv[1:] == ["--rowshard"]:
+        # only phase 15, its kernels built first (the ranks load them)
+        build.build_all()
+        counts = rowshard_phase(dev)
+        print(json.dumps({"launches": {k: v for k, v in counts.items()
+                                       if v}}))
         return 0
     if sys.argv[1:] == ["--scatter"]:
         # only the touched-rows scatters and their pre-pass at the paths'
@@ -7255,6 +7922,7 @@ def main() -> int:
     add(fleet_phase(figures))
     dist_rows, counts = dist_phase(dev)
     add(counts)
+    add(rowshard_phase(dev))
     for run in runs:
         add(train_report(run))
     del runs

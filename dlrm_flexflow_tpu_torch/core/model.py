@@ -376,13 +376,12 @@ class FFModel:
         ndev = self.mesh.size
         self.strategies = dict(strategies or {})
         if not self.strategies and self.config.import_strategy_file:
-            from ..ops.embedding import Embedding, EmbeddingBagStacked
             from ..parallel.strategy_io import load_strategies
             self.strategies = load_strategies(
                 self.config.import_strategy_file, num_devices=ndev,
                 known_ops={op.name for op in self.ops},
-                row_shard_ops={op.name for op in self.ops if isinstance(
-                    op, (Embedding, EmbeddingBagStacked))})
+                row_shard_ops={op.name for op in self.ops
+                               if hasattr(op, "_row_shard_geometry")})
         self._resolve_generic_strategy_keys(ndev)
         for op in ops:
             if op.name not in self.strategies:
@@ -582,16 +581,20 @@ class FFModel:
         degrees that cannot be placed together run replicated, with a
         warning or, strict, a raise). On a mesh of more than one rank, the
         ``EmbeddingBagStacked`` tables whose table dim spans the whole
-        mesh split over the ranks (``shard_tables``), and every other op
-        runs data-parallel: set up here when the process group is the
+        mesh split over the ranks (``shard_tables``), the tables of a
+        row-sharded config (``param_degree`` > 1; ``configure_row_shard``
+        per op, before the axes, as in the JAX package) split by rows with
+        the all-to-all exchange of ``parallel.alltoall``, and every other
+        op runs data-parallel: set up here when the process group is the
         mesh, else at the first use. What the port does not split across
         ranks yet raises ``NotImplementedError`` then (ROADMAP queue 1
-        item 7, ``_check_across_ranks``): a row-sharded config
-        (``param_degree`` > 1), other tables, stacked tables split over
-        part of the mesh or off the touched-rows SGD update (a stateful
+        item 7, ``_check_across_ranks``): other tables (replicated rows,
+        item 7.2, also where ``configure_row_shard`` refused a request,
+        after its warning), stacked tables split over part of the mesh
+        or, split by table, off the touched-rows SGD update (a stateful
         optimizer, a dense table update), host-resident tables, a model
         parallel split of a ``Linear``, and the anomaly sentinel."""
-        from ..ops.embedding import EmbeddingBagStacked
+        from ..ops.embedding import EmbeddingBagStacked, configure_row_shard
         from ..parallel.pconfig import ParallelConfig
         from ..parallel.sharding import AxisAssigner
         asn = AxisAssigner(self.mesh)
@@ -600,6 +603,8 @@ class FFModel:
             if isinstance(op, InputOp):
                 continue
             pc = self._effective_pc(op)
+            if hasattr(op, "_row_shard_geometry"):
+                configure_row_shard(op, self.strategies.get(op.name))
             try:
                 out_axes = op.output_axes(pc, asn,
                                           self.strategies.get(op.name, pc))
@@ -632,15 +637,13 @@ class FFModel:
         asn = AxisAssigner(self.mesh)
         world = self.mesh.size
         item7 = "is not ported yet (ROADMAP queue 1 item 7)"
-        for name, raw in self.strategies.items():
-            if getattr(raw, "param_degree", 1) > 1:
-                raise NotImplementedError(
-                    f"{name!r}: row-sharded tables across ranks "
-                    f"(param_degree {raw.param_degree}) {item7}")
         if self._host_resident_list:
             raise NotImplementedError(
                 f"host-resident tables across {world} ranks {item7}")
+        table_parallel = []
         for op in self.ops:
+            if getattr(op, "_row_plan", None) is not None:
+                continue                  # row-sharded: parallel/alltoall
             if isinstance(op, Linear) and asn.degree(
                     self._out_axes[op.name][-1]) > 1:
                 raise NotImplementedError(
@@ -652,10 +655,12 @@ class FFModel:
                     raise NotImplementedError(
                         f"{op.name!r}: stacked tables split over "
                         f"{asn.degree(axes)} of {world} ranks {item7}")
+                table_parallel.append(op)
             elif isinstance(op, (Embedding, EmbeddingBagConcat)):
                 raise NotImplementedError(
-                    f"{op.name!r}: {type(op).__name__} tables across "
-                    f"ranks {item7}")
+                    f"{op.name!r}: {type(op).__name__} tables replicated "
+                    f"across ranks are not ported yet (ROADMAP queue 1 item "
+                    f"7.2)")
         batch = self.input_tensors[0].shape[0] if self.input_tensors else 0
         if batch % world:
             raise ValueError(f"the global batch {batch} does not divide "
@@ -663,13 +668,13 @@ class FFModel:
         if self.config.anomaly_policy != "none":
             raise NotImplementedError(
                 f"the anomaly sentinel across ranks {item7}")
-        if self._stateful_sparse():
+        if table_parallel and self._stateful_sparse():
             raise NotImplementedError(
-                f"stateful optimizers (momentum, weight decay, Adam) "
-                f"across ranks {item7}")
+                f"stateful optimizers (momentum, weight decay, Adam) on "
+                f"tables split by table across ranks {item7}")
         split = {op.name for op in self._select_sparse_update_ops()}
-        for op in self.ops:
-            if isinstance(op, EmbeddingBagStacked) and op.name not in split:
+        for op in table_parallel:
+            if op.name not in split:
                 raise NotImplementedError(
                     f"{op.name!r}: a dense table update across ranks "
                     f"{item7}")
@@ -687,11 +692,17 @@ class FFModel:
                     f"the mesh spans ranks {self.mesh.ranks} but the "
                     f"process group has {distributed.world_size()}: "
                     f"initialize_distributed() with as many ranks")
+            from ..parallel.alltoall import RowExchange
             self._check_across_ranks()
             self._collectives = distributed.Collectives()
             me = distributed.rank()
+            # in op order on every rank: the exchanges make their process
+            # groups in one order everywhere
             for op in self.ops:
-                if isinstance(op, EmbeddingBagStacked):
+                if getattr(op, "_row_plan", None) is not None:
+                    op.bind_row_exchange(RowExchange(
+                        op._row_plan, self._collectives, me))
+                elif isinstance(op, EmbeddingBagStacked):
                     op.shard_tables(self.mesh.linear_index(
                         me, self._out_axes[op.name][1]), self.mesh.size,
                         self._collectives)
@@ -980,6 +991,15 @@ class FFModel:
         if not local and self.mesh is not None and self.mesh.size > 1:
             from ..parallel.distributed import host_local_slice
             self._dist()
+            rows = len(next(iter(batch.values())))
+            if rows % self.mesh.size and any(
+                    getattr(op, "_row_plan", None) is not None
+                    for op in self.ops):
+                raise NotImplementedError(
+                    f"a batch of {rows} rows over {self.mesh.size} ranks "
+                    f"with row-sharded tables (the JAX op gathers the "
+                    f"table instead) is not ported yet (ROADMAP queue 1 "
+                    f"item 7.2)")
             batch = host_local_slice(
                 {k: batch[k] for k in self._batch_dtypes(batch)})
         out = {}
@@ -1277,8 +1297,12 @@ class FFModel:
         if coll is not None:
             # the dense gradients summed over the ranks, in one buffer:
             # every rank gets the same bits, so its replicated weights
-            # stay equal
-            dense = [g for p in gd.values() for g in p.values()]
+            # stay equal (a row-sharded table's gradient is already its
+            # block's whole one: the exchange summed it on the owner)
+            rows = {op.name for op in self.ops
+                    if getattr(op, "_row_plan", None) is not None}
+            dense = [g for name, p in gd.items() if name not in rows
+                     for g in p.values()]
             if dense:
                 buf = coll.all_reduce_sum_(
                     torch.cat([g.reshape(-1) for g in dense]))
@@ -1312,10 +1336,13 @@ class FFModel:
             step = self.opt_state.get("step")
             for op in sparse_ops:
                 if self._stateful_sparse():
+                    # the hybrid's hot_kernel carries state of its own
+                    nested = "hot_kernel" in self.params[op.name]
                     op.sparse_opt_update(
                         self.params[op.name], emb_xs[op.name], gev[op.name],
                         self.optimizer,
-                        {k: sparse_state[k][op.name]["kernel"]
+                        {k: (sparse_state[k][op.name] if nested
+                             else sparse_state[k][op.name]["kernel"])
                          for k in slab_names},
                         step, fwd=emb_fwd[op.name], ok=ok)
                 else:
@@ -1376,7 +1403,7 @@ class FFModel:
         if self.mesh is not None and self.mesh.size > 1:
             raise NotImplementedError(
                 f"{what} across {self.mesh.size} ranks is not ported yet "
-                f"(ROADMAP queue 1 item 7): train with train_batch")
+                f"(ROADMAP queue 1 item 7.4): train with train_batch")
 
     def reset_metrics(self):
         """Start a new epoch's running metric sums."""

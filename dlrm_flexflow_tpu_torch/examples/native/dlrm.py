@@ -17,7 +17,11 @@ package's environment (``COORDINATOR_ADDRESS`` host:port,
 trains on its rows of the synthetic global batch under the hand-written
 ``dlrm_strategy`` (the stacked tables split by table over the ranks,
 every other op data-parallel) or the strategy file ``--import`` names
-(``.pb`` or ``.json``), and rank 0 prints the report. Without a process
+(``.pb`` or ``.json``; an embedding entry with ``param_dim`` > 1, and
+its ``exchange``, ``hot_frac`` and ``overlap``, splits the table's rows
+over the ranks with the all-to-all exchange of ``parallel/alltoall.py``,
+Criteo-Kaggle's concatenated table included), and rank 0 prints the
+report. Without a process
 group the world is one rank, so ``-ll:gpu 8`` or ``--nodes 2`` trains on
 one card, as the JAX app does on a host with one chip. Across ranks,
 data files, checkpoints and the anomaly sentinel raise (ROADMAP queue 1

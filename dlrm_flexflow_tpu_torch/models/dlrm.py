@@ -262,12 +262,14 @@ def dlrm_strategy(model: FFModel, cfg: DLRMConfig, num_devices: int,
     src/runtime/dlrm_strategy.cc:242-296): the stacked tables
     table-parallel, with the largest degree that divides both the table
     count and ``num_devices``, and every other op data-parallel over all
-    of them. Its other branches shard what the port cannot split across
-    ranks yet: over more than one device, ``row_shard=True``,
-    ``EmbeddingBagConcat`` (row blocks of the concatenated table) and
-    ``Embedding`` (width sharding) raise ``NotImplementedError`` (ROADMAP
-    queue 1 item 7); over one device they give the JAX package's
-    unsharded configs."""
+    of them. ``row_shard=True`` splits the ROWS of every table over the
+    whole mesh instead (``param_degree`` = ``num_devices``, the all-to-all
+    exchange of ``parallel.alltoall``), as the JAX map does. The other
+    branches shard what the port cannot split across ranks yet: over more
+    than one device, ``EmbeddingBagConcat`` (row blocks of the
+    concatenated table) and ``Embedding`` (width sharding) raise
+    ``NotImplementedError`` (ROADMAP queue 1 item 7.2); over one device
+    they give the JAX package's unsharded configs."""
     strat: StrategyMap = {}
     batch = model.config.batch_size
     for op in model.ops:
@@ -275,11 +277,6 @@ def dlrm_strategy(model: FFModel, cfg: DLRMConfig, num_devices: int,
         nd = op.outputs[0].num_dims if op.outputs else 0
         if row_shard and batch % max(num_devices, 1) == 0 and tname in (
                 "EmbeddingBagStacked", "EmbeddingBagConcat", "Embedding"):
-            if num_devices > 1:
-                raise NotImplementedError(
-                    f"dlrm_strategy(row_shard=True): row-sharded tables "
-                    f"across ranks are not ported yet (ROADMAP queue 1 "
-                    f"item 7)")
             strat[op.name] = ParallelConfig(
                 (num_devices,) + (1,) * (nd - 1), param_degree=num_devices)
         elif tname == "EmbeddingBagStacked":
@@ -293,7 +290,7 @@ def dlrm_strategy(model: FFModel, cfg: DLRMConfig, num_devices: int,
             raise NotImplementedError(
                 f"dlrm_strategy: {tname} {op.name!r} over {num_devices} "
                 f"devices (row blocks of the concatenated table, or width "
-                f"sharding) is not ported yet (ROADMAP queue 1 item 7)")
+                f"sharding) is not ported yet (ROADMAP queue 1 item 7.2)")
         elif tname == "EmbeddingBagConcat":
             strat[op.name] = ParallelConfig((1, 1, 1))
         elif tname == "Embedding":

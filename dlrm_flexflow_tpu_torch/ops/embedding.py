@@ -27,6 +27,12 @@ the JAX ops). Each takes ``ok``, the anomaly sentinel's 0-d int32 flag
 (None: no sentinel), and hands it to its scatter: a step whose flag is 0
 writes no row.
 
+Row-sharded across ranks (a strategy's ``param_degree`` > 1,
+``configure_row_shard``): each op holds its rank's row block of every
+table (and, under the hot/cold hybrid, the replicated head of each as
+``hot_kernel``), and its lookup and touched-rows updates route through
+the all-to-all exchange of ``parallel/alltoall.py`` (``_RowShardHooks``).
+
 Host-resident tables (``FFConfig.host_resident_tables``, the reference's
 hetero placement that lets tables larger than the card's memory train):
 each op's ``host_*`` methods keep its table in host RAM as numpy, in the
@@ -212,7 +218,251 @@ def _host_stateful_update(table, g, ct, opt, slabs, step, aggr):
         slabs[k][uniq] = sn[k]
 
 
-class Embedding(Op):
+# ---- row sharding across ranks (parallel/alltoall.py) -----------------
+# ParallelConfig.param_degree > 1: each rank owns a row block of the
+# whole table, and lookups route to owners and back through the
+# all-to-all exchange. Set per op by compile() through
+# configure_row_shard; every routed path below gates on ``op._row_plan``
+# and runs on the exchange ``op._row_ex`` that compile binds once the
+# process group is there.
+
+# hot-row quantum, in lane-pack units: the hybrid hot count rounds to a
+# multiple of HOT_QUANTUM_PACKS x pack (the JAX op's lane packing), so the
+# same hot split serves every row-shard degree dividing 8
+HOT_QUANTUM_PACKS = 8
+
+
+def resolve_hot_rows(rows: int, pack: int, param_degree: int,
+                     hot_fraction: float) -> int:
+    """Replicated hot rows a table, H, for the hybrid placement:
+    ``hot_fraction`` of ``rows`` rounded to the hot quantum, such that the
+    cold tail (rows - H) still splits into ``param_degree`` equal blocks
+    at the lane packing. 0: no hybrid (the caller degrades loudly to
+    plain row sharding)."""
+    if hot_fraction <= 0.0 or param_degree <= 1 or rows <= 0:
+        return 0
+    q = HOT_QUANTUM_PACKS * max(pack, 1)
+    if q >= rows:
+        return 0
+    h = int(round(hot_fraction * rows / q)) * q
+    h = max(h, q)
+    h = min(h, rows - q)
+    if (rows - h) % (param_degree * max(pack, 1)) != 0:
+        return 0
+    return h
+
+
+def row_shard_structural_reason(op, raw_pc, axis_sizes) -> Optional[str]:
+    """Why ``raw_pc.param_degree``-way row sharding of ``op`` cannot run
+    over a mesh of ``axis_sizes``, or None when it can: the JAX package's
+    rule set, word for word."""
+    from ..parallel.sharding import assignable
+    pd = getattr(raw_pc, "param_degree", 1) if raw_pc is not None else 1
+    if pd <= 1:
+        return None
+    if not hasattr(op, "_row_shard_geometry"):
+        return ("op has no row-shard support (no configure_row_shard "
+                "hook)")
+    rows, pack, _tables = op._row_shard_geometry()
+    batch = op.inputs[0].shape[0]
+    ndev = 1
+    for a in axis_sizes:
+        ndev *= int(a)
+    aggr = getattr(op, "aggr", AGGR_MODE_SUM)
+    if aggr not in (AGGR_MODE_SUM, AGGR_MODE_AVG):
+        return f"aggr={aggr!r} has no routed bag aggregation"
+    if len(raw_pc.degrees) > 1 and any(d > 1 for d in raw_pc.degrees[1:]):
+        return (f"degrees {raw_pc.degrees} also request table/width "
+                f"sharding — pick one axis for the table")
+    if pd > ndev or not assignable((pd,), list(axis_sizes)):
+        return (f"{pd} row shards do not factorize mesh axes "
+                f"{[int(a) for a in axis_sizes]}")
+    if rows % (pd * max(pack, 1)) != 0:
+        return (f"{pd} row shards must divide the {rows} padded rows "
+                f"(lane pack {pack})")
+    if batch % ndev != 0:
+        return (f"batch {batch} does not divide over the {ndev}-device "
+                f"mesh (lookups route from batch shards)")
+    frac = getattr(raw_pc, "hot_fraction", 0.0)
+    if frac > 0 and not getattr(op, "_hot_split_ok", False):
+        return (f"hot_fraction={frac:g} requested but this op has no "
+                f"per-table hot/cold split (concatenated non-uniform "
+                f"tables keep every row routed)")
+    return None
+
+
+def configure_row_shard(op, raw_pc) -> None:
+    """Resolve the row-shard plan of ``op`` from its RAW strategy's
+    ``param_degree`` (with ``exchange``, ``hot_fraction`` and
+    ``overlap``): sets ``op._row_plan`` (None: off) and ``op._hot_rows``
+    (replicated hot rows a table; 0: no hybrid). A request that cannot
+    run degrades LOUDLY to replicated rows, with the JAX warning naming
+    the reason (across ranks those then raise: ROADMAP queue 1 item
+    7.2)."""
+    from ..parallel.alltoall import plan_row_shard
+    op._row_plan = None
+    op._hot_rows = 0
+    op._row_ex = None
+    pd = getattr(raw_pc, "param_degree", 1) if raw_pc is not None else 1
+    if pd <= 1:
+        return
+    model = op.model
+    mesh = getattr(model, "mesh", None)
+    rows, pack, tables = op._row_shard_geometry()
+    dedup = getattr(raw_pc, "exchange", "dense") == "dedup"
+    frac = getattr(raw_pc, "hot_fraction", 0.0)
+    host = {o.name for o in getattr(model, "_host_resident_list", ())}
+    if mesh is None or mesh.size <= 1:
+        reason = "needs a multi-device mesh"
+    elif op.name in host:
+        reason = "host-resident/offloaded tables cannot row-shard in HBM"
+    else:
+        reason = row_shard_structural_reason(op, raw_pc,
+                                             list(mesh.axis_sizes))
+    hot = 0
+    if reason is None and frac > 0:
+        hot = resolve_hot_rows(rows, pack, pd, frac)
+        if hot <= 0:
+            log_emb.warning(
+                "hot_fraction=%g for %r resolves to no replicable hot "
+                "block (rows=%d, lane pack %d, %d shards, quantum %d "
+                "rows); executing plain row sharding", frac, op.name,
+                rows, pack, pd, HOT_QUANTUM_PACKS * max(pack, 1))
+    if reason is None:
+        plan = plan_row_shard(mesh, pd, rows - hot, pack, tables,
+                              dedup=dedup, hot_rows=hot,
+                              overlap=bool(getattr(raw_pc, "overlap",
+                                                   False)))
+        if plan is not None:
+            op._row_plan = plan
+            op._hot_rows = hot
+            return
+        reason = (f"{pd} row shards must factorize mesh axes "
+                  f"{list(mesh.axis_sizes)} and divide the {rows} padded "
+                  f"rows (lane pack {pack})")
+    log_emb.warning(
+        "row sharding (param_degree=%d) requested for %r but %s; "
+        "executing with replicated rows", pd, op.name, reason)
+
+
+def _norm_slabs(slabs):
+    """{slab: tensor} (the kernel's) or {slab: {param: tensor}} (the
+    hybrid's kernel and hot_kernel) -> (kernel slabs, hot slabs or
+    None)."""
+    if any(isinstance(v, dict) for v in slabs.values()):
+        hot = ({n: v["hot_kernel"] for n, v in slabs.items()}
+               if any("hot_kernel" in v for v in slabs.values()) else None)
+        return {n: v["kernel"] for n, v in slabs.items()}, hot
+    return dict(slabs), None
+
+
+class _RowShardHooks:
+    """What the three ops share under row sharding: the plan's geometry
+    (``_row_shard_geometry``: logical rows, the JAX op's lane pack,
+    tables), the routing of flat global ids (``_row_route``), the routed
+    lookup and the routed touched-rows updates. A subclass gives
+    ``_row_ids`` (its lookups' flat global ids, (n, bag)) and, with a
+    hot split, ``_hot_split_ok``."""
+
+    _row_plan = None
+    _hot_rows = 0
+    _row_ex = None
+    _hot_split_ok = False
+
+    def bind_row_exchange(self, ex):
+        """The exchange of this rank (``parallel.alltoall.RowExchange``),
+        bound by compile once the process group is there."""
+        self._row_ex = ex
+
+    def _row_exchange(self):
+        if self._row_ex is None:
+            raise ValueError(
+                f"{self.name}: a row-sharded table runs on the mesh's "
+                f"process group: initialize_distributed() with "
+                f"{self._row_plan.ndev} ranks before compile")
+        return self._row_ex
+
+    def _row_route(self, g):
+        """Flat global ids t*rows + ix -> (owner, local, gid, hot_id), as
+        the JAX op's: each shard owns the same cold row block of every
+        table; under the hybrid the head of each table (ix < H) is looked
+        up in the replicated hot block (owner nshards, gid in a disjoint
+        key range, hot_id its flat hot row; hot_id the sentinel on cold
+        slots)."""
+        plan = self._row_plan
+        rows = self.num_entries
+        H = self._hot_rows
+        rl = plan.rows_local
+        ix = g % rows
+        t = g // rows
+        if H <= 0:
+            return ix // rl, t * rl + ix % rl, g, None
+        rc = rows - H
+        is_hot = ix < H
+        cix = (ix - H).clamp(min=0)
+        owner = torch.where(is_hot, plan.nshards, cix // rl)
+        local = torch.where(is_hot, plan.flat_rows_local, t * rl + cix % rl)
+        hid = t * H + ix
+        gid = torch.where(is_hot, plan.tables * rc + hid, t * rc + cix)
+        hot_id = torch.where(is_hot, hid, plan.hot_rows_flat)
+        return owner, local, gid, hot_id
+
+    def _row_lookup(self, params, idx):
+        """The routed bags of this rank's lookups: (n, d), n bags."""
+        from ..parallel.alltoall import row_sharded_bag_lookup
+        owner, local, gid, hot_id = self._row_route(self._row_ids(idx))
+        return row_sharded_bag_lookup(
+            self._row_exchange(), params["kernel"], owner, local,
+            self.out_dim, self.aggr, gid=gid,
+            hot_table=params.get("hot_kernel"), hot_id=hot_id)
+
+    def _row_updates(self, idx, out_ct):
+        """(route of each lookup, its RAW update row (n, d): its bag's
+        cotangent, / bag under avg)."""
+        from ..parallel.alltoall import _bag_cotangent_rows
+        g = self._row_ids(idx)
+        upd = _bag_cotangent_rows(out_ct, g.shape, self.out_dim, self.aggr)
+        return self._row_route(g), upd
+
+    def _row_sgd_update(self, params, idx, out_ct, lr, ok):
+        from ..parallel.alltoall import row_sharded_sgd_update
+        (owner, local, gid, hot_id), upd = self._row_updates(idx, out_ct)
+        row_sharded_sgd_update(
+            self._row_exchange(), params["kernel"], owner, local, upd, lr,
+            gid=gid, hot_table=params.get("hot_kernel"), hot_id=hot_id,
+            ok=ok)
+        return params
+
+    def _row_opt_update(self, params, idx, out_ct, opt, slabs, step, ok):
+        from ..parallel.alltoall import row_sharded_opt_update
+        (owner, local, gid, hot_id), upd = self._row_updates(idx, out_ct)
+        kslabs, hslabs = _norm_slabs(slabs)
+        row_sharded_opt_update(
+            self._row_exchange(), params["kernel"], kslabs, owner, local,
+            upd, opt, step, gid=gid, hot_table=params.get("hot_kernel"),
+            hot_slabs=hslabs, hot_id=hot_id, ok=ok)
+        return params
+
+    def _row_block(self, logical):
+        """This rank's parameters from the whole logical table (rows
+        first on its last-but-one dim): the cold rows [H + s*rl, H +
+        (s+1)*rl) and, under the hybrid, the head [0, H)."""
+        plan, H = self._row_plan, self._hot_rows
+        s = self._row_exchange().shard
+        lo = H + s * plan.rows_local
+        out = {"kernel": logical[..., lo:lo + plan.rows_local, :].clone()}
+        if H > 0:
+            out["hot_kernel"] = logical[..., :H, :].clone()
+        return out
+
+    def _refuse_row_delta(self):
+        if self._row_plan is not None:
+            raise NotImplementedError(
+                f"{self.name}: delta publishes of row-sharded tables are "
+                f"not ported yet (ROADMAP queue 1 item 7.4)")
+
+
+class Embedding(_RowShardHooks, Op):
     """One table, (num_entries, out_dim). With ``aggr`` "sum" or "avg":
     int ids (batch, bag) -> (batch, out_dim), the sum or mean over the
     bag, gathered on the card by the embedding-bag kernel (any
@@ -221,10 +471,15 @@ class Embedding(Op):
     as the JAX op gathers it outside any Pallas kernel
     (``jnp.take(mode="wrap")``). Ids wrap ``% num_entries`` (floor-mod),
     as the JAX op's XLA path does; its Pallas path does not wrap, and
-    the two agree on in-range ids. The row-sharded lookup and the
-    hot/cold hybrid are not ported yet."""
+    the two agree on in-range ids.
+
+    Row-sharded across ranks (``configure_row_shard``): ``kernel`` is
+    the rank's cold block, (rows_local, d), and under the hybrid
+    ``hot_kernel`` the replicated head, (H, d); the lookup and the
+    updates route through ``parallel.alltoall``."""
 
     type_name = "Embed"
+    _hot_split_ok = True
 
     def __init__(self, model, input_tensor, num_entries: int, out_dim: int,
                  aggr: str = AGGR_MODE_SUM, kernel_initializer=None,
@@ -246,14 +501,40 @@ class Embedding(Op):
         self.outputs = [self._make_output(out_shape)]
 
     def param_defs(self):
-        return {"kernel": ParamDef((self.num_entries, self.out_dim),
-                                   torch.float32, self.kernel_initializer)}
+        plan, H = self._row_plan, self._hot_rows
+        if plan is None:
+            return {"kernel": ParamDef((self.num_entries, self.out_dim),
+                                       torch.float32,
+                                       self.kernel_initializer)}
+        out = {"kernel": ParamDef((plan.rows_local, self.out_dim),
+                                  torch.float32, self.kernel_initializer)}
+        if H > 0:
+            out["hot_kernel"] = ParamDef((H, self.out_dim), torch.float32,
+                                         self.kernel_initializer)
+        return out
+
+    def init_params(self, generator, device):
+        if self._row_plan is None:
+            return super().init_params(generator, device)
+        # the whole table drawn as on one card, this rank's rows kept
+        return self._row_block(self.kernel_initializer(
+            generator, (self.num_entries, self.out_dim), torch.float32,
+            device))
 
     def _ids(self, idx):
         return torch.remainder(idx.long(), self.num_entries)
 
+    # ---- row sharding hooks (see configure_row_shard) ---------------
+    def _row_shard_geometry(self):
+        return self.num_entries, 1, 1
+
+    def _row_ids(self, idx):
+        return self._ids(idx)
+
     def apply(self, params, xs):
         (idx,) = xs                       # (batch, bag)
+        if self._row_plan is not None:
+            return [self._row_lookup(params, idx)]
         if self.aggr == AGGR_MODE_NONE:
             return [params["kernel"][self._ids(idx)]]
         return [EmbeddingBagFunction.apply(params["kernel"], self._ids(idx),
@@ -271,6 +552,7 @@ class Embedding(Op):
     def delta_touched_rows(self, idx_np) -> np.ndarray:
         """The table rows a touched-rows update of this batch may change
         (the JAX op stores the table unpacked, as the port does)."""
+        self._refuse_row_delta()
         return np.unique(self.flat_lookup_ids(idx_np))
 
     # ---- host-resident table (FFConfig.host_resident_tables) --------
@@ -355,6 +637,8 @@ class Embedding(Op):
         duplicates sum in lookup order before they land, on the
         read-modify-write scatter kernel on the card."""
         (idx,) = xs
+        if self._row_plan is not None:
+            return self._row_sgd_update(params, idx, out_ct, lr, ok)
         table = params["kernel"]
         ids = self._ids(idx).reshape(-1)
         ct = out_ct.to(table.dtype).reshape(-1, self.out_dim)
@@ -378,8 +662,13 @@ class Embedding(Op):
         row math updates that row's weight and state, as the JAX op's
         ``_stateful_update_rows_xla``; untouched rows keep both. ``step``
         is the optimizer's step before this one (Adam's alpha_t). The
-        table row is read (no residual: ``apply_with_fwd`` keeps none)."""
+        table row is read (no residual: ``apply_with_fwd`` keeps none).
+        Row-sharded, ``slabs`` may nest {slab: {param: tensor}} to carry
+        the hybrid's ``hot_kernel`` state."""
         (idx,) = xs
+        if self._row_plan is not None:
+            return self._row_opt_update(params, idx, out_ct, opt, slabs,
+                                        step, ok)
         table = params["kernel"]
         ids = self._ids(idx).reshape(-1)
         ct = out_ct.to(table.dtype).reshape(-1, self.out_dim)
@@ -394,20 +683,27 @@ class Embedding(Op):
         return params
 
 
-class _FlatTableBag(Op):
+class _FlatTableBag(_RowShardHooks, Op):
     """What ``EmbeddingBagStacked`` and ``EmbeddingBagConcat`` share: T
     bags over one flat (rows, d) view of the tables, looked up by global
     row ids in one bag-kernel launch and updated in one scatter, on the
-    card or, for a host-resident table, in host RAM. A subclass gives the
-    ids (``_global_ids``, ``host_flat_indices``) and ``_flat``, the flat
-    view of its kernel, of an optimizer slab shaped like it, and of its
-    host table."""
+    card or, for a host-resident table, in host RAM; row-sharded across
+    ranks, through the exchange of ``parallel.alltoall``. A subclass
+    gives the ids (``_global_ids``, ``host_flat_indices``) and ``_flat``,
+    the flat view of its kernel, of an optimizer slab shaped like it, and
+    of its host table."""
 
     def _flat(self, t):
         raise NotImplementedError
 
+    def _row_ids(self, idx):
+        return self._global_ids(idx)
+
     def apply(self, params, xs):
         (idx,) = xs                       # (batch, T, bag)
+        if self._row_plan is not None:
+            return [self._row_lookup(params, idx).reshape(
+                idx.shape[0], self.num_tables, self.out_dim)]
         out = EmbeddingBagFunction.apply(self._flat(params["kernel"]),
                                          self._global_ids(idx), self.aggr)
         return [out.reshape(idx.shape[0], self.num_tables, self.out_dim)]
@@ -447,7 +743,10 @@ class _FlatTableBag(Op):
     def apply_with_fwd(self, params, xs):
         """apply() plus the forward residual: (global row ids (n,), the
         gathered rows (n, d)), both in (batch, T, bag) order — the order
-        ``sparse_sgd_update`` applies its updates in."""
+        ``sparse_sgd_update`` applies its updates in. Row-sharded: no
+        residual (the update routes its own rows)."""
+        if self._row_plan is not None:
+            return self.apply(params, xs), None
         (idx,) = xs
         gid = self._global_ids(idx)
         out, rows = embedding_bag(self._flat(params["kernel"]), gid,
@@ -474,7 +773,10 @@ class _FlatTableBag(Op):
         "avg"), and a row's duplicates sum in lookup order before they
         land. With the residual of ``apply_with_fwd`` the write-only
         kernel writes fwd_row + sum; without it the read-modify-write
-        kernel adds the sum to the table."""
+        kernel adds the sum to the table. Row-sharded: the routed
+        update (``parallel.alltoall.row_sharded_sgd_update``)."""
+        if self._row_plan is not None:
+            return self._row_sgd_update(params, xs[0], out_ct, lr, ok)
         bag, ct, (gid, rows) = self._update_rows(params, xs, out_ct, fwd)
         table = self._flat(params["kernel"])
         if rows is not None:
@@ -494,7 +796,12 @@ class _FlatTableBag(Op):
         row's duplicates summed in lookup order, then the optimizer's row
         math on that row's weight (the residual of ``apply_with_fwd``
         when given, else the table row) and state; untouched rows keep
-        both. ``step``: the optimizer's step before this one."""
+        both. ``step``: the optimizer's step before this one.
+        Row-sharded: the routed update (``row_sharded_opt_update``);
+        ``slabs`` may nest {slab: {param: tensor}} for the hybrid."""
+        if self._row_plan is not None:
+            return self._row_opt_update(params, xs[0], out_ct, opt, slabs,
+                                        step, ok)
         bag, ct, (gid, rows) = self._update_rows(params, xs, out_ct, fwd)
         stateful_update_rows(
             self._flat(params["kernel"]), gid, ct, rows,
@@ -528,9 +835,18 @@ class EmbeddingBagStacked(_FlatTableBag):
     global stacked ids slot·rows + id, in the (batch, table, bag) order
     of the JAX op's ``gidx``. The write route is closed there, as in the
     JAX op (``_fwd_residual_ok`` needs an unsharded table), and so are
-    the stateful updates and host tables (ROADMAP queue 1 item 7)."""
+    the stateful updates and host tables (ROADMAP queue 1 item 7).
+
+    Row sharding across ranks (``configure_row_shard``) splits the rows
+    of every table instead: ``kernel`` is the rank's cold block of each
+    table, (T, rows_local, d) in logical table order, and under the
+    hybrid ``hot_kernel`` the replicated head, (T, H, d). Lookup ids keep
+    the logical table order (a row's lookups keep their relative order
+    under the JAX storage permutation, so the canonical order, and the
+    result, are the same)."""
 
     type_name = "EmbedStack"
+    _hot_split_ok = True
 
     def __init__(self, model, input_tensor, num_tables: int,
                  num_entries: int, out_dim: int, aggr: str = AGGR_MODE_SUM,
@@ -596,11 +912,35 @@ class EmbeddingBagStacked(_FlatTableBag):
         return torch.tensor(order, dtype=torch.int64, device=device)
 
     def param_defs(self):
+        plan, H = self._row_plan, self._hot_rows
+        if plan is not None:
+            out = {"kernel": ParamDef(
+                (self.num_tables, plan.rows_local, self.out_dim),
+                torch.float32, self.kernel_initializer)}
+            if H > 0:
+                out["hot_kernel"] = ParamDef(
+                    (self.num_tables, H, self.out_dim), torch.float32,
+                    self.kernel_initializer)
+            return out
         return {"kernel": ParamDef(
             (self.local_tables, self.num_entries, self.out_dim),
             torch.float32, self.kernel_initializer)}
 
+    def _row_shard_geometry(self):
+        from ..utils.weights import _pack_factor
+        return (self.num_entries, _pack_factor(self.out_dim,
+                                               self.num_entries),
+                self.num_tables)
+
     def init_params(self, generator, device):
+        if self._row_plan is not None:
+            # every table drawn whole, in logical order, as on one card;
+            # this rank's rows of each kept
+            blocks = [self._row_block(self.kernel_initializer(
+                generator, (self.num_entries, self.out_dim), torch.float32,
+                device)) for _ in range(self.num_tables)]
+            return {pn: torch.stack([b[pn] for b in blocks])
+                    for pn in blocks[0]}
         # each table at its own (rows, d) shape, so shape-dependent
         # initializers (Glorot fans) match the JAX op's per-table draws;
         # a rank holding some tables draws them all, in logical order, and
@@ -708,6 +1048,7 @@ class EmbeddingBagStacked(_FlatTableBag):
         table t lives at stored slot inv[t] (``_table_order``'s
         inverse), logical row ix at packed row ix // r of that slot."""
         from ..utils.weights import _pack_factor
+        self._refuse_row_delta()
         r, rows = _pack_factor(self.out_dim, self.num_entries), \
             self.num_entries
         g = np.asarray(idx_np).astype(np.int64) % rows   # (batch, T, bag)
@@ -748,6 +1089,11 @@ class EmbeddingBagConcat(_FlatTableBag):
     table as the per-table ops would. The JAX op stores the table
     lane-packed as (total_rows/r, r·d) (``_pack_factor``); the port keeps
     it logical, and ``utils.weights`` carries it across by a reshape.
+
+    Row-sharded across ranks (``configure_row_shard``), ``kernel`` is the
+    rank's block of the concatenated rows, (total_rows / degree, d),
+    routed by concatenated row id; there is no hot split, as in the JAX
+    op.
 
     input: int (batch, T, bag) -> (batch, T, d)."""
 
@@ -808,18 +1154,34 @@ class EmbeddingBagConcat(_FlatTableBag):
         return assigner.assign(pc.degrees)
 
     def param_defs(self):
-        return {"kernel": ParamDef((self.total_rows, self.out_dim),
-                                   torch.float32, self.kernel_initializer)}
+        rows = (self.total_rows if self._row_plan is None
+                else self._row_plan.rows_local)
+        return {"kernel": ParamDef((rows, self.out_dim), torch.float32,
+                                   self.kernel_initializer)}
 
     def init_params(self, generator, device):
         # each table at its own (rows_t, d) shape, at its offset; the pad
-        # rows stay zero
+        # rows stay zero (row-sharded: the rank's block of that kernel)
         kernel = torch.zeros((self.total_rows, self.out_dim),
                              dtype=torch.float32, device=device)
         for off, rows in zip(self._offsets, self.table_sizes):
             kernel[off:off + rows] = self.kernel_initializer(
                 generator, (rows, self.out_dim), torch.float32, device)
+        if self._row_plan is not None:
+            return self._row_block(kernel)
         return {"kernel": kernel}
+
+    # ---- row sharding hooks (see configure_row_shard) ---------------
+    def _row_shard_geometry(self):
+        from ..utils.weights import _pack_factor
+        return self.total_rows, _pack_factor(self.out_dim,
+                                             self.total_rows), 1
+
+    def _row_route(self, g):
+        """Concatenated rows -> (owner, local, gid, None): the dedup key
+        is the concatenated row id; no hot split."""
+        rl = self._row_plan.rows_local
+        return g // rl, g % rl, g, None
 
     def _global_ids(self, idx):
         """(batch, T, bag) ids -> (batch*T, bag) rows of the concatenated
@@ -847,6 +1209,7 @@ class EmbeddingBagConcat(_FlatTableBag):
         """Rows of the JAX op's stored kernel, (total_rows/r, r*d), that
         this batch touches: r logical rows a packed row."""
         from ..utils.weights import _pack_factor
+        self._refuse_row_delta()
         r = _pack_factor(self.out_dim, self.total_rows)
         return np.unique(self.flat_lookup_ids(idx_np) // r)
 

@@ -216,35 +216,115 @@ def probe_mesh(mesh, deadline_s: float = 30.0) -> float:
 
 
 class Collectives:
-    """The training step's collectives over the process group, each
-    counted: ``stats[name]`` holds calls, bytes this rank sent and
-    received, and host seconds (the copies through the host included
-    under gloo). Under gloo a card tensor goes through a host copy, as
-    gloo moves host memory; under NCCL it stays on the card."""
+    """The training step's collectives over the process group or a group
+    of its ranks (``group``, from ``axis_groups``), each counted:
+    ``stats[name]`` holds calls, ``bytes`` this rank sent and received
+    less the blocks it kept, ``sent`` (the buffers it handed over, its
+    own block included where the collective takes one: the figure the
+    row exchange's ``dense_exchange_hlo_bytes`` predicts) and host
+    seconds (the copies through the host included under gloo). Under
+    gloo a card tensor goes through a host copy, as gloo moves host
+    memory; under NCCL it stays on the card."""
+
+    NAMES = ("all_to_all", "all_reduce", "all_gather", "p2p")
 
     def __init__(self):
         self.staged = dist.get_backend() == "gloo"
-        self.stats = {k: {"calls": 0, "bytes": 0, "seconds": 0.0}
-                      for k in ("all_to_all", "all_reduce")}
+        self.stats = {k: {"calls": 0, "bytes": 0, "sent": 0, "seconds": 0.0}
+                      for k in self.NAMES}
+        self._groups = {}
 
-    def _count(self, name, nbytes, t0):
+    def _count(self, name, nbytes, t0, sent=0):
         s = self.stats[name]
         s["calls"] += 1
         s["bytes"] += int(nbytes)
+        s["sent"] += int(sent)
         s["seconds"] += time.perf_counter() - t0
 
-    def all_to_all(self, chunks: torch.Tensor) -> torch.Tensor:
-        """``chunks`` (world, ...): chunk j goes to rank j; returns
-        (world, ...) whose chunk i came from rank i."""
+    def _host(self, t):
+        """(the tensor gloo moves, whether it is a host copy)."""
+        host = self.staged and t.is_cuda
+        return (t.cpu() if host else t), host
+
+    def axis_groups(self, mesh, axes, rank: int):
+        """(group, ranks) of ``rank`` over the mesh axes ``axes``: the
+        ranks that differ from it only on those axes, in the order of
+        their index over ``axes`` (ascending rank, as the mesh lays ranks
+        out row-major). The group is None for the whole process group or
+        for a rank alone (``axes`` empty). Every group over ``axes`` is
+        made at the first call, by ``dist.new_group`` in one order on
+        every rank (each rank must make every group, its own or not), and
+        kept for later calls."""
+        axes = tuple(axes)
+        key = (mesh.axis_names, mesh.axis_sizes, mesh.ranks, axes)
+        if key not in self._groups:
+            others = [a for a in mesh.axis_names if a not in axes]
+            blocks = {}
+            for r in mesh.ranks:
+                c = mesh.coords(r)
+                blocks.setdefault(tuple(c[a] for a in others), []).append(r)
+            made = {}
+            for members in blocks.values():
+                members = sorted(members,
+                                 key=lambda r: mesh.linear_index(r, axes))
+                whole = len(members) == world_size() or len(members) == 1
+                g = None if whole else dist.new_group(members)
+                for r in members:
+                    made[r] = (g, members)
+            self._groups[key] = made
+        return self._groups[key][rank]
+
+    def all_to_all(self, chunks: torch.Tensor, group=None) -> torch.Tensor:
+        """``chunks`` (k, ...), k the ranks of ``group`` (None: of the
+        process group): chunk j goes to its rank j; returns (k, ...) whose
+        chunk i came from its rank i."""
         t0 = time.perf_counter()
         src = chunks.contiguous()
-        host = self.staged and src.is_cuda
-        send = src.cpu() if host else src
+        send, host = self._host(src)
         recv = torch.empty_like(send)
-        dist.all_to_all_single(recv, send)
+        dist.all_to_all_single(recv, send, group=group)
         out = recv.to(src.device) if host else recv
         # sent and received, less this rank's own chunk
-        self._count("all_to_all", 2 * send.nbytes * (1 - 1 / len(src)), t0)
+        self._count("all_to_all", 2 * send.nbytes * (1 - 1 / len(src)), t0,
+                    send.nbytes)
+        return out
+
+    def ring_all_to_all(self, chunks: torch.Tensor, peers, me: int
+                        ) -> torch.Tensor:
+        """``all_to_all`` over the ranks ``peers`` (global ranks, in
+        group order; this rank is ``peers[me]``) in len(peers) - 1
+        point-to-point rounds: round s sends chunk (me + s) mod k to that
+        peer and receives peer (me - s) mod k's chunk into its slot; this
+        rank's own chunk never leaves it. The result is position for
+        position the fused collective's."""
+        t0 = time.perf_counter()
+        src = chunks.contiguous()
+        buf, host = self._host(src)
+        out = buf.clone()
+        k = len(peers)
+        for s in range(1, k):
+            to, frm = (me + s) % k, (me - s) % k
+            ops = [dist.P2POp(dist.irecv, out[frm], peers[frm]),
+                   dist.P2POp(dist.isend, buf[to].contiguous(), peers[to])]
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        nb = buf.nbytes * (k - 1) // k
+        self._count("p2p", 2 * nb, t0, nb)
+        return out.to(src.device) if host else out
+
+    def all_gather(self, t: torch.Tensor, group=None, size: int = None
+                   ) -> torch.Tensor:
+        """Every rank's ``t`` of ``group`` (None: the process group; its
+        ``size`` ranks), concatenated along dim 0 in group order."""
+        t0 = time.perf_counter()
+        src = t.contiguous()
+        send, host = self._host(src)
+        k = size if size is not None else world_size()
+        parts = [torch.empty_like(send) for _ in range(k)]
+        dist.all_gather(parts, send, group=group)
+        out = torch.cat(parts)
+        out = out.to(src.device) if host else out
+        self._count("all_gather", 2 * send.nbytes * (k - 1), t0, send.nbytes)
         return out
 
     def all_reduce_sum_(self, t: torch.Tensor) -> torch.Tensor:
@@ -257,5 +337,5 @@ class Collectives:
             t.copy_(h)
         else:
             dist.all_reduce(t)
-        self._count("all_reduce", 2 * t.nbytes, t0)
+        self._count("all_reduce", 2 * t.nbytes, t0, t.nbytes)
         return t

@@ -58,6 +58,9 @@ import numpy as np
 import torch
 
 from ..obs import metrics as obsm
+# the owner math of the row-sharded training exchange, shared with it
+from ..parallel.alltoall import (row_owners, shard_row_ranges,  # noqa: F401
+                                 shard_rows_local)
 from ..obs import trace as obstrace
 from ..quant.store import QuantTable
 from ..utils import faults
@@ -154,31 +157,6 @@ class TopKPartials(NamedTuple):
     versions: Dict[int, int]             # shard slot -> version read
     degraded: bool
     dropped_slots: List[int]
-
-
-# --- the owner math (copies of dlrm_flexflow_tpu.parallel.alltoall's) ----
-def shard_rows_local(rows: int, nshards: int) -> int:
-    """Rows per shard (ceil-division block size)."""
-    if nshards < 1:
-        raise ValueError(f"nshards must be >= 1, got {nshards}")
-    return -(-int(rows) // int(nshards))
-
-
-def shard_row_ranges(rows: int, nshards: int) -> list:
-    """[(lo, hi), ...] per shard, tiling [0, rows) exactly: contiguous
-    equal blocks of ceil(rows / nshards), the last possibly short,
-    possibly empty."""
-    per = shard_rows_local(rows, nshards)
-    return [(min(s * per, rows), min((s + 1) * per, rows))
-            for s in range(nshards)]
-
-
-def row_owners(ids, rows: int, nshards: int) -> np.ndarray:
-    """Owning shard per flat row id: ``id // rows_local``, clamped into
-    range (ids wrap ``% rows`` first, as every host lookup does)."""
-    per = shard_rows_local(rows, nshards)
-    g = np.asarray(ids, np.int64) % max(int(rows), 1)
-    return np.minimum(g // per, nshards - 1).astype(np.int64)
 
 
 def as_device_table(table, device) -> QuantTable:

@@ -25,6 +25,17 @@ order: ``params_from_jax`` takes those slots of the JAX stored kernel,
 and ``params_to_jax`` gives them back in the JAX layout, (T/D, N/r,
 r·d), so the ranks' blocks in rank order are the JAX kernel.
 
+Row-sharded across ranks (``configure_row_shard``), a rank holds its
+row block of each table: rows [H + s·rl, H + (s+1)·rl) of each logical
+table, s the rank's shard, rl the plan's ``rows_local``, H the hybrid's
+hot rows (0 without), which is the rows [s·rl/r, (s+1)·rl/r) of the JAX
+stored cold kernel ((T, (N - H)/r, r·d) stacked, ((N - H), d) for an
+``Embedding``, (total_rows/r, r·d) concatenated), and the replicated
+``hot_kernel`` ((T, H/r, r·d) stacked, (H, d) per table). Both directions
+carry the block, the hot head and, through ``opt_state_*``, their
+slabs, bitwise; the stacked tables in logical order on the port's side,
+in storage order on the JAX side, as unsharded.
+
 Host-resident tables are no parameters: the ops whose tables live on
 the host (``model._host_resident_list``) have no entry in ``params``
 here or in the JAX model, and ``host_param_shapes`` gives their host
@@ -90,7 +101,9 @@ def param_from_jax(model, op, pn: str, v) -> torch.Tensor:
     model's device (checked against the op's ParamDef)."""
     d = op.param_defs()[pn]
     v = np.array(v, dtype=np.float32)   # a writable copy
-    if isinstance(op, EmbeddingBagStacked) and pn == "kernel":
+    if getattr(op, "_row_plan", None) is not None:
+        v = _row_block_from_jax(op, pn, v)
+    elif isinstance(op, EmbeddingBagStacked) and pn == "kernel":
         v = v.reshape(op.num_tables, op.num_entries, op.out_dim)
         if op._shard is not None:
             v = v[op.local_slots().start:op.local_slots().stop]
@@ -104,6 +117,29 @@ def param_from_jax(model, op, pn: str, v) -> torch.Tensor:
                          f"{v.shape}, the port expects {d.shape}")
     return torch.from_numpy(np.ascontiguousarray(v)).to(
         device=model.device, dtype=d.dtype)
+
+
+def _row_block_from_jax(op, pn: str, v):
+    """A row-sharded op's ``pn`` from the JAX stored array (the whole
+    cold kernel, or the rank's block of it as ``params_to_jax`` gives it;
+    or the hot head): the rank's block, in the port's layout."""
+    d, rl = op.out_dim, op._row_plan.rows_local
+    if isinstance(op, EmbeddingBagStacked):
+        v = v.reshape(op.num_tables, -1, d)
+        if op._table_order is not None:
+            v = v[np.argsort(np.asarray(op._table_order))]
+    else:
+        v = v.reshape(-1, d)
+    if pn == "kernel" and v.shape[-2] == rl * op._row_plan.nshards:
+        s = op._row_exchange().shard
+        v = v[..., s * rl:(s + 1) * rl, :]
+    return v
+
+
+def _row_block_to_jax(op, pn: str, v, shape):
+    if isinstance(op, EmbeddingBagStacked) and op._table_order is not None:
+        v = v[np.asarray(op._table_order)]
+    return v.reshape(shape)
 
 
 def params_from_jax(model, params_np: Dict[str, Dict[str, np.ndarray]]
@@ -161,7 +197,15 @@ def jax_param_shapes(model) -> Dict[str, Dict[str, tuple]]:
     for op in _device_ops(model):
         shapes = {pn: tuple(int(x) for x in d.shape)
                   for pn, d in op.param_defs().items()}
-        if isinstance(op, EmbeddingBagStacked) and "kernel" in shapes:
+        if getattr(op, "_row_plan", None) is not None:
+            # the rank's block, lane-packed as the JAX op stores it
+            if isinstance(op, (EmbeddingBagStacked, EmbeddingBagConcat)):
+                rows = (op.num_entries if isinstance(op, EmbeddingBagStacked)
+                        else op.total_rows)
+                r = _pack_factor(op.out_dim, rows)
+                shapes = {pn: s[:-2] + (s[-2] // r, s[-1] * r)
+                          for pn, s in shapes.items()}
+        elif isinstance(op, EmbeddingBagStacked) and "kernel" in shapes:
             r = _pack_factor(op.out_dim, op.num_entries)
             shapes["kernel"] = (op.local_tables, op.num_entries // r,
                                 op.out_dim * r)
@@ -180,7 +224,9 @@ def params_to_jax(model, params: Dict[str, Dict[str, torch.Tensor]]
         mine = {}
         for pn, v in params[op.name].items():
             v = v.detach().cpu().numpy()
-            if isinstance(op, EmbeddingBagStacked) and pn == "kernel":
+            if getattr(op, "_row_plan", None) is not None:
+                v = _row_block_to_jax(op, pn, v, shapes[op.name][pn])
+            elif isinstance(op, EmbeddingBagStacked) and pn == "kernel":
                 if op._table_order is not None and op._shard is None:
                     v = v[np.asarray(op._table_order)]
                 v = v.reshape(shapes[op.name][pn])

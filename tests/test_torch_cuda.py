@@ -58,7 +58,13 @@ kernel BITWISE its plain version on the card, nearest for int8, fp8 and
 bf16 and both stochastic entries (the caller's u, and Philox against the
 plain version's ``philox_uniform``: the same IEEE operations, one
 rounding each); its Philox codes floor or floor + 1 of x / s and the
-mean of 2,048 draws within 6 standard errors of x / s.
+mean of 2,048 draws within 6 standard errors of x / s. The row-sharded
+exchange's owner side at a rank's shape of the full-width DLRM split over
+2 ranks (8,192 lookups a rank, 2 peers, a 4M-row block): the canonical
+combine of a received buffer (segment sums on the scatter kernel) and its
+routed SGD, stateful and gradient updates BITWISE their plain versions on
+the CPU, sentinel pads included; the owner's gather of received ids with
+the sentinel clamped (the bag kernel at bag 1) BITWISE its plain version.
 """
 
 import numpy as np
@@ -2199,3 +2205,91 @@ def test_stochastic_rounding_step_launches_once_per_table(cuda):
         y = v / torch.where(s > 0, s, torch.ones_like(s))[:, None]
         errs.append((y - torch.round(y)).abs().amax(dim=1))
     assert float(torch.minimum(*errs).max()) < 1e-3
+
+
+# ---- the row-sharded exchange's owner side (parallel/alltoall.py) ---------
+ROW_S, ROW_N, ROW_D = 2, 8192, 64          # peers, lookups a rank, width
+ROW_BLOCK = 8 * 524_288                     # 8 tables x 1M rows / 2 ranks
+
+
+def _received(cuda, seed):
+    """What a rank of a 2-rank full-width run receives in its update
+    exchange: a block of ROW_N slots from each peer, its lookups first
+    (duplicate-heavy row ids in the block, the peer's global positions in
+    ascending order), then pads (the sentinel row, int32-max position,
+    zero rows)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    rid, pos, upd = [], [], []
+    for j in range(ROW_S):
+        k = int(torch.randint(ROW_N // 2, ROW_N, (1,), generator=g))
+        hot = torch.randint(0, 64, (k,), generator=g)
+        cold = torch.randint(0, ROW_BLOCK, (k,), generator=g)
+        ids = torch.where(torch.rand(k, generator=g) < 0.5, hot, cold)
+        p = torch.sort(torch.randperm(ROW_N, generator=g)[:k]).values
+        rid.append(torch.cat([ids, torch.full((ROW_N - k,), ROW_BLOCK)]))
+        pos.append(torch.cat([j * ROW_N + p,
+                              torch.full((ROW_N - k,), 2 ** 31 - 1)]))
+        upd.append(torch.cat([torch.randn(k, ROW_D, generator=g),
+                              torch.zeros(ROW_N - k, ROW_D)]))
+    return (torch.cat(rid).to(cuda), torch.cat(pos).to(cuda),
+            torch.cat(upd).to(cuda))
+
+
+@pytest.mark.parametrize("mode", ["grad", "sgd", "momentum", "adam"])
+def test_routed_updates_match_plain_at_a_rank_shape(cuda, mode):
+    from dlrm_flexflow_tpu_torch.parallel.alltoall import _combine_received
+    rid, pos, upd = _received(cuda, seed=len(mode))
+    before = scatter_add_rows.launches
+    got_id, got_p = _combine_received(rid, pos, upd, ROW_N, ROW_BLOCK)
+    want_id, want_p = _combine_received(rid.cpu(), pos.cpu(), upd.cpu(),
+                                        ROW_N, ROW_BLOCK)
+    torch.cuda.synchronize()
+    assert scatter_add_rows.launches == before + 1     # the segment sums
+    assert torch.equal(got_id.cpu(), want_id)
+    assert torch.equal(got_p.cpu(), want_p)
+    assert int((want_id < 0).sum()) > 0                 # pads are there
+    g = torch.Generator(device=cuda).manual_seed(3)
+    table = torch.randn(ROW_BLOCK, ROW_D, device=cuda, generator=g)
+    if mode in ("grad", "sgd"):
+        got = torch.zeros_like(table) if mode == "grad" else table.clone()
+        want = got.cpu()
+        scale = 1.0 if mode == "grad" else -0.01
+        scatter_add_rows(got, got_id, got_p, scale, ids_in_range=True)
+        scatter_add_rows_reference(want, want_id, want_p, scale)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+        return
+    opt = STATEFUL[mode]()
+    slabs = {k: torch.rand(ROW_BLOCK, ROW_D, device=cuda, generator=g)
+             for k in opt.sparse_slab_names()}
+    alpha_t = opt.alpha_t(torch.tensor(2, dtype=torch.int32, device=cuda))
+    got, got_s = table.clone(), {k: v.clone() for k, v in slabs.items()}
+    stateful_update_rows(got, got_id, got_p, None, got_s, opt.row_params(),
+                         alpha_t, ids_in_range=True)
+    want, want_s = table.cpu(), {k: v.cpu() for k, v in slabs.items()}
+    stateful_update_rows_reference(
+        want, want_id, want_p, None, want_s, opt.row_params(),
+        None if alpha_t is None else alpha_t.cpu())
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    for k in slabs:
+        assert torch.equal(got_s[k].cpu(), want_s[k]), k
+
+
+def test_owner_gather_matches_plain_at_a_rank_shape(cuda):
+    """The owner's gather of the ids it received, the sentinel (a pad)
+    clamped to the last row and its row zeroed, as the exchange does."""
+    from dlrm_flexflow_tpu_torch.parallel.alltoall import _gather_rows
+    rid, _, _ = _received(cuda, seed=11)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    table = torch.randn(ROW_BLOCK, ROW_D, device=cuda, generator=g)
+    valid = rid < ROW_BLOCK
+    before = embedding_bag.launches
+    got = torch.where(valid[:, None],
+                      _gather_rows(table, rid.clamp(max=ROW_BLOCK - 1)), 0.0)
+    torch.cuda.synchronize()
+    assert embedding_bag.launches == before + 1
+    want = embedding_bag_reference(
+        table.cpu(), rid.cpu().clamp(max=ROW_BLOCK - 1).reshape(-1, 1))
+    want = torch.where(valid.cpu()[:, None], want, 0.0)
+    assert torch.equal(got.cpu(), want)

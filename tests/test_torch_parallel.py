@@ -183,7 +183,8 @@ def test_compile_resolves_criteo_shapes_as_jax(ndev, source):
 def test_dlrm_strategy_refuses_what_it_cannot_split():
     """Over more than one device, the JAX strategy's other branches shard
     what the port cannot split across ranks yet: they raise, naming item
-    7; over one device they give the JAX configs."""
+    7; over one device they give the JAX configs. ``row_shard=True`` over
+    2 and 4 devices gives the JAX map, for every embedding form."""
     for fuse, arch in ((True, dict(ARCH, embedding_size=[64, 32] * 4)),
                        (False, ARCH)):
         m = pt.FFModel(pt.FFConfig(batch_size=BS, device="cpu"))
@@ -195,10 +196,19 @@ def test_dlrm_strategy_refuses_what_it_cannot_split():
         jax_build_dlrm(jmodel, JaxDLRMConfig(**arch), fuse_embeddings=fuse)
         assert _as_dicts(dlrm_strategy(m, cfg, 1)) == _as_dicts(
             jax_strategy(jmodel, JaxDLRMConfig(**arch), 1))
-    m = pt.FFModel(pt.FFConfig(batch_size=BS, device="cpu"))
-    build_dlrm(m, DLRMConfig(**ARCH))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        dlrm_strategy(m, DLRMConfig(**ARCH), 2, row_shard=True)
+    for fuse, arch in ((True, ARCH),
+                       (True, dict(ARCH, embedding_size=[64, 32] * 4)),
+                       (False, ARCH)):
+        m = pt.FFModel(pt.FFConfig(batch_size=BS, device="cpu"))
+        build_dlrm(m, DLRMConfig(**arch), fuse_embeddings=fuse)
+        jmodel = ff.FFModel(ff.FFConfig(batch_size=BS))
+        jax_build_dlrm(jmodel, JaxDLRMConfig(**arch), fuse_embeddings=fuse)
+        for n in (2, 4):
+            got = dlrm_strategy(m, DLRMConfig(**arch), n, row_shard=True)
+            assert _as_dicts(got) == _as_dicts(jax_strategy(
+                jmodel, JaxDLRMConfig(**arch), n, row_shard=True))
+            assert all(got[op.name].param_degree == n for op in m.ops
+                       if type(op).__name__.startswith("Embed"))
 
 
 def test_process_group_pieces_without_a_group(monkeypatch):
