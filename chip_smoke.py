@@ -420,6 +420,30 @@ Phases:
    balanced and the padded exchange's bytes, and the distinct ids a rank
    under zipf print. ``python3 chip_smoke.py --rowshard`` runs only this
    phase.
+16. tables split — DLRM across ranks under the rest of ``dlrm_strategy``
+   and the reference's per-table files (``parallel/split.py``), run after
+   phase 15. Kernel 4 at a Criteo-Kaggle row block's shape (13,312
+   lookups of a global batch of 512, a block of 5,693,440 rows, d = 16)
+   bitwise its plain version on the CPU, timed beside it and
+   ``index_add_``. Then TP_WORLD ``--tablepar-rank`` children on the card
+   (gloo): (a) the launcher with run_criteo_kaggle.sh's flags at
+   ``-ll:gpu 2 -b 512``, no ``--import`` (the concatenated table, 0.73
+   GB, in 2 row blocks); (b) the same under a per-table file (table i on
+   device i % 2: 2 x 7,217,152 rows, each rank's block exactly its
+   device's tables, the padding warned of); (c) ``build_dlrm(
+   fuse_embeddings=False)`` at run_random.sh's widths, each of the 8
+   Embeddings of 1M x 64 split by width. Then TP_WORLD4 children: (d)
+   run_random.sh's stacked tables over 2 of the 4 ranks (a per-table
+   file naming 2 devices) with the first top Linear split by channel
+   [1, 2]. Each run TP_STEPS steps against a world-1 run from the same
+   seed, every count at 0 just before and read just after its steps:
+   bitwise at the start, the losses within DIST_LOSS_RTOL, each update
+   within DIST_UPDATE_TOL of its parameter's largest, every copy of a
+   piece bitwise equal across the ranks, exact launch counts a step and
+   no plain version; (a) and (b) also through the launcher's 65 steps.
+   Each run's step ms, every collective's calls, bytes and host seconds
+   a step print. ``python3 chip_smoke.py --tablepar`` runs only this
+   phase.
 
 The last two lines are a JSON object with every kernel's numbers and
 ``{"ok": true, "device": {...}}``. Without a GPU, or when any check
@@ -667,6 +691,19 @@ RS_HOT = 0.05
 RS_FORMS = (("dedup", dict(exchange="dedup")),
             ("hybrid", dict(exchange="dedup", hot_fraction=RS_HOT)),
             ("overlap", dict(overlap=True)))
+# tables split across ranks (phase 16): run_criteo_kaggle.sh's flags at
+# TP_WORLD devices (-b TP_KAGGLE_B) through the launcher, with no
+# --import (the concatenated table in row blocks) and under a per-table
+# file (table i on device i % TP_WORLD); the unfused "cat" at
+# run_random.sh's widths, each Embedding split by width over TP_WORLD
+# ranks; TP_WORLD4 ranks for run_random.sh's stacked tables over 2 of
+# them (a per-table file naming 2 devices) with TP_LINEAR split by
+# channel [1, 2]; each run TP_STEPS steps held to a world-1 run
+TP_WORLD = 2
+TP_WORLD4 = 4
+TP_KAGGLE_B = 256 * TP_WORLD
+TP_STEPS = 3
+TP_LINEAR = "top_dense_0"
 # the checkout's root, where the serving app runs as a module
 REPO = Path(__file__).resolve().parent
 # where the launch phase writes its .ffbin and checkpoints: the build
@@ -7089,22 +7126,23 @@ RS_LAUNCHES = {
 }
 
 
-def run_rank_children(flag, marker, work, timeout=300):
-    """DIST_WORLD ``chip_smoke.py FLAG RANK WORLD STORE`` children on the
+def run_rank_children(flag, marker, work, timeout=300, world=DIST_WORLD):
+    """``world`` ``chip_smoke.py FLAG RANK WORLD STORE`` children on the
     card, the store in ``work``; each child's one ``MARKER {json}`` line,
     in rank order. Every child is stopped before this returns."""
     import os
     env = {k: v for k, v in os.environ.items()
            if not k.startswith("FF_FAULT_")}
     env["PYTHONPATH"] = str(REPO)
+    work.mkdir(parents=True, exist_ok=True)
     store = work / "store"
     procs, logs, outs = [], [], []
     try:
-        for r in range(DIST_WORLD):
+        for r in range(world):
             logs.append(open(work / f"rank{r}.log", "w+"))
             procs.append(subprocess.Popen(
                 [sys.executable, str(REPO / "chip_smoke.py"), flag,
-                 str(r), str(DIST_WORLD), str(store)],
+                 str(r), str(world), str(store)],
                 stdout=subprocess.PIPE, stderr=logs[-1], text=True, env=env))
         for r, p in enumerate(procs):
             try:
@@ -7287,6 +7325,504 @@ def _rs_report(outs):
           f"{DIST_WORLD} -b {TRAIN_B * DIST_WORLD}, the concatenated table "
           f"split by rows): {lr['steps']} steps, {lr['throughput']:.2f} "
           f"samples/s; collectives {lr['collectives']}")
+
+
+# ---------------------------------------------------------------------
+# phase 16: DLRM across ranks under the rest of dlrm_strategy and the
+# reference's per-table files (parallel/split.py)
+# ---------------------------------------------------------------------
+def tablepar_kernel(dev):
+    """Kernels 4 and 1 at a Criteo-Kaggle row block's shape: the global
+    batch of TP_KAGGLE_B (run_criteo_kaggle.sh at -ll:gpu 2), 26 lookups
+    a sample over the concatenated rows, on rank 0's block of half of
+    them (5,693,440 rows, d = 16). Kernel 4 is held bitwise to its plain
+    version on the CPU, timed beside it and ``index_add_`` after a masked
+    select; kernel 1 takes the block's masked bags as the row-block
+    lookup gives them (bag 1, the ids outside the block -1), held bitwise
+    to its plain version on the same inputs, timed beside it and
+    ``F.embedding_bag`` with the outside ids weighted 0. Returns {name:
+    row} (the kernel line keeps phases 1 and 13's)."""
+    dcfg = DLRMConfig.criteo_kaggle()
+    sizes = np.asarray(dcfg.embedding_size, np.int64)
+    offs = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    total = -(-int(sizes.sum()) // 8192) * 8192
+    rows, lo, d = total // TP_WORLD, 0, KAGGLE_D
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    block = 0.5 * torch.randn(rows, d, device=dev, generator=gen)
+    sets = []
+    for s in range(ID_SETS):
+        x, _ = synthetic_batch(dcfg, TP_KAGGLE_B, seed=160 + s)
+        ids = (np.asarray(x["sparse"], np.int64) % sizes[None, :, None]
+               + offs[None, :, None]).reshape(-1)
+        sets.append((torch.as_tensor(ids, device=dev),
+                     torch.randn(ids.size, d, device=dev, generator=gen)))
+    n = sets[0][0].numel()
+    ids, upd = sets[0]
+    got = scat_mod.sharded_scatter_add_rows(block.clone(), ids, upd, lo,
+                                            scale=-LR).cpu()
+    want = scat_mod.sharded_scatter_add_rows_reference(
+        block.cpu(), ids.cpu(), upd.cpu(), lo, scale=-LR)
+    err = float((got - want).abs().max())
+    check(torch.equal(got, want), f"sharded_scatter_add_rows at a Kaggle "
+          f"row block disagrees with its plain version: {err}")
+    del got, want
+    inside = (ids >= lo) & (ids < lo + rows)
+    n_in, m = int(inside.sum()), int(torch.unique(ids[inside]).numel())
+    b_ms, b_by = bound(n * 8 + n * d * 4 + 2 * m * d * 4, 2 * n_in * d)
+    scaled = [(i, -LR * u) for i, u in sets]
+
+    def library(i, scaled_upd):
+        keep = (i >= lo) & (i < lo + rows)
+        block.index_add_(0, i[keep] - lo, scaled_upd[keep])
+
+    src = "dlrm_flexflow_tpu_torch/csrc/scatter_rows.cu"
+    r = {"name": "sharded_scatter_add_rows", "route": "cuda", "source": src,
+         "replaces": "dlrm_flexflow_tpu/ops/pallas/embedding_kernel.py:584",
+         "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+         **timed("", lambda i, u: scat_mod.sharded_scatter_add_rows(
+             block, i, u, lo, scale=-LR), sets),
+         **timed("plain_", lambda i, u:
+                 scat_mod.sharded_scatter_add_rows_reference(
+                     block, i, u, lo, scale=-LR), sets),
+         **timed("library_", library, scaled)}
+    print_row(r, f" (a Kaggle row block: n={n} lookups of a global batch "
+              f"of {TP_KAGGLE_B}, {n_in} in a {rows:,}-row block, {m} "
+              f"distinct rows there, d={d}; bitwise its plain version; "
+              f"library: index_add_ after a masked select)")
+    del scaled
+    # kernel 1 on the block's masked bags: what the row-block lookup runs
+    masked = []
+    for i, _ in sets:
+        local = i - lo
+        keep = (local >= 0) & (local < rows)
+        masked.append((torch.where(keep, local, -1).reshape(-1, 1),))
+    got = bag_mod.embedding_bag(block, masked[0][0], "sum")
+    want = bag_mod.embedding_bag_reference(block, masked[0][0], "sum")
+    torch.cuda.synchronize()
+    berr = float((got - want).abs().max())
+    check(torch.equal(got, want), f"embedding_bag on a Kaggle row block's "
+          f"masked bags disagrees with its plain version: {berr}")
+    del got, want
+    bb_ms, bb_by = bound(n * 8 + n_in * d * 4 + n * d * 4, n_in * d)
+
+    def bag_library(i):
+        keep = i >= 0
+        return torch.nn.functional.embedding_bag(
+            torch.where(keep, i, 0), block, mode="sum",
+            per_sample_weights=keep.to(block.dtype))
+
+    src = "dlrm_flexflow_tpu_torch/csrc/embedding_bag.cu"
+    rb = {"name": "embedding_bag", "route": "cuda", "source": src,
+          "replaces": "dlrm_flexflow_tpu/ops/pallas/embedding_kernel.py:55",
+          "max_abs_err": berr, "bound_ms": bb_ms, "bound_by": bb_by,
+          **timed("", lambda i: bag_mod.embedding_bag(block, i, "sum"),
+                  masked),
+          **timed("plain_", lambda i: bag_mod.embedding_bag_reference(
+              block, i, "sum"), masked),
+          **timed("library_", bag_library, masked)}
+    print_row(rb, f" (a Kaggle row block's masked bags: n={n} bags of 1, "
+              f"{n_in} in the {rows:,}-row block, the rest -1, d={d}; "
+              f"bitwise its plain version; library: F.embedding_bag with "
+              f"the outside ids weighted 0)")
+    del block, sets, masked
+    return {"sharded_scatter_add_rows": r, "embedding_bag": rb}
+
+
+def _tp_per_table_file(work, ntables, ndev, world, rank, linear=False):
+    """The reference's per-table keys (table i on device i % ndev), every
+    other op data-parallel over ``world``; with ``linear`` the first top
+    Linear split by channel over 2 devices. Written in ``work``, a file
+    a rank."""
+    ops = [{"name": f"embedding{i}", "device_type": "TPU", "dims": [1, 1],
+            "device_ids": [i % ndev], "memory_types": []}
+           for i in range(ntables)]
+    ops += [{"name": k, "device_type": "TPU", "dims": [world, 1],
+             "device_ids": list(range(world)), "memory_types": []}
+            for k in ("linear", "concat")]
+    if linear:
+        ops.append({"name": TP_LINEAR, "device_type": "TPU", "dims": [1, 2],
+                    "device_ids": list(range(world)), "memory_types": []})
+    path = work / f"per_table_{ntables}_{ndev}_{world}_{int(linear)}_" \
+        f"{rank}.json"
+    path.write_text(json.dumps({"ops": ops}))
+    return path
+
+
+def _tp_piece(op, t):
+    """This rank's piece of the world-1 model's parameter ``t`` of
+    ``op``: what the split model holds of it."""
+    split = getattr(op, "_split", None)
+    if split is None or split.kind == "replicated":
+        return t
+    if split.kind == "table":
+        order = torch.tensor(op._table_order or range(op.num_tables),
+                             device=t.device)
+        return t[order[op.local_slots().start:op.local_slots().stop]]
+    if split.kind == "rows":
+        rl = t.shape[0] // split.nblocks
+        return t[split.block * rl:(split.block + 1) * rl]
+    return t[..., split.columns(t.shape[-1])]
+
+
+def _tp_models(make, world_mesh):
+    """(the split model, the world-1 model on this rank alone), each made
+    by ``make(mesh)`` from one seed."""
+    from dlrm_flexflow_tpu_torch.parallel import distributed
+    from dlrm_flexflow_tpu_torch.parallel.mesh import make_mesh
+    return make(world_mesh), make(make_mesh(devices=[distributed.rank()]))
+
+
+def _tp_held(split, alone, batches):
+    """TP_STEPS steps of the split model (every count at 0 just before,
+    read just after) and of the world-1 model on the same global batches;
+    each parameter of the split model against this rank's piece of the
+    world-1 model's, over max |the world-1 piece|: the weights, the
+    updates from the split model's initial weights, and whether they
+    started bitwise equal; each piece's sha256 and split, for the
+    copies' check."""
+    import hashlib
+    ops = {op.name: op for op in split.ops}
+    names = [(o, p) for o in sorted(split.params)
+             for p in sorted(split.params[o])]
+    init = {k: split.params[k[0]][k[1]].clone() for k in names}
+    same_init = all(torch.equal(
+        init[(o, p)], _tp_piece(ops[o], alone.params[o][p]))
+        for o, p in names)
+    for st in split._collectives.stats.values():    # the steps' alone
+        st.update(calls=0, bytes=0, sent=0, seconds=0.0)
+    zero_counts()
+    with PlainCalls() as plain:
+        losses, ms = _timed_steps(split, batches)
+    counts = read_counts()
+    stats = {k: dict(v) for k, v in split._collectives.stats.items()}
+    losses1, ms1 = _timed_steps(alone, batches)
+    errs, updates, digests = {}, {}, {}
+    for o, p in names:
+        a = split.params[o][p]
+        b = _tp_piece(ops[o], alone.params[o][p])
+        key = f"{o}.{p}"
+        errs[key] = _worst(a, b)
+        updates[key] = _worst(a - init[(o, p)], b - init[(o, p)])
+        sp = getattr(ops[o], "_split", None)
+        block = (sp.block if sp is not None and sp.kind != "replicated"
+                 else None)
+        digests[key] = [block, hashlib.sha256(
+            a.detach().cpu().numpy().tobytes()).hexdigest()]
+    return {"losses": losses, "world1_losses": losses1, "step_ms": ms,
+            "world1_step_ms": ms1, "same_init": same_init, "errs": errs,
+            "updates": updates, "digests": digests,
+            "plain_calls": plain.calls,
+            "counts": {k: v for k, v in counts.items() if v},
+            "collectives": stats}
+
+
+def _tp_warnings(fn):
+    """(fn's result, the warnings of the "ff.model" logger while it
+    ran)."""
+    import logging
+    msgs = []
+
+    class Keep(logging.Handler):
+        def emit(self, rec):
+            msgs.append(rec.getMessage())
+
+    h = Keep(logging.WARNING)
+    logging.getLogger("ff.model").addHandler(h)
+    try:
+        return fn(), msgs
+    finally:
+        logging.getLogger("ff.model").removeHandler(h)
+
+
+def _tp_launcher_run(flags, rank):
+    """The launcher on ``flags`` (every count at 0 just before it, read
+    just after), then TP_STEPS steps of the model it builds against the
+    world-1 model of the same flags."""
+    from dlrm_flexflow_tpu_torch.config import FFConfig as Cfg
+    from dlrm_flexflow_tpu_torch.examples.native import dlrm as launcher
+    from dlrm_flexflow_tpu_torch.models.dlrm import dlrm_strategy
+    from dlrm_flexflow_tpu_torch.parallel.mesh import make_mesh
+    from dlrm_flexflow_tpu_torch.parallel.strategy_io import load_strategies
+    zero_counts()
+    with PlainCalls() as plain:
+        out, warns = _tp_warnings(lambda: launcher.main(flags))
+    model = out["model"]
+    op = model.get_layer_by_name("emb_concat")
+    sp = op._split
+    rl = op.total_rows // sp.nblocks
+    run = {"launcher": {
+        "steps": out["steps"], "throughput": out["throughput"],
+        "plain_calls": plain.calls, "loss_finite": bool(np.isfinite(
+            model.perf.report()["mse"])),
+        "counts": {k: v for k, v in read_counts().items() if v},
+        "collectives": model._collectives.stats},
+        "warnings": warns, "split": [sp.kind, sp.block, sp.nblocks],
+        "total_rows": op.total_rows,
+        # the tables whose rows lie in this rank's block, and whether each
+        # lies in it whole
+        "tables": [t for t, (o, s) in enumerate(zip(op._offsets,
+                                                    op.table_sizes))
+                   if sp.block * rl <= o < (sp.block + 1) * rl],
+        "whole": all((o // rl) == ((o + s - 1) // rl)
+                     for o, s in zip(op._offsets, op.table_sizes))}
+    del out, model, op
+    torch.cuda.empty_cache()
+    cfg = Cfg.parse_args(flags)
+    dcfg = DLRMConfig.parse_args(cfg.unparsed)
+
+    def make(mesh):
+        m = FFModel(FFConfig(batch_size=cfg.batch_size, seed=SEED,
+                             device="cuda:0"))
+        build_dlrm(m, dcfg)
+        strat = (load_strategies(cfg.import_strategy_file)
+                 if cfg.import_strategy_file
+                 else dlrm_strategy(m, dcfg, mesh.size))
+        m.compile(SGDOptimizer(lr=cfg.learning_rate), "mean_squared_error",
+                  ["mse"], mesh=mesh, strategies=strat)
+        m.init_layers()
+        return m
+
+    batches = []
+    for s in range(TP_STEPS):
+        x, y = synthetic_batch(dcfg, cfg.batch_size, seed=170 + s)
+        x["label"] = y
+        batches.append(x)
+    split, alone = _tp_models(make, make_mesh())
+    run.update(_tp_held(split, alone, batches))
+    del split, alone
+    torch.cuda.empty_cache()
+    return run
+
+
+def _tp_random_run(fuse, strategies):
+    """run_random.sh's widths (random_benchmark: 8 x 1M x 64), batch
+    DIST_B, fused or one Embedding a table, under ``strategies(model,
+    cfg, mesh)``: TP_STEPS steps against the world-1 model."""
+    from dlrm_flexflow_tpu_torch.parallel.mesh import make_mesh
+    cfg = train_config("cat")
+
+    def make(mesh):
+        m = FFModel(FFConfig(batch_size=DIST_B, seed=SEED, device="cuda:0"))
+        build_dlrm(m, cfg, fuse_embeddings=fuse)
+        m.compile(SGDOptimizer(lr=LR), "mean_squared_error", ["mse"],
+                  mesh=mesh, strategies=strategies(m, cfg, mesh))
+        m.init_layers()
+        return m
+
+    batches = []
+    for s in range(TP_STEPS):
+        x, y = synthetic_batch(cfg, DIST_B, seed=180 + s)
+        x["label"] = y
+        batches.append(x)
+    split, alone = _tp_models(make, make_mesh())
+    run = _tp_held(split, alone, batches)
+    run["splits"] = {op.name: [op._split.kind, op._split.block,
+                               op._split.nblocks]
+                     for op in split.ops
+                     if getattr(op, "_split", None) is not None}
+    del split, alone
+    torch.cuda.empty_cache()
+    return run
+
+
+def tablepar_rank_child(rank, world, store):
+    """``chip_smoke.py --tablepar-rank RANK WORLD STORE``: one rank of
+    phase 16. Joins the gloo group through the file store. At TP_WORLD
+    ranks: (a) the launcher with run_criteo_kaggle.sh's flags, (b) the
+    same under the per-table file beside the store, (c) the unfused "cat"
+    split by width; at TP_WORLD4: (d) the stacked tables over 2 of the 4
+    ranks with the first top Linear split by channel. Each held to a
+    world-1 run. Prints ``TP_RESULT {json}``."""
+    from dlrm_flexflow_tpu_torch.models.dlrm import dlrm_strategy
+    from dlrm_flexflow_tpu_torch.parallel import distributed
+    from dlrm_flexflow_tpu_torch.parallel.strategy_io import load_strategies
+    distributed.initialize_distributed(
+        init_method=f"file://{store}", num_processes=world,
+        process_id=rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    work = Path(store).parent
+    result = {"rank": rank, "backend": torch.distributed.get_backend(),
+              "runs": {}}
+    if world == TP_WORLD:
+        flags = tp_kaggle_flags()
+        result["runs"]["a"] = _tp_launcher_run(flags, rank)
+        path = _tp_per_table_file(work, KAGGLE_TABLES, TP_WORLD, TP_WORLD,
+                                  rank)
+        result["runs"]["b"] = _tp_launcher_run(
+            flags + ["--import", str(path)], rank)
+        result["runs"]["c"] = _tp_random_run(
+            False, lambda m, cfg, mesh: dlrm_strategy(m, cfg, mesh.size))
+    else:
+        path = _tp_per_table_file(work, T, 2, TP_WORLD4, rank, linear=True)
+        result["runs"]["d"] = _tp_random_run(
+            True, lambda m, cfg, mesh: load_strategies(str(path)))
+    print("TP_RESULT " + json.dumps(result), flush=True)
+    torch.distributed.destroy_process_group()
+
+
+def tp_kaggle_flags():
+    """run_criteo_kaggle.sh's flags at -ll:gpu TP_WORLD: -b 256 x
+    TP_WORLD, no --import."""
+    return ["-ll:gpu", str(TP_WORLD), "-b", str(TP_KAGGLE_B)] \
+        + KAGGLE_FLAGS[2:]
+
+
+# each split step's launches: (a), (b) the masked bags and kernel 4 on
+# the row block; (c) a bag and a scatter a table on its columns; (d) the
+# table exchange's bag and kernel 4; one dense update each
+TP_LAUNCHES = {
+    "a": {"embedding_bag": 1, "sharded_scatter_add_rows": 1},
+    "b": {"embedding_bag": 1, "sharded_scatter_add_rows": 1},
+    "c": {"embedding_bag": T, "scatter_add_rows": T},
+    "d": {"embedding_bag": 1, "sharded_scatter_add_rows": 1},
+}
+TP_NAMES = {
+    "a": "(a) Kaggle, the launcher, dlrm_strategy: row blocks",
+    "b": "(b) Kaggle, the launcher, a per-table file (i % 2): row blocks "
+         "by device",
+    "c": "(c) run_random.sh's widths unfused: each Embedding by width",
+    "d": "(d) run_random.sh's stacked tables over 2 of 4 ranks, "
+         f"{TP_LINEAR} by channel [1, 2]",
+}
+
+
+def _tp_check(out, name, run, world):
+    """The checks of one run of one rank; returns its launch counts."""
+    c, steps = run["counts"], TP_STEPS
+    want = dict(TP_LAUNCHES[name], dense_update=1)
+    bad = {k: c.get(k, 0) for k, v in want.items() if c.get(k, 0) != v * steps}
+    others = {k: v for k, v in c.items() if ":" not in k and k not in want
+              and k != "scatter_presort"}
+    check(not bad and not others and run["plain_calls"] == 0,
+          f"{TP_NAMES[name]}, rank {out['rank']}: launches {c} (off: {bad}, "
+          f"unexpected: {others}), {run['plain_calls']} plain calls")
+    held = {k: v for k, v in run["updates"].items()
+            if not v <= DIST_UPDATE_TOL}
+    check(run["same_init"] and not held,
+          f"{TP_NAMES[name]}, rank {out['rank']}: start bitwise the world-1 "
+          f"run's {run['same_init']}; updates beyond {DIST_UPDATE_TOL} of "
+          f"the world-1 run's largest: {held}")
+    check(all(np.isfinite(run["losses"])) and np.allclose(
+        run["losses"], run["world1_losses"], rtol=DIST_LOSS_RTOL),
+        f"{TP_NAMES[name]}: losses {run['losses']} against the world-1 "
+        f"run's {run['world1_losses']}")
+    return c
+
+
+def _tp_copies(outs, name):
+    """Every copy of a piece bitwise equal across the ranks: the
+    replicated parameters on every rank, a block on every rank holding
+    it."""
+    runs = [o["runs"][name] for o in outs]
+    for key in runs[0]["digests"]:
+        by_block = {}
+        for r in runs:
+            block, sha = r["digests"][key]
+            by_block.setdefault(block, set()).add(sha)
+        check(all(len(v) == 1 for v in by_block.values()),
+              f"{TP_NAMES[name]}: the copies of {key} differ across ranks")
+    check(all(r["losses"] == runs[0]["losses"] for r in runs),
+          f"{TP_NAMES[name]}: the ranks' losses differ")
+
+
+def tablepar_phase(dev):
+    """Phase 16: kernels 4 and 1 at a Kaggle row block's shape, then
+    TP_WORLD ``--tablepar-rank`` children on the card for (a)-(c) and
+    TP_WORLD4 for (d), their results held. Returns (the kernels' rows at
+    that shape, the children's launch counts, summed)."""
+    t0 = time.perf_counter()
+    rows = tablepar_kernel(dev)
+    torch.cuda.empty_cache()
+    work = WORK_DIR / "tablepar"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    counts = {}
+    try:
+        outs2 = run_rank_children("--tablepar-rank", "TP_RESULT", work,
+                                  world=TP_WORLD)
+        outs4 = run_rank_children("--tablepar-rank", "TP_RESULT",
+                                  work / "four", world=TP_WORLD4)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for outs, world in ((outs2, TP_WORLD), (outs4, TP_WORLD4)):
+        for out in outs:
+            check(out["backend"] == "gloo",
+                  f"ranks: backend {out['backend']}")
+            for name, run in out["runs"].items():
+                add_counts(counts, _tp_check(out, name, run, world))
+                lr = run.get("launcher")
+                if lr is None:
+                    continue
+                c, steps = lr["counts"], lr["steps"] + 1
+                check(c.get("embedding_bag") == steps
+                      and c.get("sharded_scatter_add_rows") == steps
+                      and c.get("dense_update") == steps
+                      and lr["plain_calls"] == 0 and lr["loss_finite"]
+                      and run["split"][0] == "rows"
+                      and run["split"][2] == TP_WORLD
+                      and (name != "b" or run["whole"]),
+                      f"{TP_NAMES[name]} (launcher), rank {out['rank']}: "
+                      f"launches {c}, {lr['plain_calls']} plain calls, "
+                      f"finite {lr['loss_finite']}, split {run['split']}, "
+                      f"tables whole in a block {run['whole']}")
+                add_counts(counts, c)
+        for name in outs[0]["runs"]:
+            _tp_copies(outs, name)
+    # (b): each rank's block holds exactly the tables of its device, and
+    # the grouping's padding was warned of
+    b = [o["runs"]["b"] for o in outs2]
+    for k, r in enumerate(b):
+        check(r["tables"] == [t for t in range(KAGGLE_TABLES)
+                              if t % TP_WORLD == k],
+              f"{TP_NAMES['b']}: rank {k}'s block holds tables "
+              f"{r['tables']}")
+        check(any("honoring per-table device placement pads" in w
+                  for w in r["warnings"]),
+              f"{TP_NAMES['b']}: no padding warning in {r['warnings']}")
+    d = outs4[0]["runs"]["d"]["splits"]
+    check(d["emb_stack"][0] == "table" and d["emb_stack"][2] == 2
+          and d[TP_LINEAR][0] == "channel" and d[TP_LINEAR][2] == 2,
+          f"{TP_NAMES['d']}: splits {d}")
+    _tp_report(outs2, outs4, b)
+    print(f"tables split phase: {time.perf_counter() - t0:.1f} s")
+    return rows, counts
+
+
+def _tp_report(outs2, outs4, b):
+    med = lambda v: float(np.median(v)) if v else float("nan")  # noqa
+    for outs, world in ((outs2, TP_WORLD), (outs4, TP_WORLD4)):
+        for name in outs[0]["runs"]:
+            runs = [o["runs"][name] for o in outs]
+            r0 = runs[0]
+            print(f"tables split, {TP_NAMES[name]}: step ms (median after "
+                  f"the first, rank 0) world {world} "
+                  f"{med(r0['step_ms']):.3f}, world 1 "
+                  f"{med(r0['world1_step_ms']):.3f}; losses {r0['losses']} "
+                  f"against {r0['world1_losses']}; each update within "
+                  f"{max(max(r['updates'].values()) for r in runs):.3g} "
+                  f"of its parameter's largest, each weight within "
+                  f"{max(max(r['errs'].values()) for r in runs):.3g}; "
+                  f"launches a rank {r0['counts']}; every copy bitwise "
+                  f"equal across the ranks")
+            for k, st in r0["collectives"].items():
+                if st["calls"]:
+                    print(f"  {k} a step: {st['calls'] / TP_STEPS:g} calls,"
+                          f" {st['bytes'] / TP_STEPS:,.0f} bytes sent and "
+                          f"received less the kept blocks, "
+                          f"{st['sent'] / TP_STEPS:,.0f} handed over, "
+                          f"{st['seconds'] / TP_STEPS:.4f} s (host clock, "
+                          f"gloo's host copies included)")
+            lr = r0.get("launcher")
+            if lr is not None:
+                print(f"  the launcher ({' '.join(tp_kaggle_flags()[:4])}"
+                      f"{' --import per-table' if name == 'b' else ''}): "
+                      f"{lr['steps']} steps, {lr['throughput']:.2f} "
+                      f"samples/s; concatenated rows {r0['total_rows']:,}, "
+                      f"{r0['total_rows'] // TP_WORLD:,} a rank")
+    print(f"tables split, (b): rank blocks hold tables "
+          f"{[r['tables'] for r in b]}; "
+          f"{[w for w in b[0]['warnings'] if 'pads' in w]}")
 
 
 # ---------------------------------------------------------------------
@@ -7805,6 +8341,10 @@ def main() -> int:
         # one rank of phase 15, a child of this script
         rowshard_rank_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
         return 0
+    if sys.argv[1:2] == ["--tablepar-rank"] and torch.cuda.is_available():
+        # one rank of phase 16, a child of this script
+        tablepar_rank_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -7862,6 +8402,13 @@ def main() -> int:
         counts = rowshard_phase(dev)
         print(json.dumps({"launches": {k: v for k, v in counts.items()
                                        if v}}))
+        return 0
+    if sys.argv[1:] == ["--tablepar"]:
+        # only phase 16, its kernels built first (the ranks load them)
+        build.build_all()
+        rows, counts = tablepar_phase(dev)
+        print(json.dumps({"launches": {k: v for k, v in counts.items()
+                                       if v}, "kaggle_block_kernels": rows}))
         return 0
     if sys.argv[1:] == ["--scatter"]:
         # only the touched-rows scatters and their pre-pass at the paths'
@@ -7923,6 +8470,8 @@ def main() -> int:
     dist_rows, counts = dist_phase(dev)
     add(counts)
     add(rowshard_phase(dev))
+    _, counts = tablepar_phase(dev)
+    add(counts)
     for run in runs:
         add(train_report(run))
     del runs

@@ -23,7 +23,7 @@ hand-written kernels; on the CPU they run the kernels' plain versions.
 ``compile`` resolves the JAX package's placement on a mesh over ranks
 (``parallel/``); on a mesh of several ranks, one process each, each
 rank trains on its rows of the global batch, the stacked tables split
-by table over the ranks (``EmbeddingBagStacked.shard_tables``).
+by table over the ranks (``parallel.split.OpSplit`` of kind "table").
 
 The training step mirrors the JAX ``train_step`` (core/model.py:996-1159
 there). The embedding ops that support it take the touched-rows update:
@@ -80,6 +80,7 @@ with the JAX package's per-step ``RandomState`` (bitwise its host path).
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
@@ -357,11 +358,11 @@ class FFModel:
         (``_effective_pc``) and placed on its axes (``_build_placement``).
         On a mesh of one rank that changes nothing the step does. On more
         (one rank a process, ``parallel.distributed``), each rank trains
-        on its rows of the global batch: the stacked tables split by
-        table over every rank, every other op data-parallel with its
-        weights replicated (``_build_placement`` says what raises). The
-        loss is the global batch's mean; one all-reduce sums the dense
-        gradients before the one dense update, another the metrics."""
+        on its rows of the global batch: the tables and ``Linear``s split
+        as their configs say (``_build_placement``), every other op
+        data-parallel with its weights replicated. The loss is the global
+        batch's mean; one all-reduce sums the replicated dense gradients
+        before the one dense update, another the metrics."""
         ops = [op for op in self.ops if not isinstance(op, InputOp)]
         if not ops:
             raise ValueError("compile() needs at least one op")
@@ -580,21 +581,27 @@ class FFModel:
         (``_op_pc``) and the mesh axes of each output dim (``_out_axes``;
         degrees that cannot be placed together run replicated, with a
         warning or, strict, a raise). On a mesh of more than one rank, the
-        ``EmbeddingBagStacked`` tables whose table dim spans the whole
-        mesh split over the ranks (``shard_tables``), the tables of a
-        row-sharded config (``param_degree`` > 1; ``configure_row_shard``
-        per op, before the axes, as in the JAX package) split by rows with
-        the all-to-all exchange of ``parallel.alltoall``, and every other
-        op runs data-parallel: set up here when the process group is the
-        mesh, else at the first use. What the port does not split across
-        ranks yet raises ``NotImplementedError`` then (ROADMAP queue 1
-        item 7, ``_check_across_ranks``): other tables (replicated rows,
-        item 7.2, also where ``configure_row_shard`` refused a request,
-        after its warning), stacked tables split over part of the mesh
-        or, split by table, off the touched-rows SGD update (a stateful
-        optimizer, a dense table update), host-resident tables, a model
-        parallel split of a ``Linear``, and the anomaly sentinel."""
-        from ..ops.embedding import EmbeddingBagStacked, configure_row_shard
+        tables of a row-sharded config (``param_degree`` > 1;
+        ``configure_row_shard`` per op, before the axes, as in the JAX
+        package) split by rows with the all-to-all exchange of
+        ``parallel.alltoall``, the ops below split as
+        ``_check_across_ranks`` plans, and every other op runs
+        data-parallel: set up here when the process group is the mesh,
+        else at the first use. What ``_check_across_ranks`` plans:
+        the ``EmbeddingBagStacked`` tables split by table over the mesh
+        axes of their table dim (all of them or part), the
+        ``EmbeddingBagConcat`` table in equal row blocks over the whole
+        mesh when its RAW table degree is above 1 (as the JAX op's
+        ``param_axes``), an ``Embedding`` split by width over the axes of
+        its output's channel dim, a ``Linear`` split by channel the same
+        way (``parallel.split``), and every other table replicated (also
+        where ``configure_row_shard`` refused a request, after its
+        warning). What the port does not run across ranks yet raises
+        ``NotImplementedError`` then, naming its ROADMAP queue 1 item:
+        stateful optimizers and dense updates of tables split by table,
+        row block or width (7.3), host-resident tables and the anomaly
+        sentinel (7.4)."""
+        from ..ops.embedding import configure_row_shard
         from ..parallel.pconfig import ParallelConfig
         from ..parallel.sharding import AxisAssigner
         asn = AxisAssigner(self.mesh)
@@ -621,71 +628,94 @@ class FFModel:
             self._out_axes[op.name] = out_axes
         self._collectives = None
         for op in self.ops:
-            if isinstance(op, EmbeddingBagStacked):
-                op.shard_tables(0, 1, None)
+            if hasattr(op, "bind_split"):
+                op.bind_split(None)
         from ..parallel.distributed import world_size
         if self.mesh.size > 1 and world_size() == self.mesh.size:
             self._dist()
 
     def _check_across_ranks(self):
         """Raise for what a step across the mesh's ranks cannot run yet
-        (see ``_build_placement``)."""
+        (see ``_build_placement``); else how each op splits, {op name:
+        (kind, mesh axes)}: "table" (stacked tables split by table),
+        "rows" (the concatenated table's row blocks), "width", "channel"
+        or "replicated" (a table whole on every rank). Row-sharded ops
+        (``_row_plan``) and data-parallel ops have no entry."""
         from ..ops.embedding import (Embedding, EmbeddingBagConcat,
                                      EmbeddingBagStacked)
         from ..ops.linear import Linear
         from ..parallel.sharding import AxisAssigner
         asn = AxisAssigner(self.mesh)
         world = self.mesh.size
-        item7 = "is not ported yet (ROADMAP queue 1 item 7)"
         if self._host_resident_list:
             raise NotImplementedError(
-                f"host-resident tables across {world} ranks {item7}")
-        table_parallel = []
-        for op in self.ops:
-            if getattr(op, "_row_plan", None) is not None:
-                continue                  # row-sharded: parallel/alltoall
-            if isinstance(op, Linear) and asn.degree(
-                    self._out_axes[op.name][-1]) > 1:
-                raise NotImplementedError(
-                    f"{op.name!r}: a Linear split by channel "
-                    f"({self._op_pc[op.name].degrees}) across ranks {item7}")
-            if isinstance(op, EmbeddingBagStacked):
-                axes = self._out_axes[op.name][1]
-                if asn.degree(axes) != world:
-                    raise NotImplementedError(
-                        f"{op.name!r}: stacked tables split over "
-                        f"{asn.degree(axes)} of {world} ranks {item7}")
-                table_parallel.append(op)
-            elif isinstance(op, (Embedding, EmbeddingBagConcat)):
-                raise NotImplementedError(
-                    f"{op.name!r}: {type(op).__name__} tables replicated "
-                    f"across ranks are not ported yet (ROADMAP queue 1 item "
-                    f"7.2)")
+                f"host-resident tables across {world} ranks are not "
+                f"ported yet (ROADMAP queue 1 item 7.4)")
         batch = self.input_tensors[0].shape[0] if self.input_tensors else 0
         if batch % world:
             raise ValueError(f"the global batch {batch} does not divide "
                              f"over {world} ranks")
         if self.config.anomaly_policy != "none":
             raise NotImplementedError(
-                f"the anomaly sentinel across ranks {item7}")
-        if table_parallel and self._stateful_sparse():
-            raise NotImplementedError(
-                f"stateful optimizers (momentum, weight decay, Adam) on "
-                f"tables split by table across ranks {item7}")
-        split = {op.name for op in self._select_sparse_update_ops()}
-        for op in table_parallel:
-            if op.name not in split:
+                f"the anomaly sentinel across ranks is not ported yet "
+                f"(ROADMAP queue 1 item 7.4)")
+        plan = {}
+        for op in self.ops:
+            if getattr(op, "_row_plan", None) is not None:
+                continue                  # row-sharded: parallel/alltoall
+            axes = self._out_axes.get(op.name)
+            if isinstance(op, Linear):
+                if asn.degree(axes[-1]) > 1:
+                    plan[op.name] = ("channel", axes[-1])
+            elif isinstance(op, EmbeddingBagStacked):
+                plan[op.name] = (("table", axes[1]) if asn.degree(axes[1]) > 1
+                                 else ("replicated", ()))
+            elif isinstance(op, EmbeddingBagConcat):
+                raw = self.strategies.get(op.name)
+                if raw is not None and len(raw.degrees) > 1 \
+                        and raw.degrees[1] > 1:
+                    if op.total_rows % world:
+                        raise ValueError(
+                            f"{op.name!r}: {op.total_rows} rows do not "
+                            f"split in equal blocks over {world} ranks")
+                    plan[op.name] = ("rows", tuple(self.mesh.axis_names))
+                else:
+                    plan[op.name] = ("replicated", ())
+            elif isinstance(op, Embedding):
+                plan[op.name] = (("width", axes[-1])
+                                 if asn.degree(axes[-1]) > 1
+                                 else ("replicated", ()))
+        split = {name for name, (kind, _) in plan.items()
+                 if kind in ("table", "rows", "width")}
+        sparse = {op.name for op in self._select_sparse_update_ops()}
+        for name in sorted(split):
+            kind = plan[name][0]
+            if name not in sparse:
                 raise NotImplementedError(
-                    f"{op.name!r}: a dense table update across ranks "
-                    f"{item7}")
+                    f"{name!r}: a dense table update of a table split by "
+                    f"{kind} across ranks is not ported yet (ROADMAP "
+                    f"queue 1 item 7.3)")
+            if self._stateful_sparse():
+                raise NotImplementedError(
+                    f"{name!r}: stateful optimizers (momentum, weight "
+                    f"decay, Adam) on a table split by {kind} across "
+                    f"ranks are not ported yet (ROADMAP queue 1 item 7.3)")
+            if kind == "width" and self._sr_policy_of(name) is not None:
+                raise NotImplementedError(
+                    f"{name!r}: stochastic rounding of a table split by "
+                    f"width across ranks is not ported yet (ROADMAP queue "
+                    f"1 item 7.3)")
+        return plan
 
     def _dist(self):
         """The collectives of a mesh of more than one rank (made at the
-        first use; the mesh must be the process group), or None."""
+        first use; the mesh must be the process group), or None. Binds
+        every op's split (``_check_across_ranks``) in op order on every
+        rank: the exchanges make their process groups in one order
+        everywhere."""
         if self.mesh is None or self.mesh.size == 1:
             return None
         if self._collectives is None:
-            from ..ops.embedding import EmbeddingBagStacked
             from ..parallel import distributed
             if self.mesh.ranks != tuple(range(distributed.world_size())):
                 raise ValueError(
@@ -693,20 +723,58 @@ class FFModel:
                     f"process group has {distributed.world_size()}: "
                     f"initialize_distributed() with as many ranks")
             from ..parallel.alltoall import RowExchange
-            self._check_across_ranks()
-            self._collectives = distributed.Collectives()
+            from ..parallel.split import OpSplit
+            plan = self._check_across_ranks()
+            coll = self._collectives = distributed.Collectives()
             me = distributed.rank()
-            # in op order on every rank: the exchanges make their process
-            # groups in one order everywhere
             for op in self.ops:
                 if getattr(op, "_row_plan", None) is not None:
-                    op.bind_row_exchange(RowExchange(
-                        op._row_plan, self._collectives, me))
-                elif isinstance(op, EmbeddingBagStacked):
-                    op.shard_tables(self.mesh.linear_index(
-                        me, self._out_axes[op.name][1]), self.mesh.size,
-                        self._collectives)
+                    op.bind_row_exchange(RowExchange(op._row_plan, coll, me))
+                    continue
+                if op.name not in plan:
+                    continue
+                kind, axes = plan[op.name]
+                op.bind_split(OpSplit(kind, self.mesh, axes, coll, me))
         return self._collectives
+
+    def _split_params(self) -> set:
+        """The ops whose parameters are split over the ranks (row shards,
+        tables split by table, row block or width, a ``Linear`` split by
+        channel): their gradients are never all-reduced."""
+        out = set()
+        for op in self.ops:
+            split = getattr(op, "_split", None)
+            if getattr(op, "_row_plan", None) is not None \
+                    or (split is not None and split.kind != "replicated"):
+                out.add(op.name)
+        return out
+
+    @contextlib.contextmanager
+    def _as_one_card(self):
+        """Every split op as one card runs it, for a batch that does not
+        divide over the ranks (the JAX route: the op gathers its table):
+        yields the parameters with each split op's gathered whole
+        (``whole_params``, one all-gather a parameter), and while inside,
+        the ops' splits are off."""
+        attrs = ("_row_plan", "_split")
+        params = dict(self.params)
+        for op in self.ops:
+            whole = getattr(op, "whole_params", None)
+            if whole is not None and op.name in params:
+                p = whole(params[op.name])
+                if p is not None:
+                    params[op.name] = p
+        saved = [(op, {a: getattr(op, a) for a in attrs if hasattr(op, a)})
+                 for op in self.ops]
+        for op, st in saved:
+            for a in st:
+                setattr(op, a, None)
+        try:
+            yield params
+        finally:
+            for op, st in saved:
+                for a, v in st.items():
+                    setattr(op, a, v)
 
     def _resolve_host_ops(self):
         """The ops whose tables are host-resident: under
@@ -991,15 +1059,6 @@ class FFModel:
         if not local and self.mesh is not None and self.mesh.size > 1:
             from ..parallel.distributed import host_local_slice
             self._dist()
-            rows = len(next(iter(batch.values())))
-            if rows % self.mesh.size and any(
-                    getattr(op, "_row_plan", None) is not None
-                    for op in self.ops):
-                raise NotImplementedError(
-                    f"a batch of {rows} rows over {self.mesh.size} ranks "
-                    f"with row-sharded tables (the JAX op gathers the "
-                    f"table instead) is not ported yet (ROADMAP queue 1 "
-                    f"item 7.2)")
             batch = host_local_slice(
                 {k: batch[k] for k in self._batch_dtypes(batch)})
         out = {}
@@ -1061,13 +1120,29 @@ class FFModel:
                       ) -> torch.Tensor:
         """Forward pass for one host batch (no labels): the output
         tensor's value, on ``self.device``. The caller's ``.cpu()`` is
-        the synchronisation. ``host_gather`` replaces the host tables'
-        row gather ({op name: numpy ids} -> {op name: rows on the
-        device}): the serving engine passes its cached or shard-tier
-        gather; the default is ``_host_emb_forward``."""
+        the synchronisation. Across ranks the batch is the global one and
+        every rank gets all of its predictions, in row order, as the JAX
+        package's global output: a batch that divides over the ranks runs
+        split, each rank on its rows, and the predictions are all-gathered
+        (one all-gather of the output, B rows); one that does not runs
+        whole on every rank, each split op on its parameters gathered
+        (``_as_one_card``: one all-gather of every split parameter at
+        each call, the whole table, 0.73 GB for Criteo-Kaggle's
+        concatenated one). ``host_gather`` replaces the host tables' row
+        gather ({op name: numpy ids} -> {op name: rows on the device}):
+        the serving engine passes its cached or shard-tier gather; the
+        default is ``_host_emb_forward``."""
         if self._preds_tensor is None or self.params is None:
             raise ValueError("call compile() and init_layers() (or "
                              "swap_params()) first")
+        rows = len(next(iter(batch.values())))
+        coll = self._dist()
+        if coll is not None and rows % self.mesh.size:
+            # the JAX route: the op gathers its table
+            db = self._device_batch(batch, local=True)
+            with self._as_one_card() as params, torch.inference_mode():
+                env = self._forward_env(params, db)
+            return env[self._preds_tensor.guid]
         db, host_idx = self._split_host_idx(self._device_batch(batch))
         rows = None
         if host_idx is not None:
@@ -1075,7 +1150,10 @@ class FFModel:
             rows = (host_gather or self._host_emb_forward)(host_idx)
         with torch.inference_mode():
             env = self._forward_env(self.params, db, overrides=rows)
-        return env[self._preds_tensor.guid]
+        out = env[self._preds_tensor.guid]
+        if coll is not None:
+            out = coll.all_gather(out, None, self.mesh.size)
+        return out
 
     # --- serving entry points (serve/engine.py) -----------------------
     def bucket_sizes(self, max_batch: int) -> tuple:
@@ -1297,11 +1375,12 @@ class FFModel:
         if coll is not None:
             # the dense gradients summed over the ranks, in one buffer:
             # every rank gets the same bits, so its replicated weights
-            # stay equal (a row-sharded table's gradient is already its
-            # block's whole one: the exchange summed it on the owner)
-            rows = {op.name for op in self.ops
-                    if getattr(op, "_row_plan", None) is not None}
-            dense = [g for name, p in gd.items() if name not in rows
+            # stay equal (a split parameter's gradient is already its
+            # piece's whole one: the exchange summed it on the owner, or
+            # the split's collectives brought the global batch's
+            # cotangent)
+            local = self._split_params()
+            dense = [g for name, p in gd.items() if name not in local
                      for g in p.values()]
             if dense:
                 buf = coll.all_reduce_sum_(
@@ -1622,12 +1701,17 @@ class FFModel:
             op = ops[name]
             w = quant_row_width(op)
             row0 = 0
-            shard = getattr(op, "_shard", None)
-            if shard is not None:
+            split = getattr(op, "_split", None)
+            kind = split.kind if split is not None else None
+            if kind == "table":
                 # a rank's block of the stacked slots: its rows' global
                 # numbers key the draws
                 row0 = op.local_slots().start * op.num_entries * \
                     op.out_dim // w
+            elif kind == "rows":
+                # a rank's row block of the concatenated table, the same
+                row0 = split.block * self.params[name]["kernel"].shape[0] \
+                    * op.out_dim // w
             for j, pname in enumerate(("kernel", "hot_kernel")):
                 p = self.params[name].get(pname)
                 if p is None:

@@ -40,6 +40,9 @@
 // slower.
 // Unlike the TPU kernel, which needs d % 128 == 0, any d that is a
 // multiple of 4 works.
+// A negative id reads nothing and adds a zero row (its residual row is
+// zero): the lookups outside a rank's row block of a table split in
+// blocks over ranks, whose partial bags the ranks then sum.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -109,8 +112,10 @@ bag_kernel(const void* __restrict__ table,
     const int64_t* rid = ids + row * bag;
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int j = 0; j < bag; ++j) {
+      const int64_t id = rid[j];
       const float4 v =
-          stream_row4<kMode, kStream>(table, scales, rid[j], vec, c);
+          id < 0 ? make_float4(0.f, 0.f, 0.f, 0.f)
+                 : stream_row4<kMode, kStream>(table, scales, id, vec, c);
       if constexpr (kMode == kF32) {
         if (rows_out) rows_out[(row * bag + j) * vec + c] = v;
       }
@@ -158,7 +163,8 @@ int launch(const void* table, const void* scales, const void* ids, void* out,
 
 extern "C" {
 
-// table: (rows, dim) fp32; ids: (n_out, bag) int64 in [0, rows);
+// table: (rows, dim) fp32; ids: (n_out, bag) int64 in [0, rows), or < 0
+// for a lookup that adds nothing;
 // out: (n_out, dim) fp32; rows_out: null, or (n_out * bag, dim) fp32 for
 // the gathered rows. dim % 4 == 0 and 16-byte aligned pointers (the
 // wrapper checks). Launches on `stream`; returns cudaGetLastError().

@@ -16,16 +16,18 @@ package's environment (``COORDINATOR_ADDRESS`` host:port,
 ``NUM_PROCESSES``, ``PROCESS_ID``; ``parallel.distributed``). Each rank
 trains on its rows of the synthetic global batch under the hand-written
 ``dlrm_strategy`` (the stacked tables split by table over the ranks,
-every other op data-parallel) or the strategy file ``--import`` names
-(``.pb`` or ``.json``; an embedding entry with ``param_dim`` > 1, and
+Criteo-Kaggle's concatenated table in equal row blocks over them, every
+other op data-parallel) or the strategy file ``--import`` names (``.pb``
+or ``.json``: the reference's per-table files group the concatenated
+table's rows by device; an embedding entry with ``param_dim`` > 1, and
 its ``exchange``, ``hot_frac`` and ``overlap``, splits the table's rows
-over the ranks with the all-to-all exchange of ``parallel/alltoall.py``,
-Criteo-Kaggle's concatenated table included), and rank 0 prints the
+over the ranks with the all-to-all exchange of ``parallel/alltoall.py``),
+and rank 0 prints the
 report. Without a process
 group the world is one rank, so ``-ll:gpu 8`` or ``--nodes 2`` trains on
 one card, as the JAX app does on a host with one chip. Across ranks,
 data files, checkpoints and the anomaly sentinel raise (ROADMAP queue 1
-item 7).
+item 7.4).
 
 Data: ``--data-path file.ffbin`` (``data.dataloader.write_ffbin``'s
 format, read by the native loader and staged to the card by the prefetch

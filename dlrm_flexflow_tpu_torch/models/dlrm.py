@@ -261,15 +261,14 @@ def dlrm_strategy(model: FFModel, cfg: DLRMConfig, num_devices: int,
     models/dlrm.py:277-315, after the reference's
     src/runtime/dlrm_strategy.cc:242-296): the stacked tables
     table-parallel, with the largest degree that divides both the table
-    count and ``num_devices``, and every other op data-parallel over all
-    of them. ``row_shard=True`` splits the ROWS of every table over the
-    whole mesh instead (``param_degree`` = ``num_devices``, the all-to-all
-    exchange of ``parallel.alltoall``), as the JAX map does. The other
-    branches shard what the port cannot split across ranks yet: over more
-    than one device, ``EmbeddingBagConcat`` (row blocks of the
-    concatenated table) and ``Embedding`` (width sharding) raise
-    ``NotImplementedError`` (ROADMAP queue 1 item 7.2); over one device
-    they give the JAX package's unsharded configs."""
+    count and ``num_devices``; the concatenated table's table degree 2
+    over more than one device, which splits its rows in equal blocks over
+    the whole mesh (``EmbeddingBagConcat``); each ``Embedding`` split by
+    width, over the largest common divisor of its width and
+    ``num_devices``; and every other op data-parallel over all of them.
+    ``row_shard=True`` splits the ROWS of every table over the whole mesh
+    instead (``param_degree`` = ``num_devices``, the all-to-all exchange
+    of ``parallel.alltoall``), as the JAX map does."""
     strat: StrategyMap = {}
     batch = model.config.batch_size
     for op in model.ops:
@@ -285,16 +284,17 @@ def dlrm_strategy(model: FFModel, cfg: DLRMConfig, num_devices: int,
             dt = next(d for d in range(min(num_devices, op.num_tables), 0, -1)
                       if op.num_tables % d == 0 and num_devices % d == 0)
             strat[op.name] = ParallelConfig((1, dt, 1))
-        elif tname in ("EmbeddingBagConcat", "Embedding") \
-                and num_devices > 1:
-            raise NotImplementedError(
-                f"dlrm_strategy: {tname} {op.name!r} over {num_devices} "
-                f"devices (row blocks of the concatenated table, or width "
-                f"sharding) is not ported yet (ROADMAP queue 1 item 7.2)")
         elif tname == "EmbeddingBagConcat":
-            strat[op.name] = ParallelConfig((1, 1, 1))
+            # any table degree above 1 splits the concatenated rows over
+            # the whole mesh
+            strat[op.name] = ParallelConfig(
+                (1, 2 if num_devices > 1 else 1, 1))
         elif tname == "Embedding":
-            strat[op.name] = ParallelConfig((1, 1))
+            # the width over the largest common divisor of the width and
+            # the device count
+            dc = next(d for d in range(min(num_devices, op.out_dim), 0, -1)
+                      if op.out_dim % d == 0 and num_devices % d == 0)
+            strat[op.name] = ParallelConfig((1, dc))
         elif nd > 0:
             strat[op.name] = ParallelConfig.data_parallel(nd, num_devices)
     return strat

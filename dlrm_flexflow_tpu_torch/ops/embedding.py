@@ -8,9 +8,9 @@ TPU's 128-lane tiles. On one card the port keeps them as (T, rows, d)
 in LOGICAL table order: the storage permutation ``_table_order`` that
 the JAX op uses to place tables on devices has no work to do there, and
 ``utils.weights.params_from_jax`` reads it to undo the JAX storage order
-when it carries weights across. Split over ranks
-(``EmbeddingBagStacked.shard_tables``), a rank holds its block of the
-storage slots, in slot order, as the JAX op's devices do.
+when it carries weights across. Split by table over ranks (an
+``OpSplit`` of kind "table", ``parallel/split.py``), a rank holds its
+block of the storage slots, in slot order, as the JAX op's devices do.
 
 For the delta publisher (``utils/delta.py``) both ops map a host batch's
 ids to the rows of the JAX op's STORED kernel, flattened to 2-D
@@ -32,6 +32,22 @@ Row-sharded across ranks (a strategy's ``param_degree`` > 1,
 table (and, under the hot/cold hybrid, the replicated head of each as
 ``hot_kernel``), and its lookup and touched-rows updates route through
 the all-to-all exchange of ``parallel/alltoall.py`` (``_RowShardHooks``).
+
+The other splits across ranks (``parallel/split.py``, bound by compile
+as ``op._split``, ``_SplitHooks``): the concatenated table in equal row
+blocks over the whole mesh ("rows": each rank bags the lookups of the
+global batch that fall in its block with the bag kernel, the others
+masked, and the ranks' partial bags are summed into each rank's rows;
+the update runs kernel 4, ``sharded_scatter_add_rows``, on the block
+with the global batch's ids), an ``Embedding`` split by width ("width":
+the bag kernel on the rank's columns for the global batch, one
+all-to-all to the rank's rows; the update the reverse all-to-all, then
+``scatter_add_rows`` on the columns), and tables replicated on every
+rank ("replicated": the lookup as on one card; the update, of any
+optimizer, from the whole global batch's ids and cotangents, gathered,
+so that every copy stays bitwise equal). ``whole_params`` gathers a
+split op's parameters as one card holds them (the route of a batch that
+does not divide over the ranks).
 
 Host-resident tables (``FFConfig.host_resident_tables``, the reference's
 hetero placement that lets tables larger than the card's memory train):
@@ -297,8 +313,8 @@ def configure_row_shard(op, raw_pc) -> None:
     ``overlap``): sets ``op._row_plan`` (None: off) and ``op._hot_rows``
     (replicated hot rows a table; 0: no hybrid). A request that cannot
     run degrades LOUDLY to replicated rows, with the JAX warning naming
-    the reason (across ranks those then raise: ROADMAP queue 1 item
-    7.2)."""
+    the reason (across ranks the table is then whole on every rank,
+    ``_split`` "replicated")."""
     from ..parallel.alltoall import plan_row_shard
     op._row_plan = None
     op._hot_rows = 0
@@ -461,8 +477,49 @@ class _RowShardHooks:
                 f"{self.name}: delta publishes of row-sharded tables are "
                 f"not ported yet (ROADMAP queue 1 item 7.4)")
 
+    def _row_whole(self, params):
+        """The whole logical table from every shard's cold block (and the
+        hot head): what one card holds."""
+        from ..parallel.split import gather_pieces
+        plan = self._row_plan
+        out = gather_pieces(self._row_exchange().coll, plan.mesh,
+                            plan.row_axes, params["kernel"], -2)
+        if self._hot_rows > 0:
+            out = torch.cat([params["hot_kernel"], out], dim=-2)
+        return {"kernel": out}
 
-class Embedding(_RowShardHooks, Op):
+
+class _SplitHooks:
+    """What the three ops share when compile splits them across ranks
+    other than by row shards (``parallel.split.OpSplit``, ``_split``):
+    the kind, the replicated update's global batch, and the refusals."""
+
+    _split = None
+
+    def bind_split(self, split):
+        """This rank's side of the op's split (None: whole on one card),
+        bound by compile once the process group is there."""
+        self._split = split
+
+    def _split_kind(self):
+        return None if self._split is None else self._split.kind
+
+    def _global_batch(self, xs, out_ct):
+        """A replicated table's update inputs: the ids and the cotangent
+        of the whole global batch, in rank order (two all-gathers)."""
+        s = self._split
+        return ([s.gather_batch(xs[0].contiguous())],
+                s.gather_batch(out_ct.contiguous()))
+
+    def _refuse_split_stateful(self):
+        raise NotImplementedError(
+            f"{self.name}: stateful optimizers (momentum, weight decay, "
+            f"Adam) on a table split across ranks by "
+            f"{self._split_kind()} are not ported yet (ROADMAP queue 1 "
+            f"item 7.3)")
+
+
+class Embedding(_RowShardHooks, _SplitHooks, Op):
     """One table, (num_entries, out_dim). With ``aggr`` "sum" or "avg":
     int ids (batch, bag) -> (batch, out_dim), the sum or mean over the
     bag, gathered on the card by the embedding-bag kernel (any
@@ -476,7 +533,9 @@ class Embedding(_RowShardHooks, Op):
     Row-sharded across ranks (``configure_row_shard``): ``kernel`` is
     the rank's cold block, (rows_local, d), and under the hybrid
     ``hot_kernel`` the replicated head, (H, d); the lookup and the
-    updates route through ``parallel.alltoall``."""
+    updates route through ``parallel.alltoall``. Split by width (the
+    JAX op's ``(1, dc)``, its ``param_axes``): ``kernel`` is the rank's
+    columns, (num_entries, d / dc); replicated: the whole table."""
 
     type_name = "Embed"
     _hot_split_ok = True
@@ -503,8 +562,10 @@ class Embedding(_RowShardHooks, Op):
     def param_defs(self):
         plan, H = self._row_plan, self._hot_rows
         if plan is None:
-            return {"kernel": ParamDef((self.num_entries, self.out_dim),
-                                       torch.float32,
+            d = self.out_dim
+            if self._split_kind() == "width":
+                d //= self._split.nblocks
+            return {"kernel": ParamDef((self.num_entries, d), torch.float32,
                                        self.kernel_initializer)}
         out = {"kernel": ParamDef((plan.rows_local, self.out_dim),
                                   torch.float32, self.kernel_initializer)}
@@ -514,6 +575,14 @@ class Embedding(_RowShardHooks, Op):
         return out
 
     def init_params(self, generator, device):
+        if self._split_kind() == "width":
+            # the whole table drawn as on one card, this rank's columns
+            # kept
+            whole = self.kernel_initializer(
+                generator, (self.num_entries, self.out_dim), torch.float32,
+                device)
+            return {"kernel": whole[:, self._split.columns(
+                self.out_dim)].contiguous()}
         if self._row_plan is None:
             return super().init_params(generator, device)
         # the whole table drawn as on one card, this rank's rows kept
@@ -535,10 +604,35 @@ class Embedding(_RowShardHooks, Op):
         (idx,) = xs                       # (batch, bag)
         if self._row_plan is not None:
             return [self._row_lookup(params, idx)]
+        if self._split_kind() == "width":
+            return [self._width_lookup(params, idx)[0]]
         if self.aggr == AGGR_MODE_NONE:
             return [params["kernel"][self._ids(idx)]]
         return [EmbeddingBagFunction.apply(params["kernel"], self._ids(idx),
                                            self.aggr)]
+
+    def _width_lookup(self, params, idx):
+        """Split by width: (this rank's rows of the lookup, every column;
+        the global batch's wrapped ids). The bag kernel (or, for "none",
+        a gather) runs on the rank's columns for the global batch, and
+        one all-to-all hands each rank its rows."""
+        s = self._split
+        ids = self._ids(s.gather_batch(idx.contiguous()))
+        if self.aggr == AGGR_MODE_NONE:
+            y = params["kernel"][ids]
+        else:
+            y = embedding_bag(params["kernel"], ids, self.aggr)
+        return s.to_rows(y), ids
+
+    def whole_params(self, params):
+        """The op's parameters as one card holds them, gathered from the
+        ranks; None when this rank holds them whole."""
+        if self._row_plan is not None:
+            return self._row_whole(params)
+        if self._split_kind() == "width":
+            return {"kernel": self._split.gather_pieces(params["kernel"],
+                                                        -1)}
+        return None
 
     # ---- delta publication (utils/delta.py) -------------------------
     def lookup_id_space(self) -> int:
@@ -626,7 +720,11 @@ class Embedding(_RowShardHooks, Op):
     def apply_with_fwd(self, params, xs):
         """apply() and no residual: the JAX op keeps the gathered rows
         only for 128-wide rows on its TPU path, so the update here always
-        reads the table (the read-modify-write scatter)."""
+        reads the table (the read-modify-write scatter). Split by width:
+        the global batch's ids, which the update takes."""
+        if self._split_kind() == "width":
+            out, ids = self._width_lookup(params, xs[0])
+            return [out], ids
         return self.apply(params, xs), None
 
     @torch.no_grad()
@@ -635,13 +733,23 @@ class Embedding(_RowShardHooks, Op):
         "none" each slot's cotangent row; with "sum"/"avg" the bag's
         cotangent (/ bag for "avg") for every row of the bag. A row's
         duplicates sum in lookup order before they land, on the
-        read-modify-write scatter kernel on the card."""
+        read-modify-write scatter kernel on the card. Split by width: the
+        global batch's cotangent of the rank's columns (the reverse
+        all-to-all) on its columns, with the global batch's ids (``fwd``);
+        replicated: the global batch's ids and cotangent."""
         (idx,) = xs
         if self._row_plan is not None:
             return self._row_sgd_update(params, idx, out_ct, lr, ok)
+        kind = self._split_kind()
+        if kind == "width":
+            if fwd is None:
+                fwd = self._ids(self._split.gather_batch(idx.contiguous()))
+            idx, out_ct = fwd, self._split.from_rows(out_ct)
+        elif kind == "replicated":
+            (idx,), out_ct = self._global_batch(xs, out_ct)
         table = params["kernel"]
         ids = self._ids(idx).reshape(-1)
-        ct = out_ct.to(table.dtype).reshape(-1, self.out_dim)
+        ct = out_ct.to(table.dtype).reshape(-1, table.shape[-1])
         div = 1
         if self.aggr != AGGR_MODE_NONE:
             div = idx.shape[-1]
@@ -669,6 +777,10 @@ class Embedding(_RowShardHooks, Op):
         if self._row_plan is not None:
             return self._row_opt_update(params, idx, out_ct, opt, slabs,
                                         step, ok)
+        if self._split_kind() == "width":
+            self._refuse_split_stateful()
+        if self._split_kind() == "replicated":
+            (idx,), out_ct = self._global_batch(xs, out_ct)
         table = params["kernel"]
         ids = self._ids(idx).reshape(-1)
         ct = out_ct.to(table.dtype).reshape(-1, self.out_dim)
@@ -683,7 +795,7 @@ class Embedding(_RowShardHooks, Op):
         return params
 
 
-class _FlatTableBag(_RowShardHooks, Op):
+class _FlatTableBag(_RowShardHooks, _SplitHooks, Op):
     """What ``EmbeddingBagStacked`` and ``EmbeddingBagConcat`` share: T
     bags over one flat (rows, d) view of the tables, looked up by global
     row ids in one bag-kernel launch and updated in one scatter, on the
@@ -743,9 +855,10 @@ class _FlatTableBag(_RowShardHooks, Op):
     def apply_with_fwd(self, params, xs):
         """apply() plus the forward residual: (global row ids (n,), the
         gathered rows (n, d)), both in (batch, T, bag) order — the order
-        ``sparse_sgd_update`` applies its updates in. Row-sharded: no
-        residual (the update routes its own rows)."""
-        if self._row_plan is not None:
+        ``sparse_sgd_update`` applies its updates in. Row-sharded or
+        replicated across ranks: no residual (the update routes its own
+        rows, or takes the global batch's)."""
+        if self._row_plan is not None or self._split is not None:
             return self.apply(params, xs), None
         (idx,) = xs
         gid = self._global_ids(idx)
@@ -774,9 +887,14 @@ class _FlatTableBag(_RowShardHooks, Op):
         land. With the residual of ``apply_with_fwd`` the write-only
         kernel writes fwd_row + sum; without it the read-modify-write
         kernel adds the sum to the table. Row-sharded: the routed
-        update (``parallel.alltoall.row_sharded_sgd_update``)."""
+        update (``parallel.alltoall.row_sharded_sgd_update``);
+        replicated across ranks: the global batch's ids and cotangent,
+        on the read-modify-write kernel."""
         if self._row_plan is not None:
             return self._row_sgd_update(params, xs[0], out_ct, lr, ok)
+        if self._split_kind() == "replicated":
+            xs, out_ct = self._global_batch(xs, out_ct)
+            fwd = None
         bag, ct, (gid, rows) = self._update_rows(params, xs, out_ct, fwd)
         table = self._flat(params["kernel"])
         if rows is not None:
@@ -798,10 +916,14 @@ class _FlatTableBag(_RowShardHooks, Op):
         when given, else the table row) and state; untouched rows keep
         both. ``step``: the optimizer's step before this one.
         Row-sharded: the routed update (``row_sharded_opt_update``);
-        ``slabs`` may nest {slab: {param: tensor}} for the hybrid."""
+        ``slabs`` may nest {slab: {param: tensor}} for the hybrid.
+        Replicated across ranks: the global batch's ids and cotangent."""
         if self._row_plan is not None:
             return self._row_opt_update(params, xs[0], out_ct, opt, slabs,
                                         step, ok)
+        if self._split_kind() == "replicated":
+            xs, out_ct = self._global_batch(xs, out_ct)
+            fwd = None
         bag, ct, (gid, rows) = self._update_rows(params, xs, out_ct, fwd)
         stateful_update_rows(
             self._flat(params["kernel"]), gid, ct, rows,
@@ -820,22 +942,28 @@ class EmbeddingBagStacked(_FlatTableBag):
     of them lie in one table), so its sums, and the result, are the
     same.
 
-    Table parallelism across D ranks (``shard_tables``, set by
-    ``compile`` when the strategy splits the table dim over the whole
-    mesh): rank k holds the storage slots [k·T/D, (k+1)·T/D), slot s
-    holding logical table ``order[s]`` (``set_table_order``), as the JAX
-    op's stored kernel split in D blocks; its ``kernel`` is (T/D, rows,
-    d) in slot order. Each rank has its rows of the batch, all T tables.
-    The forward sends every rank its tables' ids (one
-    ``all_to_all_single``), looks them up for the global batch with the
-    bag kernel, and sends the bags back to the ranks whose rows they are
-    (a second one). The touched-rows SGD update sends the cotangent the
-    reverse way (a third) and runs the windowed scatter
+    Table parallelism over D ranks (``bind_split`` with an ``OpSplit`` of
+    kind "table", ``_tsplit``, set by ``compile``
+    when the strategy splits the table dim over D of the mesh's ranks,
+    the mesh axes of the output's table dim): block k holds the storage
+    slots [k·T/D, (k+1)·T/D), slot s holding logical table ``order[s]``
+    (``set_table_order``), as the JAX op's stored kernel split in D
+    blocks; its ``kernel`` is (T/D, rows, d) in slot order. Each rank has
+    its rows of the batch, all T tables. The forward sends each rank of
+    its group (the D ranks that differ from it on the table axes alone,
+    one a block) its tables' ids (one ``all_to_all_single``), looks them
+    up for the group's rows with the bag kernel, and sends the bags back
+    to the ranks whose rows they are (a second one). The touched-rows SGD
+    update sends the cotangent the reverse way (a third); where D is
+    less than the mesh, the copies of the block (the other axes) gather
+    each other's ids and cotangents (two all-gathers), so that every
+    copy takes the whole global batch. It then runs the windowed scatter
     (``sharded_scatter_add_rows``, kernel 4) on the rank's block with
     global stacked ids slot·rows + id, in the (batch, table, bag) order
     of the JAX op's ``gidx``. The write route is closed there, as in the
     JAX op (``_fwd_residual_ok`` needs an unsharded table), and so are
-    the stateful updates and host tables (ROADMAP queue 1 item 7).
+    the stateful updates (ROADMAP queue 1 item 7.3). With D = 1 the
+    tables are replicated on every rank (``_split``).
 
     Row sharding across ranks (``configure_row_shard``) splits the rows
     of every table instead: ``kernel`` is the rank's cold block of each
@@ -869,7 +997,6 @@ class EmbeddingBagStacked(_FlatTableBag):
         self.outputs = [self._make_output(
             (batch, self.num_tables, self.out_dim))]
         self._table_order = None
-        self._shard = None
 
     def set_table_order(self, order):
         """Record the JAX op's storage order: stored slot s holds logical
@@ -881,30 +1008,33 @@ class EmbeddingBagStacked(_FlatTableBag):
                              else order)
 
     # ---- table parallelism across ranks -----------------------------
-    def shard_tables(self, block: int, blocks: int, collectives):
-        """Hold storage slots [block·T/blocks, (block+1)·T/blocks) of
-        ``blocks`` ranks, exchanging with them through ``collectives``
-        (``parallel.distributed.Collectives``, whose rank ``block`` this
-        process is); ``blocks`` 1 holds every table, as on one card."""
-        if blocks <= 1:
-            self._shard = None
-            return
-        if self.num_tables % blocks:
+    def bind_split(self, split):
+        """As ``_SplitHooks.bind_split``; a "table" split must divide the
+        tables in equal blocks."""
+        if split is not None and split.kind == "table" \
+                and self.num_tables % split.nblocks:
             raise ValueError(f"{self.name}: {self.num_tables} tables do not "
-                             f"split over {blocks} ranks")
-        self._shard = (int(block), int(blocks), collectives)
+                             f"split over {split.nblocks} ranks")
+        super().bind_split(split)
+
+    @property
+    def _tsplit(self):
+        """The table split (kind "table") when the op has one, else None."""
+        return self._split if self._split_kind() == "table" else None
 
     @property
     def local_tables(self) -> int:
         """Tables this rank holds."""
-        return self.num_tables // (self._shard[1] if self._shard else 1)
+        s = self._tsplit
+        return self.num_tables // (s.nblocks if s is not None else 1)
 
     def local_slots(self) -> range:
         """The storage slots this rank holds (every table's, unsharded)."""
-        if self._shard is None:
+        s = self._tsplit
+        if s is None:
             return range(self.num_tables)
         tl = self.local_tables
-        return range(self._shard[0] * tl, (self._shard[0] + 1) * tl)
+        return range(s.block * tl, (s.block + 1) * tl)
 
     def _order(self, device):
         """Storage slot -> logical table, as a tensor on ``device``."""
@@ -945,7 +1075,7 @@ class EmbeddingBagStacked(_FlatTableBag):
         # initializers (Glorot fans) match the JAX op's per-table draws;
         # a rank holding some tables draws them all, in logical order, and
         # keeps its own, so every rank and a single card agree
-        if self._shard is None:        # every table, in logical order
+        if self._tsplit is None:       # every table, in logical order
             return {"kernel": torch.stack([
                 self.kernel_initializer(generator,
                                         (self.num_entries, self.out_dim),
@@ -979,27 +1109,29 @@ class EmbeddingBagStacked(_FlatTableBag):
 
     # ---- the table-parallel lookup and update ---------------------------
     def apply(self, params, xs):
-        if self._shard is None:
+        if self._tsplit is None:
             return super().apply(params, xs)
         return self.apply_with_fwd(params, xs)[0]
 
     def apply_with_fwd(self, params, xs):
-        if self._shard is None:
+        s = self._tsplit
+        if s is None:
             return super().apply_with_fwd(params, xs)
         (idx,) = xs                        # this rank's rows, (b, T, bag)
-        block, blocks, coll = self._shard
+        block, blocks, coll, group = s.block, s.nblocks, s.coll, s.group
         b, T, bag = idx.shape
         tl, rows, d = self.local_tables, self.num_entries, self.out_dim
         order = self._order(idx.device)
-        # chunk j: this rank's ids of rank j's slots
+        # chunk j: this rank's ids of block j's slots
         send = idx.long().index_select(1, order).reshape(b, blocks, tl, bag)
-        got = coll.all_to_all(send.transpose(0, 1))    # (blocks, b, tl, bag)
+        # (blocks, b, tl, bag)
+        got = coll.all_to_all(send.transpose(0, 1), group)
         local = torch.remainder(got.reshape(blocks * b, tl, bag), rows) \
             + (torch.arange(tl, device=idx.device) * rows)[None, :, None]
         rows_out = embedding_bag(self._flat(params["kernel"]),
                                  local.reshape(-1, bag), self.aggr)
         # chunk j: the bags of rank j's rows, back to it
-        back = coll.all_to_all(rows_out.reshape(blocks, b, tl, d))
+        back = coll.all_to_all(rows_out.reshape(blocks, b, tl, d), group)
         out = back.transpose(0, 1).reshape(b, T, d).index_select(
             1, torch.argsort(order))
         gid = local + block * tl * rows        # global stacked row ids
@@ -1007,36 +1139,60 @@ class EmbeddingBagStacked(_FlatTableBag):
 
     @torch.no_grad()
     def sparse_sgd_update(self, params, xs, out_ct, lr, fwd=None, ok=None):
-        if self._shard is None:
+        s = self._tsplit
+        if s is None:
             return super().sparse_sgd_update(params, xs, out_ct, lr, fwd, ok)
         if fwd is None:
             raise ValueError(f"{self.name}: the table-parallel update takes "
                              f"the ids of apply_with_fwd (fwd)")
         (idx,) = xs
-        block, blocks, coll = self._shard
+        block, blocks, coll = s.block, s.nblocks, s.coll
         b, T, bag = idx.shape
         tl, d = self.local_tables, self.out_dim
         ct = out_ct.to(params["kernel"].dtype)
         if self.aggr == AGGR_MODE_AVG:
             ct = ct / bag
-        # chunk j: this rank's cotangents of rank j's slots
+        # chunk j: this rank's cotangents of block j's slots
         send = ct.index_select(1, self._order(ct.device)).reshape(
             b, blocks, tl, d)
-        got = coll.all_to_all(send.transpose(0, 1))    # (blocks, b, tl, d)
+        # (blocks, b, tl, d)
+        got = coll.all_to_all(send.transpose(0, 1), s.group)
+        gid = fwd[0]
+        if s.ncopies > 1:
+            # the block's copies: every one takes the whole global batch,
+            # its chunks put in rank order (the JAX op's gidx order)
+            perm = torch.tensor(s.perm, device=got.device)
+            got = coll.all_gather(got.contiguous(), s.copies,
+                                  s.ncopies)[perm]
+            gid = coll.all_gather(gid.reshape(blocks, -1), s.copies,
+                                  s.ncopies)[perm]
         sharded_scatter_add_rows(
-            self._flat(params["kernel"]), fwd[0], got.reshape(-1, d),
-            lo=block * tl * self.num_entries, scale=-lr, div=bag, ok=ok)
+            self._flat(params["kernel"]), gid.reshape(-1),
+            got.reshape(-1, d), lo=block * tl * self.num_entries,
+            scale=-lr, div=bag, ok=ok)
         return params
 
     def sparse_opt_update(self, params, xs, out_ct, opt, slabs, step,
                           fwd=None, ok=None):
-        if self._shard is not None:
+        if self._tsplit is not None:
             raise NotImplementedError(
                 f"{self.name}: stateful optimizers (momentum, weight "
-                f"decay, Adam) on tables split across ranks are not ported "
-                f"yet (ROADMAP queue 1 item 7)")
+                f"decay, Adam) on tables split by table across ranks are "
+                f"not ported yet (ROADMAP queue 1 item 7.3)")
         return super().sparse_opt_update(params, xs, out_ct, opt, slabs,
                                          step, fwd, ok)
+
+    def whole_params(self, params):
+        """The op's parameters as one card holds them (every table, in
+        logical order), gathered from the ranks; None when this rank
+        holds them whole."""
+        if self._row_plan is not None:
+            return self._row_whole(params)
+        if self._tsplit is None:
+            return None
+        slots = self._tsplit.gather_pieces(params["kernel"], 0)
+        return {"kernel": slots.index_select(
+            0, torch.argsort(self._order(slots.device)))}
 
     # ---- delta publication (utils/delta.py) -------------------------
     def lookup_id_space(self) -> int:
@@ -1093,7 +1249,13 @@ class EmbeddingBagConcat(_FlatTableBag):
     Row-sharded across ranks (``configure_row_shard``), ``kernel`` is the
     rank's block of the concatenated rows, (total_rows / degree, d),
     routed by concatenated row id; there is no hot split, as in the JAX
-    op.
+    op. Split in row blocks over the whole mesh (the strategy's table
+    degree above 1, the JAX op's ``param_axes``; ``_split`` "rows"),
+    ``kernel`` is the rank's equal block, (total_rows / W, d), rank k
+    holding rows [k·total_rows/W, (k+1)·total_rows/W): with device groups
+    (``set_device_groups``) block k is the k-th group's tables when the
+    groups are as many as the ranks. Its output is batch-split over the
+    whole mesh, as its data-parallel consumers'.
 
     input: int (batch, T, bag) -> (batch, T, d)."""
 
@@ -1136,11 +1298,34 @@ class EmbeddingBagConcat(_FlatTableBag):
             (batch, self.num_tables, self.out_dim))]
 
     def set_device_groups(self, dev_of):
-        """The JAX op regroups its tables by the strategy's device, one
-        equal row block per device; the port runs on one card."""
-        raise NotImplementedError(
-            "EmbeddingBagConcat.set_device_groups: tables on several "
-            "devices need multi-GPU (ROADMAP queue 1 item 7)")
+        """Group the tables by their strategy device (``dev_of[i]``, table
+        i's), as the JAX op does: row block k holds exactly the tables the
+        strategy places on the k-th named device, in table order, each
+        block padded to one common size rounded up to ``_ROW_PAD``, so an
+        equal split of the rows over as many ranks lands every table whole
+        on its device (the reference's per-table placement,
+        dlrm_strategy.cc:242-296). Recomputes ``_offsets`` and
+        ``total_rows``; call it before the parameters are drawn (compile
+        does)."""
+        if len(dev_of) != self.num_tables:
+            raise ValueError(f"{self.name}: {len(dev_of)} devices for "
+                             f"{self.num_tables} tables")
+        devs = sorted(set(dev_of))
+        groups = [[i for i, dg in enumerate(dev_of) if dg == g]
+                  for g in devs]
+        block = max(sum(self.table_sizes[i] for i in grp)
+                    for grp in groups)
+        block = -(-block // self._ROW_PAD) * self._ROW_PAD
+        offs = [0] * self.num_tables
+        for k, grp in enumerate(groups):
+            off = k * block
+            for i in grp:
+                offs[i] = off
+                off += self.table_sizes[i]
+        self._offsets = tuple(offs)
+        self.total_rows = block * len(groups)
+        self._device_groups = tuple(devs)
+        self._consts = {}
 
     def output_axes(self, pc, assigner, raw_pc=None):
         """The JAX op's layout: under table parallelism (the RAW
@@ -1154,14 +1339,18 @@ class EmbeddingBagConcat(_FlatTableBag):
         return assigner.assign(pc.degrees)
 
     def param_defs(self):
-        rows = (self.total_rows if self._row_plan is None
-                else self._row_plan.rows_local)
+        rows = self.total_rows
+        if self._row_plan is not None:
+            rows = self._row_plan.rows_local
+        elif self._split_kind() == "rows":
+            rows //= self._split.nblocks
         return {"kernel": ParamDef((rows, self.out_dim), torch.float32,
                                    self.kernel_initializer)}
 
     def init_params(self, generator, device):
         # each table at its own (rows_t, d) shape, at its offset; the pad
-        # rows stay zero (row-sharded: the rank's block of that kernel)
+        # rows stay zero (row-sharded or split in row blocks: the rank's
+        # block of that kernel)
         kernel = torch.zeros((self.total_rows, self.out_dim),
                              dtype=torch.float32, device=device)
         for off, rows in zip(self._offsets, self.table_sizes):
@@ -1169,7 +1358,84 @@ class EmbeddingBagConcat(_FlatTableBag):
                 generator, (rows, self.out_dim), torch.float32, device)
         if self._row_plan is not None:
             return self._row_block(kernel)
+        if self._split_kind() == "rows":
+            rl = self.total_rows // self._split.nblocks
+            lo = self._split.block * rl
+            return {"kernel": kernel[lo:lo + rl].clone()}
         return {"kernel": kernel}
+
+    # ---- row blocks over the whole mesh (``_split`` "rows") ---------
+    def _block_lookup(self, params, idx):
+        """(this rank's rows of the lookup (b, T, d), the global batch's
+        concatenated row ids (B·T·bag,)): the global batch's ids (one
+        all-gather), the bags of the lookups in this rank's block on the
+        bag kernel (the others a negative id, which adds nothing), and
+        the ranks' partial bags summed into each rank's rows in rank
+        order (one reduce-scatter). At bag 1 each lookup lies in one
+        block, so the sum is that block's row, bitwise."""
+        s = self._split
+        b, T, bag = idx.shape
+        gid = self._global_ids(s.gather_batch(idx.contiguous()))
+        table = params["kernel"]
+        rl = table.shape[0]
+        local = gid - s.block * rl
+        local = torch.where((local >= 0) & (local < rl), local, -1)
+        part = embedding_bag(table, local, self.aggr)       # (B·T, d)
+        out = s.coll.reduce_scatter_sum(
+            part.reshape(s.world, b * T, self.out_dim))
+        return out.reshape(b, T, self.out_dim), gid.reshape(-1)
+
+    def apply(self, params, xs):
+        if self._split_kind() == "rows":
+            return [self._block_lookup(params, xs[0])[0]]
+        return super().apply(params, xs)
+
+    def apply_with_fwd(self, params, xs):
+        if self._split_kind() == "rows":
+            out, gid = self._block_lookup(params, xs[0])
+            return [out], (gid, None)
+        return super().apply_with_fwd(params, xs)
+
+    @torch.no_grad()
+    def sparse_sgd_update(self, params, xs, out_ct, lr, fwd=None, ok=None):
+        """As ``_FlatTableBag.sparse_sgd_update``; split in row blocks,
+        the global batch's cotangent (one all-gather) lands on the rank's
+        block through the windowed scatter (kernel 4) with the global
+        batch's ids of ``fwd``, in the (batch, table, bag) order of the
+        JAX op's ``g.reshape(-1)``."""
+        if self._split_kind() != "rows":
+            return super().sparse_sgd_update(params, xs, out_ct, lr, fwd, ok)
+        (idx,) = xs
+        s = self._split
+        bag = idx.shape[2]
+        table = params["kernel"]
+        ct = out_ct.to(table.dtype)
+        if self.aggr == AGGR_MODE_AVG:
+            ct = ct / bag
+        ct = s.gather_batch(ct.contiguous()).reshape(-1, self.out_dim)
+        gid = (fwd[0] if fwd is not None else self._global_ids(
+            s.gather_batch(idx.contiguous())).reshape(-1))
+        sharded_scatter_add_rows(table, gid, ct,
+                                 lo=s.block * table.shape[0], scale=-lr,
+                                 div=bag, ok=ok)
+        return params
+
+    def sparse_opt_update(self, params, xs, out_ct, opt, slabs, step,
+                          fwd=None, ok=None):
+        if self._split_kind() == "rows":
+            self._refuse_split_stateful()
+        return super().sparse_opt_update(params, xs, out_ct, opt, slabs,
+                                         step, fwd, ok)
+
+    def whole_params(self, params):
+        """The op's parameters as one card holds them, gathered from the
+        ranks; None when this rank holds them whole."""
+        if self._row_plan is not None:
+            return self._row_whole(params)
+        if self._split_kind() == "rows":
+            return {"kernel": self._split.gather_pieces(params["kernel"],
+                                                        0)}
+        return None
 
     # ---- row sharding hooks (see configure_row_shard) ---------------
     def _row_shard_geometry(self):

@@ -56,8 +56,13 @@ def embedding_bag_reference(table: torch.Tensor, ids: torch.Tensor,
                             aggr: str = "sum", return_rows: bool = False):
     """Plain PyTorch version: gather, then sum (or mean) over the bag dim
     in fp32, cast to the table's dtype — the oracle of the JAX package's
-    ``embedding_bag_reference``."""
-    rows = table[ids.long()]
+    ``embedding_bag_reference``. A negative id gathers a zero row."""
+    ids = ids.long()
+    if bool((ids < 0).any()):
+        rows = torch.where((ids >= 0)[..., None], table[ids.clamp(min=0)],
+                           torch.zeros((), dtype=table.dtype))
+    else:
+        rows = table[ids]
     out = rows.sum(dim=-2, dtype=torch.float32)
     if aggr == "avg":
         out = out / ids.shape[-1]
@@ -71,7 +76,8 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
                   aggr: str = "sum", return_rows: bool = False):
     """table (rows, d), ids (n, bag) int in [0, rows) -> (n, d): the sum,
     or for ``aggr="avg"`` the mean, of each bag's rows; with
-    ``return_rows`` also the gathered rows, (n * bag, d) in id order."""
+    ``return_rows`` also the gathered rows, (n * bag, d) in id order. A
+    negative id adds a zero row (a lookup outside a rank's row block)."""
     if aggr not in ("sum", "avg"):
         raise ValueError(f"embedding_bag aggr expects sum|avg, got {aggr!r}")
     if ids.dim() != 2 or table.dim() != 2:

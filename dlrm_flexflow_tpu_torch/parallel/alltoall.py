@@ -56,9 +56,9 @@ the row one after another, (t + u1) + u2, where the kernels form t + (u1
 + u2).
 
 Sentinels: a pad slot of the send buffers carries the row id
-``flat_rows_local`` (JAX's ``mode="drop"`` sentinel). The owner's
-gather clamps it and zeroes its row; before a kernel applies updates it
-becomes -1, the pad the kernels skip. An id of a pad must never reach a
+``flat_rows_local`` (JAX's ``mode="drop"`` sentinel). Before a kernel
+it becomes -1: the owner's gather (kernel 1) gives a zero row for it,
+and the update kernels skip it. An id of a pad must never reach a
 kernel in range.
 
 Capacity, as in the JAX package: the dense exchange reserves ``n_local``
@@ -397,8 +397,8 @@ def _fwd_rows(ex: RowExchange, flat, of, lf, gf):
     else:
         uof, ulf, inv = of, lf, None
     recv, valid, rank = _route_ids(ex, uof, ulf, C)
-    rows = _gather_rows(flat, recv.clamp(max=sentinel - 1))
-    rows = torch.where(valid[:, None], rows, 0.0)
+    # a pad's id -1: kernel 1 reads nothing for it and gives a zero row
+    rows = _gather_rows(flat, torch.where(valid, recv, -1))
     back = ex.a2a(rows.reshape(S, C, d)).reshape(S * C, d)
     idx = (uof.clamp(max=S - 1) * C + rank).clamp(max=S * C - 1)
     mine = torch.where((uof < S)[:, None], back[idx], 0.0)

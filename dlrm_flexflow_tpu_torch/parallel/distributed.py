@@ -226,7 +226,8 @@ class Collectives:
     gloo a card tensor goes through a host copy, as gloo moves host
     memory; under NCCL it stays on the card."""
 
-    NAMES = ("all_to_all", "all_reduce", "all_gather", "p2p")
+    NAMES = ("all_to_all", "all_reduce", "all_gather", "p2p",
+             "reduce_scatter")
 
     def __init__(self):
         self.staged = dist.get_backend() == "gloo"
@@ -327,15 +328,37 @@ class Collectives:
         self._count("all_gather", 2 * send.nbytes * (k - 1), t0, send.nbytes)
         return out
 
-    def all_reduce_sum_(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum ``t`` over the ranks, in place; every rank gets the same
-        bits."""
+    def all_reduce_sum_(self, t: torch.Tensor, group=None) -> torch.Tensor:
+        """Sum ``t`` over the ranks (of ``group``; None: the process
+        group), in place; every rank gets the same bits."""
         t0 = time.perf_counter()
         if self.staged and t.is_cuda:
             h = t.cpu()
-            dist.all_reduce(h)
+            dist.all_reduce(h, group=group)
             t.copy_(h)
         else:
-            dist.all_reduce(t)
+            dist.all_reduce(t, group=group)
         self._count("all_reduce", 2 * t.nbytes, t0, t.nbytes)
         return t
+
+    def reduce_scatter_sum(self, chunks: torch.Tensor, group=None
+                           ) -> torch.Tensor:
+        """``chunks`` (k, ...), k the ranks of ``group`` (None: of the
+        process group), chunk j this rank's part of rank j's share: the
+        sum over the ranks of their chunk for this rank, added in group
+        order from the first rank's (((c0 + c1) + c2) ...), so every
+        position sums in one order whatever rank computes it. One
+        all-to-all moves the chunks (gloo has no reduce-scatter); its
+        bytes are counted here, under "reduce_scatter"."""
+        t0 = time.perf_counter()
+        src = chunks.contiguous()
+        send, host = self._host(src)
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=group)
+        got = recv.to(src.device) if host else recv
+        out = got[0].clone()
+        for i in range(1, len(got)):
+            out += got[i]
+        self._count("reduce_scatter", 2 * send.nbytes * (1 - 1 / len(src)),
+                    t0, send.nbytes)
+        return out

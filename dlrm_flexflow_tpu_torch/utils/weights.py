@@ -19,11 +19,12 @@ for ``model``, ready for ``model.swap_params``:
 - an EmbeddingBagConcat kernel is stored lane-packed as
   (total_rows/r, r·d): a reshape gives the port's (total_rows, d).
 
-Under table parallelism (``EmbeddingBagStacked.shard_tables``) a rank
+Under table parallelism (an ``op._split`` of kind "table") a rank
 holds the storage slots ``local_slots()`` of the stacked kernel, in slot
-order: ``params_from_jax`` takes those slots of the JAX stored kernel,
-and ``params_to_jax`` gives them back in the JAX layout, (T/D, N/r,
-r·d), so the ranks' blocks in rank order are the JAX kernel.
+order: ``params_from_jax`` takes those slots of the JAX stored kernel
+(or keeps a block already of their number), and ``params_to_jax`` gives
+them back in the JAX layout, (T/D, N/r, r·d), so the ranks' blocks in
+rank order are the JAX kernel.
 
 Row-sharded across ranks (``configure_row_shard``), a rank holds its
 row block of each table: rows [H + s·rl, H + (s+1)·rl) of each logical
@@ -35,6 +36,19 @@ stored cold kernel ((T, (N - H)/r, r·d) stacked, ((N - H), d) for an
 carry the block, the hot head and, through ``opt_state_*``, their
 slabs, bitwise; the stacked tables in logical order on the port's side,
 in storage order on the JAX side, as unsharded.
+
+The other splits across ranks (``parallel.split``, ``op._split``): a
+rank of a concatenated table split in row blocks holds its equal block
+of the logical rows, rows [k·R/W, (k+1)·R/W), which is the rows
+[k·R/W/r, (k+1)·R/W/r) of the JAX stored kernel (R/r, r·d); a rank of
+an ``Embedding`` split by width holds its columns of the kernel (rows,
+d / dc), and a rank of a ``Linear`` split by channel its columns of the
+kernel (in, out / dc) and of the bias. ``params_from_jax`` takes the
+rank's piece from the whole JAX array (or keeps a piece already of its
+shape) and ``params_to_jax`` gives the piece back in the JAX layout, so
+the ranks' pieces, joined in block order (rank order where each block
+has one rank), are the JAX stored array. A replicated table is carried
+as on one card.
 
 Host-resident tables are no parameters: the ops whose tables live on
 the host (``model._host_resident_list``) have no entry in ``params``
@@ -103,11 +117,12 @@ def param_from_jax(model, op, pn: str, v) -> torch.Tensor:
     v = np.array(v, dtype=np.float32)   # a writable copy
     if getattr(op, "_row_plan", None) is not None:
         v = _row_block_from_jax(op, pn, v)
+    elif getattr(op, "_split", None) is not None \
+            and op._split.kind != "replicated":
+        v = _split_piece_from_jax(op, v, d.shape)
     elif isinstance(op, EmbeddingBagStacked) and pn == "kernel":
-        v = v.reshape(op.num_tables, op.num_entries, op.out_dim)
-        if op._shard is not None:
-            v = v[op.local_slots().start:op.local_slots().stop]
-        elif op._table_order is not None:
+        v = v.reshape(-1, op.num_entries, op.out_dim)
+        if op._table_order is not None:
             inv = np.argsort(np.asarray(op._table_order))
             v = v[inv]
     elif isinstance(op, EmbeddingBagConcat) and pn == "kernel":
@@ -133,6 +148,28 @@ def _row_block_from_jax(op, pn: str, v):
     if pn == "kernel" and v.shape[-2] == rl * op._row_plan.nshards:
         s = op._row_exchange().shard
         v = v[..., s * rl:(s + 1) * rl, :]
+    return v
+
+
+def _split_piece_from_jax(op, v, shape):
+    """A split op's parameter from the JAX stored array (whole, or the
+    rank's piece as ``params_to_jax`` gives it): the rank's piece, in the
+    port's layout (a concatenated table's row block, or the columns of a
+    width or channel split)."""
+    s = op._split
+    if s.kind == "table":
+        v = v.reshape(-1, op.num_entries, op.out_dim)
+        if v.shape[0] == op.num_tables:     # the whole stored kernel
+            v = v[op.local_slots().start:op.local_slots().stop]
+        return v
+    if s.kind == "rows":
+        v = v.reshape(-1, op.out_dim)
+        if v.shape[0] == op.total_rows:
+            rl = op.total_rows // s.nblocks
+            v = v[s.block * rl:(s.block + 1) * rl]
+        return v
+    if v.shape[-1] != shape[-1]:
+        v = v[..., s.columns(v.shape[-1])]
     return v
 
 
@@ -210,8 +247,9 @@ def jax_param_shapes(model) -> Dict[str, Dict[str, tuple]]:
             shapes["kernel"] = (op.local_tables, op.num_entries // r,
                                 op.out_dim * r)
         elif isinstance(op, EmbeddingBagConcat) and "kernel" in shapes:
+            # the whole table, or a rank's row block of it
             r = _pack_factor(op.out_dim, op.total_rows)
-            shapes["kernel"] = (op.total_rows // r, op.out_dim * r)
+            shapes["kernel"] = (shapes["kernel"][0] // r, op.out_dim * r)
         out[op.name] = shapes
     return out
 
@@ -227,7 +265,8 @@ def params_to_jax(model, params: Dict[str, Dict[str, torch.Tensor]]
             if getattr(op, "_row_plan", None) is not None:
                 v = _row_block_to_jax(op, pn, v, shapes[op.name][pn])
             elif isinstance(op, EmbeddingBagStacked) and pn == "kernel":
-                if op._table_order is not None and op._shard is None:
+                if op._table_order is not None \
+                        and op.local_tables == op.num_tables:
                     v = v[np.asarray(op._table_order)]
                 v = v.reshape(shapes[op.name][pn])
             elif isinstance(op, EmbeddingBagConcat) and pn == "kernel":

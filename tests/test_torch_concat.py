@@ -131,10 +131,158 @@ def test_concat_lane_pack_carries_bitwise(d):
                                   np.asarray(jop.flat_lookup_ids(ids)))
 
 
+def _fresh_ops(d=16):
+    """A JAX and a port model of one concatenated table, compiled, no
+    parameters drawn yet."""
+    T = len(SIZES)
+    jm = ff.FFModel(ff.FFConfig(batch_size=B, seed=2))
+    pm = pt.FFModel(pt.FFConfig(batch_size=B, device="cpu"))
+    for m, itype in ((jm, jnp.int32), (pm, torch.int64)):
+        ids = m.create_tensor((B, T, BAG), dtype=itype, name="ids")
+        e = m.embedding_concat(ids, SIZES, d, name="emb")
+        m.dense(m.reshape(e, (B, T * d), name="flat"), 1, name="head")
+    jm.compile(ff.SGDOptimizer(lr=0.1), "mean_squared_error", ["mse"],
+               mesh=make_mesh(devices=jax.devices()[:1]))
+    pm.compile(SGDOptimizer(lr=0.1), "mean_squared_error", ["mse"])
+    return jm, pm
+
+
 def test_concat_refuses_device_groups():
-    _, pm, _ = _op_models(16)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        pm.get_layer_by_name("emb").set_device_groups([0, 1, 0, 1])
+    """``set_device_groups`` groups the tables by device as the JAX op
+    does: the same offsets and total rows, and the init of the grouped
+    table draws each table at its own shape at its offset, the pad rows
+    zero, as the JAX op's init (whose weights carry across bitwise)."""
+    for dev_of in ([0, 1, 0, 1], [1, 1, 0, 1], [2, 0, 2, 5]):
+        _check_device_groups(dev_of)
+
+
+def _check_device_groups(dev_of):
+    jm, pm = _fresh_ops()
+    jop, pop = jm.get_layer_by_name("emb"), pm.get_layer_by_name("emb")
+    jop.set_device_groups(dev_of)
+    pop.set_device_groups(dev_of)
+    assert pop._offsets == tuple(int(o) for o in jop._offsets)
+    assert pop.total_rows == jop.total_rows
+    groups = sorted(set(dev_of))
+    block = pop.total_rows // len(groups)
+    assert block % pop._ROW_PAD == 0
+    for i, dg in enumerate(dev_of):
+        k = groups.index(dg)
+        assert k * block <= pop._offsets[i] < (k + 1) * block
+    jm.init_layers()
+    pm.init_layers(seed=3)
+    want = np.asarray(jop.unpack_kernel(jm.params["emb"]["kernel"]))
+    got = pm.params["emb"]["kernel"].numpy()
+    assert got.shape == want.shape == (pop.total_rows, 16)
+    # the same rows hold tables, the rest (pads) zero in both
+    np.testing.assert_array_equal(got != 0, want != 0)
+    for off, rows in zip(pop._offsets, SIZES):
+        lim = (6.0 / (rows + 16)) ** 0.5     # Glorot at (rows, d)
+        assert float(np.abs(got[off:off + rows]).max()) <= lim
+        assert float(np.abs(want[off:off + rows]).max()) <= lim
+    carried = params_from_jax(pm, jax.tree.map(np.asarray, jm.params))
+    np.testing.assert_array_equal(carried["emb"]["kernel"].numpy(), want)
+
+
+# Criteo-Kaggle's 26 table sizes (run_criteo_kaggle.sh)
+KAGGLE = [1396, 550, 2481689, 687, 20, 15, 204, 96, 14, 1400181, 397059,
+          3166985, 10, 2208, 11156, 155, 4, 976, 14, 1398149, 1263872,
+          1246444, 13107, 336, 101, 30]
+
+
+def _per_table_file(tmp_path, ndev):
+    """The reference's per-table keys, table i on device i % ndev, every
+    other op data-parallel over one device."""
+    import json
+    ops = [{"name": f"embedding{i}", "device_type": "TPU", "dims": [1, 1],
+            "device_ids": [i % ndev], "memory_types": []}
+           for i in range(len(KAGGLE))]
+    ops += [{"name": k, "device_type": "TPU", "dims": [1, 1],
+             "device_ids": [0], "memory_types": []}
+            for k in ("linear", "concat")]
+    path = tmp_path / f"kaggle_per_table_{ndev}.json"
+    path.write_text(json.dumps({"ops": ops}))
+    return str(path)
+
+
+def _warnings(fn, *names):
+    import logging
+    msgs = []
+
+    class H(logging.Handler):
+        def emit(self, rec):
+            msgs.append(rec.getMessage())
+
+    h = H(logging.WARNING)
+    for n in names:
+        logging.getLogger(n).addHandler(h)
+    try:
+        fn()
+    finally:
+        for n in names:
+            logging.getLogger(n).removeHandler(h)
+    return msgs
+
+
+def test_per_table_file_trains_at_world_one(tmp_path):
+    """A per-table strategy file for Criteo-Kaggle naming 2 devices, on one
+    device: the port groups the concatenated table by device as the JAX
+    compile does (the same offsets and total rows at Kaggle's sizes, and
+    the JAX warnings word for word: the padding and "placement is
+    approximate"), then trains as the JAX model does at Kaggle's 26
+    tables cut to a few thousand rows (losses within rtol 1e-5, every
+    change within 1e-3 of its largest)."""
+    from dlrm_flexflow_tpu.parallel.strategy_io import \
+        load_strategies as jax_load
+    from dlrm_flexflow_tpu_torch.parallel.strategy_io import load_strategies
+    path = _per_table_file(tmp_path, 2)
+
+    def arch(sizes):
+        return dict(embedding_size=sizes, sparse_feature_size=16,
+                    mlp_bot=[13, 32, 16], mlp_top=[16 * 27, 32, 1])
+
+    def pair(sizes):
+        jm = ff.FFModel(ff.FFConfig(batch_size=BS, seed=4))
+        jax_build_dlrm(jm, JaxDLRMConfig(**arch(sizes)))
+        pm = pt.FFModel(pt.FFConfig(batch_size=BS, device="cpu"))
+        build_dlrm(pm, DLRMConfig(**arch(sizes)))
+        jw = _warnings(lambda: jm.compile(
+            ff.SGDOptimizer(lr=0.1), "mean_squared_error", ["mse"],
+            mesh=make_mesh(devices=jax.devices()[:1]),
+            strategies=jax_load(path)), "ff.model")
+        pw = _warnings(lambda: pm.compile(
+            SGDOptimizer(lr=0.1), "mean_squared_error", ["mse"],
+            strategies=load_strategies(path)), "ff.model")
+        return jm, pm, jw, pw
+
+    # Kaggle's own sizes: compiled, no parameters drawn
+    jm, pm, jw, pw = pair(KAGGLE)
+    jop, pop = jm.get_layer_by_name("emb_concat"), \
+        pm.get_layer_by_name("emb_concat")
+    assert pop.total_rows == jop.total_rows == 2 * 7217152
+    assert pop._offsets == tuple(int(o) for o in jop._offsets)
+    assert pw == jw and any("placement is approximate" in w for w in pw)
+    assert any("pads 'emb_concat'" in w for w in pw)
+    # cut to a few thousand rows, trained
+    small = [s // 2048 + 3 for s in KAGGLE]
+    jm, pm, jw, pw = pair(small)
+    assert pw == jw
+    jop, pop = jm.get_layer_by_name("emb_concat"), \
+        pm.get_layer_by_name("emb_concat")
+    assert pop._offsets == tuple(int(o) for o in jop._offsets)
+    assert pop.total_rows == jop.total_rows
+    jm.init_layers()
+    p0 = jax.tree.map(np.asarray, jm.params)
+    pm.swap_params(params_from_jax(pm, p0))
+    lj, lp = [], []
+    for s in range(STEPS):
+        x, y = synthetic_batch(DLRMConfig(**arch(small)), BS, seed=80 + s)
+        x["label"] = y
+        lj.append(float(jm.train_batch(dict(x))["loss"]))
+        lp.append(float(pm.train_batch(dict(x))["loss"]))
+    np.testing.assert_allclose(lp, lj, rtol=1e-5)
+    _changes_close(p0, jax.tree.map(np.asarray, jm.params),
+                   params_to_jax(pm, pm.params), 1e-3, "per-table file")
 
 
 def test_concat_init_draws_each_table_at_its_own_shape():

@@ -65,6 +65,11 @@ combine of a received buffer (segment sums on the scatter kernel) and its
 routed SGD, stateful and gradient updates BITWISE their plain versions on
 the CPU, sentinel pads included; the owner's gather of received ids with
 the sentinel clamped (the bag kernel at bag 1) BITWISE its plain version.
+Tables split across ranks: kernel 4 at a Criteo-Kaggle row block's shape
+(13,312 lookups, a 5.7M-row block, d = 16), the bag kernel's masked ids
+(a negative id adds a zero row) and kernels 1 and 3 on a width slice of
+a table (32 of 64 columns; 8 of 16 and of 32), each BITWISE its plain
+version.
 """
 
 import numpy as np
@@ -2292,4 +2297,76 @@ def test_owner_gather_matches_plain_at_a_rank_shape(cuda):
     want = embedding_bag_reference(
         table.cpu(), rid.cpu().clamp(max=ROW_BLOCK - 1).reshape(-1, 1))
     want = torch.where(valid.cpu()[:, None], want, 0.0)
+    assert torch.equal(got.cpu(), want)
+
+
+# ---- tables split across ranks (parallel/split.py) -------------------------
+# Criteo-Kaggle's concatenated table (11,386,880 padded rows) in 2 row
+# blocks, and a global batch of 512 (run_criteo_kaggle.sh at -ll:gpu 2)
+KAGGLE_BLOCK = 11_386_880 // 2
+KAGGLE_N = 512 * 26
+
+
+def test_windowed_scatter_at_a_kaggle_row_block(cuda):
+    """Kernel 4 at a Kaggle row block's shape: the global batch's 13,312
+    lookups, about half of them in rank 1's block of 5.7M rows, d = 16,
+    BITWISE its plain version on the CPU (the same scaled updates summed
+    in lookup order)."""
+    g = torch.Generator(device=cuda).manual_seed(24)
+    lo = KAGGLE_BLOCK
+    block = torch.randn(KAGGLE_BLOCK, 16, device=cuda, generator=g)
+    ids = torch.randint(0, 2 * KAGGLE_BLOCK, (KAGGLE_N,), device=cuda,
+                        generator=g)
+    ids[:64] = lo + 5                          # a hot row
+    upd = torch.randn(KAGGLE_N, 16, device=cuda, generator=g)
+    got = scatter_rows_mod.sharded_scatter_add_rows(block.clone(), ids, upd,
+                                                    lo, scale=-0.01)
+    want = scatter_rows_mod.sharded_scatter_add_rows_reference(
+        block.cpu(), ids.cpu(), upd.cpu(), lo, scale=-0.01)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("aggr", ["sum", "avg"])
+@pytest.mark.parametrize("bag", [1, 2])
+def test_bag_kernel_masks_ids_outside_a_row_block(cuda, aggr, bag):
+    """The row block's masked bags: a negative id adds a zero row, as the
+    plain version's; bitwise at bag 1 and 2 (a sum of at most two rows
+    and zeros in bag order on both sides)."""
+    g = torch.Generator(device=cuda).manual_seed(bag)
+    table = torch.randn(100_000, 16, device=cuda, generator=g)
+    ids = torch.randint(-100_000, 100_000, (KAGGLE_N, bag), device=cuda,
+                        generator=g).clamp(min=-1)
+    got = embedding_bag(table, ids, aggr)
+    want = embedding_bag_reference(table.cpu(), ids.cpu(), aggr)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert not got[(ids < 0).all(1)].any()
+
+
+@pytest.mark.parametrize("d,cols", [(64, 32), (16, 8), (32, 8)])
+def test_bag_and_scatter_kernels_on_a_width_slice(cuda, d, cols):
+    """An Embedding split by width: the bag kernel (kernel 1) and the
+    scatter (kernel 3) on a rank's columns, a (rows, cols) slice of a
+    (rows, d) table (a (rows, 32) slice of a (rows, 64) table, and
+    d = 8), with a global batch's ids: each BITWISE its plain version,
+    and the slice's bags the columns of the whole table's."""
+    rows, n, bag = 1_000_000, 2048, 1
+    g = torch.Generator(device=cuda).manual_seed(d + cols)
+    whole = torch.randn(rows, d, device=cuda, generator=g)
+    piece = whole[:, cols:2 * cols].contiguous()
+    ids = torch.randint(0, rows, (n, bag), device=cuda, generator=g)
+    got = embedding_bag(piece, ids)
+    want = embedding_bag_reference(piece.cpu(), ids.cpu())
+    full = embedding_bag(whole, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got, full[:, cols:2 * cols])
+    upd = torch.randn(n, cols, device=cuda, generator=g)
+    flat = ids.reshape(-1)
+    got = scatter_add_rows(piece.clone(), flat, upd, scale=-0.01, div=bag,
+                           ids_in_range=True)
+    want = scatter_add_rows_reference(piece.cpu(), flat.cpu(), upd.cpu(),
+                                      scale=-0.01, div=bag)
+    torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)

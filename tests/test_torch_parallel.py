@@ -181,34 +181,30 @@ def test_compile_resolves_criteo_shapes_as_jax(ndev, source):
 
 
 def test_dlrm_strategy_refuses_what_it_cannot_split():
-    """Over more than one device, the JAX strategy's other branches shard
-    what the port cannot split across ranks yet: they raise, naming item
-    7; over one device they give the JAX configs. ``row_shard=True`` over
-    2 and 4 devices gives the JAX map, for every embedding form."""
-    for fuse, arch in ((True, dict(ARCH, embedding_size=[64, 32] * 4)),
-                       (False, ARCH)):
-        m = pt.FFModel(pt.FFConfig(batch_size=BS, device="cpu"))
-        cfg = DLRMConfig(**arch)
-        build_dlrm(m, cfg, fuse_embeddings=fuse)
-        with pytest.raises(NotImplementedError, match="item 7"):
-            dlrm_strategy(m, cfg, 2)
-        jmodel = ff.FFModel(ff.FFConfig(batch_size=BS))
-        jax_build_dlrm(jmodel, JaxDLRMConfig(**arch), fuse_embeddings=fuse)
-        assert _as_dicts(dlrm_strategy(m, cfg, 1)) == _as_dicts(
-            jax_strategy(jmodel, JaxDLRMConfig(**arch), 1))
+    """``dlrm_strategy`` over 1, 2 and 4 devices gives the JAX map for the
+    stacked, the concatenated and the unfused graphs (the stacked tables
+    split by table, the concatenated table's table degree 2, each
+    ``Embedding`` split by width), with and without ``row_shard=True``,
+    and raises nowhere."""
     for fuse, arch in ((True, ARCH),
                        (True, dict(ARCH, embedding_size=[64, 32] * 4)),
-                       (False, ARCH)):
+                       (False, ARCH),
+                       (False, dict(ARCH, sparse_feature_size=6,
+                                    mlp_bot=[4, 16, 6],
+                                    mlp_top=[6 + 6 * 8, 16, 1]))):
         m = pt.FFModel(pt.FFConfig(batch_size=BS, device="cpu"))
         build_dlrm(m, DLRMConfig(**arch), fuse_embeddings=fuse)
         jmodel = ff.FFModel(ff.FFConfig(batch_size=BS))
         jax_build_dlrm(jmodel, JaxDLRMConfig(**arch), fuse_embeddings=fuse)
-        for n in (2, 4):
-            got = dlrm_strategy(m, DLRMConfig(**arch), n, row_shard=True)
-            assert _as_dicts(got) == _as_dicts(jax_strategy(
-                jmodel, JaxDLRMConfig(**arch), n, row_shard=True))
-            assert all(got[op.name].param_degree == n for op in m.ops
-                       if type(op).__name__.startswith("Embed"))
+        for n in (1, 2, 4):
+            for rs in (False, True):
+                got = dlrm_strategy(m, DLRMConfig(**arch), n, row_shard=rs)
+                assert _as_dicts(got) == _as_dicts(jax_strategy(
+                    jmodel, JaxDLRMConfig(**arch), n, row_shard=rs))
+                if rs:
+                    assert all(got[op.name].param_degree == n
+                               for op in m.ops
+                               if type(op).__name__.startswith("Embed"))
 
 
 def test_process_group_pieces_without_a_group(monkeypatch):

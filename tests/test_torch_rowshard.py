@@ -42,8 +42,9 @@ Held, and why:
   first-occurrence position; the kernels sum in list order);
 - the loud fallbacks: the same ``ff.embedding`` warnings as the JAX
   compile, word for word; a request ``configure_row_shard`` refuses then
-  raises the item-7 error across ranks (replicated rows are item 7.2),
-  and a hot split that cannot resolve keeps plain row sharding;
+  trains with the table replicated on every rank (bitwise equal copies,
+  the losses within rtol 1e-5 of a world-1 run's), and a hot split that
+  cannot resolve keeps plain row sharding;
 - the launcher (``examples/native/dlrm.py``) at world ranks with
   ``--import`` of a JSON strategy whose embedding entry carries
   ``param_dim`` (and ``exchange``, ``hot_frac``, ``overlap``):
@@ -206,12 +207,21 @@ def _rank_run(rank, world, specs):
                           sp.get("hot", 0.0), sp.get("overlap", False)))
             return m
 
-        if sp.get("raises"):
-            try:
-                model(make_mesh(), sp.get("pd", world)).init_layers()
-                out[sp["key"]] = {"error": None}
-            except NotImplementedError as e:
-                out[sp["key"]] = {"error": str(e)}
+        if sp.get("replicated"):
+            # a refused request: the table replicated on every rank,
+            # trained beside a world-1 run from the same seed
+            res = {}
+            for key, mesh in (("losses", make_mesh()),
+                              ("world1_losses", make_mesh(devices=[rank]))):
+                m = model(mesh, sp.get("pd", world))
+                m.init_layers()
+                res[key] = [float(m.train_batch(x)["loss"])
+                            for x in sp["batches"]]
+                if mesh.size > 1:
+                    op = m.get_layer_by_name(_emb_names(m)[0])
+                    res["kind"] = op._split.kind
+                    res["table"] = m.params[op.name]["kernel"].numpy().copy()
+            out[sp["key"]] = res
             continue
         m = model(make_mesh(), sp.get("pd", world))
         if sp.get("p0") is not None:
@@ -398,12 +408,13 @@ def _launcher_specs(world, tmp):
 
 def _fallback_specs():
     return {
-        # 61 rows split over no degree: replicated rows, refused across
-        # ranks
-        "fb/infeasible": dict(opt="sgd", sizes=[61] * T, raises=True),
+        # 61 rows split over no degree: replicated rows
+        "fb/infeasible": dict(opt="sgd", sizes=[61] * T, replicated=True,
+                              batches=_uniform_batches([61] * T)),
         # concatenated tables have no hot split: replicated rows
         "fb/concat_hot": dict(opt="sgd", sizes=SIZES, hot=0.25,
-                              raises=True),
+                              replicated=True,
+                              batches=_uniform_batches(SIZES)),
         # 128 rows at lane pack 16: a hot quantum is the whole table; the
         # op keeps plain row sharding
         "fb/unresolvable_hot": dict(opt="sgd", sizes=[128] * T, bag=3,
@@ -684,8 +695,10 @@ def _warnings_of(fn):
 def test_loud_fallbacks(world_run, case):
     """The JAX compile's warnings, word for word (the port compiles on a
     mesh of ``world`` ranks without a group: it places, and warns); then,
-    across ranks, a refused request raises the item-7 error and an
-    unresolvable hot split trains plain row-sharded."""
+    across ranks, a refused request trains with the table replicated
+    (every rank's copy bitwise equal, the losses those of a world-1 run
+    within rtol 1e-5) and an unresolvable hot split trains plain
+    row-sharded."""
     import jax
 
     import dlrm_flexflow_tpu as ff
@@ -721,9 +734,15 @@ def test_loud_fallbacks(world_run, case):
     want = _warnings_of(jax_compile)
     assert want and _warnings_of(port_compile) == want
     res = [r[f"fb/{case}"] for r in ranks]
-    if sp.get("raises"):
-        assert all("ROADMAP queue 1 item 7" in r["error"] for r in res), res
+    if sp.get("replicated"):
         assert "replicated rows" in want[-1]
+        assert all(r["kind"] == "replicated" for r in res)
+        for r in res:
+            np.testing.assert_array_equal(r["table"], res[0]["table"])
+            assert r["losses"] == res[0]["losses"]
+            assert np.isfinite(r["losses"]).all()
+            np.testing.assert_allclose(r["losses"], r["world1_losses"],
+                                       rtol=1e-5)
     else:
         assert "plain row sharding" in want[0]
         assert all(r["hot_rows"] == 0 and r["nshards"] == world
