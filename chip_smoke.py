@@ -444,6 +444,43 @@ Phases:
    Each run's step ms, every collective's calls, bytes and host seconds
    a step print. ``python3 chip_smoke.py --tablepar`` runs only this
    phase.
+17. split tables under every optimizer — the stateful optimizers and
+   the dense table update on tables split by table, row block or width
+   (``stateful_update_rows(lo=)``, ``split_dense_grad``, the two-pass
+   rounding of a width piece), run after phase 16. Kernel 2's windowed
+   stateful entry at a Criteo-Kaggle row block's shape (13,312 lookups,
+   rank 1's block of 5,693,440 rows, d = 16) and at the "cat" split's
+   (4,096 lookups into a block of 4 tables of 1M x 64), Adam, and
+   ``row_amax`` and ``fake_quant_rows_amax`` on a 1M x 32 width piece,
+   each bitwise its plain version on the CPU and timed beside its bound.
+   Then SO_WORLD ``--splitopt-rank`` children on the card (gloo): (a)
+   ``random_benchmark()``'s "cat" split by table under Adam and under
+   momentum with weight decay, global batch 1,024; (b) Criteo-Kaggle's
+   concatenated table in 2 row blocks under Adam, global batch 512; (c)
+   run_random.sh's 8 ``Embedding``s of 1M x 64 by width under Adam and
+   under int8 stochastic rounding (``compile()``'s default optimizer);
+   (d) the launcher with run_criteo_kaggle.sh's flags at ``-ll:gpu 2 -b
+   512 --dense-embedding-update``; (e) the fused "dot" under Adam. Each
+   run TP_STEPS steps against a world-1 run from the same seed, as
+   phase 16 holds them, the optimizer's state slabs too: bitwise at the
+   start, the losses within DIST_LOSS_RTOL, each update within
+   DIST_UPDATE_TOL of its largest. Under Adam a gradient that the
+   ranks' summation order moves across 0 flips a whole step of a value,
+   and the later steps see it: there the first step's moments are held
+   against world 1 (as phase 15 holds them); (b) every update and loss
+   too; (e) every loss, and at most SO_FLIP_SHARE of a parameter's
+   values off; (a) and (c) the losses up to the first update's, and
+   every loss, weight and slab against a witness run on the same ranks
+   with every op data-parallel (the tables whole on each rank: the
+   ranks' order without the split). Under stochastic rounding each
+   table value within one code of world 1's, and one more step's
+   rounding bitwise one card's rounding of the gathered table. The
+   share of values off by more printed, every copy
+   bitwise equal across the ranks, exact launch counts a step (the
+   stateful entry on its one-launch route) and no plain version. Each
+   run's step ms, every collective's calls, bytes and host seconds a
+   step print. ``python3 chip_smoke.py --splitopt`` runs only this
+   phase.
 
 The last two lines are a JSON object with every kernel's numbers and
 ``{"ok": true, "device": {...}}``. Without a GPU, or when any check
@@ -1994,7 +2031,8 @@ LAUNCHED = (bag_mod.embedding_bag, inter_mod.fused_interaction,
             dense_mod.grad_sumsq, topk_mod.mips_topk,
             bag_mod.embedding_bag_quant, inter_mod.fused_interaction_quant,
             lstm_mod.lstm_fwd, lstm_mod.lstm_gates, lstm_mod.lstm_bwd,
-            qr_mod.fake_quant_rows)
+            qr_mod.fake_quant_rows, qr_mod.row_amax,
+            qr_mod.fake_quant_rows_amax)
 
 
 def zero_counts():
@@ -2046,7 +2084,8 @@ class PlainCalls:
                           (lstm_mod, "lstm_fwd_reference"),
                           (lstm_mod, "lstm_gates_reference"),
                           (lstm_mod, "lstm_bwd_reference"),
-                          (qr_mod, "fake_quant_rows_reference")):
+                          (qr_mod, "fake_quant_rows_reference"),
+                          (qr_mod, "row_amax_reference")):
             real = getattr(mod, name)
 
             def counted(*a, _real=real, **kw):
@@ -7472,48 +7511,114 @@ def _tp_models(make, world_mesh):
     return make(world_mesh), make(make_mesh(devices=[distributed.rank()]))
 
 
-def _tp_held(split, alone, batches):
+def _tp_held(split, alone, batches, dp=None):
     """TP_STEPS steps of the split model (every count at 0 just before,
-    read just after) and of the world-1 model on the same global batches;
-    each parameter of the split model against this rank's piece of the
-    world-1 model's, over max |the world-1 piece|: the weights, the
-    updates from the split model's initial weights, and whether they
-    started bitwise equal; each piece's sha256 and split, for the
-    copies' check."""
+    read just after) and of the world-1 model on the same global batches
+    (its counts read the same way); each parameter of the split model
+    against this rank's piece of the world-1 model's, over max |the
+    world-1 piece|: the weights, the updates from the split model's
+    initial weights, and whether they started bitwise equal; each
+    optimizer state slab the same way (from zero: its update is its
+    value), and after the first step (``first_state``: Adam's first
+    moments are linear and quadratic in the first gradient, where its
+    later steps are not); the share of values whose update is off by
+    more than DIST_UPDATE_TOL of the largest; each piece's sha256 and
+    split, for the copies' check. With ``dp``, the same model on the same
+    ranks with every table whole on each (data-parallel, as the MLPs:
+    the ranks' summation order without the split), its TP_STEPS steps
+    held the same way under "witness"."""
     import hashlib
     ops = {op.name: op for op in split.ops}
+
+    def slabs(model):
+        return {(k, o, p): v for k in sorted(model.opt_state or {})
+                if k != "step" for o in sorted(model.opt_state[k])
+                for p, v in sorted(model.opt_state[k][o].items())}
+
+    first, first_state = {}, {}
+
+    def keep_first():
+        first.update({k: v.clone() for k, v in slabs(split).items()})
+
+    def hold_first():
+        for (k, o, p), v in slabs(alone).items():
+            first_state[f"{k}:{o}.{p}"] = _worst(first.pop((k, o, p)),
+                                                 _tp_piece(ops[o], v))
+
     names = [(o, p) for o in sorted(split.params)
              for p in sorted(split.params[o])]
     init = {k: split.params[k[0]][k[1]].clone() for k in names}
-    same_init = all(torch.equal(
-        init[(o, p)], _tp_piece(ops[o], alone.params[o][p]))
-        for o, p in names)
+
+    def starts_equal(ref):
+        return all(torch.equal(init[(o, p)], _tp_piece(ops[o],
+                                                       ref.params[o][p]))
+                   for o, p in names)
+
+    def against(ref):
+        """{key: (weight error, update error, share of values off)} of
+        every parameter and state slab against ``ref``'s piece, and
+        whether all are bitwise equal."""
+        held = [("", o, p, split.params[o][p], ref.params[o][p],
+                 init[(o, p)]) for o, p in names]
+        for k in sorted(split.opt_state or {}):
+            if k == "step":
+                continue
+            held += [(f"{k}:", o, p, v, ref.opt_state[k][o][p],
+                      torch.zeros_like(v))
+                     for o in sorted(split.opt_state[k])
+                     for p, v in sorted(split.opt_state[k][o].items())]
+        out, equal = {}, True
+        for slab, o, p, a, whole, a0 in held:
+            b = _tp_piece(ops[o], whole)
+            equal = equal and torch.equal(a, b)
+            off = ((a - a0) - (b - a0)).abs() \
+                > DIST_UPDATE_TOL * float((b - a0).abs().max())
+            out[f"{slab}{o}.{p}"] = (_worst(a, b), _worst(a - a0, b - a0),
+                                     float(off.float().mean()))
+        return out, equal
+
+    same_init = starts_equal(alone)
     for st in split._collectives.stats.values():    # the steps' alone
         st.update(calls=0, bytes=0, sent=0, seconds=0.0)
     zero_counts()
     with PlainCalls() as plain:
-        losses, ms = _timed_steps(split, batches)
+        losses, ms = _timed_steps(split, batches, keep_first)
     counts = read_counts()
     stats = {k: dict(v) for k, v in split._collectives.stats.items()}
-    losses1, ms1 = _timed_steps(alone, batches)
-    errs, updates, digests = {}, {}, {}
-    for o, p in names:
-        a = split.params[o][p]
-        b = _tp_piece(ops[o], alone.params[o][p])
-        key = f"{o}.{p}"
-        errs[key] = _worst(a, b)
-        updates[key] = _worst(a - init[(o, p)], b - init[(o, p)])
+    zero_counts()
+    losses1, ms1 = _timed_steps(alone, batches, hold_first)
+    counts1 = read_counts()
+    held, _ = against(alone)
+    digests = {}
+    for key in held:
+        slab, _, name = key.rpartition(":")
+        o, p = name.split(".", 1)
+        a = (split.params[o][p] if not slab
+             else split.opt_state[slab][o][p])
         sp = getattr(ops[o], "_split", None)
         block = (sp.block if sp is not None and sp.kind != "replicated"
                  else None)
         digests[key] = [block, hashlib.sha256(
             a.detach().cpu().numpy().tobytes()).hexdigest()]
-    return {"losses": losses, "world1_losses": losses1, "step_ms": ms,
-            "world1_step_ms": ms1, "same_init": same_init, "errs": errs,
-            "updates": updates, "digests": digests,
-            "plain_calls": plain.calls,
-            "counts": {k: v for k, v in counts.items() if v},
-            "collectives": stats}
+    run = {"losses": losses, "world1_losses": losses1, "step_ms": ms,
+           "world1_step_ms": ms1, "same_init": same_init,
+           "errs": {k: v[0] for k, v in held.items()},
+           "updates": {k: v[1] for k, v in held.items()},
+           "beyond": {k: v[2] for k, v in held.items()},
+           "first_state": first_state, "digests": digests,
+           "plain_calls": plain.calls,
+           "counts": {k: v for k, v in counts.items() if v},
+           "world1_counts": {k: v for k, v in counts1.items() if v},
+           "collectives": stats}
+    if dp is not None:
+        dp_init = starts_equal(dp)
+        dp_losses, dp_ms = _timed_steps(dp, batches)
+        w, equal = against(dp)
+        run["witness"] = {
+            "same_init": dp_init, "losses": dp_losses, "step_ms": dp_ms,
+            "bitwise": equal, "updates": {k: v[1] for k, v in w.items()},
+            "beyond": {k: v[2] for k, v in w.items()}}
+    return run
 
 
 def _tp_warnings(fn):
@@ -7566,13 +7671,15 @@ def _tp_launcher_run(flags, rank):
         "whole": all((o // rl) == ((o + s - 1) // rl)
                      for o, s in zip(op._offsets, op.table_sizes))}
     del out, model, op
+    gc.collect()
     torch.cuda.empty_cache()
     cfg = Cfg.parse_args(flags)
     dcfg = DLRMConfig.parse_args(cfg.unparsed)
 
     def make(mesh):
-        m = FFModel(FFConfig(batch_size=cfg.batch_size, seed=SEED,
-                             device="cuda:0"))
+        m = FFModel(FFConfig(
+            batch_size=cfg.batch_size, seed=SEED, device="cuda:0",
+            sparse_embedding_update=cfg.sparse_embedding_update))
         build_dlrm(m, dcfg)
         strat = (load_strategies(cfg.import_strategy_file)
                  if cfg.import_strategy_file
@@ -7590,37 +7697,51 @@ def _tp_launcher_run(flags, rank):
     split, alone = _tp_models(make, make_mesh())
     run.update(_tp_held(split, alone, batches))
     del split, alone
+    gc.collect()          # a model and its ops refer to each other
     torch.cuda.empty_cache()
     return run
 
 
-def _tp_random_run(fuse, strategies):
+def _tp_random_run(fuse, strategies, opt=lambda: SGDOptimizer(lr=LR),
+                   batch=DIST_B, mode="cat", after=None, witness=False,
+                   **config):
     """run_random.sh's widths (random_benchmark: 8 x 1M x 64), batch
-    DIST_B, fused or one Embedding a table, under ``strategies(model,
-    cfg, mesh)``: TP_STEPS steps against the world-1 model."""
+    ``batch``, fused or one Embedding a table ("dot": the fused
+    interaction), under ``strategies(model, cfg, mesh)`` and ``opt()``
+    (``config``: more FFConfig fields): TP_STEPS steps against the
+    world-1 model (``witness``: and against the model with every op
+    data-parallel, see ``_tp_held``); then ``after(split model,
+    batches)``, whose result the run keeps as "after"."""
     from dlrm_flexflow_tpu_torch.parallel.mesh import make_mesh
-    cfg = train_config("cat")
+    cfg = train_config(mode)
 
-    def make(mesh):
-        m = FFModel(FFConfig(batch_size=DIST_B, seed=SEED, device="cuda:0"))
-        build_dlrm(m, cfg, fuse_embeddings=fuse)
-        m.compile(SGDOptimizer(lr=LR), "mean_squared_error", ["mse"],
-                  mesh=mesh, strategies=strategies(m, cfg, mesh))
+    def make(mesh, strat=strategies):
+        m = FFModel(FFConfig(batch_size=batch, seed=SEED, device="cuda:0",
+                             **config))
+        build_dlrm(m, cfg, fuse_embeddings=fuse,
+                   fuse_interaction=mode == "dot")
+        m.compile(opt(), "mean_squared_error", ["mse"],
+                  mesh=mesh, strategies=strat(m, cfg, mesh))
         m.init_layers()
         return m
 
     batches = []
     for s in range(TP_STEPS):
-        x, y = synthetic_batch(cfg, DIST_B, seed=180 + s)
+        x, y = synthetic_batch(cfg, batch, seed=180 + s)
         x["label"] = y
         batches.append(x)
     split, alone = _tp_models(make, make_mesh())
-    run = _tp_held(split, alone, batches)
+    dp = make(make_mesh(), lambda m, cfg, mesh: {}) if witness else None
+    run = _tp_held(split, alone, batches, dp)
+    del dp
     run["splits"] = {op.name: [op._split.kind, op._split.block,
                                op._split.nblocks]
                      for op in split.ops
                      if getattr(op, "_split", None) is not None}
+    if after is not None:
+        run["after"] = after(split, alone, batches)
     del split, alone
+    gc.collect()          # a model and its ops refer to each other
     torch.cuda.empty_cache()
     return run
 
@@ -7687,33 +7808,46 @@ TP_NAMES = {
 }
 
 
-def _tp_check(out, name, run, world):
-    """The checks of one run of one rank; returns its launch counts."""
+def _tp_check(out, name, run, world, launches=None, names=None,
+              exempt=(), held="updates", upto=None):
+    """The checks of one run of one rank; returns its launch counts.
+    ``launches``/``names``: the table of a step's launches and of run
+    names (phase 16's by default); a step launches exactly those and one
+    dense update. ``held``: what is held within DIST_UPDATE_TOL, every
+    update ("updates") or, under Adam, the first step's state
+    ("first_state"; see ``_tp_held``); ``exempt``: parameters the caller
+    holds instead; ``upto``: the losses held within DIST_LOSS_RTOL, the
+    first ``upto`` (None: all)."""
+    launches = TP_LAUNCHES if launches is None else launches
+    label = (TP_NAMES if names is None else names)[name]
     c, steps = run["counts"], TP_STEPS
-    want = dict(TP_LAUNCHES[name], dense_update=1)
+    want = dict(launches[name], dense_update=1)
     bad = {k: c.get(k, 0) for k, v in want.items() if c.get(k, 0) != v * steps}
     others = {k: v for k, v in c.items() if ":" not in k and k not in want
               and k != "scatter_presort"}
     check(not bad and not others and run["plain_calls"] == 0,
-          f"{TP_NAMES[name]}, rank {out['rank']}: launches {c} (off: {bad}, "
+          f"{label}, rank {out['rank']}: launches {c} (off: {bad}, "
           f"unexpected: {others}), {run['plain_calls']} plain calls")
-    held = {k: v for k, v in run["updates"].items()
-            if not v <= DIST_UPDATE_TOL}
-    check(run["same_init"] and not held,
-          f"{TP_NAMES[name]}, rank {out['rank']}: start bitwise the world-1 "
-          f"run's {run['same_init']}; updates beyond {DIST_UPDATE_TOL} of "
-          f"the world-1 run's largest: {held}")
+    bad = {k: v for k, v in run[held].items()
+           if not v <= DIST_UPDATE_TOL and k not in exempt}
+    check(run["same_init"] and run[held] and not bad,
+          f"{label}, rank {out['rank']}: start bitwise the world-1 "
+          f"run's {run['same_init']}; {held} beyond {DIST_UPDATE_TOL} of "
+          f"the world-1 run's largest: {bad}")
+    upto = len(run["losses"]) if upto is None else upto
     check(all(np.isfinite(run["losses"])) and np.allclose(
-        run["losses"], run["world1_losses"], rtol=DIST_LOSS_RTOL),
-        f"{TP_NAMES[name]}: losses {run['losses']} against the world-1 "
-        f"run's {run['world1_losses']}")
+        run["losses"][:upto], run["world1_losses"][:upto],
+        rtol=DIST_LOSS_RTOL),
+        f"{label}: losses {run['losses']} against the world-1 "
+        f"run's {run['world1_losses']} (the first {upto} held)")
     return c
 
 
-def _tp_copies(outs, name):
+def _tp_copies(outs, name, names=None):
     """Every copy of a piece bitwise equal across the ranks: the
-    replicated parameters on every rank, a block on every rank holding
-    it."""
+    replicated parameters (and state slabs) on every rank, a block on
+    every rank holding it."""
+    label = (TP_NAMES if names is None else names)[name]
     runs = [o["runs"][name] for o in outs]
     for key in runs[0]["digests"]:
         by_block = {}
@@ -7721,9 +7855,9 @@ def _tp_copies(outs, name):
             block, sha = r["digests"][key]
             by_block.setdefault(block, set()).add(sha)
         check(all(len(v) == 1 for v in by_block.values()),
-              f"{TP_NAMES[name]}: the copies of {key} differ across ranks")
+              f"{label}: the copies of {key} differ across ranks")
     check(all(r["losses"] == runs[0]["losses"] for r in runs),
-          f"{TP_NAMES[name]}: the ranks' losses differ")
+          f"{label}: the ranks' losses differ")
 
 
 def tablepar_phase(dev):
@@ -7823,6 +7957,509 @@ def _tp_report(outs2, outs4, b):
     print(f"tables split, (b): rank blocks hold tables "
           f"{[r['tables'] for r in b]}; "
           f"{[w for w in b[0]['warnings'] if 'pads' in w]}")
+
+
+# ---------------------------------------------------------------------
+# phase 17: split tables under every optimizer
+# ---------------------------------------------------------------------
+SO_WORLD = 2
+# the global batch of the "cat" runs: 4,096 lookups a block of 4 tables
+SO_B = 1024
+SO_ADAM = lambda: AdamOptimizer(alpha=0.001)                  # noqa: E731
+SO_MOMENTUM = lambda: SGDOptimizer(lr=LR, momentum=0.9,       # noqa: E731
+                                   weight_decay=1e-4)
+SO_SR = dict(emb_dtype="int8", emb_update_rule="stochastic_rounding")
+# rows of the width piece the two rounding passes are timed on:
+# run_random.sh's 1M x 64 Embedding over 2 ranks
+SO_PIECE = (ROWS, D // SO_WORLD)
+
+
+def _so_window_case(dev, gen, what, block_rows, lo, sets, d, p, alpha_t):
+    """Kernel 2's stateful entry over the window [lo, lo + block_rows) of
+    a table (Adam, fresh state slabs), held bitwise to its plain version
+    on the CPU over the rows it touches (a compact copy of them; the ids
+    outside the window pads) and timed beside its bound and the plain
+    version on the card. Returns its row."""
+    block = 0.5 * torch.randn(block_rows, d, device=dev, generator=gen)
+    slabs = {k: 1e-3 * torch.rand(block_rows, d, device=dev, generator=gen)
+             for k in ("m", "v")}
+    ids, upd = sets[0]
+    n = ids.numel()
+    local = scat_mod.window_ids(ids, lo, block_rows)
+    real = local >= 0
+    uniq, inv = torch.unique(local[real], return_inverse=True)
+    cids = torch.full_like(local, -1)
+    cids[real] = inv
+    want = block[uniq].cpu()
+    want_s = {k: v[uniq].cpu() for k, v in slabs.items()}
+    scat_mod.stateful_update_rows_reference(want, cids.cpu(), upd.cpu(),
+                                            None, want_s, p, alpha_t.cpu())
+    spare = torch.randint(0, block_rows, (4096,), device=dev, generator=gen)
+    spare = spare[~torch.isin(spare, uniq)]
+    kept = [t[spare].clone() for t in (block, *slabs.values())]
+    before = scat_mod.stateful_update_rows.routes["fused"]
+    scat_mod.stateful_update_rows(block, ids, upd, None, slabs, p, alpha_t,
+                                  lo=lo)
+    check(scat_mod.stateful_update_rows.routes["fused"] == before + 1,
+          f"the windowed stateful entry ({what}) did not take its one-launch "
+          f"route")
+    got = [block[uniq].cpu()] + [slabs[k][uniq].cpu() for k in want_s]
+    err = max(float((a - b).abs().max())
+              for a, b in zip(got, [want] + list(want_s.values())))
+    check(all(torch.equal(a, b) for a, b in
+              zip(got, [want] + list(want_s.values()))),
+          f"the windowed stateful entry ({what}) disagrees with its plain "
+          f"version: {err}")
+    check(all(torch.equal(t[spare], k) for t, k in
+              zip((block, *slabs.values()), kept)),
+          f"the windowed stateful entry ({what}) changed rows it was not "
+          f"given")
+    m = int(uniq.numel())
+    n_in = int(real.sum())
+    # the ids, the updates; a distinct row's weight, m and v read and
+    # written; about 12 operations an element of a distinct row and one
+    # add a lookup's in the window
+    b_ms, b_by = bound(n * 8 + n * d * 4 + m * d * 4 * 6,
+                       n_in * d + 12 * m * d)
+    plain_ms, plain_call_ms = time_ms(
+        lambda i, u: scat_mod.stateful_update_rows_reference(
+            block, scat_mod.window_ids(i, lo, block_rows), u, None, slabs, p,
+            alpha_t), sets, iters=10, warmup=2, what="plain call")
+    r = {"name": "stateful_update_rows", "route": "cuda",
+         "source": "dlrm_flexflow_tpu_torch/csrc/scatter_rows.cu",
+         "replaces": "dlrm_flexflow_tpu/ops/pallas/embedding_kernel.py:495",
+         "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+         **timed("", lambda i, u: scat_mod.stateful_update_rows(
+             block, i, u, None, slabs, p, alpha_t, lo=lo), sets),
+         "plain_ms": plain_ms, "plain_call_ms": plain_call_ms,
+         "library_ms": None, "library_call_ms": None}
+    print_row(r, f" ({what}: n={n} lookups, {n_in} in the window of "
+              f"{block_rows:,} rows at lo={lo:,}, {m} distinct rows there, "
+              f"d={d}, Adam, fused route, one launch; bitwise its plain "
+              f"version; library: none)")
+    del block, slabs
+    torch.cuda.empty_cache()
+    return r
+
+
+def splitopt_kernels(dev):
+    """Kernel 2's windowed stateful entry, ``stateful_update_rows(lo=)``,
+    at a Criteo-Kaggle row block's shape (the global batch of
+    TP_KAGGLE_B: 13,312 lookups over the concatenated rows, rank 1's
+    block of 5,693,440 rows, d = 16) and at the "cat" split's (4 of 8
+    tables of 1M x 64, rank 1's block, SO_B x 4 = 4,096 lookups), Adam;
+    then the two passes of a width piece's rounding, ``row_amax`` and
+    ``fake_quant_rows_amax``, on a 1M x 32 piece (int8, stochastic),
+    each bitwise its plain version on the CPU (and the piece bitwise the
+    whole rows' ``fake_quant_rows`` at its columns), timed beside its
+    bound. Returns {"stateful_update_rows:window": [rows], "row_amax":
+    row, "fake_quant_rows_amax": row}."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    opt = SO_ADAM()
+    p = opt.row_params()
+    alpha_t = opt.alpha_t(torch.tensor(4, dtype=torch.int32, device=dev))
+    windows = []
+    dcfg = DLRMConfig.criteo_kaggle()
+    sizes = np.asarray(dcfg.embedding_size, np.int64)
+    offs = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    total = -(-int(sizes.sum()) // 8192) * 8192
+    rows = total // SO_WORLD
+    sets = []
+    for s in range(ID_SETS):
+        x, _ = synthetic_batch(dcfg, TP_KAGGLE_B, seed=190 + s)
+        ids = (np.asarray(x["sparse"], np.int64) % sizes[None, :, None]
+               + offs[None, :, None]).reshape(-1)
+        sets.append((torch.as_tensor(ids, device=dev),
+                     torch.randn(ids.size, KAGGLE_D, device=dev,
+                                 generator=gen)))
+    windows.append(_so_window_case(dev, gen, "a Kaggle row block", rows,
+                                   rows, sets, KAGGLE_D, p, alpha_t))
+    tl = T // SO_WORLD
+    lo = tl * ROWS
+    sets = [(lo + torch.randint(0, tl * ROWS, (SO_B * tl,), device=dev,
+                                generator=gen),
+             torch.randn(SO_B * tl, D, device=dev, generator=gen))
+            for _ in range(ID_SETS)]
+    windows.append(_so_window_case(dev, gen, "the \"cat\" split's block "
+                                   "of 4 tables", tl * ROWS, lo, sets, D, p,
+                                   alpha_t))
+    del sets
+    # the two passes on rank 1's columns of a 1M x 64 table
+    nrows, dc = SO_PIECE
+    whole = 0.01 * torch.randn(nrows, D, device=dev, generator=gen)
+    pieces = [whole[:, k * dc:(k + 1) * dc].contiguous()
+              for k in range(SO_WORLD)]
+    amax = torch.stack([qr_mod.row_amax(x) for x in pieces])
+    want_amax = qr_mod.row_amax_reference(pieces[1].cpu())
+    a_err = float((amax[1].cpu() - want_amax).abs().max())
+    check(torch.equal(amax[1].cpu(), want_amax),
+          f"row_amax on a {nrows:,} x {dc} piece disagrees with its plain "
+          f"version: {a_err}")
+    top = amax.view(torch.int32).amax(dim=0).view(torch.float32)
+    draws = dict(seed=SEED, step=3, salt=0x51)
+    got = qr_mod.fake_quant_rows_amax(pieces[1].clone(), top, "int8",
+                                      "stochastic", col0=dc, **draws)
+    want = qr_mod.fake_quant_rows_reference(
+        pieces[1].cpu(), "int8", "stochastic", amax=top.cpu(), col0=dc,
+        **draws)
+    q_err = float((got.cpu() - want).abs().max())
+    rows_whole = qr_mod.fake_quant_rows(whole.clone(), "int8", "stochastic",
+                                        **draws)[:, dc:]
+    check(torch.equal(got.cpu(), want) and torch.equal(got, rows_whole),
+          f"fake_quant_rows_amax on a {nrows:,} x {dc} piece disagrees with "
+          f"its plain version ({q_err}) or with the whole rows' rounding")
+    del rows_whole
+    src = "dlrm_flexflow_tpu_torch/csrc/quant_rows.cu"
+    piece = pieces[1]
+    b1 = bound(nrows * dc * 4 + nrows * 4)
+    r1 = {"name": "row_amax", "route": "cuda", "source": src,
+          "replaces": "dlrm_flexflow_tpu/quant/codec.py:176",
+          "max_abs_err": a_err, "bound_ms": b1[0], "bound_by": b1[1],
+          **timed("", qr_mod.row_amax, [(piece,)]),
+          **timed("plain_", qr_mod.row_amax_reference, [(piece,)]),
+          **timed("library_", lambda x: torch.amax(x.abs(), dim=1),
+                  [(piece,)])}
+    print_row(r1, f" (a {nrows:,} x {dc} width piece, pass 1; bitwise its "
+              f"plain version; library: torch.amax of abs)")
+    b2 = bound(2 * nrows * dc * 4 + nrows * 4)
+    plain_ms, plain_call_ms = time_ms(
+        lambda x: qr_mod.fake_quant_rows_reference(
+            x, "int8", "stochastic", amax=top, col0=dc, **draws),
+        [(piece,)], iters=4, warmup=1, what="plain call")
+    r2 = {"name": "fake_quant_rows_amax", "route": "cuda", "source": src,
+          "replaces": "dlrm_flexflow_tpu/quant/codec.py:176",
+          "max_abs_err": q_err, "bound_ms": b2[0], "bound_by": b2[1],
+          **timed("", lambda x: qr_mod.fake_quant_rows_amax(
+              x, top, "int8", "stochastic", col0=dc, **draws), [(piece,)]),
+          "plain_ms": plain_ms, "plain_call_ms": plain_call_ms,
+          "library_ms": None, "library_call_ms": None}
+    print_row(r2, f" (a {nrows:,} x {dc} width piece at column {dc}, pass "
+              f"2, int8 Philox; bitwise its plain version and the whole "
+              f"rows' fake_quant_rows at its columns; library: none)")
+    del whole, pieces, piece, amax, top, got
+    torch.cuda.empty_cache()
+    return {"stateful_update_rows:window": windows, "row_amax": r1,
+            "fake_quant_rows_amax": r2}
+
+
+def _so_code_steps(split, alone):
+    """Under stochastic rounding, each table piece against the world-1
+    run's, in codes of the world-1 row's int8 step (its |x| max / 127):
+    the most any value differs (0: bitwise; 1: one code apart, a draw on
+    the other side of a value the two runs' sums moved by ulps)."""
+    out = {}
+    for op in split.ops:
+        if getattr(op, "_split", None) is None \
+                or op._split.kind != "width":
+            continue
+        whole = alone.params[op.name]["kernel"]
+        code = whole.abs().amax(dim=1, keepdim=True) / 127.0
+        diff = (split.params[op.name]["kernel"] - _tp_piece(op, whole)).abs()
+        out[op.name] = float((diff / code.clamp(min=1e-30)).max())
+    return out
+
+
+def _so_sr_step(split, alone, batches):
+    """One more step of the width split under stochastic rounding, its
+    rounding held: the first table's columns before the rounding,
+    gathered whole (one all-gather), rounded as one card rounds the
+    whole table at that step (``fake_quant_rows``, the same draws), and
+    this rank's rounded piece bitwise its columns of that. Returns
+    (bitwise, the code steps against the world-1 run after TP_STEPS)."""
+    steps = _so_code_steps(split, alone)
+    names = [n for n, _ in split._sr_quant_ops()]
+    op = split.get_layer_by_name(names[0])
+    pol = split.quant_policies()[op.name]
+    rounding = split._requant_sr_params
+    box = {}
+
+    def hooked(ok=None):
+        pre = op._split.gather_pieces(split.params[op.name]["kernel"], -1)
+        rounding(ok)
+        qr_mod.fake_quant_rows(pre, pol.dtype, "stochastic",
+                               seed=int(split.config.seed),
+                               step=int(split._step), salt=0x51)
+        box["equal"] = torch.equal(split.params[op.name]["kernel"],
+                                   _tp_piece(op, pre))
+
+    split._requant_sr_params = hooked
+    try:
+        split.train_batch(batches[0])
+    finally:
+        split._requant_sr_params = rounding
+    return {"rounded_bitwise": box.get("equal", False), "code_steps": steps}
+
+
+def _so_kaggle_run():
+    """Criteo-Kaggle's concatenated table in SO_WORLD row blocks
+    (dlrm_strategy) under Adam, global batch TP_KAGGLE_B: TP_STEPS
+    steps against the world-1 model."""
+    from dlrm_flexflow_tpu_torch.models.dlrm import dlrm_strategy
+    from dlrm_flexflow_tpu_torch.parallel.mesh import make_mesh
+    dcfg = DLRMConfig.criteo_kaggle()
+
+    def make(mesh):
+        m = FFModel(FFConfig(batch_size=TP_KAGGLE_B, seed=SEED,
+                             device="cuda:0"))
+        build_dlrm(m, dcfg)
+        m.compile(SO_ADAM(), "mean_squared_error", ["mse"], mesh=mesh,
+                  strategies=dlrm_strategy(m, dcfg, mesh.size))
+        m.init_layers()
+        return m
+
+    batches = []
+    for s in range(TP_STEPS):
+        x, y = synthetic_batch(dcfg, TP_KAGGLE_B, seed=200 + s)
+        x["label"] = y
+        batches.append(x)
+    split, alone = _tp_models(make, make_mesh())
+    run = _tp_held(split, alone, batches)
+    op = split.get_layer_by_name("emb_concat")
+    run["splits"] = {"emb_concat": [op._split.kind, op._split.block,
+                                    op._split.nblocks]}
+    del split, alone, op
+    gc.collect()          # a model and its ops refer to each other
+    torch.cuda.empty_cache()
+    return run
+
+
+def splitopt_rank_child(rank, world, store):
+    """``chip_smoke.py --splitopt-rank RANK WORLD STORE``: one rank of
+    phase 17, joined to the gloo group through the file store: (a) the
+    "cat" split by table under Adam and under momentum with weight
+    decay, (b) Criteo-Kaggle's concatenated table in row blocks under
+    Adam, (c) the unfused "cat" split by width under Adam and under int8
+    stochastic rounding (compile()'s default optimizer), (d) the
+    launcher with run_criteo_kaggle.sh's flags at -ll:gpu 2 -b 512
+    --dense-embedding-update, (e) the fused "dot" under Adam, each held
+    to a world-1 run, (a) and (c) under Adam also to the witness run
+    (SO_WITNESS_RUNS). Prints ``SO_RESULT {json}``."""
+    from dlrm_flexflow_tpu_torch.models.dlrm import dlrm_strategy
+    from dlrm_flexflow_tpu_torch.parallel import distributed
+    distributed.initialize_distributed(
+        init_method=f"file://{store}", num_processes=world,
+        process_id=rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    result = {"rank": rank, "backend": torch.distributed.get_backend(),
+              "runs": {}}
+    runs = result["runs"]
+
+    def strat(m, cfg, mesh):
+        return dlrm_strategy(m, cfg, mesh.size)
+
+    runs["a_adam"] = _tp_random_run(True, strat, SO_ADAM, SO_B,
+                                    witness=True)
+    runs["a_momentum"] = _tp_random_run(True, strat, SO_MOMENTUM, SO_B)
+    runs["b"] = _so_kaggle_run()
+    runs["c_adam"] = _tp_random_run(False, strat, SO_ADAM, SO_B,
+                                    witness=True)
+    runs["c_sr"] = _tp_random_run(False, strat, lambda: None, SO_B,
+                                  after=_so_sr_step, **SO_SR)
+    runs["d"] = _tp_launcher_run(
+        tp_kaggle_flags() + ["--dense-embedding-update"], rank)
+    runs["e"] = _tp_random_run(True, strat, SO_ADAM, SO_B, mode="dot")
+    print("SO_RESULT " + json.dumps(result), flush=True)
+    torch.distributed.destroy_process_group()
+
+
+# each split step's launches, one dense update besides: (a) the table
+# exchange's bag and the windowed stateful entry on the rank's block; (b)
+# the masked bags and the windowed stateful entry on the row block; (c)
+# a bag and a stateful update a table on its columns, under stochastic
+# rounding also the two rounding passes a table; (d) the masked bags and
+# kernel 4 summing the block's dense gradient; (e) as the world-1 run
+SO_LAUNCHES = {
+    "a_adam": {"embedding_bag": 1, "stateful_update_rows": 1},
+    "a_momentum": {"embedding_bag": 1, "stateful_update_rows": 1},
+    "b": {"embedding_bag": 1, "stateful_update_rows": 1},
+    "c_adam": {"embedding_bag": T, "stateful_update_rows": T},
+    "c_sr": {"embedding_bag": T, "stateful_update_rows": T, "row_amax": T,
+             "fake_quant_rows_amax": T},
+    "d": {"embedding_bag": 1, "sharded_scatter_add_rows": 1},
+}
+SO_ADAM_RUNS = ("a_adam", "b", "c_adam", "e")
+# the Adam runs that also run the witness: the same model on the same
+# ranks with every op data-parallel (the tables whole on each rank)
+SO_WITNESS_RUNS = ("a_adam", "c_adam")
+# (e): the share of a parameter's values whose update may be off by more
+# than DIST_UPDATE_TOL of the world-1 run's largest (flipped Adam steps)
+SO_FLIP_SHARE = 1e-7
+SO_NAMES = {
+    "a_adam": "(a) run_random.sh's stacked tables by table, Adam",
+    "a_momentum": "(a) run_random.sh's stacked tables by table, momentum "
+                  "with weight decay",
+    "b": "(b) Kaggle's concatenated table in row blocks, Adam",
+    "c_adam": "(c) run_random.sh's widths unfused, each Embedding by "
+              "width, Adam",
+    "c_sr": "(c) the same under int8 stochastic rounding, compile()'s "
+            "default optimizer",
+    "d": "(d) Kaggle, the launcher, --dense-embedding-update: row blocks",
+    "e": "(e) the fused \"dot\", Adam",
+}
+
+
+def splitopt_phase(dev):
+    """Phase 17: the windowed stateful entry and the two rounding passes
+    at the paths' shapes, then SO_WORLD ``--splitopt-rank`` children on
+    the card, their results held. Returns (the kernels' rows, the
+    children's launch counts, summed)."""
+    t0 = time.perf_counter()
+    rows = splitopt_kernels(dev)
+    torch.cuda.empty_cache()
+    work = WORK_DIR / "splitopt"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        outs = run_rank_children("--splitopt-rank", "SO_RESULT", work,
+                                 world=SO_WORLD)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    counts = _so_held(outs)
+    _so_report(outs)
+    print(f"split tables under every optimizer phase: "
+          f"{time.perf_counter() - t0:.1f} s")
+    return rows, counts
+
+
+def _so_held(outs):
+    """Phase 17's checks of the children's results; returns their launch
+    counts, summed."""
+    counts = {}
+    for out in outs:
+        check(out["backend"] == "gloo", f"ranks: backend {out['backend']}")
+        for name, run in out["runs"].items():
+            if name == "e":
+                per_step = {k: v // TP_STEPS
+                            for k, v in run["world1_counts"].items()
+                            if ":" not in k and k != "scatter_presort"
+                            and k != "dense_update"}
+                launches = {"e": per_step}
+            else:
+                launches = SO_LAUNCHES
+            tables = {k for k in run["updates"]
+                      if name == "c_sr" and k.startswith("emb_")}
+            # Adam's step is about alpha times the sign of the gradient
+            # wherever |g| is above eps: where the ranks' summation order
+            # moves a gradient across 0 (or a relu unit's input), a whole
+            # step of a value flips, and the steps after it see other
+            # weights. Against world 1 the first step's moments are held
+            # (as phase 15 holds them), and the losses: (a) and (c) to the
+            # one after the first update, their every weight, slab and
+            # loss held against the witness run instead, the same ranks'
+            # order with the tables whole (_so_witness); (e) all of them,
+            # and at most SO_FLIP_SHARE of any parameter's values off
+            flipped = name in SO_WITNESS_RUNS or name == "e"
+            add_counts(counts, _tp_check(
+                out, name, run, SO_WORLD, launches, SO_NAMES, exempt=tables,
+                held="first_state" if flipped else "updates",
+                upto=2 if name in SO_WITNESS_RUNS else None))
+            if name in SO_WITNESS_RUNS:
+                _so_witness(out, name, run)
+            if name == "e":
+                many = {k: v for k, v in run["beyond"].items()
+                        if v > SO_FLIP_SHARE}
+                check(not many,
+                      f"{SO_NAMES[name]}, rank {out['rank']}: shares of "
+                      f"values off by more than {DIST_UPDATE_TOL} of the "
+                      f"world-1 run's largest update above "
+                      f"{SO_FLIP_SHARE}: {many}")
+            stateful = run["counts"].get("stateful_update_rows", 0)
+            check(run["counts"].get("stateful_update_rows:fused", 0)
+                  == stateful,
+                  f"{SO_NAMES[name]}, rank {out['rank']}: the stateful "
+                  f"entry left its one-launch route: {run['counts']}")
+            lr = run.get("launcher")
+            if lr is not None:
+                c, steps = lr["counts"], lr["steps"] + 1
+                check(c.get("embedding_bag") == steps
+                      and c.get("sharded_scatter_add_rows") == steps
+                      and c.get("dense_update") == steps
+                      and lr["plain_calls"] == 0 and lr["loss_finite"]
+                      and run["split"][0] == "rows"
+                      and run["split"][2] == SO_WORLD,
+                      f"{SO_NAMES[name]} (launcher), rank {out['rank']}: "
+                      f"launches {c}, {lr['plain_calls']} plain calls, "
+                      f"finite {lr['loss_finite']}, split {run['split']}")
+                add_counts(counts, c)
+        sr = out["runs"]["c_sr"]["after"]
+        check(sr["rounded_bitwise"]
+              and max(sr["code_steps"].values()) <= 1.0 + 1e-3,
+              f"{SO_NAMES['c_sr']}, rank {out['rank']}: the rounding of a "
+              f"step bitwise one card's {sr['rounded_bitwise']}; tables "
+              f"against the world-1 run's, in codes: {sr['code_steps']}")
+        check(out["runs"]["e"]["world1_counts"].get("fused_interaction", 0)
+              > 0, f"{SO_NAMES['e']}: the fused interaction never launched")
+    for name in outs[0]["runs"]:
+        _tp_copies(outs, name, SO_NAMES)
+    for name in SO_ADAM_RUNS + ("a_momentum",):
+        check(any(k.startswith(("m:", "v:")) for k in
+                  outs[0]["runs"][name]["updates"]),
+              f"{SO_NAMES[name]}: no optimizer state was held")
+    return counts
+
+
+def _so_witness(out, name, run):
+    """The split run against the witness run (``_tp_held``'s "witness"):
+    both start bitwise equal, every loss within DIST_LOSS_RTOL, every
+    weight's and slab's update within DIST_UPDATE_TOL of the witness's
+    largest."""
+    w = run["witness"]
+    bad = {k: v for k, v in w["updates"].items()
+           if not v <= DIST_UPDATE_TOL}
+    check(w["same_init"] and not bad and np.allclose(
+        run["losses"], w["losses"], rtol=DIST_LOSS_RTOL),
+        f"{SO_NAMES[name]}, rank {out['rank']}: against the tables whole "
+        f"on each rank: start bitwise {w['same_init']}, losses "
+        f"{run['losses']} against {w['losses']}, updates beyond "
+        f"{DIST_UPDATE_TOL} of the largest {bad}")
+
+
+def _so_report(outs):
+    med = lambda v: float(np.median(v)) if v else float("nan")  # noqa
+    for name in outs[0]["runs"]:
+        runs = [o["runs"][name] for o in outs]
+        r0 = runs[0]
+        first = max([v for r in runs for v in r["first_state"].values()]
+                    + [0.0])
+        print(f"split tables under every optimizer, {SO_NAMES[name]}: step "
+              f"ms (median after the first, rank 0) world {SO_WORLD} "
+              f"{med(r0['step_ms']):.3f}, world 1 "
+              f"{med(r0['world1_step_ms']):.3f}; losses {r0['losses']} "
+              f"against {r0['world1_losses']}; each update within "
+              f"{max(max(r['updates'].values()) for r in runs):.3g} of its "
+              f"largest (slabs included; the largest share of values off "
+              f"by more than {DIST_UPDATE_TOL} of it "
+              f"{max(max(r['beyond'].values()) for r in runs):.3g}), each "
+              f"weight within "
+              f"{max(max(r['errs'].values()) for r in runs):.3g}, the first "
+              f"step's state within {first:.3g}; launches a rank "
+              f"{r0['counts']}; every copy bitwise equal across the ranks")
+        w = r0.get("witness")
+        if w is not None:
+            worst = max(max(r["witness"]["updates"].values()) for r in runs)
+            print(f"  against the same ranks with the tables whole on each "
+                  f"(data-parallel): bitwise "
+                  f"{[r['witness']['bitwise'] for r in runs]}; its losses "
+                  f"{w['losses']}; each update within {worst:.3g} of its "
+                  f"largest; step ms {med(w['step_ms']):.3f}")
+        if "after" in r0:
+            print(f"  stochastic rounding: a step's rounding bitwise one "
+                  f"card's {[r['after']['rounded_bitwise'] for r in runs]};"
+                  f" tables against world 1's, in codes "
+                  f"{[r['after']['code_steps'] for r in runs]}")
+        for k, st in r0["collectives"].items():
+            if st["calls"]:
+                print(f"  {k} a step: {st['calls'] / TP_STEPS:g} calls, "
+                      f"{st['bytes'] / TP_STEPS:,.0f} bytes sent and "
+                      f"received less the kept blocks, "
+                      f"{st['sent'] / TP_STEPS:,.0f} handed over, "
+                      f"{st['seconds'] / TP_STEPS:.4f} s (host clock, "
+                      f"gloo's host copies included)")
+        lr = r0.get("launcher")
+        if lr is not None:
+            print(f"  the launcher (--dense-embedding-update): "
+                  f"{lr['steps']} steps, {lr['throughput']:.2f} samples/s")
 
 
 # ---------------------------------------------------------------------
@@ -8345,6 +8982,10 @@ def main() -> int:
         # one rank of phase 16, a child of this script
         tablepar_rank_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
         return 0
+    if sys.argv[1:2] == ["--splitopt-rank"] and torch.cuda.is_available():
+        # one rank of phase 17, a child of this script
+        splitopt_rank_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -8410,6 +9051,13 @@ def main() -> int:
         print(json.dumps({"launches": {k: v for k, v in counts.items()
                                        if v}, "kaggle_block_kernels": rows}))
         return 0
+    if sys.argv[1:] == ["--splitopt"]:
+        # only phase 17, its kernels built first (the ranks load them)
+        build.build_all()
+        rows, counts = splitopt_phase(dev)
+        print(json.dumps({"launches": {k: v for k, v in counts.items()
+                                       if v}, "splitopt_kernels": rows}))
+        return 0
     if sys.argv[1:] == ["--scatter"]:
         # only the touched-rows scatters and their pre-pass at the paths'
         # shapes: kernels 2 and 3 (n = 2,048 and Criteo-Kaggle's 6,656),
@@ -8472,6 +9120,8 @@ def main() -> int:
     add(rowshard_phase(dev))
     _, counts = tablepar_phase(dev)
     add(counts)
+    so_rows, counts = splitopt_phase(dev)
+    add(counts)
     for run in runs:
         add(train_report(run))
     del runs
@@ -8483,6 +9133,7 @@ def main() -> int:
     rows.update(lstm_kernels(dev))
     rows.update(dist_rows)
     rows.update(quant_rows_row)
+    rows.update({k: v for k, v in so_rows.items() if ":" not in k})
     torch.cuda.empty_cache()
     for mode in ("cat", "dot"):
         add(serve_phase(mode))

@@ -598,9 +598,7 @@ class FFModel:
         where ``configure_row_shard`` refused a request, after its
         warning). What the port does not run across ranks yet raises
         ``NotImplementedError`` then, naming its ROADMAP queue 1 item:
-        stateful optimizers and dense updates of tables split by table,
-        row block or width (7.3), host-resident tables and the anomaly
-        sentinel (7.4)."""
+        host-resident tables and the anomaly sentinel (7.4)."""
         from ..ops.embedding import configure_row_shard
         from ..parallel.pconfig import ParallelConfig
         from ..parallel.sharding import AxisAssigner
@@ -685,26 +683,15 @@ class FFModel:
                 plan[op.name] = (("width", axes[-1])
                                  if asn.degree(axes[-1]) > 1
                                  else ("replicated", ()))
-        split = {name for name, (kind, _) in plan.items()
-                 if kind in ("table", "rows", "width")}
-        sparse = {op.name for op in self._select_sparse_update_ops()}
-        for name in sorted(split):
-            kind = plan[name][0]
-            if name not in sparse:
-                raise NotImplementedError(
-                    f"{name!r}: a dense table update of a table split by "
-                    f"{kind} across ranks is not ported yet (ROADMAP "
-                    f"queue 1 item 7.3)")
-            if self._stateful_sparse():
-                raise NotImplementedError(
-                    f"{name!r}: stateful optimizers (momentum, weight "
-                    f"decay, Adam) on a table split by {kind} across "
-                    f"ranks are not ported yet (ROADMAP queue 1 item 7.3)")
-            if kind == "width" and self._sr_policy_of(name) is not None:
-                raise NotImplementedError(
+        for name, (kind, axes) in plan.items():
+            op = self.get_layer_by_name(name)
+            if kind == "width" and self._sr_policy_of(name) is not None \
+                    and (op.out_dim // asn.degree(axes)) % 4:
+                raise ValueError(
                     f"{name!r}: stochastic rounding of a table split by "
-                    f"width across ranks is not ported yet (ROADMAP queue "
-                    f"1 item 7.3)")
+                    f"width needs pieces of a multiple of 4 columns (the "
+                    f"Philox counter's 4-value chunks), got "
+                    f"{op.out_dim} columns over {asn.degree(axes)} ranks")
         return plan
 
     def _dist(self):
@@ -736,6 +723,17 @@ class FFModel:
                 kind, axes = plan[op.name]
                 op.bind_split(OpSplit(kind, self.mesh, axes, coll, me))
         return self._collectives
+
+    def _split_dense_ops(self) -> List[Op]:
+        """The table ops split by table, row block or width whose table
+        takes a dense update (``sparse_embedding_update`` off): the step
+        builds each piece's gradient with ``split_dense_grad``, since the
+        split lookup's collectives are no autograd graph."""
+        sparse = {op.name for op in self._select_sparse_update_ops()}
+        return [op for op in self.ops
+                if getattr(op, "_split", None) is not None
+                and op._split.kind in ("table", "rows", "width")
+                and op.name not in sparse]
 
     def _split_params(self) -> set:
         """The ops whose parameters are split over the ranks (row shards,
@@ -1326,6 +1324,11 @@ class FFModel:
             self.opt_state = self.optimizer.init_state(self.params)
         sparse_ops = self._sparse_ops
         sparse_names = {op.name for op in sparse_ops}
+        # split tables under a dense update: looked up as the sparse ones
+        # are, their pieces' gradients built from the cotangents below
+        split_dense = self._split_dense_ops() if coll is not None else []
+        looked_up = sparse_ops + split_dense
+        off_graph = {op.name for op in looked_up}
         device_batch, host_idx = self._split_host_idx(device_batch)
 
         # phase A (no grad): the lookups' ancestors, then the lookups
@@ -1337,13 +1340,13 @@ class FFModel:
             # cotangents leave for the host update
             for name, v in self._host_emb_input(host_idx).items():
                 emb_vals[name] = v.requires_grad_()
-        if sparse_ops:
+        if looked_up:
             with torch.no_grad():
                 anc = self._forward_env(
                     self.params, device_batch,
-                    only_ops=self._ancestor_op_names(sparse_ops)
-                    - sparse_names)
-                for op in sparse_ops:
+                    only_ops=self._ancestor_op_names(looked_up)
+                    - off_graph)
+                for op in looked_up:
                     xs = [anc[t.guid] for t in op.inputs]
                     outs, emb_fwd[op.name] = op.apply_with_fwd(
                         self.params[op.name], xs)
@@ -1355,7 +1358,7 @@ class FFModel:
         leaves = {name: {pn: v.detach().requires_grad_()
                          for pn, v in p.items()}
                   for name, p in self.params.items()
-                  if name not in sparse_names}
+                  if name not in off_graph}
         env = self._forward_env(leaves, device_batch, overrides=emb_vals)
         preds = env[self._preds_tensor.guid]
         loss = losses_mod.loss_fn(self.loss_type)(
@@ -1391,6 +1394,12 @@ class FFModel:
                     at += g.numel()
 
         with torch.no_grad():
+            for op in split_dense:
+                # the piece's gradient joins the dense update (never
+                # all-reduced: ``_split_params``)
+                gd[op.name] = op.split_dense_grad(
+                    self.params[op.name], emb_xs[op.name], gev[op.name],
+                    fwd=emb_fwd[op.name])
             # the sentinel's flag exists before the first update reads it
             ok = gnorm = None
             if policy != "none":
@@ -1688,7 +1697,8 @@ class FFModel:
         moves untouched rows' codes under stochastic rounding. The draws
         are keyed by (seed, step, 0x51 + 2i + j) for the i-th op and j-th
         parameter, as the JAX step folds its key; ``ok`` 0 (a step the
-        sentinel skips) writes nothing."""
+        sentinel skips) writes nothing. A table split by width rounds its
+        columns with the whole row's scale (``_fake_quant_piece``)."""
         sr = self._sr_quant_ops()
         if not sr:
             return
@@ -1712,6 +1722,12 @@ class FFModel:
                 # a rank's row block of the concatenated table, the same
                 row0 = split.block * self.params[name]["kernel"].shape[0] \
                     * op.out_dim // w
+            elif kind == "width":
+                self._fake_quant_piece(
+                    split, self.params[name]["kernel"], pol.dtype,
+                    "stochastic", seed=int(self.config.seed),
+                    step=int(self._step), salt=0x51 + 2 * i, ok=ok)
+                continue
             for j, pname in enumerate(("kernel", "hot_kernel")):
                 p = self.params[name].get(pname)
                 if p is None:
@@ -1720,6 +1736,28 @@ class FFModel:
                                 seed=int(self.config.seed),
                                 step=int(self._step), salt=0x51 + 2 * i + j,
                                 row0=row0, ok=ok)
+
+    @staticmethod
+    def _fake_quant_piece(split, piece, dtype, mode, **draws):
+        """``fake_quant_rows`` of the rows of which ``piece`` (rows, d /
+        dc) holds this rank's columns under a width split: each row's
+        |x| max over the piece (``row_amax``), their max over the ranks
+        of the other columns (one all-reduce, of the fp32 bits as int32:
+        the order of non-negative floats, a NaN above every number, so
+        the max propagates a NaN as the one-card reduction does), then
+        the piece rounded with that scale and its draws at its columns
+        of the row (``fake_quant_rows_amax``): bitwise those columns of
+        the whole rows' rounding. bf16 rounds each value alone."""
+        from ..ops.kernels.quant_rows import (fake_quant_rows,
+                                              fake_quant_rows_amax,
+                                              row_amax)
+        if dtype == "bf16":
+            fake_quant_rows(piece, dtype, mode, **draws)
+            return
+        amax = row_amax(piece)
+        split.coll.all_reduce_max_(amax.view(torch.int32), split.group)
+        fake_quant_rows_amax(piece, amax, dtype, mode,
+                             col0=split.block * piece.shape[1], **draws)
 
     def _quant_init_device(self, op, p):
         """Under stochastic_rounding training starts from the stored
@@ -1730,6 +1768,10 @@ class FFModel:
             return p
         from ..ops.embedding import quant_row_width
         from ..ops.kernels.quant_rows import fake_quant_rows
+        split = getattr(op, "_split", None)
+        if split is not None and split.kind == "width":
+            self._fake_quant_piece(split, p["kernel"], pol.dtype, "nearest")
+            return p
         w = quant_row_width(op)
         for n in ("kernel", "hot_kernel"):
             if n in p:

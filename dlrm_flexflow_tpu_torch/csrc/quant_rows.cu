@@ -29,6 +29,15 @@
 // at counter (row0 + row, column / 4, step, salt): output column % 4,
 // its top 24 bits times 2^-24. The sentinel's flag `ok` (device int32,
 // may be null) set to 0 makes the launch return before any store.
+//
+// A row split by width over ranks (an Embedding's columns, the JAX op's
+// (1, dc) layout) is rounded in two passes, since its scale is the
+// |x| max of the WHOLE row (codec.py:154, :176): ff_row_amax writes each
+// piece row's |x| max (the same lane-group reduction, one fp32 a row;
+// bound: the piece read once), the caller takes the max over the width
+// group, and ff_fake_quant_rows_amax rounds the piece with the scale of
+// that max, its Philox counters at column col0 + column, so its draws
+// and its values are the whole row's at those columns, bitwise.
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
@@ -46,6 +55,7 @@ constexpr int kMaxChunks = 8;  // chunks a lane holds: d <= 32 * 8 * 4
 struct Philox {
   unsigned long long seed;
   unsigned step, salt, row0;
+  unsigned col4;            // the first column's 4-value chunk
 };
 
 __device__ __forceinline__ uint4 philox10(uint4 c, unsigned k0,
@@ -95,14 +105,17 @@ __device__ __forceinline__ float fq_one(float x, float safe, float scale,
   }
 }
 
-// kSrc: 0 no draws, 1 Philox, 2 the caller's u
-template <int kDtype, int kSrc, int kC, bool kVec>
+// kSrc: 0 no draws, 1 Philox, 2 the caller's u. kAmax: 0 the row's own
+// |x| max, 1 only write it to amax (x untouched), 2 the scale from
+// amax[row] (the whole row's, of which x holds some columns)
+template <int kDtype, int kSrc, int kC, bool kVec, int kAmax>
 __global__ void __launch_bounds__(kThreads)
     fake_quant_rows_kernel(float* __restrict__ x,
                            const float* __restrict__ u, long long rows,
                            int d, int lanes_log2, Philox ph,
+                           float* __restrict__ amax,
                            const int* __restrict__ ok) {
-  if (ok != nullptr && *ok == 0) return;
+  if (kAmax != 1 && ok != nullptr && *ok == 0) return;
   const int L = 1 << lanes_log2;
   const int lane = threadIdx.x & 31;
   const int sub = lane & (L - 1);
@@ -135,10 +148,18 @@ __global__ void __launch_bounds__(kThreads)
   }
   float scale = 0.f, safe = 1.f;
   if constexpr (kDtype != kBf16) {
-    // the row's max over its L lanes (every lane of the warp shuffles)
-    for (int off = L >> 1; off > 0; off >>= 1) {
-      const float o = __shfl_xor_sync(0xffffffffu, m, off);
-      m = (o > m || o != o) ? o : m;
+    if constexpr (kAmax == 2) {
+      m = live ? __ldg(amax + row) : 0.f;
+    } else {
+      // the row's max over its L lanes (every lane of the warp shuffles)
+      for (int off = L >> 1; off > 0; off >>= 1) {
+        const float o = __shfl_xor_sync(0xffffffffu, m, off);
+        m = (o > m || o != o) ? o : m;
+      }
+    }
+    if constexpr (kAmax == 1) {
+      if (live && sub == 0) amax[row] = m;
+      return;
     }
     const float qmax = kDtype == kInt8 ? 127.f : 448.f;
     scale = m > 0.f ? __fdiv_rn(m, qmax) : 0.f;
@@ -158,8 +179,8 @@ __global__ void __launch_bounds__(kThreads)
       float r[4];
       if constexpr (kSrc == 1) {
         const uint4 b = philox10(
-            make_uint4((unsigned)(ph.row0 + row), (unsigned)c, ph.step,
-                       ph.salt),
+            make_uint4((unsigned)(ph.row0 + row), ph.col4 + (unsigned)c,
+                       ph.step, ph.salt),
             (unsigned)ph.seed, (unsigned)(ph.seed >> 32));
         r[0] = bits_to_unit(b.x);
         r[1] = bits_to_unit(b.y);
@@ -192,27 +213,27 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int kDtype, int kSrc, int kC>
+template <int kDtype, int kSrc, int kC, int kAmax>
 cudaError_t launch_c(float* x, const float* u, long long rows, int d,
-                     int lanes_log2, bool vec, Philox ph, const int* ok,
-                     cudaStream_t s) {
+                     int lanes_log2, bool vec, Philox ph, float* amax,
+                     const int* ok, cudaStream_t s) {
   const long long threads = rows << lanes_log2;
   const long long grid = (threads + kThreads - 1) / kThreads;
   if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
   if (vec)
-    fake_quant_rows_kernel<kDtype, kSrc, kC, true>
+    fake_quant_rows_kernel<kDtype, kSrc, kC, true, kAmax>
         <<<(unsigned)grid, kThreads, 0, s>>>(x, u, rows, d, lanes_log2, ph,
-                                             ok);
+                                             amax, ok);
   else
-    fake_quant_rows_kernel<kDtype, kSrc, kC, false>
+    fake_quant_rows_kernel<kDtype, kSrc, kC, false, kAmax>
         <<<(unsigned)grid, kThreads, 0, s>>>(x, u, rows, d, lanes_log2, ph,
-                                             ok);
+                                             amax, ok);
   return cudaGetLastError();
 }
 
-template <int kDtype, int kSrc>
+template <int kDtype, int kSrc, int kAmax = 0>
 int launch(float* x, const float* u, long long rows, int d, Philox ph,
-           const void* ok, void* stream) {
+           const void* ok, void* stream, float* amax = nullptr) {
   if (rows <= 0 || d <= 0) return 0;
   const int chunks = (d + 3) / 4;
   int lanes_log2 = 0;
@@ -224,14 +245,17 @@ int launch(float* x, const float* u, long long rows, int d, Philox ph,
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e;
   if (per_lane <= 1)
-    e = launch_c<kDtype, kSrc, 1>(x, u, rows, d, lanes_log2, vec, ph, flag, s);
+    e = launch_c<kDtype, kSrc, 1, kAmax>(x, u, rows, d, lanes_log2, vec, ph,
+                                         amax, flag, s);
   else if (per_lane <= 2)
-    e = launch_c<kDtype, kSrc, 2>(x, u, rows, d, lanes_log2, vec, ph, flag, s);
+    e = launch_c<kDtype, kSrc, 2, kAmax>(x, u, rows, d, lanes_log2, vec, ph,
+                                         amax, flag, s);
   else if (per_lane <= 4)
-    e = launch_c<kDtype, kSrc, 4>(x, u, rows, d, lanes_log2, vec, ph, flag, s);
+    e = launch_c<kDtype, kSrc, 4, kAmax>(x, u, rows, d, lanes_log2, vec, ph,
+                                         amax, flag, s);
   else if (per_lane <= kMaxChunks)
-    e = launch_c<kDtype, kSrc, kMaxChunks>(x, u, rows, d, lanes_log2, vec, ph,
-                                           flag, s);
+    e = launch_c<kDtype, kSrc, kMaxChunks, kAmax>(x, u, rows, d, lanes_log2,
+                                                  vec, ph, amax, flag, s);
   else
     e = cudaErrorInvalidValue;
   return (int)e;
@@ -251,7 +275,7 @@ int ff_fake_quant_rows(void* x, long long rows, int d, int dtype,
                        int stochastic, unsigned long long seed,
                        unsigned step, unsigned salt, unsigned row0,
                        const void* ok, void* stream) {
-  const Philox ph{seed, step, salt, row0};
+  const Philox ph{seed, step, salt, row0, 0};
   float* xp = (float*)x;
   if (dtype == kInt8)
     return stochastic ? launch<kInt8, 1>(xp, nullptr, rows, d, ph, ok, stream)
@@ -268,7 +292,39 @@ int ff_fake_quant_rows(void* x, long long rows, int d, int dtype,
 int ff_fake_quant_rows_noise(void* x, const void* u, long long rows, int d,
                              const void* ok, void* stream) {
   return launch<kInt8, 2>((float*)x, (const float*)u, rows, d,
-                          Philox{0, 0, 0, 0}, ok, stream);
+                          Philox{0, 0, 0, 0, 0}, ok, stream);
+}
+
+// Pass 1 of a width-split row: amax (rows,) device fp32 gets each row of
+// x (rows, d), the piece, its |x| max (NaN-propagating); x is only read.
+int ff_row_amax(const void* x, long long rows, int d, void* amax,
+                void* stream) {
+  return launch<kInt8, 0, 1>((float*)x, nullptr, rows, d,
+                             Philox{0, 0, 0, 0, 0}, nullptr, stream,
+                             (float*)amax);
+}
+
+// Pass 2: as ff_fake_quant_rows on the piece x (rows, d), in place, the
+// scale of row r from amax[r] (the whole row's |x| max) and the Philox
+// counter of column c (col0 + c) / 4, col0 % 4 == 0 (the piece's first
+// column in the whole row). int8 and fp8 only: bf16 rounds each value
+// alone, so a piece of it goes through ff_fake_quant_rows.
+int ff_fake_quant_rows_amax(void* x, const void* amax, long long rows, int d,
+                            int dtype, int stochastic,
+                            unsigned long long seed, unsigned step,
+                            unsigned salt, unsigned row0, unsigned col0,
+                            const void* ok, void* stream) {
+  if (col0 % 4) return (int)cudaErrorInvalidValue;
+  const Philox ph{seed, step, salt, row0, col0 / 4};
+  float* xp = (float*)x;
+  float* a = (float*)amax;
+  if (dtype == kInt8)
+    return stochastic
+               ? launch<kInt8, 1, 2>(xp, nullptr, rows, d, ph, ok, stream, a)
+               : launch<kInt8, 0, 2>(xp, nullptr, rows, d, ph, ok, stream, a);
+  if (dtype == kFp8)
+    return launch<kFp8, 0, 2>(xp, nullptr, rows, d, ph, ok, stream, a);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* ff_error_string(int err) {

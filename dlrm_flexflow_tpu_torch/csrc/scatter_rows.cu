@@ -147,10 +147,15 @@
 //    atomics, instead of the first scan (its build alone took longer
 //    than the whole call).
 //
-// The window (item 1 and 2 with lo, rows): ids in [lo, lo + rows) are
-// row id - lo of the block; any other id, and a pad, is keyed `rows`,
-// sorts last and owns no segment, so it is never read or written. The
-// plain scatter is the window lo = 0, rows = the table's rows.
+// The window (items 1-4 with lo, rows): ids in [lo, lo + rows) are
+// row id - lo of the block; any other id, and a pad, is keyed `rows`
+// (kPadKey32 in item 4's keys), sorts last and owns no segment, so it is
+// never read or written. The plain scatter is the window lo = 0, rows =
+// the table's rows. The stateful entries take the window as kernel 4
+// does (the stateful update of a rank's block of a table split in row
+// blocks or by table, sharded_scatter_add_packed's shard_map over the
+// stateful tile writes in JAX): a lookup of a row no lookup in the
+// window names keeps that row's weight and state, as on one card.
 //
 // The update kernel of item 2 is launched with programmatic dependent
 // launch: the pre-pass lets it start at once, and it loads its lookup's
@@ -636,7 +641,8 @@ stateful_rows_kernel(float4* __restrict__ table,
                      const float4* __restrict__ fwd,
                      float4* __restrict__ slab0, float4* __restrict__ slab1,
                      const float* __restrict__ alpha_t, int n, int vec,
-                     int div, OptParams p, const int* __restrict__ ok) {
+                     int div, int64_t lo, OptParams p,
+                     const int* __restrict__ ok) {
   if (ok && __ldg(ok) == 0) return;       // the sentinel skips this step
   const int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   const int64_t g = t / vec;
@@ -644,7 +650,7 @@ stateful_rows_kernel(float4* __restrict__ table,
   const int2 s = __ldg(seg + g);
   if (s.x < 0) return;
   const int c = (int)(t - g * vec);
-  const int64_t at = __ldg(ids + g) * vec + c;
+  const int64_t at = (__ldg(ids + g) - lo) * vec + c;
   // the weight, state and step loads overlap the segment's
   float4 w = fwd ? __ldg(fwd + g * vec + c) : table[at];
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -770,6 +776,8 @@ __device__ __forceinline__ void fused_lookup(
 // each is its row's first (item 4 above); slabs and alpha_t as in
 // stateful_rows_kernel. Shared memory: npad int32 keys, npad = n
 // rounded up to a scan step, then each warp's buffer of 2 * kStep ints.
+// A key is the lookup's row in the window [lo, lo + rows), kPadKey32
+// for a pad and for an id outside it.
 __global__ void __launch_bounds__(kFusedWarps * 32)
 stateful_fused_kernel(float4* __restrict__ table,
                       const int64_t* __restrict__ ids,
@@ -777,8 +785,8 @@ stateful_fused_kernel(float4* __restrict__ table,
                       const float4* __restrict__ fwd,
                       float4* __restrict__ slab0, float4* __restrict__ slab1,
                       const float* __restrict__ alpha_t, int n, int npad,
-                      int vec, int div, OptParams p,
-                      const int* __restrict__ ok) {
+                      int vec, int div, int64_t lo, int64_t rows,
+                      OptParams p, const int* __restrict__ ok) {
   if (ok && __ldg(ok) == 0) return;       // the sentinel skips this step
   extern __shared__ int keys32[];
   constexpr int kThreadsF = kFusedWarps * 32;
@@ -803,7 +811,9 @@ stateful_fused_kernel(float4* __restrict__ table,
 #pragma unroll
     for (int q = 0; q < kStage; ++q) {
       const int i = i0 + q * kThreadsF + threadIdx.x;
-      if (i < npad) keys32[i] = id[q] < 0 ? kPadKey32 : (int)id[q];
+      const int64_t w = id[q] - lo;             // lo >= 0: a pad is < 0
+      if (i < npad)
+        keys32[i] = id[q] < 0 || w < 0 || w >= rows ? kPadKey32 : (int)w;
     }
   }
   __syncthreads();
@@ -979,15 +989,16 @@ int ff_scatter_write_rows(void* table, const void* ids, const void* order,
 // state, updated in place, or null (see stateful_rows_kernel). alpha_t:
 // a device pointer to Adam's fp32 step size (null for SGD). adam 0 runs
 // SGD (lr, momentum, nesterov, wd), 1 Adam (wd, b1, c1, b2, c2, eps).
-// ok as in ff_scatter_add_rows. Launches on `stream`; returns
-// cudaGetLastError().
+// table, slabs: the window [lo, lo + rows) of a table's rows, order and
+// seg the pre-pass's over it (lo 0: the whole table). ok as in
+// ff_scatter_add_rows. Launches on `stream`; returns cudaGetLastError().
 int ff_stateful_update_rows(void* table, const void* ids, const void* order,
                             const void* seg, const void* upd, const void* fwd,
                             void* slab0, void* slab1, const void* alpha_t,
                             int n, int dim, int div, int adam, int nesterov,
                             float wd, float lr, float momentum, float b1,
                             float c1, float b2, float c2, float eps,
-                            const void* ok, void* stream) {
+                            long long lo, const void* ok, void* stream) {
   if (n <= 0) return 0;
   const int vec = dim / 4;
   const OptParams p{adam, nesterov, wd, lr, momentum, b1, c1, b2, c2, eps};
@@ -996,8 +1007,8 @@ int ff_stateful_update_rows(void* table, const void* ids, const void* order,
                          (cudaStream_t)stream>>>(
       (float4*)table, (const int64_t*)ids, (const int*)order,
       (const int2*)seg, (const float4*)upd, (const float4*)fwd,
-      (float4*)slab0, (float4*)slab1, (const float*)alpha_t, n, vec, div, p,
-      (const int*)ok);
+      (float4*)slab0, (float4*)slab1, (const float*)alpha_t, n, vec, div,
+      (int64_t)lo, p, (const int*)ok);
   return (int)cudaGetLastError();
 }
 
@@ -1006,17 +1017,19 @@ int ff_stateful_update_rows(void* table, const void* ids, const void* order,
 int ff_stateful_fused_max() { return kFusedMax; }
 
 // As ff_stateful_update_rows, in one launch and without the pre-pass's
-// order and seg: stateful_fused_kernel. n <= kFusedMax; row ids below
-// 2^31 - 1, a negative one a pad.
+// order and seg: stateful_fused_kernel. n <= kFusedMax; table and slabs
+// the window [lo, lo + rows) of a table's rows, rows < 2^31 - 1; an id
+// outside it, or a negative one (a pad), changes nothing.
 int ff_stateful_update_fused(void* table, const void* ids, const void* upd,
                              const void* fwd, void* slab0, void* slab1,
                              const void* alpha_t, int n, int dim, int div,
                              int adam, int nesterov, float wd, float lr,
                              float momentum, float b1, float c1, float b2,
-                             float c2, float eps, const void* ok,
-                             void* stream) {
+                             float c2, float eps, long long lo,
+                             long long rows, const void* ok, void* stream) {
   if (n <= 0) return 0;
-  if (n > kFusedMax) return (int)cudaErrorInvalidValue;
+  if (n > kFusedMax || lo < 0 || rows < 0 || rows >= kPadKey32)
+    return (int)cudaErrorInvalidValue;
   const int npad = (n + kStep - 1) / kStep * kStep;
   const int bytes = (npad + kFusedWarps * 2 * kStep) * (int)sizeof(int);
   // per device: the shared memory allowed (set once), and the blocks
@@ -1049,7 +1062,8 @@ int ff_stateful_update_fused(void* table, const void* ids, const void* upd,
                           (cudaStream_t)stream>>>(
       (float4*)table, (const int64_t*)ids, (const float4*)upd,
       (const float4*)fwd, (float4*)slab0, (float4*)slab1,
-      (const float*)alpha_t, n, npad, dim / 4, div, p, (const int*)ok);
+      (const float*)alpha_t, n, npad, dim / 4, div, (int64_t)lo,
+      (int64_t)rows, p, (const int*)ok);
   return (int)cudaGetLastError();
 }
 

@@ -38,16 +38,25 @@ as ``op._split``, ``_SplitHooks``): the concatenated table in equal row
 blocks over the whole mesh ("rows": each rank bags the lookups of the
 global batch that fall in its block with the bag kernel, the others
 masked, and the ranks' partial bags are summed into each rank's rows;
-the update runs kernel 4, ``sharded_scatter_add_rows``, on the block
-with the global batch's ids), an ``Embedding`` split by width ("width":
-the bag kernel on the rank's columns for the global batch, one
-all-to-all to the rank's rows; the update the reverse all-to-all, then
-``scatter_add_rows`` on the columns), and tables replicated on every
-rank ("replicated": the lookup as on one card; the update, of any
-optimizer, from the whole global batch's ids and cotangents, gathered,
-so that every copy stays bitwise equal). ``whole_params`` gathers a
-split op's parameters as one card holds them (the route of a batch that
-does not divide over the ranks).
+the SGD update runs kernel 4, ``sharded_scatter_add_rows``, on the block
+with the global batch's ids, a stateful one kernel 2's stateful entry
+over the block's window, ``stateful_update_rows(lo=)``), the stacked
+tables split by table ("table", the same two entries on the rank's
+block of slots), an ``Embedding`` split by width ("width": the bag
+kernel on the rank's columns for the global batch, one all-to-all to
+the rank's rows; the update the reverse all-to-all, then
+``scatter_add_rows`` or ``stateful_update_rows`` on the columns: the
+optimizer's row math is elementwise, so a column piece updates on its
+own), and tables replicated on every rank ("replicated": the lookup as
+on one card; the update, of any optimizer, from the whole global
+batch's ids and cotangents, gathered, so that every copy stays bitwise
+equal). Under a dense table update (``sparse_embedding_update`` off)
+the step takes a split piece's gradient from ``split_dense_grad``, the
+same exchange summed into a zero piece (kernel 4 at scale 1 on a block,
+``segment_sum_rows`` on columns), since the split lookup's collectives
+are no autograd graph. ``whole_params`` gathers a split op's parameters
+as one card holds them (the route of a batch that does not divide over
+the ranks).
 
 Host-resident tables (``FFConfig.host_resident_tables``, the reference's
 hetero placement that lets tables larger than the card's memory train):
@@ -75,6 +84,7 @@ from ..core.initializers import GlorotUniform
 from ..core.op import Op, ParamDef
 from .kernels.embedding_bag import EmbeddingBagFunction, embedding_bag
 from .kernels.scatter_rows import (scatter_add_rows, scatter_write_rows,
+                                   segment_sum_rows,
                                    sharded_scatter_add_rows,
                                    stateful_update_rows)
 from ..utils.logging import get_logger
@@ -492,7 +502,7 @@ class _RowShardHooks:
 class _SplitHooks:
     """What the three ops share when compile splits them across ranks
     other than by row shards (``parallel.split.OpSplit``, ``_split``):
-    the kind, the replicated update's global batch, and the refusals."""
+    the kind and the replicated update's global batch."""
 
     _split = None
 
@@ -510,13 +520,6 @@ class _SplitHooks:
         s = self._split
         return ([s.gather_batch(xs[0].contiguous())],
                 s.gather_batch(out_ct.contiguous()))
-
-    def _refuse_split_stateful(self):
-        raise NotImplementedError(
-            f"{self.name}: stateful optimizers (momentum, weight decay, "
-            f"Adam) on a table split across ranks by "
-            f"{self._split_kind()} are not ported yet (ROADMAP queue 1 "
-            f"item 7.3)")
 
 
 class Embedding(_RowShardHooks, _SplitHooks, Op):
@@ -727,19 +730,13 @@ class Embedding(_RowShardHooks, _SplitHooks, Op):
             return [out], ids
         return self.apply(params, xs), None
 
-    @torch.no_grad()
-    def sparse_sgd_update(self, params, xs, out_ct, lr, fwd=None, ok=None):
-        """table[row] -= lr * ct for the touched rows only, in place: with
-        "none" each slot's cotangent row; with "sum"/"avg" the bag's
-        cotangent (/ bag for "avg") for every row of the bag. A row's
-        duplicates sum in lookup order before they land, on the
-        read-modify-write scatter kernel on the card. Split by width: the
-        global batch's cotangent of the rank's columns (the reverse
-        all-to-all) on its columns, with the global batch's ids (``fwd``);
-        replicated: the global batch's ids and cotangent."""
+    def _update_inputs(self, params, xs, out_ct, fwd):
+        """(each lookup's wrapped id (n,), the update rows (n / div, d of
+        the kernel): a slot's cotangent with "none", a bag's, / bag for
+        "avg", otherwise; div). Split by width: the global batch's ids
+        (``fwd``) and its cotangent of the rank's columns (the reverse
+        all-to-all); replicated: the global batch's ids and cotangent."""
         (idx,) = xs
-        if self._row_plan is not None:
-            return self._row_sgd_update(params, idx, out_ct, lr, ok)
         kind = self._split_kind()
         if kind == "width":
             if fwd is None:
@@ -748,16 +745,38 @@ class Embedding(_RowShardHooks, _SplitHooks, Op):
         elif kind == "replicated":
             (idx,), out_ct = self._global_batch(xs, out_ct)
         table = params["kernel"]
-        ids = self._ids(idx).reshape(-1)
         ct = out_ct.to(table.dtype).reshape(-1, table.shape[-1])
         div = 1
         if self.aggr != AGGR_MODE_NONE:
             div = idx.shape[-1]
             if self.aggr == AGGR_MODE_AVG:
                 ct = ct / div
-        scatter_add_rows(table, ids, ct, scale=-lr, div=div,
+        return self._ids(idx).reshape(-1), ct, div
+
+    @torch.no_grad()
+    def sparse_sgd_update(self, params, xs, out_ct, lr, fwd=None, ok=None):
+        """table[row] -= lr * ct for the touched rows only, in place: with
+        "none" each slot's cotangent row; with "sum"/"avg" the bag's
+        cotangent (/ bag for "avg") for every row of the bag. A row's
+        duplicates sum in lookup order before they land, on the
+        read-modify-write scatter kernel on the card. Split by width or
+        replicated: ``_update_inputs``'s global batch."""
+        if self._row_plan is not None:
+            return self._row_sgd_update(params, xs[0], out_ct, lr, ok)
+        ids, ct, div = self._update_inputs(params, xs, out_ct, fwd)
+        scatter_add_rows(params["kernel"], ids, ct, scale=-lr, div=div,
                          ids_in_range=True, ok=ok)   # wrapped by _ids
         return params
+
+    @torch.no_grad()
+    def split_dense_grad(self, params, xs, out_ct, fwd=None):
+        """Split by width, the gradient of the rank's columns for a dense
+        table update: the global batch's update rows summed into a zero
+        piece in sorted order (``segment_sum_rows``, kernel 3), as the
+        bag's backward sums the whole table's on one card."""
+        ids, ct, div = self._update_inputs(params, xs, out_ct, fwd)
+        return {"kernel": segment_sum_rows(ids, ct, self.num_entries,
+                                           div)}
 
     @torch.no_grad()
     def sparse_opt_update(self, params, xs, out_ct, opt, slabs, step,
@@ -772,25 +791,16 @@ class Embedding(_RowShardHooks, _SplitHooks, Op):
         is the optimizer's step before this one (Adam's alpha_t). The
         table row is read (no residual: ``apply_with_fwd`` keeps none).
         Row-sharded, ``slabs`` may nest {slab: {param: tensor}} to carry
-        the hybrid's ``hot_kernel`` state."""
-        (idx,) = xs
+        the hybrid's ``hot_kernel`` state. Split by width: the rank's
+        columns and their state, from ``_update_inputs``' global batch
+        (the row math is elementwise, so the piece takes the columns of
+        the whole row's update); replicated: the global batch."""
         if self._row_plan is not None:
-            return self._row_opt_update(params, idx, out_ct, opt, slabs,
+            return self._row_opt_update(params, xs[0], out_ct, opt, slabs,
                                         step, ok)
-        if self._split_kind() == "width":
-            self._refuse_split_stateful()
-        if self._split_kind() == "replicated":
-            (idx,), out_ct = self._global_batch(xs, out_ct)
-        table = params["kernel"]
-        ids = self._ids(idx).reshape(-1)
-        ct = out_ct.to(table.dtype).reshape(-1, self.out_dim)
-        div = 1
-        if self.aggr != AGGR_MODE_NONE:
-            div = idx.shape[-1]
-            if self.aggr == AGGR_MODE_AVG:
-                ct = ct / div
-        stateful_update_rows(table, ids, ct, None, slabs, opt.row_params(),
-                             opt.alpha_t(step), div=div,
+        ids, ct, div = self._update_inputs(params, xs, out_ct, fwd)
+        stateful_update_rows(params["kernel"], ids, ct, None, slabs,
+                             opt.row_params(), opt.alpha_t(step), div=div,
                              ids_in_range=True, ok=ok)   # wrapped by _ids
         return params
 
@@ -960,10 +970,12 @@ class EmbeddingBagStacked(_FlatTableBag):
     copy takes the whole global batch. It then runs the windowed scatter
     (``sharded_scatter_add_rows``, kernel 4) on the rank's block with
     global stacked ids slot·rows + id, in the (batch, table, bag) order
-    of the JAX op's ``gidx``. The write route is closed there, as in the
-    JAX op (``_fwd_residual_ok`` needs an unsharded table), and so are
-    the stateful updates (ROADMAP queue 1 item 7.3). With D = 1 the
-    tables are replicated on every rank (``_split``).
+    of the JAX op's ``gidx``, or under a stateful optimizer kernel 2's
+    stateful entry over the same window (``stateful_update_rows(lo=)``)
+    on the block and its state slabs, with the raw cotangent. The write
+    route is closed there, as in the JAX op (``_fwd_residual_ok`` needs
+    an unsharded table). With D = 1 the tables are replicated on every
+    rank (``_split``).
 
     Row sharding across ranks (``configure_row_shard``) splits the rows
     of every table instead: ``kernel`` is the rank's cold block of each
@@ -1137,11 +1149,11 @@ class EmbeddingBagStacked(_FlatTableBag):
         gid = local + block * tl * rows        # global stacked row ids
         return [out], (gid.reshape(-1), None)
 
-    @torch.no_grad()
-    def sparse_sgd_update(self, params, xs, out_ct, lr, fwd=None, ok=None):
+    def _table_exchange(self, params, xs, out_ct, fwd):
+        """The table split's update inputs: (the global stacked row ids of
+        the lookups the block's copies take, (n,); their cotangent rows,
+        (n / bag, d), / bag for "avg"; the block's first row lo; bag)."""
         s = self._tsplit
-        if s is None:
-            return super().sparse_sgd_update(params, xs, out_ct, lr, fwd, ok)
         if fwd is None:
             raise ValueError(f"{self.name}: the table-parallel update takes "
                              f"the ids of apply_with_fwd (fwd)")
@@ -1166,21 +1178,41 @@ class EmbeddingBagStacked(_FlatTableBag):
                                   s.ncopies)[perm]
             gid = coll.all_gather(gid.reshape(blocks, -1), s.copies,
                                   s.ncopies)[perm]
-        sharded_scatter_add_rows(
-            self._flat(params["kernel"]), gid.reshape(-1),
-            got.reshape(-1, d), lo=block * tl * self.num_entries,
-            scale=-lr, div=bag, ok=ok)
+        return (gid.reshape(-1), got.reshape(-1, d),
+                block * tl * self.num_entries, bag)
+
+    @torch.no_grad()
+    def sparse_sgd_update(self, params, xs, out_ct, lr, fwd=None, ok=None):
+        if self._tsplit is None:
+            return super().sparse_sgd_update(params, xs, out_ct, lr, fwd, ok)
+        gid, ct, lo, bag = self._table_exchange(params, xs, out_ct, fwd)
+        sharded_scatter_add_rows(self._flat(params["kernel"]), gid, ct,
+                                 lo=lo, scale=-lr, div=bag, ok=ok)
         return params
 
+    @torch.no_grad()
     def sparse_opt_update(self, params, xs, out_ct, opt, slabs, step,
                           fwd=None, ok=None):
-        if self._tsplit is not None:
-            raise NotImplementedError(
-                f"{self.name}: stateful optimizers (momentum, weight "
-                f"decay, Adam) on tables split by table across ranks are "
-                f"not ported yet (ROADMAP queue 1 item 7.3)")
-        return super().sparse_opt_update(params, xs, out_ct, opt, slabs,
-                                         step, fwd, ok)
+        if self._tsplit is None:
+            return super().sparse_opt_update(params, xs, out_ct, opt, slabs,
+                                             step, fwd, ok)
+        gid, ct, lo, bag = self._table_exchange(params, xs, out_ct, fwd)
+        stateful_update_rows(
+            self._flat(params["kernel"]), gid, ct, None,
+            {k: self._flat(v) for k, v in slabs.items()}, opt.row_params(),
+            opt.alpha_t(step), div=bag, lo=lo, ok=ok)
+        return params
+
+    @torch.no_grad()
+    def split_dense_grad(self, params, xs, out_ct, fwd=None):
+        """Split by table, the gradient of the rank's block for a dense
+        table update: the exchange's cotangent rows summed into a zero
+        block by kernel 4 at scale 1."""
+        gid, ct, lo, bag = self._table_exchange(params, xs, out_ct, fwd)
+        kernel = params["kernel"]
+        g = torch.zeros_like(kernel)
+        sharded_scatter_add_rows(self._flat(g), gid, ct, lo=lo, div=bag)
+        return {"kernel": g}
 
     def whole_params(self, params):
         """The op's parameters as one card holds them (every table, in
@@ -1396,15 +1428,12 @@ class EmbeddingBagConcat(_FlatTableBag):
             return [out], (gid, None)
         return super().apply_with_fwd(params, xs)
 
-    @torch.no_grad()
-    def sparse_sgd_update(self, params, xs, out_ct, lr, fwd=None, ok=None):
-        """As ``_FlatTableBag.sparse_sgd_update``; split in row blocks,
-        the global batch's cotangent (one all-gather) lands on the rank's
-        block through the windowed scatter (kernel 4) with the global
-        batch's ids of ``fwd``, in the (batch, table, bag) order of the
-        JAX op's ``g.reshape(-1)``."""
-        if self._split_kind() != "rows":
-            return super().sparse_sgd_update(params, xs, out_ct, lr, fwd, ok)
+    def _block_update_inputs(self, params, xs, out_ct, fwd):
+        """Split in row blocks: (the global batch's concatenated row ids
+        (n,), from ``fwd`` when given; their cotangent rows (n / bag, d),
+        / bag for "avg", one all-gather; the block's first row lo; bag),
+        in the (batch, table, bag) order of the JAX op's
+        ``g.reshape(-1)``."""
         (idx,) = xs
         s = self._split
         bag = idx.shape[2]
@@ -1415,17 +1444,46 @@ class EmbeddingBagConcat(_FlatTableBag):
         ct = s.gather_batch(ct.contiguous()).reshape(-1, self.out_dim)
         gid = (fwd[0] if fwd is not None else self._global_ids(
             s.gather_batch(idx.contiguous())).reshape(-1))
-        sharded_scatter_add_rows(table, gid, ct,
-                                 lo=s.block * table.shape[0], scale=-lr,
-                                 div=bag, ok=ok)
+        return gid, ct, s.block * table.shape[0], bag
+
+    @torch.no_grad()
+    def sparse_sgd_update(self, params, xs, out_ct, lr, fwd=None, ok=None):
+        """As ``_FlatTableBag.sparse_sgd_update``; split in row blocks,
+        the global batch's cotangent lands on the rank's block through
+        the windowed scatter (kernel 4) with the global batch's ids
+        (``_block_update_inputs``)."""
+        if self._split_kind() != "rows":
+            return super().sparse_sgd_update(params, xs, out_ct, lr, fwd, ok)
+        gid, ct, lo, bag = self._block_update_inputs(params, xs, out_ct, fwd)
+        sharded_scatter_add_rows(params["kernel"], gid, ct, lo=lo,
+                                 scale=-lr, div=bag, ok=ok)
         return params
 
+    @torch.no_grad()
     def sparse_opt_update(self, params, xs, out_ct, opt, slabs, step,
                           fwd=None, ok=None):
-        if self._split_kind() == "rows":
-            self._refuse_split_stateful()
-        return super().sparse_opt_update(params, xs, out_ct, opt, slabs,
-                                         step, fwd, ok)
+        """As ``_FlatTableBag.sparse_opt_update``; split in row blocks,
+        kernel 2's stateful entry over the rank's block's window, on the
+        block and its state slabs, from ``_block_update_inputs``' raw
+        cotangent."""
+        if self._split_kind() != "rows":
+            return super().sparse_opt_update(params, xs, out_ct, opt, slabs,
+                                             step, fwd, ok)
+        gid, ct, lo, bag = self._block_update_inputs(params, xs, out_ct, fwd)
+        stateful_update_rows(params["kernel"], gid, ct, None, slabs,
+                             opt.row_params(), opt.alpha_t(step), div=bag,
+                             lo=lo, ok=ok)
+        return params
+
+    @torch.no_grad()
+    def split_dense_grad(self, params, xs, out_ct, fwd=None):
+        """Split in row blocks, the gradient of the rank's block for a
+        dense table update: the global batch's cotangent rows summed into
+        a zero block by kernel 4 at scale 1."""
+        gid, ct, lo, bag = self._block_update_inputs(params, xs, out_ct, fwd)
+        g = torch.zeros_like(params["kernel"])
+        sharded_scatter_add_rows(g, gid, ct, lo=lo, div=bag)
+        return {"kernel": g}
 
     def whole_params(self, params):
         """The op's parameters as one card holds them, gathered from the

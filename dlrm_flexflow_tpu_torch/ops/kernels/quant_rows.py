@@ -31,11 +31,21 @@ Philox4x32-10 keyed by (``seed``, the step, ``salt``) at counter (row +
 bit for bit the same by ``philox_uniform`` here, so the plain version
 takes the same draws on the CPU. Its bits are not JAX's threefry.
 
+A table split by width over ranks holds some columns of every row, and
+the row's scale is the |x| max of the WHOLE row, so it is rounded in two
+passes: ``row_amax`` gives each piece row's |x| max, the caller takes
+the max over the ranks holding the row's other columns, and
+``fake_quant_rows_amax`` rounds the piece with that max's scale, its
+Philox counters at the piece's columns ``col0 + c`` of the row (col0 % 4
+== 0): the values and draws of the whole row at those columns, bitwise.
+
 CPU tensors take the plain version; CUDA tensors launch the kernel
 (``fake_quant_rows.launches`` counts the launches, ``.routes`` by
-"nearest", "philox" and "noise") or raise, never falling back. With
-``ok`` (the sentinel's 0-d int32 flag on x's device) a step whose flag
-is 0 changes nothing.
+"nearest", "philox" and "noise"; ``row_amax.launches`` and
+``fake_quant_rows_amax.launches``, ``.routes`` by "nearest" and
+"philox", the two passes') or raise, never falling back. With ``ok``
+(the sentinel's 0-d int32 flag on x's device) a step whose flag is 0
+changes nothing.
 """
 
 from __future__ import annotations
@@ -65,6 +75,10 @@ _SIGNATURES = {
          _P, _P), _I),
     "ff_fake_quant_rows_noise": (
         (_P, _P, ctypes.c_longlong, _I, _P, _P), _I),
+    "ff_row_amax": ((_P, ctypes.c_longlong, _I, _P, _P), _I),
+    "ff_fake_quant_rows_amax": (
+        (_P, _P, ctypes.c_longlong, _I, _I, _I, ctypes.c_ulonglong, _U, _U,
+         _U, _U, _P, _P), _I),
 }
 
 # Philox4x32-10 (Salmon et al. 2011), as csrc/quant_rows.cu computes it
@@ -96,15 +110,17 @@ def philox4x32(c0, c1, c2, c3, k0: int, k1: int):
 
 
 def philox_uniform(rows: int, d: int, seed: int, step: int, salt: int,
-                   row0: int = 0, device=None) -> torch.Tensor:
+                   row0: int = 0, device=None, col0: int = 0
+                   ) -> torch.Tensor:
     """The kernel's draws for a (rows, d) block: u[r, c] in [0, 1) from
-    output c % 4 of Philox at counter (row0 + r, c // 4, step, salt)
-    under the key (seed's low and high 32 bits), its top 24 bits times
-    2^-24 (exact in fp32)."""
+    output c % 4 of Philox at counter (row0 + r, (col0 + c) // 4, step,
+    salt) under the key (seed's low and high 32 bits), its top 24 bits
+    times 2^-24 (exact in fp32); col0 % 4 == 0."""
     dev = torch.device(device) if device is not None else None
     n4 = -(-d // 4)
     r = torch.arange(rows, dtype=torch.int64, device=dev)[:, None] + row0
-    c = torch.arange(n4, dtype=torch.int64, device=dev)[None, :]
+    c = torch.arange(n4, dtype=torch.int64, device=dev)[None, :] \
+        + col0 // 4
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     outs = philox4x32(r & _MASK32, c, zero + (step & _MASK32),
                       zero + (salt & _MASK32), seed & _MASK32,
@@ -134,11 +150,13 @@ def _check(x, dtype, mode, u):
 def fake_quant_rows_reference(x: torch.Tensor, dtype: str,
                               mode: str = "nearest", u=None, seed: int = 0,
                               step: int = 0, salt: int = 0, row0: int = 0,
-                              ok=None) -> torch.Tensor:
+                              ok=None, amax=None, col0: int = 0
+                              ) -> torch.Tensor:
     """Plain PyTorch version of ``fake_quant_rows``, in place, a block of
     rows at a time; every operation rounds on its own (the divisor a
     tensor, so CUDA does not turn the division into a product by the
-    reciprocal)."""
+    reciprocal). With ``amax`` (rows,) and ``col0`` the plain version of
+    ``fake_quant_rows_amax``."""
     _check(x, dtype, mode, u)
     if skipped(ok) or x.numel() == 0:
         return x
@@ -150,16 +168,18 @@ def fake_quant_rows_reference(x: torch.Tensor, dtype: str,
     rows, d = x.shape
     for lo in range(0, rows, _CHUNK):
         xc = x[lo:lo + _CHUNK]
-        amax = xc.abs().amax(dim=1)
-        scale = torch.where(amax > 0, amax / torch.full_like(amax, qmax),
-                            torch.zeros_like(amax))
+        m = (xc.abs().amax(dim=1) if amax is None
+             else amax[lo:lo + _CHUNK])
+        scale = torch.where(m > 0, m / torch.full_like(m, qmax),
+                            torch.zeros_like(m))
         safe = torch.where(scale > 0, scale, torch.ones_like(scale))
         y = xc / safe[:, None]
         if dtype == "int8":
             if stochastic:
                 uc = (u[lo:lo + _CHUNK] if u is not None else
                       philox_uniform(xc.shape[0], d, seed, step, salt,
-                                     row0 + lo, device=x.device))
+                                     row0 + lo, device=x.device,
+                                     col0=col0))
                 q = torch.floor(y + uc)
             else:
                 q = torch.round(y)
@@ -220,5 +240,97 @@ def fake_quant_rows(x: torch.Tensor, dtype: str, mode: str = "nearest",
     return x
 
 
+def row_amax_reference(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of ``row_amax``."""
+    return x.abs().amax(dim=1)
+
+
+def _check_piece(x, col0):
+    if x.dtype != torch.float32 or x.dim() != 2:
+        raise ValueError(f"a width piece is an fp32 (rows, d) tensor, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    if col0 % 4:
+        raise ValueError(f"a width piece starts at a column that is a "
+                         f"multiple of 4 (the Philox counter's 4-value "
+                         f"chunks), got col0={col0}")
+
+
+def _cuda_piece(x, what):
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} runs on cpu or cuda, not {x.device}")
+    if not x.is_contiguous() or x.shape[1] > MAX_D \
+            or x.shape[0] > 1 << 32:
+        raise ValueError(f"{what} takes a contiguous x of at most {MAX_D} "
+                         f"values a row and 2^32 rows, got "
+                         f"{tuple(x.shape)}")
+
+
+def row_amax(x: torch.Tensor) -> torch.Tensor:
+    """Each row's |x| max (NaN-propagating) of the fp32 (rows, d) piece
+    ``x``, as an fp32 (rows,) tensor: pass 1 of a width-split table's
+    rounding (``fake_quant_rows_amax`` is pass 2). x is only read."""
+    _check_piece(x, 0)
+    if x.device.type == "cpu":
+        return row_amax_reference(x)
+    _cuda_piece(x, "row_amax")
+    out = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
+    if x.numel() == 0:
+        return out.zero_()
+    lib = build.load("quant_rows", _SIGNATURES)
+    err = lib.ff_row_amax(x.data_ptr(), x.shape[0], x.shape[1],
+                          out.data_ptr(), build.stream_of(x))
+    build.check(lib, err, "row_amax kernel")
+    build.count_launch(row_amax)
+    return out
+
+
+def fake_quant_rows_amax(x: torch.Tensor, amax: torch.Tensor, dtype: str,
+                         mode: str = "nearest", seed: int = 0,
+                         step: int = 0, salt: int = 0, row0: int = 0,
+                         col0: int = 0, ok=None) -> torch.Tensor:
+    """``fake_quant_rows`` of the piece ``x`` (rows, d), columns [col0,
+    col0 + d) of rows whose |x| max is ``amax`` (rows,) fp32, in place:
+    each row's scale from amax, the stochastic draws at the row's
+    columns col0 + c (col0 % 4 == 0), so x becomes those columns of the
+    whole row's ``fake_quant_rows``, bitwise. int8 and fp8 only: bf16
+    rounds each value alone, so a piece of it takes ``fake_quant_rows``.
+    Returns x."""
+    _check(x, dtype, mode, None)
+    _check_piece(x, col0)
+    if dtype == "bf16":
+        raise ValueError("fake_quant_rows_amax: bf16 has no row scale; "
+                         "round a bf16 piece with fake_quant_rows")
+    if amax.dtype != torch.float32 or amax.shape != (x.shape[0],) \
+            or amax.device != x.device:
+        raise ValueError(f"fake_quant_rows_amax: amax must be fp32 "
+                         f"({x.shape[0]},) on {x.device}, got {amax.dtype} "
+                         f"{tuple(amax.shape)} on {amax.device}")
+    check_ok(ok, x.device)
+    if x.device.type == "cpu":
+        return fake_quant_rows_reference(x, dtype, mode, None, seed, step,
+                                         salt, row0, ok, amax=amax,
+                                         col0=col0)
+    _cuda_piece(x, "fake_quant_rows_amax")
+    if row0 + x.shape[0] > 1 << 32:
+        raise ValueError(f"fake_quant_rows_amax: rows past 2^32 at row "
+                         f"{row0}")
+    if x.numel() == 0:
+        return x
+    stochastic = mode == "stochastic" and dtype == "int8"
+    lib = build.load("quant_rows", _SIGNATURES)
+    err = lib.ff_fake_quant_rows_amax(
+        x.data_ptr(), amax.contiguous().data_ptr(), x.shape[0], x.shape[1],
+        _DTYPE_CODE[dtype], int(stochastic), seed & 0xFFFFFFFFFFFFFFFF,
+        step & _MASK32, salt & _MASK32, row0, col0,
+        None if ok is None else ok.data_ptr(), build.stream_of(x))
+    build.check(lib, err, "fake_quant_rows_amax kernel")
+    build.count_launch(fake_quant_rows_amax,
+                       "philox" if stochastic else "nearest")
+    return x
+
+
 fake_quant_rows.launches = 0
 fake_quant_rows.routes = {"nearest": 0, "philox": 0, "noise": 0}
+row_amax.launches = 0
+fake_quant_rows_amax.launches = 0
+fake_quant_rows_amax.routes = {"nearest": 0, "philox": 0}

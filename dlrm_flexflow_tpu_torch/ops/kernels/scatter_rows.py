@@ -36,6 +36,10 @@ wrap their ids, pass ``ids_in_range=True``):
   RAW gradient (no scale), its weight (fwd[j] or the table row) and its
   state-slab rows; it writes the weight and every slab, and rows no
   lookup touched keep their weight and their state (lazy semantics).
+  With ``lo`` the table and slabs are the window [lo, lo + rows) of a
+  larger table, as for ``sharded_scatter_add_rows``: its plain version
+  is ``stateful_update_rows_reference`` over ``window_ids(ids, lo,
+  rows)``.
   ``row_update_reference`` is that row math in PyTorch, in the JAX
   optimizers' operation order; the dense optimizers run it too.
 
@@ -86,11 +90,12 @@ _SIGNATURES = {
         (_P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P, _P), _I),
     "ff_stateful_update_rows": (
         (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I)
-        + (ctypes.c_float,) * 8 + (_P, _P), _I),
+        + (ctypes.c_float,) * 8 + (ctypes.c_longlong, _P, _P), _I),
     "ff_stateful_fused_max": ((), _I),
     "ff_stateful_update_fused": (
         (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I)
-        + (ctypes.c_float,) * 8 + (_P, _P), _I),
+        + (ctypes.c_float,) * 8 + (ctypes.c_longlong, ctypes.c_longlong,
+                                   _P, _P), _I),
 }
 # the pre-pass kernels' limit (kBlockSortMax in csrc/scatter_rows.cu): a
 # block (rank) or one cluster's blocks (radix) hold every key, 8 bytes
@@ -562,7 +567,7 @@ def scatter_write_rows(table: torch.Tensor, ids: torch.Tensor,
 def stateful_update_rows(table: torch.Tensor, ids: torch.Tensor,
                          upd: torch.Tensor, fwd, slabs, opt_params,
                          alpha_t=None, div: int = 1,
-                         ids_in_range: bool = False, *,
+                         ids_in_range: bool = False, *, lo=None,
                          ok=None) -> torch.Tensor:
     """In place, the stateful touched-rows update: for each distinct row
     of ``ids``, g = the sum of upd[j // div] over its lookups j in lookup
@@ -574,8 +579,13 @@ def stateful_update_rows(table: torch.Tensor, ids: torch.Tensor,
     ``alpha_t``, a 0-d fp32 tensor on the table's device, there (the
     step never comes back to the host). Pads, ``ids_in_range`` and ``ok``
     as in ``scatter_add_rows``; rows no lookup names keep weight and
-    state."""
-    _check(table, ids, upd, fwd, div, ids_in_range)
+    state. ``lo``: the table and the slabs are the rows [lo, lo + table
+    rows) of a larger table (a rank's block), ``ids`` rows of that
+    table; an id outside the window changes nothing, as a pad. On the
+    card the kernels test the window and shift the id themselves (the
+    "fused" route's one launch, or the pre-pass over the window and one
+    launch), with no masked copy of the ids."""
+    _check(table, ids, upd, fwd, div, ids_in_range or lo is not None)
     check_ok(ok, table.device)
     names = slab_names(opt_params)
     if set(names) - set(slabs):
@@ -590,7 +600,11 @@ def stateful_update_rows(table: torch.Tensor, ids: torch.Tensor,
                  or alpha_t.device != table.device):
         raise ValueError("stateful_update_rows: Adam takes alpha_t, a 0-d "
                          "float32 tensor on the table's device")
+    if lo is not None and int(lo) < 0:
+        raise ValueError(f"stateful_update_rows: lo {lo} < 0")
     if table.device.type == "cpu":
+        if lo is not None:
+            ids = window_ids(ids, int(lo), table.shape[0])
         return stateful_update_rows_reference(table, ids, upd, fwd, slabs,
                                               opt_params, alpha_t, div, ok)
     if table.device.type != "cuda":
@@ -598,14 +612,15 @@ def stateful_update_rows(table: torch.Tensor, ids: torch.Tensor,
                          f"{table.device}")
     fused = stateful_route(ids.shape[0], table.shape[0]) == "fused"
     return _stateful_kernels(table, ids, upd, fwd, slabs, opt_params,
-                             alpha_t, div, fused, ok)
+                             alpha_t, div, fused, ok, lo)
 
 
 def _stateful_kernels(table, ids, upd, fwd, slabs, opt_params, alpha_t,
-                      div, fused, ok=None):
+                      div, fused, ok=None, lo=None):
     """The kernels of ``stateful_update_rows`` on checked CUDA inputs:
     with ``fused`` one launch (route "fused", n <= FUSED_MAX), else the
-    pre-pass of ``_presorted`` and one launch after it."""
+    pre-pass of ``_presorted`` and one launch after it; both over the
+    window [lo, lo + table rows) (``lo`` None: the whole table)."""
     names = slab_names(opt_params)
     slab = [slabs[k] for k in names]
     if fused:
@@ -613,7 +628,7 @@ def _stateful_kernels(table, ids, upd, fwd, slabs, opt_params, alpha_t,
         ids, upd, fwd = _kernel_inputs(table, ids, upd, fwd, slab)
     else:
         route, ids, upd, fwd, order, seg = _presorted(table, ids, upd, fwd,
-                                                      slab)
+                                                      slab, lo=lo)
     n = ids.shape[0]
     if n == 0:
         return table
@@ -622,16 +637,17 @@ def _stateful_kernels(table, ids, upd, fwd, slabs, opt_params, alpha_t,
     lib = build.load("scatter_rows", _SIGNATURES)
     common = (_ptr(slab[0]), _ptr(slab[1]),
               _ptr(alpha_t) if adam else None, n, table.shape[1], int(div),
-              adam, nesterov, *(float(x) for x in hp), _ptr(ok),
-              build.stream_of(table))
+              adam, nesterov, *(float(x) for x in hp))
+    tail = (_ptr(ok), build.stream_of(table))
+    lo = int(lo or 0)
     if fused:
         err = lib.ff_stateful_update_fused(
             table.data_ptr(), ids.data_ptr(), upd.data_ptr(), _ptr(fwd),
-            *common)
+            *common, lo, table.shape[0], *tail)
     else:
         err = lib.ff_stateful_update_rows(
             table.data_ptr(), ids.data_ptr(), order.data_ptr(),
-            seg.data_ptr(), upd.data_ptr(), _ptr(fwd), *common)
+            seg.data_ptr(), upd.data_ptr(), _ptr(fwd), *common, lo, *tail)
     build.check(lib, err, f"stateful_update_rows kernel ({route} route)")
     build.count_launch(stateful_update_rows, route)
     return table

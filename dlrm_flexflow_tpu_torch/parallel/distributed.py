@@ -331,13 +331,21 @@ class Collectives:
     def all_reduce_sum_(self, t: torch.Tensor, group=None) -> torch.Tensor:
         """Sum ``t`` over the ranks (of ``group``; None: the process
         group), in place; every rank gets the same bits."""
+        return self._all_reduce(t, dist.ReduceOp.SUM, group)
+
+    def all_reduce_max_(self, t: torch.Tensor, group=None) -> torch.Tensor:
+        """The elementwise max of ``t`` over the ranks (of ``group``), in
+        place. Counted under "all_reduce"."""
+        return self._all_reduce(t, dist.ReduceOp.MAX, group)
+
+    def _all_reduce(self, t: torch.Tensor, op, group) -> torch.Tensor:
         t0 = time.perf_counter()
         if self.staged and t.is_cuda:
             h = t.cpu()
-            dist.all_reduce(h, group=group)
+            dist.all_reduce(h, op=op, group=group)
             t.copy_(h)
         else:
-            dist.all_reduce(t, group=group)
+            dist.all_reduce(t, op=op, group=group)
         self._count("all_reduce", 2 * t.nbytes, t0, t.nbytes)
         return t
 

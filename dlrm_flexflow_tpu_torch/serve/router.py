@@ -59,7 +59,7 @@ from ..obs import trace as obstrace
 from ..utils import faults
 from ..utils.checkpoint import load_params_for_swap
 from ..utils.logging import get_logger
-from .engine import Overloaded, Prediction, percentile
+from .engine import Overloaded, Prediction, ReplicaDown, percentile
 from .fleet import HEALTHY, Fleet, Replica, copy_state
 
 log_router = get_logger("serve.router")
@@ -416,7 +416,13 @@ class FleetRouter:
 
     def _on_done(self, rr: _RouterReq, rep: Replica, fut: Future,
                  hedge: bool) -> None:
-        exc = fut.exception()
+        if fut.cancelled():
+            # a remote replica's client cancels the requests still queued
+            # in it when the replica is ejected: re-route them as a
+            # drained queue's
+            exc = ReplicaDown(rep.rid, "request cancelled on ejection")
+        else:
+            exc = fut.exception()
         if exc is None:
             rep.record_success()
             self._complete(rr, fut.result(), rep, hedge)

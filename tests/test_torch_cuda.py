@@ -69,7 +69,14 @@ Tables split across ranks: kernel 4 at a Criteo-Kaggle row block's shape
 (13,312 lookups, a 5.7M-row block, d = 16), the bag kernel's masked ids
 (a negative id adds a zero row) and kernels 1 and 3 on a width slice of
 a table (32 of 64 columns; 8 of 16 and of 32), each BITWISE its plain
-version.
+version. Every optimizer on them: kernel 2's stateful entry over a
+block's window (a Kaggle row block, the "cat" split's block of 4
+tables, edge windows), on both routes, BITWISE its plain version over
+the masked ids; the two passes of a width piece's rounding (the row's
+|x| max, the rounding with the whole row's scale at the piece's
+columns) BITWISE their plain versions and the whole rows' rounding at
+those columns (NaN at the same places: a NaN's payload is the device's
+own).
 """
 
 import numpy as np
@@ -2370,3 +2377,103 @@ def test_bag_and_scatter_kernels_on_a_width_slice(cuda, d, cols):
                                       scale=-0.01, div=bag)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
+
+
+# ---- every optimizer on tables split across ranks ------------------------
+
+
+@pytest.mark.parametrize("name", ["sgd_wd", "nesterov_wd", "adam"])
+@pytest.mark.parametrize("n,div,lo,rows", [
+    (KAGGLE_N, 1, KAGGLE_BLOCK, KAGGLE_BLOCK),    # a Kaggle row block
+    (4096, 1, 4_000_000, 4_000_000),              # "cat": 4 of 8 tables
+    (2048, 2, 1000, 30000), (20000, 1, 5000, 20000), (999, 3, 0, 777)])
+def test_windowed_stateful_kernel_matches_plain(cuda, name, n, div, lo,
+                                                rows):
+    """Kernel 2's stateful entry over the window [lo, lo + rows) of a
+    table (``stateful_update_rows(lo=)``), on the one-launch route (n up
+    to FUSED_MAX) and on the pre-pass routes: BITWISE its plain version
+    on the CPU over the masked ids (``window_ids``), weights and slabs;
+    an id outside the window, or a pad, changes nothing."""
+    g = torch.Generator(device=cuda).manual_seed(n + lo)
+    opt = STATEFUL[name]()
+    d = 16 if rows > 1_000_000 else 64
+    block = torch.randn(rows, d, device=cuda, generator=g)
+    ids = torch.randint(0, lo + 2 * rows, (n,), device=cuda, generator=g)
+    ids[:8] = lo + 3                                 # a hot row
+    ids[9] = -1
+    upd = torch.randn(n // div, d, device=cuda, generator=g)
+    slabs = {k: torch.rand(rows, d, device=cuda, generator=g)
+             for k in opt.sparse_slab_names()}
+    alpha_t = opt.alpha_t(torch.tensor(2, dtype=torch.int32, device=cuda))
+    want, want_s = block.cpu(), {k: v.cpu() for k, v in slabs.items()}
+    stateful_update_rows_reference(
+        want, scatter_rows_mod.window_ids(ids, lo, rows).cpu(), upd.cpu(),
+        None, want_s, opt.row_params(),
+        None if alpha_t is None else alpha_t.cpu(), div)
+    route = stateful_route(n, rows)
+    for fused in ((True, False) if route == "fused" else (False,)):
+        got, got_s = block.clone(), {k: v.clone() for k, v in slabs.items()}
+        before = dict(stateful_update_rows.routes)
+        if fused:
+            stateful_update_rows(got, ids, upd, None, got_s,
+                                 opt.row_params(), alpha_t, div, lo=lo)
+            assert stateful_update_rows.routes["fused"] \
+                == before["fused"] + 1
+        else:
+            scatter_rows_mod._stateful_kernels(got, ids, upd, None, got_s,
+                                               opt.row_params(), alpha_t,
+                                               div, False, lo=lo)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), fused
+        for k in slabs:
+            assert torch.equal(got_s[k].cpu(), want_s[k]), (fused, k)
+
+
+def _same_bits(a, b):
+    """a and b (fp32, one on the card) NaN at the same places and bitwise
+    equal elsewhere (a NaN's payload is the device's own)."""
+    a, b = a.cpu(), b.cpu()
+    nan = a.isnan()
+    return torch.equal(nan, b.isnan()) and torch.equal(
+        a[~nan].view(torch.int32), b[~nan].view(torch.int32))
+
+
+@pytest.mark.parametrize("dt,mode", [("int8", "stochastic"),
+                                     ("int8", "nearest"),
+                                     ("fp8", "nearest")])
+@pytest.mark.parametrize("d,pieces", [(64, 2), (16, 2), (128, 4), (64, 8)])
+def test_width_piece_rounding_passes_match_plain(cuda, dt, mode, d, pieces):
+    """The two passes of a width piece's rounding: ``row_amax`` of each
+    piece BITWISE its plain version; their max (the fp32 bits as int32),
+    then ``fake_quant_rows_amax`` at the piece's columns BITWISE its
+    plain version on the CPU and BITWISE the whole rows'
+    ``fake_quant_rows`` (the kernel) at those columns; a NaN in a row's
+    piece reaches every piece of the row."""
+    from dlrm_flexflow_tpu_torch.ops.kernels import quant_rows as qr
+    rows = 100_000
+    g = torch.Generator(device=cuda).manual_seed(d + pieces)
+    whole = torch.randn(rows, d, device=cuda, generator=g) * torch.rand(
+        rows, 1, device=cuda, generator=g)
+    whole[7] = 0.0
+    whole[11, 1] = float("nan")
+    draws = (dict(seed=(5 << 33) + 1, step=4, salt=0x53)
+             if mode == "stochastic" else {})
+    want_whole = qr.fake_quant_rows(whole.clone(), dt, mode, row0=9,
+                                    **draws)
+    dc = d // pieces
+    parts = [whole[:, k * dc:(k + 1) * dc].contiguous()
+             for k in range(pieces)]
+    amax = torch.stack([qr.row_amax(x) for x in parts])
+    for k, x in enumerate(parts):
+        assert _same_bits(amax[k], qr.row_amax_reference(x.cpu())), k
+    top = amax.view(torch.int32).amax(dim=0).view(torch.float32)
+    assert bool(torch.isnan(top[11]))
+    for k, x in enumerate(parts):
+        want = qr.fake_quant_rows_reference(x.cpu(), dt, mode, row0=9,
+                                            amax=top.cpu(), col0=k * dc,
+                                            **draws)
+        qr.fake_quant_rows_amax(x, top, dt, mode, row0=9, col0=k * dc,
+                                **draws)
+        torch.cuda.synchronize()
+        assert _same_bits(x, want), k
+        assert _same_bits(x, want_whole[:, k * dc:(k + 1) * dc]), k

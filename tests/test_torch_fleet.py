@@ -23,6 +23,7 @@ counter) is determined.
 import glob
 import threading
 import time
+from concurrent.futures import Future
 
 import numpy as np
 import pytest
@@ -212,6 +213,29 @@ class TestRouter:
             st = router.stats()
         assert st["failed"] == 0 and st["retries"] >= 2
         assert ("replica_down", 0) in plan.fired
+
+    def test_a_cancelled_dispatch_is_retried_elsewhere(self, jm):
+        """A dispatch whose future the replica cancels (a remote
+        replica's client cancels its queued requests when the replica is
+        ejected) is re-routed as a failed one: a survivor answers it."""
+        with _router(jm) as router:
+            def cancelled(features):
+                f = Future()
+                f.cancel()
+                return f
+
+            router.fleet.get(0).engine.submit = cancelled
+            want = InferenceEngine(_port_model(jm)).start()
+            try:
+                for i in range(4):
+                    np.testing.assert_array_equal(
+                        router.predict(_one(i), timeout=WAIT_S).scores,
+                        want.predict(_one(i), timeout=WAIT_S).scores)
+            finally:
+                want.close()
+            st = router.stats()
+            errors = router.fleet.get(0).dispatch_errors
+        assert st["failed"] == 0 and st["retries"] >= 1 and errors >= 1
 
     def test_every_replica_down_fails_after_the_budget(self, jm):
         plan = faults.FaultPlan(replica_down={0: -1, 1: -1})
