@@ -481,6 +481,48 @@ Phases:
    run's step ms, every collective's calls, bytes and host seconds a
    step print. ``python3 chip_smoke.py --splitopt`` runs only this
    phase.
+18. training across ranks as ``fit`` runs it — checkpoints across ranks,
+   a rank's share of an ``.ffbin``, ``fit``/``fit_stream``, the sentinel
+   across ranks, host tables across ranks, delta publishes of
+   row-sharded tables followed by a one-card engine, run after phase 17.
+   First ``grad_sumsq``'s across-ranks form at the "cat" step's shapes:
+   the first launch over a rank's own cotangent into a slot, the second
+   over the MLP gradients adding the slot, bitwise the second list's
+   own sum plus the slot and its root, within rtol 1e-5 of the plain
+   version, one launch alone bitwise a rerun. Then FR_WORLD
+   ``--fitranks-rank`` children on the card (gloo): (a) the launcher
+   with run_criteo_kaggle.sh's flags at ``-ll:gpu 2 -b 512`` from an
+   ``.ffbin`` of FR_KAGGLE_BATCHES synthetic Kaggle-shaped global
+   batches (the native reader's row window), through the ring and with
+   ``--no-prefetch``, every count at 0 just before and read just after,
+   no plain version, the epoch's mse within DIST_LOSS_RTOL of world 1's
+   launcher on the same file (run in this process); (b) "cat" at full
+   width split by table under momentum with weight decay, global batch
+   FR_B, a snapshot at step FR_FIT_STEPS // 2 (keep_last 1), stopped by
+   an exception as the next step begins; (d) the Kaggle launcher with
+   ``--host-tables --no-host-tables-async`` (its mse against world 1's
+   host-table launcher; the ranks' copies' CRC-32 equal; a step's
+   gather, copy, readback with the all-gather and scatter from the
+   trace), then FR_HOST_STEPS momentum steps with Kaggle's table on the
+   host against the same table on the card, bitwise (under plain SGD the
+   host scatter applies a row's lookups one after another, as the JAX
+   host path does, and the card sums them first). Then FR_WORLD fresh
+   ``--fitranks-resume-rank`` children: (b) resumed from the snapshot
+   by a model from other weights, every piece and slab bitwise the
+   uninterrupted staged fit's (the snapshot's bytes, gather, write and
+   restore seconds print); (c) Kaggle fits under ``skip_step`` and
+   ``rollback`` with rank 1's share alone poisoned at FR_POISON: both
+   ranks skip, or roll back once, at the same step, 2 ``grad_sumsq``
+   launches a step and no plain version, the rollback fit and the
+   no-anomaly ``skip_step`` fit bitwise the fit without the sentinel;
+   (e) ``fit_stream`` of "cat" row-sharded (the dense exchange)
+   publishing every FR_EVERY steps through a ``DeltaPublisher`` (a full
+   snapshot every FR_FULL_EVERY + 1 publishes), followed from this
+   process by a one-card engine with ``ServeConfig(reshard=True)``
+   whose every install serves the trainer's gathered parameters
+   (CRC-32 of each array), the freshness p50 printed; an engine without
+   reshard rejects the full snapshot. ``python3 chip_smoke.py
+   --fitranks`` runs only this phase.
 
 The last two lines are a JSON object with every kernel's numbers and
 ``{"ok": true, "device": {...}}``. Without a GPU, or when any check
@@ -8463,6 +8505,717 @@ def _so_report(outs):
 
 
 # ---------------------------------------------------------------------
+# phase 18: training across ranks as fit runs it
+# ---------------------------------------------------------------------
+# FR_WORLD gloo ranks on the card. (a) run_criteo_kaggle.sh's flags at
+# -ll:gpu FR_WORLD -b FR_KAGGLE_B from an .ffbin of FR_KAGGLE_BATCHES
+# global batches of synthetic Kaggle-shaped samples, through the ring and
+# with --no-prefetch, against world 1 on the same file; (b) "cat" at
+# run_random.sh's widths under dlrm_strategy (split by table), momentum
+# 0.9 with weight decay 1e-4, global batch FR_B, FR_FIT_STEPS steps, a
+# snapshot every FR_FIT_STEPS // 2 steps (keep_last 1), stopped as the
+# step after it begins and resumed by fresh ranks; (c) the sentinel in
+# fit on Kaggle (SGD, FR_KAGGLE_B, FR_SENT_STEPS steps), rank 1's share
+# poisoned at FR_POISON; (d) the Kaggle launcher with --host-tables
+# (exact) and FR_HOST_STEPS momentum steps of host against device
+# tables; (e) fit_stream of "cat" row-sharded, a publish every
+# FR_EVERY steps, a full one every FR_FULL_EVERY + 1 publishes, for
+# FR_PUBLISHES publishes, followed by a one-card engine (reshard=True)
+FR_WORLD = 2
+FR_KAGGLE_B = 256 * FR_WORLD
+FR_KAGGLE_BATCHES = 16
+FR_B = 512
+FR_FIT_STEPS = 24
+FR_SENT_STEPS = 6
+FR_POISON = 5
+FR_HOST_STEPS = 3
+FR_EVERY = 8
+FR_FULL_EVERY = 3
+FR_PUBLISHES = 4
+
+
+def _fr_kaggle_flags(work, *extra):
+    return (tp_kaggle_flags() + ["--data-path", str(work / "kaggle.ffbin")]
+            + list(extra))
+
+
+def _fr_launcher(flags):
+    """The launcher on ``flags``, every count at 0 just before it and read
+    just after, plain versions counted: its summary."""
+    from dlrm_flexflow_tpu_torch.examples.native import dlrm as launcher
+    zero_counts()
+    with PlainCalls() as plain:
+        out = launcher.main(flags)
+    model = out["model"]
+    run = {"steps": out["steps"], "throughput": out["throughput"],
+           "mse": float(model.perf.report()["mse"]), "plain": plain.calls,
+           "counts": {k: v for k, v in read_counts().items() if v}}
+    return run, model
+
+
+def _fr_crc(a):
+    import zlib
+    return zlib.crc32(memoryview(np.ascontiguousarray(a)).cast("B"))
+
+
+def _fr_pieces(m):
+    """{name: a tensor of this rank} of its parameters and slabs."""
+    out = {f"{o}.{p}": v for o, d in m.params.items() for p, v in d.items()}
+    for k, tree in (m.opt_state or {}).items():
+        if k != "step":
+            out.update({f"{k}:{o}.{p}": v for o, d in tree.items()
+                        for p, v in d.items()})
+    return out
+
+
+def _fr_cat(seed, stage="never", policy="none", row_shard=False):
+    from dlrm_flexflow_tpu_torch.models.dlrm import dlrm_strategy
+    from dlrm_flexflow_tpu_torch.parallel.mesh import make_mesh
+    cfg = train_config("cat")
+    m = FFModel(FFConfig(batch_size=FR_B, seed=SEED, device="cuda:0",
+                         stage_dataset=stage, anomaly_policy=policy))
+    build_dlrm(m, cfg)
+    mesh = make_mesh()
+    opt = (SGDOptimizer(lr=LR) if row_shard else
+           SGDOptimizer(lr=LR, momentum=0.9, weight_decay=1e-4))
+    m.compile(opt, "mean_squared_error", ["mse"], mesh=mesh,
+              strategies=dlrm_strategy(m, cfg, mesh.size,
+                                       row_shard=row_shard))
+    m.init_layers(seed=seed)
+    return m, cfg
+
+
+class _FrManagers:
+    """While installed, every CheckpointManager ``fit`` makes is kept (for
+    its ``last_save``) and its restores are timed."""
+
+    def __enter__(self):
+        from dlrm_flexflow_tpu_torch.utils import checkpoint as ckpt_mod
+        self.mod, self.real = ckpt_mod, ckpt_mod.CheckpointManager
+        made, restores = self.made, self.restores = [], []
+
+        class Kept(self.real):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                made.append(self)
+
+            def restore_latest(self, model):
+                t0 = time.perf_counter()
+                entry = super().restore_latest(model)
+                restores.append(time.perf_counter() - t0)
+                return entry
+
+        ckpt_mod.CheckpointManager = Kept
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.CheckpointManager = self.real
+
+
+def _fr_fit_stop(work):
+    """(b), first ranks: the fit through the ring with a snapshot every
+    FR_FIT_STEPS // 2 steps, stopped as the step after it begins."""
+    half = FR_FIT_STEPS // 2
+    m, cfg = _fr_cat(SEED)
+    x, y = synthetic_batch(cfg, FR_FIT_STEPS * FR_B, seed=SEED + 60)
+    real, calls = m.train_batch_staged, []
+
+    def crashing(staged, **kw):
+        calls.append(1)
+        if len(calls) == half + 1:
+            raise SimulatedCrash()
+        return real(staged, **kw)
+
+    m.train_batch_staged = crashing
+    stopped = False
+    with _FrManagers() as mk:
+        try:
+            m.fit(x, y, epochs=1, batch_size=FR_B, verbose=False,
+                  checkpoint_dir=str(work / "fit"), save_every=half,
+                  keep_last=1)
+        except SimulatedCrash:
+            stopped = True
+    save = mk.made[-1].last_save
+    del m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"stopped": stopped, "save": save}
+
+
+def _fr_fit_resume(work):
+    """(b), fresh ranks: a model from other weights resumes the stopped
+    fit from its snapshot to the end; then the uninterrupted fit from the
+    first weights, staged; every piece and slab bitwise."""
+    half = FR_FIT_STEPS // 2
+    resumed, cfg = _fr_cat(SEED + 1)
+    x, y = synthetic_batch(cfg, FR_FIT_STEPS * FR_B, seed=SEED + 60)
+    t0 = time.perf_counter()
+    with _FrManagers() as mk:
+        out = resumed.fit(x, y, epochs=1, batch_size=FR_B, verbose=False,
+                          checkpoint_dir=str(work / "fit"), keep_last=1)
+    resume_s = time.perf_counter() - t0
+    zero_counts()
+    whole, _ = _fr_cat(SEED, stage="auto")
+    with PlainCalls() as plain:
+        t1 = time.perf_counter()
+        whole.fit(x, y, epochs=1, batch_size=FR_B, verbose=False)
+        fit_s = time.perf_counter() - t1
+    counts = {k: v for k, v in read_counts().items() if v}
+    a, b = _fr_pieces(resumed), _fr_pieces(whole)
+    run = {"samples": out["num_samples"], "steps": resumed._step,
+           "bitwise": {k: bool(torch.equal(v, b[k])) for k, v in a.items()},
+           "resume_s": resume_s, "restore_s": mk.restores,
+           "final_save": mk.made[-1].last_save, "counts": counts,
+           "plain": plain.calls,
+           "samples_s": FR_FIT_STEPS * FR_B / fit_s,
+           "split": {op.name: op._split.kind for op in whole.ops
+                     if getattr(op, "_split", None) is not None}}
+    check(out["num_samples"] == half * FR_B, f"(b) resumed "
+          f"{out['num_samples']} samples")
+    del resumed, whole, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def _fr_kaggle_model(policy="none", momentum=0.0, **cfg):
+    from dlrm_flexflow_tpu_torch.models.dlrm import dlrm_strategy
+    from dlrm_flexflow_tpu_torch.parallel.mesh import make_mesh
+    dcfg = DLRMConfig.criteo_kaggle()
+    m = FFModel(FFConfig(batch_size=FR_KAGGLE_B, seed=SEED,
+                         device="cuda:0", anomaly_policy=policy,
+                         stage_dataset="never", **cfg))
+    build_dlrm(m, dcfg)
+    mesh = make_mesh()
+    m.compile(SGDOptimizer(lr=LR, momentum=momentum), "mean_squared_error",
+              ["mse"], mesh=mesh,
+              strategies=dlrm_strategy(m, dcfg, mesh.size))
+    m.init_layers()
+    return m, dcfg
+
+
+def _fr_sentinel(work, rank):
+    """(c): skip_step and rollback fits with rank 1's share poisoned at
+    FR_POISON, the flags each step, the launches; the no-anomaly
+    skip_step fit and a rollback fit against the fit without the
+    sentinel, bitwise."""
+    from dlrm_flexflow_tpu_torch.utils import faults
+    dcfg = DLRMConfig.criteo_kaggle()
+    x, y = synthetic_batch(dcfg, FR_SENT_STEPS * FR_KAGGLE_B, seed=SEED + 61)
+    kw = dict(epochs=1, batch_size=FR_KAGGLE_B, verbose=False)
+    out = {}
+
+    def poisoned(on):
+        plan = (faults.FaultPlan(nan_grad_steps={FR_POISON})
+                if on and rank == 1 else None)
+        return faults.active_plan(plan)
+
+    def flags_of(m):
+        """(each finished step's anomaly flag, the steps begun)."""
+        got, begun, real = [], [], m.train_batch_staged
+
+        def rec(staged, **k):
+            begun.append(m._step)
+            mets = real(staged, **k)
+            got.append(bool(mets["anomaly"]))
+            return mets
+
+        m.train_batch_staged = rec
+        return got, begun
+
+    ref, _ = _fr_kaggle_model()
+    ref.fit(x, y, **kw)
+    want = _fr_pieces(ref)
+    runs = (("skip_step", True, None), ("skip_step", False, None),
+            ("rollback", True, str(work / "rollback")))
+    for policy, poison, ckdir in runs:
+        m, _ = _fr_kaggle_model(policy)
+        flags, begun = flags_of(m)
+        zero_counts()
+        with PlainCalls() as plain, poisoned(poison):
+            r = m.fit(x, y, checkpoint_dir=ckdir,
+                      save_every=4 if ckdir else None, keep_last=1, **kw)
+        counts = read_counts()
+        got = _fr_pieces(m)
+        key = f"{policy}/{'poisoned' if poison else 'clean'}"
+        out[key] = {
+            "flags": flags, "begun": begun, "rollbacks": r["rollbacks"],
+            "steps": m._step, "counts": {k: v for k, v in counts.items()
+                                         if v},
+            "sumsq": counts["grad_sumsq"], "plain": plain.calls,
+            "bitwise": all(torch.equal(v, want[k]) for k, v in got.items())}
+        del m, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    del ref, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fr_host(work, rank):
+    """(d): the Kaggle launcher with --host-tables, exact, from the file
+    (its host split traced), the ranks' copies' CRC-32; then
+    FR_HOST_STEPS momentum steps with the tables on the host against the
+    same steps with them on the card, from the same tables."""
+    from dlrm_flexflow_tpu_torch.obs import trace as obst
+    from dlrm_flexflow_tpu_torch.utils.weights import params_from_jax
+    obst.clear()
+    with obst.override(True, capacity=65536):
+        run, model = _fr_launcher(_fr_kaggle_flags(
+            work, "--host-tables", "--no-host-tables-async",
+            "--no-prefetch"))
+        steps = run["steps"] + 1
+        run["split_ms"] = {k: span_ms(f"host/{k}", steps) for k in
+                           ("gather", "h2d", "readback", "scatter")}
+    obst.clear()
+    run["host"] = [op.name for op in model._host_resident_list]
+    run["crc"] = _fr_crc(model.host_params["emb_concat"]["kernel"])
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    hm, dcfg = _fr_kaggle_model(momentum=0.9, host_resident_tables=True,
+                                host_tables_async=False)
+    dm, _ = _fr_kaggle_model(momentum=0.9)
+    table = hm.host_params["emb_concat"]["kernel"]
+    dm.swap_params(params_from_jax(dm, {
+        **{o: {p: v.cpu().numpy() for p, v in d.items()}
+           for o, d in hm.params.items()},
+        "emb_concat": {"kernel": table}}))
+    for s in range(FR_HOST_STEPS):
+        bx, by = synthetic_batch(dcfg, FR_KAGGLE_B, seed=SEED + 70 + s)
+        bx["label"] = by
+        hm.train_batch(bx)
+        dm.train_batch(bx)
+    with dm._as_one_card() as whole:
+        dev_table = whole["emb_concat"]["kernel"].cpu().numpy()
+    run["momentum_table_bitwise"] = bool(np.array_equal(
+        hm.host_params["emb_concat"]["kernel"], dev_table))
+    run["momentum_mlp_bitwise"] = all(
+        torch.equal(v, dm.params[o][p]) for o, d in hm.params.items()
+        for p, v in d.items())
+    del hm, dm, dev_table
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def _fr_stream(work, rank):
+    """(e): fit_stream of "cat" row-sharded (the dense exchange), a
+    DeltaPublisher into work/loop: each publish's gathered state's CRC-32
+    per array (rank 0), the publish seconds."""
+    from dlrm_flexflow_tpu_torch.data.stream import ArrayStream
+    from dlrm_flexflow_tpu_torch.utils.delta import DeltaPublisher
+    m, cfg = _fr_cat(SEED + 3, row_shard=True)
+    steps = FR_EVERY * FR_PUBLISHES
+    x, y = synthetic_batch(cfg, steps * FR_B, seed=SEED + 62)
+    pub = DeltaPublisher(m, str(work / "loop"), keep_last=2,
+                         full_every=FR_FULL_EVERY, compact_frac=100.0)
+    digests, pubs, times = {}, [], {}
+
+    def cb(model, trained, mets):
+        if trained % FR_EVERY == 0:
+            times[trained] = time.time()
+            pubs.append(dict(pub.last_publish))
+            if pub._writer:
+                digests[trained] = {k: _fr_crc(v)
+                                    for k, v in pub._last_flat.items()}
+
+    zero_counts()
+    with PlainCalls() as plain:
+        r = m.fit_stream(ArrayStream(x, y, FR_B, seed=SEED),
+                         steps=steps, publisher=pub,
+                         publish_every=FR_EVERY, verbose=False,
+                         callbacks=[cb])
+    out = {"steps": r["steps"], "publishes": r["publishes"],
+           "digests": {str(k): v for k, v in digests.items()},
+           "times": {str(k): v for k, v in times.items()},
+           "pubs": pubs, "plain": plain.calls,
+           "counts": {k: v for k, v in read_counts().items() if v},
+           "row_plan": [op.name for op in m.ops
+                        if getattr(op, "_row_plan", None) is not None]}
+    del m, pub
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def fitranks_rank_child(rank, world, store, part):
+    """``chip_smoke.py --fitranks-rank`` / ``--fitranks-resume-rank RANK
+    WORLD STORE``: one rank of phase 18, joined to the gloo group through
+    the file store. The first ranks: (a) the Kaggle launcher from the
+    file through the ring and without it, (b) the fit stopped after its
+    snapshot, (d) host tables; the fresh ranks: (b) resumed, (c) the
+    sentinel, (e) the online loop. Prints ``FR_RESULT {json}``."""
+    from dlrm_flexflow_tpu_torch.parallel import distributed
+    distributed.initialize_distributed(
+        init_method=f"file://{store}", num_processes=world,
+        process_id=rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    work = Path(store).parent.parent       # the phase's directory
+    result = {"rank": rank, "backend": torch.distributed.get_backend(),
+              "runs": {}}
+    runs = result["runs"]
+    t0 = time.perf_counter()
+    if part == 1:
+        runs["a"] = {}
+        for label, extra in (("ring", ["--prefetch-depth", "2"]),
+                             ("no prefetch", ["--no-prefetch"])):
+            runs["a"][label], model = _fr_launcher(
+                _fr_kaggle_flags(work, *extra))
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+        runs["b"] = _fr_fit_stop(work)
+        runs["d"] = _fr_host(work, rank)
+    else:
+        runs["b"] = _fr_fit_resume(work)
+        runs["c"] = _fr_sentinel(work, rank)
+        runs["e"] = _fr_stream(work, rank)
+    result["seconds"] = time.perf_counter() - t0
+    print("FR_RESULT " + json.dumps(result), flush=True)
+    torch.distributed.destroy_process_group()
+
+
+def fitranks_sumsq(dev):
+    """grad_sumsq across ranks at the "cat" step's shapes: the first
+    launch over a rank's own gradients (its rows' cotangent, FR_B / 2 x
+    T x D) into a slot, the second over the replicated MLP gradients
+    with the slot as its addend: bitwise the second list's own sum plus
+    the slot in fp32 and its root, within rtol 1e-5 of the plain version
+    over both lists; one launch alone bitwise as before (a rerun)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    model, _ = train_model("cat", "cuda")
+    sparse = {op.name for op in model._select_sparse_update_ops()}
+    rep = [torch.randn(tuple(d.shape), device=dev, generator=gen)
+           for op in model.ops if op.name not in sparse
+           for d in op.param_defs().values()]
+    own = [torch.randn((FR_B // FR_WORLD, T, D), device=dev, generator=gen)]
+    del model
+    loss = torch.tensor(0.25, device=dev)
+    before = dense_mod.grad_sumsq.launches
+    slot = torch.zeros(2, device=dev)
+    with PlainCalls() as plain:
+        dense_mod.grad_sumsq(own, loss, out=slot[0:1])
+        gsq, norm, ok = dense_mod.grad_sumsq(rep, slot[1], addend=slot[0:1])
+        alone = dense_mod.grad_sumsq(rep, loss)
+        again = dense_mod.grad_sumsq(rep, loss)
+    check(plain.calls == 0 and dense_mod.grad_sumsq.launches - before == 4,
+          f"grad_sumsq across ranks: {plain.calls} plain calls, "
+          f"{dense_mod.grad_sumsq.launches - before} launches (4 wanted)")
+    check(dense_mod.grad_sumsq.routes["own"] >= 1
+          and dense_mod.grad_sumsq.routes["replicated"] >= 1,
+          f"grad_sumsq across ranks: routes {dense_mod.grad_sumsq.routes}")
+    want = (alone[0] + slot[0]).view(())
+    check(torch.equal(gsq, want) and torch.equal(norm, torch.sqrt(want))
+          and int(ok) == 1,
+          f"grad_sumsq across ranks: {float(gsq)!r}, {float(norm)!r} "
+          f"against the second list's own sum plus the slot "
+          f"{float(want)!r}")
+    check(all(torch.equal(a, b) for a, b in zip(alone, again)),
+          "grad_sumsq: one launch alone is not bitwise a rerun")
+    pslot = torch.zeros(2, device=dev)
+    dense_mod.grad_sumsq_reference(own, loss, out=pslot[0:1])
+    pgsq, pnorm, _ = dense_mod.grad_sumsq_reference(rep, pslot[1],
+                                                    addend=pslot[0:1])
+    err = abs(float(norm) - float(pnorm))
+    check(abs(float(gsq) - float(pgsq)) <= 1e-5 * float(pgsq)
+          and err <= 1e-5 * float(pnorm),
+          f"grad_sumsq across ranks: {float(gsq)}, {float(norm)} against "
+          f"the plain {float(pgsq)}, {float(pnorm)}")
+    nan = own[0].clone()
+    nan.view(-1)[7] = float("nan")
+    dense_mod.grad_sumsq([nan], loss, out=slot[0:1])
+    check(int(dense_mod.grad_sumsq(rep, slot[1], addend=slot[0:1])[2]) == 0,
+          "grad_sumsq across ranks: a NaN in the first launch's list "
+          "passes the second's flag")
+    print(f"grad_sumsq across ranks (\"cat\" at global batch {FR_B}, "
+          f"{FR_WORLD} ranks): two launches bitwise the second list's sum "
+          f"plus the first's slot, norm {float(norm):.6g}, within "
+          f"{err:.3g} of the plain version; one launch alone bitwise a "
+          f"rerun; a NaN in the first list clears the flag")
+    del rep, own, nan
+    torch.cuda.empty_cache()
+
+
+def _fr_follow(work, stop, seen):
+    """(e)'s engine: a one-card "cat" model (the strategy as the trainer's,
+    whole on one card) behind an engine with reshard=True, its watcher
+    polling work/loop until ``stop``; each install's (version, wall time,
+    CRC-32 of each served array) into ``seen``, and the rejects of an
+    engine without reshard."""
+    from dlrm_flexflow_tpu_torch.models.dlrm import dlrm_strategy
+    from dlrm_flexflow_tpu_torch.parallel.mesh import make_mesh
+    from dlrm_flexflow_tpu_torch.serve.watcher import SnapshotWatcher
+    from dlrm_flexflow_tpu_torch.utils.weights import params_to_jax
+    cfg = train_config("cat")
+
+    def engine(reshard):
+        m = FFModel(FFConfig(batch_size=FR_B, seed=SEED, device="cuda:0"))
+        build_dlrm(m, cfg)
+        mesh = make_mesh(devices=[0])
+        m.compile(SGDOptimizer(lr=LR), "mean_squared_error", ["mse"],
+                  mesh=mesh, strategies=dlrm_strategy(m, cfg, 1,
+                                                      row_shard=True))
+        m.init_layers()
+        return InferenceEngine(m, ServeConfig(max_batch=8, warmup=False,
+                                              reshard=reshard))
+
+    eng = engine(True)
+    w = SnapshotWatcher(eng, str(work / "loop"), elastic=True)
+    plain_w = None
+    while not stop.is_set():
+        if not (work / "loop" / "manifest.json").exists():
+            time.sleep(0.05)
+            continue
+        if plain_w is None:
+            plain_eng = engine(False)
+            plain_w = SnapshotWatcher(plain_eng, str(work / "loop"))
+            plain_w.poll_once()
+            seen["plain_reject"] = plain_w.stats()["last_reload_error"]
+            seen["plain_version"] = plain_eng.version
+            del plain_eng
+            torch.cuda.empty_cache()
+        if w.poll_once():
+            t = time.time()
+            flat = params_to_jax(eng.model, eng.model.params)
+            seen["installs"].append(
+                (eng.version, t, {f"params/{o}/{p}": _fr_crc(v)
+                                  for o, d in flat.items()
+                                  for p, v in d.items()}))
+        else:
+            time.sleep(0.05)
+    seen["watcher"] = w.stats()
+
+
+def fitranks_phase(dev):
+    """Phase 18: grad_sumsq's across-ranks form, then FR_WORLD
+    ``--fitranks-rank`` children (the launcher, the stopped fit, host
+    tables), world 1's launcher on the same file, and FR_WORLD
+    ``--fitranks-resume-rank`` children (the resumed fit, the sentinel,
+    the online loop, followed by an engine in this process). Returns the
+    children's launch counts, summed."""
+    from dlrm_flexflow_tpu_torch.data.dataloader import write_ffbin
+    t0 = time.perf_counter()
+    fitranks_sumsq(dev)
+    work = WORK_DIR / "fitranks"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    counts = {}
+    try:
+        free = shutil.disk_usage(work).free
+        check(free >= 16e9, f"fitranks: {free / 1e9:.1f} GB free under "
+              f"{work}, the phase's snapshots need 16 GB")
+        dcfg = DLRMConfig.criteo_kaggle()
+        x, y = synthetic_batch(dcfg, FR_KAGGLE_BATCHES * FR_KAGGLE_B,
+                               seed=SEED + 63)
+        write_ffbin(str(work / "kaggle.ffbin"), x["dense"], x["sparse"], y)
+        del x, y
+        outs1 = run_rank_children("--fitranks-rank", "FR_RESULT",
+                                  work / "first", timeout=400,
+                                  world=FR_WORLD)
+        one = {}
+        for label, extra in (("device", ()), ("host", (
+                "--host-tables", "--no-host-tables-async"))):
+            one[label], model = _fr_launcher(["-ll:gpu", "1"]
+                                             + _fr_kaggle_flags(
+                                                 work, "--no-prefetch",
+                                                 *extra)[2:])
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+        stop, seen = threading.Event(), {"installs": []}
+        follower = threading.Thread(target=_fr_follow,
+                                    args=(work, stop, seen), daemon=True)
+        follower.start()
+        try:
+            outs2 = run_rank_children("--fitranks-resume-rank", "FR_RESULT",
+                                      work / "fresh", timeout=500,
+                                      world=FR_WORLD)
+            deadline = time.time() + 60
+            while (not seen["installs"] or seen["installs"][-1][0]
+                   < FR_EVERY * FR_PUBLISHES) and time.time() < deadline:
+                time.sleep(0.1)
+        finally:
+            stop.set()
+            follower.join(120)
+        counts = _fr_held(outs1, outs2, one, seen, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"training across ranks as fit runs it phase: "
+          f"{time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def _fr_held(outs1, outs2, one, seen, work):
+    """Phase 18's checks and report; returns the children's launch
+    counts, summed."""
+    counts = {}
+    one, one_host = one["device"], one["host"]
+
+    def add(c):
+        add_counts(counts, c)
+
+    for outs in (outs1, outs2):
+        for out in outs:
+            check(out["backend"] == "gloo", f"fitranks: backend "
+                  f"{out['backend']}")
+    # (a) the launcher from the file
+    for label in ("ring", "no prefetch"):
+        runs = [o["runs"]["a"][label] for o in outs1]
+        for r in runs:
+            steps = r["steps"] + 1              # the warm-up step
+            c = r["counts"]
+            check(r["steps"] == FR_KAGGLE_BATCHES and r["plain"] == 0
+                  and c.get("dense_update") == steps
+                  and c.get("embedding_bag", 0) >= steps
+                  and c.get("sharded_scatter_add_rows", 0) >= steps,
+                  f"(a) {label}: {r['steps']} steps, {r['plain']} plain "
+                  f"calls, launches {c}")
+            check(abs(r["mse"] - one["mse"]) <= DIST_LOSS_RTOL
+                  * abs(one["mse"]),
+                  f"(a) {label}: mse {r['mse']!r} against world 1's "
+                  f"{one['mse']!r}")
+            add(c)
+        print(f"fit across ranks (a) the Kaggle launcher at -ll:gpu "
+              f"{FR_WORLD} -b {FR_KAGGLE_B} from an .ffbin, {label}: "
+              f"{runs[0]['steps']} steps, "
+              f"{[round(r['throughput'], 1) for r in runs]} samples/s (rank "
+              f"0, 1), mse {runs[0]['mse']!r} against world 1's "
+              f"{one['mse']!r} ({one['throughput']:.1f} samples/s); "
+              f"launches a rank {runs[0]['counts']}")
+    # (b) the stopped fit, resumed by fresh ranks
+    b1 = [o["runs"]["b"] for o in outs1]
+    b2 = [o["runs"]["b"] for o in outs2]
+    check(all(r["stopped"] for r in b1), "(b) the fit did not stop")
+    for r in b2:
+        bad = [k for k, ok in r["bitwise"].items() if not ok]
+        check(r["steps"] == FR_FIT_STEPS and not bad and r["plain"] == 0,
+              f"(b) resumed to step {r['steps']}, not bitwise at {bad}, "
+              f"{r['plain']} plain calls")
+        c = r["counts"]
+        check(c.get("dense_update") == FR_FIT_STEPS
+              and c.get("stateful_update_rows", 0) >= FR_FIT_STEPS,
+              f"(b) the uninterrupted fit's launches {c}")
+        add(c)
+    save = b1[0]["save"]
+    fin = b2[0]["final_save"]
+    gb = save["bytes"] / 1e9
+    print(f"fit across ranks (b) \"cat\" split by table ({b2[0]['split']}),"
+          f" momentum: stopped as step {FR_FIT_STEPS // 2 + 1} began, "
+          f"resumed by fresh ranks to step {FR_FIT_STEPS}: every piece and "
+          f"slab bitwise the uninterrupted fit on both ranks; snapshot "
+          f"{save['bytes']:,} bytes (rank 0's file), the gather to rank 0 "
+          f"with the copies {save['gather_s']:.2f} s "
+          f"({gb / save['gather_s']:.2f} GB/s), the write "
+          f"{save['file_write_s']:.2f} s ({gb / save['file_write_s']:.2f} "
+          f"GB/s, fsync included; the manifest and checksum: "
+          f"{save['write_s']:.2f} s in all); restore (the CRC-32 on rank 0"
+          f", every rank reading the file) {b2[0]['restore_s']} s on rank "
+          f"0, {b2[1]['restore_s']} on rank 1; the final snapshot "
+          f"{fin.get('gather_s', 0.0):.2f} s to gather, "
+          f"{fin.get('file_write_s', 0.0):.2f} s to write; the staged fit "
+          f"{b2[0]['samples_s']:.1f} samples/s")
+    # (c) the sentinel
+    c_runs = [o["runs"]["c"] for o in outs2]
+    want = [i == FR_POISON for i in range(FR_SENT_STEPS)]
+    for r in c_runs:
+        sp, sc, rb = (r["skip_step/poisoned"], r["skip_step/clean"],
+                      r["rollback/poisoned"])
+        check(sp["flags"] == want and sc["flags"] == [False] * FR_SENT_STEPS,
+              f"(c) skip_step flags {sp['flags']}, clean {sc['flags']}")
+        check(sc["bitwise"], "(c) skip_step with no anomaly is not bitwise "
+              "the fit without the sentinel")
+        check(rb["rollbacks"] == 1 and rb["steps"] == FR_SENT_STEPS
+              and rb["bitwise"],
+              f"(c) rollback: {rb['rollbacks']} rollbacks to step "
+              f"{rb['steps']}, bitwise the clean fit: {rb['bitwise']}")
+        for k in ("skip_step/poisoned", "skip_step/clean",
+                  "rollback/poisoned"):
+            v = r[k]
+            n = len(v["begun"])
+            check(v["sumsq"] == 2 * n and v["plain"] == 0
+                  and v["counts"].get("grad_sumsq:own") == n
+                  and v["counts"].get("grad_sumsq:replicated") == n,
+                  f"(c) {k}: {v['sumsq']} grad_sumsq launches for {n} "
+                  f"steps ({v['counts']}), {v['plain']} plain calls")
+            add(v["counts"])
+    check(c_runs[0]["rollback/poisoned"]["begun"]
+          == c_runs[1]["rollback/poisoned"]["begun"],
+          "(c) the ranks rolled back at different steps")
+    print(f"fit across ranks (c) the sentinel, Kaggle, rank 1's share "
+          f"poisoned at step {FR_POISON}: skip_step skipped it on both "
+          f"ranks, rollback rolled back once on both (steps begun "
+          f"{c_runs[0]['rollback/poisoned']['begun']}) and ended bitwise "
+          f"the fit without the sentinel, as did skip_step with no "
+          f"anomaly; 2 grad_sumsq launches a step, no plain version")
+    # (d) host tables
+    d_runs = [o["runs"]["d"] for o in outs1]
+    for r in d_runs:
+        check(r["steps"] == FR_KAGGLE_BATCHES and r["plain"] == 0
+              and r["host"] == ["emb_concat"],
+              f"(d) {r['steps']} steps, {r['plain']} plain calls, host "
+              f"tables {r['host']}")
+        check(abs(r["mse"] - one_host["mse"]) <= DIST_LOSS_RTOL
+              * abs(one_host["mse"]),
+              f"(d) mse {r['mse']!r} against world 1's host tables' "
+              f"{one_host['mse']!r}")
+        check(r["momentum_table_bitwise"] and r["momentum_mlp_bitwise"],
+              "(d) host tables under momentum are not bitwise the device "
+              "tables' run")
+        add(r["counts"])
+    check(d_runs[0]["crc"] == d_runs[1]["crc"],
+          "(d) the ranks' copies of the host table differ")
+    sm = d_runs[0]["split_ms"]
+    print(f"fit across ranks (d) the Kaggle launcher with --host-tables "
+          f"(exact) at {FR_WORLD} ranks: {d_runs[0]['steps']} steps, "
+          f"{[round(r['throughput'], 1) for r in d_runs]} samples/s, mse "
+          f"{d_runs[0]['mse']!r} against world 1's host tables' "
+          f"{one_host['mse']!r} ({one_host['throughput']:.1f} samples/s); "
+          f"the ranks' copies bitwise equal (CRC-32 {d_runs[0]['crc']}); a "
+          f"step on rank 0: gather {sm['gather']:.2f} ms, copy "
+          f"{sm['h2d']:.2f}, readback and all-gather {sm['readback']:.2f}, "
+          f"scatter {sm['scatter']:.2f}; {FR_HOST_STEPS} momentum steps: "
+          f"the host table and the MLPs bitwise the device tables' run")
+    # (e) the online loop and the engine
+    e_runs = [o["runs"]["e"] for o in outs2]
+    for r in e_runs:
+        check(r["steps"] == FR_EVERY * FR_PUBLISHES
+              and r["publishes"] == FR_PUBLISHES and r["plain"] == 0
+              and r["row_plan"] == ["emb_stack"],
+              f"(e) {r['steps']} steps, {r['publishes']} publishes, "
+              f"{r['plain']} plain calls, row plans {r['row_plan']}")
+        add(r["counts"])
+    digests = e_runs[0]["digests"]
+    installs = seen["installs"]
+    check(len(installs) >= 2 and installs[-1][0] == FR_EVERY * FR_PUBLISHES,
+          f"(e) the engine installed {[v for v, _, _ in installs]}")
+    fresh = []
+    for v, t, crc in installs:
+        d = digests.get(str(v))
+        check(d is not None and all(d[k] == c for k, c in crc.items()),
+              f"(e) the engine at version {v} does not serve the "
+              f"trainer's gathered parameters")
+        fresh.append(t - e_runs[0]["times"][str(v)])
+    check("2-device mesh" in seen.get("plain_reject", ""),
+          f"(e) an engine without reshard: {seen.get('plain_reject')!r}")
+    kinds = [p.get("kind") for p in e_runs[0]["pubs"]]
+    print(f"fit across ranks (e) fit_stream, \"cat\" row-sharded at "
+          f"{FR_WORLD} ranks, publishes {kinds} every {FR_EVERY} steps; a "
+          f"one-card engine (reshard=True) installed versions "
+          f"{[v for v, _, _ in installs]}, each bitwise the trainer's "
+          f"gathered parameters (CRC-32 per array); freshness p50 "
+          f"{float(np.median(fresh)):.2f} s (max {max(fresh):.2f}); the "
+          f"publishes' seconds {[round(p.get('total_s', 0), 2) for p in e_runs[0]['pubs']]}"
+          f"; without reshard the full snapshot is rejected: "
+          f"{seen['plain_reject'][:80]!r}")
+    secs = [o["seconds"] for o in outs1 + outs2]
+    print(f"fit across ranks: the children's seconds {secs}")
+    return counts
+
+
+# ---------------------------------------------------------------------
 # phase 14: quantized tables trained, published and served, the row
 # fake-quant kernel, and the two-tower train head
 # ---------------------------------------------------------------------
@@ -8986,6 +9739,12 @@ def main() -> int:
         # one rank of phase 17, a child of this script
         splitopt_rank_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
         return 0
+    if sys.argv[1:2] in (["--fitranks-rank"], ["--fitranks-resume-rank"]) \
+            and torch.cuda.is_available():
+        # one rank of phase 18 (first or fresh ranks), a child
+        fitranks_rank_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                            1 if sys.argv[1] == "--fitranks-rank" else 2)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -9058,6 +9817,13 @@ def main() -> int:
         print(json.dumps({"launches": {k: v for k, v in counts.items()
                                        if v}, "splitopt_kernels": rows}))
         return 0
+    if sys.argv[1:] == ["--fitranks"]:
+        # only phase 18, its kernels built first (the ranks load them)
+        build.build_all()
+        counts = fitranks_phase(dev)
+        print(json.dumps({"launches": {k: v for k, v in counts.items()
+                                       if v}}))
+        return 0
     if sys.argv[1:] == ["--scatter"]:
         # only the touched-rows scatters and their pre-pass at the paths'
         # shapes: kernels 2 and 3 (n = 2,048 and Criteo-Kaggle's 6,656),
@@ -9122,6 +9888,7 @@ def main() -> int:
     add(counts)
     so_rows, counts = splitopt_phase(dev)
     add(counts)
+    add(fitranks_phase(dev))
     for run in runs:
         add(train_report(run))
     del runs
@@ -9145,6 +9912,9 @@ def main() -> int:
         check(r["launches"] > 0 or name in OFF_PATH | OFF_SHAPE,
               f"{name} never launched on the main path")
 
+    print("grad_sumsq launches on the main paths by route: " + json.dumps(
+        {k: launches.get(f"grad_sumsq:{k}", 0)
+         for k in dense_mod.grad_sumsq.routes}))
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

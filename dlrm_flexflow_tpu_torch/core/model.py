@@ -22,8 +22,10 @@ CUDA device the embedding, interaction and LSTM ops launch their
 hand-written kernels; on the CPU they run the kernels' plain versions.
 ``compile`` resolves the JAX package's placement on a mesh over ranks
 (``parallel/``); on a mesh of several ranks, one process each, each
-rank trains on its rows of the global batch, the stacked tables split
-by table over the ranks (``parallel.split.OpSplit`` of kind "table").
+rank trains on its rows of the global batch, each op split as its
+placement says (``parallel.split``, ``parallel.alltoall``), and ``fit``,
+``fit_stream``, the checkpoints, the sentinel and host-resident tables
+run across the ranks as on one card.
 
 The training step mirrors the JAX ``train_step`` (core/model.py:996-1159
 there). The embedding ops that support it take the touched-rows update:
@@ -51,6 +53,12 @@ and Adam's step advances by it. The JAX step keeps the pre-step values
 with ``jnp.where``; updating in place, the port keeps them by not
 writing. "raise" and "rollback" read the flag back at the step's end
 (one host sync) and raise ``AnomalyError``; "skip_step" never syncs.
+Across ranks the norm takes two launches: the first over what each rank
+holds of its own (its rows' cotangents, its pieces of split parameters)
+into a slot of the one buffer the dense gradients are all-reduced in,
+beside the rank's share of the loss; the second over the all-reduced
+gradients, adding the all-reduced slot, with the global loss: one flag,
+the same on every rank, and no collective more a step.
 
 Host-resident tables (``config.host_resident_tables``, ``--host-tables``;
 the JAX step's core/model.py:1893-2130 there): the embedding ops with a
@@ -62,7 +70,10 @@ phase A's lookups do), and brings their cotangents back for the host's
 touched-rows update, guarded by the sentinel's flag: inline, or on the
 ``ff-scatter`` worker thread (``host_tables_async``), which gathers the
 next step's rows first when the caller passes them (bounded one-step
-staleness) and whose error surfaces at the next ``_host_drain``.
+staleness) and whose error surfaces at the next ``_host_drain``. Across
+ranks every rank keeps the tables whole, gathers its own rows, and
+applies the global batch's update from the ranks' ids and cotangents,
+all-gathered on the main thread.
 
 Quantized tables (``quant/``; the JAX step's core/model.py:1219-1290
 there): ``compile`` resolves each table op's storage policy (a strategy
@@ -596,9 +607,9 @@ class FFModel:
         its output's channel dim, a ``Linear`` split by channel the same
         way (``parallel.split``), and every other table replicated (also
         where ``configure_row_shard`` refused a request, after its
-        warning). What the port does not run across ranks yet raises
-        ``NotImplementedError`` then, naming its ROADMAP queue 1 item:
-        host-resident tables and the anomaly sentinel (7.4)."""
+        warning). Host-resident tables stay whole on every rank's host
+        (each rank gathers its rows; every rank applies the global
+        batch's update, ``_host_update_after_step``)."""
         from ..ops.embedding import configure_row_shard
         from ..parallel.pconfig import ParallelConfig
         from ..parallel.sharding import AxisAssigner
@@ -633,7 +644,7 @@ class FFModel:
             self._dist()
 
     def _check_across_ranks(self):
-        """Raise for what a step across the mesh's ranks cannot run yet
+        """Raise for a batch that does not divide over the mesh's ranks
         (see ``_build_placement``); else how each op splits, {op name:
         (kind, mesh axes)}: "table" (stacked tables split by table),
         "rows" (the concatenated table's row blocks), "width", "channel"
@@ -645,22 +656,17 @@ class FFModel:
         from ..parallel.sharding import AxisAssigner
         asn = AxisAssigner(self.mesh)
         world = self.mesh.size
-        if self._host_resident_list:
-            raise NotImplementedError(
-                f"host-resident tables across {world} ranks are not "
-                f"ported yet (ROADMAP queue 1 item 7.4)")
         batch = self.input_tensors[0].shape[0] if self.input_tensors else 0
         if batch % world:
             raise ValueError(f"the global batch {batch} does not divide "
                              f"over {world} ranks")
-        if self.config.anomaly_policy != "none":
-            raise NotImplementedError(
-                f"the anomaly sentinel across ranks is not ported yet "
-                f"(ROADMAP queue 1 item 7.4)")
+        hres = {op.name for op in self._host_resident_list}
         plan = {}
         for op in self.ops:
             if getattr(op, "_row_plan", None) is not None:
                 continue                  # row-sharded: parallel/alltoall
+            if op.name in hres:
+                continue                  # whole on every rank's host
             axes = self._out_axes.get(op.name)
             if isinstance(op, Linear):
                 if asn.degree(axes[-1]) > 1:
@@ -1068,11 +1074,19 @@ class FFModel:
             out[k] = v.to(device=dev, dtype=dt)
         return out
 
-    def _stage_step(self, batch: Dict[str, Any]) -> StagedBatch:
+    def _stage_step(self, batch: Dict[str, Any], local: bool = False
+                    ) -> StagedBatch:
         """Stage a host batch for one training step from a staging
         thread (the prefetch ring's ``produce``): on the card through
         pinned memory, a non-blocking copy on this model's side stream
-        and an event; ``train_batch_staged`` orders the step after it."""
+        (each rank's own) and an event; ``train_batch_staged`` orders the
+        step after it. On a mesh of several ranks the batch is the global
+        one and this rank stages its rows of it (``host_local_slice``),
+        unless ``local`` says they are its rows already."""
+        if not local and self.mesh is not None and self.mesh.size > 1:
+            from ..parallel.distributed import host_local_slice
+            batch = host_local_slice(
+                {k: batch[k] for k in self._batch_dtypes(batch)})
         dts = self._batch_dtypes(batch)
         host = self._host_only_inputs
         staged = stage_batch({k: batch[k] for k in dts if k not in host},
@@ -1135,17 +1149,19 @@ class FFModel:
                              "swap_params()) first")
         rows = len(next(iter(batch.values())))
         coll = self._dist()
-        if coll is not None and rows % self.mesh.size:
-            # the JAX route: the op gathers its table
-            db = self._device_batch(batch, local=True)
-            with self._as_one_card() as params, torch.inference_mode():
-                env = self._forward_env(params, db)
-            return env[self._preds_tensor.guid]
-        db, host_idx = self._split_host_idx(self._device_batch(batch))
+        # the JAX route for a batch that does not divide over the ranks:
+        # every rank runs it whole, each op on its gathered table
+        whole = coll is not None and rows % self.mesh.size != 0
+        db, host_idx = self._split_host_idx(
+            self._device_batch(batch, local=whole))
         rows = None
         if host_idx is not None:
             self._host_drain()   # eval sees the last step's scatter
             rows = (host_gather or self._host_emb_forward)(host_idx)
+        if whole:
+            with self._as_one_card() as params, torch.inference_mode():
+                env = self._forward_env(params, db, overrides=rows)
+            return env[self._preds_tensor.guid]
         with torch.inference_mode():
             env = self._forward_env(self.params, db, overrides=rows)
         out = env[self._preds_tensor.guid]
@@ -1375,7 +1391,16 @@ class FFModel:
         it = iter(grads)
         gd = {name: {pn: next(it) for pn in p} for name, p in leaves.items()}
         gev = {name: next(it) for name in emb_vals}
+        dense = buf = None
         if coll is not None:
+            with torch.no_grad():
+                for op in split_dense:
+                    # the piece's gradient joins the dense update (never
+                    # all-reduced: ``_split_params``); built before the
+                    # all-reduce, whose buffer carries the sentinel's sum
+                    gd[op.name] = op.split_dense_grad(
+                        self.params[op.name], emb_xs[op.name],
+                        gev[op.name], fwd=emb_fwd[op.name])
             # the dense gradients summed over the ranks, in one buffer:
             # every rank gets the same bits, so its replicated weights
             # stay equal (a split parameter's gradient is already its
@@ -1385,25 +1410,23 @@ class FFModel:
             local = self._split_params()
             dense = [g for name, p in gd.items() if name not in local
                      for g in p.values()]
-            if dense:
-                buf = coll.all_reduce_sum_(
-                    torch.cat([g.reshape(-1) for g in dense]))
-                at = 0
-                for g in dense:
-                    g.copy_(buf[at:at + g.numel()].view_as(g))
-                    at += g.numel()
+            if dense or policy != "none":
+                buf = self._dense_all_reduce(
+                    coll, dense, loss.detach(),
+                    self._own_grads(gd, gev, local, split_dense)
+                    if policy != "none" else None)
 
         with torch.no_grad():
-            for op in split_dense:
-                # the piece's gradient joins the dense update (never
-                # all-reduced: ``_split_params``)
-                gd[op.name] = op.split_dense_grad(
-                    self.params[op.name], emb_xs[op.name], gev[op.name],
-                    fwd=emb_fwd[op.name])
             # the sentinel's flag exists before the first update reads it
             ok = gnorm = None
-            if policy != "none":
+            if policy != "none" and coll is None:
                 _, gnorm, ok = grad_sumsq(grads, loss.detach())
+            elif policy != "none":
+                # the replicated gradients, all-reduced, plus every rank's
+                # own, summed in the buffer's slot; the flag from the
+                # global loss: the same on every rank
+                _, gnorm, ok = grad_sumsq(dense, buf[-1],
+                                          addend=buf[-2:-1])
             self._updating = True
             # the state of the sparse tables is not part of the dense
             # update: split it out, update it touched-rows only, and merge
@@ -1487,11 +1510,57 @@ class FFModel:
                                    grad_norm=float(gnorm))
         return mets
 
-    def _refuse_across_ranks(self, what: str):
-        if self.mesh is not None and self.mesh.size > 1:
-            raise NotImplementedError(
-                f"{what} across {self.mesh.size} ranks is not ported yet "
-                f"(ROADMAP queue 1 item 7.4): train with train_batch")
+    def _dense_all_reduce(self, coll, dense, loss, own):
+        """Sum the replicated dense gradients ``dense`` over the ranks in
+        place, in one all-reduce of one buffer, which it returns. Under
+        the sentinel (``own``, this rank's own gradients, not None) the
+        buffer ends in two more elements: the first ``grad_sumsq``
+        launch's sum over ``own`` and this rank's share of the loss, so
+        that after the all-reduce its last two elements are the global
+        sum of the ranks' own squares and the global batch's loss."""
+        parts = [g.reshape(-1) for g in dense]
+        if own is not None:
+            parts.append(torch.zeros(2, dtype=torch.float32,
+                                     device=loss.device))
+        buf = torch.cat(parts)
+        if own is not None:
+            buf[-1:].copy_(loss.float().reshape(1))
+            grad_sumsq(own, loss, out=buf[-2:-1])
+        coll.all_reduce_sum_(buf)
+        at = 0
+        for g in dense:
+            g.copy_(buf[at:at + g.numel()].view_as(g))
+            at += g.numel()
+        return buf
+
+    def _own_grads(self, gd, gev, local, split_dense) -> List[torch.Tensor]:
+        """The gradients of the sentinel's norm that this rank holds of
+        its own, as the JAX step's ``grad_leaves`` count them over the
+        mesh: its rows' cotangents of every lookup and host table (each
+        rank's rows are its own), and its pieces of the split parameters
+        where it is the first rank holding the piece (the copies of a
+        block, or a parameter every rank holds whole, count once). A
+        table on a dense update counts its piece's gradient, not the
+        cotangent."""
+        from ..parallel.distributed import rank
+        from ..utils.weights import piece_layout
+        mesh = self.mesh
+        pos = mesh.ranks.index(rank())
+        dense_tables = {op.name for op in split_dense}
+        out = [g for name, g in gev.items() if name not in dense_tables]
+        ops = {op.name: op for op in self.ops}
+        for name in sorted(local & set(gd)):
+            for pn, g in gd[name].items():
+                lay = piece_layout(ops[name], pn)
+                if lay is None:
+                    first = pos == 0
+                else:
+                    blocks = [mesh.linear_index(r, lay[0])
+                              for r in mesh.ranks]
+                    first = blocks.index(blocks[pos]) == pos
+                if first:
+                    out.append(g)
+        return out
 
     def reset_metrics(self):
         """Start a new epoch's running metric sums."""
@@ -1515,8 +1584,16 @@ class FFModel:
     def _host_update_after_step(self, host_idx, cts, ok, next_host_idx):
         """The host update of the step just queued (see
         ``train_batch_device``); ``step`` is this step's number before it
-        counts, as Adam's bias correction reads it."""
+        counts, as Adam's bias correction reads it. Across ranks each
+        rank's ids and cotangents are its rows of the global batch; they
+        are all-gathered first, on this (the main) thread, and every rank
+        applies the global batch's update in its row order (world 1's
+        order of duplicates), so the ranks' copies of the tables stay
+        bitwise equal."""
         step = self._step
+        coll = self._dist()
+        if coll is not None:
+            host_idx, cts = self._host_global(coll, host_idx, cts)
         if not self.config.host_tables_async:
             # exact ordering: the readback is the step's completion
             if ok is None or bool(ok):
@@ -1551,6 +1628,18 @@ class FFModel:
         t = threading.Thread(target=scatter, daemon=True, name="ff-scatter")
         self._host_scatter_thread = t
         t.start()
+
+    def _host_global(self, coll, host_idx, cts):
+        """(the global batch's ids, its cotangents), host arrays a host
+        table, from every rank's rows (two all-gathers a table, in rank
+        order: the global batch's row order)."""
+        ids, out = {}, {}
+        with obstrace.span("host/readback", cat="host"):
+            for op in self._host_resident_list:
+                ids[op.name] = coll.all_gather_host(host_idx[op.name])
+                out[op.name] = coll.all_gather_host(
+                    cts[op.name].detach().float().cpu().numpy())
+        return ids, out
 
     def _host_drain(self, deadline_s: Optional[float] = None):
         """Join the in-flight host scatter, if any, and raise the error it
@@ -1631,7 +1720,9 @@ class FFModel:
         stateful = bool(opt.sparse_slab_names()) or (
             isinstance(opt, SGDOptimizer) and opt.weight_decay != 0.0)
         with obstrace.span("host/readback", cat="host"):
-            cts_np = {k: v.detach().float().cpu().numpy()
+            # (across ranks they are host arrays already: _host_global)
+            cts_np = {k: (v if isinstance(v, np.ndarray)
+                          else v.detach().float().cpu().numpy())
                       for k, v in cts.items()}
         with obstrace.span("host/scatter", cat="host"), \
                 self._host_table_lock:
@@ -1868,8 +1959,20 @@ class FFModel:
         step's ids, so the worker gathers them before its scatter, and
         the last scatter lands before ``fit`` returns. The fused
         supersteps are not ported yet (ROADMAP queue 1 item 6); the
-        config refuses them."""
-        self._refuse_across_ranks("fit (checkpoints, staging, data files)")
+        config refuses them.
+
+        Across ranks (a mesh of several ranks, as the JAX ``fit`` on a
+        mesh) every rank calls ``fit`` with the same global arrays and
+        trains on its rows of each global batch: the whole-dataset
+        staging and the ring stage each rank's own rows, the snapshots
+        gather every rank's pieces into rank 0's one file (the
+        ``CheckpointManager`` of ``utils/checkpoint.py``, made on every
+        rank), the resume position and a rollback's snapshot are chosen
+        on rank 0 and broadcast, the sentinel's flag is the same on every
+        rank (so every rank skips, raises or rolls back at the same
+        step), the metrics are the global batch's, and rank 0 alone
+        prints. A remainder batch, which no rank's share fits, is
+        dropped with a warning."""
         from ..data.prefetch import PrefetchPipeline
         from ..obs import configure as obs_configure
         from ..utils.checkpoint import CheckpointManager
@@ -1892,11 +1995,21 @@ class FFModel:
         if self.optimizer is not None and self.opt_state is None:
             # a snapshot (a rollback's seed among them) carries the state
             self.opt_state = self.optimizer.init_state(self.params)
+        coll = self._dist()
+        if coll is not None and rem_ok:
+            log_model.warning(
+                "dropping the remainder batch (%d samples): across %d "
+                "ranks each trains on its share of a global batch of %d "
+                "— pad the dataset or pick a batch size dividing %d",
+                rem, self.mesh.size, bs, n)
+            rem_ok = False
+        verbose = verbose and self._is_rank0()
 
         mgr = None
         start_epoch = start_batch = 0
         if checkpoint_dir:
-            mgr = CheckpointManager(checkpoint_dir, keep_last=keep_last)
+            mgr = CheckpointManager(checkpoint_dir, keep_last=keep_last,
+                                    model=self)
             if resume:
                 entry = mgr.restore_latest(self)
                 if entry is not None:
@@ -1914,7 +2027,8 @@ class FFModel:
                 return {"elapsed": 0.0, "throughput": 0.0,
                         "num_samples": 0, "rollbacks": 0,
                         "metrics": self.perf.report()}
-            if policy == "rollback" and mgr.latest_valid() is None:
+            if policy == "rollback" and mgr.latest_valid(
+                    model=self) is None:
                 # a rollback needs a target from the first step on
                 mgr.save(self, {"epoch": start_epoch, "batch": start_batch})
         elif policy == "rollback":
@@ -1941,8 +2055,13 @@ class FFModel:
             if not chain or j >= len(sched):
                 return None
             sl = rows_of(sched[j][1])
-            return {op.name: np.asarray(inputs[op.inputs[0].name][sl])
-                    for op in self._host_resident_list}
+            ids = {op.name: np.asarray(inputs[op.inputs[0].name][sl])
+                   for op in self._host_resident_list}
+            if coll is not None:
+                # each rank gathers its own rows
+                from ..parallel.distributed import host_local_slice
+                ids = host_local_slice(ids)
+            return ids
 
         # the whole dataset on the device once, when it fits
         staged = staged_rem = None
@@ -2091,6 +2210,12 @@ class FFModel:
             obstrace.export_to_dir()   # no-op without --obs-trace-dir
         return out
 
+    def _is_rank0(self) -> bool:
+        """Whether this process prints and writes for the model: always on
+        one rank, rank 0 only across ranks."""
+        from ..parallel.distributed import rank
+        return self._dist() is None or rank() == 0
+
     def fit_stream(self, source, steps: Optional[int] = None,
                    publisher=None, publish_every: Optional[int] = None,
                    verbose: bool = True, callbacks=None,
@@ -2124,8 +2249,14 @@ class FFModel:
         The anomaly policy "rollback" is refused (a stream has no epoch
         to rewind); "skip_step" and "raise" work as in any step. Returns
         {"steps", "elapsed", "throughput", "publishes", "publisher"} and,
-        with obs on, "drift"."""
-        self._refuse_across_ranks("fit_stream")
+        with obs on, "drift".
+
+        Across ranks every rank runs ``fit_stream`` over the same source
+        (each batch the global one) and stages its rows of each; the
+        publisher (made on every rank over the same directory) gathers
+        the pieces to rank 0, which writes, and a resume restores as
+        ``CheckpointManager.restore_latest`` does across ranks; rank 0
+        alone prints."""
         from ..data.prefetch import PrefetchPipeline
         from ..obs import configure as obs_configure
         if self.config.anomaly_policy == "rollback":
@@ -2141,6 +2272,7 @@ class FFModel:
                 "(--publish-every N)")
         if self.params is None:
             self.init_layers()
+        verbose = verbose and self._is_rank0()
         start = 0
         if resume and publisher is not None:
             entry = publisher.mgr.restore_latest(self)

@@ -61,6 +61,15 @@
 // the result does not depend on the grid: a rerun gives the same bits.
 // Bound: the gradients' bytes, read once (the "dot" step's 8M x 64
 // table gradient, 2.06 GB, 0.615 ms at 3.35 TB/s).
+//
+// Across ranks the norm takes two launches a step. The first runs over
+// what each rank holds of its own (its rows' cotangents, its pieces of
+// the split parameters) and writes only its sum, into a slot of the
+// buffer the dense gradients are all-reduced in; the second runs over
+// the all-reduced (replicated) gradients and adds the all-reduced slot
+// (`addend`) before the square root, so every rank computes the same
+// gsq, norm and flag. One rank alone passes no addend: one launch, the
+// same bits as before.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -215,14 +224,17 @@ __device__ __forceinline__ float tile_squares(const TensorDesc& d,
 
 // Each tile's sum of squares into partials[tile_base + tile]; with
 // `is_final`, the last block to finish adds partials[0, total) in a fixed
-// order and writes out[0] = gsq, out[1] = sqrt(gsq) and the int32
-// out_ok = isfinite(*loss) && isfinite(out[1]), then resets *counter.
+// order, adds *addend when it is given (another launch's sum, summed over
+// the ranks), and writes *out_gsq = gsq and, where given, *out_norm =
+// sqrt(gsq) and the int32 *out_ok = isfinite(*loss) && isfinite(norm),
+// then resets *counter.
 __global__ void __launch_bounds__(kThreads)
 grad_sumsq_kernel(const __grid_constant__ DenseArgs a,
                   float* __restrict__ partials, long long tile_base,
                   long long total, int is_final, unsigned* counter,
-                  const float* __restrict__ loss, float* __restrict__ out,
-                  int* __restrict__ out_ok) {
+                  const float* __restrict__ loss,
+                  const float* __restrict__ addend, float* out_gsq,
+                  float* __restrict__ out_norm, int* __restrict__ out_ok) {
   __shared__ float red[kThreads / 32];
   __shared__ bool last;
   int i = 0;
@@ -243,12 +255,13 @@ grad_sumsq_kernel(const __grid_constant__ DenseArgs a,
   float acc = 0.f;
   for (long long t = threadIdx.x; t < total; t += kThreads)
     acc += __ldcg(partials + t);          // L2: other blocks wrote them
-  const float gsq = block_sum(acc, red);
+  const float own = block_sum(acc, red);
   if (threadIdx.x == 0) {
+    const float gsq = addend ? own + *addend : own;
     const float norm = __fsqrt_rn(gsq);
-    out[0] = gsq;
-    out[1] = norm;
-    *out_ok = isfinite(__ldg(loss)) && isfinite(norm) ? 1 : 0;
+    *out_gsq = gsq;
+    if (out_norm) *out_norm = norm;
+    if (out_ok) *out_ok = isfinite(*loss) && isfinite(norm) ? 1 : 0;
     *counter = 0u;                        // for the next launch
   }
 }
@@ -358,17 +371,19 @@ int ff_grad_sumsq_blocks_per_sm(int* out) {
 // descs, ntensors, tiles: as ff_dense_update's, only the g pointers
 // read (tiles may be 0: no gradient elements). Each tile's sum of
 // squares goes to partials[tile_base + tile] (device fp32, `total`
-// long); with `is_final` the launch then writes out[0] = gsq, out[1] =
-// sqrt(gsq) (device fp32) and *ok (device int32) = isfinite(*loss) &&
-// isfinite(out[1]), from partials[0, total) in a fixed order; counter:
-// a device uint32 that is 0 before the launch and after it. A list of
-// more than kMaxTensors gradients takes several launches on one stream,
-// `is_final` on the last. One launch on `stream`; returns
-// cudaGetLastError().
+// long); with `is_final` the launch then writes *gsq = the sum of
+// partials[0, total) in a fixed order, plus *addend where addend is not
+// null (device fp32: another launch's sum, all-reduced over the ranks),
+// and, where not null, *norm = sqrt(*gsq) (device fp32) and *ok (device
+// int32) = isfinite(*loss) && isfinite(*norm); counter: a device uint32
+// that is 0 before the launch and after it. A list of more than
+// kMaxTensors gradients takes several launches on one stream, `is_final`
+// on the last. One launch on `stream`; returns cudaGetLastError().
 int ff_grad_sumsq(const void* descs, int ntensors, long long tiles,
                   void* partials, long long tile_base, long long total,
-                  int is_final, void* counter, const void* loss, void* out,
-                  void* ok, void* stream) {
+                  int is_final, void* counter, const void* loss,
+                  const void* addend, void* gsq, void* norm, void* ok,
+                  void* stream) {
   if (ntensors < 0 || ntensors > kMaxTensors || tiles < 0 ||
       tile_base + tiles > total)
     return (int)cudaErrorInvalidValue;
@@ -389,7 +404,8 @@ int ff_grad_sumsq(const void* descs, int ntensors, long long tiles,
                                                                 : most);
   grad_sumsq_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       a, (float*)partials, tile_base, total, is_final, (unsigned*)counter,
-      (const float*)loss, (float*)out, (int*)ok);
+      (const float*)loss, (const float*)addend, (float*)gsq, (float*)norm,
+      (int*)ok);
   return (int)cudaGetLastError();
 }
 

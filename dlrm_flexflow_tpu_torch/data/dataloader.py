@@ -117,6 +117,23 @@ def zipf_indices(rng: np.random.RandomState, rows: int, size,
     return draws.reshape(size).astype(np.int64)
 
 
+def rank_window(model, batch_size: int):
+    """(first row, rows) of each global batch of ``batch_size`` that this
+    rank trains on: rank r of a mesh of W ranks holds rows [r·b, (r+1)·b),
+    b = batch_size / W (``parallel.distributed.host_local_slice``); (0,
+    batch_size) on one rank."""
+    mesh = getattr(model, "mesh", None)
+    if mesh is None or mesh.size == 1:
+        return 0, batch_size
+    from ..parallel import distributed
+    model._dist()        # the mesh must be the process group
+    if batch_size % mesh.size:
+        raise ValueError(f"global batch {batch_size} does not divide over "
+                         f"{mesh.size} ranks")
+    b = batch_size // mesh.size
+    return mesh.ranks.index(distributed.rank()) * b, b
+
+
 def _config_depth(model, depth: Optional[int]) -> int:
     if depth is not None:
         return max(int(depth), 0)
@@ -132,7 +149,12 @@ class SingleDataLoader:
     thread can slice and copy ahead without changing the delivered
     sequence; per-epoch shuffle orders are cached with their RNG
     snapshots, so ``state()`` captures the exact resume point even while
-    the ring holds batches of the next epoch."""
+    the ring holds batches of the next epoch.
+
+    Across ranks ``batch_size`` is the global batch and each rank's
+    loader hands back its rows of each (``rank_window``), shuffled by the
+    same permutation on every rank (the same seed): the ranks' batches,
+    joined in rank order, are the one-rank loader's."""
 
     def __init__(self, model, inputs: Dict[str, np.ndarray],
                  labels: np.ndarray, batch_size: Optional[int] = None,
@@ -146,6 +168,9 @@ class SingleDataLoader:
         self.rng = np.random.RandomState(seed)
         self.num_samples = len(labels)
         self.num_batches = self.num_samples // self.batch_size
+        self._lo, self._rows = rank_window(model, self.batch_size)
+        # the model stages the batches as a rank's rows
+        self._kw = {"local": True} if self._rows != self.batch_size else {}
         if self.num_batches == 0:
             raise ValueError(
                 f"dataset ({self.num_samples}) smaller than one batch "
@@ -190,7 +215,8 @@ class SingleDataLoader:
     def _host_batch_at(self, ordinal: int) -> Dict[str, np.ndarray]:
         e, b = divmod(ordinal, self.num_batches)
         order = self._epoch_order(e)
-        sl = order[b * self.batch_size:(b + 1) * self.batch_size]
+        lo = b * self.batch_size + self._lo
+        sl = order[lo:lo + self._rows]
         batch = {k: v[sl] for k, v in self.inputs.items()}
         batch["label"] = self.labels[sl]
         return batch
@@ -203,7 +229,7 @@ class SingleDataLoader:
 
             def produce(k):
                 hb = self._host_batch_at(base + k)
-                return (hb, self.model._stage_step(hb))
+                return (hb, self.model._stage_step(hb, **self._kw))
 
             self._pipe = PrefetchPipeline(produce, depth=self._depth,
                                           name="SingleDataLoader")
@@ -250,7 +276,8 @@ class SingleDataLoader:
             _, staged = self._ensure_pipe().get()
             db = staged.wait()
         else:
-            db = self.model._device_batch(self._host_batch_at(self._idx))
+            db = self.model._device_batch(self._host_batch_at(self._idx),
+                                          **self._kw)
         self._idx += 1
         self._prune_epochs()
         return db
@@ -296,6 +323,13 @@ class _PrefetchMixin:
 
     _pipe = None
     _pipe_stages_device = False
+    # the host batches are this rank's rows of the global ones: the
+    # model stages them so
+    _local = False
+
+    @property
+    def _kw(self):
+        return {"local": True} if self._local else {}
 
     def _init_prefetch(self, model, prefetch: bool,
                        depth: Optional[int]) -> None:
@@ -312,7 +346,7 @@ class _PrefetchMixin:
 
             def produce(_k):
                 hb = self._read_host_batch()
-                staged = (self.model._stage_step(hb)
+                staged = (self.model._stage_step(hb, **self._kw)
                           if self._pipe_stages_device else None)
                 return (hb, staged)
 
@@ -332,11 +366,12 @@ class _PrefetchMixin:
 
     def next_batch(self) -> Dict:
         if not self._prefetch_on:
-            return self.model._device_batch(self._read_host_batch())
+            return self.model._device_batch(self._read_host_batch(),
+                                            **self._kw)
         hb, staged = self._ensure_pipe(stage_device=True).get()
         # a ring opened in host-only mode stages on the consumer instead
         return (staged.wait() if staged is not None
-                else self.model._device_batch(hb))
+                else self.model._device_batch(hb, **self._kw))
 
 
 def write_ffbin(path: str, dense: np.ndarray, sparse: np.ndarray,
@@ -366,7 +401,13 @@ class FFBinDataLoader(_PrefetchMixin):
     card ahead of the training loop, so ``next_batch`` hands back a
     staged batch. ``sparse_shape`` restores the per-sample sparse
     layout, e.g. (T, bag). The native library is built with g++ at first
-    use; without a compiler this raises."""
+    use; without a compiler this raises.
+
+    Across ranks ``batch_size`` is the global batch and the native
+    reader copies only this rank's rows of each (``rank_window``, the
+    reader's row window); the shuffle's permutation does not depend on
+    the window, so the ranks' batches, joined in rank order, are the
+    one-rank loader's, bitwise."""
 
     def __init__(self, model, path: str, batch_size: Optional[int] = None,
                  shuffle: bool = False, seed: int = 0,
@@ -381,8 +422,11 @@ class FFBinDataLoader(_PrefetchMixin):
         self.io_backoff_s = io_backoff_s
         self.batch_size = batch_size or model.config.batch_size
         self._init_prefetch(model, prefetch, depth)
+        lo, self.rows = rank_window(model, self.batch_size)
+        self._local = self.rows != self.batch_size
         self._handle = self._lib.ffloader_open(
-            path.encode(), self.batch_size, 1 if shuffle else 0, seed)
+            path.encode(), self.batch_size, 1 if shuffle else 0, seed, lo,
+            self.rows)
         if not self._handle:
             raise IOError(f"cannot open .ffbin dataset {path!r}")
         meta = (ctypes.c_int64 * 4)()
@@ -402,10 +446,10 @@ class FFBinDataLoader(_PrefetchMixin):
         if not self._handle:
             raise RuntimeError("loader is closed")
         # fresh arrays each call: the C side copies straight into them
-        dense = np.empty((self.batch_size, self.dense_dim), dtype=np.float32)
-        sparse = np.empty((self.batch_size, self._sparse_flat),
-                          dtype=np.int32)
-        label = np.empty(self.batch_size, dtype=np.float32)
+        n = self.rows
+        dense = np.empty((n, self.dense_dim), dtype=np.float32)
+        sparse = np.empty((n, self._sparse_flat), dtype=np.int32)
+        label = np.empty(n, dtype=np.float32)
         bi = read_with_retries(
             lambda: self._lib.ffloader_next(
                 self._handle,
@@ -418,8 +462,7 @@ class FFBinDataLoader(_PrefetchMixin):
             raise RuntimeError("native loader stopped")
         return {
             "dense": dense,
-            "sparse": sparse.reshape(
-                (self.batch_size,) + self.sparse_shape),
+            "sparse": sparse.reshape((n,) + self.sparse_shape),
             "label": label.reshape(-1, 1),
         }
 
@@ -497,6 +540,7 @@ class ImgDataLoader4D(_PrefetchMixin):
                 self.image_shape = (flat,)
             self.num_samples = self._native.num_samples
             self.num_batches = self._native.num_batches
+            self._local = self._native._local
             return
         if path.endswith(".npz"):
             with np.load(path) as d:
@@ -521,7 +565,7 @@ class ImgDataLoader4D(_PrefetchMixin):
 
     def _read_host_batch(self) -> Dict[str, np.ndarray]:
         raw = self._native._read_host_batch()
-        imgs = raw["dense"].reshape((self.batch_size,) + self.image_shape)
+        imgs = raw["dense"].reshape((len(raw["label"]),) + self.image_shape)
         return {self.input_name: imgs,
                 "label": raw["label"].astype(np.int32)}
 

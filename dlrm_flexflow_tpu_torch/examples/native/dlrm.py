@@ -25,9 +25,12 @@ over the ranks with the all-to-all exchange of ``parallel/alltoall.py``),
 and rank 0 prints the
 report. Without a process
 group the world is one rank, so ``-ll:gpu 8`` or ``--nodes 2`` trains on
-one card, as the JAX app does on a host with one chip. Across ranks,
-data files, checkpoints and the anomaly sentinel raise (ROADMAP queue 1
-item 7.4).
+one card, as the JAX app does on a host with one chip. Across ranks a
+data file (``.ffbin``, ``.npz``, ``.h5``) hands each rank its rows of
+each global batch (the native reader copies only those rows), and
+``--host-tables`` (every rank keeps the tables whole on its host and
+applies the global batch's update) and ``--anomaly-policy`` (one flag
+for every rank) train as on one card.
 
 Data: ``--data-path file.ffbin`` (``data.dataloader.write_ffbin``'s
 format, read by the native loader and staged to the card by the prefetch
@@ -53,7 +56,7 @@ app) and ``--obs*`` (``fit``, ``fit_stream``), as in the JAX launcher.
 
 What the port does not have yet raises, naming its ROADMAP item, rather
 than being ignored: the strategy search and ``--export`` (item 8), the
-elastic runtime (item 7), supersteps, the per-op profile and
+elastic runtime (item 7.5), supersteps, the per-op profile and
 ``--debug-nans`` (item 6), and the other JAX runtime flags below.
 """
 
@@ -89,7 +92,7 @@ _UNPORTED = {
                     "8 (strategy search)"),
     **dict.fromkeys(("--elastic", "--elastic-budget", "--max-recoveries",
                      "--elastic-expand", "--worker-deadline"),
-                    "7 (multi-GPU)"),
+                    "7.5 (the elastic loop)"),
     **dict.fromkeys(("--profiling", "--debug-nans"),
                     "6 (training runtime)"),
     **dict.fromkeys(("--no-nhwc", "--conv-s2d"), "11 (the zoo)"),
@@ -152,10 +155,6 @@ def main(argv=None):
     log_app.info("device=%s devices=%d batch=%d tables=%d zipf_alpha=%g",
                  cfg.device, ndev, cfg.batch_size, len(dcfg.embedding_size),
                  dcfg.zipf_alpha)
-    if world > 1 and data_path:
-        raise NotImplementedError(
-            "--data-path across ranks (a rank's shard of the file) is not "
-            "ported yet (ROADMAP queue 1 item 7)")
 
     model = FFModel(cfg)
     build_dlrm(model, dcfg)

@@ -547,7 +547,8 @@ def _restore(engine, ckpt_dir, who="serving"):
     """The first restore through the watcher's READ-ONLY manifest scan
     (a CheckpointManager would sweep temp files under a live trainer):
     params only, the newest valid snapshot."""
-    if SnapshotWatcher(engine, ckpt_dir).poll_once():
+    if SnapshotWatcher(engine, ckpt_dir,
+                       elastic=engine.config.reshard).poll_once():
         log_app.info("%s snapshot version %d", who, engine.version)
     else:
         log_app.warning("%s: no restorable snapshot in %s — serving fresh "

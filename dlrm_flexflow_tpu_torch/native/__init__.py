@@ -74,7 +74,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     c = ctypes
     lib.ffloader_open.restype = c.c_void_p
     lib.ffloader_open.argtypes = [c.c_char_p, c.c_int64, c.c_int32,
-                                  c.c_uint64]
+                                  c.c_uint64, c.c_int64, c.c_int64]
     lib.ffloader_meta.restype = None
     lib.ffloader_meta.argtypes = [c.c_void_p, c.POINTER(c.c_int64)]
     lib.ffloader_next.restype = c.c_int64

@@ -16,6 +16,13 @@
 //
 // C ABI (ctypes, see native/__init__.py): ffloader_open/meta/next/close.
 // Built with g++ at first use into build/native/ (native/__init__.py).
+//
+// A row window (row_lo, rows) copies only rows [row_lo, row_lo + rows)
+// of each global batch: one rank's share when ranks train on their rows
+// of a global batch. The order of the samples (the shuffle's
+// permutation, from the seed and the epoch alone) does not depend on the
+// window, so the ranks' windows, joined in rank order, are the whole
+// batch.
 
 #include <fcntl.h>
 #include <sys/mman.h>
@@ -46,8 +53,10 @@ struct Loader {
   const int32_t* sparse = nullptr;
   const float* label = nullptr;
 
-  // batching
+  // batching: global batches of batch_size, of which this reader copies
+  // rows [row_lo, row_lo + rows)
   int64_t batch_size = 0;
+  int64_t row_lo = 0, rows = 0;
   int64_t batches_per_epoch = 0;
   bool shuffle = false;
   uint64_t seed = 0;
@@ -79,10 +88,10 @@ struct Loader {
         std::swap(perm[i], perm[j]);
       }
     }
-    for (int64_t r = 0; r < batch_size; ++r) {
+    for (int64_t r = 0; r < rows; ++r) {
       // wrap within the epoch so every batch is full-size, like the
       // reference's next_batch which assumes batch | num_samples
-      const int64_t idx = (b * batch_size + r) % n_samples;
+      const int64_t idx = (b * batch_size + row_lo + r) % n_samples;
       const int64_t s_idx = shuffle ? perm[idx] : idx;
       std::memcpy(&s.dense[r * dense_dim], &dense[s_idx * dense_dim],
                   sizeof(float) * dense_dim);
@@ -118,8 +127,9 @@ struct Loader {
 
 extern "C" {
 
+// rows <= 0 reads whole batches (row_lo 0).
 void* ffloader_open(const char* path, int64_t batch_size, int32_t shuffle,
-                    uint64_t seed) {
+                    uint64_t seed, int64_t row_lo, int64_t rows) {
   Loader* L = new Loader();
   L->fd = open(path, O_RDONLY);
   if (L->fd < 0) {
@@ -146,8 +156,12 @@ void* ffloader_open(const char* path, int64_t batch_size, int32_t shuffle,
   L->n_samples = hdr[0];
   L->dense_dim = hdr[1];
   L->n_sparse = hdr[2];
+  if (rows <= 0) {
+    row_lo = 0;
+    rows = batch_size;
+  }
   if (L->n_samples <= 0 || L->dense_dim < 0 || L->n_sparse < 0 ||
-      batch_size <= 0) {
+      batch_size <= 0 || row_lo < 0 || row_lo + rows > batch_size) {
     munmap(m, L->file_bytes);
     close(L->fd);
     delete L;
@@ -168,15 +182,17 @@ void* ffloader_open(const char* path, int64_t batch_size, int32_t shuffle,
   }
 
   L->batch_size = batch_size;
+  L->row_lo = row_lo;
+  L->rows = rows;
   L->batches_per_epoch =
       (L->n_samples + batch_size - 1) / batch_size;
   L->shuffle = shuffle != 0;
   L->seed = seed;
   if (L->shuffle) L->perm.resize(L->n_samples);
   for (auto& s : L->slots) {
-    s.dense.resize(batch_size * L->dense_dim);
-    s.sparse.resize(batch_size * L->n_sparse);
-    s.label.resize(batch_size);
+    s.dense.resize(rows * L->dense_dim);
+    s.sparse.resize(rows * L->n_sparse);
+    s.label.resize(rows);
   }
   L->worker = std::thread([L] { L->run(); });
   return L;
@@ -191,8 +207,9 @@ void ffloader_meta(void* handle, int64_t* out_meta) {
   out_meta[3] = L->batches_per_epoch;
 }
 
-// Blocks until the next prefetched batch is ready, copies it into the
-// caller's buffers. Returns the global batch index (epoch * bpe + b).
+// Blocks until the next prefetched batch is ready, copies its window's
+// rows into the caller's buffers. Returns the global batch index (epoch *
+// bpe + b).
 int64_t ffloader_next(void* handle, float* out_dense, int32_t* out_sparse,
                       float* out_label) {
   Loader* L = static_cast<Loader*>(handle);

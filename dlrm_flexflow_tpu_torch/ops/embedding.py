@@ -481,12 +481,6 @@ class _RowShardHooks:
             out["hot_kernel"] = logical[..., :H, :].clone()
         return out
 
-    def _refuse_row_delta(self):
-        if self._row_plan is not None:
-            raise NotImplementedError(
-                f"{self.name}: delta publishes of row-sharded tables are "
-                f"not ported yet (ROADMAP queue 1 item 7.4)")
-
     def _row_whole(self, params):
         """The whole logical table from every shard's cold block (and the
         hot head): what one card holds."""
@@ -648,9 +642,15 @@ class Embedding(_RowShardHooks, _SplitHooks, Op):
 
     def delta_touched_rows(self, idx_np) -> np.ndarray:
         """The table rows a touched-rows update of this batch may change
-        (the JAX op stores the table unpacked, as the port does)."""
-        self._refuse_row_delta()
-        return np.unique(self.flat_lookup_ids(idx_np))
+        (the JAX op stores the table unpacked, as the port does). Under
+        the row-sharded hybrid ``kernel`` holds the cold rows only: the
+        ids past the hot head, offset by it (the replicated ``hot_kernel``
+        is diffed whole)."""
+        g = self.flat_lookup_ids(idx_np)
+        H = self._hot_rows
+        if H > 0:
+            g = g[g >= H] - H
+        return np.unique(g)
 
     # ---- host-resident table (FFConfig.host_resident_tables) --------
     # per-slot (aggr="none") outputs work on the host path too
@@ -1234,15 +1234,22 @@ class EmbeddingBagStacked(_FlatTableBag):
         """The rows of the JAX op's stored kernel, (T, rows/r, r*d)
         flattened to (T*rows/r, r*d), that this batch touches: logical
         table t lives at stored slot inv[t] (``_table_order``'s
-        inverse), logical row ix at packed row ix // r of that slot."""
+        inverse), logical row ix at packed row ix // r of that slot.
+        Under the row-sharded hybrid ``kernel`` holds the cold rows of
+        each table only, (T, (rows - H)/r, r*d): the ids past the hot
+        head H, offset by it (the replicated ``hot_kernel`` is diffed
+        whole), as the JAX op maps them."""
         from ..utils.weights import _pack_factor
-        self._refuse_row_delta()
         r, rows = _pack_factor(self.out_dim, self.num_entries), \
             self.num_entries
         g = np.asarray(idx_np).astype(np.int64) % rows   # (batch, T, bag)
         slot = np.arange(self.num_tables, dtype=np.int64)
         if self._table_order is not None:
             slot = np.argsort(np.asarray(self._table_order)).astype(np.int64)
+        H = self._hot_rows
+        if H > 0:
+            flat = slot[None, :, None] * ((rows - H) // r) + (g - H) // r
+            return np.unique(flat.reshape(-1)[g.reshape(-1) >= H])
         flat = slot[None, :, None] * (rows // r) + g // r
         return np.unique(flat.reshape(-1))
 
@@ -1533,7 +1540,6 @@ class EmbeddingBagConcat(_FlatTableBag):
         """Rows of the JAX op's stored kernel, (total_rows/r, r*d), that
         this batch touches: r logical rows a packed row."""
         from ..utils.weights import _pack_factor
-        self._refuse_row_delta()
         r = _pack_factor(self.out_dim, self.total_rows)
         return np.unique(self.flat_lookup_ids(idx_np) // r)
 

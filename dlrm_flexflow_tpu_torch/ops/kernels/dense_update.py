@@ -30,7 +30,11 @@ isfinite(loss) & isfinite(sqrt(gsq)), as 0-d device tensors (ok int32).
 On the card it is one launch over every gradient on ``dense_update``'s
 launch plan (``grad_sumsq.launches``), deterministic to the bit; its
 plain version ``grad_sumsq_reference`` sums each tensor's squares in
-fp32 and adds the sums in list order.
+fp32 and adds the sums in list order. Across ranks the step calls it
+twice: over each rank's own gradients into a slot of the buffer the
+dense gradients are all-reduced in (``out``), then over the all-reduced
+gradients adding that slot (``addend``); ``grad_sumsq.routes`` counts
+the launches as "alone", "own" and "replicated".
 """
 
 from __future__ import annotations
@@ -57,7 +61,7 @@ _SIGNATURES = {
     "ff_grad_sumsq_blocks_per_sm": ((ctypes.POINTER(_I),), _I),
     "ff_grad_sumsq": (
         (_P, _I, ctypes.c_longlong, _P, ctypes.c_longlong,
-         ctypes.c_longlong, _I, _P, _P, _P, _P, _P), _I),
+         ctypes.c_longlong, _I, _P, _P, _P, _P, _P, _P, _P), _I),
 }
 # csrc/dense_update.cu's kMaxTensors (descriptors a launch carries in its
 # 4 KB of arguments), kThreads (elements a scalar tile) and kTileVecs
@@ -230,13 +234,19 @@ def dense_update(ws: Sequence[torch.Tensor], gs: Sequence[torch.Tensor],
 dense_update.launches = 0
 
 
-def grad_sumsq_reference(gs: Sequence[torch.Tensor], loss: torch.Tensor):
+def grad_sumsq_reference(gs: Sequence[torch.Tensor], loss: torch.Tensor,
+                         addend=None, out=None):
     """Plain PyTorch version of ``grad_sumsq``: each gradient's fp32 sum
-    of squares, added in list order from 0; (gsq, norm, ok)."""
+    of squares, added in list order from 0, then ``addend``; (gsq, norm,
+    ok), gsq also copied into ``out``."""
     gsq = torch.zeros((), dtype=torch.float32, device=loss.device)
     for g in gs:
         g = g.float()
         gsq = gsq + torch.sum(g * g)
+    if addend is not None:
+        gsq = gsq + addend.reshape(()).float()
+    if out is not None:
+        out.view(-1)[0].copy_(gsq)
     norm = torch.sqrt(gsq)
     ok = (torch.isfinite(loss.float()) & torch.isfinite(norm)).to(
         torch.int32)
@@ -258,22 +268,35 @@ def _counter(dev, stream) -> torch.Tensor:
         return c
 
 
-def grad_sumsq(gs: Sequence[torch.Tensor], loss: torch.Tensor):
+def grad_sumsq(gs: Sequence[torch.Tensor], loss: torch.Tensor,
+               addend=None, out=None):
     """The anomaly sentinel's predicate over a step's gradients ``gs`` and
     its 0-d ``loss``: (gsq, norm, ok), 0-d tensors on the loss's device —
-    gsq the fp32 sum of every gradient's squares, norm its square root,
-    ok int32, 1 when the loss and the norm are finite. Nothing waits for
-    the device. Gradients that are not fp32 are read as fp32 copies;
-    raises when they lie on another device than the loss."""
+    gsq the fp32 sum of every gradient's squares plus ``addend`` (a
+    one-element fp32 tensor on the device, or None), norm its square
+    root, ok int32, 1 when the loss and the norm are finite. ``out`` (a
+    one-element fp32 tensor on the device, e.g. a slot of a buffer an
+    all-reduce sums) receives gsq; it is then the returned gsq. Nothing
+    waits for the device. Gradients that are not fp32 are read as fp32
+    copies; raises when they, the addend or ``out`` lie on another
+    device than the loss. Across ranks the sentinel calls it twice a
+    step (``FFModel``): over each rank's own gradients into ``out``,
+    then, after the all-reduce, over the replicated ones with that slot
+    as ``addend``."""
     dev = loss.device
     if loss.dim() != 0:
         raise ValueError(f"grad_sumsq takes a 0-d loss, got "
                          f"{tuple(loss.shape)}")
-    if any(g.device != dev for g in gs):
+    for t in (addend, out):
+        if t is not None and (t.numel() != 1 or t.dtype != torch.float32):
+            raise ValueError("grad_sumsq: the addend and out are one "
+                             "fp32 element each")
+    if any(g.device != dev for g in gs) or any(
+            t is not None and t.device != dev for t in (addend, out)):
         raise ValueError("grad_sumsq: the gradients and the loss lie on "
                          "different devices")
     if dev.type == "cpu":
-        return grad_sumsq_reference(gs, loss)
+        return grad_sumsq_reference(gs, loss, addend, out)
     if dev.type != "cuda":
         raise ValueError(f"grad_sumsq runs on cpu or cuda, not {dev}")
     gs = [(g if g.dtype == torch.float32 else g.float()).contiguous()
@@ -285,6 +308,9 @@ def grad_sumsq(gs: Sequence[torch.Tensor], loss: torch.Tensor):
     partials = torch.empty(max(total, 1), dtype=torch.float32, device=dev)
     res = torch.empty(3, dtype=torch.float32, device=dev)
     ok = res[2:].view(torch.int32)
+    gsq = res[0:1] if out is None else out.view(-1)
+    route = ("replicated" if addend is not None
+             else "own" if out is not None else "alone")
     stream = build.stream_of(loss)
     counter = _counter(dev, stream)
     lib = build.load("dense_update", _SIGNATURES)
@@ -298,11 +324,18 @@ def grad_sumsq(gs: Sequence[torch.Tensor], loss: torch.Tensor):
                                 partials.data_ptr(), base, total,
                                 int(k == max(len(plan), 1) - 1),
                                 counter.data_ptr(), loss.data_ptr(),
-                                res.data_ptr(), ok.data_ptr(), stream)
+                                None if addend is None
+                                else addend.data_ptr(),
+                                gsq.data_ptr(), res[1:2].data_ptr(),
+                                ok.data_ptr(), stream)
         build.check(lib, err, "grad_sumsq kernel")
-        build.count_launch(grad_sumsq)
+        build.count_launch(grad_sumsq, route)
         base += tiles
-    return res[0], res[1], ok[0]
+    return gsq.view(()), res[1], ok[0]
 
 
 grad_sumsq.launches = 0
+# "alone": one rank's one launch; across ranks "own" (a rank's own
+# gradients into a slot) and "replicated" (the all-reduced ones, adding
+# the slot)
+grad_sumsq.routes = {"alone": 0, "own": 0, "replicated": 0}

@@ -1,8 +1,10 @@
 """The process group: init, the rank's slice of a global batch, a probe,
-and the collectives the training step runs. The counterpart of the part
-of ``dlrm_flexflow_tpu.parallel.distributed`` that training across
-ranks needs; ``MeshDegraded``, ``ParticipantRegistry`` and the elastic
-loop come with the rest of ROADMAP queue 1 item 7.
+the collectives the training step runs, and the rank-wide ones of the
+training loops (rank 0's choice broadcast, host arrays gathered to rank
+0). The counterpart of the part of ``dlrm_flexflow_tpu.parallel.
+distributed`` that training across ranks needs; ``MeshDegraded``,
+``ParticipantRegistry`` and the elastic loop come with ROADMAP queue 1
+item 7.5.
 
 Where the JAX package runs one SPMD program over a global device mesh
 (``jax.distributed.initialize``), the port runs one process a rank under
@@ -22,7 +24,7 @@ from __future__ import annotations
 import os
 import threading
 import time
-from typing import Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -227,10 +229,13 @@ class Collectives:
     memory; under NCCL it stays on the card."""
 
     NAMES = ("all_to_all", "all_reduce", "all_gather", "p2p",
-             "reduce_scatter")
+             "reduce_scatter", "broadcast", "gather")
 
     def __init__(self):
         self.staged = dist.get_backend() == "gloo"
+        # where a host array travels: itself under gloo, the rank's card
+        # under NCCL (which moves no host memory)
+        self._wire = None if self.staged else local_device()
         self.stats = {k: {"calls": 0, "bytes": 0, "sent": 0, "seconds": 0.0}
                       for k in self.NAMES}
         self._groups = {}
@@ -370,3 +375,48 @@ class Collectives:
         self._count("reduce_scatter", 2 * send.nbytes * (1 - 1 / len(src)),
                     t0, send.nbytes)
         return out
+
+    # ---- rank-wide decisions and host gathers (checkpoints, the loops) --
+    # Like every collective here, each is issued by every rank in the same
+    # order, on the main thread: a rank that skips one, or issues it from
+    # another thread, hangs the others.
+    def _on_wire(self, a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        return t if self._wire is None else t.to(self._wire)
+
+    def broadcast_object(self, obj: Any = None, src: int = 0) -> Any:
+        """Rank ``src``'s ``obj`` (a picklable value: a manifest entry, a
+        decision) on every rank; the other ranks' ``obj`` is ignored."""
+        t0 = time.perf_counter()
+        box = [obj if rank() == src else None]
+        dist.broadcast_object_list(box, src=src, device=self._wire)
+        self._count("broadcast", 0, t0)
+        return box[0]
+
+    def gather_host(self, a: np.ndarray, dst: int = 0
+                    ) -> Optional[List[np.ndarray]]:
+        """Every rank's host array ``a`` (the same shape and dtype on
+        every rank) on rank ``dst``, in rank order, as fresh arrays; None
+        on the other ranks."""
+        t0 = time.perf_counter()
+        src = self._on_wire(a)
+        me = rank()
+        parts = ([torch.empty_like(src) for _ in range(world_size())]
+                 if me == dst else None)
+        dist.gather(src, parts, dst=dst)
+        nb = src.numel() * src.element_size()
+        self._count("gather", nb * (world_size() - 1 if me == dst else 1),
+                    t0, nb)
+        return None if parts is None else [p.cpu().numpy() for p in parts]
+
+    def all_gather_host(self, a: np.ndarray) -> np.ndarray:
+        """Every rank's host array ``a`` (the same shape and dtype on
+        every rank) joined along dim 0 in rank order, on every rank."""
+        return self.all_gather(self._on_wire(a)).cpu().numpy()
+
+    def all_true(self, flag: bool) -> bool:
+        """Whether ``flag`` holds on every rank (one all-reduce of an
+        int)."""
+        t = self._on_wire(np.asarray([0 if flag else 1], np.int64))
+        return int(self.all_reduce_sum_(t)) == 0
+

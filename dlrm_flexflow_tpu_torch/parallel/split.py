@@ -162,3 +162,17 @@ class ToRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ctx.split.from_rows(g.contiguous()), None
+
+
+def join_pieces_host(coll, mesh, axes, a, dim: int, dst: int = 0):
+    """Each rank's host array ``a``, its piece of an array split in
+    blocks over the mesh axes ``axes``, joined along ``dim`` in block
+    order, a block's first rank's piece each, on rank ``dst`` (one
+    gather to it); None on the other ranks."""
+    import numpy as np
+    parts = coll.gather_host(a, dst)
+    if parts is None:
+        return None
+    blocks = [mesh.linear_index(r, tuple(axes)) for r in mesh.ranks]
+    return np.concatenate([parts[mesh.ranks[blocks.index(k)]]
+                           for k in range(max(blocks) + 1)], axis=dim)

@@ -139,6 +139,9 @@ class ServeConfig:
     warmup: bool = True          # run every bucket once at start()
     continuous: bool = True      # iteration-level admission; False =
     #                              pure size/deadline flush
+    reshard: bool = False        # take snapshots written under another
+    #                              mesh (a one-card replica following a
+    #                              trainer across ranks)
 
     @staticmethod
     def from_config(cfg) -> "ServeConfig":
@@ -150,7 +153,8 @@ class ServeConfig:
             cache_rows=int(cfg.serve_cache_rows),
             cache_warm=str(cfg.serve_cache_warm),
             poll_s=float(cfg.serve_poll_s),
-            continuous=cfg.serve_batching != "flush")
+            continuous=cfg.serve_batching != "flush",
+            reshard=int(cfg.serve_replicas) > 1)
 
 
 class _Request:
@@ -282,7 +286,8 @@ class InferenceEngine:
         if self._checkpoint_dir:
             from .watcher import SnapshotWatcher
             self._watcher = SnapshotWatcher(
-                self, self._checkpoint_dir, poll_s=self.config.poll_s)
+                self, self._checkpoint_dir, poll_s=self.config.poll_s,
+                elastic=self.config.reshard)
             self._watcher.start()
         return self
 

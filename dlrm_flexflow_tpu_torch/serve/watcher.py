@@ -35,8 +35,15 @@ poll that installs something returns to the base interval.
 (a ``SnapshotServer``); manifest polls and file reads go over the wire
 with their own retry and backoff, and fetched files spool into the
 source's local directory, so the loaders' zip validation and chain CRCs
-run unchanged on local paths. The JAX watcher's cross-mesh reshard is
-ROADMAP queue 1 item 7.
+run unchanged on local paths.
+
+**Reshard** (``elastic``, the engine's ``ServeConfig.reshard``): a full
+snapshot records the mesh its trainer ran on; a one-card engine
+following a trainer across ranks takes it only with ``elastic`` set
+(the file's arrays are whole, so the engine's model takes them as they
+are) and otherwise rejects it with the JAX package's reason
+(``checkpoint.check_mesh_meta``). Deltas carry rows of the whole stored
+arrays and record no mesh.
 """
 
 from __future__ import annotations
@@ -65,7 +72,8 @@ class SnapshotWatcher:
     MANIFEST = "manifest.json"
 
     def __init__(self, engine, directory: str, poll_s: float = 0.5,
-                 backoff_max_s: float = 30.0, wire=None):
+                 backoff_max_s: float = 30.0, wire=None,
+                 elastic: bool = False):
         self._engine = engine
         self.directory = os.path.abspath(directory)
         # wire mode: the files are read through ``wire`` and spooled to
@@ -75,6 +83,8 @@ class SnapshotWatcher:
                         else os.path.abspath(wire.spool_dir))
         self.poll_s = max(float(poll_s), 0.01)
         self.backoff_max_s = max(float(backoff_max_s), self.poll_s)
+        # take full snapshots written under another mesh (reshard)
+        self.elastic = bool(elastic)
         self._fingerprint = config_fingerprint(engine.model)
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
@@ -252,7 +262,8 @@ class SnapshotWatcher:
 
     def _load_full(self, path: str) -> Dict[str, Any]:
         state = read_with_retries(
-            lambda: load_params_for_swap(self._engine.model, path),
+            lambda: load_params_for_swap(self._engine.model, path,
+                                         elastic=self.elastic),
             site="snapshot_reload")
         return faults.maybe_poison_reload(state)
 

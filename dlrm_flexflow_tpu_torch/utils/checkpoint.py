@@ -8,13 +8,25 @@ A snapshot is one ``.npz``: ``params/<op>/<param>`` in the JAX layout
 Adam's ``opt/step`` (``opt_state_to_jax``), host-resident tables as
 ``hostparams/<op>/kernel`` and their optimizer slabs as
 ``hostopt/<op>/<slab>`` (unpacked, as both packages keep them on the
-host), and ``meta/step``. The port
-runs on one device and writes no ``meta/mesh_axes`` or
-``meta/num_devices``: the JAX package checks a mesh only when a file
-records one, so any JAX mesh takes the port's file, and the arrays are
-host-gathered either way. Restoring goes back through
-``params_from_jax``/``opt_state_from_jax``; a JAX file's mesh record is
-not checked here, because its arrays are whole.
+host), and ``meta/step``. A model on one rank writes no
+``meta/mesh_axes`` or ``meta/num_devices``: the JAX package checks a
+mesh only when a file records one, so any JAX mesh takes such a file.
+Restoring goes back through ``params_from_jax``/``opt_state_from_jax``.
+
+Across ranks (a mesh of several ranks, one process each) the file is
+the one the JAX package writes from its host-gathered arrays: each
+parameter and slab is joined from the ranks' pieces on rank 0, in the
+JAX stored layout (``weights.piece_layout``: tables split by table, row
+blocks, width pieces, a row-sharded table's cold blocks beside its hot
+head, ``Linear`` channels), host tables from rank 0's copy (every rank
+holds them whole), and only rank 0 writes, with ``meta/num_devices``
+and ``meta/mesh_axes`` as JAX ``_model_flat`` records them. Every rank
+reads the same file back and takes its own piece. A file recorded under
+another mesh is rejected, before anything is applied, with the JAX
+package's reason, by ``restore_checkpoint`` and, unless its ``elastic``
+says otherwise (the serving fleet's ``ServeConfig.reshard``),
+``load_params_for_swap``. Restoring a training run onto another mesh
+(elastic restore) is ROADMAP queue 1 item 7.5.
 
 Fault tolerance, as in the JAX package:
 
@@ -32,6 +44,13 @@ Fault tolerance, as in the JAX package:
   update run on a background thread;
 - restore walks the manifest newest-first and skips corrupt, truncated,
   missing or foreign snapshots.
+
+Across ranks the manager's directory work runs on rank 0: the sweep of
+orphan temp files, the write, the manifest and its garbage collection;
+``restore_latest`` chooses the entry on rank 0 (the file's presence,
+fingerprint and CRC-32) and broadcasts it, so every rank resumes the
+same step, and ``save_async`` gathers on the calling (main) thread, so
+its writer thread issues no collective.
 
 The manifest also carries the continual loop's delta chain
 (``utils/delta.py``: ``delta_entries``, ``append_delta_entry``,
@@ -89,38 +108,106 @@ def _unflatten(flat):
     return tree
 
 
-def _model_flat(model, copy_host: bool = True) -> Dict[str, np.ndarray]:
+def whole_jax(model, tree, copy: bool) -> Optional[Dict[str, Dict]]:
+    """{op: {param: this rank's ``params_to_jax`` array}} -> the JAX
+    stored arrays (``copy``: each a fresh copy). Across ranks each piece
+    is joined from every rank's on rank 0 (one gather a piece, in op
+    order on every rank), and the other ranks get None."""
+    coll = model._dist()
+    if coll is None:
+        return {name: {pn: (np.array(v) if copy else v)
+                       for pn, v in sub.items()}
+                for name, sub in tree.items()}
+    from ..parallel.distributed import rank
+    from ..parallel.split import join_pieces_host
+    from .weights import piece_layout
+    ops = {op.name: op for op in model.ops}
+    out = {}
+    for name, sub in tree.items():
+        out[name] = {}
+        for pn, v in sub.items():
+            lay = piece_layout(ops[name], pn)
+            out[name][pn] = (np.array(v) if lay is None else
+                             join_pieces_host(coll, model.mesh, lay[0], v,
+                                              lay[1]))
+    return out if rank() == 0 else None
+
+
+def _model_flat(model, copy_host: bool = True
+                ) -> Optional[Dict[str, np.ndarray]]:
     """A model's training state as npz-ready host arrays in the JAX
     layout, after the last host scatter landed. The arrays own their
     bytes: a background writer writes them while the training loop keeps
     updating the model's tensors in place (a copy from the card is fresh
     host memory; a CPU tensor is copied; the host tables are copied
     unless ``copy_host`` is False, for a write made before any other
-    step)."""
+    step). Across ranks every rank calls it (the pieces are gathered to
+    rank 0, ``whole_jax``); rank 0 gets the state, with the mesh's
+    ``meta/num_devices`` and ``meta/mesh_axes``, the others None."""
     model._host_drain()
     copy = model.device.type == "cpu"
+    params = whole_jax(model, params_to_jax(model, model.params), copy)
+    state = opt_state_to_jax(model, model.opt_state or {})
+    slabs = {k: whole_jax(model, v, copy) for k, v in state.items()
+             if k != "step"}
+    if params is None:
+        return None
     flat: Dict[str, np.ndarray] = {}
-    for k, v in _flatten(params_to_jax(model, model.params)).items():
-        flat[f"params/{k}"] = np.array(v) if copy else v
-    opt = opt_state_to_jax(model, model.opt_state or {})
-    for k, v in _flatten(opt).items():
-        flat[f"opt/{k}"] = np.array(v) if copy else v
+    for k, v in _flatten(params).items():
+        flat[f"params/{k}"] = v
+    if "step" in state:
+        slabs["step"] = state["step"]
+    for k, v in _flatten(slabs).items():
+        flat[f"opt/{k}"] = v
     for sec, tree in (("hostparams", model.host_params),
                       ("hostopt", model.host_opt_state)):
         for k, v in _flatten(tree).items():
             flat[f"{sec}/{k}"] = np.array(v) if copy_host else v
     flat["meta/step"] = np.asarray(model._step)
+    if model._dist() is not None:
+        mesh = model.mesh
+        flat["meta/mesh_axes"] = np.asarray(list(mesh.axis_sizes), np.int64)
+        flat["meta/num_devices"] = np.asarray(mesh.size, np.int64)
     return flat
+
+
+def check_mesh_meta(model, flat, path: str, elastic: bool = False) -> None:
+    """Reject a file written under another mesh (non-elastic loads), with
+    the JAX package's reason (its ``_check_mesh_meta``), before anything
+    is applied. A file that records no mesh passes."""
+    if "meta/num_devices" not in flat or model.mesh is None:
+        return
+    ck_ndev = int(flat["meta/num_devices"])
+    ck_axes = ([int(x) for x in flat["meta/mesh_axes"]]
+               if "meta/mesh_axes" in flat else None)
+    cur_axes = [int(x) for x in model.mesh.axis_sizes]
+    if not elastic and (ck_ndev != model.mesh.size
+                        or (ck_axes is not None and ck_axes != cur_axes)):
+        raise ValueError(
+            f"checkpoint {path} was written under a {ck_ndev}-device "
+            f"mesh (axes {ck_axes}) but this model is compiled for "
+            f"{model.mesh.size} devices (axes {cur_axes}). Cross-mesh "
+            f"restore needs elastic mode, which the port does not have "
+            f"yet for training (ROADMAP queue 1 item 7.5); a serving "
+            f"engine reshards with ServeConfig(reshard=True).")
 
 
 def mesh_meta(model) -> Dict[str, Any]:
     """The manifest entry's ``"mesh"`` (the JAX manager's ``mesh_meta``
-    key): here ``"quant"``, the non-default storage policies ``compile``
+    key): ``"quant"``, the non-default storage policies ``compile``
     resolved ({op: {"dtype", "update_rule"}}), which the JAX package's
-    shardcheck compares a strategy file against; empty without one."""
+    shardcheck compares a strategy file against, and across ranks the
+    mesh's ``"axes"`` and ``"num_devices"``; empty on one rank without a
+    policy."""
+    out: Dict[str, Any] = {}
+    if model._dist() is not None:
+        out["axes"] = {a: int(n) for a, n in model.mesh.shape.items()}
+        out["num_devices"] = int(model.mesh.size)
     quant = {name: {"dtype": pol.dtype, "update_rule": pol.update_rule}
              for name, pol in model.quant_policies().items()}
-    return {"quant": quant} if quant else {}
+    if quant:
+        out["quant"] = quant
+    return out
 
 
 def _write_npz_atomic(path: str, flat: Dict[str, np.ndarray],
@@ -210,15 +297,17 @@ def read_npz(path: str, keep: Optional[Callable[[str], bool]] = None
 def config_fingerprint(model) -> str:
     """Short digest of what a checkpoint must agree with the model on:
     the op graph (names and JAX class names, which the port's ops
-    share), every parameter's shape in the JAX layout, and the compute
+    share), every parameter's shape in the JAX layout (across ranks the
+    whole stored array's, as the JAX model's on a mesh), and the compute
     dtype; the same digest as the JAX package's for the same graph, so
     neither package skips the other's snapshots as foreign."""
     desc: List[Any] = [str(model.config.compute_dtype)]
     desc.append(sorted((op.name, type(op).__name__) for op in model.ops))
-    for shapes_of in (jax_param_shapes, host_param_shapes):
+    for tree in (jax_param_shapes(model, whole=True),
+                 host_param_shapes(model)):
         desc.append(sorted(
             (f"{op}/{pn}", shape)
-            for op, shapes in shapes_of(model).items()
+            for op, shapes in tree.items()
             for pn, shape in shapes.items()))
     blob = json.dumps(desc, sort_keys=True, default=str).encode()
     return hashlib.sha1(blob).hexdigest()[:12]
@@ -226,10 +315,12 @@ def config_fingerprint(model) -> str:
 
 def save_checkpoint(model, path: str):
     """Save params, optimizer state and step to `path` (.npz),
-    atomically."""
+    atomically. Across ranks every rank calls it and rank 0 writes."""
     if not path.endswith(".npz"):
         path += ".npz"   # np.savez would have appended it anyway
-    _write_npz_atomic(path, _model_flat(model, copy_host=False))
+    flat = _model_flat(model, copy_host=False)
+    if flat is not None:
+        _write_npz_atomic(path, flat)
 
 
 _SECTIONS = ("params", "opt", "hostparams", "hostopt")
@@ -269,21 +360,31 @@ def restore_checkpoint(model, path: str, params_only: bool = False):
     checked against the model's before anything is replaced, and a
     snapshot missing one of the model's ops raises.
     ``params_only=True`` loads the parameters and step and leaves the
-    optimizer state as it is (serving)."""
-    flat = read_npz(path if path.endswith(".npz") else path + ".npz")
+    optimizer state as it is (serving). Across ranks every rank reads the
+    file and takes its own piece; a file written under another mesh is
+    rejected first (``check_mesh_meta``)."""
+    path = path if path.endswith(".npz") else path + ".npz"
+    flat = read_npz(path)
+    check_mesh_meta(model, flat, path)
     return _apply_flat_state(model, _split_sections(flat),
                              int(flat["meta/step"]), opt=not params_only)
 
 
-def load_params_for_swap(model, path: str) -> Dict[str, Any]:
+def load_params_for_swap(model, path: str, elastic: bool = False
+                         ) -> Dict[str, Any]:
     """Read a snapshot's inference state (the port's or the JAX
     package's) WITHOUT touching the model: its parameters checked against
     the model's and copied to the model's device, returned for
     ``InferenceEngine.install_snapshot`` (which swaps them in between
     dispatches). Optimizer state is not read. Raises with a reason on a
-    mismatch; the watcher rejects the snapshot and keeps serving."""
-    flat = read_npz(path if path.endswith(".npz") else path + ".npz",
+    mismatch; the watcher rejects the snapshot and keeps serving. A file
+    written under another mesh is rejected with the JAX package's reason
+    unless ``elastic`` (``ServeConfig.reshard``: a one-card engine
+    following a trainer across ranks takes the whole arrays)."""
+    path = path if path.endswith(".npz") else path + ".npz"
+    flat = read_npz(path,
                     keep=lambda k: not k.startswith(("opt/", "hostopt/")))
+    check_mesh_meta(model, flat, path, elastic=elastic)
     sections = _split_sections(flat)
     host, _ = _host_tables(model, sections, opt=False)
     return {"params": _params_of(model, sections["params"]),
@@ -344,11 +445,17 @@ class CheckpointManager:
     ``save_async``). ``restore_latest`` walks the entries newest-first
     and restores the first whose file exists, passes its CRC-32 and
     matches the model's fingerprint. ``last_save`` holds the last
-    snapshot's bytes, host-copy seconds and write seconds."""
+    snapshot's bytes, host-copy seconds and write seconds.
+
+    A manager of a model across ranks (``model``, or the model a call
+    passes, on a mesh of several ranks) is made and called on every rank
+    in the same order: the snapshot's gather is a collective, and rank 0
+    alone sweeps, writes and keeps the manifest (see the module's
+    docstring)."""
 
     MANIFEST = "manifest.json"
 
-    def __init__(self, directory: str, keep_last: int = 3):
+    def __init__(self, directory: str, keep_last: int = 3, model=None):
         if keep_last < 1:
             raise ValueError(f"keep_last must be >= 1, got {keep_last}")
         self.directory = os.path.abspath(directory)
@@ -358,7 +465,8 @@ class CheckpointManager:
         self._thread_exc: Optional[BaseException] = None
         self._manifest_lock = threading.Lock()
         self.last_save: Dict[str, float] = {}
-        self._sweep_orphan_tmps()
+        if model is None or model._is_rank0():
+            self._sweep_orphan_tmps()
 
     # --- manifest ------------------------------------------------------
     def _manifest_path(self) -> str:
@@ -399,10 +507,14 @@ class CheckpointManager:
 
     # --- save ----------------------------------------------------------
     def _snapshot(self, model):
+        """(the model's state on the host, or None on a rank that does
+        not write; its bytes and the seconds of the copy, the gather
+        across ranks included)."""
         t0 = time.perf_counter()
         flat = _model_flat(model)
         gather_s = time.perf_counter() - t0
-        nbytes = sum(int(v.nbytes) for v in flat.values())
+        nbytes = (sum(int(v.nbytes) for v in flat.values())
+                  if flat is not None else 0)
         return flat, {"bytes": nbytes, "gather_s": gather_s}
 
     def save(self, model, loader_state: Optional[Dict[str, Any]] = None):
@@ -410,18 +522,25 @@ class CheckpointManager:
         self.wait()
         step = int(model._step)
         flat, stats = self._snapshot(model)
+        if flat is None:
+            self.last_save = dict(stats, step=step)
+            return
         self._write_snapshot(flat, step, config_fingerprint(model),
                              dict(loader_state or {}), stats,
                              mesh_meta(model))
 
     def save_async(self, model,
                    loader_state: Optional[Dict[str, Any]] = None):
-        """Snapshot now (the copy to the host inline, for consistency),
-        write on a background thread. Joins any previous in-flight save
-        first: at most one writer; its errors raise here or at wait()."""
+        """Snapshot now (the copy to the host inline, for consistency;
+        across ranks the gather too, on this thread), write on a
+        background thread. Joins any previous in-flight save first: at
+        most one writer; its errors raise here or at wait()."""
         self.wait()
         step = int(model._step)
         flat, stats = self._snapshot(model)
+        if flat is None:
+            self.last_save = dict(stats, step=step)
+            return
         fp = config_fingerprint(model)
         state = dict(loader_state or {})
         mmeta = mesh_meta(model)
@@ -570,37 +689,56 @@ class CheckpointManager:
             return False
         return True
 
-    def latest_valid(self, fingerprint: Optional[str] = None
+    def latest_valid(self, fingerprint: Optional[str] = None, model=None
                      ) -> Optional[Dict[str, Any]]:
         """Newest entry that exists, checksums clean and (when given)
-        matches `fingerprint`; None when no snapshot survives."""
-        for entry in reversed(self.entries()):
-            if self._entry_valid(entry, fingerprint):
-                return entry
-        return None
+        matches `fingerprint`; None when no snapshot survives. With a
+        ``model`` across ranks, rank 0 decides and every rank gets its
+        answer (a collective: every rank calls it)."""
+        coll = model._dist() if model is not None else None
+        entry = None
+        if coll is None or model._is_rank0():
+            for e in reversed(self.entries()):
+                if self._entry_valid(e, fingerprint):
+                    entry = e
+                    break
+        return entry if coll is None else coll.broadcast_object(entry)
 
     def restore_latest(self, model) -> Optional[Dict[str, Any]]:
         """Restore the newest valid snapshot into `model`; returns its
         manifest entry (step, loader_state, ...) or None when nothing
-        restorable is left."""
+        restorable is left. Across ranks rank 0 chooses each candidate
+        (present, this model's fingerprint, its CRC-32 clean) and
+        broadcasts it, every rank restores it, and the ranks walk back
+        together unless every one of them restored it."""
         fp = config_fingerprint(model)
-        for entry in reversed(self.entries()):
-            if not self._entry_valid(entry, fp):
-                continue
+        coll = model._dist()
+        chooser = coll is None or model._is_rank0()
+        candidates = iter(reversed(self.entries()) if chooser else ())
+        while True:
+            entry = next((e for e in candidates
+                          if self._entry_valid(e, fp)), None)
+            if coll is not None:
+                entry = coll.broadcast_object(entry)
+            if entry is None:
+                return None
             path = os.path.join(self.directory, entry["file"])
             try:
                 restore_checkpoint(model, path)
+                ok = True
             except (ValueError, KeyError, OSError, zlib.error) as e:
                 # the checksum passed but the content disagrees with
                 # this model, or the zip is unreadable: walk back
                 log_ckpt.warning("checkpoint %s did not restore (%s); "
                                  "trying an older snapshot",
                                  entry["file"], e)
-                continue
-            log_ckpt.info("resumed from %s (step %d)", entry["file"],
-                          entry["step"])
-            return entry
-        return None
+                ok = False
+            if coll is not None:
+                ok = coll.all_true(ok)
+            if ok:
+                log_ckpt.info("resumed from %s (step %d)", entry["file"],
+                              entry["step"])
+                return entry
 
 
 def get_weights(model, op_name: str) -> Dict[str, np.ndarray]:

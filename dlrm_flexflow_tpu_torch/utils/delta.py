@@ -30,6 +30,16 @@ those candidate rows against the last published state, and diffs every
 row where candidates are missing or incomplete (a table on the dense
 update, a batch the tracker never saw), so a delta is always exact.
 
+Across ranks (a trainer on a mesh of several ranks) every rank makes
+the publisher over the same directory and calls it at the same steps:
+``serving_flat`` joins each parameter from the ranks' pieces on rank 0
+(``checkpoint.whole_jax``), which alone diffs, writes and keeps the
+manifest, so the files, arrays and entries are the JAX package's mesh
+run's; rank 0's choice between a delta and a full publish is broadcast.
+A row-sharded table's candidates are its cold rows only (offset by the
+hybrid's hot rows, packed), as the JAX op's; the hot head is diffed
+whole.
+
 Host-resident tables publish too: the tracker's candidates for a host
 table are its ``hostparams/<op>/kernel`` rows (a host update is always
 touched-rows-only), and ``FFModel.apply_delta`` writes them in place.
@@ -59,7 +69,7 @@ from ..obs import trace as obstrace
 from . import faults
 from .checkpoint import (CheckpointManager, _file_crc32, _flatten,
                          _write_npz_atomic, config_fingerprint, mesh_meta,
-                         read_npz)
+                         read_npz, whole_jax)
 from .logging import get_logger
 from .weights import params_to_jax, rows_from_jax
 
@@ -79,14 +89,17 @@ class ChainError(ValueError):
     reason and falls back to a full reload."""
 
 
-def serving_flat(model) -> Dict[str, np.ndarray]:
+def serving_flat(model) -> Optional[Dict[str, np.ndarray]]:
     """The serving state of a model (its parameters and host tables; the
     port has no op state) as host arrays keyed and laid out as in the
     checkpoint npz. The arrays own their bytes: the trainer keeps
-    updating its tensors and host tables in place."""
+    updating its tensors and host tables in place. Across ranks every
+    rank calls it; rank 0 gets the whole arrays, the others None."""
     copy = model.device.type == "cpu"
-    out = {f"params/{k}": (np.array(v) if copy else v)
-           for k, v in _flatten(params_to_jax(model, model.params)).items()}
+    params = whole_jax(model, params_to_jax(model, model.params), copy)
+    if params is None:
+        return None
+    out = {f"params/{k}": v for k, v in _flatten(params).items()}
     if model.host_params:
         model._host_drain()
         with model._host_table_lock:
@@ -544,7 +557,10 @@ class DeltaPublisher:
                 f"compact_frac must be > 0, got {compact_frac}")
         self.model = model
         self.mgr = manager or CheckpointManager(directory,
-                                                keep_last=keep_last)
+                                                keep_last=keep_last,
+                                                model=model)
+        # across ranks rank 0 writes; the others gather and keep count
+        self._writer = model._is_rank0()
         self.compact_frac = float(compact_frac)
         self.full_every = int(full_every)
         self.max_chain = int(max_chain)
@@ -563,10 +579,11 @@ class DeltaPublisher:
         # trained after this point (fit_stream observes at staging time)
         self._track_origin = int(model._step)
         self._fingerprint = config_fingerprint(model)
-        removed = self.mgr.reset_deltas()
+        removed = self.mgr.reset_deltas() if self._writer else 0
         if removed:
             log_delta.info("retired %d stale delta(s) from a previous "
                            "run in %s", removed, self.mgr.directory)
+        self._has_base = False
         self._last_flat: Optional[Dict[str, np.ndarray]] = None
         self._last_step = -1
         self._base_step = -1
@@ -592,7 +609,7 @@ class DeltaPublisher:
 
     # --- publish decision ----------------------------------------------
     def _compaction_due(self) -> Optional[str]:
-        if self._last_flat is None:
+        if not self._has_base:
             return "no base yet"
         if self.full_every and self._deltas_since_full >= self.full_every:
             return f"full_every={self.full_every} cadence"
@@ -612,9 +629,13 @@ class DeltaPublisher:
         manifest entry, or None when a delta publish failed (retried
         next interval)."""
         reason = self._compaction_due()
+        coll = self.model._dist()
+        if coll is not None:
+            # the two kinds gather different arrays: rank 0's choice
+            reason = coll.broadcast_object(reason)
         if reason is None:
             return self.publish_delta(loader_state)
-        if self._last_flat is not None:
+        if self._has_base:
             self.compactions += 1
             log_delta.info("compacting delta chain -> full checkpoint "
                            "(%s)", reason)
@@ -634,6 +655,17 @@ class DeltaPublisher:
         model = self.model
         step = int(model._step)
         flat, stats = self.mgr._snapshot(model)
+        if flat is None:
+            # a rank that does not write: the gather was its part
+            self._has_base = True
+            self._last_step = self._base_step = step
+            self._chain_len = self._deltas_since_full = 0
+            self.publishes += 1
+            self.full_publishes += 1
+            self.last_publish = {"kind": "full", "step": step,
+                                 "copy_s": stats["gather_s"],
+                                 "total_s": time.perf_counter() - t0}
+            return None
         entry = self.mgr._write_snapshot(
             flat, step, self._fingerprint, dict(loader_state or {}), stats,
             mesh_meta(model))
@@ -644,6 +676,7 @@ class DeltaPublisher:
         self._last_flat = {
             k: v for k, v in flat.items()
             if k.split("/", 1)[0] in _SERVING_SECTIONS}
+        self._has_base = True
         self._last_step = step
         self._base_step = step
         self._base_file = entry["file"]
@@ -689,7 +722,7 @@ class DeltaPublisher:
     def publish_delta(self, loader_state: Optional[Dict[str, Any]] = None
                       ) -> Optional[Dict[str, Any]]:
         step = int(self.model._step)
-        if self._last_flat is None:
+        if not self._has_base:
             return self.publish_full(loader_state)
         with obstrace.span("publish/delta", step=step):
             return self._publish_delta(loader_state, step)
@@ -701,6 +734,17 @@ class DeltaPublisher:
         t0 = time.perf_counter()
         cur = serving_flat(self.model)
         t_copy = time.perf_counter()
+        if cur is None:
+            # a rank that does not write: the gather was its part
+            self._last_step = step
+            self._chain_len += 1
+            self._deltas_since_full += 1
+            self.publishes += 1
+            self.delta_publishes += 1
+            self.last_publish = {"kind": "delta", "step": step,
+                                 "copy_s": t_copy - t0,
+                                 "total_s": t_copy - t0}
+            return None
         cand, batches = self.tracker.snapshot()
         if batches < step - self._track_origin:
             # the tracker missed trained batches (a train_batch call

@@ -227,9 +227,45 @@ def _pack_factor(dim: int, rows: int) -> int:
     return 1
 
 
-def jax_param_shapes(model) -> Dict[str, Dict[str, tuple]]:
+def piece_layout(op, pn: str):
+    """How this rank's ``params_to_jax`` array of ``op.pn`` joins the
+    other ranks' into the JAX stored array: (the mesh axes whose index is
+    its block, the stored dim the blocks join along, in block order), or
+    None when each rank holds the stored array whole (a replicated or
+    data-parallel parameter, a hybrid's ``hot_kernel``)."""
+    plan = getattr(op, "_row_plan", None)
+    if plan is not None:
+        return (tuple(plan.row_axes), -2) if pn == "kernel" else None
+    split = getattr(op, "_split", None)
+    if split is None or split.kind == "replicated":
+        return None
+    return tuple(split.axes), (0 if split.kind in ("table", "rows") else -1)
+
+
+def _blocks(mesh, axes) -> int:
+    return max(mesh.linear_index(r, axes) for r in mesh.ranks) + 1
+
+
+def jax_param_shapes(model, whole: bool = False
+                     ) -> Dict[str, Dict[str, tuple]]:
     """Every parameter's shape in the JAX layout, as ``params_to_jax``
-    would give it, from the ops' definitions alone (no data moves)."""
+    would give it, from the ops' definitions alone (no data moves):
+    across ranks this rank's pieces, or with ``whole`` the JAX stored
+    arrays the pieces join into (``piece_layout``), as the JAX model on
+    a mesh of as many devices holds them."""
+    out = _piece_shapes(model)
+    if whole:
+        for op in _device_ops(model):
+            for pn, shape in out[op.name].items():
+                lay = piece_layout(op, pn)
+                if lay is not None:
+                    shape = list(shape)
+                    shape[lay[1]] *= _blocks(model.mesh, lay[0])
+                    out[op.name][pn] = tuple(shape)
+    return out
+
+
+def _piece_shapes(model) -> Dict[str, Dict[str, tuple]]:
     out = {}
     for op in _device_ops(model):
         shapes = {pn: tuple(int(x) for x in d.shape)

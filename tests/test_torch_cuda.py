@@ -1615,6 +1615,71 @@ def test_grad_sumsq_matches_plain(cuda, sizes, offsets):
         assert int(dense_mod.grad_sumsq(big, loss)[2]) == 0
 
 
+@pytest.mark.parametrize("own,rep", [
+    ([16 * 8 * 64], [5000, 17, 4096 * 4 + 3, 64 * 1024]),
+    ([33] * 60, [1 << 20, 7]),               # the first form: two launches
+    ([], [256]),
+])
+def test_grad_sumsq_across_ranks_two_launches(cuda, own, rep):
+    """Across ranks: the first launch writes its sum into a slot of a
+    buffer (``out``); the second adds the slot (``addend``) before the
+    root and takes the buffer's loss. Bitwise the second list's own sum
+    plus the slot in fp32 and its root; within rtol 1e-5 of the plain
+    version's two calls and of the sum over both lists; the flag follows
+    a non-finite value in either list or the loss."""
+    a = _sumsq_case(cuda, own, [0, 1], seed=3)
+    b = _sumsq_case(cuda, rep, [0, 2], seed=4)
+    buf = torch.zeros(3, device=cuda)
+    buf[2] = 0.5
+    loss = buf[2]
+    before = dense_mod.grad_sumsq.launches
+    g1, _, _ = dense_mod.grad_sumsq(a, loss, out=buf[1:2])
+    assert g1.data_ptr() == buf[1:2].data_ptr()
+    gsq, norm, ok = dense_mod.grad_sumsq(b, loss, addend=buf[1:2])
+    alone, _, _ = dense_mod.grad_sumsq(b, loss)
+    want = (alone + buf[1]).view(())
+    assert torch.equal(gsq, want) and torch.equal(norm, torch.sqrt(want))
+    assert int(ok) == 1
+    plan = dense_mod.launch_plan
+    n = sum(max(len(plan([g.numel() for g in gs],
+                         [(g.data_ptr(),) for g in gs])), 1)
+            for gs in (a, b, b))
+    assert dense_mod.grad_sumsq.launches - before == n
+    pb = torch.zeros(3)
+    pb[2] = 0.5
+    dense_mod.grad_sumsq_reference([g.cpu() for g in a], pb[2], out=pb[1:2])
+    pgsq, pnorm, pok = dense_mod.grad_sumsq_reference(
+        [g.cpu() for g in b], pb[2], addend=pb[1:2])
+    np.testing.assert_allclose(float(gsq), float(pgsq), rtol=1e-5)
+    np.testing.assert_allclose(float(norm), float(pnorm), rtol=1e-5)
+    exact = sum(float((g.double() ** 2).sum()) for g in a + b)
+    np.testing.assert_allclose(float(gsq), exact, rtol=1e-5)
+    assert int(pok) == 1
+    if a:
+        a[0][0] = float("nan")
+        dense_mod.grad_sumsq(a, loss, out=buf[1:2])
+        assert int(dense_mod.grad_sumsq(b, loss, addend=buf[1:2])[2]) == 0
+    buf[1] = 0.0
+    buf[2] = float("inf")
+    assert int(dense_mod.grad_sumsq(b, buf[2], addend=buf[1:2])[2]) == 0
+
+
+def test_grad_sumsq_one_launch_is_unchanged(cuda):
+    """World 1: one launch, no addend, bitwise a rerun and the slot form's
+    first launch (the same sum whether it lands in its own buffer or in
+    a slot)."""
+    gs = _sumsq_case(cuda, [5000, 17, 64 * 1024], [0, 1, 2], seed=9)
+    loss = torch.tensor(0.25, device=cuda)
+    before = dense_mod.grad_sumsq.launches
+    one = dense_mod.grad_sumsq(gs, loss)
+    assert dense_mod.grad_sumsq.launches - before == 1
+    slot = torch.zeros(1, device=cuda)
+    dense_mod.grad_sumsq(gs, loss, out=slot)
+    assert torch.equal(one[0], slot.view(()))
+    assert all(torch.equal(x, y)
+               for x, y in zip(one, dense_mod.grad_sumsq(gs, loss)))
+
+
 def _guarded_calls(cuda):
     """Each guarded entry as a call (table, slabs, ok): the dense update
     under Adam and SGD, the add and write scatters, the stateful update
